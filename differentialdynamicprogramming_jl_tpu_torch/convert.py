@@ -1,0 +1,74 @@
+"""Carry parameters and state between the JAX package and this port, as numpy.
+
+Nothing here imports ``jax``: fields are read with ``dataclasses.fields``
+and ``getattr``, and arrays through ``numpy.asarray``, so any object with
+the right fields converts. The parity tests feed both packages through
+these functions.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .models.pendcart import PendCartSpec
+from .solvers.ilqg import ILQGConfig
+
+B_TILE = 1024   # scenarios per (8, 128) lane tile of the TPU layout
+
+
+def _fields(cls, obj) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+
+
+def spec_from_jax(spec) -> PendCartSpec:
+    """Any object with PendCartSpec's fields → the port's PendCartSpec."""
+    kw = _fields(PendCartSpec, spec)
+    kw["Q"] = tuple(float(q) for q in kw["Q"])
+    kw["goal"] = tuple(float(v) for v in kw["goal"])
+    for name in ("R", "g", "l", "h", "d"):
+        kw[name] = float(kw[name])
+    return PendCartSpec(**kw)
+
+
+def config_from_jax(cfg) -> ILQGConfig:
+    """The JAX package's ILQGConfig (or any object with its fields) → the
+    port's ILQGConfig."""
+    kw = _fields(ILQGConfig, cfg)
+    kw["alphas"] = tuple(float(a) for a in kw["alphas"])
+    return ILQGConfig(**kw)
+
+
+def stream_from_lanes(a, B: int) -> np.ndarray:
+    """TPU lane array (..., nB, 8, 128) → stream (..., B): e.g.
+    (T, S, nB, 8, 128) → (T, S, B), or stats (4, nB, 8, 128) → (4, B)."""
+    a = np.asarray(a)
+    return a.reshape(a.shape[:-3] + (-1,))[..., :B].copy()
+
+
+def stream_to_lanes(a) -> np.ndarray:
+    """Stream (..., B) → TPU lane array (..., nB, 8, 128), zero-padded to a
+    multiple of 1024 scenarios."""
+    a = np.asarray(a)
+    B = a.shape[-1]
+    Bp = -(-B // B_TILE) * B_TILE
+    pad = np.zeros(a.shape[:-1] + (Bp - B,), a.dtype)
+    return np.concatenate([a, pad], axis=-1).reshape(
+        a.shape[:-1] + (Bp // B_TILE, 8, 128))
+
+
+def _to_numpy(v):
+    if v is None:
+        return None
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return result_to_numpy(v)
+    return np.asarray(v)
+
+
+def result_to_numpy(res) -> dict:
+    """A result NamedTuple of either package (BatchILQGResult, the kernels'
+    outputs, ...) → dict of numpy arrays, nested NamedTuples as dicts."""
+    return {name: _to_numpy(getattr(res, name)) for name in res._fields}

@@ -1,0 +1,117 @@
+"""Build and load the hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface. They are compiled with
+``nvcc`` into one shared library at first use and loaded with ``ctypes``:
+seconds to build, where an extension that includes PyTorch's headers takes
+minutes. The library lands in ``build/torch_kernels/`` at the root of the
+checkout; its name carries a hash of the sources and flags, so a stale
+library is never loaded.
+
+No ``--use_fast_math``: the pendcart swing-up lives near θ≈π, where the
+accurate ``sinf``/``cosf`` matter. ``--fmad=false`` keeps every multiply and
+add separately rounded, in the operation order of the plain PyTorch
+versions, so a kernel and its plain version differ only where the card's
+``sinf``/``cosf`` and the host's differ. It also makes the α=0 retrace of
+the line search reproduce a trajectory bit for bit, whichever kernel rolled
+it out first.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("pendcart.cuh", "backward.cu", "forward.cu")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+         "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argument types of the C entry points (csrc/*.cu): every pointer, the stream
+# included, is c_void_p so that none is cut to 32 bits
+SIGNATURES = {
+    "ddp_backward_lanes": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F,
+                           _I, _P, _I, _P),
+    "ddp_forward_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
+                          _I, _I, _F, _F, _I, _P, _I, _P),
+    "ddp_linesearch_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _F, _P,
+                             _P, _I, _I, _F, _F, _I, _P, _I, _P),
+}
+
+
+class Build(NamedTuple):
+    path: Path
+    seconds: float      # 0.0 when an up-to-date library was found
+    log: str            # nvcc's output (ptxas register and spill report)
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``; raises RuntimeError when the CUDA toolkit is absent."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_NVCC.is_file():
+        return str(CUDA_NVCC)
+    raise RuntimeError(
+        "nvcc not found on PATH or at /usr/local/cuda/bin/nvcc: the CUDA "
+        "kernels of differentialdynamicprogramming_jl_tpu_torch are built "
+        "from source at first use and need the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Build:
+    """Compile the kernels unless an up-to-date library exists."""
+    nvcc = find_nvcc()
+    path = BUILD_DIR / f"libddp_kernels_{_digest()}.so"
+    if path.is_file():
+        return Build(path, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *FLAGS, "-o", str(tmp)] + [
+        str(CSRC / s) for s in SOURCES if s.endswith(".cu")]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    os.replace(tmp, path)          # atomic: concurrent builds never race
+    return Build(path, seconds, r.stdout + r.stderr)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed (once per process)."""
+    lib = ctypes.CDLL(str(build().path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ddp_error_string.argtypes = (ctypes.c_int,)
+    lib.ddp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point reported an error (its cudaGetLastError,
+    or a negative code for arguments the launcher refused)."""
+    if rc != 0:
+        raise RuntimeError(
+            f"{what}: kernel launch failed ({rc}): "
+            f"{lib.ddp_error_string(rc).decode()}")

@@ -1,0 +1,142 @@
+// Pendulum-on-a-cart model functions shared by the backward, forward and
+// line-search kernels (backward.cu, forward.cu).
+//
+// Device counterpart of models/pendcart.py::pendcart_lanes and
+// ::pendcart_derivs_tiles (JAX: models/pendcart.py:161-195, :233-263): the
+// Euler step of the reference dynamics (src/system_pendcart.jl:75-89), the
+// diagonal quadratic cost with its terminal term (:92-106) and the analytic
+// Jacobians of the Euler step. One thread evaluates one scenario.
+//
+// The model is read from a device-model descriptor, a flat f32 array
+//   [g, l, h, d, Q0, Q1, Q2, Q3, R, goal0, goal1, goal2, goal3]
+// passed by value as a kernel argument. Derived constants (-g/l, 1-h·d,
+// Q/2, R/2) are formed here in f32, exactly as the plain PyTorch version
+// forms them from the same descriptor. Every expression below keeps the
+// operation order of that version; the library is built with --fmad=false,
+// so no multiply-add is contracted.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace ddp {
+
+constexpr int MODEL_PENDCART = 1;
+constexpr int N_CONSTS = 13;
+
+// error codes the launchers return for arguments they refuse (cudaError_t
+// values are >= 0)
+constexpr int ERR_MODEL = -1;   // unknown model id
+constexpr int ERR_ARGS = -2;    // shape or count outside what a kernel takes
+
+struct ModelConsts {
+  float c[N_CONSTS];
+};
+
+// NaN-propagating min/max/clip/sign, as jnp.minimum/maximum/clip/sign and
+// torch.minimum/maximum behave (fminf/fmaxf would drop a NaN operand)
+__device__ __forceinline__ float maxp(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+}
+__device__ __forceinline__ float minp(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
+}
+__device__ __forceinline__ float clipp(float x, float lo, float hi) {
+  return minp(maxp(x, lo), hi);
+}
+__device__ __forceinline__ float signp(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}
+
+struct PendCart {
+  static constexpr int N = 4;
+  static constexpr int M = 1;
+
+  float l, h, d, ngl, hd1, R, halfR;
+  float Q[4], halfQ[4], goal[4];
+
+  __device__ __forceinline__ explicit PendCart(const ModelConsts& mc) {
+    const float g = mc.c[0];
+    l = mc.c[1];
+    h = mc.c[2];
+    d = mc.c[3];
+    ngl = -g / l;
+    hd1 = 1.0f - h * d;
+    R = mc.c[8];
+    halfR = 0.5f * R;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      Q[i] = mc.c[4 + i];
+      halfQ[i] = 0.5f * Q[i];
+      goal[i] = mc.c[9 + i];
+    }
+  }
+
+  // Euler step: θ̈ = -g/l·sinθ + f/l·cosθ - d·θ̇
+  __device__ __forceinline__ void dynamics(const float (&x)[4], float f,
+                                           float (&xn)[4]) const {
+    const float thdd = ngl * sinf(x[0]) + (f / l) * cosf(x[0]) - d * x[1];
+    xn[0] = x[0] + h * x[1];
+    xn[1] = x[1] + h * thdd;
+    xn[2] = x[2] + h * x[3];
+    xn[3] = x[3] + h * f;
+  }
+
+  __device__ __forceinline__ float cost(const float (&x)[4], float u) const {
+    float c = halfR * u * u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float dx = x[i] - goal[i];
+      c = c + halfQ[i] * dx * dx;
+    }
+    return c;
+  }
+
+  __device__ __forceinline__ float terminal(const float (&x)[4]) const {
+    float dx = x[0] - goal[0];
+    float c = halfQ[0] * dx * dx;
+#pragma unroll
+    for (int i = 1; i < 4; ++i) {
+      dx = x[i] - goal[i];
+      c = c + halfQ[i] * dx * dx;
+    }
+    return c;
+  }
+
+  // first-order expansion at (x, u): the Jacobians of the Euler step and
+  // the cost derivatives; fu, cxu are the m=1 columns
+  struct Derivs {
+    float fx[4][4], fu[4], cx[4], cu, cxx[4][4], cxu[4], cuu;
+  };
+
+  __device__ __forceinline__ void derivs(const float (&x)[4], float u,
+                                         Derivs& dv) const {
+    const float th = x[0];
+    const float a21 = h * (ngl * cosf(th) - (u / l) * sinf(th));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dv.fx[i][j] = 0.0f;
+        dv.cxx[i][j] = (i == j) ? Q[i] : 0.0f;
+      }
+      dv.cx[i] = Q[i] * (x[i] - goal[i]);
+      dv.cxu[i] = 0.0f;
+    }
+    dv.fx[0][0] = 1.0f;
+    dv.fx[0][1] = h;
+    dv.fx[1][0] = a21;
+    dv.fx[1][1] = hd1;
+    dv.fx[2][2] = 1.0f;
+    dv.fx[2][3] = h;
+    dv.fx[3][3] = 1.0f;
+    dv.fu[0] = 0.0f;
+    dv.fu[1] = h * cosf(th) / l;
+    dv.fu[2] = 0.0f;
+    dv.fu[3] = h;
+    dv.cu = R * u;
+    dv.cuu = R;
+  }
+};
+
+}  // namespace ddp

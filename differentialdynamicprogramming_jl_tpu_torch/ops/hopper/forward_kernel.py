@@ -1,0 +1,323 @@
+"""Multi-α forward rollout (K3) and fused line search (K2).
+
+Counterpart of ``differentialdynamicprogramming_jl_tpu/ops/pallas/forward_kernel.py``.
+Each wrapper takes streams ``(T, S, B)`` (see :mod:`.pack`):
+
+- a CPU tensor goes to the plain PyTorch version (``*_ref``), which is
+  vectorised over B and A with a Python loop over t, in the kernel's
+  operation order;
+- a CUDA tensor goes to the hand-written kernel in ``csrc/forward.cu``, or
+  the wrapper raises. There is no fallback.
+
+The kernels read the model from its device descriptor
+(:class:`DeviceModel`); a :class:`LanesModel` without one runs only on the
+CPU. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+
+MAX_A = 8   # candidate bound of the CUDA kernels (csrc/forward.cu)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DeviceModel:
+    """What a CUDA kernel needs to evaluate a model: the id of the model's
+    device functions (``csrc/pendcart.cuh``: 1 = pendcart) and a flat f32
+    array of its constants, passed to the kernel by value."""
+
+    model_id: int
+    consts: np.ndarray
+
+
+@dataclasses.dataclass(frozen=True)
+class LanesModel:
+    """Batched problem functions on per-dimension ``(B,)`` tensors.
+
+    - ``dynamics(x, u, t) -> x_next``: x list[n], u list[m] of tensors.
+    - ``cost(x, u, t) -> tensor``: running cost.
+    - ``terminal(x) -> tensor`` or None: terminal cost, evaluated at the
+      last stored state of the trajectory.
+    - ``device``: the device-model descriptor the CUDA kernels read, or
+      None for a model that runs only through the plain versions.
+
+    The JAX class's ``n_params`` and ``diff`` options are not part of this
+    slice.
+    """
+
+    n: int
+    m: int
+    dynamics: Callable
+    cost: Callable
+    terminal: Optional[Callable] = None
+    device: Optional[DeviceModel] = None
+
+
+class ForwardLanesOut(NamedTuple):
+    totals: torch.Tensor            # (A, B) total cost per α candidate
+    traj: Optional[torch.Tensor]    # (T, n+m+1, B): x, u, c — or None
+    terminal: torch.Tensor          # (A, B) terminal-cost component
+
+
+class LineSearchLanesOut(NamedTuple):
+    traj: torch.Tensor   # (T, n+m+1, B) accepted-α rollout
+    ls: torch.Tensor     # (5, B): al_sel, any_ok, dcost_sel, ratio_sel, total_new
+
+
+def check_slice(m: int, lims, params=None, lims_lanes=None):
+    """Raise NotImplementedError for what this slice does not cover."""
+    if m != 1:
+        raise NotImplementedError(f"m={m}: only m=1 is ported")
+    if params is not None:
+        raise NotImplementedError("params (per-scenario model parameters)")
+    if lims_lanes is not None or (lims is not None and not isinstance(
+            lims, (tuple, list))):
+        raise NotImplementedError("per-scenario lims arrays")
+    if lims is None:
+        raise NotImplementedError(
+            "lims=None (unconstrained solve): pass static ((lo, hi),) limits")
+
+
+def cuda_args(model_device: Optional[DeviceModel], what: str,
+              *tensors: torch.Tensor):
+    """Validate tensors for a kernel launch; returns (lib, device index,
+    stream handle, host pointer to the model constants)."""
+    if model_device is None:
+        raise NotImplementedError(
+            f"{what}: this model has no device-model descriptor, so no CUDA "
+            "kernel can evaluate it; run it on CPU tensors")
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: no kernel for tensors on {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{what}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lib, dev.index, stream, model_device.consts.ctypes.data
+
+
+def _check_streams(what, model, traj, gains, x0, gk, gK, per_lane):
+    """Shapes the kernels index without bounds checks."""
+    T, S, B = traj.shape
+    n, m = model.n, model.m
+    ok = (S >= n + m and gains.shape[0] == T and gains.shape[2] == B
+          and 0 <= gk and gk + m <= gains.shape[1] and 0 <= gK
+          and gK + m * n <= gains.shape[1] and tuple(x0.shape) == (n, B)
+          and all(a.ndim == 2 and a.shape[1] == B for a in per_lane))
+    if not ok:
+        raise ValueError(
+            f"{what}: traj {tuple(traj.shape)}, gains {tuple(gains.shape)} "
+            f"(gk={gk}, gK={gK}), x0 {tuple(x0.shape)}, per-lane inputs "
+            f"{[tuple(a.shape) for a in per_lane]}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _rollout_step(model, x, acc, term, alpha, x_old, u_nom, k, K, lo, hi,
+                  t, last):
+    """One step of every candidate (tensors (A, B) or (B,)); the kernels'
+    rollout_step. Returns (x_next, acc, term, u, c)."""
+    n = model.n
+    v = u_nom + alpha * k
+    for j in range(n):
+        v = v + K[j] * (x[j] - x_old[j])
+    v = torch.clamp(v, lo, hi)
+    c = model.cost(x, [v], t)
+    if last and model.terminal is not None:
+        term = model.terminal(x)
+    x_next = model.dynamics(x, [v], t)
+    return x_next, acc + c, term, v, c
+
+
+def _step_inputs(traj, gains, gk, gK, n, t):
+    x_old = [traj[t, i] for i in range(n)]
+    return x_old, traj[t, n], gains[t, gk], [gains[t, gK + j] for j in range(n)]
+
+
+def forward_lanes_ref(traj, gains, x0, alphas, *, model: LanesModel,
+                      lims, gk: int = 0, gK: Optional[int] = None,
+                      emit_traj: bool = False) -> ForwardLanesOut:
+    """Plain version of :func:`forward_lanes` (same arguments)."""
+    n = model.n
+    gK = model.m if gK is None else gK
+    T, B = traj.shape[0], traj.shape[2]
+    A = alphas.shape[0]
+    lo, hi = lims[0]
+    x = [x0[i].expand(A, B) for i in range(n)]
+    acc = torch.zeros((A, B), dtype=traj.dtype, device=traj.device)
+    term = torch.zeros_like(acc)
+    out = (torch.empty((T, n + 2, B), dtype=traj.dtype, device=traj.device)
+           if emit_traj else None)
+    for t in range(T):
+        x_old, u_nom, k, K = _step_inputs(traj, gains, gk, gK, n, t)
+        x_s = x
+        x, acc, term, u, c = _rollout_step(model, x, acc, term, alphas,
+                                           x_old, u_nom, k, K, lo, hi, t,
+                                           t == T - 1)
+        if emit_traj:
+            out[t] = torch.stack([xi[0] for xi in x_s] + [u[0], c[0]])
+    return ForwardLanesOut(totals=acc + term, traj=out, terminal=term)
+
+
+def _accept(totals, sel, alphas: Sequence[float], rr_min: float):
+    """The accept rule at the pass boundary (src/iLQG.jl:269-280)."""
+    dv1, dv2, ctot, allow = sel[0], sel[1], sel[2], sel[3]
+    al_sel = dc_sel = rt_sel = found = None
+    for a_i, a in enumerate(alphas):
+        a = float(np.float32(a))
+        dcost = ctot - totals[a_i]
+        expected = (-a) * (dv1 + a * dv2)
+        # sign that keeps NaN, as jnp.sign does (torch.sign(nan) is 0)
+        sgn = torch.where(torch.isnan(dcost), dcost, torch.sign(dcost))
+        ratio = torch.where(expected > 0, dcost / expected, sgn)
+        ok = ratio > rr_min
+        if a_i == 0:
+            dc_sel, rt_sel, found = dcost, ratio, ok
+            al_sel = torch.where(ok, a, 0.0)
+        else:
+            take = ok & ~found
+            al_sel = torch.where(take, a, al_sel)
+            dc_sel = torch.where(take, dcost, dc_sel)
+            rt_sel = torch.where(take, ratio, rt_sel)
+            found = found | ok
+    al_eff = torch.where(found & (allow > 0.5), al_sel, 0.0)
+    return al_sel, found, dc_sel, rt_sel, al_eff
+
+
+def linesearch_lanes_ref(traj, gains, x0, sel, *, model: LanesModel,
+                         alphas: Tuple[float, ...], reduce_ratio_min: float,
+                         lims, gk: int = 0,
+                         gK: Optional[int] = None) -> LineSearchLanesOut:
+    """Plain version of :func:`linesearch_lanes` (same arguments)."""
+    A = len(alphas)
+    B = traj.shape[2]
+    ladder = torch.tensor([float(np.float32(a)) for a in alphas],
+                          dtype=traj.dtype, device=traj.device)
+    pass1 = forward_lanes_ref(traj, gains, x0, ladder[:, None].expand(A, B),
+                              model=model, lims=lims, gk=gk, gK=gK)
+    al_sel, found, dc_sel, rt_sel, al_eff = _accept(
+        pass1.totals, sel, alphas, reduce_ratio_min)
+    pass2 = forward_lanes_ref(traj, gains, x0, al_eff[None], model=model,
+                              lims=lims, gk=gk, gK=gK, emit_traj=True)
+    ls = torch.stack([al_sel, found.to(traj.dtype), dc_sel, rt_sel,
+                      pass2.totals[0]])
+    return LineSearchLanesOut(traj=pass2.traj, ls=ls)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: CPU → plain version, CUDA → kernel
+# ---------------------------------------------------------------------------
+
+def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
+                  alphas: torch.Tensor, params=None, lims_lanes=None, *,
+                  model: LanesModel, lims=None, gk: int = 0,
+                  gK: Optional[int] = None,
+                  emit_traj: bool = False) -> ForwardLanesOut:
+    """Roll out A candidates per scenario from ``x0``.
+
+    - ``traj``: (T, ≥n+m, B) — slots [x_old(n), u_nom(m), ...].
+    - ``gains``: (T, Sg, B) — k at slot ``gk``, K (row-major (m, n)) at
+      slot ``gK`` (pass the backward output with its OutLayout offsets).
+    - ``x0``: (n, B); ``alphas``: (A, B) per-scenario α, A ≤ 8 on the card.
+    - ``lims``: static ``((lo, hi),)``.
+    - ``emit_traj``: also return the candidate-0 stream (T, n+m+1, B).
+
+    Returns per-α totals (running + terminal) and terminal costs, (A, B).
+    """
+    check_slice(model.m, lims, params, lims_lanes)
+    gK = model.m if gK is None else gK
+    _check_streams("forward_lanes", model, traj, gains, x0, gk, gK, [alphas])
+    if traj.device.type == "cpu":
+        return forward_lanes_ref(traj, gains, x0, alphas, model=model,
+                                 lims=lims, gk=gk, gK=gK, emit_traj=emit_traj)
+    T, B = traj.shape[0], traj.shape[2]
+    A = alphas.shape[0]
+    if not 1 <= A <= MAX_A:
+        raise ValueError(f"forward_lanes: A={A} outside 1..{MAX_A}")
+    lib, dev, stream, consts = cuda_args(model.device, "forward_lanes",
+                                         traj, gains, x0, alphas)
+    totals = torch.empty((A, B), dtype=torch.float32, device=traj.device)
+    term = torch.empty_like(totals)
+    out = (torch.empty((T, model.n + model.m + 1, B), dtype=torch.float32,
+                       device=traj.device) if emit_traj else None)
+    lo, hi = lims[0]
+    rc = lib.ddp_forward_lanes(
+        traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1], gk,
+        gK, x0.data_ptr(), alphas.data_ptr(), A, totals.data_ptr(),
+        term.data_ptr(), _ptr(out), T, B, lo, hi, model.device.model_id,
+        consts, dev, stream)
+    _build.check(lib, rc, "forward_lanes")
+    forward_lanes.launches += 1
+    return ForwardLanesOut(totals=totals, traj=out, terminal=term)
+
+
+forward_lanes.launches = 0
+
+
+def linesearch_lanes(traj: torch.Tensor, gains: torch.Tensor,
+                     x0: torch.Tensor, sel: torch.Tensor, params=None,
+                     lims_lanes=None, *, model: LanesModel,
+                     alphas: Tuple[float, ...], reduce_ratio_min: float = 0.0,
+                     lims=None, gk: int = 0,
+                     gK: Optional[int] = None) -> LineSearchLanesOut:
+    """Fused line search: per-α totals over the static ladder ``alphas``,
+    the accept decision, and the accepted-α re-roll, in one launch.
+
+    ``sel``: (4, B) [dV1, dV2, cost_old_total, allow]; ``allow`` (1/0) masks
+    the lanes permitted to accept. Rejected lanes re-roll with α=0, which
+    retraces a kernel-produced trajectory bit for bit. The output is a
+    fresh stream; the input stays valid.
+
+    Returns the new stream (T, n+m+1, B) and the (5, B) record
+    [al_sel, any_ok, dcost_sel, ratio_sel, total_new].
+    """
+    check_slice(model.m, lims, params, lims_lanes)
+    gK = model.m if gK is None else gK
+    _check_streams("linesearch_lanes", model, traj, gains, x0, gk, gK, [sel])
+    if sel.shape[0] != 4:
+        raise ValueError(f"linesearch_lanes: sel {tuple(sel.shape)}, "
+                         "expected (4, B)")
+    if traj.device.type == "cpu":
+        return linesearch_lanes_ref(traj, gains, x0, sel, model=model,
+                                    alphas=alphas,
+                                    reduce_ratio_min=reduce_ratio_min,
+                                    lims=lims, gk=gk, gK=gK)
+    T, B = traj.shape[0], traj.shape[2]
+    A = len(alphas)
+    if not 1 <= A <= MAX_A:
+        raise ValueError(f"linesearch_lanes: {A} alphas outside 1..{MAX_A}")
+    lib, dev, stream, consts = cuda_args(model.device, "linesearch_lanes",
+                                         traj, gains, x0, sel)
+    ladder = np.asarray(alphas, np.float32)
+    out = torch.empty((T, model.n + model.m + 1, B), dtype=torch.float32,
+                      device=traj.device)
+    ls = torch.empty((5, B), dtype=torch.float32, device=traj.device)
+    lo, hi = lims[0]
+    rc = lib.ddp_linesearch_lanes(
+        traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1], gk,
+        gK, x0.data_ptr(), sel.data_ptr(), ladder.ctypes.data, A,
+        float(reduce_ratio_min), out.data_ptr(), ls.data_ptr(), T, B, lo, hi,
+        model.device.model_id, consts, dev, stream)
+    _build.check(lib, rc, "linesearch_lanes")
+    linesearch_lanes.launches += 1
+    return LineSearchLanesOut(traj=out, ls=ls)
+
+
+linesearch_lanes.launches = 0

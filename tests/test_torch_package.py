@@ -1,0 +1,82 @@
+"""The port as a package: it never loads JAX, its kernel build refuses to
+run without nvcc, and its converter carries the JAX side's configs."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+import differentialdynamicprogramming_jl_tpu as J
+from differentialdynamicprogramming_jl_tpu.models import pendcart as jpc
+from differentialdynamicprogramming_jl_tpu_torch import convert
+from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import _build
+from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.backward_kernel \
+    import OutLayout
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "differentialdynamicprogramming_jl_tpu_torch"
+
+
+def test_port_does_not_load_jax():
+    code = ("import sys\n"
+            "import differentialdynamicprogramming_jl_tpu_torch as p\n"
+            "import differentialdynamicprogramming_jl_tpu_torch.convert\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.solvers.batch "
+            "import ilqg_batch_lanes\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.ops.hopper "
+            "import _build\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "print(p.__version__)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == J.__version__
+    for path in PKG.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            assert not line.lstrip().startswith(("import jax", "from jax")), \
+                (path, line)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "CUDA_NVCC", tmp_path / "no-nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _build.library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.library()
+    assert not (tmp_path / "build").exists()
+
+
+def test_kernel_sources_and_signatures():
+    for name in _build.SOURCES:
+        text = (_build.CSRC / name).read_text()
+        assert "use_fast_math" not in text
+    for name in _build.SIGNATURES:
+        assert any(f'extern "C" int {name}(' in (_build.CSRC / s).read_text()
+                   for s in _build.SOURCES), name
+    assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
+    assert "--use_fast_math" not in _build.FLAGS
+    # the build directory is one .gitignore lists
+    rel = _build.BUILD_DIR.relative_to(ROOT)
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert rel.parts[0] + "/" in ignored or f"{rel}/" in ignored
+
+
+def test_out_layout_matches_jax():
+    from differentialdynamicprogramming_jl_tpu.ops.pallas.backward_kernel \
+        import OutLayout as JOut
+    for emit in ("full", "gains", "policy"):
+        a, b = OutLayout(4, 1, emit), JOut(4, 1, emit)
+        for name in ("k", "K", "Vx", "Vxx", "quu", "quui", "S"):
+            assert getattr(a, name) == getattr(b, name), (emit, name)
+
+
+def test_convert_configs_from_jax():
+    jcfg = J.ILQGConfig(alphas=J.default_alphas(0.2, -3.0, 6), reg_type=2,
+                        lam_max=1e15, iter_cap=40)
+    cfg = convert.config_from_jax(jcfg)
+    assert cfg.alphas == jcfg.alphas and cfg.cap() == jcfg.cap() == 40
+    assert (cfg.reg_type, cfg.lam_max) == (2, 1e15)
+    spec = convert.spec_from_jax(jpc.PendCartSpec(R=0.5))
+    assert spec.R == 0.5 and spec.Q == (10.0, 1.0, 2.0, 1.0)
