@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fleet iLQG main path once on one CUDA card.
+"""Drive the PyTorch port's fleet paths once on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 NVIDIA card with the CUDA toolkit (``nvcc``), and imports nothing of JAX.
 
-Phases, each printing its own lines; any failed check ends the run with a
-non-zero exit and no result line:
+Phases, each printing its own lines and its wall time; any failed check
+ends the run with a non-zero exit and no result line:
 
 1. device: torch/CUDA versions and the card's name and power limit;
-2. build: the three kernels from ``ops/hopper/csrc`` with nvcc;
-3. kernels against their plain PyTorch versions on the card at the main
-   path's shapes (B=4096, T=500), with errors and CUDA-event timings;
-4. the main path: ``ilqg_batch_lanes`` on pendcart with the headline
+2. build: the four kernels from ``ops/hopper/csrc`` with nvcc, one process
+   per source;
+3. iLQG kernels (K3, K1, K2) against their plain PyTorch versions on the
+   card at the main path's shapes (B=4096, T=500), with errors and
+   CUDA-event timings;
+4. the iLQG main path: ``ilqg_batch_lanes`` on pendcart with the headline
    settings, with launch counts, cost statistics and ms per iteration, and
    the bit-exact α=0 retrace of rejected lanes;
 5. the same solve on 64 scenarios with CUDA tensors and with CPU tensors;
-6. the kernel record and the result line.
+6. KL kernels against their plain versions at B=4096, T=500 on a real
+   pre-roll: K3 without limits, K4, K1 in GPS mode with policy emission;
+7. the KL path: ``ilqgkl_batch_lanes`` at the JAX KL tier's settings
+   (``bench.py:114-132``), with launch counts, ms per solve and quality;
+8. ``gps_rollout_lanes``, 5 outer KL solves at the same size;
+9. the KL solve on 64 scenarios with CUDA tensors and with CPU tensors;
+10. the kernel record and the result line.
 """
 from __future__ import annotations
 
@@ -57,6 +65,26 @@ LATCH_TOL = 1e-2
 # compared by outcome, not bit for bit.
 COST_RTOL = 1e-3
 AGREE_SHARE = 0.9
+# the KL path (JAX KL tier, bench.py:114-132): scalar η, no limits
+KL_STEP, KL_ITERS, GPS_OUTER = 2.0, 10, 5
+# K4 against its plain version: the same f32 products and sums in the same
+# order and no transcendentals, so the two should agree bit for bit; Σ grows
+# ~1e10-fold along the unstable pendcart linearisation, so each slot is held
+# by its error relative to that slot's largest magnitude
+COV_TOL = 1e-6
+# K1 in GPS mode against its plain version, each of the k, K and Quu slots
+# by its error over that slot's own largest magnitude, so that a small slot
+# (k) is not judged on the scale of a large one (Quu). Same operations in
+# the same order on both sides; the card's sinf/cosf against PyTorch's is
+# what is left, measured ≤6e-7 over the whole output's scale on an H100
+GPS_SLOT_TOL = 1e-5
+# GPU KL solve against CPU KL solve (section 9), by outcome as in section 5:
+# the share of lanes with the same `satisfied`, the same n_iters, and
+# cost_total within COST_RTOL must each reach AGREE_SHARE. The η bracket
+# moves by factors of 10 on decisions taken on an f32 mean KL; an iterate
+# that leaves the swing-up amplifies the card's sinf/cosf ulps against the
+# host's, which can flip one such decision on a lane and send it on
+# another path.
 
 
 class CheckFailed(RuntimeError):
@@ -114,8 +142,297 @@ def compare(name: str, pairs, tol=KERNEL_TOL) -> float:
     return worst
 
 
+def compare_slots(name: str, a: torch.Tensor, b: torch.Tensor,
+                  tol: float) -> float:
+    """Stream (T, S, B) against stream: max |a-b| over each slot's largest
+    |b|, the worst slot checked against tol; returns the max abs error."""
+    a, b = a.double(), b.double()
+    d = (a - b).abs()
+    scale = b.abs().amax(dim=(0, 2), keepdim=True).clamp_min(1e-30)
+    rel = (d / scale).max().item()
+    mx = d.max().item()
+    exact = bool(torch.equal(a, b))
+    print(f"  {name}: max_abs_err={mx:.3e}, max over slots of err/slot "
+          f"scale={rel:.3e} (tol {tol:.0e}); bit-identical: {exact}")
+    check(torch.isfinite(a).all().item(), f"{name}: non-finite values")
+    check(rel <= tol, f"{name}: slot-relative error {rel:.3e} > {tol:.0e}")
+    return mx
+
+
+class Phases:
+    """Wall time per phase, printed when the next phase starts."""
+
+    def __init__(self):
+        self.t0 = self.mark = time.perf_counter()
+        self.name = None
+        self.walls = {}
+
+    def start(self, name: str, title: str = "") -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            self.walls[self.name] = now - self.mark
+            print(f"  [{self.name}: {now - self.mark:.1f} s wall]")
+        self.name, self.mark = name, now
+        print(f"== {name}{': ' + title if title else ''}")
+
+    def summary(self) -> str:
+        self.start("record")
+        return ", ".join(f"{k} {v:.1f} s" for k, v in self.walls.items()) + (
+            f"; total {time.perf_counter() - self.t0:.1f} s")
+
+
+def counted(counters, fn):
+    """Run fn with every launch counter set to 0 just before; returns
+    (result, {name: launches in that run})."""
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {c.__name__: c.launches for c in counters}
+
+
+def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> None:
+    """Phases 6-9: the KL/GPS path's kernels against their plain versions,
+    the KL solve, the GPS rollout, and the KL solve against the CPU. Adds
+    the KL measurements to ``rec``."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        default_x0, make_pendcart_problem)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, covariance_kernel as ck, forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        from_streams, to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.policy import (
+        GaussianPolicy)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        gps_rollout_lanes, ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+
+    ph.start("kl-kernels", f"vs plain versions, B={B}, T={T}, no limits")
+    # the KL tier's inputs (bench.py:121-131): x0 = default_x0 +
+    # 0.2·N(0,1)·[1,1,0,0], u0 = 0.2·N(0,1), from numpy seeds
+    rng = np.random.default_rng(1)
+    x0_np = np.asarray(default_x0().numpy(), np.float64)[None, :] + (
+        0.2 * rng.standard_normal((B, 4)) * np.array([1.0, 1.0, 0, 0]))
+    u0_np = 0.2 * rng.standard_normal((B, T, 1))
+    x0_l = torch.tensor(x0_np.T.copy(), dtype=torch.float32, device=dev)
+    u0 = torch.tensor(u0_np, dtype=torch.float32, device=dev)
+    # pre-roll by K3 at α=1 with k := u0, u_nom := 0; its totals are cost0
+    zeros_traj = torch.zeros((T, 5, B), device=dev)
+    gains_u0 = torch.cat([to_streams(u0), torch.zeros((T, 4, B),
+                                                      device=dev)], dim=1)
+    ones = torch.ones((1, B), device=dev)
+
+    def pre_roll(plain):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(zeros_traj, gains_u0, x0_l, ones, model=model, lims=None,
+                 emit_traj=True)
+
+    k, p = pre_roll(False), pre_roll(True)
+    e_k3 = compare("K3 pre-roll, no limits", {
+        "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)})
+    traj_pre, cost0 = k.traj, k.totals[0]
+    ms3 = cuda_ms(lambda: pre_roll(False), 20)
+    plain_ms3 = cuda_ms(lambda: pre_roll(True), 3)
+    print(f"  K3 pre-roll A=1, no limits: kernel {ms3:.3f} ms, plain "
+          f"{plain_ms3:.1f} ms")
+    x_pre = from_streams(traj_pre[:, :4], (4,))
+    u_pre = from_streams(traj_pre[:, 4:5], (1,))
+    problem = make_pendcart_problem(spec, derivs="euler", device=dev)
+    fx = problem.derivs(x_pre, u_pre).fx                    # (B, T, 4, 4)
+    fx_s = to_streams(fx)
+
+    kc = ck.covariance_lanes(fx_s, n=4)
+    pc = ck.covariance_lanes_ref(fx_s, n=4, r1=ck.identity_r1(4))
+    e_k4 = compare_slots("K4 Σxx on the pre-roll's fx", kc, pc, COV_TOL)
+    growth = (kc[-1].abs().amax(dim=0) / kc[0].abs().amax(dim=0))
+    print(f"  K4 Σ growth over the horizon: median "
+          f"{growth.median().item():.3e}, max {growth.max().item():.3e}")
+    ms4 = cuda_ms(lambda: ck.covariance_lanes(fx_s, n=4), 20)
+    plain_ms4 = cuda_ms(
+        lambda: ck.covariance_lanes_ref(fx_s, n=4, r1=ck.identity_r1(4)), 3)
+    print(f"  K4: kernel {ms4:.3f} ms, plain {plain_ms4:.1f} ms")
+    rec["covariance_lanes"] = dict(max_abs_err=e_k4, ms=ms4,
+                                   plain_ms=plain_ms4)
+
+    # K1 in GPS mode, policy emission, no limits, on the pre-roll: a
+    # previous policy with every KL term non-zero, and η scalar (1, where
+    # the solve starts) or per step (1..10)
+    prev = torch.tensor(np.concatenate([
+        rng.standard_normal((T, 1, B)), 0.5 * rng.standard_normal((T, 4, B)),
+        rng.uniform(0.5, 2.0, (T, 1, B))], axis=1), dtype=torch.float32,
+        device=dev)
+    etas = {"scalar η=1": torch.ones((T, B), device=dev),
+            "per-step η": torch.tensor(10.0 ** rng.uniform(0, 1, (T, B)),
+                                       dtype=torch.float32, device=dev)}
+    lam0 = torch.zeros(B, device=dev)
+
+    def gps_bwd(eta, plain):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(traj_pre, lam0, n=4, m=1, reg_type=1, lims=None,
+                 derivs_tiles=tiles, prev=prev, eta=eta, emit="policy")
+
+    lay = bk.OutLayout(4, 1, "policy")
+    errs = []
+    for what, eta in etas.items():
+        k, p = gps_bwd(eta, False), gps_bwd(eta, True)
+        errs.append(compare_slots(f"K1 GPS policy {what}: k, K, Quu",
+                                  k.out[:, :lay.quui], p.out[:, :lay.quui],
+                                  GPS_SLOT_TOL))
+        errs.append(compare(f"K1 GPS policy {what}", {
+            "dV": (k.stats[:2], p.stats[:2])}))
+        errs.append(compare(f"K1 GPS policy {what}", {
+            "Quu_inv": (k.out[:, lay.quui], p.out[:, lay.quui])},
+            QUU_INV_TOL))
+        check(torch.equal(k.stats[2:], p.stats[2:]),
+              f"K1 GPS {what}: diverged/diverge_idx differ")
+        print(f"  K1 GPS policy {what}: {int((k.stats[2] > 0.5).sum())} "
+              f"latched lanes in both")
+    gains = k.out
+    # the KL loop's α=1 re-roll from the pre-rolled centre with GPS gains
+    k3 = fk.forward_lanes(traj_pre, gains, x0_l, ones, model=model,
+                          lims=None, emit_traj=True)
+    p3 = fk.forward_lanes_ref(traj_pre, gains, x0_l, ones, model=model,
+                              lims=None, emit_traj=True)
+    e_k3 = max(e_k3, compare("K3 α=1 re-roll with GPS gains", {
+        "totals": (k3.totals, p3.totals), "traj": (k3.traj, p3.traj)}))
+    eta1 = etas["scalar η=1"]
+    ms1 = cuda_ms(lambda: gps_bwd(eta1, False), 20)
+    plain_ms1 = cuda_ms(lambda: gps_bwd(eta1, True), 3)
+    print(f"  K1 GPS policy: kernel {ms1:.3f} ms, plain {plain_ms1:.1f} ms")
+    rec["backward_lanes"].update(
+        max_abs_err=max([rec["backward_lanes"]["max_abs_err"]] + errs),
+        ms_gps_policy=ms1, plain_ms_gps_policy=plain_ms1)
+    rec["forward_lanes"].update(
+        max_abs_err=max(rec["forward_lanes"]["max_abs_err"], e_k3),
+        ms_unclamped_rollout=ms3, plain_ms_unclamped_rollout=plain_ms3)
+    del prev, etas, gains, k, p, k3, p3, kc, pc
+
+    ph.start("kl-path", f"ilqgkl_batch_lanes, pendcart B={B} T={T}, "
+             f"kl_step={KL_STEP}, max_iter={KL_ITERS}, scalar η, no limits")
+    cfg = ILQGKLConfig(kl_step=KL_STEP, max_iter=KL_ITERS)
+    # the zero policy with k = u0 (bench.py:126-129)
+    policy0 = GaussianPolicy(
+        K=torch.zeros((B, T, 1, 4), device=dev), k=u_pre.contiguous(),
+        sigma=torch.ones((B, T, 1, 1), device=dev),
+        sigma_inv=torch.ones((B, T, 1, 1), device=dev))
+    x_pre = x_pre.contiguous()
+    fx = fx.contiguous()
+
+    def kl_solve(sl=slice(None), to=dev):
+        pol = GaussianPolicy(*(a[sl].to(to) for a in policy0))
+        return ilqgkl_batch_lanes(model, tiles, x_pre[sl].to(to), pol,
+                                  fx[sl].to(to), cost0[sl].to(to), cfg=cfg)
+
+    kl_solve()                                   # warm-up
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    t0 = time.perf_counter()
+
+    def timed():
+        s.record()
+        out = kl_solve()
+        e.record()
+        return out
+
+    r, launches = counted(counters, timed)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kl_ms = s.elapsed_time(e)
+    iters = int(r.n_iters.max())
+    eta_maxed = r.bracket[:, 1] > 0.999 * r.bracket[:, 2]
+    ok = ~r.pd_failed
+    print(f"  launches: {launches}")
+    print(f"  solve: {kl_ms:.3f} ms (CUDA events), {wall_ms:.3f} ms host "
+          f"clock; max n_iters {iters}, {kl_ms / max(iters, 1):.4f} ms/iter")
+    print(f"  cost_total median {r.cost_total.median().item():.6g} against "
+          f"cost0 median {cost0.median().item():.6g}")
+    print(f"  shares: satisfied {r.satisfied.float().mean().item():.4f}, "
+          f"η maxed {eta_maxed.float().mean().item():.4f}, pd_failed "
+          f"{r.pd_failed.float().mean().item():.4f}, kl_violated "
+          f"{r.kl_violated.float().mean().item():.4f}")
+    print(f"  median η {r.eta.median().item():.6g}, median divergence "
+          f"{r.divergence.median().item():.6g}, n_iters histogram "
+          f"{dict(zip(*(v.tolist() for v in torch.unique(r.n_iters, return_counts=True))))}")
+    check(all(launches[c.__name__] > 0 for c in
+              (bk.backward_lanes, fk.forward_lanes, ck.covariance_lanes)),
+          f"a kernel of the KL path never ran: {launches}")
+    check(launches["covariance_lanes"] == 1,
+          f"K4 ran {launches['covariance_lanes']} times in one KL solve, "
+          "expected once")
+    check(r.x.shape == (B, T, 4) and r.u.shape == (B, T, 1)
+          and r.policy.K.shape == (B, T, 1, 4) and r.cost_total.shape == (B,),
+          "KL result shapes")
+    check(1 <= iters <= KL_ITERS, f"KL n_iters {iters}")
+    fin = (torch.isfinite(r.cost_total) & torch.isfinite(r.eta)
+           & torch.isfinite(r.divergence)
+           & torch.isfinite(r.x).flatten(1).all(dim=1)
+           & torch.isfinite(r.policy.K).flatten(1).all(dim=1)
+           & torch.isfinite(r.policy.sigma).flatten(1).all(dim=1))
+    check(bool(fin[ok].all()), f"non-finite KL results on "
+          f"{int((~fin & ok).sum())} lanes without pd_failed")
+    by_path = {c.__name__: {"kl": launches[c.__name__]} for c in counters}
+    del r
+
+    ph.start("gps-rollout", f"gps_rollout_lanes, {GPS_OUTER} outer KL "
+             f"solves, B={B} T={T}")
+    fx_fn = lambda x, u: problem.derivs(x, u).fx       # noqa: E731
+
+    def timed_gps():
+        s.record()
+        out = gps_rollout_lanes(model, tiles, x_pre, policy0, cost0, fx_fn,
+                                GPS_OUTER, cfg=cfg)
+        e.record()
+        return out
+
+    (xg, polg, per), launches = counted(counters, timed_gps)
+    gps_ms = s.elapsed_time(e)
+    print(f"  launches: {launches}")
+    print(f"  rollout: {gps_ms:.3f} ms (CUDA events), "
+          f"{gps_ms / GPS_OUTER:.3f} ms per outer iteration")
+    costs, etas_o, divs, sat, viol = per
+    for i in range(GPS_OUTER):
+        print(f"  outer {i + 1}: median cost_total "
+              f"{costs[i].median().item():.6g}, median η "
+              f"{etas_o[i].median().item():.6g}, median divergence "
+              f"{divs[i].median().item():.6g}, satisfied "
+              f"{sat[i].float().mean().item():.4f}")
+    check(costs.shape == (GPS_OUTER, B) and xg.shape == (B, T, 4),
+          "GPS rollout shapes")
+    check(all(launches[c.__name__] >= GPS_OUTER for c in
+              (bk.backward_lanes, fk.forward_lanes, ck.covariance_lanes)),
+          f"a kernel of the GPS rollout ran too rarely: {launches}")
+    check(bool(torch.isfinite(costs[-1]).float().mean() >= AGREE_SHARE),
+          "GPS rollout: non-finite final costs")
+    for c in counters:
+        by_path[c.__name__]["gps"] = launches[c.__name__]
+        rec[c.__name__]["by_path"] = by_path[c.__name__]
+    del xg, polg, per
+
+    ph.start("kl-gpu-vs-cpu", f"first {B_CPU} scenarios, T={T}, "
+             f"max_iter={KL_ITERS}")
+    sl = slice(0, B_CPU)
+    g = kl_solve(sl)
+    t0 = time.perf_counter()
+    c = kl_solve(sl, "cpu")
+    print(f"  CPU KL solve (plain versions): {time.perf_counter() - t0:.1f} s")
+    gc, cc = g.cost_total.cpu(), c.cost_total
+    rel = (gc - cc).abs() / cc.abs()
+    close = (rel <= COST_RTOL).float().mean().item()
+    same_sat = (g.satisfied.cpu() == c.satisfied).float().mean().item()
+    same_it = (g.n_iters.cpu() == c.n_iters).float().mean().item()
+    print(f"  cost_total rel diff: max {rel.max().item():.3e}, median "
+          f"{rel.median().item():.3e}")
+    print(f"  share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
+          f"satisfied {same_sat:.3f}, same n_iters {same_it:.3f} (need "
+          f"{AGREE_SHARE} each)")
+    check(min(close, same_sat, same_it) >= AGREE_SHARE,
+          "KL: GPU and CPU outcomes differ")
+
+
 def main() -> int:
-    # ---- 1. device
+    ph = Phases()
+    ph.start("device")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -130,7 +447,7 @@ def main() -> int:
         PendCartSpec, default_x0, pendcart_derivs_tiles, pendcart_lanes)
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import _build
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
-        backward_kernel as bk, forward_kernel as fk)
+        backward_kernel as bk, covariance_kernel as ck, forward_kernel as fk)
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
         to_streams)
     from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
@@ -138,8 +455,7 @@ def main() -> int:
     from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
         ILQGConfig, default_alphas)
 
-    # ---- 2. build
-    print("== build")
+    ph.start("build")
     built = _build.build()
     print(f"  nvcc build: {built.seconds:.1f} s -> {built.path.name}")
     for line in built.log.splitlines():
@@ -147,8 +463,7 @@ def main() -> int:
             print("  " + line.strip())
     _build.library()
 
-    # ---- 3. kernels against their plain versions at main-path shapes
-    print(f"== kernels vs plain versions, B={B}, T={T}")
+    ph.start("ilqg-kernels", f"vs plain versions, B={B}, T={T}")
     spec = PendCartSpec()
     model = pendcart_lanes(spec)
     tiles = pendcart_derivs_tiles(spec)
@@ -268,9 +583,8 @@ def main() -> int:
     print("  K2 α=0 retrace of the K3 stream: bit-exact")
     torch.cuda.synchronize()
 
-    # ---- 4. the main path
-    print(f"== main path: ilqg_batch_lanes, pendcart B={B} T={T}, "
-          f"{A}-α ladder, reg_type 2, ±5, max_steps={ITERS}")
+    ph.start("ilqg-path", f"ilqg_batch_lanes, pendcart B={B} T={T}, "
+             f"{A}-α ladder, reg_type 2, ±5, max_steps={ITERS}")
     u0s = torch.zeros((B, T, 1), device=dev)
 
     def solve(x0, u0, trace=False):
@@ -281,19 +595,20 @@ def main() -> int:
     warm = solve(x0s, u0s, trace=True)         # warm-up, initial costs
     cost_init = warm.trace.cost[:, 0]
     del warm
-    counters = (bk.backward_lanes, fk.linesearch_lanes, fk.forward_lanes)
-    for c in counters:
-        c.launches = 0
-    torch.cuda.synchronize()
+    counters = (bk.backward_lanes, fk.linesearch_lanes, fk.forward_lanes,
+                ck.covariance_lanes)
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
     t0 = time.perf_counter()
-    s.record()
-    r = solve(x0s, u0s)
-    e.record()
-    torch.cuda.synchronize()
+
+    def timed_solve():
+        s.record()
+        out = solve(x0s, u0s)
+        e.record()
+        return out
+
+    r, launches = counted(counters, timed_solve)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = {c.__name__: c.launches for c in counters}
     solve_ms = s.elapsed_time(e)
     iters = int(r.n_iters.max())
     ct = r.cost_total
@@ -313,8 +628,8 @@ def main() -> int:
     print(f"  kernel share estimate: {kern_ms:.3f} ms of {solve_ms:.3f} ms "
           f"in K1(gains)+K2 at their phase-3 medians; the rest is K3, the "
           f"full replay, torch glue and host syncs")
-    check(all(n > 0 for n in launches.values()), f"a kernel never ran: "
-          f"{launches}")
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the main path never ran: {launches}")
     check(1 <= iters <= ITERS, f"n_iters {iters}")
     ok5 = r.reason != 5
     check(bool(torch.isfinite(ct[ok5]).all()), "non-finite cost")
@@ -336,12 +651,11 @@ def main() -> int:
           "rejected lanes of the solution do not retrace bit for bit")
     print(f"  retrace: {int(rej.sum())} rejected lanes reproduce the "
           f"solution stream bit for bit")
-    for c in counters:
-        rec[c.__name__]["launches"] = launches[c.__name__]
+    launches_ilqg = launches
     del r, bo, out, st
 
-    # ---- 5. GPU against CPU
-    print(f"== GPU vs CPU: first {B_CPU} scenarios, T={T}, max_steps={ITERS}")
+    ph.start("ilqg-gpu-vs-cpu", f"first {B_CPU} scenarios, T={T}, "
+             f"max_steps={ITERS}")
     g = solve(x0s[:B_CPU], u0s[:B_CPU])
     t0 = time.perf_counter()
     c = solve(x0s[:B_CPU].cpu(), u0s[:B_CPU].cpu())
@@ -360,17 +674,27 @@ def main() -> int:
     check(min(close, same_reason, same_acc.float().mean().item())
           >= AGREE_SHARE, "GPU and CPU outcomes differ")
 
-    # ---- 6. record and result
+    kl_phases(ph, dev, rec, counters, model, tiles, spec)
+
+    # ---- record and result
+    walls = ph.summary()
+    print(f"  phase walls: {walls}")
     src = "differentialdynamicprogramming_jl_tpu_torch/ops/hopper/csrc/"
     tpu = "differentialdynamicprogramming_jl_tpu/ops/pallas/"
     where = {"backward_lanes": ("backward.cu", "backward_kernel.py:729"),
              "linesearch_lanes": ("forward.cu", "forward_kernel.py:506"),
-             "forward_lanes": ("forward.cu", "forward_kernel.py:198")}
-    kernels = [dict(name=name, route="cuda", source=src + where[name][0],
-                    replaces=tpu + where[name][1], launches=v["launches"],
-                    max_abs_err=v["max_abs_err"], ms=v["ms"],
-                    plain_ms=v["plain_ms"])
-               for name, v in rec.items()]
+             "forward_lanes": ("forward.cu", "forward_kernel.py:198"),
+             "covariance_lanes": ("covariance.cu",
+                                  "covariance_kernel.py:28")}
+    kernels = []
+    for c in counters:
+        name = c.__name__
+        by_path = {"ilqg": launches_ilqg[name], **rec[name].pop("by_path")}
+        kernels.append(dict(name=name, route="cuda",
+                            source=src + where[name][0],
+                            replaces=tpu + where[name][1],
+                            launches=sum(by_path.values()),
+                            launches_by_path=by_path, **rec[name]))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ import numpy as np
 import torch
 
 from .models.pendcart import PendCartSpec
+from .policy import GaussianPolicy
 from .solvers.ilqg import ILQGConfig
+from .solvers.ilqgkl import ILQGKLConfig
 
 B_TILE = 1024   # scenarios per (8, 128) lane tile of the TPU layout
 
@@ -38,6 +40,25 @@ def config_from_jax(cfg) -> ILQGConfig:
     kw = _fields(ILQGConfig, cfg)
     kw["alphas"] = tuple(float(a) for a in kw["alphas"])
     return ILQGConfig(**kw)
+
+
+def kl_config_from_jax(cfg) -> ILQGKLConfig:
+    """The JAX package's ILQGKLConfig (or any object with its fields) → the
+    port's ILQGKLConfig."""
+    kw = _fields(ILQGKLConfig, cfg)
+    kw["eta_bracket"] = tuple(float(v) for v in kw["eta_bracket"])
+    return ILQGKLConfig(**kw)
+
+
+def policy_from_jax(policy, dtype=torch.float32, device=None
+                    ) -> GaussianPolicy:
+    """A (batched) JAX GaussianPolicy, or any object with fields K, k,
+    sigma, sigma_inv holding arrays, → the port's GaussianPolicy with
+    tensors of ``dtype`` on ``device``; the layout is kept ((B, T, ...))."""
+    return GaussianPolicy(**{
+        name: torch.tensor(np.asarray(getattr(policy, name)), dtype=dtype,
+                           device=device)
+        for name in GaussianPolicy._fields})
 
 
 def stream_from_lanes(a, B: int) -> np.ndarray:

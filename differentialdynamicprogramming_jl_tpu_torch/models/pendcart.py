@@ -1,7 +1,8 @@
-"""Pendulum-on-a-cart swing-up, the lane pieces.
+"""Pendulum-on-a-cart swing-up: the lane pieces and the Problem.
 
 Counterpart of ``differentialdynamicprogramming_jl_tpu/models/pendcart.py``
-(``PendCartSpec``, ``pendcart_lanes`` ``:161-195``, ``pendcart_derivs_tiles``
+(``PendCartSpec``, ``make_pendcart_problem`` ``:53-158`` for the ``"euler"``
+scheme, ``pendcart_lanes`` ``:161-195``, ``pendcart_derivs_tiles``
 ``:233-263``, ``default_lims``, ``default_x0``): the Euler step of the
 reference dynamics (``src/system_pendcart.jl:75-89``), the diagonal
 quadratic cost with its terminal term (``:92-106``) and the analytic
@@ -26,6 +27,8 @@ import torch
 
 from ..ops.hopper.backward_kernel import DerivsTiles
 from ..ops.hopper.forward_kernel import DeviceModel, LanesModel
+from ..policy import Derivs
+from ..problem import Problem
 
 # reference constants (src/system_pendcart.jl:42-60)
 GRAV = 9.82
@@ -44,6 +47,88 @@ class PendCartSpec:
     l: float = POLE_LEN
     h: float = DT
     d: float = DAMP
+
+
+def dynamics_continuous(x, u, spec: PendCartSpec):
+    """xd = [θ̇, -g/l sinθ + u/l cosθ - d θ̇, ṗ, u]
+    (src/system_pendcart.jl:75-80), on (..., 4) and (..., 1)."""
+    return torch.stack([
+        x[..., 1],
+        -spec.g / spec.l * torch.sin(x[..., 0])
+        + u[..., 0] / spec.l * torch.cos(x[..., 0]) - spec.d * x[..., 1],
+        x[..., 3],
+        u[..., 0],
+    ], dim=-1)
+
+
+def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
+                          derivs: str = "zoh", dtype=torch.float32,
+                          device=None) -> Problem:
+    """Build the pendcart :class:`~..problem.Problem`, its functions
+    broadcasting over leading batch dimensions.
+
+    ``derivs``: ``"euler"`` — hand-written exact Jacobians of the Euler step
+    (pure elementwise trig), in the JAX package's expression order. The
+    reference's ``"zoh"`` scheme and ``"autodiff"`` are not ported yet
+    (NotImplementedError).
+    """
+    if derivs not in ("zoh", "autodiff", "euler"):
+        raise ValueError(f"unknown derivs scheme {derivs!r}")
+    if derivs != "euler":
+        raise NotImplementedError(
+            f"derivs={derivs!r} is not ported yet; use 'euler'")
+    Q = torch.diag(torch.tensor(spec.Q, dtype=dtype, device=device))
+    R = torch.tensor([[spec.R]], dtype=dtype, device=device)
+    goal = torch.tensor(spec.goal, dtype=dtype, device=device)
+    h, g, l, d = spec.h, spec.g, spec.l, spec.d
+
+    def dynamics(x, u, t):
+        """Euler step (``dfsys``, src/system_pendcart.jl:83-89)."""
+        return x + h * dynamics_continuous(x, u, spec)
+
+    def quad(a, M, b):
+        return torch.einsum("...i,ij,...j->...", a, M, b)
+
+    def cost(x, u, t):
+        dx = x - goal
+        return 0.5 * (quad(dx, Q, dx) + quad(u, R, u))
+
+    def traj_cost(x_traj, u_traj):
+        """Per-step costs with the reference's appended terminal evaluation
+        at zero control (src/system_pendcart.jl:97-106): (..., T+1)."""
+        dx = x_traj - goal
+        c_run = 0.5 * (quad(dx, Q, dx) + quad(u_traj, R, u_traj))
+        dT = x_traj[..., -1, :] - goal
+        return torch.cat([c_run, (0.5 * quad(dT, Q, dT))[..., None]], dim=-1)
+
+    def deriv_fn(x_traj, u_traj):
+        """Exact Jacobians of the Euler step, elementwise along (..., T)."""
+        T = u_traj.shape[-2]
+        th = x_traj[..., :T, 0]
+        u0 = u_traj[..., 0]
+        a21 = h * (-g / l * torch.cos(th) - u0 / l * torch.sin(th))
+        z = torch.zeros_like(th)
+        o = torch.ones_like(th)
+        hh = torch.full_like(th, h)
+        dd = torch.full_like(th, 1.0 - h * d)
+        # fx = I + h*fxc (rows [1,h,0,0; a21,1-hd,0,0; 0,0,1,h; 0,0,0,1])
+        fx = torch.stack([
+            torch.stack([o, hh, z, z], -1),
+            torch.stack([a21, dd, z, z], -1),
+            torch.stack([z, z, o, hh], -1),
+            torch.stack([z, z, z, o], -1),
+        ], -2)
+        fu = torch.stack([z, h * torch.cos(th) / l, z, hh], -1)[..., None]
+        dxg = x_traj[..., :T, :] - goal
+        lead = th.shape
+        return Derivs(
+            fx=fx, fu=fu, cx=dxg @ Q.T, cu=u_traj @ R.T,
+            cxx=Q.expand(lead + (4, 4)),
+            cxu=torch.zeros(lead + (4, 1), dtype=dtype, device=th.device),
+            cuu=R.expand(lead + (1, 1)))
+
+    return Problem(dynamics=dynamics, cost=cost, derivs=deriv_fn,
+                   traj_cost=traj_cost)
 
 
 def device_model(spec: PendCartSpec) -> DeviceModel:

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface. They are compiled with
-``nvcc`` into one shared library at first use and loaded with ``ctypes``:
-seconds to build, where an extension that includes PyTorch's headers takes
-minutes. The library lands in ``build/torch_kernels/`` at the root of the
-checkout; its name carries a hash of the sources and flags, so a stale
-library is never loaded.
+The sources under ``csrc/`` have a plain C interface. At first use each
+``.cu`` file is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into one shared library, loaded with
+``ctypes``: seconds to build, where an extension that includes PyTorch's
+headers takes minutes. The library lands in ``build/torch_kernels/`` at the
+root of the checkout; its name carries a hash of the sources and flags, so
+a stale library is never loaded.
 
 No ``--use_fast_math``: the pendcart swing-up lives near θ≈π, where the
 accurate ``sinf``/``cosf`` matter. ``--fmad=false`` keeps every multiply and
@@ -28,9 +29,10 @@ from pathlib import Path
 from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pendcart.cuh", "backward.cu", "forward.cu")
+SOURCES = ("pendcart.cuh", "backward.cu", "forward.cu", "covariance.cu")
+# compile flags of every source; the objects are then linked with -shared
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-         "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+         "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
@@ -40,12 +42,13 @@ _F = ctypes.c_float
 # argument types of the C entry points (csrc/*.cu): every pointer, the stream
 # included, is c_void_p so that none is cut to 32 bits
 SIGNATURES = {
-    "ddp_backward_lanes": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F,
-                           _I, _P, _I, _P),
+    "ddp_backward_lanes": (_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                           _I, _F, _F, _I, _P, _I, _P),
     "ddp_forward_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
                           _I, _I, _F, _F, _I, _P, _I, _P),
     "ddp_linesearch_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _F, _P,
                              _P, _I, _I, _F, _F, _I, _P, _I, _P),
+    "ddp_covariance_lanes": (_P, _P, _I, _I, _I, _P, _I, _P),
 }
 
 
@@ -79,20 +82,43 @@ def _digest() -> str:
 def build() -> Build:
     """Compile the kernels unless an up-to-date library exists."""
     nvcc = find_nvcc()
-    path = BUILD_DIR / f"libddp_kernels_{_digest()}.so"
+    digest = _digest()
+    path = BUILD_DIR / f"libddp_kernels_{digest}.so"
     if path.is_file():
         return Build(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *FLAGS, "-o", str(tmp)] + [
-        str(CSRC / s) for s in SOURCES if s.endswith(".cu")]
+    tag = f"{digest}.{os.getpid()}"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for name in SOURCES:
+        if name.endswith(".cu"):
+            obj = BUILD_DIR / f"{Path(name).stem}.{tag}.o"
+            proc = subprocess.Popen(
+                [nvcc, *FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, obj, proc))
+    logs, failed = [], []
+    for name, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{out[-4000:]}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        r = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-4000:]}")
     os.replace(tmp, path)          # atomic: concurrent builds never race
-    return Build(path, seconds, r.stdout + r.stderr)
+    return Build(path, seconds, "".join(logs) + r.stdout + r.stderr)
 
 
 @functools.lru_cache(maxsize=None)

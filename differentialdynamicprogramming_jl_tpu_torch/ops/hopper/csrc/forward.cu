@@ -4,7 +4,9 @@
 //   differentialdynamicprogramming_jl_tpu/ops/pallas/forward_kernel.py
 //   ::forward_lanes (built by ::_make_kernel)        -> forward_kernel
 //   ::linesearch_lanes (built by ::_make_fused_kernel) -> linesearch_kernel
-// for the pendcart model with static control limits.
+// for the pendcart model with static control limits. Without limits the
+// wrapper passes lo = -inf, hi = +inf: the NaN-keeping clipp then returns
+// its input unchanged, as the JAX rollout's missing clamp does.
 //
 // Layout: streams are (T, S, B) f32 with the scenario axis contiguous; one
 // thread owns one scenario and walks t = 0 .. T-1, holding the A candidate

@@ -79,19 +79,21 @@ def check_slice(m: int, lims, params=None, lims_lanes=None):
     if lims_lanes is not None or (lims is not None and not isinstance(
             lims, (tuple, list))):
         raise NotImplementedError("per-scenario lims arrays")
+
+
+def bounds(lims) -> Tuple[float, float]:
+    """(lo, hi) of static m=1 limits; (-inf, +inf) for ``lims=None``. The
+    JAX rollout does not clamp without limits (``forward_kernel.py:117-121``);
+    the NaN-keeping clamp to ±inf returns every value, NaN included,
+    unchanged, so one code path serves both."""
     if lims is None:
-        raise NotImplementedError(
-            "lims=None (unconstrained solve): pass static ((lo, hi),) limits")
+        return -float("inf"), float("inf")
+    return lims[0]
 
 
-def cuda_args(model_device: Optional[DeviceModel], what: str,
-              *tensors: torch.Tensor):
+def launch_args(what: str, *tensors: torch.Tensor):
     """Validate tensors for a kernel launch; returns (lib, device index,
-    stream handle, host pointer to the model constants)."""
-    if model_device is None:
-        raise NotImplementedError(
-            f"{what}: this model has no device-model descriptor, so no CUDA "
-            "kernel can evaluate it; run it on CPU tensors")
+    stream handle)."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{what}: no kernel for tensors on {dev}")
@@ -102,9 +104,19 @@ def cuda_args(model_device: Optional[DeviceModel], what: str,
             raise TypeError(f"{what}: expected float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    return lib, dev.index, stream, model_device.consts.ctypes.data
+    return _build.library(), dev.index, torch.cuda.current_stream(
+        dev).cuda_stream
+
+
+def cuda_args(model_device: Optional[DeviceModel], what: str,
+              *tensors: torch.Tensor):
+    """:func:`launch_args` plus the host pointer to the model constants."""
+    if model_device is None:
+        raise NotImplementedError(
+            f"{what}: this model has no device-model descriptor, so no CUDA "
+            "kernel can evaluate it; run it on CPU tensors")
+    lib, dev, stream = launch_args(what, *tensors)
+    return lib, dev, stream, model_device.consts.ctypes.data
 
 
 def _check_streams(what, model, traj, gains, x0, gk, gK, per_lane):
@@ -159,7 +171,7 @@ def forward_lanes_ref(traj, gains, x0, alphas, *, model: LanesModel,
     gK = model.m if gK is None else gK
     T, B = traj.shape[0], traj.shape[2]
     A = alphas.shape[0]
-    lo, hi = lims[0]
+    lo, hi = bounds(lims)
     x = [x0[i].expand(A, B) for i in range(n)]
     acc = torch.zeros((A, B), dtype=traj.dtype, device=traj.device)
     term = torch.zeros_like(acc)
@@ -236,7 +248,7 @@ def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
     - ``gains``: (T, Sg, B) — k at slot ``gk``, K (row-major (m, n)) at
       slot ``gK`` (pass the backward output with its OutLayout offsets).
     - ``x0``: (n, B); ``alphas``: (A, B) per-scenario α, A ≤ 8 on the card.
-    - ``lims``: static ``((lo, hi),)``.
+    - ``lims``: static ``((lo, hi),)``, or None for no clamp.
     - ``emit_traj``: also return the candidate-0 stream (T, n+m+1, B).
 
     Returns per-α totals (running + terminal) and terminal costs, (A, B).
@@ -257,7 +269,7 @@ def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
     term = torch.empty_like(totals)
     out = (torch.empty((T, model.n + model.m + 1, B), dtype=torch.float32,
                        device=traj.device) if emit_traj else None)
-    lo, hi = lims[0]
+    lo, hi = bounds(lims)
     rc = lib.ddp_forward_lanes(
         traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1], gk,
         gK, x0.data_ptr(), alphas.data_ptr(), A, totals.data_ptr(),
@@ -309,7 +321,7 @@ def linesearch_lanes(traj: torch.Tensor, gains: torch.Tensor,
     out = torch.empty((T, model.n + model.m + 1, B), dtype=torch.float32,
                       device=traj.device)
     ls = torch.empty((5, B), dtype=torch.float32, device=traj.device)
-    lo, hi = lims[0]
+    lo, hi = bounds(lims)
     rc = lib.ddp_linesearch_lanes(
         traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1], gk,
         gK, x0.data_ptr(), sel.data_ptr(), ladder.ctypes.data, A,

@@ -96,22 +96,20 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
                      cfg: ILQGConfig = ILQGConfig(), derivs_tiles=None,
                      params=None, cost0=None, warm_start: bool = False,
                      lam0=None, dlam0=None, accepted0=None, max_steps=None,
-                     kt_backward: int = 25, kt_forward: int = 25,
-                     record_trace: bool = False,
-                     interpret: bool = False) -> BatchILQGResult:
+                     record_trace: bool = False) -> BatchILQGResult:
     """Solve B independent iLQG problems.
 
     - ``model``: :class:`LanesModel`; ``derivs_tiles``: the in-kernel
       derivative function (e.g. ``pendcart_derivs_tiles(spec)``).
     - ``x0s``: (B, n) initial states; ``u0s``: (B, T, m) initial controls.
       The initial rollout sweeps the α ladder (``src/iLQG.jl:181-192``).
-    - ``lims``: static ``((lo, hi),)``; ``cfg``: :class:`ILQGConfig`.
+    - ``lims``: static ``((lo, hi),)``, or None for the unconstrained
+      solve; ``cfg``: :class:`ILQGConfig`.
     - ``max_steps``: bound on this call's iterations below ``cfg.cap()``.
     - ``record_trace``: also return the (B, cap) :class:`BatchTrace`.
 
-    ``kt_backward``, ``kt_forward`` and ``interpret`` are the JAX
-    signature's TPU tiling and interpreter switches; they are accepted so
-    that calls port unchanged, and have no effect here.
+    The JAX signature's TPU switches ``kt_backward``, ``kt_forward`` and
+    ``interpret`` are not taken.
 
     Not in this slice (NotImplementedError): ``packed_derivs``, ``params``,
     per-scenario ``lims`` arrays, m ≠ 1, pre-rolled ``x0s``, ``cost0``,

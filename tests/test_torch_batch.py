@@ -34,18 +34,18 @@ def _inputs(nan_lane=None):
     return x0s.astype(np.float32), u0s.astype(np.float32)
 
 
-def _solve_both(x0s, u0s):
+def _solve_both(x0s, u0s, lims=LIMS):
     jspec = jpc.PendCartSpec()
     jcfg = J.ILQGConfig(alphas=J.default_alphas(0.2, -3.0, 3), reg_type=2,
                         max_iter=2, iter_cap=3)
     ref = J.ilqg_batch_lanes(
         jpc.pendcart_lanes(jspec), None, jnp.asarray(x0s), jnp.asarray(u0s),
-        lims=LIMS, cfg=jcfg, derivs_tiles=jpc.pendcart_derivs_tiles(jspec),
+        lims=lims, cfg=jcfg, derivs_tiles=jpc.pendcart_derivs_tiles(jspec),
         kt_backward=2, kt_forward=2, record_trace=True, interpret=True)
     spec = convert.spec_from_jax(jspec)
     out = ilqg_batch_lanes(
         tpc.pendcart_lanes(spec), None, torch.from_numpy(x0s),
-        torch.from_numpy(u0s), lims=LIMS, cfg=convert.config_from_jax(jcfg),
+        torch.from_numpy(u0s), lims=lims, cfg=convert.config_from_jax(jcfg),
         derivs_tiles=tpc.pendcart_derivs_tiles(spec), record_trace=True)
     return convert.result_to_numpy(ref), convert.result_to_numpy(out)
 
@@ -100,6 +100,21 @@ def test_batch_nan_lane_is_reason5_with_unit_sigma():
     healthy = np.arange(B) != 3
     np.testing.assert_allclose(out["cost_total"][healthy],
                                ref["cost_total"][healthy], rtol=1e-4)
+
+
+def test_batch_unconstrained_matches_jax():
+    """lims=None: K1's unconstrained solve and unclamped K3/K2 rollouts
+    (JAX backward_kernel.py:514-522, forward_kernel.py:117-121)."""
+    ref, out = _solve_both(*_inputs(), lims=None)
+    np.testing.assert_allclose(out["cost_total"], ref["cost_total"],
+                               rtol=1e-4)
+    for name in ("reason", "n_accepted", "n_iters"):
+        np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
+    for name in ("K", "sigma"):
+        np.testing.assert_allclose(out["policy"][name], ref["policy"][name],
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+    np.testing.assert_allclose(out["trace"]["cost"], ref["trace"]["cost"],
+                               rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("kwargs,option", [

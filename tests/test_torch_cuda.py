@@ -17,16 +17,26 @@ import torch
 
 from differentialdynamicprogramming_jl_tpu_torch.models import pendcart as tpc
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
-    backward_kernel as bk, forward_kernel as fk)
+    backward_kernel as bk, covariance_kernel as ck, forward_kernel as fk)
+from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+    from_streams, to_streams)
+from differentialdynamicprogramming_jl_tpu_torch.policy import GaussianPolicy
 from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
     ilqg_batch_lanes)
+from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+    ilqgkl_batch_lanes)
 from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
     ILQGConfig, default_alphas)
+from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+    ILQGKLConfig)
 
 B, T = 200, 40          # B not a multiple of the block: the mask b < B
 LIMS = ((-5.0, 5.0),)
 ALPHAS = default_alphas(0.2, -3.0, 6)
 SPEC = tpc.PendCartSpec()
+
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -141,3 +151,129 @@ def test_solver_on_card_matches_cpu(dev):
                                atol=0)
     assert set(g.reason.tolist()) <= {0, 2}
     assert set(c.reason.tolist()) <= {0, 2}
+
+
+def _pre_roll(dev, lims=None):
+    """A K3 rollout of the KL path's pre-roll (k := u0, u_nom := 0, α=1)."""
+    x0, gains0, _ = _rollout(dev)
+    return fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0, x0,
+                            torch.ones((1, B), device=dev),
+                            model=tpc.pendcart_lanes(SPEC), lims=lims,
+                            emit_traj=True)
+
+
+def test_forward_kernel_unclamped_matches_plain(dev):
+    x0, gains0, al = _rollout(dev)
+    gains0 = 4.0 * gains0                  # controls far beyond ±5
+    traj0 = torch.zeros((T, 5, B), device=dev)
+    kw = dict(model=tpc.pendcart_lanes(SPEC), lims=None, emit_traj=True)
+    k = fk.forward_lanes(traj0, gains0, x0, al, **kw)
+    p = fk.forward_lanes_ref(traj0, gains0, x0, al, **kw)
+    torch.testing.assert_close(k.totals, p.totals, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+    assert k.traj[:, 4].abs().max() > 5.0
+
+
+@pytest.mark.parametrize("r1", ["identity", "spd"])
+def test_covariance_kernel_matches_plain(dev, r1):
+    """Same f32 operations in the same order, no transcendentals: the
+    kernel should give the plain version's bits; held to 1e-6 of each
+    slot's scale."""
+    traj = _pre_roll(dev).traj
+    fx = tpc.make_pendcart_problem(SPEC, derivs="euler", device=dev).derivs(
+        from_streams(traj[:, :4], (4,)), from_streams(traj[:, 4:5], (1,))).fx
+    fx_s = to_streams(fx)
+    r1v = (ck.identity_r1(4) if r1 == "identity" else
+           tuple(tuple(1.0 + (i == j) + 0.1 * (i + j) for j in range(4))
+                 for i in range(4)))
+    n0 = ck.covariance_lanes.launches
+    k = ck.covariance_lanes(fx_s, n=4, r1=r1v)
+    assert ck.covariance_lanes.launches == n0 + 1
+    p = ck.covariance_lanes_ref(fx_s, n=4, r1=r1v)
+    scale = p.abs().amax(dim=(0, 2), keepdim=True)
+    assert torch.isfinite(k).all()
+    assert ((k - p).abs() <= 1e-6 * scale).all()
+
+
+def _gps_inputs(dev, per_step):
+    rng = np.random.default_rng(3)
+    prev = np.concatenate([rng.standard_normal((T, 1, B)),
+                           0.5 * rng.standard_normal((T, 4, B)),
+                           rng.uniform(0.5, 2.0, (T, 1, B))], axis=1)
+    eta = (10.0 ** rng.uniform(0, 1, (T, B)) if per_step
+           else np.ones((T, B)))
+    eta[::7, ::5] = 0.0                    # counts as 1
+    return (torch.tensor(prev, dtype=torch.float32, device=dev),
+            torch.tensor(eta, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("per_step", [False, True])
+@pytest.mark.parametrize("lims", [None, LIMS])
+@pytest.mark.parametrize("emit", ["policy", "full"])
+def test_backward_kernel_gps_matches_plain(dev, per_step, lims, emit):
+    traj = _pre_roll(dev).traj
+    prev, eta = _gps_inputs(dev, per_step)
+    kw = dict(n=4, m=1, reg_type=1, lims=lims,
+              derivs_tiles=tpc.pendcart_derivs_tiles(SPEC), prev=prev,
+              eta=eta, emit=emit)
+    lam = torch.zeros(B, device=dev)
+    k = bk.backward_lanes(traj, lam, **kw)
+    p = bk.backward_lanes_ref(traj, lam, **kw)
+    lay = bk.OutLayout(4, 1, emit)
+    torch.testing.assert_close(k.out[:, :lay.quui], p.out[:, :lay.quui],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k.out[:, lay.quui], p.out[:, lay.quui],
+                               rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(k.stats[:2], p.stats[:2], rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(k.stats[2:], p.stats[2:])
+
+
+@pytest.mark.parametrize("reg_type", [1, 2])
+@pytest.mark.parametrize("R", [1.0, -0.05])
+def test_backward_kernel_unconstrained_matches_plain(dev, reg_type, R):
+    traj = _pre_roll(dev).traj
+    lam = torch.logspace(-3, 4, B, device=dev)
+    kw = dict(n=4, m=1, reg_type=reg_type, lims=None,
+              derivs_tiles=tpc.pendcart_derivs_tiles(tpc.PendCartSpec(R=R)),
+              emit="gains")
+    k = bk.backward_lanes(traj, lam, **kw)
+    p = bk.backward_lanes_ref(traj, lam, **kw)
+    # with the concave R, QuuF = Quu + λ·(…) crosses 0 across the λ range;
+    # near the crossing k = -Qu/QuuF amplifies an ulp of QuuF's terms
+    # (measured 2e-4 relative on an H100)
+    rtol = 1e-5 if R > 0 else 1e-3
+    torch.testing.assert_close(k.out, p.out, rtol=rtol, atol=1e-5)
+    assert torch.equal(k.stats[2:], p.stats[2:])
+    n_latch = int((k.stats[2] > 0.5).sum())
+    assert (n_latch == 0) if R > 0 else (0 < n_latch < B)
+
+
+def test_kl_solve_on_card_matches_cpu(dev):
+    """The KL solve through K1 (GPS, policy), K3 and K4 on the card against
+    the plain versions on the CPU: same outcome flags, costs to 1e-4."""
+    ro = _pre_roll(dev)
+    Bs = 16
+    x = from_streams(ro.traj[:, :4], (4,))[:Bs].contiguous()
+    u = from_streams(ro.traj[:, 4:5], (1,))[:Bs].contiguous()
+    fx = tpc.make_pendcart_problem(SPEC, derivs="euler", device=dev).derivs(
+        x, u).fx
+    prev = GaussianPolicy.zeros(T, 4, 1, device=dev)
+    prev = GaussianPolicy(*(a.expand((Bs,) + a.shape).contiguous()
+                            for a in prev))._replace(k=u)
+    cfg = ILQGKLConfig(kl_step=0.05, max_iter=4)
+    args = (tpc.pendcart_lanes(SPEC), tpc.pendcart_derivs_tiles(SPEC))
+    counts = [f.launches for f in (bk.backward_lanes, fk.forward_lanes,
+                                   ck.covariance_lanes)]
+    g = ilqgkl_batch_lanes(*args, x, prev, fx, ro.totals[0, :Bs], cfg=cfg)
+    assert all(f.launches > c for f, c in zip(
+        (bk.backward_lanes, fk.forward_lanes, ck.covariance_lanes), counts))
+    c = ilqgkl_batch_lanes(*args, x.cpu(), GaussianPolicy(
+        *(a.cpu() for a in prev)), fx.cpu(), ro.totals[0, :Bs].cpu(),
+        cfg=cfg)
+    assert g.cost_total.device.type == "cuda"
+    for name in ("satisfied", "pd_failed", "n_iters"):
+        assert torch.equal(getattr(g, name).cpu(), getattr(c, name)), name
+    torch.testing.assert_close(g.cost_total.cpu(), c.cost_total, rtol=1e-4,
+                               atol=0)
+    torch.testing.assert_close(g.eta.cpu(), c.eta, rtol=1e-4, atol=0)

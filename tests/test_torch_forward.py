@@ -86,6 +86,39 @@ def test_forward_matches_jax(data, A, emit):
         assert out.traj is None
 
 
+@pytest.mark.parametrize("A,emit", [(4, False), (1, True)])
+def test_forward_unclamped_matches_jax(A, emit):
+    """lims=None: no clamp (JAX forward_kernel.py:117-121); the port clamps
+    to ±inf, which returns every value unchanged. Controls of ±8 make the
+    ±5 limits bind, so the unclamped rollout differs from the clamped one."""
+    rng = np.random.default_rng(1)
+    x0 = (np.array([np.pi - 0.6, 0, 0, 0])[:, None]
+          + np.array([0.2, 0, 0, 0])[:, None] * rng.standard_normal((4, B))
+          ).astype(np.float32)
+    u0 = (8.0 * rng.standard_normal((T, 1, B))).astype(np.float32)
+    gains0 = np.concatenate([u0, np.zeros((T, 4, B), np.float32)], axis=1)
+    traj0 = np.zeros((T, 5, B), np.float32)
+    alphas = np.broadcast_to(np.asarray(ALPHAS[:A], np.float32)[:, None],
+                             (A, B)).copy()
+    ref = jax_forward_lanes(
+        _lanes(traj0), _lanes(gains0), _lanes(x0), _lanes(alphas),
+        model=jpc.pendcart_lanes(jpc.PendCartSpec()), lims=None,
+        emit_traj=emit, k_t=4, interpret=True)
+    args = [torch.from_numpy(a) for a in (traj0, gains0, x0, alphas)]
+    out = forward_lanes(*args, model=tpc.pendcart_lanes(SPEC), lims=None,
+                        emit_traj=emit)
+    np.testing.assert_allclose(out.totals.numpy(),
+                               convert.stream_from_lanes(ref.totals, B),
+                               rtol=1e-5)
+    if emit:
+        np.testing.assert_allclose(out.traj.numpy(),
+                                   convert.stream_from_lanes(ref.traj, B),
+                                   rtol=1e-5, atol=1e-5)
+        assert np.abs(out.traj[:, 4].numpy()).max() > 5.0
+    clamped = forward_lanes(*args, model=tpc.pendcart_lanes(SPEC), lims=LIMS)
+    assert not torch.equal(clamped.totals, out.totals)
+
+
 @pytest.mark.parametrize("rr_min", [0.0, 0.6])
 def test_linesearch_matches_jax(data, rr_min):
     x0, traj, gains, sel = data

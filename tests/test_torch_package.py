@@ -24,6 +24,12 @@ def test_port_does_not_load_jax():
             "import differentialdynamicprogramming_jl_tpu_torch.convert\n"
             "from differentialdynamicprogramming_jl_tpu_torch.solvers.batch "
             "import ilqg_batch_lanes\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.solvers"
+            ".batch_kl import ilqgkl_batch_lanes, gps_rollout_lanes\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.ops.hopper"
+            ".covariance_kernel import covariance_lanes\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.problem "
+            "import Problem\n"
             "from differentialdynamicprogramming_jl_tpu_torch.ops.hopper "
             "import _build\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
@@ -61,6 +67,19 @@ def test_kernel_sources_and_signatures():
     rel = _build.BUILD_DIR.relative_to(ROOT)
     ignored = (ROOT / ".gitignore").read_text().split()
     assert rel.parts[0] + "/" in ignored or f"{rel}/" in ignored
+
+
+def test_public_names_match_jax():
+    """The port exports the JAX package's names for what it covers."""
+    import differentialdynamicprogramming_jl_tpu_torch as P
+    for name in P.__all__:
+        assert hasattr(P, name), name
+    from differentialdynamicprogramming_jl_tpu.solvers import batch_kl
+    for name in ("ILQGKLConfig", "ilqgkl_batch_lanes", "gps_rollout_lanes",
+                 "BatchKLResult", "BatchKLTrace", "kl_div_wiki_lanes",
+                 "calc_eta_lanes", "Problem", "make_pendcart_problem"):
+        assert name in P.__all__, name
+        assert any(hasattr(mod, name) for mod in (J, batch_kl, jpc)), name
 
 
 def test_out_layout_matches_jax():
