@@ -23,7 +23,15 @@ ends the run with a non-zero exit and no result line:
    (``bench.py:114-132``), with launch counts, ms per solve and quality;
 8. ``gps_rollout_lanes``, 5 outer KL solves at the same size;
 9. the KL solve on 64 scenarios with CUDA tensors and with CPU tensors;
-10. the kernel record and the result line.
+10. LTI kernels (K3, K1 with the m=2 box-QP enumeration and without
+    limits, K2) at n=10, m=2 against their plain versions, and their times
+    at the LTI fleet's shapes (B=4096, T=1000);
+11. the LTI path: ``ilqg_batch_lanes`` on the LTI fleet of
+    ``tools/bench_fleet.py --lti`` (n=10, m=2, T=1000, B=4096, ±0.6),
+    solved to convergence, with launch counts, histograms, ms per
+    iteration, peak memory and the bit-exact α=0 retrace;
+12. the LTI solve on 64 scenarios with CUDA tensors and with CPU tensors;
+13. the kernel record (with each kernel's bound) and the result line.
 """
 from __future__ import annotations
 
@@ -78,6 +86,22 @@ COV_TOL = 1e-6
 # the same order on both sides; the card's sinf/cosf against PyTorch's is
 # what is left, measured ≤6e-7 over the whole output's scale on an H100
 GPS_SLOT_TOL = 1e-5
+# the LTI fleet (tools/bench_fleet.py --lti, reference demo_linear,
+# src/demo_linear.jl:9-26): the spec of random_lti at n=10, m=2, T=1000
+LTI_N, LTI_M, LTI_T = 10, 2, 1000
+LTI_LIMS = ((-0.6, 0.6), (-0.6, 0.6))
+# the plain K1 at n=10 is ≈6.5k torch operations a step; compared at a
+# short horizon, the kernels timed at the full one
+LTI_T_PLAIN = 64
+# the LTI solve on 64 scenarios with the plain versions on the host: T kept
+# short so that it takes well under a minute
+LTI_T_CPU = 40
+# published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes and
+# float32 operations outside the tensor cores, per millisecond
+HBM_PER_MS = 3.35e12 / 1e3
+F32_PER_MS = 67e12 / 1e3
+LIBRARY = ("none: no single PyTorch call computes this sequential "
+           "recursion")
 # GPU KL solve against CPU KL solve (section 9), by outcome as in section 5:
 # the share of lanes with the same `satisfied`, the same n_iters, and
 # cost_total within COST_RTOL must each reach AGREE_SHARE. The η bracket
@@ -192,6 +216,125 @@ def counted(counters, fn):
     return out, {c.__name__: c.launches for c in counters}
 
 
+def ptxas_summary(log: str):
+    """One line per kernel instance from nvcc's ``-Xptxas -v`` report:
+    kernel<model, template arguments>: registers, stack, spill bytes."""
+    import re
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            kern = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
+            targs = kern.group(2) if kern else ""
+            model = ("LTI<10,2>" if "LTIILi10ELi2E" in targs else
+                     "PendCart" if "PendCart" in targs else None)
+            targs = re.sub(r"NS_3LTIILi10ELi2EEE|NS_8PendCartE", "", targs)
+            args = ([model] if model else []) + re.findall(r"L[ib](\d+)E",
+                                                           targs)
+            name = (f"{kern.group(1) if kern else mangled}"
+                    f"<{', '.join(args)}>")
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers; {spill}")
+            name, spill = None, ""
+    return out
+
+
+def once_ms(fn) -> float:
+    """Device time of one run of ``fn``, from CUDA events."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e)
+
+
+# ---- the least time the card could take: the larger of the bytes a call
+#      must move (each input read once, each output written once) over the
+#      HBM rate and its float32 operations over the f32 peak. Operations
+#      count one per multiply, add, divide, square root and transcendental,
+#      and where the work depends on the data (LTI terms whose constant is 0
+#      are skipped) what this run's data needs.
+
+def bound(nbytes: float, flops: float) -> dict:
+    tb, tf = nbytes / HBM_PER_MS, flops / F32_PER_MS
+    return dict(bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf
+                else "operations", bound_bytes=nbytes, bound_flops=flops)
+
+
+def model_ops(model) -> dict:
+    """Operations of one model evaluation: ``step`` (running cost and
+    dynamics) and ``derivs`` (the expansion K1 forms at (x, u))."""
+    if model.device.model_id == 1:
+        # pendcart: θ̈ (sin, cos, 3 multiplies, a divide, 2 adds) and the
+        # Euler step (8), the cost (2 + 4·4); a21, fu1 and cx, cu (20)
+        return dict(step=34, derivs=20)
+    c = model.device.consts
+    n, m = model.n, model.m
+    nz = [int(np.count_nonzero(c[a:b])) for a, b in (
+        (0, n * n), (n * n, n * n + n * m), (n * n + n * m, 2 * n * n + n * m),
+        (2 * n * n + n * m, 2 * n * n + n * m + m * m))]
+    nA, nB, nQ, nR = nz
+    return dict(step=2 * (nA + nB) + 4 * (nQ + nR), derivs=2 * (nQ + nR))
+
+
+def rollout_ops(model) -> int:
+    """One candidate, one step: dx, the control law, cost and dynamics."""
+    n, m = model.n, model.m
+    return n + m * (2 + 2 * n) + model_ops(model)["step"] + 1
+
+
+def k1_work(model, T: int, B: int, emit: str, reg_type: int, lims,
+            gps: bool = False) -> dict:
+    n, m = model.n, model.m
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk)
+    S = bk.OutLayout(n, m, emit).S
+    f = (model_ops(model)["derivs"] + 2 * n * n + 2 * m * n        # Qx, Qu
+         + 2 * n ** 3 + 2 * n * n * m                               # W, U
+         + 2 * n ** 3 + 2 * m * m * n + 2 * m * n * n)              # Qxx..
+    f += (2 * m * n * n + 2 * m * n + 2 * m * m * n + 2 * m * m
+          if reg_type == 2 and not gps else m)
+    if gps:
+        f += 4 * n * n + 6 * n + 8
+    if lims is None:
+        f += 3 * m * m + 4 * m * m * (n + 1)          # Cholesky, solves
+    elif m == 1:
+        f += 8 + 2 * n
+    else:
+        f += 9 * 22 + 10 + 8 * n                      # 9 candidates, K rows
+    f += (2 * m * m + 4 * m + 2 * m * m * n + n * (5 * m + 1)
+          + n * n * (6 * m + 1) + 2 * n * n + 4)      # value update, latch
+    if emit != "gains":
+        f += 10 * m * m                               # Quu⁻¹
+    nbytes = 4 * (T * B * (n + m + S) + B * 5)
+    if gps:
+        nbytes += 4 * T * B * (n + 3)
+    return bound(nbytes, f * T * B)
+
+
+def k3_work(model, T: int, B: int, A: int, emit: bool) -> dict:
+    n, m = model.n, model.m
+    nbytes = 4 * (T * B * (n + 2 * m + m * n) + B * (n + 3 * A)
+                  + (T * B * (n + m + 1) if emit else 0))
+    return bound(nbytes, A * T * B * rollout_ops(model))
+
+
+def k2_work(model, T: int, B: int, A: int) -> dict:
+    n, m = model.n, model.m
+    nbytes = 4 * (T * B * (2 * n + 3 * m + m * n + 1) + B * (n + 9))
+    return bound(nbytes, (A + 1) * T * B * rollout_ops(model) + 12 * A * B)
+
+
+def k4_work(n: int, T: int, B: int) -> dict:
+    return bound(4 * 2 * n * n * T * B, (4 * n ** 3 + n * n) * T * B)
+
+
 def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> None:
     """Phases 6-9: the KL/GPS path's kernels against their plain versions,
     the KL solve, the GPS rollout, and the KL solve against the CPU. Adds
@@ -213,7 +356,8 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> None:
     # the KL tier's inputs (bench.py:121-131): x0 = default_x0 +
     # 0.2·N(0,1)·[1,1,0,0], u0 = 0.2·N(0,1), from numpy seeds
     rng = np.random.default_rng(1)
-    x0_np = np.asarray(default_x0().numpy(), np.float64)[None, :] + (
+    x0_np = np.asarray(default_x0(device="cpu").numpy(),
+                       np.float64)[None, :] + (
         0.2 * rng.standard_normal((B, 4)) * np.array([1.0, 1.0, 0, 0]))
     u0_np = 0.2 * rng.standard_normal((B, T, 1))
     x0_l = torch.tensor(x0_np.T.copy(), dtype=torch.float32, device=dev)
@@ -254,7 +398,8 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> None:
         lambda: ck.covariance_lanes_ref(fx_s, n=4, r1=ck.identity_r1(4)), 3)
     print(f"  K4: kernel {ms4:.3f} ms, plain {plain_ms4:.1f} ms")
     rec["covariance_lanes"] = dict(max_abs_err=e_k4, ms=ms4,
-                                   plain_ms=plain_ms4)
+                                   plain_ms=plain_ms4, library_ms=None,
+                                   **k4_work(4, T, B))
 
     # K1 in GPS mode, policy emission, no limits, on the pre-roll: a
     # previous policy with every KL term non-zero, and η scalar (1, where
@@ -430,6 +575,261 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> None:
           "KL: GPU and CPU outcomes differ")
 
 
+def lti_phases(ph, dev, rec, counters) -> dict:
+    """Phases 10-12: the LTI ⟨10,2⟩ kernels against their plain versions,
+    the LTI fleet solve, and the LTI solve against the CPU. Adds the LTI
+    measurements to ``rec[name]["lti"]``; returns the LTI path's launches."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig, default_alphas)
+
+    n, m, Tp = LTI_N, LTI_M, LTI_T_PLAIN
+    ph.start("lti-kernels", f"LTI n={n} m={m} B={B}: kernels against plain "
+             f"versions at T={Tp}, kernels timed at T={LTI_T}")
+    # the LTI fleet (tools/bench_fleet.py:57-74): random_lti's spec from a
+    # seeded generator, x0 = 1·linspace(0.5, 2), u0 tiled over the fleet
+    spec = random_lti(0, n=n, m=m, T=LTI_T, device=dev)
+    model, tiles = lti_lanes(spec), lti_derivs_tiles(spec)
+    cfg = ILQGConfig(alphas=default_alphas(0.2, -3.0, 6), reg_type=2,
+                     lam_max=1e15, max_iter=300)
+    A = len(cfg.alphas)
+    x0s = torch.ones((B, n), device=dev) * torch.linspace(
+        0.5, 2.0, B, device=dev)[:, None]
+    u0s = spec.u0.expand(B, LTI_T, m).contiguous()
+    x0_l = x0s.T.contiguous()
+    rng = np.random.default_rng(4)
+    lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), dtype=torch.float32,
+                       device=dev)
+    lam[::8] = 0.0
+    ladder = torch.tensor(cfg.alphas, device=dev)[:, None].expand(A, B)
+    ladder = ladder.contiguous()
+    al1 = torch.tensor(rng.uniform(0.0, 1.0, (1, B)), dtype=torch.float32,
+                       device=dev)
+    # the initial sweep's streams: u = α·u0 by k := u0, u_nom := 0
+    streams = {t: (torch.zeros((t, n + m, B), device=dev), torch.cat(
+        [to_streams(u0s[:, :t]), torch.zeros((t, m * n, B), device=dev)],
+        dim=1)) for t in (Tp, LTI_T)}
+
+    def fwd(t, al, emit, plain):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(*streams[t], x0_l, al, model=model, lims=LTI_LIMS,
+                 emit_traj=emit)
+
+    k, p = fwd(Tp, ladder, False, False), fwd(Tp, ladder, False, True)
+    e3 = compare("LTI K3 sweep A=6", {"totals": (k.totals, p.totals)})
+    k, p = fwd(Tp, al1, True, False), fwd(Tp, al1, True, True)
+    e3 = max(e3, compare("LTI K3 rollout A=1", {
+        "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)}))
+    print(f"  LTI K3: bit-identical to the plain version: "
+          f"{torch.equal(k.traj, p.traj) and torch.equal(k.totals, p.totals)}")
+    traj, tot = k.traj, k.totals[0]
+
+    def bwd(emit, lims, plain, tl=tiles, tr=traj):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, lam, n=n, m=m, reg_type=2, lims=lims, derivs_tiles=tl,
+                 emit=emit)
+
+    errs = []
+    for lims in (LTI_LIMS, None):
+        for emit in ("gains", "full"):
+            what = f"LTI K1 {emit} {'±0.6' if lims else 'unconstrained'}"
+            k, p = bwd(emit, lims, False), bwd(emit, lims, True)
+            lay = bk.OutLayout(n, m, emit)
+            nq = lay.quui if emit == "full" else lay.S
+            errs.append(compare(what, {"out": (k.out[:, :nq], p.out[:, :nq]),
+                                       "dV": (k.stats[:2], p.stats[:2])}))
+            if emit == "full":
+                errs.append(compare(what, {"Quu_inv": (k.out[:, nq:],
+                                                       p.out[:, nq:])},
+                                    QUU_INV_TOL))
+            check(torch.equal(k.stats[2:], p.stats[2:]),
+                  f"{what}: diverged/diverge_idx differ")
+            print(f"  {what}: bit-identical {torch.equal(k.out, p.out)}, "
+                  f"{int((k.stats[2] > 0.5).sum())} latched lanes in both")
+            if lims is not None and emit == "gains":
+                gains, dV = k.out, k.stats[:2]
+                # where the box QP put k on a limit: k = lim - u_t exactly
+                kk, u = k.out[:-1, :m], traj[:-1, n:n + m]
+                on = (kk == -0.6 - u) | (kk == 0.6 - u)
+                shares = [on[:, i].float().mean().item() for i in range(m)]
+                both = (on[:, 0] & on[:, 1]).float().mean().item()
+                print(f"  LTI K1 limits bind on a share of the steps: "
+                      f"control 0 {shares[0]:.4f}, control 1 "
+                      f"{shares[1]:.4f}, both {both:.4f}")
+                check(min(shares + [both]) > 0,
+                      "LTI K1: the limits never bind on some control, so "
+                      "the enumeration was not exercised")
+    # R negative definite: Quu = R + Bᵀ·Vxx·B is not positive definite
+    # where λ·BᵀB cannot lift it, so the λ vector decides which lanes latch
+    latch = lti_derivs_tiles(spec._replace(R=-spec.R))
+    for lims in (LTI_LIMS, None):
+        what = f"LTI K1 latch {'±0.6' if lims else 'unconstrained'}"
+        k, p = bwd("full", lims, False, latch), bwd("full", lims, True, latch)
+        check(torch.equal(k.stats[2:], p.stats[2:]),
+              f"{what}: diverged/diverge_idx differ")
+        n_latch = int((k.stats[2] > 0.5).sum())
+        print(f"  {what}: {n_latch} of {B} lanes latched, identical "
+              f"diverged/diverge_idx")
+        lay = bk.OutLayout(n, m, "full")
+        compare(what, {"k, K, Vx, Vxx, Quu": (k.out[:, :lay.quui],
+                                              p.out[:, :lay.quui])},
+                LATCH_TOL)
+        if lims is None:
+            check(0 < n_latch < B, f"{what}: {n_latch} lanes latched")
+
+    allow = (torch.arange(B, device=dev) % 2 == 0).float()
+    sel = torch.stack([dV[0], dV[1], tot, allow])
+
+    def ls(plain, s=sel, tr=traj, g=gains):
+        f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+        return f(tr, g, x0_l, s, model=model, alphas=cfg.alphas,
+                 reduce_ratio_min=0.0, lims=LTI_LIMS)
+
+    k, p = ls(False), ls(True)
+    e2 = compare("LTI K2", {"traj": (k.traj, p.traj),
+                            "totals": (k.ls[4], p.ls[4])})
+    check(torch.equal(k.ls[:2], p.ls[:2]), "LTI K2: al_sel/any_ok differ")
+    print(f"  LTI K2: {int(((k.ls[1] > 0.5) & (allow > 0.5)).sum())} of {B} "
+          f"lanes accept")
+    out = ls(False, torch.stack([dV[0], dV[1], tot, torch.zeros_like(tot)]))
+    check(torch.equal(out.traj, traj),
+          "LTI K2 α=0 retrace of a K3 stream is not bit-exact")
+    print("  LTI K2 α=0 retrace of the K3 stream: bit-exact")
+
+    # times: the kernels at the fleet's T, the plain versions once at Tp
+    ms3 = cuda_ms(lambda: fwd(LTI_T, ladder, False, False), 20)
+    ms3r = cuda_ms(lambda: fwd(LTI_T, al1, True, False), 20)
+    plain3 = once_ms(lambda: fwd(Tp, ladder, False, True))
+    ro = fwd(LTI_T, al1, True, False)
+    traj_T, tot_T = ro.traj, ro.totals[0]
+    ms1 = cuda_ms(lambda: bwd("gains", LTI_LIMS, False, tr=traj_T), 20)
+    ms1f = cuda_ms(lambda: bwd("full", LTI_LIMS, False, tr=traj_T), 20)
+    plain1 = once_ms(lambda: bwd("gains", LTI_LIMS, True))
+    bo = bwd("gains", LTI_LIMS, False, tr=traj_T)
+    sel_T = torch.stack([bo.stats[0], bo.stats[1], tot_T, allow])
+    ms2 = cuda_ms(lambda: ls(False, sel_T, traj_T, bo.out), 20)
+    plain2 = once_ms(lambda: ls(True))
+    w3 = k3_work(model, LTI_T, B, A, False)
+    w1 = k1_work(model, LTI_T, B, "gains", 2, LTI_LIMS)
+    w1f = k1_work(model, LTI_T, B, "full", 2, LTI_LIMS)
+    w2 = k2_work(model, LTI_T, B, A)
+    for what, ms, w in (("K3 sweep A=6", ms3, w3), ("K1 gains", ms1, w1),
+                        ("K1 full", ms1f, w1f), ("K2 A=6", ms2, w2)):
+        print(f"  LTI {what} at T={LTI_T}: kernel {ms:.3f} ms, bound "
+              f"{w['bound_ms']:.3f} ms ({w['bound_by']}: "
+              f"{w['bound_bytes'] / 1e6:.1f} MB, "
+              f"{w['bound_flops'] / 1e9:.2f} GFLOP)")
+    print(f"  LTI K3 rollout A=1 at T={LTI_T}: kernel {ms3r:.3f} ms; plain "
+          f"versions once at T={Tp}: K3 sweep {plain3:.1f} ms, K1 gains "
+          f"{plain1:.1f} ms, K2 {plain2:.1f} ms")
+    rec["forward_lanes"]["lti"] = dict(ms=ms3, ms_rollout=ms3r,
+                                       plain_ms=plain3, plain_T=Tp,
+                                       max_abs_err=e3, **w3)
+    rec["backward_lanes"]["lti"] = dict(ms=ms1, ms_full=ms1f,
+                                        bound_ms_full=w1f["bound_ms"],
+                                        plain_ms=plain1, plain_T=Tp,
+                                        max_abs_err=max(errs), **w1)
+    rec["linesearch_lanes"]["lti"] = dict(ms=ms2, plain_ms=plain2,
+                                          plain_T=Tp, max_abs_err=e2, **w2)
+    del streams, traj, traj_T, ro, bo, gains, k, p, out
+
+    ph.start("lti-path", f"ilqg_batch_lanes, LTI n={n} m={m} B={B} "
+             f"T={LTI_T}, {A}-α ladder, reg_type 2, ±0.6, max_iter="
+             f"{cfg.max_iter}, to convergence")
+
+    def solve(x0, u0, trace=False):
+        return ilqg_batch_lanes(model, None, x0, u0, lims=LTI_LIMS, cfg=cfg,
+                                derivs_tiles=tiles, record_trace=trace)
+
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+
+    def timed_solve():
+        s.record()
+        out = solve(x0s, u0s, trace=True)
+        e.record()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r, launches = counted(counters, timed_solve)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    solve_ms = s.elapsed_time(e)
+    peak = torch.cuda.max_memory_allocated()
+    iters = int(r.n_iters.max())
+    ct, c0 = r.cost_total, r.trace.cost[:, 0]
+
+    def hist(v):
+        return {int(a): int(b) for a, b in zip(*torch.unique(
+            v, return_counts=True))}
+
+    print(f"  launches: {launches}")
+    print(f"  n_iters histogram {hist(r.n_iters)}; reasons {hist(r.reason)}; "
+          f"accepted mean {r.n_accepted.float().mean().item():.3f}")
+    print(f"  cost_total min/median/max: {ct.min().item():.6g} / "
+          f"{ct.median().item():.6g} / {ct.max().item():.6g} (initial "
+          f"rollout median {c0.median().item():.6g})")
+    print(f"  solve: {solve_ms:.3f} ms (CUDA events), {wall_ms:.3f} ms host "
+          f"clock; {solve_ms / max(iters, 1):.4f} ms/iter over {iters} "
+          f"iterations; peak memory {peak / 2**30:.3f} GiB")
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the LTI path never ran: {launches}")
+    check(1 <= iters <= cfg.cap(), f"LTI n_iters {iters}")
+    check(bool(torch.isfinite(ct).all()), "LTI: non-finite cost")
+    check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.u).all()),
+          "LTI: non-finite trajectory")
+    check(r.x.shape == (B, LTI_T, n) and r.u.shape == (B, LTI_T, m)
+          and r.policy.K.shape == (B, LTI_T, m, n)
+          and r.policy.sigma.shape == (B, LTI_T, m, m), "LTI result shapes")
+    check(bool((r.u.abs() <= 0.6).all()), "LTI: a control outside ±0.6")
+    check(ct.median() < c0.median(), "LTI: median cost did not improve")
+    st = torch.cat([to_streams(r.x), to_streams(r.u),
+                    to_streams(r.cost[..., None])], dim=1)
+    bo = bk.backward_lanes(st, r.lam, n=n, m=m, reg_type=2, lims=LTI_LIMS,
+                           derivs_tiles=tiles, emit="gains")
+    sel = torch.stack([bo.stats[0], bo.stats[1], ct, allow])
+    out = fk.linesearch_lanes(st, bo.out, x0_l, sel, model=model,
+                              alphas=cfg.alphas, lims=LTI_LIMS)
+    rej = (out.ls[1] < 0.5) | (allow < 0.5)
+    check(torch.equal(out.traj[..., rej], st[..., rej]),
+          "LTI: rejected lanes of the solution do not retrace bit for bit")
+    print(f"  retrace: {int(rej.sum())} rejected lanes reproduce the "
+          f"solution stream bit for bit")
+    rec["backward_lanes"]["lti"]["path"] = dict(
+        solve_ms=solve_ms, iters=iters, ms_per_iter=solve_ms / max(iters, 1),
+        peak_bytes=peak, reasons=hist(r.reason))
+    del r, st, bo, out
+
+    ph.start("lti-gpu-vs-cpu", f"first {B_CPU} scenarios, T={LTI_T_CPU}, "
+             f"max_iter={cfg.max_iter}")
+    x0c, u0c = x0s[:B_CPU], u0s[:B_CPU, :LTI_T_CPU].contiguous()
+    g = solve(x0c, u0c)
+    t0 = time.perf_counter()
+    c = solve(x0c.cpu(), u0c.cpu())
+    print(f"  CPU LTI solve (plain versions), T={LTI_T_CPU}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    gc, cc = g.cost_total.cpu(), c.cost_total
+    rel = (gc - cc).abs() / cc.abs()
+    close = (rel <= COST_RTOL).float().mean().item()
+    same_reason = (g.reason.cpu() == c.reason).float().mean().item()
+    same_acc = (g.n_accepted.cpu() == c.n_accepted).float().mean().item()
+    print(f"  cost_total rel diff: max {rel.max().item():.3e}, median "
+          f"{rel.median().item():.3e}")
+    print(f"  share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
+          f"reason {same_reason:.3f}, same accepted count {same_acc:.3f} "
+          f"(need {AGREE_SHARE} each)")
+    check(min(close, same_reason, same_acc) >= AGREE_SHARE,
+          "LTI: GPU and CPU outcomes differ")
+    return launches
+
+
 def main() -> int:
     ph = Phases()
     ph.start("device")
@@ -458,9 +858,8 @@ def main() -> int:
     ph.start("build")
     built = _build.build()
     print(f"  nvcc build: {built.seconds:.1f} s -> {built.path.name}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  " + line.strip())
+    for line in ptxas_summary(built.log):
+        print("  " + line)
     _build.library()
 
     ph.start("ilqg-kernels", f"vs plain versions, B={B}, T={T}")
@@ -471,7 +870,8 @@ def main() -> int:
                      lam_max=1e15)
     A = len(cfg.alphas)
     rng = np.random.default_rng(0)
-    x0_np = np.asarray(default_x0().numpy(), np.float64)[None, :] + (
+    x0_np = np.asarray(default_x0(device="cpu").numpy(),
+                       np.float64)[None, :] + (
         0.2 * rng.standard_normal((B, 4)) * np.array([1.0, 0, 0, 0]))
     x0s = torch.tensor(x0_np, dtype=torch.float32, device=dev)
     u_rand = torch.tensor(2.0 * rng.standard_normal((B, T, 1)),
@@ -506,7 +906,8 @@ def main() -> int:
     print(f"  K3 sweep A=6: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
           f"rollout A=1: kernel {ms1:.3f} ms, plain {plain_ms1:.1f} ms")
     rec["forward_lanes"] = dict(max_abs_err=max(e1, e2), ms=ms,
-                                plain_ms=plain_ms)
+                                plain_ms=plain_ms, library_ms=None,
+                                **k3_work(model, T, B, A, False))
 
     lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), dtype=torch.float32,
                        device=dev)
@@ -556,7 +957,8 @@ def main() -> int:
     print(f"  K1 gains: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
           f"full: kernel {msf:.3f} ms, plain {plain_msf:.1f} ms")
     rec["backward_lanes"] = dict(max_abs_err=max(errs), ms=ms,
-                                 plain_ms=plain_ms)
+                                 plain_ms=plain_ms, library_ms=None,
+                                 **k1_work(model, T, B, "gains", 2, LIMS))
 
     allow = (torch.arange(B, device=dev) % 2 == 0).float()
     sel = torch.stack([dV[0], dV[1], tot, allow])
@@ -575,7 +977,9 @@ def main() -> int:
     ms = cuda_ms(lambda: ls(False), 20)
     plain_ms = cuda_ms(lambda: ls(True), 3)
     print(f"  K2: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
-    rec["linesearch_lanes"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms)
+    rec["linesearch_lanes"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                                   library_ms=None,
+                                   **k2_work(model, T, B, A))
     # trap 6 across kernels: a K3 stream re-rolled by K2 with α=0 everywhere
     out = ls(False, torch.stack([dV[0], dV[1], tot, torch.zeros_like(tot)]))
     check(torch.equal(out.traj, traj),
@@ -675,26 +1079,29 @@ def main() -> int:
           >= AGREE_SHARE, "GPU and CPU outcomes differ")
 
     kl_phases(ph, dev, rec, counters, model, tiles, spec)
+    launches_lti = lti_phases(ph, dev, rec, counters)
 
     # ---- record and result
     walls = ph.summary()
     print(f"  phase walls: {walls}")
     src = "differentialdynamicprogramming_jl_tpu_torch/ops/hopper/csrc/"
     tpu = "differentialdynamicprogramming_jl_tpu/ops/pallas/"
-    where = {"backward_lanes": ("backward.cu", "backward_kernel.py:729"),
-             "linesearch_lanes": ("forward.cu", "forward_kernel.py:506"),
-             "forward_lanes": ("forward.cu", "forward_kernel.py:198"),
+    where = {"backward_lanes": ("backward.cuh", "backward_kernel.py:729"),
+             "linesearch_lanes": ("forward.cuh", "forward_kernel.py:506"),
+             "forward_lanes": ("forward.cuh", "forward_kernel.py:198"),
              "covariance_lanes": ("covariance.cu",
                                   "covariance_kernel.py:28")}
     kernels = []
     for c in counters:
         name = c.__name__
-        by_path = {"ilqg": launches_ilqg[name], **rec[name].pop("by_path")}
+        by_path = {"ilqg": launches_ilqg[name], **rec[name].pop("by_path"),
+                   "lti": launches_lti[name]}
         kernels.append(dict(name=name, route="cuda",
                             source=src + where[name][0],
                             replaces=tpu + where[name][1],
                             launches=sum(by_path.values()),
-                            launches_by_path=by_path, **rec[name]))
+                            launches_by_path=by_path, library=LIBRARY,
+                            **rec[name]))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

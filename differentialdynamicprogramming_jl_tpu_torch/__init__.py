@@ -2,14 +2,15 @@
 
 Sits beside the JAX package ``differentialdynamicprogramming_jl_tpu``, which
 stays the reference, and keeps its module paths and public names. The port
-covers two fleet paths on the pendcart model with in-kernel derivatives and
-m = 1, with static control limits or none: the iLQG main path
-:func:`ilqg_batch_lanes`, and the KL/GPS trust-region path
-:func:`ilqgkl_batch_lanes` with :func:`gps_rollout_lanes`. Their four
-kernels (backward pass with GPS mode, forward rollout, fused line search,
-covariance propagation) are CUDA C++ under ``ops/hopper/csrc/``, built with
-``nvcc`` at first use; each has a plain PyTorch version beside it, which
-runs for CPU tensors.
+covers the fleet paths with in-kernel derivatives and static control limits
+or none: the iLQG main path :func:`ilqg_batch_lanes` on the pendcart model
+(n=4, m=1) and on the LTI family (the CUDA kernels at n=10, m=2), and the
+KL/GPS trust-region path :func:`ilqgkl_batch_lanes` with
+:func:`gps_rollout_lanes` on pendcart. Their four kernels (backward pass
+with GPS mode, forward rollout, fused line search, covariance propagation)
+are CUDA C++ under ``ops/hopper/csrc/``, built with ``nvcc`` at first use;
+each has a plain PyTorch version beside it, which runs for CPU tensors.
+Inputs that are not tensors go to the CUDA card (:mod:`.device`).
 
 Nothing in this package imports ``jax``.
 """
@@ -23,10 +24,12 @@ from .solvers.ilqgkl import ILQGKLConfig
 from .solvers.batch_kl import (ilqgkl_batch_lanes, gps_rollout_lanes,
                                BatchKLResult, BatchKLTrace,
                                kl_div_wiki_lanes, calc_eta_lanes)
-from .problem import Problem
+from .problem import Problem, broadcast_derivs
 from .models.pendcart import (PendCartSpec, pendcart_lanes,
                               pendcart_derivs_tiles, make_pendcart_problem,
                               default_x0, default_lims)
+from .models.linear import (LTISpec, random_lti, make_lti_problem,
+                            lti_lanes, lti_derivs_tiles)
 
 __version__ = "0.1.0"
 
@@ -37,7 +40,9 @@ __all__ = [
     "BatchILQGResult", "BatchTrace", "split_lims",
     "ILQGKLConfig", "ilqgkl_batch_lanes", "gps_rollout_lanes",
     "BatchKLResult", "BatchKLTrace", "kl_div_wiki_lanes", "calc_eta_lanes",
-    "Problem",
+    "Problem", "broadcast_derivs",
     "PendCartSpec", "pendcart_lanes", "pendcart_derivs_tiles",
     "make_pendcart_problem", "default_x0", "default_lims",
+    "LTISpec", "random_lti", "make_lti_problem", "lti_lanes",
+    "lti_derivs_tiles",
 ]

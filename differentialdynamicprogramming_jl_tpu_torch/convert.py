@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device import resolve
+from .models.linear import LTISpec
 from .models.pendcart import PendCartSpec
 from .policy import GaussianPolicy
 from .solvers.ilqg import ILQGConfig
@@ -34,6 +36,17 @@ def spec_from_jax(spec) -> PendCartSpec:
     return PendCartSpec(**kw)
 
 
+def lti_spec_from_jax(spec, dtype=torch.float32, device=None) -> LTISpec:
+    """Any object with fields A, B, Q, R, x0, u0 holding arrays (the JAX
+    package's LTISpec) → the port's LTISpec, tensors of ``dtype`` on
+    ``device`` (None: the CUDA card)."""
+    device = resolve(device)
+    return LTISpec(**{
+        name: torch.tensor(np.asarray(getattr(spec, name)), dtype=dtype,
+                           device=device)
+        for name in LTISpec._fields})
+
+
 def config_from_jax(cfg) -> ILQGConfig:
     """The JAX package's ILQGConfig (or any object with its fields) → the
     port's ILQGConfig."""
@@ -54,7 +67,9 @@ def policy_from_jax(policy, dtype=torch.float32, device=None
                     ) -> GaussianPolicy:
     """A (batched) JAX GaussianPolicy, or any object with fields K, k,
     sigma, sigma_inv holding arrays, → the port's GaussianPolicy with
-    tensors of ``dtype`` on ``device``; the layout is kept ((B, T, ...))."""
+    tensors of ``dtype`` on ``device`` (None: the CUDA card); the layout is
+    kept ((B, T, ...))."""
+    device = resolve(device)
     return GaussianPolicy(**{
         name: torch.tensor(np.asarray(getattr(policy, name)), dtype=dtype,
                            device=device)

@@ -25,6 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..ops.hopper.backward_kernel import DerivsTiles
 from ..ops.hopper.forward_kernel import DeviceModel, LanesModel
 from ..policy import Derivs
@@ -70,13 +71,14 @@ def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
     ``derivs``: ``"euler"`` — hand-written exact Jacobians of the Euler step
     (pure elementwise trig), in the JAX package's expression order. The
     reference's ``"zoh"`` scheme and ``"autodiff"`` are not ported yet
-    (NotImplementedError).
+    (NotImplementedError). ``device=None`` is the CUDA card.
     """
     if derivs not in ("zoh", "autodiff", "euler"):
         raise ValueError(f"unknown derivs scheme {derivs!r}")
     if derivs != "euler":
         raise NotImplementedError(
             f"derivs={derivs!r} is not ported yet; use 'euler'")
+    device = resolve(device)
     Q = torch.diag(torch.tensor(spec.Q, dtype=dtype, device=device))
     R = torch.tensor([[spec.R]], dtype=dtype, device=device)
     goal = torch.tensor(spec.goal, dtype=dtype, device=device)
@@ -218,11 +220,13 @@ def pendcart_derivs_tiles(spec: PendCartSpec = PendCartSpec()) -> DerivsTiles:
 
 
 def default_lims(dtype=torch.float32, device=None) -> torch.Tensor:
-    """±5 control limits (src/system_pendcart.jl:45)."""
-    return torch.tensor([[-5.0, 5.0]], dtype=dtype, device=device)
+    """±5 control limits (src/system_pendcart.jl:45); ``device=None`` is the
+    CUDA card."""
+    return torch.tensor([[-5.0, 5.0]], dtype=dtype, device=resolve(device))
 
 
 def default_x0(dtype=torch.float32, device=None) -> torch.Tensor:
-    """x0 = [π - 0.6, 0, 0, 0] (src/system_pendcart.jl:42)."""
+    """x0 = [π - 0.6, 0, 0, 0] (src/system_pendcart.jl:42); ``device=None``
+    is the CUDA card."""
     return torch.tensor([np.pi - 0.6, 0.0, 0.0, 0.0], dtype=dtype,
-                        device=device)
+                        device=resolve(device))

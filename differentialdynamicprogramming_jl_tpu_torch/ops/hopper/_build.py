@@ -29,7 +29,11 @@ from pathlib import Path
 from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pendcart.cuh", "backward.cu", "forward.cu", "covariance.cu")
+# every source the library is built from, headers included, so that the
+# library's hash changes with any of them; each .cu is one nvcc process
+SOURCES = ("common.cuh", "pendcart.cuh", "lti.cuh", "backward.cuh",
+           "forward.cuh", "backward.cu", "backward_lti.cu", "forward.cu",
+           "forward_lti.cu", "covariance.cu")
 # compile flags of every source; the objects are then linked with -shared
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -41,13 +45,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argument types of the C entry points (csrc/*.cu): every pointer, the stream
 # included, is c_void_p so that none is cut to 32 bits
+# the trailing model arguments of K1/K2/K3: limits [lo_0, hi_0, ...], model
+# id, n, m, descriptor, descriptor size, device, stream
+_MODEL = (_P, _I, _I, _I, _P, _I, _I, _P)
 SIGNATURES = {
     "ddp_backward_lanes": (_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                           _I, _F, _F, _I, _P, _I, _P),
+                           _I) + _MODEL,
     "ddp_forward_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
-                          _I, _I, _F, _F, _I, _P, _I, _P),
+                          _I, _I) + _MODEL,
     "ddp_linesearch_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _F, _P,
-                             _P, _I, _I, _F, _F, _I, _P, _I, _P),
+                             _P, _I, _I) + _MODEL,
     "ddp_covariance_lanes": (_P, _P, _I, _I, _I, _P, _I, _P),
 }
 

@@ -1,10 +1,11 @@
 """Batched backward pass (K1): the Riccati recursion with in-kernel derivatives.
 
 Counterpart of ``differentialdynamicprogramming_jl_tpu/ops/pallas/backward_kernel.py``
-for the subset on the fleet iLQG and KL/GPS paths: m = 1, derivatives
+for the subset on the fleet iLQG and KL/GPS paths: m ≤ 2, derivatives
 computed per step from the (x, u) slots of the trajectory stream by
-``derivs_tiles``, static control limits or none (the unconstrained solve),
-reg_type 1 or 2, GPS mode (``prev``/``eta``), and ``"gains"``, ``"full"`` or
+``derivs_tiles``, static control limits (the m=1 clamp or the m=2 9-set
+enumeration) or none (the unconstrained Cholesky solve), reg_type 1 or 2,
+GPS mode (``prev``/``eta``, m = 1), and ``"gains"``, ``"full"`` or
 ``"policy"`` emission.
 
 :func:`backward_lanes` gives a CPU tensor to :func:`backward_lanes_ref`, the
@@ -21,7 +22,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import _build
-from .forward_kernel import DeviceModel, bounds, check_slice, cuda_args
+from .forward_kernel import DeviceModel, check_slice, cuda_args, lims_host
 
 
 class OutLayout:
@@ -81,13 +82,6 @@ class BackwardLanesOut(NamedTuple):
     stats: torch.Tensor   # (4, B): dV1, dV2, diverged, diverge_idx
 
 
-def _inv1(q):
-    """Quu⁻¹ for m=1 by the JAX kernel's unrolled Cholesky (``_tiny_inv``):
-    L = sqrt(max(q, 1e-30)), then two triangular solves against e0."""
-    L = torch.sqrt(torch.clamp_min(q, 1e-30))
-    return (1.0 / L) / L
-
-
 def _sum(terms):
     """Left-to-right sum, the order of the JAX kernels' Python ``sum``."""
     it = iter(terms)
@@ -95,6 +89,149 @@ def _sum(terms):
     for v in it:
         s = s + v
     return s
+
+
+def _tiny_chol(Q, mm):
+    """Unrolled Cholesky of an mm×mm list-matrix of tensors; returns (L, ok)
+    with ok the all-leading-minors-positive flag, the reference's
+    ``isposdef`` (JAX ``backward_kernel.py:122-141``). The pivot is
+    sqrt(max(d, 1e-30))."""
+    L = [[None] * mm for _ in range(mm)]
+    ok = None
+    for j in range(mm):
+        d = Q[j][j]
+        for p in range(j):
+            d = d - L[j][p] * L[j][p]
+        okj = d > 0
+        ok = okj if ok is None else ok & okj
+        Ljj = torch.sqrt(torch.clamp_min(d, 1e-30))
+        L[j][j] = Ljj
+        for i in range(j + 1, mm):
+            s = Q[i][j]
+            for p in range(j):
+                s = s - L[i][p] * L[j][p]
+            L[i][j] = s / Ljj
+    return L, ok
+
+
+def _tiny_chol_solve(L, b, mm):
+    """Solve L·Lᵀ·x = b by forward and back substitution (JAX
+    ``:144-158``)."""
+    y = [None] * mm
+    for i in range(mm):
+        s = b[i]
+        for p in range(i):
+            s = s - L[i][p] * y[p]
+        y[i] = s / L[i][i]
+    x = [None] * mm
+    for i in reversed(range(mm)):
+        s = y[i]
+        for p in range(i + 1, mm):
+            s = s - L[p][i] * x[p]
+        x[i] = s / L[i][i]
+    return x
+
+
+def _tiny_inv(Q, mm):
+    """Inverse by Cholesky solves against the unit vectors (JAX
+    ``_tiny_inv``, ``:161-170``); for m=1, (1/L)/L."""
+    L, _ = _tiny_chol(Q, mm)
+    cols = [_tiny_chol_solve(
+        L, [torch.full_like(Q[0][0], 1.0 if i == j else 0.0)
+            for i in range(mm)], mm) for j in range(mm)]
+    return [[cols[j][i] for j in range(mm)] for i in range(mm)]
+
+
+def _clip(x, lo, hi):
+    """jnp.clip: NaN-keeping max, then min."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _guard(v):
+    """v where |v| > 1e-30, else 1e-30 (the JAX kernel's det_s/a_s/c_s)."""
+    return torch.where(torch.abs(v) > 1e-30, v, 1e-30)
+
+
+def _boxqp_m2(Q, g, lo, hi):
+    """Exact 2-D box QP by the 9 active sets, in the JAX order (JAX
+    ``_boxqp_m2``, ``:184-235``): the unconstrained point, dim 0 at lo/hi
+    with dim 1 free, dim 1 at lo/hi with dim 0 free, the four corners; each
+    clipped, the first strict minimum kept, the running minimum NaN-keeping.
+    The free set comes from the KKT gradient at the minimiser. Returns
+    (x0, x1, free0, free1, ok)."""
+    a, b, c = Q[0][0], Q[0][1], Q[1][1]
+    g0, g1 = g[0], g[1]
+    det = a * c - b * b
+    det_s, a_s, c_s = _guard(det), _guard(a), _guard(c)
+
+    def val(x0, x1):
+        return (x0 * g0 + x1 * g1
+                + 0.5 * (a * x0 * x0 + 2.0 * b * x0 * x1 + c * x1 * x1))
+
+    cands = [((-g0 * c + g1 * b) / det_s, (g0 * b - g1 * a) / det_s)]
+    for v0 in (lo[0], hi[0]):
+        cands.append((v0, -(g1 + b * v0) / c_s))
+    for v1 in (lo[1], hi[1]):
+        cands.append((-(g0 + b * v1) / a_s, v1))
+    for v0 in (lo[0], hi[0]):
+        for v1 in (lo[1], hi[1]):
+            cands.append((v0, v1))
+    best = None
+    for x0, x1 in cands:
+        x0, x1 = _clip(x0, lo[0], hi[0]), _clip(x1, lo[1], hi[1])
+        v = val(x0, x1)
+        if best is None:
+            best = [x0, x1, v]
+        else:
+            take = v < best[2]
+            best = [torch.where(take, x0, best[0]),
+                    torch.where(take, x1, best[1]), torch.minimum(v, best[2])]
+    bx0, bx1 = best[0], best[1]
+    gr0 = g0 + a * bx0 + b * bx1
+    gr1 = g1 + b * bx0 + c * bx1
+    f0 = ~(((bx0 <= lo[0]) & (gr0 > 0)) | ((bx0 >= hi[0]) & (gr0 < 0)))
+    f1 = ~(((bx1 <= lo[1]) & (gr1 > 0)) | ((bx1 >= hi[1]) & (gr1 < 0)))
+    # a lane with both controls clamped is OK whatever QuuF is (JAX :231-234)
+    ok = ((f0 & f1 & (a > 0) & (det > 0)) | (f0 & ~f1 & (a > 0))
+          | (~f0 & f1 & (c > 0)) | (~f0 & ~f1))
+    return bx0, bx1, f0, f1, ok
+
+
+def _gain_solve(QuuF, Qu, Qux_r, u, lims, n, m):
+    """k (m) and K (m×n) of one step, and the PD flag, not yet zeroed on
+    failing lanes (JAX ``:513-568``)."""
+    R = range(n)
+    if lims is None:
+        # unconstrained: the unrolled Cholesky solve (:514-522)
+        L, ok = _tiny_chol(QuuF, m)
+        k = _tiny_chol_solve(L, [-v for v in Qu], m)
+        cols = [_tiny_chol_solve(L, [-Qux_r[mi][j] for mi in range(m)], m)
+                for j in R]
+        return k, [[cols[j][mi] for j in R] for mi in range(m)], ok
+    lo = [lims[mi][0] - u[mi] for mi in range(m)]
+    hi = [lims[mi][1] - u[mi] for mi in range(m)]
+    if m == 1:
+        # closed-form box QP, limits relative to u_t (:173-181, :523-531)
+        q = QuuF[0][0]
+        xq = _clip(-Qu[0] / q, lo[0], hi[0])
+        grad = Qu[0] + q * xq
+        clamped = ((xq <= lo[0]) & (grad > 0)) | ((xq >= hi[0]) & (grad < 0))
+        quu_s = _guard(q)
+        return [xq], [[torch.where(clamped, 0.0, -Qux_r[0][j] / quu_s)
+                       for j in R]], q > 0
+    # m = 2: the 9-set enumeration and its K rows (:532-551)
+    x0, x1, f0, f1, ok = _boxqp_m2(QuuF, Qu, lo, hi)
+    both = f0 & f1
+    a, b, c = QuuF[0][0], QuuF[0][1], QuuF[1][1]
+    det_s, a_s, c_s = _guard(a * c - b * b), _guard(a), _guard(c)
+    K = [[None] * n for _ in range(2)]
+    for j in R:
+        q0, q1 = Qux_r[0][j], Qux_r[1][j]
+        kb0 = (-q0 * c + q1 * b) / det_s
+        kb1 = (q0 * b - q1 * a) / det_s
+        K[0][j] = torch.where(both, kb0, torch.where(f0, -q0 / a_s, 0.0))
+        K[1][j] = torch.where(both, kb1, torch.where(f1, -q1 / c_s, 0.0))
+    return [x0, x1], K, ok
 
 
 def _read_kl(prev, eta, t, n):
@@ -110,103 +247,103 @@ def _read_kl(prev, eta, t, n):
                 Sik=Si * prev[t, 0], SiK=[Si * Kp[j] for j in range(n)])
 
 
+def _flat(rows):
+    return [v for row in rows for v in row]
+
+
 def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
                        derivs_tiles: Callable, prev=None, eta=None,
                        emit: str = "full") -> BackwardLanesOut:
     """Plain version of :func:`backward_lanes` (same arguments; ``eta`` is
-    (T, B))."""
+    (T, B)). Every sum runs in the JAX kernel's order (``:450-600``)."""
     T, B = traj.shape[0], traj.shape[2]
     lay = OutLayout(n, m, emit)
     gps = prev is not None
     out = torch.empty((T, lay.S, B), dtype=traj.dtype, device=traj.device)
-    R = range(n)
+    R, M = range(n), range(m)
 
     # boundary t = T-1 (src/backward_pass.jl:97-99, 280-283): V = the cost
     # expansion, unscaled also in GPS mode; only the emitted Quu is
     # cuu/η + Σ⁻¹_prev there (JAX :418-429)
-    d = derivs_tiles([traj[T - 1, i] for i in R], [traj[T - 1, n]], T - 1)
+    d = derivs_tiles([traj[T - 1, i] for i in R],
+                     [traj[T - 1, n + mi] for mi in M], T - 1)
     Vx = list(d["cx"])
     Vxx = [list(row) for row in d["cxx"]]
-    zero = torch.zeros_like(Vx[0])
-    slots = [zero] * (1 + n)
+    zero = torch.zeros_like(traj[T - 1, 0])
+    slots = [zero] * (m + m * n)
     if lay.Vx is not None:
-        slots += Vx + [v for row in Vxx for v in row]
+        slots += Vx + _flat(Vxx)
     if lay.quu is not None:
-        cuu = d["cuu"][0][0]
+        cuu = d["cuu"]
         if gps:
             kl = _read_kl(prev, eta, T - 1, n)
-            cuu = cuu / kl["eta"] + kl["Si"]
-        slots += [cuu, _inv1(cuu)]
+            cuu = [[cuu[0][0] / kl["eta"] + kl["Si"]]]
+        slots += _flat(cuu) + _flat(_tiny_inv(cuu, m))
     out[T - 1] = torch.stack(slots)
     dv1 = dv2 = div = divt = zero
 
     for t in range(T - 2, -1, -1):
-        x = [traj[t, i] for i in R]
-        u = traj[t, n]
-        d = derivs_tiles(x, [u], t)
-        fx, fu = d["fx"], [row[0] for row in d["fu"]]
-        cx, cu = d["cx"], d["cu"][0]
-        cxx, cxu, cuu = d["cxx"], [row[0] for row in d["cxu"]], d["cuu"][0][0]
+        u = [traj[t, n + mi] for mi in M]
+        d = derivs_tiles([traj[t, i] for i in R], u, t)
+        fx, fu, cx, cu = d["fx"], d["fu"], d["cx"], d["cu"]
+        cxx, cxu, cuu = d["cxx"], d["cxu"], d["cuu"]
 
         # Q expansions (src/backward_pass.jl:103-123)
         Qx = [cx[i] + _sum([fx[a][i] * Vx[a] for a in R]) for i in R]
-        Qu = cu + _sum([fu[a] * Vx[a] for a in R])
+        Qu = [cu[mi] + _sum([fu[a][mi] * Vx[a] for a in R]) for mi in M]
         W = [[_sum([Vxx[a][c] * fx[c][j] for c in R]) for j in R] for a in R]
-        U = [_sum([Vxx[a][c] * fu[c] for c in R]) for a in R]
+        U = [[_sum([Vxx[a][c] * fu[c][mi] for c in R]) for mi in M]
+             for a in R]
         Qxx = [[cxx[i][j] + _sum([fx[a][i] * W[a][j] for a in R]) for j in R]
                for i in R]
-        Quu = cuu + _sum([fu[a] * U[a] for a in R])
-        Qux = [cxu[j] + _sum([fu[a] * W[a][j] for a in R]) for j in R]
+        Quu = [[cuu[mi][mj] + _sum([fu[a][mi] * U[a][mj] for a in R])
+                for mj in M] for mi in M]
+        Qux = [[cxu[j][mi] + _sum([fu[a][mi] * W[a][j] for a in R])
+                for j in R] for mi in M]
 
         if gps:
-            # GPS mode: Q terms scaled by 1/η plus the KL expansion, Quu
-            # symmetrised, λ unused (src/backward_pass.jl:293-299; JAX
-            # :483-497)
+            # GPS mode (m = 1): Q terms scaled by 1/η plus the KL
+            # expansion, Quu symmetrised, λ unused
+            # (src/backward_pass.jl:293-299; JAX :483-497)
             kl = _read_kl(prev, eta, t, n)
             ie = 1.0 / kl["eta"]
             Kp, Sik, SiK = kl["Kp"], kl["Sik"], kl["SiK"]
             Qx = [Qx[i] * ie + Kp[i] * Sik for i in R]
-            Qu = Qu * ie + (-Sik)
+            Qu = [Qu[0] * ie + (-Sik)]
             Qxx = [[Qxx[i][j] * ie + Kp[i] * SiK[j] for j in R] for i in R]
-            Qux = [Qux[j] * ie + (-SiK[j]) for j in R]
-            Quu_g = Quu * ie + kl["Si"]
-            Quu = 0.5 * (Quu_g + Quu_g)
+            Qux = [[Qux[0][j] * ie + (-SiK[j]) for j in R]]
+            Quu_g = Quu[0][0] * ie + kl["Si"]
+            Quu = [[0.5 * (Quu_g + Quu_g)]]
             Qux_r, QuuF = Qux, Quu
         # regularised gain matrices (src/backward_pass.jl:119-123)
         elif reg_type == 2:
-            Qux_r = [Qux[j] + lam * _sum([fu[a] * fx[a][j] for a in R])
-                     for j in R]
-            QuuF = Quu + lam * _sum([fu[a] * fu[a] for a in R])
+            Qux_r = [[Qux[mi][j] + lam * _sum([fu[a][mi] * fx[a][j]
+                                               for a in R]) for j in R]
+                     for mi in M]
+            QuuF = [[Quu[mi][mj] + lam * _sum([fu[a][mi] * fu[a][mj]
+                                               for a in R]) for mj in M]
+                    for mi in M]
         else:
             Qux_r = Qux
-            QuuF = Quu + lam
+            QuuF = [[Quu[mi][mj] + (lam if mi == mj else 0.0) for mj in M]
+                    for mi in M]
 
-        ok = QuuF > 0
-        if lims is None:
-            # unconstrained m = 1 solve by the unrolled Cholesky
-            # (_tiny_chol/_tiny_chol_solve, JAX :514-522, :122-158)
-            L = torch.sqrt(torch.clamp_min(QuuF, 1e-30))
-            k = torch.where(ok, ((-Qu) / L) / L, 0.0)
-            K = [torch.where(ok, ((-Qux_r[j]) / L) / L, 0.0) for j in R]
-        else:
-            # m = 1 closed-form box QP, limits relative to u_t
-            lo = lims[0][0] - u
-            hi = lims[0][1] - u
-            xq = torch.minimum(torch.maximum(-Qu / QuuF, lo), hi)
-            grad = Qu + QuuF * xq
-            clamped = ((xq <= lo) & (grad > 0)) | ((xq >= hi) & (grad < 0))
-            quu_s = torch.where(torch.abs(QuuF) > 1e-30, QuuF, 1e-30)
-            k = torch.where(ok, xq, 0.0)
-            K = [torch.where(ok, torch.where(clamped, 0.0, -Qux_r[j] / quu_s),
-                             0.0) for j in R]
+        k, K, ok = _gain_solve(QuuF, Qu, Qux_r, u, lims, n, m)
+        # a non-PD lane gets zero gains; V keeps updating (JAX :570-572)
+        k = [torch.where(ok, v, 0.0) for v in k]
+        K = [[torch.where(ok, v, 0.0) for v in row] for row in K]
 
         # value update with the unregularised terms (src/backward_pass.jl:63-72)
-        Quu_k = Quu * k
-        dv1 = dv1 + k * Qu
-        dv2 = dv2 + 0.5 * (k * Quu_k)
-        QuuK = [Quu * K[j] for j in R]
-        Vx = [Qx[i] + K[i] * (Quu_k + Qu) + Qux[i] * k for i in R]
-        Vraw = [[Qxx[i][j] + K[i] * QuuK[j] + K[i] * Qux[j] + Qux[i] * K[j]
+        Quu_k = [_sum([Quu[mi][mj] * k[mj] for mj in M]) for mi in M]
+        dv1 = dv1 + _sum([k[mi] * Qu[mi] for mi in M])
+        dv2 = dv2 + 0.5 * _sum([k[mi] * Quu_k[mi] for mi in M])
+        QuuK = [[_sum([Quu[mi][mj] * K[mj][j] for mj in M]) for j in R]
+                for mi in M]
+        Vx = [Qx[i] + _sum([K[mi][i] * (Quu_k[mi] + Qu[mi]) for mi in M])
+              + _sum([Qux[mi][i] * k[mi] for mi in M]) for i in R]
+        Vraw = [[Qxx[i][j] + _sum([K[mi][i] * QuuK[mi][j] for mi in M])
+                 + _sum([K[mi][i] * Qux[mi][j] for mi in M])
+                 + _sum([Qux[mi][i] * K[mi][j] for mi in M])
                  for j in R] for i in R]
         Vxx = [[0.5 * (Vraw[i][j] + Vraw[j][i]) for j in R] for i in R]
 
@@ -216,11 +353,11 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
         divt = divt * (1.0 - newly) + newly * float(t + 1)
         div = torch.maximum(div, bad)
 
-        slots = [k] + K
+        slots = k + _flat(K)
         if lay.Vx is not None:
-            slots += Vx + [v for row in Vxx for v in row]
+            slots += Vx + _flat(Vxx)
         if lay.quu is not None:
-            slots += [Quu, _inv1(Quu)]
+            slots += _flat(Quu) + _flat(_tiny_inv(Quu, m))
         out[t] = torch.stack(slots)
 
     return BackwardLanesOut(out=out, stats=torch.stack([dv1, dv2, div, divt]))
@@ -235,8 +372,8 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
 
     - ``traj``: (T, ≥n+m, B) with x in slots [0, n) and u in [n, n+m);
       derivatives are computed per step by ``derivs_tiles``.
-    - ``lam``: per-scenario λ (B,). ``lims``: static ``((lo, hi),)``, or
-      None for the unconstrained solve.
+    - ``lam``: per-scenario λ (B,). ``lims``: static ``((lo, hi),) * m``,
+      or None for the unconstrained solve.
     - GPS mode (reference ``back_pass_gps``, ``src/backward_pass.jl:259-350``)
       when ``prev``/``eta`` are given: ``prev`` is the previous-policy stream
       (T, m+m·n+m², B) holding [k_prev, K_prev, Σ⁻¹_prev] and ``eta`` the
@@ -245,9 +382,11 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     - ``emit``: ``"gains"``, ``"full"`` or ``"policy"`` (see
       :class:`OutLayout`).
 
-    Out of this slice (NotImplementedError): the packed-derivatives input
-    (``derivs_tiles=None``), ``params``, per-scenario ``lims_lanes``,
-    m ≠ 1.
+    On a CUDA tensor the model must be one the kernel is built for
+    (``forward_kernel.CUDA_MODELS``). Out of this slice
+    (NotImplementedError): the packed-derivatives input
+    (``derivs_tiles=None``), ``params``, per-scenario ``lims_lanes``, m > 2,
+    GPS mode at m = 2.
     """
     if derivs_tiles is None:
         raise NotImplementedError(
@@ -270,24 +409,26 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
             raise ValueError(f"backward_lanes: prev {tuple(prev.shape)}, "
                              f"eta {tuple(eta.shape)} for traj "
                              f"{tuple(traj.shape)}")
+        if m != 1:
+            raise NotImplementedError(f"GPS mode at m={m}: only m=1 is "
+                                      "ported")
         eta = eta.reshape(T, B)
     if traj.device.type == "cpu":
         return backward_lanes_ref(traj, lam, n=n, m=m, reg_type=reg_type,
                                   lims=lims, derivs_tiles=derivs_tiles,
                                   prev=prev, eta=eta, emit=emit)
-    lib, dev, stream, consts = cuda_args(
-        getattr(derivs_tiles, "device", None), "backward_lanes", traj, lam,
-        *((prev, eta) if gps else ()))
+    lib, dev, stream, model_args = cuda_args(
+        getattr(derivs_tiles, "device", None), "backward_lanes", n, m, traj,
+        lam, *((prev, eta) if gps else ()))
     S = OutLayout(n, m, emit).S
     out = torch.empty((T, S, B), dtype=torch.float32, device=traj.device)
     stats = torch.empty((4, B), dtype=torch.float32, device=traj.device)
-    lo, hi = bounds(lims)                 # unused without limits
+    lim = lims_host(lims, m)              # unused without limits
     rc = lib.ddp_backward_lanes(
         traj.data_ptr(), S_in, lam.data_ptr(),
         prev.data_ptr() if gps else None, eta.data_ptr() if gps else None,
         out.data_ptr(), S, stats.data_ptr(), T, B, EMIT_CODE[emit], reg_type,
-        int(lims is not None), lo, hi, derivs_tiles.device.model_id, consts,
-        dev, stream)
+        int(lims is not None), lim.ctypes.data, *model_args, dev, stream)
     _build.check(lib, rc, "backward_lanes")
     backward_lanes.launches += 1
     return BackwardLanesOut(out=out, stats=stats)

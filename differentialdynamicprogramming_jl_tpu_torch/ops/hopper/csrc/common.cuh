@@ -1,0 +1,125 @@
+// Helpers shared by every kernel source: NaN-keeping min/max, the error
+// codes of the launchers, the static control limits, and the small dense
+// Cholesky solves of the backward pass.
+//
+// The model interface. A model is a struct with compile-time N (state
+// size), M (control size), ID (its device-model id) and N_CONSTS, a nested
+// Consts { float c[N_CONSTS]; } that a kernel takes by value as its
+// descriptor, a constructor from `const Consts&`, and the device functions
+//   dynamics(x, u, xn), cost(x, u), terminal(x)        (forward.cuh)
+//   derivs(x, u, d) and the accessors fx(d, i, j), fu(d, i, mi), cx(d, i),
+//   cu(d, mi), cxx(d, i, j), cxu(d, i, mi), cuu(d, mi, mj)   (backward.cuh)
+// with x, xn as float (&)[N] and u as float (&)[M]. `d` is the model's
+// per-step Derivs: what the expansion at (x, u) holds beyond constants.
+// Every loop over a model's dimensions is unrolled, so the accessors'
+// indices are compile-time constants.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace ddp {
+
+constexpr int MAX_M = 2;   // controls the kernels are written for
+
+// error codes the launchers return for arguments they refuse (cudaError_t
+// values are >= 0)
+constexpr int ERR_MODEL = -1;   // no kernel built for this (model, n, m)
+constexpr int ERR_ARGS = -2;    // shape or count outside what a kernel takes
+
+// static control limits, per control
+struct Lims {
+  float lo[MAX_M], hi[MAX_M];
+};
+
+// [lo_0, hi_0, lo_1, hi_1, ...] from the host
+inline Lims lims_from_host(const float* lims, int m) {
+  Lims l{};
+  for (int i = 0; i < m && i < MAX_M; ++i) {
+    l.lo[i] = lims[2 * i];
+    l.hi[i] = lims[2 * i + 1];
+  }
+  return l;
+}
+
+// NaN-propagating min/max/clip/sign, as jnp.minimum/maximum/clip/sign and
+// torch.minimum/maximum behave (fminf/fmaxf would drop a NaN operand)
+__device__ __forceinline__ float maxp(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+}
+__device__ __forceinline__ float minp(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
+}
+__device__ __forceinline__ float clipp(float x, float lo, float hi) {
+  return minp(maxp(x, lo), hi);
+}
+__device__ __forceinline__ float signp(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}
+
+// Unrolled Cholesky of an MM×MM matrix (backward_kernel.py::_tiny_chol);
+// returns whether every leading minor is positive. The pivot is
+// sqrt(max(d, 1e-30)).
+template <int MM>
+__device__ __forceinline__ bool tiny_chol(const float (&Q)[MM][MM],
+                                          float (&L)[MM][MM]) {
+  bool ok = true;
+#pragma unroll
+  for (int j = 0; j < MM; ++j) {
+    float d = Q[j][j];
+#pragma unroll
+    for (int p = 0; p < j; ++p) d = d - L[j][p] * L[j][p];
+    ok = ok && (d > 0.0f);
+    const float Ljj = sqrtf(maxp(d, 1e-30f));
+    L[j][j] = Ljj;
+#pragma unroll
+    for (int i = j + 1; i < MM; ++i) {
+      float s = Q[i][j];
+#pragma unroll
+      for (int p = 0; p < j; ++p) s = s - L[i][p] * L[j][p];
+      L[i][j] = s / Ljj;
+    }
+  }
+  return ok;
+}
+
+// L·Lᵀ·x = b by forward and back substitution (::_tiny_chol_solve)
+template <int MM>
+__device__ __forceinline__ void tiny_chol_solve(const float (&L)[MM][MM],
+                                                const float (&b)[MM],
+                                                float (&x)[MM]) {
+  float y[MM];
+#pragma unroll
+  for (int i = 0; i < MM; ++i) {
+    float s = b[i];
+#pragma unroll
+    for (int p = 0; p < i; ++p) s = s - L[i][p] * y[p];
+    y[i] = s / L[i][i];
+  }
+#pragma unroll
+  for (int i = MM - 1; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int p = i + 1; p < MM; ++p) s = s - L[p][i] * x[p];
+    x[i] = s / L[i][i];
+  }
+}
+
+// inverse by solves against the unit vectors (::_tiny_inv); m=1: (1/L)/L
+template <int MM>
+__device__ __forceinline__ void tiny_inv(const float (&Q)[MM][MM],
+                                         float (&inv)[MM][MM]) {
+  float L[MM][MM];
+  tiny_chol<MM>(Q, L);
+#pragma unroll
+  for (int j = 0; j < MM; ++j) {
+    float e[MM], col[MM];
+#pragma unroll
+    for (int i = 0; i < MM; ++i) e[i] = i == j ? 1.0f : 0.0f;
+    tiny_chol_solve<MM>(L, e, col);
+#pragma unroll
+    for (int i = 0; i < MM; ++i) inv[i][j] = col[i];
+  }
+}
+
+}  // namespace ddp

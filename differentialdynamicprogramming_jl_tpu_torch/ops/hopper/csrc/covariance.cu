@@ -25,7 +25,7 @@
 // and adds per scenario-step. As in K1, B=4096 threads in blocks of 128 put
 // one warp on each SM, so each step's 16 loads and its dependent chain of
 // products are exposed latency; a faster layout is later work.
-#include "pendcart.cuh"
+#include "common.cuh"
 
 namespace ddp {
 

@@ -1,0 +1,337 @@
+// K3: multi-α forward rollout, and K2: fused line search, templated on the
+// model (common.cuh describes the interface).
+//
+// Replace the TPU kernels
+//   differentialdynamicprogramming_jl_tpu/ops/pallas/forward_kernel.py
+//   ::forward_lanes (built by ::_make_kernel)        -> forward_kernel
+//   ::linesearch_lanes (built by ::_make_fused_kernel) -> linesearch_kernel
+// with static per-control limits. Without limits the wrapper passes
+// lo = -inf, hi = +inf: the NaN-keeping clipp then returns its input
+// unchanged, as the JAX rollout's missing clamp does. Instances: pendcart
+// ⟨4,1⟩ (forward.cu) and LTI ⟨10,2⟩ (forward_lti.cu), A = 1..8 each.
+//
+// Layout: streams are (T, S, B) f32 with the scenario axis contiguous; one
+// thread owns one scenario and walks t = 0 .. T-1, holding the A candidate
+// states (A·(n+2) floats) in registers where the TPU kept them in VMEM
+// scratch. A is bounded by MAX_A and checked by the launcher.
+//
+// What bounds them. Pendcart at B=4096, T=500: a pass reads the x,u slots
+// of the trajectory (≈41 MB) and the gain slots (≈41 MB); the line search
+// reads both twice (pass 2 re-reads the same input, mostly from the 50 MB
+// L2) and writes the new [x, u, c] stream (≈49 MB); little arithmetic per
+// scenario-step, so memory- or latency-bound. LTI ⟨10,2⟩ at B=4096,
+// T=1000, A=6: the line search reads x,u (12 slots) and k,K (22 slots) and
+// writes 13 slots (≈770 MB) against ≈11 GFLOP, memory-bound. At B=4096 the
+// grid is 32 blocks of 128 threads for 132 SMs: one warp per SM, nothing
+// hides the per-step load latency. Raising occupancy and prefetching the
+// next step are work for later changes.
+//
+// Semantics kept from the TPU kernels (forward_kernel.py line numbers):
+// - per control, u = clip(u_nom + α·k + Σ_j K_j·(x_j − x_old_j), lo, hi)
+//   in that operation order (:156-169, :454-461);
+// - the terminal cost is evaluated at the STORED state x[T-1], not at the
+//   state after the last step (:150-151, :178-181, :475-478);
+// - the accept rule at the pass boundary: ratio = dcost/expected, or
+//   sign(dcost) when expected <= 0; the first α in ladder order with
+//   ratio > rr_min wins; α_eff = 0 where allow = 0 (:401-436);
+// - pass 2 re-rolls α_eff through the same rollout_step as pass 1 and as
+//   forward_kernel, so an α=0 retrace reproduces a trajectory bit for bit.
+// Not kept: the TPU line search aliased its output with the trajectory
+// input and emitted an echo of the input x,u slots, both only to avoid
+// XLA while-loop carry copies (:599-611, :136-146). Here the kernel writes a
+// fresh output buffer and the solve loop keeps the previous stream alive as
+// the backward replay's input, so no echo is written.
+#pragma once
+
+#include "common.cuh"
+
+namespace ddp {
+
+constexpr int MAX_A = 8;
+
+struct Ladder {
+  float a[MAX_A];
+};
+
+// the launchers' arguments, checked by ddp_forward_lanes and
+// ddp_linesearch_lanes; out is the emitted [x, u, c] stream or null
+struct FwdArgs {
+  const float* traj;
+  int s_traj;
+  const float* gains;
+  int s_g, gk, gK;
+  const float* x0;
+  const float* alphas;   // K3: (A, B) on the card
+  const float* sel;      // K2: (4, B) [dV1, dV2, cost, allow] on the card
+  Ladder ladder;         // K2: the static α ladder
+  float rr_min;
+  int A;
+  float* totals;
+  float* terminal;
+  float* out;
+  float* ls;
+  int T, B;
+  Lims lims;
+  const float* consts;   // host copy of the model descriptor
+  cudaStream_t stream;
+};
+
+namespace {
+
+constexpr int FWD_THREADS = 128;
+
+template <class Model>
+struct StepIn {
+  float x_old[Model::N], u_nom[Model::M], k[Model::M];
+  float K[Model::M][Model::N];
+};
+
+template <class Model>
+__device__ __forceinline__ void load_step(const float* __restrict__ traj,
+                                          int s_traj,
+                                          const float* __restrict__ gains,
+                                          int s_g, int gk, int gK, int t,
+                                          int b, size_t sB,
+                                          StepIn<Model>& s) {
+  constexpr int N = Model::N, M = Model::M;
+  const float* tr = traj + (size_t)t * s_traj * sB + b;
+  const float* gn = gains + (size_t)t * s_g * sB + b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) s.x_old[i] = tr[i * sB];
+#pragma unroll
+  for (int mi = 0; mi < M; ++mi) {
+    s.u_nom[mi] = tr[(N + mi) * sB];
+    s.k[mi] = gn[(gk + mi) * sB];
+#pragma unroll
+    for (int j = 0; j < N; ++j) s.K[mi][j] = gn[(gK + mi * N + j) * sB];
+  }
+}
+
+// one rollout step of one candidate: control law, running cost, terminal
+// cost at the stored last state, model step
+template <class Model>
+__device__ __forceinline__ void rollout_step(
+    const Model& P, float (&x)[Model::N], float& acc, float& term,
+    float alpha, const StepIn<Model>& s, const Lims& lims, bool last,
+    float (&u)[Model::M], float& c_out) {
+  constexpr int N = Model::N, M = Model::M;
+  float dx[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) dx[j] = x[j] - s.x_old[j];
+#pragma unroll
+  for (int mi = 0; mi < M; ++mi) {
+    float v = s.u_nom[mi] + alpha * s.k[mi];
+#pragma unroll
+    for (int j = 0; j < N; ++j) v = v + s.K[mi][j] * dx[j];
+    u[mi] = clipp(v, lims.lo[mi], lims.hi[mi]);
+  }
+  const float c = P.cost(x, u);
+  if (last) term = P.terminal(x);
+  float xn[N];
+  P.dynamics(x, u, xn);
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = xn[i];
+  acc = acc + c;
+  c_out = c;
+}
+
+template <class Model, int A, bool EMIT>
+__global__ void __launch_bounds__(FWD_THREADS)
+forward_kernel(const float* __restrict__ traj, int s_traj,
+               const float* __restrict__ gains, int s_g, int gk, int gK,
+               const float* __restrict__ x0, const float* __restrict__ alphas,
+               float* __restrict__ totals, float* __restrict__ terminal,
+               float* __restrict__ out, int T, int B, Lims lims,
+               typename Model::Consts mc) {
+  constexpr int N = Model::N, M = Model::M;
+  constexpr int SO = N + M + 1;   // output slots [x, u, c]
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Model P(mc);
+  const size_t sB = (size_t)B;
+  float x[A][N], acc[A], term[A], al[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    al[a] = alphas[a * sB + b];
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[a][i] = x0[i * sB + b];
+    acc[a] = 0.0f;
+    term[a] = 0.0f;
+  }
+  for (int t = 0; t < T; ++t) {
+    StepIn<Model> s;
+    load_step<Model>(traj, s_traj, gains, s_g, gk, gK, t, b, sB, s);
+    const bool last = t == T - 1;
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      float xs[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) xs[i] = x[a][i];
+      float u[M], c;
+      rollout_step<Model>(P, x[a], acc[a], term[a], al[a], s, lims, last, u,
+                          c);
+      if (EMIT && a == 0) {
+        float* o = out + (size_t)t * SO * sB + b;
+#pragma unroll
+        for (int i = 0; i < N; ++i) o[i * sB] = xs[i];
+#pragma unroll
+        for (int mi = 0; mi < M; ++mi) o[(N + mi) * sB] = u[mi];
+        o[(N + M) * sB] = c;
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    totals[a * sB + b] = acc[a] + term[a];
+    terminal[a * sB + b] = term[a];
+  }
+}
+
+template <class Model, int A>
+__global__ void __launch_bounds__(FWD_THREADS)
+linesearch_kernel(const float* __restrict__ traj, int s_traj,
+                  const float* __restrict__ gains, int s_g, int gk, int gK,
+                  const float* __restrict__ x0, const float* __restrict__ sel,
+                  Ladder ladder, float rr_min, float* __restrict__ out,
+                  float* __restrict__ ls, int T, int B, Lims lims,
+                  typename Model::Consts mc) {
+  constexpr int N = Model::N, M = Model::M;
+  constexpr int SO = N + M + 1;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Model P(mc);
+  const size_t sB = (size_t)B;
+
+  // pass 1: every candidate of the ladder
+  float x[A][N], acc[A], term[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[a][i] = x0[i * sB + b];
+    acc[a] = 0.0f;
+    term[a] = 0.0f;
+  }
+  for (int t = 0; t < T; ++t) {
+    StepIn<Model> s;
+    load_step<Model>(traj, s_traj, gains, s_g, gk, gK, t, b, sB, s);
+    const bool last = t == T - 1;
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      float u[M], c;
+      rollout_step<Model>(P, x[a], acc[a], term[a], ladder.a[a], s, lims,
+                          last, u, c);
+    }
+  }
+
+  // pass boundary: the accept decision (src/iLQG.jl:269-280)
+  const float dv1 = sel[b], dv2 = sel[sB + b];
+  const float ctot = sel[2 * sB + b], allow = sel[3 * sB + b];
+  float al_sel = 0.0f, dc_sel = 0.0f, rt_sel = 0.0f;
+  bool found = false;
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const float al = ladder.a[a];
+    const float tot = acc[a] + term[a];
+    const float dcost = ctot - tot;
+    const float expected = (-al) * (dv1 + al * dv2);
+    const float ratio = expected > 0.0f ? dcost / expected : signp(dcost);
+    const bool ok = ratio > rr_min;
+    if (a == 0) {
+      dc_sel = dcost;
+      rt_sel = ratio;
+      found = ok;
+      al_sel = ok ? al : 0.0f;
+    } else {
+      const bool take = ok && !found;
+      al_sel = take ? al : al_sel;
+      dc_sel = take ? dcost : dc_sel;
+      rt_sel = take ? ratio : rt_sel;
+      found = found || ok;
+    }
+  }
+  const float al_eff = (found && allow > 0.5f) ? al_sel : 0.0f;
+  ls[b] = al_sel;
+  ls[sB + b] = found ? 1.0f : 0.0f;
+  ls[2 * sB + b] = dc_sel;
+  ls[3 * sB + b] = rt_sel;
+
+  // pass 2: re-roll α_eff and write the new [x, u, c] stream
+  float xe[N], acc_e = 0.0f, term_e = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) xe[i] = x0[i * sB + b];
+  for (int t = 0; t < T; ++t) {
+    StepIn<Model> s;
+    load_step<Model>(traj, s_traj, gains, s_g, gk, gK, t, b, sB, s);
+    float* o = out + (size_t)t * SO * sB + b;
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i * sB] = xe[i];
+    float u[M], c;
+    rollout_step<Model>(P, xe, acc_e, term_e, al_eff, s, lims, t == T - 1,
+                        u, c);
+#pragma unroll
+    for (int mi = 0; mi < M; ++mi) o[(N + mi) * sB] = u[mi];
+    o[(N + M) * sB] = c;
+  }
+  ls[4 * sB + b] = acc_e + term_e;
+}
+
+template <class Model>
+typename Model::Consts consts_of(const FwdArgs& a) {
+  typename Model::Consts mc;
+  for (int i = 0; i < Model::N_CONSTS; ++i) mc.c[i] = a.consts[i];
+  return mc;
+}
+
+// K3 for one model, A candidates (1..MAX_A)
+template <class Model>
+int launch_forward(const FwdArgs& a) {
+  const auto mc = consts_of<Model>(a);
+  const dim3 grid((a.B + FWD_THREADS - 1) / FWD_THREADS);
+  const bool emit = a.out != nullptr;
+#define DDP_FWD(AA)                                                         \
+  case AA:                                                                  \
+    if (emit)                                                               \
+      forward_kernel<Model, AA, true><<<grid, FWD_THREADS, 0, a.stream>>>(  \
+          a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.alphas,     \
+          a.totals, a.terminal, a.out, a.T, a.B, a.lims, mc);               \
+    else                                                                    \
+      forward_kernel<Model, AA, false><<<grid, FWD_THREADS, 0, a.stream>>>( \
+          a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.alphas,     \
+          a.totals, a.terminal, a.out, a.T, a.B, a.lims, mc);               \
+    break;
+  switch (a.A) {
+    DDP_FWD(1) DDP_FWD(2) DDP_FWD(3) DDP_FWD(4)
+    DDP_FWD(5) DDP_FWD(6) DDP_FWD(7) DDP_FWD(8)
+    default: return ERR_ARGS;
+  }
+#undef DDP_FWD
+  return (int)cudaGetLastError();
+}
+
+// K2 for one model, a ladder of A α values (1..MAX_A)
+template <class Model>
+int launch_linesearch(const FwdArgs& a) {
+  const auto mc = consts_of<Model>(a);
+  const dim3 grid((a.B + FWD_THREADS - 1) / FWD_THREADS);
+#define DDP_LS(AA)                                                         \
+  case AA:                                                                 \
+    linesearch_kernel<Model, AA><<<grid, FWD_THREADS, 0, a.stream>>>(      \
+        a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.sel,         \
+        a.ladder, a.rr_min, a.out, a.ls, a.T, a.B, a.lims, mc);            \
+    break;
+  switch (a.A) {
+    DDP_LS(1) DDP_LS(2) DDP_LS(3) DDP_LS(4)
+    DDP_LS(5) DDP_LS(6) DDP_LS(7) DDP_LS(8)
+    default: return ERR_ARGS;
+  }
+#undef DDP_LS
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// the LTI ⟨10,2⟩ instances, compiled in forward_lti.cu
+int launch_forward_lti_10_2(const FwdArgs& a);
+int launch_linesearch_lti_10_2(const FwdArgs& a);
+
+}  // namespace ddp

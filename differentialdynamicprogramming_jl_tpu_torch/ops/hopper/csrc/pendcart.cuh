@@ -1,5 +1,5 @@
-// Pendulum-on-a-cart model functions shared by the backward, forward and
-// line-search kernels (backward.cu, forward.cu).
+// Pendulum-on-a-cart model (n=4, m=1) for the backward, forward and
+// line-search kernels, in the model interface of common.cuh.
 //
 // Device counterpart of models/pendcart.py::pendcart_lanes and
 // ::pendcart_derivs_tiles (JAX: models/pendcart.py:161-195, :233-263): the
@@ -16,46 +16,23 @@
 // so no multiply-add is contracted.
 #pragma once
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace ddp {
-
-constexpr int MODEL_PENDCART = 1;
-constexpr int N_CONSTS = 13;
-
-// error codes the launchers return for arguments they refuse (cudaError_t
-// values are >= 0)
-constexpr int ERR_MODEL = -1;   // unknown model id
-constexpr int ERR_ARGS = -2;    // shape or count outside what a kernel takes
-
-struct ModelConsts {
-  float c[N_CONSTS];
-};
-
-// NaN-propagating min/max/clip/sign, as jnp.minimum/maximum/clip/sign and
-// torch.minimum/maximum behave (fminf/fmaxf would drop a NaN operand)
-__device__ __forceinline__ float maxp(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
-}
-__device__ __forceinline__ float minp(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
-}
-__device__ __forceinline__ float clipp(float x, float lo, float hi) {
-  return minp(maxp(x, lo), hi);
-}
-__device__ __forceinline__ float signp(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
-}
 
 struct PendCart {
   static constexpr int N = 4;
   static constexpr int M = 1;
+  static constexpr int ID = 1;
+  static constexpr int N_CONSTS = 13;
+  struct Consts {
+    float c[N_CONSTS];
+  };
 
   float l, h, d, ngl, hd1, R, halfR;
   float Q[4], halfQ[4], goal[4];
 
-  __device__ __forceinline__ explicit PendCart(const ModelConsts& mc) {
+  __device__ __forceinline__ explicit PendCart(const Consts& mc) {
     const float g = mc.c[0];
     l = mc.c[1];
     h = mc.c[2];
@@ -73,8 +50,10 @@ struct PendCart {
   }
 
   // Euler step: θ̈ = -g/l·sinθ + f/l·cosθ - d·θ̇
-  __device__ __forceinline__ void dynamics(const float (&x)[4], float f,
+  __device__ __forceinline__ void dynamics(const float (&x)[4],
+                                           const float (&u)[1],
                                            float (&xn)[4]) const {
+    const float f = u[0];
     const float thdd = ngl * sinf(x[0]) + (f / l) * cosf(x[0]) - d * x[1];
     xn[0] = x[0] + h * x[1];
     xn[1] = x[1] + h * thdd;
@@ -82,8 +61,9 @@ struct PendCart {
     xn[3] = x[3] + h * f;
   }
 
-  __device__ __forceinline__ float cost(const float (&x)[4], float u) const {
-    float c = halfR * u * u;
+  __device__ __forceinline__ float cost(const float (&x)[4],
+                                        const float (&u)[1]) const {
+    float c = halfR * u[0] * u[0];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float dx = x[i] - goal[i];
@@ -109,9 +89,11 @@ struct PendCart {
     float fx[4][4], fu[4], cx[4], cu, cxx[4][4], cxu[4], cuu;
   };
 
-  __device__ __forceinline__ void derivs(const float (&x)[4], float u,
+  __device__ __forceinline__ void derivs(const float (&x)[4],
+                                         const float (&uu)[1],
                                          Derivs& dv) const {
     const float th = x[0];
+    const float u = uu[0];
     const float a21 = h * (ngl * cosf(th) - (u / l) * sinf(th));
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -136,6 +118,28 @@ struct PendCart {
     dv.fu[3] = h;
     dv.cu = R * u;
     dv.cuu = R;
+  }
+
+  __device__ __forceinline__ float fx(const Derivs& d, int i, int j) const {
+    return d.fx[i][j];
+  }
+  __device__ __forceinline__ float fu(const Derivs& d, int i, int) const {
+    return d.fu[i];
+  }
+  __device__ __forceinline__ float cx(const Derivs& d, int i) const {
+    return d.cx[i];
+  }
+  __device__ __forceinline__ float cu(const Derivs& d, int) const {
+    return d.cu;
+  }
+  __device__ __forceinline__ float cxx(const Derivs& d, int i, int j) const {
+    return d.cxx[i][j];
+  }
+  __device__ __forceinline__ float cxu(const Derivs& d, int i, int) const {
+    return d.cxu[i];
+  }
+  __device__ __forceinline__ float cuu(const Derivs& d, int, int) const {
+    return d.cuu;
   }
 };
 

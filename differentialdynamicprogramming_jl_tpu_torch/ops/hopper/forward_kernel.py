@@ -24,13 +24,17 @@ import torch
 from . import _build
 
 MAX_A = 8   # candidate bound of the CUDA kernels (csrc/forward.cu)
+# (model id, n, m) of each model the CUDA kernels are instantiated for
+CUDA_MODELS = {(1, 4, 1): "pendcart (csrc/pendcart.cuh)",
+               (2, 10, 2): "LTI (csrc/lti.cuh)"}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DeviceModel:
     """What a CUDA kernel needs to evaluate a model: the id of the model's
-    device functions (``csrc/pendcart.cuh``: 1 = pendcart) and a flat f32
-    array of its constants, passed to the kernel by value."""
+    device functions (1 = pendcart, ``csrc/pendcart.cuh``; 2 = LTI,
+    ``csrc/lti.cuh``) and a flat f32 array of its constants, passed to the
+    kernel by value."""
 
     model_id: int
     consts: np.ndarray
@@ -71,24 +75,35 @@ class LineSearchLanesOut(NamedTuple):
 
 
 def check_slice(m: int, lims, params=None, lims_lanes=None):
-    """Raise NotImplementedError for what this slice does not cover."""
-    if m != 1:
-        raise NotImplementedError(f"m={m}: only m=1 is ported")
+    """Raise NotImplementedError for what this slice does not cover, and
+    ValueError for static limits that are not one (lo, hi) per control."""
+    if m > 2:
+        raise NotImplementedError(
+            f"m={m}: the m > 2 masked-Newton box QP is not ported yet")
     if params is not None:
         raise NotImplementedError("params (per-scenario model parameters)")
     if lims_lanes is not None or (lims is not None and not isinstance(
             lims, (tuple, list))):
         raise NotImplementedError("per-scenario lims arrays")
+    if lims is not None and len(lims) != m:
+        raise ValueError(f"lims {lims}: one (lo, hi) per control, m={m}")
 
 
-def bounds(lims) -> Tuple[float, float]:
-    """(lo, hi) of static m=1 limits; (-inf, +inf) for ``lims=None``. The
+def bounds(lims, m: int) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
+    """Per-control (lo, hi) of static limits; ±inf for ``lims=None``. The
     JAX rollout does not clamp without limits (``forward_kernel.py:117-121``);
     the NaN-keeping clamp to ±inf returns every value, NaN included,
     unchanged, so one code path serves both."""
     if lims is None:
-        return -float("inf"), float("inf")
-    return lims[0]
+        return (-float("inf"),) * m, (float("inf"),) * m
+    return tuple(lo for lo, _ in lims), tuple(hi for _, hi in lims)
+
+
+def lims_host(lims, m: int) -> np.ndarray:
+    """Static limits as the CUDA launchers take them: f32
+    [lo_0, hi_0, lo_1, hi_1, ...]."""
+    lo, hi = bounds(lims, m)
+    return np.asarray([v for pair in zip(lo, hi) for v in pair], np.float32)
 
 
 def launch_args(what: str, *tensors: torch.Tensor):
@@ -108,15 +123,23 @@ def launch_args(what: str, *tensors: torch.Tensor):
         dev).cuda_stream
 
 
-def cuda_args(model_device: Optional[DeviceModel], what: str,
-              *tensors: torch.Tensor):
-    """:func:`launch_args` plus the host pointer to the model constants."""
+def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
+              m: int, *tensors: torch.Tensor):
+    """:func:`launch_args` plus the model arguments of a launcher: model id,
+    n, m, the host pointer to the constants and their count."""
     if model_device is None:
         raise NotImplementedError(
             f"{what}: this model has no device-model descriptor, so no CUDA "
             "kernel can evaluate it; run it on CPU tensors")
+    if (model_device.model_id, n, m) not in CUDA_MODELS:
+        raise NotImplementedError(
+            f"{what}: no CUDA kernel is built for model id "
+            f"{model_device.model_id} at n={n}, m={m}; built: "
+            f"{sorted(CUDA_MODELS.items())}")
     lib, dev, stream = launch_args(what, *tensors)
-    return lib, dev, stream, model_device.consts.ctypes.data
+    consts = model_device.consts
+    return lib, dev, stream, (model_device.model_id, n, m,
+                              consts.ctypes.data, consts.size)
 
 
 def _check_streams(what, model, traj, gains, x0, gk, gK, per_lane):
@@ -145,46 +168,51 @@ def _ptr(t: Optional[torch.Tensor]):
 def _rollout_step(model, x, acc, term, alpha, x_old, u_nom, k, K, lo, hi,
                   t, last):
     """One step of every candidate (tensors (A, B) or (B,)); the kernels'
-    rollout_step. Returns (x_next, acc, term, u, c)."""
-    n = model.n
-    v = u_nom + alpha * k
-    for j in range(n):
-        v = v + K[j] * (x[j] - x_old[j])
-    v = torch.clamp(v, lo, hi)
-    c = model.cost(x, [v], t)
+    rollout_step. Per control, u = clip(u_nom + α·k + Σ_j K_j·dx_j, lo, hi)
+    (JAX ``forward_kernel.py:156-169``). Returns (x_next, acc, term, u, c)."""
+    dx = [x[j] - x_old[j] for j in range(model.n)]
+    u = []
+    for mi in range(model.m):
+        v = u_nom[mi] + alpha * k[mi]
+        for j in range(model.n):
+            v = v + K[mi][j] * dx[j]
+        u.append(torch.clamp(v, lo[mi], hi[mi]))
+    c = model.cost(x, u, t)
     if last and model.terminal is not None:
         term = model.terminal(x)
-    x_next = model.dynamics(x, [v], t)
-    return x_next, acc + c, term, v, c
+    x_next = model.dynamics(x, u, t)
+    return x_next, acc + c, term, u, c
 
 
-def _step_inputs(traj, gains, gk, gK, n, t):
-    x_old = [traj[t, i] for i in range(n)]
-    return x_old, traj[t, n], gains[t, gk], [gains[t, gK + j] for j in range(n)]
+def _step_inputs(traj, gains, gk, gK, n, m, t):
+    return ([traj[t, i] for i in range(n)],
+            [traj[t, n + mi] for mi in range(m)],
+            [gains[t, gk + mi] for mi in range(m)],
+            [[gains[t, gK + mi * n + j] for j in range(n)] for mi in range(m)])
 
 
 def forward_lanes_ref(traj, gains, x0, alphas, *, model: LanesModel,
                       lims, gk: int = 0, gK: Optional[int] = None,
                       emit_traj: bool = False) -> ForwardLanesOut:
     """Plain version of :func:`forward_lanes` (same arguments)."""
-    n = model.n
-    gK = model.m if gK is None else gK
+    n, m = model.n, model.m
+    gK = m if gK is None else gK
     T, B = traj.shape[0], traj.shape[2]
     A = alphas.shape[0]
-    lo, hi = bounds(lims)
+    lo, hi = bounds(lims, m)
     x = [x0[i].expand(A, B) for i in range(n)]
     acc = torch.zeros((A, B), dtype=traj.dtype, device=traj.device)
     term = torch.zeros_like(acc)
-    out = (torch.empty((T, n + 2, B), dtype=traj.dtype, device=traj.device)
-           if emit_traj else None)
+    out = (torch.empty((T, n + m + 1, B), dtype=traj.dtype,
+                       device=traj.device) if emit_traj else None)
     for t in range(T):
-        x_old, u_nom, k, K = _step_inputs(traj, gains, gk, gK, n, t)
+        x_old, u_nom, k, K = _step_inputs(traj, gains, gk, gK, n, m, t)
         x_s = x
         x, acc, term, u, c = _rollout_step(model, x, acc, term, alphas,
                                            x_old, u_nom, k, K, lo, hi, t,
                                            t == T - 1)
         if emit_traj:
-            out[t] = torch.stack([xi[0] for xi in x_s] + [u[0], c[0]])
+            out[t] = torch.stack([v[0] for v in x_s + u] + [c[0]])
     return ForwardLanesOut(totals=acc + term, traj=out, terminal=term)
 
 
@@ -248,7 +276,7 @@ def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
     - ``gains``: (T, Sg, B) — k at slot ``gk``, K (row-major (m, n)) at
       slot ``gK`` (pass the backward output with its OutLayout offsets).
     - ``x0``: (n, B); ``alphas``: (A, B) per-scenario α, A ≤ 8 on the card.
-    - ``lims``: static ``((lo, hi),)``, or None for no clamp.
+    - ``lims``: static ``((lo, hi),) * m``, or None for no clamp.
     - ``emit_traj``: also return the candidate-0 stream (T, n+m+1, B).
 
     Returns per-α totals (running + terminal) and terminal costs, (A, B).
@@ -263,18 +291,19 @@ def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
     A = alphas.shape[0]
     if not 1 <= A <= MAX_A:
         raise ValueError(f"forward_lanes: A={A} outside 1..{MAX_A}")
-    lib, dev, stream, consts = cuda_args(model.device, "forward_lanes",
-                                         traj, gains, x0, alphas)
+    lib, dev, stream, model_args = cuda_args(
+        model.device, "forward_lanes", model.n, model.m, traj, gains, x0,
+        alphas)
     totals = torch.empty((A, B), dtype=torch.float32, device=traj.device)
     term = torch.empty_like(totals)
     out = (torch.empty((T, model.n + model.m + 1, B), dtype=torch.float32,
                        device=traj.device) if emit_traj else None)
-    lo, hi = bounds(lims)
+    lim = lims_host(lims, model.m)
     rc = lib.ddp_forward_lanes(
         traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1], gk,
         gK, x0.data_ptr(), alphas.data_ptr(), A, totals.data_ptr(),
-        term.data_ptr(), _ptr(out), T, B, lo, hi, model.device.model_id,
-        consts, dev, stream)
+        term.data_ptr(), _ptr(out), T, B, lim.ctypes.data, *model_args, dev,
+        stream)
     _build.check(lib, rc, "forward_lanes")
     forward_lanes.launches += 1
     return ForwardLanesOut(totals=totals, traj=out, terminal=term)
@@ -315,18 +344,19 @@ def linesearch_lanes(traj: torch.Tensor, gains: torch.Tensor,
     A = len(alphas)
     if not 1 <= A <= MAX_A:
         raise ValueError(f"linesearch_lanes: {A} alphas outside 1..{MAX_A}")
-    lib, dev, stream, consts = cuda_args(model.device, "linesearch_lanes",
-                                         traj, gains, x0, sel)
+    lib, dev, stream, model_args = cuda_args(
+        model.device, "linesearch_lanes", model.n, model.m, traj, gains, x0,
+        sel)
     ladder = np.asarray(alphas, np.float32)
     out = torch.empty((T, model.n + model.m + 1, B), dtype=torch.float32,
                       device=traj.device)
     ls = torch.empty((5, B), dtype=torch.float32, device=traj.device)
-    lo, hi = bounds(lims)
+    lim = lims_host(lims, model.m)
     rc = lib.ddp_linesearch_lanes(
         traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1], gk,
         gK, x0.data_ptr(), sel.data_ptr(), ladder.ctypes.data, A,
-        float(reduce_ratio_min), out.data_ptr(), ls.data_ptr(), T, B, lo, hi,
-        model.device.model_id, consts, dev, stream)
+        float(reduce_ratio_min), out.data_ptr(), ls.data_ptr(), T, B,
+        lim.ctypes.data, *model_args, dev, stream)
     _build.check(lib, rc, "linesearch_lanes")
     linesearch_lanes.launches += 1
     return LineSearchLanesOut(traj=out, ls=ls)

@@ -10,6 +10,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .device import resolve
+
 
 class GaussianPolicy(NamedTuple):
     """Time-varying affine-Gaussian controller ``u_t = k_t + K_t @ dx_t + noise``
@@ -41,7 +43,9 @@ class GaussianPolicy(NamedTuple):
     @staticmethod
     def zeros(T: int, n: int, m: int, dtype=torch.float32,
               device=None) -> "GaussianPolicy":
-        """Zero-gain unit-covariance policy (reference ctor ``src/iLQG.jl:51``)."""
+        """Zero-gain unit-covariance policy (reference ctor ``src/iLQG.jl:51``);
+        ``device=None`` is the CUDA card."""
+        device = resolve(device)
         eye = torch.eye(m, dtype=dtype, device=device).expand(T, m, m)
         return GaussianPolicy(
             K=torch.zeros((T, m, n), dtype=dtype, device=device),

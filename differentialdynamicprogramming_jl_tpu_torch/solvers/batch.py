@@ -15,7 +15,8 @@ line as in the JAX solver.
 
 Whether a kernel or its plain version runs is decided by the device of
 ``x0s``/``u0s`` alone: CPU tensors run the plain versions, CUDA tensors the
-kernels. Results live on the input's device.
+kernels, and inputs that are not tensors go to the card (:mod:`..device`).
+Results live on that device.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import as_tensor
 from ..policy import GaussianPolicy
 from ..ops.hopper.pack import to_streams, from_streams
 from ..ops.hopper.backward_kernel import OutLayout, backward_lanes
@@ -103,7 +105,7 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
       derivative function (e.g. ``pendcart_derivs_tiles(spec)``).
     - ``x0s``: (B, n) initial states; ``u0s``: (B, T, m) initial controls.
       The initial rollout sweeps the α ladder (``src/iLQG.jl:181-192``).
-    - ``lims``: static ``((lo, hi),)``, or None for the unconstrained
+    - ``lims``: static ``((lo, hi),) * m``, or None for the unconstrained
       solve; ``cfg``: :class:`ILQGConfig`.
     - ``max_steps``: bound on this call's iterations below ``cfg.cap()``.
     - ``record_trace``: also return the (B, cap) :class:`BatchTrace`.
@@ -112,11 +114,11 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
     ``interpret`` are not taken.
 
     Not in this slice (NotImplementedError): ``packed_derivs``, ``params``,
-    per-scenario ``lims`` arrays, m ≠ 1, pre-rolled ``x0s``, ``cost0``,
+    per-scenario ``lims`` arrays, m > 2, pre-rolled ``x0s``, ``cost0``,
     ``warm_start`` and the resume counters ``lam0``/``dlam0``/``accepted0``.
     """
-    x0s = torch.as_tensor(x0s)
-    u0s = torch.as_tensor(u0s)
+    x0s = as_tensor(x0s)
+    u0s = as_tensor(u0s)
     _out_of_slice(packed_derivs, derivs_tiles, params, cost0, warm_start,
                   lam0, dlam0, accepted0, x0s, cfg)
     lims, _ = split_lims(lims)
@@ -277,8 +279,9 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
     # rollout
     bad5 = ~any0
     eye_slots = torch.zeros((lay.S, 1), dtype=f32, device=dev)
-    eye_slots[lay.quu] = 1.0
-    eye_slots[lay.quui] = 1.0
+    for i in range(m):
+        eye_slots[lay.quu + i * m + i] = 1.0
+        eye_slots[lay.quui + i * m + i] = 1.0
     bo_full = torch.where(bad5, eye_slots, bo_full)
     traj = torch.where(bad5, traj_init, traj)
     cost_tot = torch.where(bad5, tot_init, cost_tot)

@@ -17,7 +17,8 @@ per-step ADAM variant, ``src/iLQGkl.jl:185-236``), for B scenarios at once:
 The JAX solver is one ``lax.while_loop``; this one is a host loop whose
 retry condition and ``done.all()`` each synchronise with the host once per
 check. Whether kernels or their plain versions run is decided by the device
-of the inputs: CPU tensors run the plain versions, CUDA tensors the kernels.
+of the inputs: CPU tensors run the plain versions, CUDA tensors the kernels;
+inputs that are not tensors go to the card (:mod:`..device`).
 """
 from __future__ import annotations
 
@@ -25,35 +26,15 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..device import as_tensor
 from ..policy import GaussianPolicy
 from ..ops.hopper.pack import to_streams, from_streams
-from ..ops.hopper.backward_kernel import OutLayout, _sum, backward_lanes
+from ..ops.hopper.backward_kernel import (OutLayout, _sum, _tiny_chol,
+                                          backward_lanes)
 from ..ops.hopper.covariance_kernel import covariance_lanes, identity_r1
 from ..ops.hopper.forward_kernel import LanesModel, check_slice, forward_lanes
 from .batch import split_lims
 from .ilqgkl import ILQGKLConfig
-
-
-def _tiny_chol(Q, mm):
-    """Unrolled Cholesky of an mm×mm list-matrix of tensors; returns (L, ok)
-    with ok the all-leading-minors-positive flag (JAX
-    ``backward_kernel.py:122-141``)."""
-    L = [[None] * mm for _ in range(mm)]
-    ok = None
-    for j in range(mm):
-        d = Q[j][j]
-        for p in range(j):
-            d = d - L[j][p] * L[j][p]
-        okj = d > 0
-        ok = okj if ok is None else ok & okj
-        Ljj = torch.sqrt(torch.clamp_min(d, 1e-30))
-        L[j][j] = Ljj
-        for i in range(j + 1, mm):
-            s = Q[i][j]
-            for p in range(j):
-                s = s - L[i][p] * L[j][p]
-            L[i][j] = s / Ljj
-    return L, ok
 
 
 def _logdet_tiles(S, m):
@@ -208,7 +189,12 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
         bracket0=bracket0, delta0_in=delta0_in, adam0_in=adam0_in, it0=it0,
         max_steps=max_steps))
     check_slice(model.m, lims)
-    x0s = torch.as_tensor(x0s)
+    if model.m != 1:
+        raise NotImplementedError(
+            f"m={model.m}: the KL/GPS path (K1 in GPS mode) is ported for "
+            "m=1 only")
+    x0s = as_tensor(x0s)
+    traj_prev = GaussianPolicy(*map(as_tensor, traj_prev))
     dev = x0s.device
     f32 = torch.float32
     n, m = model.n, model.m
@@ -231,7 +217,7 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
          traj_prev.sigma_inv.to(f32).reshape(B, T, -1)], dim=-1))
     k_p, K_p, Si_p = prev[:, :m], prev[:, m:m + m * n], prev[:, m + m * n:]
     sxx = covariance_lanes(
-        to_streams(torch.as_tensor(fx_model).to(f32).reshape(B, T, -1)),
+        to_streams(as_tensor(fx_model, f32).reshape(B, T, -1)),
         n=n, r1=r1)
 
     kl_step = torch.tensor(cfg.kl_step, dtype=f32, device=dev)
@@ -242,7 +228,7 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
     delta0 = torch.full(shape, cfg.del0, dtype=f32, device=dev)
     adam = (torch.zeros((2, T, B), dtype=f32, device=dev) if per_step
             else None)
-    tot0 = torch.as_tensor(cost0).to(f32)
+    tot0 = as_tensor(cost0, f32)
     one = torch.ones((1, B), dtype=f32, device=dev)
     lam0 = torch.zeros((B,), dtype=f32, device=dev)
 
@@ -424,9 +410,9 @@ def gps_rollout_lanes(model, derivs_tiles, x0s, traj0: GaussianPolicy, cost0,
     kl_violated)``, each (outer_iters, B).
     """
     f32 = torch.float32
-    x = torch.as_tensor(x0s).to(f32)
-    cost = torch.as_tensor(cost0).to(f32)
-    traj = GaussianPolicy(*(torch.as_tensor(a).to(f32) for a in traj0))
+    x = as_tensor(x0s, f32)
+    cost = as_tensor(cost0, f32)
+    traj = GaussianPolicy(*(as_tensor(a, f32) for a in traj0))
     rows: List[tuple] = []
     for _ in range(int(outer_iters)):
         res = ilqgkl_batch_lanes(model, derivs_tiles, x, traj,

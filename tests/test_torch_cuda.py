@@ -277,3 +277,145 @@ def test_kl_solve_on_card_matches_cpu(dev):
     torch.testing.assert_close(g.cost_total.cpu(), c.cost_total, rtol=1e-4,
                                atol=0)
     torch.testing.assert_close(g.eta.cpu(), c.eta, rtol=1e-4, atol=0)
+
+
+# ---- the LTI model ⟨10,2⟩: the m=2 box-QP enumeration, the unconstrained
+#      m=2 Cholesky solve and the LTI model functions. No transcendentals:
+#      kernel and plain version run the same IEEE f32 operations in the same
+#      order and should agree bit for bit; held to 1e-5 all the same.
+
+LTI_LIMS = ((-0.6, 0.6), (-0.6, 0.6))
+
+
+def _lti(dev, seed=0):
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    spec = linear.random_lti(seed, n=10, m=2, T=T, device=dev)
+    rng = np.random.default_rng(seed)
+    x0 = torch.tensor(np.linspace(0.5, 2.0, B)[None, :]
+                      + 0.3 * rng.standard_normal((10, B)),
+                      dtype=torch.float32, device=dev)
+    gains0 = torch.cat([torch.tensor(2.0 * rng.standard_normal((T, 2, B)),
+                                     dtype=torch.float32, device=dev),
+                        torch.zeros((T, 20, B), device=dev)], dim=1)
+    al = torch.tensor(rng.uniform(0, 1, (1, B)), dtype=torch.float32,
+                      device=dev)
+    return (spec, linear.lti_lanes(spec), linear.lti_derivs_tiles(spec), x0,
+            gains0, al)
+
+
+def test_lti_forward_kernel_matches_plain(dev):
+    _, model, _, x0, gains0, al = _lti(dev)
+    traj0 = torch.zeros((T, 12, B), device=dev)
+    ladder = torch.tensor(ALPHAS, device=dev)[:, None].expand(6, B)
+    for lims in (LTI_LIMS, None):
+        for alphas, emit in ((ladder.contiguous(), False), (al, True)):
+            n0 = fk.forward_lanes.launches
+            k = fk.forward_lanes(traj0, gains0, x0, alphas, model=model,
+                                 lims=lims, emit_traj=emit)
+            assert fk.forward_lanes.launches == n0 + 1
+            p = fk.forward_lanes_ref(traj0, gains0, x0, alphas, model=model,
+                                     lims=lims, emit_traj=emit)
+            torch.testing.assert_close(k.totals, p.totals, rtol=1e-5,
+                                       atol=1e-5)
+            if emit:
+                torch.testing.assert_close(k.traj, p.traj, rtol=1e-5,
+                                           atol=1e-5)
+
+
+@pytest.mark.parametrize("reg_type", [1, 2])
+@pytest.mark.parametrize("emit", ["gains", "full"])
+@pytest.mark.parametrize("lims", [LTI_LIMS, ((-0.05, 0.05), (-0.02, 0.08)),
+                                  None])
+def test_lti_backward_kernel_matches_plain(dev, reg_type, emit, lims):
+    _, model, tiles, x0, gains0, al = _lti(dev)
+    traj = fk.forward_lanes(torch.zeros((T, 12, B), device=dev), gains0, x0,
+                            al, model=model, lims=LTI_LIMS,
+                            emit_traj=True).traj
+    lam = torch.logspace(-6, 2, B, device=dev)
+    kw = dict(n=10, m=2, reg_type=reg_type, lims=lims, derivs_tiles=tiles,
+              emit=emit)
+    k = bk.backward_lanes(traj, lam, **kw)
+    p = bk.backward_lanes_ref(traj, lam, **kw)
+    torch.testing.assert_close(k.out, p.out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k.stats[:2], p.stats[:2], rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(k.stats[2:], p.stats[2:])
+    if lims is not None:
+        # the box QP puts k on a limit of each control on some steps
+        u = traj[:-1, 10:12]
+        lo = torch.tensor([lo for lo, _ in lims], device=dev)[:, None]
+        hi = torch.tensor([hi for _, hi in lims], device=dev)[:, None]
+        on = (k.out[:-1, :2] == lo - u) | (k.out[:-1, :2] == hi - u)
+        assert on[:, 0].any() and on[:, 1].any()
+
+
+def test_lti_latch_matches_plain(dev):
+    """R negative definite: the unconstrained solve latches on the lanes
+    whose λ·BᵀB cannot lift Quu; identical flags in both versions."""
+    spec, _, _, x0, gains0, al = _lti(dev)
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    model = linear.lti_lanes(spec)
+    tiles = linear.lti_derivs_tiles(spec._replace(R=-spec.R))
+    traj = fk.forward_lanes(torch.zeros((T, 12, B), device=dev), gains0, x0,
+                            al, model=model, lims=LTI_LIMS,
+                            emit_traj=True).traj
+    lam = torch.logspace(-6, 2, B, device=dev)
+    kw = dict(n=10, m=2, reg_type=2, lims=None, derivs_tiles=tiles,
+              emit="full")
+    k = bk.backward_lanes(traj, lam, **kw)
+    p = bk.backward_lanes_ref(traj, lam, **kw)
+    assert torch.equal(k.stats[2:], p.stats[2:])
+    assert 0 < int((k.stats[2] > 0.5).sum()) < B
+    torch.testing.assert_close(k.out, p.out, rtol=1e-4, atol=1e-5)
+
+
+def test_lti_linesearch_kernel_matches_plain_and_retraces(dev):
+    _, model, tiles, x0, gains0, al = _lti(dev)
+    ro = fk.forward_lanes(torch.zeros((T, 12, B), device=dev), gains0, x0, al,
+                          model=model, lims=LTI_LIMS, emit_traj=True)
+    bo = bk.backward_lanes(ro.traj, torch.ones(B, device=dev), n=10, m=2,
+                           reg_type=2, lims=LTI_LIMS, derivs_tiles=tiles,
+                           emit="gains")
+    allow = (torch.arange(B, device=dev) % 2 == 0).float()
+    sel = torch.stack([bo.stats[0], bo.stats[1], ro.totals[0], allow])
+    kw = dict(model=model, alphas=ALPHAS, lims=LTI_LIMS)
+    k = fk.linesearch_lanes(ro.traj, bo.out, x0, sel, **kw)
+    p = fk.linesearch_lanes_ref(ro.traj, bo.out, x0, sel,
+                                reduce_ratio_min=0.0, **kw)
+    torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+    assert torch.equal(k.ls[:2], p.ls[:2])
+    rej = (k.ls[1] < 0.5) | (allow < 0.5)
+    assert rej.any()
+    assert torch.equal(k.traj[..., rej], ro.traj[..., rej])
+
+
+def test_lti_other_sizes_raise_on_card(dev):
+    """The LTI kernels are built for ⟨10,2⟩ only; another size on a CUDA
+    tensor raises instead of running the plain version."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    spec = linear.random_lti(1, n=4, m=2, T=T, device=dev)
+    traj = torch.zeros((T, 7, B), device=dev)
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        bk.backward_lanes(traj, torch.ones(B, device=dev), n=4, m=2,
+                          reg_type=2, lims=LTI_LIMS,
+                          derivs_tiles=linear.lti_derivs_tiles(spec))
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        fk.forward_lanes(traj, torch.zeros((T, 10, B), device=dev),
+                         torch.zeros((4, B), device=dev),
+                         torch.ones((1, B), device=dev),
+                         model=linear.lti_lanes(spec), lims=LTI_LIMS)
+
+
+def test_lti_solver_on_card_matches_cpu(dev):
+    spec, model, tiles, _, _, _ = _lti(dev)
+    x0s = torch.ones((16, 10), device=dev) * torch.linspace(
+        0.5, 2.0, 16, device=dev)[:, None]
+    u0s = spec.u0.expand(16, T, 2).contiguous()
+    cfg = ILQGConfig(alphas=ALPHAS, reg_type=2, lam_max=1e15, max_iter=50)
+    kw = dict(lims=LTI_LIMS, cfg=cfg, derivs_tiles=tiles)
+    g = ilqg_batch_lanes(model, None, x0s, u0s, **kw)
+    c = ilqg_batch_lanes(model, None, x0s.cpu(), u0s.cpu(), **kw)
+    assert g.cost_total.device.type == "cuda"
+    torch.testing.assert_close(g.cost_total.cpu(), c.cost_total, rtol=1e-4,
+                               atol=0)
+    assert torch.equal(g.reason.cpu(), c.reason)

@@ -54,10 +54,11 @@ def rolled(request):
         lambda x, u: jderivs(x, u).fx, OUTER, cfg=CFG, kt=4, unroll=1,
         interpret=True)
     tspec = convert.spec_from_jax(SPEC)
-    tprob = tpc.make_pendcart_problem(tspec, derivs="euler")
+    tprob = tpc.make_pendcart_problem(tspec, derivs="euler", device="cpu")
     tx, tpol, tper = tkl.gps_rollout_lanes(
         tpc.pendcart_lanes(tspec), tpc.pendcart_derivs_tiles(tspec),
-        torch.from_numpy(inp["x"]), convert.policy_from_jax(jprev),
+        torch.from_numpy(inp["x"]),
+        convert.policy_from_jax(jprev, device="cpu"),
         torch.from_numpy(inp["cost0"]), lambda x, u: tprob.derivs(x, u).fx,
         OUTER, cfg=convert.kl_config_from_jax(CFG))
     ref = dict(zip(NAMES, map(np.asarray, jper)), x=np.asarray(jx),

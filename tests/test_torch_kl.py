@@ -64,7 +64,8 @@ def solve_both(inp, jcfg, record_trace=False):
     tspec = convert.spec_from_jax(SPEC)
     out = tkl.ilqgkl_batch_lanes(
         tpc.pendcart_lanes(tspec), tpc.pendcart_derivs_tiles(tspec),
-        torch.from_numpy(inp["x"]), convert.policy_from_jax(jprev),
+        torch.from_numpy(inp["x"]),
+        convert.policy_from_jax(jprev, device="cpu"),
         torch.from_numpy(inp["fx"]), torch.from_numpy(inp["cost0"]),
         cfg=convert.kl_config_from_jax(jcfg), record_trace=record_trace)
     return convert.result_to_numpy(ref), convert.result_to_numpy(out)
@@ -194,7 +195,8 @@ def test_kl_out_of_slice_options_raise(kwargs, option):
         tkl.ilqgkl_batch_lanes(
             tpc.pendcart_lanes(tspec), tpc.pendcart_derivs_tiles(tspec),
             torch.from_numpy(inp["x"]),
-            convert.policy_from_jax(type("P", (), inp["policy"])),
+            convert.policy_from_jax(type("P", (), inp["policy"]),
+                                    device="cpu"),
             torch.from_numpy(inp["fx"]), torch.from_numpy(inp["cost0"]),
             **kwargs)
 
@@ -276,7 +278,7 @@ def test_make_pendcart_problem_matches_jax():
     u = (3.0 * rng.standard_normal((3, 7, 1))).astype(np.float32)
     jp = jpc.make_pendcart_problem(SPEC, derivs="euler", dtype=jnp.float32)
     tp = tpc.make_pendcart_problem(convert.spec_from_jax(SPEC),
-                                   derivs="euler")
+                                   derivs="euler", device="cpu")
     jd = jax.vmap(jp.make_derivs())(jnp.asarray(x), jnp.asarray(u))
     td = tp.make_derivs()(torch.from_numpy(x), torch.from_numpy(u))
     for name in ("fx", "fu", "cx", "cu", "cxx", "cxu", "cuu"):
@@ -296,7 +298,7 @@ def test_make_pendcart_problem_matches_jax():
 
 def test_problem_trajectory_cost_without_traj_cost():
     """A Problem without ``traj_cost`` stacks its running cost over T."""
-    tp = tpc.make_pendcart_problem(derivs="euler")
+    tp = tpc.make_pendcart_problem(derivs="euler", device="cpu")
     bare = tpc.Problem(dynamics=tp.dynamics, cost=tp.cost)
     x, u = torch.randn(3, 5, 4), torch.randn(3, 5, 1)
     c = bare.trajectory_cost(x, u)
@@ -311,7 +313,7 @@ def test_problem_trajectory_cost_without_traj_cost():
                                         ("x", ValueError)])
 def test_make_pendcart_problem_other_schemes_raise(scheme, exc):
     with pytest.raises(exc, match=scheme):
-        tpc.make_pendcart_problem(derivs=scheme)
+        tpc.make_pendcart_problem(derivs=scheme, device="cpu")
 
 
 def test_kl_config_and_policy_convert():
@@ -321,6 +323,6 @@ def test_kl_config_and_policy_convert():
     assert (cfg.kl_step, cfg.max_iter, cfg.retry_cap) == (0.5, 7, 9)
     assert cfg.constrain_per_step and cfg.eta_bracket == (1e-6, 2.0, 1e12)
     pol = JPolicy.zeros(5, 4, 1, jnp.float32)
-    tpol = convert.policy_from_jax(pol)
+    tpol = convert.policy_from_jax(pol, device="cpu")
     assert tpol.K.shape == (5, 1, 4) and tpol.K.dtype == torch.float32
     np.testing.assert_array_equal(tpol.sigma.numpy(), 1.0)

@@ -29,7 +29,12 @@ def test_port_does_not_load_jax():
             "from differentialdynamicprogramming_jl_tpu_torch.ops.hopper"
             ".covariance_kernel import covariance_lanes\n"
             "from differentialdynamicprogramming_jl_tpu_torch.problem "
-            "import Problem\n"
+            "import Problem, broadcast_derivs\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.models.linear "
+            "import LTISpec, random_lti, make_lti_problem, lti_lanes, "
+            "lti_derivs_tiles\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.device "
+            "import as_tensor, resolve\n"
             "from differentialdynamicprogramming_jl_tpu_torch.ops.hopper "
             "import _build\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
@@ -75,20 +80,28 @@ def test_public_names_match_jax():
     for name in P.__all__:
         assert hasattr(P, name), name
     from differentialdynamicprogramming_jl_tpu.solvers import batch_kl
+    from differentialdynamicprogramming_jl_tpu.models import linear as jl
     for name in ("ILQGKLConfig", "ilqgkl_batch_lanes", "gps_rollout_lanes",
                  "BatchKLResult", "BatchKLTrace", "kl_div_wiki_lanes",
-                 "calc_eta_lanes", "Problem", "make_pendcart_problem"):
+                 "calc_eta_lanes", "Problem", "make_pendcart_problem",
+                 "broadcast_derivs", "LTISpec", "random_lti",
+                 "make_lti_problem", "lti_lanes", "lti_derivs_tiles"):
         assert name in P.__all__, name
-        assert any(hasattr(mod, name) for mod in (J, batch_kl, jpc)), name
+        assert any(hasattr(mod, name) for mod in (J, batch_kl, jpc, jl)), \
+            name
 
 
 def test_out_layout_matches_jax():
     from differentialdynamicprogramming_jl_tpu.ops.pallas.backward_kernel \
         import OutLayout as JOut
-    for emit in ("full", "gains", "policy"):
-        a, b = OutLayout(4, 1, emit), JOut(4, 1, emit)
-        for name in ("k", "K", "Vx", "Vxx", "quu", "quui", "S"):
-            assert getattr(a, name) == getattr(b, name), (emit, name)
+    for n, m in ((4, 1), (10, 2)):
+        for emit in ("full", "gains", "policy"):
+            a, b = OutLayout(n, m, emit), JOut(n, m, emit)
+            for name in ("k", "K", "Vx", "Vxx", "quu", "quui", "S"):
+                assert getattr(a, name) == getattr(b, name), (emit, name)
+    # the LTI streams of the fleet path: 22 gain slots, 140 in full
+    assert OutLayout(10, 2, "gains").S == 22
+    assert OutLayout(10, 2, "full").S == 140
 
 
 def test_convert_configs_from_jax():

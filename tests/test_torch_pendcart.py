@@ -71,8 +71,9 @@ def test_device_descriptor_holds_the_spec_constants():
         np.testing.assert_array_equal(
             dm.consts, np.float32([spec.g, 0.4, spec.h, spec.d, 1, 2, 3, 4,
                                    0.5, *spec.goal]))
-    x0 = tpc.default_x0()
+    x0 = tpc.default_x0(device="cpu")
     assert x0.dtype == torch.float32 and x0.shape == (4,)
     _close(x0.numpy(), np.asarray(jpc.default_x0()), "default_x0")
-    _close(tpc.default_lims().numpy(), np.asarray(jpc.default_lims()),
+    _close(tpc.default_lims(device="cpu").numpy(),
+           np.asarray(jpc.default_lims()),
            "default_lims")
