@@ -8,7 +8,7 @@ Phases, each printing its own lines and its wall time; any failed check
 ends the run with a non-zero exit and no result line:
 
 1. device: torch/CUDA versions and the card's name and power limit;
-2. build: the four kernels from ``ops/hopper/csrc`` with nvcc, one process
+2. build: the five kernels from ``ops/hopper/csrc`` with nvcc, one process
    per source;
 3. iLQG kernels (K3, K1, K2) against their plain PyTorch versions on the
    card at the main path's shapes (B=4096, T=500), with errors and
@@ -31,7 +31,20 @@ ends the run with a non-zero exit and no result line:
     solved to convergence, with launch counts, histograms, ms per
     iteration, peak memory and the bit-exact α=0 retrace;
 12. the LTI solve on 64 scenarios with CUDA tensors and with CPU tensors;
-13. the kernel record (with each kernel's bound) and the result line.
+13. KL-on-LTI kernels: K4 at n=10 and K1 in GPS mode with policy emission
+    at ⟨10,2⟩ against their plain versions, and their times at B=4096,
+    T=1000;
+14. the KL path on the LTI fleet (the reference's demo_linear_kl at fleet
+    scale: kl_step=100, scalar η, no limits), with launch counts, ms per
+    solve and per iteration, peak memory, quality and a torch.profiler
+    split of one solve into kernel time, glue time and device idle share;
+15. the 5-outer ``gps_rollout_lanes`` on the LTI fleet;
+16. the KL-on-LTI solve on 64 scenarios at T=40 with CUDA tensors and with
+    CPU tensors;
+17. the probe K5 (copy, light and full modes) against its plain version,
+    with its times and achieved bandwidth;
+18. the kernel record (one entry per kernel instance, with its bound) and
+    the result line.
 """
 from __future__ import annotations
 
@@ -96,6 +109,13 @@ LTI_T_PLAIN = 64
 # the LTI solve on 64 scenarios with the plain versions on the host: T kept
 # short so that it takes well under a minute
 LTI_T_CPU = 40
+# the KL path on the LTI fleet: the reference's demo_linear_kl
+# (src/demo_linear.jl:63-136; JAX demos.py:44-66) at fleet scale
+KL_LTI_STEP = 100.0
+# the probe K5 (tools/probe_kernel_cost.py): T=500 steps of a 47-slot stream
+PROBE_T = 500
+KERNEL_NAMES = ("backward_kernel", "linesearch_kernel", "forward_kernel",
+                "covariance_kernel", "probe_kernel")
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes and
 # float32 operations outside the tensor cores, per millisecond
 HBM_PER_MS = 3.35e12 / 1e3
@@ -144,11 +164,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def err(a: torch.Tensor, b: torch.Tensor):
-    """(max abs error, max abs error / max |b|), NaN in the same place
-    counting as equal."""
+    """(max abs error, max abs error / max |b|), equal values (an infinity
+    of the same sign included) and NaN in the same place counting as
+    equal."""
     a, b = a.double(), b.double()
-    both_nan = torch.isnan(a) & torch.isnan(b)
-    d = torch.where(both_nan, 0.0, (a - b).abs())
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.where(same, 0.0, (a - b).abs())
     d = torch.where(torch.isnan(d), float("inf"), d)
     scale = torch.where(torch.isfinite(b), b.abs(), 0.0).max().item()
     mx = d.max().item()
@@ -301,7 +322,10 @@ def k1_work(model, T: int, B: int, emit: str, reg_type: int, lims,
     f += (2 * m * n * n + 2 * m * n + 2 * m * m * n + 2 * m * m
           if reg_type == 2 and not gps else m)
     if gps:
-        f += 4 * n * n + 6 * n + 8
+        # 1/η; Σ⁻¹k, Σ⁻¹K and the KL cx, cxx (sums over m); the Q terms
+        # scaled and shifted; Quu symmetrised
+        f += (1 + (2 * m - 1) * (m + m * n + n + n * n)
+              + 2 * (n + m + n * n + m * n + m * m) + 2 * m * m)
     if lims is None:
         f += 3 * m * m + 4 * m * m * (n + 1)          # Cholesky, solves
     elif m == 1:
@@ -314,7 +338,7 @@ def k1_work(model, T: int, B: int, emit: str, reg_type: int, lims,
         f += 10 * m * m                               # Quu⁻¹
     nbytes = 4 * (T * B * (n + m + S) + B * 5)
     if gps:
-        nbytes += 4 * T * B * (n + 3)
+        nbytes += 4 * T * B * (m + m * n + m * m + 1)     # prev and η
     return bound(nbytes, f * T * B)
 
 
@@ -335,10 +359,60 @@ def k4_work(n: int, T: int, B: int) -> dict:
     return bound(4 * 2 * n * n * T * B, (4 * n ** 3 + n * n) * T * B)
 
 
-def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> None:
+def k5_work(mode: str, T: int, B: int) -> dict:
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        probe_kernel as pk)
+    s_read = pk.S_OUT if mode == "copy" else pk.S_IN
+    return bound(4 * T * B * (s_read + pk.S_OUT), 2 * pk.MODES[mode] * T * B)
+
+
+def profile_split(fn):
+    """One run of ``fn`` under torch.profiler: device time in the port's
+    kernels (namespace ddp), in everything else on the device (torch glue:
+    elementwise kernels, reductions, copies), and the device's idle share of
+    the profiled wall time. None when the profiler recorded no device
+    events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, (cs, ce) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > ce:
+            busy, cs, ce = busy + ce - cs, a, b
+        else:
+            ce = max(ce, b)
+    busy += ce - cs
+    by_kernel, glue_us, n_glue = {}, 0.0, 0
+    for e in evs:
+        us = e.time_range.end - e.time_range.start
+        name = next((k for k in KERNEL_NAMES if "ddp" in e.name and k in e.name),
+                    None)
+        if name is None:
+            glue_us, n_glue = glue_us + us, n_glue + 1
+        else:
+            ms, n = by_kernel.get(name, (0.0, 0))
+            by_kernel[name] = (ms + us / 1e3, n + 1)
+    return dict(wall_ms=wall_ms, busy_ms=busy / 1e3,
+                kernel_ms=sum(v[0] for v in by_kernel.values()),
+                glue_ms=glue_us / 1e3, glue_launches=n_glue,
+                by_kernel=by_kernel, idle_share=1.0 - busy / 1e3 / wall_ms)
+
+
+def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> dict:
     """Phases 6-9: the KL/GPS path's kernels against their plain versions,
     the KL solve, the GPS rollout, and the KL solve against the CPU. Adds
-    the KL measurements to ``rec``."""
+    the KL measurements to ``rec``; returns the launches of the KL and GPS
+    paths."""
     from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
         default_x0, make_pendcart_problem)
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
@@ -397,9 +471,8 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> None:
     plain_ms4 = cuda_ms(
         lambda: ck.covariance_lanes_ref(fx_s, n=4, r1=ck.identity_r1(4)), 3)
     print(f"  K4: kernel {ms4:.3f} ms, plain {plain_ms4:.1f} ms")
-    rec["covariance_lanes"] = dict(max_abs_err=e_k4, ms=ms4,
-                                   plain_ms=plain_ms4, library_ms=None,
-                                   **k4_work(4, T, B))
+    rec["k4_4"] = dict(max_abs_err=e_k4, ms=ms4, plain_ms=plain_ms4,
+                       library_ms=None, **k4_work(4, T, B))
 
     # K1 in GPS mode, policy emission, no limits, on the pre-roll: a
     # previous policy with every KL term non-zero, and η scalar (1, where
@@ -446,11 +519,11 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> None:
     ms1 = cuda_ms(lambda: gps_bwd(eta1, False), 20)
     plain_ms1 = cuda_ms(lambda: gps_bwd(eta1, True), 3)
     print(f"  K1 GPS policy: kernel {ms1:.3f} ms, plain {plain_ms1:.1f} ms")
-    rec["backward_lanes"].update(
-        max_abs_err=max([rec["backward_lanes"]["max_abs_err"]] + errs),
-        ms_gps_policy=ms1, plain_ms_gps_policy=plain_ms1)
-    rec["forward_lanes"].update(
-        max_abs_err=max(rec["forward_lanes"]["max_abs_err"], e_k3),
+    rec["k1_pendcart_gps"] = dict(
+        max_abs_err=max(errs), ms=ms1, plain_ms=plain_ms1, library_ms=None,
+        **k1_work(model, T, B, "policy", 1, None, gps=True))
+    rec["k3_pendcart"].update(
+        max_abs_err=max(rec["k3_pendcart"]["max_abs_err"], e_k3),
         ms_unclamped_rollout=ms3, plain_ms_unclamped_rollout=plain_ms3)
     del prev, etas, gains, k, p, k3, p3, kc, pc
 
@@ -516,7 +589,7 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> None:
            & torch.isfinite(r.policy.sigma).flatten(1).all(dim=1))
     check(bool(fin[ok].all()), f"non-finite KL results on "
           f"{int((~fin & ok).sum())} lanes without pd_failed")
-    by_path = {c.__name__: {"kl": launches[c.__name__]} for c in counters}
+    paths = {"kl": launches}
     del r
 
     ph.start("gps-rollout", f"gps_rollout_lanes, {GPS_OUTER} outer KL "
@@ -549,9 +622,7 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> None:
           f"a kernel of the GPS rollout ran too rarely: {launches}")
     check(bool(torch.isfinite(costs[-1]).float().mean() >= AGREE_SHARE),
           "GPS rollout: non-finite final costs")
-    for c in counters:
-        by_path[c.__name__]["gps"] = launches[c.__name__]
-        rec[c.__name__]["by_path"] = by_path[c.__name__]
+    paths["gps"] = launches
     del xg, polg, per
 
     ph.start("kl-gpu-vs-cpu", f"first {B_CPU} scenarios, T={T}, "
@@ -573,6 +644,7 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> None:
           f"{AGREE_SHARE} each)")
     check(min(close, same_sat, same_it) >= AGREE_SHARE,
           "KL: GPU and CPU outcomes differ")
+    return paths
 
 
 def lti_phases(ph, dev, rec, counters) -> dict:
@@ -729,15 +801,13 @@ def lti_phases(ph, dev, rec, counters) -> dict:
     print(f"  LTI K3 rollout A=1 at T={LTI_T}: kernel {ms3r:.3f} ms; plain "
           f"versions once at T={Tp}: K3 sweep {plain3:.1f} ms, K1 gains "
           f"{plain1:.1f} ms, K2 {plain2:.1f} ms")
-    rec["forward_lanes"]["lti"] = dict(ms=ms3, ms_rollout=ms3r,
-                                       plain_ms=plain3, plain_T=Tp,
-                                       max_abs_err=e3, **w3)
-    rec["backward_lanes"]["lti"] = dict(ms=ms1, ms_full=ms1f,
-                                        bound_ms_full=w1f["bound_ms"],
-                                        plain_ms=plain1, plain_T=Tp,
-                                        max_abs_err=max(errs), **w1)
-    rec["linesearch_lanes"]["lti"] = dict(ms=ms2, plain_ms=plain2,
-                                          plain_T=Tp, max_abs_err=e2, **w2)
+    rec["k3_lti"] = dict(ms=ms3, ms_rollout=ms3r, plain_ms=plain3,
+                         plain_T=Tp, max_abs_err=e3, library_ms=None, **w3)
+    rec["k1_lti"] = dict(ms=ms1, ms_full=ms1f, bound_ms_full=w1f["bound_ms"],
+                         plain_ms=plain1, plain_T=Tp, max_abs_err=max(errs),
+                         library_ms=None, **w1)
+    rec["k2_lti"] = dict(ms=ms2, plain_ms=plain2, plain_T=Tp, max_abs_err=e2,
+                         library_ms=None, **w2)
     del streams, traj, traj_T, ro, bo, gains, k, p, out
 
     ph.start("lti-path", f"ilqg_batch_lanes, LTI n={n} m={m} B={B} "
@@ -802,7 +872,7 @@ def lti_phases(ph, dev, rec, counters) -> dict:
           "LTI: rejected lanes of the solution do not retrace bit for bit")
     print(f"  retrace: {int(rej.sum())} rejected lanes reproduce the "
           f"solution stream bit for bit")
-    rec["backward_lanes"]["lti"]["path"] = dict(
+    rec["k1_lti"]["path"] = dict(
         solve_ms=solve_ms, iters=iters, ms_per_iter=solve_ms / max(iters, 1),
         peak_bytes=peak, reasons=hist(r.reason))
     del r, st, bo, out
@@ -830,6 +900,327 @@ def lti_phases(ph, dev, rec, counters) -> dict:
     return launches
 
 
+def kl_lti_phases(ph, dev, rec, counters) -> dict:
+    """Phases 13-16: the KL/GPS path on the LTI fleet. K4 at n=10 and K1 in
+    GPS mode with policy emission at ⟨10,2⟩ against their plain versions,
+    the KL solve of the reference's demo_linear_kl at fleet scale, the
+    5-outer GPS rollout, and the KL solve against the CPU. Adds the
+    measurements to ``rec``; returns the launches of the two paths."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        SimpleLTVModel, lti_derivs_tiles, lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, covariance_kernel as ck, forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        from_streams, to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.policy import (
+        GaussianPolicy)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        gps_rollout_lanes, ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+
+    n, m, Tl, Tp = LTI_N, LTI_M, LTI_T, LTI_T_PLAIN
+    ph.start("kl-lti-kernels", f"K4 n={n}, K1 GPS policy ⟨{n},{m}⟩ against "
+             f"plain versions (K1 at T={Tp}), timed at B={B}, T={Tl}")
+    # the LTI fleet of the lti phases; pre-rolled by K3 at α=1 with k := u0
+    # and no limits, as demo_linear_kl (JAX demos.py:50-55)
+    spec = random_lti(0, n=n, m=m, T=Tl, device=dev)
+    model, tiles = lti_lanes(spec), lti_derivs_tiles(spec)
+    x0s = torch.ones((B, n), device=dev) * torch.linspace(
+        0.5, 2.0, B, device=dev)[:, None]
+    u0s = spec.u0.expand(B, Tl, m).contiguous()
+    x0_l = x0s.T.contiguous()
+    ones = torch.ones((1, B), device=dev)
+    gains_u0 = torch.cat([to_streams(u0s),
+                          torch.zeros((Tl, m * n, B), device=dev)], dim=1)
+    zeros_traj = torch.zeros((Tl, n + m + 1, B), device=dev)
+
+    def pre_roll(plain):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(zeros_traj, gains_u0, x0_l, ones, model=model, lims=None,
+                 emit_traj=True)
+
+    k, p = pre_roll(False), pre_roll(True)
+    e3 = compare("LTI K3 pre-roll, no limits", {
+        "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)})
+    print(f"  LTI K3 pre-roll: bit-identical to the plain version: "
+          f"{torch.equal(k.traj, p.traj) and torch.equal(k.totals, p.totals)}")
+    traj_pre, cost0 = k.traj, k.totals[0]
+    ms3 = cuda_ms(lambda: pre_roll(False), 20)
+    del p, zeros_traj, gains_u0
+
+    # K4 at n=10 on the model's linearisation, SimpleLTVModel.from_lti
+    fx_lti = SimpleLTVModel.from_lti(spec.A, spec.B, Tl).fx    # (T, n, n)
+    fx_s = to_streams(fx_lti.expand(B, Tl, n, n))
+    r1 = ck.identity_r1(n)
+    kc = ck.covariance_lanes(fx_s, n=n)
+    pc = ck.covariance_lanes_ref(fx_s, n=n, r1=r1)
+    e4 = compare_slots(f"K4 n={n} Σxx", kc, pc, COV_TOL)
+    growth = kc[-1].abs().amax(dim=0) / kc[0].abs().amax(dim=0)
+    print(f"  K4 Σ growth over the horizon: median "
+          f"{growth.median().item():.3e}")
+    ms4 = cuda_ms(lambda: ck.covariance_lanes(fx_s, n=n), 20)
+    plain4 = cuda_ms(lambda: ck.covariance_lanes_ref(fx_s, n=n, r1=r1), 3)
+    w4 = k4_work(n, Tl, B)
+    print(f"  K4 n={n}: kernel {ms4:.3f} ms, plain {plain4:.1f} ms, bound "
+          f"{w4['bound_ms']:.3f} ms ({w4['bound_by']}: "
+          f"{w4['bound_bytes'] / 1e6:.1f} MB, "
+          f"{w4['bound_flops'] / 1e9:.2f} GFLOP)")
+    rec["k4_10"] = dict(max_abs_err=e4, ms=ms4, plain_ms=plain4,
+                        library_ms=None, **w4)
+    del kc, pc, fx_s
+
+    # K1 in GPS mode, policy emission, on the pre-roll: a previous policy
+    # with every KL term non-zero (Σ⁻¹ positive definite), η scalar (1,
+    # where the solve starts) or per step, with ±0.6 and without limits
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((Tp, B, m, m))
+    si = np.einsum("tbij,tbkj->tbik", a, a) + 0.5 * np.eye(m)
+    prev = torch.tensor(np.concatenate([
+        rng.standard_normal((Tp, m, B)),
+        0.5 * rng.standard_normal((Tp, m * n, B)),
+        np.moveaxis(si.reshape(Tp, B, m * m), 1, 2)], axis=1),
+        dtype=torch.float32, device=dev)
+    etas = {"scalar η=1": torch.ones((Tp, B), device=dev),
+            "per-step η": torch.tensor(10.0 ** rng.uniform(-1, 1, (Tp, B)),
+                                       dtype=torch.float32, device=dev)}
+    lam0 = torch.zeros(B, device=dev)
+    traj_p = traj_pre[:Tp].contiguous()
+    lay = bk.OutLayout(n, m, "policy")
+
+    def gps_bwd(tr, pv, eta, lims, plain):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, lam0, n=n, m=m, reg_type=1, lims=lims,
+                 derivs_tiles=tiles, prev=pv, eta=eta, emit="policy")
+
+    errs, plain1 = [], None
+    for what, eta in etas.items():
+        for lims in (LTI_LIMS, None):
+            name = f"LTI K1 GPS policy {what} {'±0.6' if lims else 'no limits'}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = gps_bwd(traj_p, prev, eta, lims, True)
+            torch.cuda.synchronize()
+            plain1 = plain1 or (time.perf_counter() - t0) * 1e3
+            k = gps_bwd(traj_p, prev, eta, lims, False)
+            errs.append(compare_slots(f"{name}: k, K, Quu",
+                                      k.out[:, :lay.quui],
+                                      p.out[:, :lay.quui], GPS_SLOT_TOL))
+            errs.append(compare(name, {"dV": (k.stats[:2], p.stats[:2])}))
+            errs.append(compare(name, {
+                "Quu_inv": (k.out[:, lay.quui:], p.out[:, lay.quui:])},
+                QUU_INV_TOL))
+            check(torch.equal(k.stats[2:], p.stats[2:]),
+                  f"{name}: diverged/diverge_idx differ")
+            print(f"  {name}: bit-identical "
+                  f"{torch.equal(k.out, p.out) and torch.equal(k.stats, p.stats)}"
+                  f", {int((k.stats[2] > 0.5).sum())} latched lanes in both")
+    # timed at the path's shapes: the first iteration's inputs (zero gains,
+    # unit Σ, η = 1), no limits
+    prev_path = torch.cat([torch.zeros((Tl, m + m * n, B), device=dev),
+                           to_streams(torch.eye(m, device=dev).expand(
+                               B, Tl, m, m))], dim=1)
+    eta1 = torch.ones((Tl, B), device=dev)
+    ms1 = cuda_ms(lambda: gps_bwd(traj_pre, prev_path, eta1, None, False), 20)
+    w1 = k1_work(model, Tl, B, "policy", 1, None, gps=True)
+    print(f"  LTI K1 GPS policy at T={Tl}: kernel {ms1:.3f} ms, bound "
+          f"{w1['bound_ms']:.3f} ms ({w1['bound_by']}: "
+          f"{w1['bound_bytes'] / 1e6:.1f} MB, "
+          f"{w1['bound_flops'] / 1e9:.2f} GFLOP); plain once at T={Tp}: "
+          f"{plain1:.1f} ms; K3 pre-roll (A=1, no limits) {ms3:.3f} ms")
+    rec["k1_lti_gps"] = dict(max_abs_err=max(errs), ms=ms1, plain_ms=plain1,
+                             plain_T=Tp, library_ms=None, **w1)
+    rec["k3_lti"].update(max_abs_err=max(rec["k3_lti"]["max_abs_err"], e3),
+                         ms_unclamped_rollout=ms3)
+    del prev, etas, prev_path, eta1, traj_p, k, p
+
+    cfg = ILQGKLConfig(kl_step=KL_LTI_STEP)
+    ph.start("kl-lti-solve", f"ilqgkl_batch_lanes, LTI n={n} m={m} B={B} "
+             f"T={Tl}, kl_step={KL_LTI_STEP}, max_iter={cfg.max_iter}, "
+             f"scalar η, no limits")
+    # the zero previous policy with k = u0 and unit Σ (JAX demos.py:55), and
+    # fx_model = SimpleLTVModel.from_lti(A, B, T).fx for every scenario
+    x_pre = from_streams(traj_pre[:, :n], (n,)).contiguous()
+    u_pre = from_streams(traj_pre[:, n:n + m], (m,)).contiguous()
+    eye = torch.eye(m, device=dev).expand(B, Tl, m, m)
+    policy0 = GaussianPolicy(K=torch.zeros((B, Tl, m, n), device=dev),
+                             k=u_pre, sigma=eye, sigma_inv=eye)
+    fx_model = fx_lti.expand(B, Tl, n, n)
+
+    def kl_solve(sl=slice(None), to=dev, Tc=Tl):
+        pol = GaussianPolicy(*(a[sl, :Tc].to(to) for a in policy0))
+        c0 = traj_pre[:Tc, n + m, sl].sum(dim=0) if Tc < Tl else cost0[sl]
+        return ilqgkl_batch_lanes(model, tiles, x_pre[sl, :Tc].to(to), pol,
+                                  fx_model[sl, :Tc].to(to), c0.to(to),
+                                  cfg=cfg)
+
+    kl_solve()                                   # warm-up
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+
+    def timed():
+        s.record()
+        out = kl_solve()
+        e.record()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r, launches = counted(counters, timed)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kl_ms = s.elapsed_time(e)
+    peak = torch.cuda.max_memory_allocated()
+    iters = int(r.n_iters.max())
+    eta_maxed = r.bracket[:, 1] > 0.999 * r.bracket[:, 2]
+    print(f"  launches: {launches}")
+    print(f"  solve: {kl_ms:.3f} ms (CUDA events), {wall_ms:.3f} ms host "
+          f"clock; max n_iters {iters}, {kl_ms / max(iters, 1):.4f} ms/iter; "
+          f"peak memory {peak / 2**30:.3f} GiB")
+    print(f"  cost_total median {r.cost_total.median().item():.6g} against "
+          f"cost0 median {cost0.median().item():.6g}")
+    print(f"  shares: satisfied {r.satisfied.float().mean().item():.4f}, "
+          f"η maxed {eta_maxed.float().mean().item():.4f}, pd_failed "
+          f"{r.pd_failed.float().mean().item():.4f}, kl_violated "
+          f"{r.kl_violated.float().mean().item():.4f}")
+    print(f"  median η {r.eta.median().item():.6g}, median divergence "
+          f"{r.divergence.median().item():.6g}, n_iters histogram "
+          f"{dict(zip(*(v.tolist() for v in torch.unique(r.n_iters, return_counts=True))))}")
+    check(all(launches[c.__name__] > 0 for c in
+              (bk.backward_lanes, fk.forward_lanes, ck.covariance_lanes)),
+          f"a kernel of the KL-LTI path never ran: {launches}")
+    check(launches["covariance_lanes"] == 1,
+          f"K4 ran {launches['covariance_lanes']} times in one KL solve")
+    check(r.x.shape == (B, Tl, n) and r.u.shape == (B, Tl, m)
+          and r.policy.K.shape == (B, Tl, m, n)
+          and r.policy.sigma.shape == (B, Tl, m, m)
+          and r.cost_total.shape == (B,), "KL-LTI result shapes")
+    check(1 <= iters <= cfg.max_iter, f"KL-LTI n_iters {iters}")
+    ok = ~r.pd_failed
+    fin = (torch.isfinite(r.cost_total) & torch.isfinite(r.eta)
+           & torch.isfinite(r.divergence)
+           & torch.isfinite(r.x).flatten(1).all(dim=1)
+           & torch.isfinite(r.policy.K).flatten(1).all(dim=1)
+           & torch.isfinite(r.policy.sigma).flatten(1).all(dim=1))
+    check(bool(fin[ok].all()), f"non-finite KL-LTI results on "
+          f"{int((~fin & ok).sum())} lanes without pd_failed")
+    check(r.cost_total[ok].median() < cost0[ok].median(),
+          "KL-LTI: median cost did not improve")
+    paths = {"kl_lti": launches}
+    del r
+    prof = profile_split(kl_solve)
+    if prof is None:
+        print("  profile: torch.profiler recorded no device events; split "
+              "not measured")
+    else:
+        per = ", ".join(f"{k} {v[0]:.3f} ms ({v[1]})"
+                        for k, v in prof["by_kernel"].items())
+        print(f"  profile of one solve: wall {prof['wall_ms']:.3f} ms, device "
+              f"busy {prof['busy_ms']:.3f} ms (idle share "
+              f"{prof['idle_share']:.4f}); kernels {prof['kernel_ms']:.3f} ms "
+              f"[{per}]; glue {prof['glue_ms']:.3f} ms in "
+              f"{prof['glue_launches']} launches; busy over the unprofiled "
+              f"solve {prof['busy_ms'] / kl_ms:.4f}")
+    rec["k1_lti_gps"]["kl_lti_path"] = dict(
+        solve_ms=kl_ms, iters=iters, ms_per_iter=kl_ms / max(iters, 1),
+        peak_bytes=peak, profile=prof)
+
+    ph.start("gps-lti", f"gps_rollout_lanes, {GPS_OUTER} outer KL solves, "
+             f"LTI B={B} T={Tl}")
+
+    def fx_fn(x, u):
+        return fx_lti.expand(x.shape[0], Tl, n, n)
+
+    def timed_gps():
+        s.record()
+        out = gps_rollout_lanes(model, tiles, x_pre, policy0, cost0, fx_fn,
+                                GPS_OUTER, cfg=cfg)
+        e.record()
+        return out
+
+    (xg, polg, per), launches = counted(counters, timed_gps)
+    gps_ms = s.elapsed_time(e)
+    print(f"  launches: {launches}")
+    print(f"  rollout: {gps_ms:.3f} ms (CUDA events), "
+          f"{gps_ms / GPS_OUTER:.3f} ms per outer iteration")
+    costs, etas_o, divs, sat, viol = per
+    for i in range(GPS_OUTER):
+        print(f"  outer {i + 1}: median cost_total "
+              f"{costs[i].median().item():.6g}, median η "
+              f"{etas_o[i].median().item():.6g}, median divergence "
+              f"{divs[i].median().item():.6g}, satisfied "
+              f"{sat[i].float().mean().item():.4f}")
+    check(costs.shape == (GPS_OUTER, B) and xg.shape == (B, Tl, n)
+          and polg.K.shape == (B, Tl, m, n), "GPS-LTI shapes")
+    check(all(launches[c.__name__] >= GPS_OUTER for c in
+              (bk.backward_lanes, fk.forward_lanes, ck.covariance_lanes)),
+          f"a kernel of the GPS-LTI rollout ran too rarely: {launches}")
+    check(bool(torch.isfinite(costs[-1]).float().mean() >= AGREE_SHARE),
+          "GPS-LTI rollout: non-finite final costs")
+    paths["gps_lti"] = launches
+    rec["k1_lti_gps"]["gps_lti_path"] = dict(rollout_ms=gps_ms,
+                                             ms_per_outer=gps_ms / GPS_OUTER)
+    del xg, polg, per
+
+    ph.start("kl-lti-cpu", f"first {B_CPU} scenarios, T={LTI_T_CPU}, "
+             f"max_iter={cfg.max_iter}")
+    sl = slice(0, B_CPU)
+    g = kl_solve(sl, dev, LTI_T_CPU)
+    t0 = time.perf_counter()
+    c = kl_solve(sl, "cpu", LTI_T_CPU)
+    print(f"  CPU KL-LTI solve (plain versions), T={LTI_T_CPU}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    gc, cc = g.cost_total.cpu(), c.cost_total
+    rel = (gc - cc).abs() / cc.abs()
+    close = (rel <= COST_RTOL).float().mean().item()
+    same_sat = (g.satisfied.cpu() == c.satisfied).float().mean().item()
+    same_it = (g.n_iters.cpu() == c.n_iters).float().mean().item()
+    print(f"  satisfied share {c.satisfied.float().mean().item():.4f}, "
+          f"n_iters {dict(zip(*(v.tolist() for v in torch.unique(c.n_iters, return_counts=True))))}")
+    print(f"  cost_total rel diff: max {rel.max().item():.3e}, median "
+          f"{rel.median().item():.3e}")
+    print(f"  share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
+          f"satisfied {same_sat:.3f}, same n_iters {same_it:.3f} (need "
+          f"{AGREE_SHARE} each)")
+    check(min(close, same_sat, same_it) >= AGREE_SHARE,
+          "KL-LTI: GPU and CPU outcomes differ")
+    return paths
+
+
+def probe_phase(ph, dev, rec, counters) -> dict:
+    """Phase 17: the probe K5, each mode against its plain version (bit for
+    bit: copies and sequential f32 adds), timed, with its achieved
+    bandwidth. Returns the launches of each mode's run."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        probe_kernel as pk)
+    ph.start("probe", f"K5 over a ({PROBE_T}, {pk.S_IN}, {B}) stream: copy, "
+             f"light ({pk.MODES['light']} terms a step), full "
+             f"({pk.MODES['full']})")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((PROBE_T, pk.S_IN, B), generator=gen, device=dev)
+    paths = {}
+    for mode in pk.MODES:
+        k, paths[f"probe_{mode}"] = counted(
+            counters, lambda: pk.probe_lanes(x, mode))
+        p = pk.probe_lanes_ref(x, mode)
+        mx, _ = err(k, p)
+        check(torch.equal(k, p), f"K5 {mode}: differs from its plain version "
+              f"(max abs {mx:.3e})")
+        ms = cuda_ms(lambda: pk.probe_lanes(x, mode), 20)
+        plain = once_ms(lambda: pk.probe_lanes_ref(x, mode))
+        # the copy is one PyTorch call too: the slice, copied
+        lib = (cuda_ms(lambda: x[:, :pk.S_OUT].clone(), 20)
+               if mode == "copy" else None)
+        w = k5_work(mode, PROBE_T, B)
+        gbs = w["bound_bytes"] / ms / 1e6
+        print(f"  K5 {mode}: bit-identical, kernel {ms:.4f} ms "
+              f"({gbs:.1f} GB/s of {w['bound_bytes'] / 1e6:.1f} MB), bound "
+              f"{w['bound_ms']:.4f} ms ({w['bound_by']}), plain {plain:.1f} ms"
+              + (f", torch slice clone {lib:.4f} ms" if lib else ""))
+        rec[f"k5_{mode}"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain,
+                                 library_ms=lib, achieved_GBps=gbs, **w)
+    return paths
+
+
 def main() -> int:
     ph = Phases()
     ph.start("device")
@@ -847,7 +1238,8 @@ def main() -> int:
         PendCartSpec, default_x0, pendcart_derivs_tiles, pendcart_lanes)
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import _build
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
-        backward_kernel as bk, covariance_kernel as ck, forward_kernel as fk)
+        backward_kernel as bk, covariance_kernel as ck, forward_kernel as fk,
+        probe_kernel as pk)
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
         to_streams)
     from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
@@ -905,9 +1297,9 @@ def main() -> int:
     plain_ms1 = cuda_ms(lambda: fwd(al1, True, True), 3)
     print(f"  K3 sweep A=6: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
           f"rollout A=1: kernel {ms1:.3f} ms, plain {plain_ms1:.1f} ms")
-    rec["forward_lanes"] = dict(max_abs_err=max(e1, e2), ms=ms,
-                                plain_ms=plain_ms, library_ms=None,
-                                **k3_work(model, T, B, A, False))
+    rec["k3_pendcart"] = dict(max_abs_err=max(e1, e2), ms=ms,
+                              plain_ms=plain_ms, library_ms=None,
+                              **k3_work(model, T, B, A, False))
 
     lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), dtype=torch.float32,
                        device=dev)
@@ -956,9 +1348,10 @@ def main() -> int:
     plain_msf = cuda_ms(lambda: bwd("full", True), 3)
     print(f"  K1 gains: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
           f"full: kernel {msf:.3f} ms, plain {plain_msf:.1f} ms")
-    rec["backward_lanes"] = dict(max_abs_err=max(errs), ms=ms,
-                                 plain_ms=plain_ms, library_ms=None,
-                                 **k1_work(model, T, B, "gains", 2, LIMS))
+    rec["k1_pendcart"] = dict(max_abs_err=max(errs), ms=ms,
+                              plain_ms=plain_ms, ms_full=msf,
+                              plain_ms_full=plain_msf, library_ms=None,
+                              **k1_work(model, T, B, "gains", 2, LIMS))
 
     allow = (torch.arange(B, device=dev) % 2 == 0).float()
     sel = torch.stack([dV[0], dV[1], tot, allow])
@@ -977,9 +1370,8 @@ def main() -> int:
     ms = cuda_ms(lambda: ls(False), 20)
     plain_ms = cuda_ms(lambda: ls(True), 3)
     print(f"  K2: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
-    rec["linesearch_lanes"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
-                                   library_ms=None,
-                                   **k2_work(model, T, B, A))
+    rec["k2_pendcart"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                              library_ms=None, **k2_work(model, T, B, A))
     # trap 6 across kernels: a K3 stream re-rolled by K2 with α=0 everywhere
     out = ls(False, torch.stack([dV[0], dV[1], tot, torch.zeros_like(tot)]))
     check(torch.equal(out.traj, traj),
@@ -1000,7 +1392,7 @@ def main() -> int:
     cost_init = warm.trace.cost[:, 0]
     del warm
     counters = (bk.backward_lanes, fk.linesearch_lanes, fk.forward_lanes,
-                ck.covariance_lanes)
+                ck.covariance_lanes, pk.probe_lanes)
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
     t0 = time.perf_counter()
@@ -1027,8 +1419,8 @@ def main() -> int:
     print(f"  solve: {solve_ms:.3f} ms (CUDA events), {wall_ms:.3f} ms host "
           f"clock; {solve_ms / max(iters, 1):.4f} ms/iter over {iters} "
           f"iterations")
-    kern_ms = (launches["backward_lanes"] * rec["backward_lanes"]["ms"]
-               + launches["linesearch_lanes"] * rec["linesearch_lanes"]["ms"])
+    kern_ms = (launches["backward_lanes"] * rec["k1_pendcart"]["ms"]
+               + launches["linesearch_lanes"] * rec["k2_pendcart"]["ms"])
     print(f"  kernel share estimate: {kern_ms:.3f} ms of {solve_ms:.3f} ms "
           f"in K1(gains)+K2 at their phase-3 medians; the rest is K3, the "
           f"full replay, torch glue and host syncs")
@@ -1078,30 +1470,59 @@ def main() -> int:
     check(min(close, same_reason, same_acc.float().mean().item())
           >= AGREE_SHARE, "GPU and CPU outcomes differ")
 
-    kl_phases(ph, dev, rec, counters, model, tiles, spec)
-    launches_lti = lti_phases(ph, dev, rec, counters)
+    paths = {"ilqg": launches_ilqg}
+    paths.update(kl_phases(ph, dev, rec, counters, model, tiles, spec))
+    paths["lti"] = lti_phases(ph, dev, rec, counters)
+    paths.update(kl_lti_phases(ph, dev, rec, counters))
+    paths.update(probe_phase(ph, dev, rec, counters))
 
-    # ---- record and result
+    # ---- record and result: one entry per kernel instance, its launches
+    #      summed over the paths that run it
     walls = ph.summary()
     print(f"  phase walls: {walls}")
     src = "differentialdynamicprogramming_jl_tpu_torch/ops/hopper/csrc/"
     tpu = "differentialdynamicprogramming_jl_tpu/ops/pallas/"
-    where = {"backward_lanes": ("backward.cuh", "backward_kernel.py:729"),
-             "linesearch_lanes": ("forward.cuh", "forward_kernel.py:506"),
-             "forward_lanes": ("forward.cuh", "forward_kernel.py:198"),
-             "covariance_lanes": ("covariance.cu",
-                                  "covariance_kernel.py:28")}
+    k1, k2, k3, k4 = (tpu + "backward_kernel.py:729",
+                      tpu + "forward_kernel.py:506",
+                      tpu + "forward_kernel.py:198",
+                      tpu + "covariance_kernel.py:28")
+    k5 = "tools/probe_kernel_cost.py:38"
+    instances = (   # record key, wrapper, instance, source, TPU kernel, paths
+        ("k1_pendcart", "backward_lanes", "pendcart <4,1> gains, full",
+         "backward.cu", k1, ("ilqg",)),
+        ("k1_pendcart_gps", "backward_lanes", "pendcart <4,1> GPS policy",
+         "backward.cu", k1, ("kl", "gps")),
+        ("k1_lti", "backward_lanes", "LTI <10,2> gains, full",
+         "backward_lti.cu", k1, ("lti",)),
+        ("k1_lti_gps", "backward_lanes", "LTI <10,2> GPS policy",
+         "backward_lti_gps.cu", k1, ("kl_lti", "gps_lti")),
+        ("k2_pendcart", "linesearch_lanes", "pendcart <4,1>", "forward.cu", k2,
+         ("ilqg",)),
+        ("k2_lti", "linesearch_lanes", "LTI <10,2>", "forward_lti.cu", k2,
+         ("lti",)),
+        ("k3_pendcart", "forward_lanes", "pendcart <4,1>", "forward.cu", k3,
+         ("ilqg", "kl", "gps")),
+        ("k3_lti", "forward_lanes", "LTI <10,2>", "forward_lti.cu", k3,
+         ("lti", "kl_lti", "gps_lti")),
+        ("k4_4", "covariance_lanes", "n=4", "covariance.cu", k4,
+         ("kl", "gps")),
+        ("k4_10", "covariance_lanes", "n=10", "covariance.cu", k4,
+         ("kl_lti", "gps_lti")),
+        ("k5_copy", "probe_lanes", "copy", "probe.cu", k5, ("probe_copy",)),
+        ("k5_light", "probe_lanes", "light", "probe.cu", k5, ("probe_light",)),
+        ("k5_full", "probe_lanes", "full", "probe.cu", k5, ("probe_full",)),
+    )
     kernels = []
-    for c in counters:
-        name = c.__name__
-        by_path = {"ilqg": launches_ilqg[name], **rec[name].pop("by_path"),
-                   "lti": launches_lti[name]}
-        kernels.append(dict(name=name, route="cuda",
-                            source=src + where[name][0],
-                            replaces=tpu + where[name][1],
-                            launches=sum(by_path.values()),
-                            launches_by_path=by_path, library=LIBRARY,
-                            **rec[name]))
+    for key, wrapper, inst, source, replaces, on in instances:
+        by_path = {path: paths[path][wrapper] for path in on}
+        check(sum(by_path.values()) > 0,
+              f"{wrapper} [{inst}] was never launched on {on}: {by_path}")
+        kernels.append(dict(
+            name=f"{wrapper} [{inst}]", route="cuda", source=src + source,
+            replaces=replaces, launches=sum(by_path.values()),
+            launches_by_path=by_path,
+            library=("x[:, :27].clone()" if key == "k5_copy" else LIBRARY),
+            **rec[key]))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

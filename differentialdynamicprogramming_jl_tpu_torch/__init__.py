@@ -6,10 +6,11 @@ covers the fleet paths with in-kernel derivatives and static control limits
 or none: the iLQG main path :func:`ilqg_batch_lanes` on the pendcart model
 (n=4, m=1) and on the LTI family (the CUDA kernels at n=10, m=2), and the
 KL/GPS trust-region path :func:`ilqgkl_batch_lanes` with
-:func:`gps_rollout_lanes` on pendcart. Their four kernels (backward pass
-with GPS mode, forward rollout, fused line search, covariance propagation)
-are CUDA C++ under ``ops/hopper/csrc/``, built with ``nvcc`` at first use;
-each has a plain PyTorch version beside it, which runs for CPU tensors.
+:func:`gps_rollout_lanes` on both. Their four kernels (backward pass with
+GPS mode, forward rollout, fused line search, covariance propagation) and
+the bandwidth probe are CUDA C++ under ``ops/hopper/csrc/``, built with
+``nvcc`` at first use; each has a plain PyTorch version beside it, which
+runs for CPU tensors.
 Inputs that are not tensors go to the CUDA card (:mod:`.device`).
 
 Nothing in this package imports ``jax``.
@@ -29,7 +30,8 @@ from .models.pendcart import (PendCartSpec, pendcart_lanes,
                               pendcart_derivs_tiles, make_pendcart_problem,
                               default_x0, default_lims)
 from .models.linear import (LTISpec, random_lti, make_lti_problem,
-                            lti_lanes, lti_derivs_tiles)
+                            lti_lanes, lti_derivs_tiles, SimpleLTVModel)
+from .ops.forward import forward_covariance
 
 __version__ = "0.1.0"
 
@@ -44,5 +46,5 @@ __all__ = [
     "PendCartSpec", "pendcart_lanes", "pendcart_derivs_tiles",
     "make_pendcart_problem", "default_x0", "default_lims",
     "LTISpec", "random_lti", "make_lti_problem", "lti_lanes",
-    "lti_derivs_tiles",
+    "lti_derivs_tiles", "SimpleLTVModel", "forward_covariance",
 ]

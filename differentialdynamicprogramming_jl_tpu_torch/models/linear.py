@@ -2,7 +2,8 @@
 
 Counterpart of ``differentialdynamicprogramming_jl_tpu/models/linear.py``
 (``LTISpec`` ``:20-26``, ``random_lti`` ``:29-43``, ``make_lti_problem``
-``:46-76``, ``lti_lanes`` ``:79-121``, ``lti_derivs_tiles`` ``:160-197``):
+``:46-76``, ``lti_lanes`` ``:79-121``, ``lti_derivs_tiles`` ``:160-197``,
+``SimpleLTVModel`` ``:200-233``):
 the reference's ``demo_linear`` problem (``src/demo_linear.jl:9-49``),
 x' = A·x + B·u with the cost ½x'Qx + ½u'Ru and no terminal term.
 
@@ -18,12 +19,13 @@ CUDA kernels (``ops/hopper/csrc/lti.cuh``) evaluate the same model.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+import dataclasses
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import as_tensor, resolve
 from ..ops.hopper.backward_kernel import DerivsTiles
 from ..ops.hopper.forward_kernel import DeviceModel, LanesModel
 from ..policy import Derivs
@@ -177,3 +179,37 @@ def lti_derivs_tiles(spec: LTISpec) -> DerivsTiles:
                     cxu=[[z] * m for _ in range(n)], cuu=const(R))
 
     return DerivsTiles(fn=tiles, device=device_model(spec))
+
+
+@dataclasses.dataclass(frozen=True)
+class SimpleLTVModel:
+    """Linear time-varying model for covariance propagation, the JAX
+    package's ``SimpleLTVModel`` (``LinearTimeVaryingModelsBase`` as
+    ``forward_covariance`` uses it, ``src/forward_pass.jl:38-42``;
+    ``src/demo_linear.jl:118``): ``fx`` and the prediction covariance
+    ``R1`` (identity by default)."""
+
+    fx: torch.Tensor                       # (T, n, n)
+    fu: torch.Tensor                       # (T, n, m)
+    R1: Optional[torch.Tensor] = None      # (n, n)
+
+    def fx_at(self, x_traj=None, u_traj=None) -> torch.Tensor:
+        """Linearisation along the trajectory (reference
+        ``df(model, x, u)``, ``src/forward_pass.jl:38``), cut to the control
+        horizon of ``u_traj`` (..., T, m)."""
+        T = self.fx.shape[0] if u_traj is None else u_traj.shape[-2]
+        return self.fx[:T]
+
+    def covariance(self, x_traj=None, u_traj=None) -> torch.Tensor:
+        if self.R1 is not None:
+            return self.R1
+        n = self.fx.shape[-1]
+        return torch.eye(n, dtype=self.fx.dtype, device=self.fx.device)
+
+    @staticmethod
+    def from_lti(A, B, T: int) -> "SimpleLTVModel":
+        """The constant A, B broadcast over T steps (views, no copies);
+        tensors keep their device, anything else goes to the CUDA card."""
+        A, B = as_tensor(A), as_tensor(B)
+        return SimpleLTVModel(fx=A.expand((T,) + tuple(A.shape)),
+                              fu=B.expand((T,) + tuple(B.shape)))

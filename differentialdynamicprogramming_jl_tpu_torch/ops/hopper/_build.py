@@ -32,8 +32,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # every source the library is built from, headers included, so that the
 # library's hash changes with any of them; each .cu is one nvcc process
 SOURCES = ("common.cuh", "pendcart.cuh", "lti.cuh", "backward.cuh",
-           "forward.cuh", "backward.cu", "backward_lti.cu", "forward.cu",
-           "forward_lti.cu", "covariance.cu")
+           "forward.cuh", "backward.cu", "backward_lti.cu",
+           "backward_lti_gps.cu", "forward.cu", "forward_lti.cu",
+           "covariance.cu", "probe.cu")
 # compile flags of every source; the objects are then linked with -shared
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -56,6 +57,7 @@ SIGNATURES = {
     "ddp_linesearch_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _F, _P,
                              _P, _I, _I) + _MODEL,
     "ddp_covariance_lanes": (_P, _P, _I, _I, _I, _P, _I, _P),
+    "ddp_probe_lanes": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 

@@ -5,8 +5,8 @@ for the subset on the fleet iLQG and KL/GPS paths: m ≤ 2, derivatives
 computed per step from the (x, u) slots of the trajectory stream by
 ``derivs_tiles``, static control limits (the m=1 clamp or the m=2 9-set
 enumeration) or none (the unconstrained Cholesky solve), reg_type 1 or 2,
-GPS mode (``prev``/``eta``, m = 1), and ``"gains"``, ``"full"`` or
-``"policy"`` emission.
+GPS mode (``prev``/``eta``), and ``"gains"``, ``"full"`` or ``"policy"``
+emission.
 
 :func:`backward_lanes` gives a CPU tensor to :func:`backward_lanes_ref`, the
 plain PyTorch version (vectorised over B, Python loop over t, in the
@@ -234,17 +234,28 @@ def _gain_solve(QuuF, Qu, Qux_r, u, lims, n, m):
     return [x0, x1], K, ok
 
 
-def _read_kl(prev, eta, t, n):
-    """GPS mode at step t, m = 1: the dual η (0 replaced by 1, JAX
-    ``backward_kernel.py:795-797``) and the pieces of the KL expansion from
-    the previous-policy stream [k_prev, K_prev(n), Σ⁻¹_prev] (``read_kl``,
-    ``:370-392``): cx_i = K_i·(Σ⁻¹k), cu = -Σ⁻¹k, cxx_ij = K_i·(Σ⁻¹K_j),
-    cxu_j = -Σ⁻¹K_j, cuu = Σ⁻¹."""
+def _read_kl(prev, eta, t, n, m):
+    """GPS mode at step t: the dual η (0 replaced by 1, JAX
+    ``backward_kernel.py:795-797``) and the KL expansion from the
+    previous-policy stream [k_prev(m), K_prev(m·n), Σ⁻¹_prev(m²)]
+    (``read_kl``, ``:370-392``), each sum over a control in the JAX order:
+    Sik = Σ⁻¹k, SiK = Σ⁻¹K, cx_i = Σ_mi K[mi][i]·Sik[mi], cu = -Sik,
+    cxx_ij = Σ_mi K[mi][i]·SiK[mi][j], cxu = -SiK, cuu = Σ⁻¹."""
     e = eta[t]
-    Kp = [prev[t, 1 + j] for j in range(n)]
-    Si = prev[t, 1 + n]
-    return dict(eta=torch.where(e == 0, 1.0, e), Kp=Kp, Si=Si,
-                Sik=Si * prev[t, 0], SiK=[Si * Kp[j] for j in range(n)])
+    M = range(m)
+    kp = [prev[t, mi] for mi in M]
+    Kp = [[prev[t, m + mi * n + j] for j in range(n)] for mi in M]
+    Si = [[prev[t, m + m * n + mi * m + mj] for mj in M] for mi in M]
+    Sik = [_sum([Si[mi][mj] * kp[mj] for mj in M]) for mi in M]
+    SiK = [[_sum([Si[mi][mj] * Kp[mj][j] for mj in M]) for j in range(n)]
+           for mi in M]
+    return dict(
+        eta=torch.where(e == 0, 1.0, e),
+        cx=[_sum([Kp[mi][i] * Sik[mi] for mi in M]) for i in range(n)],
+        cu=[-Sik[mi] for mi in M],
+        cxx=[[_sum([Kp[mi][i] * SiK[mi][j] for mi in M]) for j in range(n)]
+             for i in range(n)],
+        cxu=[[-SiK[mi][j] for j in range(n)] for mi in M], cuu=Si)
 
 
 def _flat(rows):
@@ -276,8 +287,9 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
     if lay.quu is not None:
         cuu = d["cuu"]
         if gps:
-            kl = _read_kl(prev, eta, T - 1, n)
-            cuu = [[cuu[0][0] / kl["eta"] + kl["Si"]]]
+            kl = _read_kl(prev, eta, T - 1, n, m)
+            cuu = [[cuu[mi][mj] / kl["eta"] + kl["cuu"][mi][mj] for mj in M]
+                   for mi in M]
         slots += _flat(cuu) + _flat(_tiny_inv(cuu, m))
     out[T - 1] = torch.stack(slots)
     dv1 = dv2 = div = divt = zero
@@ -302,18 +314,20 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
                 for j in R] for mi in M]
 
         if gps:
-            # GPS mode (m = 1): Q terms scaled by 1/η plus the KL
-            # expansion, Quu symmetrised, λ unused
-            # (src/backward_pass.jl:293-299; JAX :483-497)
-            kl = _read_kl(prev, eta, t, n)
+            # GPS mode: Q terms scaled by 1/η plus the KL expansion, Quu
+            # symmetrised, λ unused (src/backward_pass.jl:293-299; JAX
+            # :483-497)
+            kl = _read_kl(prev, eta, t, n, m)
             ie = 1.0 / kl["eta"]
-            Kp, Sik, SiK = kl["Kp"], kl["Sik"], kl["SiK"]
-            Qx = [Qx[i] * ie + Kp[i] * Sik for i in R]
-            Qu = [Qu[0] * ie + (-Sik)]
-            Qxx = [[Qxx[i][j] * ie + Kp[i] * SiK[j] for j in R] for i in R]
-            Qux = [[Qux[0][j] * ie + (-SiK[j]) for j in R]]
-            Quu_g = Quu[0][0] * ie + kl["Si"]
-            Quu = [[0.5 * (Quu_g + Quu_g)]]
+            Qx = [Qx[i] * ie + kl["cx"][i] for i in R]
+            Qu = [Qu[mi] * ie + kl["cu"][mi] for mi in M]
+            Qxx = [[Qxx[i][j] * ie + kl["cxx"][i][j] for j in R] for i in R]
+            Qux = [[Qux[mi][j] * ie + kl["cxu"][mi][j] for j in R]
+                   for mi in M]
+            Quu_g = [[Quu[mi][mj] * ie + kl["cuu"][mi][mj] for mj in M]
+                     for mi in M]
+            Quu = [[0.5 * (Quu_g[mi][mj] + Quu_g[mj][mi]) for mj in M]
+                   for mi in M]
             Qux_r, QuuF = Qux, Quu
         # regularised gain matrices (src/backward_pass.jl:119-123)
         elif reg_type == 2:
@@ -383,10 +397,9 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
       :class:`OutLayout`).
 
     On a CUDA tensor the model must be one the kernel is built for
-    (``forward_kernel.CUDA_MODELS``). Out of this slice
+    (``forward_kernel.CUDA_MODELS``), in any mode. Out of this slice
     (NotImplementedError): the packed-derivatives input
-    (``derivs_tiles=None``), ``params``, per-scenario ``lims_lanes``, m > 2,
-    GPS mode at m = 2.
+    (``derivs_tiles=None``), ``params``, per-scenario ``lims_lanes``, m > 2.
     """
     if derivs_tiles is None:
         raise NotImplementedError(
@@ -409,9 +422,6 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
             raise ValueError(f"backward_lanes: prev {tuple(prev.shape)}, "
                              f"eta {tuple(eta.shape)} for traj "
                              f"{tuple(traj.shape)}")
-        if m != 1:
-            raise NotImplementedError(f"GPS mode at m={m}: only m=1 is "
-                                      "ported")
         eta = eta.reshape(T, B)
     if traj.device.type == "cpu":
         return backward_lanes_ref(traj, lam, n=n, m=m, reg_type=reg_type,

@@ -25,7 +25,7 @@ import torch
 from . import _build
 from .forward_kernel import launch_args
 
-CUDA_N = (4,)   # state sizes the CUDA kernel is instantiated for
+CUDA_N = (4, 10)   # state sizes the CUDA kernel is instantiated for
 
 
 def identity_r1(n: int):

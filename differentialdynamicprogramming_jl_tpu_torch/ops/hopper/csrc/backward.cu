@@ -1,7 +1,8 @@
 // K1 entry point: checks the arguments, picks the model's instance, and
-// launches it. The kernel is in backward.cuh; the pendcart ⟨4,1⟩ instance
-// is compiled here, the LTI ⟨10,2⟩ one in backward_lti.cu, so that nvcc
-// builds the two in parallel.
+// launches it. The kernel is in backward.cuh; the pendcart ⟨4,1⟩ instances
+// are compiled here, the LTI ⟨10,2⟩ ones in backward_lti.cu (without GPS
+// mode) and backward_lti_gps.cu (GPS mode), so that nvcc builds the three
+// in parallel.
 #include "backward.cuh"
 #include "lti.cuh"
 #include "pendcart.cuh"
@@ -28,10 +29,12 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
   using LTI10x2 = LTI<10, 2>;
   if (model_id == PendCart::ID && n == PendCart::N && m == PendCart::M &&
       n_consts == PendCart::N_CONSTS)
-    return launch_backward<PendCart>(a);
+    return gps ? launch_backward<PendCart, true>(a)
+               : launch_backward<PendCart, false>(a);
   if (model_id == LTI10x2::ID && n == LTI10x2::N && m == LTI10x2::M &&
       n_consts == LTI10x2::N_CONSTS)
-    return launch_backward_lti_10_2(a);
+    return gps ? launch_backward_lti_gps_10_2(a)
+               : launch_backward_lti_10_2(a);
   return ERR_MODEL;
 }
 

@@ -7,10 +7,10 @@
 // for the subset on the fleet iLQG and KL/GPS paths: m ≤ 2, derivatives
 // computed in-register from the (x, u) slots of the trajectory stream,
 // static control limits (the m=1 clamp or the m=2 9-set enumeration) or
-// none (the unrolled Cholesky solve), reg_type 1 or 2, GPS mode (m = 1),
-// and "gains", "full" or "policy" emission. Instances: pendcart ⟨4,1⟩ in
-// every emission and GPS mode (backward.cu), LTI ⟨10,2⟩ in "gains" and
-// "full" (backward_lti.cu).
+// none (the unrolled Cholesky solve), reg_type 1 or 2, GPS mode, and
+// "gains", "full" or "policy" emission. Instances: every emission, with
+// and without GPS mode, for pendcart ⟨4,1⟩ (backward.cu) and LTI ⟨10,2⟩
+// (backward_lti.cu without GPS mode, backward_lti_gps.cu with it).
 //
 // Layout: every stream is (T, S, B) f32 with the scenario axis contiguous.
 // One thread owns one scenario and walks t = T-1 .. 0 inside the kernel,
@@ -19,8 +19,10 @@
 // scratch. Output slots follow OutLayout: k[M], K[M][N] ("gains"), then
 // Vx[N], Vxx[N][N] ("full" only), then Quu[M][M], Quu⁻¹[M][M] ("full" and
 // "policy"). Stats (4, B): dV1, dV2, diverged, diverge_idx. GPS mode also
-// reads the previous-policy stream prev (T, 2+N, B) [k, K[N], Σ⁻¹] and the
-// dual eta (T, B).
+// reads the previous-policy stream prev (T, M+M·N+M², B) [k[M], K[M][N],
+// Σ⁻¹[M][M]] and the dual eta (T, B). Its K and Σ⁻¹ slots are read where
+// the KL expansion consumes them, column by column of Σ⁻¹K, so that no
+// M×N block of the expansion is held across the step.
 //
 // What bounds it. Pendcart ⟨4,1⟩ at B=4096, T=500: one launch reads the
 // x,u slots (≈41 MB), in GPS mode also prev and eta (≈57 MB), and writes
@@ -29,7 +31,9 @@
 // ⟨10,2⟩ at B=4096, T=1000: ≈7.5 kflop per scenario-step (W = Vxx·fx and
 // Qxx = fxᵀ·W are n³ each), ≈31 GFLOP a launch against ≈557 MB moved
 // ("gains"), so it is compute-bound; Vx, Vxx, W and Qxx do not fit in 255
-// registers and spill. Either way B=4096 threads in blocks of 128 give 32
+// registers and spill. GPS mode at ⟨10,2⟩ adds ≈0.7 kflop a step and the
+// 26-slot prev stream and η (≈1.1 GB a launch with "policy" emission), and
+// stays compute-bound. Either way B=4096 threads in blocks of 128 give 32
 // blocks for 132 SMs, one warp per SM, and each step's loads and its
 // dependent chain of arithmetic are exposed latency. Spreading a scenario
 // over several threads, or Vxx in shared memory, is work for later changes.
@@ -96,28 +100,29 @@ namespace {
 
 constexpr int BWD_THREADS = 128;
 
-// GPS mode at one step (m = 1): the dual and the pieces of the KL expansion
-// cx_i = Kp_i·Sik, cu = -Sik, cxx_ij = Kp_i·SiK_j, cxu_j = -SiK_j, cuu = Si
-template <int N>
-struct KL {
-  float eta, Kp[N], Si, Sik, SiK[N];
+// GPS mode at one step: the dual η (a zero counts as 1) and the previous
+// policy's slots [k[M], K[M][N], Σ⁻¹[M][M]] of scenario b
+template <int N, int M>
+struct PrevStep {
+  static constexpr int S = M + M * N + M * M;
+  const float* p;
+  size_t sB;
+  __device__ __forceinline__ PrevStep(const float* prev, int t, int b,
+                                      size_t sB_)
+      : p(prev + (size_t)t * S * sB_ + b), sB(sB_) {}
+  __device__ __forceinline__ float k(int mi) const { return p[mi * sB]; }
+  __device__ __forceinline__ float K(int mi, int j) const {
+    return p[(M + mi * N + j) * sB];
+  }
+  __device__ __forceinline__ float Si(int mi, int mj) const {
+    return p[(M + M * N + mi * M + mj) * sB];
+  }
 };
 
-template <int N>
-__device__ __forceinline__ void read_kl(const float* __restrict__ prev,
-                                        const float* __restrict__ eta, int t,
-                                        int b, size_t sB, KL<N>& kl) {
-  constexpr int S_PREV = 1 + N + 1;   // [k_prev, K_prev[N], Σ⁻¹]
+__device__ __forceinline__ float read_eta(const float* __restrict__ eta,
+                                          int t, int b, size_t sB) {
   const float e = eta[(size_t)t * sB + b];
-  kl.eta = e == 0.0f ? 1.0f : e;
-  const float* pv = prev + (size_t)t * S_PREV * sB + b;
-  kl.Si = pv[(1 + N) * sB];
-  kl.Sik = kl.Si * pv[0];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    kl.Kp[j] = pv[(1 + j) * sB];
-    kl.SiK[j] = kl.Si * kl.Kp[j];
-  }
+  return e == 0.0f ? 1.0f : e;
 }
 
 __device__ __forceinline__ float guard(float v) {
@@ -186,7 +191,6 @@ backward_kernel(const float* __restrict__ traj, int s_in,
                 bool use_limits, Lims lims, typename Model::Consts mc) {
   constexpr int N = Model::N, M = Model::M;
   static_assert(M >= 1 && M <= MAX_M, "K1 is written for m = 1 or 2");
-  static_assert(!GPS || M == 1, "GPS mode is ported for m = 1");
   constexpr bool VALUE = EMIT == EMIT_FULL;     // Vx, Vxx slots
   constexpr bool QUU = EMIT != EMIT_GAINS;      // Quu, Quu⁻¹ slots
   constexpr int OV = M + M * N;                 // Vx's slot
@@ -237,9 +241,14 @@ backward_kernel(const float* __restrict__ traj, int s_in,
         for (int mj = 0; mj < M; ++mj) cuu[mi][mj] = P.cuu(dv, mi, mj);
       }
       if constexpr (GPS) {
-        KL<N> kl;
-        read_kl<N>(prev, eta, t, b, sB, kl);
-        cuu[0][0] = cuu[0][0] / kl.eta + kl.Si;
+        const PrevStep<N, M> pv(prev, t, b, sB);
+        const float e = read_eta(eta, t, b, sB);
+#pragma unroll
+        for (int mi = 0; mi < M; ++mi) {
+#pragma unroll
+          for (int mj = 0; mj < M; ++mj)
+            cuu[mi][mj] = cuu[mi][mj] / e + pv.Si(mi, mj);
+        }
       }
       tiny_inv<M>(cuu, inv);
 #pragma unroll
@@ -324,24 +333,71 @@ backward_kernel(const float* __restrict__ traj, int s_in,
 
     float Qux_r[M][N], QuuF[M][M];
     if constexpr (GPS) {
-      // GPS mode (m = 1): Q terms scaled by 1/η plus the KL expansion, Quu
-      // symmetrised, λ unused (src/backward_pass.jl:293-299)
-      KL<N> kl;
-      read_kl<N>(prev, eta, t, b, sB, kl);
-      const float ie = 1.0f / kl.eta;
+      // GPS mode: Q terms scaled by 1/η plus the KL expansion of the
+      // previous policy (read_kl :370-392; each sum over a control in the
+      // JAX order), Quu symmetrised, λ unused (src/backward_pass.jl:293-299)
+      const PrevStep<N, M> pv(prev, t, b, sB);
+      const float ie = 1.0f / read_eta(eta, t, b, sB);
+      float Si[M][M], Sik[M];
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        Qx[i] = Qx[i] * ie + kl.Kp[i] * kl.Sik;
+      for (int mi = 0; mi < M; ++mi) {
 #pragma unroll
-        for (int j = 0; j < N; ++j)
-          Qxx[i][j] = Qxx[i][j] * ie + kl.Kp[i] * kl.SiK[j];
-        Qux[0][i] = Qux[0][i] * ie + (-kl.SiK[i]);
-        Qux_r[0][i] = Qux[0][i];
+        for (int mj = 0; mj < M; ++mj) Si[mi][mj] = pv.Si(mi, mj);
       }
-      Qu[0] = Qu[0] * ie + (-kl.Sik);
-      const float qg = Quu[0][0] * ie + kl.Si;
-      Quu[0][0] = 0.5f * (qg + qg);
-      QuuF[0][0] = Quu[0][0];
+#pragma unroll
+      for (int mi = 0; mi < M; ++mi) {        // Sik = Σ⁻¹·k
+        float s = Si[mi][0] * pv.k(0);
+#pragma unroll
+        for (int mj = 1; mj < M; ++mj) s = s + Si[mi][mj] * pv.k(mj);
+        Sik[mi] = s;
+      }
+#pragma unroll
+      for (int i = 0; i < N; ++i) {           // cx_i = Σ_mi K[mi][i]·Sik[mi]
+        float c = pv.K(0, i) * Sik[0];
+#pragma unroll
+        for (int mi = 1; mi < M; ++mi) c = c + pv.K(mi, i) * Sik[mi];
+        Qx[i] = Qx[i] * ie + c;
+      }
+#pragma unroll
+      for (int mi = 0; mi < M; ++mi) Qu[mi] = Qu[mi] * ie + (-Sik[mi]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        float SiKj[M];                        // column j of Σ⁻¹·K
+#pragma unroll
+        for (int mi = 0; mi < M; ++mi) {
+          float s = Si[mi][0] * pv.K(0, j);
+#pragma unroll
+          for (int mj = 1; mj < M; ++mj) s = s + Si[mi][mj] * pv.K(mj, j);
+          SiKj[mi] = s;
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {         // cxx_ij = Σ_mi K_mi,i·SiK_mi,j
+          float c = pv.K(0, i) * SiKj[0];
+#pragma unroll
+          for (int mi = 1; mi < M; ++mi) c = c + pv.K(mi, i) * SiKj[mi];
+          Qxx[i][j] = Qxx[i][j] * ie + c;
+        }
+#pragma unroll
+        for (int mi = 0; mi < M; ++mi) {
+          Qux[mi][j] = Qux[mi][j] * ie + (-SiKj[mi]);
+          Qux_r[mi][j] = Qux[mi][j];
+        }
+      }
+      float Qg[M][M];
+#pragma unroll
+      for (int mi = 0; mi < M; ++mi) {
+#pragma unroll
+        for (int mj = 0; mj < M; ++mj)
+          Qg[mi][mj] = Quu[mi][mj] * ie + Si[mi][mj];
+      }
+#pragma unroll
+      for (int mi = 0; mi < M; ++mi) {
+#pragma unroll
+        for (int mj = 0; mj < M; ++mj) {
+          Quu[mi][mj] = 0.5f * (Qg[mi][mj] + Qg[mj][mi]);
+          QuuF[mi][mj] = Quu[mi][mj];
+        }
+      }
     } else if (reg_type == 2) {
       // regularised gain matrices (src/backward_pass.jl:119-123)
 #pragma unroll
@@ -529,49 +585,34 @@ backward_kernel(const float* __restrict__ traj, int s_in,
   stats[3 * sB + b] = divt;
 }
 
-// Launch K1 for one model: "gains" and "full" emission, and at m = 1 also
-// "policy" emission and GPS mode.
-template <class Model>
-int launch_backward(const BwdArgs& a) {
+// one instance of K1 for one model, launched on the caller's stream
+template <class Model, int EMIT, bool GPS>
+int launch_one(const BwdArgs& a) {
   typename Model::Consts mc;
   for (int i = 0; i < Model::N_CONSTS; ++i) mc.c[i] = a.consts[i];
   const dim3 grid((a.B + BWD_THREADS - 1) / BWD_THREADS);
-  const bool gps = a.prev != nullptr;
-#define DDP_BWD(E, G)                                                       \
-  backward_kernel<Model, E, G><<<grid, BWD_THREADS, 0, a.stream>>>(         \
-      a.traj, a.s_in, a.lam, a.prev, a.eta, a.out, a.s_out, a.stats, a.T,   \
-      a.B, a.reg_type, a.use_limits, a.lims, mc)
-  if (!gps) {
-    switch (a.emit) {
-      case EMIT_GAINS: DDP_BWD(EMIT_GAINS, false); break;
-      case EMIT_FULL: DDP_BWD(EMIT_FULL, false); break;
-      case EMIT_POLICY:
-        // "policy" emission feeds the KL/GPS loop, ported for m = 1
-        if constexpr (Model::M == 1) {
-          DDP_BWD(EMIT_POLICY, false);
-          break;
-        } else {
-          return ERR_ARGS;
-        }
-      default: return ERR_ARGS;
-    }
-  } else if constexpr (Model::M == 1) {
-    switch (a.emit) {
-      case EMIT_GAINS: DDP_BWD(EMIT_GAINS, true); break;
-      case EMIT_FULL: DDP_BWD(EMIT_FULL, true); break;
-      case EMIT_POLICY: DDP_BWD(EMIT_POLICY, true); break;
-      default: return ERR_ARGS;
-    }
-  } else {
-    return ERR_ARGS;
-  }
-#undef DDP_BWD
+  backward_kernel<Model, EMIT, GPS><<<grid, BWD_THREADS, 0, a.stream>>>(
+      a.traj, a.s_in, a.lam, a.prev, a.eta, a.out, a.s_out, a.stats, a.T,
+      a.B, a.reg_type, a.use_limits, a.lims, mc);
   return (int)cudaGetLastError();
+}
+
+// K1 for one model with or without GPS mode, in each emission
+template <class Model, bool GPS>
+int launch_backward(const BwdArgs& a) {
+  switch (a.emit) {
+    case EMIT_GAINS: return launch_one<Model, EMIT_GAINS, GPS>(a);
+    case EMIT_FULL: return launch_one<Model, EMIT_FULL, GPS>(a);
+    case EMIT_POLICY: return launch_one<Model, EMIT_POLICY, GPS>(a);
+    default: return ERR_ARGS;
+  }
 }
 
 }  // namespace
 
-// the LTI ⟨10,2⟩ instance, compiled in backward_lti.cu
+// the LTI ⟨10,2⟩ instances: without GPS mode in backward_lti.cu, in GPS
+// mode in backward_lti_gps.cu
 int launch_backward_lti_10_2(const BwdArgs& a);
+int launch_backward_lti_gps_10_2(const BwdArgs& a);
 
 }  // namespace ddp

@@ -10,21 +10,32 @@
 //
 // Layout: fx (T, n², B) and the output (T, n², B), f32, row-major n×n in
 // the slot axis, scenario axis contiguous; R1 is a static n×n passed by
-// value. One thread owns one scenario and walks t = 0 .. T-1 with Σ and F in
-// registers, where the TPU kept Σ in VMEM scratch across grid steps.
-// Templated on n; n = 4 (pendcart) is instantiated, other n are refused
-// with ERR_ARGS until their model's slice adds them.
+// value. One thread owns one scenario and walks t = 0 .. T-1, where the TPU
+// kept Σ in VMEM scratch across grid steps. Templated on n; n = 4
+// (pendcart) and n = 10 (LTI) are instantiated, other n are refused with
+// ERR_ARGS until their model's slice adds them.
+//
+// Registers. Σ, F and F·Σ are 3n² floats, 300 at n = 10: more than the 255
+// registers a thread can hold. So F·Σ is never held whole: each step loads
+// Σ[t] back from out[t], which the step before wrote (an L2 hit) and F[t]
+// from fx, then forms row i of F·Σ (n floats) and at once row i of Σ[t+1],
+// which goes straight to out[t+1]. Live: Σ and F (2n², 200 at n = 10) and
+// two rows. Σ[t] is reloaded at the top of the next step, across the loop's
+// back edge, where the compiler does not forward the stores into registers.
 //
 // Sum order kept from the TPU kernel (covariance_kernel.py:59-73):
 //   FS[i][c] = Σ_a F[i][a]·S[a][c], then S'[i][j] = Σ_c FS[i][c]·F[j][c]
 //   + R1[i][j], each sum left to right; built with --fmad=false like the
 //   other kernels, so the plain PyTorch version gives the same bits.
 //
-// What bounds it: at n=4, B=4096, T=500 it reads fx (≈131 MB; the last
-// step's F is not needed) and writes Σ (≈131 MB), with 2n³ = 128 multiplies
-// and adds per scenario-step. As in K1, B=4096 threads in blocks of 128 put
-// one warp on each SM, so each step's 16 loads and its dependent chain of
-// products are exposed latency; a faster layout is later work.
+// What bounds it: it reads fx (the last step's F is not needed) and writes
+// Σ, n²·4 bytes each per scenario-step, with 2n³ multiplies and as many
+// adds: at n=4, B=4096, T=500 ≈131 MB each way and 128 operations a step;
+// at n=10, B=4096, T=1000 ≈1.64 GB each way (bound ≈0.98 ms) against
+// ≈16 GFLOP (≈0.24 ms), so bytes bound it. As in K1, B=4096 threads in
+// blocks of 128 put one warp on each SM, so each step's loads and its
+// dependent chain of products are exposed latency; a faster layout is
+// later work.
 #include "common.cuh"
 
 namespace ddp {
@@ -45,43 +56,37 @@ covariance_kernel(const float* __restrict__ fx, float* __restrict__ out,
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t sB = (size_t)B;
-  float S[NN][NN];
+  auto slot = [&](int t, int s) { return ((size_t)t * NN * NN + s) * sB + b; };
 #pragma unroll
-  for (int i = 0; i < NN; ++i)
-#pragma unroll
-    for (int j = 0; j < NN; ++j) S[i][j] = r1.r[i * NN + j];
+  for (int s = 0; s < NN * NN; ++s) out[slot(0, s)] = r1.r[s];
 
-  for (int t = 0; t < T; ++t) {
-    float* o = out + (size_t)t * NN * NN * sB + b;
+  for (int t = 0; t < T - 1; ++t) {
+    float S[NN][NN], F[NN][NN];
 #pragma unroll
     for (int i = 0; i < NN; ++i)
 #pragma unroll
-      for (int j = 0; j < NN; ++j) o[(i * NN + j) * sB] = S[i][j];
-    if (t == T - 1) break;   // Σ[T] is not emitted
-    const float* f = fx + (size_t)t * NN * NN * sB + b;
-    float F[NN][NN], FS[NN][NN];
+      for (int j = 0; j < NN; ++j) {
+        S[i][j] = out[slot(t, i * NN + j)];
+        F[i][j] = fx[slot(t, i * NN + j)];
+      }
 #pragma unroll
-    for (int i = 0; i < NN; ++i)
-#pragma unroll
-      for (int j = 0; j < NN; ++j) F[i][j] = f[(i * NN + j) * sB];
-#pragma unroll
-    for (int i = 0; i < NN; ++i)
+    for (int i = 0; i < NN; ++i) {
+      float FS[NN];                           // row i of F·Σ
 #pragma unroll
       for (int c = 0; c < NN; ++c) {
         float s = F[i][0] * S[0][c];
 #pragma unroll
         for (int a = 1; a < NN; ++a) s = s + F[i][a] * S[a][c];
-        FS[i][c] = s;
+        FS[c] = s;
       }
 #pragma unroll
-    for (int i = 0; i < NN; ++i)
+      for (int j = 0; j < NN; ++j) {          // row i of Σ[t+1]
+        float s = FS[0] * F[j][0];
 #pragma unroll
-      for (int j = 0; j < NN; ++j) {
-        float s = FS[i][0] * F[j][0];
-#pragma unroll
-        for (int c = 1; c < NN; ++c) s = s + FS[i][c] * F[j][c];
-        S[i][j] = s + r1.r[i * NN + j];
+        for (int c = 1; c < NN; ++c) s = s + FS[c] * F[j][c];
+        out[slot(t + 1, i * NN + j)] = s + r1.r[i * NN + j];
       }
+    }
   }
 }
 
@@ -109,6 +114,8 @@ extern "C" int ddp_covariance_lanes(const float* fx, float* out, int T,
   switch (n) {
     case 4:
       return launch_covariance<4>(fx, out, T, B, r1, st);
+    case 10:
+      return launch_covariance<10>(fx, out, T, B, r1, st);
     default:
       return ERR_ARGS;
   }

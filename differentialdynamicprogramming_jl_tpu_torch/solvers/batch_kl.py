@@ -174,7 +174,8 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
       reference (``src/iLQGkl.jl:65-72``); nominal controls = ``traj_prev.k``.
     - ``traj_prev``: previous policy, leaves (B, T, ...).
     - ``fx_model``: model linearisations (B, T, n, n) for the covariance
-      propagation; ``r1``: static (n, n) tuple (default identity).
+      propagation (for an LTI model, ``SimpleLTVModel.from_lti(A, B, T).fx``
+      expanded to B); ``r1``: static (n, n) tuple (default identity).
     - ``cost0``: (B,) total cost of the pre-rolled trajectory.
     - ``lims``: static ``((lo, hi),)`` or None.
     - ``record_trace``: also return the (B, max_iter+1) :class:`BatchKLTrace`.
@@ -183,16 +184,12 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
 
     Not in this slice (NotImplementedError): the KL fleet scheduler's resume
     inputs ``bracket0``, ``delta0_in``, ``adam0_in``, ``it0``,
-    ``max_steps``; per-scenario ``lims`` arrays; ``verbosity > 1``.
+    ``max_steps``; per-scenario ``lims`` arrays; ``verbosity > 1``; m > 2.
     """
     lims = _out_of_slice(lims, cfg, dict(
         bracket0=bracket0, delta0_in=delta0_in, adam0_in=adam0_in, it0=it0,
         max_steps=max_steps))
     check_slice(model.m, lims)
-    if model.m != 1:
-        raise NotImplementedError(
-            f"m={model.m}: the KL/GPS path (K1 in GPS mode) is ported for "
-            "m=1 only")
     x0s = as_tensor(x0s)
     traj_prev = GaussianPolicy(*map(as_tensor, traj_prev))
     dev = x0s.device

@@ -323,7 +323,7 @@ def test_lti_forward_kernel_matches_plain(dev):
 
 
 @pytest.mark.parametrize("reg_type", [1, 2])
-@pytest.mark.parametrize("emit", ["gains", "full"])
+@pytest.mark.parametrize("emit", ["gains", "full", "policy"])
 @pytest.mark.parametrize("lims", [LTI_LIMS, ((-0.05, 0.05), (-0.02, 0.08)),
                                   None])
 def test_lti_backward_kernel_matches_plain(dev, reg_type, emit, lims):
@@ -419,3 +419,112 @@ def test_lti_solver_on_card_matches_cpu(dev):
     torch.testing.assert_close(g.cost_total.cpu(), c.cost_total, rtol=1e-4,
                                atol=0)
     assert torch.equal(g.reason.cpu(), c.reason)
+
+
+# ---- the KL/GPS path on the LTI model ⟨10,2⟩: K1 in GPS mode with "policy"
+#      emission, K4 at n=10, and the probe K5. No transcendentals: kernel and
+#      plain version should agree bit for bit.
+
+
+def _lti_gps_inputs(dev, per_step, seed=5):
+    """A previous policy with every KL term non-zero (Σ⁻¹ positive
+    definite) and η scalar or per step, zeros counting as 1."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((T, B, 2, 2))
+    Si = np.einsum("tbij,tbkj->tbik", A, A) + 0.5 * np.eye(2)
+    prev = np.concatenate([rng.standard_normal((T, 2, B)),
+                           0.5 * rng.standard_normal((T, 20, B)),
+                           np.moveaxis(Si.reshape(T, B, 4), 1, 2)], axis=1)
+    eta = (10.0 ** rng.uniform(-1, 1, (T, B)) if per_step
+           else np.full((T, B), 0.3))
+    eta[::7, ::5] = 0.0
+    return (torch.tensor(prev, dtype=torch.float32, device=dev),
+            torch.tensor(eta, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("per_step", [False, True])
+@pytest.mark.parametrize("lims", [LTI_LIMS, None])
+@pytest.mark.parametrize("emit", ["policy", "full", "gains"])
+def test_lti_backward_kernel_gps_matches_plain(dev, per_step, lims, emit):
+    _, model, tiles, x0, gains0, al = _lti(dev)
+    traj = fk.forward_lanes(torch.zeros((T, 12, B), device=dev), gains0, x0,
+                            al, model=model, lims=LTI_LIMS,
+                            emit_traj=True).traj
+    prev, eta = _lti_gps_inputs(dev, per_step)
+    kw = dict(n=10, m=2, reg_type=1, lims=lims, derivs_tiles=tiles,
+              prev=prev, eta=eta, emit=emit)
+    lam = torch.zeros(B, device=dev)
+    n0 = bk.backward_lanes.launches
+    k = bk.backward_lanes(traj, lam, **kw)
+    assert bk.backward_lanes.launches == n0 + 1
+    p = bk.backward_lanes_ref(traj, lam, **kw)
+    torch.testing.assert_close(k.out, p.out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k.stats[:2], p.stats[:2], rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(k.stats[2:], p.stats[2:])
+    assert k.out.shape == (T, bk.OutLayout(10, 2, emit).S, B)
+
+
+def test_covariance_kernel_n10_is_bit_identical(dev):
+    spec, _, _, _, _, _ = _lti(dev)
+    rng = np.random.default_rng(6)
+    F = (np.asarray(spec.A.cpu(), np.float64)[None, None]
+         + 0.05 * rng.standard_normal((T, B, 10, 10)))
+    fx = torch.tensor(np.moveaxis(F.reshape(T, B, 100), 1, 2),
+                      dtype=torch.float32, device=dev).contiguous()
+    r1 = tuple(tuple(1.0 + (i == j) + 0.01 * (i + j) for j in range(10))
+               for i in range(10))
+    n0 = ck.covariance_lanes.launches
+    k = ck.covariance_lanes(fx, n=10, r1=r1)
+    assert ck.covariance_lanes.launches == n0 + 1
+    p = ck.covariance_lanes_ref(fx, n=10, r1=r1)
+    assert torch.isfinite(k).all()
+    assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("mode", ["copy", "light", "full"])
+def test_probe_kernel_is_bit_identical(dev, mode):
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        probe_kernel as pk)
+    x = torch.randn((T, 47, B), generator=torch.Generator().manual_seed(7)
+                    ).to(dev)
+    n0 = pk.probe_lanes.launches
+    k = pk.probe_lanes(x, mode)
+    assert pk.probe_lanes.launches == n0 + 1
+    assert torch.equal(k, pk.probe_lanes_ref(x, mode))
+
+
+def test_lti_kl_solve_on_card_matches_cpu(dev):
+    """The KL solve on the LTI model through K1 (GPS, policy), K3 and K4 on
+    the card against the plain versions on the CPU."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    spec, model, tiles, _, _, _ = _lti(dev)
+    Bs = 16
+    x0s = torch.ones((10, Bs), device=dev) * torch.linspace(
+        0.5, 2.0, Bs, device=dev)
+    u0 = spec.u0.expand(Bs, T, 2).contiguous()
+    gains0 = torch.cat([to_streams(u0), torch.zeros((T, 20, Bs),
+                                                    device=dev)], dim=1)
+    ro = fk.forward_lanes(torch.zeros((T, 12, Bs), device=dev), gains0, x0s,
+                          torch.ones((1, Bs), device=dev), model=model,
+                          lims=None, emit_traj=True)
+    x = from_streams(ro.traj[:, :10], (10,)).contiguous()
+    prev = GaussianPolicy.zeros(T, 10, 2, device=dev)
+    prev = GaussianPolicy(*(a.expand((Bs,) + a.shape).contiguous()
+                            for a in prev))._replace(k=u0)
+    fx = linear.SimpleLTVModel.from_lti(spec.A, spec.B, T).fx.expand(
+        Bs, T, 10, 10).contiguous()
+    cfg = ILQGKLConfig(kl_step=1.0, max_iter=6)
+    counts = [f.launches for f in (bk.backward_lanes, fk.forward_lanes,
+                                   ck.covariance_lanes)]
+    g = ilqgkl_batch_lanes(model, tiles, x, prev, fx, ro.totals[0], cfg=cfg)
+    assert all(f.launches > c for f, c in zip(
+        (bk.backward_lanes, fk.forward_lanes, ck.covariance_lanes), counts))
+    c = ilqgkl_batch_lanes(model, tiles, x.cpu(), GaussianPolicy(
+        *(a.cpu() for a in prev)), fx.cpu(), ro.totals[0].cpu(), cfg=cfg)
+    assert g.policy.K.shape == (Bs, T, 2, 10)
+    for name in ("satisfied", "pd_failed", "n_iters"):
+        assert torch.equal(getattr(g, name).cpu(), getattr(c, name)), name
+    torch.testing.assert_close(g.cost_total.cpu(), c.cost_total, rtol=1e-4,
+                               atol=0)
+    torch.testing.assert_close(g.eta.cpu(), c.eta, rtol=1e-4, atol=0)

@@ -34,7 +34,7 @@ from differentialdynamicprogramming_jl_tpu.ops.pallas.forward_kernel import (
 from differentialdynamicprogramming_jl_tpu_torch import convert
 from differentialdynamicprogramming_jl_tpu_torch.models import linear as tl
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.backward_kernel \
-    import OutLayout, backward_lanes
+    import OutLayout, backward_lanes, backward_lanes_ref
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.forward_kernel \
     import forward_lanes, linesearch_lanes
 from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
@@ -224,8 +224,9 @@ def test_linesearch_m2_matches_jax(rr_min):
 
 
 def test_m3_and_gps_at_m2_raise():
-    """Out of the slice: m > 2 (the masked-Newton box QP) everywhere, and
-    K1's GPS mode at m = 2."""
+    """Out of the slice: m > 2 (the masked-Newton box QP) everywhere. K1's
+    GPS mode at m = 2, which used to raise here, now runs: on CPU tensors
+    the wrapper returns the plain version's slots."""
     spec3 = tl.random_lti(0, n=N, m=3, T=T, device="cpu")
     traj = torch.zeros((T, N + 3 + 1, B))
     with pytest.raises(NotImplementedError, match="masked-Newton"):
@@ -237,12 +238,17 @@ def test_m3_and_gps_at_m2_raise():
                       torch.zeros((N, B)), torch.ones((1, B)),
                       model=tl.lti_lanes(spec3))
     spec2 = _tspec(_spec())
-    with pytest.raises(NotImplementedError, match="GPS mode at m=2"):
-        backward_lanes(torch.zeros((T, N + M + 1, B)), torch.ones(B), n=N,
-                       m=M, reg_type=1, lims=None,
-                       derivs_tiles=tl.lti_derivs_tiles(spec2),
-                       prev=torch.zeros((T, M + M * N + M * M, B)),
-                       eta=torch.ones((T, B)), emit="policy")
+    prev = torch.zeros((T, M + M * N + M * M, B))
+    prev[:, M + M * N] = prev[:, M + M * N + 3] = 1.0          # Σ⁻¹ = I
+    kw = dict(n=N, m=M, reg_type=1, lims=None,
+              derivs_tiles=tl.lti_derivs_tiles(spec2), prev=prev,
+              eta=torch.ones((T, B)), emit="policy")
+    traj = torch.from_numpy(_stream())
+    out = backward_lanes(traj, torch.ones(B), **kw)
+    ref = backward_lanes_ref(traj, torch.ones(B), **kw)
+    assert out.out.shape == (T, OutLayout(N, M, "policy").S, B)
+    assert torch.equal(out.out, ref.out) and torch.equal(out.stats, ref.stats)
+    assert torch.isfinite(out.out).all()
     with pytest.raises(ValueError, match="one \\(lo, hi\\) per control"):
         backward_lanes(torch.zeros((T, N + M + 1, B)), torch.ones(B), n=N,
                        m=M, reg_type=1, lims=((-1.0, 1.0),),

@@ -85,7 +85,8 @@ def test_public_names_match_jax():
                  "BatchKLResult", "BatchKLTrace", "kl_div_wiki_lanes",
                  "calc_eta_lanes", "Problem", "make_pendcart_problem",
                  "broadcast_derivs", "LTISpec", "random_lti",
-                 "make_lti_problem", "lti_lanes", "lti_derivs_tiles"):
+                 "make_lti_problem", "lti_lanes", "lti_derivs_tiles",
+                 "SimpleLTVModel", "forward_covariance"):
         assert name in P.__all__, name
         assert any(hasattr(mod, name) for mod in (J, batch_kl, jpc, jl)), \
             name
