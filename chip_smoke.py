@@ -8,8 +8,8 @@ Phases, each printing its own lines and its wall time; any failed check
 ends the run with a non-zero exit and no result line:
 
 1. device: torch/CUDA versions and the card's name and power limit;
-2. build: the five kernels from ``ops/hopper/csrc`` with nvcc, one process
-   per source;
+2. build: the kernels from ``ops/hopper/csrc`` with nvcc, one process per
+   source, and each instance's registers and spills;
 3. iLQG kernels (K3, K1, K2) against their plain PyTorch versions on the
    card at the main path's shapes (B=4096, T=500), with errors and
    CUDA-event timings;
@@ -17,33 +17,45 @@ ends the run with a non-zero exit and no result line:
    settings, with launch counts, cost statistics and ms per iteration, and
    the bit-exact α=0 retrace of rejected lanes;
 5. the same solve on 64 scenarios with CUDA tensors and with CPU tensors;
-6. KL kernels against their plain versions at B=4096, T=500 on a real
-   pre-roll: K3 without limits, K4, K1 in GPS mode with policy emission;
-7. the KL path: ``ilqgkl_batch_lanes`` at the JAX KL tier's settings
-   (``bench.py:114-132``), with launch counts, ms per solve and quality;
-8. ``gps_rollout_lanes``, 5 outer KL solves at the same size;
-9. the KL solve on 64 scenarios with CUDA tensors and with CPU tensors;
-10. LTI kernels (K3, K1 with the m=2 box-QP enumeration and without
+6. quadrotor kernels (n=6, m=2, thrust box (0, 5)): K3, K1
+   Autodiff<Quadrotor> (derivatives by forward-mode autodiff in the kernel)
+   and K2 against their plain versions, timed at B=4096, T=400; K1
+   Autodiff<PendCart> against the analytic pendcart K1 at B=4096, T=500;
+7. the pendcart iLQG solve of phase 4 with autodiff tiles, against the
+   analytic solve by outcome;
+8. the quadrotor path: ``ilqg_batch_lanes`` at the JAX quadrotor tier's
+   settings (``bench.py:215-254``: B=4096, T=400, 20-iteration budget),
+   with launch counts, histograms, ms per iteration, peak memory, the
+   thrust box and the bit-exact α=0 retrace;
+9. the quadrotor solve on 64 scenarios with CUDA tensors and with CPU
+   tensors;
+10. KL kernels against their plain versions at B=4096, T=500 on a real
+    pre-roll: K3 without limits, K4, K1 in GPS mode with policy emission;
+11. the KL path: ``ilqgkl_batch_lanes`` at the JAX KL tier's settings
+    (``bench.py:114-132``), with launch counts, ms per solve and quality;
+12. ``gps_rollout_lanes``, 5 outer KL solves at the same size;
+13. the KL solve on 64 scenarios with CUDA tensors and with CPU tensors;
+14. LTI kernels (K3, K1 with the m=2 box-QP enumeration and without
     limits, K2) at n=10, m=2 against their plain versions, and their times
     at the LTI fleet's shapes (B=4096, T=1000);
-11. the LTI path: ``ilqg_batch_lanes`` on the LTI fleet of
+15. the LTI path: ``ilqg_batch_lanes`` on the LTI fleet of
     ``tools/bench_fleet.py --lti`` (n=10, m=2, T=1000, B=4096, ±0.6),
     solved to convergence, with launch counts, histograms, ms per
     iteration, peak memory and the bit-exact α=0 retrace;
-12. the LTI solve on 64 scenarios with CUDA tensors and with CPU tensors;
-13. KL-on-LTI kernels: K4 at n=10 and K1 in GPS mode with policy emission
+16. the LTI solve on 64 scenarios with CUDA tensors and with CPU tensors;
+17. KL-on-LTI kernels: K4 at n=10 and K1 in GPS mode with policy emission
     at ⟨10,2⟩ against their plain versions, and their times at B=4096,
     T=1000;
-14. the KL path on the LTI fleet (the reference's demo_linear_kl at fleet
+18. the KL path on the LTI fleet (the reference's demo_linear_kl at fleet
     scale: kl_step=100, scalar η, no limits), with launch counts, ms per
     solve and per iteration, peak memory, quality and a torch.profiler
     split of one solve into kernel time, glue time and device idle share;
-15. the 5-outer ``gps_rollout_lanes`` on the LTI fleet;
-16. the KL-on-LTI solve on 64 scenarios at T=40 with CUDA tensors and with
+19. the 5-outer ``gps_rollout_lanes`` on the LTI fleet;
+20. the KL-on-LTI solve on 64 scenarios at T=40 with CUDA tensors and with
     CPU tensors;
-17. the probe K5 (copy, light and full modes) against its plain version,
+21. the probe K5 (copy, light and full modes) against its plain version,
     with its times and achieved bandwidth;
-18. the kernel record (one entry per kernel instance, with its bound) and
+22. the kernel record (one entry per kernel instance, with its bound) and
     the result line.
 """
 from __future__ import annotations
@@ -114,6 +126,33 @@ LTI_T_CPU = 40
 KL_LTI_STEP = 100.0
 # the probe K5 (tools/probe_kernel_cost.py): T=500 steps of a 47-slot stream
 PROBE_T = 500
+# the quadrotor fleet (JAX bench.py:215-254 bench_quadrotor): n=6, m=2,
+# thrust box (0, 5), B=4096, T=400, a 20-iteration budget, derivatives by
+# forward-mode autodiff inside K1
+QUAD_T = 400
+# the plain K1 with autodiff tiles is ≈50 torch.func operations and ≈2k
+# torch operations a step: compared at a short horizon, timed at QUAD_T
+QUAD_T_PLAIN = 64
+# the quadrotor solve on 64 scenarios with the plain versions on the host
+# (≈0.2 s a K1 step there): a short horizon
+QUAD_T_CPU = 16
+# K1 with autodiff tiles against its plain version, each slot by its error
+# over that slot's largest magnitude, as GPS_SLOT_TOL. The kernel's Dual and
+# Jet rules are PyTorch's forward-mode rules in PyTorch's order; what is
+# left is the card's sinf/cosf against PyTorch's. The thrust box (0, 5) is
+# active at its lower bound at rest, so the m=2 box QP meets near-ties: where
+# one rotor is clamped, two candidates' objectives differ by less than an f32
+# ulp and the two versions may pick different ones, k then ~sqrt(ulp) apart
+# (PR 3's rule): at most TIE_SHARE of the elements may exceed AD_SLOT_TOL.
+# Measured on an H100 at T=64, B=4096: bit-identical in both emissions.
+AD_SLOT_TOL = 1e-5
+TIE_SHARE = 0.01
+# K1 Autodiff<PendCart> against K1 pendcart with analytic derivatives on
+# the same trajectory: the AD expansion forms cx as 2·(Q/2)·dx and the
+# Jacobians by the chain rule, a few ulps from the hand-written ones, and
+# 500 steps of the Riccati recursion carry them (measured on an H100 at
+# B=4096, T=500: 5.1e-6); per slot, as above
+AD_ANALYTIC_TOL = 1e-4
 KERNEL_NAMES = ("backward_kernel", "linesearch_kernel", "forward_kernel",
                 "covariance_kernel", "probe_kernel")
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes and
@@ -204,6 +243,26 @@ def compare_slots(name: str, a: torch.Tensor, b: torch.Tensor,
     return mx
 
 
+def compare_slots_ties(name: str, a: torch.Tensor, b: torch.Tensor,
+                       tol: float, share: float = TIE_SHARE) -> float:
+    """As :func:`compare_slots`, but at most ``share`` of the elements may
+    exceed tol: the m=2 box QP's near-ties (see AD_SLOT_TOL). Returns the
+    max abs error."""
+    a, b = a.double(), b.double()
+    d = (a - b).abs()
+    scale = b.abs().amax(dim=(0, 2), keepdim=True).clamp_min(1e-30)
+    r = d / scale
+    over = (r > tol).float().mean().item()
+    mx = d.max().item()
+    print(f"  {name}: max_abs_err={mx:.3e}, max over slots of err/slot "
+          f"scale={r.max().item():.3e}, share above {tol:.0e}: {over:.3e} "
+          f"(at most {share}); bit-identical: {bool(torch.equal(a, b))}")
+    check(torch.isfinite(a).all().item(), f"{name}: non-finite values")
+    check(over <= share, f"{name}: {over:.3e} of the elements above "
+          f"{tol:.0e} (at most {share})")
+    return mx
+
+
 class Phases:
     """Wall time per phase, printed when the next phase starts."""
 
@@ -249,6 +308,11 @@ def ptxas_summary(log: str):
             kern = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
             targs = kern.group(2) if kern else ""
             model = ("LTI<10,2>" if "LTIILi10ELi2E" in targs else
+                     "Autodiff<Quadrotor>" if "AutodiffINS_9QuadrotorE" in
+                     targs else
+                     "Autodiff<PendCart>" if "AutodiffINS_8PendCartE" in
+                     targs else
+                     "Quadrotor" if "9QuadrotorE" in targs else
                      "PendCart" if "PendCart" in targs else None)
             targs = re.sub(r"NS_3LTIILi10ELi2EEE|NS_8PendCartE", "", targs)
             args = ([model] if model else []) + re.findall(r"L[ib](\d+)E",
@@ -295,6 +359,13 @@ def model_ops(model) -> dict:
         # pendcart: θ̈ (sin, cos, 3 multiplies, a divide, 2 adds) and the
         # Euler step (8), the cost (2 + 4·4); a21, fu1 and cx, cu (20)
         return dict(step=34, derivs=20)
+    if model.device.model_id == 3:
+        # quadrotor: thrust, sin, cos, ax, az, α (12) and the Euler step
+        # (12), the cost (6·3 + 5 and 2·4); the ANALYTIC expansion any
+        # implementation must form: thrust, sin, cos, fx[1][4], fx[3][4]
+        # (7), fu[1][·], fu[3][·] (4), cx, cu (16). Autodiff's passes are
+        # not counted, so the bound does not depend on how K1 derives.
+        return dict(step=55, derivs=30)
     c = model.device.consts
     n, m = model.n, model.m
     nz = [int(np.count_nonzero(c[a:b])) for a, b in (
@@ -409,7 +480,7 @@ def profile_split(fn):
 
 
 def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> dict:
-    """Phases 6-9: the KL/GPS path's kernels against their plain versions,
+    """Phases 10-13: the KL/GPS path's kernels against their plain versions,
     the KL solve, the GPS rollout, and the KL solve against the CPU. Adds
     the KL measurements to ``rec``; returns the launches of the KL and GPS
     paths."""
@@ -522,9 +593,12 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> dict:
     rec["k1_pendcart_gps"] = dict(
         max_abs_err=max(errs), ms=ms1, plain_ms=plain_ms1, library_ms=None,
         **k1_work(model, T, B, "policy", 1, None, gps=True))
+    w3p = k3_work(model, T, B, 1, True)
+    print(f"  K3 pre-roll bound {w3p['bound_ms']:.4f} ms ({w3p['bound_by']})")
     rec["k3_pendcart"].update(
         max_abs_err=max(rec["k3_pendcart"]["max_abs_err"], e_k3),
-        ms_unclamped_rollout=ms3, plain_ms_unclamped_rollout=plain_ms3)
+        ms_unclamped_rollout=ms3, plain_ms_unclamped_rollout=plain_ms3,
+        bound_ms_unclamped_rollout=w3p["bound_ms"])
     del prev, etas, gains, k, p, k3, p3, kc, pc
 
     ph.start("kl-path", f"ilqgkl_batch_lanes, pendcart B={B} T={T}, "
@@ -648,7 +722,7 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> dict:
 
 
 def lti_phases(ph, dev, rec, counters) -> dict:
-    """Phases 10-12: the LTI ⟨10,2⟩ kernels against their plain versions,
+    """Phases 14-16: the LTI ⟨10,2⟩ kernels against their plain versions,
     the LTI fleet solve, and the LTI solve against the CPU. Adds the LTI
     measurements to ``rec[name]["lti"]``; returns the LTI path's launches."""
     from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
@@ -801,8 +875,12 @@ def lti_phases(ph, dev, rec, counters) -> dict:
     print(f"  LTI K3 rollout A=1 at T={LTI_T}: kernel {ms3r:.3f} ms; plain "
           f"versions once at T={Tp}: K3 sweep {plain3:.1f} ms, K1 gains "
           f"{plain1:.1f} ms, K2 {plain2:.1f} ms")
+    w3r = k3_work(model, LTI_T, B, 1, True)
+    print(f"  LTI K3 rollout bound {w3r['bound_ms']:.4f} ms "
+          f"({w3r['bound_by']})")
     rec["k3_lti"] = dict(ms=ms3, ms_rollout=ms3r, plain_ms=plain3,
-                         plain_T=Tp, max_abs_err=e3, library_ms=None, **w3)
+                         plain_T=Tp, max_abs_err=e3, library_ms=None,
+                         bound_ms_rollout=w3r["bound_ms"], **w3)
     rec["k1_lti"] = dict(ms=ms1, ms_full=ms1f, bound_ms_full=w1f["bound_ms"],
                          plain_ms=plain1, plain_T=Tp, max_abs_err=max(errs),
                          library_ms=None, **w1)
@@ -901,7 +979,7 @@ def lti_phases(ph, dev, rec, counters) -> dict:
 
 
 def kl_lti_phases(ph, dev, rec, counters) -> dict:
-    """Phases 13-16: the KL/GPS path on the LTI fleet. K4 at n=10 and K1 in
+    """Phases 17-20: the KL/GPS path on the LTI fleet. K4 at n=10 and K1 in
     GPS mode with policy emission at ⟨10,2⟩ against their plain versions,
     the KL solve of the reference's demo_linear_kl at fleet scale, the
     5-outer GPS rollout, and the KL solve against the CPU. Adds the
@@ -1031,7 +1109,9 @@ def kl_lti_phases(ph, dev, rec, counters) -> dict:
     rec["k1_lti_gps"] = dict(max_abs_err=max(errs), ms=ms1, plain_ms=plain1,
                              plain_T=Tp, library_ms=None, **w1)
     rec["k3_lti"].update(max_abs_err=max(rec["k3_lti"]["max_abs_err"], e3),
-                         ms_unclamped_rollout=ms3)
+                         ms_unclamped_rollout=ms3,
+                         bound_ms_unclamped_rollout=k3_work(
+                             model, Tl, B, 1, True)["bound_ms"])
     del prev, etas, prev_path, eta1, traj_p, k, p
 
     cfg = ILQGKLConfig(kl_step=KL_LTI_STEP)
@@ -1186,8 +1266,360 @@ def kl_lti_phases(ph, dev, rec, counters) -> dict:
     return paths
 
 
+def quad_phases(ph, dev, rec, counters, ilqg) -> dict:
+    """Phases 6-9: the quadrotor ⟨6,2⟩ kernels (K3, K1 Autodiff<Quadrotor>,
+    K2) against their plain versions and K1 Autodiff<PendCart> against the
+    analytic pendcart K1; the pendcart iLQG solve with autodiff tiles
+    against the analytic solve ``ilqg`` (x0s, cfg and outcome of phase 4);
+    the quadrotor fleet solve of JAX bench.py:215-254; and that solve on 64
+    scenarios against the CPU. Adds the measurements to ``rec``; returns the
+    launches of the paths ``ilqg_ad`` and ``quad``."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles, pendcart_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec, default_x0, quadrotor_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+
+    Tq, Tp = QUAD_T, QUAD_T_PLAIN
+    spec = QuadrotorSpec()
+    model = quadrotor_lanes(spec)
+    tiles = autodiff_derivs_tiles(model)
+    lims = spec.lims
+    cfg = ilqg["cfg"]
+    A = len(cfg.alphas)
+    ph.start("quad-kernels", f"quadrotor n=6 m=2 B={B}: K3, K1 "
+             f"Autodiff<Quadrotor> (plain at T={Tp}), K2 against plain "
+             f"versions, timed at T={Tq}; K1 Autodiff<PendCart> against the "
+             f"analytic K1 at T={T}")
+    # x0 as the JAX tier (bench.py:230-232): default_x0 + 0.3·N(0,1)·
+    # [1,0,1,0,0.5,0], from a numpy seed (other bits than PRNGKey(1))
+    rng = np.random.default_rng(11)
+    x0_np = default_x0(torch.float64, device="cpu").numpy()[None, :] + (
+        0.3 * rng.standard_normal((B, 6)) * np.array([1, 0, 1, 0, 0.5, 0]))
+    x0s = torch.tensor(x0_np, dtype=torch.float32, device=dev)
+    x0_l = x0s.T.contiguous()
+    # a rollout whose rotors meet both limits: u = u_hover + 1.5·N(0,1)
+    u_rand = torch.tensor(spec.u_hover + 1.5 * rng.standard_normal((B, Tq, 2)),
+                          dtype=torch.float32, device=dev)
+    gains0 = torch.cat([to_streams(u_rand),
+                        torch.zeros((Tq, 12, B), device=dev)], dim=1)
+    traj0 = torch.zeros((Tq, 8, B), device=dev)
+    ladder = torch.tensor(cfg.alphas, device=dev)[:, None].expand(A, B)
+    ladder = ladder.contiguous()
+    al1 = torch.tensor(rng.uniform(0.0, 1.0, (1, B)), dtype=torch.float32,
+                       device=dev)
+
+    def fwd(al, emit, plain):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(traj0, gains0, x0_l, al, model=model, lims=lims,
+                 emit_traj=emit)
+
+    k, p = fwd(ladder, False, False), fwd(ladder, False, True)
+    e3 = compare("quad K3 sweep A=6", {"totals": (k.totals, p.totals),
+                                       "terminal": (k.terminal, p.terminal)})
+    k, p = fwd(al1, True, False), fwd(al1, True, True)
+    e3 = max(e3, compare("quad K3 rollout A=1", {
+        "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)}))
+    print(f"  quad K3 rollout: bit-identical to the plain version: "
+          f"{torch.equal(k.traj, p.traj) and torch.equal(k.totals, p.totals)}")
+    traj, tot = k.traj, k.totals[0]
+    ms3 = cuda_ms(lambda: fwd(ladder, False, False), 20)
+    plain3 = cuda_ms(lambda: fwd(ladder, False, True), 3)
+    ms3r = cuda_ms(lambda: fwd(al1, True, False), 20)
+    plain3r = cuda_ms(lambda: fwd(al1, True, True), 3)
+
+    lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), dtype=torch.float32,
+                       device=dev)
+    lam[::8] = 0.0
+    traj_p = traj[:Tp].contiguous()
+
+    def bwd(emit, plain, tr=traj):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, lam, n=6, m=2, reg_type=2, lims=lims, derivs_tiles=tiles,
+                 emit=emit)
+
+    errs, plain1 = [], None
+    for emit in ("gains", "full"):
+        what = f"quad K1 Autodiff<Quadrotor> {emit} at T={Tp}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = bwd(emit, True, traj_p)
+        torch.cuda.synchronize()
+        plain1 = plain1 or (time.perf_counter() - t0) * 1e3
+        k = bwd(emit, False, traj_p)
+        lay = bk.OutLayout(6, 2, emit)
+        nq = lay.quui if emit == "full" else lay.S
+        errs.append(compare_slots_ties(what, k.out[:, :nq], p.out[:, :nq],
+                                       AD_SLOT_TOL))
+        errs.append(compare(what, {"dV": (k.stats[:2], p.stats[:2])}))
+        if emit == "full":
+            errs.append(compare_slots_ties(f"{what} Quu_inv", k.out[:, nq:],
+                                           p.out[:, nq:], QUU_INV_TOL))
+        check(torch.equal(k.stats[2:], p.stats[2:]),
+              f"{what}: diverged/diverge_idx differ")
+        if emit == "gains":
+            kk, u = k.out[:-1, :2], traj_p[:-1, 6:8]
+            on = (kk == 0.0 - u) | (kk == spec.u_max - u)
+            shares = [on[:, i].float().mean().item() for i in range(2)]
+            print(f"  quad K1: the thrust box binds on a share of the steps: "
+                  f"rotor 0 {shares[0]:.4f}, rotor 1 {shares[1]:.4f}")
+            check(min(shares) > 0, "quad K1: a rotor's limits never bind, so "
+                  "the enumeration was not exercised")
+    ms1 = cuda_ms(lambda: bwd("gains", False), 20)
+    ms1f = cuda_ms(lambda: bwd("full", False), 20)
+    bo = bwd("gains", False)
+    allow = (torch.arange(B, device=dev) % 2 == 0).float()
+    sel = torch.stack([bo.stats[0], bo.stats[1], tot, allow])
+
+    def ls(plain, s=sel):
+        f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+        return f(traj, bo.out, x0_l, s, model=model, alphas=cfg.alphas,
+                 reduce_ratio_min=0.0, lims=lims)
+
+    k, p = ls(False), ls(True)
+    e2 = compare("quad K2", {"traj": (k.traj, p.traj),
+                             "totals": (k.ls[4], p.ls[4])})
+    check(torch.equal(k.ls[:2], p.ls[:2]), "quad K2: al_sel/any_ok differ")
+    print(f"  quad K2: {int(((k.ls[1] > 0.5) & (allow > 0.5)).sum())} of {B} "
+          f"lanes accept")
+    out = ls(False, torch.stack([bo.stats[0], bo.stats[1], tot,
+                                 torch.zeros_like(tot)]))
+    check(torch.equal(out.traj, traj),
+          "quad K2 α=0 retrace of a K3 stream is not bit-exact")
+    print("  quad K2 α=0 retrace of the K3 stream: bit-exact")
+    ms2 = cuda_ms(lambda: ls(False), 20)
+    plain2 = once_ms(lambda: ls(True))
+    w3, w3r = k3_work(model, Tq, B, A, False), k3_work(model, Tq, B, 1, True)
+    w1 = k1_work(model, Tq, B, "gains", 2, lims)
+    w1f = k1_work(model, Tq, B, "full", 2, lims)
+    w2 = k2_work(model, Tq, B, A)
+    for what, ms, w in (("K3 sweep A=6", ms3, w3), ("K3 rollout A=1", ms3r,
+                                                     w3r),
+                        ("K1 gains", ms1, w1), ("K1 full", ms1f, w1f),
+                        ("K2 A=6", ms2, w2)):
+        print(f"  quad {what} at T={Tq}: kernel {ms:.3f} ms, bound "
+              f"{w['bound_ms']:.4f} ms ({w['bound_by']}: "
+              f"{w['bound_bytes'] / 1e6:.1f} MB, "
+              f"{w['bound_flops'] / 1e9:.3f} GFLOP)")
+    print(f"  quad plain versions: K3 sweep {plain3:.1f} ms, rollout "
+          f"{plain3r:.1f} ms, K2 {plain2:.1f} ms at T={Tq}; K1 gains "
+          f"{plain1:.1f} ms once at T={Tp}")
+    rec["k3_quad"] = dict(max_abs_err=e3, ms=ms3, plain_ms=plain3,
+                          ms_rollout=ms3r, plain_ms_rollout=plain3r,
+                          bound_ms_rollout=w3r["bound_ms"], library_ms=None,
+                          **w3)
+    rec["k1_quad"] = dict(max_abs_err=max(errs), ms=ms1, ms_full=ms1f,
+                          bound_ms_full=w1f["bound_ms"], plain_ms=plain1,
+                          plain_T=Tp, library_ms=None, **w1)
+    rec["k2_quad"] = dict(max_abs_err=e2, ms=ms2, plain_ms=plain2,
+                          library_ms=None, **w2)
+    del traj0, gains0, u_rand, traj_p, bo, k, p, out
+
+    # K1 Autodiff<PendCart> against the analytic pendcart K1 at the iLQG
+    # headline's shapes, and against its own plain version at T=Tp
+    pspec = PendCartSpec()
+    pmodel = pendcart_lanes(pspec)
+    p_an, p_ad = pendcart_derivs_tiles(pspec), autodiff_derivs_tiles(pmodel)
+    px0 = ilqg["x0s"].T.contiguous()
+    pgains = torch.cat([torch.tensor(2.0 * rng.standard_normal((T, 1, B)),
+                                     dtype=torch.float32, device=dev),
+                        torch.zeros((T, 4, B), device=dev)], dim=1)
+    ptraj = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), pgains, px0,
+                             al1, model=pmodel, lims=LIMS,
+                             emit_traj=True).traj
+
+    def pbwd(tl, emit, plain=False, tr=ptraj):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, lam, n=4, m=1, reg_type=2, lims=LIMS, derivs_tiles=tl,
+                 emit=emit)
+
+    errs, plain_ad = [], None
+    for emit in ("gains", "full"):
+        lay = bk.OutLayout(4, 1, emit)
+        nq = lay.quui if emit == "full" else lay.S
+        ka, kn = pbwd(p_ad, emit), pbwd(p_an, emit)
+        what = f"K1 Autodiff<PendCart> {emit}"
+        errs.append(compare_slots(f"{what} vs analytic K1, T={T}",
+                                  ka.out[:, :nq], kn.out[:, :nq],
+                                  AD_ANALYTIC_TOL))
+        errs.append(compare(f"{what} vs analytic", {
+            "dV": (ka.stats[:2], kn.stats[:2])}))
+        if emit == "full":
+            errs.append(compare(f"{what} vs analytic", {
+                "Quu_inv": (ka.out[:, nq:], kn.out[:, nq:])}, QUU_INV_TOL))
+        check(torch.equal(ka.stats[2:], kn.stats[2:]),
+              f"{what}: diverged/diverge_idx differ from the analytic K1")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pp = pbwd(p_ad, emit, True, ptraj[:Tp].contiguous())
+        torch.cuda.synchronize()
+        plain_ad = plain_ad or (time.perf_counter() - t0) * 1e3
+        kp = pbwd(p_ad, emit, False, ptraj[:Tp].contiguous())
+        errs.append(compare_slots(f"{what} vs its plain version, T={Tp}",
+                                  kp.out[:, :nq], pp.out[:, :nq],
+                                  AD_SLOT_TOL))
+    ms_ad = cuda_ms(lambda: pbwd(p_ad, "gains"), 20)
+    ms_adf = cuda_ms(lambda: pbwd(p_ad, "full"), 20)
+    ms_an = cuda_ms(lambda: pbwd(p_an, "gains"), 20)
+    wp = k1_work(pmodel, T, B, "gains", 2, LIMS)
+    print(f"  K1 Autodiff<PendCart> at T={T}: gains {ms_ad:.3f} ms, full "
+          f"{ms_adf:.3f} ms; the analytic K1 gains in the same run "
+          f"{ms_an:.3f} ms; bound {wp['bound_ms']:.4f} ms ({wp['bound_by']}); "
+          f"plain once at T={Tp}: {plain_ad:.1f} ms")
+    rec["k1_pendcart_ad"] = dict(max_abs_err=max(errs), ms=ms_ad,
+                                 ms_full=ms_adf, ms_analytic=ms_an,
+                                 plain_ms=plain_ad, plain_T=Tp,
+                                 library_ms=None, **wp)
+    del ptraj, pgains, ka, kn, kp, pp
+
+    ph.start("ilqg-ad-path", f"ilqg_batch_lanes, pendcart B={B} T={T} with "
+             f"autodiff_derivs_tiles, against the analytic solve of phase 4")
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    u0p = torch.zeros((B, T, 1), device=dev)
+
+    def timed_ad():
+        s.record()
+        out = ilqg_batch_lanes(pmodel, None, ilqg["x0s"], u0p, lims=LIMS,
+                               cfg=cfg, derivs_tiles=p_ad, max_steps=ITERS)
+        e.record()
+        return out
+
+    r, launches_ad = counted(counters, timed_ad)
+    ad_ms = s.elapsed_time(e)
+    rel = (r.cost_total - ilqg["cost_total"]).abs() / ilqg["cost_total"].abs()
+    close = (rel <= COST_RTOL).float().mean().item()
+    same_reason = (r.reason == ilqg["reason"]).float().mean().item()
+    same_acc = (r.n_accepted == ilqg["n_accepted"]).float().mean().item()
+    print(f"  launches: {launches_ad}")
+    print(f"  solve: {ad_ms:.3f} ms (CUDA events), max n_iters "
+          f"{int(r.n_iters.max())}; against the analytic solve: cost rel "
+          f"diff max {rel.max().item():.3e}, median {rel.median().item():.3e}"
+          f"; share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
+          f"reason {same_reason:.3f}, same accepted count {same_acc:.3f} "
+          f"(need {AGREE_SHARE} each)")
+    check(all(launches_ad[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the autodiff pendcart path never ran: {launches_ad}")
+    check(min(close, same_reason, same_acc) >= AGREE_SHARE,
+          "pendcart with autodiff tiles: outcomes differ from the analytic "
+          "solve")
+    rec["k1_pendcart_ad"]["path"] = dict(solve_ms=ad_ms,
+                                         iters=int(r.n_iters.max()))
+    del r
+
+    ph.start("quad-path", f"ilqg_batch_lanes, quadrotor B={B} T={Tq}, "
+             f"{A}-α ladder, reg_type 2, thrust box (0, {spec.u_max:g}), "
+             f"autodiff tiles, max_steps={ITERS}")
+    u0s = torch.full((B, Tq, 2), spec.u_hover, device=dev)
+
+    def solve(x0, u0, trace=False):
+        return ilqg_batch_lanes(model, None, x0, u0, lims=lims, cfg=cfg,
+                                derivs_tiles=tiles, max_steps=ITERS,
+                                record_trace=trace)
+
+    warm = solve(x0s, u0s, trace=True)         # warm-up, initial costs
+    cost_init = warm.trace.cost[:, 0]
+    del warm
+
+    def timed_solve():
+        s.record()
+        out = solve(x0s, u0s)
+        e.record()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r, launches = counted(counters, timed_solve)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    solve_ms = s.elapsed_time(e)
+    peak = torch.cuda.max_memory_allocated()
+    iters = int(r.n_iters.max())
+    ct = r.cost_total
+
+    def hist(v):
+        return {int(a): int(b) for a, b in zip(*torch.unique(
+            v, return_counts=True))}
+
+    print(f"  launches: {launches}")
+    print(f"  n_iters histogram {hist(r.n_iters)}; reasons {hist(r.reason)}; "
+          f"accepted mean {r.n_accepted.float().mean().item():.3f}")
+    print(f"  cost_total min/median/max: {ct.min().item():.6g} / "
+          f"{ct.median().item():.6g} / {ct.max().item():.6g} (initial "
+          f"rollout median {cost_init.median().item():.6g})")
+    print(f"  solve: {solve_ms:.3f} ms (CUDA events), {wall_ms:.3f} ms host "
+          f"clock; {solve_ms / max(iters, 1):.4f} ms/iter over {iters} "
+          f"iterations; peak memory {peak / 2**30:.3f} GiB")
+    on_lo = (r.u == 0.0).float().mean().item()
+    on_hi = (r.u == spec.u_max).float().mean().item()
+    print(f"  u within [{r.u.min().item():.6g}, {r.u.max().item():.6g}]; "
+          f"share of controls at 0: {on_lo:.4f}, at {spec.u_max:g}: "
+          f"{on_hi:.4f}")
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the quadrotor path never ran: {launches}")
+    check(1 <= iters <= ITERS, f"quad n_iters {iters}")
+    check(bool((r.reason != 5).all()), "quad: an initial rollout diverged")
+    check(bool(torch.isfinite(ct).all()), "quad: non-finite cost")
+    check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.u).all()
+               and torch.isfinite(r.policy.K).all()),
+          "quad: non-finite trajectory or gains")
+    check(r.x.shape == (B, Tq, 6) and r.u.shape == (B, Tq, 2)
+          and r.policy.K.shape == (B, Tq, 2, 6), "quad result shapes")
+    check(bool((r.u >= 0.0).all() and (r.u <= spec.u_max).all()),
+          "quad: a thrust outside (0, u_max)")
+    check(ct.median() < cost_init.median(), "quad: median cost did not "
+          "improve")
+    st = torch.cat([to_streams(r.x), to_streams(r.u),
+                    to_streams(r.cost[..., None])], dim=1)
+    bo = bk.backward_lanes(st, r.lam, n=6, m=2, reg_type=2, lims=lims,
+                           derivs_tiles=tiles, emit="gains")
+    sel = torch.stack([bo.stats[0], bo.stats[1], ct, allow])
+    out = fk.linesearch_lanes(st, bo.out, x0_l, sel, model=model,
+                              alphas=cfg.alphas, lims=lims)
+    rej = (out.ls[1] < 0.5) | (allow < 0.5)
+    check(torch.equal(out.traj[..., rej], st[..., rej]),
+          "quad: rejected lanes of the solution do not retrace bit for bit")
+    print(f"  retrace: {int(rej.sum())} rejected lanes reproduce the "
+          f"solution stream bit for bit")
+    rec["k1_quad"]["path"] = dict(
+        solve_ms=solve_ms, iters=iters, ms_per_iter=solve_ms / max(iters, 1),
+        peak_bytes=peak, reasons=hist(r.reason), n_iters=hist(r.n_iters),
+        cost_median=ct.median().item(), cost_init_median=cost_init.median(
+        ).item())
+    del r, st, bo, out
+
+    ph.start("quad-gpu-vs-cpu", f"first {B_CPU} scenarios, T={QUAD_T_CPU}, "
+             f"max_steps={ITERS}")
+    x0c = x0s[:B_CPU]
+    u0c = torch.full((B_CPU, QUAD_T_CPU, 2), spec.u_hover, device=dev)
+    g = solve(x0c, u0c)
+    t0 = time.perf_counter()
+    c = solve(x0c.cpu(), u0c.cpu())
+    print(f"  CPU quad solve (plain versions), T={QUAD_T_CPU}: "
+          f"{time.perf_counter() - t0:.1f} s; reasons {hist(c.reason)}")
+    gc, cc = g.cost_total.cpu(), c.cost_total
+    rel = (gc - cc).abs() / cc.abs()
+    close = (rel <= COST_RTOL).float().mean().item()
+    same_reason = (g.reason.cpu() == c.reason).float().mean().item()
+    same_acc = (g.n_accepted.cpu() == c.n_accepted).float().mean().item()
+    print(f"  cost_total rel diff: max {rel.max().item():.3e}, median "
+          f"{rel.median().item():.3e}")
+    print(f"  share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
+          f"reason {same_reason:.3f}, same accepted count {same_acc:.3f} "
+          f"(need {AGREE_SHARE} each)")
+    check(min(close, same_reason, same_acc) >= AGREE_SHARE,
+          "quad: GPU and CPU outcomes differ")
+    return {"ilqg_ad": launches_ad, "quad": launches}
+
+
 def probe_phase(ph, dev, rec, counters) -> dict:
-    """Phase 17: the probe K5, each mode against its plain version (bit for
+    """Phase 21: the probe K5, each mode against its plain version (bit for
     bit: copies and sequential f32 adds), timed, with its achieved
     bandwidth. Returns the launches of each mode's run."""
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
@@ -1297,8 +1729,14 @@ def main() -> int:
     plain_ms1 = cuda_ms(lambda: fwd(al1, True, True), 3)
     print(f"  K3 sweep A=6: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
           f"rollout A=1: kernel {ms1:.3f} ms, plain {plain_ms1:.1f} ms")
+    w3r = k3_work(model, T, B, 1, True)
+    print(f"  K3 bounds: sweep {k3_work(model, T, B, A, False)['bound_ms']:.4f}"
+          f" ms, rollout {w3r['bound_ms']:.4f} ms ({w3r['bound_by']})")
     rec["k3_pendcart"] = dict(max_abs_err=max(e1, e2), ms=ms,
-                              plain_ms=plain_ms, library_ms=None,
+                              plain_ms=plain_ms, ms_rollout=ms1,
+                              plain_ms_rollout=plain_ms1,
+                              bound_ms_rollout=w3r["bound_ms"],
+                              library_ms=None,
                               **k3_work(model, T, B, A, False))
 
     lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), dtype=torch.float32,
@@ -1448,6 +1886,8 @@ def main() -> int:
     print(f"  retrace: {int(rej.sum())} rejected lanes reproduce the "
           f"solution stream bit for bit")
     launches_ilqg = launches
+    ilqg = dict(cfg=cfg, x0s=x0s, cost_total=ct, reason=r.reason,
+                n_accepted=r.n_accepted)
     del r, bo, out, st
 
     ph.start("ilqg-gpu-vs-cpu", f"first {B_CPU} scenarios, T={T}, "
@@ -1471,6 +1911,7 @@ def main() -> int:
           >= AGREE_SHARE, "GPU and CPU outcomes differ")
 
     paths = {"ilqg": launches_ilqg}
+    paths.update(quad_phases(ph, dev, rec, counters, ilqg))
     paths.update(kl_phases(ph, dev, rec, counters, model, tiles, spec))
     paths["lti"] = lti_phases(ph, dev, rec, counters)
     paths.update(kl_lti_phases(ph, dev, rec, counters))
@@ -1496,14 +1937,24 @@ def main() -> int:
          "backward_lti.cu", k1, ("lti",)),
         ("k1_lti_gps", "backward_lanes", "LTI <10,2> GPS policy",
          "backward_lti_gps.cu", k1, ("kl_lti", "gps_lti")),
+        ("k1_quad", "backward_lanes",
+         "Autodiff<Quadrotor> <6,2> gains, full", "backward_quad.cu", k1,
+         ("quad",)),
+        ("k1_pendcart_ad", "backward_lanes",
+         "Autodiff<PendCart> <4,1> gains, full", "backward_pendcart_ad.cu",
+         k1, ("ilqg_ad",)),
         ("k2_pendcart", "linesearch_lanes", "pendcart <4,1>", "forward.cu", k2,
          ("ilqg",)),
         ("k2_lti", "linesearch_lanes", "LTI <10,2>", "forward_lti.cu", k2,
          ("lti",)),
+        ("k2_quad", "linesearch_lanes", "quadrotor <6,2>", "forward_quad.cu",
+         k2, ("quad",)),
         ("k3_pendcart", "forward_lanes", "pendcart <4,1>", "forward.cu", k3,
          ("ilqg", "kl", "gps")),
         ("k3_lti", "forward_lanes", "LTI <10,2>", "forward_lti.cu", k3,
          ("lti", "kl_lti", "gps_lti")),
+        ("k3_quad", "forward_lanes", "quadrotor <6,2>", "forward_quad.cu", k3,
+         ("quad",)),
         ("k4_4", "covariance_lanes", "n=4", "covariance.cu", k4,
          ("kl", "gps")),
         ("k4_10", "covariance_lanes", "n=10", "covariance.cu", k4,

@@ -6,7 +6,10 @@ covers the fleet paths with in-kernel derivatives and static control limits
 or none: the iLQG main path :func:`ilqg_batch_lanes` on the pendcart model
 (n=4, m=1) and on the LTI family (the CUDA kernels at n=10, m=2), and the
 KL/GPS trust-region path :func:`ilqgkl_batch_lanes` with
-:func:`gps_rollout_lanes` on both. Their four kernels (backward pass with
+:func:`gps_rollout_lanes` on both; and any lane model through
+:func:`autodiff_derivs_tiles`, whose derivative expansion is made by
+forward-mode autodiff (on the card for pendcart and the quadrotor,
+``models/quadrotor.py``, n=6, m=2). Their four kernels (backward pass with
 GPS mode, forward rollout, fused line search, covariance propagation) and
 the bandwidth probe are CUDA C++ under ``ops/hopper/csrc/``, built with
 ``nvcc`` at first use; each has a plain PyTorch version beside it, which
@@ -25,13 +28,14 @@ from .solvers.ilqgkl import ILQGKLConfig
 from .solvers.batch_kl import (ilqgkl_batch_lanes, gps_rollout_lanes,
                                BatchKLResult, BatchKLTrace,
                                kl_div_wiki_lanes, calc_eta_lanes)
-from .problem import Problem, broadcast_derivs
+from .problem import Problem, broadcast_derivs, make_autodiff_derivs
 from .models.pendcart import (PendCartSpec, pendcart_lanes,
                               pendcart_derivs_tiles, make_pendcart_problem,
                               default_x0, default_lims)
 from .models.linear import (LTISpec, random_lti, make_lti_problem,
                             lti_lanes, lti_derivs_tiles, SimpleLTVModel)
 from .ops.forward import forward_covariance
+from .ops.hopper.autodiff_tiles import autodiff_derivs_tiles
 
 __version__ = "0.1.0"
 
@@ -42,7 +46,8 @@ __all__ = [
     "BatchILQGResult", "BatchTrace", "split_lims",
     "ILQGKLConfig", "ilqgkl_batch_lanes", "gps_rollout_lanes",
     "BatchKLResult", "BatchKLTrace", "kl_div_wiki_lanes", "calc_eta_lanes",
-    "Problem", "broadcast_derivs",
+    "Problem", "broadcast_derivs", "make_autodiff_derivs",
+    "autodiff_derivs_tiles",
     "PendCartSpec", "pendcart_lanes", "pendcart_derivs_tiles",
     "make_pendcart_problem", "default_x0", "default_lims",
     "LTISpec", "random_lti", "make_lti_problem", "lti_lanes",

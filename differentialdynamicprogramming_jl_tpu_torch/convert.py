@@ -15,6 +15,7 @@ import torch
 from .device import resolve
 from .models.linear import LTISpec
 from .models.pendcart import PendCartSpec
+from .models.quadrotor import QuadrotorSpec
 from .policy import GaussianPolicy
 from .solvers.ilqg import ILQGConfig
 from .solvers.ilqgkl import ILQGKLConfig
@@ -34,6 +35,14 @@ def spec_from_jax(spec) -> PendCartSpec:
     for name in ("R", "g", "l", "h", "d"):
         kw[name] = float(kw[name])
     return PendCartSpec(**kw)
+
+
+def quadrotor_spec_from_jax(spec) -> QuadrotorSpec:
+    """Any object with QuadrotorSpec's fields → the port's QuadrotorSpec."""
+    kw = {name: float(v) if not isinstance(v, tuple)
+          else tuple(float(a) for a in v)
+          for name, v in _fields(QuadrotorSpec, spec).items()}
+    return QuadrotorSpec(**kw)
 
 
 def lti_spec_from_jax(spec, dtype=torch.float32, device=None) -> LTISpec:

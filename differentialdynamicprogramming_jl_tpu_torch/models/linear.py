@@ -75,13 +75,10 @@ def make_lti_problem(spec: LTISpec, T: int,
 
     Dynamics ``x' = Ax + Bu`` (``src/demo_linear.jl:42-45``); cost
     ``0.5 x'Qx + 0.5 u'Ru`` (``:49``); analytic derivatives that broadcast
-    the time-invariant ``(A, B, Q, R)`` to ``(T, ...)`` (``:35-41``).
-    ``use_autodiff=True`` needs the autodiff derivatives, which are not
-    ported yet (NotImplementedError).
+    the time-invariant ``(A, B, Q, R)`` to ``(T, ...)`` (``:35-41``);
+    ``use_autodiff=True`` takes the autodiff derivatives instead
+    (``derivs=None``, :func:`~..problem.make_autodiff_derivs`).
     """
-    if use_autodiff:
-        raise NotImplementedError(
-            "use_autodiff=True: make_autodiff_derivs is not ported yet")
     A, Bm, Q, R = spec.A, spec.B, spec.Q, spec.R
     n, m = Bm.shape
 
@@ -108,7 +105,8 @@ def make_lti_problem(spec: LTISpec, T: int,
                       cx=x_traj[..., :T, :] @ Q.T, cu=u_traj @ R.T,
                       cxx=ex(base.cxx), cxu=ex(base.cxu), cuu=ex(base.cuu))
 
-    return Problem(dynamics=dynamics, cost=cost, derivs=derivs)
+    return Problem(dynamics=dynamics, cost=cost,
+                   derivs=None if use_autodiff else derivs)
 
 
 def _f32(spec: LTISpec):

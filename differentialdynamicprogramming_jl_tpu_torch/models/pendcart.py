@@ -69,15 +69,17 @@ def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
     broadcasting over leading batch dimensions.
 
     ``derivs``: ``"euler"`` — hand-written exact Jacobians of the Euler step
-    (pure elementwise trig), in the JAX package's expression order. The
-    reference's ``"zoh"`` scheme and ``"autodiff"`` are not ported yet
-    (NotImplementedError). ``device=None`` is the CUDA card.
+    (pure elementwise trig), in the JAX package's expression order;
+    ``"autodiff"`` — the same Jacobians by autodiff of the Euler step
+    (``derivs=None``, :func:`~..problem.make_autodiff_derivs`). The
+    reference's ``"zoh"`` scheme is not ported yet (NotImplementedError).
+    ``device=None`` is the CUDA card.
     """
     if derivs not in ("zoh", "autodiff", "euler"):
         raise ValueError(f"unknown derivs scheme {derivs!r}")
-    if derivs != "euler":
+    if derivs == "zoh":
         raise NotImplementedError(
-            f"derivs={derivs!r} is not ported yet; use 'euler'")
+            "derivs='zoh' is not ported yet; use 'euler' or 'autodiff'")
     device = resolve(device)
     Q = torch.diag(torch.tensor(spec.Q, dtype=dtype, device=device))
     R = torch.tensor([[spec.R]], dtype=dtype, device=device)
@@ -129,7 +131,8 @@ def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
             cxu=torch.zeros(lead + (4, 1), dtype=dtype, device=th.device),
             cuu=R.expand(lead + (1, 1)))
 
-    return Problem(dynamics=dynamics, cost=cost, derivs=deriv_fn,
+    return Problem(dynamics=dynamics, cost=cost,
+                   derivs=deriv_fn if derivs == "euler" else None,
                    traj_cost=traj_cost)
 
 

@@ -31,10 +31,11 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every source the library is built from, headers included, so that the
 # library's hash changes with any of them; each .cu is one nvcc process
-SOURCES = ("common.cuh", "pendcart.cuh", "lti.cuh", "backward.cuh",
-           "forward.cuh", "backward.cu", "backward_lti.cu",
-           "backward_lti_gps.cu", "forward.cu", "forward_lti.cu",
-           "covariance.cu", "probe.cu")
+SOURCES = ("common.cuh", "autodiff.cuh", "pendcart.cuh", "lti.cuh",
+           "quadrotor.cuh", "backward.cuh", "forward.cuh", "backward.cu",
+           "backward_lti.cu", "backward_lti_gps.cu", "backward_quad.cu",
+           "backward_pendcart_ad.cu", "forward.cu", "forward_lti.cu",
+           "forward_quad.cu", "covariance.cu", "probe.cu")
 # compile flags of every source; the objects are then linked with -shared
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -50,8 +51,10 @@ _F = ctypes.c_float
 # id, n, m, descriptor, descriptor size, device, stream
 _MODEL = (_P, _I, _I, _I, _P, _I, _I, _P)
 SIGNATURES = {
+    # K1 takes one more model argument before the device: whether its
+    # derivatives are made by autodiff (the Autodiff<Body> instances)
     "ddp_backward_lanes": (_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                           _I) + _MODEL,
+                           _I) + _MODEL[:6] + (_I,) + _MODEL[6:],
     "ddp_forward_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
                           _I, _I) + _MODEL,
     "ddp_linesearch_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _F, _P,

@@ -64,7 +64,9 @@ class DerivsTiles:
     """An in-kernel derivative function ``fn(x, u, t) -> dict`` (keys fx, fu,
     cx, cu, cxx, cxu, cuu; lists of per-scenario tensors, cxu is (n, m)),
     with the device-model descriptor that lets the CUDA kernel evaluate the
-    same model."""
+    same model: by its analytic derivatives, or by autodiff of its own
+    functions where ``device.autodiff`` is set
+    (:func:`~.autodiff_tiles.autodiff_derivs_tiles`)."""
 
     fn: Callable
     device: Optional[DeviceModel] = None
@@ -75,6 +77,17 @@ class DerivsTiles:
 
 # emission mode codes of the CUDA launcher (csrc/backward.cu)
 EMIT_CODE = {"gains": 0, "full": 1, "policy": 2}
+# K1's CUDA instances: (model id, n, m, autodiff, GPS mode) -> the
+# emissions built. autodiff marks the Autodiff<Body> instances
+# (csrc/autodiff.cuh), whose derivatives are made in the kernel from the
+# model's own functions (DeviceModel.autodiff).
+_ALL = tuple(EMIT_CODE)
+CUDA_BACKWARD = {
+    (1, 4, 1, False, False): _ALL, (1, 4, 1, False, True): _ALL,
+    (2, 10, 2, False, False): _ALL, (2, 10, 2, False, True): _ALL,
+    (1, 4, 1, True, False): ("gains", "full"),
+    (3, 6, 2, True, False): ("gains", "full"),
+}
 
 
 class BackwardLanesOut(NamedTuple):
@@ -396,8 +409,11 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     - ``emit``: ``"gains"``, ``"full"`` or ``"policy"`` (see
       :class:`OutLayout`).
 
-    On a CUDA tensor the model must be one the kernel is built for
-    (``forward_kernel.CUDA_MODELS``), in any mode. Out of this slice
+    On a CUDA tensor the model, its derivative source (analytic, or
+    autodiff when ``derivs_tiles.device.autodiff``), GPS mode and the
+    emission must be an instance the kernel is built for
+    (:data:`CUDA_BACKWARD`); anything else raises NotImplementedError. Out
+    of this slice
     (NotImplementedError): the packed-derivatives input
     (``derivs_tiles=None``), ``params``, per-scenario ``lims_lanes``, m > 2.
     """
@@ -427,9 +443,17 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
         return backward_lanes_ref(traj, lam, n=n, m=m, reg_type=reg_type,
                                   lims=lims, derivs_tiles=derivs_tiles,
                                   prev=prev, eta=eta, emit=emit)
+    dm = getattr(derivs_tiles, "device", None)
+    if dm is not None and emit not in CUDA_BACKWARD.get(
+            (dm.model_id, n, m, dm.autodiff, gps), ()):
+        raise NotImplementedError(
+            f"backward_lanes: no CUDA kernel (K1 instance) is built for "
+            f"model id {dm.model_id} at n={n}, m={m} with "
+            f"{'autodiff' if dm.autodiff else 'analytic'} derivatives, "
+            f"{'in' if gps else 'without'} GPS mode, emit={emit!r}; built "
+            f"(model id, n, m, autodiff, GPS): {sorted(CUDA_BACKWARD)}")
     lib, dev, stream, model_args = cuda_args(
-        getattr(derivs_tiles, "device", None), "backward_lanes", n, m, traj,
-        lam, *((prev, eta) if gps else ()))
+        dm, "backward_lanes", n, m, traj, lam, *((prev, eta) if gps else ()))
     S = OutLayout(n, m, emit).S
     out = torch.empty((T, S, B), dtype=torch.float32, device=traj.device)
     stats = torch.empty((4, B), dtype=torch.float32, device=traj.device)
@@ -438,7 +462,8 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
         traj.data_ptr(), S_in, lam.data_ptr(),
         prev.data_ptr() if gps else None, eta.data_ptr() if gps else None,
         out.data_ptr(), S, stats.data_ptr(), T, B, EMIT_CODE[emit], reg_type,
-        int(lims is not None), lim.ctypes.data, *model_args, dev, stream)
+        int(lims is not None), lim.ctypes.data, *model_args,
+        int(dm.autodiff), dev, stream)
     _build.check(lib, rc, "backward_lanes")
     backward_lanes.launches += 1
     return BackwardLanesOut(out=out, stats=stats)

@@ -1,0 +1,314 @@
+// Forward-mode autodiff in registers: K1's derivative expansion for any
+// model whose dynamics and cost are templates over the scalar type.
+//
+// Device counterpart of
+//   differentialdynamicprogramming_jl_tpu/ops/pallas/autodiff_tiles.py
+//   ::autodiff_derivs_tiles
+// and of ops/hopper/autodiff_tiles.py, its plain PyTorch version. The JAX
+// function differentiates the model with jax.jvp at trace time, so the TPU
+// kernel streams only the trajectory. Here C++ templates do the same at
+// compile time: the model's own functions, instantiated on Dual and Jet,
+// are the tangent program, unrolled into K1's step.
+//
+// - Dual: a value and one tangent. One pass per input direction (n+m
+//   passes over dynamics and cost) gives a column of fx/fu and an entry of
+//   cx/cu.
+// - Jet: a value, the tangents along two directions (a, the inner one, and
+//   b, the outer one) and the mixed second tangent ab. One pass of the cost
+//   per direction pair i ≤ j ((n+m)(n+m+1)/2 passes) gives the Hessian
+//   entry, mirrored.
+// One direction at a time, as the JAX function does: the registers hold one
+// jet per input, not a dense gradient per value. Every tangent is a unit
+// vector with its zeros; nvcc folds no 0·x (x may be Inf or NaN), so the
+// zero-tangent products are real work.
+//
+// Each rule is the one PyTorch's forward-mode autodiff applies
+// (torchgen derivatives.yaml: mul `other_t*self_p + self_t*other_p`, div
+// `(self_t - other_t*result)/other_p`, sin `self_t*cos(self_p)`, cos
+// `self_t*-sin(self_p)`), and for Jet that rule differentiated once more
+// along b in the same order, so the plain version (torch.func.jvp, nested)
+// and the kernel form the same products. Two-term sums commute in IEEE
+// arithmetic; longer sums keep PyTorch's grouping.
+//
+// The boundary step t = T-1 differentiates the running cost, as
+// autodiff_tiles.py:27-31 says.
+#pragma once
+
+#include "common.cuh"
+
+namespace ddp {
+
+// ::sinf/::cosf stay visible beside the overloads below, so that a model's
+// template finds both for S = float
+using ::cosf;
+using ::sinf;
+
+struct Dual {
+  float v, t;
+};
+
+struct Jet {
+  float v, a, b, ab;
+};
+
+// ---- Dual
+__device__ __forceinline__ Dual operator+(Dual x, Dual y) {
+  return {x.v + y.v, x.t + y.t};
+}
+__device__ __forceinline__ Dual operator+(Dual x, float c) {
+  return {x.v + c, x.t};
+}
+__device__ __forceinline__ Dual operator+(float c, Dual y) {
+  return {c + y.v, y.t};
+}
+__device__ __forceinline__ Dual operator-(Dual x) { return {-x.v, -x.t}; }
+__device__ __forceinline__ Dual operator-(Dual x, Dual y) {
+  return {x.v - y.v, x.t - y.t};
+}
+__device__ __forceinline__ Dual operator-(Dual x, float c) {
+  return {x.v - c, x.t};
+}
+__device__ __forceinline__ Dual operator-(float c, Dual y) {
+  return {c - y.v, -y.t};
+}
+__device__ __forceinline__ Dual operator*(Dual x, Dual y) {
+  return {x.v * y.v, y.t * x.v + x.t * y.v};
+}
+__device__ __forceinline__ Dual operator*(Dual x, float c) {
+  return {x.v * c, x.t * c};
+}
+__device__ __forceinline__ Dual operator*(float c, Dual y) {
+  return {c * y.v, y.t * c};
+}
+__device__ __forceinline__ Dual operator/(Dual x, Dual y) {
+  const float q = x.v / y.v;
+  return {q, (x.t - y.t * q) / y.v};
+}
+__device__ __forceinline__ Dual operator/(Dual x, float c) {
+  return {x.v / c, x.t / c};
+}
+__device__ __forceinline__ Dual operator/(float c, Dual y) {
+  return Dual{c, 0.0f} / y;
+}
+__device__ __forceinline__ Dual sinf(Dual x) {
+  return {::sinf(x.v), x.t * ::cosf(x.v)};
+}
+__device__ __forceinline__ Dual cosf(Dual x) {
+  return {::cosf(x.v), x.t * -::sinf(x.v)};
+}
+
+// ---- Jet: a along the inner direction, b along the outer one
+__device__ __forceinline__ Jet operator+(Jet x, Jet y) {
+  return {x.v + y.v, x.a + y.a, x.b + y.b, x.ab + y.ab};
+}
+__device__ __forceinline__ Jet operator+(Jet x, float c) {
+  return {x.v + c, x.a, x.b, x.ab};
+}
+__device__ __forceinline__ Jet operator+(float c, Jet y) {
+  return {c + y.v, y.a, y.b, y.ab};
+}
+__device__ __forceinline__ Jet operator-(Jet x) {
+  return {-x.v, -x.a, -x.b, -x.ab};
+}
+__device__ __forceinline__ Jet operator-(Jet x, Jet y) {
+  return {x.v - y.v, x.a - y.a, x.b - y.b, x.ab - y.ab};
+}
+__device__ __forceinline__ Jet operator-(Jet x, float c) {
+  return {x.v - c, x.a, x.b, x.ab};
+}
+__device__ __forceinline__ Jet operator-(float c, Jet y) {
+  return {c - y.v, -y.a, -y.b, -y.ab};
+}
+__device__ __forceinline__ Jet operator*(Jet x, Jet y) {
+  // a = y.a·x.v + x.a·y.v, each product differentiated along b
+  return {x.v * y.v, y.a * x.v + x.a * y.v, y.b * x.v + x.b * y.v,
+          (x.b * y.a + y.ab * x.v) + (y.b * x.a + x.ab * y.v)};
+}
+__device__ __forceinline__ Jet operator*(Jet x, float c) {
+  return {x.v * c, x.a * c, x.b * c, x.ab * c};
+}
+__device__ __forceinline__ Jet operator*(float c, Jet y) {
+  return y * c;
+}
+__device__ __forceinline__ Jet operator/(Jet x, Jet y) {
+  // q = x/y, qb its b tangent; a = (x.a - y.a·q)/y.v, differentiated along b
+  const float q = x.v / y.v;
+  const float qb = (x.b - y.b * q) / y.v;
+  const float d = x.a - y.a * q;
+  const float db = x.ab - (qb * y.a + y.ab * q);
+  const float a = d / y.v;
+  return {q, a, qb, (db - y.b * a) / y.v};
+}
+__device__ __forceinline__ Jet operator/(Jet x, float c) {
+  return {x.v / c, x.a / c, x.b / c, x.ab / c};
+}
+__device__ __forceinline__ Jet operator/(float c, Jet y) {
+  return Jet{c, 0.0f, 0.0f, 0.0f} / y;
+}
+__device__ __forceinline__ Jet sinf(Jet x) {
+  const float s = ::sinf(x.v), c = ::cosf(x.v);
+  return {s, x.a * c, x.b * c, (x.b * -s) * x.a + x.ab * c};
+}
+__device__ __forceinline__ Jet cosf(Jet x) {
+  const float s = ::sinf(x.v), c = ::cosf(x.v);
+  return {c, x.a * -s, x.b * -s, -(x.b * c) * x.a + x.ab * -s};
+}
+
+// ---- the NaN-keeping helpers of common.cuh on Dual and Jet: the value as
+// there; the tangents of the operand taken, averaged at a tie (PyTorch's
+// maximum/minimum rule), summed where a NaN makes the value a + b
+template <class D>
+__device__ __forceinline__ D pick_(D x, D y, bool take_x) {
+  return take_x ? x : y;
+}
+__device__ __forceinline__ Dual tie_(Dual x, Dual y) {
+  return {x.v, 0.5f * (x.t + y.t)};
+}
+__device__ __forceinline__ Jet tie_(Jet x, Jet y) {
+  return {x.v, 0.5f * (x.a + y.a), 0.5f * (x.b + y.b), 0.5f * (x.ab + y.ab)};
+}
+template <class D>
+__device__ __forceinline__ D maxp(D x, D y) {
+  if (isnan(x.v) || isnan(y.v)) return x + y;
+  return x.v == y.v ? tie_(x, y) : pick_(x, y, x.v > y.v);
+}
+template <class D>
+__device__ __forceinline__ D minp(D x, D y) {
+  if (isnan(x.v) || isnan(y.v)) return x + y;
+  return x.v == y.v ? tie_(x, y) : pick_(x, y, x.v < y.v);
+}
+__device__ __forceinline__ Dual constant_(Dual, float c) {
+  return {c, 0.0f};
+}
+__device__ __forceinline__ Jet constant_(Jet, float c) {
+  return {c, 0.0f, 0.0f, 0.0f};
+}
+template <class D>
+__device__ __forceinline__ D clipp(D x, float lo, float hi) {
+  return minp(maxp(x, constant_(x, lo)), constant_(x, hi));
+}
+template <class D>
+__device__ __forceinline__ D signp(D x) {   // derivative 0 almost everywhere
+  return constant_(x, signp(x.v));
+}
+
+// K1's model interface (common.cuh) for a Body whose dynamics, cost and
+// terminal are templates over the scalar type: the forward functions pass
+// through at S = float, and derivs() makes the expansion by the passes
+// above. The cost Hessian over (x, u) is held as its upper triangle, 36
+// floats at ⟨6,2⟩ where cxx, cxu and cuu apart take 52.
+template <class Body>
+struct Autodiff {
+  static constexpr int N = Body::N;
+  static constexpr int M = Body::M;
+  static constexpr int ID = Body::ID;
+  static constexpr int N_CONSTS = Body::N_CONSTS;
+  static constexpr int NM = N + M;
+  static constexpr int NH = NM * (NM + 1) / 2;
+  using Consts = typename Body::Consts;
+
+  Body body;
+
+  __device__ __forceinline__ explicit Autodiff(const Consts& mc) : body(mc) {}
+
+  template <class S>
+  __device__ __forceinline__ void dynamics(const S (&x)[N], const S (&u)[M],
+                                           S (&xn)[N]) const {
+    body.dynamics(x, u, xn);
+  }
+  template <class S>
+  __device__ __forceinline__ S cost(const S (&x)[N], const S (&u)[M]) const {
+    return body.cost(x, u);
+  }
+  template <class S>
+  __device__ __forceinline__ S terminal(const S (&x)[N]) const {
+    return body.terminal(x);
+  }
+
+  struct Derivs {
+    float fx[N][N], fu[N][M], cx[N], cu[M], H[NH];
+  };
+
+  // entry (i, j), i ≤ j, of the upper triangle, row by row
+  __host__ __device__ static constexpr int hidx(int i, int j) {
+    return i > j ? hidx(j, i) : i * NM - i * (i - 1) / 2 + (j - i);
+  }
+
+  // the Dual pass along input direction dir (x for dir < N, then u)
+  __device__ __forceinline__ Dual pass1(const float (&x)[N],
+                                        const float (&u)[M], int dir,
+                                        Dual (&f)[N]) const {
+    Dual xd[N], ud[M];
+#pragma unroll
+    for (int k = 0; k < N; ++k) xd[k] = Dual{x[k], k == dir ? 1.0f : 0.0f};
+#pragma unroll
+    for (int k = 0; k < M; ++k)
+      ud[k] = Dual{u[k], N + k == dir ? 1.0f : 0.0f};
+    body.dynamics(xd, ud, f);
+    return body.cost(xd, ud);
+  }
+
+  // the Jet pass of the cost along directions j (inner) and i (outer)
+  __device__ __forceinline__ float pass2(const float (&x)[N],
+                                         const float (&u)[M], int i,
+                                         int j) const {
+    Jet xj[N], uj[M];
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      xj[k] = Jet{x[k], k == j ? 1.0f : 0.0f, k == i ? 1.0f : 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < M; ++k)
+      uj[k] = Jet{u[k], N + k == j ? 1.0f : 0.0f, N + k == i ? 1.0f : 0.0f,
+                  0.0f};
+    return body.cost(xj, uj).ab;
+  }
+
+  __device__ __forceinline__ void derivs(const float (&x)[N],
+                                         const float (&u)[M],
+                                         Derivs& d) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      Dual f[N];
+      d.cx[i] = pass1(x, u, i, f).t;
+#pragma unroll
+      for (int a = 0; a < N; ++a) d.fx[a][i] = f[a].t;
+    }
+#pragma unroll
+    for (int mi = 0; mi < M; ++mi) {
+      Dual f[N];
+      d.cu[mi] = pass1(x, u, N + mi, f).t;
+#pragma unroll
+      for (int a = 0; a < N; ++a) d.fu[a][mi] = f[a].t;
+    }
+#pragma unroll
+    for (int j = 0; j < NM; ++j) {
+#pragma unroll
+      for (int i = 0; i <= j; ++i) d.H[hidx(i, j)] = pass2(x, u, i, j);
+    }
+  }
+
+  __device__ __forceinline__ float fx(const Derivs& d, int i, int j) const {
+    return d.fx[i][j];
+  }
+  __device__ __forceinline__ float fu(const Derivs& d, int i, int mi) const {
+    return d.fu[i][mi];
+  }
+  __device__ __forceinline__ float cx(const Derivs& d, int i) const {
+    return d.cx[i];
+  }
+  __device__ __forceinline__ float cu(const Derivs& d, int mi) const {
+    return d.cu[mi];
+  }
+  __device__ __forceinline__ float cxx(const Derivs& d, int i, int j) const {
+    return d.H[hidx(i, j)];
+  }
+  __device__ __forceinline__ float cxu(const Derivs& d, int i, int mi) const {
+    return d.H[hidx(i, N + mi)];
+  }
+  __device__ __forceinline__ float cuu(const Derivs& d, int mi,
+                                       int mj) const {
+    return d.H[hidx(N + mi, N + mj)];
+  }
+};
+
+}  // namespace ddp

@@ -1,11 +1,15 @@
 // K1 entry point: checks the arguments, picks the model's instance, and
 // launches it. The kernel is in backward.cuh; the pendcart ⟨4,1⟩ instances
 // are compiled here, the LTI ⟨10,2⟩ ones in backward_lti.cu (without GPS
-// mode) and backward_lti_gps.cu (GPS mode), so that nvcc builds the three
-// in parallel.
+// mode) and backward_lti_gps.cu (GPS mode), and the autodiff instances
+// (autodiff != 0: derivatives made in the kernel from the model's own
+// functions) in backward_quad.cu and backward_pendcart_ad.cu, so that nvcc
+// builds them in parallel. A model with autodiff set runs its autodiff
+// instance or none: never its analytic one.
 #include "backward.cuh"
 #include "lti.cuh"
 #include "pendcart.cuh"
+#include "quadrotor.cuh"
 
 extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                                   const float* lam, const float* prev,
@@ -14,7 +18,7 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                                   int reg_type, int use_limits,
                                   const float* lims, int model_id, int n,
                                   int m, const float* consts, int n_consts,
-                                  int device, void* stream) {
+                                  int autodiff, int device, void* stream) {
   using namespace ddp;
   const bool gps = prev != nullptr;
   if (T < 2 || B < 1 || s_in < n + m || s_out != out_slots(emit, n, m) ||
@@ -27,8 +31,17 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                   use_limits != 0, lims_from_host(lims, m), consts,
                   static_cast<cudaStream_t>(stream)};
   using LTI10x2 = LTI<10, 2>;
-  if (model_id == PendCart::ID && n == PendCart::N && m == PendCart::M &&
-      n_consts == PendCart::N_CONSTS)
+  const bool pendcart = model_id == PendCart::ID && n == PendCart::N &&
+                        m == PendCart::M && n_consts == PendCart::N_CONSTS;
+  if (autodiff) {
+    if (gps) return ERR_MODEL;
+    if (pendcart) return launch_backward_pendcart_ad(a);
+    if (model_id == Quadrotor::ID && n == Quadrotor::N &&
+        m == Quadrotor::M && n_consts == Quadrotor::N_CONSTS)
+      return launch_backward_quad_6_2(a);
+    return ERR_MODEL;
+  }
+  if (pendcart)
     return gps ? launch_backward<PendCart, true>(a)
                : launch_backward<PendCart, false>(a);
   if (model_id == LTI10x2::ID && n == LTI10x2::N && m == LTI10x2::M &&
@@ -40,7 +53,8 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
 
 extern "C" const char* ddp_error_string(int code) {
   if (code == ddp::ERR_MODEL)
-    return "no kernel is built for this model id, n, m and descriptor size";
+    return "no kernel is built for this model id, n, m, descriptor size, "
+           "derivative source, GPS mode and emission";
   if (code == ddp::ERR_ARGS) return "arguments outside what the kernel takes";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

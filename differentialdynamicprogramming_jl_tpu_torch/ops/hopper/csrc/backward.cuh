@@ -10,7 +10,11 @@
 // none (the unrolled Cholesky solve), reg_type 1 or 2, GPS mode, and
 // "gains", "full" or "policy" emission. Instances: every emission, with
 // and without GPS mode, for pendcart ⟨4,1⟩ (backward.cu) and LTI ⟨10,2⟩
-// (backward_lti.cu without GPS mode, backward_lti_gps.cu with it).
+// (backward_lti.cu without GPS mode, backward_lti_gps.cu with it); and the
+// autodiff instances, whose derivatives are made in the kernel from the
+// model's own functions (autodiff.cuh), "gains" and "full" without GPS
+// mode: quadrotor ⟨6,2⟩ (backward_quad.cu) and pendcart ⟨4,1⟩
+// (backward_pendcart_ad.cu).
 //
 // Layout: every stream is (T, S, B) f32 with the scenario axis contiguous.
 // One thread owns one scenario and walks t = T-1 .. 0 inside the kernel,
@@ -611,8 +615,12 @@ int launch_backward(const BwdArgs& a) {
 }  // namespace
 
 // the LTI ⟨10,2⟩ instances: without GPS mode in backward_lti.cu, in GPS
-// mode in backward_lti_gps.cu
+// mode in backward_lti_gps.cu; the autodiff instances (autodiff.cuh),
+// "gains" and "full" without GPS mode: quadrotor ⟨6,2⟩ in backward_quad.cu,
+// pendcart ⟨4,1⟩ in backward_pendcart_ad.cu
 int launch_backward_lti_10_2(const BwdArgs& a);
 int launch_backward_lti_gps_10_2(const BwdArgs& a);
+int launch_backward_quad_6_2(const BwdArgs& a);
+int launch_backward_pendcart_ad(const BwdArgs& a);
 
 }  // namespace ddp

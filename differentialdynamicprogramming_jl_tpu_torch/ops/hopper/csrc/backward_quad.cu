@@ -1,0 +1,21 @@
+// K1's quadrotor ⟨6,2⟩ instance, Autodiff<Quadrotor>: the derivative
+// expansion is made in the kernel by forward-mode autodiff of the model's
+// dynamics and cost (autodiff.cuh). "gains" and "full" emission, no GPS
+// mode (no path runs KL on the quadrotor). Compiled apart from backward.cu
+// so that nvcc builds the sources in parallel.
+#include "autodiff.cuh"
+#include "backward.cuh"
+#include "quadrotor.cuh"
+
+namespace ddp {
+
+int launch_backward_quad_6_2(const BwdArgs& a) {
+  using Model = Autodiff<Quadrotor>;
+  switch (a.emit) {
+    case EMIT_GAINS: return launch_one<Model, EMIT_GAINS, false>(a);
+    case EMIT_FULL: return launch_one<Model, EMIT_FULL, false>(a);
+    default: return ERR_MODEL;
+  }
+}
+
+}  // namespace ddp

@@ -1,10 +1,12 @@
 // K3 and K2 entry points: check the arguments, pick the model's instance,
 // and launch it. The kernels are in forward.cuh; the pendcart ⟨4,1⟩
-// instances are compiled here, the LTI ⟨10,2⟩ ones in forward_lti.cu, so
-// that nvcc builds the two in parallel.
+// instances are compiled here, the LTI ⟨10,2⟩ ones in forward_lti.cu and
+// the quadrotor ⟨6,2⟩ ones in forward_quad.cu, so that nvcc builds them in
+// parallel.
 #include "forward.cuh"
 #include "lti.cuh"
 #include "pendcart.cuh"
+#include "quadrotor.cuh"
 
 using namespace ddp;
 
@@ -18,7 +20,7 @@ bool stream_args_ok(const FwdArgs& a, int n, int m) {
          a.A >= 1 && a.A <= MAX_A;
 }
 
-// which instance: 1 pendcart, 2 LTI ⟨10,2⟩, 0 none
+// which instance: 1 pendcart, 2 LTI ⟨10,2⟩, 3 quadrotor, 0 none
 int instance(int model_id, int n, int m, int n_consts) {
   if (model_id == PendCart::ID && n == PendCart::N && m == PendCart::M &&
       n_consts == PendCart::N_CONSTS)
@@ -26,6 +28,9 @@ int instance(int model_id, int n, int m, int n_consts) {
   if (model_id == LTI10x2::ID && n == LTI10x2::N && m == LTI10x2::M &&
       n_consts == LTI10x2::N_CONSTS)
     return 2;
+  if (model_id == Quadrotor::ID && n == Quadrotor::N && m == Quadrotor::M &&
+      n_consts == Quadrotor::N_CONSTS)
+    return 3;
   return 0;
 }
 
@@ -61,8 +66,9 @@ extern "C" int ddp_forward_lanes(const float* traj, int s_traj,
   a.stream = static_cast<cudaStream_t>(stream);
   if (!stream_args_ok(a, n, m)) return ERR_ARGS;
   cudaSetDevice(device);
-  return which == 1 ? launch_forward<PendCart>(a)
-                    : launch_forward_lti_10_2(a);
+  return which == 1   ? launch_forward<PendCart>(a)
+         : which == 2 ? launch_forward_lti_10_2(a)
+                      : launch_forward_quad_6_2(a);
 }
 
 extern "C" int ddp_linesearch_lanes(const float* traj, int s_traj,
@@ -96,6 +102,7 @@ extern "C" int ddp_linesearch_lanes(const float* traj, int s_traj,
   a.stream = static_cast<cudaStream_t>(stream);
   if (!stream_args_ok(a, n, m)) return ERR_ARGS;
   cudaSetDevice(device);
-  return which == 1 ? launch_linesearch<PendCart>(a)
-                    : launch_linesearch_lti_10_2(a);
+  return which == 1   ? launch_linesearch<PendCart>(a)
+         : which == 2 ? launch_linesearch_lti_10_2(a)
+                      : launch_linesearch_quad_6_2(a);
 }

@@ -8,7 +8,8 @@
 // with static per-control limits. Without limits the wrapper passes
 // lo = -inf, hi = +inf: the NaN-keeping clipp then returns its input
 // unchanged, as the JAX rollout's missing clamp does. Instances: pendcart
-// ⟨4,1⟩ (forward.cu) and LTI ⟨10,2⟩ (forward_lti.cu), A = 1..8 each.
+// ⟨4,1⟩ (forward.cu), LTI ⟨10,2⟩ (forward_lti.cu) and quadrotor ⟨6,2⟩
+// (forward_quad.cu), A = 1..8 each.
 //
 // Layout: streams are (T, S, B) f32 with the scenario axis contiguous; one
 // thread owns one scenario and walks t = 0 .. T-1, holding the A candidate
@@ -330,8 +331,11 @@ int launch_linesearch(const FwdArgs& a) {
 
 }  // namespace
 
-// the LTI ⟨10,2⟩ instances, compiled in forward_lti.cu
+// the LTI ⟨10,2⟩ instances, compiled in forward_lti.cu, and the quadrotor
+// ⟨6,2⟩ ones, in forward_quad.cu
 int launch_forward_lti_10_2(const FwdArgs& a);
 int launch_linesearch_lti_10_2(const FwdArgs& a);
+int launch_forward_quad_6_2(const FwdArgs& a);
+int launch_linesearch_quad_6_2(const FwdArgs& a);
 
 }  // namespace ddp

@@ -6,6 +6,9 @@
 // Euler step of the reference dynamics (src/system_pendcart.jl:75-89), the
 // diagonal quadratic cost with its terminal term (:92-106) and the analytic
 // Jacobians of the Euler step. One thread evaluates one scenario.
+// Autodiff<PendCart> (autodiff.cuh, instance in backward_pendcart_ad.cu)
+// makes the same expansion by forward-mode autodiff of dynamics and cost,
+// the counterpart of autodiff_derivs_tiles(pendcart_lanes(spec)).
 //
 // The model is read from a device-model descriptor, a flat f32 array
 //   [g, l, h, d, Q0, Q1, Q2, Q3, R, goal0, goal1, goal2, goal3]
@@ -49,32 +52,35 @@ struct PendCart {
     }
   }
 
-  // Euler step: θ̈ = -g/l·sinθ + f/l·cosθ - d·θ̇
-  __device__ __forceinline__ void dynamics(const float (&x)[4],
-                                           const float (&u)[1],
-                                           float (&xn)[4]) const {
-    const float f = u[0];
-    const float thdd = ngl * sinf(x[0]) + (f / l) * cosf(x[0]) - d * x[1];
+  // Euler step: θ̈ = -g/l·sinθ + f/l·cosθ - d·θ̇. dynamics, cost and
+  // terminal are templates over the scalar type: float for the kernels,
+  // Dual and Jet (autodiff.cuh) for Autodiff<PendCart>
+  template <class S>
+  __device__ __forceinline__ void dynamics(const S (&x)[4], const S (&u)[1],
+                                           S (&xn)[4]) const {
+    const S f = u[0];
+    const S thdd = ngl * sinf(x[0]) + (f / l) * cosf(x[0]) - d * x[1];
     xn[0] = x[0] + h * x[1];
     xn[1] = x[1] + h * thdd;
     xn[2] = x[2] + h * x[3];
     xn[3] = x[3] + h * f;
   }
 
-  __device__ __forceinline__ float cost(const float (&x)[4],
-                                        const float (&u)[1]) const {
-    float c = halfR * u[0] * u[0];
+  template <class S>
+  __device__ __forceinline__ S cost(const S (&x)[4], const S (&u)[1]) const {
+    S c = halfR * u[0] * u[0];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float dx = x[i] - goal[i];
+      const S dx = x[i] - goal[i];
       c = c + halfQ[i] * dx * dx;
     }
     return c;
   }
 
-  __device__ __forceinline__ float terminal(const float (&x)[4]) const {
-    float dx = x[0] - goal[0];
-    float c = halfQ[0] * dx * dx;
+  template <class S>
+  __device__ __forceinline__ S terminal(const S (&x)[4]) const {
+    S dx = x[0] - goal[0];
+    S c = halfQ[0] * dx * dx;
 #pragma unroll
     for (int i = 1; i < 4; ++i) {
       dx = x[i] - goal[i];

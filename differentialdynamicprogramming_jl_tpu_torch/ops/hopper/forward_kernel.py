@@ -24,20 +24,26 @@ import torch
 from . import _build
 
 MAX_A = 8   # candidate bound of the CUDA kernels (csrc/forward.cu)
-# (model id, n, m) of each model the CUDA kernels are instantiated for
+# (model id, n, m) of each model the CUDA kernels K2 and K3 are instantiated
+# for; K1's instances are listed in backward_kernel.CUDA_BACKWARD
 CUDA_MODELS = {(1, 4, 1): "pendcart (csrc/pendcart.cuh)",
-               (2, 10, 2): "LTI (csrc/lti.cuh)"}
+               (2, 10, 2): "LTI (csrc/lti.cuh)",
+               (3, 6, 2): "quadrotor (csrc/quadrotor.cuh)"}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DeviceModel:
     """What a CUDA kernel needs to evaluate a model: the id of the model's
     device functions (1 = pendcart, ``csrc/pendcart.cuh``; 2 = LTI,
-    ``csrc/lti.cuh``) and a flat f32 array of its constants, passed to the
-    kernel by value."""
+    ``csrc/lti.cuh``; 3 = quadrotor, ``csrc/quadrotor.cuh``) and a flat f32
+    array of its constants, passed to the kernel by value. ``autodiff``
+    marks a derivative function made by forward-mode autodiff of the
+    model's own functions: K1 then runs the model's ``Autodiff<Body>``
+    instance (``csrc/autodiff.cuh``), never its analytic one."""
 
     model_id: int
     consts: np.ndarray
+    autodiff: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

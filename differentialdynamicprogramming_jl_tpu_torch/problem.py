@@ -6,7 +6,8 @@ functions on tensors. In this port the functions broadcast over leading
 batch dimensions, so one call evaluates a whole fleet: ``derivs`` takes
 ``x_traj`` (..., T, n) and ``u_traj`` (..., T, m).
 
-Autodiff derivatives (``derivs=None``) are not part of this slice.
+``derivs=None`` selects autodiff (:func:`make_autodiff_derivs`, first order;
+the second-order terms of full DDP are a later slice).
 :func:`broadcast_derivs` materialises time-invariant derivatives, as the
 LTI problem's analytic derivatives use it.
 """
@@ -16,6 +17,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch.func import grad, jacfwd, vmap
 
 from .device import as_tensor
 from .policy import Derivs
@@ -47,8 +49,7 @@ class Problem:
         """Return a ``(x_traj, u_traj) -> Derivs`` function."""
         if self.derivs is not None:
             return self.derivs
-        raise NotImplementedError(
-            "autodiff derivatives (derivs=None) are not ported yet")
+        return make_autodiff_derivs(self.dynamics, self.cost)
 
     def trajectory_cost(self, x_traj: torch.Tensor,
                         u_traj: torch.Tensor) -> torch.Tensor:
@@ -58,6 +59,56 @@ class Problem:
         T = u_traj.shape[-2]
         return torch.stack([self.cost(x_traj[..., t, :], u_traj[..., t, :], t)
                             for t in range(T)], dim=-1)
+
+
+def make_autodiff_derivs(dynamics: Callable, cost: Callable,
+                         second_order: bool = False) -> Callable:
+    """The derivative stack by autodiff (JAX ``problem.py:79-119``): fx, fu
+    by ``torch.func.jacfwd`` of the dynamics, cx, cu by ``torch.func.grad``
+    of the cost, and cxx, cxu, cuu by ``jacfwd`` of that gradient, per step
+    on vectors (n,), (m,), under ``torch.func.vmap`` over the leading batch
+    and time axes. The returned function takes ``x_traj`` (..., ≥T, n) and
+    ``u_traj`` (..., T, m) and returns :class:`~.policy.Derivs` with leaves
+    (..., T, ...); the step index t enters as a tensor.
+
+    ``second_order=True`` (fxx, fxu, fuu for full DDP) is a later slice and
+    raises NotImplementedError."""
+    if second_order:
+        raise NotImplementedError(
+            "second_order=True: the full-DDP derivatives are not ported yet")
+
+    # each step is evaluated as a batch of one, which the functions
+    # broadcast over: on 0-dim tensors PyTorch's tangent formulas would
+    # promote an f32 tangent times a Python constant to f64
+    def dyn1(x, u, t):
+        return dynamics(x[None], u[None], t)[0]
+
+    def cost1(x, u, t):
+        return cost(x[None], u[None], t)[0]
+
+    fx_fn = jacfwd(dyn1, argnums=0)
+    fu_fn = jacfwd(dyn1, argnums=1)
+    cx_fn = grad(cost1, argnums=0)
+    cu_fn = grad(cost1, argnums=1)
+    cxx_fn = jacfwd(cx_fn, argnums=0)
+    cxu_fn = jacfwd(cx_fn, argnums=1)       # (n, m)
+    cuu_fn = jacfwd(cu_fn, argnums=1)
+
+    def per_step(x, u, t):
+        return tuple(f(x, u, t) for f in (fx_fn, fu_fn, cx_fn, cu_fn, cxx_fn,
+                                          cxu_fn, cuu_fn))
+
+    def derivs(x_traj, u_traj):
+        T, n, m = u_traj.shape[-2], x_traj.shape[-1], u_traj.shape[-1]
+        lead = tuple(u_traj.shape[:-2])
+        x = x_traj[..., :T, :].reshape(-1, n)
+        u = u_traj.reshape(-1, m)
+        t = torch.arange(T, device=u_traj.device).repeat(x.shape[0] // T)
+        d = vmap(per_step)(x, u, t)
+        return Derivs(*(a.reshape(lead + (T,) + tuple(a.shape[1:]))
+                        for a in d))
+
+    return derivs
 
 
 def broadcast_derivs(T: int, fx, fu, cx, cu, cxx, cxu, cuu, fxx=None,

@@ -528,3 +528,165 @@ def test_lti_kl_solve_on_card_matches_cpu(dev):
     torch.testing.assert_close(g.cost_total.cpu(), c.cost_total, rtol=1e-4,
                                atol=0)
     torch.testing.assert_close(g.eta.cpu(), c.eta, rtol=1e-4, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the quadrotor ⟨6,2⟩ (K3, K2, K1 Autodiff<Quadrotor>) and K1
+# Autodiff<PendCart>: derivatives made in the kernel by forward-mode
+# autodiff. K1 is held per slot, by the error over the slot's largest
+# magnitude, to 1e-5 on at least 99% of the elements: the thrust box (0, 5)
+# meets the m=2 box QP's near-ties, where the two versions may pick
+# candidates an ulp apart in objective (k then ~sqrt(ulp) apart).
+# ---------------------------------------------------------------------------
+
+def _quad(dev, seed=0):
+    from differentialdynamicprogramming_jl_tpu_torch.models import quadrotor
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    spec = quadrotor.QuadrotorSpec()
+    model = quadrotor.quadrotor_lanes(spec)
+    rng = np.random.default_rng(seed)
+    x0 = torch.tensor(np.array([1.0, 0, 0, 0, 0.3, 0])[:, None]
+                      + np.array([0.3, 0, 0.3, 0, 0.15, 0])[:, None]
+                      * rng.standard_normal((6, B)), dtype=torch.float32,
+                      device=dev)
+    gains0 = torch.cat([torch.tensor(spec.u_hover + 1.5 * rng.standard_normal(
+        (T, 2, B)), dtype=torch.float32, device=dev),
+        torch.zeros((T, 12, B), device=dev)], dim=1)
+    al = torch.tensor(rng.uniform(0, 1, (1, B)), dtype=torch.float32,
+                      device=dev)
+    traj = fk.forward_lanes(torch.zeros((T, 8, B), device=dev), gains0, x0,
+                            al, model=model, lims=spec.lims,
+                            emit_traj=True).traj
+    return (spec, model, autodiff_tiles.autodiff_derivs_tiles(model), x0,
+            gains0, al, traj)
+
+
+def _slots_close(a, b, tol=1e-5, share=0.01):
+    d = (a.double() - b.double()).abs()
+    scale = b.double().abs().amax(dim=(0, 2), keepdim=True).clamp_min(1e-30)
+    assert torch.isfinite(a).all()
+    assert ((d / scale) > tol).double().mean().item() <= share
+
+
+def test_quad_forward_kernel_matches_plain(dev):
+    spec, model, _, x0, gains0, al, _ = _quad(dev)
+    traj0 = torch.zeros((T, 8, B), device=dev)
+    ladder = torch.tensor(ALPHAS, device=dev)[:, None].expand(6, B)
+    for alphas, emit in ((ladder.contiguous(), False), (al, True)):
+        n0 = fk.forward_lanes.launches
+        k = fk.forward_lanes(traj0, gains0, x0, alphas, model=model,
+                             lims=spec.lims, emit_traj=emit)
+        assert fk.forward_lanes.launches == n0 + 1
+        p = fk.forward_lanes_ref(traj0, gains0, x0, alphas, model=model,
+                                 lims=spec.lims, emit_traj=emit)
+        torch.testing.assert_close(k.totals, p.totals, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(k.terminal, p.terminal, rtol=1e-5,
+                                   atol=1e-5)
+        if emit:
+            torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+            assert (k.traj[:, 6:8] >= 0).all() and (k.traj[:, 6:8] <= 5).all()
+
+
+@pytest.mark.parametrize("reg_type", [1, 2])
+@pytest.mark.parametrize("emit", ["gains", "full"])
+def test_quad_backward_kernel_matches_plain(dev, reg_type, emit):
+    spec, _, tiles, _, _, _, traj = _quad(dev)
+    lam = torch.logspace(-6, 2, B, device=dev)
+    kw = dict(n=6, m=2, reg_type=reg_type, lims=spec.lims,
+              derivs_tiles=tiles, emit=emit)
+    n0 = bk.backward_lanes.launches
+    k = bk.backward_lanes(traj, lam, **kw)
+    assert bk.backward_lanes.launches == n0 + 1
+    p = bk.backward_lanes_ref(traj, lam, **kw)
+    _slots_close(k.out, p.out)
+    torch.testing.assert_close(k.stats[:2], p.stats[:2], rtol=1e-4,
+                               atol=1e-5)
+    assert torch.equal(k.stats[2:], p.stats[2:])
+    # the box QP puts k on a limit of each rotor on some steps
+    u = traj[:-1, 6:8]
+    on = (k.out[:-1, :2] == 0.0 - u) | (k.out[:-1, :2] == 5.0 - u)
+    assert on[:, 0].any() and on[:, 1].any()
+
+
+def test_quad_linesearch_kernel_matches_plain_and_retraces(dev):
+    spec, model, tiles, x0, _, _, traj = _quad(dev)
+    bo = bk.backward_lanes(traj, torch.ones(B, device=dev), n=6, m=2,
+                           reg_type=2, lims=spec.lims, derivs_tiles=tiles,
+                           emit="gains")
+    tot = fk.forward_lanes(traj, torch.zeros((T, 14, B), device=dev), x0,
+                           torch.zeros((1, B), device=dev), model=model,
+                           lims=spec.lims).totals[0]
+    allow = (torch.arange(B, device=dev) % 2 == 0).float()
+    sel = torch.stack([bo.stats[0], bo.stats[1], tot, allow])
+    kw = dict(model=model, alphas=ALPHAS, lims=spec.lims)
+    k = fk.linesearch_lanes(traj, bo.out, x0, sel, **kw)
+    p = fk.linesearch_lanes_ref(traj, bo.out, x0, sel, reduce_ratio_min=0.0,
+                                **kw)
+    torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+    assert torch.equal(k.ls[:2], p.ls[:2])
+    rej = (k.ls[1] < 0.5) | (allow < 0.5)
+    assert torch.equal(k.traj[..., rej], traj[..., rej])
+
+
+@pytest.mark.parametrize("emit", ["gains", "full"])
+def test_pendcart_autodiff_kernel_matches_analytic_and_plain(dev, emit):
+    """K1 Autodiff<PendCart> against the analytic pendcart K1 on the same
+    trajectory (the AD expansion is a few ulps from the hand-written one)
+    and against its own plain version."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    x0, gains0, al = _rollout(dev)
+    model = tpc.pendcart_lanes(SPEC)
+    traj = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0, x0,
+                            al, model=model, lims=LIMS, emit_traj=True).traj
+    lam = torch.logspace(-6, 2, B, device=dev)
+    kw = dict(n=4, m=1, reg_type=2, lims=LIMS, emit=emit)
+    ad = autodiff_tiles.autodiff_derivs_tiles(model)
+    k = bk.backward_lanes(traj, lam, derivs_tiles=ad, **kw)
+    a = bk.backward_lanes(traj, lam, derivs_tiles=tpc.pendcart_derivs_tiles(
+        SPEC), **kw)
+    p = bk.backward_lanes_ref(traj, lam, derivs_tiles=ad, **kw)
+    _slots_close(k.out, a.out, tol=1e-4, share=0.0)
+    _slots_close(k.out, p.out, share=0.0)
+    assert torch.equal(k.stats[2:], a.stats[2:])
+    assert torch.equal(k.stats[2:], p.stats[2:])
+
+
+def test_autodiff_without_instance_raises_on_card(dev):
+    """LTI through autodiff has no K1 instance, nor has the quadrotor in
+    policy emission or GPS mode: each raises, and nothing runs the plain
+    version or an analytic instance in its place."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    spec = linear.random_lti(0, n=10, m=2, T=T, device=dev)
+    tiles = autodiff_tiles.autodiff_derivs_tiles(linear.lti_lanes(spec))
+    traj = torch.zeros((T, 13, B), device=dev)
+    n0 = bk.backward_lanes.launches
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        bk.backward_lanes(traj, torch.ones(B, device=dev), n=10, m=2,
+                          reg_type=2, lims=LTI_LIMS, derivs_tiles=tiles)
+    qspec, _, qtiles, _, _, _, qtraj = _quad(dev)
+    with pytest.raises(NotImplementedError, match="policy"):
+        bk.backward_lanes(qtraj, torch.ones(B, device=dev), n=6, m=2,
+                          reg_type=2, lims=qspec.lims, derivs_tiles=qtiles,
+                          emit="policy")
+    assert bk.backward_lanes.launches == n0
+
+
+def test_quad_solver_on_card_matches_cpu(dev):
+    spec, model, tiles, x0, _, _, _ = _quad(dev)
+    Bs, Ts = 16, 12
+    x0s = x0[:, :Bs].T.contiguous()
+    u0s = torch.full((Bs, Ts, 2), spec.u_hover, device=dev)
+    cfg = ILQGConfig(alphas=ALPHAS, reg_type=2, lam_max=1e15, max_iter=8)
+    kw = dict(lims=spec.lims, cfg=cfg, derivs_tiles=tiles)
+    g = ilqg_batch_lanes(model, None, x0s, u0s, **kw)
+    c = ilqg_batch_lanes(model, None, x0s.cpu(), u0s.cpu(), **kw)
+    assert g.cost_total.device.type == "cuda"
+    torch.testing.assert_close(g.cost_total.cpu(), c.cost_total, rtol=1e-4,
+                               atol=0)
+    assert torch.equal(g.reason.cpu(), c.reason)
+    assert torch.equal(g.n_accepted.cpu(), c.n_accepted)
+    assert (g.u >= 0).all() and (g.u <= spec.u_max).all()

@@ -304,12 +304,15 @@ def test_problem_trajectory_cost_without_traj_cost():
     c = bare.trajectory_cost(x, u)
     assert c.shape == (3, 5)
     torch.testing.assert_close(c, tp.traj_cost(x, u)[:, :5], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="autodiff"):
-        bare.make_derivs()
+    # without derivs it differentiates its own functions: the Euler
+    # Jacobians up to f32 rounding of the chain rule's products
+    d, e = bare.make_derivs()(x, u), tp.make_derivs()(x, u)
+    for name in ("fx", "fu", "cx", "cu", "cxx", "cxu", "cuu"):
+        torch.testing.assert_close(getattr(d, name), getattr(e, name),
+                                   rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("scheme,exc", [("zoh", NotImplementedError),
-                                        ("autodiff", NotImplementedError),
                                         ("x", ValueError)])
 def test_make_pendcart_problem_other_schemes_raise(scheme, exc):
     with pytest.raises(exc, match=scheme):

@@ -138,8 +138,17 @@ def test_make_lti_problem_matches_jax():
         b = np.asarray(jax.vmap(lambda p, q: getattr(jp, fn)(p, q, 0))(
             jnp.asarray(x[:, 0]), jnp.asarray(u[:, 0])))
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-9, err_msg=fn)
-    with pytest.raises(NotImplementedError, match="autodiff"):
-        tl.make_lti_problem(tspec, T, use_autodiff=True)
+    # use_autodiff=True: both packages differentiate the same functions;
+    # the gradients' f32 sums may round differently, so rtol 1e-5
+    ap = tl.make_lti_problem(tspec, T, use_autodiff=True)
+    assert ap.derivs is None
+    jd = jax.vmap(jl.make_lti_problem(spec, T, use_autodiff=True)
+                  .make_derivs())(jnp.asarray(x), jnp.asarray(u))
+    td = ap.make_derivs()(torch.from_numpy(x), torch.from_numpy(u))
+    for name in ("fx", "fu", "cx", "cu", "cxx", "cxu", "cuu"):
+        np.testing.assert_allclose(getattr(td, name).numpy(),
+                                   np.asarray(getattr(jd, name)), rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
 
 
 def test_broadcast_derivs_matches_jax():

@@ -35,6 +35,14 @@ def test_port_does_not_load_jax():
             "lti_derivs_tiles\n"
             "from differentialdynamicprogramming_jl_tpu_torch.device "
             "import as_tensor, resolve\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.models"
+            ".quadrotor import QuadrotorSpec, quadrotor_lanes, "
+            "make_quadrotor_problem, default_x0\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.ops.hopper"
+            ".autodiff_tiles import autodiff_derivs_tiles, "
+            "autodiff_packed_derivs\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.problem "
+            "import make_autodiff_derivs\n"
             "from differentialdynamicprogramming_jl_tpu_torch.ops.hopper "
             "import _build\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
@@ -86,7 +94,8 @@ def test_public_names_match_jax():
                  "calc_eta_lanes", "Problem", "make_pendcart_problem",
                  "broadcast_derivs", "LTISpec", "random_lti",
                  "make_lti_problem", "lti_lanes", "lti_derivs_tiles",
-                 "SimpleLTVModel", "forward_covariance"):
+                 "SimpleLTVModel", "forward_covariance",
+                 "make_autodiff_derivs", "autodiff_derivs_tiles"):
         assert name in P.__all__, name
         assert any(hasattr(mod, name) for mod in (J, batch_kl, jpc, jl)), \
             name
@@ -113,3 +122,23 @@ def test_convert_configs_from_jax():
     assert (cfg.reg_type, cfg.lam_max) == (2, 1e15)
     spec = convert.spec_from_jax(jpc.PendCartSpec(R=0.5))
     assert spec.R == 0.5 and spec.Q == (10.0, 1.0, 2.0, 1.0)
+
+
+def test_autodiff_exports_match_jax_and_quadrotor_stays_in_its_module():
+    """make_autodiff_derivs and autodiff_derivs_tiles are top-level names in
+    both packages (JAX ``__init__.py:23,39,48,63``); the quadrotor's names
+    stay in ``models/quadrotor.py``, where the JAX package keeps them."""
+    import differentialdynamicprogramming_jl_tpu_torch as P
+    from differentialdynamicprogramming_jl_tpu_torch.models import quadrotor
+    for name in ("make_autodiff_derivs", "autodiff_derivs_tiles"):
+        assert name in P.__all__ and name in J.__all__, name
+    for name in ("QuadrotorSpec", "quadrotor_lanes", "make_quadrotor_problem",
+                 "default_x0"):
+        assert hasattr(quadrotor, name), name
+        assert name not in P.__all__ or name == "default_x0", name
+        assert name not in J.__all__ or name == "default_x0", name
+    # every CUDA source the library is built from is hashed, the new ones
+    # included
+    for name in ("autodiff.cuh", "quadrotor.cuh", "backward_quad.cu",
+                 "backward_pendcart_ad.cu", "forward_quad.cu"):
+        assert name in _build.SOURCES, name
