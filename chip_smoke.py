@@ -53,9 +53,30 @@ ends the run with a non-zero exit and no result line:
 19. the 5-outer ``gps_rollout_lanes`` on the LTI fleet;
 20. the KL-on-LTI solve on 64 scenarios at T=40 with CUDA tensors and with
     CPU tensors;
-21. the probe K5 (copy, light and full modes) against its plain version,
+21. heterogeneous kernels at B=4096: the PendCartParam K3, K1 (gains,
+    full) and K2 (per-scenario pole length and damping) with per-scenario
+    limits against their plain versions at T=500; per-scenario limits on
+    the pendcart and LTI ⟨10,2⟩ instances (the m=2 enumeration reading each
+    lane's box) against their plain versions; homogeneous rows bit-equal
+    to the static path; K2 in place bit-equal to K2 with a fresh output;
+    each timed with its bound;
+22. the heterogeneous path: ``ilqg_batch_lanes`` on the parametrised
+    pendcart fleet with per-scenario limits at the headline settings, each
+    lane's controls held to its own box, GPU against CPU on 64 lanes; and
+    an LTI solve with a per-scenario box;
+23. the MPC path's kernel instances (K3 at α=1, K1 gains and full, K2
+    with the 4-α ladder fresh and in place, pendcart and PendCartParam)
+    against their plain versions at its shapes, with their times and
+    bounds; the MPC path at the JAX MPC tier's settings (``bench.py:149-212``:
+    B=4096, T=300, 5-iteration warm re-solves, ±10, 20 steps a chunk):
+    ms per MPC step from CUDA events over 5 windows of 2 chunks, launches
+    and host syncs per step, a torch.profiler split of one chunk, peak
+    memory; a chunk with per-scenario parameters and limits; the MPC step
+    ``ilqg_iteration_lanes`` (K2 in place) on the MPC state; GPU against
+    CPU on 64 lanes over 3 steps;
+24. the probe K5 (copy, light and full modes) against its plain version,
     with its times and achieved bandwidth;
-22. the kernel record (one entry per kernel instance, with its bound) and
+25. the kernel record (one entry per kernel instance, with its bound) and
     the result line.
 """
 from __future__ import annotations
@@ -65,6 +86,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -153,6 +175,21 @@ TIE_SHARE = 0.01
 # 500 steps of the Riccati recursion carry them (measured on an H100 at
 # B=4096, T=500: 5.1e-6); per slot, as above
 AD_ANALYTIC_TOL = 1e-4
+# heterogeneous fleets: per-scenario pole length and damping in the ranges
+# of tests/test_param_fleet.py:23-24, limits ±U(0.8, 6.0)
+# (tests/test_heterogeneous_lims.py:66); on LTI ⟨10,2⟩ a box per lane and
+# control, lo = -U(0.3, 0.9), hi = U(0.3, 0.9), about the fleet's ±0.6
+PARAM_L, PARAM_D, HETERO_HI = (0.25, 0.55), (0.5, 1.5), (0.8, 6.0)
+LTI_BOX = (0.3, 0.9)
+# the MPC tier (JAX bench.py:149-212 bench_mpc): pendcart, ±10, a 4-α
+# ladder, reg_type 2, lam_max 1e15, 5-iteration warm re-solves with iter_cap
+# 9, B=4096, T=300, 20 steps a chunk; one chunk, one burn-in chunk, then 5
+# timed windows of 2 chunks
+MPC_T, MPC_STEPS, MPC_WINDOWS, MPC_LIMS = 300, 20, 5, ((-10.0, 10.0),)
+# the MPC loop on 64 lanes with CUDA tensors and with CPU tensors
+MPC_CPU_STEPS = 3
+# MPC steps of ilqg_iteration_lanes (K1 gains, K2 in place) on the MPC state
+ITER_STEPS = 5
 KERNEL_NAMES = ("backward_kernel", "linesearch_kernel", "forward_kernel",
                 "covariance_kernel", "probe_kernel")
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes and
@@ -263,6 +300,20 @@ def compare_slots_ties(name: str, a: torch.Tensor, b: torch.Tensor,
     return mx
 
 
+def compare_k1(what: str, k, p) -> float:
+    """K1 ⟨4,1⟩ (gains or full emission) against its plain version: the
+    stream and dV to KERNEL_TOL, Quu⁻¹ to QUU_INV_TOL, the divergence flags
+    exactly. Returns the max abs error."""
+    errs = [compare(what, {"out": (k.out[:, :26], p.out[:, :26]),
+                           "dV": (k.stats[:2], p.stats[:2])})]
+    if k.out.shape[1] == 27:
+        errs.append(compare(what, {"Quu_inv": (k.out[:, 26], p.out[:, 26])},
+                            QUU_INV_TOL))
+    check(torch.equal(k.stats[2:], p.stats[2:]),
+          f"{what}: diverged/diverge_idx differ")
+    return max(errs)
+
+
 class Phases:
     """Wall time per phase, printed when the next phase starts."""
 
@@ -313,8 +364,10 @@ def ptxas_summary(log: str):
                      "Autodiff<PendCart>" if "AutodiffINS_8PendCartE" in
                      targs else
                      "Quadrotor" if "9QuadrotorE" in targs else
+                     "PendCartParam" if "PendCartParam" in targs else
                      "PendCart" if "PendCart" in targs else None)
-            targs = re.sub(r"NS_3LTIILi10ELi2EEE|NS_8PendCartE", "", targs)
+            targs = re.sub(r"NS_3LTIILi10ELi2EEE|NS_8PendCartE|"
+                           r"NS_13PendCartParamE", "", targs)
             args = ([model] if model else []) + re.findall(r"L[ib](\d+)E",
                                                            targs)
             name = (f"{kern.group(1) if kern else mangled}"
@@ -355,9 +408,11 @@ def bound(nbytes: float, flops: float) -> dict:
 def model_ops(model) -> dict:
     """Operations of one model evaluation: ``step`` (running cost and
     dynamics) and ``derivs`` (the expansion K1 forms at (x, u))."""
-    if model.device.model_id == 1:
+    if model.device.model_id in (1, 4):
         # pendcart: θ̈ (sin, cos, 3 multiplies, a divide, 2 adds) and the
-        # Euler step (8), the cost (2 + 4·4); a21, fu1 and cx, cu (20)
+        # Euler step (8), the cost (2 + 4·4); a21, fu1 and cx, cu (20). The
+        # parametrised one forms -g/l and 1-h·d once per scenario, not
+        # counted
         return dict(step=34, derivs=20)
     if model.device.model_id == 3:
         # quadrotor: thrust, sin, cos, ax, az, α (12) and the Euler step
@@ -381,8 +436,14 @@ def rollout_ops(model) -> int:
     return n + m * (2 + 2 * n) + model_ops(model)["step"] + 1
 
 
+def lane_bytes(model, B: int, lanes: bool) -> int:
+    """The per-scenario reads: P parameters and, with per-scenario limits,
+    2m limits, each an f32 read once."""
+    return 4 * B * (model.n_params + (2 * model.m if lanes else 0))
+
+
 def k1_work(model, T: int, B: int, emit: str, reg_type: int, lims,
-            gps: bool = False) -> dict:
+            gps: bool = False, lanes: bool = False) -> dict:
     n, m = model.n, model.m
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
         backward_kernel as bk)
@@ -407,23 +468,27 @@ def k1_work(model, T: int, B: int, emit: str, reg_type: int, lims,
           + n * n * (6 * m + 1) + 2 * n * n + 4)      # value update, latch
     if emit != "gains":
         f += 10 * m * m                               # Quu⁻¹
-    nbytes = 4 * (T * B * (n + m + S) + B * 5)
+    nbytes = 4 * (T * B * (n + m + S) + B * 5) + lane_bytes(model, B, lanes)
     if gps:
         nbytes += 4 * T * B * (m + m * n + m * m + 1)     # prev and η
     return bound(nbytes, f * T * B)
 
 
-def k3_work(model, T: int, B: int, A: int, emit: bool) -> dict:
+def k3_work(model, T: int, B: int, A: int, emit: bool,
+            lanes: bool = False) -> dict:
     n, m = model.n, model.m
     nbytes = 4 * (T * B * (n + 2 * m + m * n) + B * (n + 3 * A)
                   + (T * B * (n + m + 1) if emit else 0))
-    return bound(nbytes, A * T * B * rollout_ops(model))
+    return bound(nbytes + lane_bytes(model, B, lanes),
+                 A * T * B * rollout_ops(model))
 
 
-def k2_work(model, T: int, B: int, A: int) -> dict:
+def k2_work(model, T: int, B: int, A: int, lanes: bool = False) -> dict:
+    """In place or not: the same bytes, the stream read and written once."""
     n, m = model.n, model.m
     nbytes = 4 * (T * B * (2 * n + 3 * m + m * n + 1) + B * (n + 9))
-    return bound(nbytes, (A + 1) * T * B * rollout_ops(model) + 12 * A * B)
+    return bound(nbytes + lane_bytes(model, B, lanes),
+                 (A + 1) * T * B * rollout_ops(model) + 12 * A * B)
 
 
 def k4_work(n: int, T: int, B: int) -> dict:
@@ -1618,6 +1683,812 @@ def quad_phases(ph, dev, rec, counters, ilqg) -> dict:
     return {"ilqg_ad": launches_ad, "quad": launches}
 
 
+def hetero_phases(ph, dev, rec, counters, ilqg) -> dict:
+    """Phases 21-22: the heterogeneous fleets' kernels (PendCartParam K3, K1
+    and K2; per-scenario limits on the pendcart and LTI ⟨10,2⟩ instances; K2
+    in place) against their plain versions, timed with their bounds; then
+    the parametrised pendcart fleet with per-scenario limits at the headline
+    settings (x0s and cfg of phase 4), against the CPU on 64 lanes, and an
+    LTI solve with a per-scenario box. Adds the measurements to ``rec``;
+    returns the launches of the paths ``hetero`` and ``hetero_lti``."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles, pendcart_derivs_tiles_param,
+        pendcart_lanes, pendcart_lanes_param)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig, default_alphas)
+
+    f32 = torch.float32
+    spec = PendCartSpec()
+    fixed, ftiles = pendcart_lanes(spec), pendcart_derivs_tiles(spec)
+    model, tiles = pendcart_lanes_param(spec), pendcart_derivs_tiles_param(
+        spec)
+    cfg = ilqg["cfg"]
+    A = len(cfg.alphas)
+    ph.start("hetero-kernels", f"PendCartParam and per-scenario limits, "
+             f"B={B} T={T}; LTI <10,2> per-scenario boxes, plain at "
+             f"T={LTI_T_PLAIN}, timed at T={LTI_T}")
+    rng = np.random.default_rng(21)
+    par = torch.tensor(np.stack([rng.uniform(*PARAM_L, B),
+                                 rng.uniform(*PARAM_D, B)]), dtype=f32,
+                       device=dev)                                 # (2, B)
+    hi = torch.tensor(rng.uniform(*HETERO_HI, B), dtype=f32, device=dev)
+    lanes = torch.stack([-hi, hi]).contiguous()                    # (2, B)
+    x0_l = ilqg["x0s"].T.contiguous()
+    gains0 = torch.cat([torch.tensor(2.0 * rng.standard_normal((T, 1, B)),
+                                     dtype=f32, device=dev),
+                        torch.zeros((T, 4, B), device=dev)], dim=1)
+    traj0 = torch.zeros((T, 5, B), device=dev)
+    ladder = torch.tensor(cfg.alphas, device=dev)[:, None].expand(A, B)
+    ladder = ladder.contiguous()
+    al1 = torch.tensor(rng.uniform(0.0, 1.0, (1, B)), dtype=f32, device=dev)
+
+    def fwd(al, emit, plain, m=model, args=(par, lanes), lims=None):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(traj0, gains0, x0_l, al, *args, model=m, lims=lims,
+                 emit_traj=emit)
+
+    k, p = fwd(ladder, False, False), fwd(ladder, False, True)
+    e3 = compare("PendCartParam K3 sweep A=6", {
+        "totals": (k.totals, p.totals), "terminal": (k.terminal, p.terminal)})
+    k, p = fwd(al1, True, False), fwd(al1, True, True)
+    e3 = max(e3, compare("PendCartParam K3 rollout A=1", {
+        "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)}))
+    traj, tot = k.traj, k.totals[0]
+    u = traj[:, 4]
+    check(bool((u.abs() <= hi).all()), "PendCartParam K3: a control outside "
+          "its lane's box")
+    print(f"  PendCartParam K3: {(u.abs() == hi).float().mean().item():.4f} "
+          f"of the controls on their lane's limit")
+    ms3 = cuda_ms(lambda: fwd(ladder, False, False), 20)
+    plain3 = cuda_ms(lambda: fwd(ladder, False, True), 3)
+    ms3r = cuda_ms(lambda: fwd(al1, True, False), 20)
+    plain3r = cuda_ms(lambda: fwd(al1, True, True), 3)
+
+    lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), dtype=f32, device=dev)
+    lam[::8] = 0.0
+
+    def bwd(emit, plain, tl=tiles, per=None, lims=None, tr=traj):
+        per = dict(params=par, lims_lanes=lanes) if per is None else per
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, lam, n=4, m=1, reg_type=2, lims=lims, derivs_tiles=tl,
+                 emit=emit, **per)
+
+    errs, plain1 = [], {}
+    for emit in ("gains", "full"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = bwd(emit, True)
+        torch.cuda.synchronize()
+        plain1[emit] = (time.perf_counter() - t0) * 1e3
+        errs.append(compare_k1(f"PendCartParam K1 {emit}", bwd(emit, False),
+                             p))
+    bo = bwd("gains", False)
+    ms1 = cuda_ms(lambda: bwd("gains", False), 20)
+    ms1f = cuda_ms(lambda: bwd("full", False), 20)
+    allow = (torch.arange(B, device=dev) % 2 == 0).float()
+    sel = torch.stack([bo.stats[0], bo.stats[1], tot, allow])
+
+    def ls(plain, s=sel, m=model, args=(par, lanes), lims=None, tr=traj,
+           g=None, **kw):
+        f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+        return f(tr, bo.out if g is None else g, x0_l, s, *args, model=m,
+                 alphas=cfg.alphas, reduce_ratio_min=0.0, lims=lims, **kw)
+
+    k, p = ls(False), ls(True)
+    e2 = compare("PendCartParam K2", {"traj": (k.traj, p.traj),
+                                      "totals": (k.ls[4], p.ls[4])})
+    check(torch.equal(k.ls[:2], p.ls[:2]),
+          "PendCartParam K2: al_sel/any_ok differ")
+    out = ls(False, torch.stack([bo.stats[0], bo.stats[1], tot,
+                                 torch.zeros_like(tot)]))
+    check(torch.equal(out.traj, traj),
+          "PendCartParam K2 α=0 retrace of a K3 stream is not bit-exact")
+    ms2 = cuda_ms(lambda: ls(False), 20)
+    plain2 = cuda_ms(lambda: ls(True), 3)
+    w3, w3r = k3_work(model, T, B, A, False, True), k3_work(model, T, B, 1,
+                                                           True, True)
+    # the per-scenario clamp does a static clamp's operations
+    w1 = k1_work(model, T, B, "gains", 2, LIMS, lanes=True)
+    w1f = k1_work(model, T, B, "full", 2, LIMS, lanes=True)
+    w2 = k2_work(model, T, B, A, True)
+    for what, ms, w in (("K3 sweep A=6", ms3, w3), ("K3 rollout A=1", ms3r,
+                                                     w3r),
+                        ("K1 gains", ms1, w1), ("K1 full", ms1f, w1f),
+                        ("K2 A=6", ms2, w2)):
+        print(f"  PendCartParam {what}: kernel {ms:.3f} ms, bound "
+              f"{w['bound_ms']:.4f} ms ({w['bound_by']}: "
+              f"{w['bound_bytes'] / 1e6:.1f} MB)")
+    print(f"  PendCartParam plain versions: K3 sweep {plain3:.1f}, rollout "
+          f"{plain3r:.1f}, K1 gains {plain1['gains']:.1f} (once), full "
+          f"{plain1['full']:.1f} (once), K2 {plain2:.1f} ms")
+    rec["k3_pendcart_param"] = dict(
+        max_abs_err=e3, ms=ms3, plain_ms=plain3, ms_rollout=ms3r,
+        plain_ms_rollout=plain3r, bound_ms_rollout=w3r["bound_ms"],
+        library_ms=None, **w3)
+    rec["k1_pendcart_param"] = dict(
+        max_abs_err=max(errs), ms=ms1, ms_full=ms1f,
+        bound_ms_full=w1f["bound_ms"], plain_ms=plain1["gains"],
+        plain_ms_full=plain1["full"], library_ms=None, **w1)
+    rec["k2_pendcart_param"] = dict(max_abs_err=e2, ms=ms2, plain_ms=plain2,
+                                    library_ms=None, **w2)
+
+    # homogeneous rows: every params row the spec's (l, d), every limits row
+    # ±5, give the static pendcart instances' bits
+    same_par = torch.tensor([[spec.l], [spec.d]], device=dev).expand(
+        2, B).contiguous()
+    same_lanes = torch.tensor([[-5.0], [5.0]], device=dev).expand(
+        2, B).contiguous()
+    ref = fwd(al1, True, False, fixed, (), LIMS)
+    bit = all(torch.equal(o.traj, ref.traj) and torch.equal(o.totals,
+                                                            ref.totals)
+              for o in (fwd(al1, True, False, model, (same_par, same_lanes)),
+                        fwd(al1, True, False, fixed, (None, same_lanes))))
+    for emit in ("gains", "full"):
+        r = bwd(emit, False, ftiles, {}, LIMS, ref.traj)
+        for o in (bwd(emit, False, tiles, dict(params=same_par,
+                                               lims_lanes=same_lanes),
+                      None, ref.traj),
+                  bwd(emit, False, ftiles, dict(lims_lanes=same_lanes), None,
+                      ref.traj)):
+            bit = bit and torch.equal(o.out, r.out) and torch.equal(
+                o.stats, r.stats)
+    sel_h = torch.stack([r.stats[0], r.stats[1], ref.totals[0], allow])
+    la = ls(False, sel_h, fixed, (), LIMS, ref.traj, r.out)
+    for o in (ls(False, sel_h, model, (same_par, same_lanes), None, ref.traj,
+                 r.out),
+              ls(False, sel_h, fixed, (None, same_lanes), None, ref.traj,
+                 r.out)):
+        bit = bit and torch.equal(o.traj, la.traj) and torch.equal(o.ls,
+                                                                   la.ls)
+    check(bit, "homogeneous params/limits rows are not bit-identical to the "
+          "static pendcart instances")
+    print("  homogeneous rows (params = spec's (l, d), limits ±5): K3, K1 "
+          "gains/full and K2 bit-identical to the static pendcart instances")
+
+    # per-scenario limits on the fixed pendcart instance
+    kf, pf = (fwd(al1, True, plain, fixed, (None, lanes)) for plain in
+              (False, True))
+    e_pc = compare("pendcart K3, per-scenario limits", {
+        "totals": (kf.totals, pf.totals), "traj": (kf.traj, pf.traj)})
+    e_pc1 = max(compare_k1(f"pendcart K1 {emit}, per-scenario limits",
+                         bwd(emit, False, ftiles, dict(lims_lanes=lanes),
+                             None, kf.traj),
+                         bwd(emit, True, ftiles, dict(lims_lanes=lanes),
+                             None, kf.traj))
+                for emit in ("gains", "full"))
+    bof = bwd("gains", False, ftiles, dict(lims_lanes=lanes), None, kf.traj)
+    sel_f = torch.stack([bof.stats[0], bof.stats[1], kf.totals[0], allow])
+    k, p = (ls(plain, sel_f, fixed, (None, lanes), None, kf.traj, bof.out)
+            for plain in (False, True))
+    e_pc2 = compare("pendcart K2, per-scenario limits", {
+        "traj": (k.traj, p.traj), "totals": (k.ls[4], p.ls[4])})
+    check(torch.equal(k.ls[:2], p.ls[:2]),
+          "pendcart K2 with per-scenario limits: al_sel/any_ok differ")
+    ms1_pc = cuda_ms(lambda: bwd("gains", False, ftiles,
+                                 dict(lims_lanes=lanes), None, kf.traj), 20)
+    ms2_pc = cuda_ms(lambda: ls(False, sel_f, fixed, (None, lanes), None,
+                                kf.traj, bof.out), 20)
+    ms3_pc = cuda_ms(lambda: fwd(al1, True, False, fixed, (None, lanes)), 20)
+    print(f"  pendcart with per-scenario limits: K1 gains {ms1_pc:.3f} ms, "
+          f"K2 {ms2_pc:.3f} ms, K3 rollout {ms3_pc:.3f} ms")
+    for key, ms, e, w in (
+            ("k1_pendcart", ms1_pc, e_pc1,
+             k1_work(fixed, T, B, "gains", 2, LIMS, lanes=True)),
+            ("k2_pendcart", ms2_pc, e_pc2, k2_work(fixed, T, B, A, True)),
+            ("k3_pendcart", ms3_pc, e_pc, k3_work(fixed, T, B, 1, True,
+                                                  True))):
+        rec[key].update(ms_lims_lanes=ms, bound_ms_lims_lanes=w["bound_ms"],
+                        max_abs_err=max(rec[key]["max_abs_err"], e))
+
+    # K2 in place against K2 with a fresh output, on the static-limits
+    # stream (the MPC step's own shapes are checked in mpc-kernels)
+    g_f = r.out[:, :5].contiguous()
+    fresh = ls(False, sel_h, fixed, (), LIMS, ref.traj, g_f)
+    plain_ip = ls(True, sel_h, fixed, (), LIMS, ref.traj, g_f)
+    buf = ref.traj.clone()
+    inp = ls(False, sel_h, fixed, (), LIMS, buf, g_f, in_place=True)
+    check(inp.traj.data_ptr() == buf.data_ptr(),
+          "K2 in place did not return its input stream")
+    check(torch.equal(buf, fresh.traj) and torch.equal(inp.ls, fresh.ls),
+          "K2 in place is not bit-identical to K2 with a fresh output")
+    e_ip = compare("pendcart K2 in place", {
+        "traj": (buf, plain_ip.traj), "totals": (inp.ls[4],
+                                                 plain_ip.ls[4])})
+    ms_ip = cuda_ms(lambda: ls(False, sel_h, fixed, (), LIMS, buf, g_f,
+                               in_place=True), 20)
+    ms_fr = cuda_ms(lambda: ls(False, sel_h, fixed, (), LIMS, ref.traj, g_f),
+                    20)
+    plain_ip_ms = cuda_ms(lambda: ls(True, sel_h, fixed, (), LIMS, ref.traj,
+                                     g_f), 3)
+    print(f"  K2 in place: bit-identical to the fresh launch; {ms_ip:.3f} ms "
+          f"against {ms_fr:.3f} ms fresh in the same run")
+    rec["k2_pendcart"].update(
+        ms_in_place=ms_ip, ms_fresh_beside_in_place=ms_fr,
+        plain_ms_in_place=plain_ip_ms,
+        max_abs_err=max(rec["k2_pendcart"]["max_abs_err"], e_ip))
+    del traj0, gains0, traj, bo, k, p, out, ref, r, buf, kf, pf, fresh
+
+    # LTI ⟨10,2⟩ with a box per lane and control
+    n, m, Tl, Tp = LTI_N, LTI_M, LTI_T, LTI_T_PLAIN
+    lspec = random_lti(0, n=n, m=m, T=Tl, device=dev)
+    lmodel, ltiles = lti_lanes(lspec), lti_derivs_tiles(lspec)
+    lcfg = ILQGConfig(alphas=default_alphas(0.2, -3.0, 6), reg_type=2,
+                      lam_max=1e15, max_iter=300)
+    box = np.stack([-rng.uniform(*LTI_BOX, B), rng.uniform(*LTI_BOX, B),
+                    -rng.uniform(*LTI_BOX, B), rng.uniform(*LTI_BOX, B)])
+    llanes = torch.tensor(box, dtype=f32, device=dev)          # (2m, B)
+    lx0s = torch.ones((B, n), device=dev) * torch.linspace(
+        0.5, 2.0, B, device=dev)[:, None]
+    lx0_l = lx0s.T.contiguous()
+    lu0s = lspec.u0.expand(B, Tl, m).contiguous()
+    streams = {t: (torch.zeros((t, n + m, B), device=dev), torch.cat(
+        [to_streams(lu0s[:, :t]), torch.zeros((t, m * n, B), device=dev)],
+        dim=1)) for t in (Tp, Tl)}
+    lad = torch.tensor(lcfg.alphas, device=dev)[:, None].expand(
+        len(lcfg.alphas), B).contiguous()
+
+    def lfwd(t, al, emit, plain, ln=llanes, lims=None):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(*streams[t], lx0_l, al, None, ln, model=lmodel, lims=lims,
+                 emit_traj=emit)
+
+    def lbwd(emit, plain, tr, ln=llanes, lims=None):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, lam, n=n, m=m, reg_type=2, lims=lims,
+                 derivs_tiles=ltiles, lims_lanes=ln, emit=emit)
+
+    def lls(plain, tr, g, s, ln=llanes, lims=None):
+        f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+        return f(tr, g, lx0_l, s, None, ln, model=lmodel,
+                 alphas=lcfg.alphas, reduce_ratio_min=0.0, lims=lims)
+
+    k, p = lfwd(Tp, lad, False, False), lfwd(Tp, lad, False, True)
+    el3 = compare("LTI K3 sweep A=6, per-scenario boxes",
+                  {"totals": (k.totals, p.totals)})
+    k, p = lfwd(Tp, al1, True, False), lfwd(Tp, al1, True, True)
+    el3 = max(el3, compare("LTI K3 rollout A=1, per-scenario boxes", {
+        "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)}))
+    ltr, ltot = k.traj, k.totals[0]
+    errs, plain_l1 = [], None
+    for emit in ("gains", "full"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = lbwd(emit, True, ltr)
+        torch.cuda.synchronize()
+        plain_l1 = plain_l1 or (time.perf_counter() - t0) * 1e3
+        k = lbwd(emit, False, ltr)
+        lay = bk.OutLayout(n, m, emit)
+        nq = lay.quui if emit == "full" else lay.S
+        what = f"LTI K1 {emit}, per-scenario boxes"
+        errs.append(compare_slots_ties(what, k.out[:, :nq], p.out[:, :nq],
+                                       AD_SLOT_TOL))
+        errs.append(compare(what, {"dV": (k.stats[:2], p.stats[:2])}))
+        if emit == "full":
+            errs.append(compare_slots_ties(f"{what} Quu_inv", k.out[:, nq:],
+                                           p.out[:, nq:], QUU_INV_TOL))
+        check(torch.equal(k.stats[2:], p.stats[2:]),
+              f"{what}: diverged/diverge_idx differ")
+        if emit == "gains":
+            lg = k
+            kk, uu = k.out[:-1, :m], ltr[:-1, n:n + m]
+            on = (kk == llanes[0::2] - uu) | (kk == llanes[1::2] - uu)
+            shares = [on[:, i].float().mean().item() for i in range(m)]
+            print(f"  LTI K1: each lane's box binds on a share of the steps: "
+                  f"control 0 {shares[0]:.4f}, control 1 {shares[1]:.4f}")
+            check(min(shares) > 0, "LTI K1: a per-scenario box never binds")
+    lsel = torch.stack([lg.stats[0], lg.stats[1], ltot, allow])
+    k, p = lls(False, ltr, lg.out, lsel), lls(True, ltr, lg.out, lsel)
+    el2 = compare("LTI K2, per-scenario boxes", {
+        "traj": (k.traj, p.traj), "totals": (k.ls[4], p.ls[4])})
+    check(torch.equal(k.ls[:2], p.ls[:2]),
+          "LTI K2 with per-scenario boxes: al_sel/any_ok differ")
+    plain_l2 = once_ms(lambda: lls(True, ltr, lg.out, lsel))
+    plain_l3 = once_ms(lambda: lfwd(Tp, lad, False, True))
+    # homogeneous rows ±0.6 against the static limits, bit for bit
+    same = torch.tensor([[-0.6], [0.6], [-0.6], [0.6]], device=dev).expand(
+        2 * m, B).contiguous()
+    a, b = lfwd(Tp, al1, True, False, None, LTI_LIMS), lfwd(Tp, al1, True,
+                                                          False, same)
+    bit = torch.equal(a.traj, b.traj) and torch.equal(a.totals, b.totals)
+    ka = lbwd("full", False, a.traj, None, LTI_LIMS)
+    kb = lbwd("full", False, a.traj, same)
+    bit = bit and torch.equal(ka.out, kb.out) and torch.equal(ka.stats,
+                                                              kb.stats)
+    hs = torch.stack([ka.stats[0], ka.stats[1], a.totals[0], allow])
+    la, lb = (lls(False, a.traj, ka.out, hs, None, LTI_LIMS),
+              lls(False, a.traj, ka.out, hs, same))
+    bit = bit and torch.equal(la.traj, lb.traj) and torch.equal(la.ls, lb.ls)
+    check(bit, "LTI: rows all ±0.6 are not bit-identical to the static ±0.6")
+    print("  LTI: rows all ±0.6 give the static limits' K3, K1 full and K2 "
+          "bit for bit")
+    ms3l = cuda_ms(lambda: lfwd(Tl, lad, False, False), 20)
+    ro = lfwd(Tl, al1, True, False)
+    ms3lr = cuda_ms(lambda: lfwd(Tl, al1, True, False), 20)
+    ms1l = cuda_ms(lambda: lbwd("gains", False, ro.traj), 20)
+    ms1lf = cuda_ms(lambda: lbwd("full", False, ro.traj), 20)
+    bo_t = lbwd("gains", False, ro.traj)
+    sel_t = torch.stack([bo_t.stats[0], bo_t.stats[1], ro.totals[0], allow])
+    ms2l = cuda_ms(lambda: lls(False, ro.traj, bo_t.out, sel_t), 20)
+    A6 = len(lcfg.alphas)
+    wl3, wl3r = k3_work(lmodel, Tl, B, A6, False, True), k3_work(
+        lmodel, Tl, B, 1, True, True)
+    wl1 = k1_work(lmodel, Tl, B, "gains", 2, LTI_LIMS, lanes=True)
+    wl1f = k1_work(lmodel, Tl, B, "full", 2, LTI_LIMS, lanes=True)
+    wl2 = k2_work(lmodel, Tl, B, A6, True)
+    for what, ms, w in (("K3 sweep A=6", ms3l, wl3), ("K3 rollout A=1",
+                                                       ms3lr, wl3r),
+                        ("K1 gains", ms1l, wl1), ("K1 full", ms1lf, wl1f),
+                        ("K2 A=6", ms2l, wl2)):
+        print(f"  LTI per-scenario boxes {what} at T={Tl}: kernel {ms:.3f} "
+              f"ms, bound {w['bound_ms']:.3f} ms ({w['bound_by']})")
+    print(f"  LTI plain versions once at T={Tp}: K3 sweep {plain_l3:.1f}, "
+          f"K1 gains {plain_l1:.1f}, K2 {plain_l2:.1f} ms")
+    rec["k3_lti_lanes"] = dict(max_abs_err=el3, ms=ms3l, ms_rollout=ms3lr,
+                               bound_ms_rollout=wl3r["bound_ms"],
+                               plain_ms=plain_l3, plain_T=Tp,
+                               library_ms=None, **wl3)
+    rec["k1_lti_lanes"] = dict(max_abs_err=max(errs), ms=ms1l, ms_full=ms1lf,
+                               bound_ms_full=wl1f["bound_ms"],
+                               plain_ms=plain_l1, plain_T=Tp,
+                               library_ms=None, **wl1)
+    rec["k2_lti_lanes"] = dict(max_abs_err=el2, ms=ms2l, plain_ms=plain_l2,
+                               plain_T=Tp, library_ms=None, **wl2)
+    del streams, ltr, k, p, a, b, ka, kb, la, lb, ro, bo_t, lg
+
+    ph.start("hetero-path", f"ilqg_batch_lanes, parametrised pendcart "
+             f"B={B} T={T}, l~U{PARAM_L}, d~U{PARAM_D}, limits "
+             f"±U{HETERO_HI}, max_steps={ITERS}")
+    params_b = par.T.contiguous()                           # (B, 2)
+    lims_b = lanes.T.contiguous()[:, None, :]               # (B, 1, 2)
+    u0s = torch.zeros((B, T, 1), device=dev)
+    x0s = ilqg["x0s"]
+
+    def solve(x0, u0, pb, lb, trace=False):
+        return ilqg_batch_lanes(model, None, x0, u0, lims=lb, cfg=cfg,
+                                derivs_tiles=tiles, params=pb,
+                                max_steps=ITERS, record_trace=trace)
+
+    warm = solve(x0s, u0s, params_b, lims_b, trace=True)
+    cost_init = warm.trace.cost[:, 0]
+    del warm
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+
+    def timed():
+        s.record()
+        out = solve(x0s, u0s, params_b, lims_b)
+        e.record()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    r, launches = counted(counters, timed)
+    solve_ms = s.elapsed_time(e)
+    peak = torch.cuda.max_memory_allocated() - base
+    iters = int(r.n_iters.max())
+    ct = r.cost_total
+
+    def hist(v):
+        return {int(a): int(b) for a, b in zip(*torch.unique(
+            v, return_counts=True))}
+
+    ua = r.u[..., 0].abs()
+    print(f"  launches: {launches}")
+    print(f"  n_iters histogram {hist(r.n_iters)}; reasons {hist(r.reason)}; "
+          f"accepted mean {r.n_accepted.float().mean().item():.3f}")
+    print(f"  cost_total min/median/max: {ct.min().item():.6g} / "
+          f"{ct.median().item():.6g} / {ct.max().item():.6g} (initial "
+          f"rollout median {cost_init.median().item():.6g})")
+    print(f"  solve: {solve_ms:.3f} ms (CUDA events); "
+          f"{solve_ms / max(iters, 1):.4f} ms/iter over {iters} iterations; "
+          f"peak memory above what the run started with "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"  each lane's controls within its own box: share on the box "
+          f"{(ua == hi[:, None]).float().mean().item():.4f}")
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the heterogeneous path never ran: {launches}")
+    check(bool((ua <= hi[:, None]).all()),
+          "hetero: a control outside its lane's box")
+    check(bool(torch.isfinite(ct[r.reason != 5]).all()
+               and torch.isfinite(r.x).all()), "hetero: non-finite results")
+    check(ct.median() < cost_init.median(), "hetero: median cost did not "
+          "improve")
+    rec["k1_pendcart_param"]["path"] = dict(
+        solve_ms=solve_ms, iters=iters, ms_per_iter=solve_ms / max(iters, 1),
+        peak_bytes=peak, reasons=hist(r.reason))
+    paths = {"hetero": launches}
+    del r
+
+    sl = slice(0, B_CPU)
+    g = solve(x0s[sl], u0s[sl], params_b[sl], lims_b[sl])
+    t0 = time.perf_counter()
+    c = solve(x0s[sl].cpu(), u0s[sl].cpu(), params_b[sl].cpu(),
+              lims_b[sl].cpu())
+    print(f"  CPU solve on {B_CPU} lanes (plain versions): "
+          f"{time.perf_counter() - t0:.1f} s")
+    rel = (g.cost_total.cpu() - c.cost_total).abs() / c.cost_total.abs()
+    close = (rel <= COST_RTOL).float().mean().item()
+    same_reason = (g.reason.cpu() == c.reason).float().mean().item()
+    same_acc = (g.n_accepted.cpu() == c.n_accepted).float().mean().item()
+    print(f"  GPU against CPU: cost rel diff max {rel.max().item():.3e}; "
+          f"share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
+          f"reason {same_reason:.3f}, same accepted count {same_acc:.3f} "
+          f"(need {AGREE_SHARE} each)")
+    check(min(close, same_reason, same_acc) >= AGREE_SHARE,
+          "hetero: GPU and CPU outcomes differ")
+
+    # the LTI fleet with a per-scenario box on each control
+    lb = llanes.T.reshape(B, m, 2)                    # [lo, hi] per control
+
+    def timed_lti():
+        s.record()
+        out = ilqg_batch_lanes(lmodel, None, lx0s, lu0s, lims=lb, cfg=lcfg,
+                               derivs_tiles=ltiles, max_steps=ITERS // 2,
+                               record_trace=True)
+        e.record()
+        return out
+
+    r, launches = counted(counters, timed_lti)
+    lti_ms = s.elapsed_time(e)
+    iters = int(r.n_iters.max())
+    inside = ((r.u >= lb[:, None, :, 0]) & (r.u <= lb[:, None, :, 1])).all()
+    print(f"  LTI n={n} m={m} T={Tl} with per-scenario boxes, max_steps="
+          f"{ITERS // 2}: {lti_ms:.3f} ms, {iters} iterations, launches "
+          f"{launches}; median cost {r.trace.cost[:, 0].median().item():.6g}"
+          f" -> {r.cost_total.median().item():.6g}")
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the LTI per-scenario-box path never ran: {launches}")
+    check(bool(inside), "LTI: a control outside its lane's box")
+    check(bool(torch.isfinite(r.cost_total).all()), "LTI boxes: non-finite")
+    check(r.cost_total.median() < r.trace.cost[:, 0].median(),
+          "LTI boxes: median cost did not improve")
+    rec["k1_lti_lanes"]["path"] = dict(solve_ms=lti_ms, iters=iters,
+                                       ms_per_iter=lti_ms / max(iters, 1))
+    paths["hetero_lti"] = launches
+    return paths
+
+
+def mpc_phases(ph, dev, rec, counters) -> dict:
+    """Phase 23: the MPC path's kernel instances (pendcart K3 at α=1, K1
+    gains/full, K2 with the 4-α ladder fresh and in place; the same
+    PendCartParam instances with per-scenario [l, d] and limits) against
+    their plain versions at the path's shapes, timed with their bounds; the
+    MPC serving loop at the JAX MPC tier's settings
+    (``bench.py:149-212``), timed over windows of chunks with CUDA events,
+    its launches and host syncs per step, a torch.profiler split of one
+    chunk; a chunk with per-scenario parameters and limits; the MPC step
+    ``ilqg_iteration_lanes`` with K2 in place; the loop on 64 lanes against
+    the CPU. Adds the measurements to ``rec``; returns the launches of the
+    paths ``mpc``, ``mpc_hetero`` and ``iteration``."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, default_x0, make_pendcart_problem,
+        pendcart_derivs_tiles, pendcart_derivs_tiles_param, pendcart_lanes,
+        pendcart_lanes_param)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_iteration_lanes, mpc_rollout_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig, default_alphas)
+
+    f32 = torch.float32
+    Tm = MPC_T
+    spec = PendCartSpec()
+    model, tiles = pendcart_lanes(spec), pendcart_derivs_tiles(spec)
+    mp, mt = pendcart_lanes_param(spec), pendcart_derivs_tiles_param(spec)
+    cfg = ILQGConfig(alphas=default_alphas(0.2, -3.0, 4), reg_type=2,
+                     lam_max=1e15, max_iter=5, iter_cap=9)
+    A = len(cfg.alphas)
+    # the tier's inputs (bench.py:169-196): x0 = default_x0 +
+    # 0.2·N(0,1)·[1,1,0,0], a seed plan 0.1·N(0,1), from a numpy seed; and
+    # the heterogeneous chunk's per-scenario [l, d] and limits
+    rng = np.random.default_rng(31)
+    x0 = torch.tensor(np.asarray(default_x0(device="cpu").numpy(),
+                                 np.float64)[None, :]
+                      + 0.2 * rng.standard_normal((B, 4))
+                      * np.array([1.0, 1.0, 0, 0]), dtype=f32, device=dev)
+    u_seed = torch.tensor(0.1 * rng.standard_normal((B, Tm, 1)), dtype=f32,
+                          device=dev)
+    params = torch.tensor(np.stack([rng.uniform(*PARAM_L, B),
+                                    rng.uniform(*PARAM_D, B)], axis=1),
+                          dtype=f32, device=dev)            # (B, 2)
+    hi = torch.tensor(rng.uniform(*HETERO_HI, B), dtype=f32, device=dev)
+
+    ph.start("mpc-kernels", f"the MPC path's instances at its shapes, B={B} "
+             f"T={Tm}, {A}-α ladder: pendcart (±10) K3 rollout, K1 "
+             f"gains/full, K2 fresh and in place; PendCartParam with "
+             f"per-scenario [l, d] and limits K3, K1, K2")
+    # each re-solve's first stream: the warm start's K3 roll of the seed
+    # plan at α=1, and the solver's first λ
+    gains0 = torch.cat([to_streams(u_seed), torch.zeros((Tm, 4, B),
+                                                        device=dev)], dim=1)
+    zeros, one = torch.zeros((Tm, 5, B), device=dev), torch.ones((1, B),
+                                                                 device=dev)
+    x0_l = x0.T.contiguous()
+    lam = torch.full((B,), cfg.lam, device=dev)
+    lanes = torch.stack([-hi, hi]).contiguous()             # (2, B)
+    for what, mdl, tl, args, lims in (
+            ("pendcart", model, tiles, (), MPC_LIMS),
+            ("PendCartParam", mp, mt, (params.T.contiguous(), lanes), None)):
+        key = "pendcart_param" if args else "pendcart"
+        per = dict(params=args[0], lims_lanes=args[1]) if args else {}
+
+        def fwd(plain):
+            f = fk.forward_lanes_ref if plain else fk.forward_lanes
+            return f(zeros, gains0, x0_l, one, *args, model=mdl, lims=lims,
+                     emit_traj=True)
+
+        k3, p3 = fwd(False), fwd(True)
+        e3 = compare(f"{what} K3 rollout α=1", {
+            "totals": (k3.totals, p3.totals), "traj": (k3.traj, p3.traj)})
+        traj = k3.traj
+
+        def bwd(emit, plain):
+            f = bk.backward_lanes_ref if plain else bk.backward_lanes
+            return f(traj, lam, n=4, m=1, reg_type=cfg.reg_type, lims=lims,
+                     derivs_tiles=tl, emit=emit, **per)
+
+        e1, plain1 = [], {}
+        for emit in ("gains", "full"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = bwd(emit, True)
+            torch.cuda.synchronize()
+            plain1[emit] = (time.perf_counter() - t0) * 1e3
+            e1.append(compare_k1(f"{what} K1 {emit}", bwd(emit, False), p))
+        bo = bwd("gains", False)
+        sel = torch.stack([bo.stats[0], bo.stats[1], k3.totals[0],
+                           (bo.stats[2] <= 0.5).float()])
+
+        def ls(plain, src=traj, x0_=x0_l, **kw):
+            f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+            return f(src, bo.out, x0_, sel, *args, model=mdl,
+                     alphas=cfg.alphas, reduce_ratio_min=cfg.reduce_ratio_min,
+                     lims=lims, **kw)
+
+        k2, p2 = ls(False), ls(True)
+        e2 = compare(f"{what} K2 A={A}", {"traj": (k2.traj, p2.traj),
+                                         "totals": (k2.ls[4], p2.ls[4])})
+        check(torch.equal(k2.ls[:2], p2.ls[:2]),
+              f"{what} K2 A={A}: al_sel/any_ok differ")
+        print(f"  {what} K2: {int((k2.ls[1] > 0.5).sum())} of {B} lanes "
+              f"accept")
+        ms3 = cuda_ms(lambda: fwd(False), 20)
+        plain3 = cuda_ms(lambda: fwd(True), 3)
+        ms1 = cuda_ms(lambda: bwd("gains", False), 20)
+        ms1f = cuda_ms(lambda: bwd("full", False), 20)
+        ms2 = cuda_ms(lambda: ls(False), 20)
+        plain2 = cuda_ms(lambda: ls(True), 3)
+        w1 = k1_work(mdl, Tm, B, "gains", cfg.reg_type, MPC_LIMS,
+                     lanes=bool(args))
+        w1f = k1_work(mdl, Tm, B, "full", cfg.reg_type, MPC_LIMS,
+                      lanes=bool(args))
+        w2 = k2_work(mdl, Tm, B, A, bool(args))
+        w3 = k3_work(mdl, Tm, B, 1, True, bool(args))
+        rec[f"k3_{key}_mpc"] = dict(max_abs_err=e3, ms=ms3, plain_ms=plain3,
+                                    library_ms=None, **w3)
+        rec[f"k1_{key}_mpc"] = dict(
+            max_abs_err=max(e1), ms=ms1, ms_full=ms1f,
+            bound_ms_full=w1f["bound_ms"], plain_ms=plain1["gains"],
+            plain_ms_full=plain1["full"], library_ms=None, **w1)
+        rec[f"k2_{key}_mpc"] = dict(max_abs_err=e2, ms=ms2, plain_ms=plain2,
+                                    library_ms=None, **w2)
+        rows = [("K3 rollout A=1", ms3, w3), ("K1 gains", ms1, w1),
+                ("K1 full", ms1f, w1f), (f"K2 A={A}", ms2, w2)]
+        if not args:
+            # the MPC step's K2: in place, x0 a view of the stream it
+            # overwrites, bit for bit the fresh launch
+            buf = traj.clone()
+            ip = ls(False, buf, buf[0, :4], in_place=True)
+            check(ip.traj.data_ptr() == buf.data_ptr(),
+                  "K2 in place did not return its input stream")
+            check(torch.equal(buf, k2.traj) and torch.equal(ip.ls, k2.ls),
+                  f"K2 A={A} in place is not bit-identical to K2 fresh")
+            e_ip = compare(f"pendcart K2 A={A} in place", {
+                "traj": (buf, p2.traj), "totals": (ip.ls[4], p2.ls[4])})
+            ms_ip = cuda_ms(lambda: ls(False, buf, buf[0, :4],
+                                       in_place=True), 20)
+            rec["k2_pendcart_inplace"] = dict(
+                max_abs_err=e_ip, ms=ms_ip, ms_fresh=ms2, plain_ms=plain2,
+                library_ms=None, **w2)
+            rows.append((f"K2 A={A} in place", ms_ip, w2))
+            print(f"  pendcart K2 A={A} in place (x0 a view of the stream): "
+                  f"bit-identical to the fresh launch")
+        for name, ms, w in rows:
+            print(f"  {what} {name} at T={Tm}: kernel {ms:.3f} ms, bound "
+                  f"{w['bound_ms']:.4f} ms ({w['bound_by']})")
+        print(f"  {what} plain versions: K3 rollout {plain3:.1f}, K1 gains "
+              f"{plain1['gains']:.1f} (once), full {plain1['full']:.1f} "
+              f"(once), K2 {plain2:.1f} ms")
+    del gains0, zeros, k3, p3, traj, bo, k2, p2, buf, ip
+
+    ph.start("mpc-path", f"mpc_rollout_lanes, pendcart B={B} T={Tm}, ±10, "
+             f"{A}-α ladder, max_iter={cfg.max_iter}, "
+             f"iter_cap={cfg.iter_cap}, {MPC_STEPS} steps a chunk")
+    prob = make_pendcart_problem(spec, "euler", device=dev)
+
+    def plant(x, u):
+        return prob.dynamics(x, u, 0)
+
+    def chunk(x, u, n_steps=MPC_STEPS):
+        return mpc_rollout_lanes(model, None, x, u, plant, n_steps,
+                                 lims=MPC_LIMS, cfg=cfg, derivs_tiles=tiles)
+
+    t0 = time.perf_counter()
+    first, launches = counted(counters, lambda: chunk(x0, u_seed))
+    first_s = time.perf_counter() - t0
+    x, u, _, us1, costs1 = first
+    # one burn-in chunk, with its host syncs counted
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            x, u, _, _, _ = chunk(x, u)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step_ms = []
+    for _ in range(MPC_WINDOWS):
+        s.record()
+        x, u, _, _, _ = chunk(x, u)
+        x, u, xs, us, costs = chunk(x, u)
+        e.record()
+        torch.cuda.synchronize()
+        step_ms.append(s.elapsed_time(e) / (2 * MPC_STEPS))
+    peak = torch.cuda.max_memory_allocated() - base
+    prof = profile_split(lambda: chunk(x, u))
+    per_step = {k: v / MPC_STEPS for k, v in launches.items() if v}
+    print(f"  card: {smi()}")
+    print(f"  ms per MPC step over {MPC_WINDOWS} windows of {2 * MPC_STEPS} "
+          f"steps (CUDA events): min {min(step_ms):.4f}, median "
+          f"{statistics.median(step_ms):.4f}; windows "
+          f"{[round(v, 4) for v in step_ms]}")
+    print(f"  first chunk (seed plan) {first_s * 1e3:.1f} ms host clock; "
+          f"launches per step {per_step}; host syncs per step "
+          f"{syncs / MPC_STEPS:.2f} ({syncs} in a {MPC_STEPS}-step chunk); "
+          f"peak memory above what the windows started with "
+          f"{peak / 2**30:.3f} GiB")
+    if prof is None:
+        print("  profile: torch.profiler recorded no device events; split "
+              "not measured")
+    else:
+        per = ", ".join(f"{k} {v[0]:.3f} ms ({v[1]})"
+                        for k, v in prof["by_kernel"].items())
+        print(f"  profile of one chunk: wall {prof['wall_ms']:.3f} ms, device "
+              f"busy {prof['busy_ms']:.3f} ms (idle share "
+              f"{prof['idle_share']:.4f}); kernels {prof['kernel_ms']:.3f} ms "
+              f"[{per}]; glue {prof['glue_ms']:.3f} ms in "
+              f"{prof['glue_launches']} launches")
+    c_seed, c_end = costs1[0].median().item(), costs[-1].median().item()
+    n_steps = (2 + 2 * MPC_WINDOWS) * MPC_STEPS
+    fell = (costs[-1] < 0.1 * costs1[0]).float().mean().item()
+    print(f"  median re-solve cost: first step {c_seed:.6g}, after step "
+          f"{MPC_STEPS} {costs1[-1].median().item():.6g}, after {n_steps} "
+          f"steps {c_end:.6g}; share of lanes whose re-solve cost fell "
+          f"below a tenth of its first {fell:.4f}")
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the MPC path never ran: {launches}")
+    check(bool(torch.isfinite(xs).all() and torch.isfinite(us).all()
+               and torch.isfinite(costs).all() and torch.isfinite(x).all()),
+          "MPC: non-finite states, controls or costs")
+    check(xs.shape == (MPC_STEPS, B, 4) and us.shape == (MPC_STEPS, B, 1)
+          and costs.shape == (MPC_STEPS, B) and u.shape == (B, Tm, 1),
+          "MPC result shapes")
+    check(bool((us.abs() <= 10.0).all() and (us1.abs() <= 10.0).all()),
+          "MPC: a control outside ±10")
+    check(c_end < c_seed, "MPC: the median closed-loop cost did not fall")
+    rec["mpc"] = dict(ms_per_step_min=min(step_ms),
+                      ms_per_step_median=statistics.median(step_ms),
+                      windows_ms_per_step=step_ms,
+                      launches_per_step=per_step,
+                      syncs_per_step=syncs / MPC_STEPS, peak_bytes=peak,
+                      profile=prof, cost_first=c_seed, cost_end=c_end,
+                      share_cost_below_tenth=fell)
+    paths = {"mpc": launches}
+
+    # a chunk on a heterogeneous fleet: per-scenario [l, d] and limits in
+    # every re-solve, and a plant that steps each lane's own pendulum
+    lims_b = torch.stack([-hi, hi], dim=-1)[:, None, :]     # (B, 1, 2)
+    par = [params[:, 0].contiguous(), params[:, 1].contiguous()]
+
+    def hplant(x_, u_):
+        return torch.stack(mp.dynamics(list(x_.T), list(u_.T), 0, par),
+                           dim=1)
+
+    (xh, uh, xsh, ush, csh), launches_h = counted(
+        counters, lambda: mpc_rollout_lanes(
+            mp, None, x0, u_seed, hplant, MPC_STEPS, lims=lims_b, cfg=cfg,
+            derivs_tiles=mt, params=params))
+    print(f"  heterogeneous chunk ({MPC_STEPS} steps, per-scenario [l, d] "
+          f"and limits ±U{HETERO_HI}): launches {launches_h}; median cost "
+          f"{csh[0].median().item():.6g} -> {csh[-1].median().item():.6g}; "
+          f"share of applied controls on their lane's limit "
+          f"{(ush[..., 0].abs() == hi).float().mean().item():.4f}")
+    check(all(launches_h[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the heterogeneous MPC chunk never ran: {launches_h}")
+    check(bool(torch.isfinite(xsh).all() and torch.isfinite(csh).all()),
+          "heterogeneous MPC: non-finite states or costs")
+    check(bool((ush[..., 0].abs() <= hi).all()
+               and (uh[..., 0].abs() <= hi[:, None]).all()),
+          "heterogeneous MPC: a control outside its lane's box")
+    paths["mpc_hetero"] = launches_h
+
+    # the MPC step: K1 gains and K2 in place on the MPC state's stream
+    step = ilqg_iteration_lanes(model, None, MPC_LIMS, cfg,
+                                derivs_tiles=tiles)
+    gains = torch.cat([to_streams(u), torch.zeros((Tm, 4, B), device=dev)],
+                      dim=1)
+    ro = fk.forward_lanes(torch.zeros((Tm, 5, B), device=dev), gains,
+                          x.T.contiguous(), torch.ones((1, B), device=dev),
+                          model=model, lims=MPC_LIMS, emit_traj=True)
+    state = list(step(ro.traj, ro.totals[0],
+                      torch.full((B,), cfg.lam, device=dev)))
+    tots, ptrs = [state[1]], []
+
+    def steps():
+        s.record()
+        for _ in range(ITER_STEPS):
+            ptrs.append(state[0].data_ptr())
+            state[:] = step(*state)
+            ptrs.append(state[0].data_ptr())
+            tots.append(state[1])
+        e.record()
+
+    _, launches_i = counted(counters, steps)
+    it_ms = s.elapsed_time(e) / ITER_STEPS
+    mono = all(bool((b <= a + 1e-4 * a.abs()).all())
+               for a, b in zip(tots, tots[1:]))
+    print(f"  ilqg_iteration_lanes: {it_ms:.4f} ms per step over "
+          f"{ITER_STEPS} steps; launches {launches_i}; median cost "
+          f"{tots[0].median().item():.6g} -> {tots[-1].median().item():.6g}")
+    check(len(set(ptrs)) == 1, "MPC step: K2 did not update the stream in "
+          "place")
+    check(mono, "MPC step: a lane's cost rose")
+    check(launches_i["linesearch_lanes"] == ITER_STEPS
+          and launches_i["backward_lanes"] == ITER_STEPS,
+          f"MPC step launches {launches_i}")
+    rec["k2_pendcart_inplace"]["iteration_path"] = dict(ms_per_step=it_ms)
+    paths["iteration"] = launches_i
+
+    ph.start("mpc-gpu-vs-cpu", f"first {B_CPU} scenarios, T={Tm}, "
+             f"{MPC_CPU_STEPS} MPC steps")
+    sl = slice(0, B_CPU)
+    g = chunk(x0[sl], u_seed[sl], MPC_CPU_STEPS)
+    prob_c = make_pendcart_problem(spec, "euler", device="cpu")
+    t0 = time.perf_counter()
+    c = mpc_rollout_lanes(model, None, x0[sl].cpu(), u_seed[sl].cpu(),
+                          lambda x_, u_: prob_c.dynamics(x_, u_, 0),
+                          MPC_CPU_STEPS, lims=MPC_LIMS, cfg=cfg,
+                          derivs_tiles=tiles)
+    print(f"  CPU loop (plain versions): {time.perf_counter() - t0:.1f} s")
+    rel = ((g[4].cpu() - c[4]).abs() / c[4].abs()).amax(dim=0)
+    dx = (g[2].cpu() - c[2]).abs().amax(dim=(0, 2))
+    close = (rel <= COST_RTOL).float().mean().item()
+    x_close = (dx <= 1e-3).float().mean().item()
+    print(f"  per lane, worst step: cost rel diff max {rel.max().item():.3e},"
+          f" median {rel.median().item():.3e}; state max abs diff max "
+          f"{dx.max().item():.3e}; share of lanes: costs within "
+          f"{COST_RTOL:.0e} {close:.3f}, states within 1e-3 {x_close:.3f} "
+          f"(need {AGREE_SHARE} each)")
+    check(min(close, x_close) >= AGREE_SHARE,
+          "MPC: GPU and CPU closed loops differ")
+    return paths
+
+
 def probe_phase(ph, dev, rec, counters) -> dict:
     """Phase 21: the probe K5, each mode against its plain version (bit for
     bit: copies and sequential f32 adds), timed, with its achieved
@@ -1915,6 +2786,8 @@ def main() -> int:
     paths.update(kl_phases(ph, dev, rec, counters, model, tiles, spec))
     paths["lti"] = lti_phases(ph, dev, rec, counters)
     paths.update(kl_lti_phases(ph, dev, rec, counters))
+    paths.update(hetero_phases(ph, dev, rec, counters, ilqg))
+    paths.update(mpc_phases(ph, dev, rec, counters))
     paths.update(probe_phase(ph, dev, rec, counters))
 
     # ---- record and result: one entry per kernel instance, its launches
@@ -1931,6 +2804,9 @@ def main() -> int:
     instances = (   # record key, wrapper, instance, source, TPU kernel, paths
         ("k1_pendcart", "backward_lanes", "pendcart <4,1> gains, full",
          "backward.cu", k1, ("ilqg",)),
+        ("k1_pendcart_mpc", "backward_lanes",
+         "pendcart <4,1> gains, full, T=300", "backward.cu", k1,
+         ("mpc", "iteration")),
         ("k1_pendcart_gps", "backward_lanes", "pendcart <4,1> GPS policy",
          "backward.cu", k1, ("kl", "gps")),
         ("k1_lti", "backward_lanes", "LTI <10,2> gains, full",
@@ -1943,14 +2819,46 @@ def main() -> int:
         ("k1_pendcart_ad", "backward_lanes",
          "Autodiff<PendCart> <4,1> gains, full", "backward_pendcart_ad.cu",
          k1, ("ilqg_ad",)),
+        ("k1_pendcart_param", "backward_lanes",
+         "PendCartParam <4,1> gains, full, per-scenario limits",
+         "backward_pendcart_param.cu", k1, ("hetero",)),
+        ("k1_pendcart_param_mpc", "backward_lanes",
+         "PendCartParam <4,1> gains, full, per-scenario limits, T=300",
+         "backward_pendcart_param.cu", k1, ("mpc_hetero",)),
+        ("k1_lti_lanes", "backward_lanes",
+         "LTI <10,2> gains, full, per-scenario limits", "backward_lti.cu", k1,
+         ("hetero_lti",)),
         ("k2_pendcart", "linesearch_lanes", "pendcart <4,1>", "forward.cu", k2,
          ("ilqg",)),
+        ("k2_pendcart_mpc", "linesearch_lanes", "pendcart <4,1> A=4, T=300",
+         "forward.cu", k2, ("mpc",)),
+        ("k2_pendcart_inplace", "linesearch_lanes",
+         "pendcart <4,1> A=4, T=300, in place", "forward.cu", k2,
+         ("iteration",)),
+        ("k2_pendcart_param", "linesearch_lanes",
+         "PendCartParam <4,1>, per-scenario limits",
+         "forward_pendcart_param.cu", k2, ("hetero",)),
+        ("k2_pendcart_param_mpc", "linesearch_lanes",
+         "PendCartParam <4,1> A=4, T=300, per-scenario limits",
+         "forward_pendcart_param.cu", k2, ("mpc_hetero",)),
+        ("k2_lti_lanes", "linesearch_lanes", "LTI <10,2>, per-scenario limits",
+         "forward_lti.cu", k2, ("hetero_lti",)),
         ("k2_lti", "linesearch_lanes", "LTI <10,2>", "forward_lti.cu", k2,
          ("lti",)),
         ("k2_quad", "linesearch_lanes", "quadrotor <6,2>", "forward_quad.cu",
          k2, ("quad",)),
         ("k3_pendcart", "forward_lanes", "pendcart <4,1>", "forward.cu", k3,
          ("ilqg", "kl", "gps")),
+        ("k3_pendcart_mpc", "forward_lanes", "pendcart <4,1> A=1, T=300",
+         "forward.cu", k3, ("mpc",)),
+        ("k3_pendcart_param", "forward_lanes",
+         "PendCartParam <4,1>, per-scenario limits",
+         "forward_pendcart_param.cu", k3, ("hetero",)),
+        ("k3_pendcart_param_mpc", "forward_lanes",
+         "PendCartParam <4,1> A=1, T=300, per-scenario limits",
+         "forward_pendcart_param.cu", k3, ("mpc_hetero",)),
+        ("k3_lti_lanes", "forward_lanes", "LTI <10,2>, per-scenario limits",
+         "forward_lti.cu", k3, ("hetero_lti",)),
         ("k3_lti", "forward_lanes", "LTI <10,2>", "forward_lti.cu", k3,
          ("lti", "kl_lti", "gps_lti")),
         ("k3_quad", "forward_lanes", "quadrotor <6,2>", "forward_quad.cu", k3,

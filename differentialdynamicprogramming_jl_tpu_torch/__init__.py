@@ -2,11 +2,16 @@
 
 Sits beside the JAX package ``differentialdynamicprogramming_jl_tpu``, which
 stays the reference, and keeps its module paths and public names. The port
-covers the fleet paths with in-kernel derivatives and static control limits
-or none: the iLQG main path :func:`ilqg_batch_lanes` on the pendcart model
-(n=4, m=1) and on the LTI family (the CUDA kernels at n=10, m=2), and the
-KL/GPS trust-region path :func:`ilqgkl_batch_lanes` with
-:func:`gps_rollout_lanes` on both; and any lane model through
+covers the fleet paths with in-kernel derivatives and control limits that
+are static, per scenario or none: the iLQG main path
+:func:`ilqg_batch_lanes` on the pendcart model (n=4, m=1) and on the LTI
+family (the CUDA kernels at n=10, m=2), with its warm-start, pre-rolled and
+resume entries and per-scenario model parameters (heterogeneous fleets,
+``models.pendcart.pendcart_lanes_param``); the MPC serving loop
+:func:`mpc_rollout_lanes` and its per-step hot path
+:func:`ilqg_iteration_lanes`; the KL/GPS trust-region path
+:func:`ilqgkl_batch_lanes` with :func:`gps_rollout_lanes` on both models;
+and any lane model through
 :func:`autodiff_derivs_tiles`, whose derivative expansion is made by
 forward-mode autodiff (on the card for pendcart and the quadrotor,
 ``models/quadrotor.py``, n=6, m=2). Their four kernels (backward pass with

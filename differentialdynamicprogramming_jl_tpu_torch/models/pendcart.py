@@ -3,18 +3,24 @@
 Counterpart of ``differentialdynamicprogramming_jl_tpu/models/pendcart.py``
 (``PendCartSpec``, ``make_pendcart_problem`` ``:53-158`` for the ``"euler"``
 scheme, ``pendcart_lanes`` ``:161-195``, ``pendcart_derivs_tiles``
-``:233-263``, ``default_lims``, ``default_x0``): the Euler step of the
-reference dynamics (``src/system_pendcart.jl:75-89``), the diagonal
-quadratic cost with its terminal term (``:92-106``) and the analytic
-Jacobians of the Euler step, written as functions over per-dimension
-``(B,)`` tensors. The plain kernel versions call these directly.
+``:233-263``, ``pendcart_lanes_param`` ``:295-328``,
+``pendcart_derivs_tiles_param`` ``:332-359``, ``default_lims``,
+``default_x0``): the Euler step of the reference dynamics
+(``src/system_pendcart.jl:75-89``), the diagonal quadratic cost with its
+terminal term (``:92-106``) and the analytic Jacobians of the Euler step,
+written as functions over per-dimension ``(B,)`` tensors. The plain kernel
+versions call these directly.
 
-Both returned objects carry a device-model descriptor: model id 1 and the
-f32 constants ``[g, l, h, d, Q0..Q3, R, goal0..goal3]``, from which the CUDA
+The lane objects carry a device-model descriptor: model id 1 and the f32
+constants ``[g, l, h, d, Q0..Q3, R, goal0..goal3]``, from which the CUDA
 kernels (``ops/hopper/csrc/pendcart.cuh``) evaluate the same model. The
 derived constants (-g/l, 1-h·d, Q/2, R/2) are formed in f32 from that
 descriptor, here and on the card alike, so a kernel and its plain version
-use the same bits.
+use the same bits. The ``_param`` variants (heterogeneous fleets) take the
+pole length and damping per scenario, ``params = [l, d]``: model id 4
+(``PendCartParam``), the same descriptor, and -g/l, 1-h·d formed per
+scenario in the same f32 order, so that rows all equal to the spec's (l, d)
+give the fixed model's bits.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ GRAV = 9.82
 POLE_LEN = 0.35
 DT = 0.01
 DAMP = 0.99
-MODEL_ID = 1   # csrc/pendcart.cuh: MODEL_PENDCART
+MODEL_ID = 1        # csrc/pendcart.cuh: PendCart
+MODEL_ID_PARAM = 4  # csrc/pendcart.cuh: PendCartParam, params = [l, d]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,10 +143,13 @@ def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
                    traj_cost=traj_cost)
 
 
-def device_model(spec: PendCartSpec) -> DeviceModel:
+def device_model(spec: PendCartSpec, param: bool = False) -> DeviceModel:
+    """The descriptor; with ``param``, of the model whose l and d come per
+    scenario from ``params`` (the descriptor's l and d are then unused)."""
     consts = np.asarray([spec.g, spec.l, spec.h, spec.d, *spec.Q, spec.R,
                          *spec.goal], np.float32)
-    return DeviceModel(model_id=MODEL_ID, consts=consts)
+    return DeviceModel(model_id=MODEL_ID_PARAM if param else MODEL_ID,
+                       consts=consts)
 
 
 class _Consts:
@@ -150,7 +160,7 @@ class _Consts:
         c = dm.consts
         g, l, h, d = c[0], c[1], c[2], c[3]
         f = float
-        self.l, self.h, self.d = f(l), f(h), f(d)
+        self.g, self.l, self.h, self.d = f(g), f(l), f(h), f(d)
         self.ngl = f(-g / l)
         self.hd1 = f(np.float32(1.0) - h * d)
         self.Q = [f(q) for q in c[4:8]]
@@ -159,28 +169,46 @@ class _Consts:
         self.halfR = f(np.float32(0.5) * c[8])
         self.goal = [f(v) for v in c[9:13]]
 
+    def lane(self, par):
+        """(l, d, -g/l, 1-h·d): the spec's, or per scenario from
+        ``par = [[l, d]]`` (the model functions' trailing arguments),
+        formed in f32 in PendCartParam's order. ``torch.div`` divides
+        correctly rounded, where ``float / tensor`` multiplies by a
+        reciprocal (on the card; see :func:`_over`)."""
+        if not par:
+            return self.l, self.d, self.ngl, self.hd1
+        l, d = par[0]
+        return l, d, -torch.div(self.g, l), 1.0 - self.h * d
 
-@functools.lru_cache(maxsize=32)
-def pendcart_lanes(spec: PendCartSpec = PendCartSpec()) -> LanesModel:
-    """Lane model: dynamics, running cost and terminal cost on lists of
-    per-scenario tensors, plus the device-model descriptor."""
-    dm = device_model(spec)
+
+def _over(a: torch.Tensor, l) -> torch.Tensor:
+    """a / l correctly rounded on every device, as the kernels divide: on a
+    CUDA tensor PyTorch divides by a Python number as a product with its
+    reciprocal, which a long swing-up amplifies."""
+    if not isinstance(l, torch.Tensor):
+        l = a.new_full((), l)
+    return torch.div(a, l)
+
+
+def _lanes(spec: PendCartSpec, param: bool) -> LanesModel:
+    dm = device_model(spec, param)
     k = _Consts(dm)
 
-    def dynamics(x, u, t):
+    def dynamics(x, u, t, *par):
+        l, d, ngl, _ = k.lane(par)
         th, thd, p, pd = x
         f = u[0]
-        thdd = k.ngl * torch.sin(th) + (f / k.l) * torch.cos(th) - k.d * thd
+        thdd = ngl * torch.sin(th) + _over(f, l) * torch.cos(th) - d * thd
         return [th + k.h * thd, thd + k.h * thdd, p + k.h * pd, pd + k.h * f]
 
-    def cost(x, u, t):
+    def cost(x, u, t, *par):
         c = k.halfR * u[0] * u[0]
         for i in range(4):
             dx = x[i] - k.goal[i]
             c = c + k.halfQ[i] * dx * dx
         return c
 
-    def terminal(x):
+    def terminal(x, *par):
         c = None
         for i in range(4):
             dx = x[i] - k.goal[i]
@@ -189,28 +217,25 @@ def pendcart_lanes(spec: PendCartSpec = PendCartSpec()) -> LanesModel:
         return c
 
     return LanesModel(n=4, m=1, dynamics=dynamics, cost=cost,
-                      terminal=terminal, device=dm)
+                      terminal=terminal, device=dm, n_params=2 if param else 0)
 
 
-@functools.lru_cache(maxsize=32)
-def pendcart_derivs_tiles(spec: PendCartSpec = PendCartSpec()) -> DerivsTiles:
-    """In-kernel derivatives: the analytic Euler-step Jacobians and cost
-    expansions at (x, u), so the backward pass streams only the
-    trajectory."""
-    dm = device_model(spec)
+def _derivs_tiles(spec: PendCartSpec, param: bool) -> DerivsTiles:
+    dm = device_model(spec, param)
     k = _Consts(dm)
 
-    def tiles(x, u, t):
+    def tiles(x, u, t, *par):
+        l, _, ngl, hd1 = k.lane(par)
         th = x[0]
         u0 = u[0]
         z = torch.zeros_like(th)
         o = torch.ones_like(th)
-        a21 = k.h * (k.ngl * torch.cos(th) - (u0 / k.l) * torch.sin(th))
+        a21 = k.h * (ngl * torch.cos(th) - _over(u0, l) * torch.sin(th))
         fx = [[o, k.h * o, z, z],
-              [a21, k.hd1 * o, z, z],
+              [a21, hd1 * o, z, z],
               [z, z, o, k.h * o],
               [z, z, z, o]]
-        fu = [[z], [k.h * torch.cos(th) / k.l], [z], [k.h * o]]
+        fu = [[z], [_over(k.h * torch.cos(th), l)], [z], [k.h * o]]
         cx = [k.Q[i] * (x[i] - k.goal[i]) for i in range(4)]
         cu = [k.R * u0]
         cxx = [[k.Q[i] * o if i == j else z for j in range(4)]
@@ -219,7 +244,38 @@ def pendcart_derivs_tiles(spec: PendCartSpec = PendCartSpec()) -> DerivsTiles:
         cuu = [[k.R * o]]
         return dict(fx=fx, fu=fu, cx=cx, cu=cu, cxx=cxx, cxu=cxu, cuu=cuu)
 
-    return DerivsTiles(fn=tiles, device=dm)
+    return DerivsTiles(fn=tiles, device=dm, n_params=2 if param else 0)
+
+
+@functools.lru_cache(maxsize=32)
+def pendcart_lanes(spec: PendCartSpec = PendCartSpec()) -> LanesModel:
+    """Lane model: dynamics, running cost and terminal cost on lists of
+    per-scenario tensors, plus the device-model descriptor."""
+    return _lanes(spec, param=False)
+
+
+@functools.lru_cache(maxsize=32)
+def pendcart_derivs_tiles(spec: PendCartSpec = PendCartSpec()) -> DerivsTiles:
+    """In-kernel derivatives: the analytic Euler-step Jacobians and cost
+    expansions at (x, u), so the backward pass streams only the
+    trajectory."""
+    return _derivs_tiles(spec, param=False)
+
+
+@functools.lru_cache(maxsize=32)
+def pendcart_lanes_param(spec: PendCartSpec = PendCartSpec()) -> LanesModel:
+    """Lane model of a heterogeneous fleet: per-scenario pole length and
+    damping, ``params = [l, d]`` (``n_params = 2``; the functions take a
+    trailing ``par`` list of two (B,) tensors); the other constants from
+    ``spec``, whose l and d are unused."""
+    return _lanes(spec, param=True)
+
+
+@functools.lru_cache(maxsize=32)
+def pendcart_derivs_tiles_param(spec: PendCartSpec = PendCartSpec()
+                                ) -> DerivsTiles:
+    """In-kernel derivatives with per-scenario ``params = [l, d]``."""
+    return _derivs_tiles(spec, param=True)
 
 
 def default_lims(dtype=torch.float32, device=None) -> torch.Tensor:

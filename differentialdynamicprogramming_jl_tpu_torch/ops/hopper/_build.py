@@ -34,8 +34,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("common.cuh", "autodiff.cuh", "pendcart.cuh", "lti.cuh",
            "quadrotor.cuh", "backward.cuh", "forward.cuh", "backward.cu",
            "backward_lti.cu", "backward_lti_gps.cu", "backward_quad.cu",
-           "backward_pendcart_ad.cu", "forward.cu", "forward_lti.cu",
-           "forward_quad.cu", "covariance.cu", "probe.cu")
+           "backward_pendcart_ad.cu", "backward_pendcart_param.cu",
+           "forward.cu", "forward_lti.cu", "forward_quad.cu",
+           "forward_pendcart_param.cu", "covariance.cu", "probe.cu")
 # compile flags of every source; the objects are then linked with -shared
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -47,14 +48,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argument types of the C entry points (csrc/*.cu): every pointer, the stream
 # included, is c_void_p so that none is cut to 32 bits
-# the trailing model arguments of K1/K2/K3: limits [lo_0, hi_0, ...], model
-# id, n, m, descriptor, descriptor size, device, stream
-_MODEL = (_P, _I, _I, _I, _P, _I, _I, _P)
+# the trailing model arguments of K1/K2/K3: static limits [lo_0, hi_0, ...]
+# (host), per-scenario limits (2m, B) or null, per-scenario parameters
+# (P, B) or null, P, model id, n, m, descriptor, descriptor size, device,
+# stream
+_MODEL = (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P)
 SIGNATURES = {
     # K1 takes one more model argument before the device: whether its
     # derivatives are made by autodiff (the Autodiff<Body> instances)
     "ddp_backward_lanes": (_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                           _I) + _MODEL[:6] + (_I,) + _MODEL[6:],
+                           _I) + _MODEL[:9] + (_I,) + _MODEL[9:],
     "ddp_forward_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
                           _I, _I) + _MODEL,
     "ddp_linesearch_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _F, _P,

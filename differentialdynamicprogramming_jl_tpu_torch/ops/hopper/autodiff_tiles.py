@@ -44,12 +44,17 @@ def autodiff_derivs_tiles(model: LanesModel,
     """The derivative function of ``model`` by forward-mode autodiff, for
     :func:`~.backward_kernel.backward_lanes`; cached per model.
 
-    ``second_order=True`` (the dynamics Hessians of full DDP) belongs to a
-    later slice and raises NotImplementedError."""
+    ``second_order=True`` (the dynamics Hessians of full DDP) and a model
+    with per-scenario parameters (``n_params > 0``) belong to a later slice
+    and raise NotImplementedError."""
     if second_order:
         raise NotImplementedError(
             "second_order=True: the dynamics-Hessian tiles of full DDP are "
             "not ported yet")
+    if model.n_params:
+        raise NotImplementedError(
+            "autodiff tiles with params (a model with n_params > 0) are not "
+            "ported yet")
     return _autodiff_derivs_tiles(model)
 
 

@@ -1,11 +1,12 @@
 """Batched backward pass (K1): the Riccati recursion with in-kernel derivatives.
 
 Counterpart of ``differentialdynamicprogramming_jl_tpu/ops/pallas/backward_kernel.py``
-for the subset on the fleet iLQG and KL/GPS paths: m ≤ 2, derivatives
+for the subset on the fleet iLQG, KL/GPS and MPC paths: m ≤ 2, derivatives
 computed per step from the (x, u) slots of the trajectory stream by
-``derivs_tiles``, static control limits (the m=1 clamp or the m=2 9-set
-enumeration) or none (the unconstrained Cholesky solve), reg_type 1 or 2,
-GPS mode (``prev``/``eta``), and ``"gains"``, ``"full"`` or ``"policy"``
+``derivs_tiles``, per-scenario model parameters (``params``), control
+limits (the m=1 clamp or the m=2 9-set enumeration), static or per scenario
+(``lims_lanes``), or none (the unconstrained Cholesky solve), reg_type 1 or
+2, GPS mode (``prev``/``eta``), and ``"gains"``, ``"full"`` or ``"policy"``
 emission.
 
 :func:`backward_lanes` gives a CPU tensor to :func:`backward_lanes_ref`, the
@@ -22,7 +23,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import _build
-from .forward_kernel import DeviceModel, check_slice, cuda_args, lims_host
+from .forward_kernel import (DeviceModel, bounds, check_lanes, check_slice,
+                             cuda_args, par_args)
 
 
 class OutLayout:
@@ -66,13 +68,15 @@ class DerivsTiles:
     with the device-model descriptor that lets the CUDA kernel evaluate the
     same model: by its analytic derivatives, or by autodiff of its own
     functions where ``device.autodiff`` is set
-    (:func:`~.autodiff_tiles.autodiff_derivs_tiles`)."""
+    (:func:`~.autodiff_tiles.autodiff_derivs_tiles`). With ``n_params > 0``
+    it takes a trailing ``par`` list, as the model's functions do."""
 
     fn: Callable
     device: Optional[DeviceModel] = None
+    n_params: int = 0
 
-    def __call__(self, x, u, t):
-        return self.fn(x, u, t)
+    def __call__(self, x, u, t, *par):
+        return self.fn(x, u, t, *par)
 
 
 # emission mode codes of the CUDA launcher (csrc/backward.cu)
@@ -80,11 +84,14 @@ EMIT_CODE = {"gains": 0, "full": 1, "policy": 2}
 # K1's CUDA instances: (model id, n, m, autodiff, GPS mode) -> the
 # emissions built. autodiff marks the Autodiff<Body> instances
 # (csrc/autodiff.cuh), whose derivatives are made in the kernel from the
-# model's own functions (DeviceModel.autodiff).
+# model's own functions (DeviceModel.autodiff). Model id 4 is the pendcart
+# with per-scenario parameters (PendCartParam). Per-scenario limits are a
+# runtime input of every instance.
 _ALL = tuple(EMIT_CODE)
 CUDA_BACKWARD = {
     (1, 4, 1, False, False): _ALL, (1, 4, 1, False, True): _ALL,
     (2, 10, 2, False, False): _ALL, (2, 10, 2, False, True): _ALL,
+    (4, 4, 1, False, False): ("gains", "full"),
     (1, 4, 1, True, False): ("gains", "full"),
     (3, 6, 2, True, False): ("gains", "full"),
 }
@@ -212,7 +219,9 @@ def _boxqp_m2(Q, g, lo, hi):
 
 def _gain_solve(QuuF, Qu, Qux_r, u, lims, n, m):
     """k (m) and K (m×n) of one step, and the PD flag, not yet zeroed on
-    failing lanes (JAX ``:513-568``)."""
+    failing lanes (JAX ``:513-568``). ``lims``: None, or the per-control
+    (lo, hi) of :func:`~.forward_kernel.bounds`, floats or per-scenario
+    (B,) tensors."""
     R = range(n)
     if lims is None:
         # unconstrained: the unrolled Cholesky solve (:514-522)
@@ -221,8 +230,8 @@ def _gain_solve(QuuF, Qu, Qux_r, u, lims, n, m):
         cols = [_tiny_chol_solve(L, [-Qux_r[mi][j] for mi in range(m)], m)
                 for j in R]
         return k, [[cols[j][mi] for j in R] for mi in range(m)], ok
-    lo = [lims[mi][0] - u[mi] for mi in range(m)]
-    hi = [lims[mi][1] - u[mi] for mi in range(m)]
+    lo = [lims[0][mi] - u[mi] for mi in range(m)]
+    hi = [lims[1][mi] - u[mi] for mi in range(m)]
     if m == 1:
         # closed-form box QP, limits relative to u_t (:173-181, :523-531)
         q = QuuF[0][0]
@@ -277,6 +286,7 @@ def _flat(rows):
 
 def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
                        derivs_tiles: Callable, prev=None, eta=None,
+                       params=None, lims_lanes=None,
                        emit: str = "full") -> BackwardLanesOut:
     """Plain version of :func:`backward_lanes` (same arguments; ``eta`` is
     (T, B)). Every sum runs in the JAX kernel's order (``:450-600``)."""
@@ -285,12 +295,15 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
     gps = prev is not None
     out = torch.empty((T, lay.S, B), dtype=traj.dtype, device=traj.device)
     R, M = range(n), range(m)
+    par = par_args(params)
+    lim = (None if lims is None and lims_lanes is None
+           else bounds(lims, m, lims_lanes))
 
     # boundary t = T-1 (src/backward_pass.jl:97-99, 280-283): V = the cost
     # expansion, unscaled also in GPS mode; only the emitted Quu is
     # cuu/η + Σ⁻¹_prev there (JAX :418-429)
     d = derivs_tiles([traj[T - 1, i] for i in R],
-                     [traj[T - 1, n + mi] for mi in M], T - 1)
+                     [traj[T - 1, n + mi] for mi in M], T - 1, *par)
     Vx = list(d["cx"])
     Vxx = [list(row) for row in d["cxx"]]
     zero = torch.zeros_like(traj[T - 1, 0])
@@ -309,7 +322,7 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
 
     for t in range(T - 2, -1, -1):
         u = [traj[t, n + mi] for mi in M]
-        d = derivs_tiles([traj[t, i] for i in R], u, t)
+        d = derivs_tiles([traj[t, i] for i in R], u, t, *par)
         fx, fu, cx, cu = d["fx"], d["fu"], d["cx"], d["cu"]
         cxx, cxu, cuu = d["cxx"], d["cxu"], d["cuu"]
 
@@ -355,7 +368,7 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
             QuuF = [[Quu[mi][mj] + (lam if mi == mj else 0.0) for mj in M]
                     for mi in M]
 
-        k, K, ok = _gain_solve(QuuF, Qu, Qux_r, u, lims, n, m)
+        k, K, ok = _gain_solve(QuuF, Qu, Qux_r, u, lim, n, m)
         # a non-PD lane gets zero gains; V keeps updating (JAX :570-572)
         k = [torch.where(ok, v, 0.0) for v in k]
         K = [[torch.where(ok, v, 0.0) for v in row] for row in K]
@@ -400,7 +413,10 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     - ``traj``: (T, ≥n+m, B) with x in slots [0, n) and u in [n, n+m);
       derivatives are computed per step by ``derivs_tiles``.
     - ``lam``: per-scenario λ (B,). ``lims``: static ``((lo, hi),) * m``,
-      or None for the unconstrained solve.
+      or None for the unconstrained solve; ``lims_lanes``: per-scenario
+      limits (2m, B), slot order [lo_0, hi_0, ...], which replace ``lims``.
+    - ``params``: (P, B) per-scenario parameters, passed to a
+      ``derivs_tiles`` with ``n_params == P``.
     - GPS mode (reference ``back_pass_gps``, ``src/backward_pass.jl:259-350``)
       when ``prev``/``eta`` are given: ``prev`` is the previous-policy stream
       (T, m+m·n+m², B) holding [k_prev, K_prev, Σ⁻¹_prev] and ``eta`` the
@@ -413,14 +429,13 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     autodiff when ``derivs_tiles.device.autodiff``), GPS mode and the
     emission must be an instance the kernel is built for
     (:data:`CUDA_BACKWARD`); anything else raises NotImplementedError. Out
-    of this slice
-    (NotImplementedError): the packed-derivatives input
-    (``derivs_tiles=None``), ``params``, per-scenario ``lims_lanes``, m > 2.
+    of this slice (NotImplementedError): the packed-derivatives input
+    (``derivs_tiles=None``), m > 2.
     """
     if derivs_tiles is None:
         raise NotImplementedError(
             "packed-derivatives input: pass derivs_tiles")
-    check_slice(m, lims, params, lims_lanes)
+    check_slice(m, lims)
     if emit not in EMIT_CODE:
         raise ValueError(f"emit={emit!r}: one of {tuple(EMIT_CODE)}")
     if reg_type not in (1, 2):
@@ -429,6 +444,8 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     if T < 2 or S_in < n + m or lam.shape != (B,):
         raise ValueError(f"backward_lanes: traj {tuple(traj.shape)}, "
                          f"lam {tuple(lam.shape)}")
+    check_lanes("backward_lanes", getattr(derivs_tiles, "n_params", 0), m, B,
+                params, lims_lanes)
     gps = prev is not None
     if gps != (eta is not None):
         raise ValueError("GPS mode needs both prev and eta")
@@ -442,7 +459,8 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     if traj.device.type == "cpu":
         return backward_lanes_ref(traj, lam, n=n, m=m, reg_type=reg_type,
                                   lims=lims, derivs_tiles=derivs_tiles,
-                                  prev=prev, eta=eta, emit=emit)
+                                  prev=prev, eta=eta, params=params,
+                                  lims_lanes=lims_lanes, emit=emit)
     dm = getattr(derivs_tiles, "device", None)
     if dm is not None and emit not in CUDA_BACKWARD.get(
             (dm.model_id, n, m, dm.autodiff, gps), ()):
@@ -452,17 +470,17 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
             f"{'autodiff' if dm.autodiff else 'analytic'} derivatives, "
             f"{'in' if gps else 'without'} GPS mode, emit={emit!r}; built "
             f"(model id, n, m, autodiff, GPS): {sorted(CUDA_BACKWARD)}")
-    lib, dev, stream, model_args = cuda_args(
-        dm, "backward_lanes", n, m, traj, lam, *((prev, eta) if gps else ()))
+    lib, dev, stream, _lim, model_args = cuda_args(
+        dm, "backward_lanes", n, m, lims, lims_lanes, params, traj, lam,
+        *((prev, eta) if gps else ()))
     S = OutLayout(n, m, emit).S
     out = torch.empty((T, S, B), dtype=torch.float32, device=traj.device)
     stats = torch.empty((4, B), dtype=torch.float32, device=traj.device)
-    lim = lims_host(lims, m)              # unused without limits
     rc = lib.ddp_backward_lanes(
         traj.data_ptr(), S_in, lam.data_ptr(),
         prev.data_ptr() if gps else None, eta.data_ptr() if gps else None,
         out.data_ptr(), S, stats.data_ptr(), T, B, EMIT_CODE[emit], reg_type,
-        int(lims is not None), lim.ctypes.data, *model_args,
+        int(lims is not None or lims_lanes is not None), *model_args,
         int(dm.autodiff), dev, stream)
     _build.check(lib, rc, "backward_lanes")
     backward_lanes.launches += 1

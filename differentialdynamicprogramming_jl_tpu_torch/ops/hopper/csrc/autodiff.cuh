@@ -203,6 +203,7 @@ struct Autodiff {
   static constexpr int M = Body::M;
   static constexpr int ID = Body::ID;
   static constexpr int N_CONSTS = Body::N_CONSTS;
+  static constexpr int N_PARAMS = 0;   // no autodiff instance takes params
   static constexpr int NM = N + M;
   static constexpr int NH = NM * (NM + 1) / 2;
   using Consts = typename Body::Consts;

@@ -1,11 +1,13 @@
 // K1 entry point: checks the arguments, picks the model's instance, and
 // launches it. The kernel is in backward.cuh; the pendcart ⟨4,1⟩ instances
 // are compiled here, the LTI ⟨10,2⟩ ones in backward_lti.cu (without GPS
-// mode) and backward_lti_gps.cu (GPS mode), and the autodiff instances
-// (autodiff != 0: derivatives made in the kernel from the model's own
-// functions) in backward_quad.cu and backward_pendcart_ad.cu, so that nvcc
-// builds them in parallel. A model with autodiff set runs its autodiff
-// instance or none: never its analytic one.
+// mode) and backward_lti_gps.cu (GPS mode), the PendCartParam ⟨4,1⟩ ones in
+// backward_pendcart_param.cu, and the autodiff instances (autodiff != 0:
+// derivatives made in the kernel from the model's own functions) in
+// backward_quad.cu and backward_pendcart_ad.cu, so that nvcc builds them in
+// parallel. A model with autodiff set runs its autodiff instance or none:
+// never its analytic one. Per-scenario limits (lims_lanes) are a runtime
+// input of every instance.
 #include "backward.cuh"
 #include "lti.cuh"
 #include "pendcart.cuh"
@@ -16,23 +18,47 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                                   const float* eta, float* out, int s_out,
                                   float* stats, int T, int B, int emit,
                                   int reg_type, int use_limits,
-                                  const float* lims, int model_id, int n,
-                                  int m, const float* consts, int n_consts,
+                                  const float* lims, const float* lims_lanes,
+                                  const float* params, int n_params,
+                                  int model_id, int n, int m,
+                                  const float* consts, int n_consts,
                                   int autodiff, int device, void* stream) {
   using namespace ddp;
   const bool gps = prev != nullptr;
   if (T < 2 || B < 1 || s_in < n + m || s_out != out_slots(emit, n, m) ||
-      (reg_type != 1 && reg_type != 2) || gps != (eta != nullptr))
+      (reg_type != 1 && reg_type != 2) || gps != (eta != nullptr) ||
+      (params != nullptr) != (n_params > 0))
     return ERR_ARGS;
   cudaSetDevice(device);
-  const BwdArgs a{traj,  s_in,      lam,      prev,
-                  eta,   out,       s_out,    stats,
-                  T,     B,         emit,     reg_type,
-                  use_limits != 0, lims_from_host(lims, m), consts,
+  const BwdArgs a{traj,
+                  s_in,
+                  lam,
+                  prev,
+                  eta,
+                  out,
+                  s_out,
+                  stats,
+                  T,
+                  B,
+                  emit,
+                  reg_type,
+                  use_limits != 0 || lims_lanes != nullptr,
+                  lims_from_host(lims, m),
+                  lims_lanes,
+                  params,
+                  consts,
                   static_cast<cudaStream_t>(stream)};
   using LTI10x2 = LTI<10, 2>;
   const bool pendcart = model_id == PendCart::ID && n == PendCart::N &&
                         m == PendCart::M && n_consts == PendCart::N_CONSTS;
+  if (model_id == PendCartParam::ID) {
+    if (autodiff || gps || n != PendCartParam::N || m != PendCartParam::M ||
+        n_consts != PendCartParam::N_CONSTS ||
+        n_params != PendCartParam::N_PARAMS)
+      return ERR_MODEL;
+    return launch_backward_pendcart_param(a);
+  }
+  if (n_params != 0) return ERR_MODEL;
   if (autodiff) {
     if (gps) return ERR_MODEL;
     if (pendcart) return launch_backward_pendcart_ad(a);

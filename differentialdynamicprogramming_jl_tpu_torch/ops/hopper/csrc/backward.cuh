@@ -4,17 +4,20 @@
 // Replaces the TPU kernel
 //   differentialdynamicprogramming_jl_tpu/ops/pallas/backward_kernel.py
 //   ::backward_lanes (built by ::_make_kernel)
-// for the subset on the fleet iLQG and KL/GPS paths: m ≤ 2, derivatives
-// computed in-register from the (x, u) slots of the trajectory stream,
-// static control limits (the m=1 clamp or the m=2 9-set enumeration) or
-// none (the unrolled Cholesky solve), reg_type 1 or 2, GPS mode, and
+// for the subset on the fleet iLQG, KL/GPS and MPC paths: m ≤ 2,
+// derivatives computed in-register from the (x, u) slots of the trajectory
+// stream, control limits (the m=1 clamp or the m=2 9-set enumeration),
+// static or per scenario (lims_lanes, (2m, B), read once per thread), or
+// none (the unrolled Cholesky solve), per-scenario model parameters for a
+// model that takes them (params, (P, B)), reg_type 1 or 2, GPS mode, and
 // "gains", "full" or "policy" emission. Instances: every emission, with
 // and without GPS mode, for pendcart ⟨4,1⟩ (backward.cu) and LTI ⟨10,2⟩
-// (backward_lti.cu without GPS mode, backward_lti_gps.cu with it); and the
-// autodiff instances, whose derivatives are made in the kernel from the
-// model's own functions (autodiff.cuh), "gains" and "full" without GPS
-// mode: quadrotor ⟨6,2⟩ (backward_quad.cu) and pendcart ⟨4,1⟩
-// (backward_pendcart_ad.cu).
+// (backward_lti.cu without GPS mode, backward_lti_gps.cu with it); "gains"
+// and "full" without GPS mode for the parametrised pendcart PendCartParam
+// ⟨4,1⟩ (backward_pendcart_param.cu); and the autodiff instances, whose
+// derivatives are made in the kernel from the model's own functions
+// (autodiff.cuh), "gains" and "full" without GPS mode: quadrotor ⟨6,2⟩
+// (backward_quad.cu) and pendcart ⟨4,1⟩ (backward_pendcart_ad.cu).
 //
 // Layout: every stream is (T, S, B) f32 with the scenario axis contiguous.
 // One thread owns one scenario and walks t = T-1 .. 0 inside the kernel,
@@ -96,6 +99,8 @@ struct BwdArgs {
   int T, B, emit, reg_type;
   bool use_limits;
   Lims lims;
+  const float* lims_lanes;   // (2m, B) per-scenario limits, or null
+  const float* params;       // (P, B) per-scenario parameters, or null
   const float* consts;   // host copy of the model descriptor
   cudaStream_t stream;
 };
@@ -192,7 +197,9 @@ backward_kernel(const float* __restrict__ traj, int s_in,
                 const float* __restrict__ prev, const float* __restrict__ eta,
                 float* __restrict__ out, int s_out,
                 float* __restrict__ stats, int T, int B, int reg_type,
-                bool use_limits, Lims lims, typename Model::Consts mc) {
+                bool use_limits, Lims lims,
+                const float* __restrict__ lims_lanes,
+                const float* __restrict__ params, typename Model::Consts mc) {
   constexpr int N = Model::N, M = Model::M;
   static_assert(M >= 1 && M <= MAX_M, "K1 is written for m = 1 or 2");
   constexpr bool VALUE = EMIT == EMIT_FULL;     // Vx, Vxx slots
@@ -201,9 +208,10 @@ backward_kernel(const float* __restrict__ traj, int s_in,
   constexpr int OQ = VALUE ? OV + N + N * N : OV;   // Quu's slot
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const Model P(mc);
-  const float lm = lam[b];
   const size_t sB = (size_t)B;
+  const Model P = make_model<Model>(mc, params, b, sB);
+  const Lims lim = lane_lims<M>(lims, lims_lanes, b, sB);
+  const float lm = lam[b];
   auto in = [&](int t, int s) { return traj[((size_t)t * s_in + s) * sB + b]; };
   auto put = [&](int t, int s, float v) {
     out[((size_t)t * s_out + s) * sB + b] = v;
@@ -454,8 +462,8 @@ backward_kernel(const float* __restrict__ traj, int s_in,
     } else if constexpr (M == 1) {
       // closed-form box QP with limits relative to u_t
       const float q = QuuF[0][0];
-      const float lo = lims.lo[0] - u[0];
-      const float hi = lims.hi[0] - u[0];
+      const float lo = lim.lo[0] - u[0];
+      const float hi = lim.hi[0] - u[0];
       const float xq = clipp(-Qu[0] / q, lo, hi);
       const float grad = Qu[0] + q * xq;
       const bool clamped = ((xq <= lo) && (grad > 0.0f)) ||
@@ -468,8 +476,8 @@ backward_kernel(const float* __restrict__ traj, int s_in,
         K[0][j] = clamped ? 0.0f : -Qux_r[0][j] / quu_s;
     } else {
       // m = 2: the exact enumeration and its K rows
-      const float lo[2] = {lims.lo[0] - u[0], lims.lo[1] - u[1]};
-      const float hi[2] = {lims.hi[0] - u[0], lims.hi[1] - u[1]};
+      const float lo[2] = {lim.lo[0] - u[0], lim.lo[1] - u[1]};
+      const float hi[2] = {lim.hi[0] - u[0], lim.hi[1] - u[1]};
       bool fr[2];
       ok = boxqp_m2(QuuF, Qu, lo, hi, k, fr);
       const bool both = fr[0] && fr[1];
@@ -597,7 +605,7 @@ int launch_one(const BwdArgs& a) {
   const dim3 grid((a.B + BWD_THREADS - 1) / BWD_THREADS);
   backward_kernel<Model, EMIT, GPS><<<grid, BWD_THREADS, 0, a.stream>>>(
       a.traj, a.s_in, a.lam, a.prev, a.eta, a.out, a.s_out, a.stats, a.T,
-      a.B, a.reg_type, a.use_limits, a.lims, mc);
+      a.B, a.reg_type, a.use_limits, a.lims, a.lims_lanes, a.params, mc);
   return (int)cudaGetLastError();
 }
 
@@ -615,11 +623,13 @@ int launch_backward(const BwdArgs& a) {
 }  // namespace
 
 // the LTI ⟨10,2⟩ instances: without GPS mode in backward_lti.cu, in GPS
-// mode in backward_lti_gps.cu; the autodiff instances (autodiff.cuh),
-// "gains" and "full" without GPS mode: quadrotor ⟨6,2⟩ in backward_quad.cu,
-// pendcart ⟨4,1⟩ in backward_pendcart_ad.cu
+// mode in backward_lti_gps.cu; PendCartParam ⟨4,1⟩, "gains" and "full"
+// without GPS mode, in backward_pendcart_param.cu; the autodiff instances
+// (autodiff.cuh), "gains" and "full" without GPS mode: quadrotor ⟨6,2⟩ in
+// backward_quad.cu, pendcart ⟨4,1⟩ in backward_pendcart_ad.cu
 int launch_backward_lti_10_2(const BwdArgs& a);
 int launch_backward_lti_gps_10_2(const BwdArgs& a);
+int launch_backward_pendcart_param(const BwdArgs& a);
 int launch_backward_quad_6_2(const BwdArgs& a);
 int launch_backward_pendcart_ad(const BwdArgs& a);
 

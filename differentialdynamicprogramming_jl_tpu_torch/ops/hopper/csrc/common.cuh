@@ -1,11 +1,15 @@
 // Helpers shared by every kernel source: NaN-keeping min/max, the error
-// codes of the launchers, the static control limits, and the small dense
-// Cholesky solves of the backward pass.
+// codes of the launchers, the control limits (static, or per scenario), the
+// per-scenario model, and the small dense Cholesky solves of the backward
+// pass.
 //
 // The model interface. A model is a struct with compile-time N (state
-// size), M (control size), ID (its device-model id) and N_CONSTS, a nested
+// size), M (control size), ID (its device-model id), N_CONSTS and N_PARAMS
+// (per-scenario parameters, 0 for most models), a nested
 // Consts { float c[N_CONSTS]; } that a kernel takes by value as its
-// descriptor, a constructor from `const Consts&`, and the device functions
+// descriptor, a constructor from `const Consts&` (N_PARAMS == 0) or from
+// `const Consts&, const float (&par)[N_PARAMS]` (one scenario's parameters,
+// read by make_model below), and the device functions
 //   dynamics(x, u, xn), cost(x, u), terminal(x)        (forward.cuh)
 //   derivs(x, u, d) and the accessors fx(d, i, j), fu(d, i, mi), cx(d, i),
 //   cu(d, mi), cxx(d, i, j), cxu(d, i, mi), cuu(d, mi, mj)   (backward.cuh)
@@ -27,7 +31,8 @@ constexpr int MAX_M = 2;   // controls the kernels are written for
 constexpr int ERR_MODEL = -1;   // no kernel built for this (model, n, m)
 constexpr int ERR_ARGS = -2;    // shape or count outside what a kernel takes
 
-// static control limits, per control
+// control limits, per control: the launch's static ones, or one
+// scenario's (lane_lims)
 struct Lims {
   float lo[MAX_M], hi[MAX_M];
 };
@@ -40,6 +45,41 @@ inline Lims lims_from_host(const float* lims, int m) {
     l.hi[i] = lims[2 * i + 1];
   }
   return l;
+}
+
+// The limits of scenario b: the launch's static ones when lims_lanes is
+// null, else that scenario's column of the (2m, B) stream
+// [lo_0, hi_0, lo_1, hi_1, ...] (JAX: the kernels' dyn_lims input). Read
+// once per thread, before the time loop.
+template <int M>
+__device__ __forceinline__ Lims lane_lims(const Lims& lims,
+                                          const float* __restrict__ lims_lanes,
+                                          int b, size_t sB) {
+  if (lims_lanes == nullptr) return lims;
+  Lims l = lims;
+#pragma unroll
+  for (int mi = 0; mi < M; ++mi) {
+    l.lo[mi] = lims_lanes[(size_t)(2 * mi) * sB + b];
+    l.hi[mi] = lims_lanes[(size_t)(2 * mi + 1) * sB + b];
+  }
+  return l;
+}
+
+// The model of scenario b: from the descriptor, and for a model with
+// per-scenario parameters from that scenario's column of the (P, B) params
+// stream (JAX: LanesModel.n_params and the kernels' params input).
+template <class Model>
+__device__ __forceinline__ Model make_model(
+    const typename Model::Consts& mc, const float* __restrict__ params, int b,
+    size_t sB) {
+  if constexpr (Model::N_PARAMS == 0) {
+    return Model(mc);
+  } else {
+    float par[Model::N_PARAMS];
+#pragma unroll
+    for (int p = 0; p < Model::N_PARAMS; ++p) par[p] = params[p * sB + b];
+    return Model(mc, par);
+  }
 }
 
 // NaN-propagating min/max/clip/sign, as jnp.minimum/maximum/clip/sign and

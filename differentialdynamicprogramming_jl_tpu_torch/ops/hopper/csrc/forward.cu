@@ -1,8 +1,8 @@
 // K3 and K2 entry points: check the arguments, pick the model's instance,
 // and launch it. The kernels are in forward.cuh; the pendcart ⟨4,1⟩
-// instances are compiled here, the LTI ⟨10,2⟩ ones in forward_lti.cu and
-// the quadrotor ⟨6,2⟩ ones in forward_quad.cu, so that nvcc builds them in
-// parallel.
+// instances are compiled here, the LTI ⟨10,2⟩ ones in forward_lti.cu, the
+// quadrotor ⟨6,2⟩ ones in forward_quad.cu and the PendCartParam ⟨4,1⟩ ones
+// in forward_pendcart_param.cu, so that nvcc builds them in parallel.
 #include "forward.cuh"
 #include "lti.cuh"
 #include "pendcart.cuh"
@@ -14,24 +14,46 @@ namespace {
 
 using LTI10x2 = LTI<10, 2>;
 
+// the stream shapes, and an in-place K2 only on an [x, u, c] stream
 bool stream_args_ok(const FwdArgs& a, int n, int m) {
   return a.T >= 1 && a.B >= 1 && a.s_traj >= n + m && a.gk >= 0 &&
          a.gK >= 0 && a.gk + m <= a.s_g && a.gK + m * n <= a.s_g &&
-         a.A >= 1 && a.A <= MAX_A;
+         a.A >= 1 && a.A <= MAX_A &&
+         (a.out != a.traj || a.s_traj == n + m + 1);
 }
 
-// which instance: 1 pendcart, 2 LTI ⟨10,2⟩, 3 quadrotor, 0 none
-int instance(int model_id, int n, int m, int n_consts) {
-  if (model_id == PendCart::ID && n == PendCart::N && m == PendCart::M &&
-      n_consts == PendCart::N_CONSTS)
-    return 1;
-  if (model_id == LTI10x2::ID && n == LTI10x2::N && m == LTI10x2::M &&
-      n_consts == LTI10x2::N_CONSTS)
-    return 2;
-  if (model_id == Quadrotor::ID && n == Quadrotor::N && m == Quadrotor::M &&
-      n_consts == Quadrotor::N_CONSTS)
-    return 3;
+template <class Model>
+bool is(int model_id, int n, int m, int n_consts, int n_params) {
+  return model_id == Model::ID && n == Model::N && m == Model::M &&
+         n_consts == Model::N_CONSTS && n_params == Model::N_PARAMS;
+}
+
+// which instance: 1 pendcart, 2 LTI ⟨10,2⟩, 3 quadrotor, 4 PendCartParam,
+// 0 none
+int instance(int model_id, int n, int m, int n_consts, int n_params) {
+  if (is<PendCart>(model_id, n, m, n_consts, n_params)) return 1;
+  if (is<LTI10x2>(model_id, n, m, n_consts, n_params)) return 2;
+  if (is<Quadrotor>(model_id, n, m, n_consts, n_params)) return 3;
+  if (is<PendCartParam>(model_id, n, m, n_consts, n_params)) return 4;
   return 0;
+}
+
+int launch_k3(int which, const FwdArgs& a) {
+  switch (which) {
+    case 1: return launch_forward<PendCart>(a);
+    case 2: return launch_forward_lti_10_2(a);
+    case 3: return launch_forward_quad_6_2(a);
+    default: return launch_forward_pendcart_param(a);
+  }
+}
+
+int launch_k2(int which, const FwdArgs& a) {
+  switch (which) {
+    case 1: return launch_linesearch<PendCart>(a);
+    case 2: return launch_linesearch_lti_10_2(a);
+    case 3: return launch_linesearch_quad_6_2(a);
+    default: return launch_linesearch_pendcart_param(a);
+  }
 }
 
 }  // namespace
@@ -41,11 +63,14 @@ extern "C" int ddp_forward_lanes(const float* traj, int s_traj,
                                  const float* x0, const float* alphas, int A,
                                  float* totals, float* terminal,
                                  float* out_traj, int T, int B,
-                                 const float* lims, int model_id, int n,
-                                 int m, const float* consts, int n_consts,
+                                 const float* lims, const float* lims_lanes,
+                                 const float* params, int n_params,
+                                 int model_id, int n, int m,
+                                 const float* consts, int n_consts,
                                  int device, void* stream) {
-  const int which = instance(model_id, n, m, n_consts);
+  const int which = instance(model_id, n, m, n_consts, n_params);
   if (which == 0) return ERR_MODEL;
+  if ((params != nullptr) != (n_params > 0)) return ERR_ARGS;
   FwdArgs a{};
   a.traj = traj;
   a.s_traj = s_traj;
@@ -62,13 +87,13 @@ extern "C" int ddp_forward_lanes(const float* traj, int s_traj,
   a.T = T;
   a.B = B;
   a.lims = lims_from_host(lims, m);
+  a.lims_lanes = lims_lanes;
+  a.params = params;
   a.consts = consts;
   a.stream = static_cast<cudaStream_t>(stream);
-  if (!stream_args_ok(a, n, m)) return ERR_ARGS;
+  if (!stream_args_ok(a, n, m) || a.out == a.traj) return ERR_ARGS;
   cudaSetDevice(device);
-  return which == 1   ? launch_forward<PendCart>(a)
-         : which == 2 ? launch_forward_lti_10_2(a)
-                      : launch_forward_quad_6_2(a);
+  return launch_k3(which, a);
 }
 
 extern "C" int ddp_linesearch_lanes(const float* traj, int s_traj,
@@ -76,11 +101,15 @@ extern "C" int ddp_linesearch_lanes(const float* traj, int s_traj,
                                     int gK, const float* x0, const float* sel,
                                     const float* alphas, int A, float rr_min,
                                     float* out_traj, float* ls, int T, int B,
-                                    const float* lims, int model_id, int n,
-                                    int m, const float* consts, int n_consts,
+                                    const float* lims,
+                                    const float* lims_lanes,
+                                    const float* params, int n_params,
+                                    int model_id, int n, int m,
+                                    const float* consts, int n_consts,
                                     int device, void* stream) {
-  const int which = instance(model_id, n, m, n_consts);
+  const int which = instance(model_id, n, m, n_consts, n_params);
   if (which == 0) return ERR_MODEL;
+  if ((params != nullptr) != (n_params > 0)) return ERR_ARGS;
   FwdArgs a{};
   a.traj = traj;
   a.s_traj = s_traj;
@@ -98,11 +127,11 @@ extern "C" int ddp_linesearch_lanes(const float* traj, int s_traj,
   a.T = T;
   a.B = B;
   a.lims = lims_from_host(lims, m);
+  a.lims_lanes = lims_lanes;
+  a.params = params;
   a.consts = consts;
   a.stream = static_cast<cudaStream_t>(stream);
   if (!stream_args_ok(a, n, m)) return ERR_ARGS;
   cudaSetDevice(device);
-  return which == 1   ? launch_linesearch<PendCart>(a)
-         : which == 2 ? launch_linesearch_lti_10_2(a)
-                      : launch_linesearch_quad_6_2(a);
+  return launch_k2(which, a);
 }

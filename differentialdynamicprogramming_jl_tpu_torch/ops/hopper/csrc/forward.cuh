@@ -5,11 +5,14 @@
 //   differentialdynamicprogramming_jl_tpu/ops/pallas/forward_kernel.py
 //   ::forward_lanes (built by ::_make_kernel)        -> forward_kernel
 //   ::linesearch_lanes (built by ::_make_fused_kernel) -> linesearch_kernel
-// with static per-control limits. Without limits the wrapper passes
-// lo = -inf, hi = +inf: the NaN-keeping clipp then returns its input
+// with static per-control limits, or per-scenario limits (lims_lanes, a
+// (2m, B) stream read once per thread), and per-scenario model parameters
+// for a model that takes them (params, (P, B)). Without limits the wrapper
+// passes lo = -inf, hi = +inf: the NaN-keeping clipp then returns its input
 // unchanged, as the JAX rollout's missing clamp does. Instances: pendcart
-// ⟨4,1⟩ (forward.cu), LTI ⟨10,2⟩ (forward_lti.cu) and quadrotor ⟨6,2⟩
-// (forward_quad.cu), A = 1..8 each.
+// ⟨4,1⟩ (forward.cu), LTI ⟨10,2⟩ (forward_lti.cu), quadrotor ⟨6,2⟩
+// (forward_quad.cu) and the parametrised pendcart PendCartParam ⟨4,1⟩
+// (forward_pendcart_param.cu), A = 1..8 each.
 //
 // Layout: streams are (T, S, B) f32 with the scenario axis contiguous; one
 // thread owns one scenario and walks t = 0 .. T-1, holding the A candidate
@@ -37,11 +40,18 @@
 //   ratio > rr_min wins; α_eff = 0 where allow = 0 (:401-436);
 // - pass 2 re-rolls α_eff through the same rollout_step as pass 1 and as
 //   forward_kernel, so an α=0 retrace reproduces a trajectory bit for bit.
-// Not kept: the TPU line search aliased its output with the trajectory
-// input and emitted an echo of the input x,u slots, both only to avoid
-// XLA while-loop carry copies (:599-611, :136-146). Here the kernel writes a
-// fresh output buffer and the solve loop keeps the previous stream alive as
-// the backward replay's input, so no echo is written.
+// In place (:530-534, :599-611): the launcher may be given out == traj
+// (the wrapper's in_place, for a stream of exactly n+m+1 slots), so traj,
+// x0 and out are not __restrict__: aliased __restrict__ pointers would be
+// undefined behaviour. Aliasing is safe because one thread owns one
+// scenario's column, pass 2 loads step t before it writes step t, and pass
+// 1 only reads. One kernel serves both uses: with __restrict__ on the
+// three, the fresh launch took the same time to within 1% for every
+// instance (tools_torch/k2_alias_ab.py, PERF.md §6). The solve loop keeps
+// writing a fresh stream, since its backward replay needs the entry
+// stream; the MPC step (ilqg_iteration_lanes) updates in place.
+// Not kept: the echo of the input x,u slots, which the TPU kernels emitted
+// only to avoid XLA while-loop carry copies (:136-146).
 #pragma once
 
 #include "common.cuh"
@@ -69,10 +79,12 @@ struct FwdArgs {
   int A;
   float* totals;
   float* terminal;
-  float* out;
+  float* out;            // K2: == traj for the in-place update
   float* ls;
   int T, B;
   Lims lims;
+  const float* lims_lanes;   // (2m, B) per-scenario limits, or null
+  const float* params;       // (P, B) per-scenario parameters, or null
   const float* consts;   // host copy of the model descriptor
   cudaStream_t stream;
 };
@@ -143,13 +155,15 @@ forward_kernel(const float* __restrict__ traj, int s_traj,
                const float* __restrict__ x0, const float* __restrict__ alphas,
                float* __restrict__ totals, float* __restrict__ terminal,
                float* __restrict__ out, int T, int B, Lims lims,
-               typename Model::Consts mc) {
+               const float* __restrict__ lims_lanes,
+               const float* __restrict__ params, typename Model::Consts mc) {
   constexpr int N = Model::N, M = Model::M;
   constexpr int SO = N + M + 1;   // output slots [x, u, c]
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const Model P(mc);
   const size_t sB = (size_t)B;
+  const Model P = make_model<Model>(mc, params, b, sB);
+  const Lims lm = lane_lims<M>(lims, lims_lanes, b, sB);
   float x[A][N], acc[A], term[A], al[A];
 #pragma unroll
   for (int a = 0; a < A; ++a) {
@@ -169,7 +183,7 @@ forward_kernel(const float* __restrict__ traj, int s_traj,
 #pragma unroll
       for (int i = 0; i < N; ++i) xs[i] = x[a][i];
       float u[M], c;
-      rollout_step<Model>(P, x[a], acc[a], term[a], al[a], s, lims, last, u,
+      rollout_step<Model>(P, x[a], acc[a], term[a], al[a], s, lm, last, u,
                           c);
       if (EMIT && a == 0) {
         float* o = out + (size_t)t * SO * sB + b;
@@ -188,20 +202,25 @@ forward_kernel(const float* __restrict__ traj, int s_traj,
   }
 }
 
+// K2 with a fresh output, or in place: out == traj, and x0 may be a view
+// of the same stream, so these three are not __restrict__
 template <class Model, int A>
 __global__ void __launch_bounds__(FWD_THREADS)
-linesearch_kernel(const float* __restrict__ traj, int s_traj,
+linesearch_kernel(const float* traj, int s_traj,
                   const float* __restrict__ gains, int s_g, int gk, int gK,
-                  const float* __restrict__ x0, const float* __restrict__ sel,
-                  Ladder ladder, float rr_min, float* __restrict__ out,
+                  const float* x0, const float* __restrict__ sel,
+                  Ladder ladder, float rr_min, float* out,
                   float* __restrict__ ls, int T, int B, Lims lims,
+                  const float* __restrict__ lims_lanes,
+                  const float* __restrict__ params,
                   typename Model::Consts mc) {
   constexpr int N = Model::N, M = Model::M;
   constexpr int SO = N + M + 1;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const Model P(mc);
   const size_t sB = (size_t)B;
+  const Model P = make_model<Model>(mc, params, b, sB);
+  const Lims lm = lane_lims<M>(lims, lims_lanes, b, sB);
 
   // pass 1: every candidate of the ladder
   float x[A][N], acc[A], term[A];
@@ -219,7 +238,7 @@ linesearch_kernel(const float* __restrict__ traj, int s_traj,
 #pragma unroll
     for (int a = 0; a < A; ++a) {
       float u[M], c;
-      rollout_step<Model>(P, x[a], acc[a], term[a], ladder.a[a], s, lims,
+      rollout_step<Model>(P, x[a], acc[a], term[a], ladder.a[a], s, lm,
                           last, u, c);
     }
   }
@@ -267,7 +286,7 @@ linesearch_kernel(const float* __restrict__ traj, int s_traj,
 #pragma unroll
     for (int i = 0; i < N; ++i) o[i * sB] = xe[i];
     float u[M], c;
-    rollout_step<Model>(P, xe, acc_e, term_e, al_eff, s, lims, t == T - 1,
+    rollout_step<Model>(P, xe, acc_e, term_e, al_eff, s, lm, t == T - 1,
                         u, c);
 #pragma unroll
     for (int mi = 0; mi < M; ++mi) o[(N + mi) * sB] = u[mi];
@@ -294,11 +313,13 @@ int launch_forward(const FwdArgs& a) {
     if (emit)                                                               \
       forward_kernel<Model, AA, true><<<grid, FWD_THREADS, 0, a.stream>>>(  \
           a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.alphas,     \
-          a.totals, a.terminal, a.out, a.T, a.B, a.lims, mc);               \
+          a.totals, a.terminal, a.out, a.T, a.B, a.lims, a.lims_lanes,      \
+          a.params, mc);                                                    \
     else                                                                    \
       forward_kernel<Model, AA, false><<<grid, FWD_THREADS, 0, a.stream>>>( \
           a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.alphas,     \
-          a.totals, a.terminal, a.out, a.T, a.B, a.lims, mc);               \
+          a.totals, a.terminal, a.out, a.T, a.B, a.lims, a.lims_lanes,      \
+          a.params, mc);                                                    \
     break;
   switch (a.A) {
     DDP_FWD(1) DDP_FWD(2) DDP_FWD(3) DDP_FWD(4)
@@ -309,16 +330,18 @@ int launch_forward(const FwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-// K2 for one model, a ladder of A α values (1..MAX_A)
+// K2 for one model, a ladder of A α values (1..MAX_A); in place when
+// a.out == a.traj
 template <class Model>
 int launch_linesearch(const FwdArgs& a) {
   const auto mc = consts_of<Model>(a);
   const dim3 grid((a.B + FWD_THREADS - 1) / FWD_THREADS);
-#define DDP_LS(AA)                                                         \
-  case AA:                                                                 \
-    linesearch_kernel<Model, AA><<<grid, FWD_THREADS, 0, a.stream>>>(      \
-        a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.sel,         \
-        a.ladder, a.rr_min, a.out, a.ls, a.T, a.B, a.lims, mc);            \
+#define DDP_LS(AA)                                                          \
+  case AA:                                                                  \
+    linesearch_kernel<Model, AA><<<grid, FWD_THREADS, 0, a.stream>>>(       \
+        a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.sel,          \
+        a.ladder, a.rr_min, a.out, a.ls, a.T, a.B, a.lims, a.lims_lanes,    \
+        a.params, mc);                                                      \
     break;
   switch (a.A) {
     DDP_LS(1) DDP_LS(2) DDP_LS(3) DDP_LS(4)
@@ -331,11 +354,14 @@ int launch_linesearch(const FwdArgs& a) {
 
 }  // namespace
 
-// the LTI ⟨10,2⟩ instances, compiled in forward_lti.cu, and the quadrotor
-// ⟨6,2⟩ ones, in forward_quad.cu
+// the LTI ⟨10,2⟩ instances, compiled in forward_lti.cu, the quadrotor
+// ⟨6,2⟩ ones, in forward_quad.cu, and the PendCartParam ⟨4,1⟩ ones, in
+// forward_pendcart_param.cu
 int launch_forward_lti_10_2(const FwdArgs& a);
 int launch_linesearch_lti_10_2(const FwdArgs& a);
 int launch_forward_quad_6_2(const FwdArgs& a);
 int launch_linesearch_quad_6_2(const FwdArgs& a);
+int launch_forward_pendcart_param(const FwdArgs& a);
+int launch_linesearch_pendcart_param(const FwdArgs& a);
 
 }  // namespace ddp

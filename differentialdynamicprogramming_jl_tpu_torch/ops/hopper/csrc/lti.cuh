@@ -29,6 +29,7 @@ struct LTI {
   static constexpr int ID = 2;
   static constexpr int OA = 0, OB = N * N, OQ = OB + N * M, OR = OQ + N * N;
   static constexpr int N_CONSTS = OR + M * M;
+  static constexpr int N_PARAMS = 0;
   struct Consts {
     float c[N_CONSTS];
   };

@@ -17,6 +17,14 @@
 // forms them from the same descriptor. Every expression below keeps the
 // operation order of that version; the library is built with --fmad=false,
 // so no multiply-add is contracted.
+//
+// PendCartParam (model id 4) is the heterogeneous fleet's pendcart, the
+// counterpart of models/pendcart.py::pendcart_lanes_param and
+// ::pendcart_derivs_tiles_param (JAX: models/pendcart.py:295-359): the same
+// descriptor, with l and d replaced per scenario by that scenario's
+// params = [l, d]. It runs through PendCart's constructor, so -g/l and 1-h·d
+// are formed per scenario in the same f32 order, and a fleet whose every
+// row is the descriptor's (l, d) gives PendCart's results bit for bit.
 #pragma once
 
 #include "common.cuh"
@@ -28,6 +36,7 @@ struct PendCart {
   static constexpr int M = 1;
   static constexpr int ID = 1;
   static constexpr int N_CONSTS = 13;
+  static constexpr int N_PARAMS = 0;
   struct Consts {
     float c[N_CONSTS];
   };
@@ -35,11 +44,15 @@ struct PendCart {
   float l, h, d, ngl, hd1, R, halfR;
   float Q[4], halfQ[4], goal[4];
 
-  __device__ __forceinline__ explicit PendCart(const Consts& mc) {
+  __device__ __forceinline__ explicit PendCart(const Consts& mc)
+      : PendCart(mc, mc.c[1], mc.c[3]) {}
+
+  // the descriptor's constants with pole length l_ and damping d_
+  __device__ __forceinline__ PendCart(const Consts& mc, float l_, float d_) {
     const float g = mc.c[0];
-    l = mc.c[1];
+    l = l_;
     h = mc.c[2];
-    d = mc.c[3];
+    d = d_;
     ngl = -g / l;
     hd1 = 1.0f - h * d;
     R = mc.c[8];
@@ -147,6 +160,17 @@ struct PendCart {
   __device__ __forceinline__ float cuu(const Derivs& d, int, int) const {
     return d.cuu;
   }
+};
+
+// per-scenario params = [l, d] (N_PARAMS = 2), everything else from the
+// descriptor
+struct PendCartParam : PendCart {
+  static constexpr int ID = 4;
+  static constexpr int N_PARAMS = 2;
+
+  __device__ __forceinline__ PendCartParam(const Consts& mc,
+                                           const float (&par)[2])
+      : PendCart(mc, par[0], par[1]) {}
 };
 
 }  // namespace ddp

@@ -28,6 +28,7 @@ struct Quadrotor {
   static constexpr int M = 2;
   static constexpr int ID = 3;
   static constexpr int N_CONSTS = 19;
+  static constexpr int N_PARAMS = 0;
   struct Consts {
     float c[N_CONSTS];
   };

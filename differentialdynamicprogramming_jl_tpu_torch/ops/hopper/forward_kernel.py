@@ -11,7 +11,11 @@ Each wrapper takes streams ``(T, S, B)`` (see :mod:`.pack`):
 
 The kernels read the model from its device descriptor
 (:class:`DeviceModel`); a :class:`LanesModel` without one runs only on the
-CPU. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+CPU. Both wrappers take per-scenario model parameters ``params`` (P, B) for
+a model with ``n_params == P``, and per-scenario control limits
+``lims_lanes`` (2m, B), slot order [lo_0, hi_0, lo_1, hi_1, ...], which
+replace the static ``lims``. Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -28,15 +32,18 @@ MAX_A = 8   # candidate bound of the CUDA kernels (csrc/forward.cu)
 # for; K1's instances are listed in backward_kernel.CUDA_BACKWARD
 CUDA_MODELS = {(1, 4, 1): "pendcart (csrc/pendcart.cuh)",
                (2, 10, 2): "LTI (csrc/lti.cuh)",
-               (3, 6, 2): "quadrotor (csrc/quadrotor.cuh)"}
+               (3, 6, 2): "quadrotor (csrc/quadrotor.cuh)",
+               (4, 4, 1): "pendcart with per-scenario [l, d] "
+                          "(csrc/pendcart.cuh PendCartParam)"}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DeviceModel:
     """What a CUDA kernel needs to evaluate a model: the id of the model's
     device functions (1 = pendcart, ``csrc/pendcart.cuh``; 2 = LTI,
-    ``csrc/lti.cuh``; 3 = quadrotor, ``csrc/quadrotor.cuh``) and a flat f32
-    array of its constants, passed to the kernel by value. ``autodiff``
+    ``csrc/lti.cuh``; 3 = quadrotor, ``csrc/quadrotor.cuh``; 4 = pendcart
+    with per-scenario parameters, ``PendCartParam``) and a flat f32 array
+    of its constants, passed to the kernel by value. ``autodiff``
     marks a derivative function made by forward-mode autodiff of the
     model's own functions: K1 then runs the model's ``Autodiff<Body>``
     instance (``csrc/autodiff.cuh``), never its analytic one."""
@@ -56,9 +63,12 @@ class LanesModel:
       last stored state of the trajectory.
     - ``device``: the device-model descriptor the CUDA kernels read, or
       None for a model that runs only through the plain versions.
+    - ``n_params``: per-scenario parameter count. When > 0, the three
+      functions take a trailing ``par`` argument, a list of ``n_params``
+      (B,) tensors constant over the horizon (heterogeneous fleets), and
+      the kernels a ``params`` stream (P, B).
 
-    The JAX class's ``n_params`` and ``diff`` options are not part of this
-    slice.
+    The JAX class's ``diff`` option is not part of this slice.
     """
 
     n: int
@@ -67,6 +77,7 @@ class LanesModel:
     cost: Callable
     terminal: Optional[Callable] = None
     device: Optional[DeviceModel] = None
+    n_params: int = 0
 
 
 class ForwardLanesOut(NamedTuple):
@@ -80,29 +91,53 @@ class LineSearchLanesOut(NamedTuple):
     ls: torch.Tensor     # (5, B): al_sel, any_ok, dcost_sel, ratio_sel, total_new
 
 
-def check_slice(m: int, lims, params=None, lims_lanes=None):
+def check_slice(m: int, lims):
     """Raise NotImplementedError for what this slice does not cover, and
     ValueError for static limits that are not one (lo, hi) per control."""
     if m > 2:
         raise NotImplementedError(
             f"m={m}: the m > 2 masked-Newton box QP is not ported yet")
-    if params is not None:
-        raise NotImplementedError("params (per-scenario model parameters)")
-    if lims_lanes is not None or (lims is not None and not isinstance(
-            lims, (tuple, list))):
-        raise NotImplementedError("per-scenario lims arrays")
-    if lims is not None and len(lims) != m:
-        raise ValueError(f"lims {lims}: one (lo, hi) per control, m={m}")
+    if lims is not None and (not isinstance(lims, (tuple, list))
+                             or len(lims) != m):
+        raise ValueError(f"lims {lims}: static limits are one (lo, hi) per "
+                         f"control, m={m}; per-scenario limits go in "
+                         "lims_lanes")
 
 
-def bounds(lims, m: int) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
-    """Per-control (lo, hi) of static limits; ±inf for ``lims=None``. The
-    JAX rollout does not clamp without limits (``forward_kernel.py:117-121``);
-    the NaN-keeping clamp to ±inf returns every value, NaN included,
-    unchanged, so one code path serves both."""
+def check_lanes(what: str, n_params: int, m: int, B: int, params,
+                lims_lanes) -> None:
+    """The per-scenario inputs: ``params`` (P, B) exactly when the model
+    takes P > 0 parameters, ``lims_lanes`` (2m, B) or None."""
+    if (params is None) != (n_params == 0) or (
+            params is not None and tuple(params.shape) != (n_params, B)):
+        raise ValueError(
+            f"{what}: the model takes {n_params} per-scenario parameters; "
+            f"params {None if params is None else tuple(params.shape)}, "
+            f"expected {f'({n_params}, {B})' if n_params else None}")
+    if lims_lanes is not None and tuple(lims_lanes.shape) != (2 * m, B):
+        raise ValueError(f"{what}: lims_lanes {tuple(lims_lanes.shape)}, "
+                         f"expected ({2 * m}, {B})")
+
+
+def bounds(lims, m: int, lims_lanes=None):
+    """Per-control (lo, hi): the rows of ``lims_lanes`` (tensors (B,)), or
+    the static limits' floats, or ±inf for ``lims=None``. The JAX rollout
+    does not clamp without limits (``forward_kernel.py:117-121``); the
+    NaN-keeping clamp to ±inf returns every value, NaN included, unchanged,
+    so one code path serves both."""
+    if lims_lanes is not None:
+        return ([lims_lanes[2 * mi] for mi in range(m)],
+                [lims_lanes[2 * mi + 1] for mi in range(m)])
     if lims is None:
         return (-float("inf"),) * m, (float("inf"),) * m
     return tuple(lo for lo, _ in lims), tuple(hi for _, hi in lims)
+
+
+def par_args(params) -> tuple:
+    """The trailing arguments of a model's functions: none, or the list of
+    per-scenario parameter rows."""
+    return () if params is None else ([params[p] for p in range(
+        params.shape[0])],)
 
 
 def lims_host(lims, m: int) -> np.ndarray:
@@ -130,9 +165,11 @@ def launch_args(what: str, *tensors: torch.Tensor):
 
 
 def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
-              m: int, *tensors: torch.Tensor):
-    """:func:`launch_args` plus the model arguments of a launcher: model id,
-    n, m, the host pointer to the constants and their count."""
+              m: int, lims, lims_lanes, params, *tensors: torch.Tensor):
+    """:func:`launch_args` plus the model arguments of a launcher: the
+    static limits (host), the per-scenario limits and parameters (or null),
+    P, model id, n, m, the host pointer to the constants and their count.
+    The host arrays are returned too, to outlive the call."""
     if model_device is None:
         raise NotImplementedError(
             f"{what}: this model has no device-model descriptor, so no CUDA "
@@ -142,10 +179,14 @@ def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
             f"{what}: no CUDA kernel is built for model id "
             f"{model_device.model_id} at n={n}, m={m}; built: "
             f"{sorted(CUDA_MODELS.items())}")
-    lib, dev, stream = launch_args(what, *tensors)
+    per_lane = [t for t in (lims_lanes, params) if t is not None]
+    lib, dev, stream = launch_args(what, *tensors, *per_lane)
     consts = model_device.consts
-    return lib, dev, stream, (model_device.model_id, n, m,
-                              consts.ctypes.data, consts.size)
+    lim = lims_host(lims, m)
+    return lib, dev, stream, lim, (
+        lim.ctypes.data, _ptr(lims_lanes), _ptr(params),
+        0 if params is None else params.shape[0], model_device.model_id, n,
+        m, consts.ctypes.data, consts.size)
 
 
 def _check_streams(what, model, traj, gains, x0, gk, gK, per_lane):
@@ -172,10 +213,12 @@ def _ptr(t: Optional[torch.Tensor]):
 # ---------------------------------------------------------------------------
 
 def _rollout_step(model, x, acc, term, alpha, x_old, u_nom, k, K, lo, hi,
-                  t, last):
+                  t, last, par):
     """One step of every candidate (tensors (A, B) or (B,)); the kernels'
     rollout_step. Per control, u = clip(u_nom + α·k + Σ_j K_j·dx_j, lo, hi)
-    (JAX ``forward_kernel.py:156-169``). Returns (x_next, acc, term, u, c)."""
+    (JAX ``forward_kernel.py:156-169``), lo/hi floats or per-scenario (B,)
+    tensors; ``par`` the model's trailing arguments (:func:`par_args`).
+    Returns (x_next, acc, term, u, c)."""
     dx = [x[j] - x_old[j] for j in range(model.n)]
     u = []
     for mi in range(model.m):
@@ -183,10 +226,10 @@ def _rollout_step(model, x, acc, term, alpha, x_old, u_nom, k, K, lo, hi,
         for j in range(model.n):
             v = v + K[mi][j] * dx[j]
         u.append(torch.clamp(v, lo[mi], hi[mi]))
-    c = model.cost(x, u, t)
+    c = model.cost(x, u, t, *par)
     if last and model.terminal is not None:
-        term = model.terminal(x)
-    x_next = model.dynamics(x, u, t)
+        term = model.terminal(x, *par)
+    x_next = model.dynamics(x, u, t, *par)
     return x_next, acc + c, term, u, c
 
 
@@ -197,15 +240,17 @@ def _step_inputs(traj, gains, gk, gK, n, m, t):
             [[gains[t, gK + mi * n + j] for j in range(n)] for mi in range(m)])
 
 
-def forward_lanes_ref(traj, gains, x0, alphas, *, model: LanesModel,
-                      lims, gk: int = 0, gK: Optional[int] = None,
+def forward_lanes_ref(traj, gains, x0, alphas, params=None, lims_lanes=None,
+                      *, model: LanesModel, lims, gk: int = 0,
+                      gK: Optional[int] = None,
                       emit_traj: bool = False) -> ForwardLanesOut:
     """Plain version of :func:`forward_lanes` (same arguments)."""
     n, m = model.n, model.m
     gK = m if gK is None else gK
     T, B = traj.shape[0], traj.shape[2]
     A = alphas.shape[0]
-    lo, hi = bounds(lims, m)
+    lo, hi = bounds(lims, m, lims_lanes)
+    par = par_args(params)
     x = [x0[i].expand(A, B) for i in range(n)]
     acc = torch.zeros((A, B), dtype=traj.dtype, device=traj.device)
     term = torch.zeros_like(acc)
@@ -216,7 +261,7 @@ def forward_lanes_ref(traj, gains, x0, alphas, *, model: LanesModel,
         x_s = x
         x, acc, term, u, c = _rollout_step(model, x, acc, term, alphas,
                                            x_old, u_nom, k, K, lo, hi, t,
-                                           t == T - 1)
+                                           t == T - 1, par)
         if emit_traj:
             out[t] = torch.stack([v[0] for v in x_s + u] + [c[0]])
     return ForwardLanesOut(totals=acc + term, traj=out, terminal=term)
@@ -247,21 +292,24 @@ def _accept(totals, sel, alphas: Sequence[float], rr_min: float):
     return al_sel, found, dc_sel, rt_sel, al_eff
 
 
-def linesearch_lanes_ref(traj, gains, x0, sel, *, model: LanesModel,
-                         alphas: Tuple[float, ...], reduce_ratio_min: float,
-                         lims, gk: int = 0,
+def linesearch_lanes_ref(traj, gains, x0, sel, params=None, lims_lanes=None,
+                         *, model: LanesModel, alphas: Tuple[float, ...],
+                         reduce_ratio_min: float, lims, gk: int = 0,
                          gK: Optional[int] = None) -> LineSearchLanesOut:
-    """Plain version of :func:`linesearch_lanes` (same arguments)."""
+    """Plain version of :func:`linesearch_lanes` with a fresh output (same
+    arguments; the wrapper does the in-place copy)."""
     A = len(alphas)
     B = traj.shape[2]
     ladder = torch.tensor([float(np.float32(a)) for a in alphas],
                           dtype=traj.dtype, device=traj.device)
     pass1 = forward_lanes_ref(traj, gains, x0, ladder[:, None].expand(A, B),
-                              model=model, lims=lims, gk=gk, gK=gK)
+                              params, lims_lanes, model=model, lims=lims,
+                              gk=gk, gK=gK)
     al_sel, found, dc_sel, rt_sel, al_eff = _accept(
         pass1.totals, sel, alphas, reduce_ratio_min)
-    pass2 = forward_lanes_ref(traj, gains, x0, al_eff[None], model=model,
-                              lims=lims, gk=gk, gK=gK, emit_traj=True)
+    pass2 = forward_lanes_ref(traj, gains, x0, al_eff[None], params,
+                              lims_lanes, model=model, lims=lims, gk=gk,
+                              gK=gK, emit_traj=True)
     ls = torch.stack([al_sel, found.to(traj.dtype), dc_sel, rt_sel,
                       pass2.totals[0]])
     return LineSearchLanesOut(traj=pass2.traj, ls=ls)
@@ -282,34 +330,38 @@ def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
     - ``gains``: (T, Sg, B) — k at slot ``gk``, K (row-major (m, n)) at
       slot ``gK`` (pass the backward output with its OutLayout offsets).
     - ``x0``: (n, B); ``alphas``: (A, B) per-scenario α, A ≤ 8 on the card.
-    - ``lims``: static ``((lo, hi),) * m``, or None for no clamp.
+    - ``params``: (P, B) per-scenario parameters of a model with
+      ``n_params == P``, else None.
+    - ``lims``: static ``((lo, hi),) * m``, or None for no clamp;
+      ``lims_lanes``: per-scenario limits (2m, B), which replace ``lims``.
     - ``emit_traj``: also return the candidate-0 stream (T, n+m+1, B).
 
     Returns per-α totals (running + terminal) and terminal costs, (A, B).
     """
-    check_slice(model.m, lims, params, lims_lanes)
+    check_slice(model.m, lims)
     gK = model.m if gK is None else gK
     _check_streams("forward_lanes", model, traj, gains, x0, gk, gK, [alphas])
-    if traj.device.type == "cpu":
-        return forward_lanes_ref(traj, gains, x0, alphas, model=model,
-                                 lims=lims, gk=gk, gK=gK, emit_traj=emit_traj)
     T, B = traj.shape[0], traj.shape[2]
+    check_lanes("forward_lanes", model.n_params, model.m, B, params,
+                lims_lanes)
+    if traj.device.type == "cpu":
+        return forward_lanes_ref(traj, gains, x0, alphas, params, lims_lanes,
+                                 model=model, lims=lims, gk=gk, gK=gK,
+                                 emit_traj=emit_traj)
     A = alphas.shape[0]
     if not 1 <= A <= MAX_A:
         raise ValueError(f"forward_lanes: A={A} outside 1..{MAX_A}")
-    lib, dev, stream, model_args = cuda_args(
-        model.device, "forward_lanes", model.n, model.m, traj, gains, x0,
-        alphas)
+    lib, dev, stream, _lim, model_args = cuda_args(
+        model.device, "forward_lanes", model.n, model.m, lims, lims_lanes,
+        params, traj, gains, x0, alphas)
     totals = torch.empty((A, B), dtype=torch.float32, device=traj.device)
     term = torch.empty_like(totals)
     out = (torch.empty((T, model.n + model.m + 1, B), dtype=torch.float32,
                        device=traj.device) if emit_traj else None)
-    lim = lims_host(lims, model.m)
     rc = lib.ddp_forward_lanes(
         traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1], gk,
         gK, x0.data_ptr(), alphas.data_ptr(), A, totals.data_ptr(),
-        term.data_ptr(), _ptr(out), T, B, lim.ctypes.data, *model_args, dev,
-        stream)
+        term.data_ptr(), _ptr(out), T, B, *model_args, dev, stream)
     _build.check(lib, rc, "forward_lanes")
     forward_lanes.launches += 1
     return ForwardLanesOut(totals=totals, traj=out, terminal=term)
@@ -322,47 +374,57 @@ def linesearch_lanes(traj: torch.Tensor, gains: torch.Tensor,
                      x0: torch.Tensor, sel: torch.Tensor, params=None,
                      lims_lanes=None, *, model: LanesModel,
                      alphas: Tuple[float, ...], reduce_ratio_min: float = 0.0,
-                     lims=None, gk: int = 0,
-                     gK: Optional[int] = None) -> LineSearchLanesOut:
+                     lims=None, gk: int = 0, gK: Optional[int] = None,
+                     in_place: bool = False) -> LineSearchLanesOut:
     """Fused line search: per-α totals over the static ladder ``alphas``,
     the accept decision, and the accepted-α re-roll, in one launch.
 
     ``sel``: (4, B) [dV1, dV2, cost_old_total, allow]; ``allow`` (1/0) masks
     the lanes permitted to accept. Rejected lanes re-roll with α=0, which
-    retraces a kernel-produced trajectory bit for bit. The output is a
-    fresh stream; the input stays valid.
+    retraces a kernel-produced trajectory bit for bit. ``params`` and
+    ``lims_lanes`` as :func:`forward_lanes`.
+
+    The output is a fresh stream and the input stays valid, unless
+    ``in_place`` is set and ``traj`` has exactly n+m+1 slots (JAX
+    ``forward_kernel.py:611``): the new stream then overwrites ``traj``,
+    which is returned, as JAX donates the input buffer. ``x0`` may then be
+    a view of ``traj``.
 
     Returns the new stream (T, n+m+1, B) and the (5, B) record
     [al_sel, any_ok, dcost_sel, ratio_sel, total_new].
     """
-    check_slice(model.m, lims, params, lims_lanes)
+    check_slice(model.m, lims)
     gK = model.m if gK is None else gK
     _check_streams("linesearch_lanes", model, traj, gains, x0, gk, gK, [sel])
     if sel.shape[0] != 4:
         raise ValueError(f"linesearch_lanes: sel {tuple(sel.shape)}, "
                          "expected (4, B)")
-    if traj.device.type == "cpu":
-        return linesearch_lanes_ref(traj, gains, x0, sel, model=model,
-                                    alphas=alphas,
-                                    reduce_ratio_min=reduce_ratio_min,
-                                    lims=lims, gk=gk, gK=gK)
     T, B = traj.shape[0], traj.shape[2]
+    check_lanes("linesearch_lanes", model.n_params, model.m, B, params,
+                lims_lanes)
+    alias = in_place and traj.shape[1] == model.n + model.m + 1
+    if traj.device.type == "cpu":
+        res = linesearch_lanes_ref(traj, gains, x0, sel, params, lims_lanes,
+                                   model=model, alphas=alphas,
+                                   reduce_ratio_min=reduce_ratio_min,
+                                   lims=lims, gk=gk, gK=gK)
+        return res._replace(traj=traj.copy_(res.traj)) if alias else res
     A = len(alphas)
     if not 1 <= A <= MAX_A:
         raise ValueError(f"linesearch_lanes: {A} alphas outside 1..{MAX_A}")
-    lib, dev, stream, model_args = cuda_args(
-        model.device, "linesearch_lanes", model.n, model.m, traj, gains, x0,
-        sel)
+    lib, dev, stream, _lim, model_args = cuda_args(
+        model.device, "linesearch_lanes", model.n, model.m, lims, lims_lanes,
+        params, traj, gains, x0, sel)
     ladder = np.asarray(alphas, np.float32)
-    out = torch.empty((T, model.n + model.m + 1, B), dtype=torch.float32,
-                      device=traj.device)
+    out = traj if alias else torch.empty(
+        (T, model.n + model.m + 1, B), dtype=torch.float32,
+        device=traj.device)
     ls = torch.empty((5, B), dtype=torch.float32, device=traj.device)
-    lim = lims_host(lims, model.m)
     rc = lib.ddp_linesearch_lanes(
         traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1], gk,
         gK, x0.data_ptr(), sel.data_ptr(), ladder.ctypes.data, A,
         float(reduce_ratio_min), out.data_ptr(), ls.data_ptr(), T, B,
-        lim.ctypes.data, *model_args, dev, stream)
+        *model_args, dev, stream)
     _build.check(lib, rc, "linesearch_lanes")
     linesearch_lanes.launches += 1
     return LineSearchLanesOut(traj=out, ls=ls)

@@ -2,16 +2,17 @@
 
 Counterpart of ``differentialdynamicprogramming_jl_tpu/solvers/batch.py``
 (``ilqg_batch_lanes``, reference semantics of ``src/iLQG.jl:143-341`` per
-scenario). The loop state is one trajectory stream ``(T, n+m+1, B)`` holding
-[x, u, running cost]; each iteration runs the backward kernel (K1) on it,
-relaunched for the per-lane λ-retry, then the fused line-search kernel (K2),
-which returns the next stream. The initial α-sweep and rollout use the
-forward kernel (K3).
+scenario, the MPC step ``ilqg_iteration_lanes`` and the receding-horizon
+loop ``mpc_rollout_lanes``). The loop state is one trajectory stream
+``(T, n+m+1, B)`` holding [x, u, running cost]; each iteration runs the
+backward kernel (K1) on it, relaunched for the per-lane λ-retry, then the
+fused line-search kernel (K2), which returns the next stream. The initial
+α-sweep and rollout use the forward kernel (K3).
 
-The JAX solver is one ``lax.while_loop``; this one is a host loop. The
-λ-retry condition and ``done.all()`` each synchronise with the host once per
-check. Per-scenario control flow stays elementwise on (B,) masks, line for
-line as in the JAX solver.
+The JAX solver is one ``lax.while_loop`` and its MPC loop one ``lax.scan``;
+these are host loops. The λ-retry condition and ``done.all()`` each
+synchronise with the host once per check. Per-scenario control flow stays
+elementwise on (B,) masks, line for line as in the JAX solver.
 
 Whether a kernel or its plain version runs is decided by the device of
 ``x0s``/``u0s`` alone: CPU tensors run the plain versions, CUDA tensors the
@@ -20,7 +21,7 @@ Results live on that device.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -28,7 +29,7 @@ from ..device import as_tensor
 from ..policy import GaussianPolicy
 from ..ops.hopper.pack import to_streams, from_streams
 from ..ops.hopper.backward_kernel import OutLayout, backward_lanes
-from ..ops.hopper.forward_kernel import (LanesModel, check_slice,
+from ..ops.hopper.forward_kernel import (LanesModel, check_slice, par_args,
                                          forward_lanes, linesearch_lanes)
 from .ilqg import ILQGConfig, tol_fun_effective
 
@@ -68,26 +69,52 @@ class BatchILQGResult(NamedTuple):
 
 
 def split_lims(lims):
-    """Sort a user ``lims`` into (static tuple, per-scenario array). Only the
-    static form ``((lo, hi),) * m`` is in this slice."""
+    """Sort a user ``lims`` into (static tuple, per-scenario array): tuples
+    and lists of (lo, hi) pairs stay static; anything else is a per-scenario
+    (B, m, 2) array (a tensor keeps its device, anything else goes to the
+    card), as the reference takes limits as runtime data
+    (``src/iLQG.jl:124``)."""
     if lims is None:
         return None, None
     if isinstance(lims, (tuple, list)):
         return tuple((float(lo), float(hi)) for lo, hi in lims), None
-    raise NotImplementedError("per-scenario lims arrays")
+    lims = as_tensor(lims)
+    if lims.ndim != 3 or lims.shape[-1] != 2:
+        raise ValueError(f"per-scenario lims must be (B, m, 2), got "
+                         f"{tuple(lims.shape)}")
+    return None, lims
 
 
-def _out_of_slice(packed_derivs, derivs_tiles, params, cost0, warm_start,
-                  lam0, dlam0, accepted0, x0s, cfg):
-    for name, val in (("packed_derivs", packed_derivs), ("params", params),
-                      ("cost0", cost0), ("lam0", lam0), ("dlam0", dlam0),
-                      ("accepted0", accepted0)):
-        if val is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
-    if warm_start:
-        raise NotImplementedError("warm_start is not ported yet")
-    if x0s.ndim == 3:
-        raise NotImplementedError("pre-rolled (B, T, n) x0s are not ported yet")
+def pack_lims(lims_batch: torch.Tensor) -> torch.Tensor:
+    """(B, m, 2) per-scenario limits → the kernels' (2m, B) f32 stream, slot
+    order [lo_0, hi_0, lo_1, hi_1, ...]. Streams are not padded (each kernel
+    masks b < B), so the JAX package's zero rows for lanes beyond B have no
+    counterpart here."""
+    B, m = lims_batch.shape[0], lims_batch.shape[1]
+    return lims_batch.to(torch.float32).reshape(B, 2 * m).T.contiguous()
+
+
+def _eval_costs(model: LanesModel, x_s, u_s, par) -> torch.Tensor:
+    """(T, B) running costs of a stream's (x, u) slots with the model's lane
+    functions, outside the kernels (pre-rolled entry; JAX
+    ``_eval_costs_lanes``, ``:138-149``)."""
+    return torch.stack([
+        model.cost([x_s[t, i] for i in range(model.n)],
+                   [u_s[t, mi] for mi in range(model.m)], t, *par)
+        for t in range(x_s.shape[0])])
+
+
+def _eval_terminal(model: LanesModel, xT, par) -> torch.Tensor:
+    """Terminal cost at the last stored state, the forward kernel's
+    convention (JAX ``_eval_terminal_lanes``, ``:152-160``)."""
+    if model.terminal is None:
+        return torch.zeros_like(xT[0])
+    return model.terminal([xT[i] for i in range(model.n)], *par)
+
+
+def _out_of_slice(packed_derivs, derivs_tiles, cfg):
+    if packed_derivs is not None:
+        raise NotImplementedError("packed_derivs is not ported yet")
     if cfg.verbosity > 1:
         raise NotImplementedError("verbosity > 1 (fleet iteration rows)")
     if derivs_tiles is None:
@@ -103,68 +130,121 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
 
     - ``model``: :class:`LanesModel`; ``derivs_tiles``: the in-kernel
       derivative function (e.g. ``pendcart_derivs_tiles(spec)``).
-    - ``x0s``: (B, n) initial states; ``u0s``: (B, T, m) initial controls.
-      The initial rollout sweeps the α ladder (``src/iLQG.jl:181-192``).
-    - ``lims``: static ``((lo, hi),) * m``, or None for the unconstrained
-      solve; ``cfg``: :class:`ILQGConfig`.
+    - ``x0s``: (B, n) initial states, rolled out from ``u0s`` (B, T, m) by
+      the α-sweep (``src/iLQG.jl:181-192``); or **pre-rolled** (B, T, n)
+      trajectories used verbatim with ``u0s`` (``src/iLQG.jl:193-197``), a
+      lane's supplied trajectory kept on every rejected iteration.
+    - ``cost0``: optional (B, T) per-step costs of a pre-rolled trajectory,
+      or (B, T+1) with the terminal cost last; computed from ``model`` when
+      omitted.
+    - ``warm_start``: with (B, n) ``x0s``, skip the α-sweep and roll
+      ``u0s`` at α=1 (one K3 launch; the MPC re-roll of a shifted plan).
+    - ``lam0``/``dlam0``/``accepted0``: optional (B,) initial λ, dλ and
+      accepted-iteration counts, to resume a solve from a prior result.
+    - ``lims``: static ``((lo, hi),) * m``, a per-scenario (B, m, 2) array,
+      or None for the unconstrained solve; ``cfg``: :class:`ILQGConfig`.
+    - ``params``: (B, P) per-scenario parameters of a model (and
+      ``derivs_tiles``) with ``n_params == P``.
     - ``max_steps``: bound on this call's iterations below ``cfg.cap()``.
     - ``record_trace``: also return the (B, cap) :class:`BatchTrace`.
 
     The JAX signature's TPU switches ``kt_backward``, ``kt_forward`` and
     ``interpret`` are not taken.
 
-    Not in this slice (NotImplementedError): ``packed_derivs``, ``params``,
-    per-scenario ``lims`` arrays, m > 2, pre-rolled ``x0s``, ``cost0``,
-    ``warm_start`` and the resume counters ``lam0``/``dlam0``/``accepted0``.
+    Not in this slice (NotImplementedError): ``packed_derivs``, m > 2 and
+    ``verbosity > 1``.
     """
     x0s = as_tensor(x0s)
     u0s = as_tensor(u0s)
-    _out_of_slice(packed_derivs, derivs_tiles, params, cost0, warm_start,
-                  lam0, dlam0, accepted0, x0s, cfg)
-    lims, _ = split_lims(lims)
+    _out_of_slice(packed_derivs, derivs_tiles, cfg)
+    lims, lims_batch = split_lims(lims)
     check_slice(model.m, lims)
-    if x0s.device != u0s.device:
-        raise ValueError(f"x0s on {x0s.device}, u0s on {u0s.device}")
+    if (params is None) != (model.n_params == 0):
+        raise ValueError(f"params: the model takes {model.n_params} "
+                         "per-scenario parameters")
     n, m = model.n, model.m
     B, T = u0s.shape[0], u0s.shape[1]
     dev = u0s.device
+    given = {name: as_tensor(v) for name, v in (
+        ("x0s", x0s), ("params", params), ("lims", lims_batch),
+        ("cost0", cost0), ("lam0", lam0), ("dlam0", dlam0),
+        ("accepted0", accepted0)) if v is not None}
+    for name, v in given.items():
+        if v.device != dev:
+            raise ValueError(f"{name} on {v.device}, u0s on {dev}")
     f32 = torch.float32
     lay = OutLayout(n, m)
     cap = cfg.cap()
+    pre_rolled = x0s.ndim == 3
 
-    x0_l = x0s.to(f32).T.contiguous()                       # (n, B)
     u_nom0 = to_streams(u0s.to(f32))                         # (T, m, B)
+    if pre_rolled:
+        x_roll = to_streams(x0s.to(f32))                     # (T, n, B)
+        x0_l = x_roll[0]
+    else:
+        x0_l = x0s.to(f32).T.contiguous()                    # (n, B)
+    # (B, P) → the kernels' (P, B) stream. No lane beyond B exists, so the
+    # JAX package's benign padding row (solvers/batch.py:297-308) has no
+    # counterpart here.
+    par_l = (given["params"].to(f32).T.contiguous() if params is not None
+             else None)
+    lims_l = pack_lims(lims_batch) if lims_batch is not None else None
+    par = par_args(par_l)
     alphas = torch.tensor(cfg.alphas, dtype=f32, device=dev)
     A = alphas.shape[0]
 
     def run_fwd(traj, gains, al, emit):
-        return forward_lanes(traj, gains, x0_l, al, model=model, lims=lims,
-                             gk=0, gK=m, emit_traj=emit)
+        return forward_lanes(traj, gains, x0_l, al, par_l, lims_l,
+                             model=model, lims=lims, gk=0, gK=m,
+                             emit_traj=emit)
 
     def run_bwd(traj, lam, emit="gains"):
         return backward_lanes(traj, lam, n=n, m=m, reg_type=cfg.reg_type,
-                              lims=lims, derivs_tiles=derivs_tiles, emit=emit)
+                              lims=lims, derivs_tiles=derivs_tiles,
+                              params=par_l, lims_lanes=lims_l, emit=emit)
 
-    # ---- initial rollout α-sweep (src/iLQG.jl:181-210): u ← α·u0 via the
-    #      trick k := u0, u_nom := 0
-    traj0 = torch.zeros((T, n + m, B), dtype=f32, device=dev)
-    gains0 = torch.cat(
-        [u_nom0, torch.zeros((T, m * n, B), dtype=f32, device=dev)], dim=1)
-    fa0 = run_fwd(traj0, gains0, alphas[:, None].expand(A, B).contiguous(),
-                  False)
-    ok0 = torch.isfinite(fa0.totals) & (fa0.totals < 1e16)     # |x| < 1e8
-    any0 = ok0.any(dim=0)
-    idx0 = torch.argmax(ok0.to(torch.int32), dim=0)           # first ok α
-    al_init = torch.where(any0, alphas[idx0], 0.0)
-    fb0 = run_fwd(traj0, gains0, al_init[None].contiguous(), True)
-    traj_init, tot_init = fb0.traj, fb0.totals[0]
-    # NaN scrub on init-diverged (reason 5) lanes: once x overflows, the
-    # control law computes 0·Inf = NaN. These lanes exit at once with this
-    # rollout as their result; keep it Inf-marked but NaN-free.
-    bad0 = ~any0
-    traj_init = torch.where(bad0 & torch.isnan(traj_init), 0.0, traj_init)
-    tot_init = torch.where(bad0 & torch.isnan(tot_init), float("inf"),
-                           tot_init)
+    if pre_rolled:
+        # trust the supplied trajectory verbatim (src/iLQG.jl:193-197): no
+        # rollout; per-step costs from cost0 or from the model's functions
+        if cost0 is not None:
+            c0 = given["cost0"].to(f32)
+            c_l = c0[:, :T].T.contiguous()                   # (T, B)
+            cterm = (c0[:, T] if c0.shape[1] == T + 1
+                     else _eval_terminal(model, x_roll[T - 1], par))
+        else:
+            c_l = _eval_costs(model, x_roll, u_nom0, par)
+            cterm = _eval_terminal(model, x_roll[T - 1], par)
+        traj_init = torch.cat([x_roll, u_nom0, c_l[:, None]], dim=1)
+        tot_init = c_l.sum(dim=0) + cterm
+        any0 = torch.isfinite(tot_init) & (tot_init < 1e16)
+    else:
+        # ---- initial rollout α-sweep (src/iLQG.jl:181-210): u ← α·u0 via
+        #      the trick k := u0, u_nom := 0; warm_start pins α=1
+        traj0 = torch.zeros((T, n + m, B), dtype=f32, device=dev)
+        gains0 = torch.cat(
+            [u_nom0, torch.zeros((T, m * n, B), dtype=f32, device=dev)],
+            dim=1)
+        if warm_start:
+            al_init = torch.ones((B,), dtype=f32, device=dev)
+        else:
+            fa0 = run_fwd(traj0, gains0,
+                          alphas[:, None].expand(A, B).contiguous(), False)
+            ok0 = torch.isfinite(fa0.totals) & (fa0.totals < 1e16)
+            any0 = ok0.any(dim=0)                            # |x| < 1e8
+            idx0 = torch.argmax(ok0.to(torch.int32), dim=0)  # first ok α
+            al_init = torch.where(any0, alphas[idx0], 0.0)
+        fb0 = run_fwd(traj0, gains0, al_init[None].contiguous(), True)
+        traj_init, tot_init = fb0.traj, fb0.totals[0]
+        if warm_start:
+            any0 = torch.isfinite(tot_init) & (tot_init < 1e16)
+        # NaN scrub on init-diverged (reason 5) lanes: once x overflows, the
+        # control law computes 0·Inf = NaN. These lanes exit at once with
+        # this rollout as their result; keep it Inf-marked but NaN-free.
+        bad0 = ~any0
+        traj_init = torch.where(bad0 & torch.isnan(traj_init), 0.0,
+                                traj_init)
+        tot_init = torch.where(bad0 & torch.isnan(tot_init), float("inf"),
+                               tot_init)
 
     if record_trace:
         tr = {f: torch.zeros((cap, B), dtype=f32, device=dev)
@@ -173,12 +253,15 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
         tr["alpha"].fill_(float("nan"))
 
     traj, cost_tot = traj_init, tot_init
-    lam = torch.full((B,), cfg.lam, dtype=f32, device=dev)
-    dlam = torch.full((B,), cfg.dlam, dtype=f32, device=dev)
+    lam = (given["lam0"].to(f32) if lam0 is not None
+           else torch.full((B,), cfg.lam, dtype=f32, device=dev))
+    dlam = (given["dlam0"].to(f32) if dlam0 is not None
+            else torch.full((B,), cfg.dlam, dtype=f32, device=dev))
+    accepted = (given["accepted0"].to(torch.int32) + 1 if accepted0 is not None
+                else torch.ones((B,), dtype=torch.int32, device=dev))
     traj_bwd, lam_used = traj, lam
     done = ~any0
     reason = torch.where(any0, 0, 5).to(torch.int32)
-    accepted = torch.ones((B,), dtype=torch.int32, device=dev)
     it_lane = torch.zeros((B,), dtype=torch.int32, device=dev)
     g_norm = torch.zeros((B,), dtype=f32, device=dev)
     max_steps = cap - 1 if max_steps is None else int(max_steps)
@@ -215,10 +298,12 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
         grad_conv = (g_it < cfg.tol_grad) & (lam_r < 1e-5) & ~bp_bad
 
         # == fused line search (src/iLQG.jl:264-283); rejected lanes retrace
-        #    their stream with α=0
+        #    their stream with α=0. The output is a fresh stream: the
+        #    backward replay after the loop needs this iteration's entry
+        #    stream, which JAX gets from the kernel's echo instead.
         allow = ~bp_bad & ~grad_conv & active
         sel = torch.stack([dV1, dV2, cost_tot, allow.to(f32)])
-        fb = linesearch_lanes(traj, bo, x0_l, sel, model=model,
+        fb = linesearch_lanes(traj, bo, x0_l, sel, par_l, lims_l, model=model,
                               alphas=cfg.alphas,
                               reduce_ratio_min=cfg.reduce_ratio_min,
                               lims=lims, gk=lay.k, gK=lay.K)
@@ -247,9 +332,17 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
         accepted = accepted + accept.to(torch.int32)
         done = done | newly_done | (accepted > cfg.max_iter)
 
+        if pre_rolled:
+            # a supplied trajectory may be inconsistent with the dynamics,
+            # so its α=0 retrace is not itself: keep it verbatim on reject
+            traj_n = torch.where(accept, fb.traj, traj)
+            tot_n = torch.where(accept, fb.ls[4], cost_tot)
+        else:
+            traj_n, tot_n = fb.traj, fb.ls[4]
+
         if record_trace:
             ti = min(it, cap - 1)
-            for name, val in (("cost", fb.ls[4]), ("lam", lam_n),
+            for name, val in (("cost", tot_n), ("lam", lam_n),
                               ("dlam", dlam_n), ("grad_norm", g_it),
                               ("improvement", dcost_sel),
                               ("reduce_ratio", fb.ls[3]),
@@ -262,7 +355,7 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
         # the backward replay after the loop needs the inputs of the last
         # backward pass each lane ran: this iteration's entry stream and λ
         traj_bwd, lam_used = traj, lam_r
-        traj, cost_tot = fb.traj, fb.ls[4]
+        traj, cost_tot = traj_n, tot_n
         lam = torch.where(active, lam_n, lam)
         dlam = torch.where(active, dlam_n, dlam)
         it_lane = torch.where(active, it, it_lane).to(torch.int32)
@@ -275,16 +368,18 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
     # ---- replay the final backward outputs in full emission, once
     bo_full = run_bwd(traj_bwd, lam_used, emit="full").out
     # reason-5 lanes: zero-gain, unit-Σ policy and zero value expansion
-    # (GaussianPolicy.zeros, src/iLQG.jl:205-210), and the frozen initial
-    # rollout
+    # (GaussianPolicy.zeros, src/iLQG.jl:205-210); the rollout entry also
+    # restores the frozen initial rollout, while a pre-rolled lane kept its
+    # supplied trajectory through the select in the loop
     bad5 = ~any0
     eye_slots = torch.zeros((lay.S, 1), dtype=f32, device=dev)
     for i in range(m):
         eye_slots[lay.quu + i * m + i] = 1.0
         eye_slots[lay.quui + i * m + i] = 1.0
     bo_full = torch.where(bad5, eye_slots, bo_full)
-    traj = torch.where(bad5, traj_init, traj)
-    cost_tot = torch.where(bad5, tot_init, cost_tot)
+    if not pre_rolled:
+        traj = torch.where(bad5, traj_init, traj)
+        cost_tot = torch.where(bad5, tot_init, cost_tot)
 
     # ---- unpack to batch-major
     u = from_streams(traj[:, n:n + m], (m,))
@@ -303,12 +398,91 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
                if record_trace else None))
 
 
-def ilqg_iteration_lanes(*args, **kwargs):
-    """The MPC per-step hot path of the JAX package; a later slice."""
-    raise NotImplementedError("ilqg_iteration_lanes is not ported yet")
+def ilqg_iteration_lanes(model: LanesModel, packed_derivs, lims,
+                         cfg: ILQGConfig, derivs_tiles=None) -> Callable:
+    """One iLQG iteration on stream state, the per-step hot path of an MPC
+    loop (JAX ``solvers/batch.py:646-707``). Returns
+    ``step(traj, cost_tot, lam) -> (traj, cost_tot, lam)`` with ``traj`` the
+    (T, n+m+1, B) [x, u, c] stream, which must come from the forward kernel
+    (its α=0 retrace is then itself, so rejected lanes need no select).
+
+    K1 runs once in ``gains`` emission (no λ-retry), then K2 **in place**:
+    the input ``traj`` is overwritten by the new stream and returned, as JAX
+    donates it. Clone it first to keep it. λ moves by JAX's own rule,
+    ``where(accept, max(λ/lam_factor, 1e-6), min(λ·lam_factor, lam_max))``,
+    not by the solver's dλ schedule. ``lims`` is static, a per-scenario
+    (B, m, 2) array (packed here once), or None. As in JAX, the step takes
+    no ``params``; ``packed_derivs`` is not ported (NotImplementedError).
+    """
+    if packed_derivs is not None:
+        raise NotImplementedError("packed_derivs is not ported yet")
+    if derivs_tiles is None:
+        raise ValueError("derivs_tiles is required")
+    if model.n_params:
+        raise ValueError("ilqg_iteration_lanes takes no params, as the JAX "
+                         "package's; its model must have n_params == 0")
+    n, m = model.n, model.m
+    lims, lims_batch = split_lims(lims)
+    check_slice(m, lims)
+    lims_l = pack_lims(lims_batch) if lims_batch is not None else None
+    lay = OutLayout(n, m)
+
+    def step(traj, cost_tot, lam):
+        x0_l = traj[0, :n]           # a view: K2 reads it before writing
+        res = backward_lanes(traj, lam, n=n, m=m, reg_type=cfg.reg_type,
+                             lims=lims, derivs_tiles=derivs_tiles,
+                             lims_lanes=lims_l, emit="gains")
+        allow = ~(res.stats[2] > 0.5)
+        sel = torch.stack([res.stats[0], res.stats[1], cost_tot,
+                           allow.to(torch.float32)])
+        fb = linesearch_lanes(traj, res.out, x0_l, sel, None, lims_l,
+                              model=model, alphas=cfg.alphas,
+                              reduce_ratio_min=cfg.reduce_ratio_min,
+                              lims=lims, gk=lay.k, gK=lay.K, in_place=True)
+        accept = (fb.ls[1] > 0.5) & allow
+        lam_n = torch.where(accept, torch.clamp_min(lam / cfg.lam_factor,
+                                                    1e-6),
+                            torch.clamp_max(lam * cfg.lam_factor,
+                                            cfg.lam_max))
+        return fb.traj, fb.ls[4], lam_n
+
+    return step
 
 
-def mpc_rollout_lanes(*args, **kwargs):
-    """On-device receding-horizon MPC rollout of the JAX package; a later
-    slice."""
-    raise NotImplementedError("mpc_rollout_lanes is not ported yet")
+def mpc_rollout_lanes(model: LanesModel, packed_derivs, x0s, u0s,
+                      plant: Callable, n_steps: int, lims=None,
+                      cfg: ILQGConfig = ILQGConfig(), derivs_tiles=None,
+                      params=None):
+    """Receding-horizon MPC: ``n_steps`` chained steps of a warm-started,
+    bounded iLQG re-solve (:func:`ilqg_batch_lanes` with
+    ``warm_start=True``, ``max_steps = cfg.cap() - 1``), the plan's first
+    control applied through ``plant``, and the plan shifted by one step with
+    a zero last control (JAX ``solvers/batch.py:710-790``). JAX chains the
+    steps in one ``lax.scan``; this is a host loop of solves.
+
+    - ``plant(x (B, n), u (B, m)) -> x_next (B, n)``: the true plant, which
+      may differ from ``model``'s prediction; its output is cast to f32.
+    - ``x0s`` (B, n), ``u0s`` (B, T, m): the first state and plan, cast to
+      f32. ``lims`` (static or per-scenario) and ``params`` go to every
+      re-solve.
+
+    Returns ``(x_final (B, n), u_plan_final (B, T, m), states
+    (n_steps, B, n), controls (n_steps, B, m), cost_totals (n_steps, B))``.
+    """
+    f32 = torch.float32
+    x = as_tensor(x0s, f32)
+    u = as_tensor(u0s, f32)
+    B, _, m = u.shape
+    rows = []
+    for _ in range(int(n_steps)):
+        res = ilqg_batch_lanes(model, packed_derivs, x, u, lims=lims, cfg=cfg,
+                               derivs_tiles=derivs_tiles, params=params,
+                               warm_start=True, max_steps=cfg.cap() - 1)
+        u_apply = res.u[:, 0]
+        x = plant(x, u_apply).to(f32)
+        u = torch.cat([res.u[:, 1:],
+                       torch.zeros((B, 1, m), dtype=f32, device=u.device)],
+                      dim=1)
+        rows.append((x, u_apply, res.cost_total))
+    xs, us, costs = (torch.stack(col) for col in zip(*rows))
+    return x, u, xs, us, costs

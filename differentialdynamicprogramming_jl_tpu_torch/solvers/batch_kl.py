@@ -33,7 +33,7 @@ from ..ops.hopper.backward_kernel import (OutLayout, _sum, _tiny_chol,
                                           backward_lanes)
 from ..ops.hopper.covariance_kernel import covariance_lanes, identity_r1
 from ..ops.hopper.forward_kernel import LanesModel, check_slice, forward_lanes
-from .batch import split_lims
+from .batch import pack_lims, split_lims
 from .ilqgkl import ILQGKLConfig
 
 
@@ -146,16 +146,14 @@ class BatchKLResult(NamedTuple):
     trace: Optional[BatchKLTrace] = None      # with record_trace=True
 
 
-def _out_of_slice(lims, cfg, resume):
+def _out_of_slice(cfg, resume):
     for name, val in resume.items():
         if val is not None:
             raise NotImplementedError(
                 f"{name}: the resume inputs of the KL fleet scheduler are "
                 "not ported yet")
-    lims, _ = split_lims(lims)              # raises on per-scenario arrays
     if cfg.verbosity > 1:
         raise NotImplementedError("verbosity > 1 (fleet iteration rows)")
-    return lims
 
 
 def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
@@ -177,18 +175,20 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
       propagation (for an LTI model, ``SimpleLTVModel.from_lti(A, B, T).fx``
       expanded to B); ``r1``: static (n, n) tuple (default identity).
     - ``cost0``: (B,) total cost of the pre-rolled trajectory.
-    - ``lims``: static ``((lo, hi),)`` or None.
+    - ``lims``: static ``((lo, hi),) * m``, a per-scenario (B, m, 2) array
+      (K1 in GPS mode and K3 read each lane's box), or None.
     - ``record_trace``: also return the (B, max_iter+1) :class:`BatchKLTrace`.
 
     The JAX signature's TPU switches ``kt`` and ``interpret`` are not taken.
 
     Not in this slice (NotImplementedError): the KL fleet scheduler's resume
     inputs ``bracket0``, ``delta0_in``, ``adam0_in``, ``it0``,
-    ``max_steps``; per-scenario ``lims`` arrays; ``verbosity > 1``; m > 2.
+    ``max_steps``; ``verbosity > 1``; m > 2.
     """
-    lims = _out_of_slice(lims, cfg, dict(
+    _out_of_slice(cfg, dict(
         bracket0=bracket0, delta0_in=delta0_in, adam0_in=adam0_in, it0=it0,
         max_steps=max_steps))
+    lims, lims_batch = split_lims(lims)
     check_slice(model.m, lims)
     x0s = as_tensor(x0s)
     traj_prev = GaussianPolicy(*map(as_tensor, traj_prev))
@@ -200,6 +200,9 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
     # (measured KL, returned policy), never Vx/Vxx
     lay = OutLayout(n, m, emit="policy")
     r1 = identity_r1(n) if r1 is None else r1
+    if lims_batch is not None and lims_batch.device != dev:
+        raise ValueError(f"lims on {lims_batch.device}, x0s on {dev}")
+    lims_l = pack_lims(lims_batch) if lims_batch is not None else None
 
     u0 = traj_prev.k.to(f32)                              # src/iLQGkl.jl:47
     traj = to_streams(torch.cat(
@@ -233,7 +236,7 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
         eta_s = eta_mid if per_step else eta_mid.expand(T, B).contiguous()
         return backward_lanes(traj, lam0, n=n, m=m, reg_type=1, lims=lims,
                               derivs_tiles=derivs_tiles, prev=prev,
-                              eta=eta_s, emit="policy")
+                              eta=eta_s, lims_lanes=lims_l, emit="policy")
 
     cap = cfg.max_iter + 1
     if record_trace:
@@ -283,8 +286,8 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
 
         # full-step forward pass from the fixed centre (α = 1,
         # src/iLQGkl.jl:134)
-        fb = forward_lanes(traj, bo, x0_l, one, model=model, lims=lims,
-                           gk=lay.k, gK=lay.K, emit_traj=True)
+        fb = forward_lanes(traj, bo, x0_l, one, None, lims_l, model=model,
+                           lims=lims, gk=lay.k, gK=lay.K, emit_traj=True)
 
         # measured KL (src/iLQGkl.jl:143) of the new policy
         div_t, pdok_t = kl_div_wiki_lanes(

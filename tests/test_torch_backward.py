@@ -163,7 +163,6 @@ def test_backward_unconstrained_matches_jax(reg_type):
 
 @pytest.mark.parametrize("kwargs,option,exc", [
     (dict(derivs_tiles=None), "packed-derivatives", NotImplementedError),
-    (dict(params=torch.zeros(1)), "params", NotImplementedError),
     (dict(prev=torch.zeros((T, 6, B))), "both prev and eta", ValueError),
     (dict(prev=torch.zeros((T, 5, B)), eta=torch.ones((T, B))), "prev",
      ValueError),

@@ -118,12 +118,9 @@ def test_batch_unconstrained_matches_jax():
 
 
 @pytest.mark.parametrize("kwargs,option", [
-    (dict(params=np.ones((B, 2))), "params"),
-    (dict(cost0=np.zeros((B, T))), "cost0"),
-    (dict(warm_start=True), "warm_start"),
-    (dict(lam0=np.ones(B)), "lam0"),
     (dict(packed_derivs=lambda x, u: None), "packed_derivs"),
-    (dict(lims=np.tile([[-5.0, 5.0]], (B, 1, 1))), "per-scenario lims"),
+    (dict(cfg=convert.config_from_jax(J.ILQGConfig(verbosity=2))),
+     "verbosity"),
 ])
 def test_batch_out_of_slice_options_raise(kwargs, option):
     x0s, u0s = _inputs()

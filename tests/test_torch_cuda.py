@@ -690,3 +690,251 @@ def test_quad_solver_on_card_matches_cpu(dev):
     assert torch.equal(g.reason.cpu(), c.reason)
     assert torch.equal(g.n_accepted.cpu(), c.n_accepted)
     assert (g.u >= 0).all() and (g.u <= spec.u_max).all()
+
+
+# ---------------------------------------------------------------------------
+# heterogeneous fleets: per-scenario parameters and limits, K2 in place, and
+# the MPC loop
+# ---------------------------------------------------------------------------
+
+def _hetero(dev, seed=3):
+    """Per-scenario [l, d] (the ranges of tests/test_param_fleet.py) as a
+    (2, B) stream, per-scenario limits ±U(0.8, 6.0) as (2, B), and a
+    PendCartParam K3 rollout through them."""
+    rng = np.random.default_rng(seed)
+    par = torch.tensor(np.stack([rng.uniform(0.25, 0.55, B),
+                                 rng.uniform(0.5, 1.5, B)]),
+                       dtype=torch.float32, device=dev)
+    hi = rng.uniform(0.8, 6.0, B)
+    lanes = torch.tensor(np.stack([-hi, hi]), dtype=torch.float32,
+                         device=dev)
+    x0, gains0, al = _rollout(dev, seed)
+    model = tpc.pendcart_lanes_param(SPEC)
+    traj = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0, x0,
+                            al, par, lanes, model=model, emit_traj=True).traj
+    return par, lanes, x0, gains0, al, model, traj
+
+
+def test_param_kernels_match_plain(dev):
+    """PendCartParam K3, K1 (gains, full) and K2 with per-scenario [l, d]
+    and limits against their plain versions; the limits are each lane's."""
+    par, lanes, x0, gains0, al, model, traj = _hetero(dev)
+    tiles = tpc.pendcart_derivs_tiles_param(SPEC)
+    ladder = torch.tensor(ALPHAS, device=dev)[:, None].expand(6, B)
+    for alphas, emit in ((ladder.contiguous(), False), (al, True)):
+        kw = dict(model=model, emit_traj=emit)
+        n0 = fk.forward_lanes.launches
+        k = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0, x0,
+                             alphas, par, lanes, **kw)
+        assert fk.forward_lanes.launches == n0 + 1
+        p = fk.forward_lanes_ref(torch.zeros((T, 5, B), device=dev), gains0,
+                                 x0, alphas, par, lanes, lims=None, **kw)
+        torch.testing.assert_close(k.totals, p.totals, rtol=1e-5, atol=1e-5)
+        if emit:
+            torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+            assert (k.traj[:, 4].abs() <= lanes[1]).all()
+            assert (k.traj[:, 4].abs() == lanes[1]).any()
+    lam = torch.linspace(0.0, 3.0, B, device=dev)
+    for emit in ("gains", "full"):
+        kw = dict(n=4, m=1, reg_type=2, lims=None, derivs_tiles=tiles,
+                  params=par, lims_lanes=lanes, emit=emit)
+        k = bk.backward_lanes(traj, lam, **kw)
+        p = bk.backward_lanes_ref(traj, lam, **kw)
+        torch.testing.assert_close(k.out, p.out, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(k.stats[:2], p.stats[:2], rtol=1e-5,
+                                   atol=1e-5)
+        assert torch.equal(k.stats[2:], p.stats[2:])
+    bo = bk.backward_lanes(traj, lam, n=4, m=1, reg_type=2, lims=None,
+                           derivs_tiles=tiles, params=par, lims_lanes=lanes,
+                           emit="gains")
+    tot = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0, x0, al,
+                           par, lanes, model=model).totals[0]
+    allow = (torch.arange(B, device=dev) % 2 == 0).float()
+    sel = torch.stack([bo.stats[0], bo.stats[1], tot, allow])
+    kw = dict(model=model, alphas=ALPHAS, lims=None)
+    k = fk.linesearch_lanes(traj, bo.out, x0, sel, par, lanes, **kw)
+    p = fk.linesearch_lanes_ref(traj, bo.out, x0, sel, par, lanes,
+                                reduce_ratio_min=0.0, **kw)
+    torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+    assert torch.equal(k.ls[:2], p.ls[:2])
+    rej = (k.ls[1] < 0.5) | (allow < 0.5)
+    assert torch.equal(k.traj[..., rej], traj[..., rej])
+
+
+def test_homogeneous_rows_are_bit_identical_to_static(dev):
+    """Every params row the spec's (l, d), every lims_lanes row ±5: the
+    PendCartParam instances and the per-scenario limits give the static
+    pendcart instances' bits, in K3, K1 and K2."""
+    x0, gains0, al = _rollout(dev)
+    par = torch.tensor([[SPEC.l], [SPEC.d]], device=dev).expand(2, B)
+    par = par.contiguous()
+    lanes = torch.tensor([[-5.0], [5.0]], device=dev).expand(2, B)
+    lanes = lanes.contiguous()
+    fixed, param = tpc.pendcart_lanes(SPEC), tpc.pendcart_lanes_param(SPEC)
+    z = torch.zeros((T, 5, B), device=dev)
+    ref = fk.forward_lanes(z, gains0, x0, al, model=fixed, lims=LIMS,
+                           emit_traj=True)
+    for args, model in (((par, lanes), param), ((None, lanes), fixed),
+                        ((par, None), param)):
+        lims = None if args[1] is not None else LIMS
+        out = fk.forward_lanes(z, gains0, x0, al, *args, model=model,
+                               lims=lims, emit_traj=True)
+        assert torch.equal(out.traj, ref.traj)
+        assert torch.equal(out.totals, ref.totals)
+    lam = torch.linspace(0.0, 3.0, B, device=dev)
+    for emit in ("gains", "full"):
+        r = bk.backward_lanes(ref.traj, lam, n=4, m=1, reg_type=2, lims=LIMS,
+                              derivs_tiles=tpc.pendcart_derivs_tiles(SPEC),
+                              emit=emit)
+        o = bk.backward_lanes(ref.traj, lam, n=4, m=1, reg_type=2, lims=None,
+                              derivs_tiles=tpc.pendcart_derivs_tiles_param(
+                                  SPEC), params=par, lims_lanes=lanes,
+                              emit=emit)
+        assert torch.equal(o.out, r.out) and torch.equal(o.stats, r.stats)
+    allow = (torch.arange(B, device=dev) % 2 == 0).float()
+    sel = torch.stack([r.stats[0], r.stats[1], ref.totals[0], allow])
+    g = r.out[:, :5].contiguous()
+    a = fk.linesearch_lanes(ref.traj, g, x0, sel, model=fixed, alphas=ALPHAS,
+                            lims=LIMS)
+    b = fk.linesearch_lanes(ref.traj, g, x0, sel, par, lanes, model=param,
+                            alphas=ALPHAS)
+    assert torch.equal(a.traj, b.traj) and torch.equal(a.ls, b.ls)
+
+
+@pytest.mark.parametrize("n_alphas", [6, 4])
+@pytest.mark.parametrize("hetero", [False, True])
+def test_linesearch_in_place_is_bit_equal_to_fresh(dev, hetero, n_alphas):
+    """K2 in place (no __restrict__ on the aliased stream) writes the fresh
+    launch's bits into the input stream and returns it, with the headline's
+    6-α ladder and the MPC tier's 4-α one."""
+    if hetero:
+        par, lanes, x0, _, _, model, traj = _hetero(dev)
+        tiles = tpc.pendcart_derivs_tiles_param(SPEC)
+    else:
+        x0, gains0, al = _rollout(dev)
+        par = lanes = None
+        model, tiles = tpc.pendcart_lanes(SPEC), tpc.pendcart_derivs_tiles(SPEC)
+        traj = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0,
+                                x0, al, model=model, lims=LIMS,
+                                emit_traj=True).traj
+    lims = None if hetero else LIMS
+    bo = bk.backward_lanes(traj, torch.ones(B, device=dev), n=4, m=1,
+                           reg_type=2, lims=lims, derivs_tiles=tiles,
+                           params=par, lims_lanes=lanes, emit="gains")
+    tot = traj[:, 5].sum(dim=0)
+    sel = torch.stack([bo.stats[0], bo.stats[1], tot, torch.ones_like(tot)])
+    alphas = ALPHAS if n_alphas == 6 else default_alphas(0.2, -3.0, 4)
+    kw = dict(model=model, alphas=alphas, lims=lims)
+    fresh = fk.linesearch_lanes(traj, bo.out, x0, sel, par, lanes, **kw)
+    plain = fk.linesearch_lanes_ref(traj, bo.out, x0, sel, par, lanes,
+                                    reduce_ratio_min=0.0, **kw)
+    torch.testing.assert_close(fresh.traj, plain.traj, rtol=1e-5, atol=1e-5)
+    assert torch.equal(fresh.ls[:2], plain.ls[:2])
+    buf = traj.clone()
+    n0 = fk.linesearch_lanes.launches
+    inp = fk.linesearch_lanes(buf, bo.out, buf[0, :4], sel, par, lanes,
+                              in_place=True, **kw)
+    assert fk.linesearch_lanes.launches == n0 + 1
+    assert inp.traj.data_ptr() == buf.data_ptr()
+    assert torch.equal(buf, fresh.traj) and torch.equal(inp.ls, fresh.ls)
+    assert not torch.equal(fresh.traj, traj)
+    # a stream with more slots than [x, u, c] is never aliased (JAX :611)
+    wide = torch.cat([traj, torch.zeros((T, 1, B), device=dev)], dim=1)
+    out = fk.linesearch_lanes(wide, bo.out, x0, sel, par, lanes,
+                              in_place=True, **kw)
+    assert out.traj.data_ptr() != wide.data_ptr()
+    assert torch.equal(out.traj, fresh.traj)
+
+
+def test_lti_per_scenario_limits_match_plain_and_static(dev):
+    """LTI ⟨10,2⟩ with a per-scenario box on each control: K1 (the m=2
+    enumeration reading each lane's box), K3 and K2 against their plain
+    versions; rows all ±0.6 give the static instances' bits."""
+    _, model, tiles, x0, gains0, al = _lti(dev)
+    rng = np.random.default_rng(5)
+    lanes = torch.tensor(np.stack([-rng.uniform(0.3, 0.9, B),
+                                   rng.uniform(0.3, 0.9, B),
+                                   -rng.uniform(0.3, 0.9, B),
+                                   rng.uniform(0.3, 0.9, B)]),
+                         dtype=torch.float32, device=dev)
+    z = torch.zeros((T, 12, B), device=dev)
+    k = fk.forward_lanes(z, gains0, x0, al, None, lanes, model=model,
+                         emit_traj=True)
+    p = fk.forward_lanes_ref(z, gains0, x0, al, None, lanes, model=model,
+                             lims=None, emit_traj=True)
+    torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+    traj = k.traj
+    lam = torch.logspace(-6, 2, B, device=dev)
+    for emit in ("gains", "full"):
+        kw = dict(n=10, m=2, reg_type=2, lims=None, derivs_tiles=tiles,
+                  lims_lanes=lanes, emit=emit)
+        kb = bk.backward_lanes(traj, lam, **kw)
+        pb = bk.backward_lanes_ref(traj, lam, **kw)
+        # the m=2 near-ties (module docstring of test_torch_lti_kernels):
+        # at most 1% of the elements part by more than 1e-5
+        far = ~torch.isclose(kb.out, pb.out, rtol=1e-5, atol=1e-5)
+        assert far.float().mean() <= 0.01
+        assert torch.equal(kb.stats[2:], pb.stats[2:])
+    u = traj[:-1, 10:12]
+    kk = kb.out[:-1, :2]
+    on = (kk == lanes[0::2] - u) | (kk == lanes[1::2] - u)
+    assert on[:, 0].any() and on[:, 1].any()
+    sel = torch.stack([kb.stats[0], kb.stats[1], k.totals[0],
+                       torch.ones(B, device=dev)])
+    kl = fk.linesearch_lanes(traj, kb.out, x0, sel, None, lanes, model=model,
+                             alphas=ALPHAS)
+    pl = fk.linesearch_lanes_ref(traj, kb.out, x0, sel, None, lanes,
+                                 model=model, alphas=ALPHAS,
+                                 reduce_ratio_min=0.0, lims=None)
+    torch.testing.assert_close(kl.traj, pl.traj, rtol=1e-5, atol=1e-5)
+    # homogeneous rows ≡ static limits, bit for bit
+    same = torch.tensor([[-0.6], [0.6], [-0.6], [0.6]],
+                        device=dev).expand(4, B).contiguous()
+    s = bk.backward_lanes(traj, lam, n=10, m=2, reg_type=2, lims=LTI_LIMS,
+                          derivs_tiles=tiles, emit="full")
+    o = bk.backward_lanes(traj, lam, n=10, m=2, reg_type=2, lims=None,
+                          derivs_tiles=tiles, lims_lanes=same, emit="full")
+    assert torch.equal(s.out, o.out) and torch.equal(s.stats, o.stats)
+
+
+def test_mpc_rollout_on_card_matches_cpu(dev):
+    """mpc_rollout_lanes (warm-started bounded re-solves, K2 fresh) on CUDA
+    tensors against CPU tensors, and ilqg_iteration_lanes (K2 in place)."""
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_iteration_lanes, mpc_rollout_lanes)
+    x0, _, _ = _rollout(dev)
+    Bs = 16
+    x0s = x0.T.contiguous()[:Bs]
+    rng = np.random.default_rng(9)
+    u0s = torch.tensor(0.1 * rng.standard_normal((Bs, T, 1)),
+                       dtype=torch.float32, device=dev)
+    cfg = ILQGConfig(alphas=default_alphas(0.2, -3.0, 4), reg_type=2,
+                     lam_max=1e15, max_iter=5, iter_cap=9)
+    prob = tpc.make_pendcart_problem(SPEC, "euler", device=dev)
+    model, tiles = tpc.pendcart_lanes(SPEC), tpc.pendcart_derivs_tiles(SPEC)
+    lims = ((-10.0, 10.0),)
+    g = mpc_rollout_lanes(model, None, x0s, u0s,
+                          lambda x, u: prob.dynamics(x, u, 0), 3, lims=lims,
+                          cfg=cfg, derivs_tiles=tiles)
+    prob_c = tpc.make_pendcart_problem(SPEC, "euler", device="cpu")
+    c = mpc_rollout_lanes(model, None, x0s.cpu(), u0s.cpu(),
+                          lambda x, u: prob_c.dynamics(x, u, 0), 3,
+                          lims=lims, cfg=cfg, derivs_tiles=tiles)
+    assert g[2].shape == (3, Bs, 4) and g[4].shape == (3, Bs)
+    torch.testing.assert_close(g[4].cpu(), c[4], rtol=1e-3, atol=0)
+    torch.testing.assert_close(g[2].cpu(), c[2], rtol=1e-3, atol=1e-4)
+    # the MPC step on the plan: K2 in place, fleet cost never rises
+    step = ilqg_iteration_lanes(model, None, lims, cfg, derivs_tiles=tiles)
+    gains = torch.cat([to_streams(g[1]), torch.zeros((T, 4, Bs), device=dev)],
+                      dim=1)
+    ro = fk.forward_lanes(torch.zeros((T, 5, Bs), device=dev), gains,
+                          g[0].T.contiguous(), torch.ones((1, Bs), device=dev),
+                          model=model, lims=lims, emit_traj=True)
+    traj, tot = ro.traj, ro.totals[0]
+    lam = torch.full((Bs,), cfg.lam, device=dev)
+    for _ in range(3):
+        ptr = traj.data_ptr()
+        traj, tot_n, lam = step(traj, tot, lam)
+        assert traj.data_ptr() == ptr
+        assert (tot_n <= tot + 1e-4 * tot.abs()).all()
+        tot = tot_n

@@ -186,7 +186,6 @@ def test_kl_pd_failure_matches_jax(pd_failed):
     (dict(adam0_in=np.zeros((B, 2, T))), "adam0_in"),
     (dict(it0=3), "it0"),
     (dict(max_steps=2), "max_steps"),
-    (dict(lims=np.tile([[-5.0, 5.0]], (B, 1, 1))), "per-scenario lims"),
 ])
 def test_kl_out_of_slice_options_raise(kwargs, option):
     inp = kl_inputs(B=B, T=4)
