@@ -9,10 +9,13 @@ ends the run with a non-zero exit and no result line:
 
 1. device: torch/CUDA versions and the card's name and power limit;
 2. build: the kernels from ``ops/hopper/csrc`` with nvcc, one process per
-   source, and each instance's registers and spills;
+   source, and each instance's registers and spills, with the launch plan
+   (blocks, threads, steps a chunk, ring stages, shared bytes) of each K1
+   and K2 instance at its path's shapes;
 3. iLQG kernels (K3, K1, K2) against their plain PyTorch versions on the
    card at the main path's shapes (B=4096, T=500), with errors and
-   CUDA-event timings;
+   CUDA-event timings; pendcart and PendCartParam K1/K2 (here and in
+   phases 21 and 23) must be bit-identical to their plain versions;
 4. the iLQG main path: ``ilqg_batch_lanes`` on pendcart with the headline
    settings, with launch counts, cost statistics and ms per iteration, and
    the bit-exact α=0 retrace of rejected lanes;
@@ -300,10 +303,20 @@ def compare_slots_ties(name: str, a: torch.Tensor, b: torch.Tensor,
     return mx
 
 
+def check_bits(name: str, *pairs) -> None:
+    """Kernel against plain version where both run the same f32 operations
+    in the same order and the plain pendcarts divide as the kernels do
+    (``models/pendcart.py::_over``): every output bit for bit."""
+    same = all(torch.equal(a, b) for a, b in pairs)
+    print(f"  {name}: bit-identical to the plain version: {same}")
+    check(same, f"{name}: not bit-identical to its plain version")
+
+
 def compare_k1(what: str, k, p) -> float:
-    """K1 ⟨4,1⟩ (gains or full emission) against its plain version: the
-    stream and dV to KERNEL_TOL, Quu⁻¹ to QUU_INV_TOL, the divergence flags
-    exactly. Returns the max abs error."""
+    """K1 ⟨4,1⟩ (pendcart or PendCartParam, gains or full emission) against
+    its plain version: the stream and dV to KERNEL_TOL, Quu⁻¹ to
+    QUU_INV_TOL, the divergence flags exactly, and then every output bit
+    for bit. Returns the max abs error."""
     errs = [compare(what, {"out": (k.out[:, :26], p.out[:, :26]),
                            "dV": (k.stats[:2], p.stats[:2])})]
     if k.out.shape[1] == 27:
@@ -311,6 +324,7 @@ def compare_k1(what: str, k, p) -> float:
                             QUU_INV_TOL))
     check(torch.equal(k.stats[2:], p.stats[2:]),
           f"{what}: diverged/diverge_idx differ")
+    check_bits(what, (k.out, p.out), (k.stats, p.stats))
     return max(errs)
 
 
@@ -379,6 +393,32 @@ def ptxas_summary(log: str):
             out.append(f"{name}: {regs} registers; {spill}")
             name, spill = None, ""
     return out
+
+
+# K1's and K2's instances: (n, m, T of the path the plan is printed for)
+RING_PATHS = {"PendCart": (4, 1, T), "PendCartParam": (4, 1, T),
+              "Autodiff<PendCart>": (4, 1, T), "LTI<10,2>": (10, 2, 1000),
+              "Autodiff<Quadrotor>": (6, 2, 400), "Quadrotor": (6, 2, 400)}
+
+
+def with_plan(line: str) -> str:
+    """A ptxas line of a ring-fed instance (K1 backward_kernel, K2
+    linesearch_kernel) with its launch plan (ops/hopper/plan.py) at its
+    path's shapes: blocks × threads, steps a chunk, stages, shared bytes."""
+    import re
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    m = re.match(r"(backward|linesearch)_kernel<(Autodiff<\w+>|LTI<10,2>|"
+                 r"\w+)(?:, (\d+), (\d+))?>", line)
+    if not m or m.group(2) not in RING_PATHS:
+        return line
+    n, mm, Tp = RING_PATHS[m.group(2)]
+    if m.group(1) == "backward":
+        emit = ("gains", "full", "policy")[int(m.group(3))]
+        p, at = plan.backward_plan(n, mm, m.group(4) == "1", emit, Tp, B), ""
+    else:
+        p, at = plan.linesearch_plan(n, mm, 6, Tp, B), ", A=6"
+    return (f"{line} | plan at B={B}, T={Tp}{at}: {p.blocks}×{p.threads} "
+            f"threads, tc {p.tc}, {p.stages} stages, {p.smem} shared bytes")
 
 
 def once_ms(fn) -> float:
@@ -1787,6 +1827,7 @@ def hetero_phases(ph, dev, rec, counters, ilqg) -> dict:
                                       "totals": (k.ls[4], p.ls[4])})
     check(torch.equal(k.ls[:2], p.ls[:2]),
           "PendCartParam K2: al_sel/any_ok differ")
+    check_bits("PendCartParam K2", (k.traj, p.traj), (k.ls, p.ls))
     out = ls(False, torch.stack([bo.stats[0], bo.stats[1], tot,
                                  torch.zeros_like(tot)]))
     check(torch.equal(out.traj, traj),
@@ -1872,6 +1913,8 @@ def hetero_phases(ph, dev, rec, counters, ilqg) -> dict:
         "traj": (k.traj, p.traj), "totals": (k.ls[4], p.ls[4])})
     check(torch.equal(k.ls[:2], p.ls[:2]),
           "pendcart K2 with per-scenario limits: al_sel/any_ok differ")
+    check_bits("pendcart K2, per-scenario limits", (k.traj, p.traj),
+               (k.ls, p.ls))
     ms1_pc = cuda_ms(lambda: bwd("gains", False, ftiles,
                                  dict(lims_lanes=lanes), None, kf.traj), 20)
     ms2_pc = cuda_ms(lambda: ls(False, sel_f, fixed, (None, lanes), None,
@@ -1902,6 +1945,8 @@ def hetero_phases(ph, dev, rec, counters, ilqg) -> dict:
     e_ip = compare("pendcart K2 in place", {
         "traj": (buf, plain_ip.traj), "totals": (inp.ls[4],
                                                  plain_ip.ls[4])})
+    check_bits("pendcart K2 in place", (buf, plain_ip.traj),
+               (inp.ls, plain_ip.ls))
     ms_ip = cuda_ms(lambda: ls(False, sel_h, fixed, (), LIMS, buf, g_f,
                                in_place=True), 20)
     ms_fr = cuda_ms(lambda: ls(False, sel_h, fixed, (), LIMS, ref.traj, g_f),
@@ -2261,6 +2306,7 @@ def mpc_phases(ph, dev, rec, counters) -> dict:
                                          "totals": (k2.ls[4], p2.ls[4])})
         check(torch.equal(k2.ls[:2], p2.ls[:2]),
               f"{what} K2 A={A}: al_sel/any_ok differ")
+        check_bits(f"{what} K2 A={A}", (k2.traj, p2.traj), (k2.ls, p2.ls))
         print(f"  {what} K2: {int((k2.ls[1] > 0.5).sum())} of {B} lanes "
               f"accept")
         ms3 = cuda_ms(lambda: fwd(False), 20)
@@ -2554,7 +2600,7 @@ def main() -> int:
     built = _build.build()
     print(f"  nvcc build: {built.seconds:.1f} s -> {built.path.name}")
     for line in ptxas_summary(built.log):
-        print("  " + line)
+        print("  " + with_plan(line))
     _build.library()
 
     ph.start("ilqg-kernels", f"vs plain versions, B={B}, T={T}")
@@ -2630,6 +2676,7 @@ def main() -> int:
                 "Quu_inv": (k.out[:, 26], p.out[:, 26])}, QUU_INV_TOL))
         check(torch.equal(k.stats[2:], p.stats[2:]),
               f"K1 {emit}: diverged/diverge_idx differ")
+        check_bits(f"K1 {emit}", (k.out, p.out), (k.stats, p.stats))
     gains = k.out[:, :5].contiguous()
     dV = k.stats[:2]
     # a concave control cost makes Quu ≤ 0 where λ·fuᵀfu cannot lift it:
@@ -2674,6 +2721,7 @@ def main() -> int:
     e = compare("K2 rr_min=0", {"traj": (k.traj, p.traj),
                                 "totals": (k.ls[4], p.ls[4])})
     check(torch.equal(k.ls[:2], p.ls[:2]), "K2: al_sel/any_ok differ")
+    check_bits("K2", (k.traj, p.traj), (k.ls, p.ls))
     n_acc = int(((k.ls[1] > 0.5) & (allow > 0.5)).sum())
     print(f"  K2: {n_acc} of {B} lanes accept")
     ms = cuda_ms(lambda: ls(False), 20)

@@ -31,12 +31,13 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every source the library is built from, headers included, so that the
 # library's hash changes with any of them; each .cu is one nvcc process
-SOURCES = ("common.cuh", "autodiff.cuh", "pendcart.cuh", "lti.cuh",
-           "quadrotor.cuh", "backward.cuh", "forward.cuh", "backward.cu",
-           "backward_lti.cu", "backward_lti_gps.cu", "backward_quad.cu",
-           "backward_pendcart_ad.cu", "backward_pendcart_param.cu",
-           "forward.cu", "forward_lti.cu", "forward_quad.cu",
-           "forward_pendcart_param.cu", "covariance.cu", "probe.cu")
+SOURCES = ("common.cuh", "ring.cuh", "autodiff.cuh", "pendcart.cuh",
+           "lti.cuh", "quadrotor.cuh", "backward.cuh", "forward.cuh",
+           "backward.cu", "backward_lti.cu", "backward_lti_gps.cu",
+           "backward_quad.cu", "backward_pendcart_ad.cu",
+           "backward_pendcart_param.cu", "forward.cu", "forward_lti.cu",
+           "forward_quad.cu", "forward_pendcart_param.cu", "covariance.cu",
+           "probe.cu")
 # compile flags of every source; the objects are then linked with -shared
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -53,15 +54,18 @@ _F = ctypes.c_float
 # (P, B) or null, P, model id, n, m, descriptor, descriptor size, device,
 # stream
 _MODEL = (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P)
+# K1's and K2's launch plan before the device: blocks, threads, steps a
+# chunk, ring stages, shared bytes (plan.py)
+_PLAN = (_I,) * 5
 SIGNATURES = {
-    # K1 takes one more model argument before the device: whether its
+    # K1 takes one more model argument before the plan: whether its
     # derivatives are made by autodiff (the Autodiff<Body> instances)
     "ddp_backward_lanes": (_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                           _I) + _MODEL[:9] + (_I,) + _MODEL[9:],
+                           _I) + _MODEL[:9] + (_I,) + _PLAN + _MODEL[9:],
     "ddp_forward_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
                           _I, _I) + _MODEL,
     "ddp_linesearch_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _F, _P,
-                             _P, _I, _I) + _MODEL,
+                             _P, _I, _I) + _MODEL[:9] + _PLAN + _MODEL[9:],
     "ddp_covariance_lanes": (_P, _P, _I, _I, _I, _P, _I, _P),
     "ddp_probe_lanes": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
 }

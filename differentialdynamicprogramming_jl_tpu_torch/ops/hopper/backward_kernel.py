@@ -12,8 +12,9 @@ emission.
 :func:`backward_lanes` gives a CPU tensor to :func:`backward_lanes_ref`, the
 plain PyTorch version (vectorised over B, Python loop over t, in the
 kernel's operation order), and a CUDA tensor to the hand-written kernel in
-``csrc/backward.cu``, or raises. There is no fallback. Launches are counted
-in ``backward_lanes.launches``.
+``csrc/backward.cu``, or raises. There is no fallback. Its launch plan
+(block shape and shared-memory ring) comes from :mod:`.plan`. Launches are
+counted in ``backward_lanes.launches``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import _build
+from .plan import backward_plan
 from .forward_kernel import (DeviceModel, bounds, check_lanes, check_slice,
                              cuda_args, par_args)
 
@@ -476,12 +478,13 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     S = OutLayout(n, m, emit).S
     out = torch.empty((T, S, B), dtype=torch.float32, device=traj.device)
     stats = torch.empty((4, B), dtype=torch.float32, device=traj.device)
+    plan = backward_plan(n, m, gps, emit, T, B)
     rc = lib.ddp_backward_lanes(
         traj.data_ptr(), S_in, lam.data_ptr(),
         prev.data_ptr() if gps else None, eta.data_ptr() if gps else None,
         out.data_ptr(), S, stats.data_ptr(), T, B, EMIT_CODE[emit], reg_type,
         int(lims is not None or lims_lanes is not None), *model_args,
-        int(dm.autodiff), dev, stream)
+        int(dm.autodiff), *plan.launcher_args(), dev, stream)
     _build.check(lib, rc, "backward_lanes")
     backward_lanes.launches += 1
     return BackwardLanesOut(out=out, stats=stats)

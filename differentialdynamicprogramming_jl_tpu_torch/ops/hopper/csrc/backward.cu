@@ -7,7 +7,8 @@
 // backward_quad.cu and backward_pendcart_ad.cu, so that nvcc builds them in
 // parallel. A model with autodiff set runs its autodiff instance or none:
 // never its analytic one. Per-scenario limits (lims_lanes) are a runtime
-// input of every instance.
+// input of every instance. The launch plan (blocks, threads, tc, stages,
+// shared bytes; ops/hopper/plan.py) is checked by the instance's launcher.
 #include "backward.cuh"
 #include "lti.cuh"
 #include "pendcart.cuh"
@@ -22,7 +23,9 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                                   const float* params, int n_params,
                                   int model_id, int n, int m,
                                   const float* consts, int n_consts,
-                                  int autodiff, int device, void* stream) {
+                                  int autodiff, int blocks, int threads,
+                                  int tc, int stages, int smem, int device,
+                                  void* stream) {
   using namespace ddp;
   const bool gps = prev != nullptr;
   if (T < 2 || B < 1 || s_in < n + m || s_out != out_slots(emit, n, m) ||
@@ -47,6 +50,7 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                   lims_lanes,
                   params,
                   consts,
+                  RingPlan{blocks, threads, tc, stages, smem},
                   static_cast<cudaStream_t>(stream)};
   using LTI10x2 = LTI<10, 2>;
   const bool pendcart = model_id == PendCart::ID && n == PendCart::N &&

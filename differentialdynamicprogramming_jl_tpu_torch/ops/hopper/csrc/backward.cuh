@@ -20,30 +20,45 @@
 // (backward_quad.cu) and pendcart ⟨4,1⟩ (backward_pendcart_ad.cu).
 //
 // Layout: every stream is (T, S, B) f32 with the scenario axis contiguous.
-// One thread owns one scenario and walks t = T-1 .. 0 inside the kernel,
-// with Vx[N], Vxx[N][N], dV1, dV2 and the divergence latch in registers.
-// This loop takes the place of the TPU's sequential grid axis and its VMEM
-// scratch. Output slots follow OutLayout: k[M], K[M][N] ("gains"), then
-// Vx[N], Vxx[N][N] ("full" only), then Quu[M][M], Quu⁻¹[M][M] ("full" and
-// "policy"). Stats (4, B): dV1, dV2, diverged, diverge_idx. GPS mode also
-// reads the previous-policy stream prev (T, M+M·N+M², B) [k[M], K[M][N],
-// Σ⁻¹[M][M]] and the dual eta (T, B). Its K and Σ⁻¹ slots are read where
-// the KL expansion consumes them, column by column of Σ⁻¹K, so that no
-// M×N block of the expansion is held across the step.
+// A block owns 32 scenarios: lane l of each warp works on scenario
+// 32·blockIdx.x + l. Its compute warps walk t = T-1 .. 0 inside the
+// kernel, with Vx[N], Vxx[N][N], dV1, dV2 and the divergence latch in
+// registers; this loop takes the place of the TPU's sequential grid axis
+// and its VMEM scratch. There are K1_WARPS of them: one, or four where n ≥
+// 8 and "full" emission or GPS mode gives a step n×n work beyond the
+// recursion's own. Four warps split W = Vxx·fx, U = Vxx·fu, Qxx and Vraw by
+// rows, each element summed from a = 0 by the warp that owns its row, and
+// exchange them through shared memory after the ring at two barriers a
+// step; every warp forms the n- and m-sized terms itself. The step inputs
+// (the x,u slots of the trajectory; in GPS mode also the previous policy's
+// slots and η) are staged in descending chunks of tc steps in a
+// shared-memory ring of `stages` stages (ring.cuh), which one more warp,
+// the producer, fills with cp.async stages-1 chunks ahead; it meets the
+// compute warps at two barriers a chunk, so the copies add no code and no
+// live registers to the compute loop (with the copies in it, LTI's stack
+// frame grew from ≈650 to ≈1000 bytes). The plan comes from
+// ops/hopper/plan.py. Output slots follow OutLayout: k[M], K[M][N]
+// ("gains"), then Vx[N], Vxx[N][N] ("full" only), then Quu[M][M],
+// Quu⁻¹[M][M] ("full" and "policy"), each a coalesced 128-byte row of a
+// warp's stores. Stats (4, B): dV1, dV2, diverged, diverge_idx. GPS mode
+// also reads the previous-policy stream prev (T, M+M·N+M², B) [k[M],
+// K[M][N], Σ⁻¹[M][M]] and the dual eta (T, B); its K and Σ⁻¹ slots are read
+// from the ring where the KL expansion consumes them.
 //
 // What bounds it. Pendcart ⟨4,1⟩ at B=4096, T=500: one launch reads the
 // x,u slots (≈41 MB), in GPS mode also prev and eta (≈57 MB), and writes
-// the gains (≈41 MB), policy (≈57 MB) or full stream (≈221 MB); ≈0.5 kflop
-// per scenario-step, so it is bandwidth-bound once occupancy allows. LTI
-// ⟨10,2⟩ at B=4096, T=1000: ≈7.5 kflop per scenario-step (W = Vxx·fx and
-// Qxx = fxᵀ·W are n³ each), ≈31 GFLOP a launch against ≈557 MB moved
-// ("gains"), so it is compute-bound; Vx, Vxx, W and Qxx do not fit in 255
-// registers and spill. GPS mode at ⟨10,2⟩ adds ≈0.7 kflop a step and the
-// 26-slot prev stream and η (≈1.1 GB a launch with "policy" emission), and
-// stays compute-bound. Either way B=4096 threads in blocks of 128 give 32
-// blocks for 132 SMs, one warp per SM, and each step's loads and its
-// dependent chain of arithmetic are exposed latency. Spreading a scenario
-// over several threads, or Vxx in shared memory, is work for later changes.
+// the gains (≈41 MB), policy (≈57 MB) or full stream (≈221 MB): 0.025-0.08
+// ms at 3.35 TB/s, against ≈0.5 kflop per scenario-step. LTI ⟨10,2⟩ at
+// B=4096, T=1000: ≈7.5 kflop per scenario-step (W = Vxx·fx and Qxx =
+// fxᵀ·W are n³ each), ≈31 GFLOP a launch against ≈557 MB moved ("gains"),
+// so its bound is the operations; Vx, Vxx, W and Qxx do not fit in 255
+// registers and spill. At B=4096 the grid is 128 blocks on 128 SMs, and no
+// step waits on device memory. What is left is each scenario's chain of
+// dependent operations, T steps long: for the pendcart ≈750 instructions a
+// step issued at ≈0.44 a cycle by its one warp, because each IEEE division
+// (≈8 a step) and sinf/cosf carry a slow-path branch that cuts the step
+// into blocks the compiler cannot interleave. Four warps repeat that chain
+// in each of them, and measured slower there (PERF.md §6).
 //
 // Semantics kept from the TPU kernel (backward_kernel.py line numbers):
 // - every sum over a (state) or mi (control) runs in the JAX order, from its
@@ -71,7 +86,7 @@
 //   recursion (:570-572, :605-612).
 #pragma once
 
-#include "common.cuh"
+#include "ring.cuh"
 
 namespace ddp {
 
@@ -102,35 +117,33 @@ struct BwdArgs {
   const float* lims_lanes;   // (2m, B) per-scenario limits, or null
   const float* params;       // (P, B) per-scenario parameters, or null
   const float* consts;   // host copy of the model descriptor
+  RingPlan plan;         // the launch plan (ops/hopper/plan.py)
   cudaStream_t stream;
 };
 
 namespace {
 
-constexpr int BWD_THREADS = 128;
-
-// GPS mode at one step: the dual η (a zero counts as 1) and the previous
-// policy's slots [k[M], K[M][N], Σ⁻¹[M][M]] of scenario b
+// GPS mode at one step: the previous policy's slots [k[M], K[M][N],
+// Σ⁻¹[M][M]] of one scenario, read from its ring column (slot stride
+// RING_W)
 template <int N, int M>
 struct PrevStep {
   static constexpr int S = M + M * N + M * M;
   const float* p;
-  size_t sB;
-  __device__ __forceinline__ PrevStep(const float* prev, int t, int b,
-                                      size_t sB_)
-      : p(prev + (size_t)t * S * sB_ + b), sB(sB_) {}
-  __device__ __forceinline__ float k(int mi) const { return p[mi * sB]; }
+  __device__ __forceinline__ explicit PrevStep(const float* p_) : p(p_) {}
+  __device__ __forceinline__ float k(int mi) const {
+    return p[mi * RING_W];
+  }
   __device__ __forceinline__ float K(int mi, int j) const {
-    return p[(M + mi * N + j) * sB];
+    return p[(M + mi * N + j) * RING_W];
   }
   __device__ __forceinline__ float Si(int mi, int mj) const {
-    return p[(M + M * N + mi * M + mj) * sB];
+    return p[(M + M * N + mi * M + mj) * RING_W];
   }
 };
 
-__device__ __forceinline__ float read_eta(const float* __restrict__ eta,
-                                          int t, int b, size_t sB) {
-  const float e = eta[(size_t)t * sB + b];
+// the dual η of a step; a zero counts as 1
+__device__ __forceinline__ float eta_or_one(float e) {
   return e == 0.0f ? 1.0f : e;
 }
 
@@ -190,8 +203,49 @@ __device__ __forceinline__ bool boxqp_m2(const float (&Q)[2][2],
          (!f0 && !f1);
 }
 
+// Compute warps of a K1 block, a trait of the instance
+// (ops/hopper/plan.py::k1_warps); the producer warp is one more. Four where
+// the state is large (n ≥ 8) and a step holds n×n work beyond the
+// recursion's own: the Vxx stores of "full" emission, the KL terms of GPS
+// mode. Elsewhere one warp, whose step is a chain of dependent operations
+// that more warps would only repeat (measured with tools_torch/kernel_ab.py,
+// PERF.md §6). A variable template, not a constexpr function: device code
+// may not call a host one.
+template <int N, int EMIT, bool GPS>
+constexpr int K1_WARPS = N >= 8 && (GPS || EMIT == EMIT_FULL) ? 4 : 1;
+
+// compute warp Q's role, a compile-time constant: it owns rows Q, Q+G, ...
+// of Vxx, Qxx and Vraw
+template <int Q>
+struct Role {
+  static constexpr int q = Q;
+};
+
+// f(Role<q>{}) for the compute warp's index q < G (warp-uniform)
+template <int G, class Fn>
+__device__ __forceinline__ void by_role(int q, Fn&& f) {
+  static_assert(G == 1 || G == 4, "one or four roles");
+  if constexpr (G == 1) {
+    f(Role<0>{});
+  } else {
+    switch (q) {
+      case 0: f(Role<0>{}); break;
+      case 1: f(Role<1>{}); break;
+      case 2: f(Role<2>{}); break;
+      default: f(Role<3>{}); break;
+    }
+  }
+}
+
+// the compute warps' barrier before they read each other's rows; one
+// warp reads only what its own threads wrote
+template <int G>
+__device__ __forceinline__ void rows_bar() {
+  if constexpr (G > 1) named_bar(1, RING_W * G);
+}
+
 template <class Model, int EMIT, bool GPS>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(RING_W * (4 + 1))   // ≤ 4 compute warps
 backward_kernel(const float* __restrict__ traj, int s_in,
                 const float* __restrict__ lam,
                 const float* __restrict__ prev, const float* __restrict__ eta,
@@ -199,25 +253,95 @@ backward_kernel(const float* __restrict__ traj, int s_in,
                 float* __restrict__ stats, int T, int B, int reg_type,
                 bool use_limits, Lims lims,
                 const float* __restrict__ lims_lanes,
-                const float* __restrict__ params, typename Model::Consts mc) {
+                const float* __restrict__ params, typename Model::Consts mc,
+                int tc, int stages, bool vec) {
   constexpr int N = Model::N, M = Model::M;
   static_assert(M >= 1 && M <= MAX_M, "K1 is written for m = 1 or 2");
   constexpr bool VALUE = EMIT == EMIT_FULL;     // Vx, Vxx slots
   constexpr bool QUU = EMIT != EMIT_GAINS;      // Quu, Quu⁻¹ slots
   constexpr int OV = M + M * N;                 // Vx's slot
   constexpr int OQ = VALUE ? OV + N + N * N : OV;   // Quu's slot
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t sB = (size_t)B;
-  const Model P = make_model<Model>(mc, params, b, sB);
-  const Lims lim = lane_lims<M>(lims, lims_lanes, b, sB);
-  const float lm = lam[b];
-  auto in = [&](int t, int s) { return traj[((size_t)t * s_in + s) * sB + b]; };
-  auto put = [&](int t, int s, float v) {
-    out[((size_t)t * s_out + s) * sB + b] = v;
-  };
+  constexpr int PS = M + M * N + M * M;          // prev slots (GPS)
+  constexpr int F = N + M + (GPS ? PS + 1 : 0);   // ring: [x, u, prev, η]
+  constexpr int G = K1_WARPS<N, EMIT, GPS>;
+  constexpr int ROWS = (N + G - 1) / G;          // rows a compute warp owns
+  constexpr int SW = N + M;                      // exchange: W[a][·], U[a][·]
+  extern __shared__ __align__(16) float ring[];
+  const int warp = threadIdx.x / RING_W, lane = threadIdx.x & (RING_W - 1);
+  const int b0 = blockIdx.x * RING_W, b = b0 + lane;
+  const int cols = min(RING_W, B - b0);
+  // chunk c of the ring: steps T-1-c·tc downwards, at most tc of them
+  const int nc = (T + tc - 1) / tc, stage = tc * F * RING_W;
+  // after the ring: W and U by rows, [a][SW][32], and Vraw, [i][N][32]
+  float* const xw = ring + stages * stage;
+  float* const xv = xw + N * SW * RING_W;
 
-  float Vx[N], Vxx[N][N];
+  if (warp == G) {
+    // the producer warp: keeps stages-1 chunks in flight ahead of the
+    // compute warps; two barriers a chunk, as theirs
+    auto issue = [&](int c) {
+      if (c < nc) {
+        const int th = T - 1 - c * tc, steps = min(tc, th + 1);
+        stage_rows<F>(ring + (c % stages) * stage, steps, cols, vec, lane,
+                      RING_W, [&](int tt, int s) {
+                        const size_t t = (size_t)(th - tt);
+                        const float* row =
+                            s < N + M ? traj + (t * s_in + s) * B
+                            : s < N + M + PS
+                                ? prev + (t * PS + (s - N - M)) * B
+                                : eta + t * B;
+                        return row + b0;
+                      });
+      }
+      cp_async_commit();
+    };
+    for (int c = 0; c < stages - 1; ++c) issue(c);
+    for (int c = 0; c < nc; ++c) {
+      issue(c + stages - 1);       // into the stage consumed at chunk c-1
+      cp_async_wait(stages - 1);   // this lane's copies of chunk c landed
+      __syncthreads();             // chunk c is ready
+      __syncthreads();             // chunk c is consumed
+    }
+    return;
+  }
+
+  // compute warp `warp`: lane l works on scenario b0 + l. Every compute
+  // warp forms the step's vectors and m-sized terms itself; the n×n terms
+  // W, U, Qxx and Vraw are split by rows, each element summed from a = 0 by
+  // the warp that owns its row, and shared through xw and xv
+  const bool live = b < B;
+  // a lane past B reads scenario B-1's inputs and drops its results
+  const int bl = live ? b : B - 1;
+  const size_t sB = (size_t)B;
+  const Model P = make_model<Model>(mc, params, bl, sB);
+  const Lims lim = lane_lims<M>(lims, lims_lanes, bl, sB);
+  const float lm = lam[bl];
+  auto put = [&](int t, int s, float v) {
+    if (live) out[((size_t)t * s_out + s) * sB + b] = v;
+  };
+  // W and U by rows, and Vraw: in registers with one compute warp, else
+  // through the exchange
+  float Wl[G == 1 ? N : 1][SW], VrawR[ROWS][N];
+  auto W = [&](int a, int j) {
+    if constexpr (G == 1) return Wl[a][j];
+    else return xw[(a * SW + j) * RING_W + lane];
+  };
+  auto put_W = [&](int a, int j, float v) {
+    if constexpr (G == 1) Wl[a][j] = v;
+    else xw[(a * SW + j) * RING_W + lane] = v;
+  };
+  int c = 0, pos = 0;              // the chunk, and the step within it
+  int cur = lane;                  // the chunk's stage, this lane's column
+  auto open_chunk = [&]() {
+    if (c > 0) __syncthreads();    // chunk c-1 is consumed
+    __syncthreads();               // chunk c is ready
+    cur = (c % stages) * stage + lane;
+  };
+  int r = cur;                     // this step's ring row, this lane
+  auto in = [&](int s) { return ring[r + s * RING_W]; };
+  open_chunk();
+
+  float Vx[N], VxxR[ROWS][N];      // VxxR[q]: row warp + q·G of Vxx
   float dv1 = 0.0f, dv2 = 0.0f, div = 0.0f, divt = 0.0f;
   typename Model::Derivs dv;
 
@@ -225,36 +349,22 @@ backward_kernel(const float* __restrict__ traj, int s_in,
     const int t = T - 1;
     float x[N], u[M];
 #pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = in(t, i);
+    for (int i = 0; i < N; ++i) x[i] = in(i);
 #pragma unroll
-    for (int mi = 0; mi < M; ++mi) u[mi] = in(t, N + mi);
+    for (int mi = 0; mi < M; ++mi) u[mi] = in(N + mi);
     P.derivs(x, u, dv);
 #pragma unroll
-    for (int s = 0; s < OV; ++s) put(t, s, 0.0f);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      Vx[i] = P.cx(dv, i);
-#pragma unroll
-      for (int j = 0; j < N; ++j) Vxx[i][j] = P.cxx(dv, i, j);
-    }
-    if (VALUE) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        put(t, OV + i, Vx[i]);
-#pragma unroll
-        for (int j = 0; j < N; ++j) put(t, OV + N + i * N + j, Vxx[i][j]);
-      }
-    }
+    for (int i = 0; i < N; ++i) Vx[i] = P.cx(dv, i);
+    float cuu[M][M], inv[M][M];
     if (QUU) {
-      float cuu[M][M], inv[M][M];
 #pragma unroll
       for (int mi = 0; mi < M; ++mi) {
 #pragma unroll
         for (int mj = 0; mj < M; ++mj) cuu[mi][mj] = P.cuu(dv, mi, mj);
       }
       if constexpr (GPS) {
-        const PrevStep<N, M> pv(prev, t, b, sB);
-        const float e = read_eta(eta, t, b, sB);
+        const PrevStep<N, M> pv(ring + r + (N + M) * RING_W);
+        const float e = eta_or_one(in(N + M + PS));
 #pragma unroll
         for (int mi = 0; mi < M; ++mi) {
 #pragma unroll
@@ -263,27 +373,78 @@ backward_kernel(const float* __restrict__ traj, int s_in,
         }
       }
       tiny_inv<M>(cuu, inv);
+    }
+    by_role<G>(warp, [&](auto role) {
+      constexpr int Q = decltype(role)::q;
 #pragma unroll
-      for (int mi = 0; mi < M; ++mi) {
+      for (int q = 0; q < ROWS; ++q) {
+        const int i = Q + q * G;
+        if (i < N) {
 #pragma unroll
-        for (int mj = 0; mj < M; ++mj) {
-          put(t, OQ + mi * M + mj, cuu[mi][mj]);
-          put(t, OQ + M * M + mi * M + mj, inv[mi][mj]);
+          for (int j = 0; j < N; ++j) {
+            VxxR[q][j] = P.cxx(dv, i, j);
+            if (VALUE) put(t, OV + N + i * N + j, VxxR[q][j]);
+          }
         }
       }
-    }
+      // the step's other slots, each written by one warp
+#pragma unroll
+      for (int s = Q; s < OV; s += G) put(t, s, 0.0f);
+      if (VALUE) {
+#pragma unroll
+        for (int i = Q; i < N; i += G) put(t, OV + i, Vx[i]);
+      }
+      if (QUU) {
+#pragma unroll
+        for (int s = Q; s < 2 * M * M; s += G) {
+          const int e = s % (M * M);
+          put(t, OQ + s, s < M * M ? cuu[e / M][e % M] : inv[e / M][e % M]);
+        }
+      }
+    });
   }
 
   for (int t = T - 2; t >= 0; --t) {
+    if (++pos == tc) {
+      pos = 0;
+      ++c;
+      open_chunk();
+    }
+    r = cur + pos * (F * RING_W);
     float x[N], u[M];
 #pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = in(t, i);
+    for (int i = 0; i < N; ++i) x[i] = in(i);
 #pragma unroll
-    for (int mi = 0; mi < M; ++mi) u[mi] = in(t, N + mi);
+    for (int mi = 0; mi < M; ++mi) u[mi] = in(N + mi);
     P.derivs(x, u, dv);
 
     // Q expansions (src/backward_pass.jl:103-123); each sum runs a = 0..n-1
-    float Qx[N], Qu[M], W[N][N], U[N][M], Qxx[N][N], Quu[M][M], Qux[M][N];
+    // W = Vxx·fx and U = Vxx·fu, this warp's rows, to the exchange
+    by_role<G>(warp, [&](auto role) {
+      constexpr int Q = decltype(role)::q;
+#pragma unroll
+      for (int q = 0; q < ROWS; ++q) {
+        const int a = Q + q * G;
+        if (a < N) {
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            float s = VxxR[q][0] * P.fx(dv, 0, j);
+#pragma unroll
+            for (int cc = 1; cc < N; ++cc) s = s + VxxR[q][cc] * P.fx(dv, cc, j);
+            put_W(a, j, s);
+          }
+#pragma unroll
+          for (int mi = 0; mi < M; ++mi) {
+            float s = VxxR[q][0] * P.fu(dv, 0, mi);
+#pragma unroll
+            for (int cc = 1; cc < N; ++cc)
+              s = s + VxxR[q][cc] * P.fu(dv, cc, mi);
+            put_W(a, N + mi, s);
+          }
+        }
+      }
+    });
+    float Qx[N], Qu[M], Quu[M][M], Qux[M][N], QxxR[ROWS][N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       float s = P.fx(dv, 0, i) * Vx[0];
@@ -298,47 +459,37 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       for (int a = 1; a < N; ++a) s = s + P.fu(dv, a, mi) * Vx[a];
       Qu[mi] = P.cu(dv, mi) + s;
     }
+    rows_bar<G>();                 // W and U are whole
+    by_role<G>(warp, [&](auto role) {
+      constexpr int Q = decltype(role)::q;
 #pragma unroll
-    for (int a = 0; a < N; ++a) {
+      for (int q = 0; q < ROWS; ++q) {
+        const int i = Q + q * G;
+        if (i < N) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        float s = Vxx[a][0] * P.fx(dv, 0, j);
+          for (int j = 0; j < N; ++j) {
+            float s = P.fx(dv, 0, i) * W(0, j);
 #pragma unroll
-        for (int c = 1; c < N; ++c) s = s + Vxx[a][c] * P.fx(dv, c, j);
-        W[a][j] = s;
+            for (int a = 1; a < N; ++a) s = s + P.fx(dv, a, i) * W(a, j);
+            QxxR[q][j] = P.cxx(dv, i, j) + s;
+          }
+        }
       }
-#pragma unroll
-      for (int mi = 0; mi < M; ++mi) {
-        float s = Vxx[a][0] * P.fu(dv, 0, mi);
-#pragma unroll
-        for (int c = 1; c < N; ++c) s = s + Vxx[a][c] * P.fu(dv, c, mi);
-        U[a][mi] = s;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        float s = P.fx(dv, 0, i) * W[0][j];
-#pragma unroll
-        for (int a = 1; a < N; ++a) s = s + P.fx(dv, a, i) * W[a][j];
-        Qxx[i][j] = P.cxx(dv, i, j) + s;
-      }
-    }
+    });
 #pragma unroll
     for (int mi = 0; mi < M; ++mi) {
 #pragma unroll
       for (int mj = 0; mj < M; ++mj) {
-        float s = P.fu(dv, 0, mi) * U[0][mj];
+        float s = P.fu(dv, 0, mi) * W(0, N + mj);
 #pragma unroll
-        for (int a = 1; a < N; ++a) s = s + P.fu(dv, a, mi) * U[a][mj];
+        for (int a = 1; a < N; ++a) s = s + P.fu(dv, a, mi) * W(a, N + mj);
         Quu[mi][mj] = P.cuu(dv, mi, mj) + s;
       }
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        float s = P.fu(dv, 0, mi) * W[0][j];
+        float s = P.fu(dv, 0, mi) * W(0, j);
 #pragma unroll
-        for (int a = 1; a < N; ++a) s = s + P.fu(dv, a, mi) * W[a][j];
+        for (int a = 1; a < N; ++a) s = s + P.fu(dv, a, mi) * W(a, j);
         Qux[mi][j] = P.cxu(dv, j, mi) + s;
       }
     }
@@ -348,9 +499,9 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       // GPS mode: Q terms scaled by 1/η plus the KL expansion of the
       // previous policy (read_kl :370-392; each sum over a control in the
       // JAX order), Quu symmetrised, λ unused (src/backward_pass.jl:293-299)
-      const PrevStep<N, M> pv(prev, t, b, sB);
-      const float ie = 1.0f / read_eta(eta, t, b, sB);
-      float Si[M][M], Sik[M];
+      const PrevStep<N, M> pv(ring + r + (N + M) * RING_W);
+      const float ie = 1.0f / eta_or_one(in(N + M + PS));
+      float Si[M][M], Sik[M], SiK[M][N];
 #pragma unroll
       for (int mi = 0; mi < M; ++mi) {
 #pragma unroll
@@ -374,27 +525,32 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       for (int mi = 0; mi < M; ++mi) Qu[mi] = Qu[mi] * ie + (-Sik[mi]);
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        float SiKj[M];                        // column j of Σ⁻¹·K
 #pragma unroll
-        for (int mi = 0; mi < M; ++mi) {
+        for (int mi = 0; mi < M; ++mi) {      // column j of Σ⁻¹·K
           float s = Si[mi][0] * pv.K(0, j);
 #pragma unroll
           for (int mj = 1; mj < M; ++mj) s = s + Si[mi][mj] * pv.K(mj, j);
-          SiKj[mi] = s;
-        }
-#pragma unroll
-        for (int i = 0; i < N; ++i) {         // cxx_ij = Σ_mi K_mi,i·SiK_mi,j
-          float c = pv.K(0, i) * SiKj[0];
-#pragma unroll
-          for (int mi = 1; mi < M; ++mi) c = c + pv.K(mi, i) * SiKj[mi];
-          Qxx[i][j] = Qxx[i][j] * ie + c;
-        }
-#pragma unroll
-        for (int mi = 0; mi < M; ++mi) {
-          Qux[mi][j] = Qux[mi][j] * ie + (-SiKj[mi]);
+          SiK[mi][j] = s;
+          Qux[mi][j] = Qux[mi][j] * ie + (-s);
           Qux_r[mi][j] = Qux[mi][j];
         }
       }
+      by_role<G>(warp, [&](auto role) {          // this warp's rows of Qxx
+        constexpr int Q = decltype(role)::q;
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) {
+          const int i = Q + q * G;
+          if (i < N) {
+#pragma unroll
+            for (int j = 0; j < N; ++j) {     // cxx_ij = Σ_mi K_mi,i·SiK_mi,j
+              float c = pv.K(0, i) * SiK[0][j];
+#pragma unroll
+              for (int mi = 1; mi < M; ++mi) c = c + pv.K(mi, i) * SiK[mi][j];
+              QxxR[q][j] = QxxR[q][j] * ie + c;
+            }
+          }
+        }
+      });
       float Qg[M][M];
 #pragma unroll
       for (int mi = 0; mi < M; ++mi) {
@@ -501,6 +657,7 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       for (int j = 0; j < N; ++j) K[mi][j] = ok ? K[mi][j] : 0.0f;
     }
 
+
     // value update with the unregularised terms (src/backward_pass.jl:63-72)
     float Quu_k[M], QuuK[M][N];
 #pragma unroll
@@ -511,10 +668,10 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       Quu_k[mi] = s;
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        float r = Quu[mi][0] * K[0][j];
+        float rr = Quu[mi][0] * K[0][j];
 #pragma unroll
-        for (int mj = 1; mj < M; ++mj) r = r + Quu[mi][mj] * K[mj][j];
-        QuuK[mi][j] = r;
+        for (int mj = 1; mj < M; ++mj) rr = rr + Quu[mi][mj] * K[mj][j];
+        QuuK[mi][j] = rr;
       }
     }
     {
@@ -527,7 +684,6 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       dv1 = dv1 + s1;
       dv2 = dv2 + 0.5f * s2;
     }
-    float Vx_n[N], Vraw[N][N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       float s1 = K[0][i] * (Quu_k[0] + Qu[0]), s2 = Qux[0][i] * k[0];
@@ -536,26 +692,49 @@ backward_kernel(const float* __restrict__ traj, int s_in,
         s1 = s1 + K[mi][i] * (Quu_k[mi] + Qu[mi]);
         s2 = s2 + Qux[mi][i] * k[mi];
       }
-      Vx_n[i] = Qx[i] + s1 + s2;
+      Vx[i] = Qx[i] + s1 + s2;
+    }
+    // Vraw, this warp's rows, to the exchange; then Vxx = (Vraw + Vrawᵀ)/2
+    by_role<G>(warp, [&](auto role) {
+      constexpr int Q = decltype(role)::q;
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        float r1 = K[0][i] * QuuK[0][j], r2 = K[0][i] * Qux[0][j],
-              r3 = Qux[0][i] * K[0][j];
+      for (int q = 0; q < ROWS; ++q) {
+        const int i = Q + q * G;
+        if (i < N) {
 #pragma unroll
-        for (int mi = 1; mi < M; ++mi) {
-          r1 = r1 + K[mi][i] * QuuK[mi][j];
-          r2 = r2 + K[mi][i] * Qux[mi][j];
-          r3 = r3 + Qux[mi][i] * K[mi][j];
+          for (int j = 0; j < N; ++j) {
+            float r1 = K[0][i] * QuuK[0][j], r2 = K[0][i] * Qux[0][j],
+                  r3 = Qux[0][i] * K[0][j];
+#pragma unroll
+            for (int mi = 1; mi < M; ++mi) {
+              r1 = r1 + K[mi][i] * QuuK[mi][j];
+              r2 = r2 + K[mi][i] * Qux[mi][j];
+              r3 = r3 + Qux[mi][i] * K[mi][j];
+            }
+            VrawR[q][j] = QxxR[q][j] + r1 + r2 + r3;
+            if constexpr (G > 1) xv[(i * N + j) * RING_W + lane] = VrawR[q][j];
+          }
         }
-        Vraw[i][j] = Qxx[i][j] + r1 + r2 + r3;
       }
-    }
+    });
+
+    rows_bar<G>();                 // Vraw is whole
+    by_role<G>(warp, [&](auto role) {
+      constexpr int Q = decltype(role)::q;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      Vx[i] = Vx_n[i];
+      for (int q = 0; q < ROWS; ++q) {
+        const int i = Q + q * G;
+        if (i < N) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) Vxx[i][j] = 0.5f * (Vraw[i][j] + Vraw[j][i]);
-    }
+          for (int j = 0; j < N; ++j) {
+            float vt;                 // Vraw[j][i]
+            if constexpr (G == 1) vt = VrawR[j][q];
+            else vt = xv[(j * N + i) * RING_W + lane];
+            VxxR[q][j] = 0.5f * (VrawR[q][j] + vt);
+          }
+        }
+      }
+    });
 
     // divergence latch: t+1 of the first failing step (backward order)
     const float bad = ok ? 0.0f : 1.0f;
@@ -563,49 +742,68 @@ backward_kernel(const float* __restrict__ traj, int s_in,
     divt = divt * (1.0f - newly) + newly * (float)(t + 1);
     div = maxp(div, bad);
 
+    // the step's slots: each warp its rows of Vxx, and every G-th other one
+    float inv[M][M];
+    if (QUU) tiny_inv<M>(Quu, inv);
+    by_role<G>(warp, [&](auto role) {
+      constexpr int Q = decltype(role)::q;
 #pragma unroll
-    for (int mi = 0; mi < M; ++mi) {
-      put(t, mi, k[mi]);
+      for (int s = Q; s < OV; s += G)
+        put(t, s, s < M ? k[s] : K[(s - M) / N][(s - M) % N]);
+      if (VALUE) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) put(t, M + mi * N + j, K[mi][j]);
-    }
-    if (VALUE) {
+        for (int i = Q; i < N; i += G) put(t, OV + i, Vx[i]);
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        put(t, OV + i, Vx[i]);
+        for (int q = 0; q < ROWS; ++q) {
+          const int i = Q + q * G;
+          if (i < N) {
 #pragma unroll
-        for (int j = 0; j < N; ++j) put(t, OV + N + i * N + j, Vxx[i][j]);
-      }
-    }
-    if (QUU) {
-      float inv[M][M];
-      tiny_inv<M>(Quu, inv);
-#pragma unroll
-      for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
-        for (int mj = 0; mj < M; ++mj) {
-          put(t, OQ + mi * M + mj, Quu[mi][mj]);
-          put(t, OQ + M * M + mi * M + mj, inv[mi][mj]);
+            for (int j = 0; j < N; ++j) put(t, OV + N + i * N + j, VxxR[q][j]);
+          }
         }
       }
-    }
+      if (QUU) {
+#pragma unroll
+        for (int s = Q; s < 2 * M * M; s += G) {
+          const int e = s % (M * M);
+          put(t, OQ + s, s < M * M ? Quu[e / M][e % M] : inv[e / M][e % M]);
+        }
+      }
+    });
   }
 
-  stats[b] = dv1;
-  stats[sB + b] = dv2;
-  stats[2 * sB + b] = div;
-  stats[3 * sB + b] = divt;
+  __syncthreads();                 // the last chunk is consumed
+  if (warp == 0 && live) {
+    stats[b] = dv1;
+    stats[sB + b] = dv2;
+    stats[2 * sB + b] = div;
+    stats[3 * sB + b] = divt;
+  }
 }
 
-// one instance of K1 for one model, launched on the caller's stream
+// one instance of K1 for one model, launched on the caller's stream with
+// the wrapper's plan
 template <class Model, int EMIT, bool GPS>
 int launch_one(const BwdArgs& a) {
+  constexpr int N = Model::N, M = Model::M;
+  constexpr int F = N + M + (GPS ? M + M * N + M * M + 1 : 0);
+  constexpr int G = K1_WARPS<N, EMIT, GPS>;
+  const RingPlan& p = a.plan;
+  if (!plan_ok(p, a.B, RING_W * (G + 1), F,
+               G > 1 ? RING_W * (N * (N + M) + N * N) : 0))
+    return ERR_ARGS;
   typename Model::Consts mc;
   for (int i = 0; i < Model::N_CONSTS; ++i) mc.c[i] = a.consts[i];
-  const dim3 grid((a.B + BWD_THREADS - 1) / BWD_THREADS);
-  backward_kernel<Model, EMIT, GPS><<<grid, BWD_THREADS, 0, a.stream>>>(
+  const auto kernel = backward_kernel<Model, EMIT, GPS>;
+  const int rc = reserve_smem(kernel, p.smem);
+  if (rc != 0) return rc;
+  const bool vec = rows_aligned(a.B, a.traj) &&
+                   (!GPS || (rows_aligned(a.B, a.prev) &&
+                             rows_aligned(a.B, a.eta)));
+  kernel<<<p.blocks, p.threads, p.smem, a.stream>>>(
       a.traj, a.s_in, a.lam, a.prev, a.eta, a.out, a.s_out, a.stats, a.T,
-      a.B, a.reg_type, a.use_limits, a.lims, a.lims_lanes, a.params, mc);
+      a.B, a.reg_type, a.use_limits, a.lims, a.lims_lanes, a.params, mc,
+      p.tc, p.stages, vec);
   return (int)cudaGetLastError();
 }
 

@@ -12,23 +12,34 @@
 // unchanged, as the JAX rollout's missing clamp does. Instances: pendcart
 // ⟨4,1⟩ (forward.cu), LTI ⟨10,2⟩ (forward_lti.cu), quadrotor ⟨6,2⟩
 // (forward_quad.cu) and the parametrised pendcart PendCartParam ⟨4,1⟩
-// (forward_pendcart_param.cu), A = 1..8 each.
+// (forward_pendcart_param.cu); K3 at A = 1..8 each, K2 one kernel for any
+// A ≤ MAX_A.
 //
-// Layout: streams are (T, S, B) f32 with the scenario axis contiguous; one
-// thread owns one scenario and walks t = 0 .. T-1, holding the A candidate
-// states (A·(n+2) floats) in registers where the TPU kept them in VMEM
-// scratch. A is bounded by MAX_A and checked by the launcher.
+// Layout: streams are (T, S, B) f32 with the scenario axis contiguous.
+// K3: one thread owns one scenario and walks t = 0 .. T-1, holding the A
+// candidate states (A·(n+2) floats) in registers, loading each step from
+// device memory as it comes. K2: a block owns 32 scenarios and runs one
+// warp per candidate; lane l is scenario 32·blockIdx.x + l, and each thread
+// holds one candidate's n+2 floats. The step inputs of the block (x_old,
+// u_nom from the trajectory, k, K from the gains: n+2m+mn slots) are
+// staged in chunks of tc steps in a shared-memory ring of `stages` stages
+// (ring.cuh), which all A warps read; pass 1 and pass 2 are one sequence
+// of 2·⌈T/tc⌉ chunks, so the ring also prefetches pass 2's first chunks
+// while pass 1 ends. The plan (tc, stages, shared bytes) comes from
+// ops/hopper/plan.py.
 //
 // What bounds them. Pendcart at B=4096, T=500: a pass reads the x,u slots
 // of the trajectory (≈41 MB) and the gain slots (≈41 MB); the line search
-// reads both twice (pass 2 re-reads the same input, mostly from the 50 MB
-// L2) and writes the new [x, u, c] stream (≈49 MB); little arithmetic per
-// scenario-step, so memory- or latency-bound. LTI ⟨10,2⟩ at B=4096,
-// T=1000, A=6: the line search reads x,u (12 slots) and k,K (22 slots) and
-// writes 13 slots (≈770 MB) against ≈11 GFLOP, memory-bound. At B=4096 the
-// grid is 32 blocks of 128 threads for 132 SMs: one warp per SM, nothing
-// hides the per-step load latency. Raising occupancy and prefetching the
-// next step are work for later changes.
+// writes the new [x, u, c] stream (≈49 MB): ≈131 MB, 0.039 ms at 3.35
+// TB/s, against ≈40 f32 operations a scenario-step and candidate. K3 runs
+// one warp per scheduler on 32 SMs and waits on each step's loads. K2 puts
+// 128 blocks on 128 SMs, moves each input byte once per pass, and no step
+// waits on device memory: a step costs its dependent chain of arithmetic
+// (sinf/cosf and the divisions of the pendcart, the n×n product of LTI),
+// T steps in pass 1 and T again in pass 2, which one warp of the block
+// rolls for its 32 scenarios while the others only stage the ring. LTI
+// ⟨10,2⟩ at B=4096, T=1000, A=6: the line search reads x,u (12 slots) and
+// k,K (22 slots) and writes 13 slots (≈770 MB) against ≈11 GFLOP.
 //
 // Semantics kept from the TPU kernels (forward_kernel.py line numbers):
 // - per control, u = clip(u_nom + α·k + Σ_j K_j·(x_j − x_old_j), lo, hi)
@@ -43,18 +54,17 @@
 // In place (:530-534, :599-611): the launcher may be given out == traj
 // (the wrapper's in_place, for a stream of exactly n+m+1 slots), so traj,
 // x0 and out are not __restrict__: aliased __restrict__ pointers would be
-// undefined behaviour. Aliasing is safe because one thread owns one
-// scenario's column, pass 2 loads step t before it writes step t, and pass
-// 1 only reads. One kernel serves both uses: with __restrict__ on the
-// three, the fresh launch took the same time to within 1% for every
-// instance (tools_torch/k2_alias_ab.py, PERF.md §6). The solve loop keeps
-// writing a fresh stream, since its backward replay needs the entry
-// stream; the MPC step (ilqg_iteration_lanes) updates in place.
+// undefined behaviour. Aliasing is safe: a block reads and writes only its
+// own 32 columns; every warp has read x0 and finished pass 1 before the
+// barrier after which pass 2 writes step 0; and pass 2 stages only steps
+// it has not yet written. The solve loop keeps writing a fresh stream,
+// since its backward replay needs the entry stream; the MPC step
+// (ilqg_iteration_lanes) updates in place.
 // Not kept: the echo of the input x,u slots, which the TPU kernels emitted
 // only to avoid XLA while-loop carry copies (:136-146).
 #pragma once
 
-#include "common.cuh"
+#include "ring.cuh"
 
 namespace ddp {
 
@@ -82,6 +92,7 @@ struct FwdArgs {
   float* out;            // K2: == traj for the in-place update
   float* ls;
   int T, B;
+  RingPlan plan;         // K2's launch plan (ops/hopper/plan.py)
   Lims lims;
   const float* lims_lanes;   // (2m, B) per-scenario limits, or null
   const float* params;       // (P, B) per-scenario parameters, or null
@@ -203,9 +214,11 @@ forward_kernel(const float* __restrict__ traj, int s_traj,
 }
 
 // K2 with a fresh output, or in place: out == traj, and x0 may be a view
-// of the same stream, so these three are not __restrict__
-template <class Model, int A>
-__global__ void __launch_bounds__(FWD_THREADS)
+// of the same stream, so these three are not __restrict__. Block: 32
+// scenarios × A warps (A = blockDim.x / 32); dynamic shared memory: the
+// ring, then the A×32 candidate totals.
+template <class Model>
+__global__ void __launch_bounds__(RING_W * MAX_A)
 linesearch_kernel(const float* traj, int s_traj,
                   const float* __restrict__ gains, int s_g, int gk, int gK,
                   const float* x0, const float* __restrict__ sel,
@@ -213,86 +226,129 @@ linesearch_kernel(const float* traj, int s_traj,
                   float* __restrict__ ls, int T, int B, Lims lims,
                   const float* __restrict__ lims_lanes,
                   const float* __restrict__ params,
-                  typename Model::Consts mc) {
+                  typename Model::Consts mc, int tc, int stages, bool vec) {
   constexpr int N = Model::N, M = Model::M;
   constexpr int SO = N + M + 1;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  constexpr int F = N + 2 * M + M * N;   // ring slots [x_old, u_nom, k, K]
+  extern __shared__ __align__(16) float ring[];
+  const int lane = threadIdx.x & (RING_W - 1), w = threadIdx.x / RING_W;
+  const int A = blockDim.x / RING_W;
+  const int b0 = blockIdx.x * RING_W, b = b0 + lane;
+  const int cols = min(RING_W, B - b0);
+  const bool live = b < B;
+  // a lane past B reads scenario B-1's inputs and drops its results
+  const int bl = live ? b : B - 1;
   const size_t sB = (size_t)B;
-  const Model P = make_model<Model>(mc, params, b, sB);
-  const Lims lm = lane_lims<M>(lims, lims_lanes, b, sB);
+  const Model P = make_model<Model>(mc, params, bl, sB);
+  const Lims lm = lane_lims<M>(lims, lims_lanes, bl, sB);
+  const int nc = (T + tc - 1) / tc;          // chunks a pass
+  const int stage = tc * F * RING_W;         // floats a stage
+  float* tot = ring + stages * stage;        // [A][32] pass-1 totals
 
-  // pass 1: every candidate of the ladder
-  float x[A][N], acc[A], term[A];
-#pragma unroll
-  for (int a = 0; a < A; ++a) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) x[a][i] = x0[i * sB + b];
-    acc[a] = 0.0f;
-    term[a] = 0.0f;
-  }
-  for (int t = 0; t < T; ++t) {
-    StepIn<Model> s;
-    load_step<Model>(traj, s_traj, gains, s_g, gk, gK, t, b, sB, s);
-    const bool last = t == T - 1;
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-      float u[M], c;
-      rollout_step<Model>(P, x[a], acc[a], term[a], ladder.a[a], s, lm,
-                          last, u, c);
+  // chunk j of the sequence: pass j / nc, steps from (j % nc)·tc
+  auto issue = [&](int j) {
+    if (j < 2 * nc) {
+      const int t0 = (j % nc) * tc, steps = min(tc, T - t0);
+      stage_rows<F>(ring + (j % stages) * stage, steps, cols, vec,
+                    threadIdx.x, blockDim.x, [&](int tt, int s) {
+                      const size_t t = (size_t)(t0 + tt);
+                      const float* row =
+                          s < N + M ? traj + (t * s_traj + s) * sB
+                          : s < N + 2 * M
+                              ? gains + (t * s_g + gk + (s - N - M)) * sB
+                              : gains + (t * s_g + gK + (s - N - 2 * M)) * sB;
+                      return row + b0;
+                    });
     }
-  }
+    cp_async_commit();
+  };
 
-  // pass boundary: the accept decision (src/iLQG.jl:269-280)
-  const float dv1 = sel[b], dv2 = sel[sB + b];
-  const float ctot = sel[2 * sB + b], allow = sel[3 * sB + b];
-  float al_sel = 0.0f, dc_sel = 0.0f, rt_sel = 0.0f;
-  bool found = false;
+  // pass 1: warp w rolls candidate w of the ladder
+  float x[N], acc = 0.0f, term = 0.0f, alpha = ladder.a[w];
 #pragma unroll
-  for (int a = 0; a < A; ++a) {
-    const float al = ladder.a[a];
-    const float tot = acc[a] + term[a];
-    const float dcost = ctot - tot;
-    const float expected = (-al) * (dv1 + al * dv2);
-    const float ratio = expected > 0.0f ? dcost / expected : signp(dcost);
-    const bool ok = ratio > rr_min;
-    if (a == 0) {
-      dc_sel = dcost;
-      rt_sel = ratio;
-      found = ok;
-      al_sel = ok ? al : 0.0f;
-    } else {
-      const bool take = ok && !found;
-      al_sel = take ? al : al_sel;
-      dc_sel = take ? dcost : dc_sel;
-      rt_sel = take ? ratio : rt_sel;
-      found = found || ok;
+  for (int i = 0; i < N; ++i) x[i] = x0[i * sB + bl];
+
+  for (int j = 0; j < stages - 1; ++j) issue(j);
+  for (int j = 0; j < 2 * nc; ++j) {
+    issue(j + stages - 1);      // into the stage consumed at chunk j-1
+    cp_async_wait(stages - 1);  // this thread's copies of chunk j landed
+    __syncthreads();            // and everyone's
+    const bool pass2 = j >= nc;
+    if (j == nc && w == 0) {
+      // pass boundary: the accept decision (src/iLQG.jl:269-280) over the
+      // A totals, in ladder order
+      const float dv1 = sel[bl], dv2 = sel[sB + bl];
+      const float ctot = sel[2 * sB + bl], allow = sel[3 * sB + bl];
+      float al_sel = 0.0f, dc_sel = 0.0f, rt_sel = 0.0f;
+      bool found = false;
+      for (int a = 0; a < A; ++a) {
+        const float al = ladder.a[a];
+        const float dcost = ctot - tot[a * RING_W + lane];
+        const float expected = (-al) * (dv1 + al * dv2);
+        const float ratio =
+            expected > 0.0f ? dcost / expected : signp(dcost);
+        const bool ok = ratio > rr_min;
+        if (a == 0) {
+          dc_sel = dcost;
+          rt_sel = ratio;
+          found = ok;
+          al_sel = ok ? al : 0.0f;
+        } else {
+          const bool take = ok && !found;
+          al_sel = take ? al : al_sel;
+          dc_sel = take ? dcost : dc_sel;
+          rt_sel = take ? ratio : rt_sel;
+          found = found || ok;
+        }
+      }
+      if (live) {
+        ls[b] = al_sel;
+        ls[sB + b] = found ? 1.0f : 0.0f;
+        ls[2 * sB + b] = dc_sel;
+        ls[3 * sB + b] = rt_sel;
+      }
+      // pass 2: warp 0 re-rolls α_eff and writes the new [x, u, c] stream
+      alpha = (found && allow > 0.5f) ? al_sel : 0.0f;
+#pragma unroll
+      for (int i = 0; i < N; ++i) x[i] = x0[i * sB + bl];
+      acc = 0.0f;
+      term = 0.0f;
     }
+    if (!pass2 || w == 0) {
+      const int t0 = (pass2 ? j - nc : j) * tc, steps = min(tc, T - t0);
+      const float* st = ring + (j % stages) * stage + lane;
+      for (int tt = 0; tt < steps; ++tt) {
+        const int t = t0 + tt;
+        const float* r = st + tt * F * RING_W;
+        StepIn<Model> s;
+#pragma unroll
+        for (int i = 0; i < N; ++i) s.x_old[i] = r[i * RING_W];
+#pragma unroll
+        for (int mi = 0; mi < M; ++mi) {
+          s.u_nom[mi] = r[(N + mi) * RING_W];
+          s.k[mi] = r[(N + M + mi) * RING_W];
+#pragma unroll
+          for (int jj = 0; jj < N; ++jj)
+            s.K[mi][jj] = r[(N + 2 * M + mi * N + jj) * RING_W];
+        }
+        float* o = out + (size_t)t * SO * sB + b;
+        if (pass2 && live) {
+#pragma unroll
+          for (int i = 0; i < N; ++i) o[i * sB] = x[i];
+        }
+        float u[M], c;
+        rollout_step<Model>(P, x, acc, term, alpha, s, lm, t == T - 1, u, c);
+        if (pass2 && live) {
+#pragma unroll
+          for (int mi = 0; mi < M; ++mi) o[(N + mi) * sB] = u[mi];
+          o[(N + M) * sB] = c;
+        }
+      }
+      if (j == nc - 1) tot[w * RING_W + lane] = acc + term;
+    }
+    __syncthreads();            // chunk j's stage may be refilled
   }
-  const float al_eff = (found && allow > 0.5f) ? al_sel : 0.0f;
-  ls[b] = al_sel;
-  ls[sB + b] = found ? 1.0f : 0.0f;
-  ls[2 * sB + b] = dc_sel;
-  ls[3 * sB + b] = rt_sel;
-
-  // pass 2: re-roll α_eff and write the new [x, u, c] stream
-  float xe[N], acc_e = 0.0f, term_e = 0.0f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) xe[i] = x0[i * sB + b];
-  for (int t = 0; t < T; ++t) {
-    StepIn<Model> s;
-    load_step<Model>(traj, s_traj, gains, s_g, gk, gK, t, b, sB, s);
-    float* o = out + (size_t)t * SO * sB + b;
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i * sB] = xe[i];
-    float u[M], c;
-    rollout_step<Model>(P, xe, acc_e, term_e, al_eff, s, lm, t == T - 1,
-                        u, c);
-#pragma unroll
-    for (int mi = 0; mi < M; ++mi) o[(N + mi) * sB] = u[mi];
-    o[(N + M) * sB] = c;
-  }
-  ls[4 * sB + b] = acc_e + term_e;
+  if (w == 0 && live) ls[4 * sB + b] = acc + term;
 }
 
 template <class Model>
@@ -330,25 +386,21 @@ int launch_forward(const FwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-// K2 for one model, a ladder of A α values (1..MAX_A); in place when
-// a.out == a.traj
+// K2 for one model, a ladder of A α values (1..MAX_A), one warp each; in
+// place when a.out == a.traj
 template <class Model>
 int launch_linesearch(const FwdArgs& a) {
-  const auto mc = consts_of<Model>(a);
-  const dim3 grid((a.B + FWD_THREADS - 1) / FWD_THREADS);
-#define DDP_LS(AA)                                                          \
-  case AA:                                                                  \
-    linesearch_kernel<Model, AA><<<grid, FWD_THREADS, 0, a.stream>>>(       \
-        a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.sel,          \
-        a.ladder, a.rr_min, a.out, a.ls, a.T, a.B, a.lims, a.lims_lanes,    \
-        a.params, mc);                                                      \
-    break;
-  switch (a.A) {
-    DDP_LS(1) DDP_LS(2) DDP_LS(3) DDP_LS(4)
-    DDP_LS(5) DDP_LS(6) DDP_LS(7) DDP_LS(8)
-    default: return ERR_ARGS;
-  }
-#undef DDP_LS
+  constexpr int F = Model::N + 2 * Model::M + Model::M * Model::N;
+  const RingPlan& p = a.plan;
+  if (!plan_ok(p, a.B, RING_W * a.A, F, RING_W * a.A)) return ERR_ARGS;
+  const auto kernel = linesearch_kernel<Model>;
+  const int rc = reserve_smem(kernel, p.smem);
+  if (rc != 0) return rc;
+  const bool vec = rows_aligned(a.B, a.traj) && rows_aligned(a.B, a.gains);
+  kernel<<<p.blocks, p.threads, p.smem, a.stream>>>(
+      a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.sel, a.ladder,
+      a.rr_min, a.out, a.ls, a.T, a.B, a.lims, a.lims_lanes, a.params,
+      consts_of<Model>(a), p.tc, p.stages, vec);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,8 @@ Each wrapper takes streams ``(T, S, B)`` (see :mod:`.pack`):
   vectorised over B and A with a Python loop over t, in the kernel's
   operation order;
 - a CUDA tensor goes to the hand-written kernel in ``csrc/forward.cu``, or
-  the wrapper raises. There is no fallback.
+  the wrapper raises. There is no fallback. K2's launch plan (block shape
+  and shared-memory ring) comes from :mod:`.plan`.
 
 The kernels read the model from its device descriptor
 (:class:`DeviceModel`); a :class:`LanesModel` without one runs only on the
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .plan import linesearch_plan
 
 MAX_A = 8   # candidate bound of the CUDA kernels (csrc/forward.cu)
 # (model id, n, m) of each model the CUDA kernels K2 and K3 are instantiated
@@ -420,11 +422,12 @@ def linesearch_lanes(traj: torch.Tensor, gains: torch.Tensor,
         (T, model.n + model.m + 1, B), dtype=torch.float32,
         device=traj.device)
     ls = torch.empty((5, B), dtype=torch.float32, device=traj.device)
+    plan = linesearch_plan(model.n, model.m, A, T, B)
     rc = lib.ddp_linesearch_lanes(
         traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1], gk,
         gK, x0.data_ptr(), sel.data_ptr(), ladder.ctypes.data, A,
         float(reduce_ratio_min), out.data_ptr(), ls.data_ptr(), T, B,
-        *model_args, dev, stream)
+        *model_args, *plan.launcher_args(), dev, stream)
     _build.check(lib, rc, "linesearch_lanes")
     linesearch_lanes.launches += 1
     return LineSearchLanesOut(traj=out, ls=ls)

@@ -938,3 +938,151 @@ def test_mpc_rollout_on_card_matches_cpu(dev):
         assert traj.data_ptr() == ptr
         assert (tot_n <= tot + 1e-4 * tot.abs()).all()
         tot = tot_n
+
+
+# ---------------------------------------------------------------------------
+# The ring-fed K1 and K2 (ops/hopper/plan.py, csrc/ring.cuh) at ragged
+# shapes: B = 1 and 37 take the 4-byte copies and a partial last block, 200
+# the 16-byte ones; T = 2 is shorter than a chunk, 40 spans chunks, tc+1 is
+# one step past the first chunk. Pendcart and PendCartParam K1/K2 are
+# bit-identical to their plain versions on the card, and K2 in place to
+# K2 fresh, everywhere.
+
+RING_MODELS = ("pendcart", "param", "lti", "quad")
+BIT_EXACT = ("pendcart", "param")
+
+
+def _ring_T(T, tc):
+    return tc + 1 if T == "tc+1" else int(T)
+
+
+def _ring_case(name, dev, B, T, seed=11):
+    """(model, tiles, lims, lanes, params, x0 (n, B), traj) of one instance,
+    traj a K3 rollout of random controls."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import (
+        linear, quadrotor)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    par = lanes = None
+    if name in ("pendcart", "param"):
+        x0 = (np.array([np.pi - 0.6, 0, 0, 0])[:, None]
+              + np.array([0.2, 0.2, 0, 0])[:, None]
+              * rng.standard_normal((4, B)))
+        u = 2.0 * rng.standard_normal((T, 1, B))
+        if name == "param":
+            model = tpc.pendcart_lanes_param(SPEC)
+            tiles = tpc.pendcart_derivs_tiles_param(SPEC)
+            par = torch.tensor(np.stack([rng.uniform(0.25, 0.55, B),
+                                         rng.uniform(0.5, 1.5, B)]), **f32)
+            hi = rng.uniform(0.8, 6.0, B)
+            lanes = torch.tensor(np.stack([-hi, hi]), **f32)
+            lims = None
+        else:
+            model, tiles = tpc.pendcart_lanes(SPEC), tpc.pendcart_derivs_tiles(
+                SPEC)
+            lims = LIMS
+    elif name == "lti":
+        spec = linear.random_lti(seed, n=10, m=2, T=T, device=dev)
+        model, tiles = linear.lti_lanes(spec), linear.lti_derivs_tiles(spec)
+        x0 = (np.linspace(0.5, 2.0, B)[None, :]
+              + 0.3 * rng.standard_normal((10, B)))
+        u = 2.0 * rng.standard_normal((T, 2, B))
+        lims = LTI_LIMS
+    else:
+        spec = quadrotor.QuadrotorSpec()
+        model = quadrotor.quadrotor_lanes(spec)
+        tiles = autodiff_tiles.autodiff_derivs_tiles(model)
+        x0 = (np.array([1.0, 0, 0, 0, 0.3, 0])[:, None]
+              + np.array([0.3, 0, 0.3, 0, 0.15, 0])[:, None]
+              * rng.standard_normal((6, B)))
+        u = spec.u_hover + 1.5 * rng.standard_normal((T, 2, B))
+        lims = spec.lims
+    n, m = model.n, model.m
+    x0 = torch.tensor(x0, **f32)
+    gains0 = torch.cat([torch.tensor(u, **f32),
+                        torch.zeros((T, m * n, B), device=dev)], dim=1)
+    traj = fk.forward_lanes(torch.zeros((T, n + m, B), device=dev), gains0,
+                            x0, torch.ones((1, B), device=dev), par, lanes,
+                            model=model, lims=lims, emit_traj=True).traj
+    return model, tiles, lims, lanes, par, x0, traj
+
+
+def _ring_prev(n, m, T, B, dev, seed=12):
+    """A previous policy with Σ⁻¹ positive definite and η with zeros."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((T, B, m, m))
+    Si = np.einsum("tbij,tbkj->tbik", G, G) + 0.5 * np.eye(m)
+    prev = np.concatenate([rng.standard_normal((T, m, B)),
+                           0.5 * rng.standard_normal((T, m * n, B)),
+                           np.moveaxis(Si.reshape(T, B, m * m), 1, 2)],
+                          axis=1)
+    eta = 10.0 ** rng.uniform(-1, 1, (T, B))
+    eta[::3, ::2] = 0.0
+    return (torch.tensor(prev, dtype=torch.float32, device=dev),
+            torch.tensor(eta, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("T", ["2", "40", "tc+1"])
+@pytest.mark.parametrize("B", [1, 37, 200])
+@pytest.mark.parametrize("name", RING_MODELS)
+def test_ring_kernels_match_plain_at_ragged_shapes(dev, name, B, T):
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    model = _ring_case(name, dev, B, 2)[0]
+    n, m = model.n, model.m
+    # K1: gains and full; GPS policy where an instance has GPS mode
+    for gps in (False, True) if name in ("pendcart", "lti") else (False,):
+        Tk = _ring_T(T, plan.backward_plan(n, m, gps, "gains", 10_000,
+                                           B).tc)
+        _, tiles, lims, lanes, par, _, traj = _ring_case(name, dev, B, Tk)
+        lam = torch.logspace(-3, 1, B, device=dev)
+        prev, eta = _ring_prev(n, m, Tk, B, dev) if gps else (None, None)
+        for emit in ("policy",) if gps else ("gains", "full"):
+            kw = dict(n=n, m=m, reg_type=1 if gps else 2, lims=lims,
+                      derivs_tiles=tiles, params=par, lims_lanes=lanes,
+                      prev=prev, eta=eta, emit=emit)
+            n0 = bk.backward_lanes.launches
+            k = bk.backward_lanes(traj, lam, **kw)
+            assert bk.backward_lanes.launches == n0 + 1
+            p = bk.backward_lanes_ref(traj, lam, **kw)
+            assert k.out.shape == (Tk, bk.OutLayout(n, m, emit).S, B)
+            assert torch.equal(k.stats[2:], p.stats[2:])
+            if name in BIT_EXACT and not gps:
+                assert torch.equal(k.out, p.out)
+                assert torch.equal(k.stats, p.stats)
+            elif name == "quad":
+                _slots_close(k.out, p.out)
+            else:
+                torch.testing.assert_close(k.out, p.out, rtol=1e-5,
+                                           atol=1e-5)
+                torch.testing.assert_close(k.stats[:2], p.stats[:2],
+                                           rtol=1e-5, atol=1e-5)
+    # K2: fresh against plain, in place against fresh
+    for A in (1, 4, 6, 8):
+        Tk = _ring_T(T, plan.linesearch_plan(n, m, A, 10_000, B).tc)
+        _, tiles, lims, lanes, par, x0, traj = _ring_case(name, dev, B, Tk)
+        bo = bk.backward_lanes(traj, torch.ones(B, device=dev), n=n, m=m,
+                               reg_type=2, lims=lims, derivs_tiles=tiles,
+                               params=par, lims_lanes=lanes, emit="gains")
+        allow = (torch.arange(B, device=dev) % 3 != 1).float()
+        sel = torch.stack([bo.stats[0], bo.stats[1], traj[:, -1].sum(0),
+                           allow])
+        kw = dict(model=model, alphas=default_alphas(0.2, -3.0, A),
+                  reduce_ratio_min=0.0, lims=lims)
+        n0 = fk.linesearch_lanes.launches
+        fresh = fk.linesearch_lanes(traj, bo.out, x0, sel, par, lanes, **kw)
+        assert fk.linesearch_lanes.launches == n0 + 1
+        p = fk.linesearch_lanes_ref(traj, bo.out, x0, sel, par, lanes, **kw)
+        assert torch.equal(fresh.ls[:2], p.ls[:2])
+        if name in BIT_EXACT:
+            assert torch.equal(fresh.traj, p.traj)
+            assert torch.equal(fresh.ls, p.ls)
+        else:
+            torch.testing.assert_close(fresh.traj, p.traj, rtol=1e-5,
+                                       atol=1e-5)
+        buf = traj.clone()
+        inp = fk.linesearch_lanes(buf, bo.out, buf[0, :n], sel, par, lanes,
+                                  in_place=True, **kw)
+        assert inp.traj.data_ptr() == buf.data_ptr()
+        assert torch.equal(buf, fresh.traj) and torch.equal(inp.ls, fresh.ls)

@@ -1,0 +1,76 @@
+"""The launch plans of the ring-fed kernels K1 and K2
+(``ops/hopper/plan.py``), for every instance the kernels are built for, at
+the shapes of every path that launches them and of the card tests, with
+A = 1..8 candidates: each plan fits the shared memory a block may have,
+its chunks cover T exactly, and its grid covers B. Plain Python: no card,
+no JAX."""
+import pytest
+
+from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.backward_kernel import (
+    CUDA_BACKWARD)
+from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.forward_kernel import (
+    CUDA_MODELS, MAX_A)
+
+# (T, B): the iLQG headline, the heterogeneous fleet and KL (500, 4096),
+# the MPC tier (300), the quadrotor (400), LTI and KL on LTI (1000); the
+# card tests' ragged shapes; a T and a B one past a chunk and a block
+SHAPES = [(500, 4096), (300, 4096), (400, 4096), (1000, 4096), (2, 1),
+          (40, 37), (40, 200), (33, 200), (17, 37), (5, 1), (1, 33),
+          (129, 4097)]
+
+
+def _check(p: plan.LaunchPlan, T: int, B: int, threads: int, slots: int,
+           extra: int) -> None:
+    assert p.smem <= plan.MAX_SMEM == 232_448
+    assert p.smem == 4 * (p.stages * p.tc * slots * plan.RING_W + extra)
+    assert 2 <= p.stages <= plan.MAX_STAGES and 1 <= p.tc <= T
+    # the chunks' steps add up to T, none empty
+    steps = [min(p.tc, T - c * p.tc) for c in range(p.chunks)]
+    assert sum(steps) == T and min(steps) >= 1
+    # the blocks' columns cover B, none empty
+    cols = [min(plan.RING_W, B - k * plan.RING_W) for k in range(p.blocks)]
+    assert sum(cols) == B and min(cols) >= 1
+    assert p.threads == threads and p.launcher_args() == tuple(p)[:5]
+
+
+@pytest.mark.parametrize("key", sorted(CUDA_MODELS))
+@pytest.mark.parametrize("T, B", SHAPES)
+def test_linesearch_plan_fits_and_covers(key, T, B):
+    _, n, m = key
+    for A in range(1, MAX_A + 1):
+        p = plan.linesearch_plan(n, m, A, T, B)
+        _check(p, T, B, plan.RING_W * A, plan.k2_slots(n, m),
+               plan.RING_W * A)
+
+
+@pytest.mark.parametrize("key", sorted(CUDA_BACKWARD))
+@pytest.mark.parametrize("T, B", [s for s in SHAPES if s[0] >= 2])
+def test_backward_plan_fits_and_covers(key, T, B):
+    _, n, m, _, gps = key       # K1 takes T >= 2
+    for emit in CUDA_BACKWARD[key]:
+        p = plan.backward_plan(n, m, gps, emit, T, B)
+        G = plan.k1_warps(n, emit, gps)
+        _check(p, T, B, plan.RING_W * (G + 1), plan.k1_slots(n, m, gps),
+               plan.RING_W * plan.k1_exchange(n, m) if G > 1 else 0)
+
+
+def test_plan_slots_and_chunk_traits():
+    """The slot counts the rings stage, and the chunk length each model's
+    slot count gives at a long horizon."""
+    assert plan.k2_slots(4, 1) == 10 and plan.k2_slots(6, 2) == 22
+    assert plan.k2_slots(10, 2) == 34
+    assert plan.k1_slots(4, 1, False) == 5 and plan.k1_slots(4, 1, True) == 12
+    assert plan.k1_slots(10, 2, True) == 39
+    assert plan.k1_exchange(4, 1) == 36 and plan.k1_exchange(10, 2) == 220
+    # four compute warps only at n >= 8 for "full" emission and GPS mode
+    assert [plan.k1_warps(10, e, g) for e, g in (
+        ("gains", False), ("full", False), ("policy", True),
+        ("gains", True))] == [1, 4, 4, 4]
+    assert plan.k1_warps(4, "full", True) == plan.k1_warps(6, "full",
+                                                           False) == 1
+    tc = {(n, m): plan.linesearch_plan(n, m, 6, 10_000, 4096).tc
+          for n, m in ((4, 1), (6, 2), (10, 2))}
+    assert tc == {(4, 1): 32, (6, 2): 16, (10, 2): 16}
+    with pytest.raises(ValueError):
+        plan.backward_plan(4, 1, False, "gains", 0, 4096)

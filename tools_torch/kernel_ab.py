@@ -1,0 +1,275 @@
+#!/usr/bin/env python3
+"""Time K1 (``backward_lanes``) and K2 (``linesearch_lanes``) of two
+checkouts of the PyTorch port on one CUDA card, in the order a, b, b, a.
+
+Usage::
+
+    python3 tools_torch/kernel_ab.py <root a> <root b> [--out DIR]
+    python3 tools_torch/kernel_ab.py --run <root> <label> [--out DIR]
+
+The first form runs the second once per turn, each in its own process,
+which imports ``differentialdynamicprogramming_jl_tpu_torch`` from that
+checkout (building its kernels there), times every case and writes
+``<label>.json`` to DIR (default ``chiprun_out/kernel_ab``). It then checks
+that every turn's outputs have the same bits (a SHA-256 of each case's
+outputs) and prints each case's four medians and the ratio b/a.
+
+Cases, at B=4096 and the shapes of the paths that launch them: K1 pendcart
+``gains``/``full`` (iLQG headline T=500 ±5; MPC T=300 ±10), pendcart GPS
+``policy`` (KL, T=500), PendCartParam ``gains``/``full`` with per-scenario
+limits (heterogeneous fleet T=500, MPC T=300), Autodiff<PendCart>
+``gains``/``full`` (T=500), LTI ⟨10,2⟩ ``gains``/``full`` (T=1000 ±0.6)
+and GPS ``policy`` (KL on LTI), Autodiff<Quadrotor> ``gains``/``full``
+(T=400, thrust box (0, 5)); K2 fresh and in place for pendcart (A=6 T=500,
+A=4 T=300), PendCartParam (the same two), LTI (A=6 T=1000) and the
+quadrotor (A=6 T=400). Each trajectory is a K3 rollout of random controls
+from numpy seeds; K2's gains and dV come from K1 on it. The fresh K2
+launch lets every lane accept; the in-place one (x0 a view of the stream)
+lets none, so each launch re-rolls α=0 and writes the stream's own bits
+back. A time is the median over 5 rounds of 20 launches between CUDA
+events.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+B, ROUNDS, REPS = 4096, 5, 20
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def cuda_ms(fn) -> list:
+    out = []
+    for _ in range(ROUNDS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(REPS):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e) / REPS)
+    return out
+
+
+def instances(dev):
+    """(name, model, tiles, T, lims, lanes, params, x0 (n, B), u (T, m, B),
+    K1 emissions, GPS, K2 ladders) for each instance and path."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import (
+        linear, pendcart, quadrotor)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles import (  # noqa: E501
+        autodiff_derivs_tiles)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        default_alphas)
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    a6, a4 = default_alphas(0.2, -3.0, 6), default_alphas(0.2, -3.0, 4)
+    spec = pendcart.PendCartSpec()
+    pc, pt = pendcart.pendcart_lanes(spec), pendcart.pendcart_derivs_tiles(
+        spec)
+    x0p = t(np.array([np.pi - 0.6, 0, 0, 0])[:, None]
+            + 0.2 * rng.standard_normal((4, B)) * np.array([[1], [1], [0],
+                                                             [0]]))
+    up = {T: t(2.0 * rng.standard_normal((T, 1, B))) for T in (500, 300)}
+    yield ("pendcart T=500", pc, pt, 500, ((-5.0, 5.0),), None, None, x0p,
+           up[500], ("gains", "full"), False, (a6,))
+    yield ("pendcart T=300", pc, pt, 300, ((-10.0, 10.0),), None, None, x0p,
+           up[300], ("gains", "full"), False, (a4,))
+    yield ("pendcart GPS T=500", pc, pt, 500, None, None, None, x0p,
+           up[500], ("policy",), True, ())
+    yield ("Autodiff<PendCart> T=500", pc, autodiff_derivs_tiles(pc), 500,
+           ((-5.0, 5.0),), None, None, x0p, up[500], ("gains", "full"),
+           False, ())
+    par = t(np.stack([rng.uniform(0.25, 0.55, B), rng.uniform(0.5, 1.5, B)]))
+    hi = rng.uniform(0.8, 6.0, B)
+    lanes = t(np.stack([-hi, hi]))
+    pp = pendcart.pendcart_lanes_param(spec)
+    ppt = pendcart.pendcart_derivs_tiles_param(spec)
+    for T, ladder in ((500, a6), (300, a4)):
+        yield (f"PendCartParam T={T}", pp, ppt, T, None, lanes, par, x0p,
+               up[T], ("gains", "full"), False, (ladder,))
+    lspec = linear.random_lti(0, n=10, m=2, T=1000, device=dev)
+    xl = t(np.ones((10, B)) * np.linspace(0.5, 2.0, B)[None, :])
+    ul = lspec.u0.reshape(1000, 2, 1).expand(1000, 2, B).contiguous()
+    lm, lt = linear.lti_lanes(lspec), linear.lti_derivs_tiles(lspec)
+    yield ("LTI T=1000", lm, lt, 1000, ((-0.6, 0.6),) * 2, None, None, xl,
+           ul, ("gains", "full"), False, (a6,))
+    yield ("LTI GPS T=1000", lm, lt, 1000, None, None, None, xl, ul,
+           ("policy",), True, ())
+    qspec = quadrotor.QuadrotorSpec()
+    qm = quadrotor.quadrotor_lanes(qspec)
+    x0q = (quadrotor.default_x0(torch.float64, device="cpu").numpy()[:, None]
+           + 0.3 * rng.standard_normal((6, B))
+           * np.array([[1], [0], [1], [0], [0.5], [0]]))
+    yield ("Autodiff<Quadrotor> T=400", qm, autodiff_derivs_tiles(qm), 400,
+           qspec.lims, None, None, t(x0q),
+           t(qspec.u_hover + 1.5 * rng.standard_normal((400, 2, B))),
+           ("gains", "full"), False, (a6,))
+
+
+def gps_inputs(n, m, T, dev):
+    """A previous policy with Σ⁻¹ positive definite, η = 1."""
+    rng = np.random.default_rng(5)
+    G = rng.standard_normal((T, B, m, m)).astype(np.float32)
+    Si = np.einsum("tbij,tbkj->tbik", G, G) + 0.5 * np.eye(m)
+    prev = np.concatenate([rng.standard_normal((T, m, B)),
+                           0.05 * rng.standard_normal((T, m * n, B)),
+                           np.moveaxis(Si.reshape(T, B, m * m), 1, 2)],
+                          axis=1)
+    return (torch.tensor(prev, dtype=torch.float32, device=dev),
+            torch.ones((T, B), device=dev))
+
+
+def run(root: Path, label: str, out_dir: Path) -> int:
+    sys.path.insert(0, str(root))
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        _build, backward_kernel as bk, forward_kernel as fk)
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 1
+    assert Path(fk.__file__).resolve().is_relative_to(root), fk.__file__
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    t0 = time.perf_counter()
+    build = _build.build()
+    print(f"{label}: {smi}; build {build.seconds:.1f} s "
+          f"({time.perf_counter() - t0:.1f} s wall)", flush=True)
+    dev = torch.device("cuda")
+    res = dict(label=label, root=str(root), card=smi, build_s=build.seconds,
+               cases={})
+    for (name, model, tiles, T, lims, lanes, par, x0, u, emits, gps,
+         ladders) in instances(dev):
+        n, m = model.n, model.m
+        gains0 = torch.cat([u, torch.zeros((T, m * n, B), device=dev)], 1)
+        ro = fk.forward_lanes(torch.zeros((T, n + m, B), device=dev), gains0,
+                              x0, torch.ones((1, B), device=dev), par, lanes,
+                              model=model, lims=lims, emit_traj=True)
+        traj = ro.traj
+        lam = torch.logspace(-3, 1, B, device=dev)
+        prev, eta = gps_inputs(n, m, T, dev) if gps else (None, None)
+        for emit in emits:
+            kw = dict(n=n, m=m, reg_type=1 if gps else 2, lims=lims,
+                      derivs_tiles=tiles, params=par, lims_lanes=lanes,
+                      prev=prev, eta=eta, emit=emit)
+
+            def k1(kw=kw):
+                return bk.backward_lanes(traj, lam, **kw)
+
+            o = k1()
+            ms = cuda_ms(k1)
+            key = f"K1 {name} {emit}"
+            res["cases"][key] = dict(rounds=ms, ms=statistics.median(ms),
+                                     sha=digest(o.out, o.stats))
+            print(f"  {key}: {statistics.median(ms):.4f} ms", flush=True)
+        for ladder in ladders:
+            bo = bk.backward_lanes(traj, lam, n=n, m=m, reg_type=2,
+                                   lims=lims, derivs_tiles=tiles,
+                                   params=par, lims_lanes=lanes,
+                                   emit="gains")
+            ones = torch.ones((B,), device=dev)
+            sel = torch.stack([bo.stats[0], bo.stats[1], ro.totals[0], ones])
+            kw = dict(model=model, alphas=ladder, lims=lims)
+            A = len(ladder)
+
+            def fresh(kw=kw, sel=sel, g=bo.out):
+                return fk.linesearch_lanes(traj, g, x0, sel, par, lanes,
+                                           **kw)
+
+            o = fresh()
+            ms = cuda_ms(fresh)
+            key = f"K2 {name} A={A} fresh"
+            res["cases"][key] = dict(rounds=ms, ms=statistics.median(ms),
+                                     sha=digest(o.traj, o.ls))
+            print(f"  {key}: {statistics.median(ms):.4f} ms", flush=True)
+            buf = traj.clone()
+            sel0 = torch.stack([sel[0], sel[1], sel[2], 0 * ones])
+
+            def inplace(kw=kw, sel=sel0, g=bo.out):
+                return fk.linesearch_lanes(buf, g, buf[0, :n], sel, par,
+                                           lanes, in_place=True, **kw)
+
+            o = inplace()
+            same = (o.traj.data_ptr() == buf.data_ptr()
+                    and torch.equal(buf, traj))
+            ms = cuda_ms(inplace)
+            same = same and torch.equal(buf, traj)
+            key = f"K2 {name} A={A} in place"
+            res["cases"][key] = dict(rounds=ms, ms=statistics.median(ms),
+                                     sha=digest(buf, o.ls), retrace=same)
+            print(f"  {key}: {statistics.median(ms):.4f} ms; α=0 retrace "
+                  f"bit-equal to its input: {same}", flush=True)
+            if not same:
+                return 1
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"{label}.json").write_text(json.dumps(res, indent=1))
+    return 0
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    out_dir = Path("chiprun_out/kernel_ab")
+    if "--out" in args:
+        i = args.index("--out")
+        out_dir = Path(args[i + 1])
+        del args[i:i + 2]
+    if args and args[0] == "--run":
+        return run(Path(args[1]).resolve(), args[2], out_dir)
+    if len(args) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    roots = [Path(a).resolve() for a in args]
+    order = [("a", 0), ("b", 1), ("b", 2), ("a", 3)]
+    labels = []
+    for which, turn in order:
+        label = f"{which}{turn}"
+        labels.append(label)
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--run", str(roots[0 if which == "a" else 1]),
+                             label, "--out", str(out_dir)]).returncode
+        if rc != 0:
+            print(f"turn {label} failed ({rc})")
+            return rc
+    runs = [json.loads((out_dir / f"{lb}.json").read_text())
+            for lb in labels]
+    print(f"card: {runs[0]['card']}; a = {roots[0]}, b = {roots[1]}")
+    print(f"{'case':48s} {'a0':>9s} {'b1':>9s} {'b2':>9s} {'a3':>9s} "
+          f"{'b/a':>7s}  bits")
+    ok = True
+    summary = {}
+    for key in runs[0]["cases"]:
+        ms = [r["cases"][key]["ms"] for r in runs]
+        shas = {r["cases"][key]["sha"] for r in runs}
+        ok = ok and len(shas) == 1
+        ratio = (ms[1] + ms[2]) / (ms[0] + ms[3])
+        summary[key] = dict(ms=ms, b_over_a=ratio, same_bits=len(shas) == 1)
+        print(f"{key:48s} " + " ".join(f"{v:9.4f}" for v in ms)
+              + f" {ratio:7.3f}  {'same' if len(shas) == 1 else 'DIFFER'}")
+    (out_dir / "summary.json").write_text(json.dumps(
+        dict(card=runs[0]["card"], a=str(roots[0]), b=str(roots[1]),
+             build_s=[r["build_s"] for r in runs], cases=summary), indent=1))
+    print(json.dumps(dict(same_bits=ok, build_s=[r["build_s"]
+                                                 for r in runs])))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
