@@ -10,12 +10,12 @@ ends the run with a non-zero exit and no result line:
 1. device: torch/CUDA versions and the card's name and power limit;
 2. build: the kernels from ``ops/hopper/csrc`` with nvcc, one process per
    source, and each instance's registers and spills, with the launch plan
-   (blocks, threads, steps a chunk, ring stages, shared bytes) of each K1
-   and K2 instance at its path's shapes;
+   (blocks, threads, steps a chunk, ring stages, shared bytes) of each K1,
+   K2, K3 and K5 instance at its path's shapes;
 3. iLQG kernels (K3, K1, K2) against their plain PyTorch versions on the
    card at the main path's shapes (B=4096, T=500), with errors and
-   CUDA-event timings; pendcart and PendCartParam K1/K2 (here and in
-   phases 21 and 23) must be bit-identical to their plain versions;
+   CUDA-event timings; pendcart and PendCartParam K1/K2/K3 (here and in
+   phases 10, 21 and 23) must be bit-identical to their plain versions;
 4. the iLQG main path: ``ilqg_batch_lanes`` on pendcart with the headline
    settings, with launch counts, cost statistics and ms per iteration, and
    the bit-exact α=0 retrace of rejected lanes;
@@ -194,7 +194,7 @@ MPC_CPU_STEPS = 3
 # MPC steps of ilqg_iteration_lanes (K1 gains, K2 in place) on the MPC state
 ITER_STEPS = 5
 KERNEL_NAMES = ("backward_kernel", "linesearch_kernel", "forward_kernel",
-                "covariance_kernel", "probe_kernel")
+                "covariance_kernel", "probe_copy_kernel", "probe_ring_kernel")
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes and
 # float32 operations outside the tensor cores, per millisecond
 HBM_PER_MS = 3.35e12 / 1e3
@@ -227,19 +227,19 @@ def smi() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs after one warm-up,
-    from CUDA events."""
+    """Device time of one run of ``fn``: CUDA events around ``reps``
+    back-to-back runs after one warm-up, over ``reps``. Back to back, the
+    host's time to issue a run (the wrappers' checks) hides behind the
+    device's work instead of adding to a short kernel's time."""
     fn()
-    times = []
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
     for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
         fn()
-        e.record()
-        torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
 
 
 def err(a: torch.Tensor, b: torch.Tensor):
@@ -384,6 +384,7 @@ def ptxas_summary(log: str):
                            r"NS_13PendCartParamE", "", targs)
             args = ([model] if model else []) + re.findall(r"L[ib](\d+)E",
                                                            targs)
+            args += {"6float4": ["float4"], "f": ["float"]}.get(targs, [])
             name = (f"{kern.group(1) if kern else mangled}"
                     f"<{', '.join(args)}>")
         elif name and "spill" in line:
@@ -401,24 +402,53 @@ RING_PATHS = {"PendCart": (4, 1, T), "PendCartParam": (4, 1, T),
               "Autodiff<Quadrotor>": (6, 2, 400), "Quadrotor": (6, 2, 400)}
 
 
+def plan_text(p) -> str:
+    """blocks × threads, steps a chunk, stages, shared bytes."""
+    return (f"{p.blocks}×{p.threads} threads, tc {p.tc}, {p.stages} stages, "
+            f"{p.smem} shared bytes")
+
+
 def with_plan(line: str) -> str:
     """A ptxas line of a ring-fed instance (K1 backward_kernel, K2
-    linesearch_kernel) with its launch plan (ops/hopper/plan.py) at its
-    path's shapes: blocks × threads, steps a chunk, stages, shared bytes."""
+    linesearch_kernel, K3 forward_kernel, K5 probe_*_kernel) with its launch
+    plan (ops/hopper/plan.py) at its path's shapes: blocks × threads, steps
+    a chunk, stages, shared bytes."""
     import re
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
-    m = re.match(r"(backward|linesearch)_kernel<(Autodiff<\w+>|LTI<10,2>|"
-                 r"\w+)(?:, (\d+), (\d+))?>", line)
+    m = re.match(r"probe_(copy|ring)_kernel<(\w*)>", line)
+    if m:
+        mode = ("copy" if m.group(1) == "copy" else
+                {"60": "light", "600": "full"}.get(m.group(2)))
+        return (f"{line} | plan at B={B}, T={PROBE_T}: "
+                f"{plan_text(plan.probe_plan(mode, PROBE_T, B))}"
+                if mode else line)
+    m = re.match(r"(backward|linesearch|forward)_kernel<(Autodiff<\w+>|"
+                 r"LTI<10,2>|\w+)(?:, (\d+))?(?:, (\d+))?>", line)
     if not m or m.group(2) not in RING_PATHS:
         return line
     n, mm, Tp = RING_PATHS[m.group(2)]
     if m.group(1) == "backward":
         emit = ("gains", "full", "policy")[int(m.group(3))]
-        p, at = plan.backward_plan(n, mm, m.group(4) == "1", emit, Tp, B), ""
+        plans = [("", plan.backward_plan(n, mm, m.group(4) == "1", emit, Tp,
+                                         B))]
+    elif m.group(1) == "linesearch":
+        plans = [("A=6 ", plan.linesearch_plan(n, mm, 6, Tp, B))]
     else:
-        p, at = plan.linesearch_plan(n, mm, 6, Tp, B), ", A=6"
-    return (f"{line} | plan at B={B}, T={Tp}{at}: {p.blocks}×{p.threads} "
-            f"threads, tc {p.tc}, {p.stages} stages, {p.smem} shared bytes")
+        emit = m.group(3) == "1"
+        plans = [(f"A={A} ", plan.forward_plan(n, mm, A, Tp, B, emit))
+                 for A in (6, 1)]
+    return f"{line} | plan at B={B}, T={Tp}: " + "; ".join(
+        f"{at}{plan_text(p)}" for at, p in plans)
+
+
+def print_k3_plans(what: str, n: int, m: int, T_path: int) -> None:
+    """K3's launch plans (ops/hopper/plan.py) at a path's shapes: the
+    6-candidate sweep and the 1-candidate rollout that emits its stream."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    print(f"  {what} K3 plans at B={B}, T={T_path}: " + "; ".join(
+        f"A={A}{' emit' if A == 1 else ''} "
+        f"{plan_text(plan.forward_plan(n, m, A, T_path, B, A == 1))}"
+        for A in (6, 1)))
 
 
 def once_ms(fn) -> float:
@@ -542,6 +572,13 @@ def k5_work(mode: str, T: int, B: int) -> dict:
     return bound(4 * T * B * (s_read + pk.S_OUT), 2 * pk.MODES[mode] * T * B)
 
 
+def k5_chain_ms(T: int) -> float:
+    """K5 full's latency bound: each scenario's running sum is a chain of
+    600 dependent f32 adds a step, T steps long, 4 cycles an add, at an
+    SM clock of 1.755 GHz (the clock is not read in this run)."""
+    return T * 600 * 4 / 1.755e6
+
+
 def profile_split(fn):
     """One run of ``fn`` under torch.profiler: device time in the port's
     kernels (namespace ddp), in everything else on the device (torch glue:
@@ -626,6 +663,8 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> dict:
     k, p = pre_roll(False), pre_roll(True)
     e_k3 = compare("K3 pre-roll, no limits", {
         "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)})
+    check_bits("K3 pre-roll", (k.totals, p.totals), (k.traj, p.traj))
+    print_k3_plans("KL", model.n, model.m, T)
     traj_pre, cost0 = k.traj, k.totals[0]
     ms3 = cuda_ms(lambda: pre_roll(False), 20)
     plain_ms3 = cuda_ms(lambda: pre_roll(True), 3)
@@ -878,6 +917,7 @@ def lti_phases(ph, dev, rec, counters) -> dict:
     k, p = fwd(Tp, al1, True, False), fwd(Tp, al1, True, True)
     e3 = max(e3, compare("LTI K3 rollout A=1", {
         "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)}))
+    print_k3_plans("LTI", n, m, LTI_T)
     print(f"  LTI K3: bit-identical to the plain version: "
           f"{torch.equal(k.traj, p.traj) and torch.equal(k.totals, p.totals)}")
     traj, tot = k.traj, k.totals[0]
@@ -1126,6 +1166,7 @@ def kl_lti_phases(ph, dev, rec, counters) -> dict:
     k, p = pre_roll(False), pre_roll(True)
     e3 = compare("LTI K3 pre-roll, no limits", {
         "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)})
+    print_k3_plans("KL on LTI", n, m, Tl)
     print(f"  LTI K3 pre-roll: bit-identical to the plain version: "
           f"{torch.equal(k.traj, p.traj) and torch.equal(k.totals, p.totals)}")
     traj_pre, cost0 = k.traj, k.totals[0]
@@ -1432,6 +1473,7 @@ def quad_phases(ph, dev, rec, counters, ilqg) -> dict:
     k, p = fwd(al1, True, False), fwd(al1, True, True)
     e3 = max(e3, compare("quad K3 rollout A=1", {
         "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)}))
+    print_k3_plans("quad", 6, 2, Tq)
     print(f"  quad K3 rollout: bit-identical to the plain version: "
           f"{torch.equal(k.traj, p.traj) and torch.equal(k.totals, p.totals)}")
     traj, tot = k.traj, k.totals[0]
@@ -1778,9 +1820,14 @@ def hetero_phases(ph, dev, rec, counters, ilqg) -> dict:
     k, p = fwd(ladder, False, False), fwd(ladder, False, True)
     e3 = compare("PendCartParam K3 sweep A=6", {
         "totals": (k.totals, p.totals), "terminal": (k.terminal, p.terminal)})
+    check_bits("PendCartParam K3 sweep", (k.totals, p.totals),
+               (k.terminal, p.terminal))
     k, p = fwd(al1, True, False), fwd(al1, True, True)
     e3 = max(e3, compare("PendCartParam K3 rollout A=1", {
         "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)}))
+    check_bits("PendCartParam K3 rollout", (k.totals, p.totals),
+               (k.traj, p.traj))
+    print_k3_plans("PendCartParam", 4, 1, T)
     traj, tot = k.traj, k.totals[0]
     u = traj[:, 4]
     check(bool((u.abs() <= hi).all()), "PendCartParam K3: a control outside "
@@ -1899,6 +1946,8 @@ def hetero_phases(ph, dev, rec, counters, ilqg) -> dict:
               (False, True))
     e_pc = compare("pendcart K3, per-scenario limits", {
         "totals": (kf.totals, pf.totals), "traj": (kf.traj, pf.traj)})
+    check_bits("pendcart K3, per-scenario limits", (kf.totals, pf.totals),
+               (kf.traj, pf.traj))
     e_pc1 = max(compare_k1(f"pendcart K1 {emit}, per-scenario limits",
                          bwd(emit, False, ftiles, dict(lims_lanes=lanes),
                              None, kf.traj),
@@ -2001,6 +2050,7 @@ def hetero_phases(ph, dev, rec, counters, ilqg) -> dict:
     k, p = lfwd(Tp, al1, True, False), lfwd(Tp, al1, True, True)
     el3 = max(el3, compare("LTI K3 rollout A=1, per-scenario boxes", {
         "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)}))
+    print_k3_plans("LTI boxes", n, m, Tl)
     ltr, ltot = k.traj, k.totals[0]
     errs, plain_l1 = [], None
     for emit in ("gains", "full"):
@@ -2276,6 +2326,9 @@ def mpc_phases(ph, dev, rec, counters) -> dict:
         k3, p3 = fwd(False), fwd(True)
         e3 = compare(f"{what} K3 rollout α=1", {
             "totals": (k3.totals, p3.totals), "traj": (k3.traj, p3.traj)})
+        check_bits(f"{what} K3 rollout α=1", (k3.totals, p3.totals),
+                   (k3.traj, p3.traj))
+        print_k3_plans(what, 4, 1, Tm)
         traj = k3.traj
 
         def bwd(emit, plain):
@@ -2564,9 +2617,16 @@ def probe_phase(ph, dev, rec, counters) -> dict:
         print(f"  K5 {mode}: bit-identical, kernel {ms:.4f} ms "
               f"({gbs:.1f} GB/s of {w['bound_bytes'] / 1e6:.1f} MB), bound "
               f"{w['bound_ms']:.4f} ms ({w['bound_by']}), plain {plain:.1f} ms"
-              + (f", torch slice clone {lib:.4f} ms" if lib else ""))
+              + (f", torch slice clone {lib:.4f} ms; kernel / clone "
+                 f"{ms / lib:.3f}" if lib else ""))
+        if mode == "full":
+            print(f"  K5 full: chain bound {PROBE_T * pk.MODES['full']} "
+                  f"dependent adds × 4 cycles at 1.755 GHz = "
+                  f"{k5_chain_ms(PROBE_T):.4f} ms")
         rec[f"k5_{mode}"] = dict(max_abs_err=mx, ms=ms, plain_ms=plain,
                                  library_ms=lib, achieved_GBps=gbs, **w)
+        if mode == "full":
+            rec["k5_full"]["chain_bound_ms"] = k5_chain_ms(PROBE_T)
     return paths
 
 
@@ -2635,9 +2695,12 @@ def main() -> int:
     k, p = fwd(ladder, False, False), fwd(ladder, False, True)
     e1 = compare("K3 sweep A=6", {"totals": (k.totals, p.totals),
                                   "terminal": (k.terminal, p.terminal)})
+    check_bits("K3 sweep", (k.totals, p.totals), (k.terminal, p.terminal))
     k, p = fwd(al1, True, False), fwd(al1, True, True)
     e2 = compare("K3 rollout A=1", {"totals": (k.totals, p.totals),
                                     "traj": (k.traj, p.traj)})
+    check_bits("K3 rollout", (k.totals, p.totals), (k.traj, p.traj))
+    print_k3_plans("pendcart", 4, 1, T)
     traj = k.traj           # kernel-produced [x, u, c] stream, (T, 6, B)
     tot = k.totals[0]
     ms = cuda_ms(lambda: fwd(ladder, False, False), 20)
@@ -2779,7 +2842,7 @@ def main() -> int:
     kern_ms = (launches["backward_lanes"] * rec["k1_pendcart"]["ms"]
                + launches["linesearch_lanes"] * rec["k2_pendcart"]["ms"])
     print(f"  kernel share estimate: {kern_ms:.3f} ms of {solve_ms:.3f} ms "
-          f"in K1(gains)+K2 at their phase-3 medians; the rest is K3, the "
+          f"in K1(gains)+K2 at their phase-3 times; the rest is K3, the "
           f"full replay, torch glue and host syncs")
     check(all(launches[c.__name__] > 0 for c in counters[:3]),
           f"a kernel of the main path never ran: {launches}")

@@ -54,8 +54,8 @@ _F = ctypes.c_float
 # (P, B) or null, P, model id, n, m, descriptor, descriptor size, device,
 # stream
 _MODEL = (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P)
-# K1's and K2's launch plan before the device: blocks, threads, steps a
-# chunk, ring stages, shared bytes (plan.py)
+# the launch plan before the device (K1, K2, K3, K5): blocks, threads,
+# steps a chunk, ring stages, shared bytes (plan.py)
 _PLAN = (_I,) * 5
 SIGNATURES = {
     # K1 takes one more model argument before the plan: whether its
@@ -63,11 +63,11 @@ SIGNATURES = {
     "ddp_backward_lanes": (_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                            _I) + _MODEL[:9] + (_I,) + _PLAN + _MODEL[9:],
     "ddp_forward_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
-                          _I, _I) + _MODEL,
+                          _I, _I) + _MODEL[:9] + _PLAN + _MODEL[9:],
     "ddp_linesearch_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _F, _P,
                              _P, _I, _I) + _MODEL[:9] + _PLAN + _MODEL[9:],
     "ddp_covariance_lanes": (_P, _P, _I, _I, _I, _P, _I, _P),
-    "ddp_probe_lanes": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "ddp_probe_lanes": (_P, _P, _I, _I, _I, _I, _I, _F) + _PLAN + (_I, _P),
 }
 
 

@@ -1,5 +1,6 @@
 // K3 and K2 entry points: check the arguments, pick the model's instance,
-// and launch it (K2 with the wrapper's launch plan, ops/hopper/plan.py). The kernels are in forward.cuh; the pendcart ⟨4,1⟩
+// and launch it with the wrapper's launch plan (ops/hopper/plan.py). The
+// kernels are in forward.cuh; the pendcart ⟨4,1⟩
 // instances are compiled here, the LTI ⟨10,2⟩ ones in forward_lti.cu, the
 // quadrotor ⟨6,2⟩ ones in forward_quad.cu and the PendCartParam ⟨4,1⟩ ones
 // in forward_pendcart_param.cu, so that nvcc builds them in parallel.
@@ -67,7 +68,8 @@ extern "C" int ddp_forward_lanes(const float* traj, int s_traj,
                                  const float* params, int n_params,
                                  int model_id, int n, int m,
                                  const float* consts, int n_consts,
-                                 int device, void* stream) {
+                                 int blocks, int threads, int tc, int stages,
+                                 int smem, int device, void* stream) {
   const int which = instance(model_id, n, m, n_consts, n_params);
   if (which == 0) return ERR_MODEL;
   if ((params != nullptr) != (n_params > 0)) return ERR_ARGS;
@@ -90,6 +92,7 @@ extern "C" int ddp_forward_lanes(const float* traj, int s_traj,
   a.lims_lanes = lims_lanes;
   a.params = params;
   a.consts = consts;
+  a.plan = RingPlan{blocks, threads, tc, stages, smem};
   a.stream = static_cast<cudaStream_t>(stream);
   if (!stream_args_ok(a, n, m) || a.out == a.traj) return ERR_ARGS;
   cudaSetDevice(device);

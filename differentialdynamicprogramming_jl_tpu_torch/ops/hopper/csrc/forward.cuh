@@ -12,34 +12,39 @@
 // unchanged, as the JAX rollout's missing clamp does. Instances: pendcart
 // ⟨4,1⟩ (forward.cu), LTI ⟨10,2⟩ (forward_lti.cu), quadrotor ⟨6,2⟩
 // (forward_quad.cu) and the parametrised pendcart PendCartParam ⟨4,1⟩
-// (forward_pendcart_param.cu); K3 at A = 1..8 each, K2 one kernel for any
-// A ≤ MAX_A.
+// (forward_pendcart_param.cu); K3 one kernel a model for any A ≤ MAX_A
+// with and one without the emitted stream, K2 one kernel a model.
 //
 // Layout: streams are (T, S, B) f32 with the scenario axis contiguous.
-// K3: one thread owns one scenario and walks t = 0 .. T-1, holding the A
-// candidate states (A·(n+2) floats) in registers, loading each step from
-// device memory as it comes. K2: a block owns 32 scenarios and runs one
-// warp per candidate; lane l is scenario 32·blockIdx.x + l, and each thread
-// holds one candidate's n+2 floats. The step inputs of the block (x_old,
-// u_nom from the trajectory, k, K from the gains: n+2m+mn slots) are
-// staged in chunks of tc steps in a shared-memory ring of `stages` stages
-// (ring.cuh), which all A warps read; pass 1 and pass 2 are one sequence
-// of 2·⌈T/tc⌉ chunks, so the ring also prefetches pass 2's first chunks
-// while pass 1 ends. The plan (tc, stages, shared bytes) comes from
-// ops/hopper/plan.py.
+// Both kernels give a block 32 scenarios and run one warp per candidate;
+// lane l is scenario 32·blockIdx.x + l, and each thread holds one
+// candidate's n+2 floats. The step inputs of the block (x_old, u_nom from
+// the trajectory, k, K from the gains: n+2m+mn slots) are staged in chunks
+// of tc steps in a shared-memory ring of `stages` stages (ring.cuh), which
+// all A warps read. K2: pass 1 and pass 2 are one sequence of 2·⌈T/tc⌉
+// chunks, so the ring also prefetches pass 2's first chunks while pass 1
+// ends; every warp stages. K3: one pass of ⌈T/tc⌉ chunks, staged by two or
+// more producer warps after the A candidate warps, which also store the
+// emitted stream from a shared output buffer; the candidate warps touch
+// device memory only for x0, α and their totals. The plans (threads, tc,
+// stages, shared bytes) come from ops/hopper/plan.py.
 //
 // What bounds them. Pendcart at B=4096, T=500: a pass reads the x,u slots
 // of the trajectory (≈41 MB) and the gain slots (≈41 MB); the line search
 // writes the new [x, u, c] stream (≈49 MB): ≈131 MB, 0.039 ms at 3.35
-// TB/s, against ≈40 f32 operations a scenario-step and candidate. K3 runs
-// one warp per scheduler on 32 SMs and waits on each step's loads. K2 puts
-// 128 blocks on 128 SMs, moves each input byte once per pass, and no step
-// waits on device memory: a step costs its dependent chain of arithmetic
-// (sinf/cosf and the divisions of the pendcart, the n×n product of LTI),
-// T steps in pass 1 and T again in pass 2, which one warp of the block
-// rolls for its 32 scenarios while the others only stage the ring. LTI
-// ⟨10,2⟩ at B=4096, T=1000, A=6: the line search reads x,u (12 slots) and
-// k,K (22 slots) and writes 13 slots (≈770 MB) against ≈11 GFLOP.
+// TB/s, against ≈40 f32 operations a scenario-step and candidate. Both put
+// 128 blocks on 128 SMs and move each input byte once per pass, so a step
+// costs its dependent chain of arithmetic (sinf/cosf and the divisions of
+// the pendcart, the n×n product of LTI, whose zero-skipping branches cut
+// it into short blocks), T steps for K3 and for K2's pass 1, T again for
+// K2's pass 2, which one warp of the block rolls for its 32 scenarios. One
+// warp keeps too few cp.async copies in flight to fill a chunk while the
+// candidates roll the one before (measured on an H100: a K3 block with one
+// producer warp took 1.5-2× as long as with two), so K3's producers are
+// several and issue their copies after the chunk's barrier, off the
+// candidates' path. LTI ⟨10,2⟩ at B=4096, T=1000, A=6: the line search
+// reads x,u (12 slots) and k,K (22 slots) and writes 13 slots (≈770 MB)
+// against ≈11 GFLOP.
 //
 // Semantics kept from the TPU kernels (forward_kernel.py line numbers):
 // - per control, u = clip(u_nom + α·k + Σ_j K_j·(x_j − x_old_j), lo, hi)
@@ -50,7 +55,9 @@
 //   sign(dcost) when expected <= 0; the first α in ladder order with
 //   ratio > rr_min wins; α_eff = 0 where allow = 0 (:401-436);
 // - pass 2 re-rolls α_eff through the same rollout_step as pass 1 and as
-//   forward_kernel, so an α=0 retrace reproduces a trajectory bit for bit.
+//   forward_kernel, so an α=0 retrace reproduces a trajectory bit for bit;
+// - lanes past B (the last block of a B that is not a multiple of 32) read
+//   scenario B-1's inputs and write nothing.
 // In place (:530-534, :599-611): the launcher may be given out == traj
 // (the wrapper's in_place, for a stream of exactly n+m+1 slots), so traj,
 // x0 and out are not __restrict__: aliased __restrict__ pointers would be
@@ -69,6 +76,8 @@
 namespace ddp {
 
 constexpr int MAX_A = 8;
+// K3's block: A candidate warps and its producers, at most this many warps
+constexpr int K3_MAX_WARPS = 10;
 
 struct Ladder {
   float a[MAX_A];
@@ -92,7 +101,7 @@ struct FwdArgs {
   float* out;            // K2: == traj for the in-place update
   float* ls;
   int T, B;
-  RingPlan plan;         // K2's launch plan (ops/hopper/plan.py)
+  RingPlan plan;         // the launch plan (ops/hopper/plan.py)
   Lims lims;
   const float* lims_lanes;   // (2m, B) per-scenario limits, or null
   const float* params;       // (P, B) per-scenario parameters, or null
@@ -102,32 +111,45 @@ struct FwdArgs {
 
 namespace {
 
-constexpr int FWD_THREADS = 128;
-
 template <class Model>
 struct StepIn {
   float x_old[Model::N], u_nom[Model::M], k[Model::M];
   float K[Model::M][Model::N];
 };
 
+// ring slots of a step: [x_old, u_nom, k, K] (a variable template: device
+// code may not call a constexpr host function)
 template <class Model>
-__device__ __forceinline__ void load_step(const float* __restrict__ traj,
-                                          int s_traj,
-                                          const float* __restrict__ gains,
-                                          int s_g, int gk, int gK, int t,
-                                          int b, size_t sB,
-                                          StepIn<Model>& s) {
+constexpr int STEP_SLOTS = Model::N + 2 * Model::M + Model::M * Model::N;
+
+// slot s of step t of the ring's input, at column 0, in device memory: the
+// trajectory's x, u slots, then the gains' k and K slots
+template <class Model>
+__device__ __forceinline__ const float* step_row(const float* traj,
+                                                 int s_traj,
+                                                 const float* gains, int s_g,
+                                                 int gk, int gK, size_t t,
+                                                 int s, size_t sB) {
   constexpr int N = Model::N, M = Model::M;
-  const float* tr = traj + (size_t)t * s_traj * sB + b;
-  const float* gn = gains + (size_t)t * s_g * sB + b;
+  return s < N + M ? traj + (t * s_traj + s) * sB
+         : s < N + 2 * M ? gains + (t * s_g + gk + (s - N - M)) * sB
+                         : gains + (t * s_g + gK + (s - N - 2 * M)) * sB;
+}
+
+// one step's inputs from the ring: r points at this lane's column of the
+// step's first slot
+template <class Model>
+__device__ __forceinline__ void ring_step(const float* r, StepIn<Model>& s) {
+  constexpr int N = Model::N, M = Model::M;
 #pragma unroll
-  for (int i = 0; i < N; ++i) s.x_old[i] = tr[i * sB];
+  for (int i = 0; i < N; ++i) s.x_old[i] = r[i * RING_W];
 #pragma unroll
   for (int mi = 0; mi < M; ++mi) {
-    s.u_nom[mi] = tr[(N + mi) * sB];
-    s.k[mi] = gn[(gk + mi) * sB];
+    s.u_nom[mi] = r[(N + mi) * RING_W];
+    s.k[mi] = r[(N + M + mi) * RING_W];
 #pragma unroll
-    for (int j = 0; j < N; ++j) s.K[mi][j] = gn[(gK + mi * N + j) * sB];
+    for (int j = 0; j < N; ++j)
+      s.K[mi][j] = r[(N + 2 * M + mi * N + j) * RING_W];
   }
 }
 
@@ -159,57 +181,123 @@ __device__ __forceinline__ void rollout_step(
   c_out = c;
 }
 
-template <class Model, int A, bool EMIT>
-__global__ void __launch_bounds__(FWD_THREADS)
+// K3. Block: 32 scenarios × A candidate warps (warp a rolls candidate a,
+// alphas[a]), then the plan's producer warps, which alone move data
+// between device memory and shared memory. One barrier a chunk: at barrier
+// c chunk c has landed and every candidate warp is done with chunk c-1,
+// whose stage the producers then refill with chunk c+stages-1 while the
+// candidates roll chunk c, so that the copies never hold the candidates
+// up. With EMIT, warp 0 writes each step's [x, u, c] into a shared output
+// buffer of two chunks after the ring, [2][tc][SO][32], and the producers
+// store chunk c-1's half to device memory after barrier c (one more
+// barrier after the last chunk), 16 bytes a store where ovec.
+template <class Model, bool EMIT>
+__global__ void __launch_bounds__(RING_W * K3_MAX_WARPS)
 forward_kernel(const float* __restrict__ traj, int s_traj,
                const float* __restrict__ gains, int s_g, int gk, int gK,
                const float* __restrict__ x0, const float* __restrict__ alphas,
                float* __restrict__ totals, float* __restrict__ terminal,
-               float* __restrict__ out, int T, int B, Lims lims,
+               float* __restrict__ out, int T, int B, int A, Lims lims,
                const float* __restrict__ lims_lanes,
-               const float* __restrict__ params, typename Model::Consts mc) {
+               const float* __restrict__ params, typename Model::Consts mc,
+               int tc, int stages, bool vec, bool ovec) {
   constexpr int N = Model::N, M = Model::M;
   constexpr int SO = N + M + 1;   // output slots [x, u, c]
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t sB = (size_t)B;
-  const Model P = make_model<Model>(mc, params, b, sB);
-  const Lims lm = lane_lims<M>(lims, lims_lanes, b, sB);
-  float x[A][N], acc[A], term[A], al[A];
-#pragma unroll
-  for (int a = 0; a < A; ++a) {
-    al[a] = alphas[a * sB + b];
-#pragma unroll
-    for (int i = 0; i < N; ++i) x[a][i] = x0[i * sB + b];
-    acc[a] = 0.0f;
-    term[a] = 0.0f;
+  constexpr int F = STEP_SLOTS<Model>;
+  extern __shared__ __align__(16) float ring[];
+  const int lane = threadIdx.x & (RING_W - 1), w = threadIdx.x / RING_W;
+  const int b0 = blockIdx.x * RING_W, b = b0 + lane;
+  const int cols = min(RING_W, B - b0);
+  const int nc = (T + tc - 1) / tc;          // chunks
+  const int stage = tc * F * RING_W;         // floats a stage
+  float* const obuf = ring + stages * stage;     // EMIT: [2][tc][SO][32]
+  const int ostage = tc * SO * RING_W;
+
+  if (w >= A) {
+    // a producer: keeps stages-1 chunks in flight ahead of the candidates
+    const int tid = threadIdx.x - RING_W * A;
+    const int nthr = blockDim.x - RING_W * A;
+    auto issue = [&](int c) {
+      if (c < nc) {
+        const int t0 = c * tc, steps = min(tc, T - t0);
+        stage_rows<F>(ring + (c % stages) * stage, steps, cols, vec, tid,
+                      nthr, [&](int tt, int s) {
+                        return step_row<Model>(traj, s_traj, gains, s_g, gk,
+                                               gK, (size_t)(t0 + tt), s,
+                                               (size_t)B) +
+                               b0;
+                      });
+      }
+      cp_async_commit();
+    };
+    // chunk c's emitted steps, from its half of the output buffer
+    auto flush = [&](int c) {
+      const int t0 = c * tc, steps = min(tc, T - t0);
+      const float* src = obuf + (c & 1) * ostage;
+      float* dst = out + (size_t)t0 * SO * B + b0;
+      if (ovec) {
+        for (int i = tid; i < steps * SO * (RING_W / 4); i += nthr) {
+          const int row = i >> 3, p = 4 * (i & 7);
+          if (p < cols)
+            *reinterpret_cast<float4*>(dst + (size_t)row * B + p) =
+                *reinterpret_cast<const float4*>(src + row * RING_W + p);
+        }
+      } else {
+        for (int i = tid; i < steps * SO * RING_W; i += nthr) {
+          const int row = i >> 5, col = i & 31;
+          if (col < cols) dst[(size_t)row * B + col] = src[i];
+        }
+      }
+    };
+    for (int c = 0; c < stages - 1; ++c) issue(c);
+    for (int c = 0; c < nc + EMIT; ++c) {
+      if (c < nc) cp_async_wait(stages - 2);   // chunk c landed
+      __syncthreads();             // everyone's; chunk c-1 is consumed
+      if (c < nc) issue(c + stages - 1);       // into chunk c-1's stage
+      if (EMIT && c > 0) flush(c - 1);
+    }
+    return;
   }
-  for (int t = 0; t < T; ++t) {
-    StepIn<Model> s;
-    load_step<Model>(traj, s_traj, gains, s_g, gk, gK, t, b, sB, s);
-    const bool last = t == T - 1;
+
+  const bool live = b < B;
+  // a lane past B reads scenario B-1's inputs and drops its results
+  const int bl = live ? b : B - 1;
+  const size_t sB = (size_t)B;
+  const Model P = make_model<Model>(mc, params, bl, sB);
+  const Lims lm = lane_lims<M>(lims, lims_lanes, bl, sB);
+  const float alpha = alphas[w * sB + bl];
+  float x[N], acc = 0.0f, term = 0.0f;
 #pragma unroll
-    for (int a = 0; a < A; ++a) {
-      float xs[N];
+  for (int i = 0; i < N; ++i) x[i] = x0[i * sB + bl];
+
+  for (int c = 0; c < nc; ++c) {
+    __syncthreads();               // chunk c is ready, c-1 consumed
+    const int t0 = c * tc, steps = min(tc, T - t0);
+    const float* st = ring + (c % stages) * stage + lane;
+    float* ob = obuf + (c & 1) * ostage + lane;
+    for (int tt = 0; tt < steps; ++tt) {
+      const int t = t0 + tt;
+      StepIn<Model> s;
+      ring_step<Model>(st + tt * F * RING_W, s);
+      const bool put = EMIT && w == 0;
+      float* o = ob + tt * SO * RING_W;
+      if (put) {
 #pragma unroll
-      for (int i = 0; i < N; ++i) xs[i] = x[a][i];
-      float u[M], c;
-      rollout_step<Model>(P, x[a], acc[a], term[a], al[a], s, lm, last, u,
-                          c);
-      if (EMIT && a == 0) {
-        float* o = out + (size_t)t * SO * sB + b;
+        for (int i = 0; i < N; ++i) o[i * RING_W] = x[i];
+      }
+      float u[M], cst;
+      rollout_step<Model>(P, x, acc, term, alpha, s, lm, t == T - 1, u, cst);
+      if (put) {
 #pragma unroll
-        for (int i = 0; i < N; ++i) o[i * sB] = xs[i];
-#pragma unroll
-        for (int mi = 0; mi < M; ++mi) o[(N + mi) * sB] = u[mi];
-        o[(N + M) * sB] = c;
+        for (int mi = 0; mi < M; ++mi) o[(N + mi) * RING_W] = u[mi];
+        o[(N + M) * RING_W] = cst;
       }
     }
   }
-#pragma unroll
-  for (int a = 0; a < A; ++a) {
-    totals[a * sB + b] = acc[a] + term[a];
-    terminal[a * sB + b] = term[a];
+  if (EMIT) __syncthreads();       // the last chunk's output is complete
+  if (live) {
+    totals[w * sB + b] = acc + term;
+    terminal[w * sB + b] = term;
   }
 }
 
@@ -229,7 +317,7 @@ linesearch_kernel(const float* traj, int s_traj,
                   typename Model::Consts mc, int tc, int stages, bool vec) {
   constexpr int N = Model::N, M = Model::M;
   constexpr int SO = N + M + 1;
-  constexpr int F = N + 2 * M + M * N;   // ring slots [x_old, u_nom, k, K]
+  constexpr int F = STEP_SLOTS<Model>;
   extern __shared__ __align__(16) float ring[];
   const int lane = threadIdx.x & (RING_W - 1), w = threadIdx.x / RING_W;
   const int A = blockDim.x / RING_W;
@@ -251,13 +339,9 @@ linesearch_kernel(const float* traj, int s_traj,
       const int t0 = (j % nc) * tc, steps = min(tc, T - t0);
       stage_rows<F>(ring + (j % stages) * stage, steps, cols, vec,
                     threadIdx.x, blockDim.x, [&](int tt, int s) {
-                      const size_t t = (size_t)(t0 + tt);
-                      const float* row =
-                          s < N + M ? traj + (t * s_traj + s) * sB
-                          : s < N + 2 * M
-                              ? gains + (t * s_g + gk + (s - N - M)) * sB
-                              : gains + (t * s_g + gK + (s - N - 2 * M)) * sB;
-                      return row + b0;
+                      return step_row<Model>(traj, s_traj, gains, s_g, gk,
+                                             gK, (size_t)(t0 + tt), s, sB) +
+                             b0;
                     });
     }
     cp_async_commit();
@@ -319,18 +403,8 @@ linesearch_kernel(const float* traj, int s_traj,
       const float* st = ring + (j % stages) * stage + lane;
       for (int tt = 0; tt < steps; ++tt) {
         const int t = t0 + tt;
-        const float* r = st + tt * F * RING_W;
         StepIn<Model> s;
-#pragma unroll
-        for (int i = 0; i < N; ++i) s.x_old[i] = r[i * RING_W];
-#pragma unroll
-        for (int mi = 0; mi < M; ++mi) {
-          s.u_nom[mi] = r[(N + mi) * RING_W];
-          s.k[mi] = r[(N + M + mi) * RING_W];
-#pragma unroll
-          for (int jj = 0; jj < N; ++jj)
-            s.K[mi][jj] = r[(N + 2 * M + mi * N + jj) * RING_W];
-        }
+        ring_step<Model>(st + tt * F * RING_W, s);
         float* o = out + (size_t)t * SO * sB + b;
         if (pass2 && live) {
 #pragma unroll
@@ -358,31 +432,28 @@ typename Model::Consts consts_of(const FwdArgs& a) {
   return mc;
 }
 
-// K3 for one model, A candidates (1..MAX_A)
+// K3 for one model, A candidates (1..MAX_A), with the wrapper's plan:
+// 32·A threads and at least one producer warp, K3_MAX_WARPS warps at most
 template <class Model>
 int launch_forward(const FwdArgs& a) {
-  const auto mc = consts_of<Model>(a);
-  const dim3 grid((a.B + FWD_THREADS - 1) / FWD_THREADS);
+  const RingPlan& p = a.plan;
+  const int warps = p.threads / RING_W;
   const bool emit = a.out != nullptr;
-#define DDP_FWD(AA)                                                         \
-  case AA:                                                                  \
-    if (emit)                                                               \
-      forward_kernel<Model, AA, true><<<grid, FWD_THREADS, 0, a.stream>>>(  \
-          a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.alphas,     \
-          a.totals, a.terminal, a.out, a.T, a.B, a.lims, a.lims_lanes,      \
-          a.params, mc);                                                    \
-    else                                                                    \
-      forward_kernel<Model, AA, false><<<grid, FWD_THREADS, 0, a.stream>>>( \
-          a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.alphas,     \
-          a.totals, a.terminal, a.out, a.T, a.B, a.lims, a.lims_lanes,      \
-          a.params, mc);                                                    \
-    break;
-  switch (a.A) {
-    DDP_FWD(1) DDP_FWD(2) DDP_FWD(3) DDP_FWD(4)
-    DDP_FWD(5) DDP_FWD(6) DDP_FWD(7) DDP_FWD(8)
-    default: return ERR_ARGS;
-  }
-#undef DDP_FWD
+  // with emission, the output buffer of two chunks after the ring
+  const int extra = emit ? 2 * p.tc * (Model::N + Model::M + 1) * RING_W : 0;
+  if (warps <= a.A || warps > K3_MAX_WARPS ||
+      !plan_ok(p, a.B, RING_W * warps, STEP_SLOTS<Model>, extra))
+    return ERR_ARGS;
+  const auto kernel = emit ? forward_kernel<Model, true>
+                           : forward_kernel<Model, false>;
+  const int rc = reserve_smem(kernel, p.smem);
+  if (rc != 0) return rc;
+  const bool vec = rows_aligned(a.B, a.traj) && rows_aligned(a.B, a.gains);
+  kernel<<<p.blocks, p.threads, p.smem, a.stream>>>(
+      a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.alphas,
+      a.totals, a.terminal, a.out, a.T, a.B, a.A, a.lims, a.lims_lanes,
+      a.params, consts_of<Model>(a), p.tc, p.stages, vec,
+      emit && rows_aligned(a.B, a.out));
   return (int)cudaGetLastError();
 }
 
@@ -390,9 +461,9 @@ int launch_forward(const FwdArgs& a) {
 // place when a.out == a.traj
 template <class Model>
 int launch_linesearch(const FwdArgs& a) {
-  constexpr int F = Model::N + 2 * Model::M + Model::M * Model::N;
   const RingPlan& p = a.plan;
-  if (!plan_ok(p, a.B, RING_W * a.A, F, RING_W * a.A)) return ERR_ARGS;
+  if (!plan_ok(p, a.B, RING_W * a.A, STEP_SLOTS<Model>, RING_W * a.A))
+    return ERR_ARGS;
   const auto kernel = linesearch_kernel<Model>;
   const int rc = reserve_smem(kernel, p.smem);
   if (rc != 0) return rc;

@@ -1,5 +1,6 @@
-// The shared-memory ring that K1 (backward.cuh) and K2 (forward.cuh) stage
-// their step inputs in, and the launch plan that sizes it.
+// The shared-memory ring that K1 (backward.cuh), K2 and K3 (forward.cuh)
+// and K5's light and full modes (probe.cu) stage their step inputs in, and
+// the launch plan that sizes it.
 //
 // A block owns RING_W = 32 consecutive scenarios. A ring stage holds a chunk
 // of tc time steps of the F input slots of those scenarios, laid out

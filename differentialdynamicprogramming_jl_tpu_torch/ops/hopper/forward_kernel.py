@@ -7,8 +7,8 @@ Each wrapper takes streams ``(T, S, B)`` (see :mod:`.pack`):
   vectorised over B and A with a Python loop over t, in the kernel's
   operation order;
 - a CUDA tensor goes to the hand-written kernel in ``csrc/forward.cu``, or
-  the wrapper raises. There is no fallback. K2's launch plan (block shape
-  and shared-memory ring) comes from :mod:`.plan`.
+  the wrapper raises. There is no fallback. The launch plans of K3 and K2
+  (block shape and shared-memory ring) come from :mod:`.plan`.
 
 The kernels read the model from its device descriptor
 (:class:`DeviceModel`); a :class:`LanesModel` without one runs only on the
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .plan import linesearch_plan
+from .plan import forward_plan, linesearch_plan
 
 MAX_A = 8   # candidate bound of the CUDA kernels (csrc/forward.cu)
 # (model id, n, m) of each model the CUDA kernels K2 and K3 are instantiated
@@ -360,10 +360,12 @@ def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
     term = torch.empty_like(totals)
     out = (torch.empty((T, model.n + model.m + 1, B), dtype=torch.float32,
                        device=traj.device) if emit_traj else None)
+    plan = forward_plan(model.n, model.m, A, T, B, emit_traj)
     rc = lib.ddp_forward_lanes(
         traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1], gk,
         gK, x0.data_ptr(), alphas.data_ptr(), A, totals.data_ptr(),
-        term.data_ptr(), _ptr(out), T, B, *model_args, dev, stream)
+        term.data_ptr(), _ptr(out), T, B, *model_args,
+        *plan.launcher_args(), dev, stream)
     _build.check(lib, rc, "forward_lanes")
     forward_lanes.launches += 1
     return ForwardLanesOut(totals=totals, traj=out, terminal=term)

@@ -1,7 +1,8 @@
-"""Launch plans of the ring-fed kernels: K1 (``backward_lanes``) and K2
-(``linesearch_lanes``).
+"""Launch plans of the ring-fed kernels: K1 (``backward_lanes``), K2
+(``linesearch_lanes``), K3 (``forward_lanes``) and K5's ``light`` and
+``full`` modes (``probe_lanes``), and of K5's ``copy``.
 
-Both kernels give a block 32 scenarios (``RING_W`` columns of the
+The ring-fed kernels give a block 32 scenarios (``RING_W`` columns of the
 ``(T, S, B)`` streams) and stage the step inputs of those scenarios in a
 shared-memory ring (``csrc/ring.cuh``): ``stages`` stages of ``tc`` time
 steps each, ``[step][slot][32]`` f32, so that while a chunk of steps
@@ -10,7 +11,13 @@ warps, which split each step's n×n products by rows and, when there are
 several, share them through shared memory after the ring (W and U,
 n·(n+m) slots; Vraw, n·n), and a producer warp that fills the ring; K2
 runs one warp per α candidate, all of which fill it, and its ring is
-followed by the candidates' totals (A × 32 f32).
+followed by the candidates' totals (A × 32 f32). K3 runs one warp per
+candidate over K2's ring slots and two or more producer warps
+(``k3_warps``) that fill it and, when K3 emits its stream, store it from
+an output buffer after the ring. K5 ``light``/``full`` run one compute
+warp and ``PROBE_PRODUCERS`` producer warps over a deeper ring of the 47
+input slots. K5 ``copy`` has no ring: a grid of up to
+``PROBE_COPY_BLOCKS`` blocks strides over the copy.
 
 The plan is made here and passed to the launcher, which checks it against
 its instance's slot count and refuses one that does not match. ``tc`` is a
@@ -26,19 +33,37 @@ MAX_SMEM = 232_448         # shared memory a block may opt into on sm_90
 MAX_STAGES = 4
 TC_MAX = 32
 STAGES = 2
-# ring budgets, in bytes: K2's A warps share one ring, so it may be large;
-# K1's stays small enough for several blocks an SM
+# ring budgets, in bytes: K2's and K3's A warps share one ring, so it may
+# be large; K1's stays small enough for several blocks an SM
 K1_BUDGET = 48 * 1024
 K2_BUDGET = 144 * 1024
+# K3: at least K3_PRODUCERS producer warps beside the A candidate warps,
+# and at least K3_MIN_WARPS warps a block (three producers at A = 1), as
+# many as fit in K3_MAX_WARPS (csrc/forward.cuh::launch_forward takes
+# 32·(A+1) to 32·K3_MAX_WARPS threads). Measured on an H100 (PERF.md §6):
+# one producer cannot keep a chunk in flight, two are best for the sweep,
+# three for the rollout.
+K3_PRODUCERS = 2
+K3_MIN_WARPS = 4
+K3_MAX_WARPS = 10
+# K5 (csrc/probe.cu): light/full's producer warps and ring depth; copy's
+# block and grid bound (8 blocks on each of the H100's 132 SMs)
+PROBE_SLOTS, PROBE_OUT_SLOTS = 47, 27
+PROBE_PRODUCERS = 3
+PROBE_STAGES = 4
+PROBE_COPY_THREADS = 256
+PROBE_COPY_BLOCKS = 8 * 132
+PROBE_COPY_SPAN = 1024     # floats (4-byte copies) a block moves a turn
 
 
 class LaunchPlan(NamedTuple):
-    blocks: int      # grid: ceil(B / 32)
-    threads: int     # block: 32·(k1_warps+1) (K1), 32·A (K2)
-    tc: int          # time steps a chunk
-    stages: int      # chunks in the ring
+    blocks: int      # grid: ceil(B / 32) (K5 copy: its grid)
+    threads: int     # block: 32·(k1_warps+1) (K1), 32·A (K2),
+                     # 32·k3_warps(A) (K3), 32·(1+PROBE_PRODUCERS) (K5 ring)
+    tc: int          # time steps a chunk (0: no ring)
+    stages: int      # chunks in the ring (0: no ring)
     smem: int        # dynamic shared bytes
-    chunks: int      # chunks a pass: ceil(T / tc)
+    chunks: int      # chunks a pass: ceil(T / tc) (0: no ring)
 
     def launcher_args(self) -> tuple:
         """The five ints the C launchers take."""
@@ -73,19 +98,23 @@ def ring_bytes(stages: int, tc: int, slots: int, extra: int = 0) -> int:
     return 4 * (stages * tc * slots * RING_W + extra)
 
 
-def _plan(slots: int, T: int, B: int, threads: int, budget: int,
-          extra: int) -> LaunchPlan:
+def _check_shape(T: int, B: int) -> None:
     if T < 1 or B < 1:
         raise ValueError(f"launch plan: T={T}, B={B}")
+
+
+def _plan(slots: int, T: int, B: int, threads: int, budget: int,
+          extra: int, stages: int = STAGES) -> LaunchPlan:
+    _check_shape(T, B)
     tc = TC_MAX
-    while tc > 1 and ring_bytes(STAGES, tc, slots, extra) > budget:
+    while tc > 1 and ring_bytes(stages, tc, slots, extra) > budget:
         tc //= 2
     tc = min(tc, T)
-    smem = ring_bytes(STAGES, tc, slots, extra)
+    smem = ring_bytes(stages, tc, slots, extra)
     if smem > MAX_SMEM:
         raise ValueError(f"launch plan: {smem} shared bytes > {MAX_SMEM}")
     return LaunchPlan(blocks=-(-B // RING_W), threads=threads, tc=tc,
-                      stages=STAGES, smem=smem, chunks=-(-T // tc))
+                      stages=stages, smem=smem, chunks=-(-T // tc))
 
 
 def backward_plan(n: int, m: int, gps: bool, emit: str, T: int,
@@ -102,3 +131,46 @@ def linesearch_plan(n: int, m: int, A: int, T: int, B: int) -> LaunchPlan:
     """K2: A warps a block, the ring of its x_old, u_nom, k, K slots, then
     the A candidates' totals."""
     return _plan(k2_slots(n, m), T, B, RING_W * A, K2_BUDGET, RING_W * A)
+
+
+def k3_warps(A: int) -> int:
+    """K3's warps a block at A candidates: the candidates and the
+    producers after them."""
+    return min(max(A + K3_PRODUCERS, K3_MIN_WARPS), K3_MAX_WARPS)
+
+
+def k3_out_floats(n: int, m: int, tc: int) -> int:
+    """K3's output buffer when it emits its stream: two chunks of the
+    [x, u, c] slots, [2][tc][n+m+1][32] f32."""
+    return 2 * tc * (n + m + 1) * RING_W
+
+
+def forward_plan(n: int, m: int, A: int, T: int, B: int,
+                 emit: bool = False) -> LaunchPlan:
+    """K3: A candidate warps a block and :func:`k3_warps` in all, the
+    ring of K2's x_old, u_nom, k, K slots, and with ``emit`` the output
+    buffer after it."""
+    warps = k3_warps(A)
+    p = _plan(k2_slots(n, m), T, B, RING_W * warps, K2_BUDGET, 0)
+    if not emit:
+        return p
+    smem = ring_bytes(p.stages, p.tc, k2_slots(n, m),
+                      k3_out_floats(n, m, p.tc))
+    if smem > MAX_SMEM:
+        raise ValueError(f"launch plan: {smem} shared bytes > {MAX_SMEM}")
+    return p._replace(smem=smem)
+
+
+def probe_plan(mode: str, T: int, B: int) -> LaunchPlan:
+    """K5: ``copy`` strides a grid of up to ``PROBE_COPY_BLOCKS`` blocks
+    over the (T, 27, B) copy, no ring; ``light`` and ``full`` one compute
+    warp and ``PROBE_PRODUCERS`` producer warps a block, the ring of the 47
+    input slots, ``PROBE_STAGES`` deep, as large as a block may have."""
+    if mode == "copy":
+        _check_shape(T, B)
+        units = T * PROBE_OUT_SLOTS * -(-B // PROBE_COPY_SPAN)
+        return LaunchPlan(blocks=min(units, PROBE_COPY_BLOCKS),
+                          threads=PROBE_COPY_THREADS, tc=0, stages=0,
+                          smem=0, chunks=0)
+    return _plan(PROBE_SLOTS, T, B, RING_W * (1 + PROBE_PRODUCERS), MAX_SMEM,
+                 0, PROBE_STAGES)

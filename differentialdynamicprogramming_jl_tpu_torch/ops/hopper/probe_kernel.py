@@ -18,8 +18,9 @@ so the running sums of the two packages differ in order.
 
 :func:`probe_lanes` gives a CPU tensor to :func:`probe_lanes_ref`, the plain
 PyTorch version (vectorised over B, Python loop over t and the terms), and a
-CUDA tensor to the kernel in ``csrc/probe.cu``, or raises. Launches are
-counted in ``probe_lanes.launches``.
+CUDA tensor to the kernel in ``csrc/probe.cu`` with its launch plan
+(:func:`.plan.probe_plan`), or raises. Launches are counted in
+``probe_lanes.launches``.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 
 from . import _build
 from .forward_kernel import launch_args
+from .plan import probe_plan
 
 S_IN, S_OUT = 47, 27          # the JAX probe's DU and S
 MODES = {"copy": 0, "light": 60, "full": 600}   # multiply-add terms a step
@@ -63,8 +65,10 @@ def probe_lanes(x: torch.Tensor, mode: str) -> torch.Tensor:
         return probe_lanes_ref(x, mode)
     lib, dev, stream = launch_args("probe_lanes", x)
     out = torch.empty((T, S_OUT, B), dtype=torch.float32, device=x.device)
+    plan = probe_plan(mode, T, B)
     rc = lib.ddp_probe_lanes(x.data_ptr(), out.data_ptr(), T, S_IN, S_OUT, B,
-                             list(MODES).index(mode), MULT, dev, stream)
+                             list(MODES).index(mode), MULT,
+                             *plan.launcher_args(), dev, stream)
     _build.check(lib, rc, "probe_lanes")
     probe_lanes.launches += 1
     return out

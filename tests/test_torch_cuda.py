@@ -941,12 +941,12 @@ def test_mpc_rollout_on_card_matches_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
-# The ring-fed K1 and K2 (ops/hopper/plan.py, csrc/ring.cuh) at ragged
-# shapes: B = 1 and 37 take the 4-byte copies and a partial last block, 200
-# the 16-byte ones; T = 2 is shorter than a chunk, 40 spans chunks, tc+1 is
-# one step past the first chunk. Pendcart and PendCartParam K1/K2 are
-# bit-identical to their plain versions on the card, and K2 in place to
-# K2 fresh, everywhere.
+# The ring-fed K1, K2, K3 and K5 (ops/hopper/plan.py, csrc/ring.cuh) at
+# ragged shapes: B = 1 and 37 take the 4-byte copies and a partial last
+# block, 200 the 16-byte ones; T = 2 is shorter than a chunk, 40 spans
+# chunks, tc+1 is one step past the first chunk. Pendcart and PendCartParam
+# K1/K2/K3 are bit-identical to their plain versions on the card, K2 in
+# place to K2 fresh, and K5 to its plain version, everywhere.
 
 RING_MODELS = ("pendcart", "param", "lti", "quad")
 BIT_EXACT = ("pendcart", "param")
@@ -1086,3 +1086,49 @@ def test_ring_kernels_match_plain_at_ragged_shapes(dev, name, B, T):
                                   in_place=True, **kw)
         assert inp.traj.data_ptr() == buf.data_ptr()
         assert torch.equal(buf, fresh.traj) and torch.equal(inp.ls, fresh.ls)
+    # K3: per-scenario α for A candidates beside its producer warps, with
+    # and without the emitted stream
+    for A in (1, 4, 6, 8):
+        Tk = _ring_T(T, plan.forward_plan(n, m, A, 10_000, B).tc)
+        _, tiles, lims, lanes, par, x0, traj = _ring_case(name, dev, B, Tk)
+        gains = bk.backward_lanes(traj, torch.ones(B, device=dev), n=n, m=m,
+                                  reg_type=2, lims=lims, derivs_tiles=tiles,
+                                  params=par, lims_lanes=lanes,
+                                  emit="gains").out
+        rng = np.random.default_rng(13)
+        alphas = torch.tensor(rng.uniform(0.0, 1.0, (A, B)),
+                              dtype=torch.float32, device=dev)
+        for emit in (False, True):
+            kw = dict(model=model, lims=lims, emit_traj=emit)
+            n0 = fk.forward_lanes.launches
+            k = fk.forward_lanes(traj, gains, x0, alphas, par, lanes, **kw)
+            assert fk.forward_lanes.launches == n0 + 1
+            p = fk.forward_lanes_ref(traj, gains, x0, alphas, par, lanes,
+                                     **kw)
+            pairs = [(k.totals, p.totals), (k.terminal, p.terminal)] + (
+                [(k.traj, p.traj)] if emit else [])
+            for a, b in pairs:
+                if name in BIT_EXACT:
+                    assert torch.equal(a, b)
+                else:
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T", ["1", "2", "tc+1"])
+@pytest.mark.parametrize("B", [1, 37, 200])
+@pytest.mark.parametrize("mode", ["copy", "light", "full"])
+def test_probe_kernel_is_bit_identical_at_ragged_shapes(dev, mode, B, T):
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        plan, probe_kernel as pk)
+    Tk = _ring_T(T, plan.probe_plan("light", 10_000, B).tc)
+    x = torch.randn((Tk, pk.S_IN, B),
+                    generator=torch.Generator().manual_seed(17)).to(dev)
+    n0 = pk.probe_lanes.launches
+    k = pk.probe_lanes(x, mode)
+    assert pk.probe_lanes.launches == n0 + 1
+    assert torch.equal(k, pk.probe_lanes_ref(x, mode))
+    # a view whose rows start off the 16-byte grid takes the 4-byte copies
+    xs = torch.randn((Tk * pk.S_IN * B + 1,),
+                     generator=torch.Generator().manual_seed(18)).to(dev)
+    xv = xs[1:].view(Tk, pk.S_IN, B)
+    assert torch.equal(pk.probe_lanes(xv, mode), pk.probe_lanes_ref(xv, mode))

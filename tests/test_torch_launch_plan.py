@@ -1,9 +1,9 @@
-"""The launch plans of the ring-fed kernels K1 and K2
+"""The launch plans of the ring-fed kernels K1, K2, K3 and K5
 (``ops/hopper/plan.py``), for every instance the kernels are built for, at
 the shapes of every path that launches them and of the card tests, with
 A = 1..8 candidates: each plan fits the shared memory a block may have,
-its chunks cover T exactly, and its grid covers B. Plain Python: no card,
-no JAX."""
+its chunks cover T exactly, and its grid covers B; K5's copy grid stays
+within its bound. Plain Python: no card, no JAX."""
 import pytest
 
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
@@ -44,6 +44,35 @@ def test_linesearch_plan_fits_and_covers(key, T, B):
                plan.RING_W * A)
 
 
+@pytest.mark.parametrize("key", sorted(CUDA_MODELS))
+@pytest.mark.parametrize("T, B", SHAPES)
+def test_forward_plan_fits_and_covers(key, T, B):
+    _, n, m = key
+    for A in range(1, MAX_A + 1):
+        warps = plan.k3_warps(A)
+        assert A < warps <= plan.K3_MAX_WARPS   # one producer at least
+        for emit in (False, True):
+            p = plan.forward_plan(n, m, A, T, B, emit)
+            _check(p, T, B, plan.RING_W * warps, plan.k2_slots(n, m),
+                   plan.k3_out_floats(n, m, p.tc) if emit else 0)
+
+
+@pytest.mark.parametrize("T, B", SHAPES + [(1, 1), (1, 4096), (2, 4096)])
+def test_probe_plan_fits_and_covers(T, B):
+    for mode in ("light", "full"):
+        p = plan.probe_plan(mode, T, B)
+        _check(p, T, B, plan.RING_W * (1 + plan.PROBE_PRODUCERS),
+               plan.PROBE_SLOTS, 0)
+        assert p.stages == plan.PROBE_STAGES
+    p = plan.probe_plan("copy", T, B)
+    # a grid of 1..PROBE_COPY_BLOCKS blocks, no ring; no block without a
+    # unit of the (T, 27, B) copy
+    units = T * plan.PROBE_OUT_SLOTS * -(-B // plan.PROBE_COPY_SPAN)
+    assert 1 <= p.blocks == min(units, plan.PROBE_COPY_BLOCKS)
+    assert p.threads == plan.PROBE_COPY_THREADS
+    assert (p.tc, p.stages, p.smem, p.chunks) == (0, 0, 0, 0)
+
+
 @pytest.mark.parametrize("key", sorted(CUDA_BACKWARD))
 @pytest.mark.parametrize("T, B", [s for s in SHAPES if s[0] >= 2])
 def test_backward_plan_fits_and_covers(key, T, B):
@@ -72,5 +101,17 @@ def test_plan_slots_and_chunk_traits():
     tc = {(n, m): plan.linesearch_plan(n, m, 6, 10_000, 4096).tc
           for n, m in ((4, 1), (6, 2), (10, 2))}
     assert tc == {(4, 1): 32, (6, 2): 16, (10, 2): 16}
+    # K3 shares K2's ring: the same chunks; A candidate warps and producers
+    assert {(n, m): plan.forward_plan(n, m, 6, 10_000, 4096).tc
+            for n, m in tc} == tc
+    assert [plan.forward_plan(4, 1, A, 500, 4096).threads // 32
+            for A in (1, 2, 6, 8)] == [4, 4, 8, 10]
+    # K5: 128 blocks of 32 scenarios at B=4096, a ring of 4 × 8 steps of
+    # the 47 slots; copy on 8 blocks an SM of the H100
+    assert plan.probe_plan("full", 500, 4096)[:5] == (
+        128, 32 * (1 + plan.PROBE_PRODUCERS), 8, 4, 192_512)
+    assert plan.probe_plan("copy", 500, 4096).blocks == 8 * 132
+    with pytest.raises(ValueError):
+        plan.probe_plan("copy", 0, 4096)
     with pytest.raises(ValueError):
         plan.backward_plan(4, 1, False, "gains", 0, 4096)
