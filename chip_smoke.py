@@ -11,7 +11,7 @@ ends the run with a non-zero exit and no result line:
 2. build: the kernels from ``ops/hopper/csrc`` with nvcc, one process per
    source, and each instance's registers and spills, with the launch plan
    (blocks, threads, steps a chunk, ring stages, shared bytes) of each K1,
-   K2, K3 and K5 instance at its path's shapes;
+   K2, K3, K4 and K5 instance at its path's shapes;
 3. iLQG kernels (K3, K1, K2) against their plain PyTorch versions on the
    card at the main path's shapes (B=4096, T=500), with errors and
    CUDA-event timings; pendcart and PendCartParam K1/K2/K3 (here and in
@@ -33,7 +33,9 @@ ends the run with a non-zero exit and no result line:
 9. the quadrotor solve on 64 scenarios with CUDA tensors and with CPU
    tensors;
 10. KL kernels against their plain versions at B=4096, T=500 on a real
-    pre-roll: K3 without limits, K4, K1 in GPS mode with policy emission;
+    pre-roll: K3 without limits, K4 (bit for bit, with its plan and
+    registers), K1 in GPS mode with policy emission; K4 at n=6 on a seeded
+    contractive fx at T=400;
 11. the KL path: ``ilqgkl_batch_lanes`` at the JAX KL tier's settings
     (``bench.py:114-132``), with launch counts, ms per solve and quality;
 12. ``gps_rollout_lanes``, 5 outer KL solves at the same size;
@@ -46,9 +48,9 @@ ends the run with a non-zero exit and no result line:
     solved to convergence, with launch counts, histograms, ms per
     iteration, peak memory and the bit-exact α=0 retrace;
 16. the LTI solve on 64 scenarios with CUDA tensors and with CPU tensors;
-17. KL-on-LTI kernels: K4 at n=10 and K1 in GPS mode with policy emission
-    at ⟨10,2⟩ against their plain versions, and their times at B=4096,
-    T=1000;
+17. KL-on-LTI kernels: K4 at n=10 (bit for bit) and K1 in GPS mode with
+    policy emission at ⟨10,2⟩ against their plain versions, and their times
+    at B=4096, T=1000;
 18. the KL path on the LTI fleet (the reference's demo_linear_kl at fleet
     scale: kl_step=100, scalar η, no limits), with launch counts, ms per
     solve and per iteration, peak memory, quality and a torch.profiler
@@ -198,6 +200,9 @@ KERNEL_NAMES = ("backward_kernel", "linesearch_kernel", "forward_kernel",
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes and
 # float32 operations outside the tensor cores, per millisecond
 HBM_PER_MS = 3.35e12 / 1e3
+# f32 instructions per millisecond when every multiply and add is its own
+# instruction (nvcc --fmad=false): 132 SMs × 128 lanes × 1.755 GHz
+NOFMA_PER_MS = 132 * 128 * 1.755e6
 F32_PER_MS = 67e12 / 1e3
 LIBRARY = ("none: no single PyTorch call computes this sequential "
            "recursion")
@@ -415,6 +420,12 @@ def with_plan(line: str) -> str:
     a chunk, stages, shared bytes."""
     import re
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    m = re.match(r"covariance_kernel<(\d+),", line)
+    if m:
+        n = int(m.group(1))
+        Tk = {4: T, 6: QUAD_T, 10: LTI_T}[n]
+        return (f"{line} | plan at B={B}, T={Tk}: "
+                f"{plan_text(plan.covariance_plan(n, Tk, B))}")
     m = re.match(r"probe_(copy|ring)_kernel<(\w*)>", line)
     if m:
         mode = ("copy" if m.group(1) == "copy" else
@@ -565,6 +576,53 @@ def k4_work(n: int, T: int, B: int) -> dict:
     return bound(4 * 2 * n * n * T * B, (4 * n ** 3 + n * n) * T * B)
 
 
+def k4_fx(n: int, T: int, B: int, seed: int, dev) -> torch.Tensor:
+    """A contractive fx stream (T, n², B): F = 0.6·I + 0.3·N(0,1)/√n per
+    scenario-step, from a numpy seed (tools_torch/kernel_ab.py::k4_fx)."""
+    rng = np.random.default_rng(seed)
+    F = 0.6 * np.eye(n) + (0.3 / np.sqrt(n)) * rng.standard_normal(
+        (T, n * n, B)).reshape(T, n, n, B).transpose(0, 3, 1, 2)
+    return torch.tensor(F.transpose(0, 2, 3, 1).reshape(T, n * n, B),
+                        dtype=torch.float32, device=dev)
+
+
+def k4_check(rec, key: str, fx: torch.Tensor, n: int, r1=None) -> dict:
+    """K4 at n on fx against its plain version, to COV_TOL and bit for bit,
+    with its plan and registers (``rec["ptxas"]``); timed. Records and
+    returns the entry."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        covariance_kernel as ck, plan)
+    T = fx.shape[0]
+    r1 = ck.identity_r1(n) if r1 is None else r1
+    kc = ck.covariance_lanes(fx, n=n, r1=r1)
+    pc = ck.covariance_lanes_ref(fx, n=n, r1=r1)
+    err = compare_slots(f"K4 n={n} Σxx", kc, pc, COV_TOL)
+    check_bits(f"K4 n={n}", (kc, pc))
+    growth = kc[-1].abs().amax(dim=0) / kc[0].abs().amax(dim=0)
+    print(f"  K4 n={n} Σ growth over the horizon: median "
+          f"{growth.median().item():.3e}, max {growth.max().item():.3e}")
+    print(f"  K4 n={n} plan at B={B}, T={T}: "
+          f"{plan_text(plan.covariance_plan(n, T, B))}, "
+          f"{plan.COV_WARPS[n]} compute warps, "
+          f"{'producers' if plan.COV_STAGE_OUT[n] else 'compute warps'} "
+          f"storing Σ; "
+          + "; ".join(line for line in rec["ptxas"]
+                      if line.startswith(f"covariance_kernel<{n},")))
+    del kc, pc
+    ms = cuda_ms(lambda: ck.covariance_lanes(fx, n=n, r1=r1), 20)
+    plain = cuda_ms(lambda: ck.covariance_lanes_ref(fx, n=n, r1=r1), 3)
+    w = k4_work(n, T, B)
+    print(f"  K4 n={n}: kernel {ms:.4f} ms, plain {plain:.1f} ms, bound "
+          f"{w['bound_ms']:.4f} ms ({w['bound_by']}: "
+          f"{w['bound_bytes'] / 1e6:.1f} MB, "
+          f"{w['bound_flops'] / 1e9:.2f} GFLOP; one instruction each under "
+          f"--fmad=false: {w['bound_flops'] / NOFMA_PER_MS:.4f} ms), "
+          f"{w['bound_ms'] / ms:.3f} of the bound")
+    rec[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                    **w)
+    return rec[key]
+
+
 def k5_work(mode: str, T: int, B: int) -> dict:
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
         probe_kernel as pk)
@@ -676,18 +734,10 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> dict:
     fx = problem.derivs(x_pre, u_pre).fx                    # (B, T, 4, 4)
     fx_s = to_streams(fx)
 
-    kc = ck.covariance_lanes(fx_s, n=4)
-    pc = ck.covariance_lanes_ref(fx_s, n=4, r1=ck.identity_r1(4))
-    e_k4 = compare_slots("K4 Σxx on the pre-roll's fx", kc, pc, COV_TOL)
-    growth = (kc[-1].abs().amax(dim=0) / kc[0].abs().amax(dim=0))
-    print(f"  K4 Σ growth over the horizon: median "
-          f"{growth.median().item():.3e}, max {growth.max().item():.3e}")
-    ms4 = cuda_ms(lambda: ck.covariance_lanes(fx_s, n=4), 20)
-    plain_ms4 = cuda_ms(
-        lambda: ck.covariance_lanes_ref(fx_s, n=4, r1=ck.identity_r1(4)), 3)
-    print(f"  K4: kernel {ms4:.3f} ms, plain {plain_ms4:.1f} ms")
-    rec["k4_4"] = dict(max_abs_err=e_k4, ms=ms4, plain_ms=plain_ms4,
-                       library_ms=None, **k4_work(4, T, B))
+    # K4 on the pre-roll's fx; at n=6 (the quadrotor's state, no path
+    # launches it yet) on a seeded contractive fx at the quadrotor's T
+    k4_check(rec, "k4_4", fx_s, 4)
+    k4_check(rec, "k4_6", k4_fx(6, QUAD_T, B, 11, dev), 6)
 
     # K1 in GPS mode, policy emission, no limits, on the pre-roll: a
     # previous policy with every KL term non-zero, and η scalar (1, where
@@ -743,7 +793,7 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> dict:
         max_abs_err=max(rec["k3_pendcart"]["max_abs_err"], e_k3),
         ms_unclamped_rollout=ms3, plain_ms_unclamped_rollout=plain_ms3,
         bound_ms_unclamped_rollout=w3p["bound_ms"])
-    del prev, etas, gains, k, p, k3, p3, kc, pc
+    del prev, etas, gains, k, p, k3, p3
 
     ph.start("kl-path", f"ilqgkl_batch_lanes, pendcart B={B} T={T}, "
              f"kl_step={KL_STEP}, max_iter={KL_ITERS}, scalar η, no limits")
@@ -1176,23 +1226,8 @@ def kl_lti_phases(ph, dev, rec, counters) -> dict:
     # K4 at n=10 on the model's linearisation, SimpleLTVModel.from_lti
     fx_lti = SimpleLTVModel.from_lti(spec.A, spec.B, Tl).fx    # (T, n, n)
     fx_s = to_streams(fx_lti.expand(B, Tl, n, n))
-    r1 = ck.identity_r1(n)
-    kc = ck.covariance_lanes(fx_s, n=n)
-    pc = ck.covariance_lanes_ref(fx_s, n=n, r1=r1)
-    e4 = compare_slots(f"K4 n={n} Σxx", kc, pc, COV_TOL)
-    growth = kc[-1].abs().amax(dim=0) / kc[0].abs().amax(dim=0)
-    print(f"  K4 Σ growth over the horizon: median "
-          f"{growth.median().item():.3e}")
-    ms4 = cuda_ms(lambda: ck.covariance_lanes(fx_s, n=n), 20)
-    plain4 = cuda_ms(lambda: ck.covariance_lanes_ref(fx_s, n=n, r1=r1), 3)
-    w4 = k4_work(n, Tl, B)
-    print(f"  K4 n={n}: kernel {ms4:.3f} ms, plain {plain4:.1f} ms, bound "
-          f"{w4['bound_ms']:.3f} ms ({w4['bound_by']}: "
-          f"{w4['bound_bytes'] / 1e6:.1f} MB, "
-          f"{w4['bound_flops'] / 1e9:.2f} GFLOP)")
-    rec["k4_10"] = dict(max_abs_err=e4, ms=ms4, plain_ms=plain4,
-                        library_ms=None, **w4)
-    del kc, pc, fx_s
+    k4_check(rec, "k4_10", fx_s, n)
+    del fx_s
 
     # K1 in GPS mode, policy emission, on the pre-roll: a previous policy
     # with every KL term non-zero (Σ⁻¹ positive definite), η scalar (1,
@@ -2659,7 +2694,10 @@ def main() -> int:
     ph.start("build")
     built = _build.build()
     print(f"  nvcc build: {built.seconds:.1f} s -> {built.path.name}")
-    for line in ptxas_summary(built.log):
+    # the ptxas lines, also for the phases that print an instance's
+    # registers beside its plan
+    rec = {"ptxas": ptxas_summary(built.log)}
+    for line in rec["ptxas"]:
         print("  " + with_plan(line))
     _build.library()
 
@@ -2685,7 +2723,6 @@ def main() -> int:
     ladder = ladder.contiguous()
     al1 = torch.tensor(rng.uniform(0.0, 1.0, (1, B)), dtype=torch.float32,
                        device=dev)
-    rec = {}
 
     def fwd(al, emit, plain):
         f = fk.forward_lanes_ref if plain else fk.forward_lanes

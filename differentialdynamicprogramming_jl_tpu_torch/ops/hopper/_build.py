@@ -54,7 +54,7 @@ _F = ctypes.c_float
 # (P, B) or null, P, model id, n, m, descriptor, descriptor size, device,
 # stream
 _MODEL = (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P)
-# the launch plan before the device (K1, K2, K3, K5): blocks, threads,
+# the launch plan before the device (K1-K5): blocks, threads,
 # steps a chunk, ring stages, shared bytes (plan.py)
 _PLAN = (_I,) * 5
 SIGNATURES = {
@@ -66,7 +66,9 @@ SIGNATURES = {
                           _I, _I) + _MODEL[:9] + _PLAN + _MODEL[9:],
     "ddp_linesearch_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _F, _P,
                              _P, _I, _I) + _MODEL[:9] + _PLAN + _MODEL[9:],
-    "ddp_covariance_lanes": (_P, _P, _I, _I, _I, _P, _I, _P),
+    # K4: fx, out, T, B, n, R1 (host), compute warps, staged stores
+    "ddp_covariance_lanes": (_P, _P, _I, _I, _I, _P, _I, _I) + _PLAN
+                            + (_I, _P),
     "ddp_probe_lanes": (_P, _P, _I, _I, _I, _I, _I, _F) + _PLAN + (_I, _P),
 }
 

@@ -12,8 +12,9 @@ per scenario, whose Σxx stream feeds the policy KL of the KL/GPS solve.
 :func:`covariance_lanes` gives a CPU tensor to :func:`covariance_lanes_ref`,
 the plain PyTorch version (vectorised over B and the matrix entries, Python
 loop over t, in the kernel's sum order), and a CUDA tensor to the
-hand-written kernel in ``csrc/covariance.cu``, or raises. Launches are
-counted in ``covariance_lanes.launches``.
+hand-written kernel in ``csrc/covariance.cu`` with its launch plan
+(:func:`.plan.covariance_plan`), or raises. Launches are counted in
+``covariance_lanes.launches``.
 """
 from __future__ import annotations
 
@@ -22,10 +23,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, plan
 from .forward_kernel import launch_args
 
-CUDA_N = (4, 10)   # state sizes the CUDA kernel is instantiated for
+CUDA_N = (4, 6, 10)   # state sizes the CUDA kernel is instantiated for
 
 
 def identity_r1(n: int):
@@ -86,8 +87,11 @@ def covariance_lanes(fx: torch.Tensor, *, n: int,
     lib, dev, stream = launch_args("covariance_lanes", fx)
     out = torch.empty_like(fx)
     r1_host = np.ascontiguousarray(r1, np.float32)
+    p = plan.covariance_plan(n, T, B)
     rc = lib.ddp_covariance_lanes(fx.data_ptr(), out.data_ptr(), T, B, n,
-                                  r1_host.ctypes.data, dev, stream)
+                                  r1_host.ctypes.data, plan.COV_WARPS[n],
+                                  plan.COV_STAGE_OUT[n], *p.launcher_args(),
+                                  dev, stream)
     _build.check(lib, rc, "covariance_lanes")
     covariance_lanes.launches += 1
     return out

@@ -1,6 +1,7 @@
 """Launch plans of the ring-fed kernels: K1 (``backward_lanes``), K2
-(``linesearch_lanes``), K3 (``forward_lanes``) and K5's ``light`` and
-``full`` modes (``probe_lanes``), and of K5's ``copy``.
+(``linesearch_lanes``), K3 (``forward_lanes``), K4
+(``covariance_lanes``) and K5's ``light`` and ``full`` modes
+(``probe_lanes``), and of K5's ``copy``.
 
 The ring-fed kernels give a block 32 scenarios (``RING_W`` columns of the
 ``(T, S, B)`` streams) and stage the step inputs of those scenarios in a
@@ -16,8 +17,10 @@ candidate over K2's ring slots and two or more producer warps
 (``k3_warps``) that fill it and, when K3 emits its stream, store it from
 an output buffer after the ring. K5 ``light``/``full`` run one compute
 warp and ``PROBE_PRODUCERS`` producer warps over a deeper ring of the 47
-input slots. K5 ``copy`` has no ring: a grid of up to
-``PROBE_COPY_BLOCKS`` blocks strides over the copy.
+input slots. K4 runs ``COV_WARPS[n]`` compute warps, which split each
+step's rows, and ``COV_PRODUCERS[n]`` producer warps over a ring of F's
+n² slots; Σ follows the ring in shared memory. K5 ``copy`` has no ring: a
+grid of up to ``PROBE_COPY_BLOCKS`` blocks strides over the copy.
 
 The plan is made here and passed to the launcher, which checks it against
 its instance's slot count and refuses one that does not match. ``tc`` is a
@@ -54,6 +57,18 @@ PROBE_STAGES = 4
 PROBE_COPY_THREADS = 256
 PROBE_COPY_BLOCKS = 8 * 132
 PROBE_COPY_SPAN = 1024     # floats (4-byte copies) a block moves a turn
+# K4 (csrc/covariance.cu), at each n it is built for: compute warps G
+# (warp g owns rows i ≡ g mod G), producer warps, ring stages, and whether
+# the producers store Σ (1) or the compute warps do (0); the ring and Σ as
+# large as a block may have. Measured on an H100 (PERF.md §6): at n=10 five
+# compute warps beat 1, 2, 4 and 10 (1.57 ms against 6.6, 5.2, 1.86,
+# 1.66), at n=6 six beat 1, 2 and 3; at n=4 one warp with four producers
+# storing Σ (0.146 ms) beats the compute warps storing it (0.174); more
+# stages change nothing where the compute warps store.
+COV_WARPS = {4: 1, 6: 6, 10: 5}
+COV_PRODUCERS = {4: 4, 6: 2, 10: 2}
+COV_STAGES = {4: 4, 6: 2, 10: 2}
+COV_STAGE_OUT = {4: 1, 6: 0, 10: 0}
 
 
 class LaunchPlan(NamedTuple):
@@ -174,3 +189,29 @@ def probe_plan(mode: str, T: int, B: int) -> LaunchPlan:
                           smem=0, chunks=0)
     return _plan(PROBE_SLOTS, T, B, RING_W * (1 + PROBE_PRODUCERS), MAX_SMEM,
                  0, PROBE_STAGES)
+
+
+def cov_sigma_floats(n: int, tc: int) -> int:
+    """K4's Σ buffer after the ring: [2][n²][32] f32, or where the
+    producers store Σ two chunks of steps, [2·tc][n²][32]."""
+    return (2 * tc if COV_STAGE_OUT[n] else 2) * n * n * RING_W
+
+
+def covariance_plan(n: int, T: int, B: int) -> LaunchPlan:
+    """K4: ``COV_WARPS[n]`` compute warps and ``COV_PRODUCERS[n]``
+    producer warps a block, the ring of F's n² slots, then Σ. Its chunks
+    cover the T-1 steps that read an F (none at T = 1)."""
+    _check_shape(T, B)
+    slots, steps, stages = n * n, max(T - 1, 1), COV_STAGES[n]
+    tc = TC_MAX
+    while tc > 1 and ring_bytes(stages, tc, slots,
+                                cov_sigma_floats(n, tc)) > MAX_SMEM:
+        tc //= 2
+    tc = min(tc, steps)
+    smem = ring_bytes(stages, tc, slots, cov_sigma_floats(n, tc))
+    if smem > MAX_SMEM:
+        raise ValueError(f"launch plan: {smem} shared bytes > {MAX_SMEM}")
+    return LaunchPlan(blocks=-(-B // RING_W),
+                      threads=RING_W * (COV_WARPS[n] + COV_PRODUCERS[n]),
+                      tc=tc, stages=stages, smem=smem,
+                      chunks=-(-(T - 1) // tc))

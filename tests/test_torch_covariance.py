@@ -21,22 +21,22 @@ from differentialdynamicprogramming_jl_tpu_torch.ops.hopper \
 B, T, N = 8, 13, 4
 
 
-def _fx(seed=0):
+def _fx(seed=0, n=N):
     """Pendcart-like linearisations I + h·A with an unstable θ row, plus
-    noise, (T, 16, B)."""
+    noise, (T, n², B)."""
     rng = np.random.default_rng(seed)
-    F = np.broadcast_to(np.eye(N), (T, B, N, N)).copy()
+    F = np.broadcast_to(np.eye(n), (T, B, n, n)).copy()
     F[..., 0, 1] = F[..., 2, 3] = 0.01
     F[..., 1, 0] = rng.uniform(-0.1, 0.3, (T, B))
     F[..., 1, 1] = 0.9901
-    F += 0.05 * rng.standard_normal((T, B, N, N))
-    return np.moveaxis(F.reshape(T, B, N * N), 1, 2).astype(np.float32)
+    F += 0.05 * rng.standard_normal((T, B, n, n))
+    return np.moveaxis(F.reshape(T, B, n * n), 1, 2).astype(np.float32)
 
 
-def _spd_r1(seed=1):
+def _spd_r1(seed=1, n=N):
     rng = np.random.default_rng(seed)
-    A = rng.standard_normal((N, N))
-    R = A @ A.T + 0.5 * np.eye(N)
+    A = rng.standard_normal((n, n))
+    R = A @ A.T + 0.5 * np.eye(n)
     return tuple(tuple(float(np.float32(v)) for v in row) for row in R)
 
 
@@ -47,16 +47,19 @@ def _close_per_slot(out, ref, rtol):
     assert np.isfinite(out).all() and err.max() <= rtol, err.max()
 
 
-@pytest.mark.parametrize("r1", [None, "spd"])
-def test_covariance_matches_jax(r1):
-    fx = _fx()
-    r1 = identity_r1(N) if r1 is None else _spd_r1()
+@pytest.mark.parametrize("r1, n", [(None, N), ("spd", N), ("spd", 6)])
+def test_covariance_matches_jax(r1, n):
+    """n=4 (pendcart) and n=6 (quadrotor), state sizes the kernel is built
+    for beside LTI's n=10 (minutes to trace here). JAX traces one kernel per
+    (n, R1), ≈12 s at n=6, so n=6 takes the SPD R1 alone."""
+    fx = _fx(n=n)
+    r1 = identity_r1(n) if r1 is None else _spd_r1(n=n)
     ref = convert.stream_from_lanes(jax_covariance_lanes(
-        jnp.asarray(convert.stream_to_lanes(fx)), n=N, r1=r1, k_t=4,
+        jnp.asarray(convert.stream_to_lanes(fx)), n=n, r1=r1, k_t=4,
         interpret=True), B)
-    out = covariance_lanes(torch.from_numpy(fx), n=N, r1=r1).numpy()
-    assert out.shape == (T, N * N, B)
-    np.testing.assert_array_equal(out[0], np.float32(r1).reshape(N * N, 1)
+    out = covariance_lanes(torch.from_numpy(fx), n=n, r1=r1).numpy()
+    assert out.shape == (T, n * n, B)
+    np.testing.assert_array_equal(out[0], np.float32(r1).reshape(n * n, 1)
                                   .repeat(B, axis=1))
     _close_per_slot(out, ref, 1e-6)
 

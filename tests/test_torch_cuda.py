@@ -193,6 +193,7 @@ def test_covariance_kernel_matches_plain(dev, r1):
     scale = p.abs().amax(dim=(0, 2), keepdim=True)
     assert torch.isfinite(k).all()
     assert ((k - p).abs() <= 1e-6 * scale).all()
+    assert torch.equal(k, p)
 
 
 def _gps_inputs(dev, per_step):
@@ -480,6 +481,65 @@ def test_covariance_kernel_n10_is_bit_identical(dev):
     p = ck.covariance_lanes_ref(fx, n=10, r1=r1)
     assert torch.isfinite(k).all()
     assert torch.equal(k, p)
+
+
+def _k4_fx(n, T, B, seed, offset=0, dev=None):
+    """A (T, n², B) fx stream around 0.9·I from a numpy seed; with
+    ``offset``, a view that many floats into a larger buffer."""
+    rng = np.random.default_rng(seed)
+    F = 0.9 * np.eye(n) + 0.1 * rng.standard_normal((T, B, n, n))
+    a = torch.tensor(np.moveaxis(F.reshape(T, B, n * n), 1, 2),
+                     dtype=torch.float32, device=dev)
+    if not offset:
+        return a.contiguous()
+    buf = torch.zeros(a.numel() + offset, device=dev)
+    v = buf[offset:].view(a.shape)
+    v.copy_(a)
+    return v
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("T", ["1", "2", "tc+1"])
+@pytest.mark.parametrize("B", [37, 4090])
+@pytest.mark.parametrize("r1", ["identity", "spd"])
+@pytest.mark.parametrize("n", [4, 6, 10])
+def test_covariance_kernel_is_bit_identical(dev, n, r1, B, T, offset):
+    """K4 at every instance against its plain version, bit for bit: B not a
+    multiple of the block's 32 (and at 37 not of 4: 4-byte copies), T with
+    no step, one step and one past a chunk, and a stream view a float off
+    the 16-byte grid."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    Tk = _ring_T(T, plan.covariance_plan(n, 10_000, B).tc)
+    fx = _k4_fx(n, Tk, B, seed=n + Tk, offset=offset, dev=dev)
+    r1v = (ck.identity_r1(n) if r1 == "identity" else
+           tuple(tuple(1.0 + (i == j) + 0.01 * (i + j) for j in range(n))
+                 for i in range(n)))
+    n0 = ck.covariance_lanes.launches
+    k = ck.covariance_lanes(fx, n=n, r1=r1v)
+    assert ck.covariance_lanes.launches == n0 + 1
+    assert torch.isfinite(k).all()
+    assert torch.equal(k, ck.covariance_lanes_ref(fx, n=n, r1=r1v))
+
+
+def test_covariance_kernel_propagates_nan_and_inf(dev):
+    fx = _k4_fx(6, 9, 40, seed=3, dev=dev)
+    fx[2, 5, 3], fx[4, 0, 7], fx[1, 1, 39] = (float("nan"), float("inf"),
+                                              float("-inf"))
+    k = ck.covariance_lanes(fx, n=6)
+    p = ck.covariance_lanes_ref(fx, n=6, r1=ck.identity_r1(6))
+    assert torch.isnan(k).any() and torch.isinf(k).any()
+    assert torch.equal(torch.isnan(k), torch.isnan(p))
+    assert torch.equal(k.nan_to_num(), p.nan_to_num())
+
+
+@pytest.mark.parametrize("n", [3, 5])
+def test_covariance_other_sizes_raise_on_card(dev, n):
+    """K4 is built for n in {4, 6, 10}; another n on a CUDA tensor raises
+    instead of running the plain version."""
+    n0 = ck.covariance_lanes.launches
+    with pytest.raises(NotImplementedError, match="built for n in"):
+        ck.covariance_lanes(torch.zeros((5, n * n, B), device=dev), n=n)
+    assert ck.covariance_lanes.launches == n0
 
 
 @pytest.mark.parametrize("mode", ["copy", "light", "full"])

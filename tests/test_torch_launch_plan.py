@@ -1,4 +1,4 @@
-"""The launch plans of the ring-fed kernels K1, K2, K3 and K5
+"""The launch plans of the ring-fed kernels K1-K5
 (``ops/hopper/plan.py``), for every instance the kernels are built for, at
 the shapes of every path that launches them and of the card tests, with
 A = 1..8 candidates: each plan fits the shared memory a block may have,
@@ -9,6 +9,8 @@ import pytest
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.backward_kernel import (
     CUDA_BACKWARD)
+from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.covariance_kernel import (
+    CUDA_N)
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.forward_kernel import (
     CUDA_MODELS, MAX_A)
 
@@ -73,6 +75,31 @@ def test_probe_plan_fits_and_covers(T, B):
     assert (p.tc, p.stages, p.smem, p.chunks) == (0, 0, 0, 0)
 
 
+@pytest.mark.parametrize("stage_out", [0, 1])
+@pytest.mark.parametrize("n", CUDA_N)
+@pytest.mark.parametrize("T, B", SHAPES + [(1, 1), (1, 4096), (2, 4096),
+                                           (401, 4090)])
+def test_covariance_plan_fits_and_covers(n, T, B, stage_out, monkeypatch):
+    """K4, with Σ stored by the compute warps or by the producers: its
+    chunks cover the T-1 steps that read an F (none at T=1), with Σ after
+    the ring: two slots, or two chunks when the producers store it."""
+    monkeypatch.setitem(plan.COV_STAGE_OUT, n, stage_out)
+    p = plan.covariance_plan(n, T, B)
+    G, P = plan.COV_WARPS[n], plan.COV_PRODUCERS[n]
+    assert 1 <= G <= n and 1 <= P <= 4      # csrc COV_MAX_PRODUCERS
+    sigma = (2 * p.tc if stage_out else 2) * n * n * plan.RING_W
+    assert plan.cov_sigma_floats(n, p.tc) == sigma
+    assert p.smem <= plan.MAX_SMEM
+    assert p.smem == 4 * (p.stages * p.tc * n * n * plan.RING_W + sigma)
+    assert 2 <= p.stages == plan.COV_STAGES[n] <= plan.MAX_STAGES
+    assert 1 <= p.tc <= max(T - 1, 1)
+    steps = [min(p.tc, T - 1 - c * p.tc) for c in range(p.chunks)]
+    assert sum(steps) == T - 1 and (not steps or min(steps) >= 1)
+    cols = [min(plan.RING_W, B - k * plan.RING_W) for k in range(p.blocks)]
+    assert sum(cols) == B and min(cols) >= 1
+    assert p.threads == plan.RING_W * (G + P)
+
+
 @pytest.mark.parametrize("key", sorted(CUDA_BACKWARD))
 @pytest.mark.parametrize("T, B", [s for s in SHAPES if s[0] >= 2])
 def test_backward_plan_fits_and_covers(key, T, B):
@@ -111,6 +138,12 @@ def test_plan_slots_and_chunk_traits():
     assert plan.probe_plan("full", 500, 4096)[:5] == (
         128, 32 * (1 + plan.PROBE_PRODUCERS), 8, 4, 192_512)
     assert plan.probe_plan("copy", 500, 4096).blocks == 8 * 132
+    # K4: the largest ring and Σ that fit a block; at n=4 a 4-stage ring
+    # and Σ for two chunks (the producers store it), at n=6 and 10 a
+    # 2-stage ring and two Σ slots
+    assert [plan.covariance_plan(n, 1000, 4096)[:5] for n in CUDA_N] == [
+        (128, 160, 16, 4, 196_608), (128, 256, 16, 2, 156_672),
+        (128, 224, 8, 2, 230_400)]
     with pytest.raises(ValueError):
         plan.probe_plan("copy", 0, 4096)
     with pytest.raises(ValueError):

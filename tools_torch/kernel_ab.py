@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time K1 (``backward_lanes``), K2 (``linesearch_lanes``), K3
-(``forward_lanes``) and K5 (``probe_lanes``) of two checkouts of the
-PyTorch port on one CUDA card, in the order a, b, b, a.
+(``forward_lanes``), K4 (``covariance_lanes``) and K5 (``probe_lanes``) of
+two checkouts of the PyTorch port on one CUDA card, in the order a, b, b,
+a.
 
 Usage::
 
@@ -18,8 +19,10 @@ that every turn's outputs have the same bits (a SHA-256 of each case's
 outputs) and prints each case's four medians and the ratio b/a. ``--only``
 keeps the cases whose name starts with PREFIX (e.g. ``K3``); ``--set``
 sets an integer constant of that checkout's ``ops/hopper/plan.py`` (e.g.
-``K3_PRODUCERS=1``, the producer warps of a K3 block), to time two launch
-plans of one kernel against each other.
+``K3_PRODUCERS=1``, the producer warps of a K3 block), or an entry of a
+dict of them (``COV_WARPS[10]=5``), to time two launch plans of one kernel
+against each other. A case that one checkout has no instance for (K4 at
+n=6 before it was built) runs on the other alone.
 
 Cases, at B=4096 and the shapes of the paths that launch them: K1 pendcart
 ``gains``/``full`` (iLQG headline T=500 ±5; MPC T=300 ±10), pendcart GPS
@@ -34,7 +37,10 @@ controls, K := 0): the α sweep (A=6, no emitted stream) and the rollout
 (A=1, emitted stream) for pendcart T=500 ±5, PendCartParam T=500 with
 per-scenario limits, LTI T=1000 ±0.6 and unclamped, the quadrotor T=400,
 and the rollout alone for pendcart and PendCartParam at T=300 (MPC) and
-pendcart T=500 unclamped (the KL pre-roll); K5 ``copy``, ``light`` and
+pendcart T=500 unclamped (the KL pre-roll); K4 at n=4 on the Euler fx of
+that pre-roll (T=500, ``chip_smoke.py``'s KL-tier inputs), at n=10 on the
+LTI fleet's A (T=1000) and at n=6 on a seeded contractive fx (T=400, the
+quadrotor's horizon), R1 = I; K5 ``copy``, ``light`` and
 ``full`` over a (500, 47, 4096) stream, and beside them the PyTorch call
 that computes copy, ``x[:, :27].clone()``; and end to end, the iLQG
 headline solve as ``chip_smoke.py`` runs it (pendcart, 20 iterations, its
@@ -168,8 +174,12 @@ def run(root: Path, label: str, out_dir: Path, only: str = "",
     assert Path(fk.__file__).resolve().is_relative_to(root), fk.__file__
     for setting in settings:
         name, value = setting.split("=")
+        name, _, key = name.rstrip("]").partition("[")
         assert hasattr(plan, name), (plan.__file__, name)
-        setattr(plan, name, int(value))
+        if key:
+            getattr(plan, name)[int(key)] = int(value)
+        else:
+            setattr(plan, name, int(value))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -261,6 +271,8 @@ def run(root: Path, label: str, out_dir: Path, only: str = "",
                   flush=True)
             if not same:
                 return 1
+    if "K4".startswith(only[:2]):
+        k4_cases(case, dev)
     # K5 over the probe's (500, 47, B) stream, and the PyTorch call that
     # computes copy
     x = torch.tensor(np.random.default_rng(7).standard_normal(
@@ -276,6 +288,53 @@ def run(root: Path, label: str, out_dir: Path, only: str = "",
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"{label}.json").write_text(json.dumps(res, indent=1))
     return 0
+
+
+def k4_fx(n: int, T: int, B: int, seed: int, dev) -> torch.Tensor:
+    """A contractive fx stream (T, n², B): F = 0.6·I + 0.3·N(0,1)/√n per
+    scenario-step, from a numpy seed (chip_smoke.py::k4_fx)."""
+    rng = np.random.default_rng(seed)
+    F = 0.6 * np.eye(n) + (0.3 / np.sqrt(n)) * rng.standard_normal(
+        (T, n * n, B)).reshape(T, n, n, B).transpose(0, 3, 1, 2)
+    return torch.tensor(F.transpose(0, 2, 3, 1).reshape(T, n * n, B),
+                        dtype=torch.float32, device=dev)
+
+
+def k4_cases(case, dev) -> None:
+    """K4 at n=4 (the KL pre-roll's fx, T=500), n=10 (the LTI fleet's A,
+    T=1000) and n=6 (k4_fx, T=400), as chip_smoke.py holds them."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import (
+        linear, pendcart)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        covariance_kernel as ck, forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        from_streams, to_streams)
+    T = 500
+    rng = np.random.default_rng(1)      # chip_smoke.py's KL-tier inputs
+    x0 = (pendcart.default_x0(device="cpu").numpy().astype(np.float64)
+          [None, :] + 0.2 * rng.standard_normal((B, 4))
+          * np.array([1.0, 1.0, 0, 0]))
+    u0 = torch.tensor(0.2 * rng.standard_normal((B, T, 1)),
+                      dtype=torch.float32, device=dev)
+    spec = pendcart.PendCartSpec()
+    pre = fk.forward_lanes(
+        torch.zeros((T, 5, B), device=dev),
+        torch.cat([to_streams(u0), torch.zeros((T, 4, B), device=dev)], 1),
+        torch.tensor(x0.T.copy(), dtype=torch.float32, device=dev),
+        torch.ones((1, B), device=dev), model=pendcart.pendcart_lanes(spec),
+        lims=None, emit_traj=True).traj
+    fx4 = to_streams(pendcart.make_pendcart_problem(
+        spec, derivs="euler", device=dev).derivs(
+            from_streams(pre[:, :4], (4,)), from_streams(pre[:, 4:5],
+                                                         (1,))).fx)
+    lspec = linear.random_lti(0, n=10, m=2, T=1000, device=dev)
+    fx10 = to_streams(linear.SimpleLTVModel.from_lti(
+        lspec.A, lspec.B, 1000).fx.expand(B, 1000, 10, 10))
+    for n, fx in ((4, fx4), (10, fx10), (6, k4_fx(6, 400, B, 11, dev))):
+        if n in ck.CUDA_N:
+            case(f"K4 n={n} T={fx.shape[0]}",
+                 lambda fx=fx, n=n: ck.covariance_lanes(fx, n=n),
+                 lambda o: (o,))
 
 
 def headline_solve(case, dev) -> None:
@@ -355,14 +414,19 @@ def main() -> int:
           f"{'b/a':>7s}  bits")
     ok = True
     summary = {}
-    for key in runs[0]["cases"]:
-        ms = [r["cases"][key]["ms"] for r in runs]
-        shas = {r["cases"][key]["sha"] for r in runs}
+    keys = dict.fromkeys(k for r in runs for k in r["cases"])
+    for key in keys:
+        ms = [r["cases"][key]["ms"] if key in r["cases"] else None
+              for r in runs]
+        shas = {r["cases"][key]["sha"] for r in runs if key in r["cases"]}
         ok = ok and len(shas) == 1
-        ratio = (ms[1] + ms[2]) / (ms[0] + ms[3])
+        ratio = ((ms[1] + ms[2]) / (ms[0] + ms[3]) if None not in ms
+                 else None)
         summary[key] = dict(ms=ms, b_over_a=ratio, same_bits=len(shas) == 1)
-        print(f"{key:48s} " + " ".join(f"{v:9.4f}" for v in ms)
-              + f" {ratio:7.3f}  {'same' if len(shas) == 1 else 'DIFFER'}")
+        print(f"{key:48s} " + " ".join(
+            f"{v:9.4f}" if v is not None else f"{'-':>9s}" for v in ms)
+            + (f" {ratio:7.3f}" if ratio is not None else f"{'-':>8s}")
+            + f"  {'same' if len(shas) == 1 else 'DIFFER'}")
     (out_dir / "summary.json").write_text(json.dumps(
         dict(card=runs[0]["card"], a=str(roots[0]), b=str(roots[1]),
              build_s=[r["build_s"] for r in runs], cases=summary), indent=1))
