@@ -81,8 +81,24 @@ ends the run with a non-zero exit and no result line:
     CPU on 64 lanes over 3 steps;
 24. the probe K5 (copy, light and full modes) against its plain version,
     with its times and achieved bandwidth;
-25. the kernel record (one entry per kernel instance, with its bound) and
-    the result line.
+25. generic boxQP (no kernel: plain PyTorch on the card, f64):
+    ``demo_qp(n=500)`` on the card against the same on CPU tensors, and the
+    golden QPs of ``tests/test_golden.py`` (n50's H and g from
+    ``tools_torch/generic_inputs.npz``) against ``tests/golden.npz``;
+26. generic ``ilqg`` on the golden pendcart ("zoh", T=300, ±10) against
+    ``golden.npz``, with its iterations, exit reason, ms per iteration
+    (CUDA events), host syncs per iteration and device launches per
+    iteration (torch.profiler, first iterations);
+27. generic ``ilqg`` on ``demo_linear`` (n=10, m=2, T=1000, JAX's spec
+    from the committed file) against JAX's CPU outcome in that file, with
+    ``backward="scan"`` and ``"parallel"``;
+28. ``ilqg_batched`` at B=16, pendcart "zoh", T=300, ±10, a budget of 20
+    accepted iterations, on the card against the same call on CPU tensors;
+29. generic ``ilqg_kl``: the golden scalar-η and per-step problems against
+    ``golden.npz``, and one ``demo_linear_kl`` outer solve at T=1000;
+30. the kernel record (one entry per kernel instance, with its bound; K4
+    at n=6, on no path, with the launches of its check) and the result
+    line.
 """
 from __future__ import annotations
 
@@ -195,6 +211,20 @@ MPC_T, MPC_STEPS, MPC_WINDOWS, MPC_LIMS = 300, 20, 5, ((-10.0, 10.0),)
 MPC_CPU_STEPS = 3
 # MPC steps of ilqg_iteration_lanes (K1 gains, K2 in place) on the MPC state
 ITER_STEPS = 5
+# the generic tier (phases 25-29): plain PyTorch in f64, no kernel of the
+# port. The golden problems of tests/test_golden.py at that test's
+# tolerances; demo_qp(n=500) card against CPU to GEN_QP_RTOL; demo_linear
+# at T=1000 against JAX's CPU outcome to GEN_LTI_RTOL; ilqg_batched card
+# against CPU to GEN_BATCH_RTOL. A pendcart swing-up ends at the f64 noise
+# floor of its cost, where the last bits decide between exit 2 (the last
+# change, a few ulps of the cost, accepted) and exit 3 (rejected until
+# λ > λmax): a lane whose last change is below GEN_NOISE·|cost| may take
+# either of the two on the card and on the host
+GEN_QP_RTOL, GEN_LTI_RTOL, GEN_BATCH_RTOL = 1e-9, 1e-8, 1e-6
+GEN_B, GEN_T, GEN_PROFILE_ITERS, GEN_NOISE = 16, 300, 3, 1e-12
+# ilqg_batched's budget of accepted iterations: the lanes' full solves take
+# up to ≈310 iterations, ≈100 s a run on the host; the phase runs it twice
+GEN_BATCH_ITERS = 20
 KERNEL_NAMES = ("backward_kernel", "linesearch_kernel", "forward_kernel",
                 "covariance_kernel", "probe_copy_kernel", "probe_ring_kernel")
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes and
@@ -737,7 +767,10 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> dict:
     # K4 on the pre-roll's fx; at n=6 (the quadrotor's state, no path
     # launches it yet) on a seeded contractive fx at the quadrotor's T
     k4_check(rec, "k4_4", fx_s, 4)
-    k4_check(rec, "k4_6", k4_fx(6, QUAD_T, B, 11, dev), 6)
+    # no path launches K4 at n=6: its launches are those of this check
+    _, n6 = counted(counters, lambda: k4_check(
+        rec, "k4_6", k4_fx(6, QUAD_T, B, 11, dev), 6))
+    rec["k4_6"]["phase_launches"] = n6["covariance_lanes"]
 
     # K1 in GPS mode, policy emission, no limits, on the pre-roll: a
     # previous policy with every KL term non-zero, and η scalar (1, where
@@ -2463,14 +2496,7 @@ def mpc_phases(ph, dev, rec, counters) -> dict:
     first_s = time.perf_counter() - t0
     x, u, _, us1, costs1 = first
     # one burn-in chunk, with its host syncs counted
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            x, u, _, _, _ = chunk(x, u)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    (x, u, _, _, _), syncs = sync_count(lambda: chunk(x, u))
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
     torch.cuda.reset_peak_memory_stats()
@@ -2663,6 +2689,304 @@ def probe_phase(ph, dev, rec, counters) -> dict:
         if mode == "full":
             rec["k5_full"]["chain_bound_ms"] = k5_chain_ms(PROBE_T)
     return paths
+
+
+def sync_count(fn):
+    """Run ``fn`` with CUDA's sync debug mode set to warn; returns
+    (result, host syncs in that run)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def timed_solve(fn, counters):
+    """One run of a generic solve: device ms (CUDA events), host ms, host
+    syncs, and the port's kernel launches (none on this tier)."""
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+
+    def run():
+        s.record()
+        out = fn()
+        e.record()
+        return out
+
+    t0 = time.perf_counter()
+    (out, syncs), launches = counted(counters, lambda: sync_count(run))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    return out, dict(ms=s.elapsed_time(e), host_ms=host_ms, syncs=syncs,
+                     kernel_launches=sum(launches.values()))
+
+
+def per_iter(name: str, r, iters: int, lpi=None) -> dict:
+    """Print and return a solve's per-iteration numbers; ``lpi``: device
+    launches per iteration (:func:`launches_per_iter`)."""
+    iters = max(int(iters), 1)
+    out = dict(iters=iters, ms=r["ms"], ms_per_iter=r["ms"] / iters,
+               host_ms=r["host_ms"], syncs_per_iter=r["syncs"] / iters,
+               launches_per_iter=lpi, kernel_launches=r["kernel_launches"])
+    lpi_text = ("not measured" if lpi is None else
+                f"{lpi:.1f} (torch.profiler, first {GEN_PROFILE_ITERS} "
+                f"iterations)")
+    print(f"  {name}: {iters} iterations, {r['ms']:.1f} ms on CUDA events "
+          f"({r['host_ms']:.1f} ms host clock), {out['ms_per_iter']:.3f} ms "
+          f"per iteration, {out['syncs_per_iter']:.2f} host syncs per "
+          f"iteration, device launches per iteration {lpi_text}; port "
+          f"kernels launched: {r['kernel_launches']}")
+    check(r["kernel_launches"] == 0, f"{name}: a port kernel ran")
+    return out
+
+
+def launches_per_iter(fn) -> float:
+    """Device operations (kernels, copies, fills) per iteration of a short
+    run (``fn`` runs GEN_PROFILE_ITERS iterations), counted in
+    torch.profiler's raw CUDA activity records: building its Python event
+    list for ≈10⁵ records would take minutes. None when it recorded no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    n = sum(1 for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda)
+    return n / GEN_PROFILE_ITERS if n else None
+
+
+def noise_floor_lanes(res) -> torch.Tensor:
+    """Lanes whose last step changed their cost by less than GEN_NOISE of it
+    (see GEN_NOISE)."""
+    it = res.n_iters.long().clamp(max=res.trace.improvement.shape[-1] - 1)
+    last = res.trace.improvement.gather(-1, it[..., None])[..., 0]
+    return last.abs() < GEN_NOISE * res.cost.sum(-1).abs()
+
+
+def generic_phases(ph, dev, counters) -> dict:
+    """Phases 25-29: the generic tier on the card in f64 (plain PyTorch, no
+    kernel of the port), against golden.npz, JAX's outcomes in
+    tools_torch/generic_inputs.npz and the same calls on CPU tensors.
+    Returns the record of the group."""
+    import dataclasses
+    from differentialdynamicprogramming_jl_tpu_torch.models import (
+        linear as tl, pendcart as tpc)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.boxqp import (
+        boxqp, demo_qp)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.forward import (
+        forward_pass)
+    from differentialdynamicprogramming_jl_tpu_torch.parallel.mesh import (
+        ilqg_batched)
+    from differentialdynamicprogramming_jl_tpu_torch.policy import (
+        GaussianPolicy)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig, default_alphas, ilqg)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig, ilqg_kl)
+
+    f64 = torch.float64
+    gold = np.load("tests/golden.npz")
+    inp = np.load("tools_torch/generic_inputs.npz")
+    out = {"card": smi()}
+
+    def t(a, to=dev):
+        return torch.tensor(np.asarray(a), dtype=f64, device=to)
+
+    # ---- 25: boxQP
+    ph.start("generic-boxqp", "demo_qp(n=500) card vs CPU; golden QPs")
+    g, syncs = sync_count(lambda: demo_qp(500, device=dev))
+    c = demo_qp(500, device="cpu")
+    rel = abs(g.value.item() - c.value.item()) / abs(c.value.item())
+    print(f"  demo_qp n=500: result {int(g.result)} (CPU {int(c.result)}), "
+          f"iterations {int(g.iters)}, value {g.value.item()!r} (CPU "
+          f"{c.value.item()!r}, rel {rel:.3e}, tol {GEN_QP_RTOL:.0e}); "
+          f"{syncs} host syncs")
+    check(int(g.result) == int(c.result) and int(g.result) >= 1,
+          "demo_qp: result codes differ or failed")
+    check(rel <= GEN_QP_RTOL, f"demo_qp: value rel {rel:.3e}")
+    qp_ms = cuda_ms(lambda: demo_qp(500, device=dev), 3)
+    eye3, box = np.eye(3), (-np.ones(3), np.ones(3))
+    cases = {
+        "n50": (inp["qp_n50_H"], inp["qp_n50_g"], -np.ones(50), np.ones(50),
+                np.zeros(50)),
+        "all_clamped": (eye3, np.array([10., -10., 10.]), *box,
+                        np.zeros(3)),
+        "interior": (2.0 * eye3, np.array([0.5, -0.25, 0.1]), *box,
+                     np.zeros(3)),
+        "non_pd": (np.diag([1.0, -1.0, 1.0]), np.ones(3), *box, np.zeros(3)),
+    }
+    for case, args in cases.items():
+        r = boxqp(*(t(a) for a in args))
+        dv = abs(r.value.item() - float(gold[f"boxqp_{case}_value"]))
+        dx = abs(r.x.sum().item() - float(gold[f"boxqp_{case}_x_sum"]))
+        print(f"  golden {case}: result {int(r.result)}, |Δvalue| {dv:.3e} "
+              f"(tol 1e-10), |Δx_sum| {dx:.3e} (tol 1e-8)")
+        check(int(r.result) == int(gold[f"boxqp_{case}_result"])
+              and dv <= 1e-10 and dx <= 1e-8, f"golden boxQP {case} differs")
+    print(f"  demo_qp n=500 on the card: {qp_ms:.2f} ms (CUDA events)")
+    out["boxqp"] = dict(demo_qp_ms=qp_ms, demo_qp_iters=int(g.iters),
+                        demo_qp_syncs=syncs, demo_qp_result=int(g.result))
+
+    # ---- 26: ilqg on the golden pendcart
+    ph.start("generic-ilqg-pendcart", "golden: zoh, T=300, ±10, f64")
+    prob = tpc.make_pendcart_problem(tpc.PendCartSpec(), derivs="zoh",
+                                     dtype=f64, device=dev)
+    cfg = ILQGConfig(alphas=default_alphas(0.2, -3.0, 6), reg_type=2,
+                     lam_max=1e15, tol_fun=1e-8, tol_grad=1e-8, max_iter=300)
+    lims = t([[-10.0, 10.0]])
+    x0 = tpc.default_x0(f64, device=dev)
+    u0 = torch.zeros((300, 1), dtype=f64, device=dev)
+    res, r = timed_solve(lambda: ilqg(prob, x0, u0, lims=lims, cfg=cfg),
+                         counters)
+    lpi = launches_per_iter(lambda: ilqg(
+        prob, x0, u0, lims=lims,
+        cfg=dataclasses.replace(cfg, iter_cap=GEN_PROFILE_ITERS + 1)))
+    cost, ang = res.cost.sum().item(), res.x[-1, 0].item()
+    uabs = res.u.abs().sum().item()
+    print(f"  reason {int(res.reason)}; cost {cost!r} (golden "
+          f"{float(gold['pendcart_cost'])!r}), final angle {ang!r} (golden "
+          f"{float(gold['pendcart_angle'])!r}), Σ|u| {uabs!r} (golden "
+          f"{float(gold['pendcart_u_abs'])!r})")
+    out["ilqg_pendcart"] = dict(reason=int(res.reason), cost=cost,
+                                **per_iter("ilqg pendcart", r, res.n_iters,
+                                           lpi))
+    np.testing.assert_allclose(cost, gold["pendcart_cost"], rtol=1e-6)
+    np.testing.assert_allclose(ang, gold["pendcart_angle"], rtol=1e-4)
+    np.testing.assert_allclose(uabs, gold["pendcart_u_abs"], rtol=1e-4)
+    check(res.cost.shape == (301,), "traj_cost contract: cost not (T+1,)")
+
+    # ---- 27: demo_linear at T=1000 against JAX's outcome
+    ph.start("generic-ilqg-lti", "demo_linear n=10, m=2, T=1000, f64, "
+             "scan and parallel backward")
+    spec = tl.LTISpec(*(t(inp[f"lti_demo_{k}"]) for k in tl.LTISpec._fields))
+    lprob = tl.make_lti_problem(spec, 1000)
+    out["ilqg_lti"] = {}
+    for backward, tag in (("scan", "demo_linear"),
+                          ("parallel", "demo_linear_parallel")):
+        lcfg = ILQGConfig(backward=backward)
+        res, r = timed_solve(lambda: ilqg(lprob, spec.x0, spec.u0, cfg=lcfg),
+                             counters)
+        lpi = launches_per_iter(lambda: ilqg(
+            lprob, spec.x0, spec.u0,
+            cfg=dataclasses.replace(lcfg, iter_cap=GEN_PROFILE_ITERS + 1)))
+        cost = res.cost.sum().item()
+        want = float(inp[f"{tag}_cost"])
+        rel = abs(cost - want) / abs(want)
+        print(f"  {backward}: reason {int(res.reason)} (JAX "
+              f"{int(inp[f'{tag}_reason'])}), n_iters {int(res.n_iters)} (JAX "
+              f"{int(inp[f'{tag}_n_iters'])}), cost {cost!r} (JAX {want!r}, "
+              f"rel {rel:.3e}, tol {GEN_LTI_RTOL:.0e})")
+        out["ilqg_lti"][backward] = dict(
+            reason=int(res.reason), cost=cost,
+            **per_iter(f"ilqg LTI {backward}", r, res.n_iters, lpi))
+        check(rel <= GEN_LTI_RTOL and int(res.reason) == int(
+            inp[f"{tag}_reason"]) and int(res.n_iters) == int(
+            inp[f"{tag}_n_iters"]), f"demo_linear {backward}: differs from "
+            "JAX's outcome")
+
+    # ---- 28: ilqg_batched, card against CPU
+    ph.start("generic-batched", f"ilqg_batched B={GEN_B}, pendcart zoh, "
+             f"T={GEN_T}, ±10, f64, max_iter {GEN_BATCH_ITERS}")
+    rng = np.random.default_rng(28)
+    x0s = np.tile(np.asarray(tpc.default_x0(f64, device="cpu")), (GEN_B, 1))
+    x0s[:, 0] += 0.2 * rng.standard_normal(GEN_B)
+    bcfg = dataclasses.replace(cfg, max_iter=GEN_BATCH_ITERS)
+    probc = tpc.make_pendcart_problem(tpc.PendCartSpec(), derivs="zoh",
+                                      dtype=f64, device="cpu")
+
+    def batched(pr, to):
+        return ilqg_batched(pr, t(x0s, to), torch.zeros(
+            (GEN_B, GEN_T, 1), dtype=f64, device=to), lims=t(
+            [[-10.0, 10.0]], to), cfg=bcfg)
+
+    res, r = timed_solve(lambda: batched(prob, dev), counters)
+    lpi = launches_per_iter(lambda: ilqg_batched(
+        prob, t(x0s), torch.zeros((GEN_B, GEN_T, 1), dtype=f64, device=dev),
+        lims=lims, cfg=dataclasses.replace(
+            bcfg, iter_cap=GEN_PROFILE_ITERS + 1)))
+    t0 = time.perf_counter()
+    cres = batched(probc, "cpu")
+    cpu_s = time.perf_counter() - t0
+    gc, cc = res.cost.sum(-1).cpu(), cres.cost.sum(-1)
+    rel = ((gc - cc).abs() / cc.abs()).max().item()
+    same = res.reason.cpu() == cres.reason
+    floor = noise_floor_lanes(res).cpu() | noise_floor_lanes(cres)
+    flips = ~same & floor & (res.reason.cpu() >= 2) & (cres.reason >= 2) & (
+        res.reason.cpu() <= 3) & (cres.reason <= 3)
+    print(f"  reasons card {res.reason.tolist()}, CPU {cres.reason.tolist()}"
+          f"; max cost rel diff {rel:.3e} (tol {GEN_BATCH_RTOL:.0e}); lanes "
+          f"at the noise floor {int(floor.sum())}, of which exits 2/3 "
+          f"differ {int(flips.sum())}; CPU solve {cpu_s:.1f} s")
+    out["ilqg_batched"] = dict(
+        B=GEN_B, T=GEN_T, cpu_s=cpu_s, max_cost_rel=rel,
+        reasons=res.reason.tolist(), exit_flips_at_noise_floor=int(
+            flips.sum()),
+        **per_iter(f"ilqg_batched B={GEN_B}", r, res.n_iters.max(), lpi))
+    check(rel <= GEN_BATCH_RTOL, "ilqg_batched: card and CPU costs differ")
+    check(bool((same | flips).all()), "ilqg_batched: card and CPU exits "
+          "differ away from the noise floor")
+
+    # ---- 29: ilqg_kl
+    ph.start("generic-ilqg-kl", "golden scalar-η and per-step (T=60), "
+             "demo_linear_kl outer solve (T=1000, kl_step 100)")
+    out["ilqg_kl"] = {}
+
+    def kl_setup(prefix, T, n):
+        sp = tl.LTISpec(*(t(inp[f"{prefix}_{k}"]) for k in
+                          tl.LTISpec._fields))
+        pr = tl.make_lti_problem(sp, T)
+        ro = forward_pass(pr, sp.x0, sp.u0)
+        traj = GaussianPolicy.zeros(T, n, 2, f64, device=dev)._replace(
+            k=ro.u)
+        return pr, tl.SimpleLTVModel.from_lti(sp.A, sp.B, T), ro, traj
+
+    pr, model, ro, traj = kl_setup("lti_kl", 60, 4)
+    for tag, kcfg in (
+            ("scalar", ILQGKLConfig(kl_step=2.0, max_iter=30)),
+            ("per_step", ILQGKLConfig(kl_step=1e-5, max_iter=15,
+                                      constrain_per_step=True,
+                                      gd_alpha=0.3))):
+        res, r = timed_solve(lambda: ilqg_kl(pr, ro.x, traj, model, ro.cost,
+                                             cfg=kcfg), counters)
+        p = "ilqgkl" if tag == "scalar" else "ilqgkl_ps"
+        cost, eta, div = (res.cost.sum().item(), res.eta.mean().item(),
+                          res.divergence.mean().item())
+        print(f"  golden {tag}: cost {cost!r} ({float(gold[p + '_cost'])!r})"
+              f", η {eta!r}, KL {div!r}, n_iters {int(res.n_iters)} "
+              f"({int(gold[p + '_iters'])}), satisfied "
+              f"{bool(res.satisfied)}")
+        np.testing.assert_allclose(cost, gold[p + "_cost"], rtol=1e-9)
+        if tag == "scalar":
+            np.testing.assert_allclose(eta, gold["ilqgkl_eta"], rtol=1e-9)
+            np.testing.assert_allclose(div, gold["ilqgkl_divergence"],
+                                       rtol=1e-8)
+        else:
+            np.testing.assert_allclose(eta, gold["ilqgkl_ps_eta_mean"],
+                                       rtol=1e-8)
+            np.testing.assert_allclose(div, gold["ilqgkl_ps_div_mean"],
+                                       rtol=1e-7)
+        check(int(res.n_iters) == int(gold[p + "_iters"])
+              and bool(res.satisfied) == bool(gold[p + "_satisfied"]),
+              f"ilqg_kl golden {tag}: iterations or satisfied differ")
+        out["ilqg_kl"][tag] = dict(cost=cost, **per_iter(
+            f"ilqg_kl {tag}", r, res.n_iters))
+    pr, model, ro, traj = kl_setup("lti_demo", 1000, 10)
+    res, r = timed_solve(lambda: ilqg_kl(pr, ro.x, traj, model, ro.cost,
+                                         cfg=ILQGKLConfig(kl_step=100.0)),
+                         counters)
+    print(f"  demo_linear_kl outer solve: cost {res.cost.sum().item()!r} "
+          f"(pre-roll {ro.cost.sum().item()!r}), η {res.eta.item()!r}, KL "
+          f"{res.divergence.item()!r}, satisfied {bool(res.satisfied)}")
+    check(bool(torch.isfinite(res.cost).all()), "demo_linear_kl: non-finite")
+    out["ilqg_kl"]["demo_linear_kl"] = dict(
+        cost=res.cost.sum().item(), eta=res.eta.item(),
+        satisfied=bool(res.satisfied),
+        **per_iter("demo_linear_kl outer", r, res.n_iters))
+    return out
 
 
 def main() -> int:
@@ -2937,6 +3261,7 @@ def main() -> int:
     paths.update(hetero_phases(ph, dev, rec, counters, ilqg))
     paths.update(mpc_phases(ph, dev, rec, counters))
     paths.update(probe_phase(ph, dev, rec, counters))
+    generic = generic_phases(ph, dev, counters)
 
     # ---- record and result: one entry per kernel instance, its launches
     #      summed over the paths that run it
@@ -3015,6 +3340,9 @@ def main() -> int:
          ("kl", "gps")),
         ("k4_10", "covariance_lanes", "n=10", "covariance.cu", k4,
          ("kl_lti", "gps_lti")),
+        # n=6 (the quadrotor's state) is on no path yet: launched only by
+        # its check in the kl-kernels phase
+        ("k4_6", "covariance_lanes", "n=6", "covariance.cu", k4, ()),
         ("k5_copy", "probe_lanes", "copy", "probe.cu", k5, ("probe_copy",)),
         ("k5_light", "probe_lanes", "light", "probe.cu", k5, ("probe_light",)),
         ("k5_full", "probe_lanes", "full", "probe.cu", k5, ("probe_full",)),
@@ -3022,14 +3350,18 @@ def main() -> int:
     kernels = []
     for key, wrapper, inst, source, replaces, on in instances:
         by_path = {path: paths[path][wrapper] for path in on}
-        check(sum(by_path.values()) > 0,
+        # an instance on no path counts the launches of its own phase
+        launches = (sum(by_path.values()) if on
+                    else rec[key].pop("phase_launches"))
+        check(launches > 0,
               f"{wrapper} [{inst}] was never launched on {on}: {by_path}")
         kernels.append(dict(
             name=f"{wrapper} [{inst}]", route="cuda", source=src + source,
-            replaces=replaces, launches=sum(by_path.values()),
+            replaces=replaces, launches=launches,
             launches_by_path=by_path,
             library=("x[:, :27].clone()" if key == "k5_copy" else LIBRARY),
             **rec[key]))
+    print(json.dumps({"generic": generic}))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,19 @@
 """PyTorch / CUDA port of the DDP/iLQG framework, for NVIDIA Hopper (H100).
 
 Sits beside the JAX package ``differentialdynamicprogramming_jl_tpu``, which
-stays the reference, and keeps its module paths and public names. The port
-covers the fleet paths with in-kernel derivatives and control limits that
-are static, per scenario or none: the iLQG main path
+stays the reference, and keeps its module paths and public names.
+
+The generic tier — the reference's own front door — is plain PyTorch on the
+inputs' device: :func:`ilqg` (any n and m, limits, full DDP, the α-sweep,
+pre-rolled and resume entries, ``iter_callback``, verbosity), written
+batch-first so that ``parallel.mesh.ilqg_batched`` solves many problems in
+one call; :func:`boxqp`, :func:`boxqp_1d` and :func:`demo_qp`;
+:func:`backward_pass`, :func:`forward_pass` and :func:`line_search`;
+:func:`parallel_riccati` (``ILQGConfig(backward="parallel")``); and the
+KL-constrained :func:`ilqg_kl` with the KL utilities of ``ops/kl.py``.
+
+The port covers the fleet paths with in-kernel derivatives and control
+limits that are static, per scenario or none: the iLQG main path
 :func:`ilqg_batch_lanes` on the pendcart model (n=4, m=1) and on the LTI
 family (the CUDA kernels at n=10, m=2), with its warm-start, pre-rolled and
 resume entries and per-scenario model parameters (heterogeneous fleets,
@@ -24,12 +34,20 @@ Inputs that are not tensors go to the CUDA card (:mod:`.device`).
 Nothing in this package imports ``jax``.
 """
 
-from .policy import GaussianPolicy, Derivs
-from .solvers.ilqg import ILQGConfig, default_alphas, tol_fun_effective
+from .policy import GaussianPolicy, Trace, Derivs, sym
+from .ops.boxqp import boxqp, boxqp_1d, demo_qp, BoxQPResult, QPTrace
+from .ops.backward import backward_pass, BackwardOut, KLTerms
+from .ops.forward import (forward_pass, line_search, forward_covariance,
+                          Rollout)
+from .ops.riccati_scan import parallel_riccati
+from .ops.kl import (grad_kl, kl_div_gaussian, kl_div_wiki, entropy,
+                     calc_eta, AdamState, adam_init, adam_update)
+from .solvers.ilqg import (ilqg, ILQGConfig, ILQGResult, default_alphas,
+                           tol_fun_effective)
 from .solvers.batch import (ilqg_batch_lanes, ilqg_iteration_lanes,
                             mpc_rollout_lanes, BatchILQGResult, BatchTrace,
                             split_lims)
-from .solvers.ilqgkl import ILQGKLConfig
+from .solvers.ilqgkl import ilqg_kl, ILQGKLConfig
 from .solvers.batch_kl import (ilqgkl_batch_lanes, gps_rollout_lanes,
                                BatchKLResult, BatchKLTrace,
                                kl_div_wiki_lanes, calc_eta_lanes)
@@ -39,13 +57,19 @@ from .models.pendcart import (PendCartSpec, pendcart_lanes,
                               default_x0, default_lims)
 from .models.linear import (LTISpec, random_lti, make_lti_problem,
                             lti_lanes, lti_derivs_tiles, SimpleLTVModel)
-from .ops.forward import forward_covariance
 from .ops.hopper.autodiff_tiles import autodiff_derivs_tiles
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "GaussianPolicy", "Derivs",
+    "GaussianPolicy", "Trace", "Derivs", "sym",
+    "boxqp", "boxqp_1d", "demo_qp", "BoxQPResult", "QPTrace",
+    "backward_pass", "BackwardOut", "KLTerms",
+    "forward_pass", "line_search", "Rollout",
+    "grad_kl", "kl_div_gaussian", "kl_div_wiki", "entropy", "calc_eta",
+    "AdamState", "adam_init", "adam_update",
+    "parallel_riccati",
+    "ilqg", "ILQGResult", "ilqg_kl",
     "ILQGConfig", "default_alphas", "tol_fun_effective",
     "ilqg_batch_lanes", "ilqg_iteration_lanes", "mpc_rollout_lanes",
     "BatchILQGResult", "BatchTrace", "split_lims",

@@ -16,8 +16,9 @@ from .device import resolve
 from .models.linear import LTISpec
 from .models.pendcart import PendCartSpec
 from .models.quadrotor import QuadrotorSpec
-from .policy import GaussianPolicy
-from .solvers.ilqg import ILQGConfig
+from .ops.backward import KLTerms
+from .policy import Derivs, GaussianPolicy, Trace
+from .solvers.ilqg import ILQGConfig, ILQGResult
 from .solvers.ilqgkl import ILQGKLConfig
 
 B_TILE = 1024   # scenarios per (8, 128) lane tile of the TPU layout
@@ -83,6 +84,59 @@ def policy_from_jax(policy, dtype=torch.float32, device=None
         name: torch.tensor(np.asarray(getattr(policy, name)), dtype=dtype,
                            device=device)
         for name in GaussianPolicy._fields})
+
+
+def _leaf(a, dtype, device):
+    """An array as a tensor on ``device``: floats as ``dtype``, integers as
+    int32, booleans as bool."""
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.tensor(a, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def _tuple_from_jax(cls, obj, dtype, device, nested=None):
+    """Any object with ``cls``'s fields → ``cls`` of tensors; ``nested``
+    maps a field name to the NamedTuple class of that field."""
+    device = resolve(device)
+    nested = nested or {}
+    out = {}
+    for name in cls._fields:
+        v = getattr(obj, name, None)
+        if v is None:
+            out[name] = None
+        elif name in nested:
+            out[name] = _tuple_from_jax(nested[name], v, dtype, device)
+        else:
+            out[name] = _leaf(v, dtype, device)
+    return cls(**out)
+
+
+def derivs_from_jax(derivs, dtype=torch.float32, device=None) -> Derivs:
+    """A JAX ``Derivs`` (any object with its fields; the second-order ones
+    may be None) → the port's ``Derivs`` on ``device`` (None: the card)."""
+    return _tuple_from_jax(Derivs, derivs, dtype, device)
+
+
+def kl_terms_from_jax(terms, dtype=torch.float32, device=None) -> KLTerms:
+    """A JAX ``KLTerms`` → the port's ``KLTerms``."""
+    return _tuple_from_jax(KLTerms, terms, dtype, device)
+
+
+def trace_from_jax(trace, dtype=torch.float32, device=None) -> Trace:
+    """A JAX ``Trace`` → the port's ``Trace`` (accepted stays bool)."""
+    return _tuple_from_jax(Trace, trace, dtype, device)
+
+
+def ilqg_result_from_jax(res, dtype=torch.float32, device=None
+                         ) -> ILQGResult:
+    """A JAX ``ILQGResult`` → the port's, e.g. to resume a JAX solve in the
+    port (its x, cost, lam, dlam and n_accepted)."""
+    return _tuple_from_jax(ILQGResult, res, dtype, device,
+                           nested={"policy": GaussianPolicy,
+                                   "trace": Trace})
 
 
 def stream_from_lanes(a, B: int) -> np.ndarray:

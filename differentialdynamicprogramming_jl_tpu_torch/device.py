@@ -21,6 +21,16 @@ def resolve(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def like(value, ref: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``value`` as a tensor of ``ref``'s dtype (or ``dtype``): a tensor
+    keeps its device, anything else goes to ``ref``'s. How an entry point
+    brings its other inputs to the device of the one that decides it."""
+    dtype = ref.dtype if dtype is None else dtype
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype)
+    return torch.as_tensor(value, dtype=dtype, device=ref.device)
+
+
 def as_tensor(value, dtype=None) -> torch.Tensor:
     """A tensor as it is (cast to ``dtype`` if given); anything else as a
     tensor on the CUDA card."""

@@ -1,1 +1,1 @@
-"""Model families of the PyTorch port (this slice: the pendcart lane model)."""
+"""Model families of the PyTorch port: pendcart, LTI and the quadrotor."""

@@ -1,9 +1,8 @@
 """Pendulum-on-a-cart swing-up: the lane pieces and the Problem.
 
 Counterpart of ``differentialdynamicprogramming_jl_tpu/models/pendcart.py``
-(``PendCartSpec``, ``make_pendcart_problem`` ``:53-158`` for the ``"euler"``
-scheme, ``pendcart_lanes`` ``:161-195``, ``pendcart_derivs_tiles``
-``:233-263``, ``pendcart_lanes_param`` ``:295-328``,
+(``PendCartSpec``, ``make_pendcart_problem`` ``:53-158``,
+``pendcart_lanes`` ``:161-195``, ``pendcart_derivs_tiles`` ``:233-263``, ``pendcart_lanes_param`` ``:295-328``,
 ``pendcart_derivs_tiles_param`` ``:332-359``, ``default_lims``,
 ``default_x0``): the Euler step of the reference dynamics
 (``src/system_pendcart.jl:75-89``), the diagonal quadratic cost with its
@@ -75,18 +74,19 @@ def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
     """Build the pendcart :class:`~..problem.Problem`, its functions
     broadcasting over leading batch dimensions.
 
-    ``derivs``: ``"euler"`` — hand-written exact Jacobians of the Euler step
-    (pure elementwise trig), in the JAX package's expression order;
-    ``"autodiff"`` — the same Jacobians by autodiff of the Euler step
-    (``derivs=None``, :func:`~..problem.make_autodiff_derivs`). The
-    reference's ``"zoh"`` scheme is not ported yet (NotImplementedError).
-    ``device=None`` is the CUDA card.
+    ``derivs``: ``"zoh"`` — the reference's scheme: analytic continuous
+    Jacobians, zero-order-hold discretised per step by the 5×5 matrix
+    exponential ``expm([[fxc·h, fuc·h], [0, 0]])``
+    (``src/system_pendcart.jl:137-154``), one batched
+    ``torch.linalg.matrix_exp`` over the steps; ``"euler"`` — hand-written
+    exact Jacobians of the Euler step (pure elementwise trig), in the JAX
+    package's expression order; ``"autodiff"`` — the same Jacobians by
+    autodiff of the Euler step (``derivs=None``,
+    :func:`~..problem.make_autodiff_derivs`). ``device=None`` is the CUDA
+    card.
     """
     if derivs not in ("zoh", "autodiff", "euler"):
         raise ValueError(f"unknown derivs scheme {derivs!r}")
-    if derivs == "zoh":
-        raise NotImplementedError(
-            "derivs='zoh' is not ported yet; use 'euler' or 'autodiff'")
     device = resolve(device)
     Q = torch.diag(torch.tensor(spec.Q, dtype=dtype, device=device))
     R = torch.tensor([[spec.R]], dtype=dtype, device=device)
@@ -112,6 +112,31 @@ def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
         dT = x_traj[..., -1, :] - goal
         return torch.cat([c_run, (0.5 * quad(dT, Q, dT))[..., None]], dim=-1)
 
+    def cost_derivs(x_traj, u_traj, fx, fu):
+        T = u_traj.shape[-2]
+        dxg = x_traj[..., :T, :] - goal
+        lead = fx.shape[:-2]
+        return Derivs(
+            fx=fx, fu=fu, cx=dxg @ Q.T, cu=u_traj @ R.T,
+            cxx=Q.expand(lead + (4, 4)),
+            cxu=torch.zeros(lead + (4, 1), dtype=dtype, device=fx.device),
+            cuu=R.expand(lead + (1, 1)))
+
+    def zoh_fn(x_traj, u_traj):
+        """ZoH-sampled continuous Jacobians along (..., T)."""
+        T = u_traj.shape[-2]
+        th = x_traj[..., :T, 0]
+        u0 = u_traj[..., 0]
+        M = torch.zeros(th.shape + (5, 5), dtype=dtype, device=th.device)
+        M[..., 0, 1] = h
+        M[..., 1, 0] = (-g / l * torch.cos(th) - u0 / l * torch.sin(th)) * h
+        M[..., 1, 1] = -d * h
+        M[..., 2, 3] = h
+        M[..., 1, 4] = torch.cos(th) / l * h
+        M[..., 3, 4] = h
+        ABd = torch.linalg.matrix_exp(M)
+        return cost_derivs(x_traj, u_traj, ABd[..., :4, :4], ABd[..., :4, 4:])
+
     def deriv_fn(x_traj, u_traj):
         """Exact Jacobians of the Euler step, elementwise along (..., T)."""
         T = u_traj.shape[-2]
@@ -130,16 +155,10 @@ def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
             torch.stack([z, z, z, o], -1),
         ], -2)
         fu = torch.stack([z, h * torch.cos(th) / l, z, hh], -1)[..., None]
-        dxg = x_traj[..., :T, :] - goal
-        lead = th.shape
-        return Derivs(
-            fx=fx, fu=fu, cx=dxg @ Q.T, cu=u_traj @ R.T,
-            cxx=Q.expand(lead + (4, 4)),
-            cxu=torch.zeros(lead + (4, 1), dtype=dtype, device=th.device),
-            cuu=R.expand(lead + (1, 1)))
+        return cost_derivs(x_traj, u_traj, fx, fu)
 
     return Problem(dynamics=dynamics, cost=cost,
-                   derivs=deriv_fn if derivs == "euler" else None,
+                   derivs={"zoh": zoh_fn, "euler": deriv_fn}.get(derivs),
                    traj_cost=traj_cost)
 
 

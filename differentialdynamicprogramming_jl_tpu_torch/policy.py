@@ -1,7 +1,7 @@
 """Core result types of the PyTorch port.
 
-Counterpart of ``differentialdynamicprogramming_jl_tpu/policy.py:16-88``:
-the same fields and time-major layout ``(T, ...)``, holding ``torch.Tensor``
+Counterpart of ``differentialdynamicprogramming_jl_tpu/policy.py``: the
+same fields and time-major layout ``(T, ...)``, holding ``torch.Tensor``
 leaves. Batched results add a leading scenario axis ``(B, T, ...)``.
 """
 from __future__ import annotations
@@ -76,3 +76,43 @@ class Derivs(NamedTuple):
     fxx: Optional[torch.Tensor] = None
     fxu: Optional[torch.Tensor] = None
     fuu: Optional[torch.Tensor] = None
+
+
+class Trace(NamedTuple):
+    """Fixed-shape per-iteration convergence record (reference ``MVHistory``
+    trace keys, ``src/iLQG.jl:175-177, 325-330``; ``src/iLQGkl.jl:161-166``):
+    tensors of length ``cap`` (``(..., cap)`` batched); entries past
+    ``n_iters`` are zero (NaN for ``alpha``)."""
+
+    lam: torch.Tensor           # λ per iteration
+    dlam: torch.Tensor          # dλ
+    alpha: torch.Tensor         # accepted line-search step (NaN when rejected)
+    cost: torch.Tensor          # total trajectory cost
+    grad_norm: torch.Tensor
+    improvement: torch.Tensor   # Δcost
+    reduce_ratio: torch.Tensor
+    divergence: torch.Tensor    # KL divergence (iLQGkl) / 0
+    eta: torch.Tensor           # η dual (iLQGkl) / 0
+    accepted: torch.Tensor      # bool: step accepted
+
+    @staticmethod
+    def zeros(n: int, dtype=torch.float32, device=None,
+              lead: tuple = ()) -> "Trace":
+        """A record of ``n`` entries, with leading batch dims ``lead``;
+        ``device=None`` is the CUDA card."""
+        device = resolve(device)
+        shape = tuple(lead) + (n,)
+
+        def z():
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return Trace(z(), z(), torch.full(shape, float("nan"), dtype=dtype,
+                                          device=device),
+                     z(), z(), z(), z(), z(), z(),
+                     torch.zeros(shape, dtype=torch.bool, device=device))
+
+
+def sym(A: torch.Tensor) -> torch.Tensor:
+    """Symmetrize: the reference does this to ``Vxx`` and ``Quu``
+    (``src/backward_pass.jl:71-72,301``)."""
+    return 0.5 * (A + A.transpose(-1, -2))

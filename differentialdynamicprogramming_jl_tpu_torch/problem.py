@@ -6,8 +6,8 @@ functions on tensors. In this port the functions broadcast over leading
 batch dimensions, so one call evaluates a whole fleet: ``derivs`` takes
 ``x_traj`` (..., T, n) and ``u_traj`` (..., T, m).
 
-``derivs=None`` selects autodiff (:func:`make_autodiff_derivs`, first order;
-the second-order terms of full DDP are a later slice).
+``derivs=None`` selects autodiff (:func:`make_autodiff_derivs`, with the
+second-order terms of full DDP when ``second_order`` is set).
 :func:`broadcast_derivs` materialises time-invariant derivatives, as the
 LTI problem's analytic derivatives use it.
 """
@@ -23,6 +23,10 @@ from .device import as_tensor
 from .policy import Derivs
 
 
+def _default_diff(x_new, x_old):
+    return x_new - x_old
+
+
 @dataclasses.dataclass(frozen=True)
 class Problem:
     """A finite-horizon optimal-control problem (``src/iLQG.jl:58-61``).
@@ -34,22 +38,26 @@ class Problem:
     - ``traj_cost(x_traj, u_traj) -> (..., T+1)``: per-step costs with an
       appended terminal term, for models whose reference cost has one
       (``src/system_pendcart.jl:97-106``).
-
-    The JAX class's ``diff`` (state difference of the feedback term) and
-    ``second_order`` (full DDP derivatives) are not fields here: no ported
-    path reads them.
+    - ``diff(x_new, x_old) -> dx``: state difference of the forward pass's
+      feedback term (reference ``diff_fun``, ``src/iLQG.jl:131``), on
+      (..., n).
+    - ``second_order``: autodiff also builds ``fxx/fxu/fuu`` → full DDP
+      (the reference's empty-array sentinels, ``src/iLQG.jl:231``).
     """
 
     dynamics: Callable
     cost: Callable
     derivs: Optional[Callable] = None
     traj_cost: Optional[Callable] = None
+    diff: Callable = _default_diff
+    second_order: bool = False
 
     def make_derivs(self) -> Callable:
         """Return a ``(x_traj, u_traj) -> Derivs`` function."""
         if self.derivs is not None:
             return self.derivs
-        return make_autodiff_derivs(self.dynamics, self.cost)
+        return make_autodiff_derivs(self.dynamics, self.cost,
+                                    second_order=self.second_order)
 
     def trajectory_cost(self, x_traj: torch.Tensor,
                         u_traj: torch.Tensor) -> torch.Tensor:
@@ -71,12 +79,8 @@ def make_autodiff_derivs(dynamics: Callable, cost: Callable,
     ``u_traj`` (..., T, m) and returns :class:`~.policy.Derivs` with leaves
     (..., T, ...); the step index t enters as a tensor.
 
-    ``second_order=True`` (fxx, fxu, fuu for full DDP) is a later slice and
-    raises NotImplementedError."""
-    if second_order:
-        raise NotImplementedError(
-            "second_order=True: the full-DDP derivatives are not ported yet")
-
+    ``second_order=True`` adds full DDP's fxx (n, n, n) ``[a, i, j]``, fxu
+    (n, n, m) and fuu (n, m, m), by ``jacfwd`` of the Jacobians."""
     # each step is evaluated as a batch of one, which the functions
     # broadcast over: on 0-dim tensors PyTorch's tangent formulas would
     # promote an f32 tangent times a Python constant to f64
@@ -93,10 +97,14 @@ def make_autodiff_derivs(dynamics: Callable, cost: Callable,
     cxx_fn = jacfwd(cx_fn, argnums=0)
     cxu_fn = jacfwd(cx_fn, argnums=1)       # (n, m)
     cuu_fn = jacfwd(cu_fn, argnums=1)
+    fns = [fx_fn, fu_fn, cx_fn, cu_fn, cxx_fn, cxu_fn, cuu_fn]
+    if second_order:
+        fns += [jacfwd(fx_fn, argnums=0),    # (n, n, n): [a, i, j]
+                jacfwd(fx_fn, argnums=1),    # (n, n, m)
+                jacfwd(fu_fn, argnums=1)]    # (n, m, m)
 
     def per_step(x, u, t):
-        return tuple(f(x, u, t) for f in (fx_fn, fu_fn, cx_fn, cu_fn, cxx_fn,
-                                          cxu_fn, cuu_fn))
+        return tuple(f(x, u, t) for f in fns)
 
     def derivs(x_traj, u_traj):
         T, n, m = u_traj.shape[-2], x_traj.shape[-1], u_traj.shape[-1]

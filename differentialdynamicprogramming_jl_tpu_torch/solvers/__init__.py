@@ -1,1 +1,2 @@
-"""Solvers of the PyTorch port (this slice: the fleet lane solver)."""
+"""Solvers of the PyTorch port: the generic tier and the fleet lane
+solvers."""

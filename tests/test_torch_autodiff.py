@@ -111,10 +111,15 @@ def test_autodiff_out_of_slice_raises():
         autodiff_derivs_tiles(tm, second_order=True)
     with pytest.raises(NotImplementedError, match="packed"):
         tat.autodiff_packed_derivs(tm)
-    with pytest.raises(NotImplementedError, match="second_order"):
-        make_autodiff_derivs(tm.dynamics, tm.cost, second_order=True)
-    with pytest.raises(NotImplementedError, match="zoh"):
-        tpc.make_pendcart_problem(derivs="zoh", device="cpu")
+    # the generic tier's full-DDP derivatives and the zoh scheme are ported:
+    # they build, where the lane tier's second-order tiles still raise
+    tp = tq.make_quadrotor_problem(tq.QuadrotorSpec(), device="cpu")
+    d = make_autodiff_derivs(tp.dynamics, tp.cost, second_order=True)(
+        torch.zeros(1, 3, tm.n), torch.ones(1, 3, tm.m))
+    assert d.fxx.shape == (1, 3, tm.n, tm.n, tm.n)
+    assert d.fuu.shape == (1, 3, tm.n, tm.m, tm.m)
+    assert tpc.make_pendcart_problem(derivs="zoh",
+                                     device="cpu").derivs is not None
 
 
 @pytest.mark.parametrize("emit,gps", [("gains", False), ("full", False),

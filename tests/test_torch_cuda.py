@@ -1192,3 +1192,90 @@ def test_probe_kernel_is_bit_identical_at_ragged_shapes(dev, mode, B, T):
                      generator=torch.Generator().manual_seed(18)).to(dev)
     xv = xs[1:].view(Tk, pk.S_IN, B)
     assert torch.equal(pk.probe_lanes(xv, mode), pk.probe_lanes_ref(xv, mode))
+
+
+# ---- the generic tier on the card: plain PyTorch in f64, no kernel of the
+#      port. Numpy inputs go to the card; the card's result is held against
+#      the same call on CPU tensors.
+
+def test_generic_numpy_inputs_land_on_the_card(dev):
+    from differentialdynamicprogramming_jl_tpu_torch.models import (
+        linear as tl)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.boxqp import boxqp
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import ilqg
+    spec = tl.random_lti(0, n=4, m=2, T=30, dtype=torch.float64,
+                         device="cpu")
+    prob = tl.make_lti_problem(tl.LTISpec(*(a.to(dev) for a in spec)), 30)
+    res = ilqg(prob, spec.x0.numpy(), spec.u0.numpy(),
+               cfg=ILQGConfig(max_iter=20))
+    assert res.u.device.type == "cuda" and res.u.dtype == torch.float64
+    qp = boxqp(np.eye(3), np.ones(3), -np.ones(3), np.ones(3), np.zeros(3))
+    assert qp.x.device.type == "cuda"
+
+
+def test_generic_ilqg_card_matches_cpu(dev):
+    from differentialdynamicprogramming_jl_tpu_torch.models import (
+        linear as tl)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import ilqg
+    spec = tl.random_lti(0, n=4, m=2, T=40, dtype=torch.float64,
+                         device="cpu")
+    lims = torch.tensor([[-0.05, 0.05], [-0.03, 0.04]], dtype=torch.float64)
+    out = {}
+    for to in ("cpu", dev):
+        sp = tl.LTISpec(*(a.to(to) for a in spec))
+        for backward in ("scan", "parallel"):
+            out[(str(to), backward)] = ilqg(
+                tl.make_lti_problem(sp, 40), sp.x0, sp.u0,
+                lims=lims.to(to) if backward == "scan" else None,
+                cfg=ILQGConfig(max_iter=50, backward=backward))
+    for backward in ("scan", "parallel"):
+        c, g = out[("cpu", backward)], out[(str(dev), backward)]
+        torch.testing.assert_close(g.cost.sum().cpu(), c.cost.sum(),
+                                   rtol=1e-9, atol=0)
+        assert int(g.reason) == int(c.reason)
+        assert int(g.n_iters) == int(c.n_iters)
+
+
+def test_generic_ilqg_kl_card_matches_cpu(dev):
+    from differentialdynamicprogramming_jl_tpu_torch.models import (
+        linear as tl)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.forward import (
+        forward_pass)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ilqg_kl)
+    spec = tl.random_lti(1, n=4, m=2, T=30, dtype=torch.float64,
+                         device="cpu")
+    out = {}
+    for to in ("cpu", dev):
+        sp = tl.LTISpec(*(a.to(to) for a in spec))
+        prob = tl.make_lti_problem(sp, 30)
+        ro = forward_pass(prob, sp.x0, sp.u0)
+        traj = GaussianPolicy.zeros(30, 4, 2, torch.float64,
+                                    device=to)._replace(k=ro.u)
+        for per_step in (False, True):
+            out[(str(to), per_step)] = ilqg_kl(
+                prob, ro.x, traj, tl.SimpleLTVModel.from_lti(sp.A, sp.B, 30),
+                ro.cost, cfg=ILQGKLConfig(kl_step=0.5, max_iter=10,
+                                          constrain_per_step=per_step))
+    for per_step in (False, True):
+        c, g = out[("cpu", per_step)], out[(str(dev), per_step)]
+        torch.testing.assert_close(g.cost.sum().cpu(), c.cost.sum(),
+                                   rtol=1e-9, atol=0)
+        assert int(g.n_iters) == int(c.n_iters)
+        assert bool(g.satisfied) == bool(c.satisfied)
+
+
+def test_generic_boxqp_card_matches_cpu(dev):
+    from differentialdynamicprogramming_jl_tpu_torch.ops.boxqp import (
+        boxqp, demo_qp)
+    g, c = demo_qp(60, device=dev), demo_qp(60, device="cpu")
+    assert int(g.result) == int(c.result) >= 1
+    torch.testing.assert_close(g.value.cpu(), c.value, rtol=1e-9, atol=0)
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((8, 5, 5))
+    args = [A @ np.swapaxes(A, -1, -2), rng.standard_normal((8, 5)),
+            -0.3 * np.ones((8, 5)), 0.3 * np.ones((8, 5)), np.zeros((8, 5))]
+    gb = boxqp(*(torch.tensor(a, device=dev) for a in args))
+    cb = boxqp(*(torch.tensor(a) for a in args))
+    assert torch.equal(gb.result.cpu(), cb.result)
+    torch.testing.assert_close(gb.x.cpu(), cb.x, rtol=1e-9, atol=1e-12)
