@@ -96,13 +96,37 @@ ends the run with a non-zero exit and no result line:
     accepted iterations, on the card against the same call on CPU tensors;
 29. generic ``ilqg_kl``: the golden scalar-η and per-step problems against
     ``golden.npz``, and one ``demo_linear_kl`` outer solve at T=1000;
-30. the kernel record (one entry per kernel instance, with its bound; K4
+30. the packed / full DDP group, kernels: K1 on the packed-derivatives
+    stream (Packed<4,1> gains and full at T=500 and in GPS mode,
+    Packed<6,2> at T=400, Packed<10,2> at T=1000) and with second-order
+    tiles (PendCartSO at T=500, Autodiff<PendCart,SO> at T=500,
+    Autodiff<Quadrotor,SO> at T=400) against their plain versions (at T=500
+    on the pendcart's packed and PendCartSO instances, else at the
+    T_PLAIN of the model's earlier phases), timed
+    with their bounds; each generator's time and device operations a call
+    (``pendcart_packed_derivs``, ``autodiff_packed_derivs`` on the
+    quadrotor, ``lti_packed_derivs``);
+31. the packed / full DDP group, pendcart paths: the headline solve
+    (B=4096, T=500, 20 iterations, ±5) with ``pendcart_packed_derivs``,
+    with ``pendcart_derivs_tiles_so`` and with the autodiff second-order
+    tiles: ms/iter, K1 ms a launch, the generator's calls and cost, host
+    syncs an iteration, peak memory, agreement with the CPU solve on 64
+    lanes;
+32. the packed / full DDP group, quadrotor paths (B=4096, T=400, 20
+    iterations): ``autodiff_packed_derivs`` beside the in-kernel AD solve
+    of the same fleet, and full DDP by autodiff, each against the CPU
+    solve on 64 lanes; the LTI fleet (B=4096, T=1000, ±0.6, to
+    convergence) with ``lti_packed_derivs``, against the CPU solve on 64
+    lanes; ``backward_pass_pallas`` in GPS mode at B=4096, T=500 against
+    its CPU plain version;
+33. the kernel record (one entry per kernel instance, with its bound; K4
     at n=6, on no path, with the launches of its check) and the result
     line.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -179,6 +203,10 @@ QUAD_T_PLAIN = 64
 # the quadrotor solve on 64 scenarios with the plain versions on the host
 # (≈0.2 s a K1 step there): a short horizon
 QUAD_T_CPU = 16
+# the packed / full DDP group's quadrotor fleet: x0 = default_x0 +
+# 0.3·N(0,1)·[1,0,1,0,0.5,0] from its own seed, so that the child process
+# of its CPU solves (packed_cpu_solves) draws the same lanes
+PACKED_QUAD_SEED = 22
 # K1 with autodiff tiles against its plain version, each slot by its error
 # over that slot's largest magnitude, as GPS_SLOT_TOL. The kernel's Dual and
 # Jet rules are PyTorch's forward-mode rules in PyTorch's order; what is
@@ -407,16 +435,13 @@ def ptxas_summary(log: str):
             mangled = m.group(1)
             kern = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
             targs = kern.group(2) if kern else ""
-            model = ("LTI<10,2>" if "LTIILi10ELi2E" in targs else
-                     "Autodiff<Quadrotor>" if "AutodiffINS_9QuadrotorE" in
-                     targs else
-                     "Autodiff<PendCart>" if "AutodiffINS_8PendCartE" in
-                     targs else
-                     "Quadrotor" if "9QuadrotorE" in targs else
-                     "PendCartParam" if "PendCartParam" in targs else
-                     "PendCart" if "PendCart" in targs else None)
-            targs = re.sub(r"NS_3LTIILi10ELi2EEE|NS_8PendCartE|"
-                           r"NS_13PendCartParamE", "", targs)
+            # the model's mangled type, stripped before its template
+            # arguments are read
+            model = None
+            for pat, nm in MANGLED_MODELS:
+                if targs.startswith(pat):
+                    model, targs = nm, targs[len(pat):]
+                    break
             args = ([model] if model else []) + re.findall(r"L[ib](\d+)E",
                                                            targs)
             args += {"6float4": ["float4"], "f": ["float"]}.get(targs, [])
@@ -431,10 +456,29 @@ def ptxas_summary(log: str):
     return out
 
 
+# the kernels' model types as nvcc mangles them (a template argument
+# list's prefix), and their names here
+MANGLED_MODELS = (
+    ("NS_3LTIILi10ELi2EEE", "LTI<10,2>"),
+    ("NS_8AutodiffINS_9QuadrotorELb1EEE", "Autodiff<Quadrotor,SO>"),
+    ("NS_8AutodiffINS_9QuadrotorELb0EEE", "Autodiff<Quadrotor>"),
+    ("NS_8AutodiffINS_8PendCartELb1EEE", "Autodiff<PendCart,SO>"),
+    ("NS_8AutodiffINS_8PendCartELb0EEE", "Autodiff<PendCart>"),
+    ("NS_6PackedILi4ELi1EEE", "Packed<4,1>"),
+    ("NS_6PackedILi6ELi2EEE", "Packed<6,2>"),
+    ("NS_6PackedILi10ELi2EEE", "Packed<10,2>"),
+    ("NS_10PendCartSOE", "PendCartSO"),
+    ("NS_13PendCartParamE", "PendCartParam"),
+    ("NS_8PendCartE", "PendCart"),
+    ("NS_9QuadrotorE", "Quadrotor"))
 # K1's and K2's instances: (n, m, T of the path the plan is printed for)
 RING_PATHS = {"PendCart": (4, 1, T), "PendCartParam": (4, 1, T),
               "Autodiff<PendCart>": (4, 1, T), "LTI<10,2>": (10, 2, 1000),
-              "Autodiff<Quadrotor>": (6, 2, 400), "Quadrotor": (6, 2, 400)}
+              "Autodiff<Quadrotor>": (6, 2, 400), "Quadrotor": (6, 2, 400),
+              "Packed<4,1>": (4, 1, T), "Packed<6,2>": (6, 2, 400),
+              "Packed<10,2>": (10, 2, 1000), "PendCartSO": (4, 1, T),
+              "Autodiff<PendCart,SO>": (4, 1, T),
+              "Autodiff<Quadrotor,SO>": (6, 2, 400)}
 
 
 def plan_text(p) -> str:
@@ -463,15 +507,16 @@ def with_plan(line: str) -> str:
         return (f"{line} | plan at B={B}, T={PROBE_T}: "
                 f"{plan_text(plan.probe_plan(mode, PROBE_T, B))}"
                 if mode else line)
-    m = re.match(r"(backward|linesearch|forward)_kernel<(Autodiff<\w+>|"
-                 r"LTI<10,2>|\w+)(?:, (\d+))?(?:, (\d+))?>", line)
+    m = re.match(r"(backward|linesearch|forward)_kernel<(Autodiff<\w+"
+                 r"(?:,SO)?>|LTI<10,2>|Packed<\d+,\d+>|\w+)(?:, (\d+))?"
+                 r"(?:, (\d+))?>", line)
     if not m or m.group(2) not in RING_PATHS:
         return line
     n, mm, Tp = RING_PATHS[m.group(2)]
     if m.group(1) == "backward":
         emit = ("gains", "full", "policy")[int(m.group(3))]
         plans = [("", plan.backward_plan(n, mm, m.group(4) == "1", emit, Tp,
-                                         B))]
+                                         B, m.group(2).startswith("Packed")))]
     elif m.group(1) == "linesearch":
         plans = [("A=6 ", plan.linesearch_plan(n, mm, 6, Tp, B))]
     else:
@@ -518,20 +563,24 @@ def bound(nbytes: float, flops: float) -> dict:
 
 def model_ops(model) -> dict:
     """Operations of one model evaluation: ``step`` (running cost and
-    dynamics) and ``derivs`` (the expansion K1 forms at (x, u))."""
+    dynamics), ``derivs`` (the expansion K1 forms at (x, u)) and ``so``
+    (the nonzero dynamics Hessian entries of full DDP)."""
     if model.device.model_id in (1, 4):
         # pendcart: θ̈ (sin, cos, 3 multiplies, a divide, 2 adds) and the
         # Euler step (8), the cost (2 + 4·4); a21, fu1 and cx, cu (20). The
         # parametrised one forms -g/l and 1-h·d once per scenario, not
-        # counted
-        return dict(step=34, derivs=20)
+        # counted. Full DDP: ∂²f₁/∂θ² (a divide, 3 multiplies, a subtract)
+        # and ∂²f₁/∂θ∂u (a multiply), sin and cos shared
+        return dict(step=34, derivs=20, so=6)
     if model.device.model_id == 3:
         # quadrotor: thrust, sin, cos, ax, az, α (12) and the Euler step
         # (12), the cost (6·3 + 5 and 2·4); the ANALYTIC expansion any
         # implementation must form: thrust, sin, cos, fx[1][4], fx[3][4]
         # (7), fu[1][·], fu[3][·] (4), cx, cu (16). Autodiff's passes are
-        # not counted, so the bound does not depend on how K1 derives.
-        return dict(step=55, derivs=30)
+        # not counted, so the bound does not depend on how K1 derives. Full
+        # DDP: ∂²vx/∂θ², ∂²vz/∂θ² and their ∂θ∂u_j (6 entries, ≈3
+        # operations each)
+        return dict(step=55, derivs=30, so=18)
     c = model.device.consts
     n, m = model.n, model.m
     nz = [int(np.count_nonzero(c[a:b])) for a, b in (
@@ -554,12 +603,21 @@ def lane_bytes(model, B: int, lanes: bool) -> int:
 
 
 def k1_work(model, T: int, B: int, emit: str, reg_type: int, lims,
-            gps: bool = False, lanes: bool = False) -> dict:
+            gps: bool = False, lanes: bool = False, packed: bool = False,
+            so: bool = False) -> dict:
+    """K1's bound. ``packed``: the D+m slots of the packed stream are read
+    and no expansion is formed; ``so``: full DDP's Hessian entries and
+    their contraction with V′x into Qxx, Qux and Quu (2n operations an
+    entry)."""
     n, m = model.n, model.m
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
         backward_kernel as bk)
     S = bk.OutLayout(n, m, emit).S
-    f = (model_ops(model)["derivs"] + 2 * n * n + 2 * m * n        # Qx, Qu
+    d_in = bk.InLayout(n, m).DU if packed else n + m
+    f = (0 if packed else model_ops(model)["derivs"])
+    if so:
+        f += model_ops(model)["so"] + 2 * n * (n * n + n * m + m * m)
+    f += (2 * n * n + 2 * m * n                                     # Qx, Qu
          + 2 * n ** 3 + 2 * n * n * m                               # W, U
          + 2 * n ** 3 + 2 * m * m * n + 2 * m * n * n)              # Qxx..
     f += (2 * m * n * n + 2 * m * n + 2 * m * m * n + 2 * m * m
@@ -579,7 +637,7 @@ def k1_work(model, T: int, B: int, emit: str, reg_type: int, lims,
           + n * n * (6 * m + 1) + 2 * n * n + 4)      # value update, latch
     if emit != "gains":
         f += 10 * m * m                               # Quu⁻¹
-    nbytes = 4 * (T * B * (n + m + S) + B * 5) + lane_bytes(model, B, lanes)
+    nbytes = 4 * (T * B * (d_in + S) + B * 5) + lane_bytes(model, B, lanes)
     if gps:
         nbytes += 4 * T * B * (m + m * n + m * m + 1)     # prev and η
     return bound(nbytes, f * T * B)
@@ -2989,6 +3047,570 @@ def generic_phases(ph, dev, counters) -> dict:
     return out
 
 
+def headline_x0() -> np.ndarray:
+    """The headline fleet's x0 (B, 4) in f64: default_x0 + 0.2·N(0,1) on θ
+    from seed 0, the first draw of the ilqg-kernels phase."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        default_x0)
+    rng = np.random.default_rng(0)
+    return np.asarray(default_x0(device="cpu").numpy(), np.float64)[
+        None, :] + 0.2 * rng.standard_normal((B, 4)) * np.array(
+            [1.0, 0, 0, 0])
+
+
+def headline_cfg():
+    """The headline's ILQGConfig (JAX bench.py:257-294)."""
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig, default_alphas)
+    return ILQGConfig(alphas=default_alphas(0.2, -3.0, 6), reg_type=2,
+                      lam_max=1e15)
+
+
+def packed_quad_x0() -> np.ndarray:
+    """The packed group's quadrotor x0 (B, 6) in f64 (PACKED_QUAD_SEED)."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        default_x0)
+    rng = np.random.default_rng(PACKED_QUAD_SEED)
+    return default_x0(torch.float64, device="cpu").numpy()[None, :] + (
+        0.3 * rng.standard_normal((B, 6)) * np.array([1, 0, 1, 0, 0.5, 0]))
+
+
+def lti_packed_fleet(device):
+    """The packed group's LTI fleet, as the LTI path's
+    (tools/bench_fleet.py:57-74): random_lti's spec from seed 0, x0 =
+    1·linspace(0.5, 2) over the B scenarios (made on the host, so that the
+    child process of the CPU solves draws the same lanes), and the LTI
+    path's ILQGConfig (6-α ladder, reg_type 2, max_iter 300)."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig, default_alphas)
+    spec = random_lti(0, n=LTI_N, m=LTI_M, T=LTI_T, device=device)
+    x0s = torch.ones((B, LTI_N)) * torch.linspace(0.5, 2.0, B)[:, None]
+    return spec, x0s.to(device), ILQGConfig(
+        alphas=default_alphas(0.2, -3.0, 6), reg_type=2, lam_max=1e15,
+        max_iter=300)
+
+
+def packed_cpu_solves() -> dict:
+    """The packed / full DDP group's CPU plain solves on B_CPU lanes, for
+    its GPU-against-CPU checks: the headline pendcart with
+    ``pendcart_packed_derivs`` and with ``pendcart_derivs_tiles_so``
+    (T=500, 20 iterations), the quadrotor with ``autodiff_packed_derivs``
+    and with its autodiff second-order tiles (T=QUAD_T_CPU), the LTI fleet
+    with ``lti_packed_derivs`` (T=LTI_T_CPU). They take a few minutes of
+    host time (full DDP's λ-retries: ≈6.6 backward passes an iteration on
+    the pendcart), so ``main`` runs this in
+    a child process (``chip_smoke.py --packed-cpu``, CPU tensors only) from
+    the build phase on, beside the card's phases. Returns, per solve, the
+    cost totals, reasons and accepted counts, and its seconds."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles_so, pendcart_lanes,
+        pendcart_packed_derivs)
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_lanes, lti_packed_derivs)
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec, quadrotor_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles, autodiff_packed_derivs
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    cfg, pspec, qspec = headline_cfg(), PendCartSpec(), QuadrotorSpec()
+    qmodel = quadrotor_lanes(qspec)
+    lspec, lx0, lcfg = lti_packed_fleet("cpu")
+    f32 = dict(dtype=torch.float32, device="cpu")
+    x0p = torch.tensor(headline_x0()[:B_CPU], **f32)
+    x0q = torch.tensor(packed_quad_x0()[:B_CPU], **f32)
+    runs = {
+        "pendcart packed": lambda: ilqg_batch_lanes(
+            pendcart_lanes(pspec), pendcart_packed_derivs(pspec), x0p,
+            torch.zeros((B_CPU, T, 1), **f32), lims=LIMS, cfg=cfg,
+            max_steps=ITERS),
+        "pendcart full DDP (PendCartSO)": lambda: ilqg_batch_lanes(
+            pendcart_lanes(pspec), None, x0p,
+            torch.zeros((B_CPU, T, 1), **f32), lims=LIMS, cfg=cfg,
+            derivs_tiles=pendcart_derivs_tiles_so(pspec), max_steps=ITERS),
+        "quadrotor packed (autodiff_packed_derivs)": lambda: ilqg_batch_lanes(
+            qmodel, autodiff_packed_derivs(qmodel), x0q,
+            torch.full((B_CPU, QUAD_T_CPU, 2), qspec.u_hover, **f32),
+            lims=qspec.lims, cfg=cfg, max_steps=ITERS),
+        "quadrotor full DDP (Autodiff<Quadrotor,SO>)": lambda: (
+            ilqg_batch_lanes(
+                qmodel, None, x0q,
+                torch.full((B_CPU, QUAD_T_CPU, 2), qspec.u_hover, **f32),
+                lims=qspec.lims, cfg=cfg, max_steps=ITERS,
+                derivs_tiles=autodiff_derivs_tiles(qmodel,
+                                                   second_order=True))),
+        "LTI packed (lti_packed_derivs)": lambda: ilqg_batch_lanes(
+            lti_lanes(lspec), lti_packed_derivs(lspec), lx0[:B_CPU],
+            lspec.u0[:LTI_T_CPU].expand(B_CPU, LTI_T_CPU, LTI_M).contiguous(),
+            lims=LTI_LIMS, cfg=lcfg)}
+    out = {}
+    for label, run in runs.items():
+        t0 = time.perf_counter()
+        r = run()
+        out[label] = dict(cost_total=r.cost_total.tolist(),
+                          reason=r.reason.tolist(),
+                          n_accepted=r.n_accepted.tolist(),
+                          seconds=time.perf_counter() - t0)
+    return out
+
+
+def start_packed_cpu_solves() -> subprocess.Popen:
+    """:func:`packed_cpu_solves` in a child process that sees no card."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--packed-cpu"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def packed_phases(ph, dev, rec, counters, ilqg, cpu_proc) -> dict:
+    """Phases 30-32, the "packed / full DDP" group: K1 on the
+    packed-derivatives stream (Packed<4,1>, with GPS mode, Packed<6,2>,
+    Packed<10,2>) and with second-order tiles (PendCartSO,
+    Autodiff<PendCart, SO>, Autodiff<Quadrotor, SO>) against their plain
+    versions; the generators' cost; the headline pendcart fleet solve with
+    ``pendcart_packed_derivs`` and with ``pendcart_derivs_tiles_so``, the
+    quadrotor with ``autodiff_packed_derivs`` beside its in-kernel AD solve,
+    the full-DDP autodiff solves and the LTI fleet with
+    ``lti_packed_derivs``, each against the CPU on B_CPU lanes (the
+    pendcart's autodiff full DDP against the analytic one on the card);
+    ``backward_pass_pallas`` in GPS mode. The CPU solves come from
+    ``cpu_proc`` (:func:`start_packed_cpu_solves`). Adds the measurements
+    to ``rec``; returns the launches of its paths."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_lanes, lti_packed_derivs)
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles, pendcart_derivs_tiles_so,
+        pendcart_lanes, pendcart_packed_derivs)
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec, quadrotor_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles, autodiff_packed_derivs
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        DERIV_FIELDS, from_streams, to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.policy import (
+        Derivs, GaussianPolicy)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    import re
+
+    t_group = time.perf_counter()
+    cfg = ilqg["cfg"]
+    cpu_out = {}
+
+    def cpu_solves() -> dict:
+        """The child's CPU solves, waited for once."""
+        if not cpu_out:
+            out, err = cpu_proc.communicate(timeout=900)
+            check(cpu_proc.returncode == 0, "the CPU solves' child process "
+                  f"failed ({cpu_proc.returncode}): {err[-2000:]}")
+            cpu_out.update(json.loads(out))
+        return cpu_out
+    ph.start("packed-kernels", f"B={B}: K1 on the packed stream "
+             f"(Packed<4,1>, GPS, Packed<6,2>, Packed<10,2>) and with "
+             f"second-order tiles (PendCartSO, Autodiff<PendCart,SO>, "
+             f"Autodiff<Quadrotor,SO>) against their plain versions; the "
+             f"generators' cost")
+    rng = np.random.default_rng(21)
+    f32 = dict(dtype=torch.float32, device=dev)
+    lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), **f32)
+    lam[::8] = 0.0
+    al1 = torch.tensor(rng.uniform(0.0, 1.0, (1, B)), **f32)
+
+    def rollout(model, x0_l, u, lims):
+        """A K3 rollout at α ~ U(0, 1) of controls u (T, m, B)."""
+        Tn, mm = u.shape[0], u.shape[1]
+        gains = torch.cat([u, torch.zeros((Tn, mm * model.n, B), **f32)], 1)
+        return fk.forward_lanes(torch.zeros((Tn, model.n + mm, B), **f32),
+                                gains, x0_l, al1, model=model, lims=lims,
+                                emit_traj=True).traj
+
+    pspec, qspec = PendCartSpec(), QuadrotorSpec()
+    pmodel, qmodel = pendcart_lanes(pspec), quadrotor_lanes(qspec)
+    ptraj = rollout(pmodel, ilqg["x0s"].T.contiguous(),
+                    torch.tensor(2.0 * rng.standard_normal((T, 1, B)), **f32),
+                    LIMS)
+    qx0s = torch.tensor(packed_quad_x0(), **f32)
+    qtraj = rollout(qmodel, qx0s.T.contiguous(), torch.tensor(
+        qspec.u_hover + 1.5 * rng.standard_normal((QUAD_T, 2, B)), **f32),
+        qspec.lims)
+    lspec, lx0s, lcfg = lti_packed_fleet(dev)
+    lmodel = lti_lanes(lspec)
+    ltraj = rollout(lmodel, lx0s.T.contiguous(), to_streams(
+        lspec.u0.expand(B, LTI_T, LTI_M)), LTI_LIMS)
+
+    gens = {"pendcart": (pendcart_packed_derivs(pspec), ptraj, 4, 1),
+            "quad": (autodiff_packed_derivs(qmodel), qtraj, 6, 2),
+            "lti": (lti_packed_derivs(lspec), ltraj, LTI_N, LTI_M)}
+    gen_stats = {}
+    for name, (gen, tr, n, m) in gens.items():
+        x_s, u_s = tr[:, :n].contiguous(), tr[:, n:n + m].contiguous()
+        ms = cuda_ms(lambda: gen(x_s, u_s), 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gen(x_s, u_s)
+        # what one call holds at its peak above what was allocated before
+        peak = torch.cuda.max_memory_allocated() - base
+
+        def device_ops(calls):
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    gen(x_s, u_s)
+                torch.cuda.synchronize()
+            return sum(1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+
+        # a call's device operations as the difference of two sessions:
+        # once profilers have run in the process, a session may miss its
+        # first events (34 against 1 counted for the pendcart generator)
+        ops = device_ops(2) - device_ops(1)
+        D = bk.InLayout(n, m).DU
+        mb = 4 * tr.shape[0] * B * (n + m + D) / 1e6
+        print(f"  generator {name} ⟨{n},{m}⟩ at T={tr.shape[0]}: "
+              f"{ms:.3f} ms a call, {ops} device operations (torch.profiler"
+              f"), {D} slots out, peak memory a call {peak / 2**30:.3f} "
+              f"GiB; its bytes (x, u in, the stream out) at "
+              f"3.35 TB/s {mb * 1e6 / HBM_PER_MS:.4f} ms ({mb:.1f} MB)")
+        gen_stats[name] = dict(ms=ms, device_ops=ops, mbytes=mb,
+                               peak_bytes=peak)
+    dp = {name: gen(tr[:, :n], tr[:, n:n + m])
+          for name, (gen, tr, n, m) in gens.items()}
+
+    def k1_check(key, what, n, m, lims, inputs, Tk, Tplain, model, tol,
+                 emits=("gains", "full"), ties=False, packed=False,
+                 so=False, reg_type=2, **kw):
+        """K1 at Tplain against its plain version (each emission), timed at
+        Tk; ``inputs(Tc)`` → (stream, derivs_tiles) cut to Tc steps."""
+        def run(emit, plain, Tc):
+            tr, tl = inputs(Tc)
+            f = bk.backward_lanes_ref if plain else bk.backward_lanes
+            extra = {k: v[:Tc].contiguous() for k, v in kw.items()}
+            return f(tr, lam, n=n, m=m, reg_type=reg_type, lims=lims,
+                     derivs_tiles=tl, emit=emit, **extra)
+
+        errs, plain_ms, outs = [], None, {}
+        cmp = compare_slots_ties if ties else compare_slots
+        for emit in emits:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = run(emit, True, Tplain)
+            torch.cuda.synchronize()
+            plain_ms = plain_ms or (time.perf_counter() - t0) * 1e3
+            k = run(emit, False, Tplain)
+            lay = bk.OutLayout(n, m, emit)
+            nq = lay.quui if lay.quui is not None else lay.S
+            label = f"K1 {what} {emit} at T={Tplain}"
+            errs.append(cmp(label, k.out[:, :nq], p.out[:, :nq], tol))
+            errs.append(compare(label, {"dV": (k.stats[:2], p.stats[:2])}))
+            if lay.quui is not None:
+                errs.append(compare(label, {"Quu_inv": (
+                    k.out[:, nq:], p.out[:, nq:])}, QUU_INV_TOL))
+            check(torch.equal(k.stats[2:], p.stats[2:]),
+                  f"{label}: diverged/diverge_idx differ")
+            outs[emit] = k
+        ms = {e: cuda_ms(lambda e=e: run(e, False, Tk), 20) for e in emits}
+        w = k1_work(model, Tk, B, emits[0], reg_type, lims,
+                    gps="prev" in kw, packed=packed, so=so)
+        print(f"  K1 {what} at T={Tk}: " + ", ".join(
+            f"{e} {v:.4f} ms" for e, v in ms.items())
+            + f"; bound {w['bound_ms']:.4f} ms ({w['bound_by']}: "
+            f"{w['bound_bytes'] / 1e6:.1f} MB, "
+            f"{w['bound_flops'] / 1e9:.3f} GFLOP); plain once at "
+            f"T={Tplain}: {plain_ms:.1f} ms")
+        rec[key] = dict(max_abs_err=max(errs), ms=ms[emits[0]],
+                        plain_ms=plain_ms, plain_T=Tplain, library_ms=None,
+                        **w)
+        if len(emits) > 1:
+            rec[key]["ms_full"] = ms["full"]
+        return outs
+
+    ptiles, pso = pendcart_derivs_tiles(pspec), pendcart_derivs_tiles_so(pspec)
+    outs = k1_check("k1_packed_pendcart", "Packed<4,1>", 4, 1, LIMS,
+                    lambda Tc: (dp["pendcart"][:Tc].contiguous(), None), T, T,
+                    pmodel, KERNEL_TOL, packed=True)
+    a = bk.backward_lanes(ptraj, lam, n=4, m=1, reg_type=2, lims=LIMS,
+                          derivs_tiles=ptiles, emit="full")
+    compare_slots("K1 Packed<4,1> full against K1 PendCart on the same "
+                  "trajectory", outs["full"].out[:, :26], a.out[:, :26],
+                  KERNEL_TOL)
+    prev = torch.tensor(np.concatenate([
+        rng.standard_normal((T, 1, B)), 0.5 * rng.standard_normal((T, 4, B)),
+        rng.uniform(0.5, 2.0, (T, 1, B))], axis=1), **f32)
+    eta = torch.tensor(10.0 ** rng.uniform(-0.3, 1, (T, B)), **f32)
+    k1_check("k1_packed_pendcart_gps", "Packed<4,1> GPS", 4, 1, None,
+             lambda Tc: (dp["pendcart"][:Tc].contiguous(), None), T, T,
+             pmodel, GPS_SLOT_TOL, emits=("full",), packed=True, reg_type=1,
+             prev=prev, eta=eta)
+    k1_check("k1_packed_quad", "Packed<6,2>", 6, 2, qspec.lims,
+             lambda Tc: (dp["quad"][:Tc].contiguous(), None), QUAD_T,
+             QUAD_T_PLAIN, qmodel, AD_SLOT_TOL, ties=True, packed=True)
+    k1_check("k1_packed_lti", "Packed<10,2>", LTI_N, LTI_M, LTI_LIMS,
+             lambda Tc: (dp["lti"][:Tc].contiguous(), None), LTI_T,
+             LTI_T_PLAIN, lmodel, KERNEL_TOL, ties=True, packed=True)
+    outs = k1_check("k1_pendcart_so", "PendCartSO", 4, 1, LIMS,
+                    lambda Tc: (ptraj[:Tc].contiguous(), pso), T, T, pmodel,
+                    KERNEL_TOL, so=True)
+    pad_so = autodiff_derivs_tiles(pmodel, second_order=True)
+    k1_check("k1_pendcart_ad_so", "Autodiff<PendCart,SO>", 4, 1, LIMS,
+             lambda Tc: (ptraj[:Tc].contiguous(), pad_so), T, QUAD_T_PLAIN,
+             pmodel, AD_SLOT_TOL, so=True)
+    a = bk.backward_lanes(ptraj, lam, n=4, m=1, reg_type=2, lims=LIMS,
+                          derivs_tiles=pad_so, emit="full")
+    compare_slots("K1 Autodiff<PendCart,SO> full against K1 PendCartSO",
+                  a.out[:, :26], outs["full"].out[:, :26], AD_ANALYTIC_TOL)
+    qad_so = autodiff_derivs_tiles(qmodel, second_order=True)
+    k1_check("k1_quad_so", "Autodiff<Quadrotor,SO>", 6, 2, qspec.lims,
+             lambda Tc: (qtraj[:Tc].contiguous(), qad_so), QUAD_T,
+             QUAD_T_PLAIN, qmodel, AD_SLOT_TOL, ties=True, so=True)
+    for line in rec["ptxas"]:
+        if re.search(r"<(Packed|PendCartSO|Autodiff<\w+,SO>)", line):
+            print("  " + line)
+    del ltraj, outs, a, prev, eta
+    dp.pop("lti")
+    torch.cuda.empty_cache()
+
+    paths = {}
+
+    def fleet(label, key, solve, x0s, u0s, x0c=None, u0c=None, gen=None,
+              gen_key=None, besides=None):
+        """One fleet solve at full width: launches, ms/iter, K1 ms a
+        launch, the generator's calls and cost, host syncs an iteration,
+        peak memory, and agreement with the CPU plain solve on the lanes
+        of ``x0c``, ``u0c`` (none where they are None)."""
+        calls = [0]
+        if gen is not None:
+            def counted_gen(x, u):
+                calls[0] += 1
+                return gen(x, u)
+        else:
+            counted_gen = None
+        warm = solve(x0s, u0s, counted_gen, True)
+        cost_init = warm.trace.cost[:, 0]
+        del warm
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+        def timed():
+            s.record()
+            out = solve(x0s, u0s, counted_gen, False)
+            e.record()
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the group holds its checks' streams: count what the solve adds
+        base = torch.cuda.memory_allocated()
+        calls[0] = 0
+        r, launches = counted(counters, timed)
+        solve_ms = s.elapsed_time(e)
+        peak = torch.cuda.max_memory_allocated() - base
+        n_calls = calls[0]
+        _, syncs = sync_count(lambda: solve(x0s, u0s, counted_gen, False))
+        iters = max(int(r.n_iters.max()), 1)
+        ct = r.cost_total
+        k1_ms = rec[key]["ms"]
+        gen_text = ""
+        if gen is not None:
+            g = gen_stats[gen_key]
+            gen_text = (f"; generator {n_calls} calls, {g['ms']:.3f} ms and "
+                        f"{g['device_ops']} device operations a call")
+        print(f"  {label}: launches {launches}")
+        print(f"  {label}: {solve_ms:.3f} ms (CUDA events), "
+              f"{solve_ms / iters:.4f} ms/iter over {iters} iterations; K1 "
+              f"{k1_ms:.4f} ms a gains launch{gen_text}; "
+              f"{syncs / iters:.2f} host syncs an iteration; peak memory "
+              f"{peak / 2**30:.3f} GiB above what was allocated before")
+        print(f"  {label}: cost median {ct.median().item():.6g} (initial "
+              f"{cost_init.median().item():.6g}), accepted mean "
+              f"{r.n_accepted.float().mean().item():.3f}, reasons "
+              f"{ {int(a): int(b) for a, b in zip(*torch.unique(r.reason, return_counts=True))} }")
+        if besides is not None:
+            bc, bms, bit = besides
+            rel = (ct - bc).abs() / bc.abs()
+            print(f"  {label}: against the in-kernel solve of the same "
+                  f"fleet ({bms:.3f} ms, {bms / bit:.4f} ms/iter): cost rel "
+                  f"diff median {rel.median().item():.3e}, share within "
+                  f"{COST_RTOL:.0e} {(rel <= COST_RTOL).float().mean().item():.3f}")
+        check(all(launches[c.__name__] > 0 for c in counters[:3]),
+              f"{label}: a kernel of the path never ran: {launches}")
+        check(gen is None or n_calls >= 2,
+              f"{label}: the generator ran {n_calls} times")
+        check(bool(torch.isfinite(ct).all()), f"{label}: non-finite cost")
+        check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.u).all()
+                   and torch.isfinite(r.policy.K).all()),
+              f"{label}: non-finite trajectory or gains")
+        check(ct.median() < cost_init.median(),
+              f"{label}: median cost did not improve")
+        rec[key]["path"] = dict(
+            solve_ms=solve_ms, iters=iters, ms_per_iter=solve_ms / iters,
+            syncs_per_iter=syncs / iters, peak_bytes=peak,
+            generator_calls=n_calls if gen is not None else None,
+            generator=gen_stats.get(gen_key),
+            cost_median=ct.median().item())
+        if x0c is None:
+            return launches, r
+        g = solve(x0c, u0c, counted_gen, False)
+        c = cpu_solves()[label]
+        gc, cc = g.cost_total.cpu(), torch.tensor(c["cost_total"])
+        rel = (gc - cc).abs() / cc.abs()
+        close = (rel <= COST_RTOL).float().mean().item()
+        same_reason = (g.reason.cpu() == torch.tensor(c["reason"])).float(
+            ).mean().item()
+        same_acc = (g.n_accepted.cpu() == torch.tensor(c["n_accepted"])
+                    ).float().mean().item()
+        print(f"  {label} against the CPU plain solve on {B_CPU} lanes, "
+              f"T={u0c.shape[1]} ({c['seconds']:.1f} s in the child "
+              f"process): cost "
+              f"rel diff max {rel.max().item():.3e}; share of lanes: cost "
+              f"within {COST_RTOL:.0e} {close:.3f}, same reason "
+              f"{same_reason:.3f}, same accepted count {same_acc:.3f} (need "
+              f"{AGREE_SHARE} each)")
+        check(min(close, same_reason, same_acc) >= AGREE_SHARE,
+              f"{label}: GPU and CPU outcomes differ")
+        return launches, r
+
+    ph.start("packed-path", f"ilqg_batch_lanes, pendcart B={B} T={T}, "
+             f"{len(cfg.alphas)}-α ladder, reg_type 2, ±5, max_steps={ITERS}"
+             f": pendcart_packed_derivs, pendcart_derivs_tiles_so and "
+             f"autodiff second-order tiles")
+    pgen = pendcart_packed_derivs(pspec)
+    u0p = torch.zeros((B, T, 1), **f32)
+    x0c, u0c = ilqg["x0s"][:B_CPU], u0p[:B_CPU]
+
+    def psolve(tiles):
+        def solve(x0, u0, gen, trace):
+            return ilqg_batch_lanes(pmodel, gen, x0, u0, lims=LIMS, cfg=cfg,
+                                    derivs_tiles=tiles, max_steps=ITERS,
+                                    record_trace=trace)
+        return solve
+
+    paths["packed"], _ = fleet("pendcart packed", "k1_packed_pendcart",
+                               psolve(None), ilqg["x0s"], u0p, x0c, u0c,
+                               gen=pgen, gen_key="pendcart")
+    paths["full_ddp"], r = fleet("pendcart full DDP (PendCartSO)",
+                                 "k1_pendcart_so", psolve(pso), ilqg["x0s"],
+                                 u0p, x0c, u0c)
+    rel = (r.cost_total - ilqg["cost_total"]).abs() / ilqg[
+        "cost_total"].abs()
+    print(f"  full DDP against the first-order headline solve: cost rel "
+          f"diff median {rel.median().item():.3e}; accepted mean "
+          f"{r.n_accepted.float().mean().item():.3f} against "
+          f"{ilqg['n_accepted'].float().mean().item():.3f}")
+    # its plain version takes ≈0.1 s a step on the host: held against the
+    # analytic full-DDP solve on the card instead of a CPU solve
+    paths["ilqg_ad_full_ddp"], ra = fleet(
+        "pendcart full DDP (Autodiff<PendCart,SO>)", "k1_pendcart_ad_so",
+        psolve(pad_so), ilqg["x0s"], u0p)
+    rel = (ra.cost_total - r.cost_total).abs() / r.cost_total.abs()
+    close = (rel <= COST_RTOL).float().mean().item()
+    print(f"  Autodiff<PendCart,SO> solve against PendCartSO's: share of "
+          f"lanes with cost within {COST_RTOL:.0e} {close:.3f}")
+    check(close >= AGREE_SHARE, "full DDP: autodiff and analytic solves "
+          "differ")
+    del r, ra
+
+    ph.start("packed-quad-path", f"ilqg_batch_lanes, quadrotor B={B} "
+             f"T={QUAD_T}, max_steps={ITERS}: autodiff_packed_derivs beside "
+             f"the in-kernel AD solve, and full DDP by autodiff")
+    qgen = autodiff_packed_derivs(qmodel)
+    qtiles = autodiff_derivs_tiles(qmodel)
+    u0q = torch.full((B, QUAD_T, 2), qspec.u_hover, **f32)
+
+    def qsolve(tiles):
+        def solve(x0, u0, gen, trace):
+            return ilqg_batch_lanes(qmodel, gen, x0, u0, lims=qspec.lims,
+                                    cfg=cfg, derivs_tiles=tiles,
+                                    max_steps=ITERS, record_trace=trace)
+        return solve
+
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    qsolve(qtiles)(qx0s, u0q, None, False)
+    s.record()
+    ad = qsolve(qtiles)(qx0s, u0q, None, False)
+    e.record()
+    torch.cuda.synchronize()
+    ad_ms, ad_it = s.elapsed_time(e), max(int(ad.n_iters.max()), 1)
+    qx0c, qu0c = qx0s[:B_CPU], u0q[:B_CPU, :QUAD_T_CPU].contiguous()
+    paths["quad_packed"], _ = fleet(
+        "quadrotor packed (autodiff_packed_derivs)", "k1_packed_quad",
+        qsolve(None), qx0s, u0q, qx0c, qu0c, gen=qgen, gen_key="quad",
+        besides=(ad.cost_total, ad_ms, ad_it))
+    rec["k1_packed_quad"]["path"].update(ad_solve_ms=ad_ms, ad_iters=ad_it)
+    paths["quad_full_ddp"], _ = fleet(
+        "quadrotor full DDP (Autodiff<Quadrotor,SO>)", "k1_quad_so",
+        qsolve(qad_so), qx0s, u0q, qx0c, qu0c,
+        besides=(ad.cost_total, ad_ms, ad_it))
+    del ad
+
+    ph.start("packed-lti-path", f"ilqg_batch_lanes, LTI n={LTI_N} "
+             f"m={LTI_M} B={B} T={LTI_T}, ±0.6, max_iter={lcfg.max_iter}, "
+             f"to convergence: lti_packed_derivs")
+    lgen = lti_packed_derivs(lspec)
+    lu0 = lspec.u0.expand(B, LTI_T, LTI_M).contiguous()
+
+    def lsolve(x0, u0, gen, trace):
+        return ilqg_batch_lanes(lmodel, gen, x0, u0, lims=LTI_LIMS, cfg=lcfg,
+                                record_trace=trace)
+
+    paths["lti_packed"], _ = fleet(
+        "LTI packed (lti_packed_derivs)", "k1_packed_lti", lsolve, lx0s, lu0,
+        lx0s[:B_CPU], lu0[:B_CPU, :LTI_T_CPU].contiguous(), gen=lgen,
+        gen_key="lti")
+    del lu0
+
+    ph.start("packed-gps", f"backward_pass_pallas in GPS mode, pendcart "
+             f"B={B} T={T}: the batch-major wrapper on Packed<4,1> GPS")
+    lay = bk.InLayout(4, 1)
+    a = from_streams(dp["pendcart"], (lay.DU,))
+    derivs = Derivs(**{f: a[..., lay.offset(f):lay.offset(f) + math.prod(
+        lay.shape(f))].reshape((B, T) + lay.shape(f)) for f in DERIV_FIELDS})
+    u = a[..., lay.u:]
+    tp = GaussianPolicy(
+        K=torch.tensor(0.3 * rng.standard_normal((B, T, 1, 4)), **f32),
+        k=torch.tensor(0.2 * rng.standard_normal((B, T, 1)), **f32),
+        sigma=torch.full((B, T, 1, 1), 0.5, **f32),
+        sigma_inv=torch.full((B, T, 1, 1), 2.0, **f32))
+    eta_bt = torch.tensor(0.5 + rng.uniform(0, 1, (B, T)), **f32)
+    zl = torch.zeros(B, **f32)
+    out, launches = counted(counters, lambda: bk.backward_pass_pallas(
+        derivs, u, zl, reg_type=1, lims=LIMS, use_limits=True, eta=eta_bt,
+        traj_prev=tp))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = bk.backward_pass_pallas(Derivs(**{
+        k: v.cpu() for k, v in derivs._asdict().items() if v is not None}),
+                                  u.cpu(), zl.cpu(), reg_type=1, lims=LIMS,
+                                  use_limits=True, eta=eta_bt.cpu(),
+                                  traj_prev=GaussianPolicy(*(v.cpu() for v
+                                                             in tp)))
+    print(f"  backward_pass_pallas GPS: launches {launches}; CPU plain "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in ("k", "K", "sigma_inv"):
+        compare_slots(f"backward_pass_pallas GPS {name} against CPU",
+                      getattr(out.policy, name).cpu().flatten(2)
+                      .permute(1, 2, 0),
+                      getattr(ref.policy, name).flatten(2).permute(1, 2, 0),
+                      GPS_SLOT_TOL)
+    check(torch.equal(out.diverged.cpu(), ref.diverged),
+          "backward_pass_pallas GPS: diverged differs from the CPU")
+    check(launches["backward_lanes"] == 1, "backward_pass_pallas GPS: "
+          f"launches {launches}")
+    paths["pallas_gps"] = launches
+    del derivs, u, a, out, ref, dp
+    print(f"  packed / full DDP group: {time.perf_counter() - t_group:.1f} s "
+          f"wall")
+    return paths
+
+
 def main() -> int:
     ph = Phases()
     ph.start("device")
@@ -3024,18 +3646,19 @@ def main() -> int:
     for line in rec["ptxas"]:
         print("  " + with_plan(line))
     _build.library()
+    # the packed group's CPU solves run beside the card's phases
+    cpu_proc = start_packed_cpu_solves()
+    CHILDREN.append(cpu_proc)
 
     ph.start("ilqg-kernels", f"vs plain versions, B={B}, T={T}")
     spec = PendCartSpec()
     model = pendcart_lanes(spec)
     tiles = pendcart_derivs_tiles(spec)
-    cfg = ILQGConfig(alphas=default_alphas(0.2, -3.0, 6), reg_type=2,
-                     lam_max=1e15)
+    cfg = headline_cfg()
     A = len(cfg.alphas)
     rng = np.random.default_rng(0)
-    x0_np = np.asarray(default_x0(device="cpu").numpy(),
-                       np.float64)[None, :] + (
-        0.2 * rng.standard_normal((B, 4)) * np.array([1.0, 0, 0, 0]))
+    x0_np = headline_x0()
+    rng.standard_normal((B, 4))        # the draw headline_x0 made
     x0s = torch.tensor(x0_np, dtype=torch.float32, device=dev)
     u_rand = torch.tensor(2.0 * rng.standard_normal((B, T, 1)),
                           dtype=torch.float32, device=dev)
@@ -3262,6 +3885,7 @@ def main() -> int:
     paths.update(mpc_phases(ph, dev, rec, counters))
     paths.update(probe_phase(ph, dev, rec, counters))
     generic = generic_phases(ph, dev, counters)
+    paths.update(packed_phases(ph, dev, rec, counters, ilqg, cpu_proc))
 
     # ---- record and result: one entry per kernel instance, its launches
     #      summed over the paths that run it
@@ -3343,6 +3967,23 @@ def main() -> int:
         # n=6 (the quadrotor's state) is on no path yet: launched only by
         # its check in the kl-kernels phase
         ("k4_6", "covariance_lanes", "n=6", "covariance.cu", k4, ()),
+        ("k1_packed_pendcart", "backward_lanes", "packed <4,1> gains, full",
+         "backward_packed.cu", k1, ("packed",)),
+        ("k1_packed_pendcart_gps", "backward_lanes", "packed <4,1> GPS full",
+         "backward_packed.cu", k1, ("pallas_gps",)),
+        ("k1_packed_quad", "backward_lanes", "packed <6,2> gains, full",
+         "backward_packed.cu", k1, ("quad_packed",)),
+        ("k1_packed_lti", "backward_lanes", "packed <10,2> gains, full",
+         "backward_packed_lti.cu", k1, ("lti_packed",)),
+        ("k1_pendcart_so", "backward_lanes",
+         "PendCartSO <4,1> gains, full (full DDP)", "backward_so.cu", k1,
+         ("full_ddp",)),
+        ("k1_pendcart_ad_so", "backward_lanes",
+         "Autodiff<PendCart,SO> <4,1> gains, full (full DDP)",
+         "backward_so.cu", k1, ("ilqg_ad_full_ddp",)),
+        ("k1_quad_so", "backward_lanes",
+         "Autodiff<Quadrotor,SO> <6,2> gains, full (full DDP)",
+         "backward_quad_so.cu", k1, ("quad_full_ddp",)),
         ("k5_copy", "probe_lanes", "copy", "probe.cu", k5, ("probe_copy",)),
         ("k5_light", "probe_lanes", "light", "probe.cu", k5, ("probe_light",)),
         ("k5_full", "probe_lanes", "full", "probe.cu", k5, ("probe_full",)),
@@ -3370,5 +4011,18 @@ def main() -> int:
     return 0
 
 
+# child processes main starts, stopped when it ends however it ends
+CHILDREN: list = []
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] == ["--packed-cpu"]:
+        print(json.dumps(packed_cpu_solves()))
+        sys.exit(0)
+    try:
+        rc = main()
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+    sys.exit(rc)

@@ -24,7 +24,12 @@ resume entries and per-scenario model parameters (heterogeneous fleets,
 and any lane model through
 :func:`autodiff_derivs_tiles`, whose derivative expansion is made by
 forward-mode autodiff (on the card for pendcart and the quadrotor,
-``models/quadrotor.py``, n=6, m=2). Their four kernels (backward pass with
+``models/quadrotor.py``, n=6, m=2), first order or with the dynamics
+Hessians of full DDP. The backward kernel also reads a packed-derivatives
+stream made outside it (:func:`autodiff_packed_derivs`,
+``models.pendcart.pendcart_packed_derivs``,
+``models.linear.lti_packed_derivs``), which the fleet driver caches
+across λ-retries. Their four kernels (backward pass with
 GPS mode, forward rollout, fused line search, covariance propagation) and
 the bandwidth probe are CUDA C++ under ``ops/hopper/csrc/``, built with
 ``nvcc`` at first use; each has a plain PyTorch version beside it, which
@@ -57,7 +62,8 @@ from .models.pendcart import (PendCartSpec, pendcart_lanes,
                               default_x0, default_lims)
 from .models.linear import (LTISpec, random_lti, make_lti_problem,
                             lti_lanes, lti_derivs_tiles, SimpleLTVModel)
-from .ops.hopper.autodiff_tiles import autodiff_derivs_tiles
+from .ops.hopper.autodiff_tiles import (autodiff_derivs_tiles,
+                                        autodiff_packed_derivs)
 
 __version__ = "0.1.0"
 
@@ -76,7 +82,7 @@ __all__ = [
     "ILQGKLConfig", "ilqgkl_batch_lanes", "gps_rollout_lanes",
     "BatchKLResult", "BatchKLTrace", "kl_div_wiki_lanes", "calc_eta_lanes",
     "Problem", "broadcast_derivs", "make_autodiff_derivs",
-    "autodiff_derivs_tiles",
+    "autodiff_derivs_tiles", "autodiff_packed_derivs",
     "PendCartSpec", "pendcart_lanes", "pendcart_derivs_tiles",
     "make_pendcart_problem", "default_x0", "default_lims",
     "LTISpec", "random_lti", "make_lti_problem", "lti_lanes",

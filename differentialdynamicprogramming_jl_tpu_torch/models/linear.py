@@ -2,7 +2,8 @@
 
 Counterpart of ``differentialdynamicprogramming_jl_tpu/models/linear.py``
 (``LTISpec`` ``:20-26``, ``random_lti`` ``:29-43``, ``make_lti_problem``
-``:46-76``, ``lti_lanes`` ``:79-121``, ``lti_derivs_tiles`` ``:160-197``,
+``:46-76``, ``lti_lanes`` ``:79-121``, ``lti_packed_derivs`` ``:124-157``,
+``lti_derivs_tiles`` ``:160-197``,
 ``SimpleLTVModel`` ``:200-233``):
 the reference's ``demo_linear`` problem (``src/demo_linear.jl:9-49``),
 x' = A·x + B·u with the cost ½x'Qx + ½u'Ru and no terminal term.
@@ -28,6 +29,7 @@ import torch
 from ..device import as_tensor, resolve
 from ..ops.hopper.backward_kernel import DerivsTiles
 from ..ops.hopper.forward_kernel import DeviceModel, LanesModel
+from ..ops.hopper.pack import packed_from_tiles
 from ..policy import Derivs
 from ..problem import Problem, broadcast_derivs
 
@@ -177,6 +179,16 @@ def lti_derivs_tiles(spec: LTISpec) -> DerivsTiles:
                     cxu=[[z] * m for _ in range(n)], cuu=const(R))
 
     return DerivsTiles(fn=tiles, device=device_model(spec))
+
+
+def lti_packed_derivs(spec: LTISpec):
+    """K1's packed-derivatives generator: ``(x_s (T, n, B), u_s (T, m, B))
+    → (T, D+m, B)`` (258 slots at ⟨10,2⟩), the tiles of
+    :func:`lti_derivs_tiles` over the whole trajectory in ``DerivLayout``
+    order with u appended: the constant A, B, Q, R broadcast, cx and cu
+    with the zero-skipping rule."""
+    n, m = spec.B.shape
+    return packed_from_tiles(lti_derivs_tiles(spec), n, m)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,9 @@
 
 Counterpart of ``differentialdynamicprogramming_jl_tpu/models/pendcart.py``
 (``PendCartSpec``, ``make_pendcart_problem`` ``:53-158``,
-``pendcart_lanes`` ``:161-195``, ``pendcart_derivs_tiles`` ``:233-263``, ``pendcart_lanes_param`` ``:295-328``,
+``pendcart_lanes`` ``:161-195``, ``pendcart_packed_derivs`` ``:199-230``,
+``pendcart_derivs_tiles`` ``:233-263``, ``pendcart_derivs_tiles_so``
+``:267-290``, ``pendcart_lanes_param`` ``:295-328``,
 ``pendcart_derivs_tiles_param`` ``:332-359``, ``default_lims``,
 ``default_x0``): the Euler step of the reference dynamics
 (``src/system_pendcart.jl:75-89``), the diagonal quadratic cost with its
@@ -19,7 +21,10 @@ use the same bits. The ``_param`` variants (heterogeneous fleets) take the
 pole length and damping per scenario, ``params = [l, d]``: model id 4
 (``PendCartParam``), the same descriptor, and -g/l, 1-h·d formed per
 scenario in the same f32 order, so that rows all equal to the spec's (l, d)
-give the fixed model's bits.
+give the fixed model's bits. ``pendcart_packed_derivs`` stacks the same
+tiles over a whole trajectory into K1's packed-derivatives stream, and
+``pendcart_derivs_tiles_so`` adds the Euler step's two nonzero dynamics
+Hessian entries (full DDP), its descriptor marked second order.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 from ..device import resolve
 from ..ops.hopper.backward_kernel import DerivsTiles
 from ..ops.hopper.forward_kernel import DeviceModel, LanesModel
+from ..ops.hopper.pack import packed_from_tiles
 from ..policy import Derivs
 from ..problem import Problem
 
@@ -181,6 +187,7 @@ class _Consts:
         f = float
         self.g, self.l, self.h, self.d = f(g), f(l), f(h), f(d)
         self.ngl = f(-g / l)
+        self.nhl = f(-(h / l))
         self.hd1 = f(np.float32(1.0) - h * d)
         self.Q = [f(q) for q in c[4:8]]
         self.halfQ = [f(np.float32(0.5) * q) for q in c[4:8]]
@@ -279,6 +286,48 @@ def pendcart_derivs_tiles(spec: PendCartSpec = PendCartSpec()) -> DerivsTiles:
     expansions at (x, u), so the backward pass streams only the
     trajectory."""
     return _derivs_tiles(spec, param=False)
+
+
+@functools.lru_cache(maxsize=32)
+def pendcart_packed_derivs(spec: PendCartSpec = PendCartSpec()):
+    """K1's packed-derivatives generator: ``(x_s (T, 4, B), u_s (T, 1, B))
+    → (T, 47, B)``, the analytic tiles of :func:`pendcart_derivs_tiles`
+    over the whole trajectory in ``DerivLayout`` order with u appended
+    (elementwise torch operations, the tiles' bits)."""
+    return packed_from_tiles(_derivs_tiles(spec, param=False), 4, 1)
+
+
+@functools.lru_cache(maxsize=32)
+def pendcart_derivs_tiles_so(spec: PendCartSpec = PendCartSpec()
+                             ) -> DerivsTiles:
+    """Second-order tiles (full DDP): the tiles of
+    :func:`pendcart_derivs_tiles` plus the Euler step's dynamics Hessians,
+    ``fxx[a][i][j]``, ``fxu[a][j][mi]`` and ``fuu[a][mi][mj]``, zero but
+    for f₁ = θ̇ + h·θ̈: ∂²f₁/∂θ² = h·(g/l·sinθ − u/l·cosθ) and ∂²f₁/∂θ∂u =
+    −(h/l)·sinθ. The zeros are tensors, as JAX keeps them: K1 contracts
+    them with V′ too, so NaN and Inf in V′ propagate alike. The descriptor
+    is the pendcart's, marked second order (``csrc/pendcart.cuh``
+    ``PendCartSO``)."""
+    dm = device_model(spec)
+    k = _Consts(dm)
+    first = _derivs_tiles(spec, param=False)
+
+    def tiles(x, u, t):
+        out = dict(first(x, u, t))
+        th = x[0]
+        z = torch.zeros_like(th)
+        s = torch.sin(th)
+        d2_thth = k.h * ((-k.ngl) * s - _over(u[0], k.l) * torch.cos(th))
+        d2_thu = k.nhl * s
+        fxx = [[[z] * 4 for _ in range(4)] for _ in range(4)]
+        fxx[1][0][0] = d2_thth
+        fxu = [[[z] for _ in range(4)] for _ in range(4)]
+        fxu[1][0][0] = d2_thu
+        out.update(fxx=fxx, fxu=fxu, fuu=[[[z]] for _ in range(4)])
+        return out
+
+    return DerivsTiles(fn=tiles,
+                       device=dataclasses.replace(dm, second_order=True))
 
 
 @functools.lru_cache(maxsize=32)

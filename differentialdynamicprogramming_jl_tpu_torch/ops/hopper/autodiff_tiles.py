@@ -1,7 +1,8 @@
 """Autodiff derivative tiles: K1's derivative expansion for any lane model.
 
 Counterpart of ``differentialdynamicprogramming_jl_tpu/ops/pallas/autodiff_tiles.py``
-(``autodiff_derivs_tiles`` ``:59-156``). From a :class:`~.forward_kernel.
+(``autodiff_derivs_tiles`` ``:59-156``, ``autodiff_packed_derivs``
+``:159-192``). From a :class:`~.forward_kernel.
 LanesModel`'s own dynamics and running cost, forward-mode autodiff gives the
 per-step expansion that :func:`~.backward_kernel.backward_lanes` consumes,
 so a user model needs no hand-written Jacobian:
@@ -9,7 +10,9 @@ so a user model needs no hand-written Jacobian:
 - one ``torch.func.jvp`` per input direction (n+m of them) gives a column
   of fx/fu and an entry of cx/cu;
 - one forward-over-forward jvp per direction pair i ≤ j
-  ((n+m)(n+m+1)/2 of them), mirrored, gives cxx, cxu and cuu.
+  ((n+m)(n+m+1)/2 of them), mirrored, gives cxx, cxu and cuu, and with
+  ``second_order=True`` from the same passes the dynamics Hessians
+  ``fxx[a][i][j]``, ``fxu[a][j][mi]`` and ``fuu[a][mi][mj]`` of full DDP.
 
 Every tangent is a unit vector over the (x, u) inputs, zeros included, as
 the JAX function builds it. The directions (and the pairs) are batched by
@@ -25,7 +28,15 @@ model's with ``autodiff=True``. On CPU tensors K1's plain version calls it;
 on CUDA tensors K1 runs the model's ``Autodiff<Body>`` instance
 (``csrc/autodiff.cuh``), which makes the same expansion with dual numbers in
 registers, or the wrapper raises when no such instance is built. It never
-substitutes a model's analytic instance.
+substitutes a model's analytic instance. Second-order tiles carry the
+descriptor marked ``second_order`` too: K1's ``Autodiff<Body, true>``
+instance runs the Jet passes over the dynamics as well and contracts each
+pass's n outputs with V′ at once.
+
+:func:`autodiff_packed_derivs` is the out-of-kernel route: the first-order
+tiles evaluated over a whole trajectory at once, stacked into K1's packed
+``(T, D+m, B)`` stream (work the JAX package leaves to XLA), on CPU or CUDA
+tensors alike.
 """
 from __future__ import annotations
 
@@ -37,29 +48,27 @@ from torch.func import jvp, vmap
 
 from .backward_kernel import DerivsTiles
 from .forward_kernel import LanesModel
+from .pack import packed_from_tiles
 
 
 def autodiff_derivs_tiles(model: LanesModel,
                           second_order: bool = False) -> DerivsTiles:
     """The derivative function of ``model`` by forward-mode autodiff, for
-    :func:`~.backward_kernel.backward_lanes`; cached per model.
+    :func:`~.backward_kernel.backward_lanes`; cached per model and order.
 
-    ``second_order=True`` (the dynamics Hessians of full DDP) and a model
-    with per-scenario parameters (``n_params > 0``) belong to a later slice
-    and raise NotImplementedError."""
-    if second_order:
-        raise NotImplementedError(
-            "second_order=True: the dynamics-Hessian tiles of full DDP are "
-            "not ported yet")
+    ``second_order=True`` also gives the dynamics Hessians of full DDP. A
+    model with per-scenario parameters (``n_params > 0``) belongs to a
+    later slice and raises NotImplementedError."""
     if model.n_params:
         raise NotImplementedError(
             "autodiff tiles with params (a model with n_params > 0) are not "
             "ported yet")
-    return _autodiff_derivs_tiles(model)
+    return _autodiff_derivs_tiles(model, bool(second_order))
 
 
 @functools.lru_cache(maxsize=64)
-def _autodiff_derivs_tiles(model: LanesModel) -> DerivsTiles:
+def _autodiff_derivs_tiles(model: LanesModel,
+                           second_order: bool) -> DerivsTiles:
     n, m = model.n, model.m
     nm = n + m
 
@@ -91,32 +100,66 @@ def _autodiff_derivs_tiles(model: LanesModel) -> DerivsTiles:
                    cx=list(dc[:n]), cu=list(dc[n:]))
 
         # second order: forward (along i) over forward (along j) per pair
-        # i ≤ j, mirrored
+        # i ≤ j, mirrored; with second_order the dynamics' tangents too
         def second(ti, tj):
             def g(xu):
-                return jvp(fc, (xu,), (tj,))[1][1]
+                tan = jvp(fc, (xu,), (tj,))[1]
+                return tan if second_order else tan[1]
 
             return jvp(g, (xu0,), (ti,))[1]
 
         d2 = vmap(second)(units([i for i, _ in pairs]),
                           units([j for _, j in pairs]))
+        if second_order:
+            # an output linear in (x, u) has a symbolic zero second tangent
+            # (a ZeroTensor, whose products drop NaN and Inf): made dense,
+            # as JAX's zeros are, so that K1 contracts real zeros with V′
+            d2f, d2 = d2
+            d2f = [torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+                   if v._is_zerotensor() else v for v in d2f]
         H = [[None] * nm for _ in range(nm)]
+        Hf = [[[None] * nm for _ in range(nm)] for _ in range(n)]
         for p, (i, j) in enumerate(pairs):
             H[i][j] = H[j][i] = d2[p]
+            if second_order:
+                for a in range(n):
+                    Hf[a][i][j] = Hf[a][j][i] = d2f[a][p]
         out["cxx"] = [[H[i][j] for j in range(n)] for i in range(n)]
         out["cxu"] = [[H[i][n + mi] for mi in range(m)] for i in range(n)]
         out["cuu"] = [[H[n + mi][n + mj] for mj in range(m)]
                       for mi in range(m)]
+        if second_order:
+            # K1's layouts (JAX :145-153): fxx[a][i][j], fxu[a][j][mi],
+            # fuu[a][mi][mj]
+            out["fxx"] = [[[Hf[a][i][j] for j in range(n)]
+                           for i in range(n)] for a in range(n)]
+            out["fxu"] = [[[Hf[a][j][n + mi] for mi in range(m)]
+                           for j in range(n)] for a in range(n)]
+            out["fuu"] = [[[Hf[a][n + mi][n + mj] for mj in range(m)]
+                           for mi in range(m)] for a in range(n)]
         return out
 
     dev = (None if model.device is None
-           else dataclasses.replace(model.device, autodiff=True))
+           else dataclasses.replace(model.device, autodiff=True,
+                                    second_order=second_order))
     return DerivsTiles(fn=tiles, device=dev)
 
 
+@functools.lru_cache(maxsize=64)
 def autodiff_packed_derivs(model: LanesModel):
-    """The out-of-kernel derivative stream of the JAX package (JAX
-    ``:159-192``); K1's packed-derivatives input is not ported yet."""
-    raise NotImplementedError(
-        "autodiff_packed_derivs: K1's packed-derivatives input is not "
-        "ported yet; use autodiff_derivs_tiles")
+    """K1's packed-derivatives generator for ``model`` by forward-mode
+    autodiff (JAX ``:159-192``): ``(x_s (T, n, B), u_s (T, m, B)) →
+    (T, D+m, B)``, the first-order tiles of :func:`autodiff_derivs_tiles`
+    over the whole trajectory in ``DerivLayout`` order with u appended. It
+    runs as torch operations on the streams' device: n+m first-order and
+    (n+m)(n+m+1)/2 pair passes, each batched over its directions. The
+    fleet driver calls it once at init, once after each iteration in which
+    some lane accepted, and once for the final replay. Cached per model.
+
+    Memory: a call holds the tangents of every pass over the whole (T, B)
+    trajectory at once, so its peak grows with T·B·(n+m)². On the
+    quadrotor at B=4096, T=400 one call holds 28.77 GiB at its peak above
+    what was allocated before it (H100 80GB HBM3, ``chip_smoke.py``'s
+    packed-kernels phase): under three times that T·B fills an 80 GB
+    card. Cut T·B per call where that binds."""
+    return packed_from_tiles(autodiff_derivs_tiles(model), model.n, model.m)

@@ -1,13 +1,15 @@
-"""Batched backward pass (K1): the Riccati recursion with in-kernel derivatives.
+"""Batched backward pass (K1): the Riccati recursion.
 
 Counterpart of ``differentialdynamicprogramming_jl_tpu/ops/pallas/backward_kernel.py``
 for the subset on the fleet iLQG, KL/GPS and MPC paths: m ≤ 2, derivatives
 computed per step from the (x, u) slots of the trajectory stream by
-``derivs_tiles``, per-scenario model parameters (``params``), control
-limits (the m=1 clamp or the m=2 9-set enumeration), static or per scenario
-(``lims_lanes``), or none (the unconstrained Cholesky solve), reg_type 1 or
-2, GPS mode (``prev``/``eta``), and ``"gains"``, ``"full"`` or ``"policy"``
-emission.
+``derivs_tiles`` (first order, or with the dynamics Hessians of full DDP)
+or read from a packed-derivatives stream (``derivs_tiles=None``),
+per-scenario model parameters (``params``), control limits (the m=1 clamp
+or the m=2 9-set enumeration), static or per scenario (``lims_lanes``), or
+none (the unconstrained Cholesky solve), reg_type 1 or 2, GPS mode
+(``prev``/``eta``), and ``"gains"``, ``"full"`` or ``"policy"`` emission;
+and the batch-major wrapper :func:`backward_pass_pallas`.
 
 :func:`backward_lanes` gives a CPU tensor to :func:`backward_lanes_ref`, the
 plain PyTorch version (vectorised over B, Python loop over t, in the
@@ -21,12 +23,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import _build
 from .plan import backward_plan
-from .forward_kernel import (DeviceModel, bounds, check_lanes, check_slice,
-                             cuda_args, par_args)
+from .forward_kernel import (CUDA_MODELS, DeviceModel, bounds, check_lanes,
+                             check_slice, cuda_args, par_args)
+from .pack import (DERIV_FIELDS, DerivLayout, from_streams,
+                   pack_backward_inputs, to_streams)
+from ..backward import BackwardOut
+from ...policy import Derivs, GaussianPolicy
 
 
 class OutLayout:
@@ -63,6 +70,19 @@ class OutLayout:
         self.S = off
 
 
+class InLayout(DerivLayout):
+    """K1's packed input: the derivative stack, then the nominal controls
+    (JAX ``backward_kernel.py:106-115``)."""
+
+    @property
+    def u(self) -> int:
+        return self.D
+
+    @property
+    def DU(self) -> int:
+        return self.D + self.m
+
+
 @dataclasses.dataclass(frozen=True)
 class DerivsTiles:
     """An in-kernel derivative function ``fn(x, u, t) -> dict`` (keys fx, fu,
@@ -71,7 +91,9 @@ class DerivsTiles:
     same model: by its analytic derivatives, or by autodiff of its own
     functions where ``device.autodiff`` is set
     (:func:`~.autodiff_tiles.autodiff_derivs_tiles`). With ``n_params > 0``
-    it takes a trailing ``par`` list, as the model's functions do."""
+    it takes a trailing ``par`` list, as the model's functions do. Tiles
+    that also return ``fxx``, ``fxu`` and ``fuu`` (full DDP) carry a
+    descriptor with ``second_order`` set."""
 
     fn: Callable
     device: Optional[DeviceModel] = None
@@ -97,6 +119,23 @@ CUDA_BACKWARD = {
     (1, 4, 1, True, False): ("gains", "full"),
     (3, 6, 2, True, False): ("gains", "full"),
 }
+# the second-order (full DDP) instances, keyed as CUDA_BACKWARD: the
+# analytic PendCartSO (csrc/pendcart.cuh) and Autodiff<PendCart, true> and
+# Autodiff<Quadrotor, true>, none in GPS mode
+CUDA_BACKWARD_SO = {
+    (1, 4, 1, False, False): ("gains", "full"),
+    (1, 4, 1, True, False): ("gains", "full"),
+    (3, 6, 2, True, False): ("gains", "full"),
+}
+# the packed-derivatives instances (csrc/packed.cuh), keyed by (n, m, GPS
+# mode) alone: the model does not enter K1 in that mode
+CUDA_PACKED = {
+    (4, 1, False): ("gains", "full"), (4, 1, True): ("full",),
+    (6, 2, False): ("gains", "full"), (10, 2, False): ("gains", "full"),
+}
+# the packed stream's descriptor: the launcher's model id 0, no constants
+PACKED_ID = 0
+PACKED_MODEL = DeviceModel(PACKED_ID, np.zeros(0, np.float32))
 
 
 class BackwardLanesOut(NamedTuple):
@@ -286,8 +325,24 @@ def _flat(rows):
     return [v for row in rows for v in row]
 
 
+def _packed_step(dp, t, n, m):
+    """The expansion and u of step t from the packed stream (JAX
+    ``read_derivs``, ``:354-368``)."""
+    lay = InLayout(n, m)
+
+    def field(f):
+        off, shape = lay.offset(f), lay.shape(f)
+        if len(shape) == 1:
+            return [dp[t, off + i] for i in range(shape[0])]
+        r, c = shape
+        return [[dp[t, off + i * c + j] for j in range(c)] for i in range(r)]
+
+    return ({f: field(f) for f in DERIV_FIELDS},
+            [dp[t, lay.u + mi] for mi in range(m)])
+
+
 def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
-                       derivs_tiles: Callable, prev=None, eta=None,
+                       derivs_tiles: Optional[Callable], prev=None, eta=None,
                        params=None, lims_lanes=None,
                        emit: str = "full") -> BackwardLanesOut:
     """Plain version of :func:`backward_lanes` (same arguments; ``eta`` is
@@ -301,11 +356,18 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
     lim = (None if lims is None and lims_lanes is None
            else bounds(lims, m, lims_lanes))
 
+    def step(t):
+        """(expansion, u) of step t: from the tiles at (x, u), or read from
+        the packed stream."""
+        if derivs_tiles is None:
+            return _packed_step(traj, t, n, m)
+        u = [traj[t, n + mi] for mi in M]
+        return derivs_tiles([traj[t, i] for i in R], u, t, *par), u
+
     # boundary t = T-1 (src/backward_pass.jl:97-99, 280-283): V = the cost
     # expansion, unscaled also in GPS mode; only the emitted Quu is
     # cuu/η + Σ⁻¹_prev there (JAX :418-429)
-    d = derivs_tiles([traj[T - 1, i] for i in R],
-                     [traj[T - 1, n + mi] for mi in M], T - 1, *par)
+    d, _ = step(T - 1)
     Vx = list(d["cx"])
     Vxx = [list(row) for row in d["cxx"]]
     zero = torch.zeros_like(traj[T - 1, 0])
@@ -323,8 +385,7 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
     dv1 = dv2 = div = divt = zero
 
     for t in range(T - 2, -1, -1):
-        u = [traj[t, n + mi] for mi in M]
-        d = derivs_tiles([traj[t, i] for i in R], u, t, *par)
+        d, u = step(t)
         fx, fu, cx, cu = d["fx"], d["fu"], d["cx"], d["cu"]
         cxx, cxu, cuu = d["cxx"], d["cxu"], d["cuu"]
 
@@ -340,6 +401,18 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
                 for mj in M] for mi in M]
         Qux = [[cxu[j][mi] + _sum([fu[a][mi] * W[a][j] for a in R])
                 for j in R] for mi in M]
+
+        if "fxx" in d:
+            # full DDP: the dynamics Hessians contracted with V′ (Vx of
+            # t+1), before the regularisation, so that reg_type 2's terms
+            # inherit them (JAX :466-481)
+            fxx, fxu, fuu = d["fxx"], d["fxu"], d["fuu"]
+            Qxx = [[Qxx[i][j] + _sum([Vx[a] * fxx[a][i][j] for a in R])
+                    for j in R] for i in R]
+            Qux = [[Qux[mi][j] + _sum([Vx[a] * fxu[a][j][mi] for a in R])
+                    for j in R] for mi in M]
+            Quu = [[Quu[mi][mj] + _sum([Vx[a] * fuu[a][mi][mj] for a in R])
+                    for mj in M] for mi in M]
 
         if gps:
             # GPS mode: Q terms scaled by 1/η plus the KL expansion, Quu
@@ -410,10 +483,18 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                    derivs_tiles: Optional[Callable] = None, prev=None,
                    eta=None, params=None, lims_lanes=None,
                    emit: str = "full") -> BackwardLanesOut:
-    """Run the backward pass over a trajectory stream.
+    """Run the backward pass over a stream. Two input modes (JAX
+    ``backward_lanes``, ``:729-790``):
 
-    - ``traj``: (T, ≥n+m, B) with x in slots [0, n) and u in [n, n+m);
-      derivatives are computed per step by ``derivs_tiles``.
+    - ``derivs_tiles=fn``: ``traj`` is (T, ≥n+m, B) with x in slots [0, n)
+      and u in [n, n+m); derivatives are computed per step by ``fn``, with
+      the dynamics Hessians of full DDP where ``fn`` returns ``fxx``,
+      ``fxu`` and ``fuu``.
+    - ``derivs_tiles=None``: ``traj`` is the packed-derivatives stream
+      (T, D+m, B) of :func:`~.pack.pack_backward_inputs` (or a model's
+      packed generator): the derivative stack in ``DerivLayout`` order,
+      then u. It takes no ``params``: the model does not enter K1.
+
     - ``lam``: per-scenario λ (B,). ``lims``: static ``((lo, hi),) * m``,
       or None for the unconstrained solve; ``lims_lanes``: per-scenario
       limits (2m, B), slot order [lo_0, hi_0, ...], which replace ``lims``.
@@ -427,22 +508,26 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     - ``emit``: ``"gains"``, ``"full"`` or ``"policy"`` (see
       :class:`OutLayout`).
 
-    On a CUDA tensor the model, its derivative source (analytic, or
-    autodiff when ``derivs_tiles.device.autodiff``), GPS mode and the
-    emission must be an instance the kernel is built for
-    (:data:`CUDA_BACKWARD`); anything else raises NotImplementedError. Out
-    of this slice (NotImplementedError): the packed-derivatives input
-    (``derivs_tiles=None``), m > 2.
+    On a CUDA tensor the combination must be an instance the kernel is
+    built for: :data:`CUDA_BACKWARD` (first-order tiles: model,
+    derivative source, GPS mode, emission), :data:`CUDA_BACKWARD_SO`
+    (second-order tiles) or :data:`CUDA_PACKED` (the packed stream, by n,
+    m and GPS mode); anything else raises NotImplementedError before the
+    kernel library is touched. Out of this slice (NotImplementedError):
+    m > 2.
     """
-    if derivs_tiles is None:
-        raise NotImplementedError(
-            "packed-derivatives input: pass derivs_tiles")
     check_slice(m, lims)
     if emit not in EMIT_CODE:
         raise ValueError(f"emit={emit!r}: one of {tuple(EMIT_CODE)}")
     if reg_type not in (1, 2):
         raise ValueError(f"reg_type must be 1 or 2, got {reg_type}")
     T, S_in, B = traj.shape
+    packed = derivs_tiles is None
+    DU = InLayout(n, m).DU
+    if packed and S_in != DU:
+        raise ValueError(
+            f"backward_lanes: a packed-derivatives stream of {S_in} slots; "
+            f"at n={n}, m={m} it holds D+m = {DU} (DerivLayout, then u)")
     if T < 2 or S_in < n + m or lam.shape != (B,):
         raise ValueError(f"backward_lanes: traj {tuple(traj.shape)}, "
                          f"lam {tuple(lam.shape)}")
@@ -463,31 +548,94 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                                   lims=lims, derivs_tiles=derivs_tiles,
                                   prev=prev, eta=eta, params=params,
                                   lims_lanes=lims_lanes, emit=emit)
-    dm = getattr(derivs_tiles, "device", None)
-    if dm is not None and emit not in CUDA_BACKWARD.get(
-            (dm.model_id, n, m, dm.autodiff, gps), ()):
-        raise NotImplementedError(
-            f"backward_lanes: no CUDA kernel (K1 instance) is built for "
-            f"model id {dm.model_id} at n={n}, m={m} with "
-            f"{'autodiff' if dm.autodiff else 'analytic'} derivatives, "
-            f"{'in' if gps else 'without'} GPS mode, emit={emit!r}; built "
-            f"(model id, n, m, autodiff, GPS): {sorted(CUDA_BACKWARD)}")
+    gps_t = (prev, eta) if gps else ()
+    if packed:
+        dm = PACKED_MODEL
+        if emit not in CUDA_PACKED.get((n, m, gps), ()):
+            raise NotImplementedError(
+                f"backward_lanes: no CUDA kernel (K1 instance) is built for "
+                f"the packed-derivatives stream at n={n}, m={m}, "
+                f"{'in' if gps else 'without'} GPS mode, emit={emit!r}; "
+                f"built (n, m, GPS): {CUDA_PACKED}")
+    else:
+        dm = getattr(derivs_tiles, "device", None)
+        so = dm is not None and dm.second_order
+        table = CUDA_BACKWARD_SO if so else CUDA_BACKWARD
+        if dm is not None and emit not in table.get(
+                (dm.model_id, n, m, dm.autodiff, gps), ()):
+            raise NotImplementedError(
+                f"backward_lanes: no CUDA kernel (K1 instance) is built for "
+                f"model id {dm.model_id} at n={n}, m={m} with "
+                f"{'autodiff' if dm.autodiff else 'analytic'} "
+                f"{'second-order' if so else 'first-order'} derivatives, "
+                f"{'in' if gps else 'without'} GPS mode, emit={emit!r}; "
+                f"built (model id, n, m, autodiff, GPS): {sorted(table)}")
     lib, dev, stream, _lim, model_args = cuda_args(
         dm, "backward_lanes", n, m, lims, lims_lanes, params, traj, lam,
-        *((prev, eta) if gps else ()))
+        *gps_t, models=None if packed else CUDA_MODELS)
     S = OutLayout(n, m, emit).S
     out = torch.empty((T, S, B), dtype=torch.float32, device=traj.device)
     stats = torch.empty((4, B), dtype=torch.float32, device=traj.device)
-    plan = backward_plan(n, m, gps, emit, T, B)
+    plan = backward_plan(n, m, gps, emit, T, B, packed=packed)
     rc = lib.ddp_backward_lanes(
         traj.data_ptr(), S_in, lam.data_ptr(),
         prev.data_ptr() if gps else None, eta.data_ptr() if gps else None,
         out.data_ptr(), S, stats.data_ptr(), T, B, EMIT_CODE[emit], reg_type,
         int(lims is not None or lims_lanes is not None), *model_args,
-        int(dm.autodiff), *plan.launcher_args(), dev, stream)
+        int(dm.autodiff), int(dm.second_order), *plan.launcher_args(), dev,
+        stream)
     _build.check(lib, rc, "backward_lanes")
     backward_lanes.launches += 1
     return BackwardLanesOut(out=out, stats=stats)
 
 
 backward_lanes.launches = 0
+
+
+def backward_pass_pallas(derivs: Derivs, u: torch.Tensor, lam: torch.Tensor,
+                         reg_type: int = 1, lims=None,
+                         use_limits: bool = False, k_t: int = 8, eta=None,
+                         traj_prev: Optional[GaussianPolicy] = None,
+                         interpret: bool = False) -> BackwardOut:
+    """Batch-major wrapper of K1 in packed mode, the parity interface with
+    :func:`~..backward.backward_pass` over B problems (JAX ``:852-924``).
+
+    ``derivs``: (B, T, ...) first-order leaves; ``u``: (B, T, m); ``lam``:
+    (B,). ``lims`` ((m, 2), used with ``use_limits``). GPS mode: pass
+    ``traj_prev`` (leaves (B, T, ...)) and ``eta``, (B,) or (B, T). Packs
+    the streams, runs K1 in ``"full"`` emission and unpacks. ``k_t`` and
+    ``interpret`` are the TPU kernel's switches and have no effect here:
+    one thread walks the whole horizon."""
+    B, T, m = u.shape
+    n = derivs.cx.shape[-1]
+    f32 = torch.float32
+    lims_t = (tuple((float(lo), float(hi)) for lo, hi in
+                    torch.as_tensor(lims, dtype=f32).tolist())
+              if use_limits else None)
+    gps = {}
+    if traj_prev is not None:
+        eta = torch.as_tensor(eta, dtype=f32, device=u.device)
+        if eta.ndim == 1:
+            eta = eta[:, None].expand(B, T)
+        gps = dict(prev=to_streams(torch.cat(
+            [traj_prev.k.to(f32), traj_prev.K.to(f32).reshape(B, T, -1),
+             traj_prev.sigma_inv.to(f32).reshape(B, T, -1)], dim=-1)),
+            eta=eta.T.contiguous())
+    res = backward_lanes(pack_backward_inputs(derivs, u, B),
+                         lam.to(f32).contiguous(), n=n, m=m,
+                         reg_type=reg_type, lims=lims_t, emit="full", **gps)
+    lay = OutLayout(n, m)
+    o = res.out
+
+    def take(off, size, shape):
+        return from_streams(o[:, off:off + size], shape)
+
+    return BackwardOut(
+        diverged=res.stats[2] > 0.5,
+        diverge_idx=res.stats[3].to(torch.int32),
+        policy=GaussianPolicy(K=take(lay.K, m * n, (m, n)),
+                              k=take(lay.k, m, (m,)),
+                              sigma=take(lay.quui, m * m, (m, m)),
+                              sigma_inv=take(lay.quu, m * m, (m, m))),
+        Vx=take(lay.Vx, n, (n,)), Vxx=take(lay.Vxx, n * n, (n, n)),
+        dV=res.stats[:2].T)

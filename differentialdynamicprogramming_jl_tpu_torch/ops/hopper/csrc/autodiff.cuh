@@ -16,7 +16,11 @@
 // - Jet: a value, the tangents along two directions (a, the inner one, and
 //   b, the outer one) and the mixed second tangent ab. One pass of the cost
 //   per direction pair i ≤ j ((n+m)(n+m+1)/2 passes) gives the Hessian
-//   entry, mirrored.
+//   entry, mirrored. For full DDP (Autodiff<Body, true>) each pair's pass
+//   runs the dynamics too, and its n second tangents are contracted with
+//   V′ (Vx of t+1) at once, Σ_a Vx[a]·∂²f_a from a = 0: the (n, n+m, n+m)
+//   dynamics Hessian (312 floats at ⟨6,2⟩) is never held, only its
+//   contraction's upper triangle (36 floats).
 // One direction at a time, as the JAX function does: the registers hold one
 // jet per input, not a dense gradient per value. Every tangent is a unit
 // vector with its zeros; nvcc folds no 0·x (x may be Inf or NaN), so the
@@ -196,14 +200,18 @@ __device__ __forceinline__ D signp(D x) {   // derivative 0 almost everywhere
 // terminal are templates over the scalar type: the forward functions pass
 // through at S = float, and derivs() makes the expansion by the passes
 // above. The cost Hessian over (x, u) is held as its upper triangle, 36
-// floats at ⟨6,2⟩ where cxx, cxu and cuu apart take 52.
-template <class Body>
+// floats at ⟨6,2⟩ where cxx, cxu and cuu apart take 52. With SO (full
+// DDP), derivs_so() also forms the V′-contraction of the dynamics
+// Hessians, as its upper triangle.
+template <class Body, bool SO = false>
 struct Autodiff {
   static constexpr int N = Body::N;
   static constexpr int M = Body::M;
   static constexpr int ID = Body::ID;
   static constexpr int N_CONSTS = Body::N_CONSTS;
   static constexpr int N_PARAMS = 0;   // no autodiff instance takes params
+  static constexpr bool PACKED = false;
+  static constexpr bool SECOND_ORDER = SO;
   static constexpr int NM = N + M;
   static constexpr int NH = NM * (NM + 1) / 2;
   using Consts = typename Body::Consts;
@@ -228,6 +236,7 @@ struct Autodiff {
 
   struct Derivs {
     float fx[N][N], fu[N][M], cx[N], cu[M], H[NH];
+    float HV[SO ? NH : 1];   // Σ_a Vx[a]·∂²f_a, upper triangle (SO)
   };
 
   // entry (i, j), i ≤ j, of the upper triangle, row by row
@@ -249,11 +258,11 @@ struct Autodiff {
     return body.cost(xd, ud);
   }
 
-  // the Jet pass of the cost along directions j (inner) and i (outer)
-  __device__ __forceinline__ float pass2(const float (&x)[N],
-                                         const float (&u)[M], int i,
-                                         int j) const {
-    Jet xj[N], uj[M];
+  // the Jet inputs along directions j (inner) and i (outer)
+  __device__ __forceinline__ static void jets(const float (&x)[N],
+                                              const float (&u)[M], int i,
+                                              int j, Jet (&xj)[N],
+                                              Jet (&uj)[M]) {
 #pragma unroll
     for (int k = 0; k < N; ++k)
       xj[k] = Jet{x[k], k == j ? 1.0f : 0.0f, k == i ? 1.0f : 0.0f, 0.0f};
@@ -261,12 +270,68 @@ struct Autodiff {
     for (int k = 0; k < M; ++k)
       uj[k] = Jet{u[k], N + k == j ? 1.0f : 0.0f, N + k == i ? 1.0f : 0.0f,
                   0.0f};
+  }
+
+  // the Jet pass of the cost along directions j (inner) and i (outer)
+  __device__ __forceinline__ float pass2(const float (&x)[N],
+                                         const float (&u)[M], int i,
+                                         int j) const {
+    Jet xj[N], uj[M];
+    jets(x, u, i, j, xj, uj);
     return body.cost(xj, uj).ab;
   }
 
+  // full DDP: the Jet pass of dynamics and cost along j and i; returns the
+  // cost's entry and writes Σ_a Vx[a]·∂²f_a/∂z_i∂z_j to hv
+  __device__ __forceinline__ float pass2_so(const float (&x)[N],
+                                            const float (&u)[M], int i,
+                                            int j, const float (&Vx)[N],
+                                            float& hv) const {
+    Jet xj[N], uj[M], f[N];
+    jets(x, u, i, j, xj, uj);
+    body.dynamics(xj, uj, f);
+    float s = Vx[0] * f[0].ab;
+#pragma unroll
+    for (int a = 1; a < N; ++a) s = s + Vx[a] * f[a].ab;
+    hv = s;
+    return body.cost(xj, uj).ab;
+  }
+
+  // the first-order passes, then the Jet passes of the cost
   __device__ __forceinline__ void derivs(const float (&x)[N],
                                          const float (&u)[M],
                                          Derivs& d) const {
+    first(x, u, d);
+#pragma unroll
+    for (int j = 0; j < NM; ++j) {
+#pragma unroll
+      for (int i = 0; i <= j; ++i) d.H[hidx(i, j)] = pass2(x, u, i, j);
+    }
+  }
+
+  // full DDP: the first-order passes, then the Jet passes of dynamics and
+  // cost, each pair's dynamics contracted with Vx at once
+  __device__ __forceinline__ void derivs_so(const float (&x)[N],
+                                            const float (&u)[M],
+                                            const float (&Vx)[N],
+                                            Derivs& d) const {
+    static_assert(SO, "derivs_so is the full-DDP expansion");
+    first(x, u, d);
+#pragma unroll
+    for (int j = 0; j < NM; ++j) {
+#pragma unroll
+      for (int i = 0; i <= j; ++i)
+        d.H[hidx(i, j)] = pass2_so(x, u, i, j, Vx, d.HV[hidx(i, j)]);
+    }
+  }
+
+  __device__ __forceinline__ float vh(const Derivs& d, int i, int j) const {
+    return d.HV[hidx(i, j)];
+  }
+
+  __device__ __forceinline__ void first(const float (&x)[N],
+                                        const float (&u)[M],
+                                        Derivs& d) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       Dual f[N];
@@ -280,11 +345,6 @@ struct Autodiff {
       d.cu[mi] = pass1(x, u, N + mi, f).t;
 #pragma unroll
       for (int a = 0; a < N; ++a) d.fu[a][mi] = f[a].t;
-    }
-#pragma unroll
-    for (int j = 0; j < NM; ++j) {
-#pragma unroll
-      for (int i = 0; i <= j; ++i) d.H[hidx(i, j)] = pass2(x, u, i, j);
     }
   }
 

@@ -4,9 +4,13 @@
 // mode) and backward_lti_gps.cu (GPS mode), the PendCartParam ⟨4,1⟩ ones in
 // backward_pendcart_param.cu, and the autodiff instances (autodiff != 0:
 // derivatives made in the kernel from the model's own functions) in
-// backward_quad.cu and backward_pendcart_ad.cu, so that nvcc builds them in
-// parallel. A model with autodiff set runs its autodiff instance or none:
-// never its analytic one. Per-scenario limits (lims_lanes) are a runtime
+// backward_quad.cu and backward_pendcart_ad.cu, the second-order (full
+// DDP) ones in backward_so.cu and backward_quad_so.cu, and the
+// packed-derivatives ones (model id 0: no model, the stream holds the
+// expansion) in backward_packed.cu and backward_packed_lti.cu, so that
+// nvcc builds them in parallel. A model with autodiff set runs its
+// autodiff instance or none: never its analytic one; second-order
+// derivatives run a second-order instance or none. Per-scenario limits (lims_lanes) are a runtime
 // input of every instance. The launch plan (blocks, threads, tc, stages,
 // shared bytes; ops/hopper/plan.py) is checked by the instance's launcher.
 #include "backward.cuh"
@@ -23,12 +27,17 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                                   const float* params, int n_params,
                                   int model_id, int n, int m,
                                   const float* consts, int n_consts,
-                                  int autodiff, int blocks, int threads,
+                                  int autodiff, int second_order,
+                                  int blocks, int threads,
                                   int tc, int stages, int smem, int device,
                                   void* stream) {
   using namespace ddp;
   const bool gps = prev != nullptr;
-  if (T < 2 || B < 1 || s_in < n + m || s_out != out_slots(emit, n, m) ||
+  const bool packed = model_id == 0;
+  // a trajectory holds at least n+m slots; the packed stream's exact D+m is
+  // checked by its instance (launch_one)
+  if (T < 2 || B < 1 || s_in < n + m ||
+      s_out != out_slots(emit, n, m) ||
       (reg_type != 1 && reg_type != 2) || gps != (eta != nullptr) ||
       (params != nullptr) != (n_params > 0))
     return ERR_ARGS;
@@ -55,6 +64,21 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
   using LTI10x2 = LTI<10, 2>;
   const bool pendcart = model_id == PendCart::ID && n == PendCart::N &&
                         m == PendCart::M && n_consts == PendCart::N_CONSTS;
+  const bool quad = model_id == Quadrotor::ID && n == Quadrotor::N &&
+                    m == Quadrotor::M && n_consts == Quadrotor::N_CONSTS;
+  if (packed) {
+    if (autodiff || second_order || n_params != 0 || n_consts != 0)
+      return ERR_MODEL;
+    return launch_backward_packed(a, n, m);
+  }
+  if (second_order) {
+    if (gps || n_params != 0) return ERR_MODEL;
+    if (pendcart)
+      return autodiff ? launch_backward_pendcart_ad_so(a)
+                      : launch_backward_pendcart_so(a);
+    if (quad && autodiff) return launch_backward_quad_so(a);
+    return ERR_MODEL;
+  }
   if (model_id == PendCartParam::ID) {
     if (autodiff || gps || n != PendCartParam::N || m != PendCartParam::M ||
         n_consts != PendCartParam::N_CONSTS ||
@@ -66,9 +90,7 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
   if (autodiff) {
     if (gps) return ERR_MODEL;
     if (pendcart) return launch_backward_pendcart_ad(a);
-    if (model_id == Quadrotor::ID && n == Quadrotor::N &&
-        m == Quadrotor::M && n_consts == Quadrotor::N_CONSTS)
-      return launch_backward_quad_6_2(a);
+    if (quad) return launch_backward_quad_6_2(a);
     return ERR_MODEL;
   }
   if (pendcart)

@@ -1,5 +1,7 @@
-// K1: batched backward pass (Riccati recursion) with in-kernel derivatives,
-// templated on the model (common.cuh describes the interface).
+// K1: batched backward pass (Riccati recursion), templated on the model
+// (common.cuh describes the interface): derivatives formed in the kernel
+// from the trajectory's (x, u), first or second order, or read from a
+// packed-derivatives stream (packed.cuh).
 //
 // Replaces the TPU kernel
 //   differentialdynamicprogramming_jl_tpu/ops/pallas/backward_kernel.py
@@ -17,7 +19,13 @@
 // ⟨4,1⟩ (backward_pendcart_param.cu); and the autodiff instances, whose
 // derivatives are made in the kernel from the model's own functions
 // (autodiff.cuh), "gains" and "full" without GPS mode: quadrotor ⟨6,2⟩
-// (backward_quad.cu) and pendcart ⟨4,1⟩ (backward_pendcart_ad.cu).
+// (backward_quad.cu) and pendcart ⟨4,1⟩ (backward_pendcart_ad.cu). Full
+// DDP, "gains" and "full" without GPS mode: the analytic PendCartSO and
+// Autodiff<PendCart, true> ⟨4,1⟩ (backward_so.cu) and
+// Autodiff<Quadrotor, true> ⟨6,2⟩ (backward_quad_so.cu). The
+// packed-derivatives stream Packed<N, M> (packed.cuh): ⟨4,1⟩ in "gains",
+// "full" and GPS "full", ⟨6,2⟩ in "gains" and "full" (backward_packed.cu),
+// ⟨10,2⟩ in "gains" and "full" (backward_packed_lti.cu).
 //
 // Layout: every stream is (T, S, B) f32 with the scenario axis contiguous.
 // A block owns 32 scenarios: lane l of each warp works on scenario
@@ -30,8 +38,8 @@
 // rows, each element summed from a = 0 by the warp that owns its row, and
 // exchange them through shared memory after the ring at two barriers a
 // step; every warp forms the n- and m-sized terms itself. The step inputs
-// (the x,u slots of the trajectory; in GPS mode also the previous policy's
-// slots and η) are staged in descending chunks of tc steps in a
+// (the x,u slots of the trajectory, or the D+M slots of the packed stream;
+// in GPS mode also the previous policy's slots and η) are staged in descending chunks of tc steps in a
 // shared-memory ring of `stages` stages (ring.cuh), which one more warp,
 // the producer, fills with cp.async stages-1 chunks ahead; it meets the
 // compute warps at two barriers a chunk, so the copies add no code and no
@@ -63,6 +71,10 @@
 // Semantics kept from the TPU kernel (backward_kernel.py line numbers):
 // - every sum over a (state) or mi (control) runs in the JAX order, from its
 //   first term (:450-600);
+// - full DDP adds Σ_a V′x[a]·∂²f_a to Qxx, Qux and Quu after the Q
+//   expansions and before the GPS and regularisation branches, V′x the
+//   value gradient of t+1 (:466-481); each compute warp adds the Qxx rows
+//   it owns;
 // - the t = T-1 boundary writes Vx = cx, Vxx = cxx, zero gains, and in
 //   "full"/"policy" emission Quu = cuu with its inverse; in GPS mode V stays
 //   unscaled there and only the emitted Quu is cuu/η + Σ⁻¹_prev (:401-439);
@@ -203,6 +215,14 @@ __device__ __forceinline__ bool boxqp_m2(const float (&Q)[2][2],
          (!f0 && !f1);
 }
 
+// ring slots of a step's model input: x, u; for the packed stream its D+M
+// slots
+template <class Model>
+__host__ __device__ constexpr int k1_in_slots() {
+  if constexpr (Model::PACKED) return Model::D + Model::M;
+  else return Model::N + Model::M;
+}
+
 // Compute warps of a K1 block, a trait of the instance
 // (ops/hopper/plan.py::k1_warps); the producer warp is one more. Four where
 // the state is large (n ≥ 8) and a step holds n×n work beyond the
@@ -262,7 +282,8 @@ backward_kernel(const float* __restrict__ traj, int s_in,
   constexpr int OV = M + M * N;                 // Vx's slot
   constexpr int OQ = VALUE ? OV + N + N * N : OV;   // Quu's slot
   constexpr int PS = M + M * N + M * M;          // prev slots (GPS)
-  constexpr int F = N + M + (GPS ? PS + 1 : 0);   // ring: [x, u, prev, η]
+  constexpr int IN = k1_in_slots<Model>();       // x, u or the packed slots
+  constexpr int F = IN + (GPS ? PS + 1 : 0);     // ring: [in, prev, η]
   constexpr int G = K1_WARPS<N, EMIT, GPS>;
   constexpr int ROWS = (N + G - 1) / G;          // rows a compute warp owns
   constexpr int SW = N + M;                      // exchange: W[a][·], U[a][·]
@@ -286,10 +307,9 @@ backward_kernel(const float* __restrict__ traj, int s_in,
                       RING_W, [&](int tt, int s) {
                         const size_t t = (size_t)(th - tt);
                         const float* row =
-                            s < N + M ? traj + (t * s_in + s) * B
-                            : s < N + M + PS
-                                ? prev + (t * PS + (s - N - M)) * B
-                                : eta + t * B;
+                            s < IN ? traj + (t * s_in + s) * B
+                            : s < IN + PS ? prev + (t * PS + (s - IN)) * B
+                                          : eta + t * B;
                         return row + b0;
                       });
       }
@@ -344,15 +364,33 @@ backward_kernel(const float* __restrict__ traj, int s_in,
   float Vx[N], VxxR[ROWS][N];      // VxxR[q]: row warp + q·G of Vxx
   float dv1 = 0.0f, dv2 = 0.0f, div = 0.0f, divt = 0.0f;
   typename Model::Derivs dv;
+  // the step's u and expansion at ring row r: read from the packed slots,
+  // or formed from (x, u), to second order away from the boundary
+  auto expand = [&](float (&u)[M], bool boundary) {
+    if constexpr (Model::PACKED) {
+#pragma unroll
+      for (int mi = 0; mi < M; ++mi) u[mi] = in(Model::D + mi);
+      dv.p = ring + r;
+    } else {
+      float x[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) x[i] = in(i);
+#pragma unroll
+      for (int mi = 0; mi < M; ++mi) u[mi] = in(N + mi);
+      if constexpr (Model::SECOND_ORDER) {
+        if (!boundary) {
+          P.derivs_so(x, u, Vx, dv);
+          return;
+        }
+      }
+      P.derivs(x, u, dv);
+    }
+  };
 
   {  // boundary t = T-1
     const int t = T - 1;
-    float x[N], u[M];
-#pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = in(i);
-#pragma unroll
-    for (int mi = 0; mi < M; ++mi) u[mi] = in(N + mi);
-    P.derivs(x, u, dv);
+    float u[M];
+    expand(u, true);
 #pragma unroll
     for (int i = 0; i < N; ++i) Vx[i] = P.cx(dv, i);
     float cuu[M][M], inv[M][M];
@@ -363,8 +401,8 @@ backward_kernel(const float* __restrict__ traj, int s_in,
         for (int mj = 0; mj < M; ++mj) cuu[mi][mj] = P.cuu(dv, mi, mj);
       }
       if constexpr (GPS) {
-        const PrevStep<N, M> pv(ring + r + (N + M) * RING_W);
-        const float e = eta_or_one(in(N + M + PS));
+        const PrevStep<N, M> pv(ring + r + IN * RING_W);
+        const float e = eta_or_one(in(IN + PS));
 #pragma unroll
         for (int mi = 0; mi < M; ++mi) {
 #pragma unroll
@@ -411,12 +449,8 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       open_chunk();
     }
     r = cur + pos * (F * RING_W);
-    float x[N], u[M];
-#pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = in(i);
-#pragma unroll
-    for (int mi = 0; mi < M; ++mi) u[mi] = in(N + mi);
-    P.derivs(x, u, dv);
+    float u[M];
+    expand(u, false);
 
     // Q expansions (src/backward_pass.jl:103-123); each sum runs a = 0..n-1
     // W = Vxx·fx and U = Vxx·fu, this warp's rows, to the exchange
@@ -493,14 +527,37 @@ backward_kernel(const float* __restrict__ traj, int s_in,
         Qux[mi][j] = P.cxu(dv, j, mi) + s;
       }
     }
+    if constexpr (Model::SECOND_ORDER) {
+      // full DDP: the dynamics Hessians contracted with V′x, formed by the
+      // model (vh), before the GPS and regularisation branches
+      by_role<G>(warp, [&](auto role) {
+        constexpr int Q = decltype(role)::q;
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) {
+          const int i = Q + q * G;
+          if (i < N) {
+#pragma unroll
+            for (int j = 0; j < N; ++j) QxxR[q][j] = QxxR[q][j] + P.vh(dv, i, j);
+          }
+        }
+      });
+#pragma unroll
+      for (int mi = 0; mi < M; ++mi) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) Qux[mi][j] = Qux[mi][j] + P.vh(dv, j, N + mi);
+#pragma unroll
+        for (int mj = 0; mj < M; ++mj)
+          Quu[mi][mj] = Quu[mi][mj] + P.vh(dv, N + mi, N + mj);
+      }
+    }
 
     float Qux_r[M][N], QuuF[M][M];
     if constexpr (GPS) {
       // GPS mode: Q terms scaled by 1/η plus the KL expansion of the
       // previous policy (read_kl :370-392; each sum over a control in the
       // JAX order), Quu symmetrised, λ unused (src/backward_pass.jl:293-299)
-      const PrevStep<N, M> pv(ring + r + (N + M) * RING_W);
-      const float ie = 1.0f / eta_or_one(in(N + M + PS));
+      const PrevStep<N, M> pv(ring + r + IN * RING_W);
+      const float ie = 1.0f / eta_or_one(in(IN + PS));
       float Si[M][M], Sik[M], SiK[M][N];
 #pragma unroll
       for (int mi = 0; mi < M; ++mi) {
@@ -786,9 +843,10 @@ backward_kernel(const float* __restrict__ traj, int s_in,
 template <class Model, int EMIT, bool GPS>
 int launch_one(const BwdArgs& a) {
   constexpr int N = Model::N, M = Model::M;
-  constexpr int F = N + M + (GPS ? M + M * N + M * M + 1 : 0);
+  constexpr int F = k1_in_slots<Model>() + (GPS ? M + M * N + M * M + 1 : 0);
   constexpr int G = K1_WARPS<N, EMIT, GPS>;
   const RingPlan& p = a.plan;
+  if (Model::PACKED && a.s_in != k1_in_slots<Model>()) return ERR_ARGS;
   if (!plan_ok(p, a.B, RING_W * (G + 1), F,
                G > 1 ? RING_W * (N * (N + M) + N * N) : 0))
     return ERR_ARGS;
@@ -824,11 +882,18 @@ int launch_backward(const BwdArgs& a) {
 // mode in backward_lti_gps.cu; PendCartParam ⟨4,1⟩, "gains" and "full"
 // without GPS mode, in backward_pendcart_param.cu; the autodiff instances
 // (autodiff.cuh), "gains" and "full" without GPS mode: quadrotor ⟨6,2⟩ in
-// backward_quad.cu, pendcart ⟨4,1⟩ in backward_pendcart_ad.cu
+// backward_quad.cu, pendcart ⟨4,1⟩ in backward_pendcart_ad.cu; the
+// second-order instances in backward_so.cu (PendCartSO, Autodiff<PendCart,
+// true>) and backward_quad_so.cu; the packed instances in
+// backward_packed.cu (⟨4,1⟩, ⟨6,2⟩) and backward_packed_lti.cu (⟨10,2⟩)
 int launch_backward_lti_10_2(const BwdArgs& a);
 int launch_backward_lti_gps_10_2(const BwdArgs& a);
 int launch_backward_pendcart_param(const BwdArgs& a);
 int launch_backward_quad_6_2(const BwdArgs& a);
 int launch_backward_pendcart_ad(const BwdArgs& a);
+int launch_backward_pendcart_so(const BwdArgs& a);
+int launch_backward_pendcart_ad_so(const BwdArgs& a);
+int launch_backward_quad_so(const BwdArgs& a);
+int launch_backward_packed(const BwdArgs& a, int n, int m);
 
 }  // namespace ddp

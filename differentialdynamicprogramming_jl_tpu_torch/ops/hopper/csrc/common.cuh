@@ -16,7 +16,15 @@
 // with x, xn as float (&)[N] and u as float (&)[M]. `d` is the model's
 // per-step Derivs: what the expansion at (x, u) holds beyond constants.
 // Every loop over a model's dimensions is unrolled, so the accessors'
-// indices are compile-time constants.
+// indices are compile-time constants. K1 also reads two compile-time
+// flags of a model:
+//   PACKED: the model is the packed-derivatives stream (packed.cuh): K1's
+//     ring carries its D+M slots per step, Derivs points at the step's
+//     ring row, and derivs() is not called;
+//   SECOND_ORDER: full DDP. K1 calls derivs_so(x, u, Vx, d) in place of
+//     derivs() away from the boundary, with Vx the value gradient of t+1,
+//     and adds vh(d, i, j) = Σ_a Vx[a]·∂²f_a/∂z_i∂z_j (z = (x, u), a from
+//     0) to Qxx, Qux and Quu before the regularisation.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -30,6 +30,8 @@ struct LTI {
   static constexpr int OA = 0, OB = N * N, OQ = OB + N * M, OR = OQ + N * N;
   static constexpr int N_CONSTS = OR + M * M;
   static constexpr int N_PARAMS = 0;
+  static constexpr bool PACKED = false;
+  static constexpr bool SECOND_ORDER = false;
   struct Consts {
     float c[N_CONSTS];
   };

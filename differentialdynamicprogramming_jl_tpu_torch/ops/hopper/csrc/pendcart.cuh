@@ -18,6 +18,9 @@
 // operation order of that version; the library is built with --fmad=false,
 // so no multiply-add is contracted.
 //
+// PendCartSO is the pendcart of full DDP: the same model with its two
+// nonzero dynamics Hessian entries (instances in backward_so.cu).
+//
 // PendCartParam (model id 4) is the heterogeneous fleet's pendcart, the
 // counterpart of models/pendcart.py::pendcart_lanes_param and
 // ::pendcart_derivs_tiles_param (JAX: models/pendcart.py:295-359): the same
@@ -37,6 +40,8 @@ struct PendCart {
   static constexpr int ID = 1;
   static constexpr int N_CONSTS = 13;
   static constexpr int N_PARAMS = 0;
+  static constexpr bool PACKED = false;
+  static constexpr bool SECOND_ORDER = false;
   struct Consts {
     float c[N_CONSTS];
   };
@@ -159,6 +164,54 @@ struct PendCart {
   }
   __device__ __forceinline__ float cuu(const Derivs& d, int, int) const {
     return d.cuu;
+  }
+};
+
+// Full DDP with the analytic expansion (models/pendcart.py::
+// pendcart_derivs_tiles_so; JAX models/pendcart.py:267-290): only f₁ =
+// θ̇ + h·θ̈ is nonlinear, with ∂²f₁/∂θ² = h·(g/l·sinθ − u/l·cosθ) and
+// ∂²f₁/∂θ∂u = −(h/l)·sinθ; every other Hessian entry is 0. The
+// contraction Σ_a Vx[a]·H_a[i][j] multiplies the zeros too, as the plain
+// version's zero tensors do: nvcc folds no 0·x, so a NaN or Inf in Vx
+// propagates alike.
+struct PendCartSO : PendCart {
+  static constexpr bool SECOND_ORDER = true;
+  struct Derivs : PendCart::Derivs {
+    float vh[5][5];
+  };
+
+  __device__ __forceinline__ explicit PendCartSO(const Consts& mc)
+      : PendCart(mc) {}
+
+  __device__ __forceinline__ void derivs_so(const float (&x)[4],
+                                            const float (&uu)[1],
+                                            const float (&Vx)[4],
+                                            Derivs& dv) const {
+    derivs(x, uu, dv);
+    const float s = sinf(x[0]);
+    const float d2_thth = h * ((-ngl) * s - (uu[0] / l) * cosf(x[0]));
+    const float d2_thu = (-(h / l)) * s;
+    // H_a[i][j] over z = (θ, θ̇, p, ṗ, u)
+    auto H = [&](int a, int i, int j) {
+      return a != 1 ? 0.0f
+             : (i == 0 && j == 0)                        ? d2_thth
+             : ((i == 0 && j == 4) || (i == 4 && j == 0)) ? d2_thu
+                                                          : 0.0f;
+    };
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+        float v = Vx[0] * H(0, i, j);
+#pragma unroll
+        for (int a = 1; a < 4; ++a) v = v + Vx[a] * H(a, i, j);
+        dv.vh[i][j] = v;
+      }
+    }
+  }
+
+  __device__ __forceinline__ float vh(const Derivs& d, int i, int j) const {
+    return d.vh[i][j];
   }
 };
 

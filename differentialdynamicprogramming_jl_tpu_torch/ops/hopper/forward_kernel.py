@@ -48,11 +48,15 @@ class DeviceModel:
     of its constants, passed to the kernel by value. ``autodiff``
     marks a derivative function made by forward-mode autodiff of the
     model's own functions: K1 then runs the model's ``Autodiff<Body>``
-    instance (``csrc/autodiff.cuh``), never its analytic one."""
+    instance (``csrc/autodiff.cuh``), never its analytic one.
+    ``second_order`` marks derivative tiles that also give the dynamics
+    Hessians (full DDP): K1 then runs the model's second-order instance,
+    never a first-order one."""
 
     model_id: int
     consts: np.ndarray
     autodiff: bool = False
+    second_order: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,16 +171,19 @@ def launch_args(what: str, *tensors: torch.Tensor):
 
 
 def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
-              m: int, lims, lims_lanes, params, *tensors: torch.Tensor):
+              m: int, lims, lims_lanes, params, *tensors: torch.Tensor,
+              models=CUDA_MODELS):
     """:func:`launch_args` plus the model arguments of a launcher: the
     static limits (host), the per-scenario limits and parameters (or null),
     P, model id, n, m, the host pointer to the constants and their count.
-    The host arrays are returned too, to outlive the call."""
+    The host arrays are returned too, to outlive the call. ``models`` are
+    the (model id, n, m) the kernel is built for, or None where the caller
+    has checked its own instance table."""
     if model_device is None:
         raise NotImplementedError(
             f"{what}: this model has no device-model descriptor, so no CUDA "
             "kernel can evaluate it; run it on CPU tensors")
-    if (model_device.model_id, n, m) not in CUDA_MODELS:
+    if models is not None and (model_device.model_id, n, m) not in models:
         raise NotImplementedError(
             f"{what}: no CUDA kernel is built for model id "
             f"{model_device.model_id} at n={n}, m={m}; built: "

@@ -1,6 +1,7 @@
 """Stream layout of the Hopper kernels.
 
-Counterpart of ``differentialdynamicprogramming_jl_tpu/ops/pallas/pack.py``.
+Counterpart of ``differentialdynamicprogramming_jl_tpu/ops/pallas/pack.py``
+(and of ``ops/pallas/backward_kernel.py::pack_backward_inputs``).
 The TPU lane layout ``(T, s, nB, 8, 128)`` puts the scenario batch on (8, 128)
 vector tiles. On the card one thread owns one scenario, so the same data is a
 **stream** ``(T, s, B)`` with the scenario axis contiguous: at every (t, slot)
@@ -17,41 +18,46 @@ ported.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+from ...policy import Derivs
+
+
+# the fields of the packed derivative stack, in slot order
+DERIV_FIELDS = ("fx", "fu", "cx", "cu", "cxx", "cxu", "cuu")
 
 
 @dataclasses.dataclass(frozen=True)
 class DerivLayout:
     """Slot offsets of the packed derivative stack (row-major flattening of
-    the fields of :class:`~..policy.Derivs`, first order only)."""
+    the fields of :class:`~...policy.Derivs`, first order only, in
+    :data:`DERIV_FIELDS` order): fx (n·n), fu (n·m), cx, cu, cxx (n·n),
+    cxu (n·m), cuu (m·m), D slots in all."""
 
     n: int
     m: int
 
-    @property
-    def fx(self) -> int: return 0
+    def shape(self, field: str) -> tuple:
+        """A field's per-step shape."""
+        n, m = self.n, self.m
+        return dict(fx=(n, n), fu=(n, m), cx=(n,), cu=(m,), cxx=(n, n),
+                    cxu=(n, m), cuu=(m, m))[field]
 
-    @property
-    def fu(self) -> int: return self.n * self.n
+    def offset(self, field: str) -> int:
+        """A field's first slot; ``"D"`` gives the slot count."""
+        i = len(DERIV_FIELDS) if field == "D" else DERIV_FIELDS.index(field)
+        return sum(math.prod(self.shape(f)) for f in DERIV_FIELDS[:i])
 
-    @property
-    def cx(self) -> int: return self.fu + self.n * self.m
-
-    @property
-    def cu(self) -> int: return self.cx + self.n
-
-    @property
-    def cxx(self) -> int: return self.cu + self.m
-
-    @property
-    def cxu(self) -> int: return self.cxx + self.n * self.n
-
-    @property
-    def cuu(self) -> int: return self.cxu + self.n * self.m
-
-    @property
-    def D(self) -> int: return self.cuu + self.m * self.m
+    fx = property(lambda self: self.offset("fx"))
+    fu = property(lambda self: self.offset("fu"))
+    cx = property(lambda self: self.offset("cx"))
+    cu = property(lambda self: self.offset("cu"))
+    cxx = property(lambda self: self.offset("cxx"))
+    cxu = property(lambda self: self.offset("cxu"))
+    cuu = property(lambda self: self.offset("cuu"))
+    D = property(lambda self: self.offset("D"))
 
 
 def to_streams(a: torch.Tensor) -> torch.Tensor:
@@ -76,3 +82,52 @@ def vec_to_streams(v: torch.Tensor) -> torch.Tensor:
 def vec_from_streams(a: torch.Tensor) -> torch.Tensor:
     """(B,) → (B,), see :func:`vec_to_streams`."""
     return a
+
+
+def pack_derivs(d: Derivs, B: int) -> torch.Tensor:
+    """Batch-major :class:`~...policy.Derivs` ((B, T, ...) leaves, first
+    order) → the packed ``(T, D, B)`` stream in :class:`DerivLayout` order
+    (JAX ``pack.py:126``)."""
+    T = d.fx.shape[1]
+    return to_streams(torch.cat(
+        [getattr(d, f).reshape(B, T, -1) for f in DERIV_FIELDS], dim=-1))
+
+
+def pack_backward_inputs(derivs: Derivs, u: torch.Tensor,
+                         B: int) -> torch.Tensor:
+    """Batch-major ``Derivs`` and controls ``u`` (B, T, m) → K1's packed
+    input ``(T, D+m, B)`` f32: the derivative stack with u appended (JAX
+    ``backward_kernel.py:715``)."""
+    return torch.cat([pack_derivs(derivs, B), to_streams(u)], dim=1).to(
+        torch.float32)
+
+
+def _flat(v) -> list:
+    """A tile field (a tensor, or nested lists of them) → its row-major
+    list of tensors."""
+    if isinstance(v, (list, tuple)):
+        return [e for row in v for e in _flat(row)]
+    return [v]
+
+
+def packed_from_tiles(tiles, n: int, m: int):
+    """A packed-derivatives generator ``(x_s (T, n, B), u_s (T, m, B)) →
+    (T, D+m, B)`` from a derivative-tile function: the tiles evaluated
+    once on whole (T, B) slices (their operations are elementwise, so each
+    element has the bits of a per-step evaluation), stacked in
+    :class:`DerivLayout` order with u appended. ``t`` is the step index as
+    a (T, 1) tensor, as the JAX generators pass it."""
+    lay = DerivLayout(n, m)
+
+    def packed(x_s: torch.Tensor, u_s: torch.Tensor) -> torch.Tensor:
+        T = u_s.shape[0]
+        x = [x_s[:, i] for i in range(n)]
+        u = [u_s[:, mi] for mi in range(m)]
+        t = torch.arange(T, device=u_s.device)[:, None]
+        d = tiles(x, u, t)
+        slots = [v for f in DERIV_FIELDS for v in _flat(d[f])] + u
+        assert len(slots) == lay.D + m
+        shape = u_s[:, 0].shape
+        return torch.stack([s.expand(shape) for s in slots], dim=1)
+
+    return packed

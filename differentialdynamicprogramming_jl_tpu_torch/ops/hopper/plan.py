@@ -31,6 +31,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+from .pack import DerivLayout
+
 RING_W = 32                # scenarios a block owns (csrc/ring.cuh)
 MAX_SMEM = 232_448         # shared memory a block may opt into on sm_90
 MAX_STAGES = 4
@@ -39,6 +41,11 @@ STAGES = 2
 # ring budgets, in bytes: K2's and K3's A warps share one ring, so it may
 # be large; K1's stays small enough for several blocks an SM
 K1_BUDGET = 48 * 1024
+# K1 on the packed-derivatives stream stages D+m slots a step (47 at
+# ⟨4,1⟩, 110 at ⟨6,2⟩, 258 at ⟨10,2⟩), where the tiles' ring stages n+m:
+# even one step of two stages at ⟨10,2⟩ is 66 KB. Its ring may take more of
+# the block's shared memory; at B=4096 a block has an SM to itself anyway
+K1_PACKED_BUDGET = 128 * 1024
 K2_BUDGET = 144 * 1024
 # K3: at least K3_PRODUCERS producer warps beside the A candidate warps,
 # and at least K3_MIN_WARPS warps a block (three producers at A = 1), as
@@ -85,10 +92,12 @@ class LaunchPlan(NamedTuple):
         return self[:5]
 
 
-def k1_slots(n: int, m: int, gps: bool) -> int:
-    """Ring slots of a K1 step: x, u; in GPS mode also the previous
-    policy's k, K, Σ⁻¹ and η."""
-    return n + m + ((m + m * n + m * m + 1) if gps else 0)
+def k1_slots(n: int, m: int, gps: bool, packed: bool = False) -> int:
+    """Ring slots of a K1 step: x, u, or with ``packed`` the D+m slots of
+    the packed-derivatives stream; in GPS mode also the previous policy's
+    k, K, Σ⁻¹ and η."""
+    d_in = DerivLayout(n, m).D + m if packed else n + m
+    return d_in + ((m + m * n + m * m + 1) if gps else 0)
 
 
 def k1_warps(n: int, emit: str, gps: bool) -> int:
@@ -133,12 +142,14 @@ def _plan(slots: int, T: int, B: int, threads: int, budget: int,
 
 
 def backward_plan(n: int, m: int, gps: bool, emit: str, T: int,
-                  B: int) -> LaunchPlan:
+                  B: int, packed: bool = False) -> LaunchPlan:
     """K1: k1_warps compute warps and a producer warp a block, the ring of
-    its x,u (and GPS) slots, then the compute warps' exchange (none with
-    one compute warp, which keeps W and Vraw in registers)."""
+    its x,u (with ``packed``, D+m) and GPS slots, then the compute warps'
+    exchange (none with one compute warp, which keeps W and Vraw in
+    registers)."""
     G = k1_warps(n, emit, gps)
-    return _plan(k1_slots(n, m, gps), T, B, RING_W * (G + 1), K1_BUDGET,
+    return _plan(k1_slots(n, m, gps, packed), T, B, RING_W * (G + 1),
+                 K1_PACKED_BUDGET if packed else K1_BUDGET,
                  RING_W * k1_exchange(n, m) if G > 1 else 0)
 
 

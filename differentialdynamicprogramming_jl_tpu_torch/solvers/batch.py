@@ -14,6 +14,16 @@ these are host loops. The λ-retry condition and ``done.all()`` each
 synchronise with the host once per check. Per-scenario control flow stays
 elementwise on (B,) masks, line for line as in the JAX solver.
 
+K1 takes its derivatives in one of two ways: in-kernel from the stream by
+``derivs_tiles`` (preferred where both are given, as in JAX), or from a
+**packed-derivatives stream** ``(T, D+m, B)`` made outside K1 by a
+``packed_derivs(x_s, u_s)`` generator (``pendcart_packed_derivs``,
+``lti_packed_derivs``, ``autodiff_packed_derivs``). The driver keeps JAX's
+life of that stream (``solvers/batch.py:380-381, 550-556, 590-592``): built
+at init, reused by every λ-retry, rebuilt after an iteration only when some
+lane accepted, and made once more from the last backward pass's stream for
+the final ``full`` replay.
+
 Whether a kernel or its plain version runs is decided by the device of
 ``x0s``/``u0s`` alone: CPU tensors run the plain versions, CUDA tensors the
 kernels, and inputs that are not tensors go to the card (:mod:`..device`).
@@ -28,7 +38,7 @@ import torch
 from ..device import as_tensor
 from ..policy import GaussianPolicy
 from ..ops.hopper.pack import to_streams, from_streams
-from ..ops.hopper.backward_kernel import OutLayout, backward_lanes
+from ..ops.hopper.backward_kernel import InLayout, OutLayout, backward_lanes
 from ..ops.hopper.forward_kernel import (LanesModel, check_slice, par_args,
                                          forward_lanes, linesearch_lanes)
 from .ilqg import ILQGConfig, tol_fun_effective
@@ -113,23 +123,41 @@ def _eval_terminal(model: LanesModel, xT, par) -> torch.Tensor:
 
 
 def _out_of_slice(packed_derivs, derivs_tiles, cfg):
-    if packed_derivs is not None:
-        raise NotImplementedError("packed_derivs is not ported yet")
     if cfg.verbosity > 1:
         raise NotImplementedError("verbosity > 1 (fleet iteration rows)")
-    if derivs_tiles is None:
-        raise ValueError("derivs_tiles is required")
+    if derivs_tiles is None and packed_derivs is None:
+        raise ValueError("derivs_tiles or packed_derivs is required")
+
+
+def _packed(packed_derivs, traj, n: int, m: int) -> torch.Tensor:
+    """The packed-derivatives stream of a [x, u, ...] stream, checked: a
+    (T, D+m, B) f32 stream for K1 (JAX ``InLayout``)."""
+    dp = packed_derivs(traj[:, :n], traj[:, n:n + m])
+    want = (traj.shape[0], InLayout(n, m).DU, traj.shape[2])
+    if not isinstance(dp, torch.Tensor) or tuple(dp.shape) != want:
+        raise ValueError(
+            f"packed_derivs gave {getattr(dp, 'shape', type(dp))}; K1 takes "
+            f"the (T, D+m, B) stream {want} (DerivLayout, then u)")
+    return dp.to(torch.float32).contiguous()
 
 
 def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
                      cfg: ILQGConfig = ILQGConfig(), derivs_tiles=None,
                      params=None, cost0=None, warm_start: bool = False,
                      lam0=None, dlam0=None, accepted0=None, max_steps=None,
-                     record_trace: bool = False) -> BatchILQGResult:
+                     kt_backward: int = 25, kt_forward: int = 25,
+                     record_trace: bool = False,
+                     interpret: bool = False) -> BatchILQGResult:
     """Solve B independent iLQG problems.
 
     - ``model``: :class:`LanesModel`; ``derivs_tiles``: the in-kernel
-      derivative function (e.g. ``pendcart_derivs_tiles(spec)``).
+      derivative function (e.g. ``pendcart_derivs_tiles(spec)``, or
+      ``pendcart_derivs_tiles_so(spec)`` for full DDP); or, with
+      ``derivs_tiles=None``, ``packed_derivs``: ``(x_s (T, n, B), u_s
+      (T, m, B)) → (T, D+m, B)``, K1's packed-derivatives stream (e.g.
+      ``pendcart_packed_derivs(spec)``, ``autodiff_packed_derivs(model)``),
+      built at init and rebuilt only after iterations in which some lane
+      accepted.
     - ``x0s``: (B, n) initial states, rolled out from ``u0s`` (B, T, m) by
       the α-sweep (``src/iLQG.jl:181-192``); or **pre-rolled** (B, T, n)
       trajectories used verbatim with ``u0s`` (``src/iLQG.jl:193-197``), a
@@ -148,11 +176,16 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
     - ``max_steps``: bound on this call's iterations below ``cfg.cap()``.
     - ``record_trace``: also return the (B, cap) :class:`BatchTrace`.
 
-    The JAX signature's TPU switches ``kt_backward``, ``kt_forward`` and
-    ``interpret`` are not taken.
+    The JAX signature's TPU switches ``kt_backward``, ``kt_forward``
+    (time steps a grid step) and ``interpret`` (Pallas interpret mode) are
+    taken and have no effect: each kernel thread walks the whole horizon,
+    and a CPU tensor runs the plain versions.
 
-    Not in this slice (NotImplementedError): ``packed_derivs``, m > 2 and
-    ``verbosity > 1``.
+    Host syncs: one per iteration for the exit check (with
+    ``packed_derivs``, the same transfer also brings the "some lane
+    accepted" flag) and one per λ-retry check, at least one an iteration.
+
+    Not in this slice (NotImplementedError): m > 2 and ``verbosity > 1``.
     """
     x0s = as_tensor(x0s)
     u0s = as_tensor(u0s)
@@ -198,10 +231,16 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
                              model=model, lims=lims, gk=0, gK=m,
                              emit_traj=emit)
 
-    def run_bwd(traj, lam, emit="gains"):
-        return backward_lanes(traj, lam, n=n, m=m, reg_type=cfg.reg_type,
+    def run_bwd(bwd_in, lam, emit="gains"):
+        # the packed stream holds the expansion: no params enter K1
+        return backward_lanes(bwd_in, lam, n=n, m=m, reg_type=cfg.reg_type,
                               lims=lims, derivs_tiles=derivs_tiles,
-                              params=par_l, lims_lanes=lims_l, emit=emit)
+                              params=par_l if derivs_tiles is not None
+                              else None, lims_lanes=lims_l, emit=emit)
+
+    # the in-kernel tiles read the trajectory stream itself; the packed
+    # route carries its derivative stream (JAX :380-381, :426-431)
+    use_packed = derivs_tiles is None
 
     if pre_rolled:
         # trust the supplied trajectory verbatim (src/iLQG.jl:193-197): no
@@ -253,6 +292,7 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
         tr["alpha"].fill_(float("nan"))
 
     traj, cost_tot = traj_init, tot_init
+    bwd_in = _packed(packed_derivs, traj, n, m) if use_packed else None
     lam = (given["lam0"].to(f32) if lam0 is not None
            else torch.full((B,), cfg.lam, dtype=f32, device=dev))
     dlam = (given["dlam0"].to(f32) if dlam0 is not None
@@ -268,13 +308,17 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
     cap_rt = min(max_steps + 1, cap)
 
     it = 1
-    while it < cap_rt and not bool(done.all()):
+    all_done = bool(done.all())
+    while it < cap_rt and not all_done:
         active = ~done
         u_cur = traj[:, n:n + m]
 
         # == derivatives + backward pass with per-scenario λ retry
         #    (src/iLQG.jl:226-251); every retry relaunches the whole fleet
-        res = run_bwd(traj, lam)
+        #    on the same stream: the packed one is not rebuilt for a retry
+        if not use_packed:
+            bwd_in = traj
+        res = run_bwd(bwd_in, lam)
         lam_r, dlam_r = lam, dlam
         aborted = torch.zeros((B,), dtype=torch.bool, device=dev)
         while bool((active & (res.stats[2] > 0.5) & ~aborted).any()):
@@ -286,7 +330,7 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
                 dlam_r)
             aborted = aborted | (div & (lam_n > cfg.lam_max))
             lam_r, dlam_r = lam_n, dlam_n
-            res = run_bwd(traj, lam_r)
+            res = run_bwd(bwd_in, lam_r)
         bo = res.out
         dV1, dV2 = res.stats[0], res.stats[1]
         bp_bad = aborted | (res.stats[2] > 0.5)
@@ -361,12 +405,24 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
         it_lane = torch.where(active, it, it_lane).to(torch.int32)
         g_norm = torch.where(active, g_it, g_norm)
         it += 1
+        if use_packed:
+            # one transfer brings the exit check and "some lane accepted";
+            # the stream is rebuilt only when some lane moved (JAX
+            # :550-556, the reference's flg_change, src/iLQG.jl:226-229)
+            all_done, any_acc = torch.stack(
+                [done.all(), accept.any()]).tolist()
+            if any_acc:
+                bwd_in = _packed(packed_derivs, traj, n, m)
+        else:
+            all_done = bool(done.all())
 
     reason = torch.where((reason == 0) & (accepted > cfg.max_iter), 4,
                          reason).to(torch.int32)
 
-    # ---- replay the final backward outputs in full emission, once
-    bo_full = run_bwd(traj_bwd, lam_used, emit="full").out
+    # ---- replay the final backward outputs in full emission, once, on the
+    #      stream of the last backward pass each lane ran (JAX :590-592)
+    bo_full = run_bwd(_packed(packed_derivs, traj_bwd, n, m) if use_packed
+                      else traj_bwd, lam_used, emit="full").out
     # reason-5 lanes: zero-gain, unit-Σ policy and zero value expansion
     # (GaussianPolicy.zeros, src/iLQG.jl:205-210); the rollout entry also
     # restores the frozen initial rollout, while a pre-rolled lane kept its
@@ -399,7 +455,9 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
 
 
 def ilqg_iteration_lanes(model: LanesModel, packed_derivs, lims,
-                         cfg: ILQGConfig, derivs_tiles=None) -> Callable:
+                         cfg: ILQGConfig, derivs_tiles=None,
+                         kt_backward: int = 25, kt_forward: int = 25,
+                         interpret: bool = False) -> Callable:
     """One iLQG iteration on stream state, the per-step hot path of an MPC
     loop (JAX ``solvers/batch.py:646-707``). Returns
     ``step(traj, cost_tot, lam) -> (traj, cost_tot, lam)`` with ``traj`` the
@@ -412,12 +470,13 @@ def ilqg_iteration_lanes(model: LanesModel, packed_derivs, lims,
     ``where(accept, max(λ/lam_factor, 1e-6), min(λ·lam_factor, lam_max))``,
     not by the solver's dλ schedule. ``lims`` is static, a per-scenario
     (B, m, 2) array (packed here once), or None. As in JAX, the step takes
-    no ``params``; ``packed_derivs`` is not ported (NotImplementedError).
+    no ``params``. With ``derivs_tiles=None``, K1 reads the stream
+    ``packed_derivs`` makes of ``traj`` at each step. ``kt_backward``,
+    ``kt_forward`` and ``interpret`` are the TPU kernels' switches and have
+    no effect here.
     """
-    if packed_derivs is not None:
-        raise NotImplementedError("packed_derivs is not ported yet")
-    if derivs_tiles is None:
-        raise ValueError("derivs_tiles is required")
+    if derivs_tiles is None and packed_derivs is None:
+        raise ValueError("derivs_tiles or packed_derivs is required")
     if model.n_params:
         raise ValueError("ilqg_iteration_lanes takes no params, as the JAX "
                          "package's; its model must have n_params == 0")
@@ -429,7 +488,9 @@ def ilqg_iteration_lanes(model: LanesModel, packed_derivs, lims,
 
     def step(traj, cost_tot, lam):
         x0_l = traj[0, :n]           # a view: K2 reads it before writing
-        res = backward_lanes(traj, lam, n=n, m=m, reg_type=cfg.reg_type,
+        bwd_in = (traj if derivs_tiles is not None
+                  else _packed(packed_derivs, traj, n, m))
+        res = backward_lanes(bwd_in, lam, n=n, m=m, reg_type=cfg.reg_type,
                              lims=lims, derivs_tiles=derivs_tiles,
                              lims_lanes=lims_l, emit="gains")
         allow = ~(res.stats[2] > 0.5)
@@ -452,7 +513,8 @@ def ilqg_iteration_lanes(model: LanesModel, packed_derivs, lims,
 def mpc_rollout_lanes(model: LanesModel, packed_derivs, x0s, u0s,
                       plant: Callable, n_steps: int, lims=None,
                       cfg: ILQGConfig = ILQGConfig(), derivs_tiles=None,
-                      params=None):
+                      params=None, kt_backward: int = 25,
+                      kt_forward: int = 25, interpret: bool = False):
     """Receding-horizon MPC: ``n_steps`` chained steps of a warm-started,
     bounded iLQG re-solve (:func:`ilqg_batch_lanes` with
     ``warm_start=True``, ``max_steps = cfg.cap() - 1``), the plan's first
@@ -463,8 +525,10 @@ def mpc_rollout_lanes(model: LanesModel, packed_derivs, x0s, u0s,
     - ``plant(x (B, n), u (B, m)) -> x_next (B, n)``: the true plant, which
       may differ from ``model``'s prediction; its output is cast to f32.
     - ``x0s`` (B, n), ``u0s`` (B, T, m): the first state and plan, cast to
-      f32. ``lims`` (static or per-scenario) and ``params`` go to every
-      re-solve.
+      f32. ``lims`` (static or per-scenario), ``params`` and
+      ``derivs_tiles`` or ``packed_derivs`` go to every re-solve.
+    - ``kt_backward``, ``kt_forward`` and ``interpret``: the TPU kernels'
+      switches, taken and without effect.
 
     Returns ``(x_final (B, n), u_plan_final (B, T, m), states
     (n_steps, B, n), controls (n_steps, B, m), cost_totals (n_steps, B))``.

@@ -160,10 +160,10 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
                        traj_prev: GaussianPolicy, fx_model, cost0,
                        lims: Optional[Tuple] = None,
                        cfg: ILQGKLConfig = ILQGKLConfig(),
-                       r1: Optional[Tuple] = None, *,
-                       record_trace: bool = False, bracket0=None,
-                       delta0_in=None, adam0_in=None, it0=None,
-                       max_steps=None) -> BatchKLResult:
+                       r1: Optional[Tuple] = None, kt: int = 16,
+                       record_trace: bool = False, interpret: bool = False,
+                       *, bracket0=None, delta0_in=None, adam0_in=None,
+                       it0=None, max_steps=None) -> BatchKLResult:
     """KL-constrained solve for B scenarios. ``cfg.constrain_per_step``
     selects the per-step η variant (ADAM on log η); otherwise the scalar-η
     bracketing branch (``src/iLQGkl.jl:93-181``).
@@ -179,7 +179,10 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
       (K1 in GPS mode and K3 read each lane's box), or None.
     - ``record_trace``: also return the (B, max_iter+1) :class:`BatchKLTrace`.
 
-    The JAX signature's TPU switches ``kt`` and ``interpret`` are not taken.
+    The JAX signature's TPU switches ``kt`` (time steps a grid step) and
+    ``interpret`` (Pallas interpret mode) are taken and have no effect:
+    each kernel thread walks the whole horizon, and a CPU tensor runs the
+    plain versions.
 
     Not in this slice (NotImplementedError): the KL fleet scheduler's resume
     inputs ``bracket0``, ``delta0_in``, ``adam0_in``, ``it0``,
@@ -392,7 +395,9 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
 
 def gps_rollout_lanes(model, derivs_tiles, x0s, traj0: GaussianPolicy, cost0,
                       fx_fn: Callable, outer_iters: int, lims=None,
-                      cfg: ILQGKLConfig = ILQGKLConfig(), r1=None):
+                      cfg: ILQGKLConfig = ILQGKLConfig(), r1=None,
+                      kt: int = 16, unroll: Optional[int] = None,
+                      interpret: bool = False):
     """GPS-style policy improvement: ``outer_iters`` chained
     :func:`ilqgkl_batch_lanes` solves, each re-centred on the previous
     result (``x ← res.x``, ``traj_prev ← res.policy``,
@@ -402,8 +407,8 @@ def gps_rollout_lanes(model, derivs_tiles, x0s, traj0: GaussianPolicy, cost0,
 
     ``fx_fn(x (B, T, n), u (B, T, m)) -> fx (B, T, n, n)`` gives the
     covariance-propagation dynamics along the current rollout. The JAX
-    signature's compile switches ``kt``, ``unroll`` and ``interpret`` are not
-    taken.
+    signature's compile switches ``kt``, ``unroll`` (of its ``lax.scan``)
+    and ``interpret`` are taken and have no effect here.
 
     Returns ``(x_final (B, T, n), policy_final, per_outer)`` where
     ``per_outer`` is ``(cost_total, eta, divergence, satisfied,

@@ -107,12 +107,19 @@ def test_autodiff_tiles_descriptor_and_cache():
 
 def test_autodiff_out_of_slice_raises():
     tm = tq.quadrotor_lanes(tq.QuadrotorSpec())
-    with pytest.raises(NotImplementedError, match="second_order"):
-        autodiff_derivs_tiles(tm, second_order=True)
-    with pytest.raises(NotImplementedError, match="packed"):
-        tat.autodiff_packed_derivs(tm)
-    # the generic tier's full-DDP derivatives and the zoh scheme are ported:
-    # they build, where the lane tier's second-order tiles still raise
+    # second-order tiles and the packed generator are ported: they build,
+    # marked for K1's second-order instance, and a model with per-scenario
+    # parameters still raises
+    so = autodiff_derivs_tiles(tm, second_order=True)
+    assert so.device.autodiff and so.device.second_order
+    assert so is not autodiff_derivs_tiles(tm)
+    assert callable(tat.autodiff_packed_derivs(tm))
+    tpm = tpc.pendcart_lanes_param(tpc.PendCartSpec())
+    with pytest.raises(NotImplementedError, match="params"):
+        autodiff_derivs_tiles(tpm)
+    with pytest.raises(NotImplementedError, match="params"):
+        tat.autodiff_packed_derivs(tpm)
+    # the generic tier's full-DDP derivatives and the zoh scheme are ported
     tp = tq.make_quadrotor_problem(tq.QuadrotorSpec(), device="cpu")
     d = make_autodiff_derivs(tp.dynamics, tp.cost, second_order=True)(
         torch.zeros(1, 3, tm.n), torch.ones(1, 3, tm.m))

@@ -162,7 +162,9 @@ def test_backward_unconstrained_matches_jax(reg_type):
 
 
 @pytest.mark.parametrize("kwargs,option,exc", [
-    (dict(derivs_tiles=None), "packed-derivatives", NotImplementedError),
+    # the packed-derivatives input is ported: a stream of the wrong slot
+    # count (a trajectory where D+m = 47 slots are due) is refused
+    (dict(derivs_tiles=None), "packed-derivatives", ValueError),
     (dict(prev=torch.zeros((T, 6, B))), "both prev and eta", ValueError),
     (dict(prev=torch.zeros((T, 5, B)), eta=torch.ones((T, B))), "prev",
      ValueError),

@@ -123,11 +123,17 @@ def test_batch_unconstrained_matches_jax():
      "verbosity"),
 ])
 def test_batch_out_of_slice_options_raise(kwargs, option):
+    """verbosity > 1 is not ported (NotImplementedError); packed_derivs is,
+    and a generator that does not give K1's (T, D+m, B) stream is refused
+    (ValueError)."""
     x0s, u0s = _inputs()
     spec = tpc.PendCartSpec()
     call = dict(lims=LIMS, derivs_tiles=tpc.pendcart_derivs_tiles(spec))
     call.update(kwargs)
-    with pytest.raises(NotImplementedError, match=option):
+    exc = NotImplementedError
+    if option == "packed_derivs":
+        call["derivs_tiles"], exc = None, ValueError
+    with pytest.raises(exc, match=option):
         ilqg_batch_lanes(tpc.pendcart_lanes(spec), call.pop("packed_derivs",
                                                             None),
                          torch.from_numpy(x0s), torch.from_numpy(u0s), **call)

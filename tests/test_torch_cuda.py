@@ -1279,3 +1279,177 @@ def test_generic_boxqp_card_matches_cpu(dev):
     cb = boxqp(*(torch.tensor(a) for a in args))
     assert torch.equal(gb.result.cpu(), cb.result)
     torch.testing.assert_close(gb.x.cpu(), cb.x, rtol=1e-9, atol=1e-12)
+
+
+# ---- K1's packed-derivatives and second-order (full DDP) instances
+
+def _packed_case(name, dev, Bc=B, Tc=T):
+    """(n, m, lims, packed stream (Tc, D+m, Bc), trajectory) of a model on
+    a rollout of its own: pendcart ⟨4,1⟩, quadrotor ⟨6,2⟩ (autodiff
+    generator), LTI ⟨10,2⟩."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import (
+        linear, quadrotor)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    rng = np.random.default_rng(5)
+    if name == "pendcart":
+        n, m, lims, model = 4, 1, LIMS, tpc.pendcart_lanes(SPEC)
+        gen = tpc.pendcart_packed_derivs(SPEC)
+        x0 = np.array([np.pi - 0.6, 0, 0, 0])[:, None] + np.array(
+            [0.2, 0, 0, 0])[:, None] * rng.standard_normal((4, Bc))
+        u0 = 2.0 * rng.standard_normal((Tc, 1, Bc))
+    elif name == "quad":
+        qs = quadrotor.QuadrotorSpec()
+        n, m, lims, model = 6, 2, qs.lims, quadrotor.quadrotor_lanes(qs)
+        gen = autodiff_tiles.autodiff_packed_derivs(model)
+        x0 = np.array([1.0, 0, 0, 0, 0.3, 0])[:, None] + np.array(
+            [0.3, 0, 0.3, 0, 0.15, 0])[:, None] * rng.standard_normal((6, Bc))
+        u0 = qs.u_hover + 1.5 * rng.standard_normal((Tc, 2, Bc))
+    else:
+        spec = linear.random_lti(0, n=10, m=2, T=Tc, device=dev)
+        n, m, lims, model = 10, 2, LTI_LIMS, linear.lti_lanes(spec)
+        gen = linear.lti_packed_derivs(spec)
+        x0 = np.linspace(0.5, 2.0, Bc)[None, :] + 0.3 * rng.standard_normal(
+            (10, Bc))
+        u0 = 2.0 * rng.standard_normal((Tc, 2, Bc))
+    f = dict(dtype=torch.float32, device=dev)
+    gains0 = torch.cat([torch.tensor(u0, **f),
+                        torch.zeros((Tc, m * n, Bc), **f)], dim=1)
+    al = torch.tensor(rng.uniform(0, 1, (1, Bc)), **f)
+    traj = fk.forward_lanes(torch.zeros((Tc, n + m, Bc), **f), gains0,
+                            torch.tensor(x0, **f), al, model=model,
+                            lims=lims, emit_traj=True).traj
+    return n, m, lims, gen(traj[:, :n], traj[:, n:n + m]), traj
+
+
+@pytest.mark.parametrize("Bc,Tc", [(B, T), (37, 2), (1, 17)])
+@pytest.mark.parametrize("emit", ["gains", "full"])
+@pytest.mark.parametrize("name", ["pendcart", "quad", "lti"])
+def test_packed_kernel_matches_plain(dev, name, emit, Bc, Tc):
+    """K1 on the packed stream (Packed<N, M>) against its plain version, at
+    ragged B and T (the ring's chunk edges), and the pendcart's against K1
+    with in-kernel tiles on the same trajectory."""
+    n, m, lims, dp, traj = _packed_case(name, dev, Bc, Tc)
+    lam = torch.logspace(-6, 2, Bc, device=dev)
+    kw = dict(n=n, m=m, reg_type=2, lims=lims, derivs_tiles=None, emit=emit)
+    n0 = bk.backward_lanes.launches
+    k = bk.backward_lanes(dp, lam, **kw)
+    assert bk.backward_lanes.launches == n0 + 1
+    p = bk.backward_lanes_ref(dp, lam, **kw)
+    _slots_close(k.out, p.out, tol=1e-4 if emit == "full" else 1e-5)
+    torch.testing.assert_close(k.stats[:2], p.stats[:2], rtol=1e-4,
+                               atol=1e-5)
+    assert torch.equal(k.stats[2:], p.stats[2:])
+    if name == "pendcart":
+        a = bk.backward_lanes(traj, lam, **dict(
+            kw, derivs_tiles=tpc.pendcart_derivs_tiles(SPEC)))
+        _slots_close(k.out, a.out, tol=1e-4 if emit == "full" else 1e-5,
+                     share=0.0)
+
+
+@pytest.mark.parametrize("lims", [None, LIMS])
+def test_packed_gps_kernel_matches_plain(dev, lims):
+    """Packed<4, 1> in GPS mode, "full" emission: backward_pass_pallas's
+    GPS parity route."""
+    n, m, _, dp, _ = _packed_case("pendcart", dev)
+    rng = np.random.default_rng(3)
+    prev = torch.tensor(np.concatenate([
+        rng.standard_normal((T, 1, B)), 0.5 * rng.standard_normal((T, 4, B)),
+        rng.uniform(0.5, 2.0, (T, 1, B))], axis=1), dtype=torch.float32,
+        device=dev)
+    eta = torch.tensor(10.0 ** rng.uniform(-0.3, 1, (T, B)),
+                       dtype=torch.float32, device=dev)
+    kw = dict(n=4, m=1, reg_type=1, lims=lims, derivs_tiles=None,
+              emit="full", prev=prev, eta=eta)
+    lam = torch.zeros(B, device=dev)
+    k = bk.backward_lanes(dp, lam, **kw)
+    p = bk.backward_lanes_ref(dp, lam, **kw)
+    _slots_close(k.out, p.out, tol=1e-4)
+    assert torch.equal(k.stats[2:], p.stats[2:])
+
+
+@pytest.mark.parametrize("emit", ["gains", "full"])
+@pytest.mark.parametrize("name", ["pendcart_so", "pendcart_ad_so", "quad_so"])
+def test_second_order_kernel_matches_plain(dev, name, emit):
+    """The full-DDP instances (PendCartSO, Autodiff<PendCart, true>,
+    Autodiff<Quadrotor, true>) against their plain versions, and the
+    pendcart's analytic and autodiff Hessians against each other."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    lam = torch.logspace(-6, 2, B, device=dev)
+    if name == "quad_so":
+        spec, model, _, _, _, _, traj = _quad(dev)
+        n, m, lims = 6, 2, spec.lims
+        tiles = autodiff_tiles.autodiff_derivs_tiles(model, second_order=True)
+    else:
+        x0, gains0, al = _rollout(dev)
+        model = tpc.pendcart_lanes(SPEC)
+        traj = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0,
+                                x0, al, model=model, lims=LIMS,
+                                emit_traj=True).traj
+        n, m, lims = 4, 1, LIMS
+        tiles = (tpc.pendcart_derivs_tiles_so(SPEC) if name == "pendcart_so"
+                 else autodiff_tiles.autodiff_derivs_tiles(
+                     model, second_order=True))
+    kw = dict(n=n, m=m, reg_type=2, lims=lims, derivs_tiles=tiles, emit=emit)
+    k = bk.backward_lanes(traj, lam, **kw)
+    p = bk.backward_lanes_ref(traj, lam, **kw)
+    _slots_close(k.out, p.out, tol=1e-4 if emit == "full" else 1e-5)
+    assert torch.equal(k.stats[2:], p.stats[2:])
+    if name == "pendcart_ad_so":
+        a = bk.backward_lanes(traj, lam, **dict(
+            kw, derivs_tiles=tpc.pendcart_derivs_tiles_so(SPEC)))
+        _slots_close(k.out, a.out, tol=1e-4, share=0.0)
+
+
+def test_packed_and_second_order_without_instance_raise_on_card(dev):
+    """Packed GPS at ⟨6,2⟩, the packed stream in policy emission and the
+    second-order tiles in GPS mode have no instance: each raises
+    NotImplementedError, and nothing runs in its place."""
+    n, m, lims, dp, traj = _packed_case("quad", dev)
+    n0 = bk.backward_lanes.launches
+    gps = dict(prev=torch.zeros((T, m + m * n + m * m, B), device=dev),
+               eta=torch.ones((T, B), device=dev))
+    with pytest.raises(NotImplementedError, match="packed"):
+        bk.backward_lanes(dp, torch.ones(B, device=dev), n=n, m=m,
+                          reg_type=1, lims=lims, emit="full", **gps)
+    with pytest.raises(NotImplementedError, match="packed"):
+        bk.backward_lanes(dp, torch.ones(B, device=dev), n=n, m=m,
+                          reg_type=1, lims=lims, emit="policy")
+    x0, gains0, al = _rollout(dev)
+    ptraj = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0, x0,
+                             al, model=tpc.pendcart_lanes(SPEC), lims=LIMS,
+                             emit_traj=True).traj
+    with pytest.raises(NotImplementedError, match="second-order"):
+        bk.backward_lanes(ptraj, torch.ones(B, device=dev), n=4, m=1,
+                          reg_type=1, lims=LIMS, emit="policy",
+                          derivs_tiles=tpc.pendcart_derivs_tiles_so(SPEC),
+                          prev=torch.zeros((T, 6, B), device=dev),
+                          eta=torch.ones((T, B), device=dev))
+    assert bk.backward_lanes.launches == n0
+
+
+@pytest.mark.parametrize("kind", ["packed", "second_order"])
+def test_packed_and_full_ddp_solvers_on_card_match_cpu(dev, kind):
+    """The fleet solve with pendcart_packed_derivs, and with
+    pendcart_derivs_tiles_so, on the card against the same solve on CPU
+    tensors, by outcome."""
+    Bs, Ts = 32, 30
+    rng = np.random.default_rng(2)
+    x0 = torch.tensor(np.array([np.pi - 0.6, 0, 0, 0])[None, :]
+                      + 0.1 * rng.standard_normal((Bs, 4)),
+                      dtype=torch.float32)
+    u0 = torch.zeros((Bs, Ts, 1))
+    cfg = ILQGConfig(alphas=ALPHAS, reg_type=2, max_iter=8)
+    model = tpc.pendcart_lanes(SPEC)
+    kw = (dict(packed_derivs=tpc.pendcart_packed_derivs(SPEC))
+          if kind == "packed"
+          else dict(packed_derivs=None,
+                    derivs_tiles=tpc.pendcart_derivs_tiles_so(SPEC)))
+    pk = kw.pop("packed_derivs")
+    g = ilqg_batch_lanes(model, pk, x0.to(dev), u0.to(dev), lims=LIMS,
+                         cfg=cfg, **kw)
+    c = ilqg_batch_lanes(model, pk, x0, u0, lims=LIMS, cfg=cfg, **kw)
+    torch.testing.assert_close(g.cost_total.cpu(), c.cost_total, rtol=1e-3,
+                               atol=1e-4)
+    assert (g.reason.cpu() == c.reason).float().mean() >= 0.9

@@ -116,7 +116,7 @@ def test_missing_public_names():
     slices shrink the set)."""
     import differentialdynamicprogramming_jl_tpu_torch as P
     assert set(J.__all__) - set(P.__all__) == {
-        "autodiff_packed_derivs", "ilqg_fleet", "ilqg_fleet_sharded",
+        "ilqg_fleet", "ilqg_fleet_sharded",
         "ilqgkl_fleet", "ilqgkl_fleet_sharded", "export_solver",
         "serialize_solver", "deserialize_solver", "save_solver",
         "load_solver"}
