@@ -119,7 +119,28 @@ ends the run with a non-zero exit and no result line:
     convergence) with ``lti_packed_derivs``, against the CPU solve on 64
     lanes; ``backward_pass_pallas`` in GPS mode at B=4096, T=500 against
     its CPU plain version;
-33. the kernel record (one entry per kernel instance, with its bound; K4
+33. the fleet group, LTI: ``ilqg_fleet`` against lock-step
+    ``ilqg_batch_lanes`` on the LTI fleet of phase 15 (B=4096, T=1000,
+    to convergence) with JAX's three schedules (``tools/bench_fleet.py:
+    126-129``), bit for bit in cost_total, reason, n_accepted, u, x and
+    policy.K; each schedule's ms (CUDA events after a warm-up), chunks,
+    lanes a chunk, host syncs, peak memory and launches; whether
+    ``torch.mean`` over T of a lane depends on its batch on the card;
+34. the fleet group, pendcart (JAX ``tools/bench_fleet.py``'s default leg:
+    T=500, ±5, x0 spread 0.4 on angle and cart, u0 = 0, max_iter 300):
+    lock-step ms per iteration at B=4096, 16384 and 65536, the fleet
+    against lock-step at B=4096 and B=65536 as in phase 33, and the
+    stitched ``record_trace`` against lock-step's trace;
+35. the fleet group, KL: ``ilqgkl_fleet`` against ``ilqgkl_batch_lanes``
+    on the KL path's inputs (B=4096, T=500) with scalar and per-step η,
+    bit for bit also in η, satisfied, divergence and n_iters;
+36. the fleet group, sharded: a one-rank NCCL group on the card (a file
+    store, no port): ``ilqg_batch_sharded`` and ``ilqg_fleet_sharded`` on
+    phase 34's inputs, ``ilqgkl_batch_sharded`` and
+    ``ilqgkl_fleet_sharded`` on phase 35's, ``ilqg_sharded`` on phase 28's
+    cut to 3 iterations, each equal to its unsharded call and its stats to
+    the local sums;
+37. the kernel record (one entry per kernel instance, with its bound; K4
     at n=6, on no path, with the launches of its check) and the result
     line.
 """
@@ -3611,6 +3632,376 @@ def packed_phases(ph, dev, rec, counters, ilqg, cpu_proc) -> dict:
     return paths
 
 
+# the fleet group (phases 33-36): the fleet scheduler against lock-step on
+# the repo's fleet configurations (JAX tools/bench_fleet.py) at B=4096, the
+# pendcart fleet also at FLEET_B_BIG (16 × the repo's cells: the card holds
+# about 132 SMs × 4 blocks × 32 scenarios ≈ 16k lanes at once), and
+# lock-step ms per iteration over FLEET_SWEEP_B (FLEET_SWEEP_ITERS
+# iterations a solve)
+FLEET_B_BIG = 65536
+FLEET_SWEEP_B = (4096, 16384, 65536)
+FLEET_SWEEP_ITERS = 20
+# the pendcart fleet (JAX tools/bench_fleet.py:76-90): x0 = default_x0 +
+# 0.4·N(0,1) on angle and cart position, u0 = 0, ±5, max_iter 300
+FLEET_PEND_SPREAD, FLEET_ITERS = 0.4, 300
+
+
+def fleet_schedules(iters: torch.Tensor) -> tuple:
+    """JAX's three schedules (tools/bench_fleet.py:126-129): (chunk_iters,
+    chunk_growth) from the lock-step median of n_iters."""
+    med = int(iters.float().median().item())
+    return ((max(med, 1), 8.0), (max(4, med - 2), 4.0), (10, 10.0))
+
+
+def fleet_run(fn, counters) -> tuple:
+    """One warm-up run of ``fn`` with its host syncs, launches, peak memory
+    (above what was allocated before it) and, for a fleet with
+    ``verbose=True``, the lanes of each chunk; then one timed run (CUDA
+    events). Returns (the timed run's result, its numbers)."""
+    import contextlib
+    import io
+    import re
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (out, syncs), launches = counted(counters, lambda: sync_count(fn))
+    peak = torch.cuda.max_memory_allocated() - base
+    B = out.cost_total.shape[0]
+    lanes = [B] + [int(n) for n in re.findall(r"chunk \d+: (\d+)/",
+                                              buf.getvalue()) if int(n)]
+    del out
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        s.record()
+        out = fn()
+        e.record()
+    torch.cuda.synchronize()
+    return out, dict(ms=s.elapsed_time(e), syncs=syncs, launches=launches,
+                     peak_bytes=peak, chunks=len(lanes), lanes=lanes)
+
+
+def hist(v: torch.Tensor) -> dict:
+    return {int(a): int(b) for a, b in zip(*torch.unique(
+        v, return_counts=True))}
+
+
+def same_as_lockstep(what: str, fl, ref, fields) -> None:
+    """The fleet's result against lock-step's, bit for bit in ``fields``
+    (names of the result, ``policy.K`` of its policy)."""
+    bad = [f for f in fields if not torch.equal(
+        fl.policy.K if f == "policy.K" else getattr(fl, f),
+        ref.policy.K if f == "policy.K" else getattr(ref, f))]
+    print(f"  {what}: bit-equal to lock-step in {', '.join(fields)}: "
+          f"{not bad}")
+    check(not bad, f"{what}: differs from lock-step in {bad}")
+
+
+ILQG_FIELDS = ("cost_total", "reason", "n_accepted", "u", "x", "policy.K")
+KL_FIELDS = ("cost_total", "u", "x", "policy.K", "eta", "satisfied",
+             "divergence", "n_iters")
+
+
+def fleet_compare(what, fleet_fn, ref, ref_run, schedules, counters,
+                  out) -> dict:
+    """Each schedule's fleet solve against the lock-step result ``ref``:
+    bit-equality, n_iters, chunks, lanes a chunk, ms, host syncs, peak
+    memory and launches. Adds one entry a schedule to ``out``; returns the
+    first schedule's launches."""
+    first = None
+    for ci, gr in schedules:
+        fl, r = fleet_run(lambda: fleet_fn(ci, gr), counters)
+        same_as_lockstep(f"{what} fleet ({ci}, {gr:g})", fl, ref,
+                         ILQG_FIELDS)
+        check(bool((fl.n_iters >= ref.n_iters).all()),
+              f"{what}: a fleet lane ran fewer iterations than lock-step")
+        print(f"  {what} fleet ({ci}, {gr:g}): {r['ms']:.3f} ms "
+              f"({ref_run['ms'] / r['ms']:.3f}× lock-step's "
+              f"{ref_run['ms']:.3f}), {r['chunks']} chunks of lanes "
+              f"{r['lanes']}, n_iters equal to lock-step's: "
+              f"{torch.equal(fl.n_iters, ref.n_iters)}, {r['syncs']} host "
+              f"syncs (lock-step {ref_run['syncs']}), peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB (lock-step "
+              f"{ref_run['peak_bytes'] / 2**30:.3f}), launches "
+              f"{r['launches']}")
+        out[f"fleet_{ci}_{gr:g}"] = {k: v for k, v in r.items()}
+        first = first or r["launches"]
+        del fl
+    return first
+
+
+def fleet_phases(ph, dev, counters) -> dict:
+    """Phases 33-36, the "fleet" group: ``ilqg_fleet`` against lock-step
+    ``ilqg_batch_lanes`` on the LTI fleet and on the pendcart fleet (at
+    B=4096 and FLEET_B_BIG, JAX's three schedules each, bit for bit), the
+    stitched trace, lock-step ms per iteration over FLEET_SWEEP_B;
+    ``ilqgkl_fleet`` against ``ilqgkl_batch_lanes`` in both η modes; the
+    sharded entries on a one-rank NCCL group against their unsharded calls.
+    Returns (the paths' launches, the group's numbers)."""
+    import tempfile
+    from differentialdynamicprogramming_jl_tpu_torch.models import (
+        pendcart as tpc)
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        from_streams, mean_t, to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.parallel import (
+        distributed as D, mesh as M)
+    from differentialdynamicprogramming_jl_tpu_torch.policy import (
+        GaussianPolicy)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        BatchTrace, ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.fleet import (
+        ilqg_fleet, ilqg_fleet_sharded, ilqgkl_fleet, ilqgkl_fleet_sharded)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig, default_alphas)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+
+    paths, out = {}, {}
+    ph.start("fleet-lti", f"ilqg_fleet against ilqg_batch_lanes, LTI "
+             f"n={LTI_N} m={LTI_M} B={B} T={LTI_T}, ±0.6, to convergence")
+    # a reduction over T on the card picks its order from the shape: the
+    # same lane's mean over a compacted batch against over the whole fleet
+    x = torch.randn((T, B), device=dev)
+    for k in (B - 1, 1000, 37):
+        print(f"  mean over T={T} of {k} of {B} lanes: torch.mean equal to "
+              f"the whole batch's: "
+              f"{torch.equal(torch.mean(x[:, :k], 0), torch.mean(x, 0)[:k])}"
+              f"; mean_t equal: {torch.equal(mean_t(x[:, :k]), mean_t(x)[:k])}")
+        check(torch.equal(mean_t(x[:, :k]), mean_t(x)[:k]),
+              "mean_t depends on the batch")
+    del x
+    spec = random_lti(0, n=LTI_N, m=LTI_M, T=LTI_T, device=dev)
+    model, tiles = lti_lanes(spec), lti_derivs_tiles(spec)
+    cfg = ILQGConfig(alphas=default_alphas(0.2, -3.0, 6), reg_type=2,
+                     lam_max=1e15, max_iter=FLEET_ITERS)
+    x0s = torch.ones((B, LTI_N), device=dev) * torch.linspace(
+        0.5, 2.0, B, device=dev)[:, None]
+    u0s = spec.u0.expand(B, LTI_T, LTI_M).contiguous()
+    kw = dict(lims=LTI_LIMS, cfg=cfg, derivs_tiles=tiles)
+    ref, rr = fleet_run(lambda: ilqg_batch_lanes(model, None, x0s, u0s, **kw),
+                        counters)
+    print(f"  lock-step: {rr['ms']:.3f} ms, n_iters histogram "
+          f"{hist(ref.n_iters)}, reasons {hist(ref.reason)}, {rr['syncs']} "
+          f"host syncs, peak {rr['peak_bytes'] / 2**30:.3f} GiB, launches "
+          f"{rr['launches']}")
+    res = out["lti"] = dict(lockstep=rr, n_iters=hist(ref.n_iters))
+    paths["fleet_lti"] = fleet_compare(
+        "LTI", lambda ci, gr: ilqg_fleet(
+            model, None, x0s, u0s, chunk_iters=ci, chunk_growth=gr,
+            verbose=True, **kw),
+        ref, rr, fleet_schedules(ref.n_iters), counters, res)
+    del ref, spec, model, tiles, x0s, u0s
+
+    ph.start("fleet-pendcart", f"ilqg_fleet against ilqg_batch_lanes, "
+             f"pendcart B={B} and {FLEET_B_BIG}, T={T}, ±5, x0 spread "
+             f"{FLEET_PEND_SPREAD} on angle and cart, max_iter {FLEET_ITERS}")
+    spec = tpc.PendCartSpec()
+    model, tiles = tpc.pendcart_lanes(spec), tpc.pendcart_derivs_tiles(spec)
+    cfg = ILQGConfig(alphas=default_alphas(0.2, -3.0, 6), reg_type=2,
+                     lam_max=1e15, max_iter=FLEET_ITERS)
+    rng = np.random.default_rng(33)
+    x0_np = np.asarray(tpc.default_x0(device="cpu").numpy(), np.float64)[
+        None, :] + FLEET_PEND_SPREAD * rng.standard_normal(
+            (FLEET_B_BIG, 4)) * np.array([1.0, 1.0, 0, 0])
+    x0_all = torch.tensor(x0_np, dtype=torch.float32, device=dev)
+    kw = dict(lims=LIMS, cfg=cfg, derivs_tiles=tiles)
+    out["pendcart"] = {}
+    sweep = {}
+    for b in FLEET_SWEEP_B:
+        u0 = torch.zeros((b, T, 1), device=dev)
+        r, run = fleet_run(lambda: ilqg_batch_lanes(
+            model, None, x0_all[:b], u0, max_steps=FLEET_SWEEP_ITERS, **kw),
+            counters)
+        it = int(r.n_iters.max())
+        sweep[b] = dict(ms=run["ms"], iters=it, ms_per_iter=run["ms"] / it,
+                        peak_bytes=run["peak_bytes"])
+        print(f"  lock-step B={b}, {FLEET_SWEEP_ITERS} iterations: "
+              f"{run['ms']:.3f} ms, {run['ms'] / it:.4f} ms/iter over {it}, "
+              f"peak {run['peak_bytes'] / 2**30:.3f} GiB")
+        del r, u0
+    out["pendcart"]["sweep"] = sweep
+    for b in (B, FLEET_B_BIG):
+        x0s, u0s = x0_all[:b], torch.zeros((b, T, 1), device=dev)
+        ref, rr = fleet_run(lambda: ilqg_batch_lanes(
+            model, None, x0s, u0s, **kw), counters)
+        print(f"  lock-step B={b}: {rr['ms']:.3f} ms, n_iters histogram "
+              f"{hist(ref.n_iters)}, reasons {hist(ref.reason)}, "
+              f"{rr['syncs']} host syncs, peak "
+              f"{rr['peak_bytes'] / 2**30:.3f} GiB, launches "
+              f"{rr['launches']}")
+        check(bool(torch.isfinite(ref.cost_total).all()),
+              f"pendcart fleet B={b}: non-finite lock-step cost")
+        res = out["pendcart"][b] = dict(lockstep=rr, n_iters=hist(
+            ref.n_iters))
+        first = fleet_compare(
+            f"pendcart B={b}", lambda ci, gr: ilqg_fleet(
+                model, None, x0s, u0s, chunk_iters=ci, chunk_growth=gr,
+                verbose=True, **kw),
+            ref, rr, fleet_schedules(ref.n_iters), counters, res)
+        if b == B:
+            # what FLEET_B_BIG's streams should take, from this B's peak
+            want = rr["peak_bytes"] * FLEET_B_BIG / B
+            have = torch.cuda.get_device_properties(dev).total_memory
+            print(f"  B={FLEET_B_BIG} should peak at ≈{want / 2**30:.2f} GiB "
+                  f"({FLEET_B_BIG // B} × B={B}'s) of the card's "
+                  f"{have / 2**30:.1f}")
+            check(want < 0.8 * have, f"B={FLEET_B_BIG} would not fit")
+            paths["fleet_pendcart"] = first
+            sched = fleet_schedules(ref.n_iters)[0]
+            pend_ref, pend_in = ref, (x0s, u0s, sched)
+        else:
+            paths["fleet_pendcart_big"] = first
+            del ref
+    # the stitched trace: rows 1..n_iters as lock-step's
+    x0s, u0s, (ci, gr) = pend_in
+    rt = ilqg_batch_lanes(model, None, x0s, u0s, record_trace=True, **kw)
+    ft = ilqg_fleet(model, None, x0s, u0s, chunk_iters=ci, chunk_growth=gr,
+                    record_trace=True, **kw)
+    cols = torch.arange(cfg.cap(), device=dev)[None, :]
+    upto = cols <= rt.n_iters[:, None].long()
+    bad = [f for f in BatchTrace._fields if not torch.equal(
+        torch.where(upto, getattr(ft.trace, f).nan_to_num(7.0), 0.0),
+        torch.where(upto, getattr(rt.trace, f).nan_to_num(7.0), 0.0))]
+    print(f"  record_trace ({ci}, {gr:g}): stitched rows 1..n_iters equal "
+          f"to lock-step's trace: {not bad}")
+    check(not bad, f"stitched trace differs in {bad}")
+    del rt, ft, x0_all
+
+    ph.start("fleet-kl", f"ilqgkl_fleet against ilqgkl_batch_lanes, pendcart "
+             f"B={B} T={T}, kl_step={KL_STEP}, max_iter={KL_ITERS}, scalar "
+             f"and per-step η")
+    # the KL path's inputs (kl_phases): x0 = default_x0 + 0.2·N(0,1) on
+    # angle and cart, u0 = 0.2·N(0,1) from seed 1, pre-rolled by K3
+    rng = np.random.default_rng(1)
+    x0_np = np.asarray(tpc.default_x0(device="cpu").numpy(),
+                       np.float64)[None, :] + (
+        0.2 * rng.standard_normal((B, 4)) * np.array([1.0, 1.0, 0, 0]))
+    u0 = torch.tensor(0.2 * rng.standard_normal((B, T, 1)),
+                      dtype=torch.float32, device=dev)
+    pre = fk.forward_lanes(
+        torch.zeros((T, 5, B), device=dev),
+        torch.cat([to_streams(u0), torch.zeros((T, 4, B), device=dev)], 1),
+        torch.tensor(x0_np.T.copy(), dtype=torch.float32, device=dev),
+        torch.ones((1, B), device=dev), model=model, lims=None,
+        emit_traj=True)
+    x_pre = from_streams(pre.traj[:, :4], (4,)).contiguous()
+    u_pre = from_streams(pre.traj[:, 4:5], (1,)).contiguous()
+    cost0 = pre.totals[0]
+    fx = tpc.make_pendcart_problem(spec, derivs="euler", device=dev).derivs(
+        x_pre, u_pre).fx.contiguous()
+    policy0 = GaussianPolicy(
+        K=torch.zeros((B, T, 1, 4), device=dev), k=u_pre,
+        sigma=torch.ones((B, T, 1, 1), device=dev),
+        sigma_inv=torch.ones((B, T, 1, 1), device=dev))
+    kl_args = (model, tiles, x_pre, policy0, fx, cost0)
+    out["kl"] = {}
+    for mode, per_step in (("scalar", False), ("per-step", True)):
+        kcfg = ILQGKLConfig(kl_step=KL_STEP, max_iter=KL_ITERS,
+                            constrain_per_step=per_step)
+        ref, rr = fleet_run(lambda: ilqgkl_batch_lanes(*kl_args, cfg=kcfg),
+                            counters)
+        fl, r = fleet_run(lambda: ilqgkl_fleet(*kl_args, cfg=kcfg,
+                                               verbose=True), counters)
+        same_as_lockstep(f"KL {mode} η fleet (4, 4)", fl, ref, KL_FIELDS)
+        print(f"  KL {mode} η: lock-step {rr['ms']:.3f} ms (n_iters "
+              f"{hist(ref.n_iters)}, satisfied "
+              f"{ref.satisfied.float().mean().item():.4f}), fleet "
+              f"{r['ms']:.3f} ms ({rr['ms'] / r['ms']:.3f}× lock-step's), "
+              f"{r['chunks']} chunks of lanes {r['lanes']}, host syncs "
+              f"{r['syncs']} against {rr['syncs']}, launches {r['launches']}")
+        out["kl"][mode] = dict(lockstep=rr, fleet=r,
+                               n_iters=hist(ref.n_iters))
+        paths["fleet_kl" if not per_step else "fleet_kl_step"] = \
+            r["launches"]
+        if not per_step:
+            kl_ref, kl_fl, kl_cfg = ref, fl, kcfg
+        del ref, fl
+
+    ph.start("sharded", "the sharded entries on a one-rank NCCL group "
+             "against their unsharded calls")
+    with tempfile.TemporaryDirectory() as tmp:
+        D.init_distributed(f"file://{tmp}/store", num_processes=1,
+                           process_id=0, local_device_ids=[dev.index or 0])
+        try:
+            mesh = D.global_mesh()
+            print(f"  mesh: {mesh.devices}, rank {mesh.rank} of "
+                  f"{mesh.world_size}, backend "
+                  f"{torch.distributed.get_backend()}")
+            x0s, u0s, (ci, gr) = pend_in
+
+            def stats_equal(what, st, want):
+                same = torch.equal(st.cpu(), torch.stack(want).cpu())
+                print(f"  {what}: stats {st.tolist()} equal to the local "
+                      f"sums: {same}")
+                check(same, f"{what}: stats differ from the local sums")
+
+            def solved(r):
+                return ((r.reason == 1) | (r.reason == 2)).sum().float()
+
+            (res, st), launches = counted(counters, lambda: (
+                M.ilqg_batch_sharded(model, None, x0s, u0s, mesh=mesh,
+                                     reduce_stats=True, **kw)))
+            paths["sharded_pendcart"] = launches
+            same_as_lockstep("ilqg_batch_sharded", res, pend_ref,
+                             ILQG_FIELDS + ("n_iters",))
+            stats_equal("ilqg_batch_sharded", st, [
+                pend_ref.cost_total.sum(), pend_ref.n_iters.sum().float(),
+                solved(pend_ref)])
+            fl = ilqg_fleet(model, None, x0s, u0s, chunk_iters=ci,
+                            chunk_growth=gr, **kw)
+            res = ilqg_fleet_sharded(model, None, x0s, u0s, chunk_iters=ci,
+                                     chunk_growth=gr, mesh=mesh, **kw)
+            same_as_lockstep("ilqg_fleet_sharded (against ilqg_fleet)", res,
+                             fl, ILQG_FIELDS + ("n_iters",))
+            (res, st), launches = counted(counters, lambda: (
+                M.ilqgkl_batch_sharded(*kl_args, cfg=kl_cfg, mesh=mesh,
+                                       reduce_stats=True)))
+            paths["sharded_kl"] = launches
+            same_as_lockstep("ilqgkl_batch_sharded", res, kl_ref, KL_FIELDS)
+            stats_equal("ilqgkl_batch_sharded", st, [
+                kl_ref.cost_total.sum(), kl_ref.n_iters.sum().float(),
+                kl_ref.satisfied.sum().float()])
+            res = ilqgkl_fleet_sharded(*kl_args, cfg=kl_cfg, mesh=mesh)
+            same_as_lockstep("ilqgkl_fleet_sharded (against ilqgkl_fleet)",
+                             res, kl_fl, KL_FIELDS)
+            # the generic tier: generic-batched's inputs, f64, 3 iterations
+            f64 = torch.float64
+            rng = np.random.default_rng(28)
+            gx = np.tile(np.asarray(tpc.default_x0(f64, device="cpu")),
+                         (GEN_B, 1))
+            gx[:, 0] += 0.2 * rng.standard_normal(GEN_B)
+            gx = torch.tensor(gx, dtype=f64, device=dev)
+            gu = torch.zeros((GEN_B, GEN_T, 1), dtype=f64, device=dev)
+            prob = tpc.make_pendcart_problem(spec, derivs="zoh", dtype=f64,
+                                             device=dev)
+            gcfg = ILQGConfig(alphas=default_alphas(0.2, -3.0, 6),
+                              reg_type=2, lam_max=1e15, tol_fun=1e-8,
+                              tol_grad=1e-8, max_iter=3)
+            glims = torch.tensor([[-10.0, 10.0]], dtype=f64, device=dev)
+            gref = M.ilqg_batched(prob, gx, gu, lims=glims, cfg=gcfg)
+            res, st = M.ilqg_sharded(prob, gx, gu, lims=glims, cfg=gcfg,
+                                     mesh=mesh, reduce_stats=True)
+            bad = [f for f in ("x", "u", "cost", "n_iters", "reason")
+                   if not torch.equal(getattr(res, f), getattr(gref, f))]
+            print(f"  ilqg_sharded: equal to ilqg_batched in x, u, cost, "
+                  f"n_iters, reason: {not bad}")
+            check(not bad, f"ilqg_sharded differs from ilqg_batched in {bad}")
+            stats_equal("ilqg_sharded", st, [
+                gref.cost.sum(-1).sum(), gref.n_iters.sum().to(f64),
+                solved(gref).to(f64)])
+        finally:
+            torch.distributed.destroy_process_group()
+    return paths, out
+
+
 def main() -> int:
     ph = Phases()
     ph.start("device")
@@ -3886,6 +4277,8 @@ def main() -> int:
     paths.update(probe_phase(ph, dev, rec, counters))
     generic = generic_phases(ph, dev, counters)
     paths.update(packed_phases(ph, dev, rec, counters, ilqg, cpu_proc))
+    fleet_paths, fleet = fleet_phases(ph, dev, counters)
+    paths.update(fleet_paths)
 
     # ---- record and result: one entry per kernel instance, its launches
     #      summed over the paths that run it
@@ -3898,16 +4291,19 @@ def main() -> int:
                       tpu + "forward_kernel.py:198",
                       tpu + "covariance_kernel.py:28")
     k5 = "tools/probe_kernel_cost.py:38"
+    # the fleet group's paths (fleet_phases)
+    fleet_pend = ("fleet_pendcart", "fleet_pendcart_big", "sharded_pendcart")
+    fleet_kl = ("fleet_kl", "fleet_kl_step", "sharded_kl")
     instances = (   # record key, wrapper, instance, source, TPU kernel, paths
         ("k1_pendcart", "backward_lanes", "pendcart <4,1> gains, full",
-         "backward.cu", k1, ("ilqg",)),
+         "backward.cu", k1, ("ilqg",) + fleet_pend),
         ("k1_pendcart_mpc", "backward_lanes",
          "pendcart <4,1> gains, full, T=300", "backward.cu", k1,
          ("mpc", "iteration")),
         ("k1_pendcart_gps", "backward_lanes", "pendcart <4,1> GPS policy",
-         "backward.cu", k1, ("kl", "gps")),
+         "backward.cu", k1, ("kl", "gps") + fleet_kl),
         ("k1_lti", "backward_lanes", "LTI <10,2> gains, full",
-         "backward_lti.cu", k1, ("lti",)),
+         "backward_lti.cu", k1, ("lti", "fleet_lti")),
         ("k1_lti_gps", "backward_lanes", "LTI <10,2> GPS policy",
          "backward_lti_gps.cu", k1, ("kl_lti", "gps_lti")),
         ("k1_quad", "backward_lanes",
@@ -3926,7 +4322,7 @@ def main() -> int:
          "LTI <10,2> gains, full, per-scenario limits", "backward_lti.cu", k1,
          ("hetero_lti",)),
         ("k2_pendcart", "linesearch_lanes", "pendcart <4,1>", "forward.cu", k2,
-         ("ilqg",)),
+         ("ilqg",) + fleet_pend),
         ("k2_pendcart_mpc", "linesearch_lanes", "pendcart <4,1> A=4, T=300",
          "forward.cu", k2, ("mpc",)),
         ("k2_pendcart_inplace", "linesearch_lanes",
@@ -3941,11 +4337,11 @@ def main() -> int:
         ("k2_lti_lanes", "linesearch_lanes", "LTI <10,2>, per-scenario limits",
          "forward_lti.cu", k2, ("hetero_lti",)),
         ("k2_lti", "linesearch_lanes", "LTI <10,2>", "forward_lti.cu", k2,
-         ("lti",)),
+         ("lti", "fleet_lti")),
         ("k2_quad", "linesearch_lanes", "quadrotor <6,2>", "forward_quad.cu",
          k2, ("quad",)),
         ("k3_pendcart", "forward_lanes", "pendcart <4,1>", "forward.cu", k3,
-         ("ilqg", "kl", "gps")),
+         ("ilqg", "kl", "gps") + fleet_pend + fleet_kl),
         ("k3_pendcart_mpc", "forward_lanes", "pendcart <4,1> A=1, T=300",
          "forward.cu", k3, ("mpc",)),
         ("k3_pendcart_param", "forward_lanes",
@@ -3957,11 +4353,11 @@ def main() -> int:
         ("k3_lti_lanes", "forward_lanes", "LTI <10,2>, per-scenario limits",
          "forward_lti.cu", k3, ("hetero_lti",)),
         ("k3_lti", "forward_lanes", "LTI <10,2>", "forward_lti.cu", k3,
-         ("lti", "kl_lti", "gps_lti")),
+         ("lti", "kl_lti", "gps_lti", "fleet_lti")),
         ("k3_quad", "forward_lanes", "quadrotor <6,2>", "forward_quad.cu", k3,
          ("quad",)),
         ("k4_4", "covariance_lanes", "n=4", "covariance.cu", k4,
-         ("kl", "gps")),
+         ("kl", "gps") + fleet_kl),
         ("k4_10", "covariance_lanes", "n=10", "covariance.cu", k4,
          ("kl_lti", "gps_lti")),
         # n=6 (the quadrotor's state) is on no path yet: launched only by
@@ -4003,6 +4399,7 @@ def main() -> int:
             library=("x[:, :27].clone()" if key == "k5_copy" else LIBRARY),
             **rec[key]))
     print(json.dumps({"generic": generic}))
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,10 @@ resume entries and per-scenario model parameters (heterogeneous fleets,
 :func:`mpc_rollout_lanes` and its per-step hot path
 :func:`ilqg_iteration_lanes`; the KL/GPS trust-region path
 :func:`ilqgkl_batch_lanes` with :func:`gps_rollout_lanes` on both models;
+the fleet scheduler :func:`ilqg_fleet` / :func:`ilqgkl_fleet`, which
+compacts the scenarios still running between chunks, and its sharded
+forms over ``parallel.mesh`` (``parallel.distributed`` runs several
+processes on ``torch.distributed``);
 and any lane model through
 :func:`autodiff_derivs_tiles`, whose derivative expansion is made by
 forward-mode autodiff (on the card for pendcart and the quadrotor,
@@ -53,6 +57,8 @@ from .solvers.batch import (ilqg_batch_lanes, ilqg_iteration_lanes,
                             mpc_rollout_lanes, BatchILQGResult, BatchTrace,
                             split_lims)
 from .solvers.ilqgkl import ilqg_kl, ILQGKLConfig
+from .solvers.fleet import (ilqg_fleet, ilqg_fleet_sharded, ilqgkl_fleet,
+                            ilqgkl_fleet_sharded)
 from .solvers.batch_kl import (ilqgkl_batch_lanes, gps_rollout_lanes,
                                BatchKLResult, BatchKLTrace,
                                kl_div_wiki_lanes, calc_eta_lanes)
@@ -81,6 +87,8 @@ __all__ = [
     "BatchILQGResult", "BatchTrace", "split_lims",
     "ILQGKLConfig", "ilqgkl_batch_lanes", "gps_rollout_lanes",
     "BatchKLResult", "BatchKLTrace", "kl_div_wiki_lanes", "calc_eta_lanes",
+    "ilqg_fleet", "ilqg_fleet_sharded", "ilqgkl_fleet",
+    "ilqgkl_fleet_sharded",
     "Problem", "broadcast_derivs", "make_autodiff_derivs",
     "autodiff_derivs_tiles", "autodiff_packed_derivs",
     "PendCartSpec", "pendcart_lanes", "pendcart_derivs_tiles",

@@ -84,6 +84,22 @@ def vec_from_streams(a: torch.Tensor) -> torch.Tensor:
     return a
 
 
+def mean_t(a: torch.Tensor) -> torch.Tensor:
+    """Mean over the time axis (dim 0) of a (T, ...) tensor, summed in one
+    fixed pairwise order by elementwise adds. A lane's result then has the
+    same bits whatever the batch around it: ``torch.mean(a, dim=0)`` picks
+    its summation order from the tensor's shape (on the card and on the
+    CPU), so a scenario compacted into a smaller batch by the fleet
+    scheduler, or solved in another shard, would change in its last
+    bits."""
+    T = a.shape[0]
+    while a.shape[0] > 1:
+        h = a.shape[0] // 2
+        s = a[:h] + a[h:2 * h]
+        a = torch.cat([s, a[2 * h:]]) if a.shape[0] % 2 else s
+    return a[0] / T
+
+
 def pack_derivs(d: Derivs, B: int) -> torch.Tensor:
     """Batch-major :class:`~...policy.Derivs` ((B, T, ...) leaves, first
     order) → the packed ``(T, D, B)`` stream in :class:`DerivLayout` order

@@ -1,9 +1,20 @@
-"""Batched execution of the PyTorch port.
+"""Parallel execution layer.
 
-- :mod:`.mesh` — ``ilqg_batched``: many independent iLQG solves in one call
-  (the JAX package's vmapped entry). The device meshes, the sharded entries
-  and the multi-host layer of the JAX package are not ported.
+- :mod:`.mesh` — batched solves (``ilqg_batched``) and the sharded entries
+  over a :class:`~.mesh.Mesh` of this process's devices, one shard each.
+- :mod:`.distributed` — several processes on ``torch.distributed``: the
+  process group, the mesh over it, and this process's rows split over its
+  devices and joined back.
 """
-from .mesh import ilqg_batched  # noqa: F401
+from .mesh import (Mesh, make_mesh, ilqg_batched,  # noqa: F401
+                   ilqg_sharded, ilqg_batch_sharded, ilqgkl_batch_sharded)
+from .distributed import (init_distributed, is_multiprocess,  # noqa: F401
+                          global_mesh, distribute_batch, replicate,
+                          local_slice)
 
-__all__ = ["ilqg_batched"]
+__all__ = [
+    "Mesh", "make_mesh", "ilqg_batched", "ilqg_sharded",
+    "ilqg_batch_sharded", "ilqgkl_batch_sharded",
+    "init_distributed", "is_multiprocess", "global_mesh",
+    "distribute_batch", "replicate", "local_slice",
+]

@@ -37,7 +37,7 @@ import torch
 
 from ..device import as_tensor
 from ..policy import GaussianPolicy
-from ..ops.hopper.pack import to_streams, from_streams
+from ..ops.hopper.pack import from_streams, mean_t, to_streams
 from ..ops.hopper.backward_kernel import InLayout, OutLayout, backward_lanes
 from ..ops.hopper.forward_kernel import (LanesModel, check_slice, par_args,
                                          forward_lanes, linesearch_lanes)
@@ -147,7 +147,8 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
                      lam0=None, dlam0=None, accepted0=None, max_steps=None,
                      kt_backward: int = 25, kt_forward: int = 25,
                      record_trace: bool = False,
-                     interpret: bool = False) -> BatchILQGResult:
+                     interpret: bool = False, *,
+                     cost_total0=None) -> BatchILQGResult:
     """Solve B independent iLQG problems.
 
     - ``model``: :class:`LanesModel`; ``derivs_tiles``: the in-kernel
@@ -168,7 +169,11 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
     - ``warm_start``: with (B, n) ``x0s``, skip the α-sweep and roll
       ``u0s`` at α=1 (one K3 launch; the MPC re-roll of a shifted plan).
     - ``lam0``/``dlam0``/``accepted0``: optional (B,) initial λ, dλ and
-      accepted-iteration counts, to resume a solve from a prior result.
+      accepted-iteration counts, to resume a solve from a prior result;
+      ``cost_total0``: with pre-rolled ``x0s`` and ``cost0``, the (B,)
+      total cost that result carried, taken as it is instead of summed
+      anew from ``cost0``, so that a resumed solve continues from the same
+      bits (the fleet scheduler, :mod:`.fleet`).
     - ``lims``: static ``((lo, hi),) * m``, a per-scenario (B, m, 2) array,
       or None for the unconstrained solve; ``cfg``: :class:`ILQGConfig`.
     - ``params``: (B, P) per-scenario parameters of a model (and
@@ -201,7 +206,8 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
     given = {name: as_tensor(v) for name, v in (
         ("x0s", x0s), ("params", params), ("lims", lims_batch),
         ("cost0", cost0), ("lam0", lam0), ("dlam0", dlam0),
-        ("accepted0", accepted0)) if v is not None}
+        ("accepted0", accepted0), ("cost_total0", cost_total0))
+        if v is not None}
     for name, v in given.items():
         if v.device != dev:
             raise ValueError(f"{name} on {v.device}, u0s on {dev}")
@@ -254,7 +260,8 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
             c_l = _eval_costs(model, x_roll, u_nom0, par)
             cterm = _eval_terminal(model, x_roll[T - 1], par)
         traj_init = torch.cat([x_roll, u_nom0, c_l[:, None]], dim=1)
-        tot_init = c_l.sum(dim=0) + cterm
+        tot_init = (given["cost_total0"].to(f32) if cost_total0 is not None
+                    else c_l.sum(dim=0) + cterm)
         any0 = torch.isfinite(tot_init) & (tot_init < 1e16)
     else:
         # ---- initial rollout α-sweep (src/iLQG.jl:181-210): u ← α·u0 via
@@ -337,8 +344,8 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
 
         # gradient-norm termination (src/iLQG.jl:256-261)
         k_s = bo[:, lay.k:lay.k + m]                              # (T, m, B)
-        g_it = torch.mean(torch.amax(
-            torch.abs(k_s) / (torch.abs(u_cur) + 1.0), dim=1), dim=0)
+        g_it = mean_t(torch.amax(
+            torch.abs(k_s) / (torch.abs(u_cur) + 1.0), dim=1))
         grad_conv = (g_it < cfg.tol_grad) & (lam_r < 1e-5) & ~bp_bad
 
         # == fused line search (src/iLQG.jl:264-283); rejected lanes retrace

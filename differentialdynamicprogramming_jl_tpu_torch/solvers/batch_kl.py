@@ -28,7 +28,7 @@ import torch
 
 from ..device import as_tensor
 from ..policy import GaussianPolicy
-from ..ops.hopper.pack import to_streams, from_streams
+from ..ops.hopper.pack import from_streams, mean_t, to_streams
 from ..ops.hopper.backward_kernel import (OutLayout, _sum, _tiny_chol,
                                           backward_lanes)
 from ..ops.hopper.covariance_kernel import covariance_lanes, identity_r1
@@ -146,12 +146,7 @@ class BatchKLResult(NamedTuple):
     trace: Optional[BatchKLTrace] = None      # with record_trace=True
 
 
-def _out_of_slice(cfg, resume):
-    for name, val in resume.items():
-        if val is not None:
-            raise NotImplementedError(
-                f"{name}: the resume inputs of the KL fleet scheduler are "
-                "not ported yet")
+def _out_of_slice(cfg):
     if cfg.verbosity > 1:
         raise NotImplementedError("verbosity > 1 (fleet iteration rows)")
 
@@ -179,18 +174,25 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
       (K1 in GPS mode and K3 read each lane's box), or None.
     - ``record_trace``: also return the (B, max_iter+1) :class:`BatchKLTrace`.
 
+    Resume entry (the KL fleet scheduler, :mod:`.fleet`; JAX
+    ``_ilqgkl_batch_lanes_jit``, ``solvers/batch_kl.py:223-241``):
+    ``bracket0`` (B, 3), or (B, 3, T) per step, ``delta0_in`` (B,) and
+    ``adam0_in`` (B, 2, T) restore the η optimiser's state from a prior
+    :class:`BatchKLResult` (per step, ``delta0_in`` is ignored: the
+    increments reset each outer iteration, ``src/iLQGkl.jl:189``); ``it0``
+    is the global iteration count already run, which the per-step ADAM's
+    bias correction and the returned ``n_iters`` continue from; the loop
+    runs while ``it <= min(it0 + max_steps, cfg.max_iter)``. A solve cut
+    into such calls gives the lanes' results of one uninterrupted solve.
+
     The JAX signature's TPU switches ``kt`` (time steps a grid step) and
     ``interpret`` (Pallas interpret mode) are taken and have no effect:
     each kernel thread walks the whole horizon, and a CPU tensor runs the
     plain versions.
 
-    Not in this slice (NotImplementedError): the KL fleet scheduler's resume
-    inputs ``bracket0``, ``delta0_in``, ``adam0_in``, ``it0``,
-    ``max_steps``; ``verbosity > 1``; m > 2.
+    Not in this slice (NotImplementedError): ``verbosity > 1``; m > 2.
     """
-    _out_of_slice(cfg, dict(
-        bracket0=bracket0, delta0_in=delta0_in, adam0_in=adam0_in, it0=it0,
-        max_steps=max_steps))
+    _out_of_slice(cfg)
     lims, lims_batch = split_lims(lims)
     check_slice(model.m, lims)
     x0s = as_tensor(x0s)
@@ -226,11 +228,20 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
     kl_step = torch.tensor(cfg.kl_step, dtype=f32, device=dev)
     per_step = bool(cfg.constrain_per_step)
     shape = (T, B) if per_step else (B,)
-    br = torch.stack([torch.full(shape, v, dtype=f32, device=dev)
-                      for v in cfg.eta_bracket])
-    delta0 = torch.full(shape, cfg.del0, dtype=f32, device=dev)
-    adam = (torch.zeros((2, T, B), dtype=f32, device=dev) if per_step
-            else None)
+    if bracket0 is None:
+        br = torch.stack([torch.full(shape, v, dtype=f32, device=dev)
+                          for v in cfg.eta_bracket])
+    else:               # batch-major (B, 3[, T]) → (3[, T], B)
+        br = as_tensor(bracket0, f32).movedim(0, -1).contiguous()
+    if delta0_in is None or per_step:
+        delta0 = torch.full(shape, cfg.del0, dtype=f32, device=dev)
+    else:
+        delta0 = as_tensor(delta0_in, f32)
+    adam = None
+    if per_step:
+        adam = (torch.zeros((2, T, B), dtype=f32, device=dev)
+                if adam0_in is None
+                else as_tensor(adam0_in, f32).movedim(0, -1).contiguous())
     tot0 = as_tensor(cost0, f32)
     one = torch.ones((1, B), dtype=f32, device=dev)
     lam0 = torch.zeros((B,), dtype=f32, device=dev)
@@ -257,8 +268,11 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
     it_lane = torch.zeros((B,), dtype=torch.int32, device=dev)
     t_idx = torch.arange(T, device=dev)[:, None]
 
-    it = 1
-    while it <= cfg.max_iter and not bool(done.all()):
+    it0 = 0 if it0 is None else int(it0)
+    it_end = cfg.max_iter if max_steps is None else min(
+        it0 + int(max_steps), cfg.max_iter)
+    it = it0 + 1
+    while it <= it_end and not bool(done.all()):
         active = ~done
 
         # η-inflation backward retry (src/iLQGkl.jl:97-124 scalar; :190-203
@@ -297,7 +311,7 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
             fb.traj[:, :n] - traj[:, :n], sxx, bo[:, lay.k:lay.k + m],
             bo[:, lay.K:lay.K + m * n], bo[:, lay.quui:lay.quui + m * m],
             k_p, K_p, Si_p, n, m)
-        div = torch.mean(div_t, dim=0)
+        div = mean_t(div_t)
         # an indefinite Σ anywhere along the horizon is the reference's
         # logdet DomainError (src/klutils.jl:84): the lane aborts
         pd_bad_now = active & ~pdok_t.all(dim=0)
@@ -327,8 +341,7 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
             br_n = torch.stack([br_r[0], eta_new, br_r[2]])
             adam_n = torch.stack([m_a, v_a])
             satisfied = ((div_t < 2.0 * kl_step).all(dim=0)
-                         & (torch.mean(violation, dim=0)
-                            < 0.1 * float(cfg.kl_step)))
+                         & (mean_t(violation) < 0.1 * float(cfg.kl_step)))
             eta_maxed = (br_n[1] > 0.999 * br_n[2]).all(dim=0)
         else:
             br_n, satisfied = calc_eta_lanes(div, br_r, kl_step)
@@ -339,7 +352,7 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
         # the centre and done lanes' η bracket are frozen, so the kernels
         # recompute the same fb.traj/bo for done lanes every iteration
         traj_new, tot_new = fb.traj, fb.totals[0]
-        eta_mid = torch.mean(br_n[1], dim=0) if per_step else br_n[1]
+        eta_mid = mean_t(br_n[1]) if per_step else br_n[1]
         if record_trace:
             ti = min(it, cap - 1)
             for name, val in (("cost", tot_new), ("improvement", dcost),
@@ -373,7 +386,7 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
     kl_violated = (div_c > float(cfg.kl_step)) & (
         torch.abs(div_c - float(cfg.kl_step)) > 0.1 * float(cfg.kl_step))
     if per_step:
-        eta_fin = torch.mean(br[1], dim=0)
+        eta_fin = mean_t(br[1])
         bracket_bm = br.permute(2, 0, 1)                   # (B, 3, T)
         delta_bm = delta.T                                 # (B, T)
         adam_bm = adam.permute(2, 0, 1)                    # (B, 2, T)

@@ -181,23 +181,48 @@ def test_kl_pd_failure_matches_jax(pd_failed):
 
 
 @pytest.mark.parametrize("kwargs,option", [
-    (dict(bracket0=np.ones((B, 3))), "bracket0"),
-    (dict(delta0_in=np.ones(B)), "delta0_in"),
-    (dict(adam0_in=np.zeros((B, 2, T))), "adam0_in"),
+    (dict(bracket0=np.tile(np.float32([1e-8, 1.0, 1e16]), (B, 1))),
+     "bracket0"),
+    (dict(delta0_in=np.full(B, 1e-4, np.float32)), "delta0_in"),
+    (dict(adam0_in=np.ones((B, 2, 4), np.float32)), "adam0_in"),
     (dict(it0=3), "it0"),
     (dict(max_steps=2), "max_steps"),
 ])
 def test_kl_out_of_slice_options_raise(kwargs, option):
+    """The KL fleet scheduler's resume inputs, which raised before the
+    scheduler was ported, are taken. Each alone, at the state a solve
+    starts from, gives the plain solve: the default bracket and increment;
+    ADAM moments, ignored with scalar η; ``it0`` only shifts the global
+    iteration count (no bias correction with scalar η), so ``max_iter - 3``
+    plain iterations with n_iters + 3; ``max_steps`` bounds the loop as
+    ``max_iter`` does."""
     inp = kl_inputs(B=B, T=4)
     tspec = convert.spec_from_jax(SPEC)
-    with pytest.raises(NotImplementedError, match=option):
-        tkl.ilqgkl_batch_lanes(
+
+    def solve(max_iter, **kw):
+        return tkl.ilqgkl_batch_lanes(
             tpc.pendcart_lanes(tspec), tpc.pendcart_derivs_tiles(tspec),
             torch.from_numpy(inp["x"]),
             convert.policy_from_jax(type("P", (), inp["policy"]),
                                     device="cpu"),
             torch.from_numpy(inp["fx"]), torch.from_numpy(inp["cost0"]),
-            **kwargs)
+            cfg=convert.kl_config_from_jax(JKLConfig(kl_step=0.05,
+                                                     max_iter=max_iter)),
+            **{k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()})
+
+    out = convert.result_to_numpy(solve(6, **kwargs))
+    ref = convert.result_to_numpy(solve(
+        {"it0": 3, "max_steps": 2}.get(option, 6)))
+    if option == "it0":
+        np.testing.assert_array_equal(out.pop("n_iters"),
+                                      ref.pop("n_iters") + 3)
+    for name in ("cost_total", "eta", "divergence", "satisfied", "done",
+                 "n_iters", "x", "u", "bracket", "delta"):
+        if name in ref:
+            np.testing.assert_array_equal(out[name], ref[name],
+                                          err_msg=name)
+    np.testing.assert_array_equal(out["policy"]["K"], ref["policy"]["K"])
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,13 @@ def test_port_does_not_load_jax():
             "from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl "
             "import ilqg_kl\n"
             "from differentialdynamicprogramming_jl_tpu_torch.parallel.mesh "
-            "import ilqg_batched\n"
+            "import ilqg_batched, make_mesh, ilqg_sharded, "
+            "ilqg_batch_sharded, ilqgkl_batch_sharded\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.parallel "
+            "import distributed\n"
+            "from differentialdynamicprogramming_jl_tpu_torch.solvers.fleet "
+            "import ilqg_fleet, ilqgkl_fleet, ilqg_fleet_sharded, "
+            "ilqgkl_fleet_sharded\n"
             "from differentialdynamicprogramming_jl_tpu_torch.utils "
             "import printing\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
@@ -116,12 +122,12 @@ def test_missing_public_names():
     slices shrink the set)."""
     import differentialdynamicprogramming_jl_tpu_torch as P
     assert set(J.__all__) - set(P.__all__) == {
-        "ilqg_fleet", "ilqg_fleet_sharded",
-        "ilqgkl_fleet", "ilqgkl_fleet_sharded", "export_solver",
-        "serialize_solver", "deserialize_solver", "save_solver",
-        "load_solver"}
+        "export_solver", "serialize_solver", "deserialize_solver",
+        "save_solver", "load_solver"}
     for name in ("ilqg", "ilqg_kl", "boxqp", "parallel_riccati", "Trace",
-                 "sym", "KLTerms", "adam_update"):
+                 "sym", "KLTerms", "adam_update", "ilqg_fleet",
+                 "ilqg_fleet_sharded", "ilqgkl_fleet",
+                 "ilqgkl_fleet_sharded"):
         assert getattr(P, name).__module__.startswith(
             "differentialdynamicprogramming_jl_tpu_torch"), name
 
