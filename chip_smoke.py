@@ -140,7 +140,28 @@ ends the run with a non-zero exit and no result line:
     ``ilqgkl_fleet_sharded`` on phase 35's, ``ilqg_sharded`` on phase 28's
     cut to 3 iterations, each equal to its unsharded call and its stats to
     the local sums;
-37. the kernel record (one entry per kernel instance, with its bound; K4
+37. the m3 group, kernels: the LTI fleet with a third control (n=10,
+    m=3, ±0.6): K3 sweep A=6 and rollout A=1, K1 ⟨10,3⟩ gains and full
+    with the box (the masked projected-Newton box QP, warm-started) and
+    without it (the 3×3 Cholesky), with ptxas's registers and stack, and
+    K2 A=6 fresh and in place, each against its plain version at T=17 (two
+    chunks and a step of K1's gains ring) on the same CUDA tensors, timed
+    at B=4096, T=1000 with their bounds;
+38. the m3 group, path: ``ilqg_batch_lanes`` on that fleet (B=4096,
+    T=1000, to convergence), once, its kernels warmed by phase 37: ms per
+    solve (CUDA events), n_iters and their spread, K1 launches an
+    iteration (the λ-retries), the share of steps with a clamp active, the
+    box held, peak memory, host syncs, launches;
+39. the m3 group, fleet: ``ilqg_fleet`` (JAX's first schedule) bit-equal
+    to lock-step on the same fleet cut to T=100, one run of each;
+40. the m3 group, KL: K1 ⟨10,3⟩ in GPS mode with policy emission (the
+    3×3 Cholesky) against its plain version, then ``ilqgkl_batch_lanes``
+    on the m=3 fleet pre-rolled by K3 (kl_step 100, scalar η, no limits):
+    ms per solve, pd_failed, satisfied share, η;
+41. the m3 group against the CPU: the iLQG and KL solves on 64 lanes at
+    T=40 on the card against the same solves on CPU tensors, run by a
+    child process (``chip_smoke.py --m3-cpu``) from the build on;
+42. the kernel record (one entry per kernel instance, with its bound; K4
     at n=6, on no path, with the launches of its check) and the result
     line.
 """
@@ -274,6 +295,19 @@ GEN_B, GEN_T, GEN_PROFILE_ITERS, GEN_NOISE = 16, 300, 3, 1e-12
 # ilqg_batched's budget of accepted iterations: the lanes' full solves take
 # up to ≈310 iterations, ≈100 s a run on the host; the phase runs it twice
 GEN_BATCH_ITERS = 20
+# the m3 group: the LTI fleet with a third control (random_lti at n=10,
+# m=3, the reference's construction, src/demo_linear.jl:9-26), a ±0.6 box
+# on each control, which binds (the unconstrained solution's controls
+# reach 3.5-17), the K1 box QP's iterations (JAX's default), the T of
+# the kernel checks (two chunks and a step of K1 gains' ring, tc 8), and
+# the T of the fleet's bit-equality check: the converged solve at T=1000
+# takes ≈150 s on an H100 (most of it λ-retries of the whole fleet), so
+# ilqg_fleet is held to lock-step at a cut horizon
+M3_M = 3
+M3_LIMS = ((-0.6, 0.6),) * M3_M
+M3_QP_ITERS = 8
+M3_T_CHECK = 17
+M3_T_FLEET = 100
 KERNEL_NAMES = ("backward_kernel", "linesearch_kernel", "forward_kernel",
                 "covariance_kernel", "probe_copy_kernel", "probe_ring_kernel")
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes and
@@ -481,6 +515,7 @@ def ptxas_summary(log: str):
 # list's prefix), and their names here
 MANGLED_MODELS = (
     ("NS_3LTIILi10ELi2EEE", "LTI<10,2>"),
+    ("NS_3LTIILi10ELi3EEE", "LTI<10,3>"),
     ("NS_8AutodiffINS_9QuadrotorELb1EEE", "Autodiff<Quadrotor,SO>"),
     ("NS_8AutodiffINS_9QuadrotorELb0EEE", "Autodiff<Quadrotor>"),
     ("NS_8AutodiffINS_8PendCartELb1EEE", "Autodiff<PendCart,SO>"),
@@ -495,6 +530,7 @@ MANGLED_MODELS = (
 # K1's and K2's instances: (n, m, T of the path the plan is printed for)
 RING_PATHS = {"PendCart": (4, 1, T), "PendCartParam": (4, 1, T),
               "Autodiff<PendCart>": (4, 1, T), "LTI<10,2>": (10, 2, 1000),
+              "LTI<10,3>": (10, 3, 1000),
               "Autodiff<Quadrotor>": (6, 2, 400), "Quadrotor": (6, 2, 400),
               "Packed<4,1>": (4, 1, T), "Packed<6,2>": (6, 2, 400),
               "Packed<10,2>": (10, 2, 1000), "PendCartSO": (4, 1, T),
@@ -529,7 +565,7 @@ def with_plan(line: str) -> str:
                 f"{plan_text(plan.probe_plan(mode, PROBE_T, B))}"
                 if mode else line)
     m = re.match(r"(backward|linesearch|forward)_kernel<(Autodiff<\w+"
-                 r"(?:,SO)?>|LTI<10,2>|Packed<\d+,\d+>|\w+)(?:, (\d+))?"
+                 r"(?:,SO)?>|LTI<\d+,\d+>|Packed<\d+,\d+>|\w+)(?:, (\d+))?"
                  r"(?:, (\d+))?>", line)
     if not m or m.group(2) not in RING_PATHS:
         return line
@@ -652,8 +688,10 @@ def k1_work(model, T: int, B: int, emit: str, reg_type: int, lims,
         f += 3 * m * m + 4 * m * m * (n + 1)          # Cholesky, solves
     elif m == 1:
         f += 8 + 2 * n
-    else:
+    elif m == 2:
         f += 9 * 22 + 10 + 8 * n                      # 9 candidates, K rows
+    else:
+        f += boxqp_masked_ops(m, n, M3_QP_ITERS)
     f += (2 * m * m + 4 * m + 2 * m * m * n + n * (5 * m + 1)
           + n * n * (6 * m + 1) + 2 * n * n + 4)      # value update, latch
     if emit != "gains":
@@ -662,6 +700,23 @@ def k1_work(model, T: int, B: int, emit: str, reg_type: int, lims,
     if gps:
         nbytes += 4 * T * B * (m + m * n + m * m + 1)     # prev and η
     return bound(nbytes, f * T * B)
+
+
+def boxqp_masked_ops(m: int, n: int, iters: int) -> int:
+    """Operations of K1's m > 2 gain solve with limits (backward.cuh
+    boxqp_masked and the K rows): per iteration the gradient, the masked
+    Cholesky (its identity padding, pivots, square roots and divisions),
+    the Newton solve, the objective at x and at three clipped candidates;
+    then the final gradient and factor, the stuck test, and K's n solves
+    on the free subspace."""
+    chol = sum(2 * j + 2 + (m - 1 - j) * (2 * j + 1) for j in range(m))
+    solve = 2 * m * m + m                 # two substitutions, negations
+    grad = m * (2 * m + 1)
+    val = 2 * m + 4 * m * m
+    it = grad + m * m + chol + solve + val + 3 * (4 * m + val + 1)
+    return (2 * m                         # the box relative to u
+            + iters * it + grad + m * m + chol + 4 * m + 3
+            + n * solve)
 
 
 def k3_work(model, T: int, B: int, A: int, emit: bool,
@@ -3177,15 +3232,6 @@ def packed_cpu_solves() -> dict:
     return out
 
 
-def start_packed_cpu_solves() -> subprocess.Popen:
-    """:func:`packed_cpu_solves` in a child process that sees no card."""
-    import os
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             "--packed-cpu"], stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, env=env)
-
-
 def packed_phases(ph, dev, rec, counters, ilqg, cpu_proc) -> dict:
     """Phases 30-32, the "packed / full DDP" group: K1 on the
     packed-derivatives stream (Packed<4,1>, with GPS mode, Packed<6,2>,
@@ -3198,8 +3244,8 @@ def packed_phases(ph, dev, rec, counters, ilqg, cpu_proc) -> dict:
     ``lti_packed_derivs``, each against the CPU on B_CPU lanes (the
     pendcart's autodiff full DDP against the analytic one on the card);
     ``backward_pass_pallas`` in GPS mode. The CPU solves come from
-    ``cpu_proc`` (:func:`start_packed_cpu_solves`). Adds the measurements
-    to ``rec``; returns the launches of its paths."""
+    ``cpu_proc`` (:func:`start_cpu_child` of ``--packed-cpu``). Adds the
+    measurements to ``rec``; returns the launches of its paths."""
     from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
         lti_lanes, lti_packed_derivs)
     from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
@@ -3683,6 +3729,27 @@ def fleet_run(fn, counters) -> tuple:
                      peak_bytes=peak, chunks=len(lanes), lanes=lanes)
 
 
+def once_run(fn, counters) -> tuple:
+    """One run of ``fn``, its kernels already warm: (result, dict of its
+    ms by CUDA events, host syncs, launches and peak memory above what was
+    allocated before it)."""
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+
+    def timed():
+        s.record()
+        out = fn()
+        e.record()
+        return out
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (out, syncs), launches = counted(counters, lambda: sync_count(timed))
+    return out, dict(ms=s.elapsed_time(e), syncs=syncs, launches=launches,
+                     peak_bytes=torch.cuda.max_memory_allocated() - base)
+
+
 def hist(v: torch.Tensor) -> dict:
     return {int(a): int(b) for a, b in zip(*torch.unique(
         v, return_counts=True))}
@@ -4002,6 +4069,476 @@ def fleet_phases(ph, dev, counters) -> dict:
     return paths, out
 
 
+def m3_fleet(device):
+    """The m3 group's LTI fleet: random_lti's spec at n=10, m=3 from seed
+    0, x0 = 1·linspace(0.5, 2) over the B scenarios (made on the host, so
+    that the CPU child draws the same lanes), and the LTI path's
+    ILQGConfig (6-α ladder, reg_type 2, λ_max 1e15, max_iter 300)."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig, default_alphas)
+    spec = random_lti(0, n=LTI_N, m=M3_M, T=LTI_T, device=device)
+    x0s = torch.ones((B, LTI_N)) * torch.linspace(0.5, 2.0, B)[:, None]
+    return spec, x0s.to(device), ILQGConfig(
+        alphas=default_alphas(0.2, -3.0, 6), reg_type=2, lam_max=1e15,
+        max_iter=300)
+
+
+def m3_kl_inputs(spec, x0s, Tk: int):
+    """The KL tier's inputs on the m=3 fleet at horizon Tk: the pre-roll
+    by K3 at α=1 with k := u0 and no limits (JAX demos.py:50-55), the zero
+    previous policy with k = its controls and unit Σ, fx_model =
+    SimpleLTVModel.from_lti(A, B, Tk).fx for every scenario, and cost0.
+    On CPU tensors K3 is its plain version."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        SimpleLTVModel, lti_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        from_streams, to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.policy import (
+        GaussianPolicy)
+    n, m, Bk, dev = LTI_N, M3_M, x0s.shape[0], x0s.device
+    u0s = spec.u0[:Tk].expand(Bk, Tk, m).contiguous()
+    gains = torch.cat([to_streams(u0s),
+                       torch.zeros((Tk, m * n, Bk), device=dev)], dim=1)
+    ro = fk.forward_lanes(torch.zeros((Tk, n + m + 1, Bk), device=dev),
+                          gains, x0s.T.contiguous(),
+                          torch.ones((1, Bk), device=dev),
+                          model=lti_lanes(spec), lims=None, emit_traj=True)
+    eye = torch.eye(m, device=dev).expand(Bk, Tk, m, m)
+    policy0 = GaussianPolicy(
+        K=torch.zeros((Bk, Tk, m, n), device=dev),
+        k=from_streams(ro.traj[:, n:n + m], (m,)).contiguous(), sigma=eye,
+        sigma_inv=eye)
+    fx = SimpleLTVModel.from_lti(spec.A, spec.B, Tk).fx.expand(Bk, Tk, n, n)
+    return (from_streams(ro.traj[:, :n], (n,)).contiguous(), policy0, fx,
+            ro.totals[0]), ro.traj
+
+
+def m3_solves(device, Bk: int, Tk: int):
+    """The m3 group's iLQG (±0.6) and KL (kl_step 100, scalar η, no
+    limits) solves on the first Bk scenarios at horizon Tk, on ``device``;
+    returns their outcomes as lists."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, lti_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+    spec, x0s, cfg = m3_fleet(device)
+    model, tiles = lti_lanes(spec), lti_derivs_tiles(spec)
+    x0s = x0s[:Bk]
+    r = ilqg_batch_lanes(model, None, x0s,
+                         spec.u0[:Tk].expand(Bk, Tk, M3_M).contiguous(),
+                         lims=M3_LIMS, cfg=cfg, derivs_tiles=tiles)
+    kl_in, _ = m3_kl_inputs(spec, x0s, Tk)
+    k = ilqgkl_batch_lanes(model, tiles, *kl_in,
+                           cfg=ILQGKLConfig(kl_step=KL_LTI_STEP))
+    return dict(cost_total=r.cost_total.tolist(), reason=r.reason.tolist(),
+                n_accepted=r.n_accepted.tolist(),
+                kl_cost_total=k.cost_total.tolist(),
+                satisfied=k.satisfied.tolist(), n_iters=k.n_iters.tolist(),
+                eta=k.eta.tolist())
+
+
+def m3_cpu_solves() -> dict:
+    """:func:`m3_solves` with the plain versions on the host (B_CPU lanes,
+    T=LTI_T_CPU): ``chip_smoke.py --m3-cpu``, run by ``main`` in a child
+    process from the build on, on two of the host's threads."""
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    out = m3_solves("cpu", B_CPU, LTI_T_CPU)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def start_cpu_child(flag: str) -> subprocess.Popen:
+    """This script with ``flag`` in a child process that sees no card."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             flag], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def k_vs_plain(what: str, pairs, tol=KERNEL_TOL) -> float:
+    """A ⟨10,3⟩ kernel's outputs against its plain version's, ``pairs``
+    {output: (kernel's, plain's)}: bit for bit where they are, else within
+    ``tol`` of each output's scale, with the share of differing elements
+    printed. Returns the max abs error."""
+    worst = 0.0
+    for name, (a, pb) in pairs.items():
+        same = bool(torch.equal(a, pb))
+        mx, rel = err(a, pb)
+        share = (a != pb).float().mean().item()
+        print(f"  {what} {name}: bit-identical {same}; max_abs_err "
+              f"{mx:.3e}, rel {rel:.3e} (tol {tol:.0e}), differing share "
+              f"{share:.3e}")
+        check(same or rel <= tol, f"{what} {name}: rel error {rel:.3e}")
+        worst = max(worst, mx)
+    return worst
+
+
+def m3_phases(ph, dev, rec, counters, cpu_proc) -> dict:
+    """Phases 37-41, the m3 group: the LTI fleet with a third control. K3,
+    K1 ⟨10,3⟩ (the masked box QP and the 3×3 Cholesky) and K2 against
+    their plain versions; the converged lock-step solve and ``ilqg_fleet``;
+    K1 in GPS mode and the KL solve; the GPU against the CPU child's solves
+    (``cpu_proc``). Adds the measurements to ``rec``; returns the launches
+    of its paths."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, lti_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, covariance_kernel as ck, forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.fleet import (
+        ilqg_fleet)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+
+    t_group = time.perf_counter()
+    n, m, Tl, Tc = LTI_N, M3_M, LTI_T, M3_T_CHECK
+    ph.start("m3-kernels", f"LTI n={n} m={m} B={B}, ±0.6: K3, K1 (masked "
+             f"box QP, {M3_QP_ITERS} iterations; 3×3 Cholesky) and K2 "
+             f"against their plain versions at T={Tc}, timed at T={Tl}")
+    for line in rec["ptxas"]:
+        if f"LTI<{n},{m}>" in line:
+            print("  " + with_plan(line))
+    spec, x0s, cfg = m3_fleet(dev)
+    model, tiles = lti_lanes(spec), lti_derivs_tiles(spec)
+    A = len(cfg.alphas)
+    x0_l = x0s.T.contiguous()
+    u0s = spec.u0.expand(B, Tl, m).contiguous()
+    rng = np.random.default_rng(31)
+    lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), dtype=torch.float32,
+                       device=dev)
+    lam[::8] = 0.0
+    ladder = torch.tensor(cfg.alphas, device=dev)[:, None].expand(A, B)
+    ladder = ladder.contiguous()
+    al1 = torch.tensor(rng.uniform(0.0, 1.0, (1, B)), dtype=torch.float32,
+                       device=dev)
+    # random controls for the checks (the box binds), u0 for the timings
+    u_rand = torch.tensor(2.0 * rng.standard_normal((B, Tc, m)),
+                          dtype=torch.float32, device=dev)
+    streams = {t: (torch.zeros((t, n + m, B), device=dev), torch.cat(
+        [to_streams(u), torch.zeros((t, m * n, B), device=dev)], dim=1))
+        for t, u in ((Tc, u_rand), (Tl, u0s))}
+
+    def fwd(t, al, emit, plain, lims=M3_LIMS):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(*streams[t], x0_l, al, model=model, lims=lims,
+                 emit_traj=emit)
+
+    k, p = fwd(Tc, ladder, False, False), fwd(Tc, ladder, False, True)
+    e3 = k_vs_plain("K3 sweep A=6", {"totals": (k.totals, p.totals)})
+    k, p = fwd(Tc, al1, True, False), fwd(Tc, al1, True, True)
+    e3 = max(e3, k_vs_plain("K3 rollout A=1", {
+        "totals": (k.totals, p.totals), "traj": (k.traj, p.traj)}))
+    print_k3_plans("LTI <10,3>", n, m, Tl)
+    traj, tot = k.traj, k.totals[0]
+    # u0's rollout cost, against which the solve must improve
+    c0 = fwd(Tl, torch.ones((1, B), device=dev), False, False).totals[0]
+
+    def bwd(emit, lims, plain, tr=traj, tl=tiles, lm=lam):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, lm, n=n, m=m, reg_type=2, lims=lims, derivs_tiles=tl,
+                 emit=emit, qp_iters=M3_QP_ITERS)
+
+    errs = []
+    for lims in (M3_LIMS, None):
+        for emit in ("gains", "full"):
+            what = f"K1 <10,3> {emit} {'±0.6' if lims else 'unconstrained'}"
+            k, p = bwd(emit, lims, False), bwd(emit, lims, True)
+            lay = bk.OutLayout(n, m, emit)
+            q = lay.quui if emit == "full" else lay.S
+            errs.append(k_vs_plain(what, {
+                "out": (k.out[:, :q], p.out[:, :q]),
+                "dV": (k.stats[:2], p.stats[:2])}))
+            if emit == "full":
+                errs.append(k_vs_plain(what, {
+                    "Quu_inv": (k.out[:, q:], p.out[:, q:])}, QUU_INV_TOL))
+            check(torch.equal(k.stats[2:], p.stats[2:]),
+                  f"{what}: diverged/diverge_idx differ")
+            print(f"  {what}: latch equal, {int((k.stats[2] > 0.5).sum())} "
+                  f"latched lanes in both")
+            if lims is not None and emit == "gains":
+                gains, dV = k.out, k.stats[:2]
+                kk, u = k.out[:-1, :m], traj[:-1, n:n + m]
+                on = (kk == -0.6 - u) | (kk == 0.6 - u)
+                shares = [on[:, i].float().mean().item() for i in range(m)]
+                print(f"  K1 <10,3> limits bind on a share of the steps: "
+                      f"{', '.join(f'{v:.4f}' for v in shares)}; all three "
+                      f"{on.all(dim=1).float().mean().item():.4f}")
+                check(min(shares) > 0, "K1 <10,3>: a control's limit never "
+                      "binds, so the box QP was not exercised")
+    allow = (torch.arange(B, device=dev) % 2 == 0).float()
+    sel = torch.stack([dV[0], dV[1], tot, allow])
+
+    def ls(plain, tr=traj, g=gains, s_=sel, in_place=False):
+        f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+        kw = dict(in_place=True) if in_place else {}
+        return f(tr, g, x0_l, s_, model=model, alphas=cfg.alphas,
+                 reduce_ratio_min=0.0, lims=M3_LIMS, **kw)
+
+    k, p = ls(False), ls(True)
+    e2 = k_vs_plain("K2 A=6", {"traj": (k.traj, p.traj),
+                               "ls": (k.ls, p.ls)})
+    check(torch.equal(k.ls[:2], p.ls[:2]), "K2 <10,3>: al_sel/any_ok differ")
+    buf = traj.clone()
+    inp = fk.linesearch_lanes(buf, gains, buf[0, :n], sel, model=model,
+                              alphas=cfg.alphas, lims=M3_LIMS, in_place=True)
+    check(inp.traj.data_ptr() == buf.data_ptr() and torch.equal(buf, k.traj)
+          and torch.equal(inp.ls, k.ls), "K2 <10,3> in place differs from "
+          "K2 fresh")
+    print(f"  K2 <10,3> in place: bit-equal to fresh; "
+          f"{int(((k.ls[1] > 0.5) & (allow > 0.5)).sum())} of {B} lanes "
+          f"accept")
+
+    # times at the fleet's T (the sweep's and rollout's streams of u0, K1
+    # and K2 on its rollout), the plain versions once at Tc
+    ms3 = cuda_ms(lambda: fwd(Tl, ladder, False, False), 10)
+    ms3r = cuda_ms(lambda: fwd(Tl, al1, True, False), 10)
+    plain3 = once_ms(lambda: fwd(Tc, ladder, False, True))
+    ro = fwd(Tl, al1, True, False)
+    traj_T = ro.traj
+    ms1 = cuda_ms(lambda: bwd("gains", M3_LIMS, False, tr=traj_T), 5)
+    ms1f = cuda_ms(lambda: bwd("full", M3_LIMS, False, tr=traj_T), 5)
+    ms1u = cuda_ms(lambda: bwd("gains", None, False, tr=traj_T), 5)
+    plain1 = once_ms(lambda: bwd("gains", M3_LIMS, True))
+    bo = bwd("gains", M3_LIMS, False, tr=traj_T)
+    sel_T = torch.stack([bo.stats[0], bo.stats[1], ro.totals[0], allow])
+    ms2 = cuda_ms(lambda: ls(False, traj_T, bo.out, sel_T), 10)
+    plain2 = once_ms(lambda: ls(True))
+    w3 = k3_work(model, Tl, B, A, False)
+    w3r = k3_work(model, Tl, B, 1, True)
+    w1 = k1_work(model, Tl, B, "gains", 2, M3_LIMS)
+    w1f = k1_work(model, Tl, B, "full", 2, M3_LIMS)
+    w1u = k1_work(model, Tl, B, "gains", 2, None)
+    w2 = k2_work(model, Tl, B, A)
+    for what, ms, w in (("K3 sweep A=6", ms3, w3), ("K3 rollout A=1", ms3r,
+                                                     w3r),
+                        ("K1 gains ±0.6", ms1, w1), ("K1 full ±0.6", ms1f,
+                                                     w1f),
+                        ("K1 gains unconstrained", ms1u, w1u),
+                        ("K2 A=6", ms2, w2)):
+        print(f"  <10,3> {what} at T={Tl}: kernel {ms:.4f} ms, bound "
+              f"{w['bound_ms']:.4f} ms ({w['bound_by']}: "
+              f"{w['bound_bytes'] / 1e6:.1f} MB, "
+              f"{w['bound_flops'] / 1e9:.3f} GFLOP)")
+    print(f"  <10,3> plain versions once at T={Tc}: K3 sweep {plain3:.1f} ms, "
+          f"K1 gains ±0.6 {plain1:.1f} ms, K2 {plain2:.1f} ms")
+    rec["k3_lti3"] = dict(ms=ms3, ms_rollout=ms3r, plain_ms=plain3,
+                          plain_T=Tc, max_abs_err=e3, library_ms=None,
+                          bound_ms_rollout=w3r["bound_ms"], **w3)
+    rec["k1_lti3"] = dict(ms=ms1, ms_full=ms1f, bound_ms_full=w1f["bound_ms"],
+                          ms_unconstrained=ms1u,
+                          bound_ms_unconstrained=w1u["bound_ms"],
+                          plain_ms=plain1, plain_T=Tc, max_abs_err=max(errs),
+                          library_ms=None, **w1)
+    rec["k2_lti3"] = dict(ms=ms2, plain_ms=plain2, plain_T=Tc, max_abs_err=e2,
+                          library_ms=None, **w2)
+    del streams, traj, traj_T, ro, bo, gains, k, p, buf, inp
+
+    ph.start("m3-path", f"ilqg_batch_lanes, LTI n={n} m={m} B={B} T={Tl}, "
+             f"{A}-α ladder, reg_type 2, ±0.6, max_iter={cfg.max_iter}, to "
+             f"convergence, once (its kernels warmed by m3-kernels)")
+    kw = dict(lims=M3_LIMS, cfg=cfg, derivs_tiles=tiles)
+    ref, rr = once_run(lambda: ilqg_batch_lanes(model, None, x0s, u0s, **kw),
+                       counters)
+    launches = rr["launches"]
+    iters = int(ref.n_iters.max())
+    u = ref.u
+    at = (u.abs() == 0.6)
+    clamp = at.any(dim=2).float().mean().item()
+    k1 = launches["backward_lanes"]
+    print(f"  launches: {launches}")
+    print(f"  solve: {rr['ms']:.3f} ms (CUDA events); n_iters min/median/max "
+          f"{int(ref.n_iters.min())} / {int(ref.n_iters.float().median())} / "
+          f"{iters}; reasons {hist(ref.reason)}; "
+          f"{rr['ms'] / max(iters, 1):.4f} ms/iter; K1 {k1} launches, "
+          f"{(k1 - 1) / max(iters, 1):.3f} an iteration ({k1 - 1 - iters} "
+          f"λ-retries of the fleet); final λ "
+          f"median {ref.lam.median().item():.3g}, max "
+          f"{ref.lam.max().item():.3g}")
+    bins = hist(torch.div(ref.n_iters, 20, rounding_mode="floor") * 20)
+    print(f"  n_iters histogram (bins of 20): {bins}")
+    per = at.float().mean(dim=(0, 1)).tolist()
+    print(f"  share of steps with a clamp active: {clamp:.4f} (per control "
+          f"{', '.join(f'{v:.4f}' for v in per)}); max |u| "
+          f"{u.abs().max().item():.6g}; {rr['syncs']} host syncs, peak "
+          f"{rr['peak_bytes'] / 2**30:.3f} GiB")
+    ct = ref.cost_total
+    print(f"  cost_total min/median/max {ct.min().item():.6g} / "
+          f"{ct.median().item():.6g} / {ct.max().item():.6g} (u0's rollout "
+          f"median {c0.median().item():.6g})")
+    check(all(rr["launches"][c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the m=3 path never ran: {rr['launches']}")
+    check(1 <= iters <= cfg.cap(), f"m=3 n_iters {iters}")
+    check(bool(torch.isfinite(ct).all() and torch.isfinite(ref.x).all()
+               and torch.isfinite(ref.u).all()), "m=3: non-finite results")
+    check(ref.x.shape == (B, Tl, n) and u.shape == (B, Tl, m)
+          and ref.policy.K.shape == (B, Tl, m, n), "m=3 result shapes")
+    check(bool((u.abs() <= 0.6).all()), "m=3: a control outside ±0.6")
+    check(clamp > 0, "m=3: no clamp active at the solution")
+    check(ct.median() < c0.median(), "m=3: median cost did not improve")
+    paths = {"m3_lti": rr["launches"]}
+    m3 = dict(lockstep=rr, n_iters_bins_of_20=bins, clamp_share=clamp)
+
+    del ref, u
+    Tf = M3_T_FLEET
+    ph.start("m3-fleet", f"ilqg_fleet against lock-step on the m=3 fleet "
+             f"cut to T={Tf}, JAX's first schedule")
+    u0f = u0s[:, :Tf].contiguous()
+    ref, rf = once_run(lambda: ilqg_batch_lanes(model, None, x0s, u0f, **kw),
+                       counters)
+    ci, gr = fleet_schedules(ref.n_iters)[0]
+    fl, ff = once_run(lambda: ilqg_fleet(model, None, x0s, u0f,
+                                         chunk_iters=ci, chunk_growth=gr,
+                                         **kw), counters)
+    same_as_lockstep(f"m=3 LTI T={Tf} fleet ({ci}, {gr:g})", fl, ref,
+                     ILQG_FIELDS)
+    check(torch.equal(fl.n_iters, ref.n_iters),
+          "m=3 fleet: n_iters differ from lock-step's")
+    print(f"  T={Tf}: lock-step {rf['ms']:.3f} ms, the fleet ({ci}, {gr:g}) "
+          f"{ff['ms']:.3f} ms ({rf['ms'] / ff['ms']:.3f}× lock-step); "
+          f"n_iters min/median/max {int(ref.n_iters.min())} / "
+          f"{int(ref.n_iters.float().median())} / {int(ref.n_iters.max())}, "
+          f"reasons {hist(ref.reason)}; launches {rf['launches']} against "
+          f"{ff['launches']}; host syncs {rf['syncs']} against {ff['syncs']}")
+    m3["fleet"] = dict(T=Tf, lockstep=rf, fleet=ff, schedule=(ci, gr))
+    paths["m3_fleet"] = ff["launches"]
+    del ref, fl
+
+    kcfg = ILQGKLConfig(kl_step=KL_LTI_STEP)
+    ph.start("m3-kl", f"K1 GPS policy <10,3> against its plain version at "
+             f"T={Tc}; ilqgkl_batch_lanes on the m=3 fleet, B={B} T={Tl}, "
+             f"kl_step={KL_LTI_STEP}, scalar η, no limits")
+    kl_in, traj_pre = m3_kl_inputs(spec, x0s, Tl)
+    a = rng.standard_normal((Tc, B, m, m))
+    si = np.einsum("tbij,tbkj->tbik", a, a) + 0.5 * np.eye(m)
+    prev = torch.tensor(np.concatenate([
+        rng.standard_normal((Tc, m, B)),
+        0.5 * rng.standard_normal((Tc, m * n, B)),
+        np.moveaxis(si.reshape(Tc, B, m * m), 1, 2)], axis=1),
+        dtype=torch.float32, device=dev)
+    eta = torch.tensor(10.0 ** rng.uniform(-1, 1, (Tc, B)),
+                       dtype=torch.float32, device=dev)
+    lam0 = torch.zeros(B, device=dev)
+    lay = bk.OutLayout(n, m, "policy")
+
+    def gps_bwd(tr, pv, et, plain):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, lam0, n=n, m=m, reg_type=1, lims=None,
+                 derivs_tiles=tiles, prev=pv, eta=et, emit="policy")
+
+    tr_c = traj_pre[:Tc].contiguous()
+    k, p = gps_bwd(tr_c, prev, eta, False), gps_bwd(tr_c, prev, eta, True)
+    eg = k_vs_plain("K1 <10,3> GPS policy", {
+        "k, K, Quu": (k.out[:, :lay.quui], p.out[:, :lay.quui]),
+        "dV": (k.stats[:2], p.stats[:2])})
+    eg = max(eg, k_vs_plain("K1 <10,3> GPS policy", {
+        "Quu_inv": (k.out[:, lay.quui:], p.out[:, lay.quui:])}, QUU_INV_TOL))
+    check(torch.equal(k.stats[2:], p.stats[2:]),
+          "K1 <10,3> GPS: diverged/diverge_idx differ")
+    plain_g = once_ms(lambda: gps_bwd(tr_c, prev, eta, True))
+    prev_path = torch.cat([torch.zeros((Tl, m + m * n, B), device=dev),
+                           to_streams(torch.eye(m, device=dev).expand(
+                               B, Tl, m, m))], dim=1)
+    eta1 = torch.ones((Tl, B), device=dev)
+    msg = cuda_ms(lambda: gps_bwd(traj_pre, prev_path, eta1, False), 5)
+    wg = k1_work(model, Tl, B, "policy", 1, None, gps=True)
+    print(f"  K1 <10,3> GPS policy at T={Tl}: kernel {msg:.4f} ms, bound "
+          f"{wg['bound_ms']:.4f} ms ({wg['bound_by']}); plain once at "
+          f"T={Tc}: {plain_g:.1f} ms")
+    rec["k1_lti3_gps"] = dict(ms=msg, plain_ms=plain_g, plain_T=Tc,
+                              max_abs_err=eg, library_ms=None, **wg)
+    del prev, eta, prev_path, eta1, tr_c, k, p
+
+    def kl_solve():
+        return ilqgkl_batch_lanes(model, tiles, *kl_in, cfg=kcfg)
+
+    kl_solve()                                   # warm-up
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+
+    def timed():
+        s.record()
+        out = kl_solve()
+        e.record()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    r, launches = counted(counters, timed)
+    kl_ms = s.elapsed_time(e)
+    kiters = int(r.n_iters.max())
+    cost0 = kl_in[3]
+    print(f"  launches: {launches}")
+    print(f"  KL solve: {kl_ms:.3f} ms (CUDA events), max n_iters {kiters}, "
+          f"{kl_ms / max(kiters, 1):.4f} ms/iter; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"  shares: satisfied {r.satisfied.float().mean().item():.4f}, "
+          f"pd_failed {r.pd_failed.float().mean().item():.4f}; median η "
+          f"{r.eta.median().item():.6g}, median divergence "
+          f"{r.divergence.median().item():.6g}; cost_total median "
+          f"{r.cost_total.median().item():.6g} against cost0 median "
+          f"{cost0.median().item():.6g}")
+    check(all(launches[c.__name__] > 0 for c in
+              (bk.backward_lanes, fk.forward_lanes, ck.covariance_lanes)),
+          f"a kernel of the m=3 KL path never ran: {launches}")
+    ok = ~r.pd_failed
+    check(bool(ok.any()), "m=3 KL: every lane pd_failed")
+    check(bool(torch.isfinite(r.cost_total[ok]).all()
+               and torch.isfinite(r.policy.K[ok]).all()),
+          "m=3 KL: non-finite results")
+    check(r.cost_total[ok].median() < cost0[ok].median(),
+          "m=3 KL: median cost did not improve")
+    paths["m3_kl"] = launches
+    m3["kl"] = dict(ms=kl_ms, iters=kiters,
+                    satisfied=r.satisfied.float().mean().item(),
+                    pd_failed=r.pd_failed.float().mean().item(),
+                    eta_median=r.eta.median().item())
+    del r, kl_in, traj_pre
+
+    ph.start("m3-gpu-vs-cpu", f"first {B_CPU} scenarios, T={LTI_T_CPU}: the "
+             f"iLQG and KL solves on the card against the CPU child's")
+    g = m3_solves(dev, B_CPU, LTI_T_CPU)
+    out, err_ = cpu_proc.communicate(timeout=900)
+    check(cpu_proc.returncode == 0, "the m=3 CPU child failed "
+          f"({cpu_proc.returncode}): {err_[-2000:]}")
+    c = json.loads(out)
+    print(f"  CPU solves (plain versions, child process): "
+          f"{c['seconds']:.1f} s")
+    for what, cost, same in (("iLQG", "cost_total", ("reason", "n_accepted")),
+                             ("KL", "kl_cost_total", ("satisfied",
+                                                      "n_iters"))):
+        gc, cc = torch.tensor(g[cost]), torch.tensor(c[cost])
+        rel = (gc - cc).abs() / cc.abs()
+        close = (rel <= COST_RTOL).float().mean().item()
+        shares = [np.mean(np.asarray(g[f]) == np.asarray(c[f]))
+                  for f in same]
+        print(f"  {what}: cost rel diff max {rel.max().item():.3e}, median "
+              f"{rel.median().item():.3e}; shares: cost within "
+              f"{COST_RTOL:.0e} {close:.3f}, "
+              + ", ".join(f"same {f} {v:.3f}" for f, v in zip(same, shares))
+              + f" (need {AGREE_SHARE} each)")
+        check(min([close] + shares) >= AGREE_SHARE,
+              f"m=3 {what}: GPU and CPU outcomes differ")
+    wall = time.perf_counter() - t_group
+    print(f"  m3 group: {wall:.1f} s wall")
+    m3["wall_s"] = wall
+    rec["m3"] = m3
+    return paths
+
+
 def main() -> int:
     ph = Phases()
     ph.start("device")
@@ -4038,8 +4575,9 @@ def main() -> int:
         print("  " + with_plan(line))
     _build.library()
     # the packed group's CPU solves run beside the card's phases
-    cpu_proc = start_packed_cpu_solves()
-    CHILDREN.append(cpu_proc)
+    cpu_proc = start_cpu_child("--packed-cpu")
+    m3_proc = start_cpu_child("--m3-cpu")
+    CHILDREN.extend([cpu_proc, m3_proc])
 
     ph.start("ilqg-kernels", f"vs plain versions, B={B}, T={T}")
     spec = PendCartSpec()
@@ -4279,6 +4817,8 @@ def main() -> int:
     paths.update(packed_phases(ph, dev, rec, counters, ilqg, cpu_proc))
     fleet_paths, fleet = fleet_phases(ph, dev, counters)
     paths.update(fleet_paths)
+    paths.update(m3_phases(ph, dev, rec, counters, m3_proc))
+    m3 = rec.pop("m3")
 
     # ---- record and result: one entry per kernel instance, its launches
     #      summed over the paths that run it
@@ -4356,6 +4896,15 @@ def main() -> int:
          ("lti", "kl_lti", "gps_lti", "fleet_lti")),
         ("k3_quad", "forward_lanes", "quadrotor <6,2>", "forward_quad.cu", k3,
          ("quad",)),
+        ("k1_lti3", "backward_lanes",
+         "LTI <10,3> gains, full (masked box QP; Cholesky unconstrained)",
+         "backward_lti_10_3.cu", k1, ("m3_lti", "m3_fleet")),
+        ("k1_lti3_gps", "backward_lanes", "LTI <10,3> GPS policy",
+         "backward_lti_gps_10_3.cu", k1, ("m3_kl",)),
+        ("k2_lti3", "linesearch_lanes", "LTI <10,3>", "forward_lti_10_3.cu",
+         k2, ("m3_lti", "m3_fleet")),
+        ("k3_lti3", "forward_lanes", "LTI <10,3>", "forward_lti_10_3.cu", k3,
+         ("m3_lti", "m3_fleet", "m3_kl")),
         ("k4_4", "covariance_lanes", "n=4", "covariance.cu", k4,
          ("kl", "gps") + fleet_kl),
         ("k4_10", "covariance_lanes", "n=10", "covariance.cu", k4,
@@ -4400,6 +4949,7 @@ def main() -> int:
             **rec[key]))
     print(json.dumps({"generic": generic}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"m3": m3}))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
@@ -4414,6 +4964,9 @@ CHILDREN: list = []
 if __name__ == "__main__":
     if sys.argv[1:] == ["--packed-cpu"]:
         print(json.dumps(packed_cpu_solves()))
+        sys.exit(0)
+    if sys.argv[1:] == ["--m3-cpu"]:
+        print(json.dumps(m3_cpu_solves()))
         sys.exit(0)
     try:
         rc = main()

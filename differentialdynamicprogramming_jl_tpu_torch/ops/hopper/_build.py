@@ -34,12 +34,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("common.cuh", "ring.cuh", "autodiff.cuh", "pendcart.cuh",
            "lti.cuh", "quadrotor.cuh", "packed.cuh", "backward.cuh",
            "forward.cuh", "backward.cu", "backward_lti.cu",
-           "backward_lti_gps.cu", "backward_quad.cu",
+           "backward_lti_gps.cu", "backward_lti_10_3.cu",
+           "backward_lti_gps_10_3.cu", "backward_quad.cu",
            "backward_pendcart_ad.cu", "backward_pendcart_param.cu",
            "backward_packed.cu", "backward_packed_lti.cu", "backward_so.cu",
            "backward_quad_so.cu", "forward.cu", "forward_lti.cu",
-           "forward_quad.cu", "forward_pendcart_param.cu", "covariance.cu",
-           "probe.cu")
+           "forward_lti_10_3.cu", "forward_quad.cu",
+           "forward_pendcart_param.cu", "covariance.cu", "probe.cu")
 # compile flags of every source; the objects are then linked with -shared
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -60,11 +61,13 @@ _MODEL = (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P)
 # steps a chunk, ring stages, shared bytes (plan.py)
 _PLAN = (_I,) * 5
 SIGNATURES = {
-    # K1 takes two more model arguments before the plan: whether its
-    # derivatives are made by autodiff (the Autodiff<Body> instances), and
-    # whether they are second order (full DDP)
+    # K1 takes three more arguments before the plan: whether its
+    # derivatives are made by autodiff (the Autodiff<Body> instances),
+    # whether they are second order (full DDP), and the m > 2 box QP's
+    # iterations
     "ddp_backward_lanes": (_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                           _I) + _MODEL[:9] + (_I, _I) + _PLAN + _MODEL[9:],
+                           _I) + _MODEL[:9] + (_I, _I, _I) + _PLAN
+                          + _MODEL[9:],
     "ddp_forward_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P,
                           _I, _I) + _MODEL[:9] + _PLAN + _MODEL[9:],
     "ddp_linesearch_lanes": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _F, _P,

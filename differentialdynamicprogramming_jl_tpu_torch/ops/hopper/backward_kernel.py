@@ -1,20 +1,23 @@
 """Batched backward pass (K1): the Riccati recursion.
 
 Counterpart of ``differentialdynamicprogramming_jl_tpu/ops/pallas/backward_kernel.py``
-for the subset on the fleet iLQG, KL/GPS and MPC paths: m ≤ 2, derivatives
+for the subset on the fleet iLQG, KL/GPS and MPC paths: derivatives
 computed per step from the (x, u) slots of the trajectory stream by
 ``derivs_tiles`` (first order, or with the dynamics Hessians of full DDP)
 or read from a packed-derivatives stream (``derivs_tiles=None``),
-per-scenario model parameters (``params``), control limits (the m=1 clamp
-or the m=2 9-set enumeration), static or per scenario (``lims_lanes``), or
-none (the unconstrained Cholesky solve), reg_type 1 or 2, GPS mode
+per-scenario model parameters (``params``), control limits (the m=1 clamp,
+the m=2 9-set enumeration, or for m > 2 the masked projected-Newton box QP
+of ``qp_iters`` iterations warm-started from the next step's k), static or
+per scenario (``lims_lanes``), or none (the unconstrained Cholesky solve),
+reg_type 1 or 2, GPS mode
 (``prev``/``eta``), and ``"gains"``, ``"full"`` or ``"policy"`` emission;
 and the batch-major wrapper :func:`backward_pass_pallas`.
 
 :func:`backward_lanes` gives a CPU tensor to :func:`backward_lanes_ref`, the
 plain PyTorch version (vectorised over B, Python loop over t, in the
-kernel's operation order), and a CUDA tensor to the hand-written kernel in
-``csrc/backward.cu``, or raises. There is no fallback. Its launch plan
+kernel's operation order; any m), and a CUDA tensor to the hand-written
+kernel in ``csrc/backward.cu`` (m ≤ ``MAX_M``, for the instances built), or
+raises. There is no fallback. Its launch plan
 (block shape and shared-memory ring) comes from :mod:`.plan`. Launches are
 counted in ``backward_lanes.launches``.
 """
@@ -29,7 +32,7 @@ import torch
 from . import _build
 from .plan import backward_plan
 from .forward_kernel import (CUDA_MODELS, DeviceModel, bounds, check_lanes,
-                             check_slice, cuda_args, par_args)
+                             check_lims, cuda_args, par_args)
 from .pack import (DERIV_FIELDS, DerivLayout, from_streams,
                    pack_backward_inputs, to_streams)
 from ..backward import BackwardOut
@@ -115,6 +118,7 @@ _ALL = tuple(EMIT_CODE)
 CUDA_BACKWARD = {
     (1, 4, 1, False, False): _ALL, (1, 4, 1, False, True): _ALL,
     (2, 10, 2, False, False): _ALL, (2, 10, 2, False, True): _ALL,
+    (2, 10, 3, False, False): _ALL, (2, 10, 3, False, True): _ALL,
     (4, 4, 1, False, False): ("gains", "full"),
     (1, 4, 1, True, False): ("gains", "full"),
     (3, 6, 2, True, False): ("gains", "full"),
@@ -152,6 +156,15 @@ def _sum(terms):
     return s
 
 
+def _sqrt_rn(v):
+    """The square root rounded to nearest, as the kernels' ``sqrtf`` and
+    XLA's are. PyTorch's CPU ``sqrt`` is not on some vector lanes (0.72%
+    of f32 inputs, ``tools_torch/m3_diagnose.py``), and the m > 2 box QP's
+    Cholesky pivots carry such an ulp into which candidate a solve takes;
+    taken in f64 and rounded back, it is exact on every device."""
+    return torch.sqrt(v.double()).to(v.dtype)
+
+
 def _tiny_chol(Q, mm):
     """Unrolled Cholesky of an mm×mm list-matrix of tensors; returns (L, ok)
     with ok the all-leading-minors-positive flag, the reference's
@@ -165,7 +178,7 @@ def _tiny_chol(Q, mm):
             d = d - L[j][p] * L[j][p]
         okj = d > 0
         ok = okj if ok is None else ok & okj
-        Ljj = torch.sqrt(torch.clamp_min(d, 1e-30))
+        Ljj = _sqrt_rn(torch.clamp_min(d, 1e-30))
         L[j][j] = Ljj
         for i in range(j + 1, mm):
             s = Q[i][j]
@@ -258,11 +271,81 @@ def _boxqp_m2(Q, g, lo, hi):
     return bx0, bx1, f0, f1, ok
 
 
-def _gain_solve(QuuF, Qu, Qux_r, u, lims, n, m):
+def _boxqp_masked(H, g, lo, hi, x0, mm, n_iter):
+    """Fixed-iteration masked projected-Newton box QP on lists of (B,)
+    tensors, line for line JAX ``_boxqp_masked`` (``:238-320``; reference
+    ``src/boxQP.jl:71-165``): from x0 clipped to the box, each iteration
+    finds the KKT free set (``src/boxQP.jl:92-94``), factors H on it (the
+    clamped rows and columns replaced by the identity's), takes the Newton
+    step on the free dimensions and keeps the best of α ∈ {1, ½, ¼} clipped
+    to the box by a strict <, the running minimum NaN-keeping. Every sum
+    runs in JAX's order, Python ``sum`` from 0 included.
+
+    Returns ``(x, free, L, ok)``: the solution, the final free set, its
+    Cholesky factor (for the gain solve) and the PD flag, latched False by
+    any failed factorisation and, with ``n_iter > 0``, by a last iteration
+    that found no descent while the free gradient is still far from the KKT
+    point (the reference's ``result=0``)."""
+    def val(x):
+        v = sum(x[i] * g[i] for i in range(mm))
+        for i in range(mm):
+            for j in range(mm):
+                v = v + 0.5 * x[i] * H[i][j] * x[j]
+        return v
+
+    def kkt_free(x, grad):
+        return [~(((x[i] <= lo[i]) & (grad[i] > 0))
+                  | ((x[i] >= hi[i]) & (grad[i] < 0))) for i in range(mm)]
+
+    def gradient(x):
+        return [g[i] + sum(H[i][j] * x[j] for j in range(mm))
+                for i in range(mm)]
+
+    def masked_chol(free):
+        Hm = [[torch.where(free[i] & free[j], H[i][j], 0.0)
+               + (torch.where(free[i], 0.0, 1.0) if i == j else 0.0)
+               for j in range(mm)] for i in range(mm)]
+        return _tiny_chol(Hm, mm)
+
+    x = [_clip(x0[i], lo[i], hi[i]) for i in range(mm)]
+    ok = torch.zeros_like(g[0]) < 1.0
+    improved = None                  # did the last iteration descend?
+    for _ in range(n_iter):
+        grad = gradient(x)
+        free = kkt_free(x, grad)
+        L, okc = masked_chol(free)
+        ok = ok & okc
+        gf = [torch.where(free[i], grad[i], 0.0) for i in range(mm)]
+        dx = _tiny_chol_solve(L, [-v for v in gf], mm)
+        dx = [torch.where(free[i], dx[i], 0.0) for i in range(mm)]
+        vb = val(x)
+        xb = x
+        improved = torch.zeros_like(g[0]) > 1.0
+        for a in (1.0, 0.5, 0.25):
+            xc = [_clip(x[i] + a * dx[i], lo[i], hi[i]) for i in range(mm)]
+            vc = val(xc)
+            take = vc < vb
+            improved = improved | take
+            xb = [torch.where(take, xc[i], xb[i]) for i in range(mm)]
+            vb = torch.minimum(vc, vb)
+        x = xb
+    grad = gradient(x)
+    free = kkt_free(x, grad)
+    L, okf = masked_chol(free)
+    ok = ok & okf
+    if improved is not None:
+        gf2 = sum(torch.where(free[i], grad[i], 0.0) ** 2 for i in range(mm))
+        g2 = sum(g[i] * g[i] for i in range(mm))
+        ok = ok & ~((gf2 > 1e-6 * (g2 + 1e-30)) & ~improved)
+    return x, free, L, ok
+
+
+def _gain_solve(QuuF, Qu, Qux_r, u, lims, n, m, warm=None, qp_iters=8):
     """k (m) and K (m×n) of one step, and the PD flag, not yet zeroed on
     failing lanes (JAX ``:513-568``). ``lims``: None, or the per-control
     (lo, hi) of :func:`~.forward_kernel.bounds`, floats or per-scenario
-    (B,) tensors."""
+    (B,) tensors. ``warm``: at m > 2 with limits, the box QP's start (the
+    sanitised k of step t+1); ``qp_iters`` its iterations."""
     R = range(n)
     if lims is None:
         # unconstrained: the unrolled Cholesky solve (:514-522)
@@ -282,19 +365,27 @@ def _gain_solve(QuuF, Qu, Qux_r, u, lims, n, m):
         quu_s = _guard(q)
         return [xq], [[torch.where(clamped, 0.0, -Qux_r[0][j] / quu_s)
                        for j in R]], q > 0
-    # m = 2: the 9-set enumeration and its K rows (:532-551)
-    x0, x1, f0, f1, ok = _boxqp_m2(QuuF, Qu, lo, hi)
-    both = f0 & f1
-    a, b, c = QuuF[0][0], QuuF[0][1], QuuF[1][1]
-    det_s, a_s, c_s = _guard(a * c - b * b), _guard(a), _guard(c)
-    K = [[None] * n for _ in range(2)]
-    for j in R:
-        q0, q1 = Qux_r[0][j], Qux_r[1][j]
-        kb0 = (-q0 * c + q1 * b) / det_s
-        kb1 = (q0 * b - q1 * a) / det_s
-        K[0][j] = torch.where(both, kb0, torch.where(f0, -q0 / a_s, 0.0))
-        K[1][j] = torch.where(both, kb1, torch.where(f1, -q1 / c_s, 0.0))
-    return [x0, x1], K, ok
+    if m == 2:
+        # the 9-set enumeration and its K rows (:532-551)
+        x0, x1, f0, f1, ok = _boxqp_m2(QuuF, Qu, lo, hi)
+        both = f0 & f1
+        a, b, c = QuuF[0][0], QuuF[0][1], QuuF[1][1]
+        det_s, a_s, c_s = _guard(a * c - b * b), _guard(a), _guard(c)
+        K = [[None] * n for _ in range(2)]
+        for j in R:
+            q0, q1 = Qux_r[0][j], Qux_r[1][j]
+            kb0 = (-q0 * c + q1 * b) / det_s
+            kb1 = (q0 * b - q1 * a) / det_s
+            K[0][j] = torch.where(both, kb0, torch.where(f0, -q0 / a_s, 0.0))
+            K[1][j] = torch.where(both, kb1, torch.where(f1, -q1 / c_s, 0.0))
+        return [x0, x1], K, ok
+    # m > 2: the masked projected-Newton box QP from the warm start, and K
+    # solved on its final free subspace (:552-568)
+    k, free, Lq, ok = _boxqp_masked(QuuF, Qu, lo, hi, warm, m, qp_iters)
+    cols = [_tiny_chol_solve(Lq, [torch.where(free[mi], -Qux_r[mi][j], 0.0)
+                                  for mi in range(m)], m) for j in R]
+    return k, [[torch.where(free[mi], cols[j][mi], 0.0) for j in R]
+               for mi in range(m)], ok
 
 
 def _read_kl(prev, eta, t, n, m):
@@ -343,8 +434,8 @@ def _packed_step(dp, t, n, m):
 
 def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
                        derivs_tiles: Optional[Callable], prev=None, eta=None,
-                       params=None, lims_lanes=None,
-                       emit: str = "full") -> BackwardLanesOut:
+                       params=None, lims_lanes=None, emit: str = "full",
+                       qp_iters: int = 8) -> BackwardLanesOut:
     """Plain version of :func:`backward_lanes` (same arguments; ``eta`` is
     (T, B)). Every sum runs in the JAX kernel's order (``:450-600``)."""
     T, B = traj.shape[0], traj.shape[2]
@@ -383,6 +474,9 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
         slots += _flat(cuu) + _flat(_tiny_inv(cuu, m))
     out[T - 1] = torch.stack(slots)
     dv1 = dv2 = div = divt = zero
+    # m > 2 with limits: the box QP's warm start, the sanitised k of step
+    # t+1, zero before the first solve (JAX :434-438, :647-650)
+    warm = [zero] * m
 
     for t in range(T - 2, -1, -1):
         d, u = step(t)
@@ -443,10 +537,12 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
             QuuF = [[Quu[mi][mj] + (lam if mi == mj else 0.0) for mj in M]
                     for mi in M]
 
-        k, K, ok = _gain_solve(QuuF, Qu, Qux_r, u, lim, n, m)
+        k, K, ok = _gain_solve(QuuF, Qu, Qux_r, u, lim, n, m, warm,
+                               qp_iters)
         # a non-PD lane gets zero gains; V keeps updating (JAX :570-572)
         k = [torch.where(ok, v, 0.0) for v in k]
         K = [[torch.where(ok, v, 0.0) for v in row] for row in K]
+        warm = k
 
         # value update with the unregularised terms (src/backward_pass.jl:63-72)
         Quu_k = [_sum([Quu[mi][mj] * k[mj] for mj in M]) for mi in M]
@@ -482,7 +578,7 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                    reg_type: int = 1, lims=None,
                    derivs_tiles: Optional[Callable] = None, prev=None,
                    eta=None, params=None, lims_lanes=None,
-                   emit: str = "full") -> BackwardLanesOut:
+                   emit: str = "full", qp_iters: int = 8) -> BackwardLanesOut:
     """Run the backward pass over a stream. Two input modes (JAX
     ``backward_lanes``, ``:729-790``):
 
@@ -507,16 +603,19 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
       unused.
     - ``emit``: ``"gains"``, ``"full"`` or ``"policy"`` (see
       :class:`OutLayout`).
+    - ``qp_iters``: iterations of the m > 2 box QP (JAX's default 8); 0
+      keeps the warm start clipped to the box.
 
     On a CUDA tensor the combination must be an instance the kernel is
     built for: :data:`CUDA_BACKWARD` (first-order tiles: model,
     derivative source, GPS mode, emission), :data:`CUDA_BACKWARD_SO`
     (second-order tiles) or :data:`CUDA_PACKED` (the packed stream, by n,
-    m and GPS mode); anything else raises NotImplementedError before the
-    kernel library is touched. Out of this slice (NotImplementedError):
-    m > 2.
+    m and GPS mode), none with m above ``MAX_M``; anything else raises
+    NotImplementedError before the kernel library is touched.
     """
-    check_slice(m, lims)
+    check_lims(m, lims)
+    if qp_iters < 0:
+        raise ValueError(f"qp_iters={qp_iters}: at least 0")
     if emit not in EMIT_CODE:
         raise ValueError(f"emit={emit!r}: one of {tuple(EMIT_CODE)}")
     if reg_type not in (1, 2):
@@ -547,7 +646,8 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
         return backward_lanes_ref(traj, lam, n=n, m=m, reg_type=reg_type,
                                   lims=lims, derivs_tiles=derivs_tiles,
                                   prev=prev, eta=eta, params=params,
-                                  lims_lanes=lims_lanes, emit=emit)
+                                  lims_lanes=lims_lanes, emit=emit,
+                                  qp_iters=qp_iters)
     gps_t = (prev, eta) if gps else ()
     if packed:
         dm = PACKED_MODEL
@@ -582,8 +682,8 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
         prev.data_ptr() if gps else None, eta.data_ptr() if gps else None,
         out.data_ptr(), S, stats.data_ptr(), T, B, EMIT_CODE[emit], reg_type,
         int(lims is not None or lims_lanes is not None), *model_args,
-        int(dm.autodiff), int(dm.second_order), *plan.launcher_args(), dev,
-        stream)
+        int(dm.autodiff), int(dm.second_order), int(qp_iters),
+        *plan.launcher_args(), dev, stream)
     _build.check(lib, rc, "backward_lanes")
     backward_lanes.launches += 1
     return BackwardLanesOut(out=out, stats=stats)
@@ -596,16 +696,18 @@ def backward_pass_pallas(derivs: Derivs, u: torch.Tensor, lam: torch.Tensor,
                          reg_type: int = 1, lims=None,
                          use_limits: bool = False, k_t: int = 8, eta=None,
                          traj_prev: Optional[GaussianPolicy] = None,
-                         interpret: bool = False) -> BackwardOut:
+                         interpret: bool = False,
+                         qp_iters: int = 8) -> BackwardOut:
     """Batch-major wrapper of K1 in packed mode, the parity interface with
     :func:`~..backward.backward_pass` over B problems (JAX ``:852-924``).
 
     ``derivs``: (B, T, ...) first-order leaves; ``u``: (B, T, m); ``lam``:
     (B,). ``lims`` ((m, 2), used with ``use_limits``). GPS mode: pass
     ``traj_prev`` (leaves (B, T, ...)) and ``eta``, (B,) or (B, T). Packs
-    the streams, runs K1 in ``"full"`` emission and unpacks. ``k_t`` and
-    ``interpret`` are the TPU kernel's switches and have no effect here:
-    one thread walks the whole horizon."""
+    the streams, runs K1 in ``"full"`` emission and unpacks; ``qp_iters``
+    as :func:`backward_lanes` (the JAX wrapper keeps its kernel's default
+    8). ``k_t`` and ``interpret`` are the TPU kernel's switches and have no
+    effect here: one thread walks the whole horizon."""
     B, T, m = u.shape
     n = derivs.cx.shape[-1]
     f32 = torch.float32
@@ -623,7 +725,8 @@ def backward_pass_pallas(derivs: Derivs, u: torch.Tensor, lam: torch.Tensor,
             eta=eta.T.contiguous())
     res = backward_lanes(pack_backward_inputs(derivs, u, B),
                          lam.to(f32).contiguous(), n=n, m=m,
-                         reg_type=reg_type, lims=lims_t, emit="full", **gps)
+                         reg_type=reg_type, lims=lims_t, emit="full",
+                         qp_iters=qp_iters, **gps)
     lay = OutLayout(n, m)
     o = res.out
 

@@ -1,18 +1,22 @@
 // K1 entry point: checks the arguments, picks the model's instance, and
 // launches it. The kernel is in backward.cuh; the pendcart ⟨4,1⟩ instances
 // are compiled here, the LTI ⟨10,2⟩ ones in backward_lti.cu (without GPS
-// mode) and backward_lti_gps.cu (GPS mode), the PendCartParam ⟨4,1⟩ ones in
-// backward_pendcart_param.cu, and the autodiff instances (autodiff != 0:
-// derivatives made in the kernel from the model's own functions) in
-// backward_quad.cu and backward_pendcart_ad.cu, the second-order (full
-// DDP) ones in backward_so.cu and backward_quad_so.cu, and the
-// packed-derivatives ones (model id 0: no model, the stream holds the
-// expansion) in backward_packed.cu and backward_packed_lti.cu, so that
+// mode) and backward_lti_gps.cu (GPS mode), the LTI ⟨10,3⟩ ones in
+// backward_lti_10_3.cu and backward_lti_gps_10_3.cu, the PendCartParam
+// ⟨4,1⟩ ones in backward_pendcart_param.cu, and the autodiff instances
+// (autodiff != 0: derivatives made in the kernel from the model's own
+// functions) in backward_quad.cu and backward_pendcart_ad.cu, the
+// second-order (full DDP) ones in backward_so.cu and backward_quad_so.cu,
+// and the packed-derivatives ones (model id 0: no model, the stream holds
+// the expansion) in backward_packed.cu and backward_packed_lti.cu, so that
 // nvcc builds them in parallel. A model with autodiff set runs its
 // autodiff instance or none: never its analytic one; second-order
-// derivatives run a second-order instance or none. Per-scenario limits (lims_lanes) are a runtime
-// input of every instance. The launch plan (blocks, threads, tc, stages,
-// shared bytes; ops/hopper/plan.py) is checked by the instance's launcher.
+// derivatives run a second-order instance or none. Per-scenario limits
+// (lims_lanes) are a runtime input of every instance; an m outside
+// 1..MAX_M is refused (ERR_ARGS), never cut to MAX_M controls. qp_iters is
+// the m > 2 box QP's iteration count (backward_kernel.py's qp_iters). The
+// launch plan (blocks, threads, tc, stages, shared bytes;
+// ops/hopper/plan.py) is checked by the instance's launcher.
 #include "backward.cuh"
 #include "lti.cuh"
 #include "pendcart.cuh"
@@ -28,7 +32,7 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                                   int model_id, int n, int m,
                                   const float* consts, int n_consts,
                                   int autodiff, int second_order,
-                                  int blocks, int threads,
+                                  int qp_iters, int blocks, int threads,
                                   int tc, int stages, int smem, int device,
                                   void* stream) {
   using namespace ddp;
@@ -39,8 +43,10 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
   if (T < 2 || B < 1 || s_in < n + m ||
       s_out != out_slots(emit, n, m) ||
       (reg_type != 1 && reg_type != 2) || gps != (eta != nullptr) ||
-      (params != nullptr) != (n_params > 0))
+      (params != nullptr) != (n_params > 0) || qp_iters < 0)
     return ERR_ARGS;
+  Lims lim;
+  if (!lims_from_host(lims, m, lim)) return ERR_ARGS;
   cudaSetDevice(device);
   const BwdArgs a{traj,
                   s_in,
@@ -55,13 +61,15 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                   emit,
                   reg_type,
                   use_limits != 0 || lims_lanes != nullptr,
-                  lims_from_host(lims, m),
+                  qp_iters,
+                  lim,
                   lims_lanes,
                   params,
                   consts,
                   RingPlan{blocks, threads, tc, stages, smem},
                   static_cast<cudaStream_t>(stream)};
   using LTI10x2 = LTI<10, 2>;
+  using LTI10x3 = LTI<10, 3>;
   const bool pendcart = model_id == PendCart::ID && n == PendCart::N &&
                         m == PendCart::M && n_consts == PendCart::N_CONSTS;
   const bool quad = model_id == Quadrotor::ID && n == Quadrotor::N &&
@@ -100,6 +108,10 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
       n_consts == LTI10x2::N_CONSTS)
     return gps ? launch_backward_lti_gps_10_2(a)
                : launch_backward_lti_10_2(a);
+  if (model_id == LTI10x3::ID && n == LTI10x3::N && m == LTI10x3::M &&
+      n_consts == LTI10x3::N_CONSTS)
+    return gps ? launch_backward_lti_gps_10_3(a)
+               : launch_backward_lti_10_3(a);
   return ERR_MODEL;
 }
 

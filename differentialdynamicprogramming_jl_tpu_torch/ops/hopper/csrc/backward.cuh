@@ -6,15 +6,18 @@
 // Replaces the TPU kernel
 //   differentialdynamicprogramming_jl_tpu/ops/pallas/backward_kernel.py
 //   ::backward_lanes (built by ::_make_kernel)
-// for the subset on the fleet iLQG, KL/GPS and MPC paths: m ≤ 2,
+// for the subset on the fleet iLQG, KL/GPS and MPC paths: m ≤ MAX_M,
 // derivatives computed in-register from the (x, u) slots of the trajectory
-// stream, control limits (the m=1 clamp or the m=2 9-set enumeration),
-// static or per scenario (lims_lanes, (2m, B), read once per thread), or
-// none (the unrolled Cholesky solve), per-scenario model parameters for a
-// model that takes them (params, (P, B)), reg_type 1 or 2, GPS mode, and
+// stream, control limits (the m=1 clamp, the m=2 9-set enumeration, or for
+// m > 2 the masked projected-Newton box QP warm-started from the next
+// step's k), static or per scenario (lims_lanes, (2m, B), read once per
+// thread), or none (the unrolled Cholesky solve), per-scenario model
+// parameters for a model that takes them (params, (P, B)), reg_type 1 or
+// 2, GPS mode, and
 // "gains", "full" or "policy" emission. Instances: every emission, with
-// and without GPS mode, for pendcart ⟨4,1⟩ (backward.cu) and LTI ⟨10,2⟩
-// (backward_lti.cu without GPS mode, backward_lti_gps.cu with it); "gains"
+// and without GPS mode, for pendcart ⟨4,1⟩ (backward.cu), LTI ⟨10,2⟩
+// (backward_lti.cu without GPS mode, backward_lti_gps.cu with it) and LTI
+// ⟨10,3⟩ (backward_lti_10_3.cu, backward_lti_gps_10_3.cu); "gains"
 // and "full" without GPS mode for the parametrised pendcart PendCartParam
 // ⟨4,1⟩ (backward_pendcart_param.cu); and the autodiff instances, whose
 // derivatives are made in the kernel from the model's own functions
@@ -60,13 +63,17 @@
 // B=4096, T=1000: ≈7.5 kflop per scenario-step (W = Vxx·fx and Qxx =
 // fxᵀ·W are n³ each), ≈31 GFLOP a launch against ≈557 MB moved ("gains"),
 // so its bound is the operations; Vx, Vxx, W and Qxx do not fit in 255
-// registers and spill. At B=4096 the grid is 128 blocks on 128 SMs, and no
-// step waits on device memory. What is left is each scenario's chain of
-// dependent operations, T steps long: for the pendcart ≈750 instructions a
-// step issued at ≈0.44 a cycle by its one warp, because each IEEE division
-// (≈8 a step) and sinf/cosf carry a slow-path branch that cuts the step
-// into blocks the compiler cannot interleave. Four warps repeat that chain
-// in each of them, and measured slower there (PERF.md §6).
+// registers and spill. LTI ⟨10,3⟩ with limits adds the masked box QP,
+// ≈2.5 kflop a scenario-step at 8 iterations (≈47 GFLOP a launch): a chain
+// of dependent divisions and square roots run while the step's n×n terms
+// are live, so the one-warp instance spills more (PERF.md §6). At B=4096
+// the grid is 128 blocks on 128 SMs, and no step waits on device memory.
+// What is left is each scenario's chain of dependent operations, T steps
+// long: for the pendcart ≈750 instructions a step issued at ≈0.44 a cycle
+// by its one warp, because each IEEE division (≈8 a step) and sinf/cosf
+// carry a slow-path branch that cuts the step into blocks the compiler
+// cannot interleave. Four warps repeat that chain in each of them, and
+// measured slower there (PERF.md §6).
 //
 // Semantics kept from the TPU kernel (backward_kernel.py line numbers):
 // - every sum over a (state) or mi (control) runs in the JAX order, from its
@@ -90,7 +97,12 @@
 //   and quu_s is guarded at 1e-30 (:173-181, :523-531); at m=2 the exact
 //   enumeration of the 9 active sets (:184-235) and the K rows with the
 //   det_s/a_s/c_s guards (:532-551). A lane with both controls clamped is
-//   OK even where QuuF is not positive definite (:231-234);
+//   OK even where QuuF is not positive definite (:231-234); at m > 2 the
+//   masked projected-Newton box QP (_boxqp_masked :238-320, boxqp_masked
+//   below), started from the sanitised k of step t+1 (0 at t = T-2: the
+//   kernel's warm-start scratch, :331-343, :434-438, :647-650, here a
+//   register array of each compute warp, which all compute the same k),
+//   and K solved on its final free subspace (:552-568);
 // - Quu⁻¹ by Cholesky solves against the unit vectors, pivot
 //   sqrt(max(d, 1e-30)) (_tiny_inv :161-170);
 // - a non-PD lane gets k = K = 0 and V keeps updating: the latch records
@@ -125,6 +137,7 @@ struct BwdArgs {
   float* stats;
   int T, B, emit, reg_type;
   bool use_limits;
+  int qp_iters;          // m > 2 with limits: the box QP's iterations
   Lims lims;
   const float* lims_lanes;   // (2m, B) per-scenario limits, or null
   const float* params;       // (P, B) per-scenario parameters, or null
@@ -215,6 +228,130 @@ __device__ __forceinline__ bool boxqp_m2(const float (&Q)[2][2],
          (!f0 && !f1);
 }
 
+// ½xᵀHx + gᵀx in the JAX order (_boxqp_masked's val): Σ_i x_i·g_i from 0,
+// then ½·x_i·H_ij·x_j added over i, j
+template <int M>
+__device__ __forceinline__ float qp_val(const float (&H)[M][M],
+                                        const float (&g)[M],
+                                        const float (&x)[M]) {
+  float v = 0.0f;
+#pragma unroll
+  for (int i = 0; i < M; ++i) v = v + x[i] * g[i];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) v = v + 0.5f * x[i] * H[i][j] * x[j];
+  }
+  return v;
+}
+
+// the gradient g + H·x (each row's sum from 0) and the KKT free set at x
+// (src/boxQP.jl:92-94): a dimension is clamped at a bound its gradient
+// pushes against
+template <int M>
+__device__ __forceinline__ void qp_kkt(const float (&H)[M][M],
+                                       const float (&g)[M],
+                                       const float (&lo)[M],
+                                       const float (&hi)[M],
+                                       const float (&x)[M], float (&gr)[M],
+                                       bool (&fr)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < M; ++j) s = s + H[i][j] * x[j];
+    gr[i] = g[i] + s;
+    fr[i] = !(((x[i] <= lo[i]) && (gr[i] > 0.0f)) ||
+              ((x[i] >= hi[i]) && (gr[i] < 0.0f)));
+  }
+}
+
+// Cholesky of H on the free set, the clamped rows and columns replaced by
+// the identity's; whether it is positive definite
+template <int M>
+__device__ __forceinline__ bool masked_chol(const float (&H)[M][M],
+                                            const bool (&fr)[M],
+                                            float (&L)[M][M]) {
+  float Hm[M][M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+      Hm[i][j] = ((fr[i] && fr[j]) ? H[i][j] : 0.0f) +
+                 (i == j ? (fr[i] ? 0.0f : 1.0f) : 0.0f);
+  }
+  return tiny_chol<M>(Hm, L);
+}
+
+// box QP min ½xᵀHx + gᵀx, lo ≤ x ≤ hi, for m > 2: a fixed number of
+// masked projected-Newton iterations from x0 clipped to the box
+// (backward_kernel.py::_boxqp_masked, the reference's src/boxQP.jl:71-165
+// with the active set as flags): each finds the KKT free set, factors H on
+// it, takes the Newton step on the free dimensions and keeps the best of
+// α = 1, ½, ¼ clipped to the box by a strict <, the running minimum
+// NaN-keeping. Writes x, the final free set and its factor L; returns ok:
+// every factorisation positive definite, and with qp_iters > 0 the last
+// iteration improved or the free gradient is at the KKT point (the
+// reference's "no descent direction" failure, src/boxQP.jl:134)
+template <int M>
+__device__ __forceinline__ bool boxqp_masked(
+    const float (&H)[M][M], const float (&g)[M], const float (&lo)[M],
+    const float (&hi)[M], const float (&x0)[M], int qp_iters, float (&x)[M],
+    bool (&fr)[M], float (&L)[M][M]) {
+  float gr[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) x[i] = clipp(x0[i], lo[i], hi[i]);
+  bool ok = true, improved = false;
+#pragma unroll 1
+  for (int it = 0; it < qp_iters; ++it) {
+    qp_kkt<M>(H, g, lo, hi, x, gr, fr);
+    ok = masked_chol<M>(H, fr, L) && ok;
+    float rhs[M], dx[M], xb[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) rhs[i] = -(fr[i] ? gr[i] : 0.0f);
+    tiny_chol_solve<M>(L, rhs, dx);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      dx[i] = fr[i] ? dx[i] : 0.0f;
+      xb[i] = x[i];
+    }
+    float vb = qp_val<M>(H, g, x);
+    improved = false;
+    const float steps[3] = {1.0f, 0.5f, 0.25f};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float xc[M];
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+        xc[i] = clipp(x[i] + steps[a] * dx[i], lo[i], hi[i]);
+      const float vc = qp_val<M>(H, g, xc);
+      const bool take = vc < vb;
+      improved = improved || take;
+#pragma unroll
+      for (int i = 0; i < M; ++i) xb[i] = take ? xc[i] : xb[i];
+      vb = minp(vc, vb);
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) x[i] = xb[i];
+  }
+  // the free set and its factor at the solution
+  qp_kkt<M>(H, g, lo, hi, x, gr, fr);
+  ok = masked_chol<M>(H, fr, L) && ok;
+  if (qp_iters > 0) {
+    float gf2 = 0.0f, g2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const float v = fr[i] ? gr[i] : 0.0f;
+      gf2 = gf2 + v * v;
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) g2 = g2 + g[i] * g[i];
+    const bool stuck = (gf2 > 1e-6f * (g2 + 1e-30f)) && !improved;
+    ok = ok && !stuck;
+  }
+  return ok;
+}
+
 // ring slots of a step's model input: x, u; for the packed stream its D+M
 // slots
 template <class Model>
@@ -274,9 +411,9 @@ backward_kernel(const float* __restrict__ traj, int s_in,
                 bool use_limits, Lims lims,
                 const float* __restrict__ lims_lanes,
                 const float* __restrict__ params, typename Model::Consts mc,
-                int tc, int stages, bool vec) {
+                int qp_iters, int tc, int stages, bool vec) {
   constexpr int N = Model::N, M = Model::M;
-  static_assert(M >= 1 && M <= MAX_M, "K1 is written for m = 1 or 2");
+  static_assert(M >= 1 && M <= MAX_M, "K1 is written for 1 ≤ m ≤ MAX_M");
   constexpr bool VALUE = EMIT == EMIT_FULL;     // Vx, Vxx slots
   constexpr bool QUU = EMIT != EMIT_GAINS;      // Quu, Quu⁻¹ slots
   constexpr int OV = M + M * N;                 // Vx's slot
@@ -363,6 +500,11 @@ backward_kernel(const float* __restrict__ traj, int s_in,
 
   float Vx[N], VxxR[ROWS][N];      // VxxR[q]: row warp + q·G of Vxx
   float dv1 = 0.0f, dv2 = 0.0f, div = 0.0f, divt = 0.0f;
+  // m > 2: the box QP's warm start, the sanitised k of step t+1 (0 before
+  // the first step's solve)
+  float kw[M];
+#pragma unroll
+  for (int mi = 0; mi < M; ++mi) kw[mi] = 0.0f;
   typename Model::Derivs dv;
   // the step's u and expansion at ring row r: read from the packed slots,
   // or formed from (x, u), to second order away from the boundary
@@ -687,7 +829,7 @@ backward_kernel(const float* __restrict__ traj, int s_in,
 #pragma unroll
       for (int j = 0; j < N; ++j)
         K[0][j] = clamped ? 0.0f : -Qux_r[0][j] / quu_s;
-    } else {
+    } else if constexpr (M == 2) {
       // m = 2: the exact enumeration and its K rows
       const float lo[2] = {lim.lo[0] - u[0], lim.lo[1] - u[1]};
       const float hi[2] = {lim.hi[0] - u[0], lim.hi[1] - u[1]};
@@ -705,6 +847,26 @@ backward_kernel(const float* __restrict__ traj, int s_in,
         K[0][j] = both ? kb0 : (fr[0] ? -q0 / a_s : 0.0f);
         K[1][j] = both ? kb1 : (fr[1] ? -q1 / c_s : 0.0f);
       }
+    } else {
+      // m > 2: the masked projected-Newton box QP from the warm start,
+      // then K on its final free subspace, clamped rows 0
+      float lo[M], hi[M], L[M][M], rhs[M], col[M];
+      bool fr[M];
+#pragma unroll
+      for (int mi = 0; mi < M; ++mi) {
+        lo[mi] = lim.lo[mi] - u[mi];
+        hi[mi] = lim.hi[mi] - u[mi];
+      }
+      ok = boxqp_masked<M>(QuuF, Qu, lo, hi, kw, qp_iters, k, fr, L);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+#pragma unroll
+        for (int mi = 0; mi < M; ++mi)
+          rhs[mi] = fr[mi] ? -Qux_r[mi][j] : 0.0f;
+        tiny_chol_solve<M>(L, rhs, col);
+#pragma unroll
+        for (int mi = 0; mi < M; ++mi) K[mi][j] = fr[mi] ? col[mi] : 0.0f;
+      }
     }
     // a non-PD lane gets zero gains; V keeps updating
 #pragma unroll
@@ -712,6 +874,10 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       k[mi] = ok ? k[mi] : 0.0f;
 #pragma unroll
       for (int j = 0; j < N; ++j) K[mi][j] = ok ? K[mi][j] : 0.0f;
+    }
+    if constexpr (M > 2) {
+#pragma unroll
+      for (int mi = 0; mi < M; ++mi) kw[mi] = k[mi];
     }
 
 
@@ -861,7 +1027,7 @@ int launch_one(const BwdArgs& a) {
   kernel<<<p.blocks, p.threads, p.smem, a.stream>>>(
       a.traj, a.s_in, a.lam, a.prev, a.eta, a.out, a.s_out, a.stats, a.T,
       a.B, a.reg_type, a.use_limits, a.lims, a.lims_lanes, a.params, mc,
-      p.tc, p.stages, vec);
+      a.qp_iters, p.tc, p.stages, vec);
   return (int)cudaGetLastError();
 }
 
@@ -879,7 +1045,8 @@ int launch_backward(const BwdArgs& a) {
 }  // namespace
 
 // the LTI ⟨10,2⟩ instances: without GPS mode in backward_lti.cu, in GPS
-// mode in backward_lti_gps.cu; PendCartParam ⟨4,1⟩, "gains" and "full"
+// mode in backward_lti_gps.cu; LTI ⟨10,3⟩ likewise in backward_lti_10_3.cu
+// and backward_lti_gps_10_3.cu; PendCartParam ⟨4,1⟩, "gains" and "full"
 // without GPS mode, in backward_pendcart_param.cu; the autodiff instances
 // (autodiff.cuh), "gains" and "full" without GPS mode: quadrotor ⟨6,2⟩ in
 // backward_quad.cu, pendcart ⟨4,1⟩ in backward_pendcart_ad.cu; the
@@ -888,6 +1055,8 @@ int launch_backward(const BwdArgs& a) {
 // backward_packed.cu (⟨4,1⟩, ⟨6,2⟩) and backward_packed_lti.cu (⟨10,2⟩)
 int launch_backward_lti_10_2(const BwdArgs& a);
 int launch_backward_lti_gps_10_2(const BwdArgs& a);
+int launch_backward_lti_10_3(const BwdArgs& a);
+int launch_backward_lti_gps_10_3(const BwdArgs& a);
 int launch_backward_pendcart_param(const BwdArgs& a);
 int launch_backward_quad_6_2(const BwdArgs& a);
 int launch_backward_pendcart_ad(const BwdArgs& a);

@@ -32,7 +32,9 @@
 
 namespace ddp {
 
-constexpr int MAX_M = 2;   // controls the kernels are written for
+// controls the kernels are written for: the Lims arrays' size, and the
+// bound of every model's M (the launchers refuse a larger m)
+constexpr int MAX_M = 4;
 
 // error codes the launchers return for arguments they refuse (cudaError_t
 // values are >= 0)
@@ -45,14 +47,17 @@ struct Lims {
   float lo[MAX_M], hi[MAX_M];
 };
 
-// [lo_0, hi_0, lo_1, hi_1, ...] from the host
-inline Lims lims_from_host(const float* lims, int m) {
-  Lims l{};
-  for (int i = 0; i < m && i < MAX_M; ++i) {
+// [lo_0, hi_0, lo_1, hi_1, ...] from the host into l; false, with l
+// untouched, for an m outside 1..MAX_M, which the launchers refuse
+// (ERR_ARGS) rather than drop the controls past MAX_M
+inline bool lims_from_host(const float* lims, int m, Lims& l) {
+  if (m < 1 || m > MAX_M) return false;
+  l = Lims{};
+  for (int i = 0; i < m; ++i) {
     l.lo[i] = lims[2 * i];
     l.hi[i] = lims[2 * i + 1];
   }
-  return l;
+  return true;
 }
 
 // The limits of scenario b: the launch's static ones when lims_lanes is

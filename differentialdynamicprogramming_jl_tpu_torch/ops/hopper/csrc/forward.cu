@@ -2,8 +2,10 @@
 // and launch it with the wrapper's launch plan (ops/hopper/plan.py). The
 // kernels are in forward.cuh; the pendcart ⟨4,1⟩
 // instances are compiled here, the LTI ⟨10,2⟩ ones in forward_lti.cu, the
-// quadrotor ⟨6,2⟩ ones in forward_quad.cu and the PendCartParam ⟨4,1⟩ ones
-// in forward_pendcart_param.cu, so that nvcc builds them in parallel.
+// LTI ⟨10,3⟩ ones in forward_lti_10_3.cu, the quadrotor ⟨6,2⟩ ones in
+// forward_quad.cu and the PendCartParam ⟨4,1⟩ ones in
+// forward_pendcart_param.cu, so that nvcc builds them in parallel. An m
+// outside 1..MAX_M is refused (ERR_ARGS), never cut to MAX_M controls.
 #include "forward.cuh"
 #include "lti.cuh"
 #include "pendcart.cuh"
@@ -14,6 +16,7 @@ using namespace ddp;
 namespace {
 
 using LTI10x2 = LTI<10, 2>;
+using LTI10x3 = LTI<10, 3>;
 
 // the stream shapes, and an in-place K2 only on an [x, u, c] stream
 bool stream_args_ok(const FwdArgs& a, int n, int m) {
@@ -30,12 +33,13 @@ bool is(int model_id, int n, int m, int n_consts, int n_params) {
 }
 
 // which instance: 1 pendcart, 2 LTI ⟨10,2⟩, 3 quadrotor, 4 PendCartParam,
-// 0 none
+// 5 LTI ⟨10,3⟩, 0 none
 int instance(int model_id, int n, int m, int n_consts, int n_params) {
   if (is<PendCart>(model_id, n, m, n_consts, n_params)) return 1;
   if (is<LTI10x2>(model_id, n, m, n_consts, n_params)) return 2;
   if (is<Quadrotor>(model_id, n, m, n_consts, n_params)) return 3;
   if (is<PendCartParam>(model_id, n, m, n_consts, n_params)) return 4;
+  if (is<LTI10x3>(model_id, n, m, n_consts, n_params)) return 5;
   return 0;
 }
 
@@ -44,6 +48,7 @@ int launch_k3(int which, const FwdArgs& a) {
     case 1: return launch_forward<PendCart>(a);
     case 2: return launch_forward_lti_10_2(a);
     case 3: return launch_forward_quad_6_2(a);
+    case 5: return launch_forward_lti_10_3(a);
     default: return launch_forward_pendcart_param(a);
   }
 }
@@ -53,6 +58,7 @@ int launch_k2(int which, const FwdArgs& a) {
     case 1: return launch_linesearch<PendCart>(a);
     case 2: return launch_linesearch_lti_10_2(a);
     case 3: return launch_linesearch_quad_6_2(a);
+    case 5: return launch_linesearch_lti_10_3(a);
     default: return launch_linesearch_pendcart_param(a);
   }
 }
@@ -70,6 +76,7 @@ extern "C" int ddp_forward_lanes(const float* traj, int s_traj,
                                  const float* consts, int n_consts,
                                  int blocks, int threads, int tc, int stages,
                                  int smem, int device, void* stream) {
+  if (m < 1 || m > MAX_M) return ERR_ARGS;
   const int which = instance(model_id, n, m, n_consts, n_params);
   if (which == 0) return ERR_MODEL;
   if ((params != nullptr) != (n_params > 0)) return ERR_ARGS;
@@ -88,7 +95,7 @@ extern "C" int ddp_forward_lanes(const float* traj, int s_traj,
   a.out = out_traj;
   a.T = T;
   a.B = B;
-  a.lims = lims_from_host(lims, m);
+  if (!lims_from_host(lims, m, a.lims)) return ERR_ARGS;
   a.lims_lanes = lims_lanes;
   a.params = params;
   a.consts = consts;
@@ -112,6 +119,7 @@ extern "C" int ddp_linesearch_lanes(const float* traj, int s_traj,
                                     int blocks, int threads, int tc,
                                     int stages, int smem, int device,
                                     void* stream) {
+  if (m < 1 || m > MAX_M) return ERR_ARGS;
   const int which = instance(model_id, n, m, n_consts, n_params);
   if (which == 0) return ERR_MODEL;
   if ((params != nullptr) != (n_params > 0)) return ERR_ARGS;
@@ -131,7 +139,7 @@ extern "C" int ddp_linesearch_lanes(const float* traj, int s_traj,
   a.ls = ls;
   a.T = T;
   a.B = B;
-  a.lims = lims_from_host(lims, m);
+  if (!lims_from_host(lims, m, a.lims)) return ERR_ARGS;
   a.lims_lanes = lims_lanes;
   a.params = params;
   a.consts = consts;

@@ -10,7 +10,8 @@
 // for a model that takes them (params, (P, B)). Without limits the wrapper
 // passes lo = -inf, hi = +inf: the NaN-keeping clipp then returns its input
 // unchanged, as the JAX rollout's missing clamp does. Instances: pendcart
-// ⟨4,1⟩ (forward.cu), LTI ⟨10,2⟩ (forward_lti.cu), quadrotor ⟨6,2⟩
+// ⟨4,1⟩ (forward.cu), LTI ⟨10,2⟩ (forward_lti.cu), LTI ⟨10,3⟩
+// (forward_lti_10_3.cu), quadrotor ⟨6,2⟩
 // (forward_quad.cu) and the parametrised pendcart PendCartParam ⟨4,1⟩
 // (forward_pendcart_param.cu); K3 one kernel a model for any A ≤ MAX_A
 // with and one without the emitted stream, K2 one kernel a model.
@@ -477,11 +478,14 @@ int launch_linesearch(const FwdArgs& a) {
 
 }  // namespace
 
-// the LTI ⟨10,2⟩ instances, compiled in forward_lti.cu, the quadrotor
-// ⟨6,2⟩ ones, in forward_quad.cu, and the PendCartParam ⟨4,1⟩ ones, in
+// the LTI ⟨10,2⟩ instances, compiled in forward_lti.cu, the LTI ⟨10,3⟩
+// ones, in forward_lti_10_3.cu, the quadrotor ⟨6,2⟩ ones, in
+// forward_quad.cu, and the PendCartParam ⟨4,1⟩ ones, in
 // forward_pendcart_param.cu
 int launch_forward_lti_10_2(const FwdArgs& a);
 int launch_linesearch_lti_10_2(const FwdArgs& a);
+int launch_forward_lti_10_3(const FwdArgs& a);
+int launch_linesearch_lti_10_3(const FwdArgs& a);
 int launch_forward_quad_6_2(const FwdArgs& a);
 int launch_linesearch_quad_6_2(const FwdArgs& a);
 int launch_forward_pendcart_param(const FwdArgs& a);

@@ -30,10 +30,14 @@ from . import _build
 from .plan import forward_plan, linesearch_plan
 
 MAX_A = 8   # candidate bound of the CUDA kernels (csrc/forward.cu)
+# controls the CUDA kernels are written for (csrc/common.cuh MAX_M): no
+# instance has more, and the launchers refuse a larger m
+MAX_M = 4
 # (model id, n, m) of each model the CUDA kernels K2 and K3 are instantiated
 # for; K1's instances are listed in backward_kernel.CUDA_BACKWARD
 CUDA_MODELS = {(1, 4, 1): "pendcart (csrc/pendcart.cuh)",
                (2, 10, 2): "LTI (csrc/lti.cuh)",
+               (2, 10, 3): "LTI (csrc/lti.cuh)",
                (3, 6, 2): "quadrotor (csrc/quadrotor.cuh)",
                (4, 4, 1): "pendcart with per-scenario [l, d] "
                           "(csrc/pendcart.cuh PendCartParam)"}
@@ -97,12 +101,9 @@ class LineSearchLanesOut(NamedTuple):
     ls: torch.Tensor     # (5, B): al_sel, any_ok, dcost_sel, ratio_sel, total_new
 
 
-def check_slice(m: int, lims):
-    """Raise NotImplementedError for what this slice does not cover, and
-    ValueError for static limits that are not one (lo, hi) per control."""
-    if m > 2:
-        raise NotImplementedError(
-            f"m={m}: the m > 2 masked-Newton box QP is not ported yet")
+def check_lims(m: int, lims):
+    """Raise ValueError for static limits that are not one (lo, hi) per
+    control."""
     if lims is not None and (not isinstance(lims, (tuple, list))
                              or len(lims) != m):
         raise ValueError(f"lims {lims}: static limits are one (lo, hi) per "
@@ -347,7 +348,7 @@ def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
 
     Returns per-α totals (running + terminal) and terminal costs, (A, B).
     """
-    check_slice(model.m, lims)
+    check_lims(model.m, lims)
     gK = model.m if gK is None else gK
     _check_streams("forward_lanes", model, traj, gains, x0, gk, gK, [alphas])
     T, B = traj.shape[0], traj.shape[2]
@@ -404,7 +405,7 @@ def linesearch_lanes(traj: torch.Tensor, gains: torch.Tensor,
     Returns the new stream (T, n+m+1, B) and the (5, B) record
     [al_sel, any_ok, dcost_sel, ratio_sel, total_new].
     """
-    check_slice(model.m, lims)
+    check_lims(model.m, lims)
     gK = model.m if gK is None else gK
     _check_streams("linesearch_lanes", model, traj, gains, x0, gk, gK, [sel])
     if sel.shape[0] != 4:

@@ -37,9 +37,10 @@ import torch
 
 from ..device import as_tensor
 from ..policy import GaussianPolicy
+from ..utils import printing as _pr
 from ..ops.hopper.pack import from_streams, mean_t, to_streams
 from ..ops.hopper.backward_kernel import InLayout, OutLayout, backward_lanes
-from ..ops.hopper.forward_kernel import (LanesModel, check_slice, par_args,
+from ..ops.hopper.forward_kernel import (LanesModel, check_lims, par_args,
                                          forward_lanes, linesearch_lanes)
 from .ilqg import ILQGConfig, tol_fun_effective
 
@@ -122,11 +123,14 @@ def _eval_terminal(model: LanesModel, xT, par) -> torch.Tensor:
     return model.terminal([xT[i] for i in range(model.n)], *par)
 
 
-def _out_of_slice(packed_derivs, derivs_tiles, cfg):
-    if cfg.verbosity > 1:
-        raise NotImplementedError("verbosity > 1 (fleet iteration rows)")
-    if derivs_tiles is None and packed_derivs is None:
-        raise ValueError("derivs_tiles or packed_derivs is required")
+def active_means(active, *vals):
+    """The number of active scenarios and each value's mean over them, as
+    the JAX drivers form their aggregate rows (``solvers/batch.py:536-546``):
+    masked f32 sums over max(count, 1)."""
+    n_act = active.sum()
+    den = torch.clamp_min(n_act, 1).to(torch.float32)
+    return (n_act,) + tuple(torch.where(active, v, 0.0).sum() / den
+                            for v in vals)
 
 
 def _packed(packed_derivs, traj, n: int, m: int) -> torch.Tensor:
@@ -180,6 +184,8 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
       ``derivs_tiles``) with ``n_params == P``.
     - ``max_steps``: bound on this call's iterations below ``cfg.cap()``.
     - ``record_trace``: also return the (B, cap) :class:`BatchTrace`.
+    - ``cfg.verbosity > 1``: a fleet-aggregate row an iteration
+      (:func:`~..utils.printing.lanes_row`; a host sync each).
 
     The JAX signature's TPU switches ``kt_backward``, ``kt_forward``
     (time steps a grid step) and ``interpret`` (Pallas interpret mode) are
@@ -189,14 +195,13 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
     Host syncs: one per iteration for the exit check (with
     ``packed_derivs``, the same transfer also brings the "some lane
     accepted" flag) and one per λ-retry check, at least one an iteration.
-
-    Not in this slice (NotImplementedError): m > 2 and ``verbosity > 1``.
     """
     x0s = as_tensor(x0s)
     u0s = as_tensor(u0s)
-    _out_of_slice(packed_derivs, derivs_tiles, cfg)
+    if derivs_tiles is None and packed_derivs is None:
+        raise ValueError("derivs_tiles or packed_derivs is required")
     lims, lims_batch = split_lims(lims)
-    check_slice(model.m, lims)
+    check_lims(model.m, lims)
     if (params is None) != (model.n_params == 0):
         raise ValueError(f"params: the model takes {model.n_params} "
                          "per-scenario parameters")
@@ -402,6 +407,9 @@ def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
                               ("accepted", accept.to(f32)),
                               ("divergence", res.stats[3])):
                 tr[name][ti] = val
+        if cfg.verbosity > 1:
+            _pr.lanes_row(it, *active_means(
+                active, tot_n, accept.to(f32), lam_n, g_it), cfg.print_head)
 
         # the backward replay after the loop needs the inputs of the last
         # backward pass each lane ran: this iteration's entry stream and λ
@@ -489,7 +497,7 @@ def ilqg_iteration_lanes(model: LanesModel, packed_derivs, lims,
                          "package's; its model must have n_params == 0")
     n, m = model.n, model.m
     lims, lims_batch = split_lims(lims)
-    check_slice(m, lims)
+    check_lims(m, lims)
     lims_l = pack_lims(lims_batch) if lims_batch is not None else None
     lay = OutLayout(n, m)
 

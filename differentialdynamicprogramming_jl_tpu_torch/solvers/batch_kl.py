@@ -32,8 +32,9 @@ from ..ops.hopper.pack import from_streams, mean_t, to_streams
 from ..ops.hopper.backward_kernel import (OutLayout, _sum, _tiny_chol,
                                           backward_lanes)
 from ..ops.hopper.covariance_kernel import covariance_lanes, identity_r1
-from ..ops.hopper.forward_kernel import LanesModel, check_slice, forward_lanes
-from .batch import pack_lims, split_lims
+from ..ops.hopper.forward_kernel import LanesModel, check_lims, forward_lanes
+from ..utils import printing as _pr
+from .batch import active_means, pack_lims, split_lims
 from .ilqgkl import ILQGKLConfig
 
 
@@ -49,10 +50,11 @@ def _logdet_tiles(S, m):
         det = S[:, 0] * S[:, 3] - S[:, 1] * S[:, 2]
         ok = (S[:, 0] > 0) & (det > 0)        # leading principal minors
         return torch.log(torch.clamp_min(det, 1e-30)), ok
+    # m > 2: the unrolled Cholesky's diagonal, summed as JAX does (from 0)
     M = [[S[:, i * m + j] for j in range(m)] for i in range(m)]
     L, ok = _tiny_chol(M, m)
-    return 2.0 * _sum(torch.log(torch.clamp_min(L[j][j], 1e-30))
-                      for j in range(m)), ok
+    return 2.0 * sum(torch.log(torch.clamp_min(L[j][j], 1e-30))
+                     for j in range(m)), ok
 
 
 def kl_div_wiki_lanes(mu, sxx, k_n, K_n, S_n, k_p, K_p, Si_p, n: int,
@@ -146,11 +148,6 @@ class BatchKLResult(NamedTuple):
     trace: Optional[BatchKLTrace] = None      # with record_trace=True
 
 
-def _out_of_slice(cfg):
-    if cfg.verbosity > 1:
-        raise NotImplementedError("verbosity > 1 (fleet iteration rows)")
-
-
 def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
                        traj_prev: GaussianPolicy, fx_model, cost0,
                        lims: Optional[Tuple] = None,
@@ -173,6 +170,8 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
     - ``lims``: static ``((lo, hi),) * m``, a per-scenario (B, m, 2) array
       (K1 in GPS mode and K3 read each lane's box), or None.
     - ``record_trace``: also return the (B, max_iter+1) :class:`BatchKLTrace`.
+    - ``cfg.verbosity > 1``: a fleet-aggregate row an iteration
+      (:func:`~..utils.printing.kl_lanes_row`; a host sync each).
 
     Resume entry (the KL fleet scheduler, :mod:`.fleet`; JAX
     ``_ilqgkl_batch_lanes_jit``, ``solvers/batch_kl.py:223-241``):
@@ -189,12 +188,9 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
     ``interpret`` (Pallas interpret mode) are taken and have no effect:
     each kernel thread walks the whole horizon, and a CPU tensor runs the
     plain versions.
-
-    Not in this slice (NotImplementedError): ``verbosity > 1``; m > 2.
     """
-    _out_of_slice(cfg)
     lims, lims_batch = split_lims(lims)
-    check_slice(model.m, lims)
+    check_lims(model.m, lims)
     x0s = as_tensor(x0s)
     traj_prev = GaussianPolicy(*map(as_tensor, traj_prev))
     dev = x0s.device
@@ -360,6 +356,10 @@ def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
                               ("divergence", torch.where(active, div, div_c)),
                               ("eta", eta_mid)):
                 tr[name][ti] = val
+        if cfg.verbosity > 1:
+            _pr.kl_lanes_row(it, *active_means(
+                active, tot_new, eta_mid, div, (satisfied & active).to(f32)),
+                cfg.print_head)
 
         br = torch.where(active, br_n, br)
         delta = torch.where(active, dl, delta)

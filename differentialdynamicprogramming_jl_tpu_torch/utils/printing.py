@@ -4,7 +4,8 @@ Counterpart of ``differentialdynamicprogramming_jl_tpu/utils/printing.py``,
 with its text line for line: the iLQG iteration table with periodic headers
 (``src/iLQG.jl:288-297``), the EXIT/SUCCESS messages
 (``src/iLQG.jl:259,306,319``), the iLQGkl period table
-(``src/iLQGkl.jl:151-159``) and the boxQP progress lines
+(``src/iLQGkl.jl:151-159``), the fleet drivers' aggregate rows and the
+boxQP progress lines
 (``src/boxQP.jl:65-66,153-156,181-184``). Arguments may be tensors (read
 with ``.item()``, a host sync each) or numbers; the solvers call these only
 when their verbosity asks for them.
@@ -108,6 +109,45 @@ def ilqgkl_exit(satisfied, eta_maxed, kl_violated):
         print("\nEXIT: eta > eta_max")
     if bool(_num(kl_violated)):
         print("WARNING: KL divergence too high when done")
+
+
+def _log10_like(v) -> float:
+    """log10(max(v, 1e-300)) in v's own precision, as JAX's
+    ``jnp.log10(jnp.maximum(v, 1e-300))``: for an f32 value the floor
+    rounds to 0, and a zero prints as -inf."""
+    t = torch.as_tensor(v)
+    return torch.log10(torch.clamp_min(t, 1e-300)).item()
+
+
+def lanes_row(it, n_active, mean_cost, accept_frac, mean_lam, mean_g,
+              print_head: int = 10):
+    """Fleet-aggregate iteration row of the lane iLQG driver (JAX
+    ``utils/printing.py:124-136``): the reference's per-problem table does
+    not scale to thousands of scenarios; aggregates over the active ones
+    do."""
+    it = int(_num(it))
+    if (it - 1) % print_head == 0:
+        print("iteration   active      mean cost   accept      "
+              "mean log10(lam)  mean grad")
+    print("{i:<12d}{a:<12d}{c:<12.6g}{p:<12.3f}{l:<17.1f}{g:<12.3g}".format(
+        i=it, a=int(_num(n_active)), c=float(_num(mean_cost)),
+        p=float(_num(accept_frac)), l=_log10_like(mean_lam),
+        g=float(_num(mean_g))))
+
+
+def kl_lanes_row(it, n_active, mean_cost, mean_eta, mean_div, sat_frac,
+                 print_head: int = 10):
+    """Fleet-aggregate row of the lane iLQGkl driver (JAX
+    ``utils/printing.py:139-150``; cf. the reference's period table,
+    ``src/iLQGkl.jl:151-159``)."""
+    it = int(_num(it))
+    if (it - 1) % print_head == 0:
+        print("iteration   active      est. cost   log10(eta)  "
+              "divergence  satisfied")
+    print("{i:<12d}{a:<12d}{c:<12.6g}{l:<12.2f}{v:<12.3g}{s:<12.3f}".format(
+        i=it, a=int(_num(n_active)), c=float(_num(mean_cost)),
+        l=_log10_like(mean_eta), v=float(_num(mean_div)),
+        s=float(_num(sat_frac))))
 
 
 _BOXQP_RESULTS = [

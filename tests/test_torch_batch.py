@@ -122,18 +122,25 @@ def test_batch_unconstrained_matches_jax():
     (dict(cfg=convert.config_from_jax(J.ILQGConfig(verbosity=2))),
      "verbosity"),
 ])
-def test_batch_out_of_slice_options_raise(kwargs, option):
-    """verbosity > 1 is not ported (NotImplementedError); packed_derivs is,
-    and a generator that does not give K1's (T, D+m, B) stream is refused
-    (ValueError)."""
+def test_batch_out_of_slice_options_raise(kwargs, option, capsys):
+    """A generator that does not give K1's (T, D+m, B) stream is refused
+    (ValueError). verbosity > 1, which used to raise here, now prints the
+    fleet-aggregate rows (the text is held to JAX's in
+    tests/test_torch_m3_fleet.py): a header and one row an iteration."""
     x0s, u0s = _inputs()
     spec = tpc.PendCartSpec()
     call = dict(lims=LIMS, derivs_tiles=tpc.pendcart_derivs_tiles(spec))
     call.update(kwargs)
-    exc = NotImplementedError
+    args = (tpc.pendcart_lanes(spec), call.pop("packed_derivs", None),
+            torch.from_numpy(x0s), torch.from_numpy(u0s))
     if option == "packed_derivs":
-        call["derivs_tiles"], exc = None, ValueError
-    with pytest.raises(exc, match=option):
-        ilqg_batch_lanes(tpc.pendcart_lanes(spec), call.pop("packed_derivs",
-                                                            None),
-                         torch.from_numpy(x0s), torch.from_numpy(u0s), **call)
+        call["derivs_tiles"] = None
+        with pytest.raises(ValueError, match=option):
+            ilqg_batch_lanes(*args, **call)
+        return
+    res = ilqg_batch_lanes(*args, max_steps=3, **call)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("iteration   active      mean cost")
+    assert len(lines) == 1 + int(res.n_iters.max())
+    assert [int(r.split()[0]) for r in lines[1:]] == list(
+        range(1, len(lines)))

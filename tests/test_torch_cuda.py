@@ -1453,3 +1453,230 @@ def test_packed_and_full_ddp_solvers_on_card_match_cpu(dev, kind):
     torch.testing.assert_close(g.cost_total.cpu(), c.cost_total, rtol=1e-3,
                                atol=1e-4)
     assert (g.reason.cpu() == c.reason).float().mean() >= 0.9
+
+
+# ---------------------------------------------------------------------------
+# LTI ⟨10,3⟩ (m > 2): K1 with the masked projected-Newton box QP and its
+# warm start, the unrolled 3×3 Cholesky without limits and in GPS mode; K2
+# and K3 at m=3. B = 37 takes the 4-byte copies and a partial block, 4090
+# the 16-byte ones and a partial block; T = 2 is shorter than a chunk, tc+1
+# one step past the first (K1 takes T ≥ 2; T = 1 is refused before any
+# launch). No transcendentals: held to 1e-5, the latch exactly.
+
+LTI3_BOX = ((-0.6, 0.6),) * 3
+
+
+def _lti3(dev, B, T, seed=13, offset=0):
+    """(model, tiles, x0 (10, B), traj) of the m=3 LTI fleet's spec: traj a
+    K3 rollout of random controls, with ``offset`` a view that many floats
+    into a larger buffer."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    spec = linear.random_lti(0, n=10, m=3, T=T, device=dev)
+    model, tiles = linear.lti_lanes(spec), linear.lti_derivs_tiles(spec)
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x0 = torch.tensor(np.linspace(0.5, 2.0, B)[None, :]
+                      + 0.3 * rng.standard_normal((10, B)), **f32)
+    gains0 = torch.cat([torch.tensor(2.0 * rng.standard_normal((T, 3, B)),
+                                     **f32),
+                        torch.zeros((T, 30, B), **f32)], dim=1)
+    traj = fk.forward_lanes(torch.zeros((T, 13, B), **f32), gains0, x0,
+                            torch.ones((1, B), **f32), model=model,
+                            lims=LTI3_BOX, emit_traj=True).traj
+    if offset:
+        buf = torch.zeros(traj.numel() + offset, **f32)
+        view = buf[offset:].view(traj.shape)
+        view.copy_(traj)
+        traj = view
+    return model, tiles, x0, traj
+
+
+@pytest.mark.parametrize("T", ["1", "2", "tc+1"])
+@pytest.mark.parametrize("B", [37, 4090])
+@pytest.mark.parametrize("lims", ["box", "none"])
+@pytest.mark.parametrize("emit", ["gains", "full", "policy"])
+@pytest.mark.parametrize("gps", [False, True])
+def test_lti3_backward_kernel_matches_plain(dev, gps, emit, lims, B, T):
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    box = LTI3_BOX if lims == "box" else None
+    Tk = _ring_T(T, plan.backward_plan(10, 3, gps, emit, 10_000, B).tc)
+    model, tiles, _, traj = _lti3(dev, B, Tk)
+    lam = torch.logspace(-6, 2, B, device=dev)
+    prev, eta = _ring_prev(10, 3, Tk, B, dev) if gps else (None, None)
+    kw = dict(n=10, m=3, reg_type=1 if gps else 2, lims=box,
+              derivs_tiles=tiles, prev=prev, eta=eta, emit=emit)
+    n0 = bk.backward_lanes.launches
+    if Tk < 2:
+        with pytest.raises(ValueError):
+            bk.backward_lanes(traj, lam, **kw)
+        assert bk.backward_lanes.launches == n0
+        return
+    k = bk.backward_lanes(traj, lam, **kw)
+    assert bk.backward_lanes.launches == n0 + 1
+    p = bk.backward_lanes_ref(traj, lam, **kw)
+    assert k.out.shape == (Tk, bk.OutLayout(10, 3, emit).S, B)
+    assert torch.equal(k.stats[2:], p.stats[2:])
+    torch.testing.assert_close(k.out, p.out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k.stats[:2], p.stats[:2], rtol=1e-5,
+                               atol=1e-5)
+    if box is not None and not gps:
+        # the box QP puts k on a limit on some steps
+        kk, u = k.out[:-1, :3], traj[:-1, 10:13]
+        assert ((kk == -0.6 - u) | (kk == 0.6 - u)).any()
+
+
+@pytest.mark.parametrize("qp_iters", [0, 1, 8])
+def test_lti3_backward_kernel_qp_iters_offset_and_latch(dev, qp_iters):
+    """The box QP's iteration count; a stream a float off the 16-byte grid
+    (the 4-byte copies); R negative definite, so that lanes latch, with and
+    without the box. Quu⁻¹ of an indefinite Quu goes through the 1e-30
+    pivot guard to ±inf and NaN, in the same places in both versions."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    Bc, Tc = 200, 40
+    _, tiles, _, traj = _lti3(dev, Bc, Tc, offset=1)
+    assert traj.data_ptr() % 16 != 0
+    lam = torch.logspace(-6, 2, Bc, device=dev)
+    spec = linear.random_lti(0, n=10, m=3, T=Tc, device=dev)
+    latch = linear.lti_derivs_tiles(spec._replace(R=-spec.R))
+    for tl_, box in ((tiles, LTI3_BOX), (latch, LTI3_BOX), (latch, None)):
+        kw = dict(n=10, m=3, reg_type=2, lims=box, derivs_tiles=tl_,
+                  emit="full", qp_iters=qp_iters)
+        k = bk.backward_lanes(traj, lam, **kw)
+        p = bk.backward_lanes_ref(traj, lam, **kw)
+        assert torch.equal(k.stats[2:], p.stats[2:])
+        q = bk.OutLayout(10, 3, "full").quui
+        torch.testing.assert_close(k.out[:, :q], p.out[:, :q], rtol=1e-4,
+                                   atol=1e-5)
+        torch.testing.assert_close(k.out[:, q:], p.out[:, q:], rtol=1e-3,
+                                   atol=1e-5, equal_nan=True)
+        if tl_ is latch:
+            assert 0 < int((k.stats[2] > 0.5).sum()) < Bc
+
+
+def test_lti3_kernels_propagate_nan(dev):
+    Bc, Tc = 37, 12
+    model, tiles, x0, traj = _lti3(dev, Bc, Tc)
+    traj[5, 2, 3] = float("nan")
+    traj[7, 11, 20] = float("nan")        # a control
+    kw = dict(n=10, m=3, reg_type=2, lims=LTI3_BOX, derivs_tiles=tiles,
+              emit="gains")
+    lam = torch.ones(Bc, device=dev)
+    k = bk.backward_lanes(traj, lam, **kw)
+    p = bk.backward_lanes_ref(traj, lam, **kw)
+    assert torch.isnan(p.out).any()
+    assert torch.equal(torch.isnan(k.out), torch.isnan(p.out))
+    assert torch.equal(k.stats[2:], p.stats[2:])
+    torch.testing.assert_close(k.out.nan_to_num(), p.out.nan_to_num(),
+                               rtol=1e-5, atol=1e-5)
+    gains = k.out.nan_to_num()
+    al = torch.ones((1, Bc), device=dev)
+    x0n = x0.clone()
+    x0n[4, 9] = float("nan")
+    kf = fk.forward_lanes(traj, gains, x0n, al, model=model, lims=LTI3_BOX,
+                          emit_traj=True)
+    pf = fk.forward_lanes_ref(traj, gains, x0n, al, model=model,
+                              lims=LTI3_BOX, emit_traj=True)
+    assert torch.isnan(pf.traj).any()
+    assert torch.equal(torch.isnan(kf.traj), torch.isnan(pf.traj))
+    assert torch.equal(torch.isnan(kf.totals), torch.isnan(pf.totals))
+
+
+@pytest.mark.parametrize("T", ["1", "2", "tc+1"])
+@pytest.mark.parametrize("B", [37, 4090])
+@pytest.mark.parametrize("lims", ["box", "none"])
+def test_lti3_forward_and_linesearch_match_plain(dev, lims, B, T):
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    box = LTI3_BOX if lims == "box" else None
+    for A in (1, 6):
+        Tk = _ring_T(T, plan.forward_plan(10, 3, A, 10_000, B).tc)
+        model, tiles, x0, traj = _lti3(dev, B, max(Tk, 2))
+        traj = traj[:Tk].contiguous()
+        gains = bk.backward_lanes_ref(traj if Tk >= 2 else torch.cat(
+            [traj, traj]), torch.ones(B, device=dev), n=10, m=3, reg_type=2,
+            lims=LTI3_BOX, derivs_tiles=tiles, emit="gains").out[:Tk]
+        gains = gains.contiguous()
+        rng = np.random.default_rng(A)
+        alphas = torch.tensor(rng.uniform(0.0, 1.0, (A, B)),
+                              dtype=torch.float32, device=dev)
+        for emit in (False, True):
+            kw = dict(model=model, lims=box, emit_traj=emit)
+            n0 = fk.forward_lanes.launches
+            k = fk.forward_lanes(traj, gains, x0, alphas, **kw)
+            assert fk.forward_lanes.launches == n0 + 1
+            p = fk.forward_lanes_ref(traj, gains, x0, alphas, **kw)
+            torch.testing.assert_close(k.totals, p.totals, rtol=1e-5,
+                                       atol=1e-5)
+            if emit:
+                torch.testing.assert_close(k.traj, p.traj, rtol=1e-5,
+                                           atol=1e-5)
+        Tl = _ring_T(T, plan.linesearch_plan(10, 3, A, 10_000, B).tc)
+        model, tiles, x0, traj = _lti3(dev, B, max(Tl, 2))
+        traj = traj[:Tl].contiguous()
+        bo = bk.backward_lanes_ref(traj if Tl >= 2 else torch.cat(
+            [traj, traj]), torch.ones(B, device=dev), n=10, m=3, reg_type=2,
+            lims=LTI3_BOX, derivs_tiles=tiles, emit="gains")
+        gains = bo.out[:Tl].contiguous()
+        allow = (torch.arange(B, device=dev) % 3 != 1).float()
+        sel = torch.stack([bo.stats[0], bo.stats[1], traj[:, -1].sum(0),
+                           allow])
+        kw = dict(model=model, alphas=default_alphas(0.2, -3.0, A),
+                  reduce_ratio_min=0.0, lims=box)
+        n0 = fk.linesearch_lanes.launches
+        fresh = fk.linesearch_lanes(traj, gains, x0, sel, **kw)
+        assert fk.linesearch_lanes.launches == n0 + 1
+        p = fk.linesearch_lanes_ref(traj, gains, x0, sel, **kw)
+        assert torch.equal(fresh.ls[:2], p.ls[:2])
+        torch.testing.assert_close(fresh.traj, p.traj, rtol=1e-5, atol=1e-5)
+        buf = traj.clone()
+        inp = fk.linesearch_lanes(buf, gains, buf[0, :10], sel,
+                                  in_place=True, **kw)
+        assert inp.traj.data_ptr() == buf.data_ptr()
+        assert torch.equal(buf, fresh.traj) and torch.equal(inp.ls, fresh.ls)
+
+
+def test_m_above_max_m_refused_on_card(dev):
+    """m = 5 > MAX_M: the instance tables refuse it before any launch, and
+    the C launchers return ERR_ARGS (-2) for it rather than drop the
+    controls past MAX_M; m = 4 at n = 10 (no instance) returns ERR_MODEL
+    (-1)."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        _build, plan)
+    Tc, Bc = 4, 8
+    spec = linear.random_lti(0, n=10, m=5, T=Tc, device=dev)
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        bk.backward_lanes(torch.zeros((Tc, 16, Bc), device=dev),
+                          torch.ones(Bc, device=dev), n=10, m=5, reg_type=1,
+                          lims=((-1.0, 1.0),) * 5,
+                          derivs_tiles=linear.lti_derivs_tiles(spec))
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for m in (5, 4):
+        n = 10
+        dm = linear.lti_lanes(linear.random_lti(0, n=n, m=m, T=Tc,
+                                                device=dev)).device
+        traj = torch.zeros((Tc, n + m + 1, Bc), device=dev)
+        gains = torch.zeros((Tc, m + m * n, Bc), device=dev)
+        out = torch.zeros((Tc, n + m + 1, Bc), device=dev)
+        x0 = torch.zeros((n, Bc), device=dev)
+        tot = torch.zeros((1, Bc), device=dev)
+        lim = fk.lims_host(((-1.0, 1.0),) * m, m)
+        model = (lim.ctypes.data, None, None, 0, dm.model_id, n, m,
+                 dm.consts.ctypes.data, dm.consts.size)
+        p = plan.forward_plan(n, min(m, 3), 1, Tc, Bc, True)
+        rc = lib.ddp_forward_lanes(
+            traj.data_ptr(), n + m + 1, gains.data_ptr(), m + m * n, 0, m,
+            x0.data_ptr(), tot.data_ptr(), 1, tot.data_ptr(), tot.data_ptr(),
+            out.data_ptr(), Tc, Bc, *model, *p.launcher_args(), dev.index,
+            stream)
+        assert rc == (-2 if m == 5 else -1), rc
+        lam = torch.ones(Bc, device=dev)
+        S = bk.OutLayout(n, m, "gains").S
+        bout = torch.zeros((Tc, S, Bc), device=dev)
+        st = torch.zeros((4, Bc), device=dev)
+        pb = plan.backward_plan(n, min(m, 3), False, "gains", Tc, Bc)
+        rc = lib.ddp_backward_lanes(
+            traj.data_ptr(), n + m + 1, lam.data_ptr(), None, None,
+            bout.data_ptr(), S, st.data_ptr(), Tc, Bc, 0, 2, 1, *model,
+            0, 0, 8, *pb.launcher_args(), dev.index, stream)
+        assert rc == (-2 if m == 5 else -1), rc

@@ -16,10 +16,12 @@ from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.forward_kernel impor
 
 # (T, B): the iLQG headline, the heterogeneous fleet and KL (500, 4096),
 # the MPC tier (300), the quadrotor (400), LTI and KL on LTI (1000); the
-# card tests' ragged shapes; a T and a B one past a chunk and a block
+# card tests' ragged shapes; a T and a B one past a chunk and a block; the
+# m=3 group's kernel checks at ⟨10,3⟩ (T two chunks and a step of K1
+# gains, and of K1 full) and its CPU check's 64 lanes
 SHAPES = [(500, 4096), (300, 4096), (400, 4096), (1000, 4096), (2, 1),
           (40, 37), (40, 200), (33, 200), (17, 37), (5, 1), (1, 33),
-          (129, 4097)]
+          (129, 4097), (17, 4096), (9, 4096), (9, 4090), (40, 64)]
 
 
 def _check(p: plan.LaunchPlan, T: int, B: int, threads: int, slots: int,
@@ -148,3 +150,24 @@ def test_plan_slots_and_chunk_traits():
         plan.probe_plan("copy", 0, 4096)
     with pytest.raises(ValueError):
         plan.backward_plan(4, 1, False, "gains", 0, 4096)
+
+
+def test_plans_at_lti_10_3():
+    """⟨10,3⟩ (the m=3 LTI fleet, B=4096, T=1000): K1 stages 13 slots a
+    step, 56 in GPS mode; within K1's budget a chunk is 8 steps for
+    "gains", 4 for "full" (the four compute warps' exchange of 230 slots
+    follows the ring) and 1 in GPS mode. K2 and K3 stage 46 slots in
+    chunks of 8."""
+    assert plan.k1_slots(10, 3, False) == 13
+    assert plan.k1_slots(10, 3, True) == 56
+    assert plan.k1_exchange(10, 3) == 230 and plan.k2_slots(10, 3) == 46
+    tc = {(emit, gps): plan.backward_plan(10, 3, gps, emit, 1000, 4096)
+          for emit, gps in (("gains", False), ("full", False),
+                            ("policy", True))}
+    assert [(p.tc, p.threads // 32, p.smem) for p in tc.values()] == [
+        (8, 2, 26_624), (4, 5, 42_752), (1, 5, 43_776)]
+    assert all(p.smem <= plan.K1_BUDGET and p.blocks == 128
+               for p in tc.values())
+    assert plan.linesearch_plan(10, 3, 6, 1000, 4096).tc == 8
+    assert [plan.forward_plan(10, 3, A, 1000, 4096, A == 1)[:5] for A in
+            (6, 1)] == [(128, 256, 8, 2, 94_208), (128, 128, 8, 2, 122_880)]

@@ -36,7 +36,7 @@ from differentialdynamicprogramming_jl_tpu_torch.models import linear as tl
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.backward_kernel \
     import OutLayout, backward_lanes, backward_lanes_ref
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.forward_kernel \
-    import forward_lanes, linesearch_lanes
+    import forward_lanes, forward_lanes_ref, linesearch_lanes
 from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
     default_alphas)
 
@@ -224,19 +224,29 @@ def test_linesearch_m2_matches_jax(rr_min):
 
 
 def test_m3_and_gps_at_m2_raise():
-    """Out of the slice: m > 2 (the masked-Newton box QP) everywhere. K1's
-    GPS mode at m = 2, which used to raise here, now runs: on CPU tensors
-    the wrapper returns the plain version's slots."""
+    """m = 3 (the masked-Newton box QP), which used to raise here, now runs:
+    on CPU tensors K1 and K3 return their plain versions' results, finite,
+    with the box binding. K1's GPS mode at m = 2 runs likewise."""
     spec3 = tl.random_lti(0, n=N, m=3, T=T, device="cpu")
-    traj = torch.zeros((T, N + 3 + 1, B))
-    with pytest.raises(NotImplementedError, match="masked-Newton"):
-        backward_lanes(traj, torch.ones(B), n=N, m=3, reg_type=1,
-                       lims=((-1.0, 1.0),) * 3,
-                       derivs_tiles=tl.lti_derivs_tiles(spec3))
-    with pytest.raises(NotImplementedError, match="masked-Newton"):
-        forward_lanes(traj, torch.zeros((T, 3 + 3 * N, B)),
-                      torch.zeros((N, B)), torch.ones((1, B)),
-                      model=tl.lti_lanes(spec3))
+    rng = np.random.default_rng(5)
+    traj = torch.tensor(np.concatenate(
+        [rng.standard_normal((T, N, B)), 0.1 * rng.standard_normal((T, 3, B)),
+         np.zeros((T, 1, B))], axis=1), dtype=torch.float32)
+    kw3 = dict(n=N, m=3, reg_type=1, lims=((-0.05, 0.05),) * 3,
+               derivs_tiles=tl.lti_derivs_tiles(spec3), emit="gains")
+    out = backward_lanes(traj, torch.ones(B), **kw3)
+    ref = backward_lanes_ref(traj, torch.ones(B), **kw3)
+    assert torch.equal(out.out, ref.out) and torch.equal(out.stats, ref.stats)
+    assert torch.isfinite(out.out).all()
+    k, u = out.out[:-1, :3], traj[:-1, N:N + 3]
+    assert ((k == -0.05 - u) | (k == 0.05 - u)).any()
+    fkw = dict(model=tl.lti_lanes(spec3), lims=((-0.05, 0.05),) * 3,
+               emit_traj=True)
+    fo = forward_lanes(traj, out.out, traj[0, :N].contiguous(),
+                       torch.ones((1, B)), **fkw)
+    fr = forward_lanes_ref(traj, out.out, traj[0, :N].contiguous(),
+                           torch.ones((1, B)), **fkw)
+    assert torch.equal(fo.traj, fr.traj) and torch.equal(fo.totals, fr.totals)
     spec2 = _tspec(_spec())
     prev = torch.zeros((T, M + M * N + M * M, B))
     prev[:, M + M * N] = prev[:, M + M * N + 3] = 1.0          # Σ⁻¹ = I
