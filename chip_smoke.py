@@ -148,10 +148,12 @@ ends the run with a non-zero exit and no result line:
     chunks and a step of K1's gains ring) on the same CUDA tensors, timed
     at B=4096, T=1000 with their bounds;
 38. the m3 group, path: ``ilqg_batch_lanes`` on that fleet (B=4096,
-    T=1000, to convergence), once, its kernels warmed by phase 37: ms per
+    T=1000, a budget of 30 iterations; run to convergence it took
+    150.6 s on an H100), once, its kernels warmed by phase 37: ms per
     solve (CUDA events), n_iters and their spread, K1 launches an
-    iteration (the λ-retries), the share of steps with a clamp active, the
-    box held, peak memory, host syncs, launches;
+    iteration (the λ-retries),
+    the share of steps with a clamp active, the box held, peak memory,
+    host syncs, launches;
 39. the m3 group, fleet: ``ilqg_fleet`` (JAX's first schedule) bit-equal
     to lock-step on the same fleet cut to T=100, one run of each;
 40. the m3 group, KL: K1 ⟨10,3⟩ in GPS mode with policy emission (the
@@ -161,8 +163,39 @@ ends the run with a non-zero exit and no result line:
 41. the m3 group against the CPU: the iLQG and KL solves on 64 lanes at
     T=40 on the card against the same solves on CPU tensors, run by a
     child process (``chip_smoke.py --m3-cpu``) from the build on;
-42. the kernel record (one entry per kernel instance, with its bound; K4
-    at n=6, on no path, with the launches of its check) and the result
+42. the lowered group, build: models written only in Python (the
+    quadrotor, PendCartParam and LTI <10,2> with their descriptors
+    removed, the quadrotor with an angle-wrapping ``diff``) lowered into
+    libraries of their own (ops/hopper/lower.py, csrc/lowered.cuh), whose
+    builds started in a thread after phase 2: each build's seconds and
+    each instance's registers and spills;
+43. the lowered group, kernels: the lowered quadrotor's K3 (sweep,
+    rollout), K1 (gains, full, GPS policy and full, second order) and K2
+    bit for bit to the hand-written Quadrotor / Autodiff<Quadrotor>
+    instances at T=400 and against their plain versions (K1 at
+    QUAD_T_PLAIN); the lowered LTI <10,2> K1 (Autodiff<Lowered>) at
+    T=1000 against its plain version at T=64; the lowered PendCartParam's
+    K3, K1 and K2 with params against their plain versions; times and
+    bounds;
+44. the lowered group, path: the quadrotor fleet (B=4096, T=400, 20
+    iterations) with the lowered model, bit-equal to the hand-written
+    solve in cost, reason, accepted count, u, x and K, ms/iter of both;
+    the heterogeneous headline (T=500, 20 iterations) with autodiff tiles
+    and params, against the ``--packed-cpu`` child's solve of 64 lanes;
+45. the lowered group, quad-kl: ``ilqgkl_batch_lanes`` on the quadrotor
+    (pre-rolled by K3, scalar η, no limits, T=400), hand-written and
+    lowered bit for bit, launching K4 at n=6 and K1 GPS policy; against
+    the child's solve of 64 lanes at T=16;
+46. the lowered group, diff: K3 and K2 with the angle-wrapping diff
+    against their plain versions, and a 20-iteration fleet solve;
+47. the lowered group, quad-jax: the card's quadrotor solve of the 64
+    lanes of ``tools_torch/quad_outcomes.npz`` (T=400, 20 iterations)
+    against the JAX package's outcomes there
+    (``tools_torch/make_quad_outcomes.py``): reasons and accepted counts,
+    and the costs iteration by iteration (held to JAX's through
+    QUAD_JAX_ITERS, where rounding does not yet decide them);
+48. the kernel record (one entry per kernel instance, with its bound; an
+    instance on no path with the launches of its check) and the result
     line.
 """
 from __future__ import annotations
@@ -421,13 +454,14 @@ def compare_slots_ties(name: str, a: torch.Tensor, b: torch.Tensor,
     return mx
 
 
-def check_bits(name: str, *pairs) -> None:
-    """Kernel against plain version where both run the same f32 operations
-    in the same order and the plain pendcarts divide as the kernels do
-    (``models/pendcart.py::_over``): every output bit for bit."""
+def check_bits(name: str, *pairs, to: str = "the plain version") -> None:
+    """Kernel against plain version (or ``to``, another instance) where
+    both run the same f32 operations in the same order and the plain
+    pendcarts divide as the kernels do (``models/pendcart.py::_over``):
+    every output bit for bit."""
     same = all(torch.equal(a, b) for a, b in pairs)
-    print(f"  {name}: bit-identical to the plain version: {same}")
-    check(same, f"{name}: not bit-identical to its plain version")
+    print(f"  {name}: bit-identical to {to}: {same}")
+    check(same, f"{name}: not bit-identical to {to}")
 
 
 def compare_k1(what: str, k, p) -> float:
@@ -520,6 +554,9 @@ MANGLED_MODELS = (
     ("NS_8AutodiffINS_9QuadrotorELb0EEE", "Autodiff<Quadrotor>"),
     ("NS_8AutodiffINS_8PendCartELb1EEE", "Autodiff<PendCart,SO>"),
     ("NS_8AutodiffINS_8PendCartELb0EEE", "Autodiff<PendCart>"),
+    ("NS_8AutodiffINS_7LoweredELb1EEE", "Autodiff<Lowered,SO>"),
+    ("NS_8AutodiffINS_7LoweredELb0EEE", "Autodiff<Lowered>"),
+    ("NS_7LoweredE", "Lowered"),
     ("NS_6PackedILi4ELi1EEE", "Packed<4,1>"),
     ("NS_6PackedILi6ELi2EEE", "Packed<6,2>"),
     ("NS_6PackedILi10ELi2EEE", "Packed<10,2>"),
@@ -1614,6 +1651,50 @@ def kl_lti_phases(ph, dev, rec, counters) -> dict:
     return paths
 
 
+def quad_x0(rng=None) -> np.ndarray:
+    """The quadrotor fleet's x0 (B, 6) in f64 as the JAX tier draws it
+    (bench.py:230-232): default_x0 + 0.3·N(0,1)·[1,0,1,0,0.5,0], from a
+    numpy seed (other bits than PRNGKey(1)): the first draw of ``rng``, by
+    default of numpy seed 11 (tools_torch/make_quad_outcomes.py draws the
+    same lanes)."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        default_x0)
+    rng = np.random.default_rng(11) if rng is None else rng
+    return default_x0(torch.float64, device="cpu").numpy()[None, :] + (
+        0.3 * rng.standard_normal((B, 6)) * np.array([1, 0, 1, 0, 0.5, 0]))
+
+
+def quad_kernel_inputs(dev, alphas):
+    """The quadrotor kernels' inputs at B lanes and QUAD_T steps, drawn in
+    this order from numpy seed 11: x0 (quad_x0); K3's gains stream of a
+    rollout whose rotors meet both limits, u = u_hover + 1.5·N(0,1); a
+    per-lane α in [0, 1); λ = 10^U(-6, 2), every eighth 0. Returns a
+    namespace of them with the zero stream K3 starts from and the α ladder
+    of ``alphas``, and the generator for the caller's further draws."""
+    from types import SimpleNamespace
+
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        to_streams)
+    rng = np.random.default_rng(11)
+    x0s = torch.tensor(quad_x0(rng), dtype=torch.float32, device=dev)
+    u_rand = torch.tensor(QuadrotorSpec().u_hover + 1.5 * rng.standard_normal(
+        (B, QUAD_T, 2)), dtype=torch.float32, device=dev)
+    al1 = torch.tensor(rng.uniform(0.0, 1.0, (1, B)), dtype=torch.float32,
+                       device=dev)
+    lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), dtype=torch.float32,
+                       device=dev)
+    lam[::8] = 0.0
+    ladder = torch.tensor(alphas, device=dev)[:, None].expand(len(alphas), B)
+    return SimpleNamespace(
+        x0s=x0s, x0_l=x0s.T.contiguous(),
+        gains0=torch.cat([to_streams(u_rand),
+                          torch.zeros((QUAD_T, 12, B), device=dev)], dim=1),
+        traj0=torch.zeros((QUAD_T, 8, B), device=dev),
+        ladder=ladder.contiguous(), al1=al1, lam=lam), rng
+
+
 def quad_phases(ph, dev, rec, counters, ilqg) -> dict:
     """Phases 6-9: the quadrotor ⟨6,2⟩ kernels (K3, K1 Autodiff<Quadrotor>,
     K2) against their plain versions and K1 Autodiff<PendCart> against the
@@ -1625,7 +1706,7 @@ def quad_phases(ph, dev, rec, counters, ilqg) -> dict:
     from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
         PendCartSpec, pendcart_derivs_tiles, pendcart_lanes)
     from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
-        QuadrotorSpec, default_x0, quadrotor_lanes)
+        QuadrotorSpec, quadrotor_lanes)
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
         backward_kernel as bk, forward_kernel as fk)
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
@@ -1646,23 +1727,9 @@ def quad_phases(ph, dev, rec, counters, ilqg) -> dict:
              f"Autodiff<Quadrotor> (plain at T={Tp}), K2 against plain "
              f"versions, timed at T={Tq}; K1 Autodiff<PendCart> against the "
              f"analytic K1 at T={T}")
-    # x0 as the JAX tier (bench.py:230-232): default_x0 + 0.3·N(0,1)·
-    # [1,0,1,0,0.5,0], from a numpy seed (other bits than PRNGKey(1))
-    rng = np.random.default_rng(11)
-    x0_np = default_x0(torch.float64, device="cpu").numpy()[None, :] + (
-        0.3 * rng.standard_normal((B, 6)) * np.array([1, 0, 1, 0, 0.5, 0]))
-    x0s = torch.tensor(x0_np, dtype=torch.float32, device=dev)
-    x0_l = x0s.T.contiguous()
-    # a rollout whose rotors meet both limits: u = u_hover + 1.5·N(0,1)
-    u_rand = torch.tensor(spec.u_hover + 1.5 * rng.standard_normal((B, Tq, 2)),
-                          dtype=torch.float32, device=dev)
-    gains0 = torch.cat([to_streams(u_rand),
-                        torch.zeros((Tq, 12, B), device=dev)], dim=1)
-    traj0 = torch.zeros((Tq, 8, B), device=dev)
-    ladder = torch.tensor(cfg.alphas, device=dev)[:, None].expand(A, B)
-    ladder = ladder.contiguous()
-    al1 = torch.tensor(rng.uniform(0.0, 1.0, (1, B)), dtype=torch.float32,
-                       device=dev)
+    q, rng = quad_kernel_inputs(dev, cfg.alphas)
+    x0s, x0_l, traj0, gains0 = q.x0s, q.x0_l, q.traj0, q.gains0
+    ladder, al1, lam = q.ladder, q.al1, q.lam
 
     def fwd(al, emit, plain):
         f = fk.forward_lanes_ref if plain else fk.forward_lanes
@@ -1683,10 +1750,6 @@ def quad_phases(ph, dev, rec, counters, ilqg) -> dict:
     plain3 = cuda_ms(lambda: fwd(ladder, False, True), 3)
     ms3r = cuda_ms(lambda: fwd(al1, True, False), 20)
     plain3r = cuda_ms(lambda: fwd(al1, True, True), 3)
-
-    lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), dtype=torch.float32,
-                       device=dev)
-    lam[::8] = 0.0
     traj_p = traj[:Tp].contiguous()
 
     def bwd(emit, plain, tr=traj):
@@ -1769,7 +1832,7 @@ def quad_phases(ph, dev, rec, counters, ilqg) -> dict:
                           plain_T=Tp, library_ms=None, **w1)
     rec["k2_quad"] = dict(max_abs_err=e2, ms=ms2, plain_ms=plain2,
                           library_ms=None, **w2)
-    del traj0, gains0, u_rand, traj_p, bo, k, p, out
+    del q, traj0, gains0, traj_p, bo, k, p, out
 
     # K1 Autodiff<PendCart> against the analytic pendcart K1 at the iLQG
     # headline's shapes, and against its own plain version at T=Tp
@@ -3179,7 +3242,8 @@ def packed_cpu_solves() -> dict:
     the pendcart), so ``main`` runs this in
     a child process (``chip_smoke.py --packed-cpu``, CPU tensors only) from
     the build phase on, beside the card's phases. Returns, per solve, the
-    cost totals, reasons and accepted counts, and its seconds."""
+    cost totals, reasons and accepted counts, and its seconds; then the
+    lowered group's (lowered_cpu_solves)."""
     from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
         PendCartSpec, pendcart_derivs_tiles_so, pendcart_lanes,
         pendcart_packed_derivs)
@@ -3229,6 +3293,7 @@ def packed_cpu_solves() -> dict:
                           reason=r.reason.tolist(),
                           n_accepted=r.n_accepted.tolist(),
                           seconds=time.perf_counter() - t0)
+    out.update(lowered_cpu_solves())
     return out
 
 
@@ -3267,16 +3332,9 @@ def packed_phases(ph, dev, rec, counters, ilqg, cpu_proc) -> dict:
 
     t_group = time.perf_counter()
     cfg = ilqg["cfg"]
-    cpu_out = {}
 
     def cpu_solves() -> dict:
-        """The child's CPU solves, waited for once."""
-        if not cpu_out:
-            out, err = cpu_proc.communicate(timeout=900)
-            check(cpu_proc.returncode == 0, "the CPU solves' child process "
-                  f"failed ({cpu_proc.returncode}): {err[-2000:]}")
-            cpu_out.update(json.loads(out))
-        return cpu_out
+        return child_solves(cpu_proc)
     ph.start("packed-kernels", f"B={B}: K1 on the packed stream "
              f"(Packed<4,1>, GPS, Packed<6,2>, Packed<10,2>) and with "
              f"second-order tiles (PendCartSO, Autodiff<PendCart,SO>, "
@@ -4165,6 +4223,20 @@ def start_cpu_child(flag: str) -> subprocess.Popen:
                             stderr=subprocess.PIPE, text=True, env=env)
 
 
+# the parsed output of each CPU child, by process id
+_CHILD_OUT: dict = {}
+
+
+def child_solves(proc: subprocess.Popen) -> dict:
+    """A CPU child's solves (start_cpu_child), waited for once."""
+    if proc.pid not in _CHILD_OUT:
+        out, err_ = proc.communicate(timeout=900)
+        check(proc.returncode == 0, "a CPU solves' child process failed "
+              f"({proc.returncode}): {err_[-2000:]}")
+        _CHILD_OUT[proc.pid] = json.loads(out)
+    return _CHILD_OUT[proc.pid]
+
+
 def k_vs_plain(what: str, pairs, tol=KERNEL_TOL) -> float:
     """A ⟨10,3⟩ kernel's outputs against its plain version's, ``pairs``
     {output: (kernel's, plain's)}: bit for bit where they are, else within
@@ -4181,6 +4253,19 @@ def k_vs_plain(what: str, pairs, tol=KERNEL_TOL) -> float:
         check(same or rel <= tol, f"{what} {name}: rel error {rel:.3e}")
         worst = max(worst, mx)
     return worst
+
+
+def k1_emitted(full: torch.Tensor, n: int, m: int,
+               emit: str) -> torch.Tensor:
+    """The slots of K1's emission ``emit`` taken from a "full" output
+    (T, S, B): k and K, then Vx and Vxx, then Quu and Quu⁻¹, each block
+    where ``emit`` has it."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.backward_kernel \
+        import OutLayout
+    f, e = OutLayout(n, m, "full"), OutLayout(n, m, emit)
+    blocks = ((0, f.Vx, True), (f.Vx, f.quu, e.Vx is not None),
+              (f.quu, f.S, e.quu is not None))
+    return torch.cat([full[:, a:b] for a, b, keep in blocks if keep], dim=1)
 
 
 def m3_phases(ph, dev, rec, counters, cpu_proc) -> dict:
@@ -4349,11 +4434,12 @@ def m3_phases(ph, dev, rec, counters, cpu_proc) -> dict:
     del streams, traj, traj_T, ro, bo, gains, k, p, buf, inp
 
     ph.start("m3-path", f"ilqg_batch_lanes, LTI n={n} m={m} B={B} T={Tl}, "
-             f"{A}-α ladder, reg_type 2, ±0.6, max_iter={cfg.max_iter}, to "
-             f"convergence, once (its kernels warmed by m3-kernels)")
+             f"{A}-α ladder, reg_type 2, ±0.6, a budget of {M3_PATH_ITERS} "
+             f"iterations (max_steps), once (its kernels warmed by "
+             f"m3-kernels)")
     kw = dict(lims=M3_LIMS, cfg=cfg, derivs_tiles=tiles)
-    ref, rr = once_run(lambda: ilqg_batch_lanes(model, None, x0s, u0s, **kw),
-                       counters)
+    ref, rr = once_run(lambda: ilqg_batch_lanes(
+        model, None, x0s, u0s, max_steps=M3_PATH_ITERS, **kw), counters)
     launches = rr["launches"]
     iters = int(ref.n_iters.max())
     u = ref.u
@@ -4539,6 +4625,879 @@ def m3_phases(ph, dev, rec, counters, cpu_proc) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the lowered group (phases 42-47): models written only in Python, lowered
+# into libraries of their own (ops/hopper/lower.py, csrc/lowered.cuh)
+# ---------------------------------------------------------------------------
+
+# each lowered model's instance groups (_build.LOWERED_GROUPS) the group
+# launches: the quadrotor every K1 emission, GPS mode and second order,
+# K2 and K3; PendCartParam K1 (autodiff, params), K2, K3; LTI <10,2> K1
+# (Autodiff<Lowered>); the quadrotor with an angle-wrapping diff, K2 and
+# K3 (its K1 is the quadrotor's: K1's struct has no diff)
+LOWERED_GROUPS = {"quad": ("fwd", "k1", "k1_gps", "k1_so"),
+                  "param": ("fwd", "k1"), "lti": ("k1",),
+                  "quad_diff": ("fwd",)}
+# the lanes the lowered LTI's K1 is held to its plain version on
+LOWERED_LTI_LANES = 512
+# the lowered group's CPU solves (child process): the heterogeneous
+# headline at a short horizon, KL on the quadrotor at QUAD_T_CPU
+LOWERED_T_CPU = 24
+# the quadrotor KL path's control noise about hover (its pre-roll), a
+# numpy seed of its own
+QUAD_KL_SEED, QUAD_KL_NOISE = 31, 0.3
+# the heterogeneous headline with autodiff tiles: its per-scenario [l, d]
+HETERO_AD_SEED = 32
+# the JAX package's quadrotor outcomes on 64 lanes (make_quad_outcomes.py)
+# and the iterations whose costs quad-jax holds to JAX's: at T=400 the
+# fleet's f32 rounding decides the later ones. By
+# tools_torch/quad_jax_diagnose.py (the same 64 lanes, 20 iterations, on
+# an H100), the port on the card parts from the port on the host as it
+# parts from JAX: from iteration 3 on some lanes take another line-search
+# step (1.6% against the host, 6.2% against JAX), and by iteration 20
+# 39.1% of the lanes are still on the host's path and 26.6% on JAX's, their
+# costs within COST_RTOL on as many. Through iteration 2 every lane is on
+# JAX's path on both devices, and the costs agree within COST_RTOL on
+# 96.9% of the lanes against JAX (two lanes 2.8e-3 apart from iteration 1
+# on: the m=2 box QP's near-ties, k ~sqrt(ulp) apart, over 400 steps)
+QUAD_OUTCOMES = "tools_torch/quad_outcomes.npz"
+QUAD_JAX_ITERS = 2
+# the end state of those 64 lanes, which rounding moves less than each
+# lane's path: the quartiles and the mean of the final costs against JAX's.
+# By the same tool, the card's and the host's port part by at most 0.115
+# in a quartile (at iteration 15; 0.102 at 20) and 0.039 in the mean (at
+# 20); each bound is about twice that. JAX's own mean falls 2.9% in its
+# last iteration and 8.9% in its last three, its median 15.5% in its last
+# five (the tool prints these too): a solve that stalls a few iterations
+# early fails
+QUAD_JAX_QUARTILE_RTOL, QUAD_JAX_MEAN_RTOL = 0.2, 0.08
+# the m3 path's iteration budget: the converged solve took 150.6 s of the
+# run's 1200 s on an H100, most of it λ-retries of the whole fleet
+M3_PATH_ITERS = 30
+# launches by the builds' thread, joined when the script ends
+BUILD_THREADS: list = []
+
+
+def wrap_attitude(x, x_old):
+    """The quadrotor's state difference with the attitude θ (state 4)
+    wrapped into [-π, π): Python's remainder, as PyTorch and jnp compute
+    it (a LanesModel ``diff``)."""
+    d = [x[i] - x_old[i] for i in range(len(x))]
+    d[4] = torch.remainder(d[4] + math.pi, 2 * math.pi) - math.pi
+    return d
+
+
+def lowered_models() -> dict:
+    """The group's models with their descriptors removed, so that the card
+    runs them through their lowering: the quadrotor, PendCartParam, LTI
+    <10,2> (random_lti from seed 0; its constants do not depend on the
+    spec's device), and the quadrotor with ``wrap_attitude``."""
+    import dataclasses
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_lanes_param)
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec, quadrotor_lanes)
+
+    def bare(m, **kw):
+        return dataclasses.replace(m, device=None, **kw)
+
+    quad = quadrotor_lanes(QuadrotorSpec())
+    return dict(quad=bare(quad),
+                param=bare(pendcart_lanes_param(PendCartSpec())),
+                lti=bare(lti_lanes(random_lti(0, n=LTI_N, m=LTI_M, T=LTI_T,
+                                              device="cpu"))),
+                quad_diff=bare(quad, diff=wrap_attitude))
+
+
+def start_lowered_builds(models: dict):
+    """Lower the group's models and start their libraries' builds in a
+    thread (one nvcc a library, all together), so that they overlap the
+    earlier phases. Returns (thread, labels, box): the box receives
+    ``builds`` (one _build.Build a label) or ``error``."""
+    import threading
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        _build, lower)
+    jobs, labels = [], []
+    for key, groups in LOWERED_GROUPS.items():
+        low = lower.lower(models[key])
+        for g in groups:
+            jobs.append((low.struct(g == "fwd"), g))
+            labels.append(f"{key} {g}")
+    box: dict = {}
+
+    def run():
+        try:
+            box["builds"] = _build.build_lowered(jobs)
+        except Exception as e:   # noqa: BLE001 - reported by the phase
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    BUILD_THREADS.append(th)
+    return th, labels, box
+
+
+def quad_kl_inputs(model, x0s: torch.Tensor, Tk: int):
+    """The KL tier's inputs on the quadrotor at horizon Tk for the lanes
+    x0s (Bk, 6) on their device: the pre-roll by K3 at α=1 with k := u0 =
+    hover + QUAD_KL_NOISE·N(0,1) (numpy seed QUAD_KL_SEED, drawn for B
+    lanes and QUAD_T steps, cut to the lanes' count and Tk) and no limits,
+    the zero previous policy with k = its controls and unit Σ, fx along it
+    from the autodiff tiles (a few steps at a time: a call holds every
+    direction's tangents), and cost0."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        from_streams, to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.policy import (
+        GaussianPolicy)
+    Bk, dev = x0s.shape[0], x0s.device
+    rng = np.random.default_rng(QUAD_KL_SEED)
+    u0 = QuadrotorSpec().u_hover + QUAD_KL_NOISE * rng.standard_normal(
+        (B, QUAD_T, 2))
+    u0 = torch.tensor(u0[:Bk, :Tk], dtype=torch.float32, device=dev)
+    gains = torch.cat([to_streams(u0), torch.zeros((Tk, 12, Bk),
+                                                   device=dev)], dim=1)
+    ro = fk.forward_lanes(torch.zeros((Tk, 8, Bk), device=dev), gains,
+                          x0s.T.contiguous(), torch.ones((1, Bk), device=dev),
+                          model=model, lims=None, emit_traj=True)
+    tiles = autodiff_derivs_tiles(model)
+    fx = []
+    for t0 in range(0, Tk, 25):
+        tr = ro.traj[t0:t0 + 25]
+        d = tiles([tr[:, i] for i in range(6)], [tr[:, 6], tr[:, 7]], 0)
+        fx.append(torch.stack([torch.stack([v.expand(tr.shape[0], Bk)
+                                            for v in row], -1)
+                               for row in d["fx"]], -2))
+    fx = torch.cat(fx).permute(2, 0, 1, 3).contiguous()       # (Bk, Tk, 6, 6)
+    eye = torch.eye(2, device=dev).expand(Bk, Tk, 2, 2)
+    policy0 = GaussianPolicy(
+        K=torch.zeros((Bk, Tk, 2, 6), device=dev),
+        k=from_streams(ro.traj[:, 6:8], (2,)).contiguous(), sigma=eye,
+        sigma_inv=eye)
+    return (from_streams(ro.traj[:, :6], (6,)).contiguous(), policy0, fx,
+            ro.totals[0]), ro.traj
+
+
+def quad_kl_cfg():
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+    return ILQGKLConfig(kl_step=KL_STEP, max_iter=KL_ITERS)
+
+
+def hetero_ad_inputs(device, Bk: int, Tk: int):
+    """The heterogeneous headline with autodiff tiles: x0 of the headline
+    (headline_x0), per-scenario [l, d] from PARAM_L, PARAM_D (numpy seed
+    HETERO_AD_SEED, drawn for B lanes), u0 = 0, on the first Bk lanes at
+    horizon Tk. Returns (x0s, u0s, params)."""
+    rng = np.random.default_rng(HETERO_AD_SEED)
+    par = np.stack([rng.uniform(*PARAM_L, B), rng.uniform(*PARAM_D, B)],
+                   axis=1)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.tensor(headline_x0()[:Bk], **f32),
+            torch.zeros((Bk, Tk, 1), **f32), torch.tensor(par[:Bk], **f32))
+
+
+def lowered_cpu_solves() -> dict:
+    """The lowered group's CPU plain solves on B_CPU lanes (part of the
+    ``--packed-cpu`` child): the heterogeneous headline with autodiff tiles
+    and params at LOWERED_T_CPU, and KL on the quadrotor at QUAD_T_CPU.
+    On CPU tensors the descriptor-less models run the plain versions."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes)
+    models = lowered_models()
+    out = {}
+    t0 = time.perf_counter()
+    pm = models["param"]
+    x0s, u0s, par = hetero_ad_inputs("cpu", B_CPU, LOWERED_T_CPU)
+    r = ilqg_batch_lanes(pm, None, x0s, u0s, lims=LIMS, cfg=headline_cfg(),
+                         derivs_tiles=autodiff_derivs_tiles(pm), params=par,
+                         max_steps=ITERS)
+    out["lowered hetero (autodiff tiles, params)"] = dict(
+        cost_total=r.cost_total.tolist(), reason=r.reason.tolist(),
+        n_accepted=r.n_accepted.tolist(), seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    qm = models["quad"]
+    x0q = torch.tensor(quad_x0()[:B_CPU], dtype=torch.float32)
+    kl_in, _ = quad_kl_inputs(qm, x0q, QUAD_T_CPU)
+    k = ilqgkl_batch_lanes(qm, autodiff_derivs_tiles(qm), *kl_in,
+                           cfg=quad_kl_cfg())
+    out["quad KL"] = dict(
+        cost_total=k.cost_total.tolist(), satisfied=k.satisfied.tolist(),
+        n_iters=k.n_iters.tolist(), seconds=time.perf_counter() - t0)
+    return out
+
+
+def agree(what: str, g: dict, c: dict, cost: str, same) -> None:
+    """A card solve's outcomes ``g`` against a host's ``c`` on the same
+    lanes: the share of lanes with costs within COST_RTOL and with equal
+    ``same`` fields must each reach AGREE_SHARE (section 5's rule)."""
+    gc, cc = torch.tensor(g[cost]), torch.tensor(c[cost])
+    rel = (gc - cc).abs() / cc.abs()
+    close = (rel <= COST_RTOL).float().mean().item()
+    shares = [float(np.mean(np.asarray(g[f]) == np.asarray(c[f])))
+              for f in same]
+    print(f"  {what}: cost rel diff max {rel.max().item():.3e}, median "
+          f"{rel.median().item():.3e}; shares: cost within {COST_RTOL:.0e} "
+          f"{close:.3f}, " + ", ".join(f"same {f} {v:.3f}" for f, v in
+                                        zip(same, shares))
+          + f" (need {AGREE_SHARE} each)")
+    check(min([close] + shares) >= AGREE_SHARE,
+          f"{what}: GPU and CPU outcomes differ")
+
+
+def lowered_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
+    """Phases 42-47, the lowered group: models written only in Python
+    (``lowered_models``) run through their lowering. lowered-build waits
+    for the libraries' builds (``builds`` from start_lowered_builds) and
+    prints their seconds and each instance's registers; lowered-kernels
+    holds the lowered quadrotor's K1 (every emission, GPS mode, second
+    order), K2 and K3 bit for bit to the hand-written instances and to
+    their plain versions, and the lowered LTI's and PendCartParam's to
+    their plain versions; lowered-path solves the quadrotor fleet with
+    the lowered model (bit-equal to the hand-written solve) and the
+    heterogeneous headline with autodiff tiles and params; quad-kl runs
+    KL on the quadrotor (K4 n=6 and K1 GPS policy); diff runs K2 and K3
+    with an angle-wrapping diff and one fleet solve; quad-jax holds the
+    card's quadrotor solve of 64 lanes to the JAX package's outcomes
+    (tools_torch/quad_outcomes.npz). The CPU child ``cpu_proc`` gives the
+    host's solves. Adds the measurements to ``rec``; returns the launches
+    of its paths."""
+    import os
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_lanes_param)
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec, quadrotor_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, covariance_kernel as ck, forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig)
+
+    t_group = time.perf_counter()
+    models, (th, labels, box) = builds
+    ph.start("lowered-build", "the lowered models' libraries, one nvcc each, "
+             "started after the main build")
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    lb = {}
+    for label, b in zip(labels, box["builds"]):
+        lines = ptxas_summary(b.log)
+        print(f"  {label}: {b.seconds:.1f} s -> {b.path.name}")
+        for line in lines:
+            print(f"    {line}")
+        lb[label] = dict(seconds=b.seconds, ptxas=lines)
+    rec["lowered_builds"] = lb
+
+    Tq, Tp = QUAD_T, QUAD_T_PLAIN
+    spec = QuadrotorSpec()
+    hand, low = quadrotor_lanes(spec), models["quad"]
+    lims = spec.lims
+    cfg = headline_cfg()
+    A = len(cfg.alphas)
+    ph.start("lowered-kernels", f"B={B}: the lowered quadrotor's K3, K1 "
+             f"(gains, full, GPS policy and full, second order) and K2 bit "
+             f"for bit to the hand-written instances at T={Tq} and to their "
+             f"plain versions (K1 at T={Tp}); the lowered LTI <10,2> K1 at "
+             f"T={LTI_T} (plain at T={LTI_T_PLAIN}); the lowered "
+             f"PendCartParam's K3, K1, K2 with params at T={T}")
+    q, rng = quad_kernel_inputs(dev, cfg.alphas)
+    x0s, x0_l, traj0, gains0 = q.x0s, q.x0_l, q.traj0, q.gains0
+    ladder, al1, lam = q.ladder, q.al1, q.lam
+
+    def fwd(m, al, emit, plain=False):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(traj0, gains0, x0_l, al, model=m, lims=lims, emit_traj=emit)
+
+    phase = {}
+
+    def phase_count(key, fn):
+        """fn's K1 launches, counted for the instance ``key``, which no
+        path runs."""
+        out, n = counted(counters, fn)
+        phase[key] = phase.get(key, 0) + n["backward_lanes"]
+        return out
+
+    errs3 = []
+    for al, emit, what in ((ladder, False, "sweep A=6"),
+                           (al1, True, "rollout A=1")):
+        k, h = fwd(low, al, emit), fwd(hand, al, emit)
+        pairs = [(k.totals, h.totals), (k.terminal, h.terminal)]
+        if emit:
+            pairs.append((k.traj, h.traj))
+        check_bits(f"lowered quad K3 {what}", *pairs, to="Quadrotor's")
+        p = fwd(low, al, emit, True)
+        errs3.append(compare(f"lowered quad K3 {what} against plain", {
+            "totals": (k.totals, p.totals)} | (
+            {"traj": (k.traj, p.traj)} if emit else {})))
+    traj, tot = k.traj, k.totals[0]
+    ms3 = cuda_ms(lambda: fwd(low, ladder, False), 20)
+    ms3r = cuda_ms(lambda: fwd(low, al1, True), 20)
+    plain3 = once_ms(lambda: fwd(low, ladder, False, True))
+    tiles_h = {so: autodiff_derivs_tiles(hand, second_order=so)
+               for so in (False, True)}
+    tiles_l = {so: autodiff_derivs_tiles(low, second_order=so)
+               for so in (False, True)}
+    # a previous policy with every KL term non-zero (Σ⁻¹ positive
+    # definite) and a per-step η in [1, 10], zeros counting as 1
+    a = rng.standard_normal((Tq, B, 2, 2))
+    si = np.einsum("tbij,tbkj->tbik", a, a) + 0.5 * np.eye(2)
+    prev = torch.tensor(np.concatenate([
+        rng.standard_normal((Tq, 2, B)),
+        0.3 * rng.standard_normal((Tq, 12, B)),
+        np.moveaxis(si.reshape(Tq, B, 4), 1, 2)], axis=1),
+        dtype=torch.float32, device=dev)
+    eta = torch.tensor(10.0 ** rng.uniform(0, 1, (Tq, B)),
+                       dtype=torch.float32, device=dev)
+    eta[::7, ::5] = 0.0
+
+    def bwd(tiles, emit, plain=False, tr=traj, gps=False, so=False):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        kw = (dict(prev=prev[:tr.shape[0]], eta=eta[:tr.shape[0]],
+                   reg_type=1, lims=None) if gps
+              else dict(reg_type=2, lims=lims))
+        return f(tr, torch.zeros_like(lam) if gps else lam, n=6, m=2,
+                 derivs_tiles=tiles[so], emit=emit, **kw)
+
+    cases = (("gains", False, False), ("full", False, False),
+             ("policy", True, False), ("full", True, False),
+             ("gains", False, True), ("full", False, True))
+    for emit, gps, so in cases:
+        what = (f"lowered quad K1 {'second-order ' if so else ''}"
+                f"{'GPS ' if gps else ''}{emit}")
+        # the second-order instance is on no path: its launches are these
+        k = (phase_count("k1_lowered_quad_so", lambda: bwd(
+            tiles_l, emit, gps=gps, so=so)) if so
+             else bwd(tiles_l, emit, gps=gps, so=so))
+        h = bwd(tiles_h, emit, gps=gps, so=so)
+        check_bits(f"{what} at T={Tq}", (k.out, h.out), (k.stats, h.stats),
+                   to=f"Autodiff<Quadrotor{',SO' if so else ''}>'s")
+    errs1 = {}
+    traj_p = traj[:Tp].contiguous()
+    plain1 = {}
+    # one plain "full" run a family, every emission's slots taken from it;
+    # GPS mode holds the hand-written Autodiff<Quadrotor> instances to it
+    # too (the lowered ones are bit-equal to them above, at T=Tq)
+    for gps, so, emits, inst in (
+            (False, False, ("full", "gains"), ("lowered",)),
+            (True, False, ("full", "policy"), ("lowered", "hand-written")),
+            (False, True, ("full", "gains"), ("lowered",))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = bwd(tiles_l, "full", True, traj_p, gps, so)
+        torch.cuda.synchronize()
+        fam = "so" if so else ("gps" if gps else "first")
+        plain1[fam] = (time.perf_counter() - t0) * 1e3
+        for who, emit in ((w_, e_) for w_ in inst for e_ in emits):
+            k = bwd(tiles_h if who == "hand-written" else tiles_l, emit,
+                    False, traj_p, gps, so)
+            pe = k1_emitted(p.out, 6, 2, emit)
+            lay = bk.OutLayout(6, 2, emit)
+            nq = lay.quui if lay.quui is not None else lay.S
+            what = f"{who} quad K1 {fam} {emit} at T={Tp} against plain"
+            e = [compare_slots_ties(what, k.out[:, :nq], pe[:, :nq],
+                                    AD_SLOT_TOL),
+                 compare(what, {"dV": (k.stats[:2], p.stats[:2])})]
+            if lay.quui is not None:
+                # full DDP's Quu may be indefinite: its inverse is then NaN
+                # in both, in the same places (err counts those equal)
+                e.append(compare(what, {"Quu_inv": (k.out[:, nq:],
+                                                    pe[:, nq:])},
+                                 QUU_INV_TOL))
+            check(torch.equal(k.stats[2:], p.stats[2:]),
+                  f"{what}: diverged/diverge_idx differ")
+            errs1[fam, who] = max(errs1.get((fam, who), 0.0), *e)
+    ms1 = cuda_ms(lambda: bwd(tiles_l, "gains"), 20)
+    ms1f = cuda_ms(lambda: bwd(tiles_l, "full"), 20)
+    ms1g = cuda_ms(lambda: bwd(tiles_l, "policy", gps=True), 20)
+    ms1gh = cuda_ms(lambda: bwd(tiles_h, "policy", gps=True), 20)
+    ms1gf = cuda_ms(lambda: bwd(tiles_l, "full", gps=True), 20)
+    ms1ghf = cuda_ms(lambda: bwd(tiles_h, "full", gps=True), 20)
+    ms1s = cuda_ms(lambda: bwd(tiles_l, "gains", so=True), 5)
+    ms1sf = cuda_ms(lambda: bwd(tiles_l, "full", so=True), 5)
+    bo = bwd(tiles_l, "gains")
+    allow = (torch.arange(B, device=dev) % 2 == 0).float()
+    sel = torch.stack([bo.stats[0], bo.stats[1], tot, allow])
+
+    def ls(m, plain=False):
+        f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+        return f(traj, bo.out, x0_l, sel, model=m, alphas=cfg.alphas,
+                 reduce_ratio_min=0.0, lims=lims)
+
+    k, h, p = ls(low), ls(hand), ls(low, True)
+    check_bits("lowered quad K2", (k.traj, h.traj), (k.ls, h.ls),
+               to="Quadrotor's")
+    e2 = compare("lowered quad K2 against plain", {
+        "traj": (k.traj, p.traj), "totals": (k.ls[4], p.ls[4])})
+    ms2 = cuda_ms(lambda: ls(low), 20)
+    plain2 = once_ms(lambda: ls(low, True))
+    w = dict(k3=k3_work(hand, Tq, B, A, False), k3r=k3_work(hand, Tq, B, 1,
+                                                            True),
+             k1=k1_work(hand, Tq, B, "gains", 2, lims),
+             k1f=k1_work(hand, Tq, B, "full", 2, lims),
+             k1g=k1_work(hand, Tq, B, "policy", 1, None, gps=True),
+             k1gf=k1_work(hand, Tq, B, "full", 1, None, gps=True),
+             k1s=k1_work(hand, Tq, B, "gains", 2, lims, so=True),
+             k1sf=k1_work(hand, Tq, B, "full", 2, lims, so=True),
+             k2=k2_work(hand, Tq, B, A))
+    for what, ms, key in (("K3 sweep A=6", ms3, "k3"),
+                          ("K3 rollout A=1", ms3r, "k3r"),
+                          ("K1 gains", ms1, "k1"), ("K1 full", ms1f, "k1f"),
+                          ("K1 GPS policy", ms1g, "k1g"),
+                          ("K1 GPS full", ms1gf, "k1gf"),
+                          ("K1 GPS policy, hand-written Autodiff<Quadrotor>",
+                           ms1gh, "k1g"),
+                          ("K1 GPS full, hand-written Autodiff<Quadrotor>",
+                           ms1ghf, "k1gf"),
+                          ("K1 second-order gains", ms1s, "k1s"),
+                          ("K1 second-order full", ms1sf, "k1sf"),
+                          ("K2 A=6", ms2, "k2")):
+        print(f"  lowered quad {what} at T={Tq}: kernel {ms:.4f} ms, bound "
+              f"{w[key]['bound_ms']:.4f} ms ({w[key]['bound_by']})")
+    print(f"  lowered quad plain versions: K3 sweep {plain3:.1f} ms, K2 "
+          f"{plain2:.1f} ms at T={Tq}; K1 once at T={Tp}: first order "
+          f"{plain1['first']:.1f} ms, GPS {plain1['gps']:.1f} ms, second "
+          f"order {plain1['so']:.1f} ms")
+    rec["k3_lowered_quad"] = dict(
+        max_abs_err=max(errs3), ms=ms3, ms_rollout=ms3r, plain_ms=plain3,
+        bound_ms_rollout=w["k3r"]["bound_ms"], library_ms=None, **w["k3"])
+    rec["k1_lowered_quad"] = dict(
+        max_abs_err=errs1["first", "lowered"], ms=ms1, ms_full=ms1f,
+        bound_ms_full=w["k1f"]["bound_ms"], plain_ms=plain1["first"],
+        plain_T=Tp, library_ms=None, **w["k1"])
+    for key, who, ms, msf in (("k1_lowered_quad_gps", "lowered", ms1g, ms1gf),
+                              ("k1_quad_gps", "hand-written", ms1gh, ms1ghf)):
+        rec[key] = dict(max_abs_err=errs1["gps", who], ms=ms, ms_full=msf,
+                        bound_ms_full=w["k1gf"]["bound_ms"],
+                        plain_ms=plain1["gps"], plain_T=Tp, library_ms=None,
+                        **w["k1g"])
+    rec["k1_lowered_quad_so"] = dict(
+        max_abs_err=errs1["so", "lowered"], ms=ms1s, ms_full=ms1sf,
+        bound_ms_full=w["k1sf"]["bound_ms"], plain_ms=plain1["so"],
+        plain_T=Tp, library_ms=None, **w["k1s"])
+    rec["k2_lowered_quad"] = dict(max_abs_err=e2, ms=ms2, plain_ms=plain2,
+                                  library_ms=None, **w["k2"])
+    del q, traj0, gains0, traj_p, bo, k, h, p, prev, eta
+
+    # the lowered LTI <10,2>: Autodiff<Lowered> K1 at T=LTI_T
+    lspec = random_lti(0, n=LTI_N, m=LTI_M, T=LTI_T, device=dev)
+    lhand, llow = lti_lanes(lspec), models["lti"]
+    lx0 = (torch.ones((LTI_N, B), device=dev)
+           * torch.linspace(0.5, 2.0, B, device=dev))
+    lgains = torch.cat([to_streams(lspec.u0.expand(B, LTI_T, LTI_M)
+                                   + 0.3 * torch.tensor(rng.standard_normal(
+                                       (B, LTI_T, LTI_M)),
+                                       dtype=torch.float32, device=dev)),
+                        torch.zeros((LTI_T, LTI_M * LTI_N, B),
+                                    device=dev)], dim=1)
+    ltraj = fk.forward_lanes(torch.zeros((LTI_T, 12, B), device=dev),
+                             lgains, lx0, al1, model=lhand, lims=LTI_LIMS,
+                             emit_traj=True).traj
+    ltiles = autodiff_derivs_tiles(llow)
+
+    def lbwd(emit, plain=False, tr=ltraj):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, lam, n=LTI_N, m=LTI_M, reg_type=2, lims=LTI_LIMS,
+                 derivs_tiles=ltiles, emit=emit)
+
+    for emit in ("gains", "full"):
+        # on no path: its launches are these
+        out = phase_count("k1_lowered_lti", lambda: lbwd(emit))
+        check(bool(torch.isfinite(out.out).all()),
+              f"lowered LTI K1 {emit}: non-finite output")
+    # the plain version on the first LOWERED_LTI_LANES lanes (each lane's
+    # recursion is its own): its vmapped Jet passes at n=10 hold 78 pairs'
+    # tangents a step
+    lp_in = ltraj[:LTI_T_PLAIN].contiguous()
+    nl = LOWERED_LTI_LANES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = bk.backward_lanes_ref(lp_in[..., :nl].contiguous(), lam[:nl],
+                              n=LTI_N, m=LTI_M, reg_type=2, lims=LTI_LIMS,
+                              derivs_tiles=ltiles, emit="full")
+    torch.cuda.synchronize()
+    plain_l = (time.perf_counter() - t0) * 1e3
+    el = []
+    for emit in ("full", "gains"):
+        k = lbwd(emit, False, lp_in)
+        k = k._replace(out=k.out[..., :nl], stats=k.stats[:, :nl])
+        lay = bk.OutLayout(LTI_N, LTI_M, emit)
+        nq = lay.quui if lay.quui is not None else lay.S
+        what = f"lowered LTI K1 {emit} at T={LTI_T_PLAIN} against plain"
+        el += [compare_slots_ties(what, k.out[:, :nq], p.out[:, :nq],
+                                  KERNEL_TOL),
+               compare(what, {"dV": (k.stats[:2], p.stats[:2])})]
+        check(torch.equal(k.stats[2:], p.stats[2:]),
+              f"{what}: diverged/diverge_idx differ")
+    ms_l = cuda_ms(lambda: lbwd("gains"), 5)
+    ms_lf = cuda_ms(lambda: lbwd("full"), 5)
+    wl, wlf = (k1_work(lhand, LTI_T, B, e, 2, LTI_LIMS)
+               for e in ("gains", "full"))
+    print(f"  lowered LTI K1 at T={LTI_T}: gains {ms_l:.4f} ms, full "
+          f"{ms_lf:.4f} ms; bound {wl['bound_ms']:.4f} ms "
+          f"({wl['bound_by']}), full {wlf['bound_ms']:.4f}; plain full once "
+          f"at T={LTI_T_PLAIN} on {nl} lanes: {plain_l:.1f} ms")
+    rec["k1_lowered_lti"] = dict(
+        max_abs_err=max(el), ms=ms_l, ms_full=ms_lf,
+        bound_ms_full=wlf["bound_ms"], plain_ms=plain_l,
+        plain_T=LTI_T_PLAIN, plain_lanes=nl, library_ms=None, **wl)
+    del ltraj, lgains, lp_in, p, k, out
+
+    # the lowered PendCartParam with per-scenario [l, d] (params)
+    pspec = PendCartSpec()
+    phand, plow = pendcart_lanes_param(pspec), models["param"]
+    px0, _, ppar = hetero_ad_inputs(dev, B, T)
+    px0_l, par = px0.T.contiguous(), ppar.T.contiguous()
+    pgains = torch.cat([torch.tensor(2.0 * rng.standard_normal((T, 1, B)),
+                                     dtype=torch.float32, device=dev),
+                        torch.zeros((T, 4, B), device=dev)], dim=1)
+    ptraj0 = torch.zeros((T, 5, B), device=dev)
+    pladder = torch.tensor(cfg.alphas, device=dev)[:, None].expand(A, B)
+    pladder = pladder.contiguous()
+
+    def pfwd(al, emit, plain=False):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(ptraj0, pgains, px0_l, al, par, model=plow, lims=LIMS,
+                 emit_traj=emit)
+
+    ep3 = []
+    for al, emit, what in ((pladder, False, "sweep A=6"),
+                           (al1, True, "rollout A=1")):
+        k, p = pfwd(al, emit), pfwd(al, emit, True)
+        pairs = {"totals": (k.totals, p.totals)} | (
+            {"traj": (k.traj, p.traj)} if emit else {})
+        ep3.append(compare(f"lowered PendCartParam K3 {what}", pairs))
+    ptraj = k.traj
+    ms_p3 = cuda_ms(lambda: pfwd(pladder, False), 20)
+    ms_p3r = cuda_ms(lambda: pfwd(al1, True), 20)
+    plain_p3 = once_ms(lambda: pfwd(pladder, False, True))
+    ptiles = autodiff_derivs_tiles(plow)
+
+    def pbwd(emit, plain=False, tr=ptraj):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, lam, n=4, m=1, reg_type=2, lims=LIMS,
+                 derivs_tiles=ptiles, params=par, emit=emit)
+
+    pp_in = ptraj[:Tp].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = pbwd("full", True, pp_in)
+    torch.cuda.synchronize()
+    plain_p1 = (time.perf_counter() - t0) * 1e3
+    ep1 = []
+    for emit in ("full", "gains"):
+        k = pbwd(emit, False, pp_in)
+        S = bk.OutLayout(4, 1, emit).S
+        what = f"lowered PendCartParam K1 {emit} at T={Tp} against plain"
+        ep1 += [compare_slots(what, k.out[:, :min(S, 26)],
+                              p.out[:, :min(S, 26)], AD_SLOT_TOL),
+                compare(what, {"dV": (k.stats[:2], p.stats[:2])})]
+        check(torch.equal(k.stats[2:], p.stats[2:]),
+              f"{what}: diverged/diverge_idx differ")
+    ms_p1 = cuda_ms(lambda: pbwd("gains"), 20)
+    ms_p1f = cuda_ms(lambda: pbwd("full"), 20)
+    pbo = pbwd("gains")
+    psel = torch.stack([pbo.stats[0], pbo.stats[1],
+                        pfwd(al1, False).totals[0], allow])
+
+    def pls(plain=False):
+        f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+        return f(ptraj, pbo.out, px0_l, psel, par, model=plow,
+                 alphas=cfg.alphas, reduce_ratio_min=0.0, lims=LIMS)
+
+    k, p = pls(), pls(True)
+    ep2 = compare("lowered PendCartParam K2", {
+        "traj": (k.traj, p.traj), "totals": (k.ls[4], p.ls[4])})
+    check(torch.equal(k.ls[:2], p.ls[:2]),
+          "lowered PendCartParam K2: al_sel/any_ok differ")
+    ms_p2 = cuda_ms(lambda: pls(), 20)
+    plain_p2 = once_ms(lambda: pls(True))
+    wp3, wp1, wp1f, wp2 = (k3_work(phand, T, B, A, False),
+                           k1_work(phand, T, B, "gains", 2, LIMS),
+                           k1_work(phand, T, B, "full", 2, LIMS),
+                           k2_work(phand, T, B, A))
+    print(f"  lowered PendCartParam at T={T}: K3 sweep {ms_p3:.4f} ms "
+          f"(bound {wp3['bound_ms']:.4f}), rollout {ms_p3r:.4f}; K1 gains "
+          f"{ms_p1:.4f} ms (bound {wp1['bound_ms']:.4f}, "
+          f"{wp1['bound_by']}), full {ms_p1f:.4f}; K2 {ms_p2:.4f} ms (bound "
+          f"{wp2['bound_ms']:.4f}); plain: K3 {plain_p3:.1f}, K2 "
+          f"{plain_p2:.1f} ms, K1 full once at T={Tp} {plain_p1:.1f} ms")
+    rec["k3_lowered_param"] = dict(max_abs_err=max(ep3), ms=ms_p3,
+                                   ms_rollout=ms_p3r, plain_ms=plain_p3,
+                                   library_ms=None, **wp3)
+    rec["k1_lowered_param"] = dict(max_abs_err=max(ep1), ms=ms_p1,
+                                   ms_full=ms_p1f,
+                                   bound_ms_full=wp1f["bound_ms"],
+                                   plain_ms=plain_p1, plain_T=Tp,
+                                   library_ms=None, **wp1)
+    rec["k2_lowered_param"] = dict(max_abs_err=ep2, ms=ms_p2,
+                                   plain_ms=plain_p2, library_ms=None, **wp2)
+    del ptraj, ptraj0, pgains, pbo, pp_in, k, p
+
+    ph.start("lowered-path", f"ilqg_batch_lanes, quadrotor B={B} T={Tq}, "
+             f"max_steps={ITERS}: the lowered model against the "
+             f"hand-written one, bit for bit; the heterogeneous headline "
+             f"(PendCartParam, B={B} T={T}) with autodiff tiles and params")
+    u0s = torch.full((B, Tq, 2), spec.u_hover, device=dev)
+
+    def qsolve(m, tiles, x0=x0s, u0=u0s):
+        return ilqg_batch_lanes(m, None, x0, u0, lims=lims, cfg=cfg,
+                                derivs_tiles=tiles, max_steps=ITERS)
+
+    qsolve(hand, tiles_h[False])                # warm-up of both paths
+    qsolve(low, tiles_l[False])
+    ref, rh = once_run(lambda: qsolve(hand, tiles_h[False]), counters)
+    got, rl = once_run(lambda: qsolve(low, tiles_l[False]), counters)
+    same_as_lockstep("lowered quadrotor fleet against the hand-written",
+                     got, ref, ILQG_FIELDS)
+    iters = int(got.n_iters.max())
+    print(f"  launches: hand-written {rh['launches']}, lowered "
+          f"{rl['launches']}")
+    print(f"  ms/iter over {iters} iterations: hand-written "
+          f"{rh['ms'] / max(iters, 1):.4f}, lowered "
+          f"{rl['ms'] / max(iters, 1):.4f} (CUDA events); host syncs "
+          f"{rh['syncs']} and {rl['syncs']}")
+    check(all(rl["launches"][c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the lowered quadrotor path never ran: "
+          f"{rl['launches']}")
+    paths = {"lowered_quad": rl["launches"]}
+    lowered = dict(quad=dict(hand=rh, lowered=rl, iters=iters))
+    del ref, got
+
+    hx0, hu0, hpar = hetero_ad_inputs(dev, B, T)
+
+    def hsolve(x0, u0, p_):
+        return ilqg_batch_lanes(plow, None, x0, u0, lims=LIMS, cfg=cfg,
+                                derivs_tiles=ptiles, params=p_,
+                                max_steps=ITERS)
+
+    hsolve(hx0, hu0, hpar)
+    r, rr = once_run(lambda: hsolve(hx0, hu0, hpar), counters)
+    hit = int(r.n_iters.max())
+    print(f"  heterogeneous headline with autodiff tiles: launches "
+          f"{rr['launches']}; {rr['ms']:.3f} ms, "
+          f"{rr['ms'] / max(hit, 1):.4f} ms/iter over {hit} iterations; "
+          f"reasons {hist(r.reason)}; cost median "
+          f"{r.cost_total.median().item():.6g}")
+    check(all(rr["launches"][c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the lowered heterogeneous path never ran: "
+          f"{rr['launches']}")
+    check(bool(torch.isfinite(r.cost_total).all()
+               and torch.isfinite(r.u).all()), "lowered hetero: non-finite")
+    check(bool((r.u.abs() <= 5.0).all()), "lowered hetero: |u| above 5")
+    paths["lowered_hetero"] = rr["launches"]
+    lowered["hetero"] = dict(run=rr, iters=hit)
+    g = hsolve(*hetero_ad_inputs(dev, B_CPU, LOWERED_T_CPU))
+    c = child_solves(cpu_proc)["lowered hetero (autodiff tiles, params)"]
+    print(f"  CPU child's solve ({B_CPU} lanes, T={LOWERED_T_CPU}): "
+          f"{c['seconds']:.1f} s")
+    agree(f"lowered hetero, {B_CPU} lanes at T={LOWERED_T_CPU}", dict(
+        cost_total=g.cost_total.tolist(), reason=g.reason.tolist(),
+        n_accepted=g.n_accepted.tolist()), c, "cost_total",
+          ("reason", "n_accepted"))
+    del r, g
+
+    ph.start("quad-kl", f"ilqgkl_batch_lanes on the quadrotor, B={B} "
+             f"T={Tq}, kl_step={KL_STEP}, max_iter={KL_ITERS}, scalar η, no "
+             f"limits: hand-written and lowered, bit for bit; K4 n=6 and K1 "
+             f"GPS policy on the path")
+    # one set of inputs for both runs: the pre-roll by the hand-written K3
+    # (the lowered K3 is bit-equal to it, lowered-kernels)
+    kl_h, _ = quad_kl_inputs(hand, x0s, Tq)
+    kcfg = quad_kl_cfg()
+
+    def kl(m, tiles, inp=kl_h):
+        return ilqgkl_batch_lanes(m, tiles, *inp, cfg=kcfg)
+
+    kl(hand, tiles_h[False])
+    kl(low, tiles_l[False])
+    ref, kh = once_run(lambda: kl(hand, tiles_h[False]), counters)
+    got, kr = once_run(lambda: kl(low, tiles_l[False]), counters)
+    same_as_lockstep("lowered quadrotor KL against the hand-written", got,
+                     ref, KL_FIELDS)
+    kiters = int(got.n_iters.max())
+    print(f"  launches: hand-written {kh['launches']}, lowered "
+          f"{kr['launches']}")
+    print(f"  KL solve: hand-written {kh['ms']:.3f} ms, lowered "
+          f"{kr['ms']:.3f} ms (CUDA events), max n_iters {kiters}; K4 n=6 "
+          f"{kr['launches']['covariance_lanes']} and K1 GPS policy "
+          f"{kr['launches']['backward_lanes']} launches")
+    print(f"  shares: satisfied {got.satisfied.float().mean().item():.4f}, "
+          f"pd_failed {got.pd_failed.float().mean().item():.4f}; median η "
+          f"{got.eta.median().item():.6g}, median divergence "
+          f"{got.divergence.median().item():.6g}; cost_total median "
+          f"{got.cost_total.median().item():.6g} against cost0 median "
+          f"{kl_h[3].median().item():.6g}")
+    check(all(kr["launches"][c_.__name__] > 0 for c_ in
+              (bk.backward_lanes, fk.forward_lanes, ck.covariance_lanes)),
+          f"a kernel of the quadrotor KL path never ran: {kr['launches']}")
+    check(bool(torch.isfinite(got.cost_total).all()),
+          "quad KL: non-finite cost")
+    paths["quad_kl"], paths["quad_kl_lowered"] = kh["launches"], kr["launches"]
+    lowered["kl"] = dict(hand=kh, lowered=kr, iters=kiters,
+                         satisfied=got.satisfied.float().mean().item())
+    del ref, got, kl_h
+    x0c = x0s[:B_CPU]
+    kc, _ = quad_kl_inputs(low, x0c, QUAD_T_CPU)
+    g = kl(low, tiles_l[False], kc)
+    c = child_solves(cpu_proc)["quad KL"]
+    print(f"  CPU child's KL solve ({B_CPU} lanes, T={QUAD_T_CPU}): "
+          f"{c['seconds']:.1f} s")
+    agree(f"quad KL, {B_CPU} lanes at T={QUAD_T_CPU}", dict(
+        cost_total=g.cost_total.tolist(), satisfied=g.satisfied.tolist(),
+        n_iters=g.n_iters.tolist()), c, "cost_total",
+          ("satisfied", "n_iters"))
+
+    dm = models["quad_diff"]
+    ph.start("diff", f"K3 and K2 with the angle-wrapping diff (lowered "
+             f"quadrotor, B={B} T={Tq}, the stored attitude shifted by 2π on "
+             f"half the lanes) against their plain versions; one "
+             f"{ITERS}-iteration fleet solve")
+    shifted = traj.clone()
+    shifted[:, 4, ::2] += 2 * math.pi
+    dgains = bwd(tiles_l, "gains").out
+    ed = []
+    for al, emit, what in ((ladder, False, "sweep A=6"),
+                           (al1, True, "rollout A=1")):
+        def dfwd(plain=False, al=al, emit=emit):
+            f = fk.forward_lanes_ref if plain else fk.forward_lanes
+            return f(shifted, dgains, x0_l, al, model=dm, lims=lims,
+                     emit_traj=emit)
+        k, p = dfwd(), dfwd(True)
+        ed.append(compare(f"diff K3 {what}", {"totals": (k.totals, p.totals)}
+                          | ({"traj": (k.traj, p.traj)} if emit else {})))
+    ms_d3 = cuda_ms(lambda: fk.forward_lanes(shifted, dgains, x0_l, ladder,
+                                             model=dm, lims=lims), 20)
+    plain_d3 = once_ms(lambda: fk.forward_lanes_ref(
+        shifted, dgains, x0_l, ladder, model=dm, lims=lims))
+    dsel = torch.stack([torch.full_like(tot, -1.0),
+                        torch.full_like(tot, 0.5), tot, allow])
+
+    def dls(plain=False):
+        f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+        return f(shifted, dgains, x0_l, dsel, model=dm, alphas=cfg.alphas,
+                 reduce_ratio_min=0.0, lims=lims)
+
+    k, p = dls(), dls(True)
+    ed2 = compare("diff K2", {"traj": (k.traj, p.traj),
+                              "totals": (k.ls[4], p.ls[4])})
+    check(torch.equal(k.ls[:2], p.ls[:2]), "diff K2: al_sel/any_ok differ")
+    ms_d2 = cuda_ms(lambda: dls(), 20)
+    plain_d2 = once_ms(lambda: dls(True))
+    wd3, wd2 = k3_work(hand, Tq, B, A, False), k2_work(hand, Tq, B, A)
+    print(f"  diff K3 sweep A=6 {ms_d3:.4f} ms (bound {wd3['bound_ms']:.4f} "
+          f"ms, {wd3['bound_by']}), K2 A=6 {ms_d2:.4f} ms (bound "
+          f"{wd2['bound_ms']:.4f}); plain {plain_d3:.1f}, {plain_d2:.1f} ms")
+    rec["k3_lowered_diff"] = dict(max_abs_err=max(ed), ms=ms_d3,
+                                  plain_ms=plain_d3, library_ms=None, **wd3)
+    rec["k2_lowered_diff"] = dict(max_abs_err=ed2, ms=ms_d2,
+                                  plain_ms=plain_d2, library_ms=None, **wd2)
+    dtiles = autodiff_derivs_tiles(dm)
+    r, rd = once_run(lambda: qsolve(dm, dtiles), counters)
+    diters = int(r.n_iters.max())
+    print(f"  fleet solve with the diff: launches {rd['launches']}; "
+          f"{rd['ms']:.3f} ms, {rd['ms'] / max(diters, 1):.4f} ms/iter over "
+          f"{diters} iterations; cost median "
+          f"{r.cost_total.median().item():.6g}; reasons {hist(r.reason)}")
+    check(all(rd["launches"][c_.__name__] > 0 for c_ in counters[:3]),
+          f"a kernel of the diff path never ran: {rd['launches']}")
+    check(bool(torch.isfinite(r.cost_total).all()), "diff: non-finite cost")
+    check(bool((r.u >= 0.0).all() and (r.u <= spec.u_max).all()),
+          "diff: a thrust outside (0, u_max)")
+    paths["lowered_diff"] = rd["launches"]
+    lowered["diff"] = dict(run=rd, iters=diters)
+    del shifted, dgains, k, p, r
+
+    ph.start("quad-jax", f"the card's quadrotor solve of the lanes of "
+             f"{QUAD_OUTCOMES} against the JAX package's outcomes there")
+    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               QUAD_OUTCOMES))
+    print(f"  reference: {ref['solver']}, {ref['x0'].shape[0]} lanes, "
+          f"T={int(ref['T'])}, max_iter={int(ref['max_iter'])}")
+    Tj = int(ref["T"])
+    jcfg = ILQGConfig(alphas=cfg.alphas, reg_type=2, lam_max=1e15,
+                      max_iter=int(ref["max_iter"]))
+    jx0 = torch.tensor(ref["x0"], device=dev)
+    check(bool(torch.equal(jx0, x0s[:jx0.shape[0]])),
+          "quad-jax: the reference's lanes are not the quadrotor fleet's")
+    r = ilqg_batch_lanes(low, None, jx0, torch.full(
+        (jx0.shape[0], Tj, 2), spec.u_hover, device=dev), lims=lims,
+        cfg=jcfg, derivs_tiles=tiles_l[False], record_trace=True)
+    reason, acc = r.reason.cpu().numpy(), r.n_accepted.cpu().numpy()
+    same = (reason == ref["reason"]) & (acc == ref["n_accepted"])
+    print(f"  lanes with the same reason and accepted count: "
+          f"{int(same.sum())} of {same.size} (need {AGREE_SHARE:.0%}); "
+          f"reasons card {hist(r.reason)}, JAX "
+          f"{dict(zip(*np.unique(ref['reason'], return_counts=True)))}")
+    check(same.mean() >= AGREE_SHARE, "quad-jax: reasons or accepted counts "
+          "differ from JAX's on too many lanes")
+    # their costs iteration by iteration (JAX's record_trace in the file):
+    # the share within COST_RTOL, and the share still on JAX's path (the
+    # same accepted α at every iteration so far)
+    k = int(ref["max_iter"]) + 1
+    cost = r.trace.cost.cpu().numpy()[same, :k]
+    alpha = r.trace.alpha.cpu().numpy()[same, :k]
+    jc, ja = ref["trace_cost"][same, :k], ref["trace_alpha"][same, :k]
+    rel = np.abs(cost - jc) / np.abs(jc)
+    path = np.cumprod(alpha[:, 1:] == ja[:, 1:], axis=1).astype(bool)
+    within = (rel <= COST_RTOL).mean(axis=0)
+    on_path = np.concatenate([[1.0], path.mean(axis=0)])
+    print("  iteration: share of those lanes with cost within "
+          f"{COST_RTOL:.0e} / on JAX's path: " + ", ".join(
+              f"{i} {within[i]:.3f}/{on_path[i]:.3f}" for i in range(k)))
+    print(f"  final cost rel diff on those lanes: max {rel[:, -1].max():.3e},"
+          f" median {np.median(rel[:, -1]):.3e}")
+    for i in range(1, QUAD_JAX_ITERS + 1):
+        check(within[i] >= AGREE_SHARE, f"quad-jax: iteration {i}: "
+              f"{within[i]:.3f} of the lanes' costs within {COST_RTOL:.0e} "
+              f"of JAX's (need {AGREE_SHARE})")
+    # the end state on every lane: final cost quartiles and mean
+    fin, jfin = r.cost_total.cpu().numpy(), ref["cost_total"]
+    qs = np.percentile(fin, (25, 50, 75))
+    jqs = np.percentile(jfin, (25, 50, 75))
+    q_rel = np.abs(qs - jqs) / jqs
+    mean_rel = abs(fin.mean() / jfin.mean() - 1.0)
+    print(f"  final cost quartiles card {qs.tolist()}, JAX {jqs.tolist()}: "
+          f"rel diff {q_rel.tolist()} (bound {QUAD_JAX_QUARTILE_RTOL}); mean "
+          f"card {fin.mean():.9g}, JAX {jfin.mean():.9g}: rel diff "
+          f"{mean_rel:.6e} (bound {QUAD_JAX_MEAN_RTOL})")
+    check(q_rel.max() <= QUAD_JAX_QUARTILE_RTOL and
+          mean_rel <= QUAD_JAX_MEAN_RTOL, "quad-jax: the final costs' "
+          "quartiles or mean part from JAX's")
+    lowered["quad_jax"] = dict(
+        same_share=float(same.mean()), within=within.tolist(),
+        on_path=on_path.tolist(), rel_max=float(rel[:, -1].max()),
+        rel_median=float(np.median(rel[:, -1])),
+        final_quartiles_rel=q_rel.tolist(), final_mean_rel=float(mean_rel))
+    for key, n in phase.items():
+        rec[key]["phase_launches"] = n
+    wall = time.perf_counter() - t_group
+    print(f"  lowered group: {wall:.1f} s wall")
+    lowered["wall_s"] = wall
+    rec["lowered"] = lowered
+    return paths
+
+
 def main() -> int:
     ph = Phases()
     ph.start("device")
@@ -4574,6 +5533,9 @@ def main() -> int:
     for line in rec["ptxas"]:
         print("  " + with_plan(line))
     _build.library()
+    # the lowered group's libraries build beside the earlier phases
+    models = lowered_models()
+    builds = (models, start_lowered_builds(models))
     # the packed group's CPU solves run beside the card's phases
     cpu_proc = start_cpu_child("--packed-cpu")
     m3_proc = start_cpu_child("--m3-cpu")
@@ -4819,6 +5781,8 @@ def main() -> int:
     paths.update(fleet_paths)
     paths.update(m3_phases(ph, dev, rec, counters, m3_proc))
     m3 = rec.pop("m3")
+    paths.update(lowered_phases(ph, dev, rec, counters, builds, cpu_proc))
+    lowered = rec.pop("lowered")
 
     # ---- record and result: one entry per kernel instance, its launches
     #      summed over the paths that run it
@@ -4909,9 +5873,44 @@ def main() -> int:
          ("kl", "gps") + fleet_kl),
         ("k4_10", "covariance_lanes", "n=10", "covariance.cu", k4,
          ("kl_lti", "gps_lti")),
-        # n=6 (the quadrotor's state) is on no path yet: launched only by
-        # its check in the kl-kernels phase
-        ("k4_6", "covariance_lanes", "n=6", "covariance.cu", k4, ()),
+        # n=6: the quadrotor's state, KL on the quadrotor
+        ("k4_6", "covariance_lanes", "n=6", "covariance.cu", k4,
+         ("quad_kl", "quad_kl_lowered")),
+        ("k1_quad_gps", "backward_lanes",
+         "Autodiff<Quadrotor> <6,2> GPS policy", "backward_quad.cu", k1,
+         ("quad_kl",)),
+        # the lowered models' instances (the lowered group): their source
+        # is lowered.cuh with a struct that ops/hopper/lower.py generates
+        ("k1_lowered_quad", "backward_lanes",
+         "Autodiff<Lowered> quadrotor <6,2> gains, full", "lowered.cuh", k1,
+         ("lowered_quad", "lowered_diff")),
+        ("k1_lowered_quad_gps", "backward_lanes",
+         "Autodiff<Lowered> quadrotor <6,2> GPS policy", "lowered.cuh", k1,
+         ("quad_kl_lowered",)),
+        ("k1_lowered_quad_so", "backward_lanes",
+         "Autodiff<Lowered,SO> quadrotor <6,2> gains, full (full DDP)",
+         "lowered.cuh", k1, ()),
+        ("k1_lowered_lti", "backward_lanes",
+         "Autodiff<Lowered> LTI <10,2> gains, full", "lowered.cuh", k1, ()),
+        ("k1_lowered_param", "backward_lanes",
+         "Autodiff<Lowered> PendCartParam <4,1> gains, full, params",
+         "lowered.cuh", k1, ("lowered_hetero",)),
+        ("k2_lowered_quad", "linesearch_lanes", "Lowered quadrotor <6,2>",
+         "lowered.cuh", k2, ("lowered_quad",)),
+        ("k2_lowered_param", "linesearch_lanes",
+         "Lowered PendCartParam <4,1>, params", "lowered.cuh", k2,
+         ("lowered_hetero",)),
+        ("k2_lowered_diff", "linesearch_lanes",
+         "Lowered quadrotor <6,2> with diff", "lowered.cuh", k2,
+         ("lowered_diff",)),
+        ("k3_lowered_quad", "forward_lanes", "Lowered quadrotor <6,2>",
+         "lowered.cuh", k3, ("lowered_quad", "quad_kl_lowered")),
+        ("k3_lowered_param", "forward_lanes",
+         "Lowered PendCartParam <4,1>, params", "lowered.cuh", k3,
+         ("lowered_hetero",)),
+        ("k3_lowered_diff", "forward_lanes",
+         "Lowered quadrotor <6,2> with diff", "lowered.cuh", k3,
+         ("lowered_diff",)),
         ("k1_packed_pendcart", "backward_lanes", "packed <4,1> gains, full",
          "backward_packed.cu", k1, ("packed",)),
         ("k1_packed_pendcart_gps", "backward_lanes", "packed <4,1> GPS full",
@@ -4937,8 +5936,8 @@ def main() -> int:
     for key, wrapper, inst, source, replaces, on in instances:
         by_path = {path: paths[path][wrapper] for path in on}
         # an instance on no path counts the launches of its own phase
-        launches = (sum(by_path.values()) if on
-                    else rec[key].pop("phase_launches"))
+        own = rec[key].pop("phase_launches", None)
+        launches = sum(by_path.values()) if on else own
         check(launches > 0,
               f"{wrapper} [{inst}] was never launched on {on}: {by_path}")
         kernels.append(dict(
@@ -4950,6 +5949,7 @@ def main() -> int:
     print(json.dumps({"generic": generic}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"m3": m3}))
+    print(json.dumps({"lowered": lowered}))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
@@ -4968,6 +5968,9 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--m3-cpu"]:
         print(json.dumps(m3_cpu_solves()))
         sys.exit(0)
+    if sys.argv[1:] == ["--lowered-cpu"]:
+        print(json.dumps(lowered_cpu_solves()))
+        sys.exit(0)
     try:
         rc = main()
     finally:
@@ -4975,4 +5978,6 @@ if __name__ == "__main__":
             if child.poll() is None:
                 child.kill()
             child.wait()
+        for th in BUILD_THREADS:      # their nvcc processes end with them
+            th.join()
     sys.exit(rc)

@@ -15,6 +15,15 @@ versions, so a kernel and its plain version differ only where the card's
 ``sinf``/``cosf`` and the host's differ. It also makes the α=0 retrace of
 the line search reproduce a trajectory bit for bit, whichever kernel rolled
 it out first.
+
+A model written only in Python (``LanesModel(device=None)``) is lowered
+into a C++ struct (:mod:`.lower`) and built into libraries of its own
+(:func:`build_lowered`, :func:`lowered_library`): a generated ``.cu`` per
+instance group (:data:`LOWERED_GROUPS`) includes ``csrc/lowered.cuh``, each
+group one ``nvcc`` process and one ``.so`` whose name carries the digest of
+the generated source, the headers and ``FLAGS``, so a model's first launch
+compiles only the group it needs, and a model of the same structure reuses
+it.
 """
 from __future__ import annotations
 
@@ -25,8 +34,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every source the library is built from, headers included, so that the
@@ -44,6 +54,13 @@ SOURCES = ("common.cuh", "ring.cuh", "autodiff.cuh", "pendcart.cuh",
 # compile flags of every source; the objects are then linked with -shared
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
+# the headers a lowered model's libraries are built from, beside its
+# generated struct (ops/hopper/lower.py)
+LOWERED_HEADERS = ("common.cuh", "ring.cuh", "autodiff.cuh", "backward.cuh",
+                   "forward.cuh", "lowered.cuh")
+# a lowered model's instance groups (csrc/lowered.cuh DDP_LOWERED_GROUP);
+# "fwd" has K3's and K2's entry points, the others K1's
+LOWERED_GROUPS = {"fwd": 0, "k1": 1, "k1_gps": 2, "k1_so": 3}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
@@ -148,17 +165,95 @@ def build() -> Build:
     return Build(path, seconds, "".join(logs) + r.stdout + r.stderr)
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed (once per process)."""
-    lib = ctypes.CDLL(str(build().path))
-    for name, argtypes in SIGNATURES.items():
+def _bind(path: Path, names) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
     lib.ddp_error_string.argtypes = (ctypes.c_int,)
     lib.ddp_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed (once per process)."""
+    return _bind(build().path, SIGNATURES)
+
+
+def lowered_source(struct: str, group: str) -> str:
+    """The generated ``.cu`` of one instance group of a lowered model."""
+    return (f"// A lowered model's instance group {group!r}, generated by "
+            "ops/hopper/_build.py.\n"
+            f"#define DDP_LOWERED_GROUP {LOWERED_GROUPS[group]}\n"
+            '#include "autodiff.cuh"\n\nnamespace ddp {\n\n'
+            f"{struct}\n}}  // namespace ddp\n\n"
+            '#include "lowered.cuh"\n')
+
+
+def _lowered_path(source: str) -> Path:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in LOWERED_HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(source.encode())
+    return BUILD_DIR / f"libddp_lowered_{h.hexdigest()[:16]}.so"
+
+
+def build_lowered(jobs: Sequence[Tuple[str, str]]) -> list:
+    """Build the libraries of ``jobs``, (struct, group) pairs, that are not
+    up to date: one ``nvcc`` process each, all started together. Returns a
+    :class:`Build` per job (seconds 0.0 for one found built)."""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, procs = [None] * len(jobs), []
+    for i, (struct, group) in enumerate(jobs):
+        source = lowered_source(struct, group)
+        path = _lowered_path(source)
+        if path.is_file():
+            out[i] = Build(path, 0.0, "")
+            continue
+        tag = f"{os.getpid()}.{i}"
+        cu = path.with_suffix(f".{tag}.cu")
+        cu.write_text(source)
+        tmp = path.with_suffix(f".{tag}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *FLAGS, "-shared", "-I", str(CSRC), "-o", str(tmp),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        procs.append((i, path, cu, tmp, proc, time.perf_counter()))
+
+    def finish(job):
+        """(job, log, its own seconds): each process waited for in a
+        thread of its own, so that its time is its own."""
+        log, _ = job[4].communicate()
+        return job, log, time.perf_counter() - job[5]
+
+    with ThreadPoolExecutor(max(len(procs), 1)) as pool:
+        done = list(pool.map(finish, procs))
+    failed = []
+    for (i, path, cu, tmp, proc, _), log, seconds in done:
+        cu.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(
+                f"{jobs[i][1]} ({proc.returncode}):\n{log[-4000:]}")
+            continue
+        os.replace(tmp, path)      # atomic: concurrent builds never race
+        out[i] = Build(path, seconds, log)
+    if failed:
+        raise RuntimeError("nvcc failed on a lowered model's library: "
+                           + "\n".join(failed))
+    return out
+
+
+def lowered_library(struct: str, group: str) -> ctypes.CDLL:
+    """The loaded library of instance group ``group`` of the lowered struct
+    ``struct``, built first if needed (ops/hopper/lower.py keeps it)."""
+    (built,) = build_lowered([(struct, group)])
+    return _bind(built.path, ("ddp_forward_lanes", "ddp_linesearch_lanes")
+                 if group == "fwd" else ("ddp_backward_lanes",))
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

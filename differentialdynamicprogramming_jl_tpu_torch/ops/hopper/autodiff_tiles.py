@@ -28,8 +28,11 @@ model's with ``autodiff=True``. On CPU tensors K1's plain version calls it;
 on CUDA tensors K1 runs the model's ``Autodiff<Body>`` instance
 (``csrc/autodiff.cuh``), which makes the same expansion with dual numbers in
 registers, or the wrapper raises when no such instance is built. It never
-substitutes a model's analytic instance. Second-order tiles carry the
-descriptor marked ``second_order`` too: K1's ``Autodiff<Body, true>``
+substitutes a model's analytic instance. A model without a descriptor
+gets a lowered one (:mod:`.lower`): K1 then runs ``Autodiff<Lowered>``,
+built from the model's traced functions at the first launch. A model with
+``n_params > 0`` gives tiles ``fn(x, u, t, par)``. Second-order tiles
+carry the descriptor marked ``second_order`` too: K1's ``Autodiff<Body, true>``
 instance runs the Jet passes over the dynamics as well and contracts each
 pass's n outputs with V′ at once.
 
@@ -43,11 +46,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 from torch.func import jvp, vmap
 
 from .backward_kernel import DerivsTiles
-from .forward_kernel import LanesModel
+from .forward_kernel import DeviceModel, LanesModel
+from .lower import LOWERED_ID
 from .pack import packed_from_tiles
 
 
@@ -57,12 +62,9 @@ def autodiff_derivs_tiles(model: LanesModel,
     :func:`~.backward_kernel.backward_lanes`; cached per model and order.
 
     ``second_order=True`` also gives the dynamics Hessians of full DDP. A
-    model with per-scenario parameters (``n_params > 0``) belongs to a
-    later slice and raises NotImplementedError."""
-    if model.n_params:
-        raise NotImplementedError(
-            "autodiff tiles with params (a model with n_params > 0) are not "
-            "ported yet")
+    model with per-scenario parameters (``n_params > 0``) gives tiles that
+    take them as a trailing ``par`` list, constants of the expansion, as
+    JAX threads them (``autodiff_tiles.py:44-56``)."""
     return _autodiff_derivs_tiles(model, bool(second_order))
 
 
@@ -75,10 +77,14 @@ def _autodiff_derivs_tiles(model: LanesModel,
     # the direction pairs i ≤ j of the second-order passes, in JAX's order
     pairs = [(i, j) for j in range(nm) for i in range(j + 1)]
 
-    def tiles(x, u, t):
+    def tiles(x, u, t, *par):
         def fc(xu):
             xs, us = xu[:n], xu[n:]
-            return list(model.dynamics(xs, us, t)), model.cost(xs, us, t)
+            return (list(model.dynamics(xs, us, t, *par)),
+                    model.cost(xs, us, t, *par))
+
+        def cost(xu):
+            return model.cost(xu[:n], xu[n:], t, *par)
 
         xu0 = list(x) + list(u)
 
@@ -100,11 +106,13 @@ def _autodiff_derivs_tiles(model: LanesModel,
                    cx=list(dc[:n]), cu=list(dc[n:]))
 
         # second order: forward (along i) over forward (along j) per pair
-        # i ≤ j, mirrored; with second_order the dynamics' tangents too
+        # i ≤ j, mirrored; with second_order the dynamics' tangents too.
+        # First-order tiles differentiate the cost alone here (the same
+        # operations as on its share of fc): at n=10 the dynamics would be
+        # most of the work and of the memory
         def second(ti, tj):
             def g(xu):
-                tan = jvp(fc, (xu,), (tj,))[1]
-                return tan if second_order else tan[1]
+                return jvp(fc if second_order else cost, (xu,), (tj,))[1]
 
             return jvp(g, (xu0,), (ti,))[1]
 
@@ -139,10 +147,12 @@ def _autodiff_derivs_tiles(model: LanesModel,
                            for mi in range(m)] for a in range(n)]
         return out
 
-    dev = (None if model.device is None
-           else dataclasses.replace(model.device, autodiff=True,
-                                    second_order=second_order))
-    return DerivsTiles(fn=tiles, device=dev)
+    # a model without a descriptor: K1 runs Autodiff<Lowered> of its
+    # lowering, made at the first launch (DeviceModel.lanes)
+    dev = (DeviceModel(LOWERED_ID, np.zeros(0, np.float32), lanes=model)
+           if model.device is None else model.device)
+    dev = dataclasses.replace(dev, autodiff=True, second_order=second_order)
+    return DerivsTiles(fn=tiles, device=dev, n_params=model.n_params)
 
 
 @functools.lru_cache(maxsize=64)
@@ -161,5 +171,13 @@ def autodiff_packed_derivs(model: LanesModel):
     quadrotor at B=4096, T=400 one call holds 28.77 GiB at its peak above
     what was allocated before it (H100 80GB HBM3, ``chip_smoke.py``'s
     packed-kernels phase): under three times that T·B fills an 80 GB
-    card. Cut T·B per call where that binds."""
+    card. Cut T·B per call where that binds.
+
+    The packed stream carries no per-scenario parameters into K1: a model
+    with ``n_params > 0`` raises NotImplementedError."""
+    if model.n_params:
+        raise NotImplementedError(
+            "autodiff_packed_derivs: the packed stream takes no params; use "
+            "autodiff_derivs_tiles(model) with params= for a model with "
+            "n_params > 0")
     return packed_from_tiles(autodiff_derivs_tiles(model), model.n, model.m)

@@ -122,6 +122,15 @@ CUDA_BACKWARD = {
     (4, 4, 1, False, False): ("gains", "full"),
     (1, 4, 1, True, False): ("gains", "full"),
     (3, 6, 2, True, False): ("gains", "full"),
+    (3, 6, 2, True, True): ("full", "policy"),
+}
+# K1's instances of a lowered model (a descriptor with ``lanes`` set,
+# csrc/lowered.cuh), which are Autodiff<Lowered>: (second order, GPS mode)
+# -> {emission: the library's instance group (_build.LOWERED_GROUPS)}
+LOWERED_K1 = {
+    (False, False): {"gains": "k1", "full": "k1", "policy": "k1_gps"},
+    (False, True): {"full": "k1_gps", "policy": "k1_gps"},
+    (True, False): {"gains": "k1_so", "full": "k1_so"},
 }
 # the second-order (full DDP) instances, keyed as CUDA_BACKWARD: the
 # analytic PendCartSO (csrc/pendcart.cuh) and Autodiff<PendCart, true> and
@@ -611,7 +620,10 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     derivative source, GPS mode, emission), :data:`CUDA_BACKWARD_SO`
     (second-order tiles) or :data:`CUDA_PACKED` (the packed stream, by n,
     m and GPS mode), none with m above ``MAX_M``; anything else raises
-    NotImplementedError before the kernel library is touched.
+    NotImplementedError before the kernel library is touched. Autodiff
+    tiles of a model without a descriptor run ``Autodiff<Lowered>`` from
+    the model's lowering (:mod:`.lower`, :data:`LOWERED_K1`), built at the
+    first launch.
     """
     check_lims(m, lims)
     if qp_iters < 0:
@@ -649,6 +661,7 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                                   lims_lanes=lims_lanes, emit=emit,
                                   qp_iters=qp_iters)
     gps_t = (prev, eta) if gps else ()
+    group = None
     if packed:
         dm = PACKED_MODEL
         if emit not in CUDA_PACKED.get((n, m, gps), ()):
@@ -661,7 +674,15 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
         dm = getattr(derivs_tiles, "device", None)
         so = dm is not None and dm.second_order
         table = CUDA_BACKWARD_SO if so else CUDA_BACKWARD
-        if dm is not None and emit not in table.get(
+        if dm is not None and dm.lanes is not None:
+            group = LOWERED_K1.get((so, gps), {}).get(emit)
+            if group is None:
+                raise NotImplementedError(
+                    f"backward_lanes: a lowered model's K1 "
+                    f"({'second-order' if so else 'first-order'}, "
+                    f"{'in' if gps else 'without'} GPS mode) has no "
+                    f"emit={emit!r} instance; built: {LOWERED_K1}")
+        elif dm is not None and emit not in table.get(
                 (dm.model_id, n, m, dm.autodiff, gps), ()):
             raise NotImplementedError(
                 f"backward_lanes: no CUDA kernel (K1 instance) is built for "
@@ -670,9 +691,9 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                 f"{'second-order' if so else 'first-order'} derivatives, "
                 f"{'in' if gps else 'without'} GPS mode, emit={emit!r}; "
                 f"built (model id, n, m, autodiff, GPS): {sorted(table)}")
-    lib, dev, stream, _lim, model_args = cuda_args(
+    lib, dev, stream, _keep, model_args = cuda_args(
         dm, "backward_lanes", n, m, lims, lims_lanes, params, traj, lam,
-        *gps_t, models=None if packed else CUDA_MODELS)
+        *gps_t, models=None if packed else CUDA_MODELS, group=group)
     S = OutLayout(n, m, emit).S
     out = torch.empty((T, S, B), dtype=torch.float32, device=traj.device)
     stats = torch.empty((4, B), dtype=torch.float32, device=traj.device)

@@ -29,10 +29,13 @@
 // Each rule is the one PyTorch's forward-mode autodiff applies
 // (torchgen derivatives.yaml: mul `other_t*self_p + self_t*other_p`, div
 // `(self_t - other_t*result)/other_p`, sin `self_t*cos(self_p)`, cos
-// `self_t*-sin(self_p)`), and for Jet that rule differentiated once more
-// along b in the same order, so the plain version (torch.func.jvp, nested)
-// and the kernel form the same products. Two-term sums commute in IEEE
-// arithmetic; longer sums keep PyTorch's grouping.
+// `self_t*-sin(self_p)`, tanh `tanh_backward(self_t, result)` =
+// `self_t*(1 - result*result)`, exp `self_t*result`, sqrt
+// `self_t/(2*result)`), and for Jet that rule differentiated once more
+// along b in the same order (tanh_backward's own rule for tanh), so the
+// plain version (torch.func.jvp, nested) and the kernel form the same
+// products. Two-term sums commute in IEEE arithmetic; longer sums keep
+// PyTorch's grouping.
 //
 // The boundary step t = T-1 differentiates the running cost, as
 // autodiff_tiles.py:27-31 says.
@@ -42,10 +45,13 @@
 
 namespace ddp {
 
-// ::sinf/::cosf stay visible beside the overloads below, so that a model's
-// template finds both for S = float
+// the float functions stay visible beside the overloads below, so that a
+// model's template finds both for S = float
 using ::cosf;
+using ::expf;
 using ::sinf;
+using ::sqrtf;
+using ::tanhf;
 
 struct Dual {
   float v, t;
@@ -99,6 +105,18 @@ __device__ __forceinline__ Dual sinf(Dual x) {
 }
 __device__ __forceinline__ Dual cosf(Dual x) {
   return {::cosf(x.v), x.t * -::sinf(x.v)};
+}
+__device__ __forceinline__ Dual tanhf(Dual x) {
+  const float y = ::tanhf(x.v);
+  return {y, x.t * (1.0f - y * y)};
+}
+__device__ __forceinline__ Dual expf(Dual x) {
+  const float y = ::expf(x.v);
+  return {y, x.t * y};
+}
+__device__ __forceinline__ Dual sqrtf(Dual x) {
+  const float y = ::sqrtf(x.v);
+  return {y, x.t / (y * 2.0f)};
 }
 
 // ---- Jet: a along the inner direction, b along the outer one
@@ -157,6 +175,28 @@ __device__ __forceinline__ Jet cosf(Jet x) {
   const float s = ::sinf(x.v), c = ::cosf(x.v);
   return {c, x.a * -s, x.b * -s, -(x.b * c) * x.a + x.ab * -s};
 }
+__device__ __forceinline__ Jet tanhf(Jet x) {
+  // a = tanh_backward(x.a, y); along b, tanh_backward's rule:
+  // tanh_backward(x.ab, y) + y_b·((y·-2)·x.a)
+  const float y = ::tanhf(x.v);
+  const float yb = x.b * (1.0f - y * y);
+  return {y, x.a * (1.0f - y * y), yb,
+          x.ab * (1.0f - y * y) + yb * ((y * -2.0f) * x.a)};
+}
+__device__ __forceinline__ Jet expf(Jet x) {
+  // a = x.a·y; along b: y_b·x.a + x.ab·y
+  const float y = ::expf(x.v);
+  const float yb = x.b * y;
+  return {y, x.a * y, yb, yb * x.a + x.ab * y};
+}
+__device__ __forceinline__ Jet sqrtf(Jet x) {
+  // a = x.a/(2y); along b, the quotient rule with (2y)_b = y_b·2
+  const float y = ::sqrtf(x.v);
+  const float y2 = y * 2.0f;
+  const float yb = x.b / y2;
+  const float a = x.a / y2;
+  return {y, a, yb, (x.ab - (yb * 2.0f) * a) / y2};
+}
 
 // ---- the NaN-keeping helpers of common.cuh on Dual and Jet: the value as
 // there; the tangents of the operand taken, averaged at a tie (PyTorch's
@@ -209,7 +249,7 @@ struct Autodiff {
   static constexpr int M = Body::M;
   static constexpr int ID = Body::ID;
   static constexpr int N_CONSTS = Body::N_CONSTS;
-  static constexpr int N_PARAMS = 0;   // no autodiff instance takes params
+  static constexpr int N_PARAMS = Body::N_PARAMS;
   static constexpr bool PACKED = false;
   static constexpr bool SECOND_ORDER = SO;
   static constexpr int NM = N + M;
@@ -219,6 +259,11 @@ struct Autodiff {
   Body body;
 
   __device__ __forceinline__ explicit Autodiff(const Consts& mc) : body(mc) {}
+  // one scenario's parameters (make_model, common.cuh); constants of the
+  // expansion, never differentiated, as JAX's tiles close over them
+  template <int P>
+  __device__ __forceinline__ Autodiff(const Consts& mc, const float (&par)[P])
+      : body(mc, par) {}
 
   template <class S>
   __device__ __forceinline__ void dynamics(const S (&x)[N], const S (&u)[M],

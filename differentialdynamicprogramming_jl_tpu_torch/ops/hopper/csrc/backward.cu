@@ -5,7 +5,8 @@
 // backward_lti_10_3.cu and backward_lti_gps_10_3.cu, the PendCartParam
 // ⟨4,1⟩ ones in backward_pendcart_param.cu, and the autodiff instances
 // (autodiff != 0: derivatives made in the kernel from the model's own
-// functions) in backward_quad.cu and backward_pendcart_ad.cu, the
+// functions; the quadrotor's also in GPS mode) in backward_quad.cu and
+// backward_pendcart_ad.cu, the
 // second-order (full DDP) ones in backward_so.cu and backward_quad_so.cu,
 // and the packed-derivatives ones (model id 0: no model, the stream holds
 // the expansion) in backward_packed.cu and backward_packed_lti.cu, so that
@@ -38,36 +39,13 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
   using namespace ddp;
   const bool gps = prev != nullptr;
   const bool packed = model_id == 0;
-  // a trajectory holds at least n+m slots; the packed stream's exact D+m is
-  // checked by its instance (launch_one)
-  if (T < 2 || B < 1 || s_in < n + m ||
-      s_out != out_slots(emit, n, m) ||
-      (reg_type != 1 && reg_type != 2) || gps != (eta != nullptr) ||
-      (params != nullptr) != (n_params > 0) || qp_iters < 0)
-    return ERR_ARGS;
-  Lims lim;
-  if (!lims_from_host(lims, m, lim)) return ERR_ARGS;
+  BwdArgs a;
+  const int rc = bwd_args(traj, s_in, lam, prev, eta, out, s_out, stats, T,
+                          B, emit, reg_type, use_limits, lims, lims_lanes,
+                          params, n_params, n, m, consts, qp_iters, blocks,
+                          threads, tc, stages, smem, stream, a);
+  if (rc != 0) return rc;
   cudaSetDevice(device);
-  const BwdArgs a{traj,
-                  s_in,
-                  lam,
-                  prev,
-                  eta,
-                  out,
-                  s_out,
-                  stats,
-                  T,
-                  B,
-                  emit,
-                  reg_type,
-                  use_limits != 0 || lims_lanes != nullptr,
-                  qp_iters,
-                  lim,
-                  lims_lanes,
-                  params,
-                  consts,
-                  RingPlan{blocks, threads, tc, stages, smem},
-                  static_cast<cudaStream_t>(stream)};
   using LTI10x2 = LTI<10, 2>;
   using LTI10x3 = LTI<10, 3>;
   const bool pendcart = model_id == PendCart::ID && n == PendCart::N &&
@@ -96,8 +74,7 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
   }
   if (n_params != 0) return ERR_MODEL;
   if (autodiff) {
-    if (gps) return ERR_MODEL;
-    if (pendcart) return launch_backward_pendcart_ad(a);
+    if (pendcart && !gps) return launch_backward_pendcart_ad(a);
     if (quad) return launch_backward_quad_6_2(a);
     return ERR_MODEL;
   }

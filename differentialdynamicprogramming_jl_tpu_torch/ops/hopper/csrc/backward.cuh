@@ -146,6 +146,50 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
+// The argument checks of K1's C entry points (ddp_backward_lanes in
+// backward.cu, and in a lowered model's library, lowered.cuh) and their
+// BwdArgs; ERR_ARGS for arguments no instance takes. A trajectory holds at
+// least n+m slots; the packed stream's exact D+m is checked by its
+// instance (launch_one).
+inline int bwd_args(const float* traj, int s_in, const float* lam,
+                    const float* prev, const float* eta, float* out,
+                    int s_out, float* stats, int T, int B, int emit,
+                    int reg_type, int use_limits, const float* lims,
+                    const float* lims_lanes, const float* params,
+                    int n_params, int n, int m, const float* consts,
+                    int qp_iters, int blocks, int threads, int tc,
+                    int stages, int smem, void* stream, BwdArgs& a) {
+  const bool gps = prev != nullptr;
+  if (T < 2 || B < 1 || s_in < n + m ||
+      s_out != out_slots(emit, n, m) ||
+      (reg_type != 1 && reg_type != 2) || gps != (eta != nullptr) ||
+      (params != nullptr) != (n_params > 0) || qp_iters < 0)
+    return ERR_ARGS;
+  Lims lim;
+  if (!lims_from_host(lims, m, lim)) return ERR_ARGS;
+  a = BwdArgs{traj,
+              s_in,
+              lam,
+              prev,
+              eta,
+              out,
+              s_out,
+              stats,
+              T,
+              B,
+              emit,
+              reg_type,
+              use_limits != 0 || lims_lanes != nullptr,
+              qp_iters,
+              lim,
+              lims_lanes,
+              params,
+              consts,
+              RingPlan{blocks, threads, tc, stages, smem},
+              static_cast<cudaStream_t>(stream)};
+  return 0;
+}
+
 namespace {
 
 // GPS mode at one step: the previous policy's slots [k[M], K[M][N],

@@ -16,8 +16,13 @@
 // with x, xn as float (&)[N] and u as float (&)[M]. `d` is the model's
 // per-step Derivs: what the expansion at (x, u) holds beyond constants.
 // Every loop over a model's dimensions is unrolled, so the accessors'
-// indices are compile-time constants. K1 also reads two compile-time
-// flags of a model:
+// indices are compile-time constants. K2 and K3 read one compile-time flag
+// of a model:
+//   HAS_DIFF: the feedback term's state difference is the model's
+//     diff(x, x_old, dx) (LanesModel.diff, e.g. angle wrapping) rather than
+//     x - x_old; false for every hand-written model, set by a lowered one
+//     (lowered.cuh) whose Python model has a diff.
+// K1 reads two:
 //   PACKED: the model is the packed-derivatives stream (packed.cuh): K1's
 //     ring carries its D+M slots per step, Derivs points at the step's
 //     ring row, and derivs() is not called;

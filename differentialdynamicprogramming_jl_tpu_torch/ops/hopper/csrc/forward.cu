@@ -18,14 +18,6 @@ namespace {
 using LTI10x2 = LTI<10, 2>;
 using LTI10x3 = LTI<10, 3>;
 
-// the stream shapes, and an in-place K2 only on an [x, u, c] stream
-bool stream_args_ok(const FwdArgs& a, int n, int m) {
-  return a.T >= 1 && a.B >= 1 && a.s_traj >= n + m && a.gk >= 0 &&
-         a.gK >= 0 && a.gk + m <= a.s_g && a.gK + m * n <= a.s_g &&
-         a.A >= 1 && a.A <= MAX_A &&
-         (a.out != a.traj || a.s_traj == n + m + 1);
-}
-
 template <class Model>
 bool is(int model_id, int n, int m, int n_consts, int n_params) {
   return model_id == Model::ID && n == Model::N && m == Model::M &&
@@ -79,29 +71,12 @@ extern "C" int ddp_forward_lanes(const float* traj, int s_traj,
   if (m < 1 || m > MAX_M) return ERR_ARGS;
   const int which = instance(model_id, n, m, n_consts, n_params);
   if (which == 0) return ERR_MODEL;
-  if ((params != nullptr) != (n_params > 0)) return ERR_ARGS;
-  FwdArgs a{};
-  a.traj = traj;
-  a.s_traj = s_traj;
-  a.gains = gains;
-  a.s_g = s_g;
-  a.gk = gk;
-  a.gK = gK;
-  a.x0 = x0;
-  a.alphas = alphas;
-  a.A = A;
-  a.totals = totals;
-  a.terminal = terminal;
-  a.out = out_traj;
-  a.T = T;
-  a.B = B;
-  if (!lims_from_host(lims, m, a.lims)) return ERR_ARGS;
-  a.lims_lanes = lims_lanes;
-  a.params = params;
-  a.consts = consts;
-  a.plan = RingPlan{blocks, threads, tc, stages, smem};
-  a.stream = static_cast<cudaStream_t>(stream);
-  if (!stream_args_ok(a, n, m) || a.out == a.traj) return ERR_ARGS;
+  FwdArgs a;
+  const int rc = k3_args(traj, s_traj, gains, s_g, gk, gK, x0, alphas, A,
+                         totals, terminal, out_traj, T, B, lims, lims_lanes,
+                         params, n_params, n, m, consts, blocks, threads, tc,
+                         stages, smem, stream, a);
+  if (rc != 0) return rc;
   cudaSetDevice(device);
   return launch_k3(which, a);
 }
@@ -122,30 +97,12 @@ extern "C" int ddp_linesearch_lanes(const float* traj, int s_traj,
   if (m < 1 || m > MAX_M) return ERR_ARGS;
   const int which = instance(model_id, n, m, n_consts, n_params);
   if (which == 0) return ERR_MODEL;
-  if ((params != nullptr) != (n_params > 0)) return ERR_ARGS;
-  FwdArgs a{};
-  a.traj = traj;
-  a.s_traj = s_traj;
-  a.gains = gains;
-  a.s_g = s_g;
-  a.gk = gk;
-  a.gK = gK;
-  a.x0 = x0;
-  a.sel = sel;
-  a.A = A;
-  for (int i = 0; i < MAX_A; ++i) a.ladder.a[i] = i < A ? alphas[i] : 0.0f;
-  a.rr_min = rr_min;
-  a.out = out_traj;
-  a.ls = ls;
-  a.T = T;
-  a.B = B;
-  if (!lims_from_host(lims, m, a.lims)) return ERR_ARGS;
-  a.lims_lanes = lims_lanes;
-  a.params = params;
-  a.consts = consts;
-  a.plan = RingPlan{blocks, threads, tc, stages, smem};
-  a.stream = static_cast<cudaStream_t>(stream);
-  if (!stream_args_ok(a, n, m)) return ERR_ARGS;
+  FwdArgs a;
+  const int rc = k2_args(traj, s_traj, gains, s_g, gk, gK, x0, sel, alphas,
+                         A, rr_min, out_traj, ls, T, B, lims, lims_lanes,
+                         params, n_params, n, m, consts, blocks, threads, tc,
+                         stages, smem, stream, a);
+  if (rc != 0) return rc;
   cudaSetDevice(device);
   return launch_k2(which, a);
 }

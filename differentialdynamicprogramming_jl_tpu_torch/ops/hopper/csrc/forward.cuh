@@ -49,7 +49,9 @@
 //
 // Semantics kept from the TPU kernels (forward_kernel.py line numbers):
 // - per control, u = clip(u_nom + α·k + Σ_j K_j·(x_j − x_old_j), lo, hi)
-//   in that operation order (:156-169, :454-461);
+//   in that operation order (:156-169, :454-461), with the model's
+//   diff(x, x_old) in place of x − x_old where it has one (HAS_DIFF,
+//   :156-159, :450-451);
 // - the terminal cost is evaluated at the STORED state x[T-1], not at the
 //   state after the last step (:150-151, :178-181, :475-478);
 // - the accept rule at the pass boundary: ratio = dcost/expected, or
@@ -110,6 +112,86 @@ struct FwdArgs {
   cudaStream_t stream;
 };
 
+// the stream shapes, and an in-place K2 only on an [x, u, c] stream
+inline bool stream_args_ok(const FwdArgs& a, int n, int m) {
+  return a.T >= 1 && a.B >= 1 && a.s_traj >= n + m && a.gk >= 0 &&
+         a.gK >= 0 && a.gk + m <= a.s_g && a.gK + m * n <= a.s_g &&
+         a.A >= 1 && a.A <= MAX_A &&
+         (a.out != a.traj || a.s_traj == n + m + 1);
+}
+
+// The argument checks of the K3 and K2 C entry points (ddp_forward_lanes
+// and ddp_linesearch_lanes in forward.cu, and in a lowered model's library,
+// lowered.cuh) and their FwdArgs; ERR_ARGS for arguments no instance takes.
+inline int k3_args(const float* traj, int s_traj, const float* gains,
+                   int s_g, int gk, int gK, const float* x0,
+                   const float* alphas, int A, float* totals, float* terminal,
+                   float* out_traj, int T, int B, const float* lims,
+                   const float* lims_lanes, const float* params,
+                   int n_params, int n, int m, const float* consts,
+                   int blocks, int threads, int tc, int stages, int smem,
+                   void* stream, FwdArgs& a) {
+  if ((params != nullptr) != (n_params > 0)) return ERR_ARGS;
+  a = FwdArgs{};
+  a.traj = traj;
+  a.s_traj = s_traj;
+  a.gains = gains;
+  a.s_g = s_g;
+  a.gk = gk;
+  a.gK = gK;
+  a.x0 = x0;
+  a.alphas = alphas;
+  a.A = A;
+  a.totals = totals;
+  a.terminal = terminal;
+  a.out = out_traj;
+  a.T = T;
+  a.B = B;
+  if (!lims_from_host(lims, m, a.lims)) return ERR_ARGS;
+  a.lims_lanes = lims_lanes;
+  a.params = params;
+  a.consts = consts;
+  a.plan = RingPlan{blocks, threads, tc, stages, smem};
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (!stream_args_ok(a, n, m) || a.out == a.traj) return ERR_ARGS;
+  return 0;
+}
+
+inline int k2_args(const float* traj, int s_traj, const float* gains,
+                   int s_g, int gk, int gK, const float* x0, const float* sel,
+                   const float* alphas, int A, float rr_min, float* out_traj,
+                   float* ls, int T, int B, const float* lims,
+                   const float* lims_lanes, const float* params,
+                   int n_params, int n, int m, const float* consts,
+                   int blocks, int threads, int tc, int stages, int smem,
+                   void* stream, FwdArgs& a) {
+  if ((params != nullptr) != (n_params > 0)) return ERR_ARGS;
+  a = FwdArgs{};
+  a.traj = traj;
+  a.s_traj = s_traj;
+  a.gains = gains;
+  a.s_g = s_g;
+  a.gk = gk;
+  a.gK = gK;
+  a.x0 = x0;
+  a.sel = sel;
+  a.A = A;
+  for (int i = 0; i < MAX_A; ++i) a.ladder.a[i] = i < A ? alphas[i] : 0.0f;
+  a.rr_min = rr_min;
+  a.out = out_traj;
+  a.ls = ls;
+  a.T = T;
+  a.B = B;
+  if (!lims_from_host(lims, m, a.lims)) return ERR_ARGS;
+  a.lims_lanes = lims_lanes;
+  a.params = params;
+  a.consts = consts;
+  a.plan = RingPlan{blocks, threads, tc, stages, smem};
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (!stream_args_ok(a, n, m)) return ERR_ARGS;
+  return 0;
+}
+
 namespace {
 
 template <class Model>
@@ -163,8 +245,12 @@ __device__ __forceinline__ void rollout_step(
     float (&u)[Model::M], float& c_out) {
   constexpr int N = Model::N, M = Model::M;
   float dx[N];
+  if constexpr (Model::HAS_DIFF) {
+    P.diff(x, s.x_old, dx);
+  } else {
 #pragma unroll
-  for (int j = 0; j < N; ++j) dx[j] = x[j] - s.x_old[j];
+    for (int j = 0; j < N; ++j) dx[j] = x[j] - s.x_old[j];
+  }
 #pragma unroll
   for (int mi = 0; mi < M; ++mi) {
     float v = s.u_nom[mi] + alpha * s.k[mi];

@@ -32,6 +32,7 @@ struct LTI {
   static constexpr int N_PARAMS = 0;
   static constexpr bool PACKED = false;
   static constexpr bool SECOND_ORDER = false;
+  static constexpr bool HAS_DIFF = false;
   struct Consts {
     float c[N_CONSTS];
   };

@@ -29,6 +29,7 @@ struct Quadrotor {
   static constexpr int ID = 3;
   static constexpr int N_CONSTS = 19;
   static constexpr int N_PARAMS = 0;
+  static constexpr bool HAS_DIFF = false;
   struct Consts {
     float c[N_CONSTS];
   };

@@ -11,8 +11,11 @@ Each wrapper takes streams ``(T, S, B)`` (see :mod:`.pack`):
   (block shape and shared-memory ring) come from :mod:`.plan`.
 
 The kernels read the model from its device descriptor
-(:class:`DeviceModel`); a :class:`LanesModel` without one runs only on the
-CPU. Both wrappers take per-scenario model parameters ``params`` (P, B) for
+(:class:`DeviceModel`); a :class:`LanesModel` without one is lowered
+(:mod:`.lower`) into a library of its own, and its ``diff``, where set,
+replaces x - x_old in the feedback term (JAX ``forward_kernel.py:49-63``,
+``:156-159``, ``:450-451``). Both wrappers take per-scenario model
+parameters ``params`` (P, B) for
 a model with ``n_params == P``, and per-scenario control limits
 ``lims_lanes`` (2m, B), slot order [lo_0, hi_0, lo_1, hi_1, ...], which
 replace the static ``lims``. Each wrapper counts its kernel launches in
@@ -55,12 +58,16 @@ class DeviceModel:
     instance (``csrc/autodiff.cuh``), never its analytic one.
     ``second_order`` marks derivative tiles that also give the dynamics
     Hessians (full DDP): K1 then runs the model's second-order instance,
-    never a first-order one."""
+    never a first-order one. ``lanes`` is set on the descriptor of the
+    autodiff tiles of a model without one: K1 then runs
+    ``Autodiff<Lowered>`` from that model's lowering (:mod:`.lower`),
+    made at the first launch; ``consts`` is then unused."""
 
     model_id: int
     consts: np.ndarray
     autodiff: bool = False
     second_order: bool = False
+    lanes: Optional["LanesModel"] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +84,14 @@ class LanesModel:
       functions take a trailing ``par`` argument, a list of ``n_params``
       (B,) tensors constant over the horizon (heterogeneous fleets), and
       the kernels a ``params`` stream (P, B).
+    - ``diff``: optional state difference ``diff(x, x_old) -> list[n]``
+      used by the feedback term of the control law (reference
+      ``diff_fun``, e.g. angle wrapping); default x - x_old.
 
-    The JAX class's ``diff`` option is not part of this slice.
+    A model with ``device=None`` runs on CUDA tensors through its lowering
+    (:mod:`.lower`): its functions are traced and compiled into a library
+    of its own. A hand-written descriptor has no ``diff``: such a model
+    with a ``diff`` raises on CUDA tensors.
     """
 
     n: int
@@ -88,6 +101,7 @@ class LanesModel:
     terminal: Optional[Callable] = None
     device: Optional[DeviceModel] = None
     n_params: int = 0
+    diff: Optional[Callable] = None
 
 
 class ForwardLanesOut(NamedTuple):
@@ -154,9 +168,9 @@ def lims_host(lims, m: int) -> np.ndarray:
     return np.asarray([v for pair in zip(lo, hi) for v in pair], np.float32)
 
 
-def launch_args(what: str, *tensors: torch.Tensor):
-    """Validate tensors for a kernel launch; returns (lib, device index,
-    stream handle)."""
+def launch_device(what: str, *tensors: torch.Tensor):
+    """Validate tensors for a kernel launch; returns (device index, stream
+    handle)."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{what}: no kernel for tensors on {dev}")
@@ -167,35 +181,73 @@ def launch_args(what: str, *tensors: torch.Tensor):
             raise TypeError(f"{what}: expected float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
-    return _build.library(), dev.index, torch.cuda.current_stream(
-        dev).cuda_stream
+    return dev.index, torch.cuda.current_stream(dev).cuda_stream
 
 
-def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
-              m: int, lims, lims_lanes, params, *tensors: torch.Tensor,
-              models=CUDA_MODELS):
-    """:func:`launch_args` plus the model arguments of a launcher: the
-    static limits (host), the per-scenario limits and parameters (or null),
-    P, model id, n, m, the host pointer to the constants and their count.
-    The host arrays are returned too, to outlive the call. ``models`` are
-    the (model id, n, m) the kernel is built for, or None where the caller
-    has checked its own instance table."""
+def launch_args(what: str, *tensors: torch.Tensor):
+    """:func:`launch_device` and the kernel library: (lib, device index,
+    stream handle)."""
+    dev, stream = launch_device(what, *tensors)
+    return _build.library(), dev, stream
+
+
+def model_source(model_device: Optional[DeviceModel], lanes, what: str,
+                 n: int, m: int, models=CUDA_MODELS):
+    """Which model a launch evaluates: the model to lower (a model without a
+    descriptor: ``model_device`` None and ``lanes`` the model, or a
+    descriptor with ``lanes`` set), or None for the hand-written
+    descriptor. ``models`` are the (model id, n, m) the kernel library is
+    built for, or None where the caller has checked its own instance table.
+    Raises NotImplementedError for a model no kernel can evaluate, and
+    ValueError for a hand-written descriptor combined with a ``diff``,
+    which its struct lacks."""
+    if model_device is not None and model_device.lanes is not None:
+        return model_device.lanes
     if model_device is None:
-        raise NotImplementedError(
-            f"{what}: this model has no device-model descriptor, so no CUDA "
-            "kernel can evaluate it; run it on CPU tensors")
+        if lanes is None:
+            raise NotImplementedError(
+                f"{what}: these derivative tiles have no device-model "
+                "descriptor, so no CUDA kernel can evaluate them; use "
+                "autodiff_derivs_tiles(model), or run on CPU tensors")
+        return lanes
+    if lanes is not None and lanes.diff is not None:
+        raise ValueError(
+            f"{what}: the model has a hand-written device descriptor (id "
+            f"{model_device.model_id}) and a diff; the descriptor's struct "
+            "has no diff, so the kernel would subtract. Drop the "
+            "descriptor (device=None) to lower the model with its diff")
     if models is not None and (model_device.model_id, n, m) not in models:
         raise NotImplementedError(
             f"{what}: no CUDA kernel is built for model id "
             f"{model_device.model_id} at n={n}, m={m}; built: "
             f"{sorted(CUDA_MODELS.items())}")
+    return None
+
+
+def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
+              m: int, lims, lims_lanes, params, *tensors: torch.Tensor,
+              models=CUDA_MODELS, lanes=None, group: str = "fwd"):
+    """:func:`launch_args` plus the model arguments of a launcher: the
+    static limits (host), the per-scenario limits and parameters (or null),
+    P, model id, n, m, the host pointer to the constants and their count.
+    The host arrays are returned too, to outlive the call. A model to lower
+    (:func:`model_source`; ``lanes``: the model, where it has no
+    descriptor) is lowered once the tensors are checked, and its library of
+    instance group ``group`` (``_build.LOWERED_GROUPS``) is built at the
+    first launch; a lowering, build or launch that fails raises."""
+    src = model_source(model_device, lanes, what, n, m, models)
     per_lane = [t for t in (lims_lanes, params) if t is not None]
-    lib, dev, stream = launch_args(what, *tensors, *per_lane)
-    consts = model_device.consts
+    if src is None:
+        lib, dev, stream = launch_args(what, *tensors, *per_lane)
+        model_id, consts = model_device.model_id, model_device.consts
+    else:
+        dev, stream = launch_device(what, *tensors, *per_lane)
+        from .lower import LOWERED_ID, lower
+        (lib, consts), model_id = lower(src).group(group), LOWERED_ID
     lim = lims_host(lims, m)
-    return lib, dev, stream, lim, (
+    return lib, dev, stream, (lim, consts), (
         lim.ctypes.data, _ptr(lims_lanes), _ptr(params),
-        0 if params is None else params.shape[0], model_device.model_id, n,
+        0 if params is None else params.shape[0], model_id, n,
         m, consts.ctypes.data, consts.size)
 
 
@@ -229,7 +281,8 @@ def _rollout_step(model, x, acc, term, alpha, x_old, u_nom, k, K, lo, hi,
     (JAX ``forward_kernel.py:156-169``), lo/hi floats or per-scenario (B,)
     tensors; ``par`` the model's trailing arguments (:func:`par_args`).
     Returns (x_next, acc, term, u, c)."""
-    dx = [x[j] - x_old[j] for j in range(model.n)]
+    dx = (model.diff(x, x_old) if model.diff is not None
+          else [x[j] - x_old[j] for j in range(model.n)])
     u = []
     for mi in range(model.m):
         v = u_nom[mi] + alpha * k[mi]
@@ -361,9 +414,9 @@ def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
     A = alphas.shape[0]
     if not 1 <= A <= MAX_A:
         raise ValueError(f"forward_lanes: A={A} outside 1..{MAX_A}")
-    lib, dev, stream, _lim, model_args = cuda_args(
+    lib, dev, stream, _keep, model_args = cuda_args(
         model.device, "forward_lanes", model.n, model.m, lims, lims_lanes,
-        params, traj, gains, x0, alphas)
+        params, traj, gains, x0, alphas, lanes=model)
     totals = torch.empty((A, B), dtype=torch.float32, device=traj.device)
     term = torch.empty_like(totals)
     out = (torch.empty((T, model.n + model.m + 1, B), dtype=torch.float32,
@@ -424,9 +477,9 @@ def linesearch_lanes(traj: torch.Tensor, gains: torch.Tensor,
     A = len(alphas)
     if not 1 <= A <= MAX_A:
         raise ValueError(f"linesearch_lanes: {A} alphas outside 1..{MAX_A}")
-    lib, dev, stream, _lim, model_args = cuda_args(
+    lib, dev, stream, _keep, model_args = cuda_args(
         model.device, "linesearch_lanes", model.n, model.m, lims, lims_lanes,
-        params, traj, gains, x0, sel)
+        params, traj, gains, x0, sel, lanes=model)
     ladder = np.asarray(alphas, np.float32)
     out = traj if alias else torch.empty(
         (T, model.n + model.m + 1, B), dtype=torch.float32,

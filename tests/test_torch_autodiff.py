@@ -32,6 +32,8 @@ from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
     autodiff_tiles as tat, backward_kernel as bk)
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.forward_kernel \
     import LanesModel
+from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.lower import (
+    LOWERED_ID)
 from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
     ilqg_batch_lanes)
 
@@ -93,7 +95,9 @@ def test_autodiff_pendcart_tiles_match_analytic():
 
 def test_autodiff_tiles_descriptor_and_cache():
     """The AD tiles carry the model's descriptor marked autodiff, one
-    function object per model; a model without a descriptor gets none."""
+    function object per model; a model without a descriptor gets a lowered
+    one (ops/hopper/lower.py), which names the model and is lowered only at
+    a launch on the card."""
     tm = tq.quadrotor_lanes(tq.QuadrotorSpec())
     tiles = autodiff_derivs_tiles(tm)
     assert tiles is autodiff_derivs_tiles(tm, second_order=False)
@@ -101,22 +105,25 @@ def test_autodiff_tiles_descriptor_and_cache():
     assert tiles.device.model_id == 3
     np.testing.assert_array_equal(tiles.device.consts, tm.device.consts)
     bare = LanesModel(n=tm.n, m=tm.m, dynamics=tm.dynamics, cost=tm.cost)
-    assert autodiff_derivs_tiles(bare).device is None
+    low = autodiff_derivs_tiles(bare).device
+    assert low.lanes is bare and low.autodiff and not low.second_order
+    assert low.model_id == LOWERED_ID and low.consts.size == 0
     assert not tpc.pendcart_derivs_tiles(tpc.PendCartSpec()).device.autodiff
 
 
 def test_autodiff_out_of_slice_raises():
     tm = tq.quadrotor_lanes(tq.QuadrotorSpec())
     # second-order tiles and the packed generator are ported: they build,
-    # marked for K1's second-order instance, and a model with per-scenario
-    # parameters still raises
+    # marked for K1's second-order instance; tiles of a model with
+    # per-scenario parameters take them (test_torch_lowered_models.py
+    # holds them against JAX), while the packed stream, which carries no
+    # params into K1, still refuses such a model
     so = autodiff_derivs_tiles(tm, second_order=True)
     assert so.device.autodiff and so.device.second_order
     assert so is not autodiff_derivs_tiles(tm)
     assert callable(tat.autodiff_packed_derivs(tm))
     tpm = tpc.pendcart_lanes_param(tpc.PendCartSpec())
-    with pytest.raises(NotImplementedError, match="params"):
-        autodiff_derivs_tiles(tpm)
+    assert autodiff_derivs_tiles(tpm).n_params == 2
     with pytest.raises(NotImplementedError, match="params"):
         tat.autodiff_packed_derivs(tpm)
     # the generic tier's full-DDP derivatives and the zoh scheme are ported
@@ -134,10 +141,11 @@ def test_autodiff_out_of_slice_raises():
 def test_backward_lanes_without_instance_raises_off_cpu(emit, gps):
     """On tensors off the CPU (here the meta device, which needs no card)
     K1 runs a built instance or raises NotImplementedError naming what is
-    missing, before it touches the kernel library: LTI through autodiff has
-    no instance, and the autodiff instances have no policy emission and no
-    GPS mode. Nothing falls back to the plain version or to analytic
-    derivatives."""
+    missing, before it touches the kernel library: LTI with its descriptor
+    has no autodiff instance, the autodiff instances have no policy
+    emission without GPS mode, the pendcart's no GPS mode and the
+    quadrotor's none for "gains" in it. Nothing falls back to the plain
+    version, to analytic derivatives or to a lowering."""
     spec = tl.random_lti(0, n=10, m=2, T=8, device="cpu")
     n, m, Tt, Bb = 10, 2, 8, 4
     cases = [(autodiff_derivs_tiles(tl.lti_lanes(spec)), n, m)]
@@ -155,6 +163,7 @@ def test_backward_lanes_without_instance_raises_off_cpu(emit, gps):
                               m=m_, reg_type=2, lims=None,
                               derivs_tiles=tiles, emit=emit, **kw)
     assert (3, 6, 2, True, False) in bk.CUDA_BACKWARD
+    assert bk.CUDA_BACKWARD[3, 6, 2, True, True] == ("full", "policy")
     assert (3, 6, 2, False, False) not in bk.CUDA_BACKWARD
 
 

@@ -714,9 +714,9 @@ def test_pendcart_autodiff_kernel_matches_analytic_and_plain(dev, emit):
 
 
 def test_autodiff_without_instance_raises_on_card(dev):
-    """LTI through autodiff has no K1 instance, nor has the quadrotor in
-    policy emission or GPS mode: each raises, and nothing runs the plain
-    version or an analytic instance in its place."""
+    """LTI with its descriptor has no autodiff K1 instance, nor has the
+    quadrotor "policy" emission without GPS mode: each raises, and nothing
+    runs the plain version or an analytic instance in its place."""
     from differentialdynamicprogramming_jl_tpu_torch.models import linear
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
         autodiff_tiles)
@@ -1680,3 +1680,201 @@ def test_m_above_max_m_refused_on_card(dev):
             bout.data_ptr(), S, st.data_ptr(), Tc, Bc, 0, 2, 1, *model,
             0, 0, 8, *pb.launcher_args(), dev.index, stream)
         assert rc == (-2 if m == 5 else -1), rc
+
+
+# ---------------------------------------------------------------------------
+# models written only in Python: lowered into libraries of their own
+# (ops/hopper/lower.py, csrc/lowered.cuh)
+# ---------------------------------------------------------------------------
+
+def _wrap_diff(x, x_old):
+    """Angle wrapping of the quadrotor's attitude θ (state 4)."""
+    import math
+    d = [x[i] - x_old[i] for i in range(6)]
+    d[4] = torch.remainder(d[4] + math.pi, 2 * math.pi) - math.pi
+    return d
+
+
+def _bare(model, **kw):
+    import dataclasses
+    return dataclasses.replace(model, device=None, **kw)
+
+
+def test_lowered_quadrotor_is_bit_equal_to_hand_written(dev):
+    """The quadrotor with its descriptor removed runs K3, K2 and K1 (gains,
+    full, GPS full and policy, second order) from its lowering: the same
+    f32 operations as the hand-written Quadrotor / Autodiff<Quadrotor>
+    instances, so the same bits."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    spec, model, tiles, x0, gains0, al, traj = _quad(dev)
+    low = _bare(model)
+    ladder = torch.tensor(ALPHAS, device=dev)[:, None].expand(6, B)
+    for alphas, emit in ((ladder.contiguous(), False), (al, True)):
+        a, b = (fk.forward_lanes(torch.zeros((T, 8, B), device=dev), gains0,
+                                 x0, alphas, model=m, lims=spec.lims,
+                                 emit_traj=emit) for m in (model, low))
+        assert torch.equal(a.totals, b.totals)
+        assert emit is False or torch.equal(a.traj, b.traj)
+    lam = torch.logspace(-6, 2, B, device=dev)
+    kw = dict(n=6, m=2, reg_type=2, lims=spec.lims)
+    gains = bk.backward_lanes(traj, lam, derivs_tiles=tiles, emit="gains",
+                              **kw).out
+    sel = torch.stack([torch.full((B,), -1.0, device=dev),
+                       torch.full((B,), 0.5, device=dev),
+                       torch.full((B,), 1e3, device=dev),
+                       (torch.arange(B, device=dev) % 2).float()])
+    a, b = (fk.linesearch_lanes(traj, gains, x0, sel, model=m,
+                                alphas=ALPHAS, lims=spec.lims)
+            for m in (model, low))
+    assert torch.equal(a.traj, b.traj) and torch.equal(a.ls, b.ls)
+    rng = np.random.default_rng(9)
+    prev = torch.tensor(np.concatenate(
+        [rng.standard_normal((T, 2, B)), 0.3 * rng.standard_normal(
+            (T, 12, B)), np.tile(np.array([2.0, 0.3, 0.3, 1.5])[None, :,
+                                                               None],
+                                 (T, 1, B))], axis=1), dtype=torch.float32,
+        device=dev)
+    eta = torch.full((T, B), 3.0, device=dev)
+    cases = [dict(emit="gains"), dict(emit="full"),
+             dict(emit="full", prev=prev, eta=eta),
+             dict(emit="policy", prev=prev, eta=eta)]
+    for so in (False, True):
+        pair = [autodiff_tiles.autodiff_derivs_tiles(m, second_order=so)
+                for m in (model, low)]
+        for case in cases if not so else cases[:2]:
+            n0 = bk.backward_lanes.launches
+            a, b = (bk.backward_lanes(traj, lam, derivs_tiles=t, **kw, **case)
+                    for t in pair)
+            assert bk.backward_lanes.launches == n0 + 2
+            assert torch.equal(a.out, b.out) and torch.equal(a.stats,
+                                                             b.stats), case
+
+
+def test_lowered_models_match_plain(dev):
+    """A lowered PendCartParam (params) in K3, K2 and K1 through autodiff,
+    a lowered LTI <10,2> in K1 (Autodiff<Lowered>, gains and full), and the
+    quadrotor with a diff in K3 and K2, each against its plain version."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    x0, gains0, al = _rollout(dev)
+    pm = _bare(tpc.pendcart_lanes_param(SPEC))
+    rng = np.random.default_rng(4)
+    par = torch.tensor(np.stack([rng.uniform(0.25, 0.55, B),
+                                 rng.uniform(0.5, 1.5, B)]),
+                       dtype=torch.float32, device=dev)
+    k = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0, x0, al,
+                         par, model=pm, lims=LIMS, emit_traj=True)
+    p = fk.forward_lanes_ref(torch.zeros((T, 5, B), device=dev), gains0, x0,
+                             al, par, model=pm, lims=LIMS, emit_traj=True)
+    torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+    kw = dict(n=4, m=1, reg_type=2, lims=LIMS, params=par,
+              derivs_tiles=autodiff_tiles.autodiff_derivs_tiles(pm))
+    lam = torch.logspace(-6, 2, B, device=dev)
+    for emit in ("gains", "full"):
+        _slots_close(bk.backward_lanes(k.traj, lam, emit=emit, **kw).out,
+                     bk.backward_lanes_ref(k.traj, lam, emit=emit, **kw).out,
+                     share=0.0)
+    spec, lm, _, lx0, lgains0, lal = _lti(dev)
+    low = _bare(lm)
+    ltraj = fk.forward_lanes(torch.zeros((T, 12, B), device=dev), lgains0,
+                             lx0, lal, model=lm, lims=LTI_LIMS,
+                             emit_traj=True).traj
+    lkw = dict(n=10, m=2, reg_type=2, lims=LTI_LIMS,
+               derivs_tiles=autodiff_tiles.autodiff_derivs_tiles(low))
+    for emit in ("gains", "full"):
+        _slots_close(bk.backward_lanes(ltraj, lam, emit=emit, **lkw).out,
+                     bk.backward_lanes_ref(ltraj, lam, emit=emit, **lkw).out)
+    qspec, qm, qtiles, qx0, qgains0, qal, qtraj = _quad(dev)
+    dm = _bare(qm, diff=_wrap_diff)
+    shifted = qtraj.clone()
+    shifted[:, 4, ::2] += 2 * np.pi
+    k = fk.forward_lanes(shifted, qgains0, qx0, qal, model=dm,
+                         lims=qspec.lims, emit_traj=True)
+    p = fk.forward_lanes_ref(shifted, qgains0, qx0, qal, model=dm,
+                             lims=qspec.lims, emit_traj=True)
+    torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+
+
+def test_lowered_without_instance_raises_on_card(dev):
+    """A lowered model's K1 has no "gains" emission in GPS mode, and a
+    hand-written descriptor with a diff is refused: each raises, and
+    nothing launches in its place."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    spec, model, _, x0, gains0, al, traj = _quad(dev)
+    tiles = autodiff_tiles.autodiff_derivs_tiles(_bare(model))
+    n0 = (bk.backward_lanes.launches, fk.forward_lanes.launches)
+    with pytest.raises(NotImplementedError, match="lowered"):
+        bk.backward_lanes(traj, torch.ones(B, device=dev), n=6, m=2,
+                          reg_type=1, lims=spec.lims, derivs_tiles=tiles,
+                          emit="gains",
+                          prev=torch.zeros((T, 18, B), device=dev),
+                          eta=torch.ones((T, B), device=dev))
+    import dataclasses
+    with pytest.raises(ValueError, match="diff"):
+        fk.forward_lanes(traj, gains0, x0, al, lims=spec.lims,
+                         model=dataclasses.replace(model, diff=_wrap_diff))
+    assert (bk.backward_lanes.launches, fk.forward_lanes.launches) == n0
+
+
+def _exotic():
+    """A model with per-scenario params and tanh, exp and sqrt in its
+    dynamics and cost (no hand-written descriptor)."""
+    def dynamics(x, u, t, par):
+        a, k = par
+        return [x[0] + 0.1 * x[1],
+                x[1] + 0.1 * (torch.tanh(u[0] * a) - k * torch.sin(x[0])),
+                x[2] + 0.05 * torch.exp(-x[2] * x[2]) * u[0]]
+
+    def cost(x, u, t, par):
+        return (torch.sqrt(1.0 + x[0] * x[0] + x[2] * x[2]) + 0.5 * x[1]
+                * x[1] + par[0] * u[0] * u[0])
+
+    return fk.LanesModel(n=3, m=1, dynamics=dynamics, cost=cost, n_params=2)
+
+
+def test_lowered_exotic_matches_plain(dev):
+    """The tanh, exp and sqrt rules compiled for the card (the device's
+    tanhf, expf and sqrtf in Dual and Jet passes): a lowered model with
+    params in K3, K1 (gains and full) and K2, each against its plain
+    version."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    model = _exotic()
+    rng = np.random.default_rng(8)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x0 = torch.tensor(rng.standard_normal((3, B)), **f32)
+    par = torch.tensor(np.stack([rng.uniform(0.5, 1.5, B),
+                                 rng.uniform(0.5, 2.0, B)]), **f32)
+    gains0 = torch.cat([torch.tensor(2.0 * rng.standard_normal((T, 1, B)),
+                                     **f32),
+                        torch.zeros((T, 3, B), device=dev)], dim=1)
+    al = torch.tensor(rng.uniform(0, 1, (1, B)), **f32)
+    traj0 = torch.zeros((T, 5, B), device=dev)
+    k, p = (f(traj0, gains0, x0, al, par, model=model, lims=LIMS,
+              emit_traj=True) for f in (fk.forward_lanes,
+                                        fk.forward_lanes_ref))
+    torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k.totals, p.totals, rtol=1e-5, atol=1e-5)
+    traj = k.traj
+    lam = torch.logspace(-6, 2, B, device=dev)
+    kw = dict(n=3, m=1, reg_type=2, lims=LIMS, params=par,
+              derivs_tiles=autodiff_tiles.autodiff_derivs_tiles(model))
+    for emit in ("gains", "full"):
+        n0 = bk.backward_lanes.launches
+        a = bk.backward_lanes(traj, lam, emit=emit, **kw)
+        assert bk.backward_lanes.launches == n0 + 1
+        b = bk.backward_lanes_ref(traj, lam, emit=emit, **kw)
+        _slots_close(a.out, b.out)
+        torch.testing.assert_close(a.stats[:2], b.stats[:2], rtol=1e-5,
+                                   atol=1e-5)
+        assert torch.equal(a.stats[2:], b.stats[2:])
+    sel = torch.stack([a.stats[0], a.stats[1], k.totals[0],
+                       (torch.arange(B, device=dev) % 2).float()])
+    gains = bk.backward_lanes(traj, lam, emit="gains", **kw).out
+    k2, p2 = (f(traj, gains, x0, sel, par, model=model, alphas=ALPHAS,
+                reduce_ratio_min=0.0, lims=LIMS) for f in (fk.linesearch_lanes,
+                                     fk.linesearch_lanes_ref))
+    torch.testing.assert_close(k2.traj, p2.traj, rtol=1e-5, atol=1e-5)
+    assert torch.equal(k2.ls[:2], p2.ls[:2])

@@ -14,6 +14,7 @@ from differentialdynamicprogramming_jl_tpu.ops.pallas.forward_kernel import (
     forward_lanes as jax_forward_lanes, linesearch_lanes as jax_linesearch)
 from differentialdynamicprogramming_jl_tpu_torch import convert
 from differentialdynamicprogramming_jl_tpu_torch.models import pendcart as tpc
+from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import lower
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.backward_kernel \
     import backward_lanes_ref
 from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.forward_kernel \
@@ -163,15 +164,22 @@ def test_wrappers_are_the_plain_versions_on_cpu(data):
     torch.testing.assert_close(a.ls, b.ls, rtol=0, atol=0, equal_nan=True)
 
 
-def test_model_without_descriptor_raises_off_cpu(data):
+def test_model_without_descriptor_raises_off_cpu(data, monkeypatch):
     """A LanesModel made of Python functions has no device descriptor: the
-    kernel path refuses it instead of running the plain version."""
+    kernel path lowers it (ops/hopper/lower.py), and only for CUDA tensors.
+    On other tensors it raises before any lowering instead of running the
+    plain version."""
     x0, traj, gains, _ = data
     m = tpc.pendcart_lanes(SPEC)
     bare = LanesModel(n=4, m=1, dynamics=m.dynamics, cost=m.cost,
                       terminal=m.terminal)
+
+    def no_lowering(model):
+        raise AssertionError("lowered for tensors that are not on a card")
+
+    monkeypatch.setattr(lower, "lower", no_lowering)
     meta = [torch.empty(a.shape, device="meta") for a in (traj, gains, x0)]
-    with pytest.raises(NotImplementedError, match="descriptor"):
+    with pytest.raises(ValueError, match="no kernel for tensors on meta"):
         forward_lanes(*meta, torch.empty((1, B), device="meta"), model=bare,
                       lims=LIMS)
 

@@ -404,6 +404,14 @@ def test_params_need_a_parametrised_model_and_stay_off_autodiff():
         bk.backward_lanes(torch.zeros((T, 6, B)), torch.ones(B), n=4, m=1,
                           derivs_tiles=tpc.pendcart_derivs_tiles(SPEC),
                           params=torch.ones((2, B)))
-    with pytest.raises(NotImplementedError, match="autodiff tiles with "
-                                                  "params"):
-        autodiff_derivs_tiles(tpc.pendcart_lanes_param(SPEC))
+    # autodiff tiles take the params, but with the hand-written descriptor
+    # K1 has no Autodiff<PendCartParam> instance: off the CPU they raise,
+    # never the analytic instance in their place (the descriptor-less
+    # model lowers instead, test_torch_lowered_models.py)
+    ad = autodiff_derivs_tiles(tpc.pendcart_lanes_param(SPEC))
+    assert ad.n_params == 2 and ad.device.model_id == 4
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        bk.backward_lanes(torch.zeros((T, 6, B), device="meta"),
+                          torch.ones(B, device="meta"), n=4, m=1,
+                          derivs_tiles=ad,
+                          params=torch.ones((2, B), device="meta"))
