@@ -194,7 +194,31 @@ ends the run with a non-zero exit and no result line:
     (``tools_torch/make_quad_outcomes.py``): reasons and accepted counts,
     and the costs iteration by iteration (held to JAX's through
     QUAD_JAX_ITERS, where rounding does not yet decide them);
-48. the kernel record (one entry per kernel instance, with its bound; an
+48. the tiles group, tiles-build: a user's Python derivative tiles and
+    the time-varying models (``tiles_models``) lowered, their libraries
+    built beside the earlier phases (LoweredTiles ``t1``, ``t1_gps``,
+    ``t1_so``; Lowered ``fwd``, Autodiff<Lowered> ``k1``);
+49. the tiles group, tiles-kernels: K1 LoweredTiles of
+    ``lti_derivs_tiles(spec).fn`` (no descriptor) bit for bit against the
+    hand-written LTI K1 (gains, full, GPS policy) at B=4096, T=1000, and
+    every new instance (LoweredTiles LTI, GPS, reading t, second order;
+    Autodiff<Lowered> reading t; the lowered K3 and K2 of the LTI, the
+    tracking LTI and the tracking quadrotor) against its plain version at
+    TILES_T_PLAIN, timed at its path's T;
+50. the tiles group, tiles-lti: the LTI fleet (B=4096, T=1000, ±0.6, to
+    convergence) with a Python-only model and the user's tiles against the
+    hand-written solve in the same call, then KL on it (kl_step 100,
+    scalar η, no limits; K1 LoweredTiles GPS policy, K4 n=10);
+51. the tiles group, lti-track: the same fleet tracking r(t) =
+    0.5·sin(π·h·t) on state 0 with the user's tiles reading t, against a
+    CPU solve of 64 lanes at T=40 (the ``--tiles-cpu`` child);
+52. the tiles group, quad-track: the quadrotor fleet (B=4096, T=400,
+    thrust box, 20 iterations) tracking px = 0.5·sin(π/2·h·t) with
+    autodiff tiles, against a CPU solve of 64 lanes at T=16;
+53. the tiles group, tiles-so: full DDP on the headline pendcart (B=4096,
+    T=500, 20 iterations) with the user's second-order tiles, bit for bit
+    PendCartSO's solve;
+54. the kernel record (one entry per kernel instance, with its bound; an
     instance on no path with the launches of its check) and the result
     line.
 """
@@ -258,8 +282,9 @@ GPS_SLOT_TOL = 1e-5
 LTI_N, LTI_M, LTI_T = 10, 2, 1000
 LTI_LIMS = ((-0.6, 0.6), (-0.6, 0.6))
 # the plain K1 at n=10 is ≈6.5k torch operations a step; compared at a
-# short horizon, the kernels timed at the full one
-LTI_T_PLAIN = 64
+# short horizon, the kernels timed at the full one: three chunks of K1
+# gains' ring (tc 16, two stages), so that the ring wraps
+LTI_T_PLAIN = 33
 # the LTI solve on 64 scenarios with the plain versions on the host: T kept
 # short so that it takes well under a minute
 LTI_T_CPU = 40
@@ -273,8 +298,9 @@ PROBE_T = 500
 # forward-mode autodiff inside K1
 QUAD_T = 400
 # the plain K1 with autodiff tiles is ≈50 torch.func operations and ≈2k
-# torch operations a step: compared at a short horizon, timed at QUAD_T
-QUAD_T_PLAIN = 64
+# torch operations a step: compared at a short horizon, timed at QUAD_T;
+# three chunks of K1's ring (tc 16, two stages), so that the ring wraps
+QUAD_T_PLAIN = 33
 # the quadrotor solve on 64 scenarios with the plain versions on the host
 # (≈0.2 s a K1 step there): a short horizon
 QUAD_T_CPU = 16
@@ -557,6 +583,7 @@ MANGLED_MODELS = (
     ("NS_8AutodiffINS_7LoweredELb1EEE", "Autodiff<Lowered,SO>"),
     ("NS_8AutodiffINS_7LoweredELb0EEE", "Autodiff<Lowered>"),
     ("NS_7LoweredE", "Lowered"),
+    ("NS_12LoweredTilesE", "LoweredTiles"),
     ("NS_6PackedILi4ELi1EEE", "Packed<4,1>"),
     ("NS_6PackedILi6ELi2EEE", "Packed<6,2>"),
     ("NS_6PackedILi10ELi2EEE", "Packed<10,2>"),
@@ -4716,15 +4743,22 @@ def start_lowered_builds(models: dict):
     thread (one nvcc a library, all together), so that they overlap the
     earlier phases. Returns (thread, labels, box): the box receives
     ``builds`` (one _build.Build a label) or ``error``."""
-    import threading
-    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
-        _build, lower)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import lower
     jobs, labels = [], []
     for key, groups in LOWERED_GROUPS.items():
         low = lower.lower(models[key])
         for g in groups:
             jobs.append((low.struct(g == "fwd"), g))
             labels.append(f"{key} {g}")
+    return build_thread(jobs, labels)
+
+
+def build_thread(jobs, labels):
+    """Start the builds of ``jobs`` ((struct, group) pairs) in a thread;
+    returns (thread, labels, box) as start_lowered_builds."""
+    import threading
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        _build)
     box: dict = {}
 
     def run():
@@ -5498,6 +5532,699 @@ def lowered_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the tiles group (phases 48-53): a user's own Python derivative tiles
+# lowered into K1 (LoweredTiles, ops/hopper/lower.py lower_tiles) and
+# models that read the step index t, on the card
+# ---------------------------------------------------------------------------
+
+# the T at which the group's LoweredTiles and time-varying instances are
+# held to their plain versions, t from 0 to 32: LTI_T_PLAIN's
+TILES_T_PLAIN = LTI_T_PLAIN
+# random_lti's step h: the LTI reference r(t) = 0.5·sin(π·h·t)
+TRACK_H = 0.01
+# the tiles group's libraries: label -> (model key, lowering, group)
+TILES_BUILDS = (("lti fwd", "lti", "model", "fwd"),
+                ("lti t1", "lti_tiles", "tiles", "t1"),
+                ("lti t1_gps", "lti_tiles", "tiles", "t1_gps"),
+                ("track fwd", "track", "model", "fwd"),
+                ("track t1", "track_tiles", "tiles", "t1"),
+                ("quad_track fwd", "quad", "model", "fwd"),
+                ("quad_track k1", "quad", "model", "k1"),
+                ("so t1_so", "so_tiles", "tiles", "t1_so"))
+
+
+def tiles_models() -> dict:
+    """The tiles group's Python-only models and user tiles, none with a
+    device descriptor: the LTI fleet (random_lti seed 0) and
+    ``DerivsTiles(fn=lti_derivs_tiles(spec).fn)``; the LTI fleet tracking
+    r(t) and its user tiles reading t, the quadrotor tracking px(t)
+    (tools_torch/tracking.py); the pendcart's second-order tiles."""
+    import dataclasses
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles_so)
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.backward_kernel \
+        import DerivsTiles
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.forward_kernel \
+        import LanesModel
+    from tools_torch import tracking
+
+    spec = random_lti(0, n=LTI_N, m=LTI_M, T=LTI_T, device="cpu")
+    track, track_fn = tracking.lti_track(torch, LanesModel, spec.A, spec.B,
+                                         spec.Q, spec.R, TRACK_H)
+    return dict(
+        spec=spec, lti=dataclasses.replace(lti_lanes(spec), device=None),
+        lti_tiles=DerivsTiles(fn=lti_derivs_tiles(spec).fn), track=track,
+        track_tiles=DerivsTiles(fn=track_fn),
+        quad=tracking.quad_track(torch, LanesModel, QuadrotorSpec()),
+        so_tiles=DerivsTiles(fn=pendcart_derivs_tiles_so(PendCartSpec()).fn))
+
+
+def start_tiles_builds(t: dict):
+    """Lower the tiles group's models and tiles and start their libraries'
+    builds in a thread, as start_lowered_builds."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import lower
+    jobs = []
+    for _, key, kind, group in TILES_BUILDS:
+        if kind == "model":
+            jobs.append((lower.lower(t[key]).struct(group == "fwd"), group))
+        else:
+            n, m = (4, 1) if key == "so_tiles" else (LTI_N, LTI_M)
+            jobs.append((lower.lower_tiles(t[key], n, m).struct(), group))
+    return build_thread(jobs, [label for label, *_ in TILES_BUILDS])
+
+
+def tiles_cpu_solves() -> dict:
+    """The tiles group's CPU plain solves on B_CPU lanes (the
+    ``--tiles-cpu`` child): the tracking LTI at LTI_T_CPU with its user
+    tiles, and the tracking quadrotor at QUAD_T_CPU with autodiff tiles."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    t = tiles_models()
+    out = {}
+    t0 = time.perf_counter()
+    x0s, u0s = lti_fleet_inputs(t["spec"], "cpu", B_CPU, LTI_T_CPU)
+    r = ilqg_batch_lanes(t["track"], None, x0s, u0s, lims=LTI_LIMS,
+                         cfg=lti_cfg(), derivs_tiles=t["track_tiles"])
+    out["lti-track"] = dict(
+        cost_total=r.cost_total.tolist(), reason=r.reason.tolist(),
+        n_accepted=r.n_accepted.tolist(), seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    spec = QuadrotorSpec()
+    x0q = torch.tensor(quad_x0()[:B_CPU], dtype=torch.float32)
+    r = ilqg_batch_lanes(t["quad"], None, x0q,
+                         torch.full((B_CPU, QUAD_T_CPU, 2), spec.u_hover),
+                         lims=spec.lims, cfg=headline_cfg(),
+                         derivs_tiles=autodiff_derivs_tiles(t["quad"]),
+                         max_steps=ITERS)
+    out["quad-track"] = dict(
+        cost_total=r.cost_total.tolist(), reason=r.reason.tolist(),
+        n_accepted=r.n_accepted.tolist(), seconds=time.perf_counter() - t0)
+    return out
+
+
+def lti_cfg():
+    """The LTI fleet's ILQGConfig (tools/bench_fleet.py --lti): run to
+    convergence."""
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig, default_alphas)
+    return ILQGConfig(alphas=default_alphas(0.2, -3.0, 6), reg_type=2,
+                      lam_max=1e15, max_iter=300)
+
+
+def lti_fleet_inputs(spec, device, Bk: int, Tk: int):
+    """The LTI fleet's x0 = 1·linspace(0.5, 2) over B lanes and u0 = the
+    spec's, on the first Bk lanes at horizon Tk."""
+    x0s = torch.ones((B, LTI_N)) * torch.linspace(0.5, 2.0, B)[:, None]
+    u0s = spec.u0.cpu()[:Tk].expand(Bk, Tk, LTI_M)
+    return x0s[:Bk].to(device), u0s.contiguous().to(device)
+
+
+def bits_or_parts(what: str, fields: dict) -> bool:
+    """Print whether each (card, reference) pair is bit-equal, and where a
+    pair is not, its largest difference; returns whether all are."""
+    same = True
+    for name, (a, b) in fields.items():
+        # a NaN in the same place as the reference's counts as equal
+        eq = bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+        same &= eq
+        if not eq:
+            mx, rel = err(a, b)
+            print(f"  {what} {name}: NOT bit-equal, max_abs_err={mx:.3e} "
+                  f"rel={rel:.3e}")
+    print(f"  {what}: bit-equal in {', '.join(fields)}: {same}")
+    return same
+
+
+def tiles_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
+    """Phases 48-53, the tiles group. tiles-build waits for the group's
+    libraries; tiles-kernels holds each new instance (LoweredTiles LTI in
+    gains, full, GPS policy and full; LoweredTiles LTI reading t; the
+    second-order LoweredTiles pendcart; Autodiff<Lowered> reading t, and
+    the lowered K3 and K2 of the LTI, the tracking LTI and the tracking
+    quadrotor) to its plain version at TILES_T_PLAIN and times it at the
+    path's T; tiles-lti solves the LTI fleet with a Python-only model and
+    the user's tiles against the hand-written solve, then KL on it;
+    lti-track, quad-track and tiles-so are the other paths. Returns the
+    launches of the group's paths."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        SimpleLTVModel, lti_derivs_tiles, lti_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles_so, pendcart_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec, quadrotor_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        from_streams, to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.policy import (
+        GaussianPolicy)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+
+    t_group = time.perf_counter()
+    tm, (th, labels, box) = builds
+    ph.start("tiles-build", "the tiles group's libraries, one nvcc each, "
+             "started after the main build")
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    lb = {}
+    for label, b in zip(labels, box["builds"]):
+        lines = ptxas_summary(b.log)
+        print(f"  {label}: {b.seconds:.1f} s -> {b.path.name}")
+        for line in lines:
+            print(f"    {line}")
+        lb[label] = dict(seconds=b.seconds, ptxas=lines)
+    rec["tiles_builds"] = lb
+
+    n, m, Tl, Tp = LTI_N, LTI_M, LTI_T, TILES_T_PLAIN
+    cfg = lti_cfg()
+    A = len(cfg.alphas)
+    spec = tm["spec"]._replace(**{k: getattr(tm["spec"], k).to(dev) for k in
+                                  ("A", "B", "Q", "R", "x0", "u0")})
+    hand, htiles = lti_lanes(spec), lti_derivs_tiles(spec)
+    ph.start("tiles-kernels", f"B={B}: the user's LTI tiles (LoweredTiles) "
+             f"against the hand-written LTI K1 at T={Tl} and against their "
+             f"plain version at T={Tp}; the time-varying instances (the "
+             f"tracking LTI's K3, K1, K2; Autodiff<Lowered> quad_track) and "
+             f"the second-order LoweredTiles pendcart against theirs")
+    rng = np.random.default_rng(51)
+    lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), dtype=torch.float32,
+                       device=dev)
+    lam[::8] = 0.0
+    al1 = torch.tensor(rng.uniform(0.0, 1.0, (1, B)), dtype=torch.float32,
+                       device=dev)
+    allow = (torch.arange(B, device=dev) % 2 == 0).float()
+    ladder = torch.tensor(cfg.alphas, device=dev)[:, None].expand(A, B)
+    ladder = ladder.contiguous()
+    x0s, u0s = lti_fleet_inputs(spec, dev, B, Tl)
+    x0_l = x0s.T.contiguous()
+    gains0 = torch.cat([to_streams(u0s + 0.3 * torch.tensor(
+        rng.standard_normal((B, Tl, m)), dtype=torch.float32, device=dev)),
+        torch.zeros((Tl, m * n, B), device=dev)], dim=1)
+    traj0 = torch.zeros((Tl, n + m, B), device=dev)
+    def fwd(model, al, emit, plain=False, Tk=Tl):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(traj0[:Tk], gains0[:Tk], x0_l, al, model=model,
+                 lims=LTI_LIMS, emit_traj=emit)
+
+    # K3 of the lowered LTI and of the tracking LTI: bits against the
+    # hand-written LTI (the untracked one) and against the plain versions
+    w3 = k3_work(hand, Tl, B, A, False)
+    w3r = k3_work(hand, Tl, B, 1, True)
+    k, h = fwd(tm["lti"], al1, True), fwd(hand, al1, True)
+    bits_or_parts("lowered LTI K3 rollout against the hand-written LTI's",
+                  {"traj": (k.traj, h.traj), "totals": (k.totals, h.totals)})
+    traj, tot = h.traj, h.totals[0]
+    for key, model in (("k3_lowered_lti", tm["lti"]),
+                       ("k3_lowered_track", tm["track"])):
+        e = []
+        for al, emit, what in ((ladder, False, "sweep A=6"),
+                               (al1, True, "rollout A=1")):
+            k, p = fwd(model, al, emit, Tk=Tp), fwd(model, al, emit, True,
+                                                    Tp)
+            pairs = {"totals": (k.totals, p.totals)} | (
+                {"traj": (k.traj, p.traj)} if emit else {})
+            e.append(compare(f"{key} {what} at T={Tp}", pairs))
+        ms3 = cuda_ms(lambda: fwd(model, ladder, False), 10)
+        ms3r = cuda_ms(lambda: fwd(model, al1, True), 10)
+        plain3 = once_ms(lambda: fwd(model, ladder, False, True, Tp))
+        # the reference: a product, sin, a product and a subtraction a step
+        extra = 4 * Tl * B if key == "k3_lowered_track" else 0
+        rec[key] = dict(max_abs_err=max(e), ms=ms3, ms_rollout=ms3r,
+                        plain_ms=plain3, plain_T=Tp,
+                        bound_ms_rollout=bound(w3r["bound_bytes"],
+                                               w3r["bound_flops"] + extra)[
+                            "bound_ms"], library_ms=None,
+                        **bound(w3["bound_bytes"],
+                                w3["bound_flops"] + A * extra))
+        print(f"  {key} at T={Tl}: sweep {ms3:.4f} ms, rollout {ms3r:.4f} ms "
+              f"(bound {rec[key]['bound_ms']:.4f}); plain sweep at T={Tp} "
+              f"{plain3:.1f} ms")
+
+    # K1: the user's LTI tiles (LoweredTiles) against the hand-written LTI
+    # at the fleet's T, then against their plain version
+    def bwd(tiles, emit, tr=traj, plain=False, gps=None):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        kw = (dict(prev=gps[0][:tr.shape[0]], eta=gps[1][:tr.shape[0]],
+                   reg_type=1, lims=None) if gps is not None
+              else dict(reg_type=2, lims=LTI_LIMS))
+        return f(tr, torch.zeros_like(lam) if gps is not None else lam, n=n,
+                 m=m, derivs_tiles=tiles, emit=emit, **kw)
+
+    for emit in ("gains", "full"):
+        k, h = bwd(tm["lti_tiles"], emit), bwd(htiles, emit)
+        bits_or_parts(f"K1 LoweredTiles LTI {emit} at T={Tl} against the "
+                      f"hand-written LTI", {"out": (k.out, h.out),
+                                            "stats": (k.stats, h.stats)})
+    a_ = rng.standard_normal((Tl, B, m, m))
+    si = np.einsum("tbij,tbkj->tbik", a_, a_) + 0.5 * np.eye(m)
+    prev = torch.tensor(np.concatenate([
+        rng.standard_normal((Tl, m, B)),
+        0.5 * rng.standard_normal((Tl, m * n, B)),
+        np.moveaxis(si.reshape(Tl, B, m * m), 1, 2)], axis=1),
+        dtype=torch.float32, device=dev)
+    eta = torch.tensor(10.0 ** rng.uniform(-1, 1, (Tl, B)),
+                       dtype=torch.float32, device=dev)
+    k, h = (bwd(tl_, "policy", gps=(prev, eta)) for tl_ in
+            (tm["lti_tiles"], htiles))
+    bits_or_parts(f"K1 LoweredTiles LTI GPS policy at T={Tl} against the "
+                  f"hand-written LTI", {"out": (k.out, h.out),
+                                        "stats": (k.stats, h.stats)})
+    tr_p = traj[:Tp].contiguous()
+    for key, tiles, gps, emits in (
+            ("k1_tiles_lti", tm["lti_tiles"], None, ("full", "gains")),
+            ("k1_tiles_lti_gps", tm["lti_tiles"], (prev, eta),
+             ("full", "policy")),
+            ("k1_tiles_track", tm["track_tiles"], None, ("full", "gains"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = bwd(tiles, "full", tr_p, True, gps)
+        torch.cuda.synchronize()
+        plain1 = (time.perf_counter() - t0) * 1e3
+        e = []
+        for emit in emits:
+            k = bwd(tiles, emit, tr_p, gps=gps)
+            pe = k1_emitted(p.out, n, m, emit)
+            lay = bk.OutLayout(n, m, emit)
+            nq = lay.quui if lay.quui is not None else lay.S
+            what = f"{key} {emit} at T={Tp} against plain"
+            e += [compare_slots_ties(what, k.out[:, :nq], pe[:, :nq],
+                                     KERNEL_TOL),
+                  compare(what, {"dV": (k.stats[:2], p.stats[:2])})]
+            if lay.quui is not None:
+                e.append(compare(what, {"Quu_inv": (k.out[:, nq:],
+                                                    pe[:, nq:])},
+                                 QUU_INV_TOL))
+            check(torch.equal(k.stats[2:], p.stats[2:]),
+                  f"{what}: diverged/diverge_idx differ")
+        if gps is None:
+            ms1 = cuda_ms(lambda: bwd(tiles, "gains"), 10)
+            ms1f = cuda_ms(lambda: bwd(tiles, "full"), 10)
+            w1 = k1_work(hand, Tl, B, "gains", 2, LTI_LIMS)
+            w1f = k1_work(hand, Tl, B, "full", 2, LTI_LIMS)
+        else:
+            # at the KL path's first inputs: zero gains, unit Σ, η = 1
+            prev1 = torch.cat([torch.zeros((Tl, m + m * n, B), device=dev),
+                               to_streams(torch.eye(m, device=dev).expand(
+                                   B, Tl, m, m))], dim=1)
+            eta1 = torch.ones((Tl, B), device=dev)
+            ms1 = cuda_ms(lambda: bwd(tiles, "policy", gps=(prev1, eta1)), 10)
+            ms1f = cuda_ms(lambda: bwd(tiles, "full", gps=(prev1, eta1)), 10)
+            w1 = k1_work(hand, Tl, B, "policy", 1, None, gps=True)
+            w1f = k1_work(hand, Tl, B, "full", 1, None, gps=True)
+            del prev1, eta1
+        extra = 4 * Tl * B if key == "k1_tiles_track" else 0
+        rec[key] = dict(max_abs_err=max(e), ms=ms1, ms_full=ms1f,
+                        bound_ms_full=bound(w1f["bound_bytes"],
+                                            w1f["bound_flops"] + extra)[
+                            "bound_ms"], plain_ms=plain1, plain_T=Tp,
+                        library_ms=None,
+                        **bound(w1["bound_bytes"], w1["bound_flops"] + extra))
+        print(f"  {key} at T={Tl}: {emits[1]} {ms1:.4f} ms, full {ms1f:.4f} "
+              f"ms (bound {rec[key]['bound_ms']:.4f} ms, "
+              f"{rec[key]['bound_by']}); plain full once at T={Tp} "
+              f"{plain1:.1f} ms")
+    h_ms = cuda_ms(lambda: bwd(htiles, "gains"), 10)
+    print(f"  K1 LTI gains at T={Tl}: LoweredTiles "
+          f"{rec['k1_tiles_lti']['ms']:.4f} ms, hand-written LTI {h_ms:.4f} "
+          f"ms in this run")
+    rec["k1_tiles_lti"]["hand_written_ms"] = h_ms
+    del prev, eta, tr_p
+
+    # K2 of the lowered LTI and of the tracking LTI against plain
+    bo = bwd(htiles, "gains")
+    sel = torch.stack([bo.stats[0], bo.stats[1], tot, allow])
+
+    def ls(model, plain=False, Tk=Tl):
+        f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+        return f(traj[:Tk], bo.out[:Tk], x0_l, sel, model=model,
+                 alphas=cfg.alphas, reduce_ratio_min=0.0, lims=LTI_LIMS)
+
+    k, h = ls(tm["lti"]), ls(hand)
+    bits_or_parts("lowered LTI K2 against the hand-written LTI's",
+                  {"traj": (k.traj, h.traj), "ls": (k.ls, h.ls)})
+    w2 = k2_work(hand, Tl, B, A)
+    for key, model in (("k2_lowered_lti", tm["lti"]),
+                       ("k2_lowered_track", tm["track"])):
+        k, p = ls(model, Tk=Tp), ls(model, True, Tp)
+        e2 = compare(f"{key} at T={Tp}", {"traj": (k.traj, p.traj),
+                                           "totals": (k.ls[4], p.ls[4])})
+        check(torch.equal(k.ls[:2], p.ls[:2]), f"{key}: al_sel differ")
+        ms2 = cuda_ms(lambda: ls(model), 10)
+        plain2 = once_ms(lambda: ls(model, True, Tp))
+        extra = (A + 1) * 4 * Tl * B if key == "k2_lowered_track" else 0
+        rec[key] = dict(max_abs_err=e2, ms=ms2, plain_ms=plain2, plain_T=Tp,
+                        library_ms=None, **bound(w2["bound_bytes"],
+                                                 w2["bound_flops"] + extra))
+        print(f"  {key} at T={Tl}: {ms2:.4f} ms (bound "
+              f"{rec[key]['bound_ms']:.4f}); plain at T={Tp} {plain2:.1f} ms")
+    del traj, traj0, gains0, bo, k, h, p
+
+    # the tracking quadrotor: Autodiff<Lowered> reading t, its K3 and K2
+    qspec = QuadrotorSpec()
+    qhand, qm = quadrotor_lanes(qspec), tm["quad"]
+    q, _ = quad_kernel_inputs(dev, headline_cfg().alphas)
+    Tq = QUAD_T
+
+    def qfwd(al, emit, plain=False, Tk=Tq):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(q.traj0[:Tk], q.gains0[:Tk], q.x0_l, al, model=qm,
+                 lims=qspec.lims, emit_traj=emit)
+
+    e3 = []
+    for al, emit, what in ((q.ladder, False, "sweep A=6"),
+                           (q.al1, True, "rollout A=1")):
+        k, p = qfwd(al, emit, Tk=Tp), qfwd(al, emit, True, Tp)
+        e3.append(compare(f"quad_track K3 {what} at T={Tp}", {
+            "totals": (k.totals, p.totals)} | (
+            {"traj": (k.traj, p.traj)} if emit else {})))
+    qtraj = qfwd(q.al1, True).traj
+    qtot = qfwd(q.al1, True).totals[0]
+    ms3 = cuda_ms(lambda: qfwd(q.ladder, False), 10)
+    ms3r = cuda_ms(lambda: qfwd(q.al1, True), 10)
+    plain3 = once_ms(lambda: qfwd(q.ladder, False, True, Tp))
+    qtiles = autodiff_derivs_tiles(qm)
+
+    def qbwd(emit, tr=qtraj, plain=False):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, q.lam, n=6, m=2, reg_type=2, lims=qspec.lims,
+                 derivs_tiles=qtiles, emit=emit)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = qbwd("full", qtraj[:Tp].contiguous(), True)
+    torch.cuda.synchronize()
+    plain1 = (time.perf_counter() - t0) * 1e3
+    e1 = []
+    for emit in ("full", "gains"):
+        k = qbwd(emit, qtraj[:Tp].contiguous())
+        pe = k1_emitted(p.out, 6, 2, emit)
+        lay = bk.OutLayout(6, 2, emit)
+        nq = lay.quui if lay.quui is not None else lay.S
+        what = f"quad_track K1 Autodiff<Lowered> {emit} at T={Tp}"
+        e1 += [compare_slots_ties(what, k.out[:, :nq], pe[:, :nq],
+                                  AD_SLOT_TOL),
+               compare(what, {"dV": (k.stats[:2], p.stats[:2])})]
+        check(torch.equal(k.stats[2:], p.stats[2:]),
+              f"{what}: diverged/diverge_idx differ")
+    ms1 = cuda_ms(lambda: qbwd("gains"), 10)
+    ms1f = cuda_ms(lambda: qbwd("full"), 10)
+    qbo = qbwd("gains")
+    qsel = torch.stack([qbo.stats[0], qbo.stats[1], qtot, allow])
+
+    def qls(plain=False, Tk=Tq):
+        f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+        return f(qtraj[:Tk], qbo.out[:Tk], q.x0_l, qsel, model=qm,
+                 alphas=headline_cfg().alphas, reduce_ratio_min=0.0,
+                 lims=qspec.lims)
+
+    k, p = qls(Tk=Tp), qls(True, Tp)
+    e2 = compare(f"quad_track K2 at T={Tp}", {"traj": (k.traj, p.traj),
+                                               "totals": (k.ls[4], p.ls[4])})
+    ms2 = cuda_ms(lambda: qls(), 10)
+    plain2 = once_ms(lambda: qls(True, Tp))
+    # the reference: a product, sin and a product a step, in the cost
+    xq = 3 * Tq * B
+    w = dict(k3=k3_work(qhand, Tq, B, A, False),
+             k3r=k3_work(qhand, Tq, B, 1, True),
+             k1=k1_work(qhand, Tq, B, "gains", 2, qspec.lims),
+             k1f=k1_work(qhand, Tq, B, "full", 2, qspec.lims),
+             k2=k2_work(qhand, Tq, B, A))
+    rec["k3_lowered_quad_track"] = dict(
+        max_abs_err=max(e3), ms=ms3, ms_rollout=ms3r, plain_ms=plain3,
+        plain_T=Tp, library_ms=None,
+        bound_ms_rollout=bound(w["k3r"]["bound_bytes"],
+                               w["k3r"]["bound_flops"] + xq)["bound_ms"],
+        **bound(w["k3"]["bound_bytes"], w["k3"]["bound_flops"] + A * xq))
+    rec["k1_lowered_quad_track"] = dict(
+        max_abs_err=max(e1), ms=ms1, ms_full=ms1f, plain_ms=plain1,
+        plain_T=Tp, library_ms=None,
+        bound_ms_full=bound(w["k1f"]["bound_bytes"],
+                            w["k1f"]["bound_flops"] + xq)["bound_ms"],
+        **bound(w["k1"]["bound_bytes"], w["k1"]["bound_flops"] + xq))
+    rec["k2_lowered_quad_track"] = dict(
+        max_abs_err=e2, ms=ms2, plain_ms=plain2, plain_T=Tp, library_ms=None,
+        **bound(w["k2"]["bound_bytes"], w["k2"]["bound_flops"]
+                + (A + 1) * xq))
+    print(f"  quad_track at T={Tq}: K3 sweep {ms3:.4f} ms, rollout "
+          f"{ms3r:.4f}; K1 Autodiff<Lowered> gains {ms1:.4f} ms, full "
+          f"{ms1f:.4f}; K2 {ms2:.4f} ms; plain at T={Tp}: K3 {plain3:.1f}, "
+          f"K1 full {plain1:.1f}, K2 {plain2:.1f} ms")
+    del q, qtraj, qbo, k, p
+
+    # the pendcart's second-order tiles as a user's: LoweredTiles SO
+    # against PendCartSO at the headline's T, and against plain
+    pspec = PendCartSpec()
+    pso = pendcart_derivs_tiles_so(pspec)
+    px0 = torch.tensor(headline_x0(), dtype=torch.float32, device=dev)
+    pu = torch.tensor(2.0 * rng.standard_normal((B, T, 1)),
+                      dtype=torch.float32, device=dev)
+    ptraj = fk.forward_lanes(
+        torch.zeros((T, 5, B), device=dev),
+        torch.cat([to_streams(pu), torch.zeros((T, 4, B), device=dev)], 1),
+        px0.T.contiguous(), al1, model=pendcart_lanes(pspec), lims=LIMS,
+        emit_traj=True).traj
+
+    def pbwd(tiles, emit, tr=ptraj, plain=False):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(tr, lam, n=4, m=1, reg_type=2, lims=LIMS,
+                 derivs_tiles=tiles, emit=emit)
+
+    for emit in ("gains", "full"):
+        k, h = pbwd(tm["so_tiles"], emit), pbwd(pso, emit)
+        bits_or_parts(f"K1 LoweredTiles SO {emit} at T={T} against "
+                      f"PendCartSO", {"out": (k.out, h.out),
+                                      "stats": (k.stats, h.stats)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = pbwd(tm["so_tiles"], "full", ptraj[:Tp].contiguous(), True)
+    torch.cuda.synchronize()
+    plain1 = (time.perf_counter() - t0) * 1e3
+    es = []
+    for emit in ("full", "gains"):
+        k = pbwd(tm["so_tiles"], emit, ptraj[:Tp].contiguous())
+        pe = k1_emitted(p.out, 4, 1, emit)
+        what = f"K1 LoweredTiles SO {emit} at T={Tp} against plain"
+        es += [compare_slots(what, k.out[:, :min(pe.shape[1], 26)],
+                             pe[:, :min(pe.shape[1], 26)], AD_SLOT_TOL),
+               compare(what, {"dV": (k.stats[:2], p.stats[:2])})]
+        check(torch.equal(k.stats[2:], p.stats[2:]),
+              f"{what}: diverged/diverge_idx differ")
+    ms1 = cuda_ms(lambda: pbwd(tm["so_tiles"], "gains"), 20)
+    ms1f = cuda_ms(lambda: pbwd(tm["so_tiles"], "full"), 20)
+    pm = pendcart_lanes(pspec)
+    ws = k1_work(pm, T, B, "gains", 2, LIMS, so=True)
+    wsf = k1_work(pm, T, B, "full", 2, LIMS, so=True)
+    rec["k1_tiles_so"] = dict(max_abs_err=max(es), ms=ms1, ms_full=ms1f,
+                              bound_ms_full=wsf["bound_ms"], plain_ms=plain1,
+                              plain_T=Tp, library_ms=None, **ws)
+    print(f"  K1 LoweredTiles SO at T={T}: gains {ms1:.4f} ms, full "
+          f"{ms1f:.4f} ms (bound {ws['bound_ms']:.4f}, {ws['bound_by']}); "
+          f"plain full once at T={Tp} {plain1:.1f} ms")
+    del ptraj, p, k, h
+
+    paths = {}
+
+    def timed(fn):
+        """fn's result, launches and device ms (CUDA events), warmed."""
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+        def run():
+            s.record()
+            out = fn()
+            e.record()
+            return out
+
+        out, launches = counted(counters, run)
+        return out, launches, s.elapsed_time(e)
+
+    fields = ("cost_total", "reason", "n_accepted", "u")
+
+    def hold(what, r, ref):
+        return bits_or_parts(what, {f: (getattr(r, f), getattr(ref, f))
+                                    for f in fields}
+                             | {"policy.K": (r.policy.K, ref.policy.K)})
+
+    ph.start("tiles-lti", f"ilqg_batch_lanes, the LTI fleet (B={B}, T={Tl}, "
+             f"±0.6, to convergence) with a Python-only model and the "
+             f"user's tiles, against the hand-written solve; then KL on it "
+             f"(kl_step {KL_LTI_STEP}, scalar η, no limits)")
+
+    def lsolve(model, tiles, x0=x0s, u0=u0s):
+        return ilqg_batch_lanes(model, None, x0, u0, lims=LTI_LIMS, cfg=cfg,
+                                derivs_tiles=tiles)
+
+    lsolve(tm["lti"], tm["lti_tiles"])              # warm-up
+    r, launches, ms_u = timed(lambda: lsolve(tm["lti"], tm["lti_tiles"]))
+    ref, _, ms_h = timed(lambda: lsolve(hand, htiles))
+    iters = int(r.n_iters.max())
+    print(f"  launches: {launches}; n_iters max {iters}")
+    print(f"  solve: user's tiles {ms_u:.3f} ms, hand-written {ms_h:.3f} ms "
+          f"(CUDA events)")
+    same = hold("tiles-lti solve against the hand-written", r, ref)
+    if not same:
+        agree("tiles-lti solve against the hand-written", {
+            f: getattr(r, f).tolist() for f in ("cost_total", "reason",
+                                                 "n_accepted")},
+              {f: getattr(ref, f).tolist() for f in (
+                  "cost_total", "reason", "n_accepted")}, "cost_total",
+              ("reason", "n_accepted"))
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the tiles-lti path never ran: {launches}")
+    check(bool(torch.isfinite(r.cost_total).all()), "tiles-lti: non-finite")
+    paths["tiles_lti"] = launches
+    rec["k1_tiles_lti"]["path"] = dict(solve_ms=ms_u, hand_written_ms=ms_h,
+                                       iters=iters, bit_equal=same)
+    del r, ref
+
+    # KL on it: the pre-roll by the lowered K3 at α=1 with k := u0 and no
+    # limits, the zero previous policy with unit Σ, fx = A
+    ones = torch.ones((1, B), device=dev)
+    g0 = torch.cat([to_streams(u0s), torch.zeros((Tl, m * n, B),
+                                                 device=dev)], dim=1)
+    kcfg = ILQGKLConfig(kl_step=KL_LTI_STEP)
+    fx_model = SimpleLTVModel.from_lti(spec.A, spec.B, Tl).fx.expand(
+        B, Tl, n, n)
+
+    def kl(model, tiles):
+        ro = fk.forward_lanes(torch.zeros((Tl, n + m + 1, B), device=dev), g0,
+                              x0_l, ones, model=model, lims=None,
+                              emit_traj=True)
+        x_pre = from_streams(ro.traj[:, :n], (n,)).contiguous()
+        u_pre = from_streams(ro.traj[:, n:n + m], (m,)).contiguous()
+        eye = torch.eye(m, device=dev).expand(B, Tl, m, m)
+        pol = GaussianPolicy(K=torch.zeros((B, Tl, m, n), device=dev),
+                             k=u_pre, sigma=eye, sigma_inv=eye)
+        return ilqgkl_batch_lanes(model, tiles, x_pre, pol, fx_model,
+                                  ro.totals[0], cfg=kcfg)
+
+    kl(tm["lti"], tm["lti_tiles"])                   # warm-up
+    r, launches, ms_u = timed(lambda: kl(tm["lti"], tm["lti_tiles"]))
+    ref, _, ms_h = timed(lambda: kl(hand, htiles))
+    print(f"  KL launches: {launches}; KL solve: user's tiles {ms_u:.3f} ms, "
+          f"hand-written {ms_h:.3f} ms")
+    same = bits_or_parts("tiles-lti KL against the hand-written", {
+        f: (getattr(r, f), getattr(ref, f)) for f in (
+            "cost_total", "u", "eta", "satisfied", "n_iters")}
+        | {"policy.K": (r.policy.K, ref.policy.K)})
+    if not same:
+        close = ((r.cost_total - ref.cost_total).abs()
+                 <= COST_RTOL * ref.cost_total.abs()).float().mean().item()
+        sat = (r.satisfied == ref.satisfied).float().mean().item()
+        print(f"  shares: cost within {COST_RTOL:.0e} {close:.3f}, same "
+              f"satisfied {sat:.3f} (need {AGREE_SHARE} each)")
+        check(min(close, sat) >= AGREE_SHARE, "tiles-lti KL differs")
+    check(launches["covariance_lanes"] >= 1 and launches["backward_lanes"]
+          >= 1, f"a kernel of the tiles-lti KL path never ran: {launches}")
+    paths["tiles_lti_kl"] = launches
+    rec["k1_tiles_lti_gps"]["path"] = dict(solve_ms=ms_u,
+                                           hand_written_ms=ms_h,
+                                           bit_equal=same)
+    del r, ref, g0, fx_model
+
+    ph.start("lti-track", f"ilqg_batch_lanes, the LTI fleet tracking "
+             f"r(t) = 0.5·sin(π·{TRACK_H}·t) on state 0 (B={B}, T={Tl}, "
+             f"±0.6, to convergence), the user's tiles reading t; against "
+             f"the CPU child's solve of {B_CPU} lanes at T={LTI_T_CPU}")
+    lsolve(tm["track"], tm["track_tiles"])           # warm-up
+    r, launches, ms_t = timed(lambda: lsolve(tm["track"], tm["track_tiles"]))
+    iters = int(r.n_iters.max())
+    print(f"  launches: {launches}; solve {ms_t:.3f} ms, n_iters max "
+          f"{iters}; cost median {r.cost_total.median().item():.6g}")
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the lti-track path never ran: {launches}")
+    check(bool(torch.isfinite(r.cost_total).all()
+               and (r.u.abs() <= 0.6).all()), "lti-track: bad result")
+    paths["lti_track"] = launches
+    rec["k1_tiles_track"]["path"] = dict(solve_ms=ms_t, iters=iters)
+    xc, uc = lti_fleet_inputs(spec, dev, B_CPU, LTI_T_CPU)
+    g = lsolve(tm["track"], tm["track_tiles"], xc, uc)
+    c = child_solves(cpu_proc)["lti-track"]
+    agree(f"lti-track {B_CPU} lanes at T={LTI_T_CPU} ({c['seconds']:.1f} s "
+          f"in the child)", {f: getattr(g, f).tolist() for f in (
+              "cost_total", "reason", "n_accepted")}, c, "cost_total",
+          ("reason", "n_accepted"))
+    del r, g
+
+    ph.start("quad-track", f"ilqg_batch_lanes, the quadrotor fleet (B={B}, "
+             f"T={Tq}, thrust box) tracking px = 0.5·sin(π/2·h·t), autodiff "
+             f"tiles (Autodiff<Lowered> reading t), max_steps={ITERS}; "
+             f"against the CPU child's solve of {B_CPU} lanes at "
+             f"T={QUAD_T_CPU}")
+    qx0 = torch.tensor(quad_x0(), dtype=torch.float32, device=dev)
+
+    def qsolve(x0, Tk=Tq):
+        return ilqg_batch_lanes(
+            qm, None, x0, torch.full((x0.shape[0], Tk, 2), qspec.u_hover,
+                                     device=dev),
+            lims=qspec.lims, cfg=headline_cfg(), derivs_tiles=qtiles,
+            max_steps=ITERS)
+
+    qsolve(qx0)                                      # warm-up
+    r, launches, ms_q = timed(lambda: qsolve(qx0))
+    iters = int(r.n_iters.max())
+    print(f"  launches: {launches}; solve {ms_q:.3f} ms, "
+          f"{ms_q / max(iters, 1):.4f} ms/iter over {iters}; cost median "
+          f"{r.cost_total.median().item():.6g}")
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the quad-track path never ran: {launches}")
+    check(bool(torch.isfinite(r.cost_total).all() and (r.u >= 0).all()
+               and (r.u <= qspec.u_max).all()), "quad-track: bad result")
+    paths["quad_track"] = launches
+    rec["k1_lowered_quad_track"]["path"] = dict(
+        solve_ms=ms_q, iters=iters, ms_per_iter=ms_q / max(iters, 1))
+    g = qsolve(qx0[:B_CPU], QUAD_T_CPU)
+    c = child_solves(cpu_proc)["quad-track"]
+    agree(f"quad-track {B_CPU} lanes at T={QUAD_T_CPU} ({c['seconds']:.1f} s "
+          f"in the child)", {f: getattr(g, f).tolist() for f in (
+              "cost_total", "reason", "n_accepted")}, c, "cost_total",
+          ("reason", "n_accepted"))
+    del r, g
+
+    ph.start("tiles-so", f"ilqg_batch_lanes, full DDP on the headline "
+             f"pendcart (B={B}, T={T}, ±5, max_steps={ITERS}) with the "
+             f"user's second-order tiles, against PendCartSO's solve")
+    u0p = torch.zeros((B, T, 1), device=dev)
+
+    def ssolve(tiles):
+        return ilqg_batch_lanes(pm, None, px0, u0p, lims=LIMS,
+                                cfg=headline_cfg(), derivs_tiles=tiles,
+                                max_steps=ITERS)
+
+    ssolve(tm["so_tiles"])                           # warm-up
+    r, launches, ms_s = timed(lambda: ssolve(tm["so_tiles"]))
+    ref, _, ms_h = timed(lambda: ssolve(pso))
+    print(f"  launches: {launches}; solve: user's tiles {ms_s:.3f} ms, "
+          f"PendCartSO {ms_h:.3f} ms")
+    same = hold("tiles-so solve against PendCartSO's", r, ref)
+    check(same, "tiles-so: the solve is not PendCartSO's bit for bit")
+    check(launches["backward_lanes"] > 0, f"tiles-so: K1 never ran "
+          f"{launches}")
+    paths["tiles_so"] = launches
+    rec["k1_tiles_so"]["path"] = dict(solve_ms=ms_s, pendcart_so_ms=ms_h)
+    del r, ref
+    rec["tiles"] = dict(seconds=time.perf_counter() - t_group)
+    print(f"  the tiles group: {time.perf_counter() - t_group:.1f} s")
+    return paths
+
+
 def main() -> int:
     ph = Phases()
     ph.start("device")
@@ -5533,13 +6260,17 @@ def main() -> int:
     for line in rec["ptxas"]:
         print("  " + with_plan(line))
     _build.library()
-    # the lowered group's libraries build beside the earlier phases
+    # the lowered and tiles groups' libraries build beside the earlier
+    # phases
     models = lowered_models()
     builds = (models, start_lowered_builds(models))
+    tmodels = tiles_models()
+    tbuilds = (tmodels, start_tiles_builds(tmodels))
     # the packed group's CPU solves run beside the card's phases
     cpu_proc = start_cpu_child("--packed-cpu")
     m3_proc = start_cpu_child("--m3-cpu")
-    CHILDREN.extend([cpu_proc, m3_proc])
+    tiles_proc = start_cpu_child("--tiles-cpu")
+    CHILDREN.extend([cpu_proc, m3_proc, tiles_proc])
 
     ph.start("ilqg-kernels", f"vs plain versions, B={B}, T={T}")
     spec = PendCartSpec()
@@ -5783,6 +6514,9 @@ def main() -> int:
     m3 = rec.pop("m3")
     paths.update(lowered_phases(ph, dev, rec, counters, builds, cpu_proc))
     lowered = rec.pop("lowered")
+    paths.update(tiles_phases(ph, dev, rec, counters, tbuilds, tiles_proc))
+    tiles_group = dict(seconds=rec.pop("tiles")["seconds"],
+                       builds=rec.pop("tiles_builds"))
 
     # ---- record and result: one entry per kernel instance, its launches
     #      summed over the paths that run it
@@ -5826,7 +6560,7 @@ def main() -> int:
          "LTI <10,2> gains, full, per-scenario limits", "backward_lti.cu", k1,
          ("hetero_lti",)),
         ("k2_pendcart", "linesearch_lanes", "pendcart <4,1>", "forward.cu", k2,
-         ("ilqg",) + fleet_pend),
+         ("ilqg", "tiles_so") + fleet_pend),
         ("k2_pendcart_mpc", "linesearch_lanes", "pendcart <4,1> A=4, T=300",
          "forward.cu", k2, ("mpc",)),
         ("k2_pendcart_inplace", "linesearch_lanes",
@@ -5845,7 +6579,7 @@ def main() -> int:
         ("k2_quad", "linesearch_lanes", "quadrotor <6,2>", "forward_quad.cu",
          k2, ("quad",)),
         ("k3_pendcart", "forward_lanes", "pendcart <4,1>", "forward.cu", k3,
-         ("ilqg", "kl", "gps") + fleet_pend + fleet_kl),
+         ("ilqg", "kl", "gps", "tiles_so") + fleet_pend + fleet_kl),
         ("k3_pendcart_mpc", "forward_lanes", "pendcart <4,1> A=1, T=300",
          "forward.cu", k3, ("mpc",)),
         ("k3_pendcart_param", "forward_lanes",
@@ -5872,7 +6606,7 @@ def main() -> int:
         ("k4_4", "covariance_lanes", "n=4", "covariance.cu", k4,
          ("kl", "gps") + fleet_kl),
         ("k4_10", "covariance_lanes", "n=10", "covariance.cu", k4,
-         ("kl_lti", "gps_lti")),
+         ("kl_lti", "gps_lti", "tiles_lti_kl")),
         # n=6: the quadrotor's state, KL on the quadrotor
         ("k4_6", "covariance_lanes", "n=6", "covariance.cu", k4,
          ("quad_kl", "quad_kl_lowered")),
@@ -5911,6 +6645,37 @@ def main() -> int:
         ("k3_lowered_diff", "forward_lanes",
          "Lowered quadrotor <6,2> with diff", "lowered.cuh", k3,
          ("lowered_diff",)),
+        # the tiles group: a user's tiles lowered (LoweredTiles) and the
+        # instances of models that read t
+        ("k1_tiles_lti", "backward_lanes",
+         "LoweredTiles LTI <10,2> gains, full (a user's tiles)",
+         "lowered.cuh", k1, ("tiles_lti",)),
+        ("k1_tiles_lti_gps", "backward_lanes",
+         "LoweredTiles LTI <10,2> GPS policy (a user's tiles)",
+         "lowered.cuh", k1, ("tiles_lti_kl",)),
+        ("k1_tiles_track", "backward_lanes",
+         "LoweredTiles LTI <10,2> gains, full, reading t", "lowered.cuh",
+         k1, ("lti_track",)),
+        ("k1_tiles_so", "backward_lanes",
+         "LoweredTiles pendcart <4,1> second order gains, full",
+         "lowered.cuh", k1, ("tiles_so",)),
+        ("k1_lowered_quad_track", "backward_lanes",
+         "Autodiff<Lowered> quadrotor <6,2> gains, full, reading t",
+         "lowered.cuh", k1, ("quad_track",)),
+        ("k2_lowered_lti", "linesearch_lanes", "Lowered LTI <10,2>",
+         "lowered.cuh", k2, ("tiles_lti",)),
+        ("k2_lowered_track", "linesearch_lanes",
+         "Lowered LTI <10,2> reading t", "lowered.cuh", k2, ("lti_track",)),
+        ("k2_lowered_quad_track", "linesearch_lanes",
+         "Lowered quadrotor <6,2> reading t", "lowered.cuh", k2,
+         ("quad_track",)),
+        ("k3_lowered_lti", "forward_lanes", "Lowered LTI <10,2>",
+         "lowered.cuh", k3, ("tiles_lti", "tiles_lti_kl")),
+        ("k3_lowered_track", "forward_lanes", "Lowered LTI <10,2> reading t",
+         "lowered.cuh", k3, ("lti_track",)),
+        ("k3_lowered_quad_track", "forward_lanes",
+         "Lowered quadrotor <6,2> reading t", "lowered.cuh", k3,
+         ("quad_track",)),
         ("k1_packed_pendcart", "backward_lanes", "packed <4,1> gains, full",
          "backward_packed.cu", k1, ("packed",)),
         ("k1_packed_pendcart_gps", "backward_lanes", "packed <4,1> GPS full",
@@ -5950,6 +6715,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"m3": m3}))
     print(json.dumps({"lowered": lowered}))
+    print(json.dumps({"tiles": tiles_group}))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
@@ -5970,6 +6736,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--lowered-cpu"]:
         print(json.dumps(lowered_cpu_solves()))
+        sys.exit(0)
+    if sys.argv[1:] == ["--tiles-cpu"]:
+        print(json.dumps(tiles_cpu_solves()))
         sys.exit(0)
     try:
         rc = main()

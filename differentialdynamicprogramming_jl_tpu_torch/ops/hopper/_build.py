@@ -16,8 +16,9 @@ versions, so a kernel and its plain version differ only where the card's
 the line search reproduce a trajectory bit for bit, whichever kernel rolled
 it out first.
 
-A model written only in Python (``LanesModel(device=None)``) is lowered
-into a C++ struct (:mod:`.lower`) and built into libraries of its own
+A model written only in Python (``LanesModel(device=None)``), and a user's
+derivative tiles without a descriptor, are lowered into a C++ struct
+(:mod:`.lower`) and built into libraries of their own
 (:func:`build_lowered`, :func:`lowered_library`): a generated ``.cu`` per
 instance group (:data:`LOWERED_GROUPS`) includes ``csrc/lowered.cuh``, each
 group one ``nvcc`` process and one ``.so`` whose name carries the digest of
@@ -58,9 +59,11 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 # generated struct (ops/hopper/lower.py)
 LOWERED_HEADERS = ("common.cuh", "ring.cuh", "autodiff.cuh", "backward.cuh",
                    "forward.cuh", "lowered.cuh")
-# a lowered model's instance groups (csrc/lowered.cuh DDP_LOWERED_GROUP);
-# "fwd" has K3's and K2's entry points, the others K1's
-LOWERED_GROUPS = {"fwd": 0, "k1": 1, "k1_gps": 2, "k1_so": 3}
+# the instance groups of a lowered model (its struct Lowered) and of a
+# user's lowered derivative tiles (LoweredTiles; "t1*"), csrc/lowered.cuh
+# DDP_LOWERED_GROUP; "fwd" has K3's and K2's entry points, the others K1's
+LOWERED_GROUPS = {"fwd": 0, "k1": 1, "k1_gps": 2, "k1_so": 3, "t1": 4,
+                  "t1_gps": 5, "t1_so": 6}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")
 

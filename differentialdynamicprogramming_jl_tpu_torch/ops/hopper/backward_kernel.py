@@ -32,7 +32,7 @@ import torch
 from . import _build
 from .plan import backward_plan
 from .forward_kernel import (CUDA_MODELS, DeviceModel, bounds, check_lanes,
-                             check_lims, cuda_args, par_args)
+                             check_lims, cuda_args, par_args, step_indices)
 from .pack import (DERIV_FIELDS, DerivLayout, from_streams,
                    pack_backward_inputs, to_streams)
 from ..backward import BackwardOut
@@ -89,14 +89,20 @@ class InLayout(DerivLayout):
 @dataclasses.dataclass(frozen=True)
 class DerivsTiles:
     """An in-kernel derivative function ``fn(x, u, t) -> dict`` (keys fx, fu,
-    cx, cu, cxx, cxu, cuu; lists of per-scenario tensors, cxu is (n, m)),
-    with the device-model descriptor that lets the CUDA kernel evaluate the
-    same model: by its analytic derivatives, or by autodiff of its own
-    functions where ``device.autodiff`` is set
+    cx, cu, cxx, cxu, cuu; lists of per-scenario tensors, cxu is (n, m);
+    ``t`` the step index, an int32 tensor), with the device-model
+    descriptor that lets the CUDA kernel evaluate the same model: by its
+    analytic derivatives, or by autodiff of its own functions where
+    ``device.autodiff`` is set
     (:func:`~.autodiff_tiles.autodiff_derivs_tiles`). With ``n_params > 0``
     it takes a trailing ``par`` list, as the model's functions do. Tiles
     that also return ``fxx``, ``fxu`` and ``fuu`` (full DDP) carry a
-    descriptor with ``second_order`` set."""
+    descriptor with ``second_order`` set.
+
+    A user's tiles need no descriptor (``device=None``): on CUDA tensors K1
+    runs their lowering (:func:`~.lower.lower_tiles`), the traced function
+    emitted as K1's analytic expansion ``LoweredTiles``, first or second
+    order by what the function returns (:data:`LOWERED_TILES_K1`)."""
 
     fn: Callable
     device: Optional[DeviceModel] = None
@@ -131,6 +137,14 @@ LOWERED_K1 = {
     (False, False): {"gains": "k1", "full": "k1", "policy": "k1_gps"},
     (False, True): {"full": "k1_gps", "policy": "k1_gps"},
     (True, False): {"gains": "k1_so", "full": "k1_so"},
+}
+# K1's instances of a user's tiles without a descriptor, which are
+# LoweredTiles (csrc/lowered.cuh): (second order, GPS mode) -> {emission:
+# the library's instance group}
+LOWERED_TILES_K1 = {
+    (False, False): {"gains": "t1", "full": "t1", "policy": "t1_gps"},
+    (False, True): {"full": "t1_gps", "policy": "t1_gps"},
+    (True, False): {"gains": "t1_so", "full": "t1_so"},
 }
 # the second-order (full DDP) instances, keyed as CUDA_BACKWARD: the
 # analytic PendCartSO (csrc/pendcart.cuh) and Autodiff<PendCart, true> and
@@ -455,14 +469,15 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
     par = par_args(params)
     lim = (None if lims is None and lims_lanes is None
            else bounds(lims, m, lims_lanes))
+    ts = step_indices(T, traj.device)
 
     def step(t):
-        """(expansion, u) of step t: from the tiles at (x, u), or read from
-        the packed stream."""
+        """(expansion, u) of step t: from the tiles at (x, u, t), or read
+        from the packed stream."""
         if derivs_tiles is None:
             return _packed_step(traj, t, n, m)
         u = [traj[t, n + mi] for mi in M]
-        return derivs_tiles([traj[t, i] for i in R], u, t, *par), u
+        return derivs_tiles([traj[t, i] for i in R], u, ts[t], *par), u
 
     # boundary t = T-1 (src/backward_pass.jl:97-99, 280-283): V = the cost
     # expansion, unscaled also in GPS mode; only the emitted Quu is
@@ -622,8 +637,10 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     m and GPS mode), none with m above ``MAX_M``; anything else raises
     NotImplementedError before the kernel library is touched. Autodiff
     tiles of a model without a descriptor run ``Autodiff<Lowered>`` from
-    the model's lowering (:mod:`.lower`, :data:`LOWERED_K1`), built at the
-    first launch.
+    the model's lowering (:mod:`.lower`, :data:`LOWERED_K1`), and a user's
+    tiles without a descriptor run ``LoweredTiles``, their own expansion
+    lowered (:data:`LOWERED_TILES_K1`), each built at its first launch. The
+    tiles (and the model) get the logical step t = 0…T-1 on every path.
     """
     check_lims(m, lims)
     if qp_iters < 0:
@@ -661,7 +678,7 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                                   lims_lanes=lims_lanes, emit=emit,
                                   qp_iters=qp_iters)
     gps_t = (prev, eta) if gps else ()
-    group = None
+    group = tiles_low = None
     if packed:
         dm = PACKED_MODEL
         if emit not in CUDA_PACKED.get((n, m, gps), ()):
@@ -670,11 +687,25 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                 f"the packed-derivatives stream at n={n}, m={m}, "
                 f"{'in' if gps else 'without'} GPS mode, emit={emit!r}; "
                 f"built (n, m, GPS): {CUDA_PACKED}")
+    elif getattr(derivs_tiles, "device", None) is None:
+        # a user's tiles: their lowering, K1's analytic expansion
+        from .lower import LOWERED_TILES_ID, lower_tiles
+        tiles_low = lower_tiles(derivs_tiles, n, m)
+        so = tiles_low.second_order
+        dm = DeviceModel(LOWERED_TILES_ID, tiles_low.consts,
+                         second_order=so)
+        group = LOWERED_TILES_K1.get((so, gps), {}).get(emit)
+        if group is None:
+            raise NotImplementedError(
+                f"backward_lanes: a user's lowered tiles' K1 "
+                f"({'second-order' if so else 'first-order'}, "
+                f"{'in' if gps else 'without'} GPS mode) has no "
+                f"emit={emit!r} instance; built: {LOWERED_TILES_K1}")
     else:
-        dm = getattr(derivs_tiles, "device", None)
-        so = dm is not None and dm.second_order
+        dm = derivs_tiles.device
+        so = dm.second_order
         table = CUDA_BACKWARD_SO if so else CUDA_BACKWARD
-        if dm is not None and dm.lanes is not None:
+        if dm.lanes is not None:
             group = LOWERED_K1.get((so, gps), {}).get(emit)
             if group is None:
                 raise NotImplementedError(
@@ -682,8 +713,8 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                     f"({'second-order' if so else 'first-order'}, "
                     f"{'in' if gps else 'without'} GPS mode) has no "
                     f"emit={emit!r} instance; built: {LOWERED_K1}")
-        elif dm is not None and emit not in table.get(
-                (dm.model_id, n, m, dm.autodiff, gps), ()):
+        elif emit not in table.get((dm.model_id, n, m, dm.autodiff, gps),
+                                   ()):
             raise NotImplementedError(
                 f"backward_lanes: no CUDA kernel (K1 instance) is built for "
                 f"model id {dm.model_id} at n={n}, m={m} with "
@@ -693,7 +724,8 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                 f"built (model id, n, m, autodiff, GPS): {sorted(table)}")
     lib, dev, stream, _keep, model_args = cuda_args(
         dm, "backward_lanes", n, m, lims, lims_lanes, params, traj, lam,
-        *gps_t, models=None if packed else CUDA_MODELS, group=group)
+        *gps_t, models=None if packed else CUDA_MODELS, group=group,
+        tiles=tiles_low)
     S = OutLayout(n, m, emit).S
     out = torch.empty((T, S, B), dtype=torch.float32, device=traj.device)
     stats = torch.empty((4, B), dtype=torch.float32, device=traj.device)

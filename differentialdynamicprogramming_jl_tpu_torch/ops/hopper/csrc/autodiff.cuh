@@ -267,12 +267,13 @@ struct Autodiff {
 
   template <class S>
   __device__ __forceinline__ void dynamics(const S (&x)[N], const S (&u)[M],
-                                           S (&xn)[N]) const {
-    body.dynamics(x, u, xn);
+                                           int t, S (&xn)[N]) const {
+    body.dynamics(x, u, t, xn);
   }
   template <class S>
-  __device__ __forceinline__ S cost(const S (&x)[N], const S (&u)[M]) const {
-    return body.cost(x, u);
+  __device__ __forceinline__ S cost(const S (&x)[N], const S (&u)[M],
+                                    int t) const {
+    return body.cost(x, u, t);
   }
   template <class S>
   __device__ __forceinline__ S terminal(const S (&x)[N]) const {
@@ -289,9 +290,10 @@ struct Autodiff {
     return i > j ? hidx(j, i) : i * NM - i * (i - 1) / 2 + (j - i);
   }
 
-  // the Dual pass along input direction dir (x for dir < N, then u)
+  // the Dual pass along input direction dir (x for dir < N, then u); the
+  // step index t is a constant of every pass, without a tangent
   __device__ __forceinline__ Dual pass1(const float (&x)[N],
-                                        const float (&u)[M], int dir,
+                                        const float (&u)[M], int t, int dir,
                                         Dual (&f)[N]) const {
     Dual xd[N], ud[M];
 #pragma unroll
@@ -299,8 +301,8 @@ struct Autodiff {
 #pragma unroll
     for (int k = 0; k < M; ++k)
       ud[k] = Dual{u[k], N + k == dir ? 1.0f : 0.0f};
-    body.dynamics(xd, ud, f);
-    return body.cost(xd, ud);
+    body.dynamics(xd, ud, t, f);
+    return body.cost(xd, ud, t);
   }
 
   // the Jet inputs along directions j (inner) and i (outer)
@@ -319,54 +321,55 @@ struct Autodiff {
 
   // the Jet pass of the cost along directions j (inner) and i (outer)
   __device__ __forceinline__ float pass2(const float (&x)[N],
-                                         const float (&u)[M], int i,
+                                         const float (&u)[M], int t, int i,
                                          int j) const {
     Jet xj[N], uj[M];
     jets(x, u, i, j, xj, uj);
-    return body.cost(xj, uj).ab;
+    return body.cost(xj, uj, t).ab;
   }
 
   // full DDP: the Jet pass of dynamics and cost along j and i; returns the
   // cost's entry and writes Σ_a Vx[a]·∂²f_a/∂z_i∂z_j to hv
   __device__ __forceinline__ float pass2_so(const float (&x)[N],
-                                            const float (&u)[M], int i,
-                                            int j, const float (&Vx)[N],
+                                            const float (&u)[M], int t,
+                                            int i, int j,
+                                            const float (&Vx)[N],
                                             float& hv) const {
     Jet xj[N], uj[M], f[N];
     jets(x, u, i, j, xj, uj);
-    body.dynamics(xj, uj, f);
+    body.dynamics(xj, uj, t, f);
     float s = Vx[0] * f[0].ab;
 #pragma unroll
     for (int a = 1; a < N; ++a) s = s + Vx[a] * f[a].ab;
     hv = s;
-    return body.cost(xj, uj).ab;
+    return body.cost(xj, uj, t).ab;
   }
 
   // the first-order passes, then the Jet passes of the cost
   __device__ __forceinline__ void derivs(const float (&x)[N],
-                                         const float (&u)[M],
+                                         const float (&u)[M], int t,
                                          Derivs& d) const {
-    first(x, u, d);
+    first(x, u, t, d);
 #pragma unroll
     for (int j = 0; j < NM; ++j) {
 #pragma unroll
-      for (int i = 0; i <= j; ++i) d.H[hidx(i, j)] = pass2(x, u, i, j);
+      for (int i = 0; i <= j; ++i) d.H[hidx(i, j)] = pass2(x, u, t, i, j);
     }
   }
 
   // full DDP: the first-order passes, then the Jet passes of dynamics and
   // cost, each pair's dynamics contracted with Vx at once
   __device__ __forceinline__ void derivs_so(const float (&x)[N],
-                                            const float (&u)[M],
+                                            const float (&u)[M], int t,
                                             const float (&Vx)[N],
                                             Derivs& d) const {
     static_assert(SO, "derivs_so is the full-DDP expansion");
-    first(x, u, d);
+    first(x, u, t, d);
 #pragma unroll
     for (int j = 0; j < NM; ++j) {
 #pragma unroll
       for (int i = 0; i <= j; ++i)
-        d.H[hidx(i, j)] = pass2_so(x, u, i, j, Vx, d.HV[hidx(i, j)]);
+        d.H[hidx(i, j)] = pass2_so(x, u, t, i, j, Vx, d.HV[hidx(i, j)]);
     }
   }
 
@@ -375,19 +378,19 @@ struct Autodiff {
   }
 
   __device__ __forceinline__ void first(const float (&x)[N],
-                                        const float (&u)[M],
+                                        const float (&u)[M], int t,
                                         Derivs& d) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       Dual f[N];
-      d.cx[i] = pass1(x, u, i, f).t;
+      d.cx[i] = pass1(x, u, t, i, f).t;
 #pragma unroll
       for (int a = 0; a < N; ++a) d.fx[a][i] = f[a].t;
     }
 #pragma unroll
     for (int mi = 0; mi < M; ++mi) {
       Dual f[N];
-      d.cu[mi] = pass1(x, u, N + mi, f).t;
+      d.cu[mi] = pass1(x, u, t, N + mi, f).t;
 #pragma unroll
       for (int a = 0; a < N; ++a) d.fu[a][mi] = f[a].t;
     }

@@ -551,8 +551,9 @@ backward_kernel(const float* __restrict__ traj, int s_in,
   for (int mi = 0; mi < M; ++mi) kw[mi] = 0.0f;
   typename Model::Derivs dv;
   // the step's u and expansion at ring row r: read from the packed slots,
-  // or formed from (x, u), to second order away from the boundary
-  auto expand = [&](float (&u)[M], bool boundary) {
+  // or formed from (x, u) at step t (the logical step 0…T-1, which the
+  // model's derivatives may read), to second order away from the boundary
+  auto expand = [&](float (&u)[M], int t, bool boundary) {
     if constexpr (Model::PACKED) {
 #pragma unroll
       for (int mi = 0; mi < M; ++mi) u[mi] = in(Model::D + mi);
@@ -565,18 +566,18 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       for (int mi = 0; mi < M; ++mi) u[mi] = in(N + mi);
       if constexpr (Model::SECOND_ORDER) {
         if (!boundary) {
-          P.derivs_so(x, u, Vx, dv);
+          P.derivs_so(x, u, t, Vx, dv);
           return;
         }
       }
-      P.derivs(x, u, dv);
+      P.derivs(x, u, t, dv);
     }
   };
 
   {  // boundary t = T-1
     const int t = T - 1;
     float u[M];
-    expand(u, true);
+    expand(u, t, true);
 #pragma unroll
     for (int i = 0; i < N; ++i) Vx[i] = P.cx(dv, i);
     float cuu[M][M], inv[M][M];
@@ -636,7 +637,7 @@ backward_kernel(const float* __restrict__ traj, int s_in,
     }
     r = cur + pos * (F * RING_W);
     float u[M];
-    expand(u, false);
+    expand(u, t, false);
 
     // Q expansions (src/backward_pass.jl:103-123); each sum runs a = 0..n-1
     // W = Vxx·fx and U = Vxx·fu, this warp's rows, to the exchange

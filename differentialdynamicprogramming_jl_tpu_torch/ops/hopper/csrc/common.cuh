@@ -10,11 +10,15 @@
 // descriptor, a constructor from `const Consts&` (N_PARAMS == 0) or from
 // `const Consts&, const float (&par)[N_PARAMS]` (one scenario's parameters,
 // read by make_model below), and the device functions
-//   dynamics(x, u, xn), cost(x, u), terminal(x)        (forward.cuh)
-//   derivs(x, u, d) and the accessors fx(d, i, j), fu(d, i, mi), cx(d, i),
-//   cu(d, mi), cxx(d, i, j), cxu(d, i, mi), cuu(d, mi, mj)   (backward.cuh)
-// with x, xn as float (&)[N] and u as float (&)[M]. `d` is the model's
-// per-step Derivs: what the expansion at (x, u) holds beyond constants.
+//   dynamics(x, u, t, xn), cost(x, u, t), terminal(x)  (forward.cuh)
+//   derivs(x, u, t, d) and the accessors fx(d, i, j), fu(d, i, mi),
+//   cx(d, i), cu(d, mi), cxx(d, i, j), cxu(d, i, mi), cuu(d, mi, mj)
+//                                                      (backward.cuh)
+// with x, xn as float (&)[N], u as float (&)[M] and t the int step index,
+// the logical step 0…T-1 (JAX's kernels pass t_log): a time-varying model
+// reads it, the hand-written ones take it and ignore it. `d` is the
+// model's per-step Derivs: what the expansion at (x, u, t) holds beyond
+// constants.
 // Every loop over a model's dimensions is unrolled, so the accessors'
 // indices are compile-time constants. K2 and K3 read one compile-time flag
 // of a model:
@@ -26,7 +30,7 @@
 //   PACKED: the model is the packed-derivatives stream (packed.cuh): K1's
 //     ring carries its D+M slots per step, Derivs points at the step's
 //     ring row, and derivs() is not called;
-//   SECOND_ORDER: full DDP. K1 calls derivs_so(x, u, Vx, d) in place of
+//   SECOND_ORDER: full DDP. K1 calls derivs_so(x, u, t, Vx, d) in place of
 //     derivs() away from the boundary, with Vx the value gradient of t+1,
 //     and adds vh(d, i, j) = Σ_a Vx[a]·∂²f_a/∂z_i∂z_j (z = (x, u), a from
 //     0) to Qxx, Qux and Quu before the regularisation.

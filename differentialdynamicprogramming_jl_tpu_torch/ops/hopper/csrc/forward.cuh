@@ -236,12 +236,13 @@ __device__ __forceinline__ void ring_step(const float* r, StepIn<Model>& s) {
   }
 }
 
-// one rollout step of one candidate: control law, running cost, terminal
+// one rollout step t (the logical step 0…T-1, which the model's dynamics
+// and cost may read) of one candidate: control law, running cost, terminal
 // cost at the stored last state, model step
 template <class Model>
 __device__ __forceinline__ void rollout_step(
     const Model& P, float (&x)[Model::N], float& acc, float& term,
-    float alpha, const StepIn<Model>& s, const Lims& lims, bool last,
+    float alpha, const StepIn<Model>& s, const Lims& lims, int t, bool last,
     float (&u)[Model::M], float& c_out) {
   constexpr int N = Model::N, M = Model::M;
   float dx[N];
@@ -258,10 +259,10 @@ __device__ __forceinline__ void rollout_step(
     for (int j = 0; j < N; ++j) v = v + s.K[mi][j] * dx[j];
     u[mi] = clipp(v, lims.lo[mi], lims.hi[mi]);
   }
-  const float c = P.cost(x, u);
+  const float c = P.cost(x, u, t);
   if (last) term = P.terminal(x);
   float xn[N];
-  P.dynamics(x, u, xn);
+  P.dynamics(x, u, t, xn);
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = xn[i];
   acc = acc + c;
@@ -373,7 +374,8 @@ forward_kernel(const float* __restrict__ traj, int s_traj,
         for (int i = 0; i < N; ++i) o[i * RING_W] = x[i];
       }
       float u[M], cst;
-      rollout_step<Model>(P, x, acc, term, alpha, s, lm, t == T - 1, u, cst);
+      rollout_step<Model>(P, x, acc, term, alpha, s, lm, t, t == T - 1, u,
+                          cst);
       if (put) {
 #pragma unroll
         for (int mi = 0; mi < M; ++mi) o[(N + mi) * RING_W] = u[mi];
@@ -498,7 +500,8 @@ linesearch_kernel(const float* traj, int s_traj,
           for (int i = 0; i < N; ++i) o[i * sB] = x[i];
         }
         float u[M], c;
-        rollout_step<Model>(P, x, acc, term, alpha, s, lm, t == T - 1, u, c);
+        rollout_step<Model>(P, x, acc, term, alpha, s, lm, t, t == T - 1, u,
+                            c);
         if (pass2 && live) {
 #pragma unroll
           for (int mi = 0; mi < M; ++mi) o[(N + mi) * sB] = u[mi];

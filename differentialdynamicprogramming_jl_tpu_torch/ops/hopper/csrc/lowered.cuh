@@ -1,21 +1,27 @@
-// The C entry points of a lowered model's library: K1, K2 and K3
-// instantiated for one struct `Lowered`, which ops/hopper/lower.py emits
-// from the model's traced Python functions (the model interface of
-// common.cuh; model id 5). ops/hopper/_build.py writes a source that
-// defines DDP_LOWERED_GROUP, includes autodiff.cuh, defines the struct in
-// namespace ddp and then includes this header, and compiles it into a
-// library of its own, one per instance group, so that a call compiles only
-// what it launches:
+// The C entry points of a lowered model's or tiles' library: K1, K2 and K3
+// instantiated for one struct that ops/hopper/lower.py emits (the model
+// interface of common.cuh): `Lowered` (model id 5) from a model's traced
+// Python functions, or `LoweredTiles` (model id 6) from a user's traced
+// derivative tiles, K1's analytic expansion. ops/hopper/_build.py writes a
+// source that defines DDP_LOWERED_GROUP, includes autodiff.cuh, defines
+// the struct in namespace ddp and then includes this header, and compiles
+// it into a library of its own, one per instance group, so that a call
+// compiles only what it launches:
 //   0 "fwd"     K3 and K2 (ddp_forward_lanes, ddp_linesearch_lanes), with
 //               the model's diff where it has one (HAS_DIFF);
 //   1 "k1"      K1 Autodiff<Lowered> in "gains" and "full" emission;
 //   2 "k1_gps"  K1 Autodiff<Lowered> in GPS mode ("full", "policy") and
 //               in "policy" emission without it;
-//   3 "k1_so"   K1 Autodiff<Lowered, true> (full DDP), "gains" and "full".
+//   3 "k1_so"   K1 Autodiff<Lowered, true> (full DDP), "gains" and "full";
+//   4 "t1"      K1 LoweredTiles in "gains" and "full" emission;
+//   5 "t1_gps"  K1 LoweredTiles in GPS mode ("full", "policy") and in
+//               "policy" emission without it;
+//   6 "t1_so"   K1 LoweredTiles of second-order tiles (full DDP), "gains"
+//               and "full".
 // The entry points have the signatures of the kernel library's
 // (_build.SIGNATURES) and return ERR_MODEL for an instance the group does
-// not hold. K1's derivatives are always by autodiff of the struct: a
-// lowered model has no analytic expansion.
+// not hold. Groups 1-3 make K1's derivatives by autodiff of the model's
+// struct, groups 4-6 read the user's expansion.
 #pragma once
 
 #ifndef DDP_LOWERED_GROUP
@@ -30,11 +36,19 @@
 
 namespace ddp {
 
+// the group's struct
+#if DDP_LOWERED_GROUP >= 4
+using LoweredStruct = LoweredTiles;
+#else
+using LoweredStruct = Lowered;
+#endif
+
 // the struct's shape against the launcher's arguments
 inline bool is_lowered(int model_id, int n, int m, int n_consts,
                        int n_params) {
-  return model_id == Lowered::ID && n == Lowered::N && m == Lowered::M &&
-         n_consts == Lowered::N_CONSTS && n_params == Lowered::N_PARAMS;
+  using L = LoweredStruct;
+  return model_id == L::ID && n == L::N && m == L::M &&
+         n_consts == L::N_CONSTS && n_params == L::N_PARAMS;
 }
 
 }  // namespace ddp
@@ -98,16 +112,26 @@ namespace {
 
 // the group's K1 instances; ERR_MODEL for the others
 int launch_lowered(const BwdArgs& a, bool gps, bool second_order) {
+#if DDP_LOWERED_GROUP == 1 || DDP_LOWERED_GROUP == 4
 #if DDP_LOWERED_GROUP == 1
   using Model = Autodiff<Lowered>;
+#else
+  using Model = LoweredTiles;
+  static_assert(!Model::SECOND_ORDER, "first-order tiles");
+#endif
   if (gps || second_order) return ERR_MODEL;
   switch (a.emit) {
     case EMIT_GAINS: return launch_one<Model, EMIT_GAINS, false>(a);
     case EMIT_FULL: return launch_one<Model, EMIT_FULL, false>(a);
     default: return ERR_MODEL;
   }
-#elif DDP_LOWERED_GROUP == 2
+#elif DDP_LOWERED_GROUP == 2 || DDP_LOWERED_GROUP == 5
+#if DDP_LOWERED_GROUP == 2
   using Model = Autodiff<Lowered>;
+#else
+  using Model = LoweredTiles;
+  static_assert(!Model::SECOND_ORDER, "first-order tiles");
+#endif
   if (second_order) return ERR_MODEL;
   if (gps) {
     switch (a.emit) {
@@ -118,8 +142,13 @@ int launch_lowered(const BwdArgs& a, bool gps, bool second_order) {
   }
   return a.emit == EMIT_POLICY ? launch_one<Model, EMIT_POLICY, false>(a)
                                : ERR_MODEL;
-#elif DDP_LOWERED_GROUP == 3
+#elif DDP_LOWERED_GROUP == 3 || DDP_LOWERED_GROUP == 6
+#if DDP_LOWERED_GROUP == 3
   using Model = Autodiff<Lowered, true>;
+#else
+  using Model = LoweredTiles;
+  static_assert(Model::SECOND_ORDER, "second-order tiles");
+#endif
   if (gps || !second_order) return ERR_MODEL;
   switch (a.emit) {
     case EMIT_GAINS: return launch_one<Model, EMIT_GAINS, false>(a);
@@ -127,7 +156,7 @@ int launch_lowered(const BwdArgs& a, bool gps, bool second_order) {
     default: return ERR_MODEL;
   }
 #else
-#error "DDP_LOWERED_GROUP is 0, 1, 2 or 3"
+#error "DDP_LOWERED_GROUP is 0 to 6"
 #endif
 }
 
@@ -154,7 +183,9 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                           params, n_params, n, m, consts, qp_iters, blocks,
                           threads, tc, stages, smem, stream, a);
   if (rc != 0) return rc;
-  if (!autodiff || !is_lowered(model_id, n, m, n_consts, n_params))
+  // groups 1-3 differentiate the struct, groups 4-6 read the tiles
+  if ((autodiff != 0) != (DDP_LOWERED_GROUP <= 3) ||
+      !is_lowered(model_id, n, m, n_consts, n_params))
     return ERR_MODEL;
   cudaSetDevice(device);
   return launch_lowered(a, prev != nullptr, second_order != 0);
@@ -164,8 +195,8 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
 
 extern "C" const char* ddp_error_string(int code) {
   if (code == ddp::ERR_MODEL)
-    return "this lowered model's library holds no instance for this model "
-           "id, n, m, descriptor size, derivative order, GPS mode and "
+    return "this lowered library holds no instance for this model id, n, "
+           "m, descriptor size, derivative source and order, GPS mode and "
            "emission";
   if (code == ddp::ERR_ARGS) return "arguments outside what the kernel takes";
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -65,7 +65,7 @@ struct LTI {
   }
 
   __device__ __forceinline__ void dynamics(const float (&x)[N],
-                                           const float (&u)[M],
+                                           const float (&u)[M], int,
                                            float (&xn)[N]) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -80,7 +80,7 @@ struct LTI {
   }
 
   __device__ __forceinline__ float cost(const float (&x)[N],
-                                        const float (&u)[M]) const {
+                                        const float (&u)[M], int) const {
     float c = 0.0f;
     bool any = false;
 #pragma unroll
@@ -120,7 +120,7 @@ struct LTI {
   };
 
   __device__ __forceinline__ void derivs(const float (&x)[N],
-                                         const float (&u)[M],
+                                         const float (&u)[M], int,
                                          Derivs& d) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {

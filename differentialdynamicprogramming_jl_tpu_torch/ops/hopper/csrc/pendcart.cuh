@@ -76,7 +76,7 @@ struct PendCart {
   // Dual and Jet (autodiff.cuh) for Autodiff<PendCart>
   template <class S>
   __device__ __forceinline__ void dynamics(const S (&x)[4], const S (&u)[1],
-                                           S (&xn)[4]) const {
+                                           int, S (&xn)[4]) const {
     const S f = u[0];
     const S thdd = ngl * sinf(x[0]) + (f / l) * cosf(x[0]) - d * x[1];
     xn[0] = x[0] + h * x[1];
@@ -86,7 +86,8 @@ struct PendCart {
   }
 
   template <class S>
-  __device__ __forceinline__ S cost(const S (&x)[4], const S (&u)[1]) const {
+  __device__ __forceinline__ S cost(const S (&x)[4], const S (&u)[1],
+                                     int) const {
     S c = halfR * u[0] * u[0];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -115,7 +116,7 @@ struct PendCart {
   };
 
   __device__ __forceinline__ void derivs(const float (&x)[4],
-                                         const float (&uu)[1],
+                                         const float (&uu)[1], int,
                                          Derivs& dv) const {
     const float th = x[0];
     const float u = uu[0];
@@ -185,10 +186,10 @@ struct PendCartSO : PendCart {
       : PendCart(mc) {}
 
   __device__ __forceinline__ void derivs_so(const float (&x)[4],
-                                            const float (&uu)[1],
+                                            const float (&uu)[1], int t,
                                             const float (&Vx)[4],
                                             Derivs& dv) const {
-    derivs(x, uu, dv);
+    derivs(x, uu, t, dv);
     const float s = sinf(x[0]);
     const float d2_thth = h * ((-ngl) * s - (uu[0] / l) * cosf(x[0]));
     const float d2_thu = (-(h / l)) * s;

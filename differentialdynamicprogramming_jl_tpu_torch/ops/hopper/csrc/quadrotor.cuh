@@ -54,7 +54,7 @@ struct Quadrotor {
 
   template <class S>
   __device__ __forceinline__ void dynamics(const S (&x)[6], const S (&u)[2],
-                                           S (&xn)[6]) const {
+                                           int, S (&xn)[6]) const {
     const S thrust = u[0] + u[1];
     const S s = sinf(x[4]);
     const S c = cosf(x[4]);
@@ -82,7 +82,8 @@ struct Quadrotor {
   }
 
   template <class S>
-  __device__ __forceinline__ S cost(const S (&x)[6], const S (&u)[2]) const {
+  __device__ __forceinline__ S cost(const S (&x)[6], const S (&u)[2],
+                                     int) const {
     S c = terminal(x);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {

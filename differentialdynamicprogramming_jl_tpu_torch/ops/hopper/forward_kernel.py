@@ -61,7 +61,9 @@ class DeviceModel:
     never a first-order one. ``lanes`` is set on the descriptor of the
     autodiff tiles of a model without one: K1 then runs
     ``Autodiff<Lowered>`` from that model's lowering (:mod:`.lower`),
-    made at the first launch; ``consts`` is then unused."""
+    made at the first launch; ``consts`` is then unused. A user's tiles
+    need no descriptor: K1 runs their own lowering (``LoweredTiles``,
+    model id 6, :func:`~.lower.lower_tiles`)."""
 
     model_id: int
     consts: np.ndarray
@@ -91,7 +93,10 @@ class LanesModel:
     A model with ``device=None`` runs on CUDA tensors through its lowering
     (:mod:`.lower`): its functions are traced and compiled into a library
     of its own. A hand-written descriptor has no ``diff``: such a model
-    with a ``diff`` raises on CUDA tensors.
+    with a ``diff`` raises on CUDA tensors. Every path passes ``t`` as the
+    logical step 0…T-1, an int32 (:func:`step_indices`; the kernels' int),
+    so a time-varying model (a tracked reference r(t)) runs on all of
+    them.
     """
 
     n: int
@@ -154,6 +159,15 @@ def bounds(lims, m: int, lims_lanes=None):
     return tuple(lo for lo, _ in lims), tuple(hi for _, hi in lims)
 
 
+def step_indices(T: int, device) -> torch.Tensor:
+    """The step indices 0…T-1 that the plain versions pass a model's
+    functions as ``t``: int32 on the streams' device, as JAX's kernels pass
+    their int32 ``t_log``, so that ``t * h`` is the f32 product
+    ``f32(t)·f32(h)`` on every path (the kernels' ``(float)t * h``). A
+    Python int would make it the f64 product rounded once."""
+    return torch.arange(T, dtype=torch.int32, device=device)
+
+
 def par_args(params) -> tuple:
     """The trailing arguments of a model's functions: none, or the list of
     per-scenario parameter rows."""
@@ -204,11 +218,6 @@ def model_source(model_device: Optional[DeviceModel], lanes, what: str,
     if model_device is not None and model_device.lanes is not None:
         return model_device.lanes
     if model_device is None:
-        if lanes is None:
-            raise NotImplementedError(
-                f"{what}: these derivative tiles have no device-model "
-                "descriptor, so no CUDA kernel can evaluate them; use "
-                "autodiff_derivs_tiles(model), or run on CPU tensors")
         return lanes
     if lanes is not None and lanes.diff is not None:
         raise ValueError(
@@ -226,7 +235,8 @@ def model_source(model_device: Optional[DeviceModel], lanes, what: str,
 
 def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
               m: int, lims, lims_lanes, params, *tensors: torch.Tensor,
-              models=CUDA_MODELS, lanes=None, group: str = "fwd"):
+              models=CUDA_MODELS, lanes=None, group: str = "fwd",
+              tiles=None):
     """:func:`launch_args` plus the model arguments of a launcher: the
     static limits (host), the per-scenario limits and parameters (or null),
     P, model id, n, m, the host pointer to the constants and their count.
@@ -234,16 +244,21 @@ def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
     (:func:`model_source`; ``lanes``: the model, where it has no
     descriptor) is lowered once the tensors are checked, and its library of
     instance group ``group`` (``_build.LOWERED_GROUPS``) is built at the
-    first launch; a lowering, build or launch that fails raises."""
-    src = model_source(model_device, lanes, what, n, m, models)
+    first launch; so is that of ``tiles``, a user's lowered tiles
+    (:class:`~.lower.LoweredTiles`), where given. A lowering, build or
+    launch that fails raises."""
     per_lane = [t for t in (lims_lanes, params) if t is not None]
+    src = (tiles if tiles is not None
+           else model_source(model_device, lanes, what, n, m, models))
     if src is None:
         lib, dev, stream = launch_args(what, *tensors, *per_lane)
         model_id, consts = model_device.model_id, model_device.consts
     else:
         dev, stream = launch_device(what, *tensors, *per_lane)
-        from .lower import LOWERED_ID, lower
-        (lib, consts), model_id = lower(src).group(group), LOWERED_ID
+        from .lower import LOWERED_ID, LOWERED_TILES_ID, lower
+        low, model_id = ((tiles, LOWERED_TILES_ID) if tiles is not None
+                         else (lower(src), LOWERED_ID))
+        lib, consts = low.group(group)
     lim = lims_host(lims, m)
     return lib, dev, stream, (lim, consts), (
         lim.ctypes.data, _ptr(lims_lanes), _ptr(params),
@@ -279,7 +294,8 @@ def _rollout_step(model, x, acc, term, alpha, x_old, u_nom, k, K, lo, hi,
     """One step of every candidate (tensors (A, B) or (B,)); the kernels'
     rollout_step. Per control, u = clip(u_nom + α·k + Σ_j K_j·dx_j, lo, hi)
     (JAX ``forward_kernel.py:156-169``), lo/hi floats or per-scenario (B,)
-    tensors; ``par`` the model's trailing arguments (:func:`par_args`).
+    tensors; ``t`` the step index (:func:`step_indices`); ``par`` the
+    model's trailing arguments (:func:`par_args`).
     Returns (x_next, acc, term, u, c)."""
     dx = (model.diff(x, x_old) if model.diff is not None
           else [x[j] - x_old[j] for j in range(model.n)])
@@ -319,11 +335,12 @@ def forward_lanes_ref(traj, gains, x0, alphas, params=None, lims_lanes=None,
     term = torch.zeros_like(acc)
     out = (torch.empty((T, n + m + 1, B), dtype=traj.dtype,
                        device=traj.device) if emit_traj else None)
+    ts = step_indices(T, traj.device)
     for t in range(T):
         x_old, u_nom, k, K = _step_inputs(traj, gains, gk, gK, n, m, t)
         x_s = x
         x, acc, term, u, c = _rollout_step(model, x, acc, term, alphas,
-                                           x_old, u_nom, k, K, lo, hi, t,
+                                           x_old, u_nom, k, K, lo, hi, ts[t],
                                            t == T - 1, par)
         if emit_traj:
             out[t] = torch.stack([v[0] for v in x_s + u] + [c[0]])

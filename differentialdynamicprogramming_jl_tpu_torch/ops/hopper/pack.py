@@ -132,14 +132,15 @@ def packed_from_tiles(tiles, n: int, m: int):
     once on whole (T, B) slices (their operations are elementwise, so each
     element has the bits of a per-step evaluation), stacked in
     :class:`DerivLayout` order with u appended. ``t`` is the step index as
-    a (T, 1) tensor, as the JAX generators pass it."""
+    a (T, 1) int32 tensor, as the JAX generators pass it (``jnp.arange``),
+    so that ``t * h`` has the f32 bits of K1's per-step tiles."""
     lay = DerivLayout(n, m)
 
     def packed(x_s: torch.Tensor, u_s: torch.Tensor) -> torch.Tensor:
         T = u_s.shape[0]
         x = [x_s[:, i] for i in range(n)]
         u = [u_s[:, mi] for mi in range(m)]
-        t = torch.arange(T, device=u_s.device)[:, None]
+        t = torch.arange(T, dtype=torch.int32, device=u_s.device)[:, None]
         d = tiles(x, u, t)
         slots = [v for f in DERIV_FIELDS for v in _flat(d[f])] + u
         assert len(slots) == lay.D + m

@@ -41,7 +41,8 @@ from ..utils import printing as _pr
 from ..ops.hopper.pack import from_streams, mean_t, to_streams
 from ..ops.hopper.backward_kernel import InLayout, OutLayout, backward_lanes
 from ..ops.hopper.forward_kernel import (LanesModel, check_lims, par_args,
-                                         forward_lanes, linesearch_lanes)
+                                         forward_lanes, linesearch_lanes,
+                                         step_indices)
 from .ilqg import ILQGConfig, tol_fun_effective
 
 
@@ -108,10 +109,12 @@ def pack_lims(lims_batch: torch.Tensor) -> torch.Tensor:
 def _eval_costs(model: LanesModel, x_s, u_s, par) -> torch.Tensor:
     """(T, B) running costs of a stream's (x, u) slots with the model's lane
     functions, outside the kernels (pre-rolled entry; JAX
-    ``_eval_costs_lanes``, ``:138-149``)."""
+    ``_eval_costs_lanes``, ``:138-149``), with the kernels' int32 step
+    index."""
+    ts = step_indices(x_s.shape[0], x_s.device)
     return torch.stack([
         model.cost([x_s[t, i] for i in range(model.n)],
-                   [u_s[t, mi] for mi in range(model.m)], t, *par)
+                   [u_s[t, mi] for mi in range(model.m)], ts[t], *par)
         for t in range(x_s.shape[0])])
 
 

@@ -1878,3 +1878,181 @@ def test_lowered_exotic_matches_plain(dev):
                                      fk.linesearch_lanes_ref))
     torch.testing.assert_close(k2.traj, p2.traj, rtol=1e-5, atol=1e-5)
     assert torch.equal(k2.ls[:2], p2.ls[:2])
+
+
+# ---------------------------------------------------------------------------
+# a user's derivative tiles lowered into K1 (LoweredTiles) and models that
+# read t (ops/hopper/lower.py, csrc/lowered.cuh)
+# ---------------------------------------------------------------------------
+
+def _tracking():
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools_torch"))
+    import tracking
+    return tracking
+
+
+def _user(tiles, n_params=0):
+    """A user's tiles: the function alone, no device descriptor."""
+    return bk.DerivsTiles(fn=getattr(tiles, "fn", tiles), n_params=n_params)
+
+
+def _lti_traj(dev, model, x0, gains0, al):
+    return fk.forward_lanes(torch.zeros((T, 12, B), device=dev), gains0, x0,
+                            al, model=model, lims=LTI_LIMS,
+                            emit_traj=True).traj
+
+
+@pytest.mark.parametrize("name", ["lti", "lti_gps", "track", "so", "param"])
+def test_lowered_tiles_match_plain(dev, name):
+    """Each LoweredTiles instance group against K1's plain version on the
+    same CUDA tensors: the user's LTI tiles (gains, full; GPS full and
+    policy, per-step η), the tracking LTI's tiles reading t, the
+    pendcart's second-order tiles (full DDP) and the tiles with params.
+    The LTI tiles are bit for bit the hand-written LTI K1, the second-order
+    ones PendCartSO."""
+    lam = torch.logspace(-6, 2, B, device=dev)
+    if name in ("lti", "lti_gps", "track"):
+        spec, model, tiles, x0, gains0, al = _lti(dev)
+        traj = _lti_traj(dev, model, x0, gains0, al)
+        if name == "track":
+            _, fn = _tracking().lti_track(torch, fk.LanesModel, spec.A,
+                                          spec.B, spec.Q, spec.R, 0.01)
+            user, hand = _user(fn), None
+        else:
+            user, hand = _user(tiles), tiles
+        kw = dict(n=10, m=2, reg_type=2, lims=LTI_LIMS)
+        cases = [dict(emit="gains"), dict(emit="full")]
+        if name == "lti_gps":
+            prev, eta = _lti_gps_inputs(dev, True)
+            kw = dict(n=10, m=2, reg_type=1, lims=None)
+            cases = [dict(emit=e, prev=prev, eta=eta)
+                     for e in ("full", "policy")]
+            lam = torch.zeros(B, device=dev)
+    else:
+        x0, gains0, al = _rollout(dev)
+        rng = np.random.default_rng(6)
+        par = torch.tensor(np.stack([rng.uniform(0.25, 0.55, B),
+                                     rng.uniform(0.5, 1.5, B)]),
+                           dtype=torch.float32, device=dev)
+        model = (tpc.pendcart_lanes_param(SPEC) if name == "param"
+                 else tpc.pendcart_lanes(SPEC))
+        traj = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0,
+                                x0, al, *((par,) if name == "param" else ()),
+                                model=model, lims=LIMS, emit_traj=True).traj
+        if name == "so":
+            hand = tpc.pendcart_derivs_tiles_so(SPEC)
+            user = _user(hand)
+        else:
+            hand = None
+            user = _user(tpc.pendcart_derivs_tiles_param(SPEC), 2)
+        kw = dict(n=4, m=1, reg_type=2, lims=LIMS,
+                  **(dict(params=par) if name == "param" else {}))
+        cases = [dict(emit="gains"), dict(emit="full")]
+    for case in cases:
+        n0 = bk.backward_lanes.launches
+        a = bk.backward_lanes(traj, lam, derivs_tiles=user, **kw, **case)
+        assert bk.backward_lanes.launches == n0 + 1
+        b = bk.backward_lanes_ref(traj, lam, derivs_tiles=user, **kw, **case)
+        _slots_close(a.out, b.out)
+        torch.testing.assert_close(a.stats[:2], b.stats[:2], rtol=1e-5,
+                                   atol=1e-5)
+        assert torch.equal(a.stats[2:], b.stats[2:])
+        if hand is not None:
+            h = bk.backward_lanes(traj, lam, derivs_tiles=hand, **kw, **case)
+            assert torch.equal(a.out, h.out) and torch.equal(a.stats,
+                                                             h.stats), case
+
+
+def test_time_varying_models_match_plain(dev):
+    """Models that read t: the tracking LTI's lowered K3 and K2, and the
+    tracking quadrotor's K3 and K1 Autodiff<Lowered> (gains, full), each
+    against its plain version; the lowered LTI (no t) is bit for bit the
+    hand-written LTI in K3 and K2."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import quadrotor
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    tr = _tracking()
+    spec, model, tiles, x0, gains0, al = _lti(dev)
+    track, _ = tr.lti_track(torch, fk.LanesModel, spec.A, spec.B, spec.Q,
+                            spec.R, 0.01)
+    traj0 = torch.zeros((T, 12, B), device=dev)
+    for m_ in (track, _bare(model)):
+        k, p = (f(traj0, gains0, x0, al, model=m_, lims=LTI_LIMS,
+                  emit_traj=True) for f in (fk.forward_lanes,
+                                            fk.forward_lanes_ref))
+        torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+    h = fk.forward_lanes(traj0, gains0, x0, al, model=model, lims=LTI_LIMS,
+                         emit_traj=True)
+    low = fk.forward_lanes(traj0, gains0, x0, al, model=_bare(model),
+                           lims=LTI_LIMS, emit_traj=True)
+    assert torch.equal(low.traj, h.traj) and torch.equal(low.totals,
+                                                         h.totals)
+    traj = h.traj
+    lam = torch.logspace(-6, 2, B, device=dev)
+    g = bk.backward_lanes(traj, lam, n=10, m=2, reg_type=2, lims=LTI_LIMS,
+                          derivs_tiles=tiles, emit="gains").out
+    sel = torch.stack([torch.full((B,), -1.0, device=dev),
+                       torch.full((B,), 0.5, device=dev),
+                       torch.full((B,), 1e3, device=dev),
+                       (torch.arange(B, device=dev) % 2).float()])
+    for m_ in (track, _bare(model)):
+        k2, p2 = (f(traj, g, x0, sel, model=m_, alphas=ALPHAS,
+                    reduce_ratio_min=0.0, lims=LTI_LIMS)
+                  for f in (fk.linesearch_lanes, fk.linesearch_lanes_ref))
+        torch.testing.assert_close(k2.traj, p2.traj, rtol=1e-5, atol=1e-5)
+        assert torch.equal(k2.ls[:2], p2.ls[:2])
+    k2h = fk.linesearch_lanes(traj, g, x0, sel, model=model, alphas=ALPHAS,
+                              reduce_ratio_min=0.0, lims=LTI_LIMS)
+    assert torch.equal(k2.traj, k2h.traj) and torch.equal(k2.ls, k2h.ls)
+    qspec = quadrotor.QuadrotorSpec()
+    qm = tr.quad_track(torch, fk.LanesModel, qspec)
+    _, _, _, qx0, qgains0, qal, _ = _quad(dev)
+    k, p = (f(torch.zeros((T, 8, B), device=dev), qgains0, qx0, qal,
+              model=qm, lims=qspec.lims, emit_traj=True)
+            for f in (fk.forward_lanes, fk.forward_lanes_ref))
+    torch.testing.assert_close(k.traj, p.traj, rtol=1e-5, atol=1e-5)
+    kw = dict(n=6, m=2, reg_type=2, lims=qspec.lims,
+              derivs_tiles=autodiff_tiles.autodiff_derivs_tiles(qm))
+    for emit in ("gains", "full"):
+        a = bk.backward_lanes(k.traj, lam, emit=emit, **kw)
+        b = bk.backward_lanes_ref(k.traj, lam, emit=emit, **kw)
+        _slots_close(a.out, b.out)
+        assert torch.equal(a.stats[2:], b.stats[2:])
+
+
+def test_lowered_tiles_without_instance_raise_on_card(dev):
+    """A user's first-order tiles have no GPS "gains" instance, and
+    second-order tiles none in GPS mode: each raises naming the table, and
+    nothing launches in its place."""
+    x0, gains0, al = _rollout(dev)
+    traj = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0, x0,
+                            al, model=tpc.pendcart_lanes(SPEC), lims=LIMS,
+                            emit_traj=True).traj
+    gps = dict(prev=torch.zeros((T, 6, B), device=dev),
+               eta=torch.ones((T, B), device=dev))
+    n0 = bk.backward_lanes.launches
+    for tiles, emit in ((tpc.pendcart_derivs_tiles(SPEC), "gains"),
+                        (tpc.pendcart_derivs_tiles_so(SPEC), "full")):
+        with pytest.raises(NotImplementedError, match="user's lowered tiles"):
+            bk.backward_lanes(traj, torch.zeros(B, device=dev), n=4, m=1,
+                              reg_type=1, lims=LIMS,
+                              derivs_tiles=_user(tiles), emit=emit, **gps)
+    assert bk.backward_lanes.launches == n0
+
+
+def test_tiles_lti_solve_is_the_hand_written_on_card(dev):
+    """The LTI fleet with a Python-only model (K2, K3 Lowered) and the
+    user's tiles (K1 LoweredTiles) against the hand-written solve on the
+    card, bit for bit."""
+    spec, model, tiles, x0, gains0, al = _lti(dev)
+    cfg = ILQGConfig(alphas=ALPHAS, reg_type=2, lam_max=1e15, max_iter=10)
+    u0 = spec.u0[None].expand(B, T, 2).contiguous()
+    a, b = (ilqg_batch_lanes(m_, None, x0.T.contiguous(), u0, lims=LTI_LIMS,
+                             cfg=cfg, derivs_tiles=t_)
+            for m_, t_ in ((_bare(model), _user(tiles)), (model, tiles)))
+    for f in ("cost_total", "reason", "n_accepted", "u"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(a.policy.K, b.policy.K)

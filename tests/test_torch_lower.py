@@ -167,8 +167,8 @@ namespace ddp {
 using ddp::Lowered;
 constexpr int N = Lowered::N, M = Lowered::M, P = Lowered::N_PARAMS;
 extern "C" void eval(const float* c, const float* par, const float* x,
-                     const float* u, const float* xo, int B, float* xn,
-                     float* cost, float* term, float* dx) {
+                     const float* u, const float* xo, int B, int t,
+                     float* xn, float* cost, float* term, float* dx) {
   Lowered::Consts mc;
   for (int i = 0; i < Lowered::N_CONSTS; ++i) mc.c[i] = c[i];
   for (int b = 0; b < B; ++b) {
@@ -176,9 +176,9 @@ extern "C" void eval(const float* c, const float* par, const float* x,
     float xb[N], ub[M], ob[N], yb[N], db[N];
     for (int i = 0; i < N; ++i) { xb[i] = x[i * B + b]; ob[i] = xo[i * B + b]; }
     for (int i = 0; i < M; ++i) ub[i] = u[i * B + b];
-    L.dynamics(xb, ub, yb);
+    L.dynamics(xb, ub, t, yb);
     for (int i = 0; i < N; ++i) xn[i * B + b] = yb[i];
-    cost[b] = L.cost(xb, ub);
+    cost[b] = L.cost(xb, ub, t);
     term[b] = L.terminal(xb);
     %(diff)s
   }
@@ -186,7 +186,7 @@ extern "C" void eval(const float* c, const float* par, const float* x,
 """
 
 
-def _eval_struct(tmp_path, name, low, x, u, par, xo):
+def _eval_struct(tmp_path, name, low, x, u, par, xo, t=0):
     lib = _compile(tmp_path, name, STRUCT_HARNESS % dict(
         struct=low.struct(True), make=_make(low),
         diff=("L.diff(xb, ob, db); for (int i = 0; i < N; ++i) "
@@ -204,7 +204,7 @@ def _eval_struct(tmp_path, name, low, x, u, par, xo):
     consts = low.consts_for(True)
     keep = [np.ascontiguousarray(a, np.float32)
             for a in (consts, par if par.size else np.zeros(1), x, u, xo)]
-    lib.eval(*[p(a) for a in keep], ctypes.c_int(B),
+    lib.eval(*[p(a) for a in keep], ctypes.c_int(B), ctypes.c_int(t),
              *[out[k].ctypes.data_as(fp)
                for k in ("dynamics", "cost", "terminal", "diff")])
     return out
@@ -286,7 +286,7 @@ extern "C" void derivs(const float* c, const float* hc, const float* par,
     for (int i = 0; i < N; ++i) { xb[i] = x[i * B + b]; vb[i] = V[i * B + b]; }
     for (int i = 0; i < M; ++i) ub[i] = u[i * B + b];
     AD::Derivs d;
-    A.derivs_so(xb, ub, vb, d);
+    A.derivs_so(xb, ub, 0, vb, d);
     float* o = out + (size_t)b * S;
     for (int i = 0; i < N; ++i) for (int j = 0; j < N; ++j) *o++ = d.fx[i][j];
     for (int i = 0; i < N; ++i) for (int j = 0; j < M; ++j) *o++ = d.fu[i][j];
@@ -299,7 +299,7 @@ extern "C" void derivs(const float* c, const float* hc, const float* par,
       for (int i = 0; i < Hand::N_CONSTS; ++i) hm.c[i] = hc[i];
       Autodiff<Hand, true> Hd(hm);
       Autodiff<Hand, true>::Derivs e;
-      Hd.derivs_so(xb, ub, vb, e);
+      Hd.derivs_so(xb, ub, 0, vb, e);
       static_assert(sizeof(e) == sizeof(d), "same layout");
       __builtin_memcpy(hand + (size_t)b * S, &e.fx[0][0], S * sizeof(float));
     }
@@ -428,11 +428,60 @@ def test_unsupported_op_raises_naming_it():
 
 
 def test_function_reading_t_raises():
+    """t lowers (test_function_reading_t_lowers), but an integer operation
+    other than add, sub, mul and neg raises naming it, and so does an
+    integer-valued output."""
     def cost(x, u, t):
-        return x[0] * x[0] + u[0] * u[0] * t
+        return x[0] * x[0] + u[0] * u[0] * torch.remainder(t, 2)
 
-    with pytest.raises(NotImplementedError, match=r"cost.*reads t"):
+    with pytest.raises(NotImplementedError,
+                       match=r"cost.*remainder.*integer value"):
         lower.lower(_model_with(cost=cost))
+
+    def dynamics(x, u, t):
+        return [x[0], x[1], x[2], t + 1]
+
+    with pytest.raises(NotImplementedError, match=r"dynamics.*integer"):
+        lower.lower(_model_with(dynamics=dynamics))
+
+
+def _tracking(int_arith=False):
+    """The pendcart whose cost tracks a θ reference r(t) = 0.5·sin(π·h·t)
+    and weighs u by (1 + 0.01·t) (with ``int_arith``, by 0.01·(t + 1),
+    integer arithmetic first)."""
+    base = tpc.pendcart_lanes(tpc.PendCartSpec())
+
+    def cost(x, u, t):
+        r = 0.5 * torch.sin(t * float(np.float32(math.pi * 0.01)))
+        w = (t + 1) * 0.01 if int_arith else 1.0 + t * 0.01
+        return (x[0] - r) * (x[0] - r) + w * u[0] * u[0] + x[1] * x[1]
+
+    return LanesModel(n=4, m=1, dynamics=base.dynamics, cost=cost)
+
+
+@pytest.mark.parametrize("int_arith", [False, True])
+def test_function_reading_t_lowers(tmp_path, int_arith):
+    """A cost that reads t lowers: t is the struct's int argument,
+    converted where torch promotes it (``static_cast<float>(t) * k``, the
+    f32 product), integer arithmetic kept as ints. The interpreted graph
+    equals the model's cost bit for bit at int32 t, and the struct compiled
+    for the host equals it within glibc's sinf against PyTorch's (1e-6)
+    at steps whose f32 and f64 products of t·0.01 differ (t = 5, 9, 10)."""
+    model = _tracking(int_arith)
+    low = lower.lower(model)
+    src = low.struct(False)
+    assert "int t" in src and "static_cast<float>(t)" in src
+    assert ("t + 1" in src) == int_arith
+    x, u, par = _inputs(model, seed=9)
+    for t in (5, 9, 10):
+        tt = torch.tensor(t, dtype=torch.int32)
+        ref = model.cost(_rows(x), _rows(u), tt)
+        got = low.interpret("cost", _rows(x), _rows(u), t=tt)
+        assert torch.equal(got.expand(B), ref.expand(B)), t
+        host = _eval_struct(tmp_path, f"track{int(int_arith)}_{t}", low, x,
+                            u, par, x, t=t)
+        np.testing.assert_allclose(host["cost"], ref.numpy(), rtol=1e-6,
+                                   atol=0)
 
 
 def test_branch_on_a_value_raises():

@@ -120,7 +120,10 @@ CASES = {"hover": (jq.QuadrotorSpec(), 0.0),
 @pytest.fixture(scope="module", params=sorted(CASES))
 def solved(request):
     """The fleet solve of both packages on the same f32 inputs: x0 around
-    default_x0 with lateral, height and tilt offsets, u0 around hover."""
+    default_x0 with lateral, height and tilt offsets, u0 around hover. JAX's
+    kernels take one step a grid step (k_t=1): the same per-step
+    operations as at k_t=2, and half the interpret-mode program to
+    compile (about half the compile time)."""
     spec, dz = CASES[request.param]
     rng = np.random.default_rng(0)
     x0s = (np.asarray(jq.default_x0(jnp.float64))[None, :]
@@ -135,7 +138,7 @@ def solved(request):
     ref = J.ilqg_batch_lanes(jm, None, jnp.asarray(x0s), jnp.asarray(u0s),
                              lims=spec.lims, cfg=jcfg,
                              derivs_tiles=jax_autodiff_tiles(jm),
-                             kt_backward=2, kt_forward=2, record_trace=True,
+                             kt_backward=1, kt_forward=1, record_trace=True,
                              interpret=True)
     tm = tq.quadrotor_lanes(convert.quadrotor_spec_from_jax(spec))
     out = ilqg_batch_lanes(tm, None, torch.from_numpy(x0s),
