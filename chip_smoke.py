@@ -218,7 +218,28 @@ ends the run with a non-zero exit and no result line:
 53. the tiles group, tiles-so: full DDP on the headline pendcart (B=4096,
     T=500, 20 iterations) with the user's second-order tiles, bit for bit
     PendCartSO's solve;
-54. the kernel record (one entry per kernel instance, with its bound; an
+54. the ladder group, ladder-kernels: K3 and K2 with ladders longer than
+    a block's eight candidate warps (A = 9, 11, 16, 40; K2 in rounds of
+    one launch, K3 in launches of at most eight) against their plain
+    versions at T=33, B=4096, on the pendcart (bit for bit), LTI <10,2>,
+    the quadrotor and the lowered quadrotor, with lanes accepting
+    candidates past the first round; a 65-α ladder refused; K2 and K3 at
+    A=11 against A=6 at the headline's shape (B=4096, T=500);
+55. the ladder group, ladder-fleet: the headline fleet with
+    ``ILQGConfig()``'s own 11-α ladder (B=4096, T=500, 20 iterations),
+    ms/iter beside the 6-α headline's, 64 lanes against a CPU solve (the
+    ``--demos-cpu`` child);
+56. demos: ``demos.main``'s help and exit codes, ``main(["boxqp"])``,
+    ``main(["fleet"])`` and ``main(["quadrotor"])`` at their defaults
+    (B=4096), the fleet's and the quadrotor's first 64 lanes against the
+    CPU child's solves (the quadrotor at T=16), demo_mpc (lanes tier) at
+    its defaults, demo_linear, demo_linear_kl and demo_pendcart cut
+    (DEMO_CUTS), each demo's wall;
+57. aot: the headline lane solve and demo_linear's generic solve (cut to
+    T=200) exported, each served from its bytes in a fresh process that
+    never defined its closure, bit for bit the direct call, a wrong B
+    refused, the served time against the direct one;
+58. the kernel record (one entry per kernel instance, with its bound; an
     instance on no path with the launches of its check) and the result
     line.
 """
@@ -6225,6 +6246,531 @@ def tiles_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the ladder, demos and aot phases: any α ladder on the card, the
+# demos' tour, solver export served from bytes
+# ---------------------------------------------------------------------------
+
+# K2 and K3 past a block's eight candidate warps, against their plain
+# versions at LADDER_T steps (three chunks of the pendcart's ring, so it
+# wraps). On every other lane k is negated, an ascent direction, so that
+# the smaller α of later rounds roll lower totals, and K2's old total cost
+# is the lowest of the first round's totals as K3 rolls them (dV = [-1, 0]:
+# a candidate passes where its total is lower): those lanes accept only
+# candidates of later rounds. K2's decisions are held bit for bit to the
+# accept rule on K3's totals, its stream to its plain version's (or, where
+# the kernel parts from it in the last bits, to the plain re-roll at the
+# kernel's α)
+LADDER_AS = (9, 11, 16, 40)
+LADDER_T = LTI_T_PLAIN
+# the demos run at their defaults except these, cut to keep the demos
+# phase under a minute: the generic tier is host-bound f64 on the card
+# (measured on an H100: demo_linear 14.3 s at T=1000, demo_linear_kl's 5
+# outer solves 45.5 s at T=300, demo_pendcart 12.4 s at T=300 with 20
+# iterations; its own budget is 1000 iterations at T=600)
+DEMO_CUTS = {"linear": dict(T=300), "linear_kl": dict(T=100),
+             "pendcart": dict(T=200, max_iter=20)}
+# the aot phase's demo_linear solve, cut from T=1000 (10.7 s a solve on the
+# card, five of them in the phase)
+AOT_LINEAR_T = 200
+
+
+def ladder_cfg():
+    """The headline's config with ``ILQGConfig()``'s own 11-α ladder."""
+    import dataclasses
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig)
+    return dataclasses.replace(headline_cfg(), alphas=ILQGConfig().alphas)
+
+
+def demos_cpu_solves() -> dict:
+    """The ladder and demos phases' CPU plain solves on B_CPU lanes (the
+    ``--demos-cpu`` child): the headline fleet with the 11-α ladder (T=500,
+    20 iterations), ``demo_fleet``'s first B_CPU lanes at its settings
+    (T=500, 20 iterations) and ``demo_quadrotor``'s at T=QUAD_T_CPU."""
+    from differentialdynamicprogramming_jl_tpu_torch import demos
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles, pendcart_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec, quadrotor_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    spec, qspec = PendCartSpec(), QuadrotorSpec()
+    model, tiles = pendcart_lanes(spec), pendcart_derivs_tiles(spec)
+    qmodel = quadrotor_lanes(qspec)
+    f32 = torch.float32
+    fx, fu = demos._fleet_inputs(B, T, f32, "cpu")
+    qx, qu = demos._quad_inputs(B, QUAD_T_CPU, f32, "cpu")
+    runs = {
+        "ladder-fleet": lambda: ilqg_batch_lanes(
+            model, None, torch.tensor(headline_x0()[:B_CPU], dtype=f32),
+            torch.zeros((B_CPU, T, 1)), lims=LIMS, cfg=ladder_cfg(),
+            derivs_tiles=tiles, max_steps=ITERS),
+        "demo-fleet": lambda: ilqg_batch_lanes(
+            model, None, fx[:B_CPU], fu[:B_CPU], lims=LIMS,
+            cfg=demos._fleet_cfg(ITERS), derivs_tiles=tiles),
+        "demo-quadrotor": lambda: ilqg_batch_lanes(
+            qmodel, None, qx[:B_CPU], qu[:B_CPU], lims=qspec.lims,
+            cfg=demos._quad_cfg(30), derivs_tiles=autodiff_derivs_tiles(
+                qmodel))}
+    out = {}
+    for label, run in runs.items():
+        t0 = time.perf_counter()
+        r = run()
+        out[label] = dict(cost_total=r.cost_total.tolist(),
+                          reason=r.reason.tolist(),
+                          n_accepted=r.n_accepted.tolist(),
+                          seconds=time.perf_counter() - t0)
+    return out
+
+
+def agree_cpu(what: str, g, c: dict) -> None:
+    """A card solve's first lanes against the CPU child's solve of the same
+    lanes: the shares of lanes whose cost agrees to COST_RTOL and whose
+    reason and accepted count agree, each at least AGREE_SHARE."""
+    n = len(c["cost_total"])
+    gc = g.cost_total[:n].cpu().double()
+    cc = torch.tensor(c["cost_total"], dtype=torch.float64)
+    rel = (gc - cc).abs() / cc.abs()
+    close = (rel <= COST_RTOL).float().mean().item()
+    same_r = (g.reason[:n].cpu() == torch.tensor(c["reason"])).float().mean()
+    same_a = (g.n_accepted[:n].cpu()
+              == torch.tensor(c["n_accepted"])).float()
+    print(f"  {what} against the CPU solve of the same {len(cc)} lanes "
+          f"({c['seconds']:.1f} s there): cost within {COST_RTOL:.0e} "
+          f"{close:.3f}, same reason {same_r.item():.3f}, same accepted "
+          f"{same_a.mean().item():.3f}, max rel {rel.max().item():.3e} "
+          f"(need {AGREE_SHARE} each)")
+    check(min(close, same_r.item(), same_a.mean().item()) >= AGREE_SHARE,
+          f"{what}: card and CPU outcomes differ")
+
+
+def ladder_inputs(model, tiles, lims, dev, Tk: int, seed: int):
+    """x0 (n, B), a K3-rolled [x, u, c] stream of random controls and K1's
+    gains on it, for the kernels' checks at B lanes and Tk steps."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, forward_kernel as fk)
+    rng = np.random.default_rng(seed)
+    n, m = model.n, model.m
+    f32 = dict(dtype=torch.float32, device=dev)
+    if n == 4:
+        x0 = (np.array([np.pi - 0.6, 0, 0, 0])[:, None]
+              + np.array([0.2, 0.2, 0, 0])[:, None]
+              * rng.standard_normal((4, B)))
+        u = 2.0 * rng.standard_normal((Tk, 1, B))
+    elif n == 6:
+        x0 = np.ascontiguousarray(quad_x0(rng).T)
+        u = 2.4525 + 1.5 * rng.standard_normal((Tk, 2, B))
+    else:
+        x0 = (np.linspace(0.5, 2.0, B)[None, :]
+              + 0.3 * rng.standard_normal((n, B)))
+        u = 0.5 * rng.standard_normal((Tk, m, B))
+    x0 = torch.tensor(x0, **f32)
+    gains0 = torch.cat([torch.tensor(u, **f32),
+                        torch.zeros((Tk, m * n, B), device=dev)], dim=1)
+    traj = fk.forward_lanes(torch.zeros((Tk, n + m, B), device=dev), gains0,
+                            x0, torch.ones((1, B), device=dev), model=model,
+                            lims=lims, emit_traj=True).traj
+    gains = bk.backward_lanes(traj, torch.ones(B, device=dev), n=n, m=m,
+                              reg_type=2, lims=lims, derivs_tiles=tiles,
+                              emit="gains").out
+    return x0, traj, gains
+
+
+def ladder_phases(ph, dev, rec, counters, ilqg, builds, cpu_proc) -> dict:
+    """The ladder group: K3 and K2 at A ∈ LADDER_AS against their plain
+    versions at LADDER_T steps on the pendcart (bit for bit), LTI <10,2>,
+    the quadrotor and the lowered quadrotor (KERNEL_TOL); K2 and K3 at
+    A=11 against A=6 at the headline's shape; the headline fleet with
+    ``ILQGConfig()``'s 11-α ladder, its 64 lanes against the CPU."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles, pendcart_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec, quadrotor_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        default_alphas)
+    ph.start("ladder-kernels", f"K3, K2 at A={LADDER_AS} against their plain "
+             f"versions, B={B}, T={LADDER_T}")
+    spec, qspec = PendCartSpec(), QuadrotorSpec()
+    pend, ptiles = pendcart_lanes(spec), pendcart_derivs_tiles(spec)
+    quad = quadrotor_lanes(qspec)
+    qtiles = autodiff_derivs_tiles(quad)
+    lspec = random_lti(0, n=LTI_N, m=LTI_M, T=LADDER_T, device=dev)
+    cases = (("pendcart", pend, ptiles, LIMS, True),
+             ("LTI <10,2>", lti_lanes(lspec), lti_derivs_tiles(lspec),
+              LTI_LIMS, False),
+             ("quadrotor", quad, qtiles, qspec.lims, False),
+             ("lowered quadrotor", builds[0]["quad"], qtiles, qspec.lims,
+              False))
+    late_total = 0
+    worst = {}
+    for i, (label, model, tiles, lims, bits) in enumerate(cases):
+        x0, traj, gains = ladder_inputs(model, tiles, lims, dev, LADDER_T,
+                                        40 + i)
+        odd = torch.arange(B, device=dev) % 2 == 1
+        gains[:, :model.m, odd] *= -1.0
+        for A in LADDER_AS:
+            al = torch.tensor(np.random.default_rng(A).uniform(
+                0.0, 1.0, (A, B)), dtype=torch.float32, device=dev)
+            n0 = fk.forward_lanes.launches
+            k = fk.forward_lanes(traj, gains, x0, al, model=model, lims=lims,
+                                 emit_traj=True)
+            check(fk.forward_lanes.launches - n0 == -(-A // 8),
+                  f"K3 A={A}: {fk.forward_lanes.launches - n0} launches")
+            p = fk.forward_lanes_ref(traj, gains, x0, al, model=model,
+                                     lims=lims, emit_traj=True)
+            kw = dict(model=model, alphas=default_alphas(0.2, -3.0, A),
+                      reduce_ratio_min=0.0, lims=lims, gk=0, gK=model.m)
+            lad = torch.tensor(kw["alphas"], device=dev)[:, None].expand(
+                A, B).contiguous()
+            # the kernel's own candidate totals (K2's pass 1 rolls each
+            # candidate with K3's operations, so the same bits)
+            ktot = fk.forward_lanes(traj, gains, x0, lad, model=model,
+                                    lims=lims).totals
+            ctot = torch.where(odd, ktot[:8].amin(0), traj[:, -1].sum(0))
+            sel = torch.stack([
+                -torch.ones(B, device=dev), torch.zeros(B, device=dev), ctot,
+                (torch.arange(B, device=dev) % 3 != 1).float()])
+            k2 = fk.linesearch_lanes(traj, gains, x0, sel, **kw)
+            # its decision: the accept rule on those totals, bit for bit
+            al_sel, found, dc, rt, al_eff = fk._accept(
+                ktot, sel, kw["alphas"], 0.0)
+            check_bits(f"{label} K2 A={A} decision", (k2.ls[:4], torch.stack(
+                [al_sel, found.float(), dc, rt])), to="the accept rule on "
+                "K3's totals")
+            taken = k2.ls[1] > 0.5
+            late = int((taken & (k2.ls[0] < np.float32(kw["alphas"][7]))
+                        ).sum())
+            late_total += late
+            check(bool((k2.ls[0][taken & odd] < np.float32(
+                kw["alphas"][7])).all()), f"{label} K2 A={A}: a lane took a "
+                  "first-round α over the first round's lowest total")
+            if bits:
+                p2 = fk.linesearch_lanes_ref(traj, gains, x0, sel, **kw)
+                check_bits(f"{label} A={A}", (k.totals, p.totals),
+                           (k.traj, p.traj), (k2.traj, p2.traj),
+                           (k2.ls, p2.ls))
+                e = 0.0
+            else:
+                # the plain re-roll at the kernel's α_eff: near ties of the
+                # old total may decide apart between the two versions
+                p2 = fk.forward_lanes_ref(traj, gains, x0, al_eff[None],
+                                          model=model, lims=lims,
+                                          emit_traj=True)
+                e = k_vs_plain(f"{label} A={A}", {
+                    "K3 totals": (k.totals, p.totals),
+                    "K3 traj": (k.traj, p.traj),
+                    "K2 traj": (k2.traj, p2.traj),
+                    "K2 total": (k2.ls[4], p2.totals[0])})
+            worst[label] = max(worst.get(label, 0.0), e)
+            print(f"  {label} A={A}: K3 {-(-A // 8)} launches, K2 one; "
+                  f"{late} lanes took an α past the first round")
+    check(late_total > 0, "no lane took a candidate past the first round")
+    with_65 = False
+    try:
+        fk.linesearch_lanes(traj, gains, x0, sel, model=model,
+                            alphas=default_alphas(0.2, -3.0, 65),
+                            lims=lims)
+    except ValueError as ex:
+        with_65 = "65 alphas" in str(ex)
+    check(with_65, "K2 took a 65-α ladder")
+    print("  K2 refuses a 65-α ladder (ValueError)")
+
+    # times at the headline's shape: A=11 against A=6
+    x0, traj, gains = ladder_inputs(pend, ptiles, LIMS, dev, T, 50)
+    sel = torch.stack([-torch.ones(B, device=dev), torch.zeros(B, device=dev),
+                       traj[:, -1].sum(0), torch.ones(B, device=dev)])
+    t = {}
+    for A in (6, 11):
+        lad = torch.tensor(default_alphas(0.2, -3.0, A), device=dev)[
+            :, None].expand(A, B).contiguous()
+
+        def k3(f=fk.forward_lanes, lad=lad):
+            return f(traj, gains, x0, lad, model=pend, lims=LIMS)
+
+        def k2(f=fk.linesearch_lanes, A=A):
+            return f(traj, gains, x0, sel, model=pend,
+                     alphas=default_alphas(0.2, -3.0, A),
+                     reduce_ratio_min=0.0, lims=LIMS)
+        t[A] = dict(k3=cuda_ms(k3, 20), k2=cuda_ms(k2, 20))
+        if A == 11:
+            a3, b3 = k3(), k3(fk.forward_lanes_ref)
+            a2, b2 = k2(), k2(fk.linesearch_lanes_ref)
+            check_bits("pendcart A=11 at T=500", (a3.totals, b3.totals),
+                       (a2.traj, b2.traj), (a2.ls, b2.ls))
+            plain = dict(k3=once_ms(lambda: k3(fk.forward_lanes_ref)),
+                         k2=once_ms(lambda: k2(fk.linesearch_lanes_ref)))
+    print(f"  at B={B}, T={T}: K2 A=11 {t[11]['k2']:.4f} ms against A=6 "
+          f"{t[6]['k2']:.4f} ms ({t[11]['k2'] / t[6]['k2']:.2f}×); K3 sweep "
+          f"A=11 {t[11]['k3']:.4f} ms (two launches) against A=6 "
+          f"{t[6]['k3']:.4f} ms ({t[11]['k3'] / t[6]['k3']:.2f}×); plain "
+          f"K2 {plain['k2']:.1f} ms, K3 {plain['k3']:.1f} ms")
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    print(f"  plans: K2 A=11 {plan_text(plan.linesearch_plan(4, 1, 11, T, B))}"
+          f"; K3 A=11 groups {plan.k3_groups(11)}")
+    rec["k2_pendcart_a11"] = dict(
+        max_abs_err=0.0, ms=t[11]["k2"], plain_ms=plain["k2"],
+        ms_a6=t[6]["k2"], library_ms=None, **k2_work(pend, T, B, 11))
+    rec["k3_pendcart_a11"] = dict(
+        max_abs_err=0.0, ms=t[11]["k3"], plain_ms=plain["k3"],
+        ms_a6=t[6]["k3"], library_ms=None, **k3_work(pend, T, B, 11, False))
+    rec["ladder_worst"] = worst
+
+    ph.start("ladder-fleet", f"ilqg_batch_lanes, pendcart B={B} T={T}, "
+             f"ILQGConfig()'s 11-α ladder, max_steps={ITERS}")
+    cfg = ladder_cfg()
+    check(len(cfg.alphas) == 11, "the default ladder is not 11 α")
+    x0s = ilqg["x0s"]
+    u0s = torch.zeros((B, T, 1), device=dev)
+
+    def solve(x, u):
+        return ilqg_batch_lanes(pend, None, x, u, lims=LIMS, cfg=cfg,
+                                derivs_tiles=ptiles, max_steps=ITERS)
+
+    solve(x0s, u0s)                         # warm-up
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def timed():
+        s.record()
+        out = solve(x0s, u0s)
+        e.record()
+        return out
+
+    r, launches = counted(counters, timed)
+    iters = int(r.n_iters.max())
+    ms = s.elapsed_time(e)
+    print(f"  launches: {launches}")
+    print(f"  solve {ms:.3f} ms, {ms / max(iters, 1):.4f} ms/iter over "
+          f"{iters} iterations, against the 6-α headline's "
+          f"{ilqg['ms_iter']:.4f} ms/iter")
+    ct = r.cost_total
+    check(bool(torch.isfinite(ct[r.reason != 5]).all()), "non-finite cost")
+    check(ct.median() < ilqg["cost_total"].median() * 1.5,
+          "the 11-α fleet's median cost is far above the 6-α fleet's")
+    print(f"  cost_total median {ct.median().item():.6g} (6-α "
+          f"{ilqg['cost_total'].median().item():.6g}); reasons "
+          f"{ {int(v): int(c) for v, c in zip(*torch.unique(r.reason, return_counts=True))} }")
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the 11-α path never ran: {launches}")
+    g = solve(x0s[:B_CPU], u0s[:B_CPU])
+    agree_cpu("ladder-fleet", g, child_solves(cpu_proc)["ladder-fleet"])
+    rec["ladder_fleet"] = dict(ms=ms, iters=iters,
+                               ms_iter=ms / max(iters, 1))
+    return {"ladder": launches}
+
+
+def demos_phases(ph, dev, counters, cpu_proc) -> dict:
+    """The demos group: ``demos.main``'s registry, help and exit codes;
+    ``main(["boxqp"])``, ``main(["fleet"])`` and ``main(["quadrotor"])`` on
+    the card at their defaults (B=4096), each counted; the fleet's and the
+    quadrotor's first B_CPU lanes against the CPU child's solves (the
+    quadrotor at T=QUAD_T_CPU); demo_mpc (lanes tier) at its
+    defaults; demo_linear, demo_linear_kl and demo_pendcart cut
+    (DEMO_CUTS)."""
+    from differentialdynamicprogramming_jl_tpu_torch import demos
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec, quadrotor_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    ph.start("demos", "the demos' tour on the card")
+    check(demos.main(["--help"]) == 0, "demos --help")
+    check(demos.main(["no-such-demo"]) == 2, "demos: unknown name")
+    paths, walls = {}, {}
+    for name in ("boxqp", "fleet", "quadrotor"):
+        t0 = time.perf_counter()
+        rc, paths[f"demos_{name}"] = counted(
+            counters, lambda: demos.main([name]))
+        walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"demos {name}: exit {rc}")
+    check(paths["demos_fleet"]["backward_lanes"] > 0
+          and paths["demos_quadrotor"]["backward_lanes"] > 0,
+          f"the demos launched no K1: {paths}")
+    res = demos.demo_fleet()
+    check(res.x.shape == (B, T, 4), "demo_fleet: B=4096, T=500")
+    check(bool(torch.isfinite(res.cost_total).all()), "demo_fleet: cost")
+    c = child_solves(cpu_proc)
+    agree_cpu("demo_fleet", res, c["demo-fleet"])
+    q = demos.demo_quadrotor()
+    qspec = QuadrotorSpec()
+    check(q.u.shape == (B, QUAD_T, 2), "demo_quadrotor: B=4096, T=400")
+    check(float(q.u.min()) >= qspec.lims[0][0]
+          and float(q.u.max()) <= qspec.lims[0][1], "thrust box broken")
+    check(bool(torch.isfinite(q.cost_total).all()), "demo_quadrotor: cost")
+    print(f"  demo_quadrotor's first {B_CPU} lanes cut to "
+          f"T={QUAD_T_CPU} on the card and on the CPU (the plain AD "
+          f"tiles cost ≈80 ms a step there)")
+    qm = quadrotor_lanes(qspec)
+    qx, qu = demos._quad_inputs(B, QUAD_T_CPU, torch.float32, dev)
+    g = ilqg_batch_lanes(qm, None, qx[:B_CPU], qu[:B_CPU], lims=qspec.lims,
+                         cfg=demos._quad_cfg(30),
+                         derivs_tiles=autodiff_derivs_tiles(qm))
+    agree_cpu("demo_quadrotor", g, c["demo-quadrotor"])
+    t0 = time.perf_counter()
+    x, errs = demos.demo_mpc(device=dev)
+    walls["mpc"] = time.perf_counter() - t0
+    check(bool(torch.isfinite(x).all()) and len(errs) == 40, "demo_mpc")
+    for name, fn in (("linear", demos.demo_linear),
+                     ("linear_kl", demos.demo_linear_kl),
+                     ("pendcart", demos.demo_pendcart)):
+        cut = DEMO_CUTS[name]
+        print(f"  {name}: cut to {cut}")
+        t0 = time.perf_counter()
+        r = fn(**cut)
+        walls[name] = time.perf_counter() - t0
+        check(bool(torch.isfinite(r.cost).all()), f"demo {name}: cost")
+    print(f"  demo walls (s): "
+          f"{ {k: round(v, 3) for k, v in walls.items()} }")
+    return paths
+
+
+AOT_SERVE = """
+import sys, time
+import numpy as np
+import torch
+from differentialdynamicprogramming_jl_tpu_torch.utils.aot import load_solver
+d, n = sys.argv[1], int(sys.argv[2])
+dev = torch.device("cuda", 0)
+args = [torch.from_numpy(np.load(f"{d}/arg{i}.npy")).to(dev)
+        for i in range(n)]
+t0 = time.perf_counter()
+serve = load_solver(f"{d}/solver.bin")
+res = serve(*args)
+torch.cuda.synchronize()
+first = time.perf_counter() - t0
+t0 = time.perf_counter()
+res = serve(*args)
+torch.cuda.synchronize()
+again = time.perf_counter() - t0
+try:
+    serve(*[a[:-1] for a in args])
+    refused = False
+except ValueError as ex:
+    refused = "shape mismatch" in str(ex)
+for k, v in res._asdict().items():
+    if isinstance(v, torch.Tensor):
+        np.save(f"{d}/out_{k}.npy", v.cpu().numpy())
+print(type(res).__name__, first, again, refused)
+"""
+
+
+def aot_phase(ph, dev, counters) -> dict:
+    """The aot group: the headline lane solve and demo_linear's generic
+    solve exported on the card, each served from its bytes here and in a
+    fresh process that never defined its closure: bit for bit the direct
+    call, the served times against the direct one, a wrong B refused with
+    ValueError."""
+    import os
+    import tempfile
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        make_lti_problem, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles, pendcart_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig, ilqg)
+    from differentialdynamicprogramming_jl_tpu_torch.utils.aot import (
+        deserialize_solver, export_solver)
+    ph.start("aot", "export the headline lane solve and demo_linear's, serve "
+             "each in a fresh process")
+    spec = PendCartSpec()
+    model, tiles = pendcart_lanes(spec), pendcart_derivs_tiles(spec)
+    cfg = headline_cfg()
+
+    def lanes(x0s, u0s):
+        return ilqg_batch_lanes(model, None, x0s, u0s, lims=LIMS, cfg=cfg,
+                                derivs_tiles=tiles, max_steps=ITERS)
+
+    print(f"  demo_linear's solve cut to T={AOT_LINEAR_T} (its default "
+          f"{LTI_T})")
+    lspec = random_lti(0, n=LTI_N, m=LTI_M, T=AOT_LINEAR_T,
+                       dtype=torch.float64, device=dev)
+    prob = make_lti_problem(lspec, AOT_LINEAR_T)
+
+    def linear(x0, u0):
+        return ilqg(prob, x0, u0, cfg=ILQGConfig())
+
+    x0s = torch.tensor(headline_x0(), dtype=torch.float32, device=dev)
+    jobs = {"lanes": (lanes, (x0s, torch.zeros((B, T, 1), device=dev))),
+            "linear": (linear, (lspec.x0.clone(), lspec.u0.clone()))}
+    root = tempfile.mkdtemp(prefix="ddp_aot_")
+    out, paths = {}, {}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    for name, (fn, args) in jobs.items():
+        if name == "lanes":
+            fn(*args)                           # warm-up
+        (res, paths[f"aot_{name}"]), direct_s = wall(
+            lambda: counted(counters, lambda: fn(*args)))
+        ex = export_solver(fn, *args)
+        blob = ex.serialize()
+        print(f"  {name}: entry {ex.recipe['entry']}, {len(blob)} bytes, "
+              f"{len(ex.consts)} constants, kernels "
+              f"{ex.recipe['kernels']['launches']}")
+        # served here, beside the direct call: the recipe's own overhead
+        serve = deserialize_solver(blob)
+        here, here_s = wall(lambda: serve(*args))
+        check(type(here) is type(res), f"aot {name}: served a "
+              f"{type(here).__name__}")
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        with open(os.path.join(d, "solver.bin"), "wb") as f:
+            f.write(blob)
+        for i, a in enumerate(args):
+            np.save(os.path.join(d, f"arg{i}.npy"), a.cpu().numpy())
+        # and in a fresh process that never defined fn
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-c", AOT_SERVE, d, str(len(args))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        CHILDREN.append(p)
+        so, se = p.communicate(timeout=600)
+        check(p.returncode == 0, f"aot {name}: the serving process failed "
+              f"({p.returncode}): {se[-2000:]}")
+        kind, first, again, refused = so.split()[-4:]
+        check(refused == "True", f"aot {name}: a wrong B was not refused")
+        check(kind == type(res).__name__,
+              f"aot {name}: served a {kind}, not a {type(res).__name__}")
+        fields = {k: (torch.from_numpy(np.load(os.path.join(
+            d, f"out_{k}.npy"))), v.cpu())
+            for k, v in res._asdict().items() if isinstance(v, torch.Tensor)}
+        check(bits_or_parts(f"aot {name} served in a fresh process", fields),
+              f"aot {name}: the served result is not the direct one")
+        check(bits_or_parts(f"aot {name} served here", {
+            k: (getattr(here, k), v) for k, v in res._asdict().items()
+            if isinstance(v, torch.Tensor)}),
+            f"aot {name}: the result served here is not the direct one")
+        out[name] = dict(direct_s=direct_s, served_here_s=here_s,
+                         served_first_s=float(first), served_s=float(again),
+                         process_s=time.perf_counter() - t0)
+        fresh = float(again)
+        print(f"  {name}: direct {direct_s * 1e3:.1f} ms; served here "
+              f"{here_s * 1e3:.1f} ms ({here_s / direct_s:.3f}×); in a fresh "
+              f"process {fresh * 1e3:.1f} ms ({fresh / direct_s:.3f}×), its "
+              f"first call with the library's load {float(first):.2f} s, the "
+              f"process {out[name]['process_s']:.1f} s; a wrong B refused")
+    return paths, out
+
+
 def main() -> int:
     ph = Phases()
     ph.start("device")
@@ -6270,7 +6816,8 @@ def main() -> int:
     cpu_proc = start_cpu_child("--packed-cpu")
     m3_proc = start_cpu_child("--m3-cpu")
     tiles_proc = start_cpu_child("--tiles-cpu")
-    CHILDREN.extend([cpu_proc, m3_proc, tiles_proc])
+    demos_proc = start_cpu_child("--demos-cpu")
+    CHILDREN.extend([cpu_proc, m3_proc, tiles_proc, demos_proc])
 
     ph.start("ilqg-kernels", f"vs plain versions, B={B}, T={T}")
     spec = PendCartSpec()
@@ -6475,7 +7022,7 @@ def main() -> int:
           f"solution stream bit for bit")
     launches_ilqg = launches
     ilqg = dict(cfg=cfg, x0s=x0s, cost_total=ct, reason=r.reason,
-                n_accepted=r.n_accepted)
+                n_accepted=r.n_accepted, ms_iter=solve_ms / max(iters, 1))
     del r, bo, out, st
 
     ph.start("ilqg-gpu-vs-cpu", f"first {B_CPU} scenarios, T={T}, "
@@ -6517,6 +7064,13 @@ def main() -> int:
     paths.update(tiles_phases(ph, dev, rec, counters, tbuilds, tiles_proc))
     tiles_group = dict(seconds=rec.pop("tiles")["seconds"],
                        builds=rec.pop("tiles_builds"))
+    paths.update(ladder_phases(ph, dev, rec, counters, ilqg, builds,
+                               demos_proc))
+    ladder = dict(fleet=rec.pop("ladder_fleet"),
+                  worst=rec.pop("ladder_worst"))
+    paths.update(demos_phases(ph, dev, counters, demos_proc))
+    aot_paths, aot = aot_phase(ph, dev, counters)
+    paths.update(aot_paths)
 
     # ---- record and result: one entry per kernel instance, its launches
     #      summed over the paths that run it
@@ -6534,7 +7088,8 @@ def main() -> int:
     fleet_kl = ("fleet_kl", "fleet_kl_step", "sharded_kl")
     instances = (   # record key, wrapper, instance, source, TPU kernel, paths
         ("k1_pendcart", "backward_lanes", "pendcart <4,1> gains, full",
-         "backward.cu", k1, ("ilqg",) + fleet_pend),
+         "backward.cu", k1, ("ilqg", "ladder", "demos_fleet", "aot_lanes")
+         + fleet_pend),
         ("k1_pendcart_mpc", "backward_lanes",
          "pendcart <4,1> gains, full, T=300", "backward.cu", k1,
          ("mpc", "iteration")),
@@ -6546,7 +7101,7 @@ def main() -> int:
          "backward_lti_gps.cu", k1, ("kl_lti", "gps_lti")),
         ("k1_quad", "backward_lanes",
          "Autodiff<Quadrotor> <6,2> gains, full", "backward_quad.cu", k1,
-         ("quad",)),
+         ("quad", "demos_quadrotor")),
         ("k1_pendcart_ad", "backward_lanes",
          "Autodiff<PendCart> <4,1> gains, full", "backward_pendcart_ad.cu",
          k1, ("ilqg_ad",)),
@@ -6560,7 +7115,10 @@ def main() -> int:
          "LTI <10,2> gains, full, per-scenario limits", "backward_lti.cu", k1,
          ("hetero_lti",)),
         ("k2_pendcart", "linesearch_lanes", "pendcart <4,1>", "forward.cu", k2,
-         ("ilqg", "tiles_so") + fleet_pend),
+         ("ilqg", "tiles_so", "demos_fleet", "aot_lanes") + fleet_pend),
+        ("k2_pendcart_a11", "linesearch_lanes",
+         "pendcart <4,1> A=11 (ILQGConfig()'s ladder, two rounds)",
+         "forward.cu", k2, ("ladder",)),
         ("k2_pendcart_mpc", "linesearch_lanes", "pendcart <4,1> A=4, T=300",
          "forward.cu", k2, ("mpc",)),
         ("k2_pendcart_inplace", "linesearch_lanes",
@@ -6577,9 +7135,13 @@ def main() -> int:
         ("k2_lti", "linesearch_lanes", "LTI <10,2>", "forward_lti.cu", k2,
          ("lti", "fleet_lti")),
         ("k2_quad", "linesearch_lanes", "quadrotor <6,2>", "forward_quad.cu",
-         k2, ("quad",)),
+         k2, ("quad", "demos_quadrotor")),
         ("k3_pendcart", "forward_lanes", "pendcart <4,1>", "forward.cu", k3,
-         ("ilqg", "kl", "gps", "tiles_so") + fleet_pend + fleet_kl),
+         ("ilqg", "kl", "gps", "tiles_so", "demos_fleet", "aot_lanes")
+         + fleet_pend + fleet_kl),
+        ("k3_pendcart_a11", "forward_lanes",
+         "pendcart <4,1> A=11 sweep (launches of 8 and 3)", "forward.cu", k3,
+         ("ladder",)),
         ("k3_pendcart_mpc", "forward_lanes", "pendcart <4,1> A=1, T=300",
          "forward.cu", k3, ("mpc",)),
         ("k3_pendcart_param", "forward_lanes",
@@ -6593,7 +7155,7 @@ def main() -> int:
         ("k3_lti", "forward_lanes", "LTI <10,2>", "forward_lti.cu", k3,
          ("lti", "kl_lti", "gps_lti", "fleet_lti")),
         ("k3_quad", "forward_lanes", "quadrotor <6,2>", "forward_quad.cu", k3,
-         ("quad",)),
+         ("quad", "demos_quadrotor")),
         ("k1_lti3", "backward_lanes",
          "LTI <10,3> gains, full (masked box QP; Cholesky unconstrained)",
          "backward_lti_10_3.cu", k1, ("m3_lti", "m3_fleet")),
@@ -6716,6 +7278,8 @@ def main() -> int:
     print(json.dumps({"m3": m3}))
     print(json.dumps({"lowered": lowered}))
     print(json.dumps({"tiles": tiles_group}))
+    print(json.dumps({"ladder": ladder}))
+    print(json.dumps({"aot": aot}))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
@@ -6739,6 +7303,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--tiles-cpu"]:
         print(json.dumps(tiles_cpu_solves()))
+        sys.exit(0)
+    if sys.argv[1:] == ["--demos-cpu"]:
+        print(json.dumps(demos_cpu_solves()))
         sys.exit(0)
     try:
         rc = main()

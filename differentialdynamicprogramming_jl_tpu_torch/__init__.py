@@ -38,6 +38,12 @@ GPS mode, forward rollout, fused line search, covariance propagation) and
 the bandwidth probe are CUDA C++ under ``ops/hopper/csrc/``, built with
 ``nvcc`` at first use; each has a plain PyTorch version beside it, which
 runs for CPU tensors.
+Around them: the JAX package's demos (:mod:`.demos`, ``python -m
+differentialdynamicprogramming_jl_tpu_torch.demos``), the pendcart's LQR
+baseline, ``.npz`` checkpoints (:mod:`.utils.serialization`), per-phase
+timing (:mod:`.utils.profiling`), optional plots (:mod:`.utils.plotting`),
+and solver export as a recipe of the recorded solver call
+(:func:`serialize_solver`, :mod:`.utils.aot`).
 Inputs that are not tensors go to the CUDA card (:mod:`.device`).
 
 Nothing in this package imports ``jax``.
@@ -70,6 +76,8 @@ from .models.linear import (LTISpec, random_lti, make_lti_problem,
                             lti_lanes, lti_derivs_tiles, SimpleLTVModel)
 from .ops.hopper.autodiff_tiles import (autodiff_derivs_tiles,
                                         autodiff_packed_derivs)
+from .utils.aot import (export_solver, serialize_solver, deserialize_solver,
+                        save_solver, load_solver)
 
 __version__ = "0.1.0"
 
@@ -95,4 +103,6 @@ __all__ = [
     "make_pendcart_problem", "default_x0", "default_lims",
     "LTISpec", "random_lti", "make_lti_problem", "lti_lanes",
     "lti_derivs_tiles", "SimpleLTVModel", "forward_covariance",
+    "export_solver", "serialize_solver", "deserialize_solver",
+    "save_solver", "load_solver",
 ]

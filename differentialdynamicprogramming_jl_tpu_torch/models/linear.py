@@ -32,6 +32,7 @@ from ..ops.hopper.forward_kernel import DeviceModel, LanesModel
 from ..ops.hopper.pack import packed_from_tiles
 from ..policy import Derivs
 from ..problem import Problem, broadcast_derivs
+from ..utils.aot import factory
 
 MODEL_ID = 2   # csrc/lti.cuh: MODEL_LTI
 
@@ -70,6 +71,7 @@ def random_lti(key: Union[int, torch.Generator] = 0, n: int = 10, m: int = 2,
         torch.ones(n, dtype=f64), u0)))
 
 
+@factory
 def make_lti_problem(spec: LTISpec, T: int,
                      use_autodiff: bool = False) -> Problem:
     """The :class:`~..problem.Problem` of an LTI spec, its functions
@@ -135,6 +137,7 @@ def _lincomb(M: np.ndarray, vec, zero):
     return out
 
 
+@factory
 def lti_lanes(spec: LTISpec) -> LanesModel:
     """Lane model: dynamics and running cost on lists of per-scenario
     tensors with the zero-skipping rule, no terminal cost, and the
@@ -160,6 +163,7 @@ def lti_lanes(spec: LTISpec) -> LanesModel:
                       device=device_model(spec))
 
 
+@factory
 def lti_derivs_tiles(spec: LTISpec) -> DerivsTiles:
     """In-kernel derivatives: the constant A, B, Q, R, and cx = Q·x,
     cu = R·u with the zero-skipping rule."""
@@ -181,6 +185,7 @@ def lti_derivs_tiles(spec: LTISpec) -> DerivsTiles:
     return DerivsTiles(fn=tiles, device=device_model(spec))
 
 
+@factory
 def lti_packed_derivs(spec: LTISpec):
     """K1's packed-derivatives generator: ``(x_s (T, n, B), u_s (T, m, B))
     → (T, D+m, B)`` (258 slots at ⟨10,2⟩), the tiles of

@@ -6,8 +6,9 @@ Counterpart of ``differentialdynamicprogramming_jl_tpu/models/pendcart.py``
 ``pendcart_derivs_tiles`` ``:233-263``, ``pendcart_derivs_tiles_so``
 ``:267-290``, ``pendcart_lanes_param`` ``:295-328``,
 ``pendcart_derivs_tiles_param`` ``:332-359``, ``default_lims``,
-``default_x0``): the Euler step of the reference dynamics
-(``src/system_pendcart.jl:75-89``), the diagonal quadratic cost with its
+``default_x0``, and the LQR baseline ``care``, ``lqr``,
+``linearized_upright`` and ``simulate_pendcart`` ``:376-431``): the Euler
+step of the reference dynamics (``src/system_pendcart.jl:75-89``), the diagonal quadratic cost with its
 terminal term (``:92-106``) and the analytic Jacobians of the Euler step,
 written as functions over per-dimension ``(B,)`` tensors. The plain kernel
 versions call these directly.
@@ -35,12 +36,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import as_tensor, like, resolve
 from ..ops.hopper.backward_kernel import DerivsTiles
 from ..ops.hopper.forward_kernel import DeviceModel, LanesModel
 from ..ops.hopper.pack import packed_from_tiles
 from ..policy import Derivs
 from ..problem import Problem
+from ..utils.aot import factory
 
 # reference constants (src/system_pendcart.jl:42-60)
 GRAV = 9.82
@@ -74,6 +76,7 @@ def dynamics_continuous(x, u, spec: PendCartSpec):
     ], dim=-1)
 
 
+@factory
 def make_pendcart_problem(spec: PendCartSpec = PendCartSpec(),
                           derivs: str = "zoh", dtype=torch.float32,
                           device=None) -> Problem:
@@ -273,6 +276,7 @@ def _derivs_tiles(spec: PendCartSpec, param: bool) -> DerivsTiles:
     return DerivsTiles(fn=tiles, device=dm, n_params=2 if param else 0)
 
 
+@factory
 @functools.lru_cache(maxsize=32)
 def pendcart_lanes(spec: PendCartSpec = PendCartSpec()) -> LanesModel:
     """Lane model: dynamics, running cost and terminal cost on lists of
@@ -280,6 +284,7 @@ def pendcart_lanes(spec: PendCartSpec = PendCartSpec()) -> LanesModel:
     return _lanes(spec, param=False)
 
 
+@factory
 @functools.lru_cache(maxsize=32)
 def pendcart_derivs_tiles(spec: PendCartSpec = PendCartSpec()) -> DerivsTiles:
     """In-kernel derivatives: the analytic Euler-step Jacobians and cost
@@ -288,6 +293,7 @@ def pendcart_derivs_tiles(spec: PendCartSpec = PendCartSpec()) -> DerivsTiles:
     return _derivs_tiles(spec, param=False)
 
 
+@factory
 @functools.lru_cache(maxsize=32)
 def pendcart_packed_derivs(spec: PendCartSpec = PendCartSpec()):
     """K1's packed-derivatives generator: ``(x_s (T, 4, B), u_s (T, 1, B))
@@ -297,6 +303,7 @@ def pendcart_packed_derivs(spec: PendCartSpec = PendCartSpec()):
     return packed_from_tiles(_derivs_tiles(spec, param=False), 4, 1)
 
 
+@factory
 @functools.lru_cache(maxsize=32)
 def pendcart_derivs_tiles_so(spec: PendCartSpec = PendCartSpec()
                              ) -> DerivsTiles:
@@ -330,6 +337,7 @@ def pendcart_derivs_tiles_so(spec: PendCartSpec = PendCartSpec()
                        device=dataclasses.replace(dm, second_order=True))
 
 
+@factory
 @functools.lru_cache(maxsize=32)
 def pendcart_lanes_param(spec: PendCartSpec = PendCartSpec()) -> LanesModel:
     """Lane model of a heterogeneous fleet: per-scenario pole length and
@@ -339,6 +347,7 @@ def pendcart_lanes_param(spec: PendCartSpec = PendCartSpec()) -> LanesModel:
     return _lanes(spec, param=True)
 
 
+@factory
 @functools.lru_cache(maxsize=32)
 def pendcart_derivs_tiles_param(spec: PendCartSpec = PendCartSpec()
                                 ) -> DerivsTiles:
@@ -357,3 +366,68 @@ def default_x0(dtype=torch.float32, device=None) -> torch.Tensor:
     is the CUDA card."""
     return torch.tensor([np.pi - 0.6, 0.0, 0.0, 0.0], dtype=dtype,
                         device=resolve(device))
+
+
+# ---------------------------------------------------------------------------
+# LQR baseline (host-side; reference care/lqr, src/system_pendcart.jl:3-25)
+# ---------------------------------------------------------------------------
+
+def care(A, B, Q, R):
+    """Continuous algebraic Riccati equation via ordered Schur decomposition
+    of the Hamiltonian (reference ``care``, src/system_pendcart.jl:3-20).
+    Host-side NumPy/SciPy, as in the JAX package: it only builds the LQG
+    baseline."""
+    import scipy.linalg
+    A, B, Q, R = (np.asarray(a, np.float64) for a in (A, B, Q, R))
+    G = B @ np.linalg.inv(R) @ B.T
+    Z = np.block([[A, -G], [-Q, -A.T]])
+    S, U, _ = scipy.linalg.schur(Z, sort=lambda w: w.real < 0)
+    n = A.shape[0]
+    U11 = U[:n, :n]
+    U21 = U[n:, :n]
+    return U21 @ np.linalg.inv(U11)
+
+
+def lqr(A, B, Q, R):
+    """LQR state feedback from CARE (src/system_pendcart.jl:21-25)."""
+    S = care(A, B, Q, R)
+    return np.linalg.solve(np.asarray(R, np.float64),
+                           np.asarray(B, np.float64).T @ S)
+
+
+def linearized_upright(spec: PendCartSpec = PendCartSpec()):
+    """Continuous-time linearization around the upright equilibrium used for
+    the LQG baseline (src/system_pendcart.jl:55-59)."""
+    A = np.array([[0.0, 1.0, 0.0, 0.0],
+                  [spec.g / spec.l, -spec.d, 0.0, 0.0],
+                  [0.0, 0.0, 0.0, 1.0],
+                  [0.0, 0.0, 0.0, 0.0]])
+    B = np.array([[0.0], [-1.0 / spec.l], [0.0], [1.0]])
+    return A, B
+
+
+def simulate_pendcart(x0, L, spec: PendCartSpec, T: int, lims,
+                      dtype=torch.float32):
+    """Closed-loop simulation under the (limit-clamped) LQG law
+    u = -L·(x - [π, 0, 0, 0]) — the failure baseline of the demo
+    (src/system_pendcart.jl:162-188). A loop over the T steps on ``x0``'s
+    device (a tensor keeps its own; anything else goes to the CUDA card);
+    ``lims`` an (m, 2) array or None. Returns the visited states (T, 4),
+    the controls (T, 1) and the per-step costs with the terminal term
+    (T+1,)."""
+    x = as_tensor(x0, dtype)
+    L = like(L, x)
+    if lims is not None:
+        lims = like(lims, x)
+    problem = make_pendcart_problem(spec, dtype=dtype, device=x.device)
+    xs, us = [], []
+    for _ in range(T):
+        dx = torch.cat([x[:1] - np.pi, x[1:]])
+        u = -(L @ dx)
+        if lims is not None:
+            u = torch.clamp(u, lims[:, 0], lims[:, 1])
+        xs.append(x)
+        us.append(u)
+        x = problem.dynamics(x, u, 0)
+    xs, us = torch.stack(xs), torch.stack(us)
+    return xs, us, problem.trajectory_cost(xs, us)

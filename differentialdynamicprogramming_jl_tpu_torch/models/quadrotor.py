@@ -35,6 +35,7 @@ import torch
 from ..device import resolve
 from ..ops.hopper.forward_kernel import DeviceModel, LanesModel
 from ..problem import Problem
+from ..utils.aot import factory
 
 MODEL_ID = 3   # csrc/quadrotor.cuh: Quadrotor::ID
 
@@ -106,6 +107,7 @@ def device_model(spec: QuadrotorSpec) -> DeviceModel:
     return DeviceModel(model_id=MODEL_ID, consts=consts)
 
 
+@factory
 @functools.lru_cache(maxsize=32)
 def quadrotor_lanes(spec: QuadrotorSpec = QuadrotorSpec()) -> LanesModel:
     """Lane model (n=6, m=2) with its device-model descriptor. Pair it with
@@ -125,6 +127,7 @@ def quadrotor_lanes(spec: QuadrotorSpec = QuadrotorSpec()) -> LanesModel:
                       terminal=terminal, device=device_model(spec))
 
 
+@factory
 def make_quadrotor_problem(spec: QuadrotorSpec = QuadrotorSpec(),
                            dtype=torch.float32, device=None) -> Problem:
     """The :class:`~..problem.Problem` of the same model, its functions

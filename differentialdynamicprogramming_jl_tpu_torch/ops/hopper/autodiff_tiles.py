@@ -54,8 +54,10 @@ from .backward_kernel import DerivsTiles
 from .forward_kernel import DeviceModel, LanesModel
 from .lower import LOWERED_ID
 from .pack import packed_from_tiles
+from ...utils.aot import factory
 
 
+@factory
 def autodiff_derivs_tiles(model: LanesModel,
                           second_order: bool = False) -> DerivsTiles:
     """The derivative function of ``model`` by forward-mode autodiff, for
@@ -155,6 +157,7 @@ def _autodiff_derivs_tiles(model: LanesModel,
     return DerivsTiles(fn=tiles, device=dev, n_params=model.n_params)
 
 
+@factory
 @functools.lru_cache(maxsize=64)
 def autodiff_packed_derivs(model: LanesModel):
     """K1's packed-derivatives generator for ``model`` by forward-mode

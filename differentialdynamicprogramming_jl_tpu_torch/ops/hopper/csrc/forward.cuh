@@ -13,18 +13,24 @@
 // ⟨4,1⟩ (forward.cu), LTI ⟨10,2⟩ (forward_lti.cu), LTI ⟨10,3⟩
 // (forward_lti_10_3.cu), quadrotor ⟨6,2⟩
 // (forward_quad.cu) and the parametrised pendcart PendCartParam ⟨4,1⟩
-// (forward_pendcart_param.cu); K3 one kernel a model for any A ≤ MAX_A
-// with and one without the emitted stream, K2 one kernel a model.
+// (forward_pendcart_param.cu); K3 one kernel a model for any A ≤ K3_MAX_A
+// with and one without the emitted stream (the wrapper launches a longer
+// ladder in groups of K3_MAX_A candidates), K2 two kernels a model: one
+// warp a candidate for A ≤ K2_MAX_WARPS, and K2_MAX_WARPS warps rolling
+// A ≤ MAX_A candidates in rounds beyond.
 //
 // Layout: streams are (T, S, B) f32 with the scenario axis contiguous.
-// Both kernels give a block 32 scenarios and run one warp per candidate;
+// Both kernels give a block 32 scenarios and run one warp per candidate
+// (K2: one warp per candidate of a round);
 // lane l is scenario 32·blockIdx.x + l, and each thread holds one
 // candidate's n+2 floats. The step inputs of the block (x_old, u_nom from
 // the trajectory, k, K from the gains: n+2m+mn slots) are staged in chunks
 // of tc steps in a shared-memory ring of `stages` stages (ring.cuh), which
-// all A warps read. K2: pass 1 and pass 2 are one sequence of 2·⌈T/tc⌉
-// chunks, so the ring also prefetches pass 2's first chunks while pass 1
-// ends; every warp stages. K3: one pass of ⌈T/tc⌉ chunks, staged by two or
+// all A warps read. K2: pass 1 runs R = ⌈A/W⌉ rounds of W = min(A,
+// K2_MAX_WARPS) candidates (R = 1 up to K2_MAX_WARPS), each over the whole
+// horizon, and pass 1 and pass 2 are one sequence of (R+1)·⌈T/tc⌉ chunks,
+// so the ring refills for each round and prefetches pass 2's first chunks
+// while pass 1 ends; every warp stages. K3: one pass of ⌈T/tc⌉ chunks, staged by two or
 // more producer warps after the A candidate warps, which also store the
 // emitted stream from a shared output buffer; the candidate warps touch
 // device memory only for x0, α and their totals. The plans (threads, tc,
@@ -78,13 +84,22 @@
 
 namespace ddp {
 
-constexpr int MAX_A = 8;
-// K3's block: A candidate warps and its producers, at most this many warps
+// K2's ladder, by value: at most MAX_A α values, rolled W = min(A,
+// K2_MAX_WARPS) at a time
+constexpr int MAX_A = 64;
+constexpr int K2_MAX_WARPS = 8;
+// K3's block: at most K3_MAX_A candidate warps and its producers, at most
+// K3_MAX_WARPS warps (the wrapper splits a longer ladder into launches)
+constexpr int K3_MAX_A = 8;
 constexpr int K3_MAX_WARPS = 10;
 
-struct Ladder {
-  float a[MAX_A];
+// K2's ladder by value: LadderN<K2_MAX_WARPS> for a single round (the
+// kernel reads it by a warp's index), Ladder for rounds
+template <int LA>
+struct LadderN {
+  float a[LA];
 };
+using Ladder = LadderN<MAX_A>;
 
 // the launchers' arguments, checked by ddp_forward_lanes and
 // ddp_linesearch_lanes; out is the emitted [x, u, c] stream or null
@@ -96,7 +111,7 @@ struct FwdArgs {
   const float* x0;
   const float* alphas;   // K3: (A, B) on the card
   const float* sel;      // K2: (4, B) [dV1, dV2, cost, allow] on the card
-  Ladder ladder;         // K2: the static α ladder
+  Ladder ladder;         // K2: the static α ladder, A ≤ MAX_A
   float rr_min;
   int A;
   float* totals;
@@ -153,7 +168,8 @@ inline int k3_args(const float* traj, int s_traj, const float* gains,
   a.consts = consts;
   a.plan = RingPlan{blocks, threads, tc, stages, smem};
   a.stream = static_cast<cudaStream_t>(stream);
-  if (!stream_args_ok(a, n, m) || a.out == a.traj) return ERR_ARGS;
+  if (!stream_args_ok(a, n, m) || a.out == a.traj || A > K3_MAX_A)
+    return ERR_ARGS;
   return 0;
 }
 
@@ -392,24 +408,26 @@ forward_kernel(const float* __restrict__ traj, int s_traj,
 
 // K2 with a fresh output, or in place: out == traj, and x0 may be a view
 // of the same stream, so these three are not __restrict__. Block: 32
-// scenarios × A warps (A = blockDim.x / 32); dynamic shared memory: the
-// ring, then the A×32 candidate totals.
-template <class Model>
-__global__ void __launch_bounds__(RING_W * MAX_A)
-linesearch_kernel(const float* traj, int s_traj,
-                  const float* __restrict__ gains, int s_g, int gk, int gK,
-                  const float* x0, const float* __restrict__ sel,
-                  Ladder ladder, float rr_min, float* out,
-                  float* __restrict__ ls, int T, int B, Lims lims,
-                  const float* __restrict__ lims_lanes,
-                  const float* __restrict__ params,
-                  typename Model::Consts mc, int tc, int stages, bool vec) {
+// scenarios × W warps (W = blockDim.x / 32); dynamic shared memory: the
+// ring, then the A×32 candidate totals. ROUNDS false: one warp a
+// candidate, A = W ≤ K2_MAX_WARPS, pass 1 in one round. ROUNDS true: A >
+// K2_MAX_WARPS candidates in R = ⌈A/W⌉ rounds, warp w rolling candidate
+// r·W + w in round r (none past A), the ring refilled for each round.
+template <class Model, bool ROUNDS, class L>
+__device__ __forceinline__ void linesearch_body(
+    const float* traj, int s_traj, const float* __restrict__ gains, int s_g,
+    int gk, int gK, const float* x0, const float* __restrict__ sel,
+    const L& ladder, int A_ladder, float rr_min, float* out,
+    float* __restrict__ ls, int T, int B, const Lims& lims,
+    const float* __restrict__ lims_lanes, const float* __restrict__ params,
+    const typename Model::Consts& mc, int tc, int stages, bool vec) {
   constexpr int N = Model::N, M = Model::M;
   constexpr int SO = N + M + 1;
   constexpr int F = STEP_SLOTS<Model>;
   extern __shared__ __align__(16) float ring[];
   const int lane = threadIdx.x & (RING_W - 1), w = threadIdx.x / RING_W;
-  const int A = blockDim.x / RING_W;
+  const int W = blockDim.x / RING_W;
+  const int A = ROUNDS ? A_ladder : W;
   const int b0 = blockIdx.x * RING_W, b = b0 + lane;
   const int cols = min(RING_W, B - b0);
   const bool live = b < B;
@@ -418,13 +436,15 @@ linesearch_kernel(const float* traj, int s_traj,
   const size_t sB = (size_t)B;
   const Model P = make_model<Model>(mc, params, bl, sB);
   const Lims lm = lane_lims<M>(lims, lims_lanes, bl, sB);
-  const int nc = (T + tc - 1) / tc;          // chunks a pass
+  const int nc = (T + tc - 1) / tc;          // chunks a pass (a round)
+  const int n1 = ROUNDS ? (A + W - 1) / W * nc : nc;   // chunks of pass 1
   const int stage = tc * F * RING_W;         // floats a stage
   float* tot = ring + stages * stage;        // [A][32] pass-1 totals
 
-  // chunk j of the sequence: pass j / nc, steps from (j % nc)·tc
+  // chunk j of the sequence: pass 1 (its round j / nc) while j < n1, then
+  // pass 2; steps from (j % nc)·tc
   auto issue = [&](int j) {
-    if (j < 2 * nc) {
+    if (j < n1 + nc) {
       const int t0 = (j % nc) * tc, steps = min(tc, T - t0);
       stage_rows<F>(ring + (j % stages) * stage, steps, cols, vec,
                     threadIdx.x, blockDim.x, [&](int tt, int s) {
@@ -436,18 +456,28 @@ linesearch_kernel(const float* traj, int s_traj,
     cp_async_commit();
   };
 
-  // pass 1: warp w rolls candidate w of the ladder
+  // pass 1: warp w rolls candidate cand = r·W + w of the ladder in round r
+  int cand = w;
   float x[N], acc = 0.0f, term = 0.0f, alpha = ladder.a[w];
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = x0[i * sB + bl];
 
   for (int j = 0; j < stages - 1; ++j) issue(j);
-  for (int j = 0; j < 2 * nc; ++j) {
+  for (int j = 0; j < n1 + nc; ++j) {
     issue(j + stages - 1);      // into the stage consumed at chunk j-1
     cp_async_wait(stages - 1);  // this thread's copies of chunk j landed
     __syncthreads();            // and everyone's
-    const bool pass2 = j >= nc;
-    if (j == nc && w == 0) {
+    const bool pass2 = j >= n1;
+    if (ROUNDS && !pass2 && j > 0 && j % nc == 0) {
+      // the next round: this warp's next candidate, from x0
+      cand += W;
+      alpha = cand < A ? ladder.a[cand] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < N; ++i) x[i] = x0[i * sB + bl];
+      acc = 0.0f;
+      term = 0.0f;
+    }
+    if (j == n1 && w == 0) {
       // pass boundary: the accept decision (src/iLQG.jl:269-280) over the
       // A totals, in ladder order
       const float dv1 = sel[bl], dv2 = sel[sB + bl];
@@ -487,8 +517,9 @@ linesearch_kernel(const float* traj, int s_traj,
       acc = 0.0f;
       term = 0.0f;
     }
-    if (!pass2 || w == 0) {
-      const int t0 = (pass2 ? j - nc : j) * tc, steps = min(tc, T - t0);
+    if (pass2 ? w == 0 : (!ROUNDS || cand < A)) {
+      const int t0 = (ROUNDS ? j % nc : pass2 ? j - nc : j) * tc;
+      const int steps = min(tc, T - t0);
       const float* st = ring + (j % stages) * stage + lane;
       for (int tt = 0; tt < steps; ++tt) {
         const int t = t0 + tt;
@@ -508,11 +539,46 @@ linesearch_kernel(const float* traj, int s_traj,
           o[(N + M) * sB] = c;
         }
       }
-      if (j == nc - 1) tot[w * RING_W + lane] = acc + term;
+      if (!pass2 && (ROUNDS ? j % nc == nc - 1 : j == nc - 1))
+        tot[cand * RING_W + lane] = acc + term;
     }
     __syncthreads();            // chunk j's stage may be refilled
   }
   if (w == 0 && live) ls[4 * sB + b] = acc + term;
+}
+
+// K2 at A ≤ K2_MAX_WARPS: one warp a candidate (A = blockDim.x / 32)
+template <class Model>
+__global__ void __launch_bounds__(RING_W * K2_MAX_WARPS)
+linesearch_kernel(const float* traj, int s_traj,
+                  const float* __restrict__ gains, int s_g, int gk, int gK,
+                  const float* x0, const float* __restrict__ sel,
+                  LadderN<K2_MAX_WARPS> ladder, float rr_min, float* out,
+                  float* __restrict__ ls, int T, int B, Lims lims,
+                  const float* __restrict__ lims_lanes,
+                  const float* __restrict__ params,
+                  typename Model::Consts mc, int tc, int stages, bool vec) {
+  linesearch_body<Model, false>(traj, s_traj, gains, s_g, gk, gK, x0, sel,
+                                ladder, 0, rr_min, out, ls, T, B, lims,
+                                lims_lanes, params, mc, tc, stages, vec);
+}
+
+// K2 at K2_MAX_WARPS < A ≤ MAX_A: K2_MAX_WARPS warps in rounds
+template <class Model>
+__global__ void __launch_bounds__(RING_W * K2_MAX_WARPS)
+linesearch_rounds_kernel(const float* traj, int s_traj,
+                         const float* __restrict__ gains, int s_g, int gk,
+                         int gK, const float* x0,
+                         const float* __restrict__ sel, Ladder ladder, int A,
+                         float rr_min, float* out, float* __restrict__ ls,
+                         int T, int B, Lims lims,
+                         const float* __restrict__ lims_lanes,
+                         const float* __restrict__ params,
+                         typename Model::Consts mc, int tc, int stages,
+                         bool vec) {
+  linesearch_body<Model, true>(traj, s_traj, gains, s_g, gk, gK, x0, sel,
+                               ladder, A, rr_min, out, ls, T, B, lims,
+                               lims_lanes, params, mc, tc, stages, vec);
 }
 
 template <class Model>
@@ -522,7 +588,7 @@ typename Model::Consts consts_of(const FwdArgs& a) {
   return mc;
 }
 
-// K3 for one model, A candidates (1..MAX_A), with the wrapper's plan:
+// K3 for one model, A candidates (1..K3_MAX_A), with the wrapper's plan:
 // 32·A threads and at least one producer warp, K3_MAX_WARPS warps at most
 template <class Model>
 int launch_forward(const FwdArgs& a) {
@@ -547,21 +613,36 @@ int launch_forward(const FwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-// K2 for one model, a ladder of A α values (1..MAX_A), one warp each; in
-// place when a.out == a.traj
+// K2 for one model, a ladder of A α values (1..MAX_A): one warp each up to
+// K2_MAX_WARPS, else K2_MAX_WARPS warps rolling them in rounds; in place
+// when a.out == a.traj
 template <class Model>
 int launch_linesearch(const FwdArgs& a) {
   const RingPlan& p = a.plan;
-  if (!plan_ok(p, a.B, RING_W * a.A, STEP_SLOTS<Model>, RING_W * a.A))
+  const bool rounds = a.A > K2_MAX_WARPS;
+  if (!plan_ok(p, a.B, RING_W * (rounds ? K2_MAX_WARPS : a.A),
+               STEP_SLOTS<Model>, RING_W * a.A))
     return ERR_ARGS;
-  const auto kernel = linesearch_kernel<Model>;
-  const int rc = reserve_smem(kernel, p.smem);
-  if (rc != 0) return rc;
   const bool vec = rows_aligned(a.B, a.traj) && rows_aligned(a.B, a.gains);
-  kernel<<<p.blocks, p.threads, p.smem, a.stream>>>(
-      a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.sel, a.ladder,
-      a.rr_min, a.out, a.ls, a.T, a.B, a.lims, a.lims_lanes, a.params,
-      consts_of<Model>(a), p.tc, p.stages, vec);
+  if (rounds) {
+    const auto kernel = linesearch_rounds_kernel<Model>;
+    const int rc = reserve_smem(kernel, p.smem);
+    if (rc != 0) return rc;
+    kernel<<<p.blocks, p.threads, p.smem, a.stream>>>(
+        a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.sel, a.ladder,
+        a.A, a.rr_min, a.out, a.ls, a.T, a.B, a.lims, a.lims_lanes,
+        a.params, consts_of<Model>(a), p.tc, p.stages, vec);
+  } else {
+    const auto kernel = linesearch_kernel<Model>;
+    const int rc = reserve_smem(kernel, p.smem);
+    if (rc != 0) return rc;
+    LadderN<K2_MAX_WARPS> first;
+    for (int i = 0; i < K2_MAX_WARPS; ++i) first.a[i] = a.ladder.a[i];
+    kernel<<<p.blocks, p.threads, p.smem, a.stream>>>(
+        a.traj, a.s_traj, a.gains, a.s_g, a.gk, a.gK, a.x0, a.sel, first,
+        a.rr_min, a.out, a.ls, a.T, a.B, a.lims, a.lims_lanes, a.params,
+        consts_of<Model>(a), p.tc, p.stages, vec);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,10 @@ parameters ``params`` (P, B) for
 a model with ``n_params == P``, and per-scenario control limits
 ``lims_lanes`` (2m, B), slot order [lo_0, hi_0, lo_1, hi_1, ...], which
 replace the static ``lims``. Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``. K2 takes a ladder of up to ``MAX_A`` (64) α
+values, rolled in rounds of eight; K3 any number of candidates, launched
+in groups of eight (``plan.k3_groups``), the first of which emits the
+stream.
 """
 from __future__ import annotations
 
@@ -30,9 +33,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .plan import forward_plan, linesearch_plan
+from .plan import MAX_A, forward_plan, k3_groups, linesearch_plan
 
-MAX_A = 8   # candidate bound of the CUDA kernels (csrc/forward.cu)
 # controls the CUDA kernels are written for (csrc/common.cuh MAX_M): no
 # instance has more, and the launchers refuse a larger m
 MAX_M = 4
@@ -409,7 +411,8 @@ def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
     - ``traj``: (T, ≥n+m, B) — slots [x_old(n), u_nom(m), ...].
     - ``gains``: (T, Sg, B) — k at slot ``gk``, K (row-major (m, n)) at
       slot ``gK`` (pass the backward output with its OutLayout offsets).
-    - ``x0``: (n, B); ``alphas``: (A, B) per-scenario α, A ≤ 8 on the card.
+    - ``x0``: (n, B); ``alphas``: (A, B) per-scenario α, any A ≥ 1 (on
+      the card one launch for each group of eight).
     - ``params``: (P, B) per-scenario parameters of a model with
       ``n_params == P``, else None.
     - ``lims``: static ``((lo, hi),) * m``, or None for no clamp;
@@ -429,8 +432,8 @@ def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
                                  model=model, lims=lims, gk=gk, gK=gK,
                                  emit_traj=emit_traj)
     A = alphas.shape[0]
-    if not 1 <= A <= MAX_A:
-        raise ValueError(f"forward_lanes: A={A} outside 1..{MAX_A}")
+    if A < 1:
+        raise ValueError(f"forward_lanes: A={A}, expected at least 1")
     lib, dev, stream, _keep, model_args = cuda_args(
         model.device, "forward_lanes", model.n, model.m, lims, lims_lanes,
         params, traj, gains, x0, alphas, lanes=model)
@@ -438,14 +441,18 @@ def forward_lanes(traj: torch.Tensor, gains: torch.Tensor, x0: torch.Tensor,
     term = torch.empty_like(totals)
     out = (torch.empty((T, model.n + model.m + 1, B), dtype=torch.float32,
                        device=traj.device) if emit_traj else None)
-    plan = forward_plan(model.n, model.m, A, T, B, emit_traj)
-    rc = lib.ddp_forward_lanes(
-        traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1], gk,
-        gK, x0.data_ptr(), alphas.data_ptr(), A, totals.data_ptr(),
-        term.data_ptr(), _ptr(out), T, B, *model_args,
-        *plan.launcher_args(), dev, stream)
-    _build.check(lib, rc, "forward_lanes")
-    forward_lanes.launches += 1
+    for a0, na in k3_groups(A):
+        # rows a0… of the (A, B) inputs and outputs; the first group emits
+        emit = emit_traj and a0 == 0
+        plan = forward_plan(model.n, model.m, na, T, B, emit)
+        rc = lib.ddp_forward_lanes(
+            traj.data_ptr(), traj.shape[1], gains.data_ptr(), gains.shape[1],
+            gk, gK, x0.data_ptr(), alphas[a0].data_ptr(), na,
+            totals[a0].data_ptr(), term[a0].data_ptr(),
+            _ptr(out) if emit else None, T, B, *model_args,
+            *plan.launcher_args(), dev, stream)
+        _build.check(lib, rc, "forward_lanes")
+        forward_lanes.launches += 1
     return ForwardLanesOut(totals=totals, traj=out, terminal=term)
 
 

@@ -11,11 +11,13 @@ computes, the next ones are in flight. K1 runs ``k1_warps`` compute
 warps, which split each step's n×n products by rows and, when there are
 several, share them through shared memory after the ring (W and U,
 n·(n+m) slots; Vraw, n·n), and a producer warp that fills the ring; K2
-runs one warp per α candidate, all of which fill it, and its ring is
+runs ``k2_warps(A)`` = min(A, ``K2_MAX_WARPS``) warps, all of which fill
+it, and rolls its A α candidates through them in rounds; its ring is
 followed by the candidates' totals (A × 32 f32). K3 runs one warp per
 candidate over K2's ring slots and two or more producer warps
 (``k3_warps``) that fill it and, when K3 emits its stream, store it from
-an output buffer after the ring. K5 ``light``/``full`` run one compute
+an output buffer after the ring; a ladder longer than ``K3_MAX_A`` is
+launched in groups (``k3_groups``). K5 ``light``/``full`` run one compute
 warp and ``PROBE_PRODUCERS`` producer warps over a deeper ring of the 47
 input slots. K4 runs ``COV_WARPS[n]`` compute warps, which split each
 step's rows, and ``COV_PRODUCERS[n]`` producer warps over a ring of F's
@@ -47,6 +49,13 @@ K1_BUDGET = 48 * 1024
 # the block's shared memory; at B=4096 a block has an SM to itself anyway
 K1_PACKED_BUDGET = 128 * 1024
 K2_BUDGET = 144 * 1024
+# K2: at most MAX_A α values (csrc/forward.cuh passes the ladder by value),
+# rolled by at most K2_MAX_WARPS warps at a time (its __launch_bounds__)
+MAX_A = 64
+K2_MAX_WARPS = 8
+# K3: at most K3_MAX_A candidate warps a launch; the wrapper launches a
+# longer ladder in groups of K3_MAX_A, on one stream
+K3_MAX_A = 8
 # K3: at least K3_PRODUCERS producer warps beside the A candidate warps,
 # and at least K3_MIN_WARPS warps a block (three producers at A = 1), as
 # many as fit in K3_MAX_WARPS (csrc/forward.cuh::launch_forward takes
@@ -80,7 +89,7 @@ COV_STAGE_OUT = {4: 1, 6: 0, 10: 0}
 
 class LaunchPlan(NamedTuple):
     blocks: int      # grid: ceil(B / 32) (K5 copy: its grid)
-    threads: int     # block: 32·(k1_warps+1) (K1), 32·A (K2),
+    threads: int     # block: 32·(k1_warps+1) (K1), 32·k2_warps(A) (K2),
                      # 32·k3_warps(A) (K3), 32·(1+PROBE_PRODUCERS) (K5 ring)
     tc: int          # time steps a chunk (0: no ring)
     stages: int      # chunks in the ring (0: no ring)
@@ -153,16 +162,38 @@ def backward_plan(n: int, m: int, gps: bool, emit: str, T: int,
                  RING_W * k1_exchange(n, m) if G > 1 else 0)
 
 
+def _check_A(A: int, most: int) -> None:
+    if not 1 <= A <= most:
+        raise ValueError(f"launch plan: A={A} outside 1..{most}")
+
+
+def k2_warps(A: int) -> int:
+    """K2's warps a block at A candidates: W = min(A, K2_MAX_WARPS), which
+    roll the ladder in ⌈A/W⌉ rounds."""
+    _check_A(A, MAX_A)
+    return min(A, K2_MAX_WARPS)
+
+
 def linesearch_plan(n: int, m: int, A: int, T: int, B: int) -> LaunchPlan:
-    """K2: A warps a block, the ring of its x_old, u_nom, k, K slots, then
-    the A candidates' totals."""
-    return _plan(k2_slots(n, m), T, B, RING_W * A, K2_BUDGET, RING_W * A)
+    """K2: :func:`k2_warps` warps a block, the ring of its x_old, u_nom, k,
+    K slots, then the A candidates' totals."""
+    return _plan(k2_slots(n, m), T, B, RING_W * k2_warps(A), K2_BUDGET,
+                 RING_W * A)
 
 
 def k3_warps(A: int) -> int:
-    """K3's warps a block at A candidates: the candidates and the
-    producers after them."""
+    """K3's warps a block at A ≤ K3_MAX_A candidates: the candidates and
+    the producers after them."""
+    _check_A(A, K3_MAX_A)
     return min(max(A + K3_PRODUCERS, K3_MIN_WARPS), K3_MAX_WARPS)
+
+
+def k3_groups(A: int) -> list:
+    """K3's launches for a ladder of A ≥ 1 candidates: (first candidate,
+    count) of each, at most K3_MAX_A a launch."""
+    if A < 1:
+        raise ValueError(f"launch plan: A={A}")
+    return [(a, min(K3_MAX_A, A - a)) for a in range(0, A, K3_MAX_A)]
 
 
 def k3_out_floats(n: int, m: int, tc: int) -> int:
@@ -173,9 +204,10 @@ def k3_out_floats(n: int, m: int, tc: int) -> int:
 
 def forward_plan(n: int, m: int, A: int, T: int, B: int,
                  emit: bool = False) -> LaunchPlan:
-    """K3: A candidate warps a block and :func:`k3_warps` in all, the
-    ring of K2's x_old, u_nom, k, K slots, and with ``emit`` the output
-    buffer after it."""
+    """K3, one launch of A ≤ K3_MAX_A candidates (:func:`k3_groups`): A
+    candidate warps a block and :func:`k3_warps` in all, the ring of K2's
+    x_old, u_nom, k, K slots, and with ``emit`` the output buffer after
+    it."""
     warps = k3_warps(A)
     p = _plan(k2_slots(n, m), T, B, RING_W * warps, K2_BUDGET, 0)
     if not emit:

@@ -28,6 +28,7 @@ from ..policy import GaussianPolicy
 from ..problem import Problem
 from ..solvers.ilqg import ILQGConfig, ILQGResult, solve_batch
 from .distributed import Shards, distribute_batch, local_devices
+from ..utils.aot import recorded
 
 
 @dataclass(frozen=True)
@@ -126,6 +127,7 @@ def _solved(reason):
     return (reason == 1) | (reason == 2)
 
 
+@recorded
 def ilqg_batched(problem: Problem, x0s, u0s, lims=None,
                  cfg: ILQGConfig = ILQGConfig(), cost0=None, lam0=None,
                  dlam0=None, accepted0=None) -> ILQGResult:

@@ -44,6 +44,7 @@ from ..ops.hopper.forward_kernel import (LanesModel, check_lims, par_args,
                                          forward_lanes, linesearch_lanes,
                                          step_indices)
 from .ilqg import ILQGConfig, tol_fun_effective
+from ..utils.aot import recorded
 
 
 class BatchTrace(NamedTuple):
@@ -148,6 +149,7 @@ def _packed(packed_derivs, traj, n: int, m: int) -> torch.Tensor:
     return dp.to(torch.float32).contiguous()
 
 
+@recorded
 def ilqg_batch_lanes(model: LanesModel, packed_derivs, x0s, u0s, lims=None,
                      cfg: ILQGConfig = ILQGConfig(), derivs_tiles=None,
                      params=None, cost0=None, warm_start: bool = False,

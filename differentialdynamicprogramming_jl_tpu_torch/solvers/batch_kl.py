@@ -36,6 +36,7 @@ from ..ops.hopper.forward_kernel import LanesModel, check_lims, forward_lanes
 from ..utils import printing as _pr
 from .batch import active_means, pack_lims, split_lims
 from .ilqgkl import ILQGKLConfig
+from ..utils.aot import recorded
 
 
 def _logdet_tiles(S, m):
@@ -148,6 +149,7 @@ class BatchKLResult(NamedTuple):
     trace: Optional[BatchKLTrace] = None      # with record_trace=True
 
 
+@recorded
 def ilqgkl_batch_lanes(model: LanesModel, derivs_tiles: Callable, x0s,
                        traj_prev: GaussianPolicy, fx_model, cost0,
                        lims: Optional[Tuple] = None,

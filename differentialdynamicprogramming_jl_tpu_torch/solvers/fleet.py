@@ -61,6 +61,7 @@ from .batch import BatchILQGResult, BatchTrace, ilqg_batch_lanes, split_lims
 from .batch_kl import BatchKLResult, ilqgkl_batch_lanes
 from .ilqg import ILQGConfig
 from .ilqgkl import ILQGKLConfig
+from ..utils.aot import recorded
 
 # compacted batches are padded to a multiple of this many scenarios
 LANE_PAD = RING_W
@@ -127,6 +128,7 @@ def _sel(a, rows):
     return None if a is None else a.index_select(0, rows)
 
 
+@recorded
 def ilqg_fleet(model,
                packed_derivs: Optional[Callable],
                x0s, u0s,
@@ -250,6 +252,7 @@ def ilqg_fleet(model,
                if record_trace else None))
 
 
+@recorded
 def ilqgkl_fleet(model, derivs_tiles, x0s, traj_prev, fx_model, cost0,
                  lims=None, cfg=None, r1=None, kt: int = 16,
                  chunk_iters: int = 4,

@@ -35,6 +35,7 @@ from ..ops.riccati_scan import parallel_riccati
 from ..policy import Derivs, GaussianPolicy, Trace
 from ..problem import Problem
 from ..utils import printing as _pr
+from ..utils.aot import recorded
 
 
 def default_alphas(lo: float = 0.0, hi: float = -3.0, num: int = 11):
@@ -177,6 +178,7 @@ def _write_trace(trace: Trace, idx, mask, **kv) -> Trace:
     return Trace(**d)
 
 
+@recorded
 def ilqg(problem: Problem, x0, u0, lims=None, cfg: ILQGConfig = ILQGConfig(),
          cost0=None, lam0=None, dlam0=None, accepted0=None,
          iter_callback=None) -> ILQGResult:

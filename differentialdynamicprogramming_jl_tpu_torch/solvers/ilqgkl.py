@@ -31,6 +31,7 @@ from ..ops.kl import (adam_init, adam_update, calc_eta, entropy, grad_kl,
 from ..policy import GaussianPolicy, Trace
 from ..problem import Problem
 from ..utils import printing as _pr
+from ..utils.aot import recorded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +77,7 @@ class ILQGKLResult(NamedTuple):
     #                                           measurement (src/klutils.jl:84)
 
 
+@recorded
 def ilqg_kl(problem: Problem, x0, traj_prev: GaussianPolicy, model, cost0,
             lims=None, cfg: ILQGKLConfig = ILQGKLConfig(),
             iter_callback=None) -> ILQGKLResult:

@@ -2056,3 +2056,157 @@ def test_tiles_lti_solve_is_the_hand_written_on_card(dev):
     for f in ("cost_total", "reason", "n_accepted", "u"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert torch.equal(a.policy.K, b.policy.K)
+
+
+@pytest.mark.parametrize("B", [37, 200])
+@pytest.mark.parametrize("name", RING_MODELS)
+def test_ring_kernels_past_eight_candidates(dev, name, B):
+    """K2 and K3 with ladders longer than a block's candidate warps (A =
+    9, 11, 16, 40): K2 in ⌈A/8⌉ rounds of one launch, K3 in ⌈A/8⌉
+    launches; against their plain versions (bit for bit on the pendcart
+    instances; K2's decisions bit for bit the accept rule on K3's totals,
+    its stream the plain re-roll at its α elsewhere), K2 in place ≡ fresh.
+    On every other lane k is negated (an ascent direction, so the smaller α
+    of later rounds roll lower totals), and the old total cost is the
+    lowest of the first round's totals (dV = [-1, 0], so a candidate passes
+    where its total is lower): every accepted α comes from a later round.
+    A 65-α ladder is refused."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    model = _ring_case(name, dev, B, 2)[0]
+    n, m = model.n, model.m
+    late = 0
+    for A in (9, 11, 16, 40):
+        Tk = _ring_T("tc+1", plan.linesearch_plan(n, m, A, 10_000, B).tc)
+        _, tiles, lims, lanes, par, x0, traj = _ring_case(name, dev, B, Tk)
+        bo = bk.backward_lanes(traj, torch.ones(B, device=dev), n=n, m=m,
+                               reg_type=2, lims=lims, derivs_tiles=tiles,
+                               params=par, lims_lanes=lanes, emit="gains")
+        allow = (torch.arange(B, device=dev) % 3 != 1).float()
+        bo.out[:, :m, 1::2] *= -1.0
+        alphas = default_alphas(0.2, -3.0, A)
+        lad = torch.tensor(alphas, device=dev)[:, None].expand(A, B)
+        # the kernel's candidate totals: K2's pass 1 rolls each candidate
+        # with K3's operations, so the same bits
+        ktot = fk.forward_lanes(traj, bo.out, x0, lad.contiguous(), par,
+                                lanes, model=model, lims=lims).totals
+        sel = torch.stack([-torch.ones(B, device=dev),
+                           torch.zeros(B, device=dev), ktot[:8].amin(0),
+                           allow])
+        kw = dict(model=model, alphas=alphas, reduce_ratio_min=0.0,
+                  lims=lims)
+        n0 = fk.linesearch_lanes.launches
+        fresh = fk.linesearch_lanes(traj, bo.out, x0, sel, par, lanes, **kw)
+        assert fk.linesearch_lanes.launches == n0 + 1
+        al_sel, found, dc, rt, al_eff = fk._accept(ktot, sel, alphas, 0.0)
+        assert torch.equal(fresh.ls[:4], torch.stack([al_sel, found.float(),
+                                                      dc, rt]))
+        if name in BIT_EXACT:
+            p = fk.linesearch_lanes_ref(traj, bo.out, x0, sel, par, lanes,
+                                        **kw)
+            assert torch.equal(fresh.traj, p.traj)
+            assert torch.equal(fresh.ls, p.ls)
+        else:
+            # the plain re-roll at the kernel's α (near ties of the old
+            # total may decide apart between the two versions)
+            p = fk.forward_lanes_ref(traj, bo.out, x0, al_eff[None], par,
+                                     lanes, model=model, lims=lims,
+                                     emit_traj=True)
+            torch.testing.assert_close(fresh.traj, p.traj, rtol=1e-5,
+                                       atol=1e-5)
+        taken = fresh.ls[1] > 0.5
+        late += int(taken.sum())
+        assert bool((fresh.ls[0][taken] < np.float32(alphas[7])).all())
+        buf = traj.clone()
+        inp = fk.linesearch_lanes(buf, bo.out, buf[0, :n], sel, par, lanes,
+                                  in_place=True, **kw)
+        assert torch.equal(buf, fresh.traj) and torch.equal(inp.ls, fresh.ls)
+        al = torch.tensor(np.random.default_rng(A).uniform(0.0, 1.0, (A, B)),
+                          dtype=torch.float32, device=dev)
+        for emit in (False, True):
+            n0 = fk.forward_lanes.launches
+            k = fk.forward_lanes(traj, bo.out, x0, al, par, lanes,
+                                 model=model, lims=lims, emit_traj=emit)
+            assert fk.forward_lanes.launches == n0 + -(-A // 8)
+            q = fk.forward_lanes_ref(traj, bo.out, x0, al, par, lanes,
+                                     model=model, lims=lims, emit_traj=emit)
+            pairs = [(k.totals, q.totals), (k.terminal, q.terminal)] + (
+                [(k.traj, q.traj)] if emit else [])
+            for a, b in pairs:
+                if name in BIT_EXACT:
+                    assert torch.equal(a, b)
+                else:
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert late > 0, "no lane took a candidate past the first round"
+    with pytest.raises(ValueError, match="65 alphas"):
+        fk.linesearch_lanes(traj, bo.out, x0, sel, par, lanes, model=model,
+                            alphas=default_alphas(0.2, -3.0, 65), lims=lims)
+
+
+def test_default_ladder_solve_on_card_matches_cpu(dev):
+    """ILQGConfig()'s 11-α ladder (K3's sweep in two launches, K2 in two
+    rounds) through the fleet solver on the card against CPU tensors, as
+    test_solver_on_card_matches_cpu holds the 6-α ladder's."""
+    x0, _, _ = _rollout(dev)
+    x0s = x0.T.contiguous()[:16]
+    u0s = torch.zeros((16, T, 1), device=dev)
+    cfg = ILQGConfig(reg_type=2, lam_max=1e15)
+    assert len(cfg.alphas) == 11
+    kw = dict(lims=LIMS, cfg=cfg, max_steps=8,
+              derivs_tiles=tpc.pendcart_derivs_tiles(SPEC))
+    n0 = fk.forward_lanes.launches
+    g = ilqg_batch_lanes(tpc.pendcart_lanes(SPEC), None, x0s, u0s, **kw)
+    assert fk.forward_lanes.launches - n0 >= 2     # the sweep: 8 and 3
+    c = ilqg_batch_lanes(tpc.pendcart_lanes(SPEC), None, x0s.cpu(),
+                         u0s.cpu(), **kw)
+    torch.testing.assert_close(g.cost_total.cpu(), c.cost_total, rtol=1e-4,
+                               atol=0)
+    # near the cost exit's f32 noise floor an ulp decides between 2
+    # (converged) and 0 (still running at max_steps); other exits agree
+    assert torch.equal(torch.where(g.reason.cpu() == 2, 0, g.reason.cpu()),
+                       torch.where(c.reason == 2, 0, c.reason))
+
+
+def test_aot_lane_tier_roundtrip_on_card(dev):
+    """A lane-tier solve exported and served on the card: the same bits,
+    a BatchILQGResult; a wrong B refused."""
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        BatchILQGResult)
+    from differentialdynamicprogramming_jl_tpu_torch.utils.aot import (
+        deserialize_solver, serialize_solver)
+    x0, _, _ = _rollout(dev)
+    cfg = ILQGConfig(alphas=ALPHAS, reg_type=2, lam_max=1e15, max_iter=5)
+    model, tiles = tpc.pendcart_lanes(SPEC), tpc.pendcart_derivs_tiles(SPEC)
+
+    def solve(x0s, u0s):
+        return ilqg_batch_lanes(model, None, x0s, u0s, lims=LIMS, cfg=cfg,
+                                derivs_tiles=tiles)
+
+    x0s, u0s = x0.T.contiguous(), torch.zeros((B, T, 1), device=dev)
+    direct = solve(x0s, u0s)
+    blob = serialize_solver(solve, x0s, u0s)
+    serve = deserialize_solver(blob)
+    served = serve(x0s, u0s)
+    assert isinstance(served, BatchILQGResult)
+    for f in ("cost_total", "reason", "n_accepted", "u", "x"):
+        assert torch.equal(getattr(direct, f), getattr(served, f)), f
+    assert torch.equal(direct.policy.K, served.policy.K)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        serve(x0s[:-1].contiguous(), u0s[:-1].contiguous())
+
+
+def test_demo_fleet_on_card(dev):
+    """demo_fleet at a small B on the card (the lane path, its kernels
+    launched) against the same lane solve on CPU tensors."""
+    from differentialdynamicprogramming_jl_tpu_torch import demos
+    counts = [w.launches for w in (bk.backward_lanes, fk.linesearch_lanes,
+                                   fk.forward_lanes)]
+    g = demos.demo_fleet(B=64, T=50, max_iter=5, device=dev)
+    assert all(w.launches > c for w, c in zip(
+        (bk.backward_lanes, fk.linesearch_lanes, fk.forward_lanes), counts))
+    x0s, u0s = demos._fleet_inputs(64, 50, torch.float32, "cpu")
+    c = ilqg_batch_lanes(tpc.pendcart_lanes(SPEC), None, x0s, u0s,
+                         lims=LIMS, cfg=demos._fleet_cfg(5),
+                         derivs_tiles=tpc.pendcart_derivs_tiles(SPEC))
+    assert (g.reason.cpu() == c.reason).float().mean() >= 0.9
+    rel = (g.cost_total.cpu() - c.cost_total).abs() / c.cost_total.abs()
+    assert (rel <= 1e-3).float().mean() >= 0.9

@@ -1,7 +1,8 @@
 """The launch plans of the ring-fed kernels K1-K5
 (``ops/hopper/plan.py``), for every instance the kernels are built for, at
 the shapes of every path that launches them and of the card tests, with
-A = 1..8 candidates: each plan fits the shared memory a block may have,
+A = 1..64 candidates for K2 and 1..8 a launch for K3 (a longer ladder in
+groups of eight): each plan fits the shared memory a block may have,
 its chunks cover T exactly, and its grid covers B; K5's copy grid stays
 within its bound. Plain Python: no card, no JAX."""
 import pytest
@@ -42,17 +43,18 @@ def _check(p: plan.LaunchPlan, T: int, B: int, threads: int, slots: int,
 @pytest.mark.parametrize("T, B", SHAPES)
 def test_linesearch_plan_fits_and_covers(key, T, B):
     _, n, m = key
+    assert MAX_A == plan.MAX_A == 64
     for A in range(1, MAX_A + 1):
         p = plan.linesearch_plan(n, m, A, T, B)
-        _check(p, T, B, plan.RING_W * A, plan.k2_slots(n, m),
-               plan.RING_W * A)
+        _check(p, T, B, plan.RING_W * min(A, plan.K2_MAX_WARPS),
+               plan.k2_slots(n, m), plan.RING_W * A)
 
 
 @pytest.mark.parametrize("key", sorted(CUDA_MODELS))
 @pytest.mark.parametrize("T, B", SHAPES)
 def test_forward_plan_fits_and_covers(key, T, B):
     _, n, m = key
-    for A in range(1, MAX_A + 1):
+    for A in range(1, plan.K3_MAX_A + 1):
         warps = plan.k3_warps(A)
         assert A < warps <= plan.K3_MAX_WARPS   # one producer at least
         for emit in (False, True):
@@ -171,3 +173,42 @@ def test_plans_at_lti_10_3():
     assert plan.linesearch_plan(10, 3, 6, 1000, 4096).tc == 8
     assert [plan.forward_plan(10, 3, A, 1000, 4096, A == 1)[:5] for A in
             (6, 1)] == [(128, 256, 8, 2, 94_208), (128, 128, 8, 2, 122_880)]
+
+
+@pytest.mark.parametrize("key", sorted(CUDA_MODELS))
+@pytest.mark.parametrize("A", [9, 11, 16, 40])
+def test_plans_past_eight_candidates(key, A):
+    """Ladders longer than a block's candidate warps, at every path's
+    shapes: K2 keeps eight warps and rolls the A candidates in ⌈A/8⌉
+    rounds, its shared memory the ring and the A candidates' totals; K3
+    launches groups of at most eight, the first emitting the stream, each
+    group's plan its own size's."""
+    _, n, m = key
+    slots = plan.k2_slots(n, m)
+    groups = plan.k3_groups(A)
+    assert [a0 for a0, _ in groups] == list(range(0, A, 8))
+    assert sum(na for _, na in groups) == A
+    assert all(1 <= na <= plan.K3_MAX_A for _, na in groups)
+    for T, B in SHAPES:
+        p = plan.linesearch_plan(n, m, A, T, B)
+        _check(p, T, B, plan.RING_W * plan.K2_MAX_WARPS, slots,
+               plan.RING_W * A)
+        assert p.smem <= plan.MAX_SMEM
+        for i, (a0, na) in enumerate(groups):
+            for emit in (False, True):
+                q = plan.forward_plan(n, m, na, T, B, emit and i == 0)
+                _check(q, T, B, plan.RING_W * plan.k3_warps(na), slots,
+                       plan.k3_out_floats(n, m, q.tc) if emit and i == 0
+                       else 0)
+    # past the bounds: K2's ladder of 65, K3's 9 in one launch
+    with pytest.raises(ValueError, match="A=65"):
+        plan.linesearch_plan(n, m, 65, 500, 4096)
+    with pytest.raises(ValueError, match="A=9"):
+        plan.forward_plan(n, m, 9, 500, 4096)
+    # at the headline's shapes: eight warps, the 11-α default ladder's
+    # totals after the ring
+    if key == (1, 4, 1):
+        p11 = plan.linesearch_plan(4, 1, 11, 500, 4096)
+        assert (p11.threads, p11.tc, p11.stages) == (256, 32, 2)
+        assert p11.smem == 4 * (2 * 32 * 10 * 32 + 11 * 32)
+        assert [na for _, na in plan.k3_groups(11)] == [8, 3]
