@@ -239,7 +239,28 @@ ends the run with a non-zero exit and no result line:
     T=200) exported, each served from its bytes in a fresh process that
     never defined its closure, bit for bit the direct call, a wrong B
     refused, the served time against the direct one;
-58. the kernel record (one entry per kernel instance, with its bound; an
+58. the sizes group, sizes-build: the group's libraries (the lowered rail,
+    LTI <8,2>, op-set and pow models; K4 at every n of COV_NS and at
+    COV_MAX_N; the packed K1 at PACKED_SIZES), one nvcc each from the
+    main build on, and K4's build time one library an n against one
+    library of all n;
+59. the sizes group, rail: the headline fleet (B=4096, T=500, ±5, 20
+    iterations, u0 = 2·N(0,1)) on a finite rail (tools_torch/rail.py, a
+    Python-only model with abs, clamp, pow, log, a comparison and where):
+    its K3, K1 Autodiff<Lowered> (gains, full, GPS) and K2 against their
+    plain versions at T=33, the share of lanes past the rail's end before
+    and after the solve, then KL on it at the KL tier's settings; 64
+    lanes of each against the ``--sizes-cpu`` child's solves;
+60. the sizes group, lti8: random_lti(0, n=8, m=2, T=1000) through the
+    plain lti_lanes and lti_derivs_tiles (no descriptor: the lowering),
+    B=4096, ±0.6: its kernels, K4 n=8 and Packed<8,2> against their plain
+    versions; the fleet to convergence, KL on it (kl_step 100), the
+    packed solve (20 iterations), each against the child's 64 lanes;
+61. the sizes group, ops: at T=33, B=4096, the op-set model's K3, K1
+    (Dual and Jet passes) and K2, pow against torch.pow at eight
+    exponents, K4 at every n of COV_NS and at COV_MAX_N, Packed<5,4>,
+    each against its plain version;
+62. the kernel record (one entry per kernel instance, with its bound; an
     instance on no path with the launches of its check) and the result
     line.
 """
@@ -706,7 +727,10 @@ def bound(nbytes: float, flops: float) -> dict:
 def model_ops(model) -> dict:
     """Operations of one model evaluation: ``step`` (running cost and
     dynamics), ``derivs`` (the expansion K1 forms at (x, u)) and ``so``
-    (the nonzero dynamics Hessian entries of full DDP)."""
+    (the nonzero dynamics Hessian entries of full DDP); a model without a
+    descriptor: its lowered graph's (graph_ops)."""
+    if model.device is None:
+        return graph_ops(model)
     if model.device.model_id in (1, 4):
         # pendcart: θ̈ (sin, cos, 3 multiplies, a divide, 2 adds) and the
         # Euler step (8), the cost (2 + 4·4); a21, fu1 and cx, cu (20). The
@@ -850,13 +874,15 @@ def k4_check(rec, key: str, fx: torch.Tensor, n: int, r1=None) -> dict:
     growth = kc[-1].abs().amax(dim=0) / kc[0].abs().amax(dim=0)
     print(f"  K4 n={n} Σ growth over the horizon: median "
           f"{growth.median().item():.3e}, max {growth.max().item():.3e}")
+    shape = plan.cov_shape(n)
     print(f"  K4 n={n} plan at B={B}, T={T}: "
           f"{plan_text(plan.covariance_plan(n, T, B))}, "
-          f"{plan.COV_WARPS[n]} compute warps, "
-          f"{'producers' if plan.COV_STAGE_OUT[n] else 'compute warps'} "
-          f"storing Σ; "
-          + "; ".join(line for line in rec["ptxas"]
-                      if line.startswith(f"covariance_kernel<{n},")))
+          f"{shape.warps} compute warps, "
+          + ("Σ in device memory" if shape.sigma == plan.COV_GLOBAL else
+             f"{'producers' if shape.sigma else 'compute warps'} storing Σ")
+          + "; " + "; ".join(line for line in rec["ptxas"] if line.startswith(
+              (f"covariance_kernel<{n},",
+               f"covariance_global_kernel<{n},"))))
     del kc, pc
     ms = cuda_ms(lambda: ck.covariance_lanes(fx, n=n, r1=r1), 20)
     plain = cuda_ms(lambda: ck.covariance_lanes_ref(fx, n=n, r1=r1), 3)
@@ -4893,21 +4919,32 @@ def lowered_cpu_solves() -> dict:
     return out
 
 
-def agree(what: str, g: dict, c: dict, cost: str, same) -> None:
+def shares(g: dict, c: dict, cost: str, same) -> list:
+    """The share of lanes whose ``cost`` agrees to COST_RTOL, then the share
+    with equal values of each field of ``same``, between two solves'
+    outcomes."""
+    gc, cc = torch.tensor(g[cost]), torch.tensor(c[cost])
+    close = (((gc - cc).abs() / cc.abs()) <= COST_RTOL).float().mean().item()
+    return [close] + [float(np.mean(np.asarray(g[f]) == np.asarray(c[f])))
+                      for f in same]
+
+
+def agree(what: str, g: dict, c: dict, cost: str, same,
+          need=None) -> None:
     """A card solve's outcomes ``g`` against a host's ``c`` on the same
     lanes: the share of lanes with costs within COST_RTOL and with equal
-    ``same`` fields must each reach AGREE_SHARE (section 5's rule)."""
+    ``same`` fields must each reach AGREE_SHARE (section 5's rule), or the
+    shares ``need`` (cost first, then ``same``'s) where given."""
     gc, cc = torch.tensor(g[cost]), torch.tensor(c[cost])
     rel = (gc - cc).abs() / cc.abs()
-    close = (rel <= COST_RTOL).float().mean().item()
-    shares = [float(np.mean(np.asarray(g[f]) == np.asarray(c[f])))
-              for f in same]
+    got = shares(g, c, cost, same)
+    need = need or [AGREE_SHARE] * len(got)
     print(f"  {what}: cost rel diff max {rel.max().item():.3e}, median "
           f"{rel.median().item():.3e}; shares: cost within {COST_RTOL:.0e} "
-          f"{close:.3f}, " + ", ".join(f"same {f} {v:.3f}" for f, v in
-                                        zip(same, shares))
-          + f" (need {AGREE_SHARE} each)")
-    check(min([close] + shares) >= AGREE_SHARE,
+          f"{got[0]:.3f}, " + ", ".join(f"same {f} {v:.3f}" for f, v in
+                                        zip(same, got[1:]))
+          + f" (need {', '.join(f'{v:.3f}' for v in need)})")
+    check(all(v >= n for v, n in zip(got, need)),
           f"{what}: GPU and CPU outcomes differ")
 
 
@@ -6771,6 +6808,851 @@ def aot_phase(ph, dev, counters) -> dict:
     return paths, out
 
 
+# ---------------------------------------------------------------------------
+# the sizes group: the lowering's later ops on the headline fleet (rail),
+# the LTI at n=8 through its normal entries (lti8), and every new instance
+# against its plain version (ops)
+# ---------------------------------------------------------------------------
+
+# the headline fleet on a finite rail (tools_torch/rail.py): u0 = 2·N(0,1)
+# from a numpy seed of its own, so that lanes pass the rail's end in the
+# initial rollout (the headline's u0 = 0 leaves the cart at p = 0); its
+# CPU solves (the --sizes-cpu child) at RAIL_T_CPU
+RAIL_SEED, RAIL_U0, RAIL_T_CPU = 61, 2.0, 24
+# the LTI at n=8 (random_lti seed 0, T=LTI_T, ±0.6) and its packed solve's
+# iteration budget
+LTI8_N, LTI8_M, LTI8_PACKED_ITERS = 8, 2, 20
+# K4 at every n of the ops phase beside plan.COV_MAX_N, and the packed K1's
+# sizes there (one with m = MAX_M)
+COV_NS = (1, 2, 3, 5, 8, 12, 16, 21, 32)
+PACKED_SIZES = ((8, 2), (5, 4))
+SIZES_T_PLAIN = LTI_T_PLAIN
+# pow: the exponents PyTorch's CUDA kernel special-cases, whose emitted
+# forms must give its bits; at the others both take libdevice's powf, and a
+# pow model's K3 rollout is held to POW_ULPS of the plain one after
+# SIZES_T_PLAIN steps (each step's ulp carried on)
+POW_SPECIAL = (2.0, 3.0, 0.5, -1.0, -2.0, -0.5)
+POW_ULPS = 8
+
+
+def cov_max_n() -> int:
+    """The largest n K4 takes (plan.COV_MAX_N)."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    return plan.COV_MAX_N
+
+
+def sizes_models() -> dict:
+    """The sizes group's models, none with a descriptor: the rail model
+    over the headline pendcart, the LTI at ⟨8,2⟩ (random_lti seed 0, its
+    plain lti_lanes and lti_derivs_tiles), the op-set model and the pow
+    model (tools_torch/opset.py)."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.forward_kernel \
+        import LanesModel
+    from tools_torch import opset, rail
+    spec = random_lti(0, n=LTI8_N, m=LTI8_M, T=LTI_T, device="cpu")
+    return dict(
+        rail=rail.rail_lanes(torch, LanesModel,
+                             pendcart_lanes(PendCartSpec())),
+        lti8_spec=spec, lti8=lti_lanes(spec), lti8_tiles=lti_derivs_tiles(spec),
+        opset=opset.opset_lanes(LanesModel),
+        pow=opset.pow_lanes(LanesModel))
+
+
+def start_sizes_builds(m: dict):
+    """Lower the group's models and start every library it launches in a
+    thread, one nvcc each, all together: the lowered rail (fwd, k1,
+    k1_gps), LTI ⟨8,2⟩ (fwd, and its tiles' t1, t1_gps), op-set (fwd, k1,
+    k1_so) and pow (fwd) models, K4 at each n of COV_NS and at COV_MAX_N,
+    and the packed K1 at PACKED_SIZES. Then K4's build time, on copies of
+    its sources: the library of one n alone, the libraries of all those n
+    (one an n) at once, and one library of all n. Returns (thread, labels,
+    box) as build_thread; the box also receives ``probe`` (those three
+    walls)."""
+    import threading
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        _build, lower, plan)
+    jobs, labels = [], []
+    for key, groups in (("rail", ("fwd", "k1", "k1_gps")), ("lti8", ("fwd",)),
+                        ("opset", ("fwd", "k1", "k1_so")), ("pow", ("fwd",))):
+        low = lower.lower(m[key])
+        for g in groups:
+            jobs.append((_build.lowered_source(low.struct(g == "fwd"), g),
+                         _build.LOWERED_HEADERS, "lowered"))
+            labels.append(f"{key} {g}")
+    lt = lower.lower_tiles(m["lti8_tiles"], LTI8_N, LTI8_M)
+    for g in ("t1", "t1_gps"):
+        jobs.append((_build.lowered_source(lt.struct(), g),
+                     _build.LOWERED_HEADERS, "lowered"))
+        labels.append(f"lti8 tiles {g}")
+    ns = COV_NS + (plan.COV_MAX_N,)
+    for n in ns:
+        jobs.append(_build.covariance_job((n,)))
+        labels.append(f"K4 n={n}")
+    for n, mm in PACKED_SIZES:
+        jobs.append(_build.packed_job(n, mm))
+        labels.append(f"packed <{n},{mm}>")
+    box: dict = {}
+
+    def probe(src):
+        """A copy of K4's source that builds a library of its own (the
+        build-time probes leave the port's libraries as they are)."""
+        source, headers, _ = src
+        return source + "\n// build-time probe\n", headers, "cov_probe"
+
+    def wall(jobs_):
+        t0 = time.perf_counter()
+        _build.build_generated(jobs_, "K4's build-time probe")
+        return time.perf_counter() - t0
+
+    def run():
+        try:
+            t0 = time.perf_counter()
+            box["builds"] = _build.build_generated(jobs, "the sizes group")
+            box["wall"] = time.perf_counter() - t0
+            # K4's build time, after the group's builds: one n alone, one
+            # library an n with all of them at once, one library of all n
+            box["probe"] = dict(
+                one_n=wall([probe(_build.covariance_job((LTI8_N,)))]),
+                per_n=wall([probe(_build.covariance_job((n,)))
+                            for n in ns]),
+                all_n=wall([probe(_build.covariance_job(ns))]))
+        except Exception as e:   # noqa: BLE001 - reported by the phase
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    BUILD_THREADS.append(th)
+    return th, labels, box
+
+
+def rail_inputs(device, Bk: int, Tk: int):
+    """The rail fleet's x0 (the headline's) and u0 = RAIL_U0·N(0,1) (numpy
+    seed RAIL_SEED, drawn for B lanes and T steps), on the first Bk lanes
+    at horizon Tk."""
+    rng = np.random.default_rng(RAIL_SEED)
+    u0 = RAIL_U0 * rng.standard_normal((B, T, 1))
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.tensor(headline_x0()[:Bk], **f32),
+            torch.tensor(u0[:Bk, :Tk], **f32))
+
+
+def kl_tier_inputs(model, device, Bk: int, Tk: int):
+    """The KL tier's inputs (kl_phases: x0 = default_x0 + 0.2·N(0,1) on θ
+    and θ̇, u0 = 0.2·N(0,1), numpy seed 1) for ``model`` on the first Bk
+    lanes at horizon Tk: the pre-roll by K3 at α=1 with k := u0 and no
+    limits, the zero previous policy with k = its controls and unit Σ, the
+    pendcart's Euler fx along it, and cost0."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, default_x0, make_pendcart_problem)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        from_streams, to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.policy import (
+        GaussianPolicy)
+    rng = np.random.default_rng(1)
+    x0_np = np.asarray(default_x0(device="cpu").numpy(),
+                       np.float64)[None, :] + (
+        0.2 * rng.standard_normal((B, 4)) * np.array([1.0, 1.0, 0, 0]))
+    u0_np = 0.2 * rng.standard_normal((B, T, 1))
+    f32 = dict(dtype=torch.float32, device=device)
+    u0 = torch.tensor(u0_np[:Bk, :Tk], **f32)
+    ro = fk.forward_lanes(
+        torch.zeros((Tk, 5, Bk), **f32),
+        torch.cat([to_streams(u0), torch.zeros((Tk, 4, Bk), **f32)], dim=1),
+        torch.tensor(x0_np[:Bk].T.copy(), **f32), torch.ones((1, Bk), **f32),
+        model=model, lims=None, emit_traj=True)
+    x_pre = from_streams(ro.traj[:, :4], (4,)).contiguous()
+    u_pre = from_streams(ro.traj[:, 4:5], (1,)).contiguous()
+    fx = make_pendcart_problem(PendCartSpec(), derivs="euler",
+                               device=device).derivs(x_pre, u_pre).fx
+    ones = torch.ones((Bk, Tk, 1, 1), **f32)
+    pol = GaussianPolicy(K=torch.zeros((Bk, Tk, 1, 4), **f32), k=u_pre,
+                         sigma=ones, sigma_inv=ones)
+    return (x_pre, pol, fx.contiguous(), ro.totals[0]), ro
+
+
+def lti8_inputs(spec, device, Bk: int, Tk: int):
+    """The LTI fleet's inputs at n=8: x0 = 1·linspace(0.5, 2) over B lanes
+    (made on the host) and u0 = the spec's, on the first Bk lanes at
+    horizon Tk."""
+    x0s = torch.ones((B, LTI8_N)) * torch.linspace(0.5, 2.0, B)[:, None]
+    u0s = spec.u0.cpu()[:Tk].expand(Bk, Tk, LTI8_M)
+    return x0s[:Bk].to(device), u0s.contiguous().to(device)
+
+
+def lti8_kl_inputs(model, spec, x0s, u0s):
+    """KL on the LTI at n=8 (as tiles-lti's KL): the pre-roll by K3 at α=1
+    with k := u0 and no limits, the zero previous policy with unit Σ, fx =
+    A along the horizon, cost0."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        SimpleLTVModel)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        forward_kernel as fk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        from_streams, to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.policy import (
+        GaussianPolicy)
+    Bk, Tk, m = u0s.shape
+    n, dev = LTI8_N, x0s.device
+    ro = fk.forward_lanes(
+        torch.zeros((Tk, n + m + 1, Bk), device=dev),
+        torch.cat([to_streams(u0s), torch.zeros((Tk, m * n, Bk), device=dev)],
+                  dim=1), x0s.T.contiguous(), torch.ones((1, Bk), device=dev),
+        model=model, lims=None, emit_traj=True)
+    eye = torch.eye(m, device=dev).expand(Bk, Tk, m, m)
+    pol = GaussianPolicy(K=torch.zeros((Bk, Tk, m, n), device=dev),
+                         k=from_streams(ro.traj[:, n:n + m], (m,)).contiguous(),
+                         sigma=eye, sigma_inv=eye)
+    fx = SimpleLTVModel.from_lti(spec.A.to(dev), spec.B.to(dev), Tk).fx.expand(
+        Bk, Tk, n, n)
+    return (from_streams(ro.traj[:, :n], (n,)).contiguous(), pol, fx,
+            ro.totals[0])
+
+
+def sizes_cpu_solves() -> dict:
+    """The sizes group's CPU plain solves on B_CPU lanes (the
+    ``--sizes-cpu`` child): the rail fleet at RAIL_T_CPU and KL on it, the
+    LTI ⟨8,2⟩ fleet, KL on it and its packed solve at LTI_T_CPU. Two host
+    threads: the card's phases need the host too, and the group's checks
+    come last in the run."""
+    torch.set_num_threads(2)
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_packed_derivs)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+    m = sizes_models()
+    rail, spec = m["rail"], m["lti8_spec"]
+    rtiles = autodiff_derivs_tiles(rail)
+    x0r, u0r = rail_inputs("cpu", B_CPU, RAIL_T_CPU)
+    x8, u8 = lti8_inputs(spec, "cpu", B_CPU, LTI_T_CPU)
+    runs = {
+        "rail": lambda: ilqg_batch_lanes(
+            rail, None, x0r, u0r, lims=LIMS, cfg=headline_cfg(),
+            derivs_tiles=rtiles, max_steps=ITERS),
+        "rail KL": lambda: ilqgkl_batch_lanes(
+            rail, rtiles, *kl_tier_inputs(rail, "cpu", B_CPU, RAIL_T_CPU)[0],
+            cfg=ILQGKLConfig(kl_step=KL_STEP, max_iter=KL_ITERS)),
+        "rail KL nudged": lambda: ilqgkl_batch_lanes(
+            rail, rtiles, *nudged(kl_tier_inputs(rail, "cpu", B_CPU,
+                                                 RAIL_T_CPU)[0]),
+            cfg=ILQGKLConfig(kl_step=KL_STEP, max_iter=KL_ITERS)),
+        "lti8": lambda: ilqg_batch_lanes(
+            m["lti8"], None, x8, u8, lims=LTI_LIMS, cfg=lti_cfg(),
+            derivs_tiles=m["lti8_tiles"]),
+        "lti8 KL": lambda: ilqgkl_batch_lanes(
+            m["lti8"], m["lti8_tiles"],
+            *lti8_kl_inputs(m["lti8"], spec, x8, u8),
+            cfg=ILQGKLConfig(kl_step=KL_LTI_STEP)),
+        "lti8 packed": lambda: ilqg_batch_lanes(
+            m["lti8"], lti_packed_derivs(spec), x8, u8, lims=LTI_LIMS,
+            cfg=lti_cfg(), max_steps=LTI8_PACKED_ITERS)}
+    out = {}
+    for label, run in runs.items():
+        t0 = time.perf_counter()
+        r = run()
+        out[label] = {f: getattr(r, f).tolist() for f in (
+            ("cost_total", "satisfied", "n_iters") if "KL" in label
+            else ("cost_total", "reason", "n_accepted"))}
+        out[label]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def nudged(kl_inputs):
+    """KL inputs with the pre-rolled states moved by one ulp (toward +∞):
+    how far a solve's outcomes move under rounding alone."""
+    x, pol, fx, cost0 = kl_inputs
+    return (torch.nextafter(x, torch.full_like(x, math.inf)), pol, fx,
+            cost0)
+
+
+def graph_ops(model) -> dict:
+    """model_ops of a model without a descriptor: the operations of its
+    lowered graph (factories and copies not counted), a step's dynamics and
+    cost; the expansion K1 forms counted as one evaluation of the cost's
+    (its gradient costs at least that), no second-order term."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import lower
+    low = lower.lower(model)
+    skip = set(lower.FACTORIES) | set(lower.COPIES)
+
+    def count(name):
+        return sum(op.target not in skip for op in low.fns[name].ops)
+
+    cost = count("cost")
+    return dict(step=count("dynamics") + cost, derivs=cost, so=0)
+
+
+def timed_path(counters, fn):
+    """fn's result, launches and device ms (CUDA events), after a warm-up
+    run."""
+    fn()
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+    def run():
+        s.record()
+        out = fn()
+        e.record()
+        return out
+
+    out, launches = counted(counters, run)
+    return out, launches, s.elapsed_time(e)
+
+
+def plain_once_ms(fn) -> float:
+    """Host wall of one synchronised run of a plain version (ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+# each kernel-against-plain comparison of the sizes group: bit-identical?
+BITS: dict = {}
+
+
+def lane_kernels(rec, tag: str, model, tiles, lims, x0_l, traj0, gains0,
+                 A_ladder, lam, Tp: int, gps=None) -> torch.Tensor:
+    """K3 (sweep of the ladder, rollout at α=1), K1 (gains, full; with
+    ``gps`` = (prev, eta) also GPS policy) and K2 of ``model`` with
+    ``tiles`` against their plain versions at the first Tp steps (K1's run
+    once, in full emission, the other emission's slots selected from it):
+    each
+    output's bit-equality recorded in BITS, and where it is not bit-equal
+    held to KERNEL_TOL (K1 to AD_SLOT_TOL on at most TIE_SHARE of the
+    elements, Quu⁻¹ to QUU_INV_TOL), each timed at the streams' T; records k3_/k1_/k1_<tag>_gps/k2_<tag>. Returns the rollout
+    stream."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, forward_kernel as fk)
+    Tl, _, Bl = traj0.shape
+    n, m = model.n, model.m
+    A = A_ladder.shape[0]
+    al1 = torch.ones((1, Bl), device=traj0.device)
+
+    def fwd(al, emit, plain=False, Tk=Tl):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(traj0[:Tk], gains0[:Tk], x0_l, al, model=model, lims=lims,
+                 emit_traj=emit)
+
+    def held(what, pairs):
+        """Bit for bit, or (printed) within KERNEL_TOL of each output."""
+        same = all(torch.equal(a, b) for a, b in pairs.values())
+        BITS[what] = same
+        return (max(err(a, b)[0] for a, b in pairs.values()) if same
+                else k_vs_plain(what, pairs))
+
+    e3 = [held(f"K3 {tag} sweep A={A} at T={Tp}",
+               {"totals": (fwd(A_ladder, False, False, Tp).totals,
+                           fwd(A_ladder, False, True, Tp).totals)})]
+    k, p = fwd(al1, True, False, Tp), fwd(al1, True, True, Tp)
+    e3.append(held(f"K3 {tag} rollout at T={Tp}",
+                   {"traj": (k.traj, p.traj), "totals": (k.totals, p.totals)}))
+    ro = fwd(al1, True)
+    traj, tot = ro.traj, ro.totals[0]
+    ms3 = cuda_ms(lambda: fwd(A_ladder, False), 10)
+    ms3r = cuda_ms(lambda: fwd(al1, True), 10)
+    plain3 = plain_once_ms(lambda: fwd(A_ladder, False, True, Tp))
+    w3, w3r = k3_work(model, Tl, Bl, A, False), k3_work(model, Tl, Bl, 1, True)
+    rec[f"k3_{tag}"] = dict(max_abs_err=max(e3), ms=ms3, ms_rollout=ms3r,
+                            plain_ms=plain3, plain_T=Tp, library_ms=None,
+                            bound_ms_rollout=w3r["bound_ms"], **w3)
+    print(f"  K3 {tag} at T={Tl}: sweep {ms3:.4f} ms, rollout {ms3r:.4f} ms "
+          f"(bound {w3['bound_ms']:.4f}, {w3['bound_by']}); plain sweep at "
+          f"T={Tp} {plain3:.1f} ms")
+
+    def bwd(emit, tr=traj, plain=False, g=None):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        kw = (dict(prev=g[0][:tr.shape[0]], eta=g[1][:tr.shape[0]],
+                   reg_type=1, lims=None) if g is not None
+              else dict(reg_type=2, lims=lims))
+        return f(tr, torch.zeros_like(lam) if g is not None else lam, n=n,
+                 m=m, derivs_tiles=tiles, emit=emit, **kw)
+
+    trp = traj[:Tp].contiguous()
+    for key, g, emits in ((f"k1_{tag}", None, ("gains", "full")),
+                          (f"k1_{tag}_gps", gps, ("policy", "full"))):
+        if key.endswith("_gps") and gps is None:
+            continue
+        e1, runs = [], []
+        # the plain version once, in "full" emission (timed): the other
+        # emission's slots are a selection of its slots (k1_emitted)
+        plain1 = plain_once_ms(lambda: runs.append(bwd("full", trp, True, g)))
+        (p,) = runs
+        for emit in emits:
+            a, b = bwd(emit, trp, g=g), p._replace(out=k1_emitted(
+                p.out, n, m, emit))
+            what = f"K1 {tag} {emit}{' GPS' if g is not None else ''} at T={Tp}"
+            same = torch.equal(a.out, b.out) and torch.equal(a.stats,
+                                                             b.stats)
+            BITS[what] = same
+            print(f"  {what}: bit-identical to the plain version: {same}")
+            if not same:
+                lay = bk.OutLayout(n, m, emit)
+                nq = lay.quui if lay.quui is not None else lay.S
+                compare_slots_ties(what, a.out[:, :nq], b.out[:, :nq],
+                                   AD_SLOT_TOL)
+                if lay.quui is not None:
+                    compare(what, {"Quu_inv": (a.out[:, nq:], b.out[:, nq:])},
+                            QUU_INV_TOL)
+            check(torch.equal(a.stats[2:], b.stats[2:]),
+                  f"{what}: diverged/diverge_idx differ")
+            e1.append(err(a.out, b.out)[0])
+        ms1 = cuda_ms(lambda: bwd(emits[0], g=g), 10)
+        ms1f = cuda_ms(lambda: bwd("full", g=g), 10)
+        w1 = k1_work(model, Tl, Bl, emits[0], 1 if g is not None else 2,
+                     None if g is not None else lims, gps=g is not None)
+        w1f = k1_work(model, Tl, Bl, "full", 1 if g is not None else 2,
+                      None if g is not None else lims, gps=g is not None)
+        rec[key] = dict(max_abs_err=max(e1), ms=ms1, ms_full=ms1f,
+                        bound_ms_full=w1f["bound_ms"], plain_ms=plain1,
+                        plain_T=Tp, library_ms=None, **w1)
+        print(f"  K1 {key} at T={Tl}: {emits[0]} {ms1:.4f} ms, full "
+              f"{ms1f:.4f} ms (bound {w1['bound_ms']:.4f}, {w1['bound_by']});"
+              f" plain full once at T={Tp} {plain1:.1f} ms")
+
+    bo = bwd("gains")
+    sel = torch.stack([bo.stats[0], bo.stats[1], tot,
+                       (torch.arange(Bl, device=traj.device) % 2 == 0).float()])
+    alphas = A_ladder[:, 0].tolist()
+
+    def ls(plain=False, Tk=Tl):
+        f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+        return f(traj[:Tk], bo.out[:Tk], x0_l, sel, model=model,
+                 alphas=alphas, reduce_ratio_min=0.0, lims=lims)
+
+    a, b = ls(Tk=Tp), ls(True, Tp)
+    e2 = held(f"K2 {tag} at T={Tp}", {"traj": (a.traj, b.traj),
+                                       "ls": (a.ls, b.ls)})
+    ms2 = cuda_ms(lambda: ls(), 10)
+    plain2 = plain_once_ms(lambda: ls(True, Tp))
+    w2 = k2_work(model, Tl, Bl, A)
+    rec[f"k2_{tag}"] = dict(max_abs_err=e2, ms=ms2, plain_ms=plain2,
+                            plain_T=Tp, library_ms=None, **w2)
+    print(f"  K2 {tag} at T={Tl}: {ms2:.4f} ms (bound {w2['bound_ms']:.4f});"
+          f" plain at T={Tp} {plain2:.1f} ms")
+    return traj
+
+
+def gps_inputs(rng, Tl: int, Bl: int, n: int, m: int, dev):
+    """A previous-policy stream with every KL term non-zero (k, K, an SPD
+    Σ⁻¹) and a per-step η in [0.1, 10], from ``rng``."""
+    a_ = rng.standard_normal((Tl, Bl, m, m))
+    si = np.einsum("tbij,tbkj->tbik", a_, a_) + 0.5 * np.eye(m)
+    prev = torch.tensor(np.concatenate([
+        rng.standard_normal((Tl, m, Bl)),
+        0.5 * rng.standard_normal((Tl, m * n, Bl)),
+        np.moveaxis(si.reshape(Tl, Bl, m * m), 1, 2)], axis=1),
+        dtype=torch.float32, device=dev)
+    eta = torch.tensor(10.0 ** rng.uniform(-1, 1, (Tl, Bl)),
+                       dtype=torch.float32, device=dev)
+    return prev, eta
+
+
+def sizes_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
+    """Phases 58-61, the sizes group: sizes-build, rail, lti8 and ops.
+    Returns the launches of the group's paths; adds ``sizes`` (the group's
+    seconds, builds and outcomes) to ``rec``."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        device_model, lti_packed_derivs)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, covariance_kernel as ck, forward_kernel as fk,
+        plan)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+    from tools_torch import opset, rail as rail_mod
+
+    t_group = time.perf_counter()
+    sm, (th, labels, box) = builds
+    out = dict(walls={})
+    ph.start("sizes-build", "the sizes group's libraries, one nvcc each, "
+             "started after the main build")
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    lb = {}
+    for label, b in zip(labels, box["builds"]):
+        lines = ptxas_summary(b.log)
+        print(f"  {label}: {b.seconds:.1f} s -> {b.path.name}")
+        for line in lines:
+            print(f"    {line}")
+        lb[label] = dict(seconds=b.seconds, ptxas=lines)
+    pr = box["probe"]
+    k = len(COV_NS) + 1
+    print(f"  K4 build time after the group's builds (wall): the library of "
+          f"one n (n={LTI8_N}) {pr['one_n']:.1f} s; {k} libraries, one an n, "
+          f"{k} nvcc at once {pr['per_n']:.1f} s; one library of all {k} n "
+          f"{pr['all_n']:.1f} s. A launch needs its own n only, so the port "
+          f"builds one library an n, at that n's first launch")
+    rec["ptxas"] += [line for v in lb.values() for line in v["ptxas"]]
+    out["builds"] = dict(libraries=lb, wall=box["wall"], k4_probe=pr)
+    paths = {}
+    rng = np.random.default_rng(71)
+    cfg = headline_cfg()
+    A = len(cfg.alphas)
+
+    # ---- rail
+    ph.start("rail", f"the headline fleet (pendcart, B={B}, T={T}, ±5, "
+             f"reg_type 2, {A}-α ladder, {ITERS} iterations, u0 = "
+             f"{RAIL_U0}·N(0,1)) on a finite rail: a Python-only model "
+             f"(abs, clamp, pow, log, a comparison, where), its kernels "
+             f"against their plain versions at T={SIZES_T_PLAIN}; then KL "
+             f"on it at the KL tier's settings")
+    t_ph = time.perf_counter()
+    rm = sm["rail"]
+    rtiles = autodiff_derivs_tiles(rm)
+    x0s, u0s = rail_inputs(dev, B, T)
+    x0_l = x0s.T.contiguous()
+    ladder = torch.tensor(cfg.alphas, device=dev)[:, None].expand(A, B)
+    lam = torch.tensor(10.0 ** rng.uniform(-6, 2, B), dtype=torch.float32,
+                       device=dev)
+    lam[::8] = 0.0
+    gains0 = torch.cat([to_streams(u0s), torch.zeros((T, 4, B), device=dev)],
+                       dim=1)
+    gps = gps_inputs(rng, T, B, 4, 1, dev)
+    traj = lane_kernels(rec, "rail", rm, rtiles, LIMS, x0_l,
+                        torch.zeros((T, 5, B), device=dev), gains0,
+                        ladder.contiguous(), lam, SIZES_T_PLAIN, gps=gps)
+    x_init = traj[:, :4].permute(2, 0, 1)
+    share0 = rail_mod.leaves_rail(x_init)
+    band0 = (traj[:, 4].abs() > rail_mod.BAND).any(dim=0).float().mean().item()
+    del gps
+
+    def rsolve(x0=x0s, u0=u0s):
+        return ilqg_batch_lanes(rm, None, x0, u0, lims=LIMS, cfg=cfg,
+                                derivs_tiles=rtiles, max_steps=ITERS)
+
+    r, launches, ms = timed_path(counters, rsolve)
+    iters = int(r.n_iters.max())
+    share1 = rail_mod.leaves_rail(r.x)
+    reasons = {int(v): int(c) for v, c in zip(*torch.unique(
+        r.reason, return_counts=True))}
+    print(f"  launches: {launches}; solve {ms:.3f} ms, {ms / max(iters, 1):.4f}"
+          f" ms/iter over {iters}; reasons {reasons}; cost median "
+          f"{r.cost_total.median().item():.6g}")
+    print(f"  lanes past the rail's end (|p| > {rail_mod.RAIL}): initial "
+          f"rollout {share0:.4f}, after the solve {share1:.4f}; controls in "
+          f"the band (|u| > {rail_mod.BAND}) in the initial rollout: "
+          f"{band0:.4f}")
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the rail path never ran: {launches}")
+    check(share0 > 0, "rail: no lane leaves the rail in the initial rollout")
+    check(bool(torch.isfinite(r.cost_total).all()
+               and (r.u.abs() <= 5.0).all()), "rail: bad result")
+    paths["rail"] = launches
+    out["rail"] = dict(solve_ms=ms, iters=iters, reasons=reasons,
+                       leave_initial=share0, leave_after=share1,
+                       band_initial=band0)
+    x0c, u0c = rail_inputs(dev, B_CPU, RAIL_T_CPU)
+    g = rsolve(x0c, u0c)
+    c = child_solves(cpu_proc)["rail"]
+    agree(f"rail {B_CPU} lanes at T={RAIL_T_CPU} ({c['seconds']:.1f} s in "
+          f"the child)", {f: getattr(g, f).tolist() for f in (
+              "cost_total", "reason", "n_accepted")}, c, "cost_total",
+          ("reason", "n_accepted"))
+    del r, g, traj
+    kcfg = ILQGKLConfig(kl_step=KL_STEP, max_iter=KL_ITERS)
+    kin, _ = kl_tier_inputs(rm, dev, B, T)
+    r, launches, ms = timed_path(counters, lambda: ilqgkl_batch_lanes(
+        rm, rtiles, *kin, cfg=kcfg))
+    print(f"  KL launches: {launches}; KL solve {ms:.3f} ms, n_iters max "
+          f"{int(r.n_iters.max())}; satisfied {r.satisfied.float().mean().item():.4f}"
+          f"; cost median {r.cost_total.median().item():.6g} against cost0 "
+          f"median {kin[3].median().item():.6g}")
+    check(launches["covariance_lanes"] == 1 and launches["backward_lanes"] >= 1
+          and launches["forward_lanes"] >= 1,
+          f"a kernel of the rail KL path never ran: {launches}")
+    check(bool(torch.isfinite(r.cost_total).all()), "rail KL: non-finite")
+    paths["rail_kl"] = launches
+    out["rail"]["kl_ms"] = ms
+    kc, _ = kl_tier_inputs(rm, dev, B_CPU, RAIL_T_CPU)
+    g = ilqgkl_batch_lanes(rm, rtiles, *kc, cfg=kcfg)
+    c = child_solves(cpu_proc)["rail KL"]
+    # this KL solve is chaotic at one ulp: the host's own solve from states
+    # one ulp away agrees with it on these shares only, and the card is
+    # held to the host at least as closely (or to AGREE_SHARE, where that
+    # is lower)
+    kl_fields = ("satisfied", "n_iters")
+    self_shares = shares(child_solves(cpu_proc)["rail KL nudged"], c,
+                         "cost_total", kl_fields)
+    print(f"  rail KL on the host against itself from states one ulp away: "
+          f"shares cost within {COST_RTOL:.0e} {self_shares[0]:.3f}, same "
+          f"satisfied {self_shares[1]:.3f}, same n_iters "
+          f"{self_shares[2]:.3f}")
+    out["rail"]["kl_self_shares"] = self_shares
+    agree(f"rail KL {B_CPU} lanes at T={RAIL_T_CPU} ({c['seconds']:.1f} s in "
+          f"the child)", {f: getattr(g, f).tolist() for f in (
+              "cost_total",) + kl_fields}, c, "cost_total", kl_fields,
+          need=[min(AGREE_SHARE, v) for v in self_shares])
+    del r, g, kin, kc
+    out["walls"]["rail"] = time.perf_counter() - t_ph
+
+    # ---- lti8
+    spec = sm["lti8_spec"]
+    spec = spec._replace(**{k: getattr(spec, k).to(dev) for k in spec._fields})
+    n, m, Tl = LTI8_N, LTI8_M, LTI_T
+    ph.start("lti8", f"random_lti(0, n={n}, m={m}, T={Tl}) through the plain "
+             f"lti_lanes and lti_derivs_tiles (no descriptor at this size: "
+             f"the lowering runs), B={B}, ±0.6, reg_type 2: its kernels "
+             f"against their plain versions at T={SIZES_T_PLAIN}; the fleet "
+             f"to convergence, KL on it (kl_step {KL_LTI_STEP}; K4 n={n}), "
+             f"the packed solve (Packed<{n},{m}>, {LTI8_PACKED_ITERS} "
+             f"iterations)")
+    t_ph = time.perf_counter()
+    lm, ltiles = sm["lti8"], sm["lti8_tiles"]
+    check(lm.device is None and ltiles.device is None,
+          "lti8: the LTI's lane objects carry a descriptor at n=8")
+    lcfg = lti_cfg()
+    A8 = len(lcfg.alphas)
+    x8, u8 = lti8_inputs(spec, dev, B, Tl)
+    x8_l = x8.T.contiguous()
+    gains8 = torch.cat([to_streams(u8 + 0.3 * torch.tensor(
+        rng.standard_normal((B, Tl, m)), dtype=torch.float32, device=dev)),
+        torch.zeros((Tl, m * n, B), device=dev)], dim=1)
+    ladder8 = torch.tensor(lcfg.alphas, device=dev)[:, None].expand(A8, B)
+    gps = gps_inputs(rng, Tl, B, n, m, dev)
+    # the bound of an LTI <8,2> as the hand-written LTI forms it
+    traj8 = lane_kernels(rec, "lti8", lm, ltiles, LTI_LIMS, x8_l,
+                         torch.zeros((Tl, n + m, B), device=dev), gains8,
+                         ladder8.contiguous(), lam, SIZES_T_PLAIN, gps=gps)
+    del gps
+    # K4 at n=8 on A along the horizon, and the packed K1 <8,2> on the
+    # rollout's packed stream
+    fx8 = to_streams(spec.A.expand(B, Tl, n, n).contiguous())
+    k4_check(rec, "k4_8", fx8, n)
+    dp = lti_packed_derivs(spec)(traj8[:, :n], traj8[:, n:n + m])
+    packed_check(rec, "k1_packed_8_2", dp, lam, n, m, LTI_LIMS,
+                 SIZES_T_PLAIN, device_model(spec))
+    del dp, traj8, fx8
+
+    def lsolve(tiles=ltiles, gen=None, x0=x8, u0=u8, steps=None):
+        return ilqg_batch_lanes(lm, gen, x0, u0, lims=LTI_LIMS, cfg=lcfg,
+                                derivs_tiles=tiles, max_steps=steps)
+
+    cpu8 = child_solves(cpu_proc)
+    xc, uc = lti8_inputs(spec, dev, B_CPU, LTI_T_CPU)
+    r, launches, ms = timed_path(counters, lsolve)
+    iters = int(r.n_iters.max())
+    print(f"  fleet: launches {launches}; solve {ms:.3f} ms, n_iters max "
+          f"{iters}; reasons {dict(zip(*(v.tolist() for v in torch.unique(r.reason, return_counts=True))))}")
+    check(all(launches[c.__name__] > 0 for c in counters[:3]),
+          f"a kernel of the lti8 path never ran: {launches}")
+    check(bool(torch.isfinite(r.cost_total).all()
+               and (r.u.abs() <= 0.6).all()), "lti8: bad result")
+    paths["lti8"] = launches
+    out["lti8"] = dict(solve_ms=ms, iters=iters)
+    g = lsolve(x0=xc, u0=uc)
+    c = cpu8["lti8"]
+    agree(f"lti8 {B_CPU} lanes at T={LTI_T_CPU} ({c['seconds']:.1f} s in the "
+          f"child)", {f: getattr(g, f).tolist() for f in (
+              "cost_total", "reason", "n_accepted")}, c, "cost_total",
+          ("reason", "n_accepted"))
+    del r, g
+    kcfg8 = ILQGKLConfig(kl_step=KL_LTI_STEP)
+    r, launches, ms = timed_path(counters, lambda: ilqgkl_batch_lanes(
+        lm, ltiles, *lti8_kl_inputs(lm, spec, x8, u8), cfg=kcfg8))
+    print(f"  KL: launches {launches}; solve {ms:.3f} ms, n_iters max "
+          f"{int(r.n_iters.max())}; satisfied "
+          f"{r.satisfied.float().mean().item():.4f}")
+    check(launches["covariance_lanes"] == 1 and launches["backward_lanes"]
+          >= 1, f"a kernel of the lti8 KL path never ran: {launches}")
+    check(bool(torch.isfinite(r.cost_total).all()), "lti8 KL: non-finite")
+    paths["lti8_kl"] = launches
+    out["lti8"]["kl_ms"] = ms
+    g = ilqgkl_batch_lanes(lm, ltiles, *lti8_kl_inputs(lm, spec, xc, uc),
+                           cfg=kcfg8)
+    c = cpu8["lti8 KL"]
+    agree(f"lti8 KL {B_CPU} lanes at T={LTI_T_CPU}", {f: getattr(
+        g, f).tolist() for f in ("cost_total", "satisfied", "n_iters")}, c,
+          "cost_total", ("satisfied", "n_iters"))
+    del r, g
+    gen = lti_packed_derivs(spec)
+    r, launches, ms = timed_path(counters, lambda: lsolve(
+        None, gen, steps=LTI8_PACKED_ITERS))
+    print(f"  packed: launches {launches}; solve {ms:.3f} ms over "
+          f"{int(r.n_iters.max())} iterations; cost median "
+          f"{r.cost_total.median().item():.6g}")
+    check(launches["backward_lanes"] > 0, f"lti8 packed: K1 never ran "
+          f"{launches}")
+    check(bool(torch.isfinite(r.cost_total).all()), "lti8 packed: non-finite")
+    paths["lti8_packed"] = launches
+    out["lti8"]["packed_ms"] = ms
+    g = lsolve(None, gen, xc, uc, LTI8_PACKED_ITERS)
+    c = cpu8["lti8 packed"]
+    agree(f"lti8 packed {B_CPU} lanes at T={LTI_T_CPU}", {f: getattr(
+        g, f).tolist() for f in ("cost_total", "reason", "n_accepted")}, c,
+          "cost_total", ("reason", "n_accepted"))
+    del r, g
+    out["walls"]["lti8"] = time.perf_counter() - t_ph
+
+    # ---- ops
+    Tp = SIZES_T_PLAIN
+    ph.start("ops", f"kernel against plain at T={Tp}, B={B}: the op-set "
+             f"model's K3, K1 (Dual and Jet) and K2; pow against torch.pow "
+             f"at {opset.POW_EXPONENTS}; K4 at n in "
+             f"{COV_NS + (plan.COV_MAX_N,)}; Packed at {PACKED_SIZES}")
+    t_ph = time.perf_counter()
+    om = sm["opset"]
+    olims = ((-3.0, 3.0), (-3.0, 3.0))
+    ox0 = torch.tensor(rng.standard_normal((3, B)), dtype=torch.float32,
+                       device=dev)
+    og = torch.cat([torch.tensor(1.5 * rng.standard_normal((Tp, 2, B)),
+                                 dtype=torch.float32, device=dev),
+                    torch.zeros((Tp, 6, B), device=dev)], dim=1)
+    oladder = ladder.contiguous()
+    for key, so in (("opset", False), ("opset_so", True)):
+        _, launches = counted(counters, lambda: lane_kernels(
+            rec, key, om, autodiff_derivs_tiles(om, second_order=so), olims,
+            ox0, torch.zeros((Tp, 5, B), device=dev), og, oladder, lam, Tp))
+        for k in (f"k3_{key}", f"k1_{key}", f"k2_{key}"):
+            rec[k]["phase_launches"] = launches[
+                {"3": "forward_lanes", "1": "backward_lanes",
+                 "2": "linesearch_lanes"}[k[1]]]
+    # the Jet instance's K3/K2 are the Dual one's (one fwd library)
+    rec.pop("k3_opset_so")
+    rec.pop("k2_opset_so")
+    pm = sm["pow"]
+    px0 = torch.tensor(rng.uniform(-1.0, 1.0, (pm.n, B)), dtype=torch.float32,
+                       device=dev)
+
+    def pfwd(plain=False):
+        f = fk.forward_lanes_ref if plain else fk.forward_lanes
+        return f(torch.zeros((Tp, pm.n + 2, B), device=dev),
+                 torch.zeros((Tp, 1 + pm.n, B), device=dev), px0,
+                 torch.ones((1, B), device=dev), model=pm, lims=None,
+                 emit_traj=True)
+
+    (k, p), launches = counted(counters, lambda: (pfwd(), pfwd(True)))
+    check(bool(torch.isfinite(k.traj).all()), "pow: non-finite rollout")
+    same = {e: bool(torch.equal(k.traj[:, i], p.traj[:, i]))
+            for i, e in enumerate(opset.POW_EXPONENTS)}
+    print(f"  pow: powc_ bit-equal to torch.pow on the card, by exponent: "
+          f"{same}")
+    for i, e in enumerate(opset.POW_EXPONENTS):
+        if not same[e]:
+            a, b = k.traj[:, i], p.traj[:, i]
+            ulp = (a.view(torch.int32).long() - b.view(torch.int32).long()
+                   ).abs().max().item()
+            print(f"  pow e={e}: {ulp} ulp at most after {Tp} steps")
+            check(e not in POW_SPECIAL and ulp <= POW_ULPS,
+                  f"pow e={e}: {ulp} ulp from torch.pow")
+    w3 = k3_work(pm, Tp, B, 1, True)
+    rec["k3_pow"] = dict(max_abs_err=err(k.traj, p.traj)[0],
+                         ms=cuda_ms(pfwd, 10), plain_ms=plain_once_ms(
+                             lambda: pfwd(True)), library_ms=None,
+                         phase_launches=launches["forward_lanes"], **w3)
+    out["pow_bits"] = {str(e): v for e, v in same.items()}
+    del k, p
+    for n in COV_NS + (plan.COV_MAX_N,):
+        if n == LTI8_N:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(100 + n)
+        fx = (0.6 * torch.eye(n, device=dev).reshape(1, n * n, 1)
+              + (0.3 / math.sqrt(n)) * torch.randn(
+                  (Tp, n * n, B), generator=gen, device=dev))
+        _, launches = counted(counters, lambda: k4_check(
+            rec, f"k4_{n}", fx, n))
+        rec[f"k4_{n}"]["phase_launches"] = launches["covariance_lanes"]
+        del fx
+    for n, mm in PACKED_SIZES:
+        if (n, mm) == (LTI8_N, LTI8_M):
+            continue
+        from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+            lti_lanes, random_lti)
+        pspec = random_lti(2, n=n, m=mm, T=Tp, device=dev)
+        plims = ((-0.6, 0.6),) * mm
+        pg = torch.cat([torch.tensor(rng.standard_normal((Tp, mm, B)),
+                                     dtype=torch.float32, device=dev),
+                        torch.zeros((Tp, mm * n, B), device=dev)], dim=1)
+        tr = fk.forward_lanes(
+            torch.zeros((Tp, n + mm + 1, B), device=dev), pg,
+            torch.ones((n, B), device=dev) * torch.linspace(
+                0.5, 2.0, B, device=dev), torch.ones((1, B), device=dev),
+            model=lti_lanes(pspec), lims=plims, emit_traj=True).traj
+        dp = lti_packed_derivs(pspec)(tr[:, :n], tr[:, n:n + mm])
+        _, launches = counted(counters, lambda: packed_check(
+            rec, f"k1_packed_{n}_{mm}", dp, lam, n, mm, plims, Tp,
+            device_model(pspec)))
+        rec[f"k1_packed_{n}_{mm}"]["phase_launches"] = launches[
+            "backward_lanes"]
+        del dp, tr
+    out["walls"]["ops"] = time.perf_counter() - t_ph
+    out["seconds"] = time.perf_counter() - t_group
+    print(f"  the sizes group: {out['seconds']:.1f} s (rail "
+          f"{out['walls']['rail']:.1f}, lti8 {out['walls']['lti8']:.1f}, ops "
+          f"{out['walls']['ops']:.1f}; the rest waited for the builds)")
+    out["bits"] = dict(BITS)
+    rec["sizes"] = out
+    return paths
+
+
+def packed_check(rec, key: str, dp, lam, n: int, m: int, lims, Tp: int,
+                 dm) -> None:
+    """K1 on the packed stream ``dp`` (T, D+m, B) at ⟨n,m⟩ (Packed<n,m>,
+    a library built at its first launch) against its plain version at the
+    first Tp steps, gains and full (the plain version run once, in full
+    emission): bit for bit where they are, else within KERNEL_TOL of each
+    slot's scale (QUU_INV_TOL for Quu⁻¹); timed at the stream's T. The
+    bound is the LTI's with ``dm``'s descriptor."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, forward_kernel as fk)
+    Tl, _, Bl = dp.shape
+
+    def run(emit, d=dp, plain=False):
+        f = bk.backward_lanes_ref if plain else bk.backward_lanes
+        return f(d, lam, n=n, m=m, reg_type=2, lims=lims, derivs_tiles=None,
+                 emit=emit)
+
+    dpp = dp[:Tp].contiguous()
+    e, runs = [], []
+    # the plain version once, in "full" emission (timed): "gains" is a
+    # selection of its slots (k1_emitted)
+    plain = plain_once_ms(lambda: runs.append(run("full", dpp, True)))
+    (p,) = runs
+    for emit in ("gains", "full"):
+        a, b = run(emit, dpp), p._replace(out=k1_emitted(p.out, n, m, emit))
+        lay = bk.OutLayout(n, m, emit)
+        nq = lay.quui if lay.quui is not None else lay.S
+        what = f"K1 packed <{n},{m}> {emit} at T={Tp}"
+        e.append(k_vs_plain(what, {"out": (a.out[:, :nq], b.out[:, :nq]),
+                                   "dV": (a.stats[:2], b.stats[:2])}))
+        if lay.quui is not None:
+            e.append(k_vs_plain(what, {"Quu_inv": (a.out[:, nq:],
+                                                   b.out[:, nq:])},
+                                QUU_INV_TOL))
+        check(torch.equal(a.stats[2:], b.stats[2:]),
+              f"{what}: diverged/diverge_idx differ")
+    ms = cuda_ms(lambda: run("gains"), 10)
+    msf = cuda_ms(lambda: run("full"), 10)
+    hand = fk.LanesModel(n=n, m=m, dynamics=None, cost=None, device=dm)
+    w = k1_work(hand, Tl, Bl, "gains", 2, lims, packed=True)
+    wf = k1_work(hand, Tl, Bl, "full", 2, lims, packed=True)
+    rec[key] = dict(max_abs_err=max(e), ms=ms, ms_full=msf,
+                    bound_ms_full=wf["bound_ms"], plain_ms=plain, plain_T=Tp,
+                    library_ms=None, **w)
+    print(f"  {key} at T={Tl}: gains {ms:.4f} ms, full {msf:.4f} ms (bound "
+          f"{w['bound_ms']:.4f}, {w['bound_by']}); plain full once at T={Tp} "
+          f"{plain:.1f} ms")
+
+
 def main() -> int:
     ph = Phases()
     ph.start("device")
@@ -6812,12 +7694,15 @@ def main() -> int:
     builds = (models, start_lowered_builds(models))
     tmodels = tiles_models()
     tbuilds = (tmodels, start_tiles_builds(tmodels))
+    smodels = sizes_models()
+    sbuilds = (smodels, start_sizes_builds(smodels))
     # the packed group's CPU solves run beside the card's phases
     cpu_proc = start_cpu_child("--packed-cpu")
     m3_proc = start_cpu_child("--m3-cpu")
     tiles_proc = start_cpu_child("--tiles-cpu")
     demos_proc = start_cpu_child("--demos-cpu")
-    CHILDREN.extend([cpu_proc, m3_proc, tiles_proc, demos_proc])
+    sizes_proc = start_cpu_child("--sizes-cpu")
+    CHILDREN.extend([cpu_proc, m3_proc, tiles_proc, demos_proc, sizes_proc])
 
     ph.start("ilqg-kernels", f"vs plain versions, B={B}, T={T}")
     spec = PendCartSpec()
@@ -7071,6 +7956,10 @@ def main() -> int:
     paths.update(demos_phases(ph, dev, counters, demos_proc))
     aot_paths, aot = aot_phase(ph, dev, counters)
     paths.update(aot_paths)
+    paths.update(sizes_phases(ph, dev, rec, counters, sbuilds, sizes_proc))
+    sizes = rec.pop("sizes")
+    for v in sizes["builds"]["libraries"].values():
+        v.pop("ptxas")
 
     # ---- record and result: one entry per kernel instance, its launches
     #      summed over the paths that run it
@@ -7166,7 +8055,7 @@ def main() -> int:
         ("k3_lti3", "forward_lanes", "LTI <10,3>", "forward_lti_10_3.cu", k3,
          ("m3_lti", "m3_fleet", "m3_kl")),
         ("k4_4", "covariance_lanes", "n=4", "covariance.cu", k4,
-         ("kl", "gps") + fleet_kl),
+         ("kl", "gps", "rail_kl") + fleet_kl),
         ("k4_10", "covariance_lanes", "n=10", "covariance.cu", k4,
          ("kl_lti", "gps_lti", "tiles_lti_kl")),
         # n=6: the quadrotor's state, KL on the quadrotor
@@ -7255,6 +8144,45 @@ def main() -> int:
         ("k1_quad_so", "backward_lanes",
          "Autodiff<Quadrotor,SO> <6,2> gains, full (full DDP)",
          "backward_quad_so.cu", k1, ("quad_full_ddp",)),
+        # the sizes group: the op set's later ops (the rail, the op-set and
+        # pow models), the LTI at <8,2> without a descriptor, K4 at any n
+        # and the packed K1 at any size, each a library generated at its
+        # first launch (covariance.cuh, packed.cuh, lowered.cuh)
+        ("k3_rail", "forward_lanes", "Lowered rail <4,1>", "lowered.cuh", k3,
+         ("rail", "rail_kl")),
+        ("k2_rail", "linesearch_lanes", "Lowered rail <4,1>", "lowered.cuh",
+         k2, ("rail",)),
+        ("k1_rail", "backward_lanes", "Autodiff<Lowered> rail <4,1> gains, "
+         "full", "lowered.cuh", k1, ("rail",)),
+        ("k1_rail_gps", "backward_lanes", "Autodiff<Lowered> rail <4,1> GPS "
+         "policy", "lowered.cuh", k1, ("rail_kl",)),
+        ("k3_lti8", "forward_lanes", "Lowered LTI <8,2>", "lowered.cuh", k3,
+         ("lti8", "lti8_kl", "lti8_packed")),
+        ("k2_lti8", "linesearch_lanes", "Lowered LTI <8,2>", "lowered.cuh",
+         k2, ("lti8", "lti8_packed")),
+        ("k1_lti8", "backward_lanes", "LoweredTiles LTI <8,2> gains, full",
+         "lowered.cuh", k1, ("lti8",)),
+        ("k1_lti8_gps", "backward_lanes", "LoweredTiles LTI <8,2> GPS "
+         "policy", "lowered.cuh", k1, ("lti8_kl",)),
+        ("k4_8", "covariance_lanes", "n=8", "covariance.cuh", k4,
+         ("lti8_kl",)),
+        ("k1_packed_8_2", "backward_lanes", "packed <8,2> gains, full",
+         "packed.cuh", k1, ("lti8_packed",)),
+        ("k1_packed_5_4", "backward_lanes", "packed <5,4> gains, full",
+         "packed.cuh", k1, ()),
+        ("k3_opset", "forward_lanes", "Lowered op-set <3,2>", "lowered.cuh",
+         k3, ()),
+        ("k2_opset", "linesearch_lanes", "Lowered op-set <3,2>",
+         "lowered.cuh", k2, ()),
+        ("k1_opset", "backward_lanes", "Autodiff<Lowered> op-set <3,2> "
+         "gains, full", "lowered.cuh", k1, ()),
+        ("k1_opset_so", "backward_lanes", "Autodiff<Lowered,SO> op-set <3,2> "
+         "gains, full (Jet passes)", "lowered.cuh", k1, ()),
+        ("k3_pow", "forward_lanes", "Lowered pow <8,1> (powc_ at 8 "
+         "exponents)", "lowered.cuh", k3, ()),
+    ) + tuple(
+        (f"k4_{n}", "covariance_lanes", f"n={n}", "covariance.cuh", k4, ())
+        for n in COV_NS + (cov_max_n(),) if n != LTI8_N) + (
         ("k5_copy", "probe_lanes", "copy", "probe.cu", k5, ("probe_copy",)),
         ("k5_light", "probe_lanes", "light", "probe.cu", k5, ("probe_light",)),
         ("k5_full", "probe_lanes", "full", "probe.cu", k5, ("probe_full",)),
@@ -7280,6 +8208,7 @@ def main() -> int:
     print(json.dumps({"tiles": tiles_group}))
     print(json.dumps({"ladder": ladder}))
     print(json.dumps({"aot": aot}))
+    print(json.dumps({"sizes": sizes}))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
@@ -7306,6 +8235,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--demos-cpu"]:
         print(json.dumps(demos_cpu_solves()))
+        sys.exit(0)
+    if sys.argv[1:] == ["--sizes-cpu"]:
+        print(json.dumps(sizes_cpu_solves()))
         sys.exit(0)
     try:
         rc = main()

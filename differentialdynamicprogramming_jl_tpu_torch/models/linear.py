@@ -14,9 +14,14 @@ non-zero term, and ½·Q[i,j] is formed before it multiplies x[i]·x[j]. A
 dense sum would differ where 0·Inf gives NaN (an overflowing lane) and in
 the sign of a zero.
 
-Both lane objects carry a device-model descriptor: model id 2 and the f32
-constants ``[A (n·n), B (n·m), Q (n·n), R (m·m)]`` row-major, from which the
-CUDA kernels (``ops/hopper/csrc/lti.cuh``) evaluate the same model.
+Both lane objects carry a device-model descriptor where the kernel library
+holds the hand-written LTI at their (n, m) (⟨10,2⟩ and ⟨10,3⟩,
+``forward_kernel.CUDA_MODELS``): model id 2 and the f32 constants
+``[A (n·n), B (n·m), Q (n·n), R (m·m)]`` row-major, from which the CUDA
+kernels (``ops/hopper/csrc/lti.cuh``) evaluate the same model. At any other
+size they carry none (``device=None``), and on CUDA tensors the kernels run
+their lowering (``ops/hopper/lower.py``): K2 and K3 the lowered model, K1
+the lowered tiles (``LoweredTiles``) or ``Autodiff<Lowered>``.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import torch
 
 from ..device import as_tensor, resolve
 from ..ops.hopper.backward_kernel import DerivsTiles
-from ..ops.hopper.forward_kernel import DeviceModel, LanesModel
+from ..ops.hopper.forward_kernel import CUDA_MODELS, DeviceModel, LanesModel
 from ..ops.hopper.pack import packed_from_tiles
 from ..policy import Derivs
 from ..problem import Problem, broadcast_derivs
@@ -123,6 +128,13 @@ def device_model(spec: LTISpec) -> DeviceModel:
         [a.ravel() for a in _f32(spec)]).astype(np.float32))
 
 
+def _built_device(spec: LTISpec) -> Optional[DeviceModel]:
+    """The descriptor where the kernel library holds the hand-written LTI
+    at the spec's (n, m), else None (the lowering runs)."""
+    n, m = spec.B.shape
+    return device_model(spec) if (MODEL_ID, n, m) in CUDA_MODELS else None
+
+
 def _lincomb(M: np.ndarray, vec, zero):
     """Row i: Σ_j M[i,j]·vec[j] over the non-zero M[i,j] only, starting at
     the first such term; ``zero`` for a row without one."""
@@ -141,7 +153,7 @@ def _lincomb(M: np.ndarray, vec, zero):
 def lti_lanes(spec: LTISpec) -> LanesModel:
     """Lane model: dynamics and running cost on lists of per-scenario
     tensors with the zero-skipping rule, no terminal cost, and the
-    device-model descriptor."""
+    device-model descriptor where one is built (else ``device=None``)."""
     A, Bm, Q, R = _f32(spec)
     n, m = Bm.shape
     AB = np.concatenate([A, Bm], axis=1)
@@ -160,13 +172,14 @@ def lti_lanes(spec: LTISpec) -> LanesModel:
         return c
 
     return LanesModel(n=n, m=m, dynamics=dynamics, cost=cost, terminal=None,
-                      device=device_model(spec))
+                      device=_built_device(spec))
 
 
 @factory
 def lti_derivs_tiles(spec: LTISpec) -> DerivsTiles:
     """In-kernel derivatives: the constant A, B, Q, R, and cx = Q·x,
-    cu = R·u with the zero-skipping rule."""
+    cu = R·u with the zero-skipping rule; the descriptor as
+    :func:`lti_lanes`'s."""
     A, Bm, Q, R = _f32(spec)
     n, m = Bm.shape
 
@@ -182,7 +195,7 @@ def lti_derivs_tiles(spec: LTISpec) -> DerivsTiles:
                     cu=_lincomb(R, u, z), cxx=const(Q),
                     cxu=[[z] * m for _ in range(n)], cuu=const(R))
 
-    return DerivsTiles(fn=tiles, device=device_model(spec))
+    return DerivsTiles(fn=tiles, device=_built_device(spec))
 
 
 @factory

@@ -24,7 +24,9 @@ instance group (:data:`LOWERED_GROUPS`) includes ``csrc/lowered.cuh``, each
 group one ``nvcc`` process and one ``.so`` whose name carries the digest of
 the generated source, the headers and ``FLAGS``, so a model's first launch
 compiles only the group it needs, and a model of the same structure reuses
-it.
+it. K4 at a state size, and the packed K1 at an (n, m), that the kernel
+library does not hold are built the same way, one library per size
+(:func:`covariance_library`, :func:`packed_library`).
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ SOURCES = ("common.cuh", "ring.cuh", "autodiff.cuh", "pendcart.cuh",
            "backward_packed.cu", "backward_packed_lti.cu", "backward_so.cu",
            "backward_quad_so.cu", "forward.cu", "forward_lti.cu",
            "forward_lti_10_3.cu", "forward_quad.cu",
-           "forward_pendcart_param.cu", "covariance.cu", "probe.cu")
+           "forward_pendcart_param.cu", "covariance.cuh", "covariance.cu",
+           "probe.cu")
 # compile flags of every source; the objects are then linked with -shared
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -64,6 +67,11 @@ LOWERED_HEADERS = ("common.cuh", "ring.cuh", "autodiff.cuh", "backward.cuh",
 # DDP_LOWERED_GROUP; "fwd" has K3's and K2's entry points, the others K1's
 LOWERED_GROUPS = {"fwd": 0, "k1": 1, "k1_gps": 2, "k1_so": 3, "t1": 4,
                   "t1_gps": 5, "t1_so": 6}
+# the headers of the libraries generated for a size the kernel library is
+# not built for: K4 at any n (covariance_library), the packed K1 at any
+# (n, m) (packed_library)
+COVARIANCE_HEADERS = ("common.cuh", "ring.cuh", "covariance.cuh")
+PACKED_HEADERS = ("common.cuh", "ring.cuh", "backward.cuh", "packed.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
@@ -195,25 +203,29 @@ def lowered_source(struct: str, group: str) -> str:
             '#include "lowered.cuh"\n')
 
 
-def _lowered_path(source: str) -> Path:
+def _generated_path(source: str, headers: Sequence[str],
+                    prefix: str) -> Path:
+    """The library of a generated source: its name carries the digest of
+    the source, the headers it includes and ``FLAGS``."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in LOWERED_HEADERS:
+    for name in headers:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(source.encode())
-    return BUILD_DIR / f"libddp_lowered_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libddp_{prefix}_{h.hexdigest()[:16]}.so"
 
 
-def build_lowered(jobs: Sequence[Tuple[str, str]]) -> list:
-    """Build the libraries of ``jobs``, (struct, group) pairs, that are not
-    up to date: one ``nvcc`` process each, all started together. Returns a
-    :class:`Build` per job (seconds 0.0 for one found built)."""
+def build_generated(jobs: Sequence[Tuple[str, Sequence[str], str]],
+                    what: str = "a generated library") -> list:
+    """Build the libraries of ``jobs``, (source, headers, name prefix)
+    triples, that are not up to date: one ``nvcc`` process each, all
+    started together. Returns a :class:`Build` per job (seconds 0.0 for
+    one found built)."""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, procs = [None] * len(jobs), []
-    for i, (struct, group) in enumerate(jobs):
-        source = lowered_source(struct, group)
-        path = _lowered_path(source)
+    for i, (source, headers, prefix) in enumerate(jobs):
+        path = _generated_path(source, headers, prefix)
         if path.is_file():
             out[i] = Build(path, 0.0, "")
             continue
@@ -241,14 +253,26 @@ def build_lowered(jobs: Sequence[Tuple[str, str]]) -> list:
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failed.append(
-                f"{jobs[i][1]} ({proc.returncode}):\n{log[-4000:]}")
+                f"{jobs[i][2]} ({proc.returncode}):\n{log[-4000:]}")
             continue
         os.replace(tmp, path)      # atomic: concurrent builds never race
         out[i] = Build(path, seconds, log)
     if failed:
-        raise RuntimeError("nvcc failed on a lowered model's library: "
-                           + "\n".join(failed))
+        raise RuntimeError(f"nvcc failed on {what}: " + "\n".join(failed))
     return out
+
+
+def _lowered_path(source: str) -> Path:
+    """The library of a lowered model's generated source."""
+    return _generated_path(source, LOWERED_HEADERS, "lowered")
+
+
+def build_lowered(jobs: Sequence[Tuple[str, str]]) -> list:
+    """Build the libraries of ``jobs``, (struct, group) pairs, that are not
+    up to date (:func:`build_generated`)."""
+    return build_generated(
+        [(lowered_source(struct, group), LOWERED_HEADERS, "lowered")
+         for struct, group in jobs], "a lowered model's library")
 
 
 def lowered_library(struct: str, group: str) -> ctypes.CDLL:
@@ -257,6 +281,113 @@ def lowered_library(struct: str, group: str) -> ctypes.CDLL:
     (built,) = build_lowered([(struct, group)])
     return _bind(built.path, ("ddp_forward_lanes", "ddp_linesearch_lanes")
                  if group == "fwd" else ("ddp_backward_lanes",))
+
+
+ERROR_STRING = """
+extern "C" const char* ddp_error_string(int code) {
+  if (code == ddp::ERR_MODEL)
+    return "this generated library holds no instance for these arguments";
+  if (code == ddp::ERR_ARGS) return "arguments outside what the kernel takes";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+"""
+
+
+def covariance_source(ns: Sequence[int]) -> str:
+    """The generated ``.cu`` of K4 at the state sizes ``ns`` (none of
+    them 4, 6 or 10), each with the block plan.py derives from n
+    (``plan.cov_shape``): the ring kernel, or the device-memory one.
+    ``ddp_covariance_lanes`` has the kernel library's signature; its
+    ``stage`` argument is the plan's Σ mode."""
+    from .plan import COV_GLOBAL, cov_shape
+    lines = [f"// K4 at n in {tuple(ns)}, generated by ops/hopper/_build.py.",
+             '#include "covariance.cuh"', "",
+             'extern "C" int ddp_covariance_lanes(const float* fx, float* out,'
+             " int T, int B, int n, const float* r1, int warps, int stage, "
+             "int blocks, int threads, int tc, int stages, int smem, "
+             "int device, void* stream) {",
+             "  using namespace ddp;",
+             "  if (T < 1 || B < 1) return ERR_ARGS;",
+             "  cudaSetDevice(device);",
+             "  cudaStream_t st = static_cast<cudaStream_t>(stream);",
+             "  const RingPlan p{blocks, threads, tc, stages, smem};"]
+    for n in ns:
+        shape = cov_shape(n)
+        cond = f"n == {n} && warps == {shape.warps} && stage == {shape.sigma}"
+        call = (f"launch_covariance_global<{n}, {shape.warps}>(fx, out, T, "
+                "B, p, st)" if shape.sigma == COV_GLOBAL else
+                f"launch_covariance<{n}, {shape.warps}, "
+                f"{'true' if shape.sigma else 'false'}>(fx, out, T, B, r1, "
+                "p, st)")
+        lines += [f"  if ({cond})", f"    return {call};"]
+    lines += ["  return ERR_ARGS;", "}", ERROR_STRING]
+    return "\n".join(lines)
+
+
+def packed_source(n: int, m: int) -> str:
+    """The generated ``.cu`` of K1's packed-derivatives instance
+    ``Packed<n, m>`` (csrc/packed.cuh) in ``"gains"`` and ``"full"``
+    emission without GPS mode; ``ddp_backward_lanes`` has the kernel
+    library's signature and returns ERR_MODEL for anything else."""
+    lines = [f"// K1's packed instance Packed<{n}, {m}>, generated by "
+             "ops/hopper/_build.py.",
+             '#include "backward.cuh"', '#include "packed.cuh"', "",
+             'extern "C" int ddp_backward_lanes(const float* traj, int s_in, '
+             "const float* lam, const float* prev, const float* eta, "
+             "float* out, int s_out, float* stats, int T, int B, int emit, "
+             "int reg_type, int use_limits, const float* lims, "
+             "const float* lims_lanes, const float* params, int n_params, "
+             "int model_id, int n, int m, const float* consts, int n_consts, "
+             "int autodiff, int second_order, int qp_iters, int blocks, "
+             "int threads, int tc, int stages, int smem, int device, "
+             "void* stream) {",
+             "  using namespace ddp;",
+             "  BwdArgs a;",
+             "  const int rc = bwd_args(traj, s_in, lam, prev, eta, out, "
+             "s_out, stats, T, B, emit, reg_type, use_limits, lims, "
+             "lims_lanes, params, n_params, n, m, consts, qp_iters, blocks, "
+             "threads, tc, stages, smem, stream, a);",
+             "  if (rc != 0) return rc;",
+             "  if (model_id != 0 || autodiff || second_order || n_params != 0"
+             " || n_consts != 0 || prev != nullptr)",
+             "    return ERR_MODEL;",
+             "  cudaSetDevice(device);",
+             f"  if (n != {n} || m != {m}) return ERR_MODEL;",
+             f"  using Model = Packed<{n}, {m}>;",
+             "  switch (a.emit) {",
+             "    case EMIT_GAINS: return launch_one<Model, EMIT_GAINS, false>(a);",
+             "    case EMIT_FULL: return launch_one<Model, EMIT_FULL, false>(a);",
+             "    default: return ERR_MODEL;",
+             "  }", "}", ERROR_STRING]
+    return "\n".join(lines)
+
+
+def covariance_job(ns: Sequence[int]) -> tuple:
+    """The (source, headers, prefix) job of K4's library at ``ns``."""
+    return covariance_source(ns), COVARIANCE_HEADERS, "covariance"
+
+
+def packed_job(n: int, m: int) -> tuple:
+    """The (source, headers, prefix) job of the packed K1's library at
+    ⟨n,m⟩."""
+    return packed_source(n, m), PACKED_HEADERS, "packed"
+
+
+@functools.lru_cache(maxsize=None)
+def covariance_library(n: int) -> ctypes.CDLL:
+    """The loaded K4 library of state size n (not 4, 6 or 10), built first
+    if needed: one per n, so that a launch compiles only its own size."""
+    (built,) = build_generated([covariance_job((n,))], f"K4 at n={n}")
+    return _bind(built.path, ("ddp_covariance_lanes",))
+
+
+@functools.lru_cache(maxsize=None)
+def packed_library(n: int, m: int) -> ctypes.CDLL:
+    """The loaded library of the packed K1 at (n, m), built first if
+    needed."""
+    (built,) = build_generated([packed_job(n, m)],
+                               f"the packed K1 at <{n},{m}>")
+    return _bind(built.path, ("ddp_backward_lanes",))
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -31,8 +31,9 @@ import torch
 
 from . import _build
 from .plan import backward_plan
-from .forward_kernel import (CUDA_MODELS, DeviceModel, bounds, check_lanes,
-                             check_lims, cuda_args, par_args, step_indices)
+from .forward_kernel import (CUDA_MODELS, MAX_M, DeviceModel, bounds,
+                             check_lanes, check_lims, cuda_args, par_args,
+                             step_indices)
 from .pack import (DERIV_FIELDS, DerivLayout, from_streams,
                    pack_backward_inputs, to_streams)
 from ..backward import BackwardOut
@@ -154,12 +155,16 @@ CUDA_BACKWARD_SO = {
     (1, 4, 1, True, False): ("gains", "full"),
     (3, 6, 2, True, False): ("gains", "full"),
 }
-# the packed-derivatives instances (csrc/packed.cuh), keyed by (n, m, GPS
-# mode) alone: the model does not enter K1 in that mode
+# the packed-derivatives instances (csrc/packed.cuh) of the kernel
+# library, keyed by (n, m, GPS mode) alone: the model does not enter K1 in
+# that mode. At any other (n, m ≤ MAX_M) the "gains" and "full" instances
+# without GPS mode are a library of their own, built at their first launch
+# (_build.packed_library); the GPS and "policy" instances are not built
 CUDA_PACKED = {
     (4, 1, False): ("gains", "full"), (4, 1, True): ("full",),
     (6, 2, False): ("gains", "full"), (10, 2, False): ("gains", "full"),
 }
+PACKED_ANY = ("gains", "full")
 # the packed stream's descriptor: the launcher's model id 0, no constants
 PACKED_ID = 0
 PACKED_MODEL = DeviceModel(PACKED_ID, np.zeros(0, np.float32))
@@ -634,7 +639,9 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     built for: :data:`CUDA_BACKWARD` (first-order tiles: model,
     derivative source, GPS mode, emission), :data:`CUDA_BACKWARD_SO`
     (second-order tiles) or :data:`CUDA_PACKED` (the packed stream, by n,
-    m and GPS mode), none with m above ``MAX_M``; anything else raises
+    m and GPS mode; at any other (n, m) its ``"gains"`` and ``"full"``
+    instances without GPS mode, built at their first launch where their
+    ring fits), none with m above ``MAX_M``; anything else raises
     NotImplementedError before the kernel library is touched. Autodiff
     tiles of a model without a descriptor run ``Autodiff<Lowered>`` from
     the model's lowering (:mod:`.lower`, :data:`LOWERED_K1`), and a user's
@@ -678,15 +685,32 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                                   lims_lanes=lims_lanes, emit=emit,
                                   qp_iters=qp_iters)
     gps_t = (prev, eta) if gps else ()
-    group = tiles_low = None
+    group = tiles_low = library = None
     if packed:
         dm = PACKED_MODEL
-        if emit not in CUDA_PACKED.get((n, m, gps), ()):
+        if (n, m, gps) in CUDA_PACKED:
+            if emit not in CUDA_PACKED[(n, m, gps)]:
+                raise NotImplementedError(
+                    f"backward_lanes: no CUDA kernel (K1 instance) is built "
+                    f"for the packed-derivatives stream at n={n}, m={m}, "
+                    f"{'in' if gps else 'without'} GPS mode, emit={emit!r}; "
+                    f"built (n, m, GPS): {CUDA_PACKED}")
+        elif gps or emit not in PACKED_ANY or not 1 <= m <= MAX_M:
             raise NotImplementedError(
-                f"backward_lanes: no CUDA kernel (K1 instance) is built for "
-                f"the packed-derivatives stream at n={n}, m={m}, "
-                f"{'in' if gps else 'without'} GPS mode, emit={emit!r}; "
-                f"built (n, m, GPS): {CUDA_PACKED}")
+                f"backward_lanes: the packed-derivatives stream at n={n}, "
+                f"m={m} runs on the card in {PACKED_ANY} emission without "
+                f"GPS mode for m ≤ MAX_M = {MAX_M} (and the sizes "
+                f"{CUDA_PACKED}); not {'in' if gps else 'without'} GPS "
+                f"mode, emit={emit!r}")
+        else:
+            try:
+                backward_plan(n, m, gps, emit, T, B, packed=True)
+            except ValueError as e:
+                raise NotImplementedError(
+                    f"backward_lanes: the packed-derivatives stream at "
+                    f"n={n}, m={m}, emit={emit!r} does not fit a block's "
+                    f"shared memory (plan.MAX_SMEM): {e}") from e
+            library = (n, m)
     elif getattr(derivs_tiles, "device", None) is None:
         # a user's tiles: their lowering, K1's analytic expansion
         from .lower import LOWERED_TILES_ID, lower_tiles
@@ -725,7 +749,9 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     lib, dev, stream, _keep, model_args = cuda_args(
         dm, "backward_lanes", n, m, lims, lims_lanes, params, traj, lam,
         *gps_t, models=None if packed else CUDA_MODELS, group=group,
-        tiles=tiles_low)
+        tiles=tiles_low,
+        library=None if library is None else lambda: _build.packed_library(
+            *library))
     S = OutLayout(n, m, emit).S
     out = torch.empty((T, S, B), dtype=torch.float32, device=traj.device)
     stats = torch.empty((4, B), dtype=torch.float32, device=traj.device)

@@ -13,8 +13,12 @@ per scenario, whose Σxx stream feeds the policy KL of the KL/GPS solve.
 the plain PyTorch version (vectorised over B and the matrix entries, Python
 loop over t, in the kernel's sum order), and a CUDA tensor to the
 hand-written kernel in ``csrc/covariance.cu`` with its launch plan
-(:func:`.plan.covariance_plan`), or raises. Launches are counted in
-``covariance_lanes.launches``.
+(:func:`.plan.covariance_plan`), or raises. n = 4, 6 and 10 are in the
+kernel library; any other n up to ``plan.COV_MAX_N`` is a library of its
+own, built at its first launch (:func:`._build.covariance_library`), and
+beyond ``plan.COV_RING_MAX_N`` its kernel keeps Σ in device memory, R1 in
+slot 0 of the output, which the wrapper fills before the launch. Launches
+are counted in ``covariance_lanes.launches``.
 """
 from __future__ import annotations
 
@@ -24,9 +28,11 @@ import numpy as np
 import torch
 
 from . import _build, plan
-from .forward_kernel import launch_args
+from .forward_kernel import launch_args, launch_device
 
-CUDA_N = (4, 6, 10)   # state sizes the CUDA kernel is instantiated for
+# state sizes the kernel library is instantiated for; any other n from 1 to
+# plan.COV_MAX_N is built at its first launch
+CUDA_N = (4, 6, 10)
 
 
 def identity_r1(n: int):
@@ -70,8 +76,9 @@ def covariance_lanes(fx: torch.Tensor, *, n: int,
     ``src/forward_pass.jl:40``), identity by default. Returns the Σxx stream
     (T, n², B) whose slot t holds Σxx[t] (Σxx[0] = R1).
 
-    The JAX signature's ``k_t`` and ``interpret`` are TPU switches and are
-    not taken here.
+    On CUDA tensors n may be 1 to ``plan.COV_MAX_N``; a larger n raises
+    NotImplementedError naming that limit. The JAX signature's ``k_t`` and
+    ``interpret`` are TPU switches and are not taken here.
     """
     r1 = identity_r1(n) if r1 is None else r1
     T, nn, B = fx.shape
@@ -80,18 +87,22 @@ def covariance_lanes(fx: torch.Tensor, *, n: int,
                          f"r1 of shape {np.shape(r1)}")
     if fx.device.type == "cpu":
         return covariance_lanes_ref(fx, n=n, r1=r1)
-    if n not in CUDA_N:
-        raise NotImplementedError(
-            f"covariance_lanes: the CUDA kernel is built for n in {CUDA_N}, "
-            f"not n={n}")
-    lib, dev, stream = launch_args("covariance_lanes", fx)
+    shape = plan.cov_shape(n)        # raises beyond plan.COV_MAX_N
+    if n in CUDA_N:
+        lib, dev, stream = launch_args("covariance_lanes", fx)
+    else:
+        dev, stream = launch_device("covariance_lanes", fx)
+        lib = _build.covariance_library(n)
     out = torch.empty_like(fx)
     r1_host = np.ascontiguousarray(r1, np.float32)
+    if shape.sigma == plan.COV_GLOBAL:
+        # Σ[0] = R1 in every scenario's column: the kernel reads R1 there
+        out[0] = torch.from_numpy(r1_host.reshape(n * n, 1)).to(fx.device)
     p = plan.covariance_plan(n, T, B)
     rc = lib.ddp_covariance_lanes(fx.data_ptr(), out.data_ptr(), T, B, n,
-                                  r1_host.ctypes.data, plan.COV_WARPS[n],
-                                  plan.COV_STAGE_OUT[n], *p.launcher_args(),
-                                  dev, stream)
+                                  r1_host.ctypes.data, shape.warps,
+                                  shape.sigma, *p.launcher_args(), dev,
+                                  stream)
     _build.check(lib, rc, "covariance_lanes")
     covariance_lanes.launches += 1
     return out

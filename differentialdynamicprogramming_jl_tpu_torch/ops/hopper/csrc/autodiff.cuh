@@ -49,6 +49,8 @@ namespace ddp {
 // model's template finds both for S = float
 using ::cosf;
 using ::expf;
+using ::fabsf;
+using ::logf;
 using ::sinf;
 using ::sqrtf;
 using ::tanhf;
@@ -234,6 +236,189 @@ __device__ __forceinline__ D clipp(D x, float lo, float hi) {
 template <class D>
 __device__ __forceinline__ D signp(D x) {   // derivative 0 almost everywhere
   return constant_(x, signp(x.v));
+}
+
+// ---- the rest of the lowering's op set (ops/hopper/lower.py OPS) at
+// S = float, Dual and Jet. Each value is what PyTorch's CUDA kernel for the
+// op computes, each tangent the op's forward-mode rule (derivatives.yaml),
+// and each Jet that rule differentiated along b in the same order, as
+// torch.func's nested jvp forms it, so that K1 and its plain version
+// (autodiff_tiles.py) stay bit-equal. A constant operand (float) has no
+// tangent: it enters the Dual/Jet forms as constant_.
+//
+// Ties follow PyTorch, not JAX: |x|' = sgn(x), 0 at 0 (JAX: 1); a clamp's
+// derivative is 1 on its bound (JAX's clip: ½); maximum/minimum weigh the
+// two tangents ½ each at a tie (as JAX).
+
+// the value of a scalar: comparisons read it, never a tangent
+__device__ __forceinline__ float val_(float x) { return x; }
+__device__ __forceinline__ float val_(Dual x) { return x.v; }
+__device__ __forceinline__ float val_(Jet x) { return x.v; }
+
+// PyTorch's sign on a real value (NaN gives 0)
+__device__ __forceinline__ float sgn_(float x) {
+  return (0.0f < x ? 1.0f : 0.0f) - (x < 0.0f ? 1.0f : 0.0f);
+}
+
+// pow(x, e) for a constant exponent as PyTorch's pow.Tensor_Scalar forms
+// it on a CUDA tensor: 0 fills 1, 1 copies; ½, -½ and -1 go to sqrt, rsqrt
+// and the reciprocal; 2, 3 and -2 to x·x, x·x·x and 1/(x·x) (the quotient
+// of two floats rounded once: in double then to float, or in float, alike);
+// any other exponent to powf. The literal e folds every branch.
+__device__ __forceinline__ float powc_(float x, float e, float = 0.0f,
+                                       float = 0.0f) {
+  if (e == 0.0f) return 1.0f;
+  if (e == 1.0f) return x;
+  if (e == 0.5f) return ::sqrtf(x);
+#ifdef __CUDACC__
+  if (e == -0.5f) return ::rsqrtf(x);
+#else
+  if (e == -0.5f) return 1.0f / ::sqrtf(x);   // a host build: PyTorch's CPU form
+#endif
+  if (e == -1.0f) return 1.0f / x;
+  if (e == 2.0f) return x * x;
+  if (e == 3.0f) return x * x * x;
+  if (e == -2.0f) return 1.0f / (x * x);
+  return ::powf(x, e);
+}
+
+// pow_backward: t·(e·x^(e-1)), exactly 0 for e = 0; e1 = e - 1 and
+// e2 = e - 2 in double, then rounded, as the rule's Scalar arithmetic
+__device__ __forceinline__ Dual powc_(Dual x, float e, float e1, float) {
+  if (e == 0.0f) return {1.0f, 0.0f};
+  return {powc_(x.v, e), x.t * (powc_(x.v, e1) * e)};
+}
+__device__ __forceinline__ Jet powc_(Jet x, float e, float e1, float e2) {
+  // q = x^(e1)·e; a = x.a·q; along b: q_b·x.a + x.ab·q, with
+  // q_b = (x.b·(x^(e2)·e1))·e, exactly 0 for e1 = 0
+  if (e == 0.0f) return {1.0f, 0.0f, 0.0f, 0.0f};
+  const float q = powc_(x.v, e1) * e;
+  const float qb =
+      (e1 == 0.0f ? 0.0f : x.b * (powc_(x.v, e2) * e1)) * e;
+  return {powc_(x.v, e), x.a * q, x.b * q, qb * x.a + x.ab * q};
+}
+
+__device__ __forceinline__ Dual fabsf(Dual x) {
+  return {::fabsf(x.v), x.t * sgn_(x.v)};
+}
+__device__ __forceinline__ Jet fabsf(Jet x) {
+  // sgn's own tangent is a symbolic zero: only x.ab·sgn remains along b
+  const float s = sgn_(x.v);
+  return {::fabsf(x.v), x.a * s, x.b * s, x.ab * s};
+}
+
+__device__ __forceinline__ Dual logf(Dual x) {
+  return {::logf(x.v), x.t / x.v};
+}
+__device__ __forceinline__ Jet logf(Jet x) {
+  // a = x.a/x.v; along b, the quotient rule (x.ab - x.b·a)/x.v
+  const float a = x.a / x.v;
+  return {::logf(x.v), a, x.b / x.v, (x.ab - x.b * a) / x.v};
+}
+
+// relu = clamp_min(x, 0); its rule threshold_backward(t, result, 0) keeps t
+// where the result is above 0; along b, zeros_like(·) + threshold_backward
+__device__ __forceinline__ float relu_(float x) {
+  return isnan(x) ? x : ::fmaxf(x, 0.0f);
+}
+__device__ __forceinline__ Dual relu_(Dual x) {
+  const float r = relu_(x.v);
+  return {r, r <= 0.0f ? 0.0f : x.t};
+}
+__device__ __forceinline__ Jet relu_(Jet x) {
+  const float r = relu_(x.v);
+  const bool z = r <= 0.0f;
+  return {r, z ? 0.0f : x.a, z ? 0.0f : x.b, 0.0f + (z ? 0.0f : x.ab)};
+}
+
+// clamp with scalar bounds (either absent): NaN kept; the rule keeps t
+// where lo ≤ x ≤ hi, on a bound included, and gives 0 elsewhere
+__device__ __forceinline__ float clamp_(float x, float lo, float hi) {
+  return isnan(x) ? x : ::fminf(::fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ float clamp_min_(float x, float lo) {
+  return isnan(x) ? x : ::fmaxf(x, lo);
+}
+__device__ __forceinline__ float clamp_max_(float x, float hi) {
+  return isnan(x) ? x : ::fminf(x, hi);
+}
+__device__ __forceinline__ Dual keep_(Dual x, float v, bool in) {
+  return {v, in ? x.t : 0.0f};
+}
+__device__ __forceinline__ Jet keep_(Jet x, float v, bool in) {
+  return {v, in ? x.a : 0.0f, in ? x.b : 0.0f, in ? x.ab : 0.0f};
+}
+template <class D>
+__device__ __forceinline__ D clamp_(D x, float lo, float hi) {
+  return keep_(x, clamp_(x.v, lo, hi), x.v >= lo && x.v <= hi);
+}
+template <class D>
+__device__ __forceinline__ D clamp_min_(D x, float lo) {
+  return keep_(x, clamp_min_(x.v, lo), x.v >= lo);
+}
+template <class D>
+__device__ __forceinline__ D clamp_max_(D x, float hi) {
+  return keep_(x, clamp_max_(x.v, hi), x.v <= hi);
+}
+
+// maximum/minimum: NaN-keeping values; the rule other_t + w·(self_t -
+// other_t), w = ½ at a tie, else 1 where self is taken and 0 where not
+// (not the taken tangent itself: y.t + (x.t - y.t) rounds)
+__device__ __forceinline__ float maximum_(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : ::fmaxf(a, b));
+}
+__device__ __forceinline__ float minimum_(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : ::fminf(a, b));
+}
+__device__ __forceinline__ Dual weigh_(Dual x, Dual y, float v, float w) {
+  return {v, y.t + w * (x.t - y.t)};
+}
+__device__ __forceinline__ Jet weigh_(Jet x, Jet y, float v, float w) {
+  return {v, y.a + w * (x.a - y.a), y.b + w * (x.b - y.b),
+          y.ab + w * (x.ab - y.ab)};
+}
+template <class D>
+__device__ __forceinline__ D maximum_(D x, D y) {
+  return weigh_(x, y, maximum_(x.v, y.v),
+                x.v == y.v ? 0.5f : (x.v > y.v ? 1.0f : 0.0f));
+}
+template <class D>
+__device__ __forceinline__ D minimum_(D x, D y) {
+  return weigh_(x, y, minimum_(x.v, y.v),
+                x.v == y.v ? 0.5f : (x.v < y.v ? 1.0f : 0.0f));
+}
+template <class D>
+__device__ __forceinline__ D maximum_(D x, float c) {
+  return maximum_(x, constant_(x, c));
+}
+template <class D>
+__device__ __forceinline__ D maximum_(float c, D y) {
+  return maximum_(constant_(y, c), y);
+}
+template <class D>
+__device__ __forceinline__ D minimum_(D x, float c) {
+  return minimum_(x, constant_(x, c));
+}
+template <class D>
+__device__ __forceinline__ D minimum_(float c, D y) {
+  return minimum_(constant_(y, c), y);
+}
+
+// where(c, a, b): value and tangents from the chosen branch
+__device__ __forceinline__ float where_(bool c, float a, float b) {
+  return c ? a : b;
+}
+template <class D>
+__device__ __forceinline__ D where_(bool c, D a, D b) {
+  return c ? a : b;
+}
+template <class D>
+__device__ __forceinline__ D where_(bool c, D a, float b) {
+  return c ? a : constant_(a, b);
+}
+template <class D>
+__device__ __forceinline__ D where_(bool c, float a, D b) {
+  return c ? constant_(b, a) : b;
 }
 
 // K1's model interface (common.cuh) for a Body whose dynamics, cost and

@@ -238,7 +238,7 @@ def model_source(model_device: Optional[DeviceModel], lanes, what: str,
 def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
               m: int, lims, lims_lanes, params, *tensors: torch.Tensor,
               models=CUDA_MODELS, lanes=None, group: str = "fwd",
-              tiles=None):
+              tiles=None, library=None):
     """:func:`launch_args` plus the model arguments of a launcher: the
     static limits (host), the per-scenario limits and parameters (or null),
     P, model id, n, m, the host pointer to the constants and their count.
@@ -247,12 +247,23 @@ def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
     descriptor) is lowered once the tensors are checked, and its library of
     instance group ``group`` (``_build.LOWERED_GROUPS``) is built at the
     first launch; so is that of ``tiles``, a user's lowered tiles
-    (:class:`~.lower.LoweredTiles`), where given. A lowering, build or
+    (:class:`~.lower.LoweredTiles`), where given. An m above ``MAX_M``
+    raises NotImplementedError before anything is built or launched. ``library``: for a
+    hand-written descriptor, a function that loads the library to launch in
+    place of the kernel library (a generated one). A lowering, build or
     launch that fails raises."""
     per_lane = [t for t in (lims_lanes, params) if t is not None]
     src = (tiles if tiles is not None
            else model_source(model_device, lanes, what, n, m, models))
-    if src is None:
+    if not 1 <= m <= MAX_M:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernels take 1 ≤ m ≤ MAX_M = {MAX_M} "
+            f"controls, not m={m}")
+    if src is None and library is not None:
+        dev, stream = launch_device(what, *tensors, *per_lane)
+        lib = library()
+        model_id, consts = model_device.model_id, model_device.consts
+    elif src is None:
         lib, dev, stream = launch_args(what, *tensors, *per_lane)
         model_id, consts = model_device.model_id, model_device.consts
     else:

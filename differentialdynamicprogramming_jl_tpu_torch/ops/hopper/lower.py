@@ -39,13 +39,22 @@ this module does the same for the CUDA kernels:
   its operations are exact ones (add, sub, mul, div, neg, copies); a
   ``zeros_like`` or ``ones_like`` entry is the literal 0 or 1.
 
+- **The op set** (:data:`OPS`, :data:`POW`, :data:`CLAMP`, :data:`WHERE`,
+  :data:`COMPARE`, :data:`LOGIC`): the arithmetic, sin, cos, tanh, exp,
+  sqrt, abs, log, pow with a constant exponent, relu, minimum, maximum,
+  the clamps with scalar bounds, and ``where`` on a boolean; booleans come
+  from comparisons (of f32 values, or of an integer such as t with an int)
+  and logic on them, and a boolean made a float is 0 or 1. Each value is
+  what PyTorch's CUDA kernel computes, and each derivative in K1 PyTorch's
+  forward-mode rule (``csrc/autodiff.cuh``), ties included.
+
 What raises ``NotImplementedError`` here: an operation outside the op set
-(:data:`OPS`; ``diff`` also has :data:`REMAINDER`, since no kernel
-differentiates it), a value that is not an f32 scalar, an int32 scalar or a
-``(B,)`` f32 tensor, an integer operation other than add, sub, mul and neg,
-an integer-valued output, tiles without the first-order fields or with only
-some of ``fxx``, ``fxu``, ``fuu``, a tile entry that is not a tensor, and a
-function that cannot be traced.
+(``diff`` also has :data:`REMAINDER`, since no kernel differentiates it), a
+value that is not an f32 scalar, an int32 scalar, a boolean or a ``(B,)``
+tensor of them, an integer operation other than add, sub, mul, neg and
+comparisons, an integer- or boolean-valued output, tiles without the
+first-order fields or with only some of ``fxx``, ``fxu``, ``fuu``, a tile
+entry that is not a tensor, and a function that cannot be traced.
 
 The lowering runs only for a launch on CUDA tensors, once per model or
 tiles object (:func:`lower`, :func:`lower_tiles`); CPU tensors run the
@@ -55,6 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import re
 from typing import Dict, List, Tuple
 
@@ -72,8 +82,8 @@ LOWERED_TILES_ID = 6
 aten = torch.ops.aten
 
 # the op set of dynamics, cost and terminal: aten overload -> its C++ form
-# over the operands {0}, {1}; each unary function has a Dual and a Jet rule
-# in csrc/autodiff.cuh
+# over the operands {0}, {1}, {2}; each function has a Dual and a Jet rule
+# in csrc/autodiff.cuh (a constant operand enters them as a constant)
 OPS = {
     aten.add.Tensor: "{0} + {1}", aten.add.Scalar: "{0} + {1}",
     aten.sub.Tensor: "{0} - {1}", aten.sub.Scalar: "{0} - {1}",
@@ -84,7 +94,36 @@ OPS = {
     aten.sin.default: "sinf({0})", aten.cos.default: "cosf({0})",
     aten.tanh.default: "tanhf({0})", aten.exp.default: "expf({0})",
     aten.sqrt.default: "sqrtf({0})",
+    aten.abs.default: "fabsf({0})", aten.log.default: "logf({0})",
+    aten.relu.default: "relu_({0})",
+    aten.minimum.default: "minimum_({0}, {1})",
+    aten.maximum.default: "maximum_({0}, {1})",
+    aten.clamp_min.default: "clamp_min_({0}, {1})",
+    aten.clamp_max.default: "clamp_max_({0}, {1})",
 }
+# pow with a constant exponent e (pow.Tensor_Scalar; torch.square too): the
+# exponent is part of the emitted source, since PyTorch's kernel and its
+# rule branch on it (csrc/autodiff.cuh powc_); clamp with scalar bounds,
+# either absent; where on a boolean condition (where_)
+POW = aten.pow.Tensor_Scalar
+CLAMP = aten.clamp.default
+WHERE = aten.where.self
+# the boolean values: comparisons (of f32 values, or of the int t with an
+# int), and logic on booleans (Python's &, | and ~ trace to bitwise ops)
+COMPARE = {aten.gt.Scalar: ">", aten.gt.Tensor: ">", aten.ge.Scalar: ">=",
+           aten.ge.Tensor: ">=", aten.lt.Scalar: "<", aten.lt.Tensor: "<",
+           aten.le.Scalar: "<=", aten.le.Tensor: "<=", aten.eq.Scalar: "==",
+           aten.eq.Tensor: "==", aten.ne.Scalar: "!=", aten.ne.Tensor: "!="}
+LOGIC = {aten.logical_and.default: "({0} && {1})",
+         aten.logical_or.default: "({0} || {1})",
+         aten.logical_not.default: "(!{0})",
+         aten.bitwise_and.Tensor: "({0} && {1})",
+         aten.bitwise_or.Tensor: "({0} || {1})",
+         aten.bitwise_not.default: "(!{0})"}
+# the op set's names, for the message of what does not lower
+OP_SET = ("add, sub, rsub, mul, div, neg, sin, cos, tanh, exp, sqrt, abs, "
+          "log, pow with a constant exponent, relu, minimum, maximum, clamp "
+          "with scalar bounds, where, comparisons, logical and, or, not")
 # the ops only diff may use: it runs at S = float in K2 and K3 and is never
 # differentiated. Python's remainder (PyTorch's and jnp's: fmod, then the
 # divisor added where the signs differ), emitted as two statements
@@ -94,11 +133,15 @@ REMAINDER = (aten.remainder.Scalar, aten.remainder.Tensor)
 INT_OPS = (aten.add.Tensor, aten.add.Scalar, aten.sub.Tensor,
            aten.sub.Scalar, aten.rsub.Scalar, aten.rsub.Tensor,
            aten.mul.Tensor, aten.mul.Scalar, aten.neg.default)
-# ops whose f32 result is correctly rounded on every device: a tile entry
-# made of them alone, from constants alone, is folded at lowering time
+# ops whose result is exact on every device (a correctly rounded f32, a
+# selection or a boolean): a tile entry made of them alone, from constants
+# alone, is folded at lowering time
 EXACT = {aten.add.Tensor, aten.add.Scalar, aten.sub.Tensor, aten.sub.Scalar,
          aten.rsub.Scalar, aten.rsub.Tensor, aten.mul.Tensor,
-         aten.mul.Scalar, aten.div.Tensor, aten.div.Scalar, aten.neg.default}
+         aten.mul.Scalar, aten.div.Tensor, aten.div.Scalar, aten.neg.default,
+         aten.abs.default, aten.relu.default, aten.minimum.default,
+         aten.maximum.default, aten.clamp_min.default,
+         aten.clamp_max.default, WHERE, CLAMP, *COMPARE, *LOGIC}
 # copies: the value of their first operand
 COPIES = (aten.clone.default, aten._to_copy.default, aten.detach.default,
           aten.alias.default, aten.lift_fresh_copy.default)
@@ -129,12 +172,14 @@ class Fn:
     (operation j's value), ``("k", slot, tensor)`` (a constant of the
     descriptor; ``tensor`` where it was a 0-dim tensor), ``("lit", value)``
     (a factory's structural 0 or 1) or ``("int", value)`` (an integer
-    operand of integer arithmetic). ``ints`` holds the operations whose
-    value is an integer."""
+    operand of integer arithmetic or of a comparison with t). ``ints``
+    holds the operations whose value is an integer, ``bools`` those whose
+    value is a boolean (a comparison, logic on booleans, a copy of one)."""
     ops: Tuple[Op, ...]
     outs: tuple
     state: Tuple[str, ...]     # which refs carry S: "x", "u" (or nothing)
     ints: frozenset = frozenset()
+    bools: frozenset = frozenset()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -228,10 +273,16 @@ def _signature(model, name: str):
     return kinds, call
 
 
+def _f32_literal(v: float) -> str:
+    """An f32 value as a C++ float literal that parses to it exactly."""
+    return f"{float(np.float32(v))!r}f"
+
+
 def _graph(call, kinds, name: str, consts: List[float],
            in_diff: bool = False):
     """Trace ``call`` on the inputs ``kinds`` and translate its graph:
-    (ops, output references, the integer-valued operations)."""
+    (ops, output references, the integer-valued operations, the
+    boolean-valued operations)."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     B = B_TRACE
@@ -258,10 +309,13 @@ def _graph(call, kinds, name: str, consts: List[float],
             refs[next(it)] = (kind, i)
 
     ops: List[Op] = []
-    ints = set()
+    ints, bools = set(), set()
 
     def is_int(ref):
         return ref[0] in ("t", "int") or (ref[0] == "v" and ref[1] in ints)
+
+    def is_bool(ref):
+        return isinstance(ref, tuple) and ref[:1] == ("v",) and ref[1] in bools
 
     def const(v, tensor=False):
         consts.append(float(np.float32(v)))
@@ -275,11 +329,66 @@ def _graph(call, kinds, name: str, consts: List[float],
         return ("int", a) if integer else const(a)
 
     def cf(a):
-        """An operand of an f32 operation: an integer converted, as torch
-        promotes it."""
+        """An operand of an f32 operation: an integer or a boolean
+        converted, as torch promotes it."""
         return (f"static_cast<float>({_c(a)})"
                 if isinstance(a, tuple) and a and isinstance(a[0], str)
-                and is_int(a) else _c(a))
+                and (is_int(a) or is_bool(a)) else _c(a))
+
+    def fail(tgt, what):
+        raise NotImplementedError(f"lowering {name}: {tgt} {what}")
+
+    def translate(tgt, nd):
+        """(operands, C++ expression) of an op of the set."""
+        args = nd.args
+        if tgt == POW:
+            e = args[1]
+            if not isinstance(e, (int, float)) or isinstance(e, bool) \
+                    or not math.isfinite(e):
+                fail(tgt, f"with exponent {e!r}; the exponent must be a "
+                          "finite Python number")
+            x = refs[args[0]]
+            ef = float(np.float32(e))
+            # the rule's exponents e - 1 and e - 2 in double, as its Scalar
+            # arithmetic forms them, then rounded
+            return (x, ef), (f"powc_({cf(x)}, {_f32_literal(ef)}, "
+                             f"{_f32_literal(float(e) - 1.0)}, "
+                             f"{_f32_literal(float(e) - 2.0)})")
+        if tgt == CLAMP:
+            x = refs[args[0]]
+            if any(isinstance(a, torch.fx.Node) for a in args[1:]):
+                fail(tgt, "with tensor bounds has no lowering")
+            lo, hi = (list(args[1:3]) + [None, None])[:2]
+            lo = None if lo is None else const(lo)
+            hi = None if hi is None else const(hi)
+            expr = (f"clamp_({cf(x)}, {_c(lo)}, {_c(hi)})" if lo and hi
+                    else f"clamp_min_({cf(x)}, {_c(lo)})" if lo
+                    else f"clamp_max_({cf(x)}, {_c(hi)})" if hi
+                    else cf(x))
+            return (x, lo, hi), expr
+        if tgt in COMPARE:
+            a, b = (refs[v] if isinstance(v, torch.fx.Node) else v
+                    for v in args[:2])
+            if is_bool(a) or is_bool(b):
+                fail(tgt, "of booleans has no lowering")
+            if not isinstance(b, tuple):     # a Python number
+                b = (("int", b) if is_int(a) and isinstance(b, int)
+                     and not isinstance(b, bool) else const(b))
+            op = COMPARE[tgt]
+            if is_int(a) and is_int(b):
+                return (a, b), f"({_c(a)} {op} {_c(b)})"
+            return (a, b), f"(val_({cf(a)}) {op} val_({cf(b)}))"
+        if tgt in LOGIC:
+            a = tuple(refs[v] for v in args)
+            if not all(map(is_bool, a)):
+                fail(tgt, "on values that are not booleans has no lowering")
+            return a, LOGIC[tgt].format(*map(_c, a))
+        if tgt == WHERE:
+            c, a, b = (refs[v] for v in args)
+            if not is_bool(c):
+                fail(tgt, "needs a boolean condition")
+            return (c, a, b), f"where_({_c(c)}, {cf(a)}, {cf(b)})"
+        return None
 
     for nd in gm.graph.nodes:
         if nd.op in ("placeholder", "output"):
@@ -298,14 +407,22 @@ def _graph(call, kinds, name: str, consts: List[float],
         meta = nd.meta.get("val")
         integer = (isinstance(meta, torch.Tensor) and meta.dtype == torch.int32
                    and meta.dim() == 0)
-        if not (integer or (isinstance(meta, torch.Tensor)
-                            and meta.dtype == torch.float32
-                            and tuple(meta.shape) in ((), (B,)))):
+        boolean = (isinstance(meta, torch.Tensor) and meta.dtype == torch.bool
+                   and tuple(meta.shape) in ((), (B,)))
+        if not (integer or boolean or (isinstance(meta, torch.Tensor)
+                                       and meta.dtype == torch.float32
+                                       and tuple(meta.shape) in ((), (B,)))):
             raise NotImplementedError(
                 f"lowering {name}: {tgt} gives "
                 f"{getattr(meta, 'dtype', None)} "
                 f"{tuple(getattr(meta, 'shape', ()))}; the kernels take f32 "
-                "scalars, (B,) lane tensors and the int32 step index only")
+                "scalars, (B,) lane tensors, booleans and the int32 step "
+                "index only")
+        if boolean and tgt not in COMPARE and tgt not in LOGIC \
+                and tgt not in COPIES:
+            raise NotImplementedError(
+                f"lowering {name}: {tgt} gives a boolean; booleans come from "
+                "comparisons and logic on booleans")
         if integer and tgt not in INT_OPS + COPIES:
             raise NotImplementedError(
                 f"lowering {name}: {tgt} gives an integer value; integer "
@@ -317,7 +434,7 @@ def _graph(call, kinds, name: str, consts: List[float],
                 refs[nd] = src
                 continue
             ops.append(Op(tgt, (src,) + tuple(nd.args[1:]), dict(nd.kwargs),
-                          _c(src) if integer else cf(src)))
+                          _c(src) if integer or boolean else cf(src)))
         elif tgt in FACTORIES:
             fill = FACTORIES[tgt]
             args = [refs[a] if isinstance(a, torch.fx.Node) else a
@@ -328,46 +445,55 @@ def _graph(call, kinds, name: str, consts: List[float],
                 ref = const(nd.args[fill])
                 args[fill] = ref
             ops.append(Op(tgt, tuple(args), dict(nd.kwargs), _c(ref)))
-        elif tgt in OPS or (in_diff and tgt in REMAINDER):
+        elif (tgt in OPS or tgt in (POW, CLAMP, WHERE) or tgt in COMPARE
+              or tgt in LOGIC or (in_diff and tgt in REMAINDER)):
             extra = {k: v for k, v in nd.kwargs.items()
                      if not (k == "alpha" and v == 1)}
             if extra:
                 raise NotImplementedError(
                     f"lowering {name}: {tgt} with {extra} has no lowering")
-            args = tuple(operand(a, integer) for a in nd.args)
-            ops.append(Op(tgt, args, {}, OPS[tgt].format(
-                *map(_c if integer else cf, args)) if tgt in OPS else ""))
+            special = translate(tgt, nd)
+            if special is not None:
+                args, expr = special
+            else:
+                args = tuple(operand(a, integer) for a in nd.args)
+                expr = (OPS[tgt].format(*map(_c if integer else cf, args))
+                        if tgt in OPS else "")
+            ops.append(Op(tgt, args, {}, expr))
         else:
             raise NotImplementedError(
                 f"lowering {name}: aten op {tgt} is not in the lowering's "
-                "op set (add, sub, rsub, mul, div, neg, sin, cos, tanh, "
-                "exp, sqrt, constant factories, copies"
+                f"op set ({OP_SET}, constant factories, copies"
                 + (", remainder" if in_diff else "") + ")")
         if integer:
             ints.add(len(ops) - 1)
+        if boolean:
+            bools.add(len(ops) - 1)
         refs[nd] = ("v", len(ops) - 1)
     (out_node,) = [nd for nd in gm.graph.nodes if nd.op == "output"]
     outs = out_node.args[0]
     outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
     outs = tuple(operand(o) for o in outs)
     for o in outs:
-        if is_int(o):
+        if is_int(o) or is_bool(o):
             raise NotImplementedError(
-                f"lowering {name}: an output is the integer {_c(o)}; the "
+                f"lowering {name}: an output is the "
+                f"{'integer' if is_int(o) else 'boolean'} {_c(o)}; the "
                 "kernels take f32 outputs")
-    return tuple(ops), outs, frozenset(ints)
+    return tuple(ops), outs, frozenset(ints), frozenset(bools)
 
 
 def _trace(model, name: str, consts: List[float]) -> Fn:
     kinds, call = _signature(model, name)
-    ops, outs, ints = _graph(call, kinds, name, consts,
-                             in_diff=name == "diff")
+    ops, outs, ints, bools = _graph(call, kinds, name, consts,
+                                    in_diff=name == "diff")
     expect = model.n if name in ("dynamics", "diff") else 1
     if len(outs) != expect:
         raise NotImplementedError(
             f"lowering {name}: {len(outs)} outputs, expected {expect}")
     return Fn(ops=ops, outs=outs,
-              state=() if name == "diff" else ("x", "u"), ints=ints)
+              state=() if name == "diff" else ("x", "u"), ints=ints,
+              bools=bools)
 
 
 def _run(fn: Fn, consts: np.ndarray, env: dict, live=None) -> list:
@@ -560,8 +686,8 @@ def lower_tiles(tiles, n: int, m: int) -> LoweredTiles:
         return flat
 
     consts: List[float] = []
-    ops, outs, ints = _graph(call, kinds, "tiles", consts)
-    fn = Fn(ops=ops, outs=outs, state=(), ints=ints)
+    ops, outs, ints, bools = _graph(call, kinds, "tiles", consts)
+    fn = Fn(ops=ops, outs=outs, state=(), ints=ints, bools=bools)
     fields = found["fields"]
     # each entry: a literal, a folded or descriptor constant, or a slot of
     # the step's Derivs (one per distinct runtime value)
@@ -599,7 +725,7 @@ def lower_tiles(tiles, n: int, m: int) -> LoweredTiles:
                     runtime.append(ref)
                 srcs.append(("d", runtime.index(ref)))
         entries[f] = tuple(srcs)
-    fn, entries, consts = _compact(Fn(ops, tuple(runtime), (), ints),
+    fn, entries, consts = _compact(Fn(ops, tuple(runtime), (), ints, bools),
                                    entries, consts)
     return LoweredTiles(n=n, m=m, n_params=P,
                         second_order=len(fields) > len(first), fn=fn,
@@ -666,8 +792,9 @@ def _carries_s(fn: Fn) -> List[bool]:
         return isinstance(a, tuple) and a and (
             a[0] in fn.state or (a[0] == "v" and s[a[1]]))
 
-    for op in fn.ops:
-        s.append(op.target not in FACTORIES and any(map(dep, op.args)))
+    for j, op in enumerate(fn.ops):
+        s.append(j not in fn.bools and op.target not in FACTORIES
+                 and any(map(dep, op.args)))
     return s
 
 

@@ -85,6 +85,18 @@ COV_WARPS = {4: 1, 6: 6, 10: 5}
 COV_PRODUCERS = {4: 4, 6: 2, 10: 2}
 COV_STAGES = {4: 4, 6: 2, 10: 2}
 COV_STAGE_OUT = {4: 1, 6: 0, 10: 0}
+# K4 at any other n (a library of its own, built at first use): up to
+# COV_RING_MAX_N the ring design with a plan derived from n (cov_shape):
+# one row a compute warp up to n = 6, as at n = 6, two beyond, as at n = 10
+# (R rows hold 4·R·n + n floats a thread: 144 at n = 16 with two); two
+# producers, a two-stage ring, the compute warps storing Σ. Beyond, Σ
+# double-buffered ([2][n²][32], 256·n² bytes) and a two-stage ring of one
+# step no longer fit a block from n = 22, and the rows' registers spill
+# from n = 17: Σ stays in device memory (COV_GLOBAL), min(n, 16) warps a
+# block, no ring. COV_MAX_N bounds the FS row a thread holds (n floats).
+COV_RING_MAX_N = 16
+COV_MAX_N = 64
+COV_GLOBAL = 2      # the Σ mode of the device-memory kernel (csrc launcher)
 
 
 class LaunchPlan(NamedTuple):
@@ -234,18 +246,48 @@ def probe_plan(mode: str, T: int, B: int) -> LaunchPlan:
                  0, PROBE_STAGES)
 
 
+class CovShape(NamedTuple):
+    warps: int       # compute warps G
+    producers: int   # producer warps (0: no ring)
+    stages: int      # ring stages (0: no ring)
+    sigma: int       # 0: the compute warps store Σ, 1: the producers do,
+                     # COV_GLOBAL: Σ in device memory
+
+
+def cov_shape(n: int) -> CovShape:
+    """K4's block at state size n: the measured one at n = 4, 6 and 10
+    (COV_WARPS, ...), else the one derived from n (COV_RING_MAX_N). Raises
+    NotImplementedError beyond COV_MAX_N."""
+    if n in COV_WARPS:
+        return CovShape(COV_WARPS[n], COV_PRODUCERS[n], COV_STAGES[n],
+                        COV_STAGE_OUT[n])
+    if not 1 <= n <= COV_MAX_N:
+        raise NotImplementedError(
+            f"covariance_lanes: K4 takes n from 1 to COV_MAX_N = "
+            f"{COV_MAX_N}, not n={n}")
+    if n <= COV_RING_MAX_N:
+        rows = 1 if n <= 6 else 2
+        return CovShape(-(-n // rows), 2, STAGES, 0)
+    return CovShape(min(n, 16), 0, 0, COV_GLOBAL)
+
+
 def cov_sigma_floats(n: int, tc: int) -> int:
     """K4's Σ buffer after the ring: [2][n²][32] f32, or where the
     producers store Σ two chunks of steps, [2·tc][n²][32]."""
-    return (2 * tc if COV_STAGE_OUT[n] else 2) * n * n * RING_W
+    return (2 * tc if cov_shape(n).sigma == 1 else 2) * n * n * RING_W
 
 
 def covariance_plan(n: int, T: int, B: int) -> LaunchPlan:
-    """K4: ``COV_WARPS[n]`` compute warps and ``COV_PRODUCERS[n]``
-    producer warps a block, the ring of F's n² slots, then Σ. Its chunks
-    cover the T-1 steps that read an F (none at T = 1)."""
+    """K4: :func:`cov_shape`'s compute warps and producer warps a block,
+    the ring of F's n² slots, then Σ. Its chunks cover the T-1 steps that
+    read an F (none at T = 1). With Σ in device memory: the compute warps
+    alone, no ring and no shared memory."""
     _check_shape(T, B)
-    slots, steps, stages = n * n, max(T - 1, 1), COV_STAGES[n]
+    shape = cov_shape(n)
+    if shape.sigma == COV_GLOBAL:
+        return LaunchPlan(blocks=-(-B // RING_W), threads=RING_W * shape.warps,
+                          tc=0, stages=0, smem=0, chunks=0)
+    slots, steps, stages = n * n, max(T - 1, 1), shape.stages
     tc = TC_MAX
     while tc > 1 and ring_bytes(stages, tc, slots,
                                 cov_sigma_floats(n, tc)) > MAX_SMEM:
@@ -255,6 +297,6 @@ def covariance_plan(n: int, T: int, B: int) -> LaunchPlan:
     if smem > MAX_SMEM:
         raise ValueError(f"launch plan: {smem} shared bytes > {MAX_SMEM}")
     return LaunchPlan(blocks=-(-B // RING_W),
-                      threads=RING_W * (COV_WARPS[n] + COV_PRODUCERS[n]),
+                      threads=RING_W * (shape.warps + shape.producers),
                       tc=tc, stages=stages, smem=smem,
                       chunks=-(-(T - 1) // tc))

@@ -391,20 +391,46 @@ def test_lti_linesearch_kernel_matches_plain_and_retraces(dev):
 
 
 def test_lti_other_sizes_raise_on_card(dev):
-    """The LTI kernels are built for ⟨10,2⟩ only; another size on a CUDA
-    tensor raises instead of running the plain version."""
+    """The hand-written LTI is built at ⟨10,2⟩ and ⟨10,3⟩; at another size
+    the LTI's lane objects carry no descriptor, so K3, K1 (LoweredTiles)
+    and K2 run the lowering, each bit-equal to its plain version; a
+    hand-written descriptor at another size, and m above MAX_M, raise
+    instead of running the plain version."""
     from differentialdynamicprogramming_jl_tpu_torch.models import linear
     spec = linear.random_lti(1, n=4, m=2, T=T, device=dev)
-    traj = torch.zeros((T, 7, B), device=dev)
+    model, tiles = linear.lti_lanes(spec), linear.lti_derivs_tiles(spec)
+    assert model.device is None and tiles.device is None
+    rng = np.random.default_rng(1)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x0 = torch.tensor(rng.standard_normal((4, B)), **f32)
+    gains0 = torch.cat([torch.tensor(rng.standard_normal((T, 2, B)), **f32),
+                        torch.zeros((T, 8, B), **f32)], dim=1)
+    al = torch.ones((1, B), **f32)
+    k, p = (f(torch.zeros((T, 7, B), **f32), gains0, x0, al, model=model,
+              lims=LTI_LIMS, emit_traj=True)
+            for f in (fk.forward_lanes, fk.forward_lanes_ref))
+    assert torch.equal(k.traj, p.traj) and torch.equal(k.totals, p.totals)
+    lam = torch.logspace(-6, 2, B, device=dev)
+    kw = dict(n=4, m=2, reg_type=2, lims=LTI_LIMS, derivs_tiles=tiles,
+              emit="gains")
+    a, b = bk.backward_lanes(k.traj, lam, **kw), bk.backward_lanes_ref(
+        k.traj, lam, **kw)
+    _slots_close(a.out, b.out)
+    sel = torch.stack([a.stats[0], a.stats[1], k.totals[0],
+                       (torch.arange(B, device=dev) % 2).float()])
+    k2, p2 = (f(k.traj, a.out, x0, sel, model=model, alphas=ALPHAS,
+                reduce_ratio_min=0.0, lims=LTI_LIMS)
+              for f in (fk.linesearch_lanes, fk.linesearch_lanes_ref))
+    assert torch.equal(k2.ls[:2], p2.ls[:2])
+    hand = fk.LanesModel(n=4, m=2, dynamics=model.dynamics, cost=model.cost,
+                         device=linear.device_model(spec))
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        bk.backward_lanes(traj, torch.ones(B, device=dev), n=4, m=2,
-                          reg_type=2, lims=LTI_LIMS,
-                          derivs_tiles=linear.lti_derivs_tiles(spec))
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        fk.forward_lanes(traj, torch.zeros((T, 10, B), device=dev),
-                         torch.zeros((4, B), device=dev),
-                         torch.ones((1, B), device=dev),
-                         model=linear.lti_lanes(spec), lims=LTI_LIMS)
+        fk.forward_lanes(k.traj, gains0, x0, al, model=hand, lims=LTI_LIMS)
+    spec5 = linear.random_lti(1, n=4, m=5, T=T, device=dev)
+    with pytest.raises(NotImplementedError, match="MAX_M"):
+        fk.forward_lanes(torch.zeros((T, 10, B), **f32),
+                         torch.zeros((T, 25, B), **f32), x0, al,
+                         model=linear.lti_lanes(spec5), lims=None)
 
 
 def test_lti_solver_on_card_matches_cpu(dev):
@@ -534,12 +560,22 @@ def test_covariance_kernel_propagates_nan_and_inf(dev):
 
 @pytest.mark.parametrize("n", [3, 5])
 def test_covariance_other_sizes_raise_on_card(dev, n):
-    """K4 is built for n in {4, 6, 10}; another n on a CUDA tensor raises
-    instead of running the plain version."""
+    """K4 at an n the kernel library does not hold (4, 6, 10) is built at
+    its first launch and is bit-equal to its plain version; beyond the
+    largest n it takes (plan.COV_MAX_N) a CUDA tensor raises, naming the
+    limit, instead of running the plain version."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    fx = _k4_fx(n, 9, B, seed=n, dev=dev)
     n0 = ck.covariance_lanes.launches
-    with pytest.raises(NotImplementedError, match="built for n in"):
-        ck.covariance_lanes(torch.zeros((5, n * n, B), device=dev), n=n)
-    assert ck.covariance_lanes.launches == n0
+    k = ck.covariance_lanes(fx, n=n)
+    assert ck.covariance_lanes.launches == n0 + 1
+    assert torch.equal(k, ck.covariance_lanes_ref(fx, n=n,
+                                                  r1=ck.identity_r1(n)))
+    big = plan.COV_MAX_N + 1
+    with pytest.raises(NotImplementedError, match="COV_MAX_N"):
+        ck.covariance_lanes(torch.zeros((2, big * big, 4), device=dev),
+                            n=big)
+    assert ck.covariance_lanes.launches == n0 + 1
 
 
 @pytest.mark.parametrize("mode", ["copy", "light", "full"])
@@ -1644,7 +1680,8 @@ def test_m_above_max_m_refused_on_card(dev):
         _build, plan)
     Tc, Bc = 4, 8
     spec = linear.random_lti(0, n=10, m=5, T=Tc, device=dev)
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+    # no descriptor at <10,5>: the lowered tiles' launch refuses m first
+    with pytest.raises(NotImplementedError, match="MAX_M"):
         bk.backward_lanes(torch.zeros((Tc, 16, Bc), device=dev),
                           torch.ones(Bc, device=dev), n=10, m=5, reg_type=1,
                           lims=((-1.0, 1.0),) * 5,
@@ -1653,8 +1690,8 @@ def test_m_above_max_m_refused_on_card(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     for m in (5, 4):
         n = 10
-        dm = linear.lti_lanes(linear.random_lti(0, n=n, m=m, T=Tc,
-                                                device=dev)).device
+        dm = linear.device_model(linear.random_lti(0, n=n, m=m, T=Tc,
+                                                   device=dev))
         traj = torch.zeros((Tc, n + m + 1, Bc), device=dev)
         gains = torch.zeros((Tc, m + m * n, Bc), device=dev)
         out = torch.zeros((Tc, n + m + 1, Bc), device=dev)
@@ -2210,3 +2247,150 @@ def test_demo_fleet_on_card(dev):
     assert (g.reason.cpu() == c.reason).float().mean() >= 0.9
     rel = (g.cost_total.cpu() - c.cost_total).abs() / c.cost_total.abs()
     assert (rel <= 1e-3).float().mean() >= 0.9
+
+
+# ---------------------------------------------------------------------------
+# the op set's later ops, K4 at any n, the packed K1 at any size
+# ---------------------------------------------------------------------------
+
+def _opset():
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    from tools_torch import opset
+    return opset.opset_lanes(fk.LanesModel)
+
+
+def test_lowered_opset_is_bit_equal_to_plain(dev):
+    """The op-set model (tools_torch/opset.py: pow at 2, 3, ½, -1, -2 and
+    1.5, abs, log, relu, minimum, maximum, the clamps, comparisons of
+    values and of t, logic, where): K3, K1 Autodiff<Lowered> first order
+    (Dual) and second order (Jet, full DDP), K1 in GPS mode, and K2, each
+    bit-equal to its plain version on the card."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    model = _opset()
+    rng = np.random.default_rng(17)
+    f32 = dict(dtype=torch.float32, device=dev)
+    lims = ((-3.0, 3.0), (-3.0, 3.0))
+    x0 = torch.tensor(rng.standard_normal((3, B)), **f32)
+    gains0 = torch.cat([torch.tensor(1.5 * rng.standard_normal((T, 2, B)),
+                                     **f32),
+                        torch.zeros((T, 6, B), **f32)], dim=1)
+    al = torch.ones((1, B), **f32)
+    k, p = (f(torch.zeros((T, 6, B), **f32), gains0, x0, al, model=model,
+              lims=lims, emit_traj=True)
+            for f in (fk.forward_lanes, fk.forward_lanes_ref))
+    assert torch.equal(k.traj, p.traj) and torch.equal(k.totals, p.totals)
+    traj = k.traj
+    lam = torch.logspace(-6, 2, B, device=dev)
+    for so in (False, True):
+        tiles = autodiff_tiles.autodiff_derivs_tiles(model, second_order=so)
+        for emit in ("gains", "full"):
+            kw = dict(n=3, m=2, reg_type=2, lims=lims, derivs_tiles=tiles,
+                      emit=emit)
+            a = bk.backward_lanes(traj, lam, **kw)
+            b = bk.backward_lanes_ref(traj, lam, **kw)
+            assert torch.equal(a.out, b.out), (so, emit)
+            assert torch.equal(a.stats, b.stats), (so, emit)
+    tiles = autodiff_tiles.autodiff_derivs_tiles(model)
+    a_ = rng.standard_normal((T, B, 2, 2))
+    si = np.einsum("tbij,tbkj->tbik", a_, a_) + 0.5 * np.eye(2)
+    prev = torch.tensor(np.concatenate([
+        rng.standard_normal((T, 2, B)), 0.5 * rng.standard_normal((T, 6, B)),
+        np.moveaxis(si.reshape(T, B, 4), 1, 2)], axis=1), **f32)
+    eta = torch.tensor(10.0 ** rng.uniform(-1, 1, (T, B)), **f32)
+    kw = dict(n=3, m=2, reg_type=1, lims=None, derivs_tiles=tiles,
+              emit="policy", prev=prev, eta=eta)
+    a, b = (f(traj, torch.zeros(B, **f32), **kw)
+            for f in (bk.backward_lanes, bk.backward_lanes_ref))
+    assert torch.equal(a.out, b.out) and torch.equal(a.stats, b.stats)
+    gains = bk.backward_lanes(traj, lam, n=3, m=2, reg_type=2, lims=lims,
+                              derivs_tiles=tiles, emit="gains")
+    sel = torch.stack([gains.stats[0], gains.stats[1], k.totals[0],
+                       (torch.arange(B, device=dev) % 2).float()])
+    k2, p2 = (f(traj, gains.out, x0, sel, model=model, alphas=ALPHAS,
+                reduce_ratio_min=0.0, lims=lims)
+              for f in (fk.linesearch_lanes, fk.linesearch_lanes_ref))
+    assert torch.equal(k2.traj, p2.traj) and torch.equal(k2.ls, p2.ls)
+
+
+def test_pow_forms_are_torch_pow_on_card(dev):
+    """x ** e as the lowering emits it (powc_) against torch.pow on CUDA
+    tensors, at the exponents PyTorch's kernel special-cases and at two
+    that go to powf: tools_torch/opset.py's pow model, one state an
+    exponent, its K3 trajectory bit-equal to the plain rollout's slot by
+    slot."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    from tools_torch import opset
+    model = opset.pow_lanes(fk.LanesModel)
+    n = model.n
+    rng = np.random.default_rng(19)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x0 = torch.tensor(rng.uniform(-1.0, 1.0, (n, B)), **f32)
+    gains0 = torch.zeros((T, 1 + n, B), **f32)
+    k, p = (f(torch.zeros((T, n + 2, B), **f32), gains0, x0,
+              torch.ones((1, B), **f32), model=model, lims=None,
+              emit_traj=True)
+            for f in (fk.forward_lanes, fk.forward_lanes_ref))
+    assert torch.isfinite(k.traj).all()
+    for i, e in enumerate(opset.POW_EXPONENTS):
+        assert torch.equal(k.traj[:, i], p.traj[:, i]), e
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 12, 16, 17, 21, 32, 64])
+def test_covariance_any_n_is_bit_identical(dev, n):
+    """K4 at n from 1 to COV_MAX_N, each built at its first launch with the
+    plan derived from n (the ring design up to COV_RING_MAX_N, Σ in device
+    memory beyond): bit-equal to its plain version with an SPD R1, at a T
+    that spans several ring chunks and a ragged B."""
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, n))
+    r1 = tuple(tuple(float(np.float32(v)) for v in row)
+               for row in A @ A.T + 0.5 * np.eye(n))
+    fx = _k4_fx(n, 11, 77, seed=n, dev=dev)
+    n0 = ck.covariance_lanes.launches
+    k = ck.covariance_lanes(fx, n=n, r1=r1)
+    assert ck.covariance_lanes.launches == n0 + 1
+    assert torch.isfinite(k).all()
+    assert torch.equal(k, ck.covariance_lanes_ref(fx, n=n, r1=r1))
+
+
+@pytest.mark.parametrize("emit", ["gains", "full"])
+@pytest.mark.parametrize("n, m", [(8, 2), (5, 4)])
+def test_packed_any_size_matches_plain(dev, n, m, emit):
+    """K1 on the packed stream at sizes the kernel library does not hold
+    (Packed<8,2>, and m = MAX_M at Packed<5,4>), built at their first
+    launch, against the plain version; the GPS mode there raises."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    spec = linear.random_lti(2, n=n, m=m, T=T, device=dev)
+    rng = np.random.default_rng(n + m)
+    f32 = dict(dtype=torch.float32, device=dev)
+    lims = ((-0.6, 0.6),) * m
+    gains0 = torch.cat([torch.tensor(rng.standard_normal((T, m, B)), **f32),
+                        torch.zeros((T, m * n, B), **f32)], dim=1)
+    traj = fk.forward_lanes(
+        torch.zeros((T, n + m + 1, B), **f32), gains0,
+        torch.tensor(np.linspace(0.5, 2.0, B)[None, :]
+                     + 0.3 * rng.standard_normal((n, B)), **f32),
+        torch.ones((1, B), **f32), model=linear.lti_lanes(spec), lims=lims,
+        emit_traj=True).traj
+    dp = linear.lti_packed_derivs(spec)(traj[:, :n], traj[:, n:n + m])
+    lam = torch.logspace(-6, 2, B, device=dev)
+    kw = dict(n=n, m=m, reg_type=2, lims=lims, derivs_tiles=None, emit=emit)
+    n0 = bk.backward_lanes.launches
+    a = bk.backward_lanes(dp, lam, **kw)
+    assert bk.backward_lanes.launches == n0 + 1
+    b = bk.backward_lanes_ref(dp, lam, **kw)
+    _slots_close(a.out, b.out, tol=1e-4 if emit == "full" else 1e-5)
+    torch.testing.assert_close(a.stats[:2], b.stats[:2], rtol=1e-4,
+                               atol=1e-5)
+    assert torch.equal(a.stats[2:], b.stats[2:])
+    if emit == "full":
+        prev = torch.zeros((T, m + m * n + m * m, B), **f32)
+        with pytest.raises(NotImplementedError, match="GPS"):
+            bk.backward_lanes(dp, lam, prev=prev, eta=torch.ones((T, B),
+                                                                  **f32),
+                              **dict(kw, reg_type=1, lims=None))

@@ -104,6 +104,52 @@ def test_covariance_plan_fits_and_covers(n, T, B, stage_out, monkeypatch):
     assert p.threads == plan.RING_W * (G + P)
 
 
+# K4 at the state sizes built at first use: the ring design up to
+# COV_RING_MAX_N, Σ in device memory beyond, and the largest n it takes
+DERIVED_N = (1, 2, 3, 5, 8, 12, 16, 17, 21, 32, 64)
+
+
+@pytest.mark.parametrize("n", DERIVED_N)
+@pytest.mark.parametrize("T, B", SHAPES + [(1, 1), (2, 4096), (401, 4090)])
+def test_covariance_derived_plan_fits_and_covers(n, T, B):
+    """K4 at an n the kernel library does not hold: up to COV_RING_MAX_N,
+    one (n ≤ 6) or two rows a compute warp, two producers, a two-stage
+    ring whose chunks cover the T-1 steps and two Σ slots after it, within
+    a block's shared memory; beyond, Σ in device memory: min(n, 16)
+    compute warps, no ring, no shared memory."""
+    p = plan.covariance_plan(n, T, B)
+    shape = plan.cov_shape(n)
+    cols = [min(plan.RING_W, B - k * plan.RING_W) for k in range(p.blocks)]
+    assert sum(cols) == B and min(cols) >= 1
+    if n > plan.COV_RING_MAX_N:
+        assert shape == (min(n, 16), 0, 0, plan.COV_GLOBAL)
+        assert p.threads == plan.RING_W * shape.warps
+        assert (p.tc, p.stages, p.smem, p.chunks) == (0, 0, 0, 0)
+        return
+    rows = 1 if n <= 6 else 2
+    assert shape == (-(-n // rows), 2, plan.STAGES, 0)
+    assert p.threads == plan.RING_W * (shape.warps + 2)
+    sigma = 2 * n * n * plan.RING_W
+    assert plan.cov_sigma_floats(n, p.tc) == sigma
+    assert p.smem == 4 * (p.stages * p.tc * n * n * plan.RING_W + sigma)
+    assert p.smem <= plan.MAX_SMEM and 1 <= p.tc <= max(T - 1, 1)
+    steps = [min(p.tc, T - 1 - c * p.tc) for c in range(p.chunks)]
+    assert sum(steps) == T - 1 and (not steps or min(steps) >= 1)
+
+
+def test_covariance_plan_beyond_the_largest_n_raises():
+    """K4 takes n up to COV_MAX_N; beyond, and at n < 1, the plan raises
+    NotImplementedError naming the limit; n = 4, 6 and 10 keep their
+    measured plans."""
+    for n in (0, plan.COV_MAX_N + 1):
+        with pytest.raises(NotImplementedError, match="COV_MAX_N"):
+            plan.covariance_plan(n, 10, 64)
+    for n in CUDA_N:
+        assert plan.cov_shape(n) == (plan.COV_WARPS[n], plan.COV_PRODUCERS[n],
+                                     plan.COV_STAGES[n],
+                                     plan.COV_STAGE_OUT[n])
+
+
 @pytest.mark.parametrize("key", sorted(CUDA_BACKWARD))
 @pytest.mark.parametrize("T, B", [s for s in SHAPES if s[0] >= 2])
 def test_backward_plan_fits_and_covers(key, T, B):

@@ -48,6 +48,7 @@ from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
     ilqg_batch_lanes)
 from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
     ILQGConfig, default_alphas)
+from tools_torch import opset
 
 B = 64
 CSRC = _build.CSRC
@@ -70,7 +71,14 @@ def _lti(seed=0, m=2, zero=None):
     return tl.lti_lanes(spec)
 
 
+def _opset():
+    """The op-set model of tools_torch/opset.py: every op the lowering
+    gained beyond the arithmetic and sin, cos, tanh, exp, sqrt."""
+    return opset.opset_lanes(LanesModel)
+
+
 MODELS = {
+    "opset": _opset,
     "pendcart": lambda: tpc.pendcart_lanes(tpc.PendCartSpec()),
     "pendcart_param": lambda: tpc.pendcart_lanes_param(tpc.PendCartSpec()),
     "lti_10_2": lambda: _lti(),
@@ -158,9 +166,7 @@ def _make(low, cls="Lowered", var="L"):
 
 
 STRUCT_HARNESS = """
-#include <math.h>
-#define __device__
-#define __forceinline__ inline
+#include "autodiff.cuh"
 namespace ddp {
 %(struct)s
 }
@@ -186,11 +192,21 @@ extern "C" void eval(const float* c, const float* par, const float* x,
 """
 
 
+def _shim(tmp_path):
+    """The directory of the host's stand-in cuda_runtime.h."""
+    (tmp_path / "shim").mkdir(exist_ok=True)
+    (tmp_path / "shim" / "cuda_runtime.h").write_text(SHIM)
+    return tmp_path / "shim"
+
+
 def _eval_struct(tmp_path, name, low, x, u, par, xo, t=0):
+    """The emitted struct (with autodiff.cuh, whose helpers it calls)
+    compiled for the host and run on lanes x, u, par, xo at step t."""
     lib = _compile(tmp_path, name, STRUCT_HARNESS % dict(
         struct=low.struct(True), make=_make(low),
         diff=("L.diff(xb, ob, db); for (int i = 0; i < N; ++i) "
-              "dx[i * B + b] = db[i];" if low.has_diff else "")))
+              "dx[i * B + b] = db[i];" if low.has_diff else "")),
+        includes=(_shim(tmp_path), CSRC))
     n = low.n
     out = dict(dynamics=np.zeros((n, B), np.float32),
                cost=np.zeros(B, np.float32),
@@ -312,12 +328,10 @@ def _host_autodiff(tmp_path, name, low, x, u, par, V, hand=None):
     """Autodiff<Lowered, true>'s expansion on the host, (B, S) per lane;
     with ``hand`` (descriptor consts of the hand-written Quadrotor) the
     hand-written Autodiff<Quadrotor, true>'s too."""
-    (tmp_path / "shim").mkdir(exist_ok=True)
-    (tmp_path / "shim" / "cuda_runtime.h").write_text(SHIM)
     lib = _compile(tmp_path, name, AD_HARNESS % dict(
         struct=low.struct(False), make=_make(low, "AD", "A"),
         hand="Quadrotor" if hand is not None else "Lowered"),
-        includes=(tmp_path / "shim", CSRC))
+        includes=(_shim(tmp_path), CSRC))
     n, m = low.n, low.m
     nh = (n + m) * (n + m + 1) // 2
     S = n * n + n * m + n + m + 2 * nh
@@ -363,20 +377,24 @@ def _exotic():
     return LanesModel(n=3, m=1, dynamics=dynamics, cost=cost, n_params=2)
 
 
-@pytest.mark.parametrize("name", ["pendcart_param", "exotic"])
+@pytest.mark.parametrize("name", ["pendcart_param", "exotic", "opset"])
 def test_host_autodiff_lowered_matches_plain_tiles(tmp_path, name):
-    """Autodiff<Lowered> with params, and through the tanh, exp and sqrt
-    rules, against the plain autodiff tiles (torch.func): fx, fu, cx, cu,
-    the cost Hessian and Σ_a V[a]·∂²f_a. Tolerance 1e-5 relative: glibc's
-    sin/tanh/exp against PyTorch's."""
-    model = bare(MODELS[name]()) if name in MODELS else _exotic()
+    """Autodiff<Lowered> with params, through the tanh, exp and sqrt rules,
+    and through every rule of the op set's later ops (pow, abs, log, relu,
+    minimum, maximum, clamp, where), against the plain autodiff tiles
+    (torch.func): fx, fu, cx, cu, the cost Hessian and Σ_a V[a]·∂²f_a.
+    Tolerance 1e-5 relative: glibc's sin/tanh/exp/log/powf against
+    PyTorch's."""
+    model = (bare(MODELS[name]()) if name in MODELS and name != "opset"
+             else _opset() if name == "opset" else _exotic())
     low = lower.lower(model)
     x, u, par = _inputs(model, seed=6)
     V = np.random.default_rng(7).standard_normal(
         (model.n, B)).astype(np.float32)
     out, _ = _host_autodiff(tmp_path, name, low, x, u, par, V)
     tiles = autodiff_derivs_tiles(model, second_order=True)
-    d = tiles(_rows(x), _rows(u), 0, _rows(par))
+    d = tiles(_rows(x), _rows(u), 0,
+              *((_rows(par),) if model.n_params else ()))
     n, m = model.n, model.m
     nm = n + m
 
@@ -415,9 +433,9 @@ def _model_with(dynamics=None, cost=None):
 
 def test_unsupported_op_raises_naming_it():
     def dynamics(x, u, t):
-        return [x[0] ** 2, x[1], x[2], x[3] + u[0]]
+        return [torch.atan2(x[0], x[1]), x[1], x[2], x[3] + u[0]]
 
-    with pytest.raises(NotImplementedError, match=r"dynamics.*pow"):
+    with pytest.raises(NotImplementedError, match=r"dynamics.*atan2"):
         lower.lower(_model_with(dynamics=dynamics))
 
     def cost(x, u, t):   # remainder is diff's alone: K1 differentiates cost

@@ -352,23 +352,37 @@ def test_linesearch_m3_matches_jax():
 
 @pytest.mark.parametrize("n,m", [(10, 5), (4, 3), (10, 4)])
 def test_unbuilt_m_refused_before_launch(n, m):
-    """On tensors off the CPU (the meta device, which needs no card) an
-    (n, m) with no CUDA instance, m above MAX_M included, raises
-    NotImplementedError from the instance tables before the kernel library
-    is touched; no table holds an m above MAX_M."""
+    """On tensors off the CPU (the meta device, which needs no card) the
+    hand-written LTI's descriptor at an (n, m) with no CUDA instance, m
+    above MAX_M included, raises NotImplementedError from the instance
+    tables before the kernel library is touched; no table holds an m
+    above MAX_M. The LTI's own lane objects carry no descriptor at these
+    sizes (the card runs their lowering), and above MAX_M that route
+    raises too, before anything is built."""
+    import dataclasses
     spec = tl.random_lti(0, n=n, m=m, T=T, device="cpu")
+    hand = tl.device_model(spec)
     meta = dict(device="meta")
     traj = torch.zeros((T, n + m + 1, B), **meta)
     n0 = bk.backward_lanes.launches
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        bk.backward_lanes(traj, torch.zeros(B, **meta), n=n, m=m,
-                          reg_type=1, lims=((-1.0, 1.0),) * m,
-                          derivs_tiles=tl.lti_derivs_tiles(spec))
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        fk.forward_lanes(traj, torch.zeros((T, m + m * n, B), **meta),
-                         torch.zeros((n, B), **meta),
-                         torch.ones((1, B), **meta),
-                         model=tl.lti_lanes(spec), lims=((-1.0, 1.0),) * m)
+    tiles = tl.lti_derivs_tiles(spec)
+    lanes = tl.lti_lanes(spec)
+    assert tiles.device is None and lanes.device is None
+    for how, dt, model in (
+            ("no CUDA kernel", bk.DerivsTiles(fn=tiles.fn, device=hand),
+             dataclasses.replace(lanes, device=hand)),
+            ("MAX_M", tiles, lanes)):
+        if how == "MAX_M" and m <= fk.MAX_M:
+            continue
+        with pytest.raises(NotImplementedError, match=how):
+            bk.backward_lanes(traj, torch.zeros(B, **meta), n=n, m=m,
+                              reg_type=1, lims=((-1.0, 1.0),) * m,
+                              derivs_tiles=dt)
+        with pytest.raises(NotImplementedError, match=how):
+            fk.forward_lanes(traj, torch.zeros((T, m + m * n, B), **meta),
+                             torch.zeros((n, B), **meta),
+                             torch.ones((1, B), **meta), model=model,
+                             lims=((-1.0, 1.0),) * m)
     assert bk.backward_lanes.launches == n0
     tables = (list(bk.CUDA_BACKWARD) + list(bk.CUDA_BACKWARD_SO)
               + list(fk.CUDA_MODELS))
