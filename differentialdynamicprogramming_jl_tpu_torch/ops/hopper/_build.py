@@ -34,6 +34,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -193,11 +194,28 @@ def library() -> ctypes.CDLL:
     return _bind(build().path, SIGNATURES)
 
 
+def max_m_define(m: int) -> str:
+    """The lines that build a generated library for m controls
+    (``csrc/common.cuh`` DDP_MAX_M, with its loops rolled, DDP_ROLLED):
+    none up to the kernel library's ``plan.LIBRARY_MAX_M``, so that such a
+    library's source, and its bits, stay as they were. Every such library
+    rolls: unrolled, nvcc took 241-537 s for a ⟨10,8⟩ or ⟨14,7⟩ library
+    on the card's host (104-145 s rolled), and ⟨16,16⟩ ran a 96 GiB host
+    out of memory."""
+    from .plan import LIBRARY_MAX_M
+    if m <= LIBRARY_MAX_M:
+        return ""
+    return f"#define DDP_MAX_M {m}\n#define DDP_ROLLED 1\n"
+
+
 def lowered_source(struct: str, group: str) -> str:
-    """The generated ``.cu`` of one instance group of a lowered model."""
+    """The generated ``.cu`` of one instance group of a lowered model, built
+    for the struct's own m."""
+    m = int(re.search(r"static constexpr int M = (\d+);", struct).group(1))
     return (f"// A lowered model's instance group {group!r}, generated by "
             "ops/hopper/_build.py.\n"
             f"#define DDP_LOWERED_GROUP {LOWERED_GROUPS[group]}\n"
+            f"{max_m_define(m)}"
             '#include "autodiff.cuh"\n\nnamespace ddp {\n\n'
             f"{struct}\n}}  // namespace ddp\n\n"
             '#include "lowered.cuh"\n')
@@ -327,10 +345,11 @@ def covariance_source(ns: Sequence[int]) -> str:
 def packed_source(n: int, m: int) -> str:
     """The generated ``.cu`` of K1's packed-derivatives instance
     ``Packed<n, m>`` (csrc/packed.cuh) in ``"gains"`` and ``"full"``
-    emission without GPS mode; ``ddp_backward_lanes`` has the kernel
-    library's signature and returns ERR_MODEL for anything else."""
+    emission without GPS mode, built for its own m; ``ddp_backward_lanes``
+    has the kernel library's signature and returns ERR_MODEL for anything
+    else."""
     lines = [f"// K1's packed instance Packed<{n}, {m}>, generated by "
-             "ops/hopper/_build.py.",
+             f"ops/hopper/_build.py.\n{max_m_define(m)}".rstrip("\n"),
              '#include "backward.cuh"', '#include "packed.cuh"', "",
              'extern "C" int ddp_backward_lanes(const float* traj, int s_in, '
              "const float* lam, const float* prev, const float* eta, "

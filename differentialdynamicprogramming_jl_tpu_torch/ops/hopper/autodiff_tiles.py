@@ -15,7 +15,9 @@ so a user model needs no hand-written Jacobian:
   ``fxx[a][i][j]``, ``fxu[a][j][mi]`` and ``fuu[a][mi][mj]`` of full DDP.
 
 Every tangent is a unit vector over the (x, u) inputs, zeros included, as
-the JAX function builds it. The directions (and the pairs) are batched by
+the JAX function builds it. The model's functions run under JAX's rules at
+ties (``ops/tie_rules.py``: abs, the clamps, maximum and minimum), as
+K1's Dual and Jet passes do. The directions (and the pairs) are batched by
 ``torch.func.vmap`` over a leading axis of the tangents: the model's
 functions are elementwise, so each direction's result has the bits a jvp of
 its own would give, at a fraction of the Python overhead of 44 separate
@@ -50,6 +52,7 @@ import numpy as np
 import torch
 from torch.func import jvp, vmap
 
+from ..tie_rules import jax_ties
 from .backward_kernel import DerivsTiles
 from .forward_kernel import DeviceModel, LanesModel
 from .lower import LOWERED_ID
@@ -80,13 +83,16 @@ def _autodiff_derivs_tiles(model: LanesModel,
     pairs = [(i, j) for j in range(nm) for i in range(j + 1)]
 
     def tiles(x, u, t, *par):
+        # the model's functions under JAX's rules at ties (ops/tie_rules.py)
         def fc(xu):
             xs, us = xu[:n], xu[n:]
-            return (list(model.dynamics(xs, us, t, *par)),
-                    model.cost(xs, us, t, *par))
+            with jax_ties():
+                return (list(model.dynamics(xs, us, t, *par)),
+                        model.cost(xs, us, t, *par))
 
         def cost(xu):
-            return model.cost(xu[:n], xu[n:], t, *par)
+            with jax_ties():
+                return model.cost(xu[:n], xu[n:], t, *par)
 
         xu0 = list(x) + list(u)
 

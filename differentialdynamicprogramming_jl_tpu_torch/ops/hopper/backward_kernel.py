@@ -16,7 +16,9 @@ and the batch-major wrapper :func:`backward_pass_pallas`.
 :func:`backward_lanes` gives a CPU tensor to :func:`backward_lanes_ref`, the
 plain PyTorch version (vectorised over B, Python loop over t, in the
 kernel's operation order; any m), and a CUDA tensor to the hand-written
-kernel in ``csrc/backward.cu`` (m ≤ ``MAX_M``, for the instances built), or
+kernel in ``csrc/backward.cu`` (the kernel library's instances, m ≤
+``MAX_M`` = 4, or a library generated for a lowered model's, a user's tiles'
+or the packed stream's own m up to ``plan.MAX_CONTROLS`` = 16), or
 raises. There is no fallback. Its launch plan
 (block shape and shared-memory ring) comes from :mod:`.plan`. Launches are
 counted in ``backward_lanes.launches``.
@@ -30,8 +32,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .plan import backward_plan
-from .forward_kernel import (CUDA_MODELS, MAX_M, DeviceModel, bounds,
+from .plan import backward_plan, check_controls
+from .forward_kernel import (CUDA_MODELS, DeviceModel, bounds,
                              check_lanes, check_lims, cuda_args, par_args,
                              step_indices)
 from .pack import (DERIV_FIELDS, DerivLayout, from_streams,
@@ -157,9 +159,11 @@ CUDA_BACKWARD_SO = {
 }
 # the packed-derivatives instances (csrc/packed.cuh) of the kernel
 # library, keyed by (n, m, GPS mode) alone: the model does not enter K1 in
-# that mode. At any other (n, m ≤ MAX_M) the "gains" and "full" instances
-# without GPS mode are a library of their own, built at their first launch
-# (_build.packed_library); the GPS and "policy" instances are not built
+# that mode. At any other (n, m) with m up to the ceiling
+# plan.MAX_CONTROLS the "gains" and "full" instances without GPS mode are a
+# library of their own, built at their first launch for that m
+# (_build.packed_library; the kernel library's bound MAX_M = 4 is its
+# own); the GPS and "policy" instances are not built
 CUDA_PACKED = {
     (4, 1, False): ("gains", "full"), (4, 1, True): ("full",),
     (6, 2, False): ("gains", "full"), (10, 2, False): ("gains", "full"),
@@ -641,8 +645,10 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     (second-order tiles) or :data:`CUDA_PACKED` (the packed stream, by n,
     m and GPS mode; at any other (n, m) its ``"gains"`` and ``"full"``
     instances without GPS mode, built at their first launch where their
-    ring fits), none with m above ``MAX_M``; anything else raises
-    NotImplementedError before the kernel library is touched. Autodiff
+    ring fits), with m up to the ceiling ``plan.MAX_CONTROLS`` (a library
+    generated for its m above the kernel library's ``MAX_M`` = 4); anything
+    else raises NotImplementedError before anything is lowered, built or
+    launched. Autodiff
     tiles of a model without a descriptor run ``Autodiff<Lowered>`` from
     the model's lowering (:mod:`.lower`, :data:`LOWERED_K1`), and a user's
     tiles without a descriptor run ``LoweredTiles``, their own expansion
@@ -684,6 +690,7 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                                   prev=prev, eta=eta, params=params,
                                   lims_lanes=lims_lanes, emit=emit,
                                   qp_iters=qp_iters)
+    check_controls(m, "backward_lanes")
     gps_t = (prev, eta) if gps else ()
     group = tiles_low = library = None
     if packed:
@@ -695,13 +702,12 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                     f"for the packed-derivatives stream at n={n}, m={m}, "
                     f"{'in' if gps else 'without'} GPS mode, emit={emit!r}; "
                     f"built (n, m, GPS): {CUDA_PACKED}")
-        elif gps or emit not in PACKED_ANY or not 1 <= m <= MAX_M:
+        elif gps or emit not in PACKED_ANY:
             raise NotImplementedError(
                 f"backward_lanes: the packed-derivatives stream at n={n}, "
                 f"m={m} runs on the card in {PACKED_ANY} emission without "
-                f"GPS mode for m ≤ MAX_M = {MAX_M} (and the sizes "
-                f"{CUDA_PACKED}); not {'in' if gps else 'without'} GPS "
-                f"mode, emit={emit!r}")
+                f"GPS mode (and the sizes {CUDA_PACKED}); not "
+                f"{'in' if gps else 'without'} GPS mode, emit={emit!r}")
         else:
             try:
                 backward_plan(n, m, gps, emit, T, B, packed=True)

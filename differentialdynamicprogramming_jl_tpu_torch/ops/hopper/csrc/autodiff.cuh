@@ -26,7 +26,8 @@
 // vector with its zeros; nvcc folds no 0·x (x may be Inf or NaN), so the
 // zero-tangent products are real work.
 //
-// Each rule is the one PyTorch's forward-mode autodiff applies
+// Each rule is the one PyTorch's forward-mode autodiff applies, but for
+// abs, the clamps, maximum and minimum, which take JAX's (below)
 // (torchgen derivatives.yaml: mul `other_t*self_p + self_t*other_p`, div
 // `(self_t - other_t*result)/other_p`, sin `self_t*cos(self_p)`, cos
 // `self_t*-sin(self_p)`, tanh `tanh_backward(self_t, result)` =
@@ -246,19 +247,17 @@ __device__ __forceinline__ D signp(D x) {   // derivative 0 almost everywhere
 // (autodiff_tiles.py) stay bit-equal. A constant operand (float) has no
 // tangent: it enters the Dual/Jet forms as constant_.
 //
-// Ties follow PyTorch, not JAX: |x|' = sgn(x), 0 at 0 (JAX: 1); a clamp's
-// derivative is 1 on its bound (JAX's clip: ½); maximum/minimum weigh the
-// two tangents ½ each at a tie (as JAX).
+// abs, the clamps, maximum and minimum take JAX's rules, as the JAX
+// package's kernels differentiate a model (jax/_src/lax/lax.py), and so do
+// their plain versions (ops/tie_rules.py): |x|' = select(x >= 0, 1, -1), 1
+// at ±0 (PyTorch: sgn, 0 at 0); maximum/minimum tx·wx + ty·wy with the
+// balanced weights of the result, ½ each at a tie; a clamp is
+// minimum(maximum(x, lo), hi), (t·w1)·w2, ½ on a bound (PyTorch: 1).
 
 // the value of a scalar: comparisons read it, never a tangent
 __device__ __forceinline__ float val_(float x) { return x; }
 __device__ __forceinline__ float val_(Dual x) { return x.v; }
 __device__ __forceinline__ float val_(Jet x) { return x.v; }
-
-// PyTorch's sign on a real value (NaN gives 0)
-__device__ __forceinline__ float sgn_(float x) {
-  return (0.0f < x ? 1.0f : 0.0f) - (x < 0.0f ? 1.0f : 0.0f);
-}
 
 // pow(x, e) for a constant exponent as PyTorch's pow.Tensor_Scalar forms
 // it on a CUDA tensor: 0 fills 1, 1 copies; ½, -½ and -1 go to sqrt, rsqrt
@@ -298,13 +297,14 @@ __device__ __forceinline__ Jet powc_(Jet x, float e, float e1, float e2) {
   return {powc_(x.v, e), x.a * q, x.b * q, qb * x.a + x.ab * q};
 }
 
+// abs: JAX's select(x >= 0, t, -t), along b the same select of x.ab
 __device__ __forceinline__ Dual fabsf(Dual x) {
-  return {::fabsf(x.v), x.t * sgn_(x.v)};
+  const bool p = x.v >= 0.0f;
+  return {::fabsf(x.v), p ? x.t : -x.t};
 }
 __device__ __forceinline__ Jet fabsf(Jet x) {
-  // sgn's own tangent is a symbolic zero: only x.ab·sgn remains along b
-  const float s = sgn_(x.v);
-  return {::fabsf(x.v), x.a * s, x.b * s, x.ab * s};
+  const bool p = x.v >= 0.0f;
+  return {::fabsf(x.v), p ? x.a : -x.a, p ? x.b : -x.b, p ? x.ab : -x.ab};
 }
 
 __device__ __forceinline__ Dual logf(Dual x) {
@@ -331,61 +331,45 @@ __device__ __forceinline__ Jet relu_(Jet x) {
   return {r, z ? 0.0f : x.a, z ? 0.0f : x.b, 0.0f + (z ? 0.0f : x.ab)};
 }
 
-// clamp with scalar bounds (either absent): NaN kept; the rule keeps t
-// where lo ≤ x ≤ hi, on a bound included, and gives 0 elsewhere
-__device__ __forceinline__ float clamp_(float x, float lo, float hi) {
-  return isnan(x) ? x : ::fminf(::fmaxf(x, lo), hi);
-}
-__device__ __forceinline__ float clamp_min_(float x, float lo) {
-  return isnan(x) ? x : ::fmaxf(x, lo);
-}
-__device__ __forceinline__ float clamp_max_(float x, float hi) {
-  return isnan(x) ? x : ::fminf(x, hi);
-}
-__device__ __forceinline__ Dual keep_(Dual x, float v, bool in) {
-  return {v, in ? x.t : 0.0f};
-}
-__device__ __forceinline__ Jet keep_(Jet x, float v, bool in) {
-  return {v, in ? x.a : 0.0f, in ? x.b : 0.0f, in ? x.ab : 0.0f};
-}
-template <class D>
-__device__ __forceinline__ D clamp_(D x, float lo, float hi) {
-  return keep_(x, clamp_(x.v, lo, hi), x.v >= lo && x.v <= hi);
-}
-template <class D>
-__device__ __forceinline__ D clamp_min_(D x, float lo) {
-  return keep_(x, clamp_min_(x.v, lo), x.v >= lo);
-}
-template <class D>
-__device__ __forceinline__ D clamp_max_(D x, float hi) {
-  return keep_(x, clamp_max_(x.v, hi), x.v <= hi);
-}
-
-// maximum/minimum: NaN-keeping values; the rule other_t + w·(self_t -
-// other_t), w = ½ at a tie, else 1 where self is taken and 0 where not
-// (not the taken tangent itself: y.t + (x.t - y.t) rounds)
+// maximum/minimum: NaN-keeping values
 __device__ __forceinline__ float maximum_(float a, float b) {
   return isnan(a) ? a : (isnan(b) ? b : ::fmaxf(a, b));
 }
 __device__ __forceinline__ float minimum_(float a, float b) {
   return isnan(a) ? a : (isnan(b) ? b : ::fminf(a, b));
 }
-__device__ __forceinline__ Dual weigh_(Dual x, Dual y, float v, float w) {
-  return {v, y.t + w * (x.t - y.t)};
+
+// JAX's _balanced_eq(x, z, y) of a chooser's result z: 1 where x is z and
+// y is not, ½ where both are, 0 where x is not (a NaN is no one's)
+__device__ __forceinline__ float balanced_(float x, float z, float y) {
+  return (x == z ? 1.0f : 0.0f) / (y == z ? 2.0f : 1.0f);
 }
-__device__ __forceinline__ Jet weigh_(Jet x, Jet y, float v, float w) {
-  return {v, y.a + w * (x.a - y.a), y.b + w * (x.b - y.b),
-          y.ab + w * (x.ab - y.ab)};
+// a tangent times a weight, each component
+__device__ __forceinline__ Dual scale_(Dual x, float v, float w) {
+  return {v, x.t * w};
+}
+__device__ __forceinline__ Jet scale_(Jet x, float v, float w) {
+  return {v, x.a * w, x.b * w, x.ab * w};
+}
+// the chooser's tangent tx·wx + ty·wy, each component
+__device__ __forceinline__ Dual weigh_(Dual x, Dual y, float v, float wx,
+                                       float wy) {
+  return {v, x.t * wx + y.t * wy};
+}
+__device__ __forceinline__ Jet weigh_(Jet x, Jet y, float v, float wx,
+                                      float wy) {
+  return {v, x.a * wx + y.a * wy, x.b * wx + y.b * wy,
+          x.ab * wx + y.ab * wy};
 }
 template <class D>
 __device__ __forceinline__ D maximum_(D x, D y) {
-  return weigh_(x, y, maximum_(x.v, y.v),
-                x.v == y.v ? 0.5f : (x.v > y.v ? 1.0f : 0.0f));
+  const float z = maximum_(x.v, y.v);
+  return weigh_(x, y, z, balanced_(x.v, z, y.v), balanced_(y.v, z, x.v));
 }
 template <class D>
 __device__ __forceinline__ D minimum_(D x, D y) {
-  return weigh_(x, y, minimum_(x.v, y.v),
-                x.v == y.v ? 0.5f : (x.v < y.v ? 1.0f : 0.0f));
+  const float z = minimum_(x.v, y.v);
+  return weigh_(x, y, z, balanced_(x.v, z, y.v), balanced_(y.v, z, x.v));
 }
 template <class D>
 __device__ __forceinline__ D maximum_(D x, float c) {
@@ -402,6 +386,36 @@ __device__ __forceinline__ D minimum_(D x, float c) {
 template <class D>
 __device__ __forceinline__ D minimum_(float c, D y) {
   return minimum_(constant_(y, c), y);
+}
+
+// clamp with scalar bounds (either absent): NaN kept; the tangent is JAX's
+// clip, minimum(maximum(x, lo), hi): t·w1 from the maximum, then ·w2 from
+// the minimum, each a balanced weight (½ on a bound)
+__device__ __forceinline__ float clamp_(float x, float lo, float hi) {
+  return isnan(x) ? x : ::fminf(::fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ float clamp_min_(float x, float lo) {
+  return isnan(x) ? x : ::fmaxf(x, lo);
+}
+__device__ __forceinline__ float clamp_max_(float x, float hi) {
+  return isnan(x) ? x : ::fminf(x, hi);
+}
+template <class D>
+__device__ __forceinline__ D clamp_(D x, float lo, float hi) {
+  const float r = maximum_(x.v, lo);
+  const D s = scale_(x, r, balanced_(x.v, r, lo));
+  return scale_(s, clamp_(x.v, lo, hi),
+                balanced_(r, minimum_(r, hi), hi));
+}
+template <class D>
+__device__ __forceinline__ D clamp_min_(D x, float lo) {
+  return scale_(x, clamp_min_(x.v, lo),
+                balanced_(x.v, maximum_(x.v, lo), lo));
+}
+template <class D>
+__device__ __forceinline__ D clamp_max_(D x, float hi) {
+  return scale_(x, clamp_max_(x.v, hi),
+                balanced_(x.v, minimum_(x.v, hi), hi));
 }
 
 // where(c, a, b): value and tangents from the chosen branch
@@ -481,9 +495,9 @@ struct Autodiff {
                                         const float (&u)[M], int t, int dir,
                                         Dual (&f)[N]) const {
     Dual xd[N], ud[M];
-#pragma unroll
+DDP_UNROLL
     for (int k = 0; k < N; ++k) xd[k] = Dual{x[k], k == dir ? 1.0f : 0.0f};
-#pragma unroll
+DDP_UNROLL
     for (int k = 0; k < M; ++k)
       ud[k] = Dual{u[k], N + k == dir ? 1.0f : 0.0f};
     body.dynamics(xd, ud, t, f);
@@ -495,10 +509,10 @@ struct Autodiff {
                                               const float (&u)[M], int i,
                                               int j, Jet (&xj)[N],
                                               Jet (&uj)[M]) {
-#pragma unroll
+DDP_UNROLL
     for (int k = 0; k < N; ++k)
       xj[k] = Jet{x[k], k == j ? 1.0f : 0.0f, k == i ? 1.0f : 0.0f, 0.0f};
-#pragma unroll
+DDP_UNROLL
     for (int k = 0; k < M; ++k)
       uj[k] = Jet{u[k], N + k == j ? 1.0f : 0.0f, N + k == i ? 1.0f : 0.0f,
                   0.0f};
@@ -524,7 +538,7 @@ struct Autodiff {
     jets(x, u, i, j, xj, uj);
     body.dynamics(xj, uj, t, f);
     float s = Vx[0] * f[0].ab;
-#pragma unroll
+DDP_UNROLL
     for (int a = 1; a < N; ++a) s = s + Vx[a] * f[a].ab;
     hv = s;
     return body.cost(xj, uj, t).ab;
@@ -535,9 +549,9 @@ struct Autodiff {
                                          const float (&u)[M], int t,
                                          Derivs& d) const {
     first(x, u, t, d);
-#pragma unroll
+DDP_UNROLL
     for (int j = 0; j < NM; ++j) {
-#pragma unroll
+DDP_UNROLL
       for (int i = 0; i <= j; ++i) d.H[hidx(i, j)] = pass2(x, u, t, i, j);
     }
   }
@@ -550,9 +564,9 @@ struct Autodiff {
                                             Derivs& d) const {
     static_assert(SO, "derivs_so is the full-DDP expansion");
     first(x, u, t, d);
-#pragma unroll
+DDP_UNROLL
     for (int j = 0; j < NM; ++j) {
-#pragma unroll
+DDP_UNROLL
       for (int i = 0; i <= j; ++i)
         d.H[hidx(i, j)] = pass2_so(x, u, t, i, j, Vx, d.HV[hidx(i, j)]);
     }
@@ -565,18 +579,18 @@ struct Autodiff {
   __device__ __forceinline__ void first(const float (&x)[N],
                                         const float (&u)[M], int t,
                                         Derivs& d) const {
-#pragma unroll
+DDP_UNROLL
     for (int i = 0; i < N; ++i) {
       Dual f[N];
       d.cx[i] = pass1(x, u, t, i, f).t;
-#pragma unroll
+DDP_UNROLL
       for (int a = 0; a < N; ++a) d.fx[a][i] = f[a].t;
     }
-#pragma unroll
+DDP_UNROLL
     for (int mi = 0; mi < M; ++mi) {
       Dual f[N];
       d.cu[mi] = pass1(x, u, t, N + mi, f).t;
-#pragma unroll
+DDP_UNROLL
       for (int a = 0; a < N; ++a) d.fu[a][mi] = f[a].t;
     }
   }

@@ -37,7 +37,7 @@
 // registers; this loop takes the place of the TPU's sequential grid axis
 // and its VMEM scratch. There are K1_WARPS of them: one, or four where n ≥
 // 8 and "full" emission or GPS mode gives a step n×n work beyond the
-// recursion's own. Four warps split W = Vxx·fx, U = Vxx·fu, Qxx and Vraw by
+// recursion's own, or m > 4. Four warps split W = Vxx·fx, U = Vxx·fu, Qxx and Vraw by
 // rows, each element summed from a = 0 by the warp that owns its row, and
 // exchange them through shared memory after the ring at two barriers a
 // step; every warp forms the n- and m-sized terms itself. The step inputs
@@ -239,7 +239,7 @@ __device__ __forceinline__ bool boxqp_m2(const float (&Q)[2][2],
                        -(g1 + b * hi[0]) / c_s, lo[1], hi[1],
                        lo[1], hi[1], lo[1], hi[1]};
   float bx0 = 0.0f, bx1 = 0.0f, bv = 0.0f;
-#pragma unroll
+DDP_UNROLL
   for (int i = 0; i < 9; ++i) {
     const float x0 = clipp(c0[i], lo[0], hi[0]);
     const float x1 = clipp(c1[i], lo[1], hi[1]);
@@ -279,11 +279,11 @@ __device__ __forceinline__ float qp_val(const float (&H)[M][M],
                                         const float (&g)[M],
                                         const float (&x)[M]) {
   float v = 0.0f;
-#pragma unroll
+DDP_UNROLL
   for (int i = 0; i < M; ++i) v = v + x[i] * g[i];
-#pragma unroll
+DDP_UNROLL
   for (int i = 0; i < M; ++i) {
-#pragma unroll
+DDP_UNROLL
     for (int j = 0; j < M; ++j) v = v + 0.5f * x[i] * H[i][j] * x[j];
   }
   return v;
@@ -299,10 +299,10 @@ __device__ __forceinline__ void qp_kkt(const float (&H)[M][M],
                                        const float (&hi)[M],
                                        const float (&x)[M], float (&gr)[M],
                                        bool (&fr)[M]) {
-#pragma unroll
+DDP_UNROLL
   for (int i = 0; i < M; ++i) {
     float s = 0.0f;
-#pragma unroll
+DDP_UNROLL
     for (int j = 0; j < M; ++j) s = s + H[i][j] * x[j];
     gr[i] = g[i] + s;
     fr[i] = !(((x[i] <= lo[i]) && (gr[i] > 0.0f)) ||
@@ -317,9 +317,9 @@ __device__ __forceinline__ bool masked_chol(const float (&H)[M][M],
                                             const bool (&fr)[M],
                                             float (&L)[M][M]) {
   float Hm[M][M];
-#pragma unroll
+DDP_UNROLL
   for (int i = 0; i < M; ++i) {
-#pragma unroll
+DDP_UNROLL
     for (int j = 0; j < M; ++j)
       Hm[i][j] = ((fr[i] && fr[j]) ? H[i][j] : 0.0f) +
                  (i == j ? (fr[i] ? 0.0f : 1.0f) : 0.0f);
@@ -343,7 +343,7 @@ __device__ __forceinline__ bool boxqp_masked(
     const float (&hi)[M], const float (&x0)[M], int qp_iters, float (&x)[M],
     bool (&fr)[M], float (&L)[M][M]) {
   float gr[M];
-#pragma unroll
+DDP_UNROLL
   for (int i = 0; i < M; ++i) x[i] = clipp(x0[i], lo[i], hi[i]);
   bool ok = true, improved = false;
 #pragma unroll 1
@@ -351,10 +351,10 @@ __device__ __forceinline__ bool boxqp_masked(
     qp_kkt<M>(H, g, lo, hi, x, gr, fr);
     ok = masked_chol<M>(H, fr, L) && ok;
     float rhs[M], dx[M], xb[M];
-#pragma unroll
+DDP_UNROLL
     for (int i = 0; i < M; ++i) rhs[i] = -(fr[i] ? gr[i] : 0.0f);
     tiny_chol_solve<M>(L, rhs, dx);
-#pragma unroll
+DDP_UNROLL
     for (int i = 0; i < M; ++i) {
       dx[i] = fr[i] ? dx[i] : 0.0f;
       xb[i] = x[i];
@@ -362,20 +362,20 @@ __device__ __forceinline__ bool boxqp_masked(
     float vb = qp_val<M>(H, g, x);
     improved = false;
     const float steps[3] = {1.0f, 0.5f, 0.25f};
-#pragma unroll
+DDP_UNROLL
     for (int a = 0; a < 3; ++a) {
       float xc[M];
-#pragma unroll
+DDP_UNROLL
       for (int i = 0; i < M; ++i)
         xc[i] = clipp(x[i] + steps[a] * dx[i], lo[i], hi[i]);
       const float vc = qp_val<M>(H, g, xc);
       const bool take = vc < vb;
       improved = improved || take;
-#pragma unroll
+DDP_UNROLL
       for (int i = 0; i < M; ++i) xb[i] = take ? xc[i] : xb[i];
       vb = minp(vc, vb);
     }
-#pragma unroll
+DDP_UNROLL
     for (int i = 0; i < M; ++i) x[i] = xb[i];
   }
   // the free set and its factor at the solution
@@ -383,12 +383,12 @@ __device__ __forceinline__ bool boxqp_masked(
   ok = masked_chol<M>(H, fr, L) && ok;
   if (qp_iters > 0) {
     float gf2 = 0.0f, g2 = 0.0f;
-#pragma unroll
+DDP_UNROLL
     for (int i = 0; i < M; ++i) {
       const float v = fr[i] ? gr[i] : 0.0f;
       gf2 = gf2 + v * v;
     }
-#pragma unroll
+DDP_UNROLL
     for (int i = 0; i < M; ++i) g2 = g2 + g[i] * g[i];
     const bool stuck = (gf2 > 1e-6f * (g2 + 1e-30f)) && !improved;
     ok = ok && !stuck;
@@ -408,12 +408,15 @@ __host__ __device__ constexpr int k1_in_slots() {
 // (ops/hopper/plan.py::k1_warps); the producer warp is one more. Four where
 // the state is large (n ≥ 8) and a step holds n×n work beyond the
 // recursion's own: the Vxx stores of "full" emission, the KL terms of GPS
-// mode. Elsewhere one warp, whose step is a chain of dependent operations
+// mode; and at m > 4 in every emission, where one warp's m×n and m×m
+// terms spill (⟨14,7⟩ `gains`: 1347 ms one warp, `full` 803 ms four, on an
+// H100). Elsewhere one warp, whose step is a chain of dependent operations
 // that more warps would only repeat (measured with tools_torch/kernel_ab.py,
 // PERF.md §6). A variable template, not a constexpr function: device code
 // may not call a host one.
-template <int N, int EMIT, bool GPS>
-constexpr int K1_WARPS = N >= 8 && (GPS || EMIT == EMIT_FULL) ? 4 : 1;
+template <int N, int M, int EMIT, bool GPS>
+constexpr int K1_WARPS =
+    N >= 8 && (GPS || EMIT == EMIT_FULL || M > 4) ? 4 : 1;
 
 // compute warp Q's role, a compile-time constant: it owns rows Q, Q+G, ...
 // of Vxx, Qxx and Vraw
@@ -465,7 +468,7 @@ backward_kernel(const float* __restrict__ traj, int s_in,
   constexpr int PS = M + M * N + M * M;          // prev slots (GPS)
   constexpr int IN = k1_in_slots<Model>();       // x, u or the packed slots
   constexpr int F = IN + (GPS ? PS + 1 : 0);     // ring: [in, prev, η]
-  constexpr int G = K1_WARPS<N, EMIT, GPS>;
+  constexpr int G = K1_WARPS<N, M, EMIT, GPS>;
   constexpr int ROWS = (N + G - 1) / G;          // rows a compute warp owns
   constexpr int SW = N + M;                      // exchange: W[a][·], U[a][·]
   extern __shared__ __align__(16) float ring[];
@@ -547,7 +550,7 @@ backward_kernel(const float* __restrict__ traj, int s_in,
   // m > 2: the box QP's warm start, the sanitised k of step t+1 (0 before
   // the first step's solve)
   float kw[M];
-#pragma unroll
+DDP_UNROLL
   for (int mi = 0; mi < M; ++mi) kw[mi] = 0.0f;
   typename Model::Derivs dv;
   // the step's u and expansion at ring row r: read from the packed slots,
@@ -555,14 +558,14 @@ backward_kernel(const float* __restrict__ traj, int s_in,
   // model's derivatives may read), to second order away from the boundary
   auto expand = [&](float (&u)[M], int t, bool boundary) {
     if constexpr (Model::PACKED) {
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) u[mi] = in(Model::D + mi);
       dv.p = ring + r;
     } else {
       float x[N];
-#pragma unroll
+DDP_UNROLL
       for (int i = 0; i < N; ++i) x[i] = in(i);
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) u[mi] = in(N + mi);
       if constexpr (Model::SECOND_ORDER) {
         if (!boundary) {
@@ -578,21 +581,21 @@ backward_kernel(const float* __restrict__ traj, int s_in,
     const int t = T - 1;
     float u[M];
     expand(u, t, true);
-#pragma unroll
+DDP_UNROLL
     for (int i = 0; i < N; ++i) Vx[i] = P.cx(dv, i);
     float cuu[M][M], inv[M][M];
     if (QUU) {
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
+DDP_UNROLL
         for (int mj = 0; mj < M; ++mj) cuu[mi][mj] = P.cuu(dv, mi, mj);
       }
       if constexpr (GPS) {
         const PrevStep<N, M> pv(ring + r + IN * RING_W);
         const float e = eta_or_one(in(IN + PS));
-#pragma unroll
+DDP_UNROLL
         for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
+DDP_UNROLL
           for (int mj = 0; mj < M; ++mj)
             cuu[mi][mj] = cuu[mi][mj] / e + pv.Si(mi, mj);
         }
@@ -601,11 +604,11 @@ backward_kernel(const float* __restrict__ traj, int s_in,
     }
     by_role<G>(warp, [&](auto role) {
       constexpr int Q = decltype(role)::q;
-#pragma unroll
+DDP_UNROLL
       for (int q = 0; q < ROWS; ++q) {
         const int i = Q + q * G;
         if (i < N) {
-#pragma unroll
+DDP_UNROLL
           for (int j = 0; j < N; ++j) {
             VxxR[q][j] = P.cxx(dv, i, j);
             if (VALUE) put(t, OV + N + i * N + j, VxxR[q][j]);
@@ -613,14 +616,14 @@ backward_kernel(const float* __restrict__ traj, int s_in,
         }
       }
       // the step's other slots, each written by one warp
-#pragma unroll
+DDP_UNROLL
       for (int s = Q; s < OV; s += G) put(t, s, 0.0f);
       if (VALUE) {
-#pragma unroll
+DDP_UNROLL
         for (int i = Q; i < N; i += G) put(t, OV + i, Vx[i]);
       }
       if (QUU) {
-#pragma unroll
+DDP_UNROLL
         for (int s = Q; s < 2 * M * M; s += G) {
           const int e = s % (M * M);
           put(t, OQ + s, s < M * M ? cuu[e / M][e % M] : inv[e / M][e % M]);
@@ -643,21 +646,21 @@ backward_kernel(const float* __restrict__ traj, int s_in,
     // W = Vxx·fx and U = Vxx·fu, this warp's rows, to the exchange
     by_role<G>(warp, [&](auto role) {
       constexpr int Q = decltype(role)::q;
-#pragma unroll
+DDP_UNROLL
       for (int q = 0; q < ROWS; ++q) {
         const int a = Q + q * G;
         if (a < N) {
-#pragma unroll
+DDP_UNROLL
           for (int j = 0; j < N; ++j) {
             float s = VxxR[q][0] * P.fx(dv, 0, j);
-#pragma unroll
+DDP_UNROLL
             for (int cc = 1; cc < N; ++cc) s = s + VxxR[q][cc] * P.fx(dv, cc, j);
             put_W(a, j, s);
           }
-#pragma unroll
+DDP_UNROLL
           for (int mi = 0; mi < M; ++mi) {
             float s = VxxR[q][0] * P.fu(dv, 0, mi);
-#pragma unroll
+DDP_UNROLL
             for (int cc = 1; cc < N; ++cc)
               s = s + VxxR[q][cc] * P.fu(dv, cc, mi);
             put_W(a, N + mi, s);
@@ -666,50 +669,50 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       }
     });
     float Qx[N], Qu[M], Quu[M][M], Qux[M][N], QxxR[ROWS][N];
-#pragma unroll
+DDP_UNROLL
     for (int i = 0; i < N; ++i) {
       float s = P.fx(dv, 0, i) * Vx[0];
-#pragma unroll
+DDP_UNROLL
       for (int a = 1; a < N; ++a) s = s + P.fx(dv, a, i) * Vx[a];
       Qx[i] = P.cx(dv, i) + s;
     }
-#pragma unroll
+DDP_UNROLL
     for (int mi = 0; mi < M; ++mi) {
       float s = P.fu(dv, 0, mi) * Vx[0];
-#pragma unroll
+DDP_UNROLL
       for (int a = 1; a < N; ++a) s = s + P.fu(dv, a, mi) * Vx[a];
       Qu[mi] = P.cu(dv, mi) + s;
     }
     rows_bar<G>();                 // W and U are whole
     by_role<G>(warp, [&](auto role) {
       constexpr int Q = decltype(role)::q;
-#pragma unroll
+DDP_UNROLL
       for (int q = 0; q < ROWS; ++q) {
         const int i = Q + q * G;
         if (i < N) {
-#pragma unroll
+DDP_UNROLL
           for (int j = 0; j < N; ++j) {
             float s = P.fx(dv, 0, i) * W(0, j);
-#pragma unroll
+DDP_UNROLL
             for (int a = 1; a < N; ++a) s = s + P.fx(dv, a, i) * W(a, j);
             QxxR[q][j] = P.cxx(dv, i, j) + s;
           }
         }
       }
     });
-#pragma unroll
+DDP_UNROLL
     for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
+DDP_UNROLL
       for (int mj = 0; mj < M; ++mj) {
         float s = P.fu(dv, 0, mi) * W(0, N + mj);
-#pragma unroll
+DDP_UNROLL
         for (int a = 1; a < N; ++a) s = s + P.fu(dv, a, mi) * W(a, N + mj);
         Quu[mi][mj] = P.cuu(dv, mi, mj) + s;
       }
-#pragma unroll
+DDP_UNROLL
       for (int j = 0; j < N; ++j) {
         float s = P.fu(dv, 0, mi) * W(0, j);
-#pragma unroll
+DDP_UNROLL
         for (int a = 1; a < N; ++a) s = s + P.fu(dv, a, mi) * W(a, j);
         Qux[mi][j] = P.cxu(dv, j, mi) + s;
       }
@@ -719,20 +722,20 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       // model (vh), before the GPS and regularisation branches
       by_role<G>(warp, [&](auto role) {
         constexpr int Q = decltype(role)::q;
-#pragma unroll
+DDP_UNROLL
         for (int q = 0; q < ROWS; ++q) {
           const int i = Q + q * G;
           if (i < N) {
-#pragma unroll
+DDP_UNROLL
             for (int j = 0; j < N; ++j) QxxR[q][j] = QxxR[q][j] + P.vh(dv, i, j);
           }
         }
       });
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
+DDP_UNROLL
         for (int j = 0; j < N; ++j) Qux[mi][j] = Qux[mi][j] + P.vh(dv, j, N + mi);
-#pragma unroll
+DDP_UNROLL
         for (int mj = 0; mj < M; ++mj)
           Quu[mi][mj] = Quu[mi][mj] + P.vh(dv, N + mi, N + mj);
       }
@@ -746,33 +749,33 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       const PrevStep<N, M> pv(ring + r + IN * RING_W);
       const float ie = 1.0f / eta_or_one(in(IN + PS));
       float Si[M][M], Sik[M], SiK[M][N];
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
+DDP_UNROLL
         for (int mj = 0; mj < M; ++mj) Si[mi][mj] = pv.Si(mi, mj);
       }
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) {        // Sik = Σ⁻¹·k
         float s = Si[mi][0] * pv.k(0);
-#pragma unroll
+DDP_UNROLL
         for (int mj = 1; mj < M; ++mj) s = s + Si[mi][mj] * pv.k(mj);
         Sik[mi] = s;
       }
-#pragma unroll
+DDP_UNROLL
       for (int i = 0; i < N; ++i) {           // cx_i = Σ_mi K[mi][i]·Sik[mi]
         float c = pv.K(0, i) * Sik[0];
-#pragma unroll
+DDP_UNROLL
         for (int mi = 1; mi < M; ++mi) c = c + pv.K(mi, i) * Sik[mi];
         Qx[i] = Qx[i] * ie + c;
       }
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) Qu[mi] = Qu[mi] * ie + (-Sik[mi]);
-#pragma unroll
+DDP_UNROLL
       for (int j = 0; j < N; ++j) {
-#pragma unroll
+DDP_UNROLL
         for (int mi = 0; mi < M; ++mi) {      // column j of Σ⁻¹·K
           float s = Si[mi][0] * pv.K(0, j);
-#pragma unroll
+DDP_UNROLL
           for (int mj = 1; mj < M; ++mj) s = s + Si[mi][mj] * pv.K(mj, j);
           SiK[mi][j] = s;
           Qux[mi][j] = Qux[mi][j] * ie + (-s);
@@ -781,14 +784,14 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       }
       by_role<G>(warp, [&](auto role) {          // this warp's rows of Qxx
         constexpr int Q = decltype(role)::q;
-#pragma unroll
+DDP_UNROLL
         for (int q = 0; q < ROWS; ++q) {
           const int i = Q + q * G;
           if (i < N) {
-#pragma unroll
+DDP_UNROLL
             for (int j = 0; j < N; ++j) {     // cxx_ij = Σ_mi K_mi,i·SiK_mi,j
               float c = pv.K(0, i) * SiK[0][j];
-#pragma unroll
+DDP_UNROLL
               for (int mi = 1; mi < M; ++mi) c = c + pv.K(mi, i) * SiK[mi][j];
               QxxR[q][j] = QxxR[q][j] * ie + c;
             }
@@ -796,15 +799,15 @@ backward_kernel(const float* __restrict__ traj, int s_in,
         }
       });
       float Qg[M][M];
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
+DDP_UNROLL
         for (int mj = 0; mj < M; ++mj)
           Qg[mi][mj] = Quu[mi][mj] * ie + Si[mi][mj];
       }
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
+DDP_UNROLL
         for (int mj = 0; mj < M; ++mj) {
           Quu[mi][mj] = 0.5f * (Qg[mi][mj] + Qg[mj][mi]);
           QuuF[mi][mj] = Quu[mi][mj];
@@ -812,30 +815,30 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       }
     } else if (reg_type == 2) {
       // regularised gain matrices (src/backward_pass.jl:119-123)
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
+DDP_UNROLL
         for (int j = 0; j < N; ++j) {
           float s = P.fu(dv, 0, mi) * P.fx(dv, 0, j);
-#pragma unroll
+DDP_UNROLL
           for (int a = 1; a < N; ++a) s = s + P.fu(dv, a, mi) * P.fx(dv, a, j);
           Qux_r[mi][j] = Qux[mi][j] + lm * s;
         }
-#pragma unroll
+DDP_UNROLL
         for (int mj = 0; mj < M; ++mj) {
           float s = P.fu(dv, 0, mi) * P.fu(dv, 0, mj);
-#pragma unroll
+DDP_UNROLL
           for (int a = 1; a < N; ++a)
             s = s + P.fu(dv, a, mi) * P.fu(dv, a, mj);
           QuuF[mi][mj] = Quu[mi][mj] + lm * s;
         }
       }
     } else {
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
+DDP_UNROLL
         for (int j = 0; j < N; ++j) Qux_r[mi][j] = Qux[mi][j];
-#pragma unroll
+DDP_UNROLL
         for (int mj = 0; mj < M; ++mj)
           QuuF[mi][mj] = Quu[mi][mj] + (mi == mj ? lm : 0.0f);
       }
@@ -848,15 +851,15 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       // unconstrained: the unrolled Cholesky solve
       float L[M][M], rhs[M], col[M];
       ok = tiny_chol<M>(QuuF, L);
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) rhs[mi] = -Qu[mi];
       tiny_chol_solve<M>(L, rhs, k);
-#pragma unroll
+DDP_UNROLL
       for (int j = 0; j < N; ++j) {
-#pragma unroll
+DDP_UNROLL
         for (int mi = 0; mi < M; ++mi) rhs[mi] = -Qux_r[mi][j];
         tiny_chol_solve<M>(L, rhs, col);
-#pragma unroll
+DDP_UNROLL
         for (int mi = 0; mi < M; ++mi) K[mi][j] = col[mi];
       }
     } else if constexpr (M == 1) {
@@ -871,7 +874,7 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       const float quu_s = guard(q);
       ok = q > 0.0f;
       k[0] = xq;
-#pragma unroll
+DDP_UNROLL
       for (int j = 0; j < N; ++j)
         K[0][j] = clamped ? 0.0f : -Qux_r[0][j] / quu_s;
     } else if constexpr (M == 2) {
@@ -884,7 +887,7 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       const float a = QuuF[0][0], bb = QuuF[0][1], c = QuuF[1][1];
       const float det_s = guard(a * c - bb * bb);
       const float a_s = guard(a), c_s = guard(c);
-#pragma unroll
+DDP_UNROLL
       for (int j = 0; j < N; ++j) {
         const float q0 = Qux_r[0][j], q1 = Qux_r[1][j];
         const float kb0 = (-q0 * c + q1 * bb) / det_s;
@@ -897,54 +900,54 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       // then K on its final free subspace, clamped rows 0
       float lo[M], hi[M], L[M][M], rhs[M], col[M];
       bool fr[M];
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) {
         lo[mi] = lim.lo[mi] - u[mi];
         hi[mi] = lim.hi[mi] - u[mi];
       }
       ok = boxqp_masked<M>(QuuF, Qu, lo, hi, kw, qp_iters, k, fr, L);
-#pragma unroll
+DDP_UNROLL
       for (int j = 0; j < N; ++j) {
-#pragma unroll
+DDP_UNROLL
         for (int mi = 0; mi < M; ++mi)
           rhs[mi] = fr[mi] ? -Qux_r[mi][j] : 0.0f;
         tiny_chol_solve<M>(L, rhs, col);
-#pragma unroll
+DDP_UNROLL
         for (int mi = 0; mi < M; ++mi) K[mi][j] = fr[mi] ? col[mi] : 0.0f;
       }
     }
     // a non-PD lane gets zero gains; V keeps updating
-#pragma unroll
+DDP_UNROLL
     for (int mi = 0; mi < M; ++mi) {
       k[mi] = ok ? k[mi] : 0.0f;
-#pragma unroll
+DDP_UNROLL
       for (int j = 0; j < N; ++j) K[mi][j] = ok ? K[mi][j] : 0.0f;
     }
     if constexpr (M > 2) {
-#pragma unroll
+DDP_UNROLL
       for (int mi = 0; mi < M; ++mi) kw[mi] = k[mi];
     }
 
 
     // value update with the unregularised terms (src/backward_pass.jl:63-72)
     float Quu_k[M], QuuK[M][N];
-#pragma unroll
+DDP_UNROLL
     for (int mi = 0; mi < M; ++mi) {
       float s = Quu[mi][0] * k[0];
-#pragma unroll
+DDP_UNROLL
       for (int mj = 1; mj < M; ++mj) s = s + Quu[mi][mj] * k[mj];
       Quu_k[mi] = s;
-#pragma unroll
+DDP_UNROLL
       for (int j = 0; j < N; ++j) {
         float rr = Quu[mi][0] * K[0][j];
-#pragma unroll
+DDP_UNROLL
         for (int mj = 1; mj < M; ++mj) rr = rr + Quu[mi][mj] * K[mj][j];
         QuuK[mi][j] = rr;
       }
     }
     {
       float s1 = k[0] * Qu[0], s2 = k[0] * Quu_k[0];
-#pragma unroll
+DDP_UNROLL
       for (int mi = 1; mi < M; ++mi) {
         s1 = s1 + k[mi] * Qu[mi];
         s2 = s2 + k[mi] * Quu_k[mi];
@@ -952,10 +955,10 @@ backward_kernel(const float* __restrict__ traj, int s_in,
       dv1 = dv1 + s1;
       dv2 = dv2 + 0.5f * s2;
     }
-#pragma unroll
+DDP_UNROLL
     for (int i = 0; i < N; ++i) {
       float s1 = K[0][i] * (Quu_k[0] + Qu[0]), s2 = Qux[0][i] * k[0];
-#pragma unroll
+DDP_UNROLL
       for (int mi = 1; mi < M; ++mi) {
         s1 = s1 + K[mi][i] * (Quu_k[mi] + Qu[mi]);
         s2 = s2 + Qux[mi][i] * k[mi];
@@ -965,15 +968,15 @@ backward_kernel(const float* __restrict__ traj, int s_in,
     // Vraw, this warp's rows, to the exchange; then Vxx = (Vraw + Vrawᵀ)/2
     by_role<G>(warp, [&](auto role) {
       constexpr int Q = decltype(role)::q;
-#pragma unroll
+DDP_UNROLL
       for (int q = 0; q < ROWS; ++q) {
         const int i = Q + q * G;
         if (i < N) {
-#pragma unroll
+DDP_UNROLL
           for (int j = 0; j < N; ++j) {
             float r1 = K[0][i] * QuuK[0][j], r2 = K[0][i] * Qux[0][j],
                   r3 = Qux[0][i] * K[0][j];
-#pragma unroll
+DDP_UNROLL
             for (int mi = 1; mi < M; ++mi) {
               r1 = r1 + K[mi][i] * QuuK[mi][j];
               r2 = r2 + K[mi][i] * Qux[mi][j];
@@ -989,11 +992,11 @@ backward_kernel(const float* __restrict__ traj, int s_in,
     rows_bar<G>();                 // Vraw is whole
     by_role<G>(warp, [&](auto role) {
       constexpr int Q = decltype(role)::q;
-#pragma unroll
+DDP_UNROLL
       for (int q = 0; q < ROWS; ++q) {
         const int i = Q + q * G;
         if (i < N) {
-#pragma unroll
+DDP_UNROLL
           for (int j = 0; j < N; ++j) {
             float vt;                 // Vraw[j][i]
             if constexpr (G == 1) vt = VrawR[j][q];
@@ -1015,23 +1018,23 @@ backward_kernel(const float* __restrict__ traj, int s_in,
     if (QUU) tiny_inv<M>(Quu, inv);
     by_role<G>(warp, [&](auto role) {
       constexpr int Q = decltype(role)::q;
-#pragma unroll
+DDP_UNROLL
       for (int s = Q; s < OV; s += G)
         put(t, s, s < M ? k[s] : K[(s - M) / N][(s - M) % N]);
       if (VALUE) {
-#pragma unroll
+DDP_UNROLL
         for (int i = Q; i < N; i += G) put(t, OV + i, Vx[i]);
-#pragma unroll
+DDP_UNROLL
         for (int q = 0; q < ROWS; ++q) {
           const int i = Q + q * G;
           if (i < N) {
-#pragma unroll
+DDP_UNROLL
             for (int j = 0; j < N; ++j) put(t, OV + N + i * N + j, VxxR[q][j]);
           }
         }
       }
       if (QUU) {
-#pragma unroll
+DDP_UNROLL
         for (int s = Q; s < 2 * M * M; s += G) {
           const int e = s % (M * M);
           put(t, OQ + s, s < M * M ? Quu[e / M][e % M] : inv[e / M][e % M]);
@@ -1055,7 +1058,7 @@ template <class Model, int EMIT, bool GPS>
 int launch_one(const BwdArgs& a) {
   constexpr int N = Model::N, M = Model::M;
   constexpr int F = k1_in_slots<Model>() + (GPS ? M + M * N + M * M + 1 : 0);
-  constexpr int G = K1_WARPS<N, EMIT, GPS>;
+  constexpr int G = K1_WARPS<N, M, EMIT, GPS>;
   const RingPlan& p = a.plan;
   if (Model::PACKED && a.s_in != k1_in_slots<Model>()) return ERR_ARGS;
   if (!plan_ok(p, a.B, RING_W * (G + 1), F,

@@ -19,9 +19,11 @@
 // reads it, the hand-written ones take it and ignore it. `d` is the
 // model's per-step Derivs: what the expansion at (x, u, t) holds beyond
 // constants.
-// Every loop over a model's dimensions is unrolled, so the accessors'
-// indices are compile-time constants. K2 and K3 read one compile-time flag
-// of a model:
+// Every loop over a model's dimensions is unrolled (DDP_UNROLL, below) in
+// the kernel library, so the accessors' indices are compile-time
+// constants; a library generated for m > 4 (DDP_ROLLED) rolls them,
+// and its accessors take run-time indices. K2 and K3 read one compile-time
+// flag of a model:
 //   HAS_DIFF: the feedback term's state difference is the model's
 //     diff(x, x_old, dx) (LanesModel.diff, e.g. angle wrapping) rather than
 //     x - x_old; false for every hand-written model, set by a lowered one
@@ -41,9 +43,33 @@
 
 namespace ddp {
 
-// controls the kernels are written for: the Lims arrays' size, and the
-// bound of every model's M (the launchers refuse a larger m)
-constexpr int MAX_M = 4;
+// controls a library is built for: the Lims arrays' size, and the bound of
+// every model's M (the launchers refuse a larger m). The kernel library
+// (csrc/*.cu) keeps 4, so that its instances' by-value Lims and registers
+// stay as they are; a library generated for a larger m (a lowered model's
+// or tiles' groups, the packed K1) defines DDP_MAX_M as its m before it
+// includes this header (ops/hopper/_build.py), up to plan.MAX_CONTROLS
+#ifndef DDP_MAX_M
+#define DDP_MAX_M 4
+#endif
+constexpr int MAX_M = DDP_MAX_M;
+
+// the loops over a model's dimensions (K1, K2, K3 and the autodiff
+// passes): unrolled in full, so that each index is a compile-time constant
+// and the arrays live in registers; rolled in a library generated for
+// m > 4 (DDP_ROLLED, set by ops/hopper/_build.py with DDP_MAX_M), whose
+// m×m and m×n arrays live in local memory anyway, so that nvcc's
+// time and memory stay bounded (fully unrolled, the <16,16> instances ran
+// a 96 GiB host out of memory). A rolled loop runs the same operations in
+// the same order.
+#ifndef DDP_ROLLED
+#define DDP_ROLLED 0
+#endif
+#if DDP_ROLLED
+#define DDP_UNROLL _Pragma("unroll 1")
+#else
+#define DDP_UNROLL _Pragma("unroll")
+#endif
 
 // error codes the launchers return for arguments they refuse (cudaError_t
 // values are >= 0)
@@ -77,14 +103,32 @@ template <int M>
 __device__ __forceinline__ Lims lane_lims(const Lims& lims,
                                           const float* __restrict__ lims_lanes,
                                           int b, size_t sB) {
+#if DDP_ROLLED
+  // rolled loops index the limits at run time: read them into a local copy
+  // one control at a time, the loop unrolled, so that no run-time index
+  // reaches the by-value kernel parameter (a rolled K3 that clamped with
+  // the copy of the parameter itself read wrong limits on an H100)
+  Lims l;
+#pragma unroll
+  for (int mi = 0; mi < M; ++mi) {
+    l.lo[mi] = lims_lanes == nullptr
+                   ? lims.lo[mi]
+                   : lims_lanes[(size_t)(2 * mi) * sB + b];
+    l.hi[mi] = lims_lanes == nullptr
+                   ? lims.hi[mi]
+                   : lims_lanes[(size_t)(2 * mi + 1) * sB + b];
+  }
+  return l;
+#else
   if (lims_lanes == nullptr) return lims;
   Lims l = lims;
-#pragma unroll
+DDP_UNROLL
   for (int mi = 0; mi < M; ++mi) {
     l.lo[mi] = lims_lanes[(size_t)(2 * mi) * sB + b];
     l.hi[mi] = lims_lanes[(size_t)(2 * mi + 1) * sB + b];
   }
   return l;
+#endif
 }
 
 // The model of scenario b: from the descriptor, and for a model with
@@ -98,7 +142,7 @@ __device__ __forceinline__ Model make_model(
     return Model(mc);
   } else {
     float par[Model::N_PARAMS];
-#pragma unroll
+DDP_UNROLL
     for (int p = 0; p < Model::N_PARAMS; ++p) par[p] = params[p * sB + b];
     return Model(mc, par);
   }
@@ -126,18 +170,18 @@ template <int MM>
 __device__ __forceinline__ bool tiny_chol(const float (&Q)[MM][MM],
                                           float (&L)[MM][MM]) {
   bool ok = true;
-#pragma unroll
+DDP_UNROLL
   for (int j = 0; j < MM; ++j) {
     float d = Q[j][j];
-#pragma unroll
+DDP_UNROLL
     for (int p = 0; p < j; ++p) d = d - L[j][p] * L[j][p];
     ok = ok && (d > 0.0f);
     const float Ljj = sqrtf(maxp(d, 1e-30f));
     L[j][j] = Ljj;
-#pragma unroll
+DDP_UNROLL
     for (int i = j + 1; i < MM; ++i) {
       float s = Q[i][j];
-#pragma unroll
+DDP_UNROLL
       for (int p = 0; p < j; ++p) s = s - L[i][p] * L[j][p];
       L[i][j] = s / Ljj;
     }
@@ -151,17 +195,17 @@ __device__ __forceinline__ void tiny_chol_solve(const float (&L)[MM][MM],
                                                 const float (&b)[MM],
                                                 float (&x)[MM]) {
   float y[MM];
-#pragma unroll
+DDP_UNROLL
   for (int i = 0; i < MM; ++i) {
     float s = b[i];
-#pragma unroll
+DDP_UNROLL
     for (int p = 0; p < i; ++p) s = s - L[i][p] * y[p];
     y[i] = s / L[i][i];
   }
-#pragma unroll
+DDP_UNROLL
   for (int i = MM - 1; i >= 0; --i) {
     float s = y[i];
-#pragma unroll
+DDP_UNROLL
     for (int p = i + 1; p < MM; ++p) s = s - L[p][i] * x[p];
     x[i] = s / L[i][i];
   }
@@ -173,13 +217,13 @@ __device__ __forceinline__ void tiny_inv(const float (&Q)[MM][MM],
                                          float (&inv)[MM][MM]) {
   float L[MM][MM];
   tiny_chol<MM>(Q, L);
-#pragma unroll
+DDP_UNROLL
   for (int j = 0; j < MM; ++j) {
     float e[MM], col[MM];
-#pragma unroll
+DDP_UNROLL
     for (int i = 0; i < MM; ++i) e[i] = i == j ? 1.0f : 0.0f;
     tiny_chol_solve<MM>(L, e, col);
-#pragma unroll
+DDP_UNROLL
     for (int i = 0; i < MM; ++i) inv[i][j] = col[i];
   }
 }

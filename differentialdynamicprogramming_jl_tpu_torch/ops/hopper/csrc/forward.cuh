@@ -240,13 +240,13 @@ __device__ __forceinline__ const float* step_row(const float* traj,
 template <class Model>
 __device__ __forceinline__ void ring_step(const float* r, StepIn<Model>& s) {
   constexpr int N = Model::N, M = Model::M;
-#pragma unroll
+DDP_UNROLL
   for (int i = 0; i < N; ++i) s.x_old[i] = r[i * RING_W];
-#pragma unroll
+DDP_UNROLL
   for (int mi = 0; mi < M; ++mi) {
     s.u_nom[mi] = r[(N + mi) * RING_W];
     s.k[mi] = r[(N + M + mi) * RING_W];
-#pragma unroll
+DDP_UNROLL
     for (int j = 0; j < N; ++j)
       s.K[mi][j] = r[(N + 2 * M + mi * N + j) * RING_W];
   }
@@ -265,13 +265,13 @@ __device__ __forceinline__ void rollout_step(
   if constexpr (Model::HAS_DIFF) {
     P.diff(x, s.x_old, dx);
   } else {
-#pragma unroll
+DDP_UNROLL
     for (int j = 0; j < N; ++j) dx[j] = x[j] - s.x_old[j];
   }
-#pragma unroll
+DDP_UNROLL
   for (int mi = 0; mi < M; ++mi) {
     float v = s.u_nom[mi] + alpha * s.k[mi];
-#pragma unroll
+DDP_UNROLL
     for (int j = 0; j < N; ++j) v = v + s.K[mi][j] * dx[j];
     u[mi] = clipp(v, lims.lo[mi], lims.hi[mi]);
   }
@@ -279,7 +279,7 @@ __device__ __forceinline__ void rollout_step(
   if (last) term = P.terminal(x);
   float xn[N];
   P.dynamics(x, u, t, xn);
-#pragma unroll
+DDP_UNROLL
   for (int i = 0; i < N; ++i) x[i] = xn[i];
   acc = acc + c;
   c_out = c;
@@ -371,7 +371,7 @@ forward_kernel(const float* __restrict__ traj, int s_traj,
   const Lims lm = lane_lims<M>(lims, lims_lanes, bl, sB);
   const float alpha = alphas[w * sB + bl];
   float x[N], acc = 0.0f, term = 0.0f;
-#pragma unroll
+DDP_UNROLL
   for (int i = 0; i < N; ++i) x[i] = x0[i * sB + bl];
 
   for (int c = 0; c < nc; ++c) {
@@ -386,14 +386,14 @@ forward_kernel(const float* __restrict__ traj, int s_traj,
       const bool put = EMIT && w == 0;
       float* o = ob + tt * SO * RING_W;
       if (put) {
-#pragma unroll
+DDP_UNROLL
         for (int i = 0; i < N; ++i) o[i * RING_W] = x[i];
       }
       float u[M], cst;
       rollout_step<Model>(P, x, acc, term, alpha, s, lm, t, t == T - 1, u,
                           cst);
       if (put) {
-#pragma unroll
+DDP_UNROLL
         for (int mi = 0; mi < M; ++mi) o[(N + mi) * RING_W] = u[mi];
         o[(N + M) * RING_W] = cst;
       }
@@ -459,7 +459,7 @@ __device__ __forceinline__ void linesearch_body(
   // pass 1: warp w rolls candidate cand = r·W + w of the ladder in round r
   int cand = w;
   float x[N], acc = 0.0f, term = 0.0f, alpha = ladder.a[w];
-#pragma unroll
+DDP_UNROLL
   for (int i = 0; i < N; ++i) x[i] = x0[i * sB + bl];
 
   for (int j = 0; j < stages - 1; ++j) issue(j);
@@ -472,7 +472,7 @@ __device__ __forceinline__ void linesearch_body(
       // the next round: this warp's next candidate, from x0
       cand += W;
       alpha = cand < A ? ladder.a[cand] : 0.0f;
-#pragma unroll
+DDP_UNROLL
       for (int i = 0; i < N; ++i) x[i] = x0[i * sB + bl];
       acc = 0.0f;
       term = 0.0f;
@@ -512,7 +512,7 @@ __device__ __forceinline__ void linesearch_body(
       }
       // pass 2: warp 0 re-rolls α_eff and writes the new [x, u, c] stream
       alpha = (found && allow > 0.5f) ? al_sel : 0.0f;
-#pragma unroll
+DDP_UNROLL
       for (int i = 0; i < N; ++i) x[i] = x0[i * sB + bl];
       acc = 0.0f;
       term = 0.0f;
@@ -527,14 +527,14 @@ __device__ __forceinline__ void linesearch_body(
         ring_step<Model>(st + tt * F * RING_W, s);
         float* o = out + (size_t)t * SO * sB + b;
         if (pass2 && live) {
-#pragma unroll
+DDP_UNROLL
           for (int i = 0; i < N; ++i) o[i * sB] = x[i];
         }
         float u[M], c;
         rollout_step<Model>(P, x, acc, term, alpha, s, lm, t, t == T - 1, u,
                             c);
         if (pass2 && live) {
-#pragma unroll
+DDP_UNROLL
           for (int mi = 0; mi < M; ++mi) o[(N + mi) * sB] = u[mi];
           o[(N + M) * sB] = c;
         }

@@ -7,7 +7,9 @@
 // [step][slot][32 columns] f32, so one slot row of a step is one 128-byte
 // line of the (T, S, B) stream and a warp reads it from shared memory
 // without bank conflicts. The ring has `stages` stages: while the block
-// computes on chunk c, chunks c+1 .. c+stages-1 are in flight.
+// computes on chunk c, chunks c+1 .. c+stages-1 are in flight. One stage
+// (K1 where two of one step do not fit a block: GPS mode at large n·m)
+// overlaps nothing: each chunk is copied after the last one is consumed.
 //
 // The copy route is cp.async (global → shared, asynchronous, tracked per
 // thread by commit and wait groups): 16-byte cp.async.cg where every row
@@ -45,7 +47,7 @@ inline long long ring_bytes(int stages, int tc, int F, int extra) {
 inline bool plan_ok(const RingPlan& p, int B, int threads, int F,
                     int extra) {
   return p.blocks == (B + RING_W - 1) / RING_W && p.threads == threads &&
-         p.tc >= 1 && p.stages >= 2 && p.stages <= MAX_STAGES &&
+         p.tc >= 1 && p.stages >= 1 && p.stages <= MAX_STAGES &&
          p.smem == ring_bytes(p.stages, p.tc, F, extra) &&
          p.smem <= MAX_SMEM;
 }

@@ -33,11 +33,14 @@ import numpy as np
 import torch
 
 from . import _build
-from .plan import MAX_A, forward_plan, k3_groups, linesearch_plan
+from .plan import (LIBRARY_MAX_M, MAX_A, check_controls, forward_plan,
+                   k3_groups, linesearch_plan)
 
-# controls the CUDA kernels are written for (csrc/common.cuh MAX_M): no
-# instance has more, and the launchers refuse a larger m
-MAX_M = 4
+# controls the kernel library is built for (csrc/common.cuh MAX_M,
+# plan.LIBRARY_MAX_M): no hand-written instance has more. A lowered model,
+# a user's tiles and the packed K1 take up to the ceiling
+# plan.MAX_CONTROLS, each from a library generated for its own m
+MAX_M = LIBRARY_MAX_M
 # (model id, n, m) of each model the CUDA kernels K2 and K3 are instantiated
 # for; K1's instances are listed in backward_kernel.CUDA_BACKWARD
 CUDA_MODELS = {(1, 4, 1): "pendcart (csrc/pendcart.cuh)",
@@ -247,18 +250,16 @@ def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
     descriptor) is lowered once the tensors are checked, and its library of
     instance group ``group`` (``_build.LOWERED_GROUPS``) is built at the
     first launch; so is that of ``tiles``, a user's lowered tiles
-    (:class:`~.lower.LoweredTiles`), where given. An m above ``MAX_M``
-    raises NotImplementedError before anything is built or launched. ``library``: for a
+    (:class:`~.lower.LoweredTiles`), where given. An m above the ceiling
+    ``plan.MAX_CONTROLS`` raises NotImplementedError before anything is
+    lowered, built or launched. ``library``: for a
     hand-written descriptor, a function that loads the library to launch in
     place of the kernel library (a generated one). A lowering, build or
     launch that fails raises."""
+    check_controls(m, what)
     per_lane = [t for t in (lims_lanes, params) if t is not None]
     src = (tiles if tiles is not None
            else model_source(model_device, lanes, what, n, m, models))
-    if not 1 <= m <= MAX_M:
-        raise NotImplementedError(
-            f"{what}: the CUDA kernels take 1 ≤ m ≤ MAX_M = {MAX_M} "
-            f"controls, not m={m}")
     if src is None and library is not None:
         dev, stream = launch_device(what, *tensors, *per_lane)
         lib = library()

@@ -46,7 +46,10 @@ this module does the same for the CUDA kernels:
   from comparisons (of f32 values, or of an integer such as t with an int)
   and logic on them, and a boolean made a float is 0 or 1. Each value is
   what PyTorch's CUDA kernel computes, and each derivative in K1 PyTorch's
-  forward-mode rule (``csrc/autodiff.cuh``), ties included.
+  forward-mode rule (``csrc/autodiff.cuh``), but for abs, the clamps,
+  maximum and minimum, which take JAX's rules, as the JAX package's
+  kernels and the plain versions (``ops/tie_rules.py``) do: |x|' is 1 at
+  ±0, a clamp's derivative ½ on its bound, a chooser's ½ each at a tie.
 
 What raises ``NotImplementedError`` here: an operation outside the op set
 (``diff`` also has :data:`REMAINDER`, since no kernel differentiates it), a

@@ -36,6 +36,15 @@ from typing import NamedTuple
 from .pack import DerivLayout
 
 RING_W = 32                # scenarios a block owns (csrc/ring.cuh)
+# controls: the kernel library (csrc/*.cu) is built for m ≤ LIBRARY_MAX_M
+# (csrc/common.cuh MAX_M); a library generated for a lowered model, a
+# user's tiles or the packed K1 at a larger m is built for its own m
+# (DDP_MAX_M), up to the ceiling MAX_CONTROLS, above which every CUDA entry
+# raises before anything is lowered or built. Such a library rolls its
+# loops over the model's dimensions (csrc/common.cuh DDP_ROLLED), its
+# per-scenario arrays in local memory: right, not fast.
+LIBRARY_MAX_M = 4
+MAX_CONTROLS = 16
 MAX_SMEM = 232_448         # shared memory a block may opt into on sm_90
 MAX_STAGES = 4
 TC_MAX = 32
@@ -113,6 +122,17 @@ class LaunchPlan(NamedTuple):
         return self[:5]
 
 
+def check_controls(m: int, what: str) -> None:
+    """Raise NotImplementedError for an m outside 1..MAX_CONTROLS, the
+    controls the CUDA kernels are built for."""
+    if not 1 <= m <= MAX_CONTROLS:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernels take 1 ≤ m ≤ plan.MAX_CONTROLS = "
+            f"{MAX_CONTROLS} controls, not m={m} (the kernel library is "
+            f"built for m ≤ {LIBRARY_MAX_M}, a generated library for its "
+            f"own m)")
+
+
 def k1_slots(n: int, m: int, gps: bool, packed: bool = False) -> int:
     """Ring slots of a K1 step: x, u, or with ``packed`` the D+m slots of
     the packed-derivatives stream; in GPS mode also the previous policy's
@@ -121,11 +141,11 @@ def k1_slots(n: int, m: int, gps: bool, packed: bool = False) -> int:
     return d_in + ((m + m * n + m * m + 1) if gps else 0)
 
 
-def k1_warps(n: int, emit: str, gps: bool) -> int:
+def k1_warps(n: int, emit: str, gps: bool, m: int = 1) -> int:
     """K1's compute warps (csrc/backward.cuh::K1_WARPS): four where n ≥ 8
     and a step holds n×n work beyond the recursion's own (``"full"``
-    emission's Vxx stores, GPS mode's KL terms), else one."""
-    return 4 if n >= 8 and (gps or emit == "full") else 1
+    emission's Vxx stores, GPS mode's KL terms) or m > 4, else one."""
+    return 4 if n >= 8 and (gps or emit == "full" or m > 4) else 1
 
 
 def k1_exchange(n: int, m: int) -> int:
@@ -167,11 +187,17 @@ def backward_plan(n: int, m: int, gps: bool, emit: str, T: int,
     """K1: k1_warps compute warps and a producer warp a block, the ring of
     its x,u (with ``packed``, D+m) and GPS slots, then the compute warps'
     exchange (none with one compute warp, which keeps W and Vraw in
-    registers)."""
-    G = k1_warps(n, emit, gps)
-    return _plan(k1_slots(n, m, gps, packed), T, B, RING_W * (G + 1),
-                 K1_PACKED_BUDGET if packed else K1_BUDGET,
-                 RING_W * k1_exchange(n, m) if G > 1 else 0)
+    registers). A ring of one stage where two of one step do not fit."""
+    G = k1_warps(n, emit, gps, m)
+    args = (k1_slots(n, m, gps, packed), T, B, RING_W * (G + 1),
+            K1_PACKED_BUDGET if packed else K1_BUDGET,
+            RING_W * k1_exchange(n, m) if G > 1 else 0)
+    try:
+        return _plan(*args)
+    except ValueError:
+        # two stages of one step do not fit beside the exchange (GPS mode
+        # at large n·m: 561 slots at ⟨16,16⟩): one stage
+        return _plan(*args, stages=1)
 
 
 def _check_A(A: int, most: int) -> None:

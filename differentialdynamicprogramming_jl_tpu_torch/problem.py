@@ -20,6 +20,7 @@ import torch
 from torch.func import grad, jacfwd, vmap
 
 from .device import as_tensor
+from .ops.tie_rules import jax_ties
 from .policy import Derivs
 
 
@@ -79,16 +80,22 @@ def make_autodiff_derivs(dynamics: Callable, cost: Callable,
     ``u_traj`` (..., T, m) and returns :class:`~.policy.Derivs` with leaves
     (..., T, ...); the step index t enters as a tensor.
 
+    The functions run under JAX's rules at ties
+    (:class:`~.ops.tie_rules.jax_ties`: abs, the clamps, maximum and
+    minimum), as JAX differentiates them.
+
     ``second_order=True`` adds full DDP's fxx (n, n, n) ``[a, i, j]``, fxu
     (n, n, m) and fuu (n, m, m), by ``jacfwd`` of the Jacobians."""
     # each step is evaluated as a batch of one, which the functions
     # broadcast over: on 0-dim tensors PyTorch's tangent formulas would
     # promote an f32 tangent times a Python constant to f64
     def dyn1(x, u, t):
-        return dynamics(x[None], u[None], t)[0]
+        with jax_ties():
+            return dynamics(x[None], u[None], t)[0]
 
     def cost1(x, u, t):
-        return cost(x[None], u[None], t)[0]
+        with jax_ties():
+            return cost(x[None], u[None], t)[0]
 
     fx_fn = jacfwd(dyn1, argnums=0)
     fu_fn = jacfwd(dyn1, argnums=1)

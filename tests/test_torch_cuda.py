@@ -394,8 +394,8 @@ def test_lti_other_sizes_raise_on_card(dev):
     """The hand-written LTI is built at ⟨10,2⟩ and ⟨10,3⟩; at another size
     the LTI's lane objects carry no descriptor, so K3, K1 (LoweredTiles)
     and K2 run the lowering, each bit-equal to its plain version; a
-    hand-written descriptor at another size, and m above MAX_M, raise
-    instead of running the plain version."""
+    hand-written descriptor at another size, and m above the ceiling
+    plan.MAX_CONTROLS, raise instead of running the plain version."""
     from differentialdynamicprogramming_jl_tpu_torch.models import linear
     spec = linear.random_lti(1, n=4, m=2, T=T, device=dev)
     model, tiles = linear.lti_lanes(spec), linear.lti_derivs_tiles(spec)
@@ -426,11 +426,11 @@ def test_lti_other_sizes_raise_on_card(dev):
                          device=linear.device_model(spec))
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
         fk.forward_lanes(k.traj, gains0, x0, al, model=hand, lims=LTI_LIMS)
-    spec5 = linear.random_lti(1, n=4, m=5, T=T, device=dev)
-    with pytest.raises(NotImplementedError, match="MAX_M"):
-        fk.forward_lanes(torch.zeros((T, 10, B), **f32),
-                         torch.zeros((T, 25, B), **f32), x0, al,
-                         model=linear.lti_lanes(spec5), lims=None)
+    spec17 = linear.random_lti(1, n=4, m=17, T=T, device=dev)
+    with pytest.raises(NotImplementedError, match="MAX_CONTROLS"):
+        fk.forward_lanes(torch.zeros((T, 22, B), **f32),
+                         torch.zeros((T, 85, B), **f32), x0, al,
+                         model=linear.lti_lanes(spec17), lims=None)
 
 
 def test_lti_solver_on_card_matches_cpu(dev):
@@ -1671,20 +1671,21 @@ def test_lti3_forward_and_linesearch_match_plain(dev, lims, B, T):
 
 
 def test_m_above_max_m_refused_on_card(dev):
-    """m = 5 > MAX_M: the instance tables refuse it before any launch, and
-    the C launchers return ERR_ARGS (-2) for it rather than drop the
-    controls past MAX_M; m = 4 at n = 10 (no instance) returns ERR_MODEL
-    (-1)."""
+    """m = 17 > plan.MAX_CONTROLS: the entries refuse it before anything is
+    lowered, built or launched. The kernel library is built for m ≤ MAX_M
+    = 4: its C launchers return ERR_ARGS (-2) for m = 5 rather than drop
+    the controls past MAX_M (a larger m runs from a library generated for
+    it); m = 4 at n = 10 (no instance) returns ERR_MODEL (-1)."""
     from differentialdynamicprogramming_jl_tpu_torch.models import linear
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
         _build, plan)
     Tc, Bc = 4, 8
-    spec = linear.random_lti(0, n=10, m=5, T=Tc, device=dev)
-    # no descriptor at <10,5>: the lowered tiles' launch refuses m first
-    with pytest.raises(NotImplementedError, match="MAX_M"):
-        bk.backward_lanes(torch.zeros((Tc, 16, Bc), device=dev),
-                          torch.ones(Bc, device=dev), n=10, m=5, reg_type=1,
-                          lims=((-1.0, 1.0),) * 5,
+    spec = linear.random_lti(0, n=10, m=17, T=Tc, device=dev)
+    # no descriptor at <10,17>: the tiles' launch refuses m before lowering
+    with pytest.raises(NotImplementedError, match="MAX_CONTROLS"):
+        bk.backward_lanes(torch.zeros((Tc, 28, Bc), device=dev),
+                          torch.ones(Bc, device=dev), n=10, m=17, reg_type=1,
+                          lims=((-1.0, 1.0),) * 17,
                           derivs_tiles=linear.lti_derivs_tiles(spec))
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -2394,3 +2395,251 @@ def test_packed_any_size_matches_plain(dev, n, m, emit):
             bk.backward_lanes(dp, lam, prev=prev, eta=torch.ones((T, B),
                                                                   **f32),
                               **dict(kw, reg_type=1, lims=None))
+
+
+# ---------------------------------------------------------------------------
+# many controls: libraries generated for their own m above the kernel
+# library's MAX_M (csrc/common.cuh DDP_MAX_M), up to plan.MAX_CONTROLS
+# ---------------------------------------------------------------------------
+
+def _controls():
+    import importlib
+    return importlib.import_module("tools_torch.controls")
+
+
+def _controls_models(n, m, dev):
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    spec = linear.random_lti(1, n=n, m=m, T=T, device=dev)
+    tiles = linear.lti_derivs_tiles(spec)
+    return (spec, linear.lti_lanes(spec), tiles,
+            _controls().so_tiles(bk.DerivsTiles, tiles, n, m))
+
+
+@pytest.fixture(scope="module")
+def controls_built():
+    """Every library of the many-controls tests, one nvcc each, all at
+    once: per size the LTI's lowered model (K2/K3) and its tiles' t1,
+    t1_gps and second-order t1_so groups, and the packed K1 at ⟨6,5⟩ and
+    ⟨10,8⟩; prints each build's seconds and ptxas lines."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    import chip_smoke
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        _build, lower)
+    jobs, labels = [], []
+    for n, m in _controls().SIZES:
+        _, model, tiles, so = _controls_models(n, m, dev)
+        lt = lower.lower_tiles(tiles, n, m).struct()
+        for struct, group in ((lower.lower(model).struct(True), "fwd"),
+                              (lt, "t1"), (lt, "t1_gps"),
+                              (lower.lower_tiles(so, n, m).struct(),
+                               "t1_so")):
+            jobs.append((_build.lowered_source(struct, group),
+                         _build.LOWERED_HEADERS, "lowered"))
+            labels.append(f"<{n},{m}> {group}")
+    for n, m in ((6, 5), (10, 8)):
+        jobs.append(_build.packed_job(n, m))
+        labels.append(f"packed <{n},{m}>")
+    for label, b in zip(labels, _build.build_generated(jobs, "controls")):
+        print(f"{label}: {b.seconds:.1f} s")
+        for line in chip_smoke.ptxas_summary(b.log):
+            print(f"  {line}")
+    return True
+
+
+@pytest.mark.parametrize("n, m", [(6, 5), (10, 8), (16, 16)])
+def test_many_controls_match_plain(dev, controls_built, n, m):
+    """An LTI at m > MAX_M without a descriptor: K3 (sweep, rollout), K1
+    LoweredTiles (gains, full and policy with a ±0.6 box; GPS full and
+    policy with per-step η; second-order tiles, gains and full) and K2 at
+    A = 6 and A = 11, each bit for bit its plain version on the card. The
+    horizon shrinks with the size (the plain K1 at <16,16> is ≈70k torch
+    operations a step); K1's ring turns over several chunks at each."""
+    _, model, tiles, so = _controls_models(n, m, dev)
+    T = {(6, 5): 40, (10, 8): 17, (16, 16): 9}[(n, m)]
+    x0, gains0 = _controls().lti_inputs(n, m, T, B, n + m, dev)
+    lims = ((-0.6, 0.6),) * m
+    f32 = dict(dtype=torch.float32, device=dev)
+    ladder = torch.tensor(ALPHAS, **f32)[:, None].expand(6, B).contiguous()
+    traj0 = torch.zeros((T, n + m + 1, B), **f32)
+    for al, emit in ((ladder, False), (torch.ones((1, B), **f32), True)):
+        n0 = fk.forward_lanes.launches
+        k = fk.forward_lanes(traj0, gains0, x0, al, model=model, lims=lims,
+                             emit_traj=emit)
+        assert fk.forward_lanes.launches == n0 + 1
+        p = fk.forward_lanes_ref(traj0, gains0, x0, al, model=model,
+                                 lims=lims, emit_traj=emit)
+        assert torch.equal(k.totals, p.totals) and torch.equal(k.terminal,
+                                                               p.terminal)
+    assert torch.equal(k.traj, p.traj)
+    traj = k.traj
+    lam = torch.logspace(-6, 2, B, device=dev)
+    import chip_smoke
+    prev, eta = chip_smoke.gps_inputs(np.random.default_rng(n * m), T, B,
+                                      n, m, dev)
+    cases = [dict(emit=e, derivs_tiles=tiles, reg_type=2, lims=lims)
+             for e in ("gains", "full", "policy")]
+    cases += [dict(emit=e, derivs_tiles=tiles, reg_type=1, lims=None,
+                   prev=prev, eta=eta) for e in ("full", "policy")]
+    cases += [dict(emit=e, derivs_tiles=so, reg_type=2, lims=lims)
+              for e in ("gains", "full")]
+    for case in cases:
+        n0 = bk.backward_lanes.launches
+        a = bk.backward_lanes(traj, lam, n=n, m=m, **case)
+        assert bk.backward_lanes.launches == n0 + 1
+        b = bk.backward_lanes_ref(traj, lam, n=n, m=m, **case)
+        what = (case["emit"], "prev" in case, case["derivs_tiles"] is so)
+        assert torch.equal(a.out, b.out), what
+        assert torch.equal(a.stats, b.stats), what
+    g = bk.backward_lanes(traj, lam, n=n, m=m, emit="gains",
+                          derivs_tiles=tiles, reg_type=2, lims=lims)
+    sel = torch.stack([g.stats[0], g.stats[1], k.totals[0],
+                       (torch.arange(B, device=dev) % 2).float()])
+    for alphas in (ALPHAS, default_alphas(0.2, -3.0, 11)):
+        n0 = fk.linesearch_lanes.launches
+        k2 = fk.linesearch_lanes(traj, g.out, x0, sel, model=model,
+                                 alphas=alphas, reduce_ratio_min=0.0,
+                                 lims=lims)
+        assert fk.linesearch_lanes.launches == n0 + 1
+        p2 = fk.linesearch_lanes_ref(traj, g.out, x0, sel, model=model,
+                                     alphas=alphas, reduce_ratio_min=0.0,
+                                     lims=lims)
+        assert torch.equal(k2.traj, p2.traj) and torch.equal(k2.ls, p2.ls)
+
+
+@pytest.mark.parametrize("n, m", [(6, 5), (10, 8)])
+def test_packed_many_controls_match_plain(dev, controls_built, n, m):
+    """Packed<6,5> and Packed<10,8> in gains and full emission, generated
+    for their own m, bit for bit the plain version."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    spec, model, _, _ = _controls_models(n, m, dev)
+    x0, gains0 = _controls().lti_inputs(n, m, T, B, n + m, dev)
+    lims = ((-0.6, 0.6),) * m
+    traj = fk.forward_lanes(torch.zeros((T, n + m + 1, B), device=dev),
+                            gains0, x0, torch.ones((1, B), device=dev),
+                            model=model, lims=lims, emit_traj=True).traj
+    dp = linear.lti_packed_derivs(spec)(traj[:, :n], traj[:, n:n + m])
+    lam = torch.logspace(-6, 2, B, device=dev)
+    for emit in ("gains", "full"):
+        kw = dict(n=n, m=m, reg_type=2, lims=lims, derivs_tiles=None,
+                  emit=emit)
+        n0 = bk.backward_lanes.launches
+        a = bk.backward_lanes(dp, lam, **kw)
+        assert bk.backward_lanes.launches == n0 + 1
+        b = bk.backward_lanes_ref(dp, lam, **kw)
+        assert torch.equal(a.out, b.out) and torch.equal(a.stats, b.stats)
+
+
+def test_many_controls_solvers_on_card(dev, controls_built):
+    """ilqg_batch_lanes, mpc_rollout_lanes and ilqgkl_batch_lanes (K4 at
+    n=6, K1's GPS policy at m=5) at ⟨6,5⟩ on CUDA tensors run the generated
+    libraries (their launch counters move; no plain version runs on the
+    card) and agree with the same calls on CPU tensors: costs to 1e-3
+    relative on every lane."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        mpc_rollout_lanes)
+    n, m, Bs, Ts = 6, 5, 16, 12
+    out = {}
+    for where in (dev, "cpu"):
+        spec = linear.random_lti(1, n=n, m=m, T=Ts, device=where)
+        model, tiles = linear.lti_lanes(spec), linear.lti_derivs_tiles(spec)
+        x0s = torch.ones((Bs, n), device=where) * torch.linspace(
+            0.5, 2.0, Bs, device=where)[:, None]
+        u0s = spec.u0.expand(Bs, Ts, m).contiguous()
+        lims = ((-0.6, 0.6),) * m
+        cfg = ILQGConfig(alphas=ALPHAS, reg_type=2, max_iter=4)
+        counts = [c.launches for c in (bk.backward_lanes,
+                                       fk.linesearch_lanes,
+                                       fk.forward_lanes)]
+        r = ilqg_batch_lanes(model, None, x0s, u0s, lims=lims, cfg=cfg,
+                             derivs_tiles=tiles)
+        x, u, xs, us, costs = mpc_rollout_lanes(
+            model, None, x0s, u0s,
+            lambda x_, u_: x_ @ spec.A.T + u_ @ spec.B.T, 2, lims=lims,
+            cfg=cfg, derivs_tiles=tiles)
+        f32 = dict(dtype=torch.float32, device=where)
+        ro = fk.forward_lanes(
+            torch.zeros((Ts, n + m + 1, Bs), **f32),
+            torch.cat([to_streams(u0s), torch.zeros((Ts, m * n, Bs), **f32)],
+                      dim=1), x0s.T.contiguous(), torch.ones((1, Bs), **f32),
+            model=model, lims=None, emit_traj=True)
+        eye = torch.eye(m, **f32).expand(Bs, Ts, m, m)
+        pol = GaussianPolicy(
+            K=torch.zeros((Bs, Ts, m, n), **f32),
+            k=from_streams(ro.traj[:, n:n + m], (m,)).contiguous(),
+            sigma=eye, sigma_inv=eye)
+        kl = ilqgkl_batch_lanes(
+            model, tiles, from_streams(ro.traj[:, :n], (n,)).contiguous(),
+            pol, spec.A.expand(Bs, Ts, n, n), ro.totals[0],
+            cfg=ILQGKLConfig(kl_step=100.0, max_iter=3))
+        moved = [c.launches > c0 for c, c0 in zip(
+            (bk.backward_lanes, fk.linesearch_lanes, fk.forward_lanes),
+            counts)]
+        assert all(moved) == (where != "cpu"), (where, moved)
+        out[str(where)] = (r.cost_total.cpu(), costs.cpu(),
+                           kl.cost_total.cpu())
+    for g, c in zip(out[str(dev)], out["cpu"]):
+        torch.testing.assert_close(g, c, rtol=1e-3, atol=0)
+
+
+def test_m_above_ceiling_refused_before_build(dev, monkeypatch):
+    """m = 17: K1, K2 and K3 on CUDA tensors raise naming the ceiling and
+    never reach a build or a lowering."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        _build, lower)
+
+    def refuse(*a, **k):
+        raise AssertionError("built or lowered")
+
+    for mod, name in ((_build, "build_generated"), (lower, "lower"),
+                      (lower, "lower_tiles")):
+        monkeypatch.setattr(mod, name, refuse)
+    n, m = 4, 17
+    spec = linear.random_lti(1, n=n, m=m, T=T, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    traj = torch.zeros((T, n + m + 1, B), **f32)
+    gains = torch.zeros((T, m + m * n, B), **f32)
+    x0 = torch.zeros((n, B), **f32)
+    lims = ((-1.0, 1.0),) * m
+    with pytest.raises(NotImplementedError, match="MAX_CONTROLS"):
+        bk.backward_lanes(traj, torch.ones(B, **f32), n=n, m=m, reg_type=2,
+                          lims=lims, derivs_tiles=linear.lti_derivs_tiles(
+                              spec))
+    with pytest.raises(NotImplementedError, match="MAX_CONTROLS"):
+        fk.forward_lanes(traj, gains, x0, torch.ones((1, B), **f32),
+                         model=linear.lti_lanes(spec), lims=lims)
+    with pytest.raises(NotImplementedError, match="MAX_CONTROLS"):
+        fk.linesearch_lanes(traj, gains, x0, torch.zeros((4, B), **f32),
+                            model=linear.lti_lanes(spec), alphas=ALPHAS,
+                            reduce_ratio_min=0.0, lims=lims)
+
+
+def test_tie_model_is_bit_equal_to_plain(dev):
+    """The tie model (tools_torch/ties.py: u clamped to ±5 in the dynamics,
+    0.1·|u| in the cost) at u on its ties: K1 Autodiff<Lowered> (Dual and
+    Jet passes, JAX's rules) bit for bit the plain autodiff tiles, which
+    JAX's rules give |u|' = 1 at 0 and the clamp ½ on its bound."""
+    import importlib
+    ties = importlib.import_module("tools_torch.ties")
+    model = ties.tie_lanes(torch, fk.LanesModel, tpc.pendcart_lanes(SPEC))
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        autodiff_tiles)
+    x0, gains0, al = _rollout(dev)
+    traj = fk.forward_lanes(torch.zeros((T, 5, B), device=dev), gains0, x0,
+                            al, model=model, lims=LIMS, emit_traj=True).traj
+    # put the controls on the ties: 0 and ±5 on alternate steps
+    u = traj[:, 4]
+    u[0::3] = 0.0
+    u[1::3] = ties.LIM
+    u[2::6] = -ties.LIM
+    lam = torch.logspace(-6, 2, B, device=dev)
+    tiles = autodiff_tiles.autodiff_derivs_tiles(model)
+    for emit in ("gains", "full"):
+        kw = dict(n=4, m=1, reg_type=2, lims=LIMS, derivs_tiles=tiles,
+                  emit=emit)
+        a = bk.backward_lanes(traj, lam, **kw)
+        b = bk.backward_lanes_ref(traj, lam, **kw)
+        assert torch.equal(a.out, b.out) and torch.equal(a.stats, b.stats)

@@ -10,8 +10,9 @@
   B=8, a ±0.05 box, reg_type 1 (as ``tests/test_pallas_kernels.py:
   224-252``), and in GPS mode at m=3 without limits;
 - K3 and K2 at n=4, m=3 against JAX's kernels in interpret mode;
-- the CUDA instance tables: m above ``MAX_M`` and unbuilt (n, m) refused
-  before any launch (on the meta device, which needs no card).
+- the CUDA instance tables: unbuilt (n, m) of a hand-written descriptor,
+  and any m above the ceiling ``plan.MAX_CONTROLS``, refused before any
+  launch (on the meta device, which needs no card).
 
 Inputs are made in numpy from seeded Generators and cast to f32; specs go
 through ``convert.lti_spec_from_jax``. One JAX call structure per shape.
@@ -350,15 +351,17 @@ def test_linesearch_m3_matches_jax():
 
 # ---- what the card refuses -----------------------------------------------
 
-@pytest.mark.parametrize("n,m", [(10, 5), (4, 3), (10, 4)])
+@pytest.mark.parametrize("n,m", [(10, 5), (4, 3), (10, 4), (4, 17)])
 def test_unbuilt_m_refused_before_launch(n, m):
     """On tensors off the CPU (the meta device, which needs no card) the
-    hand-written LTI's descriptor at an (n, m) with no CUDA instance, m
-    above MAX_M included, raises NotImplementedError from the instance
-    tables before the kernel library is touched; no table holds an m
-    above MAX_M. The LTI's own lane objects carry no descriptor at these
-    sizes (the card runs their lowering), and above MAX_M that route
-    raises too, before anything is built."""
+    hand-written LTI's descriptor at an (n, m) with no CUDA instance raises
+    NotImplementedError from the instance tables before the kernel library
+    is touched; no table holds an m above the kernel library's MAX_M. The
+    LTI's own lane objects carry no descriptor at these sizes (the card
+    runs their lowering, built for the model's own m), and above the
+    ceiling plan.MAX_CONTROLS both routes raise, naming it, before
+    anything is lowered or built."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
     import dataclasses
     spec = tl.random_lti(0, n=n, m=m, T=T, device="cpu")
     hand = tl.device_model(spec)
@@ -368,12 +371,14 @@ def test_unbuilt_m_refused_before_launch(n, m):
     tiles = tl.lti_derivs_tiles(spec)
     lanes = tl.lti_lanes(spec)
     assert tiles.device is None and lanes.device is None
+    above = m > plan.MAX_CONTROLS
     for how, dt, model in (
             ("no CUDA kernel", bk.DerivsTiles(fn=tiles.fn, device=hand),
              dataclasses.replace(lanes, device=hand)),
-            ("MAX_M", tiles, lanes)):
-        if how == "MAX_M" and m <= fk.MAX_M:
+            ("MAX_CONTROLS", tiles, lanes)):
+        if how == "MAX_CONTROLS" and not above:
             continue
+        how = "MAX_CONTROLS" if above else how
         with pytest.raises(NotImplementedError, match=how):
             bk.backward_lanes(traj, torch.zeros(B, **meta), n=n, m=m,
                               reg_type=1, lims=((-1.0, 1.0),) * m,
