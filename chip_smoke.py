@@ -19,7 +19,9 @@ ends the run with a non-zero exit and no result line:
 4. the iLQG main path: ``ilqg_batch_lanes`` on pendcart with the headline
    settings, with launch counts, cost statistics and ms per iteration, and
    the bit-exact α=0 retrace of rejected lanes;
-5. the same solve on 64 scenarios with CUDA tensors and with CPU tensors;
+5. the same solve on 64 scenarios with CUDA tensors; the CPU's solve runs
+   in an ``--early-cpu`` child from the build on (with phase 9's), and
+   phase 71 compares them;
 6. quadrotor kernels (n=6, m=2, thrust box (0, 5)): K3, K1
    Autodiff<Quadrotor> (derivatives by forward-mode autodiff in the kernel)
    and K2 against their plain versions, timed at B=4096, T=400; K1
@@ -30,8 +32,8 @@ ends the run with a non-zero exit and no result line:
    settings (``bench.py:215-254``: B=4096, T=400, 20-iteration budget),
    with launch counts, histograms, ms per iteration, peak memory, the
    thrust box and the bit-exact α=0 retrace;
-9. the quadrotor solve on 64 scenarios with CUDA tensors and with CPU
-   tensors;
+9. the quadrotor solve on 64 scenarios with CUDA tensors (the CPU's in
+   the ``--early-cpu`` child, compared in phase 71);
 10. KL kernels against their plain versions at B=4096, T=500 on a real
     pre-roll: K3 without limits, K4 (bit for bit, with its plan and
     registers), K1 in GPS mode with policy emission; K4 at n=6 on a seeded
@@ -273,11 +275,11 @@ ends the run with a non-zero exit and no result line:
     and <16,16>, B=4096, T=17, 5 and 3: K3 (sweep, rollout), K1
     LoweredTiles (gains, full, policy; GPS full, policy; second order
     gains, full) and K2 (A=6, 11), Packed<6,5> and <10,8>, each bit for
-    bit its plain version; m=17 refused before anything is lowered or
+    bit its plain version; m=33 refused before anything is lowered or
     built;
 64. the controls group, arm7: random_lti(0, n=14, m=7) cut to T=100,
     B=4096, ±0.6 (a 7-joint arm's shape): its kernels and K4 n=14 bit for
-    bit against their plain versions at T=9; the fleet with a budget of 20
+    bit against their plain versions at T=9; the fleet with a budget of 10
     iterations (ms/iteration, K1 launches, λ-retries, peak memory); KL on
     it (kl_step 100, scalar η, no limits); 64 lanes of each against the
     ``--controls-cpu`` child's solves at T=8;
@@ -288,7 +290,32 @@ ends the run with a non-zero exit and no result line:
     ties (counted), the rail's kernels still bit-equal; the headline fleet
     from u0 = 0 (B=4096, T=500, 20 iterations) against the child's 64
     lanes at T=8;
-66. the kernel record (one entry per kernel instance, with its bound; an
+66. the humanoid group, humanoid-build: K1's wide library (one for every
+    size, csrc/backward_wide.cuh) and the lowered K2/K3 of the humanoid's
+    LTI <54,21> and of the ceiling <64,32>, started after the quadrotor
+    phases with the group's CPU child (``--humanoid-cpu``), one nvcc each;
+67. the humanoid group, wide-kernels: the wide K1 at the smallest sizes
+    the plan gives it (<30,2> full; <28,8> gains, full, policy, GPS full
+    and policy), T=3, B=512, bit for bit its plain version on the card;
+    K3 and K2 at <54,21> (one ring stage) and at <64,32> (K read from
+    device memory), T=3; the wide K1 at <54,21> (gains, GPS policy) and at
+    <64,32> (gains), T=2, bit for bit the plain version in the CPU child;
+    n=65 refused before anything is lowered or built;
+68. the humanoid group, humanoid: random_lti(0, n=54, m=21, T=100) (the
+    DeepMind Control Suite humanoid's linearisation), B=512, ±0.6 on every
+    control, the LTI fleet's ILQGConfig with a budget of 10 iterations:
+    ms/iteration, K1 launches, λ-retries, peak memory, the stream's bytes;
+    the median cost below the initial rollout's; its kernels timed at the
+    path's shapes;
+69. the humanoid group, humanoid-kl: K4 n=54 bit for bit its plain
+    version; KL on the humanoid (kl_step 100, scalar η, no limits), the
+    wide K1 in GPS policy; kl_div_wiki_lanes timed and profiled;
+70. the humanoid group, humanoid-gpu-vs-cpu: 16 lanes at T=4 of the fleet
+    and of KL against the ``--humanoid-cpu`` child's plain solves;
+71. early-gpu-vs-cpu: phases 5 and 9's card solves against the
+    ``--early-cpu`` child's CPU solves (cost, reason and accepted count on
+    64 lanes);
+72. the kernel record (one entry per kernel instance, with its bound; an
     instance on no path with the launches of its check) and the result
     line.
 """
@@ -315,8 +342,10 @@ LIMS = ((-5.0, 5.0),)
 # elementwise sin/cos can differ in the last ulp, and 500 steps of the
 # pendulum amplify such an ulp. 1e-4 of the output's scale bounds that.
 KERNEL_TOL = 1e-4
-# the device time a cuda_ms timing may spend on its repeated runs (ms)
-CUDA_MS_BUDGET = 1000.0
+# the device time a cuda_ms timing may spend on its repeated runs (ms):
+# 1000 until the humanoid group came; 250 gave back ≈31 s of plain
+# versions' repeats (those of 250-1000 ms now timed by one run)
+CUDA_MS_BUDGET = 250.0
 # Quu⁻¹ (full emission): where Quu = cuu + fuᵀVxx·fu nearly cancels (the
 # latch check's concave R), Quu⁻¹ is large and amplifies an ulp of Quu's
 # terms; measured as ~1e-5 relative on the card at small shapes
@@ -443,8 +472,9 @@ M3_LIMS = ((-0.6, 0.6),) * M3_M
 M3_QP_ITERS = 8
 M3_T_CHECK = 17
 M3_T_FLEET = 100
-KERNEL_NAMES = ("backward_kernel", "linesearch_kernel", "forward_kernel",
-                "covariance_kernel", "probe_copy_kernel", "probe_ring_kernel")
+KERNEL_NAMES = ("backward_kernel", "backward_wide_kernel",
+                "linesearch_kernel", "forward_kernel", "covariance_kernel",
+                "probe_copy_kernel", "probe_ring_kernel")
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes and
 # float32 operations outside the tensor cores, per millisecond
 HBM_PER_MS = 3.35e12 / 1e3
@@ -1809,7 +1839,7 @@ def quad_kernel_inputs(dev, alphas):
         ladder=ladder.contiguous(), al1=al1, lam=lam), rng
 
 
-def quad_phases(ph, dev, rec, counters, ilqg) -> dict:
+def quad_phases(ph, dev, rec, counters, ilqg, early_gpu: dict) -> dict:
     """Phases 6-9: the quadrotor ⟨6,2⟩ kernels (K3, K1 Autodiff<Quadrotor>,
     K2) against their plain versions and K1 Autodiff<PendCart> against the
     analytic pendcart K1; the pendcart iLQG solve with autodiff tiles
@@ -2124,23 +2154,9 @@ def quad_phases(ph, dev, rec, counters, ilqg) -> dict:
              f"max_steps={ITERS}")
     x0c = x0s[:B_CPU]
     u0c = torch.full((B_CPU, QUAD_T_CPU, 2), spec.u_hover, device=dev)
-    g = solve(x0c, u0c)
-    t0 = time.perf_counter()
-    c = solve(x0c.cpu(), u0c.cpu())
-    print(f"  CPU quad solve (plain versions), T={QUAD_T_CPU}: "
-          f"{time.perf_counter() - t0:.1f} s; reasons {hist(c.reason)}")
-    gc, cc = g.cost_total.cpu(), c.cost_total
-    rel = (gc - cc).abs() / cc.abs()
-    close = (rel <= COST_RTOL).float().mean().item()
-    same_reason = (g.reason.cpu() == c.reason).float().mean().item()
-    same_acc = (g.n_accepted.cpu() == c.n_accepted).float().mean().item()
-    print(f"  cost_total rel diff: max {rel.max().item():.3e}, median "
-          f"{rel.median().item():.3e}")
-    print(f"  share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
-          f"reason {same_reason:.3f}, same accepted count {same_acc:.3f} "
-          f"(need {AGREE_SHARE} each)")
-    check(min(close, same_reason, same_acc) >= AGREE_SHARE,
-          "quad: GPU and CPU outcomes differ")
+    early_gpu["quad"] = solve(x0c, u0c)
+    print("  the card's solve; the CPU's, in the --early-cpu child, is "
+          "compared in early-gpu-vs-cpu")
     return {"ilqg_ad": launches_ad, "quad": launches}
 
 
@@ -7707,8 +7723,8 @@ def packed_check(rec, key: str, dp, lam, n: int, m: int, lims, Tp: int,
 # ---------------------------------------------------------------------------
 # the controls group: m above the kernel library's MAX_M = 4, each size
 # from libraries generated for its own m (csrc/common.cuh DDP_MAX_M), up
-# to the ceiling plan.MAX_CONTROLS = 16; and the tie model (JAX's
-# derivative rules at ties)
+# to m = 16 (the ceiling plan.MAX_CONTROLS is 32, checked in the humanoid
+# group); and the tie model (JAX's derivative rules at ties)
 # ---------------------------------------------------------------------------
 
 # the checks with no path: K1, K2 and K3 of random_lti(1) at each
@@ -7726,8 +7742,9 @@ CONTROLS_T_BY_SIZE = {(6, 5): 17, (10, 8): 5, (16, 16): 3}
 # on CPU tensors; cut from the LTI family's T=1000 to 100: K1 `gains` at
 # <14,7> took 394 ms a launch at T=500 (unrolled, four compute warps), and
 # the 20-iteration solve launched it 187 times (166 λ-retries of the
-# fleet), 70.8 s of a 98.2 s phase
-ARM_T, ARM_ITERS, ARM_T_CPU = 100, 20, 8
+# fleet), 70.8 s of a 98.2 s phase; its budget cut from 20 iterations to
+# 10 for the humanoid group (158 K1 launches of 230.55 ms at 20)
+ARM_T, ARM_ITERS, ARM_T_CPU = 100, 10, 8
 # the arm's kernels against their plain versions at ARM_T_PLAIN steps (its
 # plain K1 takes 22.7 s for 33 steps on the card; K1's ring has tc 1)
 ARM_T_PLAIN = 9
@@ -7997,36 +8014,6 @@ def many_kernels(rec, tag: str, c: dict, n: int, m: int, Tc: int, lam,
     return traj
 
 
-def refused_before_build(dev) -> str:
-    """m = 17 > plan.MAX_CONTROLS on CUDA tensors: K3's entry raises
-    NotImplementedError naming the ceiling before anything is lowered or
-    built. Returns the message."""
-    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
-        lti_lanes, random_lti)
-    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
-        _build, forward_kernel as fk, lower)
-    n, m = 4, 17
-    spec = random_lti(1, n=n, m=m, T=4, device=dev)
-    calls = []
-    saved = (_build.build_generated, lower.lower)
-    _build.build_generated = lambda *a, **k: calls.append("build")
-    lower.lower = lambda *a, **k: calls.append("lower")
-    try:
-        fk.forward_lanes(torch.zeros((4, n + m + 1, 8), device=dev),
-                         torch.zeros((4, m + m * n, 8), device=dev),
-                         torch.zeros((n, 8), device=dev),
-                         torch.ones((1, 8), device=dev),
-                         model=lti_lanes(spec), lims=None)
-        msg = ""
-    except NotImplementedError as e:
-        msg = str(e)
-    finally:
-        _build.build_generated, lower.lower = saved
-    check("MAX_CONTROLS = 16" in msg and not calls,
-          f"m=17 not refused before any build: {msg!r}, {calls}")
-    return msg
-
-
 def controls_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
     """The controls group: controls-build, controls-kernels, arm7 and
     ties. Returns the launches of its paths; adds ``controls`` (the
@@ -8073,7 +8060,7 @@ def controls_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
              f"{CONTROLS_T_BY_SIZE}: K3, K1 LoweredTiles (gains, "
              f"full, policy; GPS full, policy; second order gains, full) and "
              f"K2 (A=6, 11) bit for bit against their plain versions; "
-             f"Packed<6,5> and <10,8>; m=17 refused before any build")
+             f"Packed<6,5> and <10,8>; m=33 refused before any build")
     t_ph = time.perf_counter()
     for n, m in controls.SIZES:
         c = cm[(n, m)]
@@ -8096,8 +8083,8 @@ def controls_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
             del dp
         out["walls"][f"<{n},{m}>"] = time.perf_counter() - t_s
         del traj
-    out["refusal"] = refused_before_build(dev)
-    print(f"  m=17: {out['refusal']}")
+    out["refusal"] = refused_before_build(dev, 4, 33, "MAX_CONTROLS = 32")
+    print(f"  m=33: {out['refusal']}")
     out["walls"]["kernels"] = time.perf_counter() - t_ph
 
     # ---- arm7
@@ -8267,6 +8254,679 @@ def controls_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
     return paths
 
 
+# ---- the humanoid group (tools_torch/wide.py): K1's wide design, K2 and
+# K3 past their ring, and the humanoid's LTI through iLQG and KL
+# the path: random_lti(0, n=54, m=21, T=HUMANOID_T), ±0.6 on every control,
+# HUMANOID_B scenarios, the LTI fleet's ILQGConfig with a budget of
+# HUMANOID_ITERS iterations; KL on it at KL-LTI's settings. Its CPU child
+# solves HUMANOID_B_CPU lanes at HUMANOID_T_CPU with the plain versions
+HUMANOID_B, HUMANOID_T, HUMANOID_ITERS = 512, 100, 10
+HUMANOID_B_CPU, HUMANOID_T_CPU = 16, 4
+HUMANOID_LIMS = ((-0.6, 0.6),) * 21
+# the wide K1's checks against its plain version on the card (T, B), the
+# ⟨54,21⟩ and ceiling checks' (T, B), K2's and K3's (T, B)
+WIDE_T_PLAIN, WIDE_B = 3, 512
+WIDE_CPU_T, WIDE_CPU_B = 2, 8
+K23_T_PLAIN = 3
+
+
+def humanoid_models() -> dict:
+    """The group's models, none with a descriptor (lti_lanes,
+    lti_derivs_tiles): the humanoid (random_lti(0) at wide.HUMANOID, T =
+    HUMANOID_T), the ceiling's K2/K3 model (wide.sparse_lti at
+    wide.CEILING) and the wide K1's checks (random_lti(1) at each of
+    wide.CHECKS)."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        LTISpec, lti_derivs_tiles, lti_lanes, random_lti)
+    from tools_torch import wide
+    out = {}
+    for key, spec in (("humanoid", random_lti(0, n=wide.HUMANOID[0],
+                                              m=wide.HUMANOID[1],
+                                              T=HUMANOID_T, device="cpu")),
+                      ("ceiling", wide.sparse_lti(LTISpec, *wide.CEILING, 2,
+                                                  "cpu"))):
+        out[key] = dict(spec=spec, model=lti_lanes(spec),
+                        tiles=lti_derivs_tiles(spec))
+    for n, m in wide.CHECKS:
+        out[(n, m)] = lti_derivs_tiles(random_lti(1, n=n, m=m,
+                                                  T=WIDE_T_PLAIN,
+                                                  device="cpu"))
+    return out
+
+
+HUMANOID_LIBRARIES = ("wide K1", "humanoid <54,21> fwd",
+                      "ceiling <64,32> fwd")
+
+
+def humanoid_builds() -> dict:
+    """The group's libraries (the ``--humanoid-build`` child): K1's wide
+    library, and the lowered K2/K3 (fwd) of the humanoid and of the
+    ceiling's model, one nvcc each, all together. The lowering runs here
+    and not in a thread of the card's process: the humanoid's
+    8050-operation dynamics take seconds to trace, and a thread holding the
+    interpreter's lock slowed that process's host-bound phases (kl-kernels
+    94.4 s against 28.0). Its libraries land where the card's process
+    finds them; that process lowers the models again at their first
+    launch."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        _build, lower)
+    hm = humanoid_models()
+    t0 = time.perf_counter()
+    jobs = [_build.wide_job()] + [
+        (_build.lowered_source(lower.lower(hm[k]["model"]).struct(True),
+                               "fwd"), _build.LOWERED_HEADERS, "lowered")
+        for k in ("humanoid", "ceiling")]
+    lowering = time.perf_counter() - t0
+    builds = _build.build_generated(jobs, "the humanoid group")
+    return dict(lowering=lowering, wall=time.perf_counter() - t0,
+                builds=[dict(seconds=b.seconds, name=b.path.name,
+                             log=b.log) for b in builds])
+
+
+def wide_cpu_inputs(dev):
+    """The ⟨54,21⟩ and ceiling checks' K1 inputs (tools_torch/wide.py),
+    the same in this process and in the CPU child, by (n, m): (the
+    modes checked, the trajectory, λ, prev, η, random_lti(0)'s tiles).
+    ⟨54,21⟩ "gains" with ±0.6 and GPS "policy" (the humanoid's two paths),
+    the ceiling "gains" with ±0.6."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, random_lti)
+    from tools_torch import wide
+    out = {}
+    for nm, modes in ((wide.HUMANOID, ("gains", "gps policy")),
+                      (wide.CEILING, ("gains",))):
+        spec = random_lti(0, n=nm[0], m=nm[1], T=WIDE_CPU_T, device=dev)
+        out[nm] = (modes,) + wide.k1_inputs(*nm, WIDE_CPU_T, WIDE_CPU_B, 11,
+                                            dev) + (lti_derivs_tiles(spec),)
+    return out
+
+
+def wide_cpu_kw(mode: str, m: int, prev, eta) -> dict:
+    """backward_lanes' keywords of a check of wide_cpu_inputs."""
+    if mode == "gains":
+        return dict(reg_type=2, lims=((-0.6, 0.6),) * m, emit="gains")
+    return dict(reg_type=1, lims=None, prev=prev, eta=eta, emit="policy")
+
+
+def early_cpu_solves() -> dict:
+    """The plain solves that phases 5 and 9's card solves are compared
+    with at the end of the run (the ``--early-cpu`` child, started with the
+    build): ``"ilqg"``, the headline fleet on B_CPU lanes (T, ITERS
+    iterations), and ``"quad"``, the quadrotor fleet on B_CPU lanes at
+    QUAD_T_CPU, on CPU tensors, from the inputs the card's solves take."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles, pendcart_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec, quadrotor_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    torch.set_num_threads(1)
+    cfg = headline_cfg()
+    spec = PendCartSpec()
+    qspec = QuadrotorSpec()
+    qmodel = quadrotor_lanes(qspec)
+    x0q = torch.tensor(quad_x0(np.random.default_rng(11)),
+                       dtype=torch.float32)[:B_CPU]
+    runs = {
+        "ilqg": lambda: ilqg_batch_lanes(
+            pendcart_lanes(spec), None,
+            torch.tensor(headline_x0()[:B_CPU], dtype=torch.float32),
+            torch.zeros((B_CPU, T, 1)), lims=LIMS, cfg=cfg,
+            derivs_tiles=pendcart_derivs_tiles(spec), max_steps=ITERS),
+        "quad": lambda: ilqg_batch_lanes(
+            qmodel, None, x0q, torch.full((B_CPU, QUAD_T_CPU, 2),
+                                          qspec.u_hover),
+            lims=qspec.lims, cfg=cfg,
+            derivs_tiles=autodiff_derivs_tiles(qmodel), max_steps=ITERS)}
+    out = {}
+    for label, run in runs.items():
+        t0 = time.perf_counter()
+        r = run()
+        out[label] = {f: getattr(r, f).tolist() for f in (
+            "cost_total", "reason", "n_accepted")}
+        out[label]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def early_gpu_vs_cpu(ph, cpu_proc, gpu: dict) -> None:
+    """Phases 5 and 9's comparison, made at the end of the run: the card's
+    solves ``gpu`` (label: result) against the ``--early-cpu`` child's,
+    which ran beside the phases at its low priority; the share of lanes
+    with the cost within COST_RTOL, the same reason and the same accepted
+    count must each reach AGREE_SHARE."""
+    ph.start("early-gpu-vs-cpu", f"the first {B_CPU} scenarios of the iLQG "
+             f"(T={T}) and quadrotor (T={QUAD_T_CPU}) paths, {ITERS} "
+             f"iterations: the card's solves of phases 5 and 9 against the "
+             f"--early-cpu child's")
+    cpu = child_solves(cpu_proc)
+    for label, g in gpu.items():
+        c = early_outcomes(cpu[label])
+        gc, cc = g.cost_total.cpu(), c.cost_total
+        rel = (gc - cc).abs() / cc.abs()
+        same_acc = g.n_accepted.cpu() == c.n_accepted
+        shares = ((rel <= COST_RTOL).float().mean().item(),
+                  (g.reason.cpu() == c.reason).float().mean().item(),
+                  same_acc.float().mean().item())
+        print(f"  {label}: CPU solve (plain versions) "
+              f"{cpu[label]['seconds']:.1f} s in the child; reasons "
+              f"{hist(c.reason)}; cost_total rel diff max "
+              f"{rel.max().item():.3e}, max on lanes with equal accepted "
+              f"counts {rel[same_acc].max().item():.3e}, median "
+              f"{rel.median().item():.3e}; share of lanes: cost within "
+              f"{COST_RTOL:.0e} {shares[0]:.3f}, same reason "
+              f"{shares[1]:.3f}, same accepted count {shares[2]:.3f} (need "
+              f"{AGREE_SHARE} each)")
+        check(min(shares) >= AGREE_SHARE,
+              f"{label}: GPU and CPU outcomes differ")
+
+
+def early_outcomes(cpu: dict):
+    """A child's outcomes as the tensors a CPU solve returns."""
+    from types import SimpleNamespace
+    return SimpleNamespace(
+        cost_total=torch.tensor(cpu["cost_total"], dtype=torch.float32),
+        reason=torch.tensor(cpu["reason"], dtype=torch.int32),
+        n_accepted=torch.tensor(cpu["n_accepted"], dtype=torch.int32))
+
+
+def humanoid_cpu_solves() -> dict:
+    """The group's plain versions on the host (the ``--humanoid-cpu``
+    child): K1 at ⟨54,21⟩ and at the ceiling on wide_cpu_inputs
+    ("gains", ±0.6), and the humanoid fleet and KL on HUMANOID_B_CPU lanes
+    at HUMANOID_T_CPU. Two host threads."""
+    torch.set_num_threads(2)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+    out = {}
+    for (n, m), (modes, traj, lam, prev, eta, tiles) in wide_cpu_inputs(
+            "cpu").items():
+        for mode in modes:
+            t0 = time.perf_counter()
+            r = bk.backward_lanes_ref(traj, lam, n=n, m=m, derivs_tiles=tiles,
+                                      **wide_cpu_kw(mode, m, prev, eta))
+            out[f"k1 <{n},{m}> {mode}"] = dict(
+                out=r.out.tolist(), stats=r.stats.tolist(),
+                seconds=time.perf_counter() - t0)
+    h = humanoid_models()["humanoid"]
+    xc, uc = lti_fleet_inputs(h["spec"], "cpu", HUMANOID_B_CPU,
+                              HUMANOID_T_CPU)
+    runs = {
+        "humanoid": lambda: ilqg_batch_lanes(
+            h["model"], None, xc, uc, lims=HUMANOID_LIMS, cfg=lti_cfg(),
+            derivs_tiles=h["tiles"], max_steps=HUMANOID_ITERS),
+        "humanoid KL": lambda: ilqgkl_batch_lanes(
+            h["model"], h["tiles"],
+            *lti_fleet_kl_inputs(h["model"], h["spec"], xc, uc),
+            cfg=ILQGKLConfig(kl_step=KL_LTI_STEP))}
+    for label, run in runs.items():
+        t0 = time.perf_counter()
+        r = run()
+        out[label] = {f: getattr(r, f).tolist() for f in (
+            ("cost_total", "satisfied", "n_iters") if "KL" in label
+            else ("cost_total", "reason", "n_accepted"))}
+        out[label]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def refused_before_build(dev, n: int, m: int, what: str) -> str:
+    """An (n, m) above a ceiling on CUDA tensors: K1's, K3's and K2's
+    entries raise NotImplementedError naming it (``what``) before anything
+    is lowered or built. Returns K3's message."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        _build, backward_kernel as bk, forward_kernel as fk, lower)
+    spec = random_lti(1, n=n, m=m, T=4, device=dev)
+    calls, msgs = [], []
+    saved = (_build.build_generated, lower.lower, lower.lower_tiles)
+    _build.build_generated = lambda *a, **k: calls.append("build")
+    lower.lower = lambda *a, **k: calls.append("lower")
+    lower.lower_tiles = lambda *a, **k: calls.append("lower")
+    f32 = dict(dtype=torch.float32, device=dev)
+    traj = torch.zeros((4, n + m + 1, 8), **f32)
+    gains = torch.zeros((4, m + m * n, 8), **f32)
+    x0 = torch.zeros((n, 8), **f32)
+    entries = (
+        lambda: fk.forward_lanes(traj, gains, x0, torch.ones((1, 8), **f32),
+                                 model=lti_lanes(spec), lims=None),
+        lambda: fk.linesearch_lanes(traj, gains, x0,
+                                    torch.zeros((4, 8), **f32),
+                                    model=lti_lanes(spec), alphas=(1.0,)),
+        lambda: bk.backward_lanes(traj, torch.ones(8, **f32), n=n, m=m,
+                                  derivs_tiles=lti_derivs_tiles(spec)))
+    try:
+        for entry in entries:
+            try:
+                entry()
+                msgs.append("")
+            except NotImplementedError as e:
+                msgs.append(str(e))
+    finally:
+        _build.build_generated, lower.lower, lower.lower_tiles = saved
+    check(all(what in msg for msg in msgs) and not calls,
+          f"<{n},{m}> not refused before any build: {msgs}, {calls}")
+    return msgs[0]
+
+
+def humanoid_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
+    """The humanoid group: humanoid-build, wide-kernels (the wide K1 at
+    the smallest sizes it takes and at the ceiling, K2/K3 past their ring,
+    the refusals above the ceilings), humanoid (iLQG), humanoid-kl and
+    humanoid-gpu-vs-cpu. Returns the launches of its paths; adds
+    ``humanoid`` (the group's seconds, builds and outcomes) to ``rec``."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk, forward_kernel as fk, plan)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        to_streams)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes, kl_div_wiki_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        default_alphas)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+    from tools_torch import wide
+
+    t_group = time.perf_counter()
+    hm, build_proc = builds
+    out = dict(walls={})
+    ph.start("humanoid-build", "the humanoid group's libraries (the wide "
+             "K1, the lowered K2/K3 at <54,21> and <64,32>), one nvcc "
+             "each, built by the --humanoid-build child started after the "
+             "quadrotor phases")
+    box = child_solves(build_proc)
+    lb = {}
+    for label, b in zip(HUMANOID_LIBRARIES, box["builds"]):
+        lines = ptxas_summary(b["log"])
+        print(f"  {label}: {b['seconds']:.1f} s -> {b['name']}")
+        for line in lines:
+            print(f"    {line}")
+        lb[label] = dict(seconds=b["seconds"], ptxas=lines)
+    out["builds"] = dict(libraries=lb, wall=box["wall"],
+                         lowering=box["lowering"])
+    print(f"  the lowering of both models in the child: "
+          f"{box['lowering']:.1f} s")
+    paths = {}
+    k1c = (bk.backward_lanes,)
+
+    # ---- wide-kernels
+    ph.start("wide-kernels", f"K1's wide design against its plain version "
+             f"on the card at {dict(wide.CHECKS)} (T={WIDE_T_PLAIN}, "
+             f"B={WIDE_B}); K3 and K2 at <54,21> (one ring stage) and at "
+             f"the ceiling {wide.CEILING} (K read from device memory), "
+             f"T={K23_T_PLAIN}; the wide K1 at the ceiling; n=65 and m=33 "
+             f"refused before any build")
+    t_ph = time.perf_counter()
+    for (n, m), modes in wide.CHECKS.items():
+        tiles = hm[(n, m)]
+        traj, lam, prev, eta = wide.k1_inputs(n, m, WIDE_T_PLAIN, WIDE_B, 7,
+                                              dev)
+        for gps in sorted({g for g, _ in modes}):
+            emits = [e for g, e in modes if g == gps]
+            kw = dict(n=n, m=m, derivs_tiles=tiles,
+                      reg_type=1 if gps else 2,
+                      lims=None if gps else ((-wide.BOX, wide.BOX),) * m)
+            if gps:
+                kw.update(prev=prev, eta=eta)
+            e1, launches = [], 0
+            for emit in emits:
+                check(plan.backward_plan(n, m, gps, emit, WIDE_T_PLAIN,
+                                         WIDE_B).tc == 0,
+                      f"<{n},{m}> {emit}: not the wide design")
+                a, l1 = counted(k1c, lambda: bk.backward_lanes(
+                    traj, lam, emit=emit, **kw))
+                launches += l1["backward_lanes"]
+                b = bk.backward_lanes_ref(traj, lam, emit=emit, **kw)
+                e1.append(bits_or_fail(
+                    f"K1 wide <{n},{m}>{' GPS' if gps else ''} {emit}",
+                    {"out": (a.out, b.out), "stats": (a.stats, b.stats)}))
+            key = f"k1_wide_{n}_{m}{'_gps' if gps else ''}"
+            # the kernel's time on the stream the tiles make, made once
+            dp = bk._wide_stream(tiles, traj, n, m, None)
+            kdp = dict(kw, derivs_tiles=None)
+            rec[key] = dict(
+                max_abs_err=max(e1),
+                ms=cuda_ms(lambda: bk.backward_lanes(dp, lam, emit=emits[0],
+                                                     **kdp), 10),
+                plain_ms=plain_once_ms(lambda: bk.backward_lanes_ref(
+                    traj, lam, emit=emits[0], **kw)),
+                plain_T=WIDE_T_PLAIN, library_ms=None,
+                phase_launches=launches,
+                **k1_work(_sized(n, m), WIDE_T_PLAIN, WIDE_B, emits[0],
+                          kw["reg_type"], kw["lims"], gps=gps, packed=True))
+            print(f"  {key} at T={WIDE_T_PLAIN}, B={WIDE_B} "
+                  f"({', '.join(emits)}): {rec[key]['ms']:.4f} ms (bound "
+                  f"{rec[key]['bound_ms']:.4f}, {rec[key]['bound_by']}); "
+                  f"plain once {rec[key]['plain_ms']:.1f} ms; "
+                  f"{plan_text(plan.backward_plan(n, m, gps, emits[0], WIDE_T_PLAIN, WIDE_B))}")
+            del dp
+        del traj, prev, eta
+    for key, (n, m) in (("humanoid", wide.HUMANOID),
+                        ("ceiling", wide.CEILING)):
+        h = hm[key]
+        model = h["model"]
+        traj, gains, x0, sel = wide.k23_inputs(n, m, K23_T_PLAIN, WIDE_B, 3,
+                                               dev)
+        lims = ((-wide.BOX, wide.BOX),) * m
+        A6 = lti_cfg().alphas
+        ladder = torch.tensor(A6, device=dev)[:, None].expand(
+            len(A6), WIDE_B).contiguous()
+        al1 = torch.ones((1, WIDE_B), device=dev)
+
+        def fwd(al, emit, plain=False):
+            f = fk.forward_lanes_ref if plain else fk.forward_lanes
+            return f(traj, gains, x0, al, model=model, lims=lims,
+                     emit_traj=emit)
+
+        (k, p), l3 = counted(counters, lambda: (fwd(ladder, False),
+                                                fwd(ladder, False, True)))
+        e3 = bits_or_fail(f"K3 {key} <{n},{m}> sweep", {
+            "totals": (k.totals, p.totals), "terminal": (k.terminal,
+                                                         p.terminal)})
+        (k, p), l3r = counted(counters, lambda: (fwd(al1, True),
+                                                 fwd(al1, True, True)))
+        e3 = max(e3, bits_or_fail(f"K3 {key} <{n},{m}> rollout", {
+            "traj": (k.traj, p.traj), "totals": (k.totals, p.totals)}))
+        e2, l2 = 0.0, 0
+        for alphas in (A6, default_alphas(0.2, -3.0, 11)):
+            def ls(plain=False):
+                f = fk.linesearch_lanes_ref if plain else fk.linesearch_lanes
+                return f(traj, gains, x0, sel, model=model, alphas=alphas,
+                         reduce_ratio_min=0.0, lims=lims)
+
+            (a, b), l2a = counted(counters, lambda: (ls(), ls(True)))
+            l2 += l2a["linesearch_lanes"]
+            e2 = max(e2, bits_or_fail(f"K2 {key} <{n},{m}> A={len(alphas)}",
+                                      {"traj": (a.traj, b.traj),
+                                       "ls": (a.ls, b.ls)}))
+        print(f"  K2/K3 {key} <{n},{m}>: plans "
+              f"{plan_text(plan.linesearch_plan(n, m, 6, K23_T_PLAIN, WIDE_B))}"
+              f" (K2 A=6); "
+              f"{plan_text(plan.forward_plan(n, m, 1, K23_T_PLAIN, WIDE_B, True))}"
+              f" (K3 rollout); direct K {plan.k23_direct(n, m)}")
+        out[f"k23_{key}_checks"] = dict(k3_err=e3, k2_err=e2)
+        rec[f"_k3_{key}_check"] = dict(
+            max_abs_err=e3, phase_launches=l3["forward_lanes"]
+            + l3r["forward_lanes"],
+            plain_ms=plain_once_ms(lambda: fwd(ladder, False, True)),
+            plain_T=K23_T_PLAIN)
+        rec[f"_k2_{key}_check"] = dict(
+            max_abs_err=e2, phase_launches=l2,
+            plain_ms=plain_once_ms(lambda: ls(True)), plain_T=K23_T_PLAIN)
+        if key == "ceiling":
+            for kk, w, fn in (
+                    ("k3_ceiling", k3_work(model, K23_T_PLAIN, WIDE_B, 6,
+                                           False),
+                     lambda: fwd(ladder, False)),
+                    ("k2_ceiling", k2_work(model, K23_T_PLAIN, WIDE_B, 11),
+                     ls)):
+                src = rec.pop(f"_{kk}_check")
+                rec[kk] = dict(src, ms=cuda_ms(fn, 10), library_ms=None,
+                               **w)
+        del traj, gains, x0, sel
+    # the wide K1 at the humanoid's size and at the ceiling against the
+    # plain version in the CPU child, on the same seeded inputs
+    cpu = child_solves(cpu_proc)
+    for (n, m), (modes, traj, lam, prev, eta, tiles) in wide_cpu_inputs(
+            dev).items():
+        for mode in modes:
+            kw = dict(n=n, m=m, derivs_tiles=tiles,
+                      **wide_cpu_kw(mode, m, prev, eta))
+            a, l1 = counted(k1c, lambda: bk.backward_lanes(traj, lam, **kw))
+            c = cpu[f"k1 <{n},{m}> {mode}"]
+            co = torch.tensor(c["out"], dtype=torch.float32)
+            cst = torch.tensor(c["stats"], dtype=torch.float32)
+            d = max(err(a.out.cpu(), co)[0], err(a.stats.cpu(), cst)[0])
+            same = (torch.equal(a.out.cpu(), co)
+                    and torch.equal(a.stats.cpu(), cst))
+            what = f"K1 wide <{n},{m}> {mode} against the CPU plain"
+            BITS[what] = same
+            print(f"  {what} (T={WIDE_CPU_T}, B={WIDE_CPU_B}; "
+                  f"{c['seconds']:.1f} s there): bit-equal {same}, largest "
+                  f"difference {d:.3g} (stated bound: 0, the LTI has no "
+                  f"transcendental functions)")
+            check(same, f"{what}: not bit-equal")
+            out[f"k1 <{n},{m}> {mode} cpu"] = dict(err=d,
+                                                   seconds=c["seconds"])
+            if (n, m) == wide.CEILING:
+                dp = bk._wide_stream(tiles, traj, n, m, None)
+                kdp = dict(kw, derivs_tiles=None)
+                rec["k1_wide_ceiling"] = dict(
+                    max_abs_err=d, phase_launches=l1["backward_lanes"],
+                    ms=cuda_ms(lambda: bk.backward_lanes(dp, lam, **kdp),
+                               10),
+                    plain_ms=c["seconds"] * 1e3, plain_T=WIDE_CPU_T,
+                    plain_where="the CPU child", library_ms=None,
+                    **k1_work(_sized(n, m), WIDE_CPU_T, WIDE_CPU_B, "gains",
+                              2, kw["lims"], packed=True))
+        del traj, lam, prev, eta
+    out["refusal"] = refused_before_build(dev, 65, 2, "MAX_STATES = 64")
+    print(f"  n=65: {out['refusal']}")
+    out["walls"]["wide-kernels"] = time.perf_counter() - t_ph
+
+    # ---- humanoid: iLQG
+    n, m = wide.HUMANOID
+    h = hm["humanoid"]
+    spec = h["spec"]._replace(**{k: getattr(h["spec"], k).to(dev)
+                                 for k in h["spec"]._fields})
+    model, tiles = h["model"], h["tiles"]
+    hcfg = lti_cfg()
+    Bh, Th = HUMANOID_B, HUMANOID_T
+    ph.start("humanoid", f"random_lti(0, n={n}, m={m}, T={Th}) (the DeepMind "
+             f"Control Suite humanoid's linearisation) through lti_lanes and "
+             f"lti_derivs_tiles (no descriptor: the wide K1 on the stream "
+             f"the tiles make, lowered K2/K3 with one ring stage), B={Bh}, "
+             f"±0.6 on every control, reg_type 2, the LTI fleet's "
+             f"ILQGConfig with a budget of {HUMANOID_ITERS} iterations")
+    t_ph = time.perf_counter()
+    check(model.device is None and tiles.device is None,
+          "humanoid: the LTI's lane objects carry a descriptor")
+    x0s, u0s = lti_fleet_inputs(spec, dev, Bh, Th)
+
+    def hsolve(x0=x0s, u0=u0s, trace=False):
+        return ilqg_batch_lanes(model, None, x0, u0, lims=HUMANOID_LIMS,
+                                cfg=hcfg, derivs_tiles=tiles,
+                                max_steps=HUMANOID_ITERS, record_trace=trace)
+
+    w0 = bk.backward_lanes.wide_launches
+    r, rr = once_run(lambda: hsolve(trace=True), counters)
+    wide_k1 = bk.backward_lanes.wide_launches - w0
+    iters = int(r.n_iters.max())
+    k1 = rr["launches"]["backward_lanes"]
+    init = r.trace.cost[:, 0]
+    stream_bytes = 4 * Th * Bh * (bk.InLayout(n, m).DU)
+    print(f"  fleet: launches {rr['launches']} (the wide K1 {wide_k1}); "
+          f"solve {rr['ms']:.3f} ms, {rr['ms'] / max(iters, 1):.3f} "
+          f"ms/iteration over {iters}; K1 {k1} launches ({k1 - 1 - iters} "
+          f"λ-retries of the fleet); reasons {hist(r.reason)}; peak "
+          f"{rr['peak_bytes'] / 2**30:.3f} GiB; the derivative stream "
+          f"{stream_bytes / 1e9:.3f} GB a K1 launch; {rr['syncs']} host "
+          f"syncs; cost median {r.cost_total.median().item():.6g} against "
+          f"the initial rollout's {init.median().item():.6g}; share of "
+          f"controls at ±0.6 {(r.u.abs() == 0.6).float().mean().item():.4f}")
+    check(all(rr["launches"][c.__name__] > 0 for c in counters[:3])
+          and wide_k1 == k1, f"a kernel of the humanoid path never ran (or "
+          f"K1 not wide): {rr['launches']}, wide {wide_k1}")
+    check(bool(torch.isfinite(r.cost_total).all()
+               and (r.u.abs() <= 0.6).all()), "humanoid: bad result")
+    check(r.cost_total.median() < init.median(),
+          "humanoid: the median cost did not fall below the initial "
+          "rollout's")
+    paths["humanoid"] = rr["launches"]
+    out["humanoid"] = dict(solve_ms=rr["ms"], iters=iters, k1_launches=k1,
+                           lam_retries=k1 - 1 - iters,
+                           peak_bytes=rr["peak_bytes"], syncs=rr["syncs"],
+                           stream_bytes=stream_bytes,
+                           reasons=hist(r.reason),
+                           cost_median=r.cost_total.median().item(),
+                           initial_median=init.median().item())
+    # the path's kernels at its shapes: K1 wide gains and full, K3, K2
+    st = torch.cat([to_streams(r.x), to_streams(r.u),
+                    to_streams(r.cost[..., None])], dim=1)
+    lam = r.lam
+    dp = bk._wide_stream(tiles, st, n, m, None)
+    kw = dict(n=n, m=m, reg_type=2, lims=HUMANOID_LIMS, derivs_tiles=None)
+    hc = out[f"k1 <{n},{m}> gains cpu"]
+    rec["k1_humanoid"] = dict(
+        max_abs_err=hc["err"],
+        ms=cuda_ms(lambda: bk.backward_lanes(dp, lam, emit="gains", **kw), 5),
+        ms_full=cuda_ms(lambda: bk.backward_lanes(dp, lam, emit="full", **kw),
+                        5),
+        bound_ms_full=k1_work(model, Th, Bh, "full", 2, HUMANOID_LIMS,
+                              packed=True)["bound_ms"],
+        stream_ms=cuda_ms(lambda: bk._wide_stream(tiles, st, n, m, None), 3),
+        plain_ms=hc["seconds"] * 1e3, plain_T=WIDE_CPU_T,
+        plain_where="the CPU child", library_ms=None,
+        **k1_work(model, Th, Bh, "gains", 2, HUMANOID_LIMS, packed=True))
+    del dp
+    gains = bk.backward_lanes(st, lam, emit="gains", derivs_tiles=tiles,
+                              **{k: v for k, v in kw.items()
+                                 if k != "derivs_tiles"}).out
+    x0_l = x0s.T.contiguous()
+    ladder = torch.tensor(hcfg.alphas, device=dev)[:, None].expand(
+        len(hcfg.alphas), Bh).contiguous()
+    sel = torch.stack([torch.full((Bh,), -1.0, device=dev),
+                       torch.ones(Bh, device=dev), r.cost_total,
+                       torch.ones(Bh, device=dev)])
+    for kk, w, fn in (
+            ("k3_humanoid", k3_work(model, Th, Bh, len(hcfg.alphas), False),
+             lambda: fk.forward_lanes(st, gains, x0_l, ladder, model=model,
+                                      lims=HUMANOID_LIMS)),
+            ("k2_humanoid", k2_work(model, Th, Bh, len(hcfg.alphas)),
+             lambda: fk.linesearch_lanes(st, gains, x0_l, sel, model=model,
+                                         alphas=hcfg.alphas,
+                                         lims=HUMANOID_LIMS))):
+        src = rec.pop(f"_{kk}_check")
+        rec[kk] = dict(src, ms=cuda_ms(fn, 5), library_ms=None, **w)
+        rec[kk].pop("phase_launches")
+    del gains, st
+    for key in ("k1_humanoid", "k2_humanoid", "k3_humanoid"):
+        print(f"  {key} at B={Bh}, T={Th}: {rec[key]['ms']:.4f} ms against "
+              f"its bound {rec[key]['bound_ms']:.4f} ms "
+              f"({rec[key]['bound_by']})")
+    print(f"  the stream from the tiles: {rec['k1_humanoid']['stream_ms']:.3f}"
+          f" ms a K1 launch; K1 full {rec['k1_humanoid']['ms_full']:.4f} ms")
+    g = hsolve(*lti_fleet_inputs(spec, dev, HUMANOID_B_CPU, HUMANOID_T_CPU))
+    del r
+    out["walls"]["humanoid"] = time.perf_counter() - t_ph
+
+    # ---- humanoid-kl
+    ph.start("humanoid-kl", f"KL on the humanoid at KL-LTI's settings "
+             f"(kl_step {KL_LTI_STEP}, scalar η, no limits; pre-rolled by "
+             f"K3), B={Bh}, T={Th}: the wide K1 in GPS policy, K3, K4 n={n}; "
+             f"kl_div_wiki_lanes timed and profiled")
+    t_ph = time.perf_counter()
+    fx = to_streams(spec.A.expand(Bh, Th, n, n).contiguous())
+    k4_check(rec, "k4_54", fx, n)
+    del fx
+    kcfg = ILQGKLConfig(kl_step=KL_LTI_STEP)
+    kin = lti_fleet_kl_inputs(model, spec, x0s, u0s)
+    w0 = bk.backward_lanes.wide_launches
+    r, rk = once_run(lambda: ilqgkl_batch_lanes(model, tiles, *kin,
+                                                cfg=kcfg), counters)
+    wide_k1 = bk.backward_lanes.wide_launches - w0
+    print(f"  KL: launches {rk['launches']} (the wide K1 {wide_k1}); "
+          f"{rk['ms']:.3f} ms a KL solve, n_iters max "
+          f"{int(r.n_iters.max())}; satisfied "
+          f"{r.satisfied.float().mean().item():.4f}; peak "
+          f"{rk['peak_bytes'] / 2**30:.3f} GiB")
+    check(rk["launches"]["covariance_lanes"] == 1
+          and rk["launches"]["forward_lanes"] >= 1
+          and wide_k1 == rk["launches"]["backward_lanes"] >= 1,
+          f"a kernel of the humanoid KL path never ran: {rk['launches']}")
+    check(bool(torch.isfinite(r.cost_total).all()), "humanoid KL: non-finite")
+    paths["humanoid_kl"] = rk["launches"]
+    out["humanoid"].update(kl_ms=rk["ms"], kl_peak_bytes=rk["peak_bytes"],
+                           kl_iters=int(r.n_iters.max()),
+                           kl_satisfied=r.satisfied.float().mean().item())
+    # K1 GPS policy at the path's shapes, on the KL path's pre-rolled
+    # trajectory and previous policy, the stream made once
+    x, pol = kin[0], kin[1]
+    st = torch.cat([to_streams(x), to_streams(pol.k)], dim=1)
+    prev = to_streams(torch.cat([pol.k, pol.K.reshape(Bh, Th, -1),
+                                 pol.sigma_inv.reshape(Bh, Th, -1)], -1))
+    eta = torch.ones((Th, Bh), device=dev)
+    dp = bk._wide_stream(tiles, st, n, m, None)
+    gkw = dict(n=n, m=m, reg_type=1, lims=None, derivs_tiles=None,
+               prev=prev, eta=eta, emit="policy")
+    hg = out[f"k1 <{n},{m}> gps policy cpu"]
+    rec["k1_humanoid_gps"] = dict(
+        max_abs_err=hg["err"],
+        ms=cuda_ms(lambda: bk.backward_lanes(dp, torch.zeros(
+            Bh, device=dev), **gkw), 5),
+        plain_ms=hg["seconds"] * 1e3, plain_T=WIDE_CPU_T,
+        plain_where="the CPU child", library_ms=None,
+        **k1_work(model, Th, Bh, "policy", 1, None, gps=True, packed=True))
+    del dp
+    mu = torch.zeros((Th, n, Bh), device=dev)
+    sxx = to_streams(torch.eye(n, device=dev).expand(Bh, Th, n, n))
+    pk = to_streams(pol.k)
+    pK = to_streams(pol.K.reshape(Bh, Th, -1))
+    pS = to_streams(pol.sigma.reshape(Bh, Th, -1))
+    pSi = to_streams(pol.sigma_inv.reshape(Bh, Th, -1))
+    kl_args = (mu, sxx, pk, pK, pS, pk, pK, pSi, n, m)
+    kl_ms = once_ms(lambda: kl_div_wiki_lanes(*kl_args))
+    prof = profile_split(lambda: kl_div_wiki_lanes(*kl_args))
+    out["humanoid"]["kl_div_ms"] = kl_ms
+    out["humanoid"]["kl_div_profile"] = (None if prof is None else {
+        k: prof[k] for k in ("wall_ms", "busy_ms", "glue_launches",
+                             "idle_share")})
+    print(f"  kl_div_wiki_lanes at n={n}, m={m}, B={Bh}, T={Th}: "
+          f"{kl_ms:.1f} ms of device time an evaluation"
+          + ("" if prof is None else
+             f"; profiled: {prof['glue_launches']} device launches, wall "
+             f"{prof['wall_ms']:.1f} ms, busy {prof['busy_ms']:.1f} ms, idle "
+             f"share {prof['idle_share']:.3f}"))
+    del r, kin, st, prev, mu, sxx
+    out["walls"]["humanoid-kl"] = time.perf_counter() - t_ph
+
+    # ---- humanoid-gpu-vs-cpu
+    ph.start("humanoid-gpu-vs-cpu", f"{HUMANOID_B_CPU} lanes at "
+             f"T={HUMANOID_T_CPU}: the card's fleet and KL against the plain "
+             f"versions in the CPU child")
+    t_ph = time.perf_counter()
+    c = cpu["humanoid"]
+    agree(f"humanoid {HUMANOID_B_CPU} lanes at T={HUMANOID_T_CPU} "
+          f"({c['seconds']:.1f} s in the child)", {f: getattr(g, f).tolist()
+                                                   for f in ("cost_total",
+                                                             "reason",
+                                                             "n_accepted")},
+          c, "cost_total", ("reason", "n_accepted"))
+    xc, uc = lti_fleet_inputs(spec, dev, HUMANOID_B_CPU, HUMANOID_T_CPU)
+    g = ilqgkl_batch_lanes(model, tiles, *lti_fleet_kl_inputs(
+        model, spec, xc, uc), cfg=kcfg)
+    agree(f"humanoid KL {HUMANOID_B_CPU} lanes at T={HUMANOID_T_CPU}",
+          {f: getattr(g, f).tolist() for f in ("cost_total", "satisfied",
+                                                "n_iters")},
+          cpu["humanoid KL"], "cost_total", ("satisfied", "n_iters"))
+    out["walls"]["humanoid-gpu-vs-cpu"] = time.perf_counter() - t_ph
+    out["seconds"] = time.perf_counter() - t_group
+    print(f"  the humanoid group: {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["walls"].items()) + ")")
+    rec["ptxas"] += [line for v in lb.values() for line in v["ptxas"]]
+    for v in lb.values():
+        v.pop("ptxas")
+    rec["humanoid"] = out
+    return paths
+
+
+def _sized(n: int, m: int):
+    """A stand-in with the (n, m) of a model, for k1_work on the packed
+    stream (which reads no model)."""
+    from types import SimpleNamespace
+    return SimpleNamespace(n=n, m=m, n_params=0, device=None)
+
+
+
 def main() -> int:
     ph = Phases()
     ph.start("device")
@@ -8312,11 +8972,14 @@ def main() -> int:
     sbuilds = (smodels, start_sizes_builds(smodels))
     # the packed group's CPU solves run beside the card's phases
     cpu_proc = start_cpu_child("--packed-cpu")
+    # the CPU solves phases 5 and 9 are compared with at the end
+    early_proc = start_cpu_child("--early-cpu")
     m3_proc = start_cpu_child("--m3-cpu")
     tiles_proc = start_cpu_child("--tiles-cpu")
     demos_proc = start_cpu_child("--demos-cpu")
     sizes_proc = start_cpu_child("--sizes-cpu")
-    CHILDREN.extend([cpu_proc, m3_proc, tiles_proc, demos_proc, sizes_proc])
+    CHILDREN.extend([cpu_proc, early_proc, m3_proc, tiles_proc, demos_proc,
+                     sizes_proc])
 
     ph.start("ilqg-kernels", f"vs plain versions, B={B}, T={T}")
     spec = PendCartSpec()
@@ -8526,26 +9189,12 @@ def main() -> int:
 
     ph.start("ilqg-gpu-vs-cpu", f"first {B_CPU} scenarios, T={T}, "
              f"max_steps={ITERS}")
-    g = solve(x0s[:B_CPU], u0s[:B_CPU])
-    t0 = time.perf_counter()
-    c = solve(x0s[:B_CPU].cpu(), u0s[:B_CPU].cpu())
-    print(f"  CPU solve (plain versions): {time.perf_counter() - t0:.1f} s")
-    gc, cc = g.cost_total.cpu(), c.cost_total
-    rel = (gc - cc).abs() / cc.abs()
-    same_reason = (g.reason.cpu() == c.reason).float().mean().item()
-    same_acc = g.n_accepted.cpu() == c.n_accepted
-    close = (rel <= COST_RTOL).float().mean().item()
-    print(f"  cost_total rel diff: max {rel.max().item():.3e}, max on lanes "
-          f"with equal accepted counts {rel[same_acc].max().item():.3e}, "
-          f"median {rel.median().item():.3e}")
-    print(f"  share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
-          f"reason {same_reason:.3f}, same accepted count "
-          f"{same_acc.float().mean().item():.3f} (need {AGREE_SHARE} each)")
-    check(min(close, same_reason, same_acc.float().mean().item())
-          >= AGREE_SHARE, "GPU and CPU outcomes differ")
+    early_gpu = {"ilqg": solve(x0s[:B_CPU], u0s[:B_CPU])}
+    print("  the card's solve; the CPU's, in the --early-cpu child, is "
+          "compared in early-gpu-vs-cpu")
 
     paths = {"ilqg": launches_ilqg}
-    paths.update(quad_phases(ph, dev, rec, counters, ilqg))
+    paths.update(quad_phases(ph, dev, rec, counters, ilqg, early_gpu))
     # the controls group's libraries (≈1900 s of nvcc, the longest ≈400 s)
     # and its CPU child start here, not with the earlier groups': the
     # in-process CPU solves of the first phases lost half their speed to
@@ -8554,6 +9203,12 @@ def main() -> int:
     cbuilds = (cmodels, start_controls_builds(cmodels))
     controls_proc = start_cpu_child("--controls-cpu")
     CHILDREN.append(controls_proc)
+    # the humanoid group's libraries (the lowered K2/K3 at <54,21> and
+    # <64,32> take minutes of nvcc) and its CPU child, with the controls'
+    hbuilds = (humanoid_models(), start_cpu_child("--humanoid-build"))
+    CHILDREN.append(hbuilds[1])
+    humanoid_proc = start_cpu_child("--humanoid-cpu")
+    CHILDREN.append(humanoid_proc)
     paths.update(kl_phases(ph, dev, rec, counters, model, tiles, spec))
     paths["lti"] = lti_phases(ph, dev, rec, counters)
     paths.update(kl_lti_phases(ph, dev, rec, counters))
@@ -8585,6 +9240,10 @@ def main() -> int:
     paths.update(controls_phases(ph, dev, rec, counters, cbuilds,
                                  controls_proc))
     controls_group = rec.pop("controls")
+    paths.update(humanoid_phases(ph, dev, rec, counters, hbuilds,
+                                 humanoid_proc))
+    humanoid = rec.pop("humanoid")
+    early_gpu_vs_cpu(ph, early_proc, early_gpu)
 
     # ---- record and result: one entry per kernel instance, its launches
     #      summed over the paths that run it
@@ -8828,6 +9487,31 @@ def main() -> int:
          "packed.cuh", k1, ()),
         ("k1_packed_10_8", "backward_lanes", "packed <10,8> gains, full",
          "packed.cuh", k1, ()),
+        # the humanoid group: K1's wide design (one library, any size,
+        # backward_wide.cuh) and K2/K3 past their two-stage ring
+        ("k1_humanoid", "backward_lanes", "wide LTI <54,21> gains, full "
+         "(the packed stream the tiles make)", "backward_wide.cuh", k1,
+         ("humanoid",)),
+        ("k1_humanoid_gps", "backward_lanes", "wide LTI <54,21> GPS policy",
+         "backward_wide.cuh", k1, ("humanoid_kl",)),
+        ("k1_wide_30_2", "backward_lanes", "wide LTI <30,2> full",
+         "backward_wide.cuh", k1, ()),
+        ("k1_wide_28_8", "backward_lanes", "wide LTI <28,8> gains, full, "
+         "policy", "backward_wide.cuh", k1, ()),
+        ("k1_wide_28_8_gps", "backward_lanes", "wide LTI <28,8> GPS full, "
+         "policy", "backward_wide.cuh", k1, ()),
+        ("k1_wide_ceiling", "backward_lanes", "wide LTI <64,32> gains",
+         "backward_wide.cuh", k1, ()),
+        ("k3_humanoid", "forward_lanes", "Lowered LTI <54,21> (one ring "
+         "stage)", "lowered.cuh", k3, ("humanoid", "humanoid_kl")),
+        ("k2_humanoid", "linesearch_lanes", "Lowered LTI <54,21> (one ring "
+         "stage)", "lowered.cuh", k2, ("humanoid",)),
+        ("k3_ceiling", "forward_lanes", "Lowered LTI <64,32> (K read from "
+         "device memory)", "lowered.cuh", k3, ()),
+        ("k2_ceiling", "linesearch_lanes", "Lowered LTI <64,32> (K read "
+         "from device memory)", "lowered.cuh", k2, ()),
+        ("k4_54", "covariance_lanes", "n=54 (Σ in device memory)",
+         "covariance.cuh", k4, ("humanoid_kl",)),
     ) + tuple(
         entry for n, m in control_sizes() for entry in (
             (f"k3_c{n}_{m}", "forward_lanes", f"Lowered LTI <{n},{m}>",
@@ -8872,6 +9556,7 @@ def main() -> int:
     print(json.dumps({"aot": aot}))
     print(json.dumps({"sizes": sizes}))
     print(json.dumps({"controls": controls_group}))
+    print(json.dumps({"humanoid": humanoid}))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
@@ -8907,6 +9592,15 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--controls-cpu"]:
         print(json.dumps(controls_cpu_solves()))
+        sys.exit(0)
+    if sys.argv[1:] == ["--early-cpu"]:
+        print(json.dumps(early_cpu_solves()))
+        sys.exit(0)
+    if sys.argv[1:] == ["--humanoid-build"]:
+        print(json.dumps(humanoid_builds()))
+        sys.exit(0)
+    if sys.argv[1:] == ["--humanoid-cpu"]:
+        print(json.dumps(humanoid_cpu_solves()))
         sys.exit(0)
     try:
         rc = main()

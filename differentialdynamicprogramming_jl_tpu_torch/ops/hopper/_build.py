@@ -26,7 +26,9 @@ the generated source, the headers and ``FLAGS``, so a model's first launch
 compiles only the group it needs, and a model of the same structure reuses
 it. K4 at a state size, and the packed K1 at an (n, m), that the kernel
 library does not hold are built the same way, one library per size
-(:func:`covariance_library`, :func:`packed_library`).
+(:func:`covariance_library`, :func:`packed_library`). K1's wide design
+(``csrc/backward_wide.cuh``) is one library for every size
+(:func:`wide_library`), which takes n and m at run time.
 """
 from __future__ import annotations
 
@@ -73,6 +75,8 @@ LOWERED_GROUPS = {"fwd": 0, "k1": 1, "k1_gps": 2, "k1_so": 3, "t1": 4,
 # (n, m) (packed_library)
 COVARIANCE_HEADERS = ("common.cuh", "ring.cuh", "covariance.cuh")
 PACKED_HEADERS = ("common.cuh", "ring.cuh", "backward.cuh", "packed.cuh")
+# the headers of K1's wide library (wide_library)
+WIDE_HEADERS = ("common.cuh", "ring.cuh", "backward.cuh", "backward_wide.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
@@ -105,7 +109,17 @@ SIGNATURES = {
     "ddp_covariance_lanes": (_P, _P, _I, _I, _I, _P, _I, _I) + _PLAN
                             + (_I, _P),
     "ddp_probe_lanes": (_P, _P, _I, _I, _I, _I, _I, _F) + _PLAN + (_I, _P),
+    # K1's wide design: traj, s_in, lam, prev, eta, out, s_out, stats, T,
+    # B, emit, reg_type, use_limits, static limits (host), per-scenario
+    # limits, n, m, the box QP's iterations, blocks, threads, shared bytes,
+    # device, stream
+    "ddp_backward_wide": (_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                          _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
+# the entry points of the kernel library (csrc/*.cu); K1's wide design is
+# a library of its own (wide_library)
+LIBRARY_NAMES = tuple(name for name in SIGNATURES
+                      if name != "ddp_backward_wide")
 
 
 class Build(NamedTuple):
@@ -191,7 +205,7 @@ def _bind(path: Path, names) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed (once per process)."""
-    return _bind(build().path, SIGNATURES)
+    return _bind(build().path, LIBRARY_NAMES)
 
 
 def max_m_define(m: int) -> str:
@@ -379,6 +393,40 @@ def packed_source(n: int, m: int) -> str:
              "    default: return ERR_MODEL;",
              "  }", "}", ERROR_STRING]
     return "\n".join(lines)
+
+
+def wide_source() -> str:
+    """The ``.cu`` of K1's wide library (csrc/backward_wide.cuh), built for
+    m up to ``plan.MAX_CONTROLS``: ``ddp_backward_wide``."""
+    from .plan import MAX_CONTROLS
+    return "\n".join([
+        "// K1's wide design, generated by ops/hopper/_build.py.",
+        max_m_define(MAX_CONTROLS).rstrip("\n"),
+        '#include "backward_wide.cuh"', "",
+        'extern "C" int ddp_backward_wide(const float* traj, int s_in, '
+        "const float* lam, const float* prev, const float* eta, float* out, "
+        "int s_out, float* stats, int T, int B, int emit, int reg_type, "
+        "int use_limits, const float* lims, const float* lims_lanes, int n, "
+        "int m, int qp_iters, int blocks, int threads, int smem, "
+        "int device, void* stream) {",
+        "  cudaSetDevice(device);",
+        "  return ddp::launch_backward_wide(traj, s_in, lam, prev, eta, out, "
+        "s_out, stats, T, B, emit, reg_type, use_limits, lims, lims_lanes, "
+        "n, m, qp_iters, blocks, threads, smem, "
+        "static_cast<cudaStream_t>(stream));", "}", ERROR_STRING])
+
+
+def wide_job() -> tuple:
+    """The (source, headers, prefix) job of K1's wide library."""
+    return wide_source(), WIDE_HEADERS, "wide"
+
+
+@functools.lru_cache(maxsize=None)
+def wide_library() -> ctypes.CDLL:
+    """The loaded library of K1's wide design, built first if needed (one
+    for every size)."""
+    (built,) = build_generated([wide_job()], "the wide K1")
+    return _bind(built.path, ("ddp_backward_wide",))
 
 
 def covariance_job(ns: Sequence[int]) -> tuple:

@@ -14,14 +14,18 @@ reg_type 1 or 2, GPS mode
 and the batch-major wrapper :func:`backward_pass_pallas`.
 
 :func:`backward_lanes` gives a CPU tensor to :func:`backward_lanes_ref`, the
-plain PyTorch version (vectorised over B, Python loop over t, in the
-kernel's operation order; any m), and a CUDA tensor to the hand-written
-kernel in ``csrc/backward.cu`` (the kernel library's instances, m ≤
-``MAX_M`` = 4, or a library generated for a lowered model's, a user's tiles'
-or the packed stream's own m up to ``plan.MAX_CONTROLS`` = 16), or
-raises. There is no fallback. Its launch plan
-(block shape and shared-memory ring) comes from :mod:`.plan`. Launches are
-counted in ``backward_lanes.launches``.
+plain PyTorch version (vectorised over B and over each product's elements,
+a Python loop over t and over each sum's terms, in the kernel's operation
+order; any size), and a CUDA tensor to a hand-written kernel, or raises:
+the lane design of ``csrc/backward.cuh`` (the kernel library's instances,
+m ≤ ``MAX_M`` = 4, or a library generated for a lowered model's, a user's
+tiles' or the packed stream's own m), or where its ring does not fit a
+block the wide design of ``csrc/backward_wide.cuh`` on the packed stream
+(:func:`_backward_wide`), up to ``plan.MAX_STATES`` = 64 states and
+``plan.MAX_CONTROLS`` = 32 controls. There is no fallback. Its launch plan
+comes from :mod:`.plan`. Launches are counted in
+``backward_lanes.launches``, those of the wide design also in
+``backward_lanes.wide_launches``.
 """
 from __future__ import annotations
 
@@ -32,12 +36,13 @@ import numpy as np
 import torch
 
 from . import _build
-from .plan import backward_plan, check_controls
-from .forward_kernel import (CUDA_MODELS, DeviceModel, bounds,
-                             check_lanes, check_lims, cuda_args, par_args,
+from .plan import backward_plan, check_size
+from .forward_kernel import (CUDA_MODELS, DeviceModel, _ptr, bounds,
+                             check_lanes, check_lims, cuda_args,
+                             launch_device, lims_host, par_args,
                              step_indices)
 from .pack import (DERIV_FIELDS, DerivLayout, from_streams,
-                   pack_backward_inputs, to_streams)
+                   pack_backward_inputs, stack_tiles, to_streams)
 from ..backward import BackwardOut
 from ...policy import Derivs, GaussianPolicy
 
@@ -180,7 +185,8 @@ class BackwardLanesOut(NamedTuple):
 
 
 def _sum(terms):
-    """Left-to-right sum, the order of the JAX kernels' Python ``sum``."""
+    """Left-to-right sum from the first term, the order of the JAX kernels'
+    Python ``sum``; of tensors of any one shape, each element alike."""
     it = iter(terms)
     s = next(it)
     for v in it:
@@ -372,20 +378,20 @@ def _boxqp_masked(H, g, lo, hi, x0, mm, n_iter):
     return x, free, L, ok
 
 
-def _gain_solve(QuuF, Qu, Qux_r, u, lims, n, m, warm=None, qp_iters=8):
-    """k (m) and K (m×n) of one step, and the PD flag, not yet zeroed on
-    failing lanes (JAX ``:513-568``). ``lims``: None, or the per-control
-    (lo, hi) of :func:`~.forward_kernel.bounds`, floats or per-scenario
-    (B,) tensors. ``warm``: at m > 2 with limits, the box QP's start (the
-    sanitised k of step t+1); ``qp_iters`` its iterations."""
-    R = range(n)
+def _gain_solve(QuuF, Qu, Qux_r, u, lims, m, warm=None, qp_iters=8):
+    """k (m) and K (m rows of (n, B)), and the PD flag, not yet zeroed on
+    failing lanes (JAX ``:513-568``). ``QuuF`` and ``Qu`` are lists of (B,)
+    tensors, ``Qux_r`` a list of m (n, B) rows, whose n columns are solved
+    at once (each element by the same operations as alone). ``lims``:
+    None, or the per-control (lo, hi) of :func:`~.forward_kernel.bounds`,
+    floats or per-scenario (B,) tensors. ``warm``: at m > 2 with limits,
+    the box QP's start (the sanitised k of step t+1); ``qp_iters`` its
+    iterations."""
     if lims is None:
         # unconstrained: the unrolled Cholesky solve (:514-522)
         L, ok = _tiny_chol(QuuF, m)
         k = _tiny_chol_solve(L, [-v for v in Qu], m)
-        cols = [_tiny_chol_solve(L, [-Qux_r[mi][j] for mi in range(m)], m)
-                for j in R]
-        return k, [[cols[j][mi] for j in R] for mi in range(m)], ok
+        return k, _tiny_chol_solve(L, [-r for r in Qux_r], m), ok
     lo = [lims[0][mi] - u[mi] for mi in range(m)]
     hi = [lims[1][mi] - u[mi] for mi in range(m)]
     if m == 1:
@@ -395,29 +401,25 @@ def _gain_solve(QuuF, Qu, Qux_r, u, lims, n, m, warm=None, qp_iters=8):
         grad = Qu[0] + q * xq
         clamped = ((xq <= lo[0]) & (grad > 0)) | ((xq >= hi[0]) & (grad < 0))
         quu_s = _guard(q)
-        return [xq], [[torch.where(clamped, 0.0, -Qux_r[0][j] / quu_s)
-                       for j in R]], q > 0
+        return [xq], [torch.where(clamped, 0.0, -Qux_r[0] / quu_s)], q > 0
     if m == 2:
         # the 9-set enumeration and its K rows (:532-551)
         x0, x1, f0, f1, ok = _boxqp_m2(QuuF, Qu, lo, hi)
         both = f0 & f1
         a, b, c = QuuF[0][0], QuuF[0][1], QuuF[1][1]
         det_s, a_s, c_s = _guard(a * c - b * b), _guard(a), _guard(c)
-        K = [[None] * n for _ in range(2)]
-        for j in R:
-            q0, q1 = Qux_r[0][j], Qux_r[1][j]
-            kb0 = (-q0 * c + q1 * b) / det_s
-            kb1 = (q0 * b - q1 * a) / det_s
-            K[0][j] = torch.where(both, kb0, torch.where(f0, -q0 / a_s, 0.0))
-            K[1][j] = torch.where(both, kb1, torch.where(f1, -q1 / c_s, 0.0))
-        return [x0, x1], K, ok
+        q0, q1 = Qux_r[0], Qux_r[1]
+        kb0 = (-q0 * c + q1 * b) / det_s
+        kb1 = (q0 * b - q1 * a) / det_s
+        return [x0, x1], [
+            torch.where(both, kb0, torch.where(f0, -q0 / a_s, 0.0)),
+            torch.where(both, kb1, torch.where(f1, -q1 / c_s, 0.0))], ok
     # m > 2: the masked projected-Newton box QP from the warm start, and K
     # solved on its final free subspace (:552-568)
     k, free, Lq, ok = _boxqp_masked(QuuF, Qu, lo, hi, warm, m, qp_iters)
-    cols = [_tiny_chol_solve(Lq, [torch.where(free[mi], -Qux_r[mi][j], 0.0)
-                                  for mi in range(m)], m) for j in R]
-    return k, [[torch.where(free[mi], cols[j][mi], 0.0) for j in R]
-               for mi in range(m)], ok
+    cols = _tiny_chol_solve(Lq, [torch.where(free[mi], -Qux_r[mi], 0.0)
+                                 for mi in range(m)], m)
+    return k, [torch.where(free[mi], cols[mi], 0.0) for mi in range(m)], ok
 
 
 def _read_kl(prev, eta, t, n, m):
@@ -426,42 +428,36 @@ def _read_kl(prev, eta, t, n, m):
     previous-policy stream [k_prev(m), K_prev(m·n), Σ⁻¹_prev(m²)]
     (``read_kl``, ``:370-392``), each sum over a control in the JAX order:
     Sik = Σ⁻¹k, SiK = Σ⁻¹K, cx_i = Σ_mi K[mi][i]·Sik[mi], cu = -Sik,
-    cxx_ij = Σ_mi K[mi][i]·SiK[mi][j], cxu = -SiK, cuu = Σ⁻¹."""
+    cxx_ij = Σ_mi K[mi][i]·SiK[mi][j], cxu = -SiK, cuu = Σ⁻¹; as tensors
+    (cx (n, B), cxx (n, n, B), cxu (m, n, B), Σ⁻¹ (m, m, B))."""
     e = eta[t]
+    B = prev.shape[-1]
+    kp = prev[t, :m]
+    Kp = prev[t, m:m + m * n].reshape(m, n, B)
+    Si = prev[t, m + m * n:].reshape(m, m, B)
     M = range(m)
-    kp = [prev[t, mi] for mi in M]
-    Kp = [[prev[t, m + mi * n + j] for j in range(n)] for mi in M]
-    Si = [[prev[t, m + m * n + mi * m + mj] for mj in M] for mi in M]
-    Sik = [_sum([Si[mi][mj] * kp[mj] for mj in M]) for mi in M]
-    SiK = [[_sum([Si[mi][mj] * Kp[mj][j] for mj in M]) for j in range(n)]
-           for mi in M]
+    Sik = _sum(Si[:, mj] * kp[mj] for mj in M)
+    SiK = _sum(Si[:, mj, None] * Kp[mj][None] for mj in M)
     return dict(
         eta=torch.where(e == 0, 1.0, e),
-        cx=[_sum([Kp[mi][i] * Sik[mi] for mi in M]) for i in range(n)],
-        cu=[-Sik[mi] for mi in M],
-        cxx=[[_sum([Kp[mi][i] * SiK[mi][j] for mi in M]) for j in range(n)]
-             for i in range(n)],
-        cxu=[[-SiK[mi][j] for j in range(n)] for mi in M], cuu=Si)
+        cx=_sum(Kp[mi] * Sik[mi] for mi in M), cu=-Sik,
+        cxx=_sum(Kp[mi][:, None] * SiK[mi][None] for mi in M),
+        cxu=-SiK, cuu=Si)
 
 
-def _flat(rows):
-    return [v for row in rows for v in row]
+def _stack(v, shape, B):
+    """A tile field (a tensor, or nested lists of (B,) tensors) as one
+    (*shape, B) tensor."""
+    from .pack import _flat
+    if isinstance(v, torch.Tensor) and v.dim() == len(shape) + 1:
+        return v
+    return torch.stack([torch.broadcast_to(e, (B,)) for e in _flat(v)]
+                       ).reshape(tuple(shape) + (B,))
 
 
-def _packed_step(dp, t, n, m):
-    """The expansion and u of step t from the packed stream (JAX
-    ``read_derivs``, ``:354-368``)."""
-    lay = InLayout(n, m)
-
-    def field(f):
-        off, shape = lay.offset(f), lay.shape(f)
-        if len(shape) == 1:
-            return [dp[t, off + i] for i in range(shape[0])]
-        r, c = shape
-        return [[dp[t, off + i * c + j] for j in range(c)] for i in range(r)]
-
-    return ({f: field(f) for f in DERIV_FIELDS},
-            [dp[t, lay.u + mi] for mi in range(m)])
+def _lists(a):
+    """An (m, m, B) tensor as m lists of m (B,) views."""
+    return [[a[i, j] for j in range(a.shape[1])] for i in range(a.shape[0])]
 
 
 def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
@@ -469,7 +465,9 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
                        params=None, lims_lanes=None, emit: str = "full",
                        qp_iters: int = 8) -> BackwardLanesOut:
     """Plain version of :func:`backward_lanes` (same arguments; ``eta`` is
-    (T, B)). Every sum runs in the JAX kernel's order (``:450-600``)."""
+    (T, B)). Every element's sum runs in the JAX kernel's order
+    (``:450-600``), from its first term; the elements of a product are
+    formed together, as (…, B) tensors, one term of the sum at a time."""
     T, B = traj.shape[0], traj.shape[2]
     lay = OutLayout(n, m, emit)
     gps = prev is not None
@@ -479,33 +477,44 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
     lim = (None if lims is None and lims_lanes is None
            else bounds(lims, m, lims_lanes))
     ts = step_indices(T, traj.device)
+    lay_in = InLayout(n, m)
 
     def step(t):
-        """(expansion, u) of step t: from the tiles at (x, u, t), or read
-        from the packed stream."""
+        """The expansion of step t as tensors (fx (n, n, B), fu (n, m, B),
+        cx (n, B), cu (m, B), cxx (n, n, B), cxu (n, m, B), cuu (m, m, B),
+        and fxx (n, n, n, B), fxu (n, n, m, B), fuu (n, m, m, B) for full
+        DDP) and u (m, B): from the tiles at (x, u, t), or read from the
+        packed stream."""
         if derivs_tiles is None:
-            return _packed_step(traj, t, n, m)
-        u = [traj[t, n + mi] for mi in M]
-        return derivs_tiles([traj[t, i] for i in R], u, ts[t], *par), u
+            return ({f: traj[t, lay_in.offset(f):lay_in.offset(f)
+                              + int(np.prod(lay_in.shape(f)))].reshape(
+                                  lay_in.shape(f) + (B,))
+                     for f in DERIV_FIELDS}, traj[t, lay_in.u:lay_in.DU])
+        u = traj[t, n:n + m]
+        d = derivs_tiles([traj[t, i] for i in R], [u[mi] for mi in M],
+                         ts[t], *par)
+        shapes = dict(fx=(n, n), fu=(n, m), cx=(n,), cu=(m,), cxx=(n, n),
+                      cxu=(n, m), cuu=(m, m), fxx=(n, n, n), fxu=(n, n, m),
+                      fuu=(n, m, m))
+        return {f: _stack(v, shapes[f], B) for f, v in d.items()}, u
 
     # boundary t = T-1 (src/backward_pass.jl:97-99, 280-283): V = the cost
     # expansion, unscaled also in GPS mode; only the emitted Quu is
     # cuu/η + Σ⁻¹_prev there (JAX :418-429)
     d, _ = step(T - 1)
-    Vx = list(d["cx"])
-    Vxx = [list(row) for row in d["cxx"]]
+    Vx, Vxx = d["cx"], d["cxx"]
     zero = torch.zeros_like(traj[T - 1, 0])
-    slots = [zero] * (m + m * n)
+    slots = [torch.zeros((m + m * n, B), dtype=traj.dtype,
+                         device=traj.device)]
     if lay.Vx is not None:
-        slots += Vx + _flat(Vxx)
+        slots += [Vx, Vxx.reshape(n * n, B)]
     if lay.quu is not None:
         cuu = d["cuu"]
         if gps:
             kl = _read_kl(prev, eta, T - 1, n, m)
-            cuu = [[cuu[mi][mj] / kl["eta"] + kl["cuu"][mi][mj] for mj in M]
-                   for mi in M]
-        slots += _flat(cuu) + _flat(_tiny_inv(cuu, m))
-    out[T - 1] = torch.stack(slots)
+            cuu = cuu / kl["eta"] + kl["cuu"]
+        slots += [cuu.reshape(m * m, B), _tiny_inv_t(cuu, m)]
+    out[T - 1] = torch.cat(slots)
     dv1 = dv2 = div = divt = zero
     # m > 2 with limits: the box QP's warm start, the sanitised k of step
     # t+1, zero before the first solve (JAX :434-438, :647-650)
@@ -517,29 +526,23 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
         cxx, cxu, cuu = d["cxx"], d["cxu"], d["cuu"]
 
         # Q expansions (src/backward_pass.jl:103-123)
-        Qx = [cx[i] + _sum([fx[a][i] * Vx[a] for a in R]) for i in R]
-        Qu = [cu[mi] + _sum([fu[a][mi] * Vx[a] for a in R]) for mi in M]
-        W = [[_sum([Vxx[a][c] * fx[c][j] for c in R]) for j in R] for a in R]
-        U = [[_sum([Vxx[a][c] * fu[c][mi] for c in R]) for mi in M]
-             for a in R]
-        Qxx = [[cxx[i][j] + _sum([fx[a][i] * W[a][j] for a in R]) for j in R]
-               for i in R]
-        Quu = [[cuu[mi][mj] + _sum([fu[a][mi] * U[a][mj] for a in R])
-                for mj in M] for mi in M]
-        Qux = [[cxu[j][mi] + _sum([fu[a][mi] * W[a][j] for a in R])
-                for j in R] for mi in M]
+        Qx = cx + _sum(fx[a] * Vx[a] for a in R)
+        Qu = cu + _sum(fu[a] * Vx[a] for a in R)
+        W = _sum(Vxx[:, c, None] * fx[c][None] for c in R)
+        U = _sum(Vxx[:, c, None] * fu[c][None] for c in R)
+        Qxx = cxx + _sum(fx[a][:, None] * W[a][None] for a in R)
+        Quu = cuu + _sum(fu[a][:, None] * U[a][None] for a in R)
+        Qux = cxu.transpose(0, 1) + _sum(fu[a][:, None] * W[a][None]
+                                         for a in R)
 
         if "fxx" in d:
             # full DDP: the dynamics Hessians contracted with V′ (Vx of
             # t+1), before the regularisation, so that reg_type 2's terms
             # inherit them (JAX :466-481)
             fxx, fxu, fuu = d["fxx"], d["fxu"], d["fuu"]
-            Qxx = [[Qxx[i][j] + _sum([Vx[a] * fxx[a][i][j] for a in R])
-                    for j in R] for i in R]
-            Qux = [[Qux[mi][j] + _sum([Vx[a] * fxu[a][j][mi] for a in R])
-                    for j in R] for mi in M]
-            Quu = [[Quu[mi][mj] + _sum([Vx[a] * fuu[a][mi][mj] for a in R])
-                    for mj in M] for mi in M]
+            Qxx = Qxx + _sum(Vx[a] * fxx[a] for a in R)
+            Qux = Qux + _sum(Vx[a] * fxu[a].transpose(0, 1) for a in R)
+            Quu = Quu + _sum(Vx[a] * fuu[a] for a in R)
 
         if gps:
             # GPS mode: Q terms scaled by 1/η plus the KL expansion, Quu
@@ -547,49 +550,41 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
             # :483-497)
             kl = _read_kl(prev, eta, t, n, m)
             ie = 1.0 / kl["eta"]
-            Qx = [Qx[i] * ie + kl["cx"][i] for i in R]
-            Qu = [Qu[mi] * ie + kl["cu"][mi] for mi in M]
-            Qxx = [[Qxx[i][j] * ie + kl["cxx"][i][j] for j in R] for i in R]
-            Qux = [[Qux[mi][j] * ie + kl["cxu"][mi][j] for j in R]
-                   for mi in M]
-            Quu_g = [[Quu[mi][mj] * ie + kl["cuu"][mi][mj] for mj in M]
-                     for mi in M]
-            Quu = [[0.5 * (Quu_g[mi][mj] + Quu_g[mj][mi]) for mj in M]
-                   for mi in M]
+            Qx = Qx * ie + kl["cx"]
+            Qu = Qu * ie + kl["cu"]
+            Qxx = Qxx * ie + kl["cxx"]
+            Qux = Qux * ie + kl["cxu"]
+            Quu_g = Quu * ie + kl["cuu"]
+            Quu = 0.5 * (Quu_g + Quu_g.transpose(0, 1))
             Qux_r, QuuF = Qux, Quu
         # regularised gain matrices (src/backward_pass.jl:119-123)
         elif reg_type == 2:
-            Qux_r = [[Qux[mi][j] + lam * _sum([fu[a][mi] * fx[a][j]
-                                               for a in R]) for j in R]
-                     for mi in M]
-            QuuF = [[Quu[mi][mj] + lam * _sum([fu[a][mi] * fu[a][mj]
-                                               for a in R]) for mj in M]
-                    for mi in M]
+            Qux_r = Qux + lam * _sum(fu[a][:, None] * fx[a][None]
+                                     for a in R)
+            QuuF = Quu + lam * _sum(fu[a][:, None] * fu[a][None] for a in R)
         else:
             Qux_r = Qux
-            QuuF = [[Quu[mi][mj] + (lam if mi == mj else 0.0) for mj in M]
-                    for mi in M]
+            eye = torch.eye(m, dtype=torch.bool, device=traj.device)
+            QuuF = Quu + torch.where(eye[:, :, None], lam, 0.0)
 
-        k, K, ok = _gain_solve(QuuF, Qu, Qux_r, u, lim, n, m, warm,
-                               qp_iters)
+        k, K, ok = _gain_solve(_lists(QuuF), list(Qu), list(Qux_r), u, lim,
+                               m, warm, qp_iters)
         # a non-PD lane gets zero gains; V keeps updating (JAX :570-572)
         k = [torch.where(ok, v, 0.0) for v in k]
-        K = [[torch.where(ok, v, 0.0) for v in row] for row in K]
+        K = torch.stack([torch.where(ok, row, 0.0) for row in K])
         warm = k
 
         # value update with the unregularised terms (src/backward_pass.jl:63-72)
-        Quu_k = [_sum([Quu[mi][mj] * k[mj] for mj in M]) for mi in M]
+        Quu_k = _sum(Quu[:, mj] * k[mj] for mj in M)
         dv1 = dv1 + _sum([k[mi] * Qu[mi] for mi in M])
         dv2 = dv2 + 0.5 * _sum([k[mi] * Quu_k[mi] for mi in M])
-        QuuK = [[_sum([Quu[mi][mj] * K[mj][j] for mj in M]) for j in R]
-                for mi in M]
-        Vx = [Qx[i] + _sum([K[mi][i] * (Quu_k[mi] + Qu[mi]) for mi in M])
-              + _sum([Qux[mi][i] * k[mi] for mi in M]) for i in R]
-        Vraw = [[Qxx[i][j] + _sum([K[mi][i] * QuuK[mi][j] for mi in M])
-                 + _sum([K[mi][i] * Qux[mi][j] for mi in M])
-                 + _sum([Qux[mi][i] * K[mi][j] for mi in M])
-                 for j in R] for i in R]
-        Vxx = [[0.5 * (Vraw[i][j] + Vraw[j][i]) for j in R] for i in R]
+        QuuK = _sum(Quu[:, mj, None] * K[mj][None] for mj in M)
+        Vx = (Qx + _sum(K[mi] * (Quu_k[mi] + Qu[mi]) for mi in M)
+              + _sum(Qux[mi] * k[mi] for mi in M))
+        Vraw = (Qxx + _sum(K[mi][:, None] * QuuK[mi][None] for mi in M)
+                + _sum(K[mi][:, None] * Qux[mi][None] for mi in M)
+                + _sum(Qux[mi][:, None] * K[mi][None] for mi in M))
+        Vxx = 0.5 * (Vraw + Vraw.transpose(0, 1))
 
         # divergence latch: t+1 of the first failing step, recursion goes on
         bad = (~ok).to(traj.dtype)
@@ -597,14 +592,24 @@ def backward_lanes_ref(traj, lam, *, n: int, m: int, reg_type: int, lims,
         divt = divt * (1.0 - newly) + newly * float(t + 1)
         div = torch.maximum(div, bad)
 
-        slots = k + _flat(K)
+        slots = [torch.stack(k), K.reshape(m * n, B)]
         if lay.Vx is not None:
-            slots += Vx + _flat(Vxx)
+            slots += [Vx, Vxx.reshape(n * n, B)]
         if lay.quu is not None:
-            slots += _flat(Quu) + _flat(_tiny_inv(Quu, m))
-        out[t] = torch.stack(slots)
+            slots += [Quu.reshape(m * m, B), _tiny_inv_t(Quu, m)]
+        out[t] = torch.cat(slots)
 
     return BackwardLanesOut(out=out, stats=torch.stack([dv1, dv2, div, divt]))
+
+
+def _tiny_inv_t(Q, m):
+    """:func:`_tiny_inv` of an (m, m, B) tensor as (m·m, B) row-major: the
+    m unit vectors solved at once, each column by the operations of its own
+    solve."""
+    L, _ = _tiny_chol(_lists(Q), m)
+    e = torch.eye(m, dtype=Q.dtype, device=Q.device)[:, :, None].expand(
+        m, m, Q.shape[-1])
+    return torch.stack(_tiny_chol_solve(L, list(e), m)).reshape(m * m, -1)
 
 
 def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
@@ -646,9 +651,12 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     m and GPS mode; at any other (n, m) its ``"gains"`` and ``"full"``
     instances without GPS mode, built at their first launch where their
     ring fits), with m up to the ceiling ``plan.MAX_CONTROLS`` (a library
-    generated for its m above the kernel library's ``MAX_M`` = 4); anything
-    else raises NotImplementedError before anything is lowered, built or
-    launched. Autodiff
+    generated for its m above the kernel library's ``MAX_M`` = 4). Where
+    the lane design's ring does not fit a block (``plan.backward_plan``
+    gives ``tc == 0``) every first-order input runs the wide design, in
+    every mode, up to ``plan.MAX_STATES``. Anything else raises
+    NotImplementedError before anything is lowered, built or launched.
+    Autodiff
     tiles of a model without a descriptor run ``Autodiff<Lowered>`` from
     the model's lowering (:mod:`.lower`, :data:`LOWERED_K1`), and a user's
     tiles without a descriptor run ``LoweredTiles``, their own expansion
@@ -690,7 +698,12 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                                   prev=prev, eta=eta, params=params,
                                   lims_lanes=lims_lanes, emit=emit,
                                   qp_iters=qp_iters)
-    check_controls(m, "backward_lanes")
+    check_size(n, m, "backward_lanes")
+    plan = backward_plan(n, m, gps, emit, T, B, packed=packed)
+    if plan.tc == 0:
+        return _backward_wide(traj, lam, n, m, reg_type, lims, derivs_tiles,
+                              prev, eta, params, lims_lanes, emit, qp_iters,
+                              plan)
     gps_t = (prev, eta) if gps else ()
     group = tiles_low = library = None
     if packed:
@@ -709,13 +722,6 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                 f"GPS mode (and the sizes {CUDA_PACKED}); not "
                 f"{'in' if gps else 'without'} GPS mode, emit={emit!r}")
         else:
-            try:
-                backward_plan(n, m, gps, emit, T, B, packed=True)
-            except ValueError as e:
-                raise NotImplementedError(
-                    f"backward_lanes: the packed-derivatives stream at "
-                    f"n={n}, m={m}, emit={emit!r} does not fit a block's "
-                    f"shared memory (plan.MAX_SMEM): {e}") from e
             library = (n, m)
     elif getattr(derivs_tiles, "device", None) is None:
         # a user's tiles: their lowering, K1's analytic expansion
@@ -761,7 +767,6 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     S = OutLayout(n, m, emit).S
     out = torch.empty((T, S, B), dtype=torch.float32, device=traj.device)
     stats = torch.empty((4, B), dtype=torch.float32, device=traj.device)
-    plan = backward_plan(n, m, gps, emit, T, B, packed=packed)
     rc = lib.ddp_backward_lanes(
         traj.data_ptr(), S_in, lam.data_ptr(),
         prev.data_ptr() if gps else None, eta.data_ptr() if gps else None,
@@ -775,6 +780,61 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
 
 
 backward_lanes.launches = 0
+backward_lanes.wide_launches = 0
+
+
+def _wide_stream(tiles, traj, n: int, m: int, params) -> torch.Tensor:
+    """The wide K1's input: the packed-derivatives stream (T, D+m, B) of
+    ``tiles`` evaluated with torch on the trajectory's (T, B) x and u
+    slices (:func:`~.pack.stack_tiles`; elementwise, so each element has
+    the bits of the plain version's per-step evaluation). Second-order
+    tiles raise NotImplementedError: the wide design has no full DDP."""
+    T = traj.shape[0]
+    x = [traj[:, i] for i in range(n)]
+    u = [traj[:, n + mi] for mi in range(m)]
+    t = torch.arange(T, dtype=torch.int32, device=traj.device)[:, None]
+    d = tiles(x, u, t, *par_args(params))
+    if "fxx" in d:
+        raise NotImplementedError(_wide_so(n, m))
+    return stack_tiles(d, u, n, m)
+
+
+def _wide_so(n: int, m: int) -> str:
+    return (f"backward_lanes: second-order tiles (full DDP) at n={n}, m={m}: "
+            "the lane design's ring does not fit a block at this size, and "
+            "the wide K1 (csrc/backward_wide.cuh) takes first-order "
+            "derivatives only")
+
+
+def _backward_wide(traj, lam, n, m, reg_type, lims, derivs_tiles, prev, eta,
+                   params, lims_lanes, emit, qp_iters,
+                   plan) -> BackwardLanesOut:
+    """K1's wide design on CUDA tensors (``plan.tc == 0``): the packed
+    stream as given, or formed from the tiles (:func:`_wide_stream`), then
+    one launch of ``csrc/backward_wide.cuh``."""
+    dm = getattr(derivs_tiles, "device", None)
+    if dm is not None and dm.second_order:
+        raise NotImplementedError(_wide_so(n, m))
+    per_lane = [v for v in (prev, eta, lims_lanes) if v is not None]
+    dev, stream = launch_device("backward_lanes", traj, lam, *per_lane)
+    dp = (traj if derivs_tiles is None
+          else _wide_stream(derivs_tiles, traj, n, m, params))
+    T, B = traj.shape[0], traj.shape[2]
+    S = OutLayout(n, m, emit).S
+    out = torch.empty((T, S, B), dtype=torch.float32, device=traj.device)
+    stats = torch.empty((4, B), dtype=torch.float32, device=traj.device)
+    lim = lims_host(lims, m)
+    lib = _build.wide_library()
+    rc = lib.ddp_backward_wide(
+        dp.data_ptr(), dp.shape[1], lam.data_ptr(), _ptr(prev), _ptr(eta),
+        out.data_ptr(), S, stats.data_ptr(), T, B, EMIT_CODE[emit],
+        reg_type, int(lims is not None or lims_lanes is not None),
+        lim.ctypes.data, _ptr(lims_lanes), n, m, int(qp_iters),
+        plan.blocks, plan.threads, plan.smem, dev, stream)
+    _build.check(lib, rc, "backward_lanes")
+    backward_lanes.launches += 1
+    backward_lanes.wide_launches += 1
+    return BackwardLanesOut(out=out, stats=stats)
 
 
 def backward_pass_pallas(derivs: Derivs, u: torch.Tensor, lam: torch.Tensor,

@@ -210,16 +210,52 @@ inline int k2_args(const float* traj, int s_traj, const float* gains,
 
 namespace {
 
-template <class Model>
-struct StepIn {
-  float x_old[Model::N], u_nom[Model::M], k[Model::M];
-  float K[Model::M][Model::N];
-};
-
 // ring slots of a step: [x_old, u_nom, k, K] (a variable template: device
 // code may not call a constexpr host function)
 template <class Model>
 constexpr int STEP_SLOTS = Model::N + 2 * Model::M + Model::M * Model::N;
+
+// A model whose step slots outgrow a block (plan.py::_k23_plan): the most
+// floats K2 or K3 keep after a ring of one step a chunk (K2's MAX_A
+// totals, K3's output buffer); K23_WIDE where two stages of one step and
+// those may not fit, so that the plan may take one stage; K23_DIRECT
+// where one does not fit either (plan.py::k23_direct, from ⟨64,14⟩): the
+// ring then holds [x_old, u_nom, k] alone and each candidate reads its K
+// row from device memory. Both false for every model of the kernel
+// library, whose code they leave as it was.
+template <class Model>
+constexpr long long K23_EXTRA =
+    RING_W * MAX_A > 2 * (Model::N + Model::M + 1) * RING_W
+        ? RING_W * MAX_A
+        : 2 * (Model::N + Model::M + 1) * RING_W;
+template <class Model>
+constexpr bool K23_WIDE =
+    4LL * (2LL * STEP_SLOTS<Model> * RING_W + K23_EXTRA<Model>) > MAX_SMEM;
+template <class Model>
+constexpr bool K23_DIRECT =
+    4LL * ((long long)STEP_SLOTS<Model> * RING_W + K23_EXTRA<Model>) >
+    MAX_SMEM;
+// the ring's slots a step
+template <class Model>
+constexpr int RING_SLOTS =
+    K23_DIRECT<Model> ? Model::N + 2 * Model::M : STEP_SLOTS<Model>;
+
+// one step's inputs: K as an array, or for a wide model a pointer to its
+// rows (in the ring, or with K23_DIRECT in device memory) and their stride
+template <class Model, bool WIDE = K23_WIDE<Model>>
+struct StepIn {
+  float x_old[Model::N], u_nom[Model::M], k[Model::M];
+  float K[Model::M][Model::N];
+};
+template <class Model>
+struct StepIn<Model, true> {
+  float x_old[Model::N], u_nom[Model::M], k[Model::M];
+  const float* Kp;
+  size_t ks;
+  __device__ __forceinline__ float Kv(int mi, int j) const {
+    return Kp[(size_t)(mi * Model::N + j) * ks];
+  }
+};
 
 // slot s of step t of the ring's input, at column 0, in device memory: the
 // trajectory's x, u slots, then the gains' k and K slots
@@ -252,6 +288,43 @@ DDP_UNROLL
   }
 }
 
+// a wide model's step (K23_WIDE): x_old, u_nom and k from the ring, K read
+// where it lies: after them in the ring, or with K23_DIRECT at step t of
+// the gains stream, column bl
+template <class Model>
+__device__ __forceinline__ void ring_step_wide(
+    const float* r, StepIn<Model, true>& s, const float* __restrict__ gains,
+    int s_g, int gK, int t, int bl, size_t sB) {
+  constexpr int N = Model::N, M = Model::M;
+DDP_UNROLL
+  for (int i = 0; i < N; ++i) s.x_old[i] = r[i * RING_W];
+DDP_UNROLL
+  for (int mi = 0; mi < M; ++mi) {
+    s.u_nom[mi] = r[(N + mi) * RING_W];
+    s.k[mi] = r[(N + M + mi) * RING_W];
+  }
+  if constexpr (K23_DIRECT<Model>) {
+    s.Kp = gains + ((size_t)t * s_g + gK) * sB + bl;
+    s.ks = sB;
+  } else {
+    s.Kp = r + (N + 2 * M) * RING_W;
+    s.ks = RING_W;
+  }
+}
+
+// step t's inputs at ring row r for any model
+template <class Model>
+__device__ __forceinline__ void step_in(const float* r, StepIn<Model>& s,
+                                        const float* __restrict__ gains,
+                                        int s_g, int gK, int t, int bl,
+                                        size_t sB) {
+  if constexpr (K23_WIDE<Model>) {
+    ring_step_wide<Model>(r, s, gains, s_g, gK, t, bl, sB);
+  } else {
+    ring_step<Model>(r, s);
+  }
+}
+
 // one rollout step t (the logical step 0…T-1, which the model's dynamics
 // and cost may read) of one candidate: control law, running cost, terminal
 // cost at the stored last state, model step
@@ -271,8 +344,13 @@ DDP_UNROLL
 DDP_UNROLL
   for (int mi = 0; mi < M; ++mi) {
     float v = s.u_nom[mi] + alpha * s.k[mi];
+    if constexpr (K23_WIDE<Model>) {
 DDP_UNROLL
-    for (int j = 0; j < N; ++j) v = v + s.K[mi][j] * dx[j];
+      for (int j = 0; j < N; ++j) v = v + s.Kv(mi, j) * dx[j];
+    } else {
+DDP_UNROLL
+      for (int j = 0; j < N; ++j) v = v + s.K[mi][j] * dx[j];
+    }
     u[mi] = clipp(v, lims.lo[mi], lims.hi[mi]);
   }
   const float c = P.cost(x, u, t);
@@ -307,7 +385,7 @@ forward_kernel(const float* __restrict__ traj, int s_traj,
                int tc, int stages, bool vec, bool ovec) {
   constexpr int N = Model::N, M = Model::M;
   constexpr int SO = N + M + 1;   // output slots [x, u, c]
-  constexpr int F = STEP_SLOTS<Model>;
+  constexpr int F = RING_SLOTS<Model>;
   extern __shared__ __align__(16) float ring[];
   const int lane = threadIdx.x & (RING_W - 1), w = threadIdx.x / RING_W;
   const int b0 = blockIdx.x * RING_W, b = b0 + lane;
@@ -353,6 +431,22 @@ forward_kernel(const float* __restrict__ traj, int s_traj,
         }
       }
     };
+    if constexpr (K23_WIDE<Model>) {
+      if (stages == 1) {
+        // one stage: chunk c is copied once chunk c-1 is consumed, two
+        // barriers a chunk (the candidates' too)
+        for (int c = 0; c < nc + EMIT; ++c) {
+          __syncthreads();         // chunk c-1 is consumed
+          if (EMIT && c > 0) flush(c - 1);
+          if (c < nc) {
+            issue(c);
+            cp_async_wait(0);
+            __syncthreads();       // chunk c is ready
+          }
+        }
+        return;
+      }
+    }
     for (int c = 0; c < stages - 1; ++c) issue(c);
     for (int c = 0; c < nc + EMIT; ++c) {
       if (c < nc) cp_async_wait(stages - 2);   // chunk c landed
@@ -375,6 +469,9 @@ DDP_UNROLL
   for (int i = 0; i < N; ++i) x[i] = x0[i * sB + bl];
 
   for (int c = 0; c < nc; ++c) {
+    if constexpr (K23_WIDE<Model>) {
+      if (stages == 1) __syncthreads();   // chunk c-1 is consumed
+    }
     __syncthreads();               // chunk c is ready, c-1 consumed
     const int t0 = c * tc, steps = min(tc, T - t0);
     const float* st = ring + (c % stages) * stage + lane;
@@ -382,7 +479,7 @@ DDP_UNROLL
     for (int tt = 0; tt < steps; ++tt) {
       const int t = t0 + tt;
       StepIn<Model> s;
-      ring_step<Model>(st + tt * F * RING_W, s);
+      step_in<Model>(st + tt * F * RING_W, s, gains, s_g, gK, t, bl, sB);
       const bool put = EMIT && w == 0;
       float* o = ob + tt * SO * RING_W;
       if (put) {
@@ -423,7 +520,7 @@ __device__ __forceinline__ void linesearch_body(
     const typename Model::Consts& mc, int tc, int stages, bool vec) {
   constexpr int N = Model::N, M = Model::M;
   constexpr int SO = N + M + 1;
-  constexpr int F = STEP_SLOTS<Model>;
+  constexpr int F = RING_SLOTS<Model>;
   extern __shared__ __align__(16) float ring[];
   const int lane = threadIdx.x & (RING_W - 1), w = threadIdx.x / RING_W;
   const int W = blockDim.x / RING_W;
@@ -524,7 +621,7 @@ DDP_UNROLL
       for (int tt = 0; tt < steps; ++tt) {
         const int t = t0 + tt;
         StepIn<Model> s;
-        ring_step<Model>(st + tt * F * RING_W, s);
+        step_in<Model>(st + tt * F * RING_W, s, gains, s_g, gK, t, bl, sB);
         float* o = out + (size_t)t * SO * sB + b;
         if (pass2 && live) {
 DDP_UNROLL
@@ -598,7 +695,7 @@ int launch_forward(const FwdArgs& a) {
   // with emission, the output buffer of two chunks after the ring
   const int extra = emit ? 2 * p.tc * (Model::N + Model::M + 1) * RING_W : 0;
   if (warps <= a.A || warps > K3_MAX_WARPS ||
-      !plan_ok(p, a.B, RING_W * warps, STEP_SLOTS<Model>, extra))
+      !plan_ok(p, a.B, RING_W * warps, RING_SLOTS<Model>, extra))
     return ERR_ARGS;
   const auto kernel = emit ? forward_kernel<Model, true>
                            : forward_kernel<Model, false>;
@@ -621,7 +718,7 @@ int launch_linesearch(const FwdArgs& a) {
   const RingPlan& p = a.plan;
   const bool rounds = a.A > K2_MAX_WARPS;
   if (!plan_ok(p, a.B, RING_W * (rounds ? K2_MAX_WARPS : a.A),
-               STEP_SLOTS<Model>, RING_W * a.A))
+               RING_SLOTS<Model>, RING_W * a.A))
     return ERR_ARGS;
   const bool vec = rows_aligned(a.B, a.traj) && rows_aligned(a.B, a.gains);
   if (rounds) {

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .plan import (LIBRARY_MAX_M, MAX_A, check_controls, forward_plan,
+from .plan import (LIBRARY_MAX_M, MAX_A, check_size, forward_plan,
                    k3_groups, linesearch_plan)
 
 # controls the kernel library is built for (csrc/common.cuh MAX_M,
@@ -251,12 +251,12 @@ def cuda_args(model_device: Optional[DeviceModel], what: str, n: int,
     instance group ``group`` (``_build.LOWERED_GROUPS``) is built at the
     first launch; so is that of ``tiles``, a user's lowered tiles
     (:class:`~.lower.LoweredTiles`), where given. An m above the ceiling
-    ``plan.MAX_CONTROLS`` raises NotImplementedError before anything is
-    lowered, built or launched. ``library``: for a
-    hand-written descriptor, a function that loads the library to launch in
-    place of the kernel library (a generated one). A lowering, build or
-    launch that fails raises."""
-    check_controls(m, what)
+    ``plan.MAX_CONTROLS``, or an n above ``plan.MAX_STATES``, raises
+    NotImplementedError before anything is lowered, built or launched.
+    ``library``: for a hand-written descriptor, a function that loads the
+    library to launch in place of the kernel library (a generated one). A
+    lowering, build or launch that fails raises."""
+    check_size(n, m, what)
     per_lane = [t for t in (lims_lanes, params) if t is not None]
     src = (tiles if tiles is not None
            else model_source(model_device, lanes, what, n, m, models))

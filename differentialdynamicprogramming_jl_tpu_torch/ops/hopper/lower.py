@@ -81,6 +81,13 @@ from . import _build
 # models are 1-4, the packed stream 0
 LOWERED_ID = 5
 LOWERED_TILES_ID = 6
+# a model whose dynamics and cost hold more than NOINLINE_OPS operations
+# between them has them emitted __noinline__, so that each of K2's and
+# K3's four kernels calls one compiled copy rather than inlining its own:
+# the LTI at ⟨54,21⟩ (8050 operations in its dynamics) took 228 s of nvcc
+# inlined, ⟨64,32⟩ 430 s. Below it (every model before, ⟨16,16⟩'s 1136
+# included) the functions stay __forceinline__ and their code as it was
+NOINLINE_OPS = 4096
 
 aten = torch.ops.aten
 
@@ -881,20 +888,23 @@ def _emit(low: Lowered, with_diff: bool) -> str:
           ""]
     dyn = low.fns["dynamics"]
     s = _carries_s(dyn)
+    cost = low.fns["cost"]
+    dyn_body, cost_body = _body(dyn, ind), _body(cost, ind)
+    spec = ("__noinline__" if len(dyn_body) + len(cost_body) > NOINLINE_OPS
+            else "__forceinline__")
     L += ["  template <class S>",
-          "  __device__ __forceinline__ void dynamics(const S (&x)[N], "
+          f"  __device__ {spec} void dynamics(const S (&x)[N], "
           "const S (&u)[M],",
           "                                           int t, S (&xn)[N]) "
           "const {"]
-    L += _body(dyn, ind)
+    L += dyn_body
     L += [f"{ind}xn[{i}] = {_out(dyn, o, s)};" for i, o in enumerate(dyn.outs)]
     L += ["  }", ""]
-    cost = low.fns["cost"]
     s = _carries_s(cost)
     L += ["  template <class S>",
-          "  __device__ __forceinline__ S cost(const S (&x)[N], "
+          f"  __device__ {spec} S cost(const S (&x)[N], "
           "const S (&u)[M], int t) const {"]
-    L += _body(cost, ind)
+    L += cost_body
     L += [f"{ind}return {_out(cost, cost.outs[0], s)};", "  }", ""]
     L += ["  template <class S>",
           "  __device__ __forceinline__ S terminal(const S (&x)[N]) const {"]

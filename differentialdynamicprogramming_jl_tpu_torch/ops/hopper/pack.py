@@ -134,17 +134,21 @@ def packed_from_tiles(tiles, n: int, m: int):
     :class:`DerivLayout` order with u appended. ``t`` is the step index as
     a (T, 1) int32 tensor, as the JAX generators pass it (``jnp.arange``),
     so that ``t * h`` has the f32 bits of K1's per-step tiles."""
-    lay = DerivLayout(n, m)
-
     def packed(x_s: torch.Tensor, u_s: torch.Tensor) -> torch.Tensor:
         T = u_s.shape[0]
         x = [x_s[:, i] for i in range(n)]
         u = [u_s[:, mi] for mi in range(m)]
         t = torch.arange(T, dtype=torch.int32, device=u_s.device)[:, None]
-        d = tiles(x, u, t)
-        slots = [v for f in DERIV_FIELDS for v in _flat(d[f])] + u
-        assert len(slots) == lay.D + m
-        shape = u_s[:, 0].shape
-        return torch.stack([s.expand(shape) for s in slots], dim=1)
+        return stack_tiles(tiles(x, u, t), u, n, m)
 
     return packed
+
+
+def stack_tiles(d: dict, u: list, n: int, m: int) -> torch.Tensor:
+    """The first-order fields of a tiles' result ``d`` on (T, B) slices and
+    the controls ``u`` (m slices), stacked into the (T, D+m, B) stream in
+    :class:`DerivLayout` order."""
+    slots = [v for f in DERIV_FIELDS for v in _flat(d[f])] + u
+    assert len(slots) == DerivLayout(n, m).D + m
+    shape = u[0].shape
+    return torch.stack([s.expand(shape) for s in slots], dim=1)

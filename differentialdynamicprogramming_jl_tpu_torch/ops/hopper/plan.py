@@ -28,6 +28,15 @@ The plan is made here and passed to the launcher, which checks it against
 its instance's slot count and refuses one that does not match. ``tc`` is a
 trait of the model's slot count F: the largest power of two up to
 ``TC_MAX`` whose ring fits the kernel's budget, cut to T.
+
+Sizes: the CUDA entries of K1-K3 take 1 ≤ n ≤ ``MAX_STATES`` and 1 ≤ m ≤
+``MAX_CONTROLS`` (:func:`check_size`). Where K1's ring and exchange do not
+fit a block (from n = 21 to 30, by m and mode), :func:`backward_plan`
+returns the wide design's plan (``tc == 0``, :func:`wide_plan`): one warp a
+scenario, its n×n and m×n terms in shared memory (``csrc/backward_wide.cu``).
+K2 and K3 take one ring stage where two do not fit, and where one stage of
+[x_old, u_nom, k, K] does not fit either (:func:`k23_direct`) their ring
+holds [x_old, u_nom, k] and each candidate reads its K from device memory.
 """
 from __future__ import annotations
 
@@ -44,7 +53,9 @@ RING_W = 32                # scenarios a block owns (csrc/ring.cuh)
 # loops over the model's dimensions (csrc/common.cuh DDP_ROLLED), its
 # per-scenario arrays in local memory: right, not fast.
 LIBRARY_MAX_M = 4
-MAX_CONTROLS = 16
+MAX_CONTROLS = 32
+# states: the ceiling of K1-K3 on the card, K4's COV_MAX_N
+MAX_STATES = 64
 MAX_SMEM = 232_448         # shared memory a block may opt into on sm_90
 MAX_STAGES = 4
 TC_MAX = 32
@@ -133,6 +144,16 @@ def check_controls(m: int, what: str) -> None:
             f"own m)")
 
 
+def check_size(n: int, m: int, what: str) -> None:
+    """:func:`check_controls`, and NotImplementedError for an n outside
+    1..MAX_STATES, the states K1-K3 take on the card."""
+    check_controls(m, what)
+    if not 1 <= n <= MAX_STATES:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernels take 1 ≤ n ≤ plan.MAX_STATES = "
+            f"{MAX_STATES} states, not n={n}")
+
+
 def k1_slots(n: int, m: int, gps: bool, packed: bool = False) -> int:
     """Ring slots of a K1 step: x, u, or with ``packed`` the D+m slots of
     the packed-derivatives stream; in GPS mode also the previous policy's
@@ -187,7 +208,9 @@ def backward_plan(n: int, m: int, gps: bool, emit: str, T: int,
     """K1: k1_warps compute warps and a producer warp a block, the ring of
     its x,u (with ``packed``, D+m) and GPS slots, then the compute warps'
     exchange (none with one compute warp, which keeps W and Vraw in
-    registers). A ring of one stage where two of one step do not fit."""
+    registers). A ring of one stage where two of one step do not fit; the
+    wide design (:func:`wide_plan`, ``tc == 0``) where one does not fit
+    either."""
     G = k1_warps(n, emit, gps, m)
     args = (k1_slots(n, m, gps, packed), T, B, RING_W * (G + 1),
             K1_PACKED_BUDGET if packed else K1_BUDGET,
@@ -195,9 +218,45 @@ def backward_plan(n: int, m: int, gps: bool, emit: str, T: int,
     try:
         return _plan(*args)
     except ValueError:
+        pass
+    try:
         # two stages of one step do not fit beside the exchange (GPS mode
         # at large n·m: 561 slots at ⟨16,16⟩): one stage
         return _plan(*args, stages=1)
+    except ValueError:
+        return wide_plan(n, m, T, B)
+
+
+# K1's wide design (csrc/backward_wide.cu): one warp a scenario, at most
+# WIDE_MAX_WARPS a block, each scenario's terms in shared memory
+# (wide_floats); one library for every (n, m), which it takes at run time
+WIDE_MAX_WARPS = 8
+
+
+def wide_floats(n: int, m: int) -> int:
+    """Shared floats of one scenario of the wide K1, in
+    csrc/backward_wide.cu's order: Vxx (Qxx, then Vraw, in place), Vx;
+    the step's fx and fu; W and U; Qx, the m×n terms Qux, Qux_r (then
+    Quu·K), K (GPS mode: first the previous K) and Σ⁻¹K; the m×m terms
+    Quu, QuuF, L; 16 m-vectors (the box QP's three candidates among
+    them) and its four values; rounded up to 16 bytes."""
+    f = (n * n + n + 2 * n * (n + m) + n + 4 * m * n + 3 * m * m + 16 * m
+         + 4)
+    return -(-f // 4) * 4
+
+
+def wide_plan(n: int, m: int, T: int, B: int) -> LaunchPlan:
+    """K1's wide design: as many scenarios (warps) a block as fit in its
+    shared memory, at most WIDE_MAX_WARPS; no ring (tc, stages and chunks
+    0)."""
+    _check_shape(T, B)
+    per = 4 * wide_floats(n, m)
+    S = min(WIDE_MAX_WARPS, MAX_SMEM // per)
+    if S < 1:
+        raise ValueError(f"launch plan: {per} shared bytes a scenario > "
+                         f"{MAX_SMEM}")
+    return LaunchPlan(blocks=-(-B // S), threads=RING_W * S, tc=0,
+                      stages=0, smem=S * per, chunks=0)
 
 
 def _check_A(A: int, most: int) -> None:
@@ -212,11 +271,60 @@ def k2_warps(A: int) -> int:
     return min(A, K2_MAX_WARPS)
 
 
+def k23_extra_max(n: int, m: int) -> int:
+    """The most floats K2 or K3 keep after their ring at one step a chunk:
+    K2's MAX_A totals, K3's output buffer."""
+    return max(RING_W * MAX_A, k3_out_floats(n, m, 1))
+
+
+def k23_direct(n: int, m: int) -> bool:
+    """Whether K2's and K3's ring holds only [x_old, u_nom, k] (n+2m
+    slots) and each candidate reads its K row from device memory: where
+    one stage of one step of all their slots, and the most they keep
+    after it, do not fit a block (from ⟨64,14⟩; ⟨54,21⟩ fits one stage).
+    csrc/forward.cuh K23_DIRECT is the same rule."""
+    return ring_bytes(1, 1, k2_slots(n, m), k23_extra_max(n, m)) > MAX_SMEM
+
+
+def _k23_plan(n: int, m: int, T: int, B: int, threads: int, extra: int,
+              out=lambda tc: 0) -> LaunchPlan:
+    """K2's and K3's ring and what follows it: ``extra`` floats within the
+    ring's budget (K2's totals), ``out(tc)`` floats beyond it (K3's output
+    buffer). Two stages where they fit, else one; the direct-K ring
+    (:func:`k23_direct`) of two stages, its chunk cut until the ring and
+    the output buffer fit the budget together."""
+    if k23_direct(n, m):
+        _check_shape(T, B)
+        slots = n + 2 * m
+        tc = TC_MAX
+        while tc > 1 and ring_bytes(STAGES, tc, slots,
+                                    extra + out(tc)) > K2_BUDGET:
+            tc //= 2
+        tc = min(tc, T)
+        return LaunchPlan(blocks=-(-B // RING_W), threads=threads, tc=tc,
+                          stages=STAGES, smem=ring_bytes(
+                              STAGES, tc, slots, extra + out(tc)),
+                          chunks=-(-T // tc))
+    slots = k2_slots(n, m)
+    try:
+        p = _plan(slots, T, B, threads, K2_BUDGET, extra)
+        smem = p.smem + 4 * out(p.tc)
+        if smem <= MAX_SMEM:
+            return p._replace(smem=smem)
+    except ValueError:
+        pass
+    # two stages do not fit (⟨54,21⟩: 1230 slots, 157,440 bytes a stage)
+    p = _plan(slots, T, B, threads, K2_BUDGET, extra, stages=1)
+    smem = p.smem + 4 * out(p.tc)
+    if smem > MAX_SMEM:
+        raise ValueError(f"launch plan: {smem} shared bytes > {MAX_SMEM}")
+    return p._replace(smem=smem)
+
+
 def linesearch_plan(n: int, m: int, A: int, T: int, B: int) -> LaunchPlan:
     """K2: :func:`k2_warps` warps a block, the ring of its x_old, u_nom, k,
-    K slots, then the A candidates' totals."""
-    return _plan(k2_slots(n, m), T, B, RING_W * k2_warps(A), K2_BUDGET,
-                 RING_W * A)
+    K slots (:func:`_k23_plan`), then the A candidates' totals."""
+    return _k23_plan(n, m, T, B, RING_W * k2_warps(A), RING_W * A)
 
 
 def k3_warps(A: int) -> int:
@@ -246,15 +354,9 @@ def forward_plan(n: int, m: int, A: int, T: int, B: int,
     candidate warps a block and :func:`k3_warps` in all, the ring of K2's
     x_old, u_nom, k, K slots, and with ``emit`` the output buffer after
     it."""
-    warps = k3_warps(A)
-    p = _plan(k2_slots(n, m), T, B, RING_W * warps, K2_BUDGET, 0)
-    if not emit:
-        return p
-    smem = ring_bytes(p.stages, p.tc, k2_slots(n, m),
-                      k3_out_floats(n, m, p.tc))
-    if smem > MAX_SMEM:
-        raise ValueError(f"launch plan: {smem} shared bytes > {MAX_SMEM}")
-    return p._replace(smem=smem)
+    return _k23_plan(n, m, T, B, RING_W * k3_warps(A), 0,
+                     (lambda tc: k3_out_floats(n, m, tc)) if emit
+                     else (lambda tc: 0))
 
 
 def probe_plan(mode: str, T: int, B: int) -> LaunchPlan:

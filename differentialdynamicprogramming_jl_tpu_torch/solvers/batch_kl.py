@@ -58,6 +58,18 @@ def _logdet_tiles(S, m):
                      for j in range(m)), ok
 
 
+def _seq(P: torch.Tensor) -> torch.Tensor:
+    """Σ over the two axes after the first of P (…, T, a, b, B) in the
+    order of Python's nested generator (a outer, b inner), left to right
+    from the first term: each element summed as :func:`_sum` sums the
+    list of its terms, the terms of every element added at once."""
+    Q = P.reshape(P.shape[:-3] + (-1, P.shape[-1]))
+    s = Q[..., 0, :]
+    for q in range(1, Q.shape[-2]):
+        s = s + Q[..., q, :]
+    return s
+
+
 def kl_div_wiki_lanes(mu, sxx, k_n, K_n, S_n, k_p, K_p, Si_p, n: int,
                       m: int):
     """Per-step policy KL on streams (``kl_div_wiki``,
@@ -65,32 +77,33 @@ def kl_div_wiki_lanes(mu, sxx, k_n, K_n, S_n, k_p, K_p, Si_p, n: int,
     (T, n², B); policies as slot streams; ``Si_p`` is the previous Σ⁻¹, so
     ``logdet Σp = -logdet Σp⁻¹``. Returns ``(kl, pd_ok)``, each (T, B);
     ``pd_ok`` flags both covariances positive definite. The clamp at 0 keeps
-    NaN, as ``jnp.maximum`` does."""
-    kd = [k_p[:, i] - k_n[:, i] for i in range(m)]
-    Kd = [[K_p[:, i * n + j] - K_n[:, i * n + j] for j in range(n)]
-          for i in range(m)]
-    Sip = [[Si_p[:, i * m + j] for j in range(m)] for i in range(m)]
-    Sn = [[S_n[:, i * m + j] for j in range(m)] for i in range(m)]
+    NaN, as ``jnp.maximum`` does. Each sum runs in the JAX order from its
+    first term; the elements of a product are formed together, and sums of
+    equal length over the same lanes are taken together (:func:`_seq`),
+    so that an evaluation at ⟨54,21⟩ launches ≈4.5k device operations
+    rather than ≈194k."""
+    T, B = mu.shape[0], mu.shape[-1]
+    kd = k_p - k_n                                        # (T, m, B)
+    Kd = (K_p - K_n).reshape(T, m, n, B)
+    Sip = Si_p.reshape(T, m, m, B)
+    Sn = S_n.reshape(T, m, m, B)
 
-    tr_term = _sum(Sip[i][j] * Sn[j][i] for i in range(m) for j in range(m))
-    kk = _sum(kd[i] * Sip[i][j] * kd[j] for i in range(m) for j in range(m))
+    tr_term, kk = _seq(torch.stack([
+        Sip * Sn.transpose(1, 2),
+        kd[:, :, None] * Sip * kd[:, None, :]]))
     ld_p, ok_p = _logdet_tiles(Si_p, m)
     ld_n, ok_n = _logdet_tiles(S_n, m)
     ld = -ld_p - ld_n
     kl = 0.5 * (tr_term + kk - float(m) + ld)
 
-    SipKd = [[_sum(Sip[i][a] * Kd[a][j] for a in range(m))
-              for j in range(n)] for i in range(m)]
-    KdSipKd = [[_sum(Kd[a][i] * SipKd[a][j] for a in range(m))
-                for j in range(n)] for i in range(n)]
-    muv = [mu[:, i] for i in range(n)]
-    kl = kl + 0.5 * (
-        _sum(muv[i] * KdSipKd[i][j] * muv[j]
-             for i in range(n) for j in range(n))
-        + _sum(KdSipKd[i][j] * sxx[:, j * n + i]
-               for i in range(n) for j in range(n)))
-    kl = kl + _sum(kd[i] * SipKd[i][j] * muv[j]
-                   for i in range(m) for j in range(n))
+    SipKd = _sum(Sip[:, :, a, None] * Kd[:, a, None, :] for a in range(m))
+    KdSipKd = _sum(Kd[:, a, :, None] * SipKd[:, a, None, :]
+                   for a in range(m))
+    mu_term, sxx_term = _seq(torch.stack([
+        mu[:, :, None] * KdSipKd * mu[:, None, :],
+        KdSipKd * sxx.reshape(T, n, n, B).transpose(1, 2)]))
+    kl = kl + 0.5 * (mu_term + sxx_term)
+    kl = kl + _seq(kd[:, :, None] * SipKd * mu[:, None, :])
     return torch.clamp_min(kl, 0.0), ok_p & ok_n
 
 

@@ -426,11 +426,11 @@ def test_lti_other_sizes_raise_on_card(dev):
                          device=linear.device_model(spec))
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
         fk.forward_lanes(k.traj, gains0, x0, al, model=hand, lims=LTI_LIMS)
-    spec17 = linear.random_lti(1, n=4, m=17, T=T, device=dev)
+    spec33 = linear.random_lti(1, n=4, m=33, T=T, device=dev)
     with pytest.raises(NotImplementedError, match="MAX_CONTROLS"):
-        fk.forward_lanes(torch.zeros((T, 22, B), **f32),
-                         torch.zeros((T, 85, B), **f32), x0, al,
-                         model=linear.lti_lanes(spec17), lims=None)
+        fk.forward_lanes(torch.zeros((T, 38, B), **f32),
+                         torch.zeros((T, 165, B), **f32), x0, al,
+                         model=linear.lti_lanes(spec33), lims=None)
 
 
 def test_lti_solver_on_card_matches_cpu(dev):
@@ -1671,7 +1671,7 @@ def test_lti3_forward_and_linesearch_match_plain(dev, lims, B, T):
 
 
 def test_m_above_max_m_refused_on_card(dev):
-    """m = 17 > plan.MAX_CONTROLS: the entries refuse it before anything is
+    """m = 33 > plan.MAX_CONTROLS: the entries refuse it before anything is
     lowered, built or launched. The kernel library is built for m ≤ MAX_M
     = 4: its C launchers return ERR_ARGS (-2) for m = 5 rather than drop
     the controls past MAX_M (a larger m runs from a library generated for
@@ -1680,12 +1680,12 @@ def test_m_above_max_m_refused_on_card(dev):
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
         _build, plan)
     Tc, Bc = 4, 8
-    spec = linear.random_lti(0, n=10, m=17, T=Tc, device=dev)
-    # no descriptor at <10,17>: the tiles' launch refuses m before lowering
+    spec = linear.random_lti(0, n=10, m=33, T=Tc, device=dev)
+    # no descriptor at <10,33>: the tiles' launch refuses m before lowering
     with pytest.raises(NotImplementedError, match="MAX_CONTROLS"):
-        bk.backward_lanes(torch.zeros((Tc, 28, Bc), device=dev),
-                          torch.ones(Bc, device=dev), n=10, m=17, reg_type=1,
-                          lims=((-1.0, 1.0),) * 17,
+        bk.backward_lanes(torch.zeros((Tc, 44, Bc), device=dev),
+                          torch.ones(Bc, device=dev), n=10, m=33, reg_type=1,
+                          lims=((-1.0, 1.0),) * 33,
                           derivs_tiles=linear.lti_derivs_tiles(spec))
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -2585,7 +2585,7 @@ def test_many_controls_solvers_on_card(dev, controls_built):
 
 
 def test_m_above_ceiling_refused_before_build(dev, monkeypatch):
-    """m = 17: K1, K2 and K3 on CUDA tensors raise naming the ceiling and
+    """m = 33: K1, K2 and K3 on CUDA tensors raise naming the ceiling and
     never reach a build or a lowering."""
     from differentialdynamicprogramming_jl_tpu_torch.models import linear
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
@@ -2597,7 +2597,7 @@ def test_m_above_ceiling_refused_before_build(dev, monkeypatch):
     for mod, name in ((_build, "build_generated"), (lower, "lower"),
                       (lower, "lower_tiles")):
         monkeypatch.setattr(mod, name, refuse)
-    n, m = 4, 17
+    n, m = 4, 33
     spec = linear.random_lti(1, n=n, m=m, T=T, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     traj = torch.zeros((T, n + m + 1, B), **f32)
@@ -2643,3 +2643,90 @@ def test_tie_model_is_bit_equal_to_plain(dev):
         a = bk.backward_lanes(traj, lam, **kw)
         b = bk.backward_lanes_ref(traj, lam, **kw)
         assert torch.equal(a.out, b.out) and torch.equal(a.stats, b.stats)
+
+
+# ---- sizes past the lane design: the wide K1, K2 and K3 past their ring --
+# (tools_torch/wide.py); each bit for bit its plain version
+
+
+@pytest.mark.parametrize("n, m, gps, emit", [
+    (n, m, gps, emit) for (n, m), modes in __import__(
+        "tools_torch.wide", fromlist=["CHECKS"]).CHECKS.items()
+    for gps, emit in modes])
+def test_wide_k1_is_bit_equal_to_plain(dev, n, m, gps, emit):
+    """K1's wide design (one warp a scenario, plan tc = 0) at the smallest
+    sizes where the plan takes it, from the LTI tiles (the stream formed
+    with torch), ±0.6 and reg_type 2 without GPS mode, per-step η and
+    reg_type 1 in it, B = 37 (a block's last warps idle), T = 3."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    from tools_torch import wide
+    Tw, Bw = 3, 37
+    assert bk.backward_plan(n, m, gps, emit, Tw, Bw).tc == 0
+    spec = linear.random_lti(1, n=n, m=m, T=Tw, device=dev)
+    traj, lam, prev, eta = wide.k1_inputs(n, m, Tw, Bw, 7, dev)
+    kw = dict(n=n, m=m, derivs_tiles=linear.lti_derivs_tiles(spec),
+              emit=emit, reg_type=1 if gps else 2,
+              lims=None if gps else ((-wide.BOX, wide.BOX),) * m)
+    if gps:
+        kw.update(prev=prev, eta=eta)
+    n0 = bk.backward_lanes.wide_launches
+    a = bk.backward_lanes(traj, lam, **kw)
+    assert bk.backward_lanes.wide_launches == n0 + 1
+    b = bk.backward_lanes_ref(traj, lam, **kw)
+    assert torch.equal(a.out, b.out) and torch.equal(a.stats, b.stats)
+
+
+@pytest.mark.parametrize("n, m", [(54, 21), (64, 32)])
+def test_wide_k1_matches_cpu_plain(dev, n, m):
+    """The wide K1 at the humanoid's size and at the ceiling ("gains",
+    ±0.6, the m > 2 box QP), T = 2, against the plain version on CPU
+    tensors: bit for bit (the LTI has no transcendental functions, and the
+    plain version's square roots are correctly rounded)."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    from tools_torch import wide
+    Tw, Bw = 2, 8
+    traj, lam, _, _ = wide.k1_inputs(n, m, Tw, Bw, 11, dev)
+    kw = dict(n=n, m=m, reg_type=2, lims=((-wide.BOX, wide.BOX),) * m,
+              emit="gains")
+    a = bk.backward_lanes(traj, lam, derivs_tiles=linear.lti_derivs_tiles(
+        linear.random_lti(0, n=n, m=m, T=Tw, device=dev)), **kw)
+    b = bk.backward_lanes_ref(traj.cpu(), lam.cpu(),
+                              derivs_tiles=linear.lti_derivs_tiles(
+                                  linear.random_lti(0, n=n, m=m, T=Tw,
+                                                    device="cpu")), **kw)
+    assert torch.equal(a.out.cpu(), b.out)
+    assert torch.equal(a.stats.cpu(), b.stats)
+
+
+@pytest.mark.parametrize("n, m", [(54, 21), (64, 32)])
+def test_k2_k3_past_their_ring_are_bit_equal(dev, n, m):
+    """K3 (the 6-α sweep, the emitting rollout) and K2 (A = 6 and 11) on
+    the lowered LTI where two ring stages do not fit a block: ⟨54,21⟩
+    (random_lti) with one stage, ⟨64,32⟩ (wide.sparse_lti, fast to lower
+    and build) with x_old, u_nom and k in the ring and K read from device
+    memory; T = 2, B = 37, ±0.6; bit for bit the plain versions."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import linear
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import plan
+    from tools_torch import wide
+    Tw, Bw = 2, 37
+    assert plan.k23_direct(n, m) == ((n, m) == (64, 32))
+    spec = (linear.random_lti(1, n=n, m=m, T=Tw, device=dev)
+            if (n, m) == wide.HUMANOID else
+            wide.sparse_lti(linear.LTISpec, n, m, Tw, dev))
+    model = linear.lti_lanes(spec)
+    traj, gains, x0, sel = wide.k23_inputs(n, m, Tw, Bw, 3, dev)
+    lims = ((-wide.BOX, wide.BOX),) * m
+    for A, emit in ((6, False), (1, True)):
+        al = torch.rand((A, Bw), device=dev)
+        k, p = (f(traj, gains, x0, al, model=model, lims=lims,
+                  emit_traj=emit)
+                for f in (fk.forward_lanes, fk.forward_lanes_ref))
+        assert torch.equal(k.totals, p.totals)
+        assert torch.equal(k.terminal, p.terminal)
+        if emit:
+            assert torch.equal(k.traj, p.traj)
+    for alphas in (ALPHAS, default_alphas(0.2, -3.0, 11)):
+        k, p = (f(traj, gains, x0, sel, model=model, alphas=alphas,
+                  reduce_ratio_min=0.0, lims=lims)
+                for f in (fk.linesearch_lanes, fk.linesearch_lanes_ref))
+        assert torch.equal(k.traj, p.traj) and torch.equal(k.ls, p.ls)

@@ -351,7 +351,8 @@ def test_linesearch_m3_matches_jax():
 
 # ---- what the card refuses -----------------------------------------------
 
-@pytest.mark.parametrize("n,m", [(10, 5), (4, 3), (10, 4), (4, 17)])
+@pytest.mark.parametrize("n,m", [(10, 5), (4, 3), (10, 4), (4, 17),
+                                 (4, 33)])
 def test_unbuilt_m_refused_before_launch(n, m):
     """On tensors off the CPU (the meta device, which needs no card) the
     hand-written LTI's descriptor at an (n, m) with no CUDA instance raises

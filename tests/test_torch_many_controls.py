@@ -16,7 +16,7 @@ that the card's libraries for larger m are built from.
 - The drivers at m ∈ {5, 7}: the fleet scheduler against its lock-step
   call, the MPC loop, ``reduce_stats`` of the sharded entries, and
   ``kl_div_wiki_lanes``'s log-determinant against JAX's.
-- ``plan.py`` at m ∈ {5, 7, 8, 16} and the ceiling at m = 17 (the meta
+- ``plan.py`` at m ∈ {5, 7, 8, 16} and the ceiling at m = 33 (the meta
   device, no card), and the emitted source of a library for m = 7 (text
   only, no nvcc).
 
@@ -463,10 +463,10 @@ def test_plans_at_m(m):
 @pytest.mark.parametrize("entry", ["backward", "forward", "linesearch",
                                    "packed"])
 def test_m_above_ceiling_refused(entry):
-    """m = 17 > plan.MAX_CONTROLS on tensors off the CPU (the meta device,
+    """m = 33 > plan.MAX_CONTROLS on tensors off the CPU (the meta device,
     which needs no card): each entry raises NotImplementedError naming the
     ceiling before anything is lowered or built."""
-    n, m = 4, 17
+    n, m = 4, 33
     spec = tl.random_lti(0, n=n, m=m, T=T, device="cpu")
     meta = dict(device="meta")
     traj = torch.zeros((T, n + m + 1, B), **meta)
@@ -474,7 +474,7 @@ def test_m_above_ceiling_refused(entry):
     gains = torch.zeros((T, m + m * n, B), **meta)
     lims = ((-1.0, 1.0),) * m
     n0 = bk.backward_lanes.launches
-    with pytest.raises(NotImplementedError, match="MAX_CONTROLS = 16"):
+    with pytest.raises(NotImplementedError, match="MAX_CONTROLS = 32"):
         if entry == "backward":
             bk.backward_lanes(traj, torch.zeros(B, **meta), n=n, m=m,
                               reg_type=1, lims=lims,

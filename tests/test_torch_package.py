@@ -88,9 +88,12 @@ def test_kernel_sources_and_signatures():
     for name in _build.SOURCES:
         text = (_build.CSRC / name).read_text()
         assert "use_fast_math" not in text
+    # K1's wide design is a library of its own, its entry point in the
+    # source _build generates for it
+    texts = [(_build.CSRC / s).read_text() for s in _build.SOURCES]
+    texts.append(_build.wide_source())
     for name in _build.SIGNATURES:
-        assert any(f'extern "C" int {name}(' in (_build.CSRC / s).read_text()
-                   for s in _build.SOURCES), name
+        assert any(f'extern "C" int {name}(' in text for text in texts), name
     assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
     assert "--use_fast_math" not in _build.FLAGS
     # the build directory is one .gitignore lists
