@@ -21,7 +21,7 @@ ends the run with a non-zero exit and no result line:
    the bit-exact α=0 retrace of rejected lanes;
 5. the same solve on 64 scenarios with CUDA tensors; the CPU's solve runs
    in an ``--early-cpu`` child from the build on (with phase 9's), and
-   phase 71 compares them;
+   phase 77 compares them;
 6. quadrotor kernels (n=6, m=2, thrust box (0, 5)): K3, K1
    Autodiff<Quadrotor> (derivatives by forward-mode autodiff in the kernel)
    and K2 against their plain versions, timed at B=4096, T=400; K1
@@ -33,7 +33,7 @@ ends the run with a non-zero exit and no result line:
    with launch counts, histograms, ms per iteration, peak memory, the
    thrust box and the bit-exact α=0 retrace;
 9. the quadrotor solve on 64 scenarios with CUDA tensors (the CPU's in
-   the ``--early-cpu`` child, compared in phase 71);
+   the ``--early-cpu`` child, compared in phase 77);
 10. KL kernels against their plain versions at B=4096, T=500 on a real
     pre-roll: K3 without limits, K4 (bit for bit, with its plan and
     registers), K1 in GPS mode with policy emission; K4 at n=6 on a seeded
@@ -41,7 +41,8 @@ ends the run with a non-zero exit and no result line:
 11. the KL path: ``ilqgkl_batch_lanes`` at the JAX KL tier's settings
     (``bench.py:114-132``), with launch counts, ms per solve and quality;
 12. ``gps_rollout_lanes``, 5 outer KL solves at the same size;
-13. the KL solve on 64 scenarios with CUDA tensors and with CPU tensors;
+13. the KL solve on 64 scenarios with CUDA tensors (the CPU's in the
+    ``--early-cpu`` child, compared in phase 77);
 14. LTI kernels (K3, K1 with the m=2 box-QP enumeration and without
     limits, K2) at n=10, m=2 against their plain versions, and their times
     at the LTI fleet's shapes (B=4096, T=1000);
@@ -49,7 +50,8 @@ ends the run with a non-zero exit and no result line:
     ``tools/bench_fleet.py --lti`` (n=10, m=2, T=1000, B=4096, ±0.6),
     solved to convergence, with launch counts, histograms, ms per
     iteration, peak memory and the bit-exact α=0 retrace;
-16. the LTI solve on 64 scenarios with CUDA tensors and with CPU tensors;
+16. the LTI solve on 64 scenarios with CUDA tensors (the CPU's in the
+    ``--early-cpu`` child, compared in phase 77);
 17. KL-on-LTI kernels: K4 at n=10 (bit for bit) and K1 in GPS mode with
     policy emission at ⟨10,2⟩ against their plain versions, and their times
     at B=4096, T=1000;
@@ -58,8 +60,8 @@ ends the run with a non-zero exit and no result line:
     solve and per iteration, peak memory, quality and a torch.profiler
     split of one solve into kernel time, glue time and device idle share;
 19. the 5-outer ``gps_rollout_lanes`` on the LTI fleet;
-20. the KL-on-LTI solve on 64 scenarios at T=40 with CUDA tensors and with
-    CPU tensors;
+20. the KL-on-LTI solve on 64 scenarios at T=40 with CUDA tensors (the
+    CPU's in the ``--early-cpu`` child, compared in phase 77);
 21. heterogeneous kernels at B=4096: the PendCartParam K3, K1 (gains,
     full) and K2 (per-scenario pole length and damping) with per-scenario
     limits against their plain versions at T=500; per-scenario limits on
@@ -69,8 +71,9 @@ ends the run with a non-zero exit and no result line:
     each timed with its bound;
 22. the heterogeneous path: ``ilqg_batch_lanes`` on the parametrised
     pendcart fleet with per-scenario limits at the headline settings, each
-    lane's controls held to its own box, GPU against CPU on 64 lanes; and
-    an LTI solve with a per-scenario box;
+    lane's controls held to its own box, GPU against CPU on 64 lanes (the
+    CPU's in the ``--early-cpu`` child, compared in phase 77); and an LTI
+    solve with a per-scenario box;
 23. the MPC path's kernel instances (K3 at α=1, K1 gains and full, K2
     with the 4-α ladder fresh and in place, pendcart and PendCartParam)
     against their plain versions at its shapes, with their times and
@@ -80,7 +83,8 @@ ends the run with a non-zero exit and no result line:
     and host syncs per step, a torch.profiler split of one chunk, peak
     memory; a chunk with per-scenario parameters and limits; the MPC step
     ``ilqg_iteration_lanes`` (K2 in place) on the MPC state; GPU against
-    CPU on 64 lanes over 3 steps;
+    CPU on 64 lanes over 3 steps (the CPU's in the ``--early-cpu`` child,
+    compared in phase 77);
 24. the probe K5 (copy, light and full modes) against its plain version,
     with its times and achieved bandwidth;
 25. generic boxQP (no kernel: plain PyTorch on the card, f64):
@@ -312,10 +316,32 @@ ends the run with a non-zero exit and no result line:
     wide K1 in GPS policy; kl_div_wiki_lanes timed and profiled;
 70. the humanoid group, humanoid-gpu-vs-cpu: 16 lanes at T=4 of the fleet
     and of KL against the ``--humanoid-cpu`` child's plain solves;
-71. early-gpu-vs-cpu: phases 5 and 9's card solves against the
-    ``--early-cpu`` child's CPU solves (cost, reason and accepted count on
-    64 lanes);
-72. the kernel record (one entry per kernel instance, with its bound; an
+71. the sources group, sources-kernels: every K1 instance of a public
+    derivative source that the fleet entries reach (Autodiff<LTI> at
+    <10,2> and <10,3>, first and second order; Autodiff<PendCartParam>,
+    first and second order; the GPS policy of Autodiff<PendCart>,
+    Autodiff<PendCart,SO>, PendCartSO and Autodiff<Quadrotor,SO>; the
+    lowered pendcart's and a user's second-order tiles in GPS mode, their
+    libraries built in a thread from the controls group's start, the
+    sources library from the main build on), B=512, T=9-17, bit for bit
+    its plain version on the card (out, stats);
+72. the sources group, kl-ad: the KL tier (pendcart, B=4096, T=500,
+    kl_step 2) with autodiff_derivs_tiles against the analytic tiles;
+73. the sources group, lti-ad: the LTI fleet (<10,2>, T=1000, B=4096,
+    ±0.6, to convergence) with autodiff_derivs_tiles(lti_lanes(spec)),
+    then KL on it, each against lti_derivs_tiles;
+74. the sources group, hetero-ad: the heterogeneous headline
+    (PendCartParam, per-scenario l, d and limits, B=4096, T=500) with
+    autodiff tiles against pendcart_derivs_tiles_param;
+75. the sources group, kl-ddp: the KL tier with pendcart_derivs_tiles_so
+    against the first-order tiles;
+76. the sources group, sources-gpu-vs-cpu: each path on a lane subset
+    against the ``--sources-cpu`` child's plain solves;
+77. early-gpu-vs-cpu: phases 5, 9, 13, 16, 20, 22 and 23's card solves
+    against the ``--early-cpu`` child's CPU solves (cost, reason and
+    accepted count, for KL satisfied and iterations, on 64 lanes; the MPC
+    loop's states and costs);
+78. the kernel record (one entry per kernel instance, with its bound; an
     instance on no path with the launches of its check) and the result
     line.
 """
@@ -686,6 +712,12 @@ def ptxas_summary(log: str):
 # the kernels' model types as nvcc mangles them (a template argument
 # list's prefix), and their names here
 MANGLED_MODELS = (
+    ("NS_8AutodiffINS_3LTIILi10ELi2EEELb1EEE", "Autodiff<LTI<10,2>,SO>"),
+    ("NS_8AutodiffINS_3LTIILi10ELi2EEELb0EEE", "Autodiff<LTI<10,2>>"),
+    ("NS_8AutodiffINS_3LTIILi10ELi3EEELb1EEE", "Autodiff<LTI<10,3>,SO>"),
+    ("NS_8AutodiffINS_3LTIILi10ELi3EEELb0EEE", "Autodiff<LTI<10,3>>"),
+    ("NS_8AutodiffINS_13PendCartParamELb1EEE", "Autodiff<PendCartParam,SO>"),
+    ("NS_8AutodiffINS_13PendCartParamELb0EEE", "Autodiff<PendCartParam>"),
     ("NS_3LTIILi10ELi2EEE", "LTI<10,2>"),
     ("NS_3LTIILi10ELi3EEE", "LTI<10,3>"),
     ("NS_8AutodiffINS_9QuadrotorELb1EEE", "Autodiff<Quadrotor,SO>"),
@@ -823,7 +855,10 @@ def model_ops(model) -> dict:
         (0, n * n), (n * n, n * n + n * m), (n * n + n * m, 2 * n * n + n * m),
         (2 * n * n + n * m, 2 * n * n + n * m + m * m))]
     nA, nB, nQ, nR = nz
-    return dict(step=2 * (nA + nB) + 4 * (nQ + nR), derivs=2 * (nQ + nR))
+    # linear dynamics: full DDP's Hessian entries are zeros, formed by no
+    # operation (their contraction is counted by k1_work)
+    return dict(step=2 * (nA + nB) + 4 * (nQ + nR), derivs=2 * (nQ + nR),
+                so=0)
 
 
 def rollout_ops(model) -> int:
@@ -1024,9 +1059,11 @@ def profile_split(fn):
                 by_kernel=by_kernel, idle_share=1.0 - busy / 1e3 / wall_ms)
 
 
-def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> dict:
+def kl_phases(ph, dev, rec, counters, model, tiles, spec,
+              early_gpu: dict) -> dict:
     """Phases 10-13: the KL/GPS path's kernels against their plain versions,
-    the KL solve, the GPS rollout, and the KL solve against the CPU. Adds
+    the KL solve, the GPS rollout, and the KL solve of B_CPU lanes that
+    early-gpu-vs-cpu compares with the CPU's (``early_gpu["kl"]``). Adds
     the KL measurements to ``rec``; returns the launches of the KL and GPS
     paths."""
     from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
@@ -1243,30 +1280,18 @@ def kl_phases(ph, dev, rec, counters, model, tiles, spec) -> dict:
 
     ph.start("kl-gpu-vs-cpu", f"first {B_CPU} scenarios, T={T}, "
              f"max_iter={KL_ITERS}")
-    sl = slice(0, B_CPU)
-    g = kl_solve(sl)
-    t0 = time.perf_counter()
-    c = kl_solve(sl, "cpu")
-    print(f"  CPU KL solve (plain versions): {time.perf_counter() - t0:.1f} s")
-    gc, cc = g.cost_total.cpu(), c.cost_total
-    rel = (gc - cc).abs() / cc.abs()
-    close = (rel <= COST_RTOL).float().mean().item()
-    same_sat = (g.satisfied.cpu() == c.satisfied).float().mean().item()
-    same_it = (g.n_iters.cpu() == c.n_iters).float().mean().item()
-    print(f"  cost_total rel diff: max {rel.max().item():.3e}, median "
-          f"{rel.median().item():.3e}")
-    print(f"  share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
-          f"satisfied {same_sat:.3f}, same n_iters {same_it:.3f} (need "
-          f"{AGREE_SHARE} each)")
-    check(min(close, same_sat, same_it) >= AGREE_SHARE,
-          "KL: GPU and CPU outcomes differ")
+    early_gpu["kl"] = kl_solve(slice(0, B_CPU))
+    print("  the card's solve; the CPU's, in the --early-cpu child, is "
+          "compared in early-gpu-vs-cpu")
     return paths
 
 
-def lti_phases(ph, dev, rec, counters) -> dict:
+def lti_phases(ph, dev, rec, counters, early_gpu: dict) -> dict:
     """Phases 14-16: the LTI ⟨10,2⟩ kernels against their plain versions,
-    the LTI fleet solve, and the LTI solve against the CPU. Adds the LTI
-    measurements to ``rec[name]["lti"]``; returns the LTI path's launches."""
+    the LTI fleet solve, and the LTI solve of B_CPU lanes at LTI_T_CPU that
+    early-gpu-vs-cpu compares with the CPU's (``early_gpu["lti"]``). Adds
+    the LTI measurements to ``rec[name]["lti"]``; returns the LTI path's
+    launches."""
     from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
         lti_derivs_tiles, lti_lanes, random_lti)
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
@@ -1500,33 +1525,21 @@ def lti_phases(ph, dev, rec, counters) -> dict:
 
     ph.start("lti-gpu-vs-cpu", f"first {B_CPU} scenarios, T={LTI_T_CPU}, "
              f"max_iter={cfg.max_iter}")
-    x0c, u0c = x0s[:B_CPU], u0s[:B_CPU, :LTI_T_CPU].contiguous()
-    g = solve(x0c, u0c)
-    t0 = time.perf_counter()
-    c = solve(x0c.cpu(), u0c.cpu())
-    print(f"  CPU LTI solve (plain versions), T={LTI_T_CPU}: "
-          f"{time.perf_counter() - t0:.1f} s")
-    gc, cc = g.cost_total.cpu(), c.cost_total
-    rel = (gc - cc).abs() / cc.abs()
-    close = (rel <= COST_RTOL).float().mean().item()
-    same_reason = (g.reason.cpu() == c.reason).float().mean().item()
-    same_acc = (g.n_accepted.cpu() == c.n_accepted).float().mean().item()
-    print(f"  cost_total rel diff: max {rel.max().item():.3e}, median "
-          f"{rel.median().item():.3e}")
-    print(f"  share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
-          f"reason {same_reason:.3f}, same accepted count {same_acc:.3f} "
-          f"(need {AGREE_SHARE} each)")
-    check(min(close, same_reason, same_acc) >= AGREE_SHARE,
-          "LTI: GPU and CPU outcomes differ")
+    early_gpu["lti"] = solve(x0s[:B_CPU],
+                             u0s[:B_CPU, :LTI_T_CPU].contiguous())
+    print("  the card's solve; the CPU's, in the --early-cpu child, is "
+          "compared in early-gpu-vs-cpu")
     return launches
 
 
-def kl_lti_phases(ph, dev, rec, counters) -> dict:
+def kl_lti_phases(ph, dev, rec, counters, early_gpu: dict) -> dict:
     """Phases 17-20: the KL/GPS path on the LTI fleet. K4 at n=10 and K1 in
     GPS mode with policy emission at ⟨10,2⟩ against their plain versions,
     the KL solve of the reference's demo_linear_kl at fleet scale, the
-    5-outer GPS rollout, and the KL solve against the CPU. Adds the
-    measurements to ``rec``; returns the launches of the two paths."""
+    5-outer GPS rollout, and the KL solve of B_CPU lanes at LTI_T_CPU that
+    early-gpu-vs-cpu compares with the CPU's (``early_gpu["kl_lti"]``).
+    Adds the measurements to ``rec``; returns the launches of the two
+    paths."""
     from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
         SimpleLTVModel, lti_derivs_tiles, lti_lanes, random_lti)
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
@@ -1772,26 +1785,9 @@ def kl_lti_phases(ph, dev, rec, counters) -> dict:
 
     ph.start("kl-lti-cpu", f"first {B_CPU} scenarios, T={LTI_T_CPU}, "
              f"max_iter={cfg.max_iter}")
-    sl = slice(0, B_CPU)
-    g = kl_solve(sl, dev, LTI_T_CPU)
-    t0 = time.perf_counter()
-    c = kl_solve(sl, "cpu", LTI_T_CPU)
-    print(f"  CPU KL-LTI solve (plain versions), T={LTI_T_CPU}: "
-          f"{time.perf_counter() - t0:.1f} s")
-    gc, cc = g.cost_total.cpu(), c.cost_total
-    rel = (gc - cc).abs() / cc.abs()
-    close = (rel <= COST_RTOL).float().mean().item()
-    same_sat = (g.satisfied.cpu() == c.satisfied).float().mean().item()
-    same_it = (g.n_iters.cpu() == c.n_iters).float().mean().item()
-    print(f"  satisfied share {c.satisfied.float().mean().item():.4f}, "
-          f"n_iters {dict(zip(*(v.tolist() for v in torch.unique(c.n_iters, return_counts=True))))}")
-    print(f"  cost_total rel diff: max {rel.max().item():.3e}, median "
-          f"{rel.median().item():.3e}")
-    print(f"  share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
-          f"satisfied {same_sat:.3f}, same n_iters {same_it:.3f} (need "
-          f"{AGREE_SHARE} each)")
-    check(min(close, same_sat, same_it) >= AGREE_SHARE,
-          "KL-LTI: GPU and CPU outcomes differ")
+    early_gpu["kl_lti"] = kl_solve(slice(0, B_CPU), dev, LTI_T_CPU)
+    print("  the card's solve; the CPU's, in the --early-cpu child, is "
+          "compared in early-gpu-vs-cpu")
     return paths
 
 
@@ -2160,7 +2156,7 @@ def quad_phases(ph, dev, rec, counters, ilqg, early_gpu: dict) -> dict:
     return {"ilqg_ad": launches_ad, "quad": launches}
 
 
-def hetero_phases(ph, dev, rec, counters, ilqg) -> dict:
+def hetero_phases(ph, dev, rec, counters, ilqg, early_gpu: dict) -> dict:
     """Phases 21-22: the heterogeneous fleets' kernels (PendCartParam K3, K1
     and K2; per-scenario limits on the pendcart and LTI ⟨10,2⟩ instances; K2
     in place) against their plain versions, timed with their bounds; then
@@ -2597,23 +2593,10 @@ def hetero_phases(ph, dev, rec, counters, ilqg) -> dict:
     paths = {"hetero": launches}
     del r
 
+    # the solve of B_CPU lanes that early-gpu-vs-cpu compares with the
+    # --early-cpu child's
     sl = slice(0, B_CPU)
-    g = solve(x0s[sl], u0s[sl], params_b[sl], lims_b[sl])
-    t0 = time.perf_counter()
-    c = solve(x0s[sl].cpu(), u0s[sl].cpu(), params_b[sl].cpu(),
-              lims_b[sl].cpu())
-    print(f"  CPU solve on {B_CPU} lanes (plain versions): "
-          f"{time.perf_counter() - t0:.1f} s")
-    rel = (g.cost_total.cpu() - c.cost_total).abs() / c.cost_total.abs()
-    close = (rel <= COST_RTOL).float().mean().item()
-    same_reason = (g.reason.cpu() == c.reason).float().mean().item()
-    same_acc = (g.n_accepted.cpu() == c.n_accepted).float().mean().item()
-    print(f"  GPU against CPU: cost rel diff max {rel.max().item():.3e}; "
-          f"share of lanes: cost within {COST_RTOL:.0e} {close:.3f}, same "
-          f"reason {same_reason:.3f}, same accepted count {same_acc:.3f} "
-          f"(need {AGREE_SHARE} each)")
-    check(min(close, same_reason, same_acc) >= AGREE_SHARE,
-          "hetero: GPU and CPU outcomes differ")
+    early_gpu["hetero"] = solve(x0s[sl], u0s[sl], params_b[sl], lims_b[sl])
 
     # the LTI fleet with a per-scenario box on each control
     lb = llanes.T.reshape(B, m, 2)                    # [lo, hi] per control
@@ -2646,7 +2629,7 @@ def hetero_phases(ph, dev, rec, counters, ilqg) -> dict:
     return paths
 
 
-def mpc_phases(ph, dev, rec, counters) -> dict:
+def mpc_phases(ph, dev, rec, counters, early_gpu: dict) -> dict:
     """Phase 23: the MPC path's kernel instances (pendcart K3 at α=1, K1
     gains/full, K2 with the 4-α ladder fresh and in place; the same
     PendCartParam instances with per-scenario [l, d] and limits) against
@@ -2655,9 +2638,10 @@ def mpc_phases(ph, dev, rec, counters) -> dict:
     (``bench.py:149-212``), timed over windows of chunks with CUDA events,
     its launches and host syncs per step, a torch.profiler split of one
     chunk; a chunk with per-scenario parameters and limits; the MPC step
-    ``ilqg_iteration_lanes`` with K2 in place; the loop on 64 lanes against
-    the CPU. Adds the measurements to ``rec``; returns the launches of the
-    paths ``mpc``, ``mpc_hetero`` and ``iteration``."""
+    ``ilqg_iteration_lanes`` with K2 in place; the loop on 64 lanes that
+    early-gpu-vs-cpu compares with the CPU's (``early_gpu["mpc"]``). Adds
+    the measurements to ``rec``; returns the launches of the paths
+    ``mpc``, ``mpc_hetero`` and ``iteration``."""
     from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
         PendCartSpec, default_x0, make_pendcart_problem,
         pendcart_derivs_tiles, pendcart_derivs_tiles_param, pendcart_lanes,
@@ -2953,27 +2937,60 @@ def mpc_phases(ph, dev, rec, counters) -> dict:
 
     ph.start("mpc-gpu-vs-cpu", f"first {B_CPU} scenarios, T={Tm}, "
              f"{MPC_CPU_STEPS} MPC steps")
-    sl = slice(0, B_CPU)
-    g = chunk(x0[sl], u_seed[sl], MPC_CPU_STEPS)
-    prob_c = make_pendcart_problem(spec, "euler", device="cpu")
-    t0 = time.perf_counter()
-    c = mpc_rollout_lanes(model, None, x0[sl].cpu(), u_seed[sl].cpu(),
-                          lambda x_, u_: prob_c.dynamics(x_, u_, 0),
+    early_gpu["mpc"] = chunk(x0[:B_CPU], u_seed[:B_CPU], MPC_CPU_STEPS)
+    print("  the card's loop; the CPU's, in the --early-cpu child, is "
+          "compared in early-gpu-vs-cpu")
+    return paths
+
+
+def mpc_cpu_loop() -> dict:
+    """The MPC loop of mpc-gpu-vs-cpu on the host (part of the
+    ``--early-cpu`` child): the tier's x0 and seed plan (numpy seed 31, the
+    first two draws of mpc_phases) on B_CPU lanes, MPC_CPU_STEPS steps, the
+    plain versions; each step's states and costs."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, default_x0, make_pendcart_problem,
+        pendcart_derivs_tiles, pendcart_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        mpc_rollout_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqg import (
+        ILQGConfig, default_alphas)
+    spec = PendCartSpec()
+    cfg = ILQGConfig(alphas=default_alphas(0.2, -3.0, 4), reg_type=2,
+                     lam_max=1e15, max_iter=5, iter_cap=9)
+    rng = np.random.default_rng(31)
+    x0 = torch.tensor(np.asarray(default_x0(device="cpu").numpy(),
+                                 np.float64)[None, :]
+                      + 0.2 * rng.standard_normal((B, 4))
+                      * np.array([1.0, 1.0, 0, 0]), dtype=torch.float32)
+    u_seed = torch.tensor(0.1 * rng.standard_normal((B, MPC_T, 1)),
+                          dtype=torch.float32)
+    prob = make_pendcart_problem(spec, "euler", device="cpu")
+    c = mpc_rollout_lanes(pendcart_lanes(spec), None, x0[:B_CPU],
+                          u_seed[:B_CPU],
+                          lambda x_, u_: prob.dynamics(x_, u_, 0),
                           MPC_CPU_STEPS, lims=MPC_LIMS, cfg=cfg,
-                          derivs_tiles=tiles)
-    print(f"  CPU loop (plain versions): {time.perf_counter() - t0:.1f} s")
-    rel = ((g[4].cpu() - c[4]).abs() / c[4].abs()).amax(dim=0)
-    dx = (g[2].cpu() - c[2]).abs().amax(dim=(0, 2))
+                          derivs_tiles=pendcart_derivs_tiles(spec))
+    return dict(states=c[2].tolist(), costs=c[4].tolist())
+
+
+def mpc_agree(g, c: dict) -> None:
+    """The card's MPC loop ``g`` against the host's: per lane, the worst
+    step's cost within COST_RTOL and its states within 1e-3, each share at
+    least AGREE_SHARE."""
+    gc, cc = g[4].cpu(), torch.tensor(c["costs"])
+    gx, cx = g[2].cpu(), torch.tensor(c["states"])
+    rel = ((gc - cc).abs() / cc.abs()).amax(dim=0)
+    dx = (gx - cx).abs().amax(dim=(0, 2))
     close = (rel <= COST_RTOL).float().mean().item()
     x_close = (dx <= 1e-3).float().mean().item()
-    print(f"  per lane, worst step: cost rel diff max {rel.max().item():.3e},"
-          f" median {rel.median().item():.3e}; state max abs diff max "
-          f"{dx.max().item():.3e}; share of lanes: costs within "
-          f"{COST_RTOL:.0e} {close:.3f}, states within 1e-3 {x_close:.3f} "
-          f"(need {AGREE_SHARE} each)")
+    print(f"  mpc: per lane, worst step: cost rel diff max "
+          f"{rel.max().item():.3e}, median {rel.median().item():.3e}; state "
+          f"max abs diff max {dx.max().item():.3e}; share of lanes: costs "
+          f"within {COST_RTOL:.0e} {close:.3f}, states within 1e-3 "
+          f"{x_close:.3f} (need {AGREE_SHARE} each)")
     check(min(close, x_close) >= AGREE_SHARE,
           "MPC: GPU and CPU closed loops differ")
-    return paths
 
 
 def probe_phase(ph, dev, rec, counters) -> dict:
@@ -8349,86 +8366,108 @@ def wide_cpu_kw(mode: str, m: int, prev, eta) -> dict:
 
 
 def early_cpu_solves() -> dict:
-    """The plain solves that phases 5 and 9's card solves are compared
+    """The plain solves that the early phases' card solves are compared
     with at the end of the run (the ``--early-cpu`` child, started with the
-    build): ``"ilqg"``, the headline fleet on B_CPU lanes (T, ITERS
-    iterations), and ``"quad"``, the quadrotor fleet on B_CPU lanes at
-    QUAD_T_CPU, on CPU tensors, from the inputs the card's solves take."""
+    build), on CPU tensors from the inputs the card's solves take:
+    ``"ilqg"``, the headline fleet on B_CPU lanes (T, ITERS iterations);
+    ``"quad"``, the quadrotor fleet on B_CPU lanes at QUAD_T_CPU; ``"kl"``,
+    the KL tier on B_CPU lanes (T, KL_ITERS iterations; its pre-roll
+    by the plain K3 on the host); ``"lti"`` and ``"kl_lti"``, the LTI fleet
+    and KL on it on B_CPU lanes at LTI_T_CPU."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, lti_lanes, random_lti)
     from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
-        PendCartSpec, pendcart_derivs_tiles, pendcart_lanes)
+        PendCartSpec, pendcart_derivs_tiles, pendcart_derivs_tiles_param,
+        pendcart_lanes, pendcart_lanes_param)
     from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
         QuadrotorSpec, quadrotor_lanes)
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
         import autodiff_derivs_tiles
     from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
         ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
     torch.set_num_threads(1)
     cfg = headline_cfg()
     spec = PendCartSpec()
+    pmodel, ptiles = pendcart_lanes(spec), pendcart_derivs_tiles(spec)
     qspec = QuadrotorSpec()
     qmodel = quadrotor_lanes(qspec)
     x0q = torch.tensor(quad_x0(np.random.default_rng(11)),
                        dtype=torch.float32)[:B_CPU]
+    lspec = random_lti(0, n=LTI_N, m=LTI_M, T=LTI_T, device="cpu")
+    lmodel, ltiles = lti_lanes(lspec), lti_derivs_tiles(lspec)
+    x0l, u0l = lti_fleet_inputs(lspec, "cpu", B_CPU, LTI_T_CPU)
+    x0h, u0h, parh, limh = hetero_inputs("cpu", B_CPU, T)
     runs = {
         "ilqg": lambda: ilqg_batch_lanes(
-            pendcart_lanes(spec), None,
+            pmodel, None,
             torch.tensor(headline_x0()[:B_CPU], dtype=torch.float32),
             torch.zeros((B_CPU, T, 1)), lims=LIMS, cfg=cfg,
-            derivs_tiles=pendcart_derivs_tiles(spec), max_steps=ITERS),
+            derivs_tiles=ptiles, max_steps=ITERS),
         "quad": lambda: ilqg_batch_lanes(
             qmodel, None, x0q, torch.full((B_CPU, QUAD_T_CPU, 2),
                                           qspec.u_hover),
             lims=qspec.lims, cfg=cfg,
-            derivs_tiles=autodiff_derivs_tiles(qmodel), max_steps=ITERS)}
+            derivs_tiles=autodiff_derivs_tiles(qmodel), max_steps=ITERS),
+        "kl": lambda: ilqgkl_batch_lanes(
+            pmodel, ptiles, *kl_tier_inputs(pmodel, "cpu", B_CPU, T)[0],
+            cfg=ILQGKLConfig(kl_step=KL_STEP, max_iter=KL_ITERS)),
+        "lti": lambda: ilqg_batch_lanes(
+            lmodel, None, x0l, u0l, lims=LTI_LIMS, cfg=lti_cfg(),
+            derivs_tiles=ltiles),
+        "kl_lti": lambda: ilqgkl_batch_lanes(
+            lmodel, ltiles, *lti_fleet_kl_inputs(lmodel, lspec, x0l, u0l),
+            cfg=ILQGKLConfig(kl_step=KL_LTI_STEP)),
+        "hetero": lambda: ilqg_batch_lanes(
+            pendcart_lanes_param(spec), None, x0h, u0h, lims=limh, cfg=cfg,
+            derivs_tiles=pendcart_derivs_tiles_param(spec), params=parh,
+            max_steps=ITERS)}
     out = {}
     for label, run in runs.items():
         t0 = time.perf_counter()
-        r = run()
-        out[label] = {f: getattr(r, f).tolist() for f in (
-            "cost_total", "reason", "n_accepted")}
+        out[label] = early_fields(label, run())
         out[label]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["mpc"] = mpc_cpu_loop()
+    out["mpc"]["seconds"] = time.perf_counter() - t0
     return out
 
 
+def early_fields(label: str, r) -> dict:
+    """The outcomes early-gpu-vs-cpu compares: cost, reason and accepted
+    count for iLQG; cost, satisfied and iterations for KL."""
+    fields = (("cost_total", "satisfied", "n_iters") if "kl" in label
+              else ("cost_total", "reason", "n_accepted"))
+    return {f: getattr(r, f).tolist() for f in fields}
+
+
 def early_gpu_vs_cpu(ph, cpu_proc, gpu: dict) -> None:
-    """Phases 5 and 9's comparison, made at the end of the run: the card's
-    solves ``gpu`` (label: result) against the ``--early-cpu`` child's,
-    which ran beside the phases at its low priority; the share of lanes
-    with the cost within COST_RTOL, the same reason and the same accepted
-    count must each reach AGREE_SHARE."""
+    """The early phases' comparisons, made at the end of the run: the
+    card's solves ``gpu`` (label: result) against the ``--early-cpu``
+    child's, which ran beside the phases at its low priority; the share of
+    lanes with the cost within COST_RTOL and with the same reason and
+    accepted count (KL: satisfied and iterations) must each reach
+    AGREE_SHARE."""
     ph.start("early-gpu-vs-cpu", f"the first {B_CPU} scenarios of the iLQG "
-             f"(T={T}) and quadrotor (T={QUAD_T_CPU}) paths, {ITERS} "
-             f"iterations: the card's solves of phases 5 and 9 against the "
-             f"--early-cpu child's")
+             f"(T={T}), quadrotor (T={QUAD_T_CPU}), KL (T={T}), LTI and "
+             f"KL-on-LTI (T={LTI_T_CPU}), heterogeneous (T={T}) paths and of "
+             f"the MPC loop "
+             f"({MPC_CPU_STEPS} steps): the card's solves of the early "
+             "phases against the --early-cpu child's")
     cpu = child_solves(cpu_proc)
     for label, g in gpu.items():
-        c = early_outcomes(cpu[label])
-        gc, cc = g.cost_total.cpu(), c.cost_total
-        rel = (gc - cc).abs() / cc.abs()
-        same_acc = g.n_accepted.cpu() == c.n_accepted
-        shares = ((rel <= COST_RTOL).float().mean().item(),
-                  (g.reason.cpu() == c.reason).float().mean().item(),
-                  same_acc.float().mean().item())
-        print(f"  {label}: CPU solve (plain versions) "
-              f"{cpu[label]['seconds']:.1f} s in the child; reasons "
-              f"{hist(c.reason)}; cost_total rel diff max "
-              f"{rel.max().item():.3e}, max on lanes with equal accepted "
-              f"counts {rel[same_acc].max().item():.3e}, median "
-              f"{rel.median().item():.3e}; share of lanes: cost within "
-              f"{COST_RTOL:.0e} {shares[0]:.3f}, same reason "
-              f"{shares[1]:.3f}, same accepted count {shares[2]:.3f} (need "
-              f"{AGREE_SHARE} each)")
-        check(min(shares) >= AGREE_SHARE,
-              f"{label}: GPU and CPU outcomes differ")
-
-
-def early_outcomes(cpu: dict):
-    """A child's outcomes as the tensors a CPU solve returns."""
-    from types import SimpleNamespace
-    return SimpleNamespace(
-        cost_total=torch.tensor(cpu["cost_total"], dtype=torch.float32),
-        reason=torch.tensor(cpu["reason"], dtype=torch.int32),
-        n_accepted=torch.tensor(cpu["n_accepted"], dtype=torch.int32))
+        c = cpu[label]
+        print(f"  {label}: CPU solve (plain versions) {c['seconds']:.1f} s "
+              f"in the child")
+        if label == "mpc":
+            mpc_agree(g, c)
+            continue
+        agree(label, early_fields(label, g), c, "cost_total",
+              ("satisfied", "n_iters") if "kl" in label
+              else ("reason", "n_accepted"))
 
 
 def humanoid_cpu_solves() -> dict:
@@ -8919,6 +8958,527 @@ def humanoid_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the sources group: every public derivative source through the fleet iLQG
+# and KL entries (K1's Autodiff<LTI>, Autodiff<PendCartParam>, and the GPS
+# "policy" of the autodiff and full-DDP sources)
+# ---------------------------------------------------------------------------
+
+SOURCES_B = 512                  # the kernel checks' lanes
+# the kernel checks' horizons (9-17 steps, as the controls group's): the
+# plain autodiff tiles at n=10 take ≈0.1-0.4 s a step
+SOURCES_T_PLAIN = {10: 9, 4: 17, 6: 9}
+# the CPU child's subsets (--sources-cpu, ≈100 s of host time on two
+# threads): the pendcart paths on B_CPU lanes at SOURCES_T_CPU (the plain
+# autodiff tiles take ≈50 ms a step at 64 lanes on the host; at T=20 the
+# KL tier's outcomes part at an ulp, at 60 and 120 autodiff and analytic
+# tiles agree on every lane), the LTI paths on SOURCES_LTI_B_CPU lanes at
+# SOURCES_LTI_T_CPU with SOURCES_LTI_ITERS iterations
+SOURCES_T_CPU = 60
+SOURCES_LTI_B_CPU, SOURCES_LTI_T_CPU, SOURCES_LTI_ITERS = 8, 12, 8
+# full DDP against first-order KL (kl-ddp): the Vx·∂²f terms move each
+# iterate, so costs agree to ≈1% (0.76% at most on 64 lanes of the KL tier
+# on the host), satisfied flags alike; η and the measured KL are printed
+KL_DDP_RTOL = 2e-2
+# the source of each new K1 instance group, by record key: (kind, m,
+# second order, the modes checked (emission, GPS mode), the path keys)
+SOURCE_GROUPS = {
+    "k1_lti_ad": ("lti", 2, False, (("gains", False), ("full", False)),
+                  ("lti_ad",)),
+    "k1_lti_ad_gps": ("lti", 2, False, (("policy", True),), ("kl_lti_ad",)),
+    "k1_lti3_ad": ("lti", 3, False, (("gains", False), ("full", False),
+                                     ("policy", True)), ()),
+    "k1_lti_ad_so": ("lti", 2, True, (("gains", False), ("full", False),
+                                      ("policy", True)), ()),
+    "k1_lti3_ad_so": ("lti", 3, True, (("gains", False), ("full", False),
+                                       ("policy", True)), ()),
+    "k1_param_ad": ("param", 1, False, (("gains", False), ("full", False)),
+                    ("hetero_ad",)),
+    "k1_param_ad_so": ("param", 1, True, (("gains", False),
+                                          ("full", False)), ()),
+    "k1_pendcart_ad_gps": ("pendcart_ad", 1, False, (("policy", True),),
+                           ("kl_ad",)),
+    "k1_pendcart_ad_so_gps": ("pendcart_ad", 1, True, (("policy", True),),
+                              ()),
+    "k1_pendcart_so_gps": ("pendcart_so", 1, True, (("policy", True),),
+                           ("kl_ddp",)),
+    "k1_quad_so_gps": ("quad", 2, True, (("policy", True),), ()),
+    "k1_lowered_so_gps": ("lowered", 1, True, (("full", True),
+                                               ("policy", True)), ()),
+    "k1_tiles_so_gps": ("tiles", 1, True, (("full", True),
+                                           ("policy", True)), ()),
+}
+
+
+def start_source_library():
+    """Build the sources library (``_build.sources_library``) in a thread at
+    a low priority; returns (thread, box): the box receives ``build`` (a
+    _build.Build) or ``error``."""
+    import threading
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        _build)
+    box: dict = {}
+
+    def run():
+        background()
+        try:
+            box["build"] = _build.build(_build.SOURCE_LIBRARY, "sources")
+        except Exception as e:   # noqa: BLE001 - reported by the phase
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    BUILD_THREADS.append(th)
+    return th, box
+
+
+def sources_models() -> dict:
+    """The group's models without a descriptor: the pendcart lowered
+    (Autodiff<Lowered, true> in GPS mode) and the pendcart's full-DDP tiles
+    as a user's function (LoweredTiles, second order, in GPS mode)."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles_so, pendcart_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.backward_kernel \
+        import DerivsTiles
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.forward_kernel \
+        import LanesModel
+    p = pendcart_lanes(PendCartSpec())
+    return dict(lowered=LanesModel(n=4, m=1, dynamics=p.dynamics,
+                                   cost=p.cost, terminal=p.terminal),
+                tiles=DerivsTiles(
+                    fn=pendcart_derivs_tiles_so(PendCartSpec()).fn))
+
+
+def start_sources_builds(sm: dict):
+    """Lower the group's models and tiles and start their libraries'
+    builds in a thread, as start_lowered_builds."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import lower
+    jobs = [(lower.lower(sm["lowered"]).struct(False), "k1_so_gps"),
+            (lower.lower_tiles(sm["tiles"], 4, 1).struct(), "t1_so_gps")]
+    return build_thread(jobs, ["lowered pendcart k1_so_gps",
+                               "user's second-order tiles t1_so_gps"])
+
+
+def source_tiles(kind: str, m: int, so: bool, dev, sm: dict):
+    """(tiles, model, n, m, limits, per-scenario params or None) of one
+    source kind on ``dev``."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles_so, pendcart_lanes,
+        pendcart_lanes_param)
+    from differentialdynamicprogramming_jl_tpu_torch.models.quadrotor import (
+        QuadrotorSpec, quadrotor_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    spec = PendCartSpec()
+    if kind == "lti":
+        model = lti_lanes(random_lti(0, n=LTI_N, m=m, T=LTI_T, device=dev))
+        return (autodiff_derivs_tiles(model, second_order=so), model, LTI_N,
+                m, ((-0.6, 0.6),) * m)
+    if kind == "param":
+        model = pendcart_lanes_param(spec)
+        return (autodiff_derivs_tiles(model, second_order=so), model, 4, 1,
+                LIMS)
+    if kind == "quad":
+        qspec = QuadrotorSpec()
+        model = quadrotor_lanes(qspec)
+        return (autodiff_derivs_tiles(model, second_order=so), model, 6, 2,
+                qspec.lims)
+    model = pendcart_lanes(spec)
+    tiles = {"pendcart_ad": lambda: autodiff_derivs_tiles(model,
+                                                          second_order=so),
+             "pendcart_so": lambda: pendcart_derivs_tiles_so(spec),
+             "lowered": lambda: autodiff_derivs_tiles(sm["lowered"],
+                                                      second_order=True),
+             "tiles": lambda: sm["tiles"]}[kind]()
+    return tiles, model, 4, 1, LIMS
+
+
+def source_inputs(n: int, m: int, Tk: int, dev, params: bool):
+    """A check's K1 inputs at (n, m), numpy seed 13 (B = SOURCES_B lanes):
+    a random trajectory around each model's operating point, λ over eight
+    decades, a previous policy with every KL term non-zero and Σ⁻¹ = 2·I,
+    η with zeros (which count as 1), and per-scenario [l, d]."""
+    rng = np.random.default_rng(13)
+    Bk = SOURCES_B
+    x = rng.standard_normal((Tk, n, Bk))
+    x[:, 0] += {4: math.pi - 0.6, 6: 1.0}.get(n, 0.0)
+    u = 2.0 * rng.standard_normal((Tk, m, Bk)) + (2.4525 if n == 6 else 0.0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    traj = torch.tensor(np.concatenate([x, u, np.zeros((Tk, 1, Bk))], 1),
+                        **f32)
+    lam = torch.tensor(10.0 ** rng.uniform(-6, 2, Bk), **f32)
+    prev = np.concatenate([rng.standard_normal((Tk, m, Bk)),
+                           0.1 * rng.standard_normal((Tk, m * n, Bk)),
+                           (2.0 * np.eye(m)).reshape(1, m * m, 1)
+                           * np.ones((Tk, 1, Bk))], 1)
+    eta = rng.uniform(0.5, 2.0, (Tk, Bk))
+    eta[:, ::7] = 0.0
+    par = (torch.tensor(np.stack([rng.uniform(*PARAM_L, Bk),
+                                  rng.uniform(*PARAM_D, Bk)]), **f32)
+           if params else None)
+    return traj, lam, torch.tensor(prev, **f32), torch.tensor(eta, **f32), par
+
+
+def hetero_inputs(device, Bk: int, Tk: int):
+    """The heterogeneous headline (hetero-path's inputs: numpy seed 21's
+    [l, d] and ±h limits, the headline's x0, u0 = 0) on the first Bk lanes
+    at horizon Tk: (x0s, u0s, params (Bk, 2), limits (Bk, 1, 2))."""
+    rng = np.random.default_rng(21)
+    par = np.stack([rng.uniform(*PARAM_L, B), rng.uniform(*PARAM_D, B)],
+                   axis=1)
+    hi = rng.uniform(*HETERO_HI, B)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.tensor(headline_x0()[:Bk], **f32),
+            torch.zeros((Bk, Tk, 1), **f32), torch.tensor(par[:Bk], **f32),
+            torch.tensor(np.stack([-hi, hi], axis=1)[:Bk, None, :], **f32))
+
+
+def source_solves(device, Bp: int, Tp: int, Bl: int, Tl: int,
+                  lti_iters=None) -> dict:
+    """The group's four paths as solve functions on ``device``: the
+    pendcart ones on Bp lanes at Tp, the LTI ones on Bl lanes at Tl
+    (``lti_iters`` caps the LTI fleet's iterations). Each entry: label ->
+    (the new source's solve, the reference source's solve, the new
+    source's K1 call at the path's shapes given a solution, or None); KL
+    labels contain "KL"."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.linear import (
+        lti_derivs_tiles, lti_lanes, random_lti)
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_derivs_tiles, pendcart_derivs_tiles_param,
+        pendcart_derivs_tiles_so, pendcart_lanes, pendcart_lanes_param)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch_kl import (
+        ilqgkl_batch_lanes)
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.ilqgkl import (
+        ILQGKLConfig)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.pack import (
+        to_streams)
+    spec = PendCartSpec()
+    pm, qm = pendcart_lanes(spec), pendcart_lanes_param(spec)
+    kl_in, _ = kl_tier_inputs(pm, device, Bp, Tp)
+    kcfg = ILQGKLConfig(kl_step=KL_STEP, max_iter=KL_ITERS)
+    x0h, u0h, parh, limh = hetero_inputs(device, Bp, Tp)
+    lspec = random_lti(0, n=LTI_N, m=LTI_M, T=LTI_T, device=device)
+    lm = lti_lanes(lspec)
+    x0l, u0l = lti_fleet_inputs(lspec, device, Bl, Tl)
+    lkl_in = lti_fleet_kl_inputs(lm, lspec, x0l, u0l)
+    lcfg = lti_cfg()
+    lkcfg = ILQGKLConfig(kl_step=KL_LTI_STEP)
+
+    def kl(tiles):
+        return lambda: ilqgkl_batch_lanes(pm, tiles, *kl_in, cfg=kcfg)
+
+    def hetero(tiles):
+        return lambda: ilqg_batch_lanes(qm, None, x0h, u0h, lims=limh,
+                                        cfg=headline_cfg(),
+                                        derivs_tiles=tiles, params=parh,
+                                        max_steps=ITERS)
+
+    def lti(tiles):
+        return lambda: ilqg_batch_lanes(lm, None, x0l, u0l, lims=LTI_LIMS,
+                                        cfg=lcfg, derivs_tiles=tiles,
+                                        max_steps=lti_iters)
+
+    def lti_kl(tiles):
+        return lambda: ilqgkl_batch_lanes(lm, tiles, *lkl_in, cfg=lkcfg)
+
+    def k1_kl(tiles, n):
+        """K1 GPS "policy" on a KL solution's trajectory and policy, η = 1
+        (the KL loop's launch)."""
+        def call(r):
+            st = torch.cat([to_streams(r.x), to_streams(r.u)], dim=1)
+            prev = torch.cat([to_streams(r.policy.k), to_streams(
+                r.policy.K.flatten(2)), to_streams(
+                r.policy.sigma_inv.flatten(2))], dim=1).contiguous()
+            one = torch.ones((st.shape[0], st.shape[2]), device=st.device)
+            return lambda: bk.backward_lanes(
+                st, torch.zeros_like(one[0]), n=n, m=r.u.shape[-1],
+                reg_type=1, lims=None, derivs_tiles=tiles, prev=prev,
+                eta=one, emit="policy")
+        return call
+
+    def k1_ilqg(tiles, n, lims, params=None, lanes=None):
+        """K1 "gains" on an iLQG solution's trajectory at its λ."""
+        def call(r):
+            st = torch.cat([to_streams(r.x), to_streams(r.u)], dim=1)
+            return lambda: bk.backward_lanes(
+                st, r.lam, n=n, m=r.u.shape[-1], reg_type=2, lims=lims,
+                derivs_tiles=tiles, params=params, lims_lanes=lanes,
+                emit="gains")
+        return call
+
+    ana = pendcart_derivs_tiles(spec)
+    pad, pso = autodiff_derivs_tiles(pm), pendcart_derivs_tiles_so(spec)
+    had, lad = autodiff_derivs_tiles(qm), autodiff_derivs_tiles(lm)
+    return {
+        "kl_ad KL": (kl(pad), kl(ana), k1_kl(pad, 4)),
+        "kl_ddp KL": (kl(pso), kl(ana), k1_kl(pso, 4)),
+        "hetero_ad": (hetero(had), hetero(pendcart_derivs_tiles_param(spec)),
+                      k1_ilqg(had, 4, None, parh.T.contiguous(),
+                              limh[:, 0, :].T.contiguous())),
+        "lti_ad": (lti(lad), lti(lti_derivs_tiles(lspec)),
+                   k1_ilqg(lad, LTI_N, LTI_LIMS)),
+        "kl_lti_ad KL": (lti_kl(lad), lti_kl(lti_derivs_tiles(lspec)),
+                         k1_kl(lad, LTI_N)),
+    }
+
+
+def outcomes(label: str, r) -> dict:
+    """The outcomes a path is held to: cost, reason and accepted count for
+    iLQG; cost, satisfied, η, the measured KL and iterations for KL."""
+    fields = (("cost_total", "satisfied", "eta", "divergence", "n_iters")
+              if "KL" in label else ("cost_total", "reason", "n_accepted"))
+    return {f: getattr(r, f).tolist() for f in fields}
+
+
+def sources_cpu_solves() -> dict:
+    """The group's paths with the new sources on the host (the
+    ``--sources-cpu`` child): the pendcart paths on B_CPU lanes at
+    SOURCES_T_CPU, the LTI ones on SOURCES_LTI_B_CPU lanes at
+    SOURCES_LTI_T_CPU. Two host threads."""
+    from differentialdynamicprogramming_jl_tpu_torch.models.pendcart import (
+        PendCartSpec, pendcart_lanes_param)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.solvers.batch import (
+        ilqg_batch_lanes)
+    torch.set_num_threads(2)
+    out = {}
+    for label, (run, _, _) in source_solves(
+            "cpu", B_CPU, SOURCES_T_CPU, SOURCES_LTI_B_CPU,
+            SOURCES_LTI_T_CPU, SOURCES_LTI_ITERS).items():
+        t0 = time.perf_counter()
+        out[label] = outcomes(label, run())
+        out[label]["seconds"] = time.perf_counter() - t0
+    # the heterogeneous fleet's own spread at this horizon: the same solve
+    # from initial states one ulp away (toward +∞)
+    qm = pendcart_lanes_param(PendCartSpec())
+    x0h, u0h, parh, limh = hetero_inputs("cpu", B_CPU, SOURCES_T_CPU)
+    out["hetero_ad nudged"] = outcomes("hetero_ad", ilqg_batch_lanes(
+        qm, None, torch.nextafter(x0h, torch.full_like(x0h, math.inf)), u0h,
+        lims=limh, cfg=headline_cfg(), derivs_tiles=autodiff_derivs_tiles(qm),
+        params=parh, max_steps=ITERS))
+    return out
+
+
+def held_to(what: str, g, ref, rtol: float = COST_RTOL,
+            fields=None) -> dict:
+    """A path's solve ``g`` against the same solve with the reference
+    source ``ref``: which outcomes are bit-equal, and the share of lanes
+    whose cost (and, for KL, η and measured KL) agree to ``rtol`` and whose
+    other outcomes are equal; each share must reach AGREE_SHARE (``fields``:
+    the fields checked, all by default)."""
+    kl = hasattr(g, "eta")
+    close = ("cost_total", "eta", "divergence") if kl else ("cost_total",)
+    equal = ("satisfied", "n_iters") if kl else ("reason", "n_accepted")
+    bits = {f: bool(torch.equal(getattr(g, f), getattr(ref, f)))
+            for f in close + equal}
+    got = {}
+    for f in close:
+        a, b = getattr(g, f).double(), getattr(ref, f).double()
+        got[f] = ((a - b).abs() <= rtol * b.abs()).float().mean().item()
+    for f in equal:
+        got[f] = (getattr(g, f) == getattr(ref, f)).float().mean().item()
+    print(f"  {what}: bit-equal {[f for f, v in bits.items() if v]}; "
+          f"shares: " + ", ".join(f"{f} {v:.3f}" for f, v in got.items())
+          + f" (within {rtol:.0e} or equal; need {AGREE_SHARE})")
+    for f in fields or got:
+        check(got[f] >= AGREE_SHARE, f"{what}: {f} differs")
+    return dict(bit_equal=bits, shares=got)
+
+
+def sources_phases(ph, dev, rec, counters, builds, cpu_proc) -> dict:
+    """The sources group. sources-kernels: each new K1 instance group
+    against its plain version on the same CUDA tensors, bit for bit (out,
+    stats), at B=512 and plain horizons of 9-17 steps (the lowered models'
+    libraries built in a thread from the controls' start). kl-ad, lti-ad
+    (the LTI fleet, then KL on it), hetero-ad, kl-ddp: the paths through
+    the public entries with the new sources, each against the same solve
+    with the reference source. sources-gpu-vs-cpu: each path on a lane
+    subset against the ``--sources-cpu`` child. Returns the paths'
+    launches; ``rec["sources"]`` gets the group's record."""
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
+        backward_kernel as bk)
+    sm, (th, labels, box), (sth, sbox) = builds
+    ph.start("sources-kernels", f"every new K1 instance against its plain "
+             f"version, B={SOURCES_B}, T={SOURCES_T_PLAIN} by n")
+    th.join()
+    sth.join()
+    for b in (box, sbox):
+        if "error" in b:
+            raise b["error"]
+    group = {"builds": {"sources library": sbox["build"].seconds}}
+    print(f"  the sources library: {sbox['build'].seconds:.1f} s of nvcc "
+          f"(in a thread from the main build on)")
+    for line in ptxas_summary(sbox["build"].log):
+        print(f"    {line}")
+    for label, b in zip(labels, box["builds"]):
+        print(f"  {label}: {b.seconds:.1f} s of nvcc")
+        for line in ptxas_summary(b.log):
+            print(f"    {line}")
+        group["builds"][label] = b.seconds
+    checks, plain = {}, {}
+    for key, (kind, m, so, modes, on) in SOURCE_GROUPS.items():
+        tiles, model, n, m, lims = source_tiles(kind, m, so, dev, sm)
+        Tk = SOURCES_T_PLAIN[n]
+        traj, lam, prev, eta, par = source_inputs(n, m, Tk, dev,
+                                                  tiles.n_params > 0)
+        errs, times, launched = [], {}, 0
+        for emit, gps in modes:
+            kw = dict(n=n, m=m, reg_type=1 if gps else 2,
+                      lims=None if gps else lims, derivs_tiles=tiles,
+                      params=par)
+            if gps:
+                kw.update(prev=prev, eta=eta)
+            what = f"{key} {emit}{' GPS' if gps else ''}"
+            k, n1 = counted(counters, lambda: bk.backward_lanes(
+                traj, lam, emit=emit, **kw))
+            launched += n1["backward_lanes"]
+            # one plain run a source and GPS mode, in "full" emission:
+            # each emission's slots are taken from it
+            pkey = (kind, m, so, gps)
+            if pkey not in plain:
+                box = []
+                ms_p = once_ms(lambda: box.append(bk.backward_lanes_ref(
+                    traj, lam, emit="full", **kw)))
+                plain[pkey] = (box[0], ms_p)
+            p, ms_p = plain[pkey]
+            pout = k1_emitted(p.out, n, m, emit)
+            errs.append(bits_or_fail(what, {"out": (k.out, pout),
+                                            "stats": (k.stats, p.stats)}))
+            ms = cuda_ms(lambda: bk.backward_lanes(traj, lam, emit=emit,
+                                                   **kw), 20)
+            times[what] = (ms, ms_p)
+            print(f"  {what}: bit-equal to plain; kernel {ms:.4f} ms, "
+                  f"plain {ms_p:.1f} ms (T={Tk}, B={SOURCES_B})")
+        emit, gps = modes[0]
+        what = next(iter(times))
+        rec[key] = dict(max_abs_err=max(errs), ms=times[what][0],
+                        plain_ms=times[what][1], plain_T=Tk, T=Tk,
+                        B=SOURCES_B, library_ms=None,
+                        modes={w: dict(ms=t[0], plain_ms=t[1])
+                               for w, t in times.items()},
+                        **k1_work(model, Tk, SOURCES_B, emit,
+                                  1 if gps else 2, None if gps else lims,
+                                  gps=gps, so=so))
+        if not on:
+            rec[key]["phase_launches"] = launched
+        checks[key] = len(modes)
+    del plain
+    group["checks"] = checks
+
+    def path(key, label, run, ref, k1, rtol=COST_RTOL, fields=None,
+             warm=True):
+        """One path: the new source's solve counted and timed (after a
+        warm-up where ``warm``), held to the reference source's; its K1
+        instance timed on the solution at the path's shapes (record
+        ``key``). Returns its launches."""
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+
+        def timed():
+            s.record()
+            out = run()
+            e.record()
+            return out
+
+        if warm:
+            run()
+        r, launches = counted(counters, timed)
+        ms = s.elapsed_time(e)
+        rr = ref()
+        iters = int(r.n_iters.max())
+        print(f"  {label}: launches {launches}; solve {ms:.3f} ms (CUDA "
+              f"events), {ms / max(iters, 1):.4f} ms/iter over {iters} "
+              f"iterations")
+        check(launches["backward_lanes"] > 0, f"{label}: K1 never ran")
+        check(bool(torch.isfinite(r.cost_total).all()),
+              f"{label}: non-finite costs")
+        group[key] = dict(solve_ms=ms, iters=iters, **held_to(
+            f"{label} against the reference source", r, rr, rtol, fields))
+        # the instance's time at the path's shapes, and its bound there
+        inst = next(k for k, v in SOURCE_GROUPS.items() if key in v[4])
+        kind, m, so, modes, _ = SOURCE_GROUPS[inst]
+        _, model, n, _, lims = source_tiles(kind, m, so, dev, {})
+        kms = cuda_ms(k1(r), 5)
+        Tp, Bp = r.u.shape[1], r.u.shape[0]
+        gps = "KL" in label
+        work = k1_work(model, Tp, Bp, "policy" if gps else "gains",
+                       1 if gps else 2, None if gps else lims, gps=gps,
+                       lanes=kind == "param", so=so)
+        print(f"  {inst} at T={Tp}, B={Bp}: {kms:.4f} ms (bound "
+              f"{work['bound_ms']:.4f} ms, {work['bound_by']})")
+        rec[inst].update(ms=kms, T=Tp, B=Bp, **work)
+        return launches
+
+    paths = {}
+    solves = source_solves(dev, B, T, B, LTI_T)
+
+    ph.start("kl-ad", f"ilqgkl_batch_lanes, pendcart B={B} T={T}, "
+             f"kl_step={KL_STEP}, autodiff_derivs_tiles against the "
+             "analytic tiles")
+    paths["kl_ad"] = path("kl_ad", "KL with autodiff tiles",
+                          *solves["kl_ad KL"])
+
+    ph.start("lti-ad", f"ilqg_batch_lanes, LTI n={LTI_N} m={LTI_M} B={B} "
+             f"T={LTI_T}, ±0.6, to convergence; then KL on it (kl_step "
+             f"{KL_LTI_STEP}): autodiff_derivs_tiles against lti_derivs_tiles")
+    paths["lti_ad"] = path("lti_ad", "LTI fleet with autodiff tiles",
+                           *solves["lti_ad"], warm=False)
+    paths["kl_lti_ad"] = path("kl_lti_ad", "KL on the LTI with autodiff "
+                              "tiles", *solves["kl_lti_ad KL"], warm=False)
+
+    ph.start("hetero-ad", f"ilqg_batch_lanes, parametrised pendcart B={B} "
+             f"T={T}, l~U{PARAM_L}, d~U{PARAM_D}, limits ±U{HETERO_HI}: "
+             "autodiff tiles against pendcart_derivs_tiles_param")
+    paths["hetero_ad"] = path("hetero_ad", "hetero fleet with autodiff "
+                              "tiles", *solves["hetero_ad"])
+
+    ph.start("kl-ddp", f"ilqgkl_batch_lanes, pendcart B={B} T={T}, "
+             "pendcart_derivs_tiles_so against the first-order tiles")
+    paths["kl_ddp"] = path("kl_ddp", "KL with full-DDP tiles",
+                           *solves["kl_ddp KL"], rtol=KL_DDP_RTOL,
+                           fields=("cost_total", "satisfied"))
+    del solves
+
+    ph.start("sources-gpu-vs-cpu", f"the paths on {B_CPU} lanes at "
+             f"T={SOURCES_T_CPU} (pendcart) and on {SOURCES_LTI_B_CPU} at "
+             f"T={SOURCES_LTI_T_CPU} (LTI, {SOURCES_LTI_ITERS} iterations), "
+             "against the --sources-cpu child's plain solves")
+    cpu = child_solves(cpu_proc)
+    for label, (run, _, _) in source_solves(
+            dev, B_CPU, SOURCES_T_CPU, SOURCES_LTI_B_CPU, SOURCES_LTI_T_CPU,
+            SOURCES_LTI_ITERS).items():
+        g = outcomes(label, run())
+        c = cpu[label]
+        print(f"  {label}: CPU solve {c['seconds']:.1f} s in the child")
+        same = (("satisfied", "n_iters") if "KL" in label
+                else ("reason", "n_accepted"))
+        need = None
+        if label == "hetero_ad":
+            # at T=60 its reasons and accepted counts move under rounding
+            # alone (per-scenario boxes down to ±0.8): the host's own solve
+            # from states one ulp away agrees with it on these shares only,
+            # and the card is held to the host at least as closely (or to
+            # AGREE_SHARE, where that is lower)
+            own = shares(cpu["hetero_ad nudged"], c, "cost_total", same)
+            print(f"  hetero_ad on the host against itself from states one "
+                  f"ulp away: shares " + ", ".join(
+                      f"{f} {v:.3f}" for f, v in zip(("cost",) + same, own)))
+            group["hetero_ad_self_shares"] = own
+            need = [min(AGREE_SHARE, v) for v in own]
+        agree(label, g, c, "cost_total", same, need=need)
+    rec["sources"] = group
+    return paths
+
+
 def _sized(n: int, m: int):
     """A stand-in with the (n, m) of a model, for k1_work on the packed
     stream (which reads no model)."""
@@ -8962,8 +9522,10 @@ def main() -> int:
     for line in rec["ptxas"]:
         print("  " + with_plan(line))
     _build.library()
-    # the lowered and tiles groups' libraries build beside the earlier
-    # phases
+    # the sources library (K1's Autodiff<LTI> and GPS Autodiff<Quadrotor,
+    # true>), the lowered and tiles groups' libraries build beside the
+    # earlier phases
+    source_lib = start_source_library()
     models = lowered_models()
     builds = (models, start_lowered_builds(models))
     tmodels = tiles_models()
@@ -8972,7 +9534,7 @@ def main() -> int:
     sbuilds = (smodels, start_sizes_builds(smodels))
     # the packed group's CPU solves run beside the card's phases
     cpu_proc = start_cpu_child("--packed-cpu")
-    # the CPU solves phases 5 and 9 are compared with at the end
+    # the CPU solves the early phases are compared with at the end
     early_proc = start_cpu_child("--early-cpu")
     m3_proc = start_cpu_child("--m3-cpu")
     tiles_proc = start_cpu_child("--tiles-cpu")
@@ -9209,11 +9771,17 @@ def main() -> int:
     CHILDREN.append(hbuilds[1])
     humanoid_proc = start_cpu_child("--humanoid-cpu")
     CHILDREN.append(humanoid_proc)
-    paths.update(kl_phases(ph, dev, rec, counters, model, tiles, spec))
-    paths["lti"] = lti_phases(ph, dev, rec, counters)
-    paths.update(kl_lti_phases(ph, dev, rec, counters))
-    paths.update(hetero_phases(ph, dev, rec, counters, ilqg))
-    paths.update(mpc_phases(ph, dev, rec, counters))
+    # the sources group's lowered libraries and its CPU child, with theirs
+    srcmodels = sources_models()
+    srcbuilds = (srcmodels, start_sources_builds(srcmodels), source_lib)
+    sources_proc = start_cpu_child("--sources-cpu")
+    CHILDREN.append(sources_proc)
+    paths.update(kl_phases(ph, dev, rec, counters, model, tiles, spec,
+                           early_gpu))
+    paths["lti"] = lti_phases(ph, dev, rec, counters, early_gpu)
+    paths.update(kl_lti_phases(ph, dev, rec, counters, early_gpu))
+    paths.update(hetero_phases(ph, dev, rec, counters, ilqg, early_gpu))
+    paths.update(mpc_phases(ph, dev, rec, counters, early_gpu))
     paths.update(probe_phase(ph, dev, rec, counters))
     generic = generic_phases(ph, dev, counters)
     paths.update(packed_phases(ph, dev, rec, counters, ilqg, cpu_proc))
@@ -9243,6 +9811,9 @@ def main() -> int:
     paths.update(humanoid_phases(ph, dev, rec, counters, hbuilds,
                                  humanoid_proc))
     humanoid = rec.pop("humanoid")
+    paths.update(sources_phases(ph, dev, rec, counters, srcbuilds,
+                                sources_proc))
+    sources = rec.pop("sources")
     early_gpu_vs_cpu(ph, early_proc, early_gpu)
 
     # ---- record and result: one entry per kernel instance, its launches
@@ -9512,6 +10083,39 @@ def main() -> int:
          "from device memory)", "lowered.cuh", k2, ()),
         ("k4_54", "covariance_lanes", "n=54 (Σ in device memory)",
          "covariance.cuh", k4, ("humanoid_kl",)),
+        # the sources group: every public derivative source in the modes
+        # the fleet entries launch
+        ("k1_lti_ad", "backward_lanes", "Autodiff<LTI<10,2>> gains, full",
+         "backward_lti_ad.cu", k1, ("lti_ad",)),
+        ("k1_lti_ad_gps", "backward_lanes", "Autodiff<LTI<10,2>> GPS policy",
+         "backward_lti_ad.cu", k1, ("kl_lti_ad",)),
+        ("k1_lti3_ad", "backward_lanes", "Autodiff<LTI<10,3>> gains, full, "
+         "GPS policy", "backward_lti_ad_10_3.cu", k1, ()),
+        ("k1_lti_ad_so", "backward_lanes", "Autodiff<LTI<10,2>,SO> gains, "
+         "full, GPS policy (full DDP)", "backward_lti_ad_so.cu", k1, ()),
+        ("k1_lti3_ad_so", "backward_lanes", "Autodiff<LTI<10,3>,SO> gains, "
+         "full, GPS policy (full DDP)", "backward_lti_ad_so_10_3.cu", k1,
+         ()),
+        ("k1_param_ad", "backward_lanes", "Autodiff<PendCartParam> <4,1> "
+         "gains, full, params", "backward_pendcart_param_ad.cu", k1,
+         ("hetero_ad",)),
+        ("k1_param_ad_so", "backward_lanes", "Autodiff<PendCartParam,SO> "
+         "<4,1> gains, full, params (full DDP)",
+         "backward_pendcart_param_ad.cu", k1, ()),
+        ("k1_pendcart_ad_gps", "backward_lanes", "Autodiff<PendCart> <4,1> "
+         "GPS policy", "backward_pendcart_gps.cu", k1, ("kl_ad",)),
+        ("k1_pendcart_ad_so_gps", "backward_lanes", "Autodiff<PendCart,SO> "
+         "<4,1> GPS policy (full DDP)", "backward_pendcart_gps.cu", k1, ()),
+        ("k1_pendcart_so_gps", "backward_lanes", "PendCartSO <4,1> GPS "
+         "policy (full DDP)", "backward_pendcart_gps.cu", k1, ("kl_ddp",)),
+        ("k1_quad_so_gps", "backward_lanes", "Autodiff<Quadrotor,SO> <6,2> "
+         "GPS policy (full DDP)", "backward_quad_so_gps.cu", k1, ()),
+        ("k1_lowered_so_gps", "backward_lanes", "Autodiff<Lowered,SO> "
+         "pendcart <4,1> GPS full, policy (full DDP)", "lowered.cuh", k1,
+         ()),
+        ("k1_tiles_so_gps", "backward_lanes", "LoweredTiles pendcart <4,1> "
+         "second order GPS full, policy (a user's full-DDP tiles)",
+         "lowered.cuh", k1, ()),
     ) + tuple(
         entry for n, m in control_sizes() for entry in (
             (f"k3_c{n}_{m}", "forward_lanes", f"Lowered LTI <{n},{m}>",
@@ -9557,6 +10161,7 @@ def main() -> int:
     print(json.dumps({"sizes": sizes}))
     print(json.dumps({"controls": controls_group}))
     print(json.dumps({"humanoid": humanoid}))
+    print(json.dumps({"sources": sources}))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
@@ -9601,6 +10206,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["--humanoid-cpu"]:
         print(json.dumps(humanoid_cpu_solves()))
+        sys.exit(0)
+    if sys.argv[1:] == ["--sources-cpu"]:
+        print(json.dumps(sources_cpu_solves()))
         sys.exit(0)
     try:
         rc = main()

@@ -28,7 +28,9 @@ it. K4 at a state size, and the packed K1 at an (n, m), that the kernel
 library does not hold are built the same way, one library per size
 (:func:`covariance_library`, :func:`packed_library`). K1's wide design
 (``csrc/backward_wide.cuh``) is one library for every size
-(:func:`wide_library`), which takes n and m at run time.
+(:func:`wide_library`), which takes n and m at run time. K1's heaviest
+instances of the autodiff sources are a library of their own too
+(:func:`sources_library`).
 """
 from __future__ import annotations
 
@@ -54,10 +56,21 @@ SOURCES = ("common.cuh", "ring.cuh", "autodiff.cuh", "pendcart.cuh",
            "backward_lti_gps_10_3.cu", "backward_quad.cu",
            "backward_pendcart_ad.cu", "backward_pendcart_param.cu",
            "backward_packed.cu", "backward_packed_lti.cu", "backward_so.cu",
-           "backward_quad_so.cu", "forward.cu", "forward_lti.cu",
+           "backward_quad_so.cu", "backward_pendcart_param_ad.cu",
+           "backward_pendcart_gps.cu", "forward.cu", "forward_lti.cu",
            "forward_lti_10_3.cu", "forward_quad.cu",
            "forward_pendcart_param.cu", "covariance.cuh", "covariance.cu",
            "probe.cu")
+# the sources library (sources_library): K1's Autodiff<LTI> instances at
+# ⟨10,2⟩ and ⟨10,3⟩, first and second order, and Autodiff<Quadrotor, true>
+# in GPS mode, with their own entry point (backward_sources.cu), built at
+# their first launch: in the kernel library they made its build on the
+# card's host ≈100 s against ≈50 s
+SOURCE_LIBRARY = ("common.cuh", "ring.cuh", "autodiff.cuh", "lti.cuh",
+                  "quadrotor.cuh", "backward.cuh", "backward_sources.cu",
+                  "backward_lti_ad.cu", "backward_lti_ad_10_3.cu",
+                  "backward_lti_ad_so.cu", "backward_lti_ad_so_10_3.cu",
+                  "backward_quad_so_gps.cu")
 # compile flags of every source; the objects are then linked with -shared
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -69,7 +82,7 @@ LOWERED_HEADERS = ("common.cuh", "ring.cuh", "autodiff.cuh", "backward.cuh",
 # user's lowered derivative tiles (LoweredTiles; "t1*"), csrc/lowered.cuh
 # DDP_LOWERED_GROUP; "fwd" has K3's and K2's entry points, the others K1's
 LOWERED_GROUPS = {"fwd": 0, "k1": 1, "k1_gps": 2, "k1_so": 3, "t1": 4,
-                  "t1_gps": 5, "t1_so": 6}
+                  "t1_gps": 5, "t1_so": 6, "k1_so_gps": 7, "t1_so_gps": 8}
 # the headers of the libraries generated for a size the kernel library is
 # not built for: K4 at any n (covariance_library), the packed K1 at any
 # (n, m) (packed_library)
@@ -141,26 +154,29 @@ def find_nvcc() -> str:
         "from source at first use and need the CUDA toolkit")
 
 
-def _digest() -> str:
+def _digest(sources: Sequence[str]) -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    for name in sources:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Build:
-    """Compile the kernels unless an up-to-date library exists."""
+def build(sources: Sequence[str] = SOURCES,
+          prefix: str = "kernels") -> Build:
+    """Compile ``sources`` (the kernel library's by default) unless an
+    up-to-date library exists: one nvcc a ``.cu``, all started together,
+    linked into ``libddp_<prefix>_<digest>.so``."""
     nvcc = find_nvcc()
-    digest = _digest()
-    path = BUILD_DIR / f"libddp_kernels_{digest}.so"
+    digest = _digest(sources)
+    path = BUILD_DIR / f"libddp_{prefix}_{digest}.so"
     if path.is_file():
         return Build(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{digest}.{os.getpid()}"
     t0 = time.perf_counter()
     jobs = []
-    for name in SOURCES:
+    for name in sources:
         if name.endswith(".cu"):
             obj = BUILD_DIR / f"{Path(name).stem}.{tag}.o"
             proc = subprocess.Popen(
@@ -206,6 +222,14 @@ def _bind(path: Path, names) -> ctypes.CDLL:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed (once per process)."""
     return _bind(build().path, LIBRARY_NAMES)
+
+
+@functools.lru_cache(maxsize=None)
+def sources_library() -> ctypes.CDLL:
+    """The loaded sources library (``SOURCE_LIBRARY``: K1's Autodiff<LTI>
+    and GPS Autodiff<Quadrotor, true> instances), built first if needed."""
+    return _bind(build(SOURCE_LIBRARY, "sources").path,
+                 ("ddp_backward_lanes",))
 
 
 def max_m_define(m: int) -> str:

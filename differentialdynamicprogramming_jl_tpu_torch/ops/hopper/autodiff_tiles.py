@@ -155,8 +155,12 @@ def _autodiff_derivs_tiles(model: LanesModel,
                            for mi in range(m)] for a in range(n)]
         return out
 
-    # a model without a descriptor: K1 runs Autodiff<Lowered> of its
-    # lowering, made at the first launch (DeviceModel.lanes)
+    # a model with a hand-written descriptor keeps it: K1 runs its
+    # Autodiff<Body> instance, in the modes the fleet entries launch
+    # (backward_kernel.CUDA_BACKWARD, CUDA_BACKWARD_SO); GPS "gains", and
+    # "policy" without GPS mode, still raise on the card. A model without
+    # one: K1 runs Autodiff<Lowered> of its lowering, made at the first
+    # launch (DeviceModel.lanes)
     dev = (DeviceModel(LOWERED_ID, np.zeros(0, np.float32), lanes=model)
            if model.device is None else model.device)
     dev = dataclasses.replace(dev, autodiff=True, second_order=second_order)

@@ -127,15 +127,22 @@ EMIT_CODE = {"gains": 0, "full": 1, "policy": 2}
 # (csrc/autodiff.cuh), whose derivatives are made in the kernel from the
 # model's own functions (DeviceModel.autodiff). Model id 4 is the pendcart
 # with per-scenario parameters (PendCartParam). Per-scenario limits are a
-# runtime input of every instance.
+# runtime input of every instance. Every derivative source a public entry
+# can pass runs in the modes the entries launch: "gains" and "full"
+# without GPS mode (ilqg_batch_lanes), "policy" in it (ilqgkl_batch_lanes,
+# which takes no params).
 _ALL = tuple(EMIT_CODE)
+_ILQG = ("gains", "full")
+_KL = ("policy",)
 CUDA_BACKWARD = {
     (1, 4, 1, False, False): _ALL, (1, 4, 1, False, True): _ALL,
     (2, 10, 2, False, False): _ALL, (2, 10, 2, False, True): _ALL,
     (2, 10, 3, False, False): _ALL, (2, 10, 3, False, True): _ALL,
-    (4, 4, 1, False, False): ("gains", "full"),
-    (1, 4, 1, True, False): ("gains", "full"),
-    (3, 6, 2, True, False): ("gains", "full"),
+    (4, 4, 1, False, False): _ILQG, (4, 4, 1, True, False): _ILQG,
+    (1, 4, 1, True, False): _ILQG, (1, 4, 1, True, True): _KL,
+    (2, 10, 2, True, False): _ILQG, (2, 10, 2, True, True): _KL,
+    (2, 10, 3, True, False): _ILQG, (2, 10, 3, True, True): _KL,
+    (3, 6, 2, True, False): _ILQG,
     (3, 6, 2, True, True): ("full", "policy"),
 }
 # K1's instances of a lowered model (a descriptor with ``lanes`` set,
@@ -145,6 +152,7 @@ LOWERED_K1 = {
     (False, False): {"gains": "k1", "full": "k1", "policy": "k1_gps"},
     (False, True): {"full": "k1_gps", "policy": "k1_gps"},
     (True, False): {"gains": "k1_so", "full": "k1_so"},
+    (True, True): {"full": "k1_so_gps", "policy": "k1_so_gps"},
 }
 # K1's instances of a user's tiles without a descriptor, which are
 # LoweredTiles (csrc/lowered.cuh): (second order, GPS mode) -> {emission:
@@ -153,15 +161,27 @@ LOWERED_TILES_K1 = {
     (False, False): {"gains": "t1", "full": "t1", "policy": "t1_gps"},
     (False, True): {"full": "t1_gps", "policy": "t1_gps"},
     (True, False): {"gains": "t1_so", "full": "t1_so"},
+    (True, True): {"full": "t1_so_gps", "policy": "t1_so_gps"},
 }
 # the second-order (full DDP) instances, keyed as CUDA_BACKWARD: the
-# analytic PendCartSO (csrc/pendcart.cuh) and Autodiff<PendCart, true> and
-# Autodiff<Quadrotor, true>, none in GPS mode
+# analytic PendCartSO (csrc/pendcart.cuh) and Autodiff<PendCart, true>,
+# Autodiff<Quadrotor, true>, Autodiff<LTI, true> and Autodiff<PendCartParam,
+# true>, in the modes the fleet entries launch
 CUDA_BACKWARD_SO = {
-    (1, 4, 1, False, False): ("gains", "full"),
-    (1, 4, 1, True, False): ("gains", "full"),
-    (3, 6, 2, True, False): ("gains", "full"),
+    (1, 4, 1, False, False): _ILQG, (1, 4, 1, False, True): _KL,
+    (1, 4, 1, True, False): _ILQG, (1, 4, 1, True, True): _KL,
+    (3, 6, 2, True, False): _ILQG, (3, 6, 2, True, True): _KL,
+    (2, 10, 2, True, False): _ILQG, (2, 10, 2, True, True): _KL,
+    (2, 10, 3, True, False): _ILQG, (2, 10, 3, True, True): _KL,
+    (4, 4, 1, True, False): _ILQG,
 }
+# the instances built in the sources library (_build.sources_library) at
+# their first launch, not in the kernel library: (second order, key of
+# CUDA_BACKWARD_SO or CUDA_BACKWARD) of Autodiff<LTI> at ⟨10,2⟩ and ⟨10,3⟩
+# and of Autodiff<Quadrotor, true> in GPS mode
+SOURCE_LIBRARY_K1 = frozenset(
+    [(so, (2, 10, m, True, gps)) for so in (False, True) for m in (2, 3)
+     for gps in (False, True)] + [(True, (3, 6, 2, True, True))])
 # the packed-derivatives instances (csrc/packed.cuh) of the kernel
 # library, keyed by (n, m, GPS mode) alone: the model does not enter K1 in
 # that mode. At any other (n, m) with m up to the ceiling
@@ -651,12 +671,18 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
     m and GPS mode; at any other (n, m) its ``"gains"`` and ``"full"``
     instances without GPS mode, built at their first launch where their
     ring fits), with m up to the ceiling ``plan.MAX_CONTROLS`` (a library
-    generated for its m above the kernel library's ``MAX_M`` = 4). Where
-    the lane design's ring does not fit a block (``plan.backward_plan``
-    gives ``tc == 0``) every first-order input runs the wide design, in
-    every mode, up to ``plan.MAX_STATES``. Anything else raises
-    NotImplementedError before anything is lowered, built or launched.
-    Autodiff
+    generated for its m above the kernel library's ``MAX_M`` = 4). Every
+    public derivative source (analytic, autodiff and full-DDP tiles of the
+    pendcart, ``PendCartParam``, the LTI and the quadrotor) has the modes
+    the fleet entries launch: ``"gains"`` and ``"full"`` without GPS mode,
+    ``"policy"`` in it (but ``PendCartParam``, whose KL entry takes no
+    params). Where the lane design's ring does not fit a block
+    (``plan.backward_plan`` gives ``tc == 0``) every first-order input runs
+    the wide design, in every mode, up to ``plan.MAX_STATES``. Anything
+    else raises NotImplementedError before anything is lowered, built or
+    launched: GPS ``"gains"``, a descriptor's ``"policy"`` without GPS mode
+    where the tables lack it, the packed stream's GPS mode beyond ⟨4,1⟩
+    ``"full"``, and second order in the wide design. Autodiff
     tiles of a model without a descriptor run ``Autodiff<Lowered>`` from
     the model's lowering (:mod:`.lower`, :data:`LOWERED_K1`), and a user's
     tiles without a descriptor run ``LoweredTiles``, their own expansion
@@ -705,7 +731,7 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                               prev, eta, params, lims_lanes, emit, qp_iters,
                               plan)
     gps_t = (prev, eta) if gps else ()
-    group = tiles_low = library = None
+    group = tiles_low = library = None      # library: a loader, or None
     if packed:
         dm = PACKED_MODEL
         if (n, m, gps) in CUDA_PACKED:
@@ -722,7 +748,7 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                 f"GPS mode (and the sizes {CUDA_PACKED}); not "
                 f"{'in' if gps else 'without'} GPS mode, emit={emit!r}")
         else:
-            library = (n, m)
+            library = lambda: _build.packed_library(n, m)
     elif getattr(derivs_tiles, "device", None) is None:
         # a user's tiles: their lowering, K1's analytic expansion
         from .lower import LOWERED_TILES_ID, lower_tiles
@@ -749,8 +775,8 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                     f"({'second-order' if so else 'first-order'}, "
                     f"{'in' if gps else 'without'} GPS mode) has no "
                     f"emit={emit!r} instance; built: {LOWERED_K1}")
-        elif emit not in table.get((dm.model_id, n, m, dm.autodiff, gps),
-                                   ()):
+        elif emit not in table.get(key := (dm.model_id, n, m, dm.autodiff,
+                                           gps), ()):
             raise NotImplementedError(
                 f"backward_lanes: no CUDA kernel (K1 instance) is built for "
                 f"model id {dm.model_id} at n={n}, m={m} with "
@@ -758,12 +784,12 @@ def backward_lanes(traj: torch.Tensor, lam: torch.Tensor, *, n: int, m: int,
                 f"{'second-order' if so else 'first-order'} derivatives, "
                 f"{'in' if gps else 'without'} GPS mode, emit={emit!r}; "
                 f"built (model id, n, m, autodiff, GPS): {sorted(table)}")
+        elif (so, key) in SOURCE_LIBRARY_K1:
+            library = _build.sources_library
     lib, dev, stream, _keep, model_args = cuda_args(
         dm, "backward_lanes", n, m, lims, lims_lanes, params, traj, lam,
         *gps_t, models=None if packed else CUDA_MODELS, group=group,
-        tiles=tiles_low,
-        library=None if library is None else lambda: _build.packed_library(
-            *library))
+        tiles=tiles_low, library=library)
     S = OutLayout(n, m, emit).S
     out = torch.empty((T, S, B), dtype=torch.float32, device=traj.device)
     stats = torch.empty((4, B), dtype=torch.float32, device=traj.device)
@@ -803,7 +829,9 @@ def _wide_so(n: int, m: int) -> str:
     return (f"backward_lanes: second-order tiles (full DDP) at n={n}, m={m}: "
             "the lane design's ring does not fit a block at this size, and "
             "the wide K1 (csrc/backward_wide.cuh) takes first-order "
-            "derivatives only")
+            "derivatives only, in every mode; second order runs in the lane "
+            "design's sizes, in the modes of CUDA_BACKWARD_SO, "
+            "LOWERED_K1 and LOWERED_TILES_K1")
 
 
 def _backward_wide(traj, lam, n, m, reg_type, lims, derivs_tiles, prev, eta,

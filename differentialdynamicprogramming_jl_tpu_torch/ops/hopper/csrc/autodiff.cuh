@@ -435,6 +435,20 @@ __device__ __forceinline__ D where_(bool c, float a, D b) {
   return c ? constant_(b, a) : b;
 }
 
+// Body::AD_ROLLED, false where the body does not set it: Autodiff<Body>
+// then runs its passes in rolled loops over the directions (each pass's
+// body unrolled, the expansion in the stack frame), where unrolled they
+// would be too much code for nvcc (the LTI at ⟨10,2⟩: 78 Jet passes of a
+// 104-term cost). The same operations either way, so the same bits.
+template <class Body, class = void>
+struct AdRolled {
+  static constexpr bool value = false;
+};
+template <class Body>
+struct AdRolled<Body, decltype(void(Body::AD_ROLLED))> {
+  static constexpr bool value = Body::AD_ROLLED;
+};
+
 // K1's model interface (common.cuh) for a Body whose dynamics, cost and
 // terminal are templates over the scalar type: the forward functions pass
 // through at S = float, and derivs() makes the expansion by the passes
@@ -453,6 +467,7 @@ struct Autodiff {
   static constexpr bool SECOND_ORDER = SO;
   static constexpr int NM = N + M;
   static constexpr int NH = NM * (NM + 1) / 2;
+  static constexpr bool ROLLED = AdRolled<Body>::value;
   using Consts = typename Body::Consts;
 
   Body body;
@@ -549,10 +564,18 @@ DDP_UNROLL
                                          const float (&u)[M], int t,
                                          Derivs& d) const {
     first(x, u, t, d);
+    if constexpr (ROLLED) {
+#pragma unroll 1
+      for (int j = 0; j < NM; ++j) {
+#pragma unroll 1
+        for (int i = 0; i <= j; ++i) d.H[hidx(i, j)] = pass2(x, u, t, i, j);
+      }
+    } else {
 DDP_UNROLL
-    for (int j = 0; j < NM; ++j) {
+      for (int j = 0; j < NM; ++j) {
 DDP_UNROLL
-      for (int i = 0; i <= j; ++i) d.H[hidx(i, j)] = pass2(x, u, t, i, j);
+        for (int i = 0; i <= j; ++i) d.H[hidx(i, j)] = pass2(x, u, t, i, j);
+      }
     }
   }
 
@@ -564,11 +587,20 @@ DDP_UNROLL
                                             Derivs& d) const {
     static_assert(SO, "derivs_so is the full-DDP expansion");
     first(x, u, t, d);
+    if constexpr (ROLLED) {
+#pragma unroll 1
+      for (int j = 0; j < NM; ++j) {
+#pragma unroll 1
+        for (int i = 0; i <= j; ++i)
+          d.H[hidx(i, j)] = pass2_so(x, u, t, i, j, Vx, d.HV[hidx(i, j)]);
+      }
+    } else {
 DDP_UNROLL
-    for (int j = 0; j < NM; ++j) {
+      for (int j = 0; j < NM; ++j) {
 DDP_UNROLL
-      for (int i = 0; i <= j; ++i)
-        d.H[hidx(i, j)] = pass2_so(x, u, t, i, j, Vx, d.HV[hidx(i, j)]);
+        for (int i = 0; i <= j; ++i)
+          d.H[hidx(i, j)] = pass2_so(x, u, t, i, j, Vx, d.HV[hidx(i, j)]);
+      }
     }
   }
 
@@ -579,19 +611,36 @@ DDP_UNROLL
   __device__ __forceinline__ void first(const float (&x)[N],
                                         const float (&u)[M], int t,
                                         Derivs& d) const {
+    if constexpr (ROLLED) {
+#pragma unroll 1
+      for (int i = 0; i < NM; ++i) {
+        Dual f[N];
+        const float c = pass1(x, u, t, i, f).t;
+        if (i < N) {
+          d.cx[i] = c;
 DDP_UNROLL
-    for (int i = 0; i < N; ++i) {
-      Dual f[N];
-      d.cx[i] = pass1(x, u, t, i, f).t;
+          for (int a = 0; a < N; ++a) d.fx[a][i] = f[a].t;
+        } else {
+          d.cu[i - N] = c;
 DDP_UNROLL
-      for (int a = 0; a < N; ++a) d.fx[a][i] = f[a].t;
-    }
+          for (int a = 0; a < N; ++a) d.fu[a][i - N] = f[a].t;
+        }
+      }
+    } else {
 DDP_UNROLL
-    for (int mi = 0; mi < M; ++mi) {
-      Dual f[N];
-      d.cu[mi] = pass1(x, u, t, N + mi, f).t;
+      for (int i = 0; i < N; ++i) {
+        Dual f[N];
+        d.cx[i] = pass1(x, u, t, i, f).t;
 DDP_UNROLL
-      for (int a = 0; a < N; ++a) d.fu[a][mi] = f[a].t;
+        for (int a = 0; a < N; ++a) d.fx[a][i] = f[a].t;
+      }
+DDP_UNROLL
+      for (int mi = 0; mi < M; ++mi) {
+        Dual f[N];
+        d.cu[mi] = pass1(x, u, t, N + mi, f).t;
+DDP_UNROLL
+        for (int a = 0; a < N; ++a) d.fu[a][mi] = f[a].t;
+      }
     }
   }
 

@@ -9,8 +9,13 @@
 // backward_pendcart_ad.cu, the
 // second-order (full DDP) ones in backward_so.cu and backward_quad_so.cu,
 // and the packed-derivatives ones (model id 0: no model, the stream holds
-// the expansion) in backward_packed.cu and backward_packed_lti.cu, so that
-// nvcc builds them in parallel. A model with autodiff set runs its
+// the expansion) in backward_packed.cu and backward_packed_lti.cu, and
+// Autodiff<PendCartParam>, first and second order, without GPS mode in
+// backward_pendcart_param_ad.cu and the GPS "policy" of Autodiff<PendCart>,
+// Autodiff<PendCart, true> and PendCartSO in backward_pendcart_gps.cu; so
+// that nvcc builds them in parallel. Autodiff<LTI> and the GPS "policy" of
+// Autodiff<Quadrotor, true> are the sources library's (backward_sources.cu),
+// built at their first launch. A model with autodiff set runs its
 // autodiff instance or none: never its analytic one; second-order
 // derivatives run a second-order instance or none. Per-scenario limits
 // (lims_lanes) are a runtime input of every instance; an m outside
@@ -52,41 +57,50 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                         m == PendCart::M && n_consts == PendCart::N_CONSTS;
   const bool quad = model_id == Quadrotor::ID && n == Quadrotor::N &&
                     m == Quadrotor::M && n_consts == Quadrotor::N_CONSTS;
+  const bool lti2 = model_id == LTI10x2::ID && n == LTI10x2::N &&
+                    m == LTI10x2::M && n_consts == LTI10x2::N_CONSTS;
+  const bool lti3 = model_id == LTI10x3::ID && n == LTI10x3::N &&
+                    m == LTI10x3::M && n_consts == LTI10x3::N_CONSTS;
   if (packed) {
     if (autodiff || second_order || n_params != 0 || n_consts != 0)
       return ERR_MODEL;
     return launch_backward_packed(a, n, m);
   }
-  if (second_order) {
-    if (gps || n_params != 0) return ERR_MODEL;
-    if (pendcart)
-      return autodiff ? launch_backward_pendcart_ad_so(a)
-                      : launch_backward_pendcart_so(a);
-    if (quad && autodiff) return launch_backward_quad_so(a);
-    return ERR_MODEL;
-  }
   if (model_id == PendCartParam::ID) {
-    if (autodiff || gps || n != PendCartParam::N || m != PendCartParam::M ||
+    if (gps || n != PendCartParam::N || m != PendCartParam::M ||
         n_consts != PendCartParam::N_CONSTS ||
         n_params != PendCartParam::N_PARAMS)
       return ERR_MODEL;
-    return launch_backward_pendcart_param(a);
+    if (autodiff)
+      return second_order ? launch_backward_pendcart_param_ad_so(a)
+                          : launch_backward_pendcart_param_ad(a);
+    return second_order ? ERR_MODEL : launch_backward_pendcart_param(a);
   }
   if (n_params != 0) return ERR_MODEL;
+  if (second_order) {
+    if (pendcart && gps)
+      return autodiff ? launch_backward_pendcart_ad_so_gps(a)
+                      : launch_backward_pendcart_so_gps(a);
+    if (pendcart)
+      return autodiff ? launch_backward_pendcart_ad_so(a)
+                      : launch_backward_pendcart_so(a);
+    if (quad && autodiff && !gps) return launch_backward_quad_so(a);
+    return ERR_MODEL;
+  }
   if (autodiff) {
-    if (pendcart && !gps) return launch_backward_pendcart_ad(a);
+    if (pendcart)
+      return gps ? launch_backward_pendcart_ad_gps(a)
+                 : launch_backward_pendcart_ad(a);
     if (quad) return launch_backward_quad_6_2(a);
     return ERR_MODEL;
   }
   if (pendcart)
     return gps ? launch_backward<PendCart, true>(a)
                : launch_backward<PendCart, false>(a);
-  if (model_id == LTI10x2::ID && n == LTI10x2::N && m == LTI10x2::M &&
-      n_consts == LTI10x2::N_CONSTS)
+  if (lti2)
     return gps ? launch_backward_lti_gps_10_2(a)
                : launch_backward_lti_10_2(a);
-  if (model_id == LTI10x3::ID && n == LTI10x3::N && m == LTI10x3::M &&
-      n_consts == LTI10x3::N_CONSTS)
+  if (lti3)
     return gps ? launch_backward_lti_gps_10_3(a)
                : launch_backward_lti_10_3(a);
   return ERR_MODEL;

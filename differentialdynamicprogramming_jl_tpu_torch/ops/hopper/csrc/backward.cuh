@@ -28,7 +28,16 @@
 // Autodiff<Quadrotor, true> ⟨6,2⟩ (backward_quad_so.cu). The
 // packed-derivatives stream Packed<N, M> (packed.cuh): ⟨4,1⟩ in "gains",
 // "full" and GPS "full", ⟨6,2⟩ in "gains" and "full" (backward_packed.cu),
-// ⟨10,2⟩ in "gains" and "full" (backward_packed_lti.cu).
+// ⟨10,2⟩ in "gains" and "full" (backward_packed_lti.cu). Every other
+// public derivative source in the modes the fleet entries launch, "gains"
+// and "full" without GPS mode and GPS "policy": Autodiff<PendCartParam>
+// and Autodiff<PendCartParam, true> without GPS mode
+// (backward_pendcart_param_ad.cu); GPS "policy" of Autodiff<PendCart>,
+// Autodiff<PendCart, true> and PendCartSO (backward_pendcart_gps.cu); and,
+// in the sources library built at its first launch (backward_sources.cu),
+// Autodiff<LTI> ⟨10,2⟩ and ⟨10,3⟩, first and second order
+// (backward_lti_ad{,_10_3,_so,_so_10_3}.cu), and GPS "policy" of
+// Autodiff<Quadrotor, true> (backward_quad_so_gps.cu).
 //
 // Layout: every stream is (T, S, B) f32 with the scenario axis contiguous.
 // A block owns 32 scenarios: lane l of each warp works on scenario
@@ -1090,6 +1099,34 @@ int launch_backward(const BwdArgs& a) {
   }
 }
 
+// K1 for one model in the iLQG entries' modes, "gains" and "full"
+// without GPS mode (ilqg_batch_lanes and its replay); ERR_MODEL for the
+// others
+template <class Model>
+int launch_ilqg(const BwdArgs& a) {
+  if (a.prev != nullptr) return ERR_MODEL;
+  switch (a.emit) {
+    case EMIT_GAINS: return launch_one<Model, EMIT_GAINS, false>(a);
+    case EMIT_FULL: return launch_one<Model, EMIT_FULL, false>(a);
+    default: return ERR_MODEL;
+  }
+}
+
+// K1 for one model in GPS "policy" emission only, the KL entries' mode
+template <class Model>
+int launch_gps_policy(const BwdArgs& a) {
+  return a.prev != nullptr && a.emit == EMIT_POLICY
+             ? launch_one<Model, EMIT_POLICY, true>(a)
+             : ERR_MODEL;
+}
+
+// K1 for one model in the modes every fleet entry launches
+template <class Model>
+int launch_entries(const BwdArgs& a) {
+  return a.prev != nullptr ? launch_gps_policy<Model>(a)
+                           : launch_ilqg<Model>(a);
+}
+
 }  // namespace
 
 // the LTI ⟨10,2⟩ instances: without GPS mode in backward_lti.cu, in GPS
@@ -1100,7 +1137,17 @@ int launch_backward(const BwdArgs& a) {
 // backward_quad.cu, pendcart ⟨4,1⟩ in backward_pendcart_ad.cu; the
 // second-order instances in backward_so.cu (PendCartSO, Autodiff<PendCart,
 // true>) and backward_quad_so.cu; the packed instances in
-// backward_packed.cu (⟨4,1⟩, ⟨6,2⟩) and backward_packed_lti.cu (⟨10,2⟩)
+// backward_packed.cu (⟨4,1⟩, ⟨6,2⟩) and backward_packed_lti.cu (⟨10,2⟩);
+// the instances of every other public derivative source, each in the modes
+// the fleet entries launch (launch_ilqg, launch_gps_policy, launch_entries):
+// Autodiff<PendCartParam>, first and second order, in
+// backward_pendcart_param_ad.cu; GPS "policy" of Autodiff<PendCart>,
+// Autodiff<PendCart, true> and PendCartSO in backward_pendcart_gps.cu; and
+// in the sources library (backward_sources.cu, built at its first launch)
+// Autodiff<LTI> ⟨10,2⟩ and ⟨10,3⟩, first order in backward_lti_ad.cu and
+// backward_lti_ad_10_3.cu, second order in backward_lti_ad_so.cu and
+// backward_lti_ad_so_10_3.cu, and GPS "policy" of Autodiff<Quadrotor, true>
+// in backward_quad_so_gps.cu
 int launch_backward_lti_10_2(const BwdArgs& a);
 int launch_backward_lti_gps_10_2(const BwdArgs& a);
 int launch_backward_lti_10_3(const BwdArgs& a);
@@ -1112,5 +1159,15 @@ int launch_backward_pendcart_so(const BwdArgs& a);
 int launch_backward_pendcart_ad_so(const BwdArgs& a);
 int launch_backward_quad_so(const BwdArgs& a);
 int launch_backward_packed(const BwdArgs& a, int n, int m);
+int launch_backward_lti_ad_10_2(const BwdArgs& a);
+int launch_backward_lti_ad_10_3(const BwdArgs& a);
+int launch_backward_lti_ad_so_10_2(const BwdArgs& a);
+int launch_backward_lti_ad_so_10_3(const BwdArgs& a);
+int launch_backward_pendcart_param_ad(const BwdArgs& a);
+int launch_backward_pendcart_param_ad_so(const BwdArgs& a);
+int launch_backward_pendcart_ad_gps(const BwdArgs& a);
+int launch_backward_pendcart_ad_so_gps(const BwdArgs& a);
+int launch_backward_pendcart_so_gps(const BwdArgs& a);
+int launch_backward_quad_so_gps(const BwdArgs& a);
 
 }  // namespace ddp

@@ -17,11 +17,15 @@
 //   5 "t1_gps"  K1 LoweredTiles in GPS mode ("full", "policy") and in
 //               "policy" emission without it;
 //   6 "t1_so"   K1 LoweredTiles of second-order tiles (full DDP), "gains"
-//               and "full".
+//               and "full";
+//   7 "k1_so_gps" K1 Autodiff<Lowered, true> in GPS mode ("full",
+//               "policy");
+//   8 "t1_so_gps" K1 LoweredTiles of second-order tiles in GPS mode
+//               ("full", "policy").
 // The entry points have the signatures of the kernel library's
 // (_build.SIGNATURES) and return ERR_MODEL for an instance the group does
-// not hold. Groups 1-3 make K1's derivatives by autodiff of the model's
-// struct, groups 4-6 read the user's expansion.
+// not hold. Groups 1-3 and 7 make K1's derivatives by autodiff of the
+// model's struct, groups 4-6 and 8 read the user's expansion.
 #pragma once
 
 #ifndef DDP_LOWERED_GROUP
@@ -36,11 +40,16 @@
 
 namespace ddp {
 
+// whether the group makes K1's derivatives by autodiff of a Lowered
+// struct, or reads a user's LoweredTiles
+#define DDP_LOWERED_AUTODIFF \
+  (DDP_LOWERED_GROUP <= 3 || DDP_LOWERED_GROUP == 7)
+
 // the group's struct
-#if DDP_LOWERED_GROUP >= 4
-using LoweredStruct = LoweredTiles;
-#else
+#if DDP_LOWERED_AUTODIFF
 using LoweredStruct = Lowered;
+#else
+using LoweredStruct = LoweredTiles;
 #endif
 
 // the struct's shape against the launcher's arguments
@@ -155,8 +164,21 @@ int launch_lowered(const BwdArgs& a, bool gps, bool second_order) {
     case EMIT_FULL: return launch_one<Model, EMIT_FULL, false>(a);
     default: return ERR_MODEL;
   }
+#elif DDP_LOWERED_GROUP == 7 || DDP_LOWERED_GROUP == 8
+#if DDP_LOWERED_GROUP == 7
+  using Model = Autodiff<Lowered, true>;
 #else
-#error "DDP_LOWERED_GROUP is 0 to 6"
+  using Model = LoweredTiles;
+  static_assert(Model::SECOND_ORDER, "second-order tiles");
+#endif
+  if (!gps || !second_order) return ERR_MODEL;
+  switch (a.emit) {
+    case EMIT_FULL: return launch_one<Model, EMIT_FULL, true>(a);
+    case EMIT_POLICY: return launch_one<Model, EMIT_POLICY, true>(a);
+    default: return ERR_MODEL;
+  }
+#else
+#error "DDP_LOWERED_GROUP is 0 to 8"
 #endif
 }
 
@@ -183,8 +205,9 @@ extern "C" int ddp_backward_lanes(const float* traj, int s_in,
                           params, n_params, n, m, consts, qp_iters, blocks,
                           threads, tc, stages, smem, stream, a);
   if (rc != 0) return rc;
-  // groups 1-3 differentiate the struct, groups 4-6 read the tiles
-  if ((autodiff != 0) != (DDP_LOWERED_GROUP <= 3) ||
+  // groups 1-3 and 7 differentiate the struct, groups 4-6 and 8 read the
+  // tiles
+  if ((autodiff != 0) != DDP_LOWERED_AUTODIFF ||
       !is_lowered(model_id, n, m, n_consts, n_params))
     return ERR_MODEL;
   cudaSetDevice(device);

@@ -16,6 +16,13 @@
 // term, and ½·Q[i,j] is formed before it multiplies x[i]·x[j]. The test
 // on a constant is uniform across the warp. A dense sum would differ where
 // 0·Inf gives NaN and in the sign of a zero.
+//
+// Autodiff<LTI<N, M>> (autodiff.cuh; instances in backward_lti_ad*.cu) is
+// the kernel behind autodiff_derivs_tiles(lti_lanes(spec)): K1's expansion
+// by Dual and Jet passes over the same templated dynamics and cost, the
+// zero-skipping rule applied to the tangents as torch.func applies it to
+// the lane functions. Its passes run in a rolled loop (AD_ROLLED): at
+// ⟨10,2⟩ unrolled they would be 78 Jet passes of a 104-term cost.
 #pragma once
 
 #include "common.cuh"
@@ -33,6 +40,7 @@ struct LTI {
   static constexpr bool PACKED = false;
   static constexpr bool SECOND_ORDER = false;
   static constexpr bool HAS_DIFF = false;
+  static constexpr bool AD_ROLLED = true;   // Autodiff<LTI>: rolled passes
   struct Consts {
     float c[N_CONSTS];
   };
@@ -55,33 +63,39 @@ struct LTI {
   }
 
   // s = first term, then s + term, over the terms whose constant is not 0
-  __device__ __forceinline__ static void acc(float& s, bool& any, float c,
-                                             float v) {
+  template <class S>
+  __device__ __forceinline__ static void acc(S& s, bool& any, float c,
+                                             const S& v) {
     if (c != 0.0f) {
-      const float t = c * v;
+      const S t = c * v;
       s = any ? s + t : t;
       any = true;
     }
   }
 
-  __device__ __forceinline__ void dynamics(const float (&x)[N],
-                                           const float (&u)[M], int,
-                                           float (&xn)[N]) const {
+  // dynamics, cost and terminal are templates over the scalar type: float
+  // for K2, K3 and nothing else, Dual and Jet (autodiff.cuh) for
+  // Autodiff<LTI>, whose passes apply the same zero-skipping rule to the
+  // tangents (S{} is 0 with zero tangents)
+  template <class S>
+  __device__ __forceinline__ void dynamics(const S (&x)[N], const S (&u)[M],
+                                           int, S (&xn)[N]) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      float s = 0.0f;
+      S s{};
       bool any = false;
 #pragma unroll
       for (int j = 0; j < N; ++j) acc(s, any, A(i, j), x[j]);
 #pragma unroll
       for (int j = 0; j < M; ++j) acc(s, any, Bm(i, j), u[j]);
-      xn[i] = any ? s : 0.0f;
+      xn[i] = any ? s : S{};
     }
   }
 
-  __device__ __forceinline__ float cost(const float (&x)[N],
-                                        const float (&u)[M], int) const {
-    float c = 0.0f;
+  template <class S>
+  __device__ __forceinline__ S cost(const S (&x)[N], const S (&u)[M],
+                                    int) const {
+    S c{};
     bool any = false;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -89,7 +103,7 @@ struct LTI {
       for (int j = 0; j < N; ++j) {
         const float q = Q(i, j);
         if (q != 0.0f) {
-          const float t = 0.5f * q * x[i] * x[j];
+          const S t = 0.5f * q * x[i] * x[j];
           c = any ? c + t : t;
           any = true;
         }
@@ -101,7 +115,7 @@ struct LTI {
       for (int j = 0; j < M; ++j) {
         const float r = R(i, j);
         if (r != 0.0f) {
-          const float t = 0.5f * r * u[i] * u[j];
+          const S t = 0.5f * r * u[i] * u[j];
           c = any ? c + t : t;
           any = true;
         }
@@ -110,8 +124,9 @@ struct LTI {
     return c;
   }
 
-  __device__ __forceinline__ float terminal(const float (&)[N]) const {
-    return 0.0f;
+  template <class S>
+  __device__ __forceinline__ S terminal(const S (&)[N]) const {
+    return S{};
   }
 
   // what the expansion at (x, u) holds beyond constants: cx = Q·x, cu = R·u

@@ -141,28 +141,31 @@ def test_autodiff_out_of_slice_raises():
 def test_backward_lanes_without_instance_raises_off_cpu(emit, gps):
     """On tensors off the CPU (here the meta device, which needs no card)
     K1 runs a built instance or raises NotImplementedError naming what is
-    missing, before it touches the kernel library: LTI with its descriptor
-    has no autodiff instance, the autodiff instances have no policy
-    emission without GPS mode, the pendcart's no GPS mode and the
-    quadrotor's none for "gains" in it. Nothing falls back to the plain
-    version, to analytic derivatives or to a lowering."""
+    missing, before it touches the kernel library. The autodiff instances
+    of the LTI (with its descriptor), the quadrotor and the pendcart run
+    "gains" and "full" without GPS mode: those reach the launch, which
+    refuses meta tensors. None has "policy" emission without GPS mode, nor
+    "gains" in it: those raise. Nothing falls back to the plain version, to
+    analytic derivatives or to a lowering."""
     spec = tl.random_lti(0, n=10, m=2, T=8, device="cpu")
-    n, m, Tt, Bb = 10, 2, 8, 4
-    cases = [(autodiff_derivs_tiles(tl.lti_lanes(spec)), n, m)]
-    if emit == "policy" or gps:
-        cases += [(autodiff_derivs_tiles(tq.quadrotor_lanes()), 6, 2),
-                  (autodiff_derivs_tiles(tpc.pendcart_lanes()), 4, 1)]
+    Tt, Bb = 8, 4
+    cases = [(autodiff_derivs_tiles(tl.lti_lanes(spec)), 10, 2),
+             (autodiff_derivs_tiles(tq.quadrotor_lanes()), 6, 2),
+             (autodiff_derivs_tiles(tpc.pendcart_lanes()), 4, 1)]
+    built = emit in ("gains", "full") and not gps
     for tiles, n_, m_ in cases:
         traj = torch.zeros((Tt, n_ + m_ + 1, Bb), device="meta")
         kw = dict(prev=torch.zeros((Tt, m_ + m_ * n_ + m_ * m_, Bb),
                                    device="meta"),
                   eta=torch.ones((Tt, Bb), device="meta")) if gps else {}
-        with pytest.raises(NotImplementedError,
-                           match="no CUDA kernel.*autodiff"):
+        with pytest.raises(
+                ValueError if built else NotImplementedError,
+                match=("no kernel for tensors on meta" if built
+                       else "no CUDA kernel.*autodiff")):
             bk.backward_lanes(traj, torch.zeros(Bb, device="meta"), n=n_,
                               m=m_, reg_type=2, lims=None,
                               derivs_tiles=tiles, emit=emit, **kw)
-    assert (3, 6, 2, True, False) in bk.CUDA_BACKWARD
+    assert bk.CUDA_BACKWARD[2, 10, 2, True, False] == ("gains", "full")
     assert bk.CUDA_BACKWARD[3, 6, 2, True, True] == ("full", "policy")
     assert (3, 6, 2, False, False) not in bk.CUDA_BACKWARD
 

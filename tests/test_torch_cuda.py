@@ -750,25 +750,139 @@ def test_pendcart_autodiff_kernel_matches_analytic_and_plain(dev, emit):
 
 
 def test_autodiff_without_instance_raises_on_card(dev):
-    """LTI with its descriptor has no autodiff K1 instance, nor has the
-    quadrotor "policy" emission without GPS mode: each raises, and nothing
-    runs the plain version or an analytic instance in its place."""
+    """The LTI's autodiff tiles (with its descriptor) have no GPS "gains"
+    instance, nor has the quadrotor "policy" emission without GPS mode:
+    each raises, and nothing runs the plain version or an analytic
+    instance in its place. The LTI's "gains" without GPS mode runs its
+    Autodiff<LTI> instance."""
     from differentialdynamicprogramming_jl_tpu_torch.models import linear
     from differentialdynamicprogramming_jl_tpu_torch.ops.hopper import (
         autodiff_tiles)
     spec = linear.random_lti(0, n=10, m=2, T=T, device=dev)
     tiles = autodiff_tiles.autodiff_derivs_tiles(linear.lti_lanes(spec))
     traj = torch.zeros((T, 13, B), device=dev)
+    gps = dict(prev=torch.zeros((T, 2 + 20 + 4, B), device=dev),
+               eta=torch.ones((T, B), device=dev))
     n0 = bk.backward_lanes.launches
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+    with pytest.raises(NotImplementedError, match="emit='gains'"):
         bk.backward_lanes(traj, torch.ones(B, device=dev), n=10, m=2,
-                          reg_type=2, lims=LTI_LIMS, derivs_tiles=tiles)
+                          reg_type=2, lims=LTI_LIMS, derivs_tiles=tiles,
+                          emit="gains", **gps)
     qspec, _, qtiles, _, _, _, qtraj = _quad(dev)
     with pytest.raises(NotImplementedError, match="policy"):
         bk.backward_lanes(qtraj, torch.ones(B, device=dev), n=6, m=2,
                           reg_type=2, lims=qspec.lims, derivs_tiles=qtiles,
                           emit="policy")
     assert bk.backward_lanes.launches == n0
+    bk.backward_lanes(traj, torch.ones(B, device=dev), n=10, m=2,
+                      reg_type=2, lims=LTI_LIMS, derivs_tiles=tiles)
+    assert bk.backward_lanes.launches == n0 + 1
+
+
+def _same_bits(a, b):
+    """Equal bit for bit where finite, NaN where the other is NaN."""
+    nan = torch.isnan(b)
+    return (torch.equal(torch.isnan(a), nan)
+            and torch.equal(a[~nan].view(torch.int32),
+                            b[~nan].view(torch.int32)))
+
+
+def _every_source(name, dev):
+    """(tiles, n, m, limits, params rows or None, the modes) of one source
+    of the new K1 instances: the modes the fleet entries launch, (emission,
+    GPS mode)."""
+    from differentialdynamicprogramming_jl_tpu_torch.models import (
+        linear, quadrotor)
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.autodiff_tiles \
+        import autodiff_derivs_tiles
+    from differentialdynamicprogramming_jl_tpu_torch.ops.hopper.forward_kernel \
+        import LanesModel
+    entries = (("gains", False), ("full", False), ("policy", True))
+    so = name.endswith("_so")
+    if name.startswith("lti"):
+        m = int(name.split("_")[1])
+        spec = linear.random_lti(0, n=10, m=m, T=T, device=dev)
+        return (autodiff_derivs_tiles(linear.lti_lanes(spec),
+                                      second_order=so), 10, m,
+                ((-0.6, 0.6),) * m, None, entries)
+    if name.startswith("param"):
+        return (autodiff_derivs_tiles(tpc.pendcart_lanes_param(SPEC),
+                                      second_order=so), 4, 1, LIMS,
+                np.stack([np.linspace(0.3, 0.5, B),
+                          np.linspace(0.5, 1.5, B)]), entries[:2])
+    gps = (("policy", True),)
+    if name == "quad_ad_so":
+        qspec = quadrotor.QuadrotorSpec()
+        return (autodiff_derivs_tiles(quadrotor.quadrotor_lanes(qspec),
+                                      second_order=True), 6, 2, qspec.lims,
+                None, gps)
+    lanes = tpc.pendcart_lanes(SPEC)
+    if name == "pendcart_so":
+        tiles = tpc.pendcart_derivs_tiles_so(SPEC)
+    elif name == "user_so":
+        tiles = bk.DerivsTiles(fn=tpc.pendcart_derivs_tiles_so(SPEC).fn)
+        gps = (("full", True), ("policy", True))
+    elif name == "lowered_so":
+        tiles = autodiff_derivs_tiles(LanesModel(
+            n=4, m=1, dynamics=lanes.dynamics, cost=lanes.cost,
+            terminal=lanes.terminal), second_order=True)
+        gps = (("full", True), ("policy", True))
+    else:
+        tiles = autodiff_derivs_tiles(lanes, second_order=so)
+    return tiles, 4, 1, LIMS, None, gps
+
+
+EVERY_SOURCE = ("lti_2", "lti_3", "lti_2_so", "lti_3_so", "param",
+                "param_so", "pendcart_ad", "pendcart_ad_so", "pendcart_so",
+                "quad_ad_so", "lowered_so", "user_so")
+
+
+@pytest.mark.parametrize("name", EVERY_SOURCE)
+def test_every_source_instance_matches_plain(dev, name):
+    """Each K1 instance of a public derivative source that the fleet
+    entries reach (Autodiff<LTI> ⟨10,2⟩/⟨10,3⟩ first and second order,
+    Autodiff<PendCartParam>, the GPS "policy" of the pendcart's autodiff
+    and full-DDP sources and of Autodiff<Quadrotor, true>, and the lowered
+    models' and a user's second-order tiles in GPS mode) equals the plain
+    version on the same CUDA tensors bit for bit, out and stats, at T=9
+    with a ragged B, limits that bind and η with zeros; one launch each."""
+    tiles, n, m, lims, par, modes = _every_source(name, dev)
+    Tn = 9
+    rng = np.random.default_rng(len(name))
+    x = rng.standard_normal((Tn, n, B))
+    if n == 4:
+        x[:, 0] += np.pi - 0.6
+    if n == 6:
+        x[:, 0] += 1.0
+    u = (2.0 * rng.standard_normal((Tn, m, B))
+         + (2.4525 if n == 6 else 0.0))
+    traj = torch.tensor(np.concatenate([x, u, np.zeros((Tn, 1, B))], 1),
+                        dtype=torch.float32, device=dev)
+    lam = torch.tensor(10.0 ** rng.uniform(-4, 1, B), dtype=torch.float32,
+                       device=dev)
+    S = m + m * n + m * m
+    prev = np.concatenate([rng.standard_normal((Tn, m, B)),
+                           0.1 * rng.standard_normal((Tn, m * n, B)),
+                           (2.0 * np.eye(m)).reshape(1, m * m, 1)
+                           * np.ones((Tn, 1, B))], 1)
+    eta = rng.uniform(0.5, 2.0, (Tn, B))
+    eta[:, ::7] = 0.0
+    gps_kw = dict(prev=torch.tensor(prev, dtype=torch.float32, device=dev),
+                  eta=torch.tensor(eta, dtype=torch.float32, device=dev))
+    assert gps_kw["prev"].shape[1] == S
+    kw = {}
+    if par is not None:
+        kw["params"] = torch.tensor(par, dtype=torch.float32, device=dev)
+    for emit, gps in modes:
+        args = dict(n=n, m=m, reg_type=2, lims=lims, derivs_tiles=tiles,
+                    emit=emit, **kw, **(gps_kw if gps else {}))
+        n0 = bk.backward_lanes.launches
+        k = bk.backward_lanes(traj, lam, **args)
+        assert bk.backward_lanes.launches == n0 + 1
+        p = bk.backward_lanes_ref(traj, lam, **args)
+        assert _same_bits(k.out, p.out), (name, emit, gps)
+        assert _same_bits(k.stats, p.stats), (name, emit, gps)
+        assert torch.isfinite(k.out[:, :m]).all()
 
 
 def test_quad_solver_on_card_matches_cpu(dev):

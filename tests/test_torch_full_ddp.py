@@ -222,9 +222,12 @@ def test_fleet_second_order_matches_jax():
 
 def test_second_order_without_instance_raises_off_cpu():
     """On tensors off the CPU (the meta device, which needs no card)
-    second-order tiles run a second-order instance or raise: none in GPS
-    mode or "policy" emission, none for LTI through autodiff. Nothing falls
-    back to a first-order instance."""
+    second-order tiles run a second-order instance or raise. PendCartSO
+    runs "gains" and "full" without GPS mode and "policy" in it, the LTI's
+    autodiff tiles (Autodiff<LTI, true>) the same: those reach the launch,
+    which refuses meta tensors. GPS "full" and "policy" without GPS mode
+    have no second-order instance and raise. Nothing falls back to a
+    first-order instance."""
     from differentialdynamicprogramming_jl_tpu_torch.models import linear
     meta = dict(device="meta")
     pso = tpc.pendcart_derivs_tiles_so(TSPEC)
@@ -233,10 +236,18 @@ def test_second_order_without_instance_raises_off_cpu():
                eta=torch.ones((T, B), **meta))
     spec = linear.random_lti(0, n=10, m=2, T=T, device="cpu")
     lso = autodiff_derivs_tiles(linear.lti_lanes(spec), second_order=True)
-    cases = [(pso, traj, 4, 1, "full", gps), (pso, traj, 4, 1, "policy", {}),
-             (lso, torch.zeros((T, 13, B), **meta), 10, 2, "gains", {})]
-    for tiles, tr, n, m, emit, kw in cases:
-        with pytest.raises(NotImplementedError, match="second-order"):
+    ltraj = torch.zeros((T, 13, B), **meta)
+    lgps = dict(prev=torch.zeros((T, 2 + 20 + 4, B), **meta),
+                eta=torch.ones((T, B), **meta))
+    cases = [(pso, traj, 4, 1, "full", gps, False),
+             (pso, traj, 4, 1, "policy", {}, False),
+             (pso, traj, 4, 1, "policy", gps, True),
+             (lso, ltraj, 10, 2, "gains", {}, True),
+             (lso, ltraj, 10, 2, "policy", lgps, True)]
+    for tiles, tr, n, m, emit, kw, built in cases:
+        with pytest.raises(ValueError if built else NotImplementedError,
+                           match=("no kernel for tensors on meta" if built
+                                  else "second-order")):
             bk.backward_lanes(tr, torch.zeros(B, **meta), n=n, m=m,
                               reg_type=1, lims=None, derivs_tiles=tiles,
                               emit=emit, **kw)

@@ -404,14 +404,21 @@ def test_params_need_a_parametrised_model_and_stay_off_autodiff():
         bk.backward_lanes(torch.zeros((T, 6, B)), torch.ones(B), n=4, m=1,
                           derivs_tiles=tpc.pendcart_derivs_tiles(SPEC),
                           params=torch.ones((2, B)))
-    # autodiff tiles take the params, but with the hand-written descriptor
-    # K1 has no Autodiff<PendCartParam> instance: off the CPU they raise,
-    # never the analytic instance in their place (the descriptor-less
-    # model lowers instead, test_torch_lowered_models.py)
+    # autodiff tiles take the params and keep the hand-written descriptor,
+    # marked autodiff: off the CPU K1 runs their Autodiff<PendCartParam>
+    # instance (the launch refuses meta tensors), never the analytic
+    # instance in its place; in GPS mode, which the KL entries reach
+    # without params, it has none and raises
     ad = autodiff_derivs_tiles(tpc.pendcart_lanes_param(SPEC))
     assert ad.n_params == 2 and ad.device.model_id == 4
+    assert ad.device.autodiff
+    meta = dict(device="meta")
+    args = (torch.zeros((T, 6, B), **meta), torch.ones(B, **meta))
+    with pytest.raises(ValueError, match="no kernel for tensors on meta"):
+        bk.backward_lanes(*args, n=4, m=1, derivs_tiles=ad,
+                          params=torch.ones((2, B), **meta))
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        bk.backward_lanes(torch.zeros((T, 6, B), device="meta"),
-                          torch.ones(B, device="meta"), n=4, m=1,
-                          derivs_tiles=ad,
-                          params=torch.ones((2, B), device="meta"))
+        bk.backward_lanes(*args, n=4, m=1, derivs_tiles=ad,
+                          params=torch.ones((2, B), **meta),
+                          prev=torch.zeros((T, 6, B), **meta),
+                          eta=torch.ones((T, B), **meta), emit="policy")

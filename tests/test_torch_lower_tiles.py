@@ -303,9 +303,10 @@ def test_tiles_that_cannot_lower_raise():
 def test_tiles_dispatch_raises_what_has_no_instance():
     """On a device that is not the CPU (here the meta device, which needs
     no card), a user's tiles lower before any library is touched: GPS
-    "gains" and second order in GPS mode have no LoweredTiles instance and
-    raise naming the table; a built instance reaches the launch (which
-    refuses meta tensors)."""
+    "gains", first or second order, has no LoweredTiles instance and raises
+    naming the table; a built instance, second order in GPS mode ("full",
+    "policy") among them, reaches the launch (which refuses meta
+    tensors)."""
     T, Bm = 4, 8
     meta = dict(device="meta")
     traj = torch.zeros((T, 5, Bm), **meta)
@@ -321,10 +322,15 @@ def test_tiles_dispatch_raises_what_has_no_instance():
                           prev=prev, eta=eta, emit="gains")
     with pytest.raises(NotImplementedError, match=r"second-order.*in GPS"):
         bk.backward_lanes(traj, lam, n=4, m=1, derivs_tiles=second,
-                          prev=prev, eta=eta, emit="full")
+                          prev=prev, eta=eta, emit="gains")
     with pytest.raises(ValueError, match="no kernel for tensors on meta"):
         bk.backward_lanes(traj, lam, n=4, m=1, derivs_tiles=first,
                           emit="gains")
+    # second order in GPS mode ("full", "policy") has its group, t1_so_gps
+    for emit in ("full", "policy"):
+        with pytest.raises(ValueError, match="no kernel for tensors on meta"):
+            bk.backward_lanes(traj, lam, n=4, m=1, derivs_tiles=second,
+                              prev=prev, eta=eta, emit=emit)
 
 
 # ---------------------------------------------------------------------------

@@ -85,7 +85,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_kernel_sources_and_signatures():
-    for name in _build.SOURCES:
+    for name in _build.SOURCES + _build.SOURCE_LIBRARY:
         text = (_build.CSRC / name).read_text()
         assert "use_fast_math" not in text
     # K1's wide design is a library of its own, its entry point in the
@@ -94,6 +94,17 @@ def test_kernel_sources_and_signatures():
     texts.append(_build.wide_source())
     for name in _build.SIGNATURES:
         assert any(f'extern "C" int {name}(' in text for text in texts), name
+    # the sources library (K1's heaviest autodiff instances, built at
+    # their first launch) has K1's entry point, with the kernel library's
+    # arguments
+    entry = (_build.CSRC / "backward_sources.cu").read_text()
+    assert 'extern "C" int ddp_backward_lanes(' in entry
+    assert all(name in _build.SOURCE_LIBRARY for name in (
+        "backward_lti_ad.cu", "backward_lti_ad_10_3.cu",
+        "backward_lti_ad_so.cu", "backward_lti_ad_so_10_3.cu",
+        "backward_quad_so_gps.cu"))
+    assert not {n for n in _build.SOURCE_LIBRARY
+                if n.endswith(".cu")} & set(_build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
     assert "--use_fast_math" not in _build.FLAGS
     # the build directory is one .gitignore lists
